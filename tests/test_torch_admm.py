@@ -1,0 +1,110 @@
+"""Port parity: qp/admm.py (batched PyTorch) vs the JAX package.
+
+`ruiz_equilibrate` and `admm_solve(backend="torch")` against the JAX
+functions under `jax.vmap` (`backend="xla"`), on the random QPs of
+tests/test_pallas_admm.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from mpctsid_tpu.qp import admm as jadmm
+from mpctsid_tpu_torch.qp import admm as tadmm
+
+from _torch_port_util import jj, npy, random_qp, stacked, tt
+
+
+@pytest.mark.parametrize("eq", [True, False])
+def test_ruiz_scales_match_jax(eq):
+    """The scale vectors are products of rsqrt's of abs-max reductions: no
+    summation order is involved except one mean, so they agree to 1e-5
+    relative."""
+    qp = stacked(range(4), eq=eq)
+    # an all-zero constraint row keeps scale 1 (the guard the cascade needs)
+    qp[2][1, 7, :] = 0.0
+    want = jax.vmap(jadmm.ruiz_equilibrate)(*[jj(a) for a in qp])
+    got = tadmm.ruiz_equilibrate(*[tt(a) for a in qp])
+    names = ["Pb", "qb", "Ab", "lb", "ub", "D", "E", "c"]
+    for name, g, w in zip(names, got, want):
+        np.testing.assert_allclose(npy(g), npy(w), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    assert npy(got[6])[1, 7] == 1.0
+
+
+@pytest.mark.parametrize("eq", [True, False])
+@pytest.mark.parametrize("seed", range(3))
+def test_admm_solve_torch_matches_jax_xla(seed, eq):
+    """Same update, different matmul reduction orders: 60 f32 iterations of a
+    fixed-point method drift ~1e-4 (the budget tests/test_pallas_admm.py
+    gives two backends of one package)."""
+    qp = random_qp(seed, eq=eq)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1)
+    s_j = jadmm.admm_solve(*[jj(a) for a in qp], backend="xla", **kw)
+    s_t = tadmm.admm_solve(*[tt(a)[None] for a in qp], backend="torch", **kw)
+    np.testing.assert_allclose(npy(s_t.x)[0], npy(s_j.x), atol=1e-3)
+    np.testing.assert_allclose(npy(s_t.y)[0], npy(s_j.y), atol=1e-2)
+    # z = clip(A x): rows of A (|row|_1 ~ 20) amplify the x budget
+    np.testing.assert_allclose(npy(s_t.z)[0], npy(s_j.z), atol=5e-3)
+    assert bool(s_t.ok[0]) == bool(s_j.ok)
+    np.testing.assert_allclose(npy(s_t.prim_res)[0], npy(s_j.prim_res),
+                               atol=1e-3)
+
+
+def test_admm_solve_batched_with_warm_start_matches_jax():
+    qp = stacked(range(4), eq=True)
+    r = np.random.default_rng(7)
+    x0 = (r.normal(size=(4, 24)) * 0.1).astype(np.float32)
+    y0 = (r.normal(size=(4, 40)) * 0.1).astype(np.float32)
+    kw = dict(iters=40, adapt_rounds=3, rho=0.1, status_tol=0.5)
+    s_j = jax.vmap(lambda *a: jadmm.admm_solve(
+        *a[:5], x0=a[5], y0=a[6], backend="xla", **kw))(
+            *[jj(a) for a in qp], jj(x0), jj(y0))
+    s_t = tadmm.admm_solve(*[tt(a) for a in qp], x0=tt(x0), y0=tt(y0),
+                           backend="xla", **kw)   # config-tree alias
+    np.testing.assert_allclose(npy(s_t.x), npy(s_j.x), atol=1e-3)
+    np.testing.assert_allclose(npy(s_t.y), npy(s_j.y), atol=1e-2)
+    assert s_t.ok.shape == (4,) and s_t.prim_res.shape == (4,)
+
+
+def test_ok_is_per_scenario_with_one_poisoned_scenario():
+    """A NaN problem in the batch flags ITS `ok` false and changes nothing in
+    the other scenarios' solutions."""
+    qp = stacked(range(4), eq=False)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1)
+    clean = tadmm.admm_solve(*[tt(a) for a in qp], **kw)
+    assert clean.ok.all()
+    poisoned = [a.copy() for a in qp]
+    poisoned[1][2, 5] = np.nan            # q of scenario 2
+    sol = tadmm.admm_solve(*[tt(a) for a in poisoned], **kw)
+    assert sol.ok.tolist() == [True, True, False, True]
+    keep = [0, 1, 3]
+    assert torch.equal(sol.x[keep], clean.x[keep])
+    assert torch.equal(sol.y[keep], clean.y[keep])
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(mode="inv"), "mode 'inv'"),
+    (dict(mode="exact_inv"), "mode 'exact_inv'"),
+    (dict(mode="cholesky"), "mode 'cholesky'"),
+    (dict(polish_kkt=True), "polish"),
+    (dict(backend="auto"), "admm_iterate_vpu"),
+    (dict(backend="pallas_vpu"), "admm_iterate_vpu"),
+    (dict(backend="pallas_packed"), "admm_iterate_vpu_packed"),
+    (dict(backend="fused"), "admm_solve_fused_batch"),
+    (dict(backend="pallas"), "admm_iterate"),
+])
+def test_unported_options_raise_by_name(kw, match):
+    qp = [tt(a)[None] for a in random_qp(0)]
+    with pytest.raises(NotImplementedError, match=match):
+        tadmm.admm_solve(*qp, **kw)
+
+
+def test_unknown_backend_and_unbatched_input_raise():
+    qp = [tt(a) for a in random_qp(0)]
+    with pytest.raises(ValueError, match="scenario axis"):
+        tadmm.admm_solve(*qp)
+    with pytest.raises(ValueError, match="unknown backend"):
+        tadmm.admm_solve(*[a[None] for a in qp], backend="cublas")
