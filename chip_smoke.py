@@ -9,21 +9,33 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the M2 iteration kernel from mpctsid_tpu_torch/qp/csrc
-  3. kernel   the kernel against its plain PyTorch version on the card, same
-              inputs (numpy seed): MPC shape (B=64, n=192, m=320), the test
-              shape (B=3, n=24, m=40), B=1 and a WBC-sized odd shape (B=5,
-              n=30, m=50) and the main path's shape (B=4096, 192, 320), 30
-              iterations, max-abs error of x, z, y under 1e-4; then kernel
-              time, plain time and the card's bound at the main path's shape
+  2. build    builds the four kernel libraries from
+              mpctsid_tpu_torch/qp/csrc, one nvcc each, all started together
+  3. kernels  each kernel against its plain PyTorch version on the card, same
+              inputs (numpy seed), then its time, the plain version's time
+              and the card's bound at the main path's shape:
+              3a the M2 iteration: MPC shape (B=64, n=192, m=320), the test
+                 shape (B=3, n=24, m=40), B=1, a WBC-sized odd shape and the
+                 main path's shape (B=4096, 192, 320), 30 iterations;
+              3b the generic and the packed refined iteration, inputs WITH
+                 equality rows and infinite bounds: WBC shape (B=64, n=30,
+                 m=50), test shape, B=1, B=37 (a partial last block), the MPC
+                 shape (B=8, generic kernel only; the packed kernel must
+                 refuse it) and the main path's shape (B=4096, 30, 50), 13
+                 iterations; also against EACH OTHER;
+              3c the whole-solve kernel on the same QPs, 40 iterations in 3
+                 rounds, warm-started: unscaled x, y and the scales
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
-              the kernel; checks finiteness, mpc_ok, wbc_ok_frac, base
-              height, and that the kernel was launched periods x 2 times
-  5. backends the kernel on the path against the plain path: B=256, two
-              periods from the same state with mpc_backend "m2" and "torch"
-  6. single   B=1, one period (the single-robot shape)
+              the M2 kernel; once with the plain WBC and once with each
+              kernel WBC backend ("fused", "packed", "vpu"); checks
+              finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
+              counts of every kernel (set to 0 before each rollout)
+  5. backends kernel on the path against plain on the path, B=256: the MPC
+              backends "m2" and "torch" over two periods; each WBC backend
+              against the plain WBC on one mid-gait WBC tick and one period
+  6. single   B=1, one period per WBC backend (the single-robot shape)
 
 The line before the last is one JSON object describing every kernel of the
 path; the last line is {"ok": true, "device": {...}}.
@@ -40,22 +52,44 @@ import numpy as np
 import torch
 
 from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
-                                       init_controller)
+                                       engine, init_controller)
 from mpctsid_tpu_torch.config import PRESETS
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.qp import _build, kernels
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
+from mpctsid_tpu_torch.wbc.tsid import solve_wbc
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of the
 # bound, whatever the power limit of the card at hand (printed beside it).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
-KERNEL_TOL = 1e-4      # abs, x/z/y on unit-scaled random QPs after 30
-                       # iterations: same arithmetic, other summation order
-ROLLOUT_PERIODS = 5    # 100 WBC ticks per scenario
+KERNEL_TOL = 1e-4      # abs, x/z/y on unit-scaled inequality-only QPs: same
+                       # arithmetic, other summation order
+# The refined iteration on QPs WITH equality rows.  On such a row rho is
+# ~200, so y += rho (z_r - z) turns one f32 rounding of z (|z| ~ 3: 2e-7)
+# into 4e-5 of y per iteration, and A' (rho z - y) feeds it back into x: two
+# summation orders of the same arithmetic sit up to 4e-4 apart after 13
+# iterations (measured on the CPU between the plain version and the TPU
+# kernel in interpret mode: x 1.4e-4, z 3.7e-4, y 1.6e-4).  Without equality
+# rows the same kernels are held to KERNEL_TOL.
+REFINED_EQ_TOL = 1e-3
+# The whole solve (two or three factorizations of cond ~1e4 matrices, 39-60
+# iterations): the JAX package's own budget between two of its backends, on
+# the UNSCALED solution.
+FUSED_X_TOL = 1e-3
+FUSED_Y_TOL = 1e-2
+FUSED_SCALE_RTOL = 1e-4    # D, E, c: products of eight rsqrt's
+# Downstream of a whole WBC solve the f32 noise of the 40-iteration solver
+# decides (tests/test_torch_wbc.py: the JAX package differs from itself by
+# 5.9e-2 Nm between lowerings; two backends of one package by up to 1.2e-1).
+WBC_TAU_TOL = 0.2          # Nm, max over scenarios, one tick
+WBC_TAU_MEDIAN_TOL = 5e-2  # Nm, median over scenarios
+WBC_PERIOD_Q_TOL = 2e-3    # plant q after one period (20 ticks)
+ROLLOUT_PERIODS = 3        # 60 WBC ticks per scenario
+REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
 FAILURES: list[str] = []
 
 
@@ -76,9 +110,10 @@ def nvidia_smi_line() -> str:
 
 # ------------------------------------------------------------ kernel inputs
 
-def m2_inputs(seed: int, B: int, n: int, m: int, device):
-    """Unit-scaled inequality-only random QPs (numpy, seeded) and the M2 /
-    rho / warm iterates the solver would hand the kernel."""
+def random_qps(seed: int, B: int, n: int, m: int, eq: bool):
+    """Unit-scaled random QPs (numpy, seeded): P, q, A, l, u.  With `eq`,
+    four equality rows and a few infinite bounds (+-1e20, the convention of
+    the WBC's swing rows)."""
     r = np.random.default_rng(seed)
     Q = r.normal(size=(B, n, n))
     P = Q @ Q.transpose(0, 2, 1) / n + 0.1 * np.eye(n)
@@ -88,37 +123,150 @@ def m2_inputs(seed: int, B: int, n: int, m: int, device):
     margin = np.abs(r.normal(size=(B, m))) + 0.1
     Ax = np.einsum("bmn,bn->bm", A, x_feas)
     l, u = Ax - margin, Ax + margin
-    rho = 0.1 * (1.0 + r.uniform(size=(B, m)))
+    if eq:
+        l[:, :4] = u[:, :4] = Ax[:, :4]
+        l[:, 10:13] = -1e20
+        u[:, 12:15] = 1e20
+    return r, P, q, A, l, u
+
+
+def _dev(device):
+    return lambda a, dt=torch.float32: torch.as_tensor(a).to(  # noqa: E731
+        device, dt).contiguous()
+
+
+def iteration_inputs(seed: int, B: int, n: int, m: int, device, eq: bool):
+    """What the solver hands an iteration kernel: K = P + sigma I + A' rho A
+    and its inverse (float64 on the card, rounded to float32 and left as
+    unsymmetric as rounding makes them), rho with the 1e3 boost on equality
+    rows, warm iterates.  Returns (m2_args, refined_args)."""
+    r, P, q, A, l, u = random_qps(seed, B, n, m, eq)
+    rho = 0.1 * (1.0 + r.uniform(size=(B, m))) * np.where(
+        (u - l) < 1e-9, 1e3, 1.0)
     x = r.normal(size=(B, n)) * 0.1
     y = r.normal(size=(B, m)) * 0.1
     z = np.clip(np.einsum("bmn,bn->bm", A, x), l, u)
-    dev = lambda a, dt=torch.float32: torch.as_tensor(a).to(device, dt)  # noqa: E731
-    # M2 = 2 K^-1 - K^-1 K K^-1 of K = P + sigma I + A' rho A, in float64 on
-    # the card, rounded to float32 (left as unsymmetric as rounding makes it)
-    A64, P64, rho64 = dev(A, torch.float64), dev(P, torch.float64), dev(
-        rho, torch.float64)
+    dev = _dev(device)
+    A64, P64, rho64 = (dev(a, torch.float64) for a in (A, P, rho))
     K = P64 + 1e-6 * torch.eye(n, dtype=torch.float64, device=device) \
         + torch.bmm((A64 * rho64[:, :, None]).transpose(1, 2), A64)
     Ki = torch.linalg.inv(K)
     M2 = (2.0 * Ki - Ki @ K @ Ki).float().contiguous()
-    return [M2] + [dev(a).contiguous() for a in (A, q, l, u, rho, x, z, y)]
+    vecs = [dev(a) for a in (A, q, l, u, rho, x, z, y)]
+    return [M2] + vecs, [Ki.float().contiguous(), K.float().contiguous()] + vecs
 
 
-def compare_kernel(name: str, args, iters: int = 30) -> float:
+def fused_inputs(seed: int, B: int, n: int, m: int, device):
+    r, P, q, A, l, u = random_qps(seed, B, n, m, eq=True)
+    eqf = ((u - l) < 1e-9).astype(np.float32)
+    x0 = r.normal(size=(B, n)) * 0.1
+    y0 = r.normal(size=(B, m)) * 0.1
+    dev = _dev(device)
+    return [dev(a) for a in (P, q, A, l, u, eqf, x0, y0)]
+
+
+def shape_of(args, a_index: int):
+    B, n = args[0].shape[:2]
+    return B, n, args[a_index].shape[1]
+
+
+def max_err(got, want) -> float:
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def all_finite(tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def compare_m2(name: str, args, iters: int = 30) -> float:
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
     got = kernels.admm_iterate_m2(*args, **kw)
     torch.cuda.synchronize()
     want = kernels.admm_iterate_m2_reference(*args, **kw)
-    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    finite = all(bool(torch.isfinite(g).all()) for g in got)
-    B, n = args[0].shape[:2]
-    m = args[1].shape[1]
-    print(f"  {name}: B={B} n={n} m={m} iters={iters} max|dx|={errs[0]:.3e} "
-          f"max|dz|={errs[1]:.3e} max|dy|={errs[2]:.3e}", flush=True)
-    check(finite and max(errs) < KERNEL_TOL,
-          f"kernel vs plain, {name}: max abs err {max(errs):.3e} < "
+    err = max_err(got, want)
+    B, n, m = shape_of(args, 1)
+    print(f"  m2 {name}: B={B} n={n} m={m} iters={iters} "
+          f"max|d(x,z,y)|={err:.3e}", flush=True)
+    check(all_finite(got) and err < KERNEL_TOL,
+          f"m2 kernel vs plain, {name}: max abs err {err:.3e} < "
           f"{KERNEL_TOL:g}")
-    return max(errs)
+    return err
+
+
+def compare_refined(name: str, args, tol: float, packed: bool = True):
+    """Kernels 2 and 3 against the one plain version and against each other;
+    returns (err of the generic kernel, err of the packed kernel)."""
+    kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
+    B, n, m = shape_of(args, 2)
+    want = kernels.admm_iterate_refined_reference(*args, **kw)
+    got_v = kernels.admm_iterate_vpu(*args, **kw)
+    torch.cuda.synchronize()
+    err_v = max_err(got_v, want)
+    line = (f"  refined {name}: B={B} n={n} m={m} iters={REFINED_ITERS} "
+            f"vpu vs plain {err_v:.3e}")
+    ok = all_finite(got_v) and err_v < tol
+    err_p = 0.0
+    if packed:
+        got_p = kernels.admm_iterate_vpu_packed(*args, **kw)
+        torch.cuda.synchronize()
+        err_p = max_err(got_p, want)
+        err_vp = max_err(got_p, got_v)
+        line += f", packed vs plain {err_p:.3e}, packed vs vpu {err_vp:.3e}"
+        ok = ok and all_finite(got_p) and err_p < tol and err_vp < tol
+    print(line, flush=True)
+    check(ok, f"refined kernels vs plain and each other, {name}: < {tol:g}")
+    return err_v, err_p
+
+
+FUSED_KW = dict(iters=40, adapt_rounds=3, equilibrate_iters=8, rho0=0.1,
+                sigma=1e-6, alpha=1.6, rho_eq_scale=1e3, inf=1e20)
+
+
+def compare_fused(name: str, args) -> float:
+    """Kernel 4 against its plain version: the unscaled solution and the
+    scales; returns the max abs error of the unscaled x.
+
+    Two float32 runs of this solver differ by chaotic rounding noise whose
+    largest value grows with the number of QPs looked at (measured: max |dx|
+    5e-4 over 64 random QPs, 1.5e-3 over 4096).  So the kernel is held to
+    the tolerance on all but 1 in 200 scenarios (on every one when B < 200),
+    and, against a float64 run of the plain version, to being as accurate
+    as the float32 plain version is (within a factor 2)."""
+    B, n, m = shape_of(args, 2)
+    xs, ys, D, E, c = kernels.admm_solve_fused(*args, **FUSED_KW)
+    torch.cuda.synchronize()
+
+    def unscaled(xs_, ys_, D_, E_, c_):
+        return D_ * xs_, E_ * ys_ / c_[:, None]
+
+    x_k, y_k = unscaled(xs, ys, D, E, c)
+    ref = kernels.admm_solve_fused_reference(*args, **FUSED_KW)
+    x_p, y_p = unscaled(*ref)
+    x_64, y_64 = (t.float() for t in unscaled(
+        *kernels.admm_solve_fused_reference(*[a.double() for a in args],
+                                            **FUSED_KW)))
+    ex = (x_k - x_p).abs().amax(dim=1)
+    ey = (y_k - y_p).abs().amax(dim=1)
+    err_x, err_y = float(ex.max()), float(ey.max())
+    over = int(((ex >= FUSED_X_TOL) | (ey >= FUSED_Y_TOL)).sum())
+    k64 = (float((x_k - x_64).abs().max()), float((y_k - y_64).abs().max()))
+    p64 = (float((x_p - x_64).abs().max()), float((y_p - y_64).abs().max()))
+    err_s = max(float(((a - b).abs() / b.abs()).max())
+                for a, b in ((D, ref[2]), (E, ref[3]), (c, ref[4])))
+    print(f"  fused {name}: B={B} n={n} m={m} iters=40/3 unscaled "
+          f"max|dx|={err_x:.3e} max|dy|={err_y:.3e} ({over} of {B} scenarios "
+          f"over tolerance), scales rel {err_s:.3e}; distance to a float64 "
+          f"run (x, y): kernel {k64[0]:.3e}, {k64[1]:.3e}; plain "
+          f"{p64[0]:.3e}, {p64[1]:.3e}", flush=True)
+    check(all_finite((xs, ys, D, E, c)) and over <= B // 200
+          and err_s < FUSED_SCALE_RTOL,
+          f"fused kernel vs plain, {name}: x < {FUSED_X_TOL:g}, y < "
+          f"{FUSED_Y_TOL:g} on all but {B // 200} scenarios, scales < "
+          f"{FUSED_SCALE_RTOL:g} rel")
+    check(k64[0] <= 2.0 * p64[0] + 1e-4 and k64[1] <= 2.0 * p64[1] + 1e-4,
+          f"fused kernel, {name}: as close to the float64 run as the plain "
+          "float32 version (factor 2)")
+    return err_x
 
 
 def time_ms(fn, warmup: int, reps: int) -> float:
@@ -135,19 +283,98 @@ def time_ms(fn, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def m2_bound_ms(B: int, n: int, m: int, iters: int):
-    """Least time the card could take: every input read once and every output
-    written once against the memory rate, iters * (4 m n + 2 n^2) flops per
-    scenario against the f32 FMA peak; the larger of the two."""
-    floats = B * (n * n + m * n + 2 * n + 5 * m      # M2, A, q, x, l u rho z y
-                  + n + 2 * m)                       # x, z, y written
+def bound_ms(floats: float, flops: float):
+    """Least time the card could take: the bytes moved (every input read
+    once, every output written once, 4 B each) against the memory rate, the
+    operations against the f32 FMA peak; the larger of the two.  Returns
+    (bound_ms, "bytes" | "operations", bytes_ms, flops_ms)."""
     bytes_ms = 4.0 * floats / HBM_BYTES_PER_S * 1e3
-    flops_ms = B * iters * (4.0 * m * n + 2.0 * n * n) / F32_FLOP_PER_S * 1e3
-    return ((bytes_ms, "bytes") if bytes_ms >= flops_ms
-            else (flops_ms, "operations")), bytes_ms, flops_ms
+    flops_ms = flops / F32_FLOP_PER_S * 1e3
+    return (max(bytes_ms, flops_ms),
+            "bytes" if bytes_ms >= flops_ms else "operations",
+            bytes_ms, flops_ms)
+
+
+def m2_bound_ms(B: int, n: int, m: int, iters: int):
+    """M2, A, q, x, l, u, rho, z, y in, x, z, y out; iters * (4 m n + 2 n^2)
+    flops per scenario."""
+    floats = B * (n * n + m * n + 2 * n + 5 * m + n + 2 * m)
+    return bound_ms(floats, B * iters * (4.0 * m * n + 2.0 * n * n))
+
+
+def refined_bound_ms(B: int, n: int, m: int, iters: int):
+    """K^-1, K, A, q, x, l, u, rho, z, y in, x, z, y out; iters *
+    (4 m n + 6 n^2) flops per scenario (two products with A, three n x n)."""
+    floats = B * (2 * n * n + m * n + 2 * n + 5 * m + n + 2 * m)
+    return bound_ms(floats, B * iters * (4.0 * m * n + 6.0 * n * n))
+
+
+def fused_bound_ms(B: int, n: int, m: int, iters: int, adapt_rounds: int,
+                   equilibrate_iters: int):
+    """P, A, q, x0, l, u, eqf, y0 in, x, D, y, E, c out.  Operations per
+    scenario: each Ruiz round two abs-max passes and one rescale of P and A
+    and the cost scale (6 n^2 + 4 m n); each adapt round K (2 m n^2 + m n),
+    the Cholesky and the triangular inverse (n^3 / 3 each), X0 (2 n^3 / 3),
+    the Newton-Schulz step and its two residual products (3 x 2 n^3); the
+    iterations ((4 m n + 6 n^2) each); between rounds the residual ratios
+    (4 m n + 2 n^2)."""
+    rounds = max(1, adapt_rounds)
+    iters_per = max(1, iters // rounds)
+    floats = B * (n * n + m * n + 2 * n + 4 * m + 2 * n + 2 * m + 1)
+    n3 = float(n) ** 3
+    flops = B * (
+        equilibrate_iters * (6.0 * n * n + 4.0 * m * n)
+        + rounds * (2.0 * m * n * n + m * n + 2.0 * n3 / 3.0
+                    + 2.0 * n3 / 3.0 + 6.0 * n3)
+        + rounds * iters_per * (4.0 * m * n + 6.0 * n * n)
+        + (rounds - 1) * (4.0 * m * n + 2.0 * n * n))
+    return bound_ms(floats, flops)
+
+
+def report_times(label, shape, kernel_ms, plain_ms, bound, smi) -> None:
+    b_ms, by, bytes_ms, flops_ms = bound
+    print(f"  {label} {shape}: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by} (bytes "
+          f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, flops "
+          f"{flops_ms:.4f} ms at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32)  "
+          f"[{smi}]", flush=True)
 
 
 # ---------------------------------------------------------------- main path
+
+COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
+           "admm_iterate_vpu": kernels.admm_iterate_vpu,
+           "admm_iterate_vpu_packed": kernels.admm_iterate_vpu_packed,
+           "admm_solve_fused": kernels.admm_solve_fused}
+
+
+def reset_launch_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+WBC_KERNEL_OF = {"fused": "admm_solve_fused",
+                 "packed": "admm_iterate_vpu_packed",
+                 "vpu": "admm_iterate_vpu"}
+
+
+def expected_launches(cfg, periods: int, wbc_backend: str):
+    """(the kernel this rollout is there to count, every kernel's expected
+    launches): the M2 kernel once per MPC adapt round; the whole-solve kernel
+    once per WBC tick; an iteration kernel once per WBC adapt round."""
+    expect = dict.fromkeys(COUNTED, 0)
+    expect["admm_iterate_m2"] = periods * cfg.solver.mpc_adapt_rounds
+    counted = WBC_KERNEL_OF.get(wbc_backend, "admm_iterate_m2")
+    if counted != "admm_iterate_m2":
+        ticks = periods * cfg.cascade.mpc_every
+        expect[counted] = ticks * (
+            1 if wbc_backend == "fused" else cfg.solver.wbc_adapt_rounds)
+    return counted, expect
+
 
 def standing(B: int):
     q0 = np.zeros((B, 19), np.float32)
@@ -168,6 +395,66 @@ def make_scenarios(cfg, B: int, seed: int, device):
     cp.mu = torch.as_tensor(mu, dtype=torch.float32).to(device)
     v = np.tile(np.asarray(cfg.v_ref, np.float32), (B, 1))
     return cc, ctl, plant, gid, v, cp
+
+
+def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device):
+    """The main path at full width with one WBC backend: ROLLOUT_PERIODS
+    periods of the preset from standing, every launch count set to 0 just
+    before and read just after.  Returns the counts."""
+    B = cfg.batch
+    cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=0, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    ctl, plant, metrics = cascade_rollout(
+        cc, ctl, plant, gid, v, cp, n_periods=ROLLOUT_PERIODS, device=device,
+        wbc_backend=wbc_backend)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    ticks = B * ROLLOUT_PERIODS * cfg.cascade.mpc_every
+    x = metrics["x_srb"]
+    finite = all_finite((plant.q, plant.v, ctl.f_plan, x, metrics["tau_rms"]))
+    dz = float((x[:, :, 2] - SOLO12.h_ref).abs().max())
+    wbc_ok = float(metrics["wbc_ok_frac"].mean())
+    tag = f"wbc_backend={wbc_backend}"
+    print(f"  {tag}: {ticks / wall:.1f} ticks/s, "
+          f"{wall / ROLLOUT_PERIODS:.3f} s per period, wall {wall:.2f} s, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+          f"[{smi}]")
+    print(f"    launches {counts}; max |z - h_ref| {dz:.4f} m; wbc_ok_frac "
+          f"{wbc_ok:.4f}; mean mpc dual res "
+          f"{float(metrics['mpc_dual_res'].mean()):.3e}; mean x after "
+          f"{ROLLOUT_PERIODS} periods {float(plant.q[:, 0].mean()):+.4f} m",
+          flush=True)
+    check(tuple(x.shape) == (B, ROLLOUT_PERIODS, 12), f"{tag}: metrics shape")
+    check(finite, f"{tag}: everything finite")
+    check(bool(metrics["mpc_ok"].all()), f"{tag}: mpc_ok all true")
+    check(wbc_ok >= 0.99, f"{tag}: wbc_ok_frac >= 0.99")
+    check(dz < 0.03, f"{tag}: base height within 0.03 m of h_ref, every "
+                     "scenario and period")
+    check(counts == expect, f"{tag}: kernel launches are {expect}")
+    return counts
+
+
+def capture_wbc_tick(cc, ctl, plant, gid, v, cp, tick: int, device):
+    """Arguments of the `tick`-th solve_wbc call of one period (a real
+    mid-gait WBC problem with its warm start), and the state after it."""
+    captured = []
+    original = engine.solve_wbc
+
+    def hook(tree, cfg, q, v_, refs, **kw):
+        captured.append((tree, cfg, q, v_, refs, kw))
+        return original(tree, cfg, q, v_, refs, **kw)
+
+    engine.solve_wbc = hook
+    try:
+        ctl, plant, _ = cascade_rollout(cc, ctl, plant, gid, v, cp,
+                                        n_periods=1, device=device)
+    finally:
+        engine.solve_wbc = original
+    return captured[tick], ctl, plant
 
 
 def main() -> int:
@@ -197,89 +484,156 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     print("== 2. build", flush=True)
     t0 = time.time()
-    kernels._library()
-    print(f"  admm_m2: nvcc {' '.join(_build.NVCC_FLAGS)}  ->  "
-          f"{_build.build_dir()}")
-    print(f"  build+load {time.time() - t0:.2f} s "
-          f"(nvcc {_build.BUILD_SECONDS['admm_m2']:.2f} s)", flush=True)
+    kernels.build_all()
+    for name in kernels.LIBRARIES:
+        kernels._library(name)
+    print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
+    print(f"  four libraries built together and loaded in "
+          f"{time.time() - t0:.2f} s; nvcc seconds each: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in _build.BUILD_SECONDS.items()),
+          flush=True)
+    for name, log in _build.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {name}: {line.strip()}")
 
-    # ---- 3. kernel vs plain --------------------------------------------
-    print("== 3. kernel vs plain PyTorch version, on the card", flush=True)
-    mpc_args = m2_inputs(0, 64, 192, 320, device)
-    errs = [compare_kernel("mpc shape", mpc_args),
-            compare_kernel("test shape", m2_inputs(1, 3, 24, 40, device)),
-            compare_kernel("single", m2_inputs(2, 1, 192, 320, device)),
-            compare_kernel("wbc-sized, odd", m2_inputs(3, 5, 30, 50, device))]
+    reports = {}
 
+    # ---- 3a. kernel 1 vs plain ------------------------------------------
+    print("== 3a. M2 iteration kernel vs plain PyTorch version, on the card",
+          flush=True)
+    mpc_args, _ = iteration_inputs(0, 64, 192, 320, device, eq=False)
+    errs = [compare_m2("mpc shape", mpc_args),
+            compare_m2("test shape",
+                       iteration_inputs(1, 3, 24, 40, device, eq=False)[0]),
+            compare_m2("single",
+                       iteration_inputs(2, 1, 192, 320, device, eq=False)[0]),
+            compare_m2("wbc-sized, odd",
+                       iteration_inputs(3, 5, 30, 50, device, eq=False)[0])]
     # the main path's own shape: the 64 scenarios tiled to B = 4096 (every
     # scenario has its own memory; the kernel's time does not depend on the
     # values), compared once more and then timed
     Bt, n, m, iters = 4096, 192, 320, 30
     big = [a.repeat((Bt // a.shape[0],) + (1,) * (a.dim() - 1)).contiguous()
            for a in mpc_args]
-    errs.append(compare_kernel("main path shape", big, iters=iters))
-    max_abs_err = max(errs)
+    errs.append(compare_m2("main path shape", big, iters=iters))
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
     kernel_ms = time_ms(lambda: kernels.admm_iterate_m2(*big, **kw), 1, 3)
     plain_ms = time_ms(
         lambda: kernels.admm_iterate_m2_reference(*big, **kw), 1, 2)
-    (bound_ms, bound_by), bytes_ms, flops_ms = m2_bound_ms(Bt, n, m, iters)
+    bound = m2_bound_ms(Bt, n, m, iters)
+    del big, mpc_args
+    torch.cuda.empty_cache()
+    report_times("m2", f"B={Bt} n={n} m={m} iters={iters}", kernel_ms,
+                 plain_ms, bound, smi)
+    reports["admm_iterate_m2"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/admm_m2.cu",
+        replaces="mpctsid_tpu/qp/pallas_kernels.py:440",
+        max_abs_err=max(errs), ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1])
+
+    # ---- 3b. kernels 2 and 3 vs plain and each other --------------------
+    print("== 3b. generic and packed refined-iteration kernels vs their "
+          "plain version and each other", flush=True)
+    _, wbc_args = iteration_inputs(10, 64, 30, 50, device, eq=True)
+    ev, ep = zip(
+        compare_refined("wbc shape", wbc_args, REFINED_EQ_TOL),
+        compare_refined("test shape", iteration_inputs(
+            11, 3, 24, 40, device, eq=True)[1], REFINED_EQ_TOL),
+        compare_refined("single", iteration_inputs(
+            12, 1, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
+        compare_refined("partial last block", iteration_inputs(
+            13, 37, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
+        compare_refined("wbc shape, no equality rows", iteration_inputs(
+            14, 64, 30, 50, device, eq=False)[1], KERNEL_TOL))
+    ev, ep = list(ev), list(ep)
+    _, mpc_refined = iteration_inputs(15, 8, 192, 320, device, eq=True)
+    ev.append(compare_refined("mpc shape (streamed matrices)", mpc_refined,
+                              REFINED_EQ_TOL, packed=False)[0])
+    refused = False
+    try:
+        kernels.admm_iterate_vpu_packed(*mpc_refined, iters=1)
+    except ValueError as e:
+        refused = "shared memory" in str(e)
+    check(refused, "packed kernel refuses the MPC shape with the reason "
+                   "(it never hands work to the generic kernel)")
+    del mpc_refined
+    Bt, n, m = 4096, 30, 50
+    _, big = iteration_inputs(16, Bt, n, m, device, eq=True)
+    e_v, e_p = compare_refined("main path shape", big, REFINED_EQ_TOL)
+    ev.append(e_v)
+    ep.append(e_p)
+    kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
+    vpu_ms = time_ms(lambda: kernels.admm_iterate_vpu(*big, **kw), 2, 10)
+    packed_ms = time_ms(
+        lambda: kernels.admm_iterate_vpu_packed(*big, **kw), 2, 10)
+    plain_ms = time_ms(
+        lambda: kernels.admm_iterate_refined_reference(*big, **kw), 1, 3)
+    bound = refined_bound_ms(Bt, n, m, REFINED_ITERS)
+    shape = f"B={Bt} n={n} m={m} iters={REFINED_ITERS}"
+    report_times("vpu", shape, vpu_ms, plain_ms, bound, smi)
+    report_times("packed", shape, packed_ms, plain_ms, bound, smi)
+    del big
+    reports["admm_iterate_vpu"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/admm_vpu.cu",
+        replaces="mpctsid_tpu/qp/pallas_kernels.py:155",
+        max_abs_err=max(ev), ms=vpu_ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1])
+    reports["admm_iterate_vpu_packed"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/admm_packed.cu",
+        replaces="mpctsid_tpu/qp/pallas_kernels.py:274",
+        max_abs_err=max(ep), ms=packed_ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1])
+
+    # ---- 3c. kernel 4 vs plain ------------------------------------------
+    print("== 3c. whole-solve kernel vs its plain version", flush=True)
+    errs = [compare_fused("wbc shape", fused_inputs(20, 64, 30, 50, device)),
+            compare_fused("test shape", fused_inputs(21, 3, 24, 40, device)),
+            compare_fused("single", fused_inputs(22, 1, 30, 50, device)),
+            compare_fused("odd batch", fused_inputs(23, 37, 30, 50, device)),
+            compare_fused("mpc shape (global workspace)",
+                          fused_inputs(24, 8, 192, 320, device))]
+    big = fused_inputs(25, Bt, n, m, device)
+    errs.append(compare_fused("main path shape", big))
+    fused_ms = time_ms(lambda: kernels.admm_solve_fused(*big, **FUSED_KW),
+                       2, 10)
+    plain_ms = time_ms(
+        lambda: kernels.admm_solve_fused_reference(*big, **FUSED_KW), 1, 2)
+    bound = fused_bound_ms(Bt, n, m, FUSED_KW["iters"],
+                           FUSED_KW["adapt_rounds"],
+                           FUSED_KW["equilibrate_iters"])
+    report_times("fused", f"B={Bt} n={n} m={m} iters=40/3", fused_ms,
+                 plain_ms, bound, smi)
     del big
     torch.cuda.empty_cache()
-    print(f"  B={Bt} n={n} m={m} iters={iters}: kernel {kernel_ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} "
-          f"(bytes {bytes_ms:.3f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
-          f"flops {flops_ms:.3f} ms at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s "
-          f"f32)  [{smi}]", flush=True)
+    reports["admm_solve_fused"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/admm_fused.cu",
+        replaces="mpctsid_tpu/qp/pallas_kernels.py:851",
+        max_abs_err=max(errs), ms=fused_ms, plain_ms=plain_ms,
+        bound_ms=bound[0], bound_by=bound[1])
 
-    # ---- 4. main path at full size -------------------------------------
+    # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
     cfg = PRESETS["config4_cascade_4k"]
-    B = cfg.batch
-    cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=0, device=device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.admm_iterate_m2.launches = 0
-    t0 = time.time()
-    ctl, plant, metrics = cascade_rollout(
-        cc, ctl, plant, gid, v, cp, n_periods=ROLLOUT_PERIODS, device=device)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = kernels.admm_iterate_m2.launches
-    ticks = B * ROLLOUT_PERIODS * cfg.cascade.mpc_every
-    x = metrics["x_srb"]
-    finite = all(bool(torch.isfinite(t).all()) for t in
-                 (plant.q, plant.v, ctl.f_plan, x, metrics["tau_rms"]))
-    dz = float((x[:, :, 2] - SOLO12.h_ref).abs().max())
-    wbc_ok = float(metrics["wbc_ok_frac"].mean())
-    print(f"  B={B} gait={cfg.gait} v_ref={cfg.v_ref} periods="
+    print(f"  B={cfg.batch} gait={cfg.gait} v_ref={cfg.v_ref} periods="
           f"{ROLLOUT_PERIODS} mpc {cfg.solver.mpc_iters}/"
           f"{cfg.solver.mpc_adapt_rounds} wbc {cfg.solver.wbc_iters}/"
           f"{cfg.solver.wbc_adapt_rounds} mpc_backend="
-          f"{cfg.solver.mpc_backend}")
-    print(f"  {ticks / wall:.1f} ticks/s, {wall / ROLLOUT_PERIODS:.3f} s per "
-          f"period, wall {wall:.2f} s, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{smi}]")
-    print(f"  kernel launches {launches}; max |z - h_ref| {dz:.4f} m; "
-          f"wbc_ok_frac {wbc_ok:.4f}; mean mpc dual res "
-          f"{float(metrics['mpc_dual_res'].mean()):.3e}; mean x after "
-          f"{ROLLOUT_PERIODS} periods {float(plant.q[:, 0].mean()):+.4f} m",
-          flush=True)
-    check(tuple(x.shape) == (B, ROLLOUT_PERIODS, 12), "metrics shape")
-    check(finite, "rollout: everything finite")
-    check(bool(metrics["mpc_ok"].all()), "rollout: mpc_ok all true")
-    check(wbc_ok >= 0.99, "rollout: wbc_ok_frac >= 0.99")
-    check(dz < 0.03, "rollout: base height within 0.03 m of h_ref, every "
-                     "scenario and period")
-    check(launches == ROLLOUT_PERIODS * cfg.solver.mpc_adapt_rounds,
-          f"rollout: kernel launched periods x adapt rounds = "
-          f"{ROLLOUT_PERIODS * cfg.solver.mpc_adapt_rounds} times")
-    del ctl, plant, metrics, x
-    torch.cuda.empty_cache()
+          f"{cfg.solver.mpc_backend} (default wbc_backend="
+          f"{cfg.solver.wbc_backend})")
+    path_launches = {}
+    for wbc_backend in (cfg.solver.wbc_backend, "fused", "packed", "vpu"):
+        counted, expect = expected_launches(cfg, ROLLOUT_PERIODS, wbc_backend)
+        counts = full_width_rollout(cfg, wbc_backend, expect, smi, device)
+        path_launches[counted] = counts[counted]
+        torch.cuda.empty_cache()
+    for name, count in path_launches.items():
+        check(count > 0, f"{name} was launched on the main path")
+        reports[name]["launches"] = count
 
-    # ---- 5. kernel on the path vs plain on the path --------------------
-    print("== 5. mpc_backend 'm2' (kernel) vs 'torch' (plain), B=256",
+    # ---- 5. kernels on the path vs plain on the path --------------------
+    print("== 5a. mpc_backend 'm2' (kernel) vs 'torch' (plain), B=256",
           flush=True)
     cfg256 = PRESETS["config2_gait_sweep"]
     outs = {}
@@ -303,42 +657,70 @@ def main() -> int:
     check(d_q < 1e-4, "backends: plant q within 1e-4 after the plan is "
                       "consumed")
 
+    print("== 5b. kernel WBC backends vs the plain WBC, B=256, mid-gait",
+          flush=True)
+    # two periods from standing reach mid-gait; the third is the test bed
+    (tree, wcfg, q_t, v_t, refs, wkw), ctl3, plant3 = capture_wbc_tick(
+        cc, ctl2, plant2, gid, v, cp, tick=10, device=device)
+    wkw = {k: a for k, a in wkw.items() if k != "backend"}
+    tau_plain = solve_wbc(tree, wcfg, q_t, v_t, refs, backend="torch",
+                          **wkw)[0]
+    for backend in ("fused", "packed", "vpu"):
+        tau, _, _, sol = solve_wbc(tree, wcfg, q_t, v_t, refs,
+                                   backend=backend, **wkw)
+        d_tau = (tau - tau_plain).abs().amax(dim=1)
+        _, plant_k, met_k = cascade_rollout(cc, ctl2, plant2, gid, v, cp,
+                                            n_periods=1, device=device,
+                                            wbc_backend=backend)
+        d_q = float((plant_k.q - plant3.q).abs().max())
+        print(f"  {backend}: one tick max |dtau| {float(d_tau.max()):.3e} "
+              f"Nm, median {float(d_tau.median()):.3e} Nm; one period max "
+              f"|dq| {d_q:.3e}, wbc_ok_frac "
+              f"{float(met_k['wbc_ok_frac'].mean()):.4f}", flush=True)
+        check(bool(sol.ok.all()) and float(d_tau.max()) < WBC_TAU_TOL
+              and float(d_tau.median()) < WBC_TAU_MEDIAN_TOL,
+              f"{backend}: one WBC tick within {WBC_TAU_TOL} Nm (median "
+              f"{WBC_TAU_MEDIAN_TOL}) of the plain WBC")
+        check(d_q < WBC_PERIOD_Q_TOL and bool(
+            (met_k["wbc_ok_frac"] == 1.0).all()),
+              f"{backend}: one period within {WBC_PERIOD_Q_TOL} of the plain "
+              "WBC's q, every tick ok")
+
     # ---- 6. B = 1 --------------------------------------------------------
-    print("== 6. single robot, B=1, one period", flush=True)
+    print("== 6. single robot, B=1, one period per WBC backend", flush=True)
     cfg1 = PRESETS["config1_trot_single"]
-    cc, ctl, plant, gid, v, cp = make_scenarios(cfg1, 1, seed=2, device=device)
-    before = kernels.admm_iterate_m2.launches
-    t0 = time.time()
-    ctl, plant, metrics = cascade_rollout(cc, ctl, plant, gid, v, cp,
-                                          n_periods=1, device=device)
-    torch.cuda.synchronize()
-    print(f"  one period {time.time() - t0:.3f} s; launches "
-          f"{kernels.admm_iterate_m2.launches - before}", flush=True)
-    check(bool(torch.isfinite(plant.q).all() and torch.isfinite(plant.v).all()
-               and torch.isfinite(ctl.f_plan).all()), "B=1: finite")
-    check(bool(metrics["mpc_ok"].all()), "B=1: mpc_ok")
-    check(kernels.admm_iterate_m2.launches - before
-          == cfg1.solver.mpc_adapt_rounds, "B=1: kernel launched")
+    for wbc_backend in (cfg1.solver.wbc_backend, "fused", "packed", "vpu"):
+        cc, ctl, plant, gid, v, cp = make_scenarios(cfg1, 1, seed=2,
+                                                    device=device)
+        reset_launch_counts()
+        t0 = time.time()
+        ctl, plant, metrics = cascade_rollout(
+            cc, ctl, plant, gid, v, cp, n_periods=1, device=device,
+            wbc_backend=wbc_backend)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        print(f"  wbc_backend={wbc_backend}: one period "
+              f"{time.time() - t0:.3f} s; launches {counts}", flush=True)
+        check(all_finite((plant.q, plant.v, ctl.f_plan))
+              and bool(metrics["mpc_ok"].all())
+              and bool((metrics["wbc_ok_frac"] == 1.0).all()),
+              f"B=1, {wbc_backend}: finite, mpc_ok, every WBC tick ok")
+        expect = expected_launches(cfg1, 1, wbc_backend)[1]
+        check(counts == expect, f"B=1, {wbc_backend}: launches are {expect}")
 
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:
         print("chip_smoke FAILED:", *FAILURES, sep="\n  ", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [{
-        "name": "admm_iterate_m2",
-        "route": "cuda",
-        "source": "mpctsid_tpu_torch/qp/csrc/admm_m2.cu",
-        "replaces": "mpctsid_tpu/qp/pallas_kernels.py:440",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        # no single PyTorch call computes this function
-        "library_ms": None,
-    }]}))
+    # no single PyTorch call computes any of these functions: library_ms null
+    print(json.dumps({"kernels": [
+        dict(name=name, route="cuda", source=r["source"],
+             replaces=r["replaces"], launches=r["launches"],
+             max_abs_err=r["max_abs_err"], ms=r["ms"],
+             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+             bound_by=r["bound_by"], library_ms=None)
+        for name, r in reports.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

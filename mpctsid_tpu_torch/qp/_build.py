@@ -4,7 +4,11 @@ Each `.cu` file under qp/csrc/ has a plain C interface (no PyTorch headers),
 so `nvcc` compiles it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build dir>/<name>-<source hash>.so <sources>
+         -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so <sources>
+
+One library per kernel; `build_libraries` starts one `nvcc` per missing
+library, all together, and waits for them (what `-Xptxas -v` reports —
+registers, spills, static shared memory — is kept in `BUILD_LOG`).
 
 The build directory is `build/mpctsid_tpu_torch/` beside the package (the
 repository's .gitignore lists `build/`); the environment variable
@@ -25,17 +29,19 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "find_nvcc", "BUILD_SECONDS",
-           "NVCC_FLAGS"]
+__all__ = ["load_library", "build_libraries", "build_dir", "find_nvcc",
+           "BUILD_SECONDS", "BUILD_LOG", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> seconds the build took in this process (0.0 when a cached library
 # of the same sources was found in the build directory)
 BUILD_SECONDS: dict[str, float] = {}
+# name -> what nvcc printed when it built the library in this process
+BUILD_LOG: dict[str, str] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -65,35 +71,56 @@ def find_nvcc() -> str:
         "run without the CUDA toolkit")
 
 
+def _target(name: str, sources: tuple[str, ...],
+            headers: tuple[str, ...]) -> Path:
+    """The library's path: its name carries a hash of sources, headers and
+    flags."""
+    h = hashlib.sha256()
+    for f in (*sources, *headers):
+        h.update((CSRC / f).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_libraries(specs) -> None:
+    """Build every library of `specs` that the build directory lacks, one
+    `nvcc` process each, all started together.
+
+    specs: iterable of (name, sources, headers); file names under qp/csrc/.
+    Raises if the toolchain is missing or any build fails."""
+    jobs = []
+    for name, sources, headers in specs:
+        so = _target(name, sources, headers)
+        if so.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(CSRC / s) for s in sources]]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, cmd, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, cmd, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {name} "
+                          f"({' '.join(cmd)}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(name: str, sources: tuple[str, ...],
-                 extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+                 headers: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build (once per source hash) and load qp/csrc/<sources> as lib<name>."""
     lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    paths = [CSRC / s for s in sources]
-    h = hashlib.sha256()
-    for p in paths:
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
-    out_dir = build_dir()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
-    if so.exists():
-        BUILD_SECONDS[name] = 0.0
-    else:
-        nvcc = find_nvcc()
-        tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", str(tmp),
-               *[str(p) for p in paths]]
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed building {name} ({' '.join(cmd)}):\n"
-                f"{r.stdout}\n{r.stderr}")
-        os.replace(tmp, so)
-        BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(so))
-    _LIBS[name] = lib
+    if lib is None:
+        build_libraries([(name, sources, headers)])
+        lib = ctypes.CDLL(str(_target(name, sources, headers)))
+        _LIBS[name] = lib
     return lib

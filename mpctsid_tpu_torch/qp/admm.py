@@ -20,22 +20,32 @@ quantity (`rho_s`, the residual ratios, Ruiz's cost scale, `QPSolution.ok`)
 is a (B,) tensor reduced over the LAST axes only, so one diverged scenario
 never changes another.
 
-Backends:
-  "torch"    the plain loop of batched matmuls (the JAX package's "xla";
-             that spelling is accepted as an alias because the shared config
-             tree uses it).
+Backends (the JAX package's spelling is accepted beside the port's, because
+the shared config tree uses it):
+  "torch"    the plain loop of batched matmuls (JAX: "xla").
   "m2"       the refinement folded into M2 = 2 K^-1 - K^-1 K K^-1 and the
-             iterations run by the hand-written kernel of qp/kernels.py
-             (the JAX package's "pallas_m2").  For INEQUALITY-ONLY QPs: with
-             equality rows the rho boost pushes cond(K) up and the explicit
-             M2 product loses the accuracy that the sequential residual form
-             keeps.
+             iterations run by the hand-written kernel `admm_iterate_m2`
+             (JAX: "pallas_m2").  For INEQUALITY-ONLY QPs: with equality rows
+             the rho boost pushes cond(K) up and the explicit M2 product
+             loses the accuracy that the sequential residual form keeps.
   "auto_mpc" the MPC-stage default: "m2" when the problem lies on a CUDA
              device, "torch" when it lies on the CPU.
+  "vpu"      K^-1, K and A handed to the generic iteration kernel
+             `admm_iterate_vpu`, which keeps the explicit refinement
+             r = rhs - K x_a and so is valid with equality rows; one block
+             per scenario, any shape (JAX: "pallas_vpu").
+  "packed"   the same function by `admm_iterate_vpu_packed`: several small
+             scenarios per block, one warp each; raises when one scenario
+             does not fit (JAX: "pallas_packed").
+  "auto"     "vpu" when the problem lies on a CUDA device, "torch" on the CPU.
+  "fused"    the whole solve in one launch of `admm_solve_fused` (its own
+             full-rescale Ruiz, factorization, iterations and rho
+             adaptation); this function only unscales and computes the
+             residuals and `ok`.
 
 Not ported yet, each raising NotImplementedError by name: modes "inv",
 "exact_inv" and "cholesky", `polish_kkt` (with qp/precision.py), and the
-backends "auto", "pallas", "pallas_vpu", "pallas_packed" and "fused".
+backend "pallas" (the kernel `admm_iterate`).
 """
 
 from __future__ import annotations
@@ -45,7 +55,10 @@ import dataclasses
 import torch
 
 from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
-from mpctsid_tpu_torch.qp.kernels import admm_iterate_m2
+from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate_m2,
+                                          admm_iterate_vpu,
+                                          admm_iterate_vpu_packed,
+                                          admm_solve_fused)
 
 INF = 1e20
 
@@ -63,16 +76,6 @@ class QPSolution:
     # primal-feasible to `status_tol`.  Consumers use it for the
     # last-feasible-plan fallback (cascade/engine.py).
     ok: torch.Tensor         # (B,) bool
-
-
-def _mv(M, v):
-    """Batched (B, r, c) @ (B, c) -> (B, r)."""
-    return torch.bmm(M, v[:, :, None])[:, :, 0]
-
-
-def _mtv(M, v):
-    """Batched M' v: (B, r, c), (B, r) -> (B, c), without a transposed copy."""
-    return torch.bmm(v[:, None, :], M)[:, 0]
 
 
 def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
@@ -121,14 +124,16 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
     return Pb, qb, Ab, lb, ub, D, E, c[:, 0]
 
 
-_PLAIN_NAMES = ("torch", "xla")
-_UNPORTED_BACKENDS = {
-    "auto": "admm_iterate_vpu (the generic iteration kernel \"auto\" picks)",
-    "pallas": "admm_iterate (the dot-product iteration kernel)",
-    "pallas_vpu": "admm_iterate_vpu (the generic iteration kernel)",
-    "pallas_packed": "admm_iterate_vpu_packed (the packed iteration kernel)",
-    "fused": "admm_solve_fused_batch (the whole-solve kernel)",
+# accepted spelling -> the port's name (the JAX package's names beside ours)
+_BACKEND_NAMES = {
+    "torch": "torch", "xla": "torch",
+    "m2": "m2", "pallas_m2": "m2",
+    "vpu": "vpu", "pallas_vpu": "vpu",
+    "packed": "packed", "pallas_packed": "packed",
+    "fused": "fused",
 }
+_ITERATION_KERNELS = {"vpu": admm_iterate_vpu,
+                      "packed": admm_iterate_vpu_packed}
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -136,15 +141,16 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
         # the MPC QP is inequality-only by construction (friction pyramid +
         # force bounds): exactly the M2 kernel's validity domain
         return "m2" if device.type == "cuda" else "torch"
-    if backend in _PLAIN_NAMES:
-        return "torch"
-    if backend == "m2":
-        return "m2"
-    if backend in _UNPORTED_BACKENDS:
+    if backend == "auto":
+        return "vpu" if device.type == "cuda" else "torch"
+    if backend == "pallas":
         raise NotImplementedError(
-            f"backend {backend!r}: the kernel {_UNPORTED_BACKENDS[backend]} "
-            "of qp/pallas_kernels.py is not ported to mpctsid_tpu_torch yet")
-    raise ValueError(f"unknown backend {backend!r}")
+            "backend 'pallas': the kernel admm_iterate (the dot-product "
+            "iteration kernel) of qp/pallas_kernels.py is not ported to "
+            "mpctsid_tpu_torch yet; 'vpu' computes the same function")
+    if backend not in _BACKEND_NAMES:
+        raise ValueError(f"unknown backend {backend!r}")
+    return _BACKEND_NAMES[backend]
 
 
 def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
@@ -171,6 +177,13 @@ def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
         del KKi, K_inv
         return admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
                                iters=n_iters, sigma=sigma, alpha=alpha)
+
+    if backend in _ITERATION_KERNELS:
+        # K^-1, K and A go to the kernel as they are; it keeps them on chip
+        # for all iterations and forms the refinement residual explicitly
+        return _ITERATION_KERNELS[backend](
+            K_inv.contiguous(), K, A, q, l, u, rho_vec, x, z, y,
+            iters=n_iters, sigma=sigma, alpha=alpha)
 
     rho_inv = 1.0 / rho_vec
     for _ in range(n_iters):
@@ -225,14 +238,29 @@ def admm_solve(P, q, A, l, u,
     dtype = P.dtype
 
     P0, q0, A0, l0, u0 = P, q, A, l, u
-    P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u, equilibrate_iters)
-
     eqf = ((u0 - l0) < 1e-9).to(dtype)
+
+    if backend == "fused":
+        # One launch per solve: Ruiz, K assembly, the Cholesky-based inverse,
+        # all iterations and the rho adaptation (qp/kernels.py).  The plain
+        # path of a WBC-sized solve is thousands of tiny device ops and is
+        # launch bound.
+        xs, ys, D, E, c = admm_solve_fused(
+            *(t.contiguous() for t in (P, q, A, l, u, eqf)),
+            (P.new_zeros((B, n)) if x0 is None else x0.to(dtype)).contiguous(),
+            (P.new_zeros((B, m)) if y0 is None else y0.to(dtype)).contiguous(),
+            iters=iters, adapt_rounds=adapt_rounds,
+            equilibrate_iters=equilibrate_iters, rho0=rho, sigma=sigma,
+            alpha=alpha, rho_eq_scale=rho_eq_scale, inf=INF)
+        return _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,
+                                  status_tol)
+
+    P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u, equilibrate_iters)
 
     x = P.new_zeros((B, n)) if x0 is None else (x0 / D).to(dtype)
     y = P.new_zeros((B, m)) if y0 is None else (y0 * c[:, None] / E).to(dtype)
     z = torch.minimum(torch.maximum(_mv(A, x), l), u)
-    if backend == "m2":
+    if backend != "torch":
         A, q, l, u = (t.contiguous() for t in (A, q, l, u))
         x, y, z = x.contiguous(), y.contiguous(), z.contiguous()
 
@@ -259,12 +287,17 @@ def admm_solve(P, q, A, l, u,
                 rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
                 1e-3, 1e3)
 
-    # unscale and report unscaled residuals
-    x = D * x
-    y = E * y / c[:, None]
+    return _unscaled_solution(P0, q0, A0, l0, u0, x, y, D, E, c, status_tol)
+
+
+def _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,
+                       status_tol: float) -> QPSolution:
+    """Unscale (x = D xs, y = E ys / c) and report unscaled residuals."""
+    x = D * xs
+    y = E * ys / c[:, None]
     Ax0 = _mv(A0, x)
     z_u = torch.minimum(torch.maximum(Ax0, l0), u0)
-    prim = _amax(Ax0 - z_u) if m else P.new_zeros((B,))
+    prim = _amax(Ax0 - z_u) if A0.shape[1] else x.new_zeros((x.shape[0],))
     dual = _amax(_mv(P0, x) + q0 + _mtv(A0, y))
     ok = (torch.isfinite(x).all(dim=-1) & torch.isfinite(prim)
           & (prim < status_tol))

@@ -1,0 +1,219 @@
+// Block-level pieces shared by the generic iteration kernel (admm_vpu.cu) and
+// the whole-solve kernel (admm_fused.cu): one thread block works on ONE
+// scenario, its vectors in shared memory, its matrices in shared or global
+// memory (the same code reads either: generic addressing).
+//
+// No pointer here is __restrict__ / read-only qualified on purpose: the
+// whole-solve kernel rewrites its matrices in place (scaling, factorization)
+// between the phases that read them, so a load must never go through the
+// non-coherent read-only path.  (admm_m2.cu, whose matrices are never
+// written, keeps its own read-only-qualified copy of the row reduction.)
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace admm_block {
+
+__device__ __forceinline__ float warp_sum(float v)
+{
+    for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v)
+{
+    for (int off = 16; off > 0; off >>= 1)
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+    return v;
+}
+
+// Sum (or max) over the whole block, returned to every thread.  `red` is 33
+// floats of shared memory; every thread of the block must call.
+__device__ __forceinline__ float block_sum(float v, float* red)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    v = warp_sum(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        float r = lane < n_warps ? red[lane] : 0.f;
+        r = warp_sum(r);
+        if (lane == 0) red[32] = r;
+    }
+    __syncthreads();
+    const float out = red[32];
+    __syncthreads();
+    return out;
+}
+
+__device__ __forceinline__ float block_max(float v, float* red)
+{
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n_warps = blockDim.x >> 5;
+    v = warp_max(v);
+    if (lane == 0) red[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+        float r = lane < n_warps ? red[lane] : -INFINITY;
+        r = warp_max(r);
+        if (lane == 0) red[32] = r;
+    }
+    __syncthreads();
+    const float out = red[32];
+    __syncthreads();
+    return out;
+}
+
+// Reduction over ROWS, coalesced from a row-major matrix:
+// partial[c * cols + j] = sum over rows i = c, c + n_chunks, ... of
+// mat[i * cols + j] * vec[i]; thread (c, j0) walks columns j0, j0 +
+// col_threads, ...  The caller sums the chunks (sum_partials) after a
+// __syncthreads().  This is mat' vec.
+__device__ __forceinline__ void matT_vec_partial(
+    const float* mat, int rows, int cols, const float* vec, float* partial,
+    int col_threads, int n_chunks)
+{
+    const int t = threadIdx.x;
+    const int c = t / col_threads;
+    const int j0 = t - c * col_threads;
+    if (c >= n_chunks) return;
+    for (int j = j0; j < cols; j += col_threads) {
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        int i = c;
+        for (; i + 3 * n_chunks < rows; i += 4 * n_chunks) {
+            a0 = fmaf(mat[(size_t)i * cols + j], vec[i], a0);
+            a1 = fmaf(mat[(size_t)(i + n_chunks) * cols + j],
+                      vec[i + n_chunks], a1);
+            a2 = fmaf(mat[(size_t)(i + 2 * n_chunks) * cols + j],
+                      vec[i + 2 * n_chunks], a2);
+            a3 = fmaf(mat[(size_t)(i + 3 * n_chunks) * cols + j],
+                      vec[i + 3 * n_chunks], a3);
+        }
+        for (; i < rows; i += n_chunks)
+            a0 = fmaf(mat[(size_t)i * cols + j], vec[i], a0);
+        partial[c * cols + j] = (a0 + a1) + (a2 + a3);
+    }
+}
+
+__device__ __forceinline__ float sum_partials(const float* partial, int cols,
+                                              int n_chunks, int j)
+{
+    float s = partial[j];
+    for (int c = 1; c < n_chunks; ++c) s += partial[c * cols + j];
+    return s;
+}
+
+// Reduction over COLUMNS by one warp: sum_k row[k] * vec[k], lanes on
+// consecutive columns, shuffle sum; every lane gets the result.
+__device__ __forceinline__ float warp_row_dot(const float* row,
+                                              const float* vec, int n,
+                                              int lane)
+{
+    float acc = 0.f;
+    for (int k = lane; k < n; k += 32) acc = fmaf(row[k], vec[k], acc);
+    return warp_sum(acc);
+}
+
+// The vectors of one scenario's iteration, all in shared memory.
+struct IterVecs {
+    float* x;     // (n) primal iterate
+    float* q;     // (n)
+    float* rhs;   // (n)
+    float* xa;    // (n) first solve K^-1 rhs
+    float* r;     // (n) explicit residual rhs - K' xa
+    float* xt;    // (n) refined solve
+    float* z;     // (m)
+    float* y;     // (m)
+    float* w;     // (m) rho * z - y, kept current by the z / y update
+    float* l;     // (m)
+    float* u;     // (m)
+    float* rho;   // (m)
+    float* rinv;  // (m) 1 / rho
+    float* part;  // (n_chunks * n) partial sums of the row reductions
+};
+
+// `iters` ADMM updates with the EXPLICIT refinement step, in the order and
+// with the matrix sides of the TPU kernels `_admm_kernel_vpu` /
+// `_admm_kernel_vpu_packed` / the loop body of `_admm_fused_kernel`:
+//
+//     rhs = sigma x - q + A' w             (w = rho z - y)
+//     x_a = K^-1 rhs                       (K^-1 as given: row reduction)
+//     r   = rhs - K' x_a                   (K TRANSPOSED: column reduction)
+//     x_t = x_a + K^-1 r
+//     z_t = A x_t
+//     x   = alpha x_t + (1 - alpha) x
+//     z_r = alpha z_t + (1 - alpha) z
+//     z   = clip(z_r + y / rho, l, u)
+//     y   = y + rho (z_r - z)
+//
+// K and K^-1 are symmetric only up to rounding, so the sides are part of
+// the function.  The residual is formed explicitly, never folded: with
+// equality rows (rho boosted 1e3, cond(K) ~ 1e4) that is what keeps the
+// refined solve accurate.  On entry v.w holds rho z - y and the block is
+// synchronised; on exit x, z, y, w are current and the block is synchronised.
+__device__ __forceinline__ void refined_iterations(
+    const float* Kinv, const float* K, const float* A, int n, int m,
+    int iters, float sigma, float alpha, const IterVecs& v,
+    int col_threads, int n_chunks)
+{
+    const int T = blockDim.x;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int n_warps = T >> 5;
+    const float one_m_alpha = 1.0f - alpha;
+
+    for (int it = 0; it < iters; ++it) {
+        matT_vec_partial(A, m, n, v.w, v.part, col_threads, n_chunks);
+        __syncthreads();
+        for (int j = t; j < n; j += T)
+            v.rhs[j] = (sigma * v.x[j] - v.q[j])
+                       + sum_partials(v.part, n, n_chunks, j);
+        __syncthreads();
+
+        for (int i = warp; i < n; i += n_warps) {
+            const float acc =
+                warp_row_dot(Kinv + (size_t)i * n, v.rhs, n, lane);
+            if (lane == 0) v.xa[i] = acc;
+        }
+        __syncthreads();
+
+        matT_vec_partial(K, n, n, v.xa, v.part, col_threads, n_chunks);
+        __syncthreads();
+        for (int j = t; j < n; j += T)
+            v.r[j] = v.rhs[j] - sum_partials(v.part, n, n_chunks, j);
+        __syncthreads();
+
+        for (int i = warp; i < n; i += n_warps) {
+            const float corr =
+                warp_row_dot(Kinv + (size_t)i * n, v.r, n, lane);
+            if (lane == 0) {
+                const float xt = v.xa[i] + corr;
+                v.xt[i] = xt;
+                v.x[i] = alpha * xt + one_m_alpha * v.x[i];
+            }
+        }
+        __syncthreads();
+
+        for (int i = warp; i < m; i += n_warps) {
+            const float acc = warp_row_dot(A + (size_t)i * n, v.xt, n, lane);
+            if (lane == 0) {
+                const float zr = alpha * acc + one_m_alpha * v.z[i];
+                const float yi = v.y[i];
+                const float rh = v.rho[i];
+                const float zn =
+                    fminf(fmaxf(zr + v.rinv[i] * yi, v.l[i]), v.u[i]);
+                const float yn = yi + rh * (zr - zn);
+                v.z[i] = zn;
+                v.y[i] = yn;
+                v.w[i] = rh * zn - yn;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+}  // namespace admm_block

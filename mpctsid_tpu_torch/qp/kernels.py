@@ -1,33 +1,47 @@
 """The port's hand-written kernels and their plain PyTorch versions.
 
-One kernel so far: the M2 ADMM iteration (CUDA C++, qp/csrc/admm_m2.cu),
-which replaces `_admm_kernel_m2_packed` / `admm_iterate_m2_packed_batch` /
-`admm_iterate_m2` of the JAX package's qp/pallas_kernels.py.  It runs the MPC
-stage's iterations: `iters` ADMM updates with the iterative-refinement step
-folded into one precomputed map M2 = 2 K^-1 - K^-1 K K^-1 (built by the
-caller with batched matmuls, qp/admm.py).
+Four kernels, all CUDA C++ under qp/csrc/, each replacing a TPU kernel of the
+JAX package's qp/pallas_kernels.py and keeping its function name:
 
-  * `admm_iterate_m2` is the wrapper.  On CUDA tensors it checks its
-    arguments, launches the kernel on PyTorch's current stream and raises on
-    any failure (bad argument, build failure, launch error): there is no
-    fallback.  On CPU tensors, and only because the tensors lie on the CPU,
-    it runs the plain version.  `admm_iterate_m2.launches` counts kernel
-    launches (a plain integer, incremented only where the kernel launches).
-  * `admm_iterate_m2_reference` is the plain version: a Python loop of
-    batched matmuls and elementwise ops.  The CPU tests and the on-card
-    comparison in chip_smoke.py use it; nothing on the CUDA main path does.
+  * `admm_iterate_m2` (admm_m2.cu) <- `admm_iterate_m2` /
+    `admm_iterate_m2_packed_batch`: `iters` ADMM updates with the refinement
+    folded into one precomputed map M2 = 2 K^-1 - K^-1 K K^-1.  The MPC
+    stage's iterations (inequality-only QPs).
+  * `admm_iterate_vpu` (admm_vpu.cu) <- `admm_iterate_vpu`: `iters` updates
+    with the EXPLICIT refinement x_a = K^-1 rhs, r = rhs - K' x_a,
+    x_t = x_a + K^-1 r; valid with equality rows.  One block per scenario,
+    any shape.
+  * `admm_iterate_vpu_packed` (admm_packed.cu) <- `admm_iterate_vpu_packed` /
+    `admm_iterate_packed`: the same function for small matrices, several
+    scenarios per block, one warp each.
+  * `admm_solve_fused` (admm_fused.cu) <- `admm_solve_fused` /
+    `admm_solve_fused_batch`: the whole solve in one launch (full-rescale
+    Ruiz, per adapt round K, its Cholesky-based inverse with one
+    Newton-Schulz step, the refined iterations, rho adaptation); returns the
+    SCALED x, y and the scales D, E, c.
 
-Layout passed to the kernel: A as the caller holds it, row-major (B, m, n),
-and nothing else; no transposed copy.  The kernel makes both of its A
-products coalesced from that one layout (see the note in the source).
+Every wrapper checks its arguments; on CUDA tensors it launches its kernel on
+PyTorch's current stream and raises on any failure (bad argument, build
+failure, launch error): there is no fallback.  On CPU tensors, and only
+because the tensors lie on the CPU, it runs the plain version.
+`<wrapper>.launches` counts kernel launches (a plain integer, incremented
+only where the kernel launches).
 
-M2 is symmetric only up to rounding.  Both versions apply M2 TRANSPOSED
-(x_t[j] = sum_i M2[i, j] rhs[i]), as the TPU kernel does by reducing
-M2 * rhs_col over rows.
+Plain versions, used by the CPU tests and by the on-card comparison of
+chip_smoke.py and by nothing on the CUDA main path:
+`admm_iterate_m2_reference`, `admm_iterate_refined_reference` (ONE plain
+version for `admm_iterate_vpu` and `admm_iterate_vpu_packed`: they compute
+the same function) and `admm_solve_fused_reference`.
 
-The four other TPU kernels of qp/pallas_kernels.py (`admm_iterate_vpu`,
-`admm_iterate_vpu_packed`, `admm_solve_fused_batch`, `admm_iterate`) are not
-ported yet; qp/admm.py raises NotImplementedError for their backends.
+Matrix sides.  M2, K and K^-1 are symmetric only up to rounding, so the side
+each is applied from is part of the function, and is the TPU kernels': M2
+TRANSPOSED (x_t[j] = sum_i M2[i, j] rhs[i]); K^-1 as given (x_a[i] =
+sum_j K^-1[i, j] rhs[j]); K TRANSPOSED (sum_i K[i, j] x_a[i]).  A is passed
+row-major (B, m, n) as the caller holds it; no transposed copy is made.
+
+`admm_iterate` (backend "pallas", the dot-product form of the generic
+iteration) is the one TPU kernel not ported yet; qp/admm.py raises
+NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -36,43 +50,116 @@ import ctypes
 
 import torch
 
-__all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args"]
+from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
+
+__all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
+           "admm_iterate_vpu", "admm_iterate_vpu_packed",
+           "admm_iterate_refined_reference", "check_refined_args",
+           "packed_layout", "admm_solve_fused", "admm_solve_fused_reference",
+           "check_fused_args", "build_all", "LIBRARIES"]
 
 
-def check_m2_args(M2, A, q, l, u, rho_vec, x, z, y):
-    """Raise unless the arguments are what the kernel takes; returns (B, n, m).
+# ------------------------------------------------------------ argument checks
 
-    All float32, on one device, contiguous; M2 (B, n, n), A (B, m, n),
-    q, x (B, n), l, u, rho_vec, z, y (B, m)."""
-    named = dict(M2=M2, A=A, q=q, l=l, u=u, rho_vec=rho_vec, x=x, z=z, y=y)
+def _check_tensors(named: dict, first: str) -> None:
+    """All float32 tensors, on the device of `first`, contiguous."""
+    ref = named[first]
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != M2.device:
-            raise ValueError(
-                f"{name} is on {t.device}, M2 on {M2.device}: one device only")
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {first} on "
+                             f"{ref.device}: one device only")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (strides "
                              f"{t.stride()} for shape {tuple(t.shape)})")
-    if M2.dim() != 3 or M2.shape[1] != M2.shape[2]:
-        raise ValueError(f"M2 must be (B, n, n), got {tuple(M2.shape)}")
-    B, n, _ = M2.shape
+
+
+def _check_shapes(named: dict, square: tuple, n_vecs: tuple, m_vecs: tuple):
+    """Square matrices (B, n, n), A (B, m, n), vectors (B, n) / (B, m);
+    returns (B, n, m)."""
+    first = named[square[0]]
+    if first.dim() != 3 or first.shape[1] != first.shape[2]:
+        raise ValueError(f"{square[0]} must be (B, n, n), got "
+                         f"{tuple(first.shape)}")
+    B, n, _ = first.shape
+    for name in square[1:]:
+        if tuple(named[name].shape) != (B, n, n):
+            raise ValueError(f"{name} must be ({B}, {n}, {n}), got "
+                             f"{tuple(named[name].shape)}")
+    A = named["A"]
     if A.dim() != 3 or A.shape[0] != B or A.shape[2] != n:
         raise ValueError(f"A must be (B={B}, m, n={n}), got {tuple(A.shape)}")
     m = A.shape[1]
     if B < 1 or n < 1 or m < 1:
         raise ValueError(f"empty problem: B={B}, n={n}, m={m}")
-    for name in ("q", "x"):
-        if tuple(named[name].shape) != (B, n):
-            raise ValueError(f"{name} must be ({B}, {n}), got "
-                             f"{tuple(named[name].shape)}")
-    for name in ("l", "u", "rho_vec", "z", "y"):
-        if tuple(named[name].shape) != (B, m):
-            raise ValueError(f"{name} must be ({B}, {m}), got "
-                             f"{tuple(named[name].shape)}")
+    for names, width in ((n_vecs, n), (m_vecs, m)):
+        for name in names:
+            if tuple(named[name].shape) != (B, width):
+                raise ValueError(f"{name} must be ({B}, {width}), got "
+                                 f"{tuple(named[name].shape)}")
     return B, n, m
+
+
+def check_m2_args(M2, A, q, l, u, rho_vec, x, z, y):
+    """Raise unless the arguments are what the M2 kernel takes; returns
+    (B, n, m).
+
+    All float32, on one device, contiguous; M2 (B, n, n), A (B, m, n),
+    q, x (B, n), l, u, rho_vec, z, y (B, m)."""
+    named = dict(M2=M2, A=A, q=q, l=l, u=u, rho_vec=rho_vec, x=x, z=z, y=y)
+    _check_tensors(named, "M2")
+    return _check_shapes(named, ("M2",), ("q", "x"),
+                         ("l", "u", "rho_vec", "z", "y"))
+
+
+def check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y):
+    """Raise unless the arguments are what the two refined-iteration kernels
+    take; returns (B, n, m).
+
+    All float32, on one device, contiguous; K_inv, K (B, n, n), A (B, m, n),
+    q, x (B, n), l, u, rho_vec, z, y (B, m)."""
+    named = dict(K_inv=K_inv, K=K, A=A, q=q, l=l, u=u, rho_vec=rho_vec, x=x,
+                 z=z, y=y)
+    _check_tensors(named, "K_inv")
+    return _check_shapes(named, ("K_inv", "K"), ("q", "x"),
+                         ("l", "u", "rho_vec", "z", "y"))
+
+
+def check_fused_args(P, q, A, l, u, eqf, x0, y0):
+    """Raise unless the arguments are what the whole-solve kernel takes;
+    returns (B, n, m).
+
+    All float32, on one device, contiguous; P (B, n, n), A (B, m, n),
+    q, x0 (B, n), l, u, eqf, y0 (B, m)."""
+    named = dict(P=P, q=q, A=A, l=l, u=u, eqf=eqf, x0=x0, y0=y0)
+    _check_tensors(named, "P")
+    return _check_shapes(named, ("P",), ("q", "x0"), ("l", "u", "eqf", "y0"))
+
+
+def _check_iters(iters) -> int:
+    iters = int(iters)
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    return iters
+
+
+# ------------------------------------------------------------- plain versions
+
+def _mv(M, v):
+    """Batched (B, r, c) @ (B, c) -> (B, r)."""
+    return torch.bmm(M, v[:, :, None])[:, :, 0]
+
+
+def _mtv(M, v):
+    """Batched M' v: (B, r, c), (B, r) -> (B, c), without a transposed copy."""
+    return torch.bmm(v[:, None, :], M)[:, 0]
+
+
+def _clip(v, lo, hi):
+    return torch.minimum(torch.maximum(v, lo), hi)
 
 
 def admm_iterate_m2_reference(M2, A, q, l, u, rho_vec, x, z, y,
@@ -81,44 +168,208 @@ def admm_iterate_m2_reference(M2, A, q, l, u, rho_vec, x, z, y,
     """Plain PyTorch version of the M2 iteration; returns (x, z, y)."""
     rho_inv = 1.0 / rho_vec
     for _ in range(iters):
-        w = rho_vec * z - y
-        atw = torch.bmm(w[:, None, :], A)[:, 0]            # A' w
-        rhs = sigma * x - q + atw
-        x_t = torch.bmm(rhs[:, None, :], M2)[:, 0]         # M2' rhs
-        z_t = torch.bmm(A, x_t[:, :, None])[:, :, 0]       # A x_t
+        rhs = sigma * x - q + _mtv(A, rho_vec * z - y)
+        x_t = _mtv(M2, rhs)                                # M2' rhs
+        z_t = _mv(A, x_t)
         x = alpha * x_t + (1.0 - alpha) * x
         z_r = alpha * z_t + (1.0 - alpha) * z
-        z_n = torch.minimum(torch.maximum(z_r + rho_inv * y, l), u)
+        z_n = _clip(z_r + rho_inv * y, l, u)
         y = y + rho_vec * (z_r - z_n)
         z = z_n
     return x, z, y
 
 
-_LIB = None
+def admm_iterate_refined_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                                   iters: int = 25, sigma: float = 1e-6,
+                                   alpha: float = 1.6):
+    """Plain PyTorch version of the iteration with the explicit refinement;
+    returns (x, z, y).
+
+    One plain version serves `admm_iterate_vpu` and `admm_iterate_vpu_packed`:
+    the two kernels compute the same function and differ only in how they
+    lay scenarios out on the card."""
+    rho_inv = 1.0 / rho_vec
+    for _ in range(iters):
+        rhs = sigma * x - q + _mtv(A, rho_vec * z - y)
+        x_a = _mv(K_inv, rhs)                              # K^-1 rhs
+        r = rhs - _mtv(K, x_a)                             # rhs - K' x_a
+        x_t = x_a + _mv(K_inv, r)
+        z_t = _mv(A, x_t)
+        x = alpha * x_t + (1.0 - alpha) * x
+        z_r = alpha * z_t + (1.0 - alpha) * z
+        z_n = _clip(z_r + rho_inv * y, l, u)
+        y = y + rho_vec * (z_r - z_n)
+        z = z_n
+    return x, z, y
 
 
-def _library():
-    """The built kernel library (builds it on first use)."""
-    global _LIB
-    if _LIB is None:
-        from mpctsid_tpu_torch.qp._build import load_library
+def _amax(t):
+    return t.abs().amax(dim=-1, keepdim=True)
 
-        lib = load_library("admm_m2", ("admm_m2.cu",))
-        ptr = ctypes.c_void_p
-        lib.admm_m2_launch.argtypes = (
-            [ptr] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-            + [ctypes.c_int, ptr])
-        lib.admm_m2_launch.restype = ctypes.c_int
-        lib.admm_m2_error_string.argtypes = [ctypes.c_int]
-        lib.admm_m2_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+
+def admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0,
+                               iters: int, adapt_rounds: int,
+                               equilibrate_iters: int, rho0: float,
+                               sigma: float, alpha: float,
+                               rho_eq_scale: float, inf: float):
+    """Plain PyTorch version of the whole-solve kernel, step for step;
+    returns the scaled (x, y) and the scales (D, E, c), c (B,).
+
+    Mirrors `_admm_fused_kernel`: FULL-RESCALE Ruiz (the matrices are
+    rescaled every round and the abs-max taken of the rescaled ones), warm
+    start scaling, z = clip(A x, l, u), then per round K, its inverse
+    (Jacobi scaling, Cholesky, triangular inverse, one guarded Newton-Schulz
+    step, finite fallback: qp/blockinv.py), iters // adapt_rounds refined
+    iterations and the rho adaptation.  A test oracle, not a fast path."""
+    B, n = q.shape
+    D = P.new_ones((B, n))
+    E = P.new_ones((B, A.shape[1]))
+    c = P.new_ones((B, 1))
+    one = P.new_ones(())
+    for _ in range(equilibrate_iters):
+        cn = torch.maximum(P.abs().amax(dim=1), A.abs().amax(dim=1))
+        cm = A.abs().amax(dim=2)
+        dn = torch.where(cn < 1e-10, one,
+                         torch.rsqrt(torch.clamp_min(cn, 1e-12)))
+        dm = torch.where(cm < 1e-10, one,
+                         torch.rsqrt(torch.clamp_min(cm, 1e-12)))
+        P = P * dn[:, :, None] * dn[:, None, :]
+        q = q * dn
+        A = A * dm[:, :, None] * dn[:, None, :]
+        D = D * dn
+        E = E * dm
+        pcol = P.abs().amax(dim=1)
+        gamma = 1.0 / torch.clamp_min(
+            torch.maximum(pcol.mean(dim=1, keepdim=True), _amax(q)), 1e-12)
+        P = P * gamma[:, :, None]
+        q = q * gamma
+        c = c * gamma
+    l = torch.where(l <= -inf, l, E * l)
+    u = torch.where(u >= inf, u, E * u)
+
+    x = x0 / D
+    y = y0 * c / E
+    z = _clip(_mv(A, x), l, u)
+
+    rho_pat = 1.0 + eqf * (rho_eq_scale - 1.0)
+    rho_s = P.new_full((B, 1), rho0)
+    n_rounds = max(1, adapt_rounds)
+    iters_per = max(1, iters // n_rounds)
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+    for r_i in range(n_rounds):
+        rho = rho_pat * rho_s
+        K = P + sigma * eye + torch.bmm(
+            (A * rho[:, :, None]).transpose(1, 2), A)
+        K_inv = spd_inverse_chol(K, ns_steps=1)
+        x, z, y = admm_iterate_refined_reference(
+            K_inv, K, A, q, l, u, rho, x, z, y, iters=iters_per, sigma=sigma,
+            alpha=alpha)
+        if r_i + 1 < n_rounds:
+            ax = _mv(A, x)
+            px = _mtv(P, x)
+            aty = _mtv(A, y)
+            rp = _amax(ax - z) / torch.clamp_min(
+                torch.maximum(_amax(ax), _amax(z)), 1e-12)
+            rd = _amax(px + q + aty) / torch.clamp_min(
+                torch.maximum(_amax(px),
+                              torch.maximum(_amax(q), _amax(aty))), 1e-12)
+            rho_s = torch.clamp(
+                rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
+                1e-3, 1e3)
+    return x, y, D, E, c[:, 0]
+
+
+# ------------------------------------------------------------------ libraries
+
+# name -> (sources, headers) under qp/csrc/; one shared library per kernel
+LIBRARIES = {
+    "admm_m2": (("admm_m2.cu",), ()),
+    "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh",)),
+    "admm_packed": (("admm_packed.cu",), ()),
+    "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
+}
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_FLT = ctypes.c_float
+_LAUNCH_ARGTYPES = {
+    "admm_m2": [_PTR] * 12 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
+    "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
+    "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 3 + [_PTR],
+    "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT, _PTR],
+}
+
+_LIBS: dict = {}
+
+
+def build_all() -> None:
+    """Build every kernel library that is missing, all `nvcc` runs started
+    together (each library is otherwise built at its first launch)."""
+    from mpctsid_tpu_torch.qp import _build
+
+    _build.build_libraries(
+        [(name, src, hdr) for name, (src, hdr) in LIBRARIES.items()])
+
+
+def _library(name: str):
+    """The built library of one kernel (builds it on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        from mpctsid_tpu_torch.qp import _build
+
+        lib = _build.load_library(name, *LIBRARIES[name])
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = _LAUNCH_ARGTYPES[name]
+        launch.restype = _INT
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [_INT]
+        err.restype = ctypes.c_char_p
+        if name == "admm_packed":
+            lib.admm_packed_max_smem.argtypes = []
+            lib.admm_packed_max_smem.restype = _INT
+        if name == "admm_fused":
+            lib.admm_fused_workspace_floats.argtypes = [_INT] * 4
+            lib.admm_fused_workspace_floats.restype = ctypes.c_longlong
+        _LIBS[name] = lib
+    return lib
+
+
+def _raise_on(rc: int, lib, name: str, B: int, n: int, m: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed (B={B}, n={n}, "
+                           f"m={m}): CUDA error {rc}: {msg}")
+
+
+def _require_cuda(dev: torch.device, what: str) -> None:
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what} runs on cuda or cpu, not {dev}")
 
 
 def _pick_threads(n: int) -> int:
     """Block size: up to four row-chunk groups of one thread per column."""
     col_threads = min((n + 31) // 32 * 32, 1024)
     return col_threads * max(1, min(1024 // col_threads, 4))
+
+
+# ------------------------------------------------------------------- wrappers
+
+def _launch_iteration(name: str, inputs, x, z, y, dims, iters: int,
+                      sigma: float, alpha: float, geometry):
+    """Launch `<name>_launch` of an iteration kernel on the current stream:
+    `inputs` then the iterates x, z, y in, new x, z, y out (allocated here),
+    then B, n, m, iters, sigma, alpha and the kernel's launch `geometry`.
+    Raises on a launch error; returns (x, z, y)."""
+    lib = _library(name)
+    outs = tuple(torch.empty_like(t) for t in (x, z, y))
+    dev = x.device
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"{name}_launch")(
+            *(t.data_ptr() for t in (*inputs, x, z, y, *outs)), *dims, iters,
+            float(sigma), float(alpha), *geometry,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, name, *dims)
+    return outs
 
 
 def admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
@@ -128,34 +379,151 @@ def admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
     CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
     the plain version.  See the module docstring."""
     B, n, m = check_m2_args(M2, A, q, l, u, rho_vec, x, z, y)
-    iters = int(iters)
-    if iters < 0:
-        raise ValueError(f"iters must be >= 0, got {iters}")
-    dev = M2.device
-    if dev.type == "cpu":
+    iters = _check_iters(iters)
+    if M2.device.type == "cpu":
         return admm_iterate_m2_reference(M2, A, q, l, u, rho_vec, x, z, y,
                                          iters=iters, sigma=sigma, alpha=alpha)
-    if dev.type != "cuda":
-        raise RuntimeError(f"admm_iterate_m2 runs on cuda or cpu, not {dev}")
-    lib = _library()
-    x_o = torch.empty_like(x)
-    z_o = torch.empty_like(z)
-    y_o = torch.empty_like(y)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.admm_m2_launch(
-            M2.data_ptr(), A.data_ptr(), q.data_ptr(), l.data_ptr(),
-            u.data_ptr(), rho_vec.data_ptr(), x.data_ptr(), z.data_ptr(),
-            y.data_ptr(), x_o.data_ptr(), z_o.data_ptr(), y_o.data_ptr(),
-            B, n, m, iters, float(sigma), float(alpha), _pick_threads(n),
-            stream)
-    if rc != 0:
-        msg = lib.admm_m2_error_string(rc).decode()
-        raise RuntimeError(
-            f"admm_m2 kernel launch failed (B={B}, n={n}, m={m}): "
-            f"CUDA error {rc}: {msg}")
+    _require_cuda(M2.device, "admm_iterate_m2")
+    out = _launch_iteration("admm_m2", (M2, A, q, l, u, rho_vec), x, z, y,
+                            (B, n, m), iters, sigma, alpha,
+                            (_pick_threads(n),))
     admm_iterate_m2.launches += 1
-    return x_o, z_o, y_o
+    return out
 
 
 admm_iterate_m2.launches = 0
+
+
+def admm_iterate_vpu(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                     iters: int = 25, sigma: float = 1e-6, alpha: float = 1.6):
+    """`iters` ADMM updates with the explicit refinement, one block per
+    scenario, any n and m; returns (x, z, y).
+
+    CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
+    the plain version.  See the module docstring."""
+    B, n, m = check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y)
+    iters = _check_iters(iters)
+    if K_inv.device.type == "cpu":
+        return admm_iterate_refined_reference(
+            K_inv, K, A, q, l, u, rho_vec, x, z, y, iters=iters, sigma=sigma,
+            alpha=alpha)
+    _require_cuda(K_inv.device, "admm_iterate_vpu")
+    out = _launch_iteration("admm_vpu", (K_inv, K, A, q, l, u, rho_vec),
+                            x, z, y, (B, n, m), iters, sigma, alpha,
+                            (_pick_threads(n),))
+    admm_iterate_vpu.launches += 1
+    return out
+
+
+admm_iterate_vpu.launches = 0
+
+MAX_PACKED_G = 16
+
+
+def packed_layout(n: int, m: int, B: int, smem_bytes: int, n_sm: int):
+    """Shared-memory layout of the packed kernel: (g, ld, slot_floats).
+
+    One scenario's slot holds K^-1, K and A with rows padded to the odd
+    stride ld = n | 1 (no bank conflicts by rows or by columns) and its
+    twelve vectors.  g, the scenarios (warps) per block, is what fits in
+    `smem_bytes`, at most 16, and no more than spreads B over `n_sm`
+    multiprocessors.  Raises if not even one scenario fits: the packed kernel
+    is for small matrices and hands nothing to another kernel."""
+    ld = n | 1
+    slot_floats = (2 * n + m) * ld + 5 * n + 7 * m
+    fit = smem_bytes // (4 * slot_floats)
+    if fit < 1:
+        raise ValueError(
+            f"admm_iterate_vpu_packed: one scenario of n={n}, m={m} needs "
+            f"{4 * slot_floats} bytes of shared memory (K^-1, K, A and the "
+            f"vectors), a block has {smem_bytes}; use admm_iterate_vpu "
+            "(backend 'vpu'), which streams what does not fit")
+    g = max(1, min(MAX_PACKED_G, fit, -(-B // max(1, n_sm))))
+    return g, ld, slot_floats
+
+
+def admm_iterate_vpu_packed(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                            iters: int = 25, sigma: float = 1e-6,
+                            alpha: float = 1.6):
+    """The function of `admm_iterate_vpu` for small matrices: several
+    scenarios per block, one warp each; returns (x, z, y).
+
+    CUDA tensors: launches the hand-written kernel, or raises (also when one
+    scenario does not fit the packed layout).  CPU tensors: the plain
+    version.  See the module docstring."""
+    B, n, m = check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y)
+    iters = _check_iters(iters)
+    dev = K_inv.device
+    if dev.type == "cpu":
+        return admm_iterate_refined_reference(
+            K_inv, K, A, q, l, u, rho_vec, x, z, y, iters=iters, sigma=sigma,
+            alpha=alpha)
+    _require_cuda(dev, "admm_iterate_vpu_packed")
+    with torch.cuda.device(dev):
+        smem = _library("admm_packed").admm_packed_max_smem()
+    if smem <= 0:
+        raise RuntimeError("admm_packed: cannot read the device's shared "
+                           f"memory limit (CUDA error {-smem})")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = _launch_iteration("admm_packed", (K_inv, K, A, q, l, u, rho_vec),
+                            x, z, y, (B, n, m), iters, sigma, alpha,
+                            packed_layout(n, m, B, smem, n_sm))
+    admm_iterate_vpu_packed.launches += 1
+    return out
+
+
+admm_iterate_vpu_packed.launches = 0
+
+
+def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
+                     iters: int, adapt_rounds: int, equilibrate_iters: int,
+                     rho0: float, sigma: float, alpha: float,
+                     rho_eq_scale: float, inf: float):
+    """The whole ADMM solve of a batch in one launch; returns the SCALED
+    (x, y) and the scales (D, E, c) with x_unscaled = D x, y_unscaled =
+    E y / c; c is (B,).
+
+    CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
+    the plain version.  See the module docstring."""
+    B, n, m = check_fused_args(P, q, A, l, u, eqf, x0, y0)
+    iters = _check_iters(iters)
+    kw = dict(iters=iters, adapt_rounds=int(adapt_rounds),
+              equilibrate_iters=int(equilibrate_iters), rho0=float(rho0),
+              sigma=float(sigma), alpha=float(alpha),
+              rho_eq_scale=float(rho_eq_scale), inf=float(inf))
+    if kw["equilibrate_iters"] < 0:
+        raise ValueError("equilibrate_iters must be >= 0")
+    dev = P.device
+    if dev.type == "cpu":
+        return admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0, **kw)
+    _require_cuda(dev, "admm_solve_fused")
+    lib = _library("admm_fused")
+    x_o = torch.empty_like(q)
+    y_o = torch.empty_like(l)
+    d_o = torch.empty_like(q)
+    e_o = torch.empty_like(l)
+    c_o = q.new_empty((B,))
+    threads = _pick_threads(n)
+    with torch.cuda.device(dev):
+        ws_floats = lib.admm_fused_workspace_floats(B, n, m, threads)
+        if ws_floats < 0:
+            raise RuntimeError("admm_fused: cannot size the workspace (CUDA "
+                               f"error {-ws_floats})")
+        # matrices that do not fit in shared memory live here for the launch
+        workspace = q.new_empty((ws_floats,)) if ws_floats else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.admm_fused_launch(
+            P.data_ptr(), q.data_ptr(), A.data_ptr(), l.data_ptr(),
+            u.data_ptr(), eqf.data_ptr(), x0.data_ptr(), y0.data_ptr(),
+            x_o.data_ptr(), y_o.data_ptr(), d_o.data_ptr(), e_o.data_ptr(),
+            c_o.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            B, n, m, kw["iters"], kw["adapt_rounds"],
+            kw["equilibrate_iters"], kw["rho0"], kw["sigma"], kw["alpha"],
+            kw["rho_eq_scale"], kw["inf"], threads, stream)
+    _raise_on(rc, lib, "admm_fused", B, n, m)
+    admm_solve_fused.launches += 1
+    return x_o, y_o, d_o, e_o, c_o
+
+
+admm_solve_fused.launches = 0

@@ -162,7 +162,9 @@ def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     return H, g, A_c, l_c, u_c, M, h, JcT
 
 
-_PLAIN_BACKENDS = ("torch", "xla")
+# backends of qp/admm.py that fold the refinement into M2: outside the WBC
+# QP's domain (see solve_wbc)
+_M2_BACKENDS = ("m2", "pallas_m2", "auto_mpc")
 
 
 def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
@@ -170,14 +172,18 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
               warm_x=None, warm_y=None, backend: str = "torch",
               polish: bool = False, extra_base_inertia=None):
     """One WBC tick: returns (tau (B, 12), qdd (B, 18), f (B, 4, 3),
-    QPSolution)."""
-    if backend not in _PLAIN_BACKENDS:
-        raise NotImplementedError(
-            f"solve_wbc backend {backend!r}: the WBC QP has equality rows, "
-            "outside the M2 kernel's domain, and the kernels that could "
-            "serve it (admm_iterate_vpu, admm_iterate_vpu_packed, "
-            "admm_solve_fused_batch) are not ported to mpctsid_tpu_torch "
-            "yet; use backend='torch'")
+    QPSolution).
+
+    backend: any backend of `admm_solve` that is valid with equality rows:
+    "torch" (plain), "vpu", "packed", "fused", "auto", or their JAX
+    spellings."""
+    if backend in _M2_BACKENDS:
+        raise ValueError(
+            f"solve_wbc backend {backend!r}: the WBC QP has equality rows "
+            "(base dynamics, stance contacts), outside the M2 kernel's "
+            "domain: their 1e3 rho boost pushes cond(K) to ~1e4, where the "
+            "folded map M2 loses the accuracy the explicit residual keeps; "
+            "use 'torch', 'vpu', 'packed', 'fused' or 'auto'")
     H, g, A, l, u, M, h, JcT = build_wbc_qp(
         tree, cfg, q, v, refs, extra_base_inertia=extra_base_inertia)
     # status_tol 0.5: a cold-started fixed-iteration WBC solve legitimately
@@ -185,7 +191,7 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     # the failure policy should only trip on divergence/non-finite solves
     sol = admm_solve(H, g, A, l, u, x0=warm_x, y0=warm_y,
                      iters=iters, adapt_rounds=adapt_rounds, rho=0.1,
-                     status_tol=0.5, backend="torch", polish_kkt=polish)
+                     status_tol=0.5, backend=backend, polish_kkt=polish)
     qdd = sol.x[:, :NV]
     f = sol.x[:, NV:]
     tau = (torch.bmm(M[:, 6:], qdd[:, :, None])[:, :, 0] + h[:, 6:]

@@ -2,6 +2,7 @@
 """Where one MPC period of the PyTorch port spends its time on the GPU.
 
     python3 scripts/profile_torch_cascade.py [--batch 4096] [--out DIR]
+                                             [--wbc-backend torch fused ...]
 
 Needs a CUDA device (it fails without one).  For each batch size it
 
@@ -9,11 +10,13 @@ Needs a CUDA device (it fails without one).  For each batch size it
      kernel, fills the constant caches, reaches a mid-gait state);
   2. times the stages of the next period by calling the port's public
      functions on that state, each ended by a synchronize: footstep plan +
-     MPC QP assembly, the MPC solve (kernel backend and plain backend), one
-     WBC tick (QP assembly + solve), one plant step;
-  3. times one whole period (wall clock, synchronized), and traces one more
-     with torch.profiler: number of device kernels launched, the device's
-     busy time and idle share, and the ten kernels with the most device time.
+     MPC QP assembly, the MPC solve (kernel backend and plain backend), the
+     WBC QP assembly alone, one WBC tick (QP assembly + solve) with each WBC
+     backend asked for, one plant step;
+  3. for each WBC backend, times one whole period (wall clock, synchronized)
+     and traces one more with torch.profiler: number of device kernels
+     launched, launches of the port's own kernels, the device's busy time
+     and idle share, and the ten kernels with the most device time.
 
 Prints one JSON object per batch size; with --out also writes it to
 DIR/profile_torch_cascade.json.  The card's name and power limit are in it.
@@ -45,8 +48,13 @@ from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout  # noqa: E402
 from mpctsid_tpu_torch.plan import (contacts_at,  # noqa: E402
                                     plan_footsteps_horizon)
+from mpctsid_tpu_torch.qp import kernels  # noqa: E402
 from mpctsid_tpu_torch.qp.admm import admm_solve  # noqa: E402
-from mpctsid_tpu_torch.wbc.tsid import WbcRefs, solve_wbc  # noqa: E402
+from mpctsid_tpu_torch.wbc.tsid import (WbcRefs, build_wbc_qp,  # noqa: E402
+                                        solve_wbc)
+
+OWN_KERNELS = (kernels.admm_iterate_m2, kernels.admm_iterate_vpu,
+               kernels.admm_iterate_vpu_packed, kernels.admm_solve_fused)
 
 
 def timed(fn, reps: int = 3) -> float:
@@ -62,7 +70,7 @@ def timed(fn, reps: int = 3) -> float:
     return float(np.median(out))
 
 
-def profile_batch(B: int, device) -> dict:
+def profile_batch(B: int, device, wbc_backends) -> dict:
     cfg = EngineConfig(gait="trot", v_ref=(0.3, 0.0, 0.0))
     cc = CascadeConfigured(SOLO12, cfg)
     q0 = np.zeros((B, 19), np.float32)
@@ -112,64 +120,78 @@ def profile_batch(B: int, device) -> dict:
         q_posture=plant.q[:, 7:], base_rpy_ref=plant.q.new_zeros((B, 2)),
         h_ref=plant.q.new_full((B,), SOLO12.h_ref))
 
-    def wbc():
+    def wbc(backend):
         return solve_wbc(cc.tree, cfg.wbc, plant.q, plant.v, refs,
                          iters=cfg.solver.wbc_iters,
                          adapt_rounds=cfg.solver.wbc_adapt_rounds,
-                         warm_x=ctl.wbc_warm_x, warm_y=ctl.wbc_warm_y)
+                         warm_x=ctl.wbc_warm_x, warm_y=ctl.wbc_warm_y,
+                         backend=backend)
 
     tau = plant.q.new_zeros((B, 12))
     stages = {
         "plan_and_mpc_qp_ms": timed(assemble),
         "mpc_solve_m2_ms": timed(lambda: mpc("m2")),
         "mpc_solve_plain_ms": timed(lambda: mpc("torch")),
-        "wbc_tick_ms": timed(wbc),
+        "wbc_qp_assembly_ms": timed(lambda: build_wbc_qp(
+            cc.tree, cfg.wbc, plant.q, plant.v, refs)),
+        "wbc_tick_ms": {b: timed(lambda: wbc(b)) for b in wbc_backends},
         "plant_step_ms": timed(lambda: plant_step(cc.tree, plant, tau,
                                                   params=cp)),
     }
     del qp
     torch.cuda.empty_cache()
 
-    # ---- one whole period: wall clock, then a profiler trace
-    def period():
-        return cascade_period(cc, ctl, plant, gid, v, cp)
-
-    period_ms = timed(period, reps=2)
+    # ---- one whole period per WBC backend: wall clock, then a profiler trace
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        period()
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in kernels)
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:10]
-    return {
-        "batch": B,
-        "period_wall_ms": period_ms,
-        "ticks_per_s": B * cfg.cascade.mpc_every / (period_ms / 1e3),
-        "stages": stages,
-        "stage_sum_ms": (stages["plan_and_mpc_qp_ms"]
-                         + stages["mpc_solve_m2_ms"]
-                         + cfg.cascade.mpc_every * (stages["wbc_tick_ms"]
-                                                    + stages["plant_step_ms"])),
-        "traced_period_wall_ms": traced_ms,
-        "device_kernels_launched": launches,
-        "device_busy_ms": busy_us / 1e3,
-        "device_idle_share_of_untraced_wall": (
-            None if not launches else 1.0 - busy_us / 1e3 / period_ms),
-        "top_kernels_by_device_ms": [
-            {"name": e.key[:80], "count": e.count,
-             "device_ms": e.device_time_total / 1e3} for e in top],
-    }
+
+    def profile_period(backend):
+        def period():
+            return cascade_period(cc, ctl, plant, gid, v, cp,
+                                  wbc_backend=backend)
+
+        period_ms = timed(period, reps=2)
+        before = [f.launches for f in OWN_KERNELS]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            period()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        own = {f.__name__: f.launches - b
+               for f, b in zip(OWN_KERNELS, before)}
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.device_time_total for e in events)
+        launches = sum(e.count for e in events)
+        top = sorted(events, key=lambda e: -e.device_time_total)[:10]
+        return {
+            "period_wall_ms": period_ms,
+            "ticks_per_s": B * cfg.cascade.mpc_every / (period_ms / 1e3),
+            "stage_sum_ms": (
+                stages["plan_and_mpc_qp_ms"] + stages["mpc_solve_m2_ms"]
+                + cfg.cascade.mpc_every * (stages["wbc_tick_ms"][backend]
+                                           + stages["plant_step_ms"])),
+            "traced_period_wall_ms": traced_ms,
+            "device_kernels_launched": launches,
+            "own_kernel_launches": own,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share_of_untraced_wall": (
+                None if not launches else 1.0 - busy_us / 1e3 / period_ms),
+            "top_kernels_by_device_ms": [
+                {"name": e.key[:80], "count": e.count,
+                 "device_ms": e.device_time_total / 1e3} for e in top],
+        }
+
+    return {"batch": B, "stages": stages,
+            "periods": {b: profile_period(b) for b in wbc_backends}}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 1])
+    ap.add_argument("--wbc-backend", nargs="+", default=["torch"],
+                    help="WBC backends to time (qp/admm.py names), e.g. "
+                         "torch fused packed vpu")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -182,7 +204,8 @@ def main() -> int:
                          text=True).stdout.strip()
     result = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
-              "batches": [profile_batch(B, device) for B in args.batch]}
+              "batches": [profile_batch(B, device, args.wbc_backend)
+                          for B in args.batch]}
     text = json.dumps(result, indent=1)
     print(text)
     if args.out:

@@ -37,7 +37,9 @@ PORT_SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 def test_the_port_has_sources_to_check():
     names = {p.name for p in PORT_SOURCES}
     assert {"admm.py", "kernels.py", "engine.py", "chip_smoke.py"} <= names
-    assert (PORT / "qp" / "csrc" / "admm_m2.cu").exists()
+    for source in ("admm_m2.cu", "admm_vpu.cu", "admm_packed.cu",
+                   "admm_fused.cu", "admm_block.cuh"):
+        assert (PORT / "qp" / "csrc" / source).exists(), source
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -77,7 +79,7 @@ loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
 assert not loaded, loaded
 assert "triton" not in sys.modules
 from mpctsid_tpu_torch.qp import _build, kernels
-assert kernels._LIB is None and not _build._LIBS and not _build.BUILD_SECONDS
+assert not kernels._LIBS and not _build._LIBS and not _build.BUILD_SECONDS
 assert not os.path.exists(build)
 import torch
 assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -103,6 +105,17 @@ def test_kernel_on_a_cpu_tensor_does_not_reach_the_build_step(monkeypatch):
                                   z(1, 2), z(1, 2), torch.ones(1, 2), z(1, 3),
                                   z(1, 2), z(1, 2), iters=2)
     assert out[0].shape == (1, 3)
+    for fn in (kernels.admm_iterate_vpu, kernels.admm_iterate_vpu_packed):
+        out = fn(torch.eye(3)[None], torch.eye(3)[None], z(1, 2, 3), z(1, 3),
+                 z(1, 2), z(1, 2), torch.ones(1, 2), z(1, 3), z(1, 2),
+                 z(1, 2), iters=2)
+        assert out[0].shape == (1, 3)
+    out = kernels.admm_solve_fused(
+        torch.eye(3)[None], z(1, 3), torch.ones(1, 2, 3), -torch.ones(1, 2),
+        torch.ones(1, 2), z(1, 2), z(1, 3), z(1, 2), iters=4, adapt_rounds=2,
+        equilibrate_iters=2, rho0=0.1, sigma=1e-6, alpha=1.6,
+        rho_eq_scale=1e3, inf=1e20)
+    assert out[0].shape == (1, 3) and out[4].shape == (1,)
 
 
 def test_build_step_without_a_toolchain_raises(monkeypatch, tmp_path):
@@ -115,6 +128,10 @@ def test_build_step_without_a_toolchain_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load_library("admm_m2_probe", ("admm_m2.cu",))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_libraries([("a", ("admm_vpu.cu",), ("admm_block.cuh",)),
+                                ("b", ("admm_fused.cu",), ())])
+    assert not _build.BUILD_SECONDS.get("a")
     assert "-gencode" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
