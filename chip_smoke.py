@@ -9,7 +9,7 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the four kernel libraries from
+  2. build    builds the five kernel libraries from
               mpctsid_tpu_torch/qp/csrc, one nvcc each, all started together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
@@ -25,17 +25,32 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  iterations; also against EACH OTHER;
               3c the whole-solve kernel on the same QPs, 40 iterations in 3
                  rounds, warm-started: unscaled x, y and the scales
+              3d the tensor-core iteration (K as given) on the shapes of 3b,
+                 the MPC shape and the main path's two shapes, against its
+                 plain version; against the generic kernel on a symmetric K;
+                 and on a visibly skewed K, where "as given" and
+                 "transposed" part; timed at both main-path shapes
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
               the M2 kernel; once with the plain WBC and once with each
               kernel WBC backend ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
-              counts of every kernel (set to 0 before each rollout)
+              counts of every kernel (set to 0 before each rollout); then
+              the same preset on the ESTIMATED state (complementary filter in
+              the loop, hint-free) with both QP stages on the tensor-core
+              kernel
   5. backends kernel on the path against plain on the path, B=256: the MPC
               backends "m2" and "torch" over two periods; each WBC backend
-              against the plain WBC on one mid-gait WBC tick and one period
+              against the plain WBC on one mid-gait WBC tick and one period;
+              the estimator loop on the tensor-core kernel against the
+              estimator loop on the plain backends, one period
   6. single   B=1, one period per WBC backend (the single-robot shape)
+  7. sweep    the Monte-Carlo entry point: run_sweep over 2048 scenarios
+              (mixed gaits, commands, friction, payload) in chunks of 1024, 3
+              periods, default backends; then the same sweep stopped after
+              one chunk, saved, loaded and finished: the two metric tables
+              must be equal bit for bit
 
 The line before the last is one JSON object describing every kernel of the
 path; the last line is {"ok": true, "device": {...}}.
@@ -44,8 +59,10 @@ path; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -53,11 +70,14 @@ import torch
 
 from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
                                        engine, init_controller)
-from mpctsid_tpu_torch.config import PRESETS
+from mpctsid_tpu_torch.config import PRESETS, EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
+from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.qp import _build, kernels
+from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, run_sweep,
+                                     summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
 from mpctsid_tpu_torch.wbc.tsid import solve_wbc
 
@@ -65,6 +85,11 @@ from mpctsid_tpu_torch.wbc.tsid import solve_wbc
 # bound, whatever the power limit of the card at hand (printed beside it).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# The tensor cores' dense TF32 rate.  A product that keeps f32 accuracy takes
+# at least three TF32 products (hi hi, hi lo, lo hi), so the f32-equivalent
+# peak of split-TF32 work is a third of it: the operations side of kernel 5.
+TF32_FLOP_PER_S = 495e12
+SPLIT_TF32_FLOP_PER_S = TF32_FLOP_PER_S / 3.0
 
 KERNEL_TOL = 1e-4      # abs, x/z/y on unit-scaled inequality-only QPs: same
                        # arithmetic, other summation order
@@ -89,6 +114,12 @@ WBC_TAU_TOL = 0.2          # Nm, max over scenarios, one tick
 WBC_TAU_MEDIAN_TOL = 5e-2  # Nm, median over scenarios
 WBC_PERIOD_Q_TOL = 2e-3    # plant q after one period (20 ticks)
 ROLLOUT_PERIODS = 3        # 60 WBC ticks per scenario
+# Hint-free leg odometry drifts in x-y.  The JAX package's own test allows
+# 0.065 m over 600 ms of trot (tests/test_estimator.py); this rollout lasts
+# 60 ms from standing and was measured at 6.5e-4 m (max of 4096 scenarios,
+# H100), so it is held to eight times that.
+EST_DRIFT_TOL = 5e-3
+SWEEP_TOTAL, SWEEP_CHUNK, SWEEP_PERIODS = 2048, 1024, 3
 REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
 FAILURES: list[str] = []
 
@@ -218,6 +249,100 @@ def compare_refined(name: str, args, tol: float, packed: bool = True):
     return err_v, err_p
 
 
+def compare_mma(name: str, args, tol: float, iters: int = REFINED_ITERS,
+                f64: bool = True):
+    """Kernel 5 against its plain version (K as given), and against the
+    generic kernel on the same inputs with K made exactly symmetric (there
+    the two sides of K are one function); returns the error against plain.
+
+    With `f64` also the precision contract of the split-TF32 products:
+    against a float64 run of the plain version the kernel must be as accurate
+    as the float32 plain version is (within a factor 2; both distances are
+    maxima of chaotic rounding noise, hence the tenth of the tolerance)."""
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+    B, n, m = shape_of(args, 2)
+    want = kernels.admm_iterate_reference(*args, **kw)
+    got = kernels.admm_iterate(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if f64:
+        want64 = [t.float() for t in kernels.admm_iterate_reference(
+            *[a.double() for a in args], **kw)]
+        k64, p64 = max_err(got, want64), max_err(want, want64)
+        print(f"  mma {name}: distance to a float64 run: kernel {k64:.3e}, "
+              f"plain {p64:.3e}", flush=True)
+        check(k64 <= 2.0 * p64 + tol / 10,
+              f"mma kernel, {name}: as close to the float64 run as the plain "
+              "float32 version (factor 2, plus a tenth of the tolerance)")
+    sym = list(args)
+    sym[1] = (0.5 * (args[1] + args[1].transpose(1, 2))).contiguous()
+    got_s = kernels.admm_iterate(*sym, **kw)
+    got_v = kernels.admm_iterate_vpu(*sym, **kw)
+    torch.cuda.synchronize()
+    err_v = max_err(got_s, got_v)
+    print(f"  mma {name}: B={B} n={n} m={m} iters={iters} vs plain "
+          f"{err:.3e}; symmetric K, vs the generic kernel {err_v:.3e}",
+          flush=True)
+    check(all_finite(got) and all_finite(got_s) and err < tol
+          and err_v < tol,
+          f"mma kernel vs plain and (symmetric K) vs the generic kernel, "
+          f"{name}: < {tol:g}")
+    return err
+
+
+def time_mma(args, iters: int, reps: int, smi: str) -> dict:
+    """Kernel 5, its plain version and the bound at the shape of `args`; also
+    the generic FMA kernel's time (kernel 2: the same work with K
+    transposed) as the yardstick of the tensor-core mat-vec."""
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+    B, n, m = shape_of(args, 2)
+    ms = time_ms(lambda: kernels.admm_iterate(*args, **kw), 2, reps)
+    plain_ms = time_ms(
+        lambda: kernels.admm_iterate_reference(*args, **kw), 1, 3)
+    bound = refined_bound_ms(B, n, m, iters, SPLIT_TF32_FLOP_PER_S)
+    report_times("mma", f"B={B} n={n} m={m} iters={iters}", ms, plain_ms,
+                 bound, smi)
+    vpu_ms = time_ms(lambda: kernels.admm_iterate_vpu(*args, **kw), 2, reps)
+    print(f"    the generic FMA kernel on the same inputs: {vpu_ms:.4f} ms",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+SKEW = 3e-5     # of max |K|, added above the diagonal only
+
+
+def compare_mma_skewed(args) -> float:
+    """K made visibly non-symmetric: kernel 5 must follow the plain version
+    that applies K AS GIVEN, and the plain version that applies K transposed
+    (kernels 2 and 3) must lie far from both.  x and z are compared: on a
+    skewed K the refinement no longer cancels, and y (rho ~200 on equality
+    rows) amplifies the rounding of z beyond any fixed tolerance."""
+    kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
+    skewed = list(args)
+    K = args[1]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    noise = torch.randn(K.shape, generator=g).to(K.device)
+    skewed[1] = (K + SKEW * K.abs().max() * torch.triu(noise, 1)).contiguous()
+    got = kernels.admm_iterate(*skewed, **kw)
+    torch.cuda.synchronize()
+    as_given = kernels.admm_iterate_reference(*skewed, **kw)
+    transposed = kernels.admm_iterate_refined_reference(*skewed, **kw)
+    err = max_err(got[:2], as_given[:2])
+    apart = max_err(got[:2], transposed[:2])
+    sides = max_err(as_given[:2], transposed[:2])
+    print(f"  mma skewed K ({SKEW:g} of max|K| above the diagonal): x, z vs "
+          f"plain K as given {err:.3e}; vs plain K transposed {apart:.3e} "
+          f"(the two plain versions {sides:.3e} apart)", flush=True)
+    check(all_finite(got) and err < REFINED_EQ_TOL,
+          f"mma kernel applies K as given: < {REFINED_EQ_TOL:g} of that "
+          "plain version")
+    check(apart > 10 * REFINED_EQ_TOL and apart > 10 * err,
+          "mma kernel on a skewed K is far (> 10 tolerances, > 10 x its "
+          "error) from K applied transposed")
+    return err
+
+
 FUSED_KW = dict(iters=40, adapt_rounds=3, equilibrate_iters=8, rho0=0.1,
                 sigma=1e-6, alpha=1.6, rho_eq_scale=1e3, inf=1e20)
 
@@ -283,16 +408,18 @@ def time_ms(fn, warmup: int, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(floats: float, flops: float):
+def bound_ms(floats: float, flops: float,
+             flop_per_s: float = F32_FLOP_PER_S):
     """Least time the card could take: the bytes moved (every input read
     once, every output written once, 4 B each) against the memory rate, the
-    operations against the f32 FMA peak; the larger of the two.  Returns
-    (bound_ms, "bytes" | "operations", bytes_ms, flops_ms)."""
+    operations against the peak rate of the unit that does them (the f32 FMA
+    peak unless given); the larger of the two.  Returns
+    (bound_ms, "bytes" | "operations", bytes_ms, flops_ms, flop_per_s)."""
     bytes_ms = 4.0 * floats / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / F32_FLOP_PER_S * 1e3
+    flops_ms = flops / flop_per_s * 1e3
     return (max(bytes_ms, flops_ms),
             "bytes" if bytes_ms >= flops_ms else "operations",
-            bytes_ms, flops_ms)
+            bytes_ms, flops_ms, flop_per_s)
 
 
 def m2_bound_ms(B: int, n: int, m: int, iters: int):
@@ -302,11 +429,15 @@ def m2_bound_ms(B: int, n: int, m: int, iters: int):
     return bound_ms(floats, B * iters * (4.0 * m * n + 2.0 * n * n))
 
 
-def refined_bound_ms(B: int, n: int, m: int, iters: int):
+def refined_bound_ms(B: int, n: int, m: int, iters: int,
+                     flop_per_s: float = F32_FLOP_PER_S):
     """K^-1, K, A, q, x, l, u, rho, z, y in, x, z, y out; iters *
-    (4 m n + 6 n^2) flops per scenario (two products with A, three n x n)."""
+    (4 m n + 6 n^2) flops per scenario (two products with A, three n x n),
+    against the f32 FMA peak for kernels 2 and 3 and against the split-TF32
+    tensor-core peak for kernel 5."""
     floats = B * (2 * n * n + m * n + 2 * n + 5 * m + n + 2 * m)
-    return bound_ms(floats, B * iters * (4.0 * m * n + 6.0 * n * n))
+    return bound_ms(floats, B * iters * (4.0 * m * n + 6.0 * n * n),
+                    flop_per_s)
 
 
 def fused_bound_ms(B: int, n: int, m: int, iters: int, adapt_rounds: int,
@@ -332,11 +463,13 @@ def fused_bound_ms(B: int, n: int, m: int, iters: int, adapt_rounds: int,
 
 
 def report_times(label, shape, kernel_ms, plain_ms, bound, smi) -> None:
-    b_ms, by, bytes_ms, flops_ms = bound
+    b_ms, by, bytes_ms, flops_ms, flop_per_s = bound
+    unit = ("f32" if flop_per_s == F32_FLOP_PER_S
+            else "f32-equivalent in split TF32 on the tensor cores")
     print(f"  {label} {shape}: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by} (bytes "
           f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, flops "
-          f"{flops_ms:.4f} ms at {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32)  "
+          f"{flops_ms:.4f} ms at {flop_per_s / 1e12:.0f} TFLOP/s {unit})  "
           f"[{smi}]", flush=True)
 
 
@@ -345,7 +478,8 @@ def report_times(label, shape, kernel_ms, plain_ms, bound, smi) -> None:
 COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "admm_iterate_vpu": kernels.admm_iterate_vpu,
            "admm_iterate_vpu_packed": kernels.admm_iterate_vpu_packed,
-           "admm_solve_fused": kernels.admm_solve_fused}
+           "admm_solve_fused": kernels.admm_solve_fused,
+           "admm_iterate": kernels.admm_iterate}
 
 
 def reset_launch_counts() -> None:
@@ -359,19 +493,25 @@ def launch_counts() -> dict:
 
 WBC_KERNEL_OF = {"fused": "admm_solve_fused",
                  "packed": "admm_iterate_vpu_packed",
-                 "vpu": "admm_iterate_vpu"}
+                 "vpu": "admm_iterate_vpu",
+                 "pallas": "admm_iterate"}
+MPC_KERNEL_OF = {"auto_mpc": "admm_iterate_m2", "m2": "admm_iterate_m2",
+                 "pallas": "admm_iterate"}
 
 
-def expected_launches(cfg, periods: int, wbc_backend: str):
+def expected_launches(cfg, periods: int, wbc_backend: str,
+                      mpc_backend: str = None):
     """(the kernel this rollout is there to count, every kernel's expected
-    launches): the M2 kernel once per MPC adapt round; the whole-solve kernel
-    once per WBC tick; an iteration kernel once per WBC adapt round."""
+    launches): the MPC's iteration kernel once per MPC adapt round; the
+    whole-solve kernel once per WBC tick; a WBC iteration kernel once per WBC
+    adapt round."""
     expect = dict.fromkeys(COUNTED, 0)
-    expect["admm_iterate_m2"] = periods * cfg.solver.mpc_adapt_rounds
-    counted = WBC_KERNEL_OF.get(wbc_backend, "admm_iterate_m2")
-    if counted != "admm_iterate_m2":
+    mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
+    expect[mpc_kernel] = periods * cfg.solver.mpc_adapt_rounds
+    counted = WBC_KERNEL_OF.get(wbc_backend, mpc_kernel)
+    if wbc_backend in WBC_KERNEL_OF:
         ticks = periods * cfg.cascade.mpc_every
-        expect[counted] = ticks * (
+        expect[counted] += ticks * (
             1 if wbc_backend == "fused" else cfg.solver.wbc_adapt_rounds)
     return counted, expect
 
@@ -397,18 +537,22 @@ def make_scenarios(cfg, B: int, seed: int, device):
     return cc, ctl, plant, gid, v, cp
 
 
-def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device):
+def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device,
+                       mpc_backend: str = None, use_estimator: bool = False):
     """The main path at full width with one WBC backend: ROLLOUT_PERIODS
     periods of the preset from standing, every launch count set to 0 just
-    before and read just after.  Returns the counts."""
+    before and read just after.  With `use_estimator` the controller runs on
+    the hint-free complementary filter's estimate.  Returns the counts."""
     B = cfg.batch
     cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=0, device=device)
+    est = estimator_init(standing(B), device=device) if use_estimator else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.time()
     ctl, plant, metrics = cascade_rollout(
         cc, ctl, plant, gid, v, cp, n_periods=ROLLOUT_PERIODS, device=device,
+        est=est, use_estimator=use_estimator, mpc_backend=mpc_backend,
         wbc_backend=wbc_backend)
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -419,6 +563,10 @@ def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device):
     dz = float((x[:, :, 2] - SOLO12.h_ref).abs().max())
     wbc_ok = float(metrics["wbc_ok_frac"].mean())
     tag = f"wbc_backend={wbc_backend}"
+    if mpc_backend is not None:
+        tag = f"mpc_backend={mpc_backend} " + tag
+    if use_estimator:
+        tag = "estimator in the loop, " + tag
     print(f"  {tag}: {ticks / wall:.1f} ticks/s, "
           f"{wall / ROLLOUT_PERIODS:.3f} s per period, wall {wall:.2f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
@@ -435,6 +583,16 @@ def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device):
     check(dz < 0.03, f"{tag}: base height within 0.03 m of h_ref, every "
                      "scenario and period")
     check(counts == expect, f"{tag}: kernel launches are {expect}")
+    if use_estimator:
+        drift = metrics["est_xy_err"]
+        print(f"    hint-free estimator drift |est xy - plant xy| after "
+              f"{ROLLOUT_PERIODS} periods: mean "
+              f"{float(drift[:, -1].mean()):.3e} m, max "
+              f"{float(drift[:, -1].max()):.3e} m", flush=True)
+        check(tuple(drift.shape) == (B, ROLLOUT_PERIODS)
+              and bool(torch.isfinite(drift).all())
+              and float(drift.max()) < EST_DRIFT_TOL,
+              f"{tag}: est_xy_err finite and < {EST_DRIFT_TOL} m")
     return counts
 
 
@@ -488,7 +646,7 @@ def main() -> int:
     for name in kernels.LIBRARIES:
         kernels._library(name)
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
-    print(f"  four libraries built together and loaded in "
+    print(f"  {len(kernels.LIBRARIES)} libraries built together and loaded in "
           f"{time.time() - t0:.2f} s; nvcc seconds each: "
           + ", ".join(f"{k} {v:.2f}" for k, v in _build.BUILD_SECONDS.items()),
           flush=True)
@@ -612,6 +770,51 @@ def main() -> int:
         max_abs_err=max(errs), ms=fused_ms, plain_ms=plain_ms,
         bound_ms=bound[0], bound_by=bound[1])
 
+    # ---- 3d. kernel 5 vs plain ------------------------------------------
+    print("== 3d. tensor-core iteration kernel (K as given) vs its plain "
+          "version", flush=True)
+    _, wbc_args = iteration_inputs(30, 64, 30, 50, device, eq=True)
+    errs = [compare_mma("wbc shape", wbc_args, REFINED_EQ_TOL),
+            compare_mma("test shape", iteration_inputs(
+                31, 3, 24, 40, device, eq=True)[1], REFINED_EQ_TOL),
+            compare_mma("single", iteration_inputs(
+                32, 1, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
+            compare_mma("odd batch", iteration_inputs(
+                33, 37, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
+            compare_mma("wbc shape, no equality rows", iteration_inputs(
+                34, 64, 30, 50, device, eq=False)[1], KERNEL_TOL),
+            compare_mma("mpc shape, equality rows (streamed matrices)",
+                        iteration_inputs(35, 8, 192, 320, device, eq=True)[1],
+                        REFINED_EQ_TOL),
+            compare_mma_skewed(wbc_args)]
+    del wbc_args
+    mma_reports = {}
+    # the main path's two shapes: the WBC stage's (13 iterations, equality
+    # rows) and the MPC stage's (30 iterations, none; 64 scenarios tiled to
+    # B = 4096 as in 3a)
+    _, big = iteration_inputs(36, Bt, n, m, device, eq=True)
+    _, mpc64 = iteration_inputs(37, 64, 192, 320, device, eq=False)
+    mpc_big = [a.repeat((Bt // 64,) + (1,) * (a.dim() - 1)).contiguous()
+               for a in mpc64]
+    del mpc64
+    # (the float64 run of 4096 MPC-sized scenarios is left out: the MPC
+    # shape's precision is held at B=8 above)
+    errs.append(compare_mma("main path shape, wbc stage", big, REFINED_EQ_TOL))
+    mma_reports["wbc"] = time_mma(big, REFINED_ITERS, 10, smi)
+    del big
+    errs.append(compare_mma("main path shape, mpc stage", mpc_big, KERNEL_TOL,
+                            iters=30, f64=False))
+    mma_reports["mpc"] = time_mma(mpc_big, 30, 3, smi)
+    del mpc_big
+    torch.cuda.empty_cache()
+    # 60 of the 62 launches per period are at the WBC shape: its numbers are
+    # the entry's; the MPC shape's ride along under *_mpc_shape
+    reports["admm_iterate"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/admm_mma.cu",
+        replaces="mpctsid_tpu/qp/pallas_kernels.py:929",
+        max_abs_err=max(errs), **mma_reports["wbc"],
+        **{k + "_mpc_shape": v for k, v in mma_reports["mpc"].items()})
+
     # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
@@ -628,6 +831,13 @@ def main() -> int:
         counts = full_width_rollout(cfg, wbc_backend, expect, smi, device)
         path_launches[counted] = counts[counted]
         torch.cuda.empty_cache()
+    # the estimator-in-the-loop path, both QP stages on kernel 5
+    counted, expect = expected_launches(cfg, ROLLOUT_PERIODS, "pallas",
+                                        mpc_backend="pallas")
+    counts = full_width_rollout(cfg, "pallas", expect, smi, device,
+                                mpc_backend="pallas", use_estimator=True)
+    path_launches[counted] = counts[counted]
+    torch.cuda.empty_cache()
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched on the main path")
         reports[name]["launches"] = count
@@ -665,7 +875,7 @@ def main() -> int:
     wkw = {k: a for k, a in wkw.items() if k != "backend"}
     tau_plain = solve_wbc(tree, wcfg, q_t, v_t, refs, backend="torch",
                           **wkw)[0]
-    for backend in ("fused", "packed", "vpu"):
+    for backend in ("fused", "packed", "vpu", "pallas"):
         tau, _, _, sol = solve_wbc(tree, wcfg, q_t, v_t, refs,
                                    backend=backend, **wkw)
         d_tau = (tau - tau_plain).abs().amax(dim=1)
@@ -686,10 +896,34 @@ def main() -> int:
               f"{backend}: one period within {WBC_PERIOD_Q_TOL} of the plain "
               "WBC's q, every tick ok")
 
+    print("== 5c. estimator loop on the tensor-core kernel vs on the plain "
+          "backends, B=256, one mid-gait period", flush=True)
+    outs = {}
+    for backend in ("pallas", "torch"):
+        est = EstimatorState(q=plant2.q.clone(), v=plant2.v.clone())
+        ctl_e, plant_e, met_e = cascade_rollout(
+            cc, ctl2, plant2, gid, v, cp, n_periods=1, device=device, est=est,
+            use_estimator=True, mpc_backend=backend, wbc_backend=backend)
+        outs[backend] = (ctl_e.f_plan, plant_e.q, met_e)
+    d_plan = float((outs["pallas"][0] - outs["torch"][0]).abs().max())
+    d_q = float((outs["pallas"][1] - outs["torch"][1]).abs().max())
+    d_est = float((outs["pallas"][2]["est_xy_err"]
+                   - outs["torch"][2]["est_xy_err"]).abs().max())
+    print(f"  max |df_plan| {d_plan:.3e} N, max |dq| {d_q:.3e}, max "
+          f"|d est_xy_err| {d_est:.3e} m; wbc_ok_frac "
+          f"{float(outs['pallas'][2]['wbc_ok_frac'].mean()):.4f}", flush=True)
+    check(d_plan < 1e-3, "estimator loop: f_plan within 1e-3 N")
+    check(d_q < WBC_PERIOD_Q_TOL and d_est < WBC_PERIOD_Q_TOL and bool(
+        (outs["pallas"][2]["wbc_ok_frac"] == 1.0).all())
+        and bool(outs["pallas"][2]["mpc_ok"].all()),
+          f"estimator loop: plant q and est_xy_err within {WBC_PERIOD_Q_TOL} "
+          "of the plain backends', every solve ok")
+
     # ---- 6. B = 1 --------------------------------------------------------
     print("== 6. single robot, B=1, one period per WBC backend", flush=True)
     cfg1 = PRESETS["config1_trot_single"]
-    for wbc_backend in (cfg1.solver.wbc_backend, "fused", "packed", "vpu"):
+    for wbc_backend in (cfg1.solver.wbc_backend, "fused", "packed", "vpu",
+                        "pallas"):
         cc, ctl, plant, gid, v, cp = make_scenarios(cfg1, 1, seed=2,
                                                     device=device)
         reset_launch_counts()
@@ -708,6 +942,52 @@ def main() -> int:
         expect = expected_launches(cfg1, 1, wbc_backend)[1]
         check(counts == expect, f"B=1, {wbc_backend}: launches are {expect}")
 
+    # ---- 7. the Monte-Carlo sweep entry point ----------------------------
+    print(f"== 7. run_sweep: {SWEEP_TOTAL} scenarios in chunks of "
+          f"{SWEEP_CHUNK}, {SWEEP_PERIODS} periods; then interrupted, saved, "
+          "loaded, finished", flush=True)
+    reset_launch_counts()
+    t0 = time.time()
+    whole = run_sweep(SweepState.fresh(0, SWEEP_TOTAL, SWEEP_PERIODS),
+                      SWEEP_CHUNK, verbose=False, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sweep.npz")
+        part = run_sweep(SweepState.fresh(0, SWEEP_TOTAL, SWEEP_PERIODS),
+                         SWEEP_CHUNK, ckpt_path=ckpt, max_chunks=1,
+                         verbose=False, device=device)
+        stopped_at = part.cursor
+        resumed = run_sweep(SweepState.load(ckpt), SWEEP_CHUNK,
+                            ckpt_path=ckpt, verbose=False, device=device)
+        reloaded = SweepState.load(ckpt)
+    summary = summarize(whole)
+    sweep_cfg = EngineConfig()     # run_sweep builds its own, the default
+    ticks = SWEEP_TOTAL * SWEEP_PERIODS * sweep_cfg.cascade.mpc_every
+    print(f"  {ticks / wall:.1f} "
+          f"ticks/s, wall {wall:.2f} s; launches {counts}; {summary}  "
+          f"[{smi}]", flush=True)
+    differing = [k for k in METRIC_KEYS if not np.array_equal(
+        whole.metrics[k].view(np.uint32), resumed.metrics[k].view(np.uint32))]
+    check(whole.cursor == SWEEP_TOTAL and stopped_at == SWEEP_CHUNK
+          and resumed.cursor == SWEEP_TOTAL and reloaded.cursor == SWEEP_TOTAL,
+          "sweep: cursors of the whole, the stopped and the resumed run")
+    check(all(np.isfinite(whole.metrics[k]).all() for k in METRIC_KEYS),
+          "sweep: every stored metric finite (no padding, no NaN left)")
+    check(not differing, "sweep: interrupted and resumed run equals the "
+          f"uninterrupted one bit for bit (differing metrics: {differing})")
+    check(all(np.array_equal(reloaded.metrics[k].view(np.uint32),
+                             resumed.metrics[k].view(np.uint32))
+              for k in METRIC_KEYS),
+          "sweep: the last checkpoint holds the finished table")
+    expect = expected_launches(
+        sweep_cfg, SWEEP_TOTAL // SWEEP_CHUNK * SWEEP_PERIODS,
+        sweep_cfg.solver.wbc_backend)[1]
+    check(counts == expect, f"sweep: kernel launches are {expect}")
+    check(summary["upright_frac"] == 1.0,
+          "sweep: every scenario upright after its 60 ms")
+
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:
         print("chip_smoke FAILED:", *FAILURES, sep="\n  ", file=sys.stderr)
@@ -715,11 +995,7 @@ def main() -> int:
 
     # no single PyTorch call computes any of these functions: library_ms null
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=r["source"],
-             replaces=r["replaces"], launches=r["launches"],
-             max_abs_err=r["max_abs_err"], ms=r["ms"],
-             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-             bound_by=r["bound_by"], library_ms=None)
+        dict(name=name, route="cuda", library_ms=None, **r)
         for name, r in reports.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

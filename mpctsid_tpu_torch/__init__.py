@@ -17,14 +17,16 @@ Layout:
   model/    Solo-12 parameters, gait tables, kinematic tree (numpy data)
   dyn/      batched rigid-body dynamics: FK, Jacobians, CRBA, RNEA
   plan/     gait tables, Raibert footsteps, swing polynomials
-  qp/       batched dense ADMM QP core, blocked SPD inverse, and the
-            hand-written CUDA kernel of the M2 iteration (qp/csrc/)
+  qp/       batched dense ADMM QP core, blocked SPD inverse, and the five
+            hand-written CUDA kernels (qp/kernels.py, qp/csrc/)
   mpc/      SRB discretization + condensation -> qp/
   wbc/      TSID-style task assembly -> qp/
-  env/      batched penalty-contact plant
+  env/      batched penalty-contact plant; the host-side Plant protocol
+  est/      complementary-filter state estimator
   cascade/  the closed-loop cascade: cascade_period / cascade_rollout
   interop   numpy <-> state dataclasses (carrying a state across packages)
-  run       CLI entry point
+  run       CLI entry point: one closed-loop run
+  sweep     CLI entry point: Monte-Carlo scenario sweeps with checkpoints
 """
 
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls

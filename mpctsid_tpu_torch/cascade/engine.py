@@ -15,7 +15,10 @@ arithmetic with per-scenario masks; nothing in the tick loop reads a tensor
 on the host, and the metrics stay on the device until the caller fetches
 them.
 
-Not ported yet: the estimator in the loop (`use_estimator=True` raises).
+With `use_estimator=True` the controller consumes the complementary-filter
+estimate (est/filter.py), fed by the plant's IMU and encoders every tick,
+instead of the plant's true state; the actuator law and the plant keep the
+truth.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
+from mpctsid_tpu_torch.est.filter import estimator_update, imu_from_plant
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
@@ -139,6 +143,13 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
 
     gait_id (B,) int, v_cmd (B, 3).  Runs where the state tensors lie.
 
+    With use_estimator=True, the controller consumes the estimate `est`
+    (an `EstimatorState`, see est/filter.py) updated every tick from the
+    plant's IMU and encoders, instead of ground truth.  By default the
+    estimator is HINT-FREE: base x-y comes from integrating the fused
+    velocity and drifts as leg odometry does.  est_mocap=True feeds the
+    plant's true base position as an external-position hint.
+
     payload: optional (B,) tensor (kg): a point mass rigidly attached at the
     base origin, per scenario.  The plant always carries it.  payload_known
     controls whether the CONTROLLER models it too (SRB total mass + WBC mass
@@ -146,11 +157,9 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
 
     Returns (new_ctl, new_plant, est, metrics); metrics values are (B, ...)
     tensors on the device."""
-    if use_estimator or est is not None:
-        raise NotImplementedError(
-            "cascade_period(use_estimator=True): est/filter.py "
-            "(estimator_update, imu_from_plant) is not ported to "
-            "mpctsid_tpu_torch yet")
+    if use_estimator and est is None:
+        raise ValueError("cascade_period(use_estimator=True) needs est, an "
+                         "EstimatorState (est.filter.estimator_init)")
     model, cfg, tree = cc.model, cc.cfg, cc.tree
     # backend and budgets default from the config tree; explicit kwargs
     # (benches, A/B scripts, parity tests) override
@@ -179,7 +188,8 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     phase = ctl.phase
     contacts = contacts_at(gait_id, phase, dtype)                # (B, 4)
 
-    q_ctl, v_ctl = plant.q, plant.v
+    q_ctl = est.q if use_estimator else plant.q
+    v_ctl = est.v if use_estimator else plant.v
     feet_now = dyn.foot_positions(tree, q_ctl)
     x_srb = srb_state(q_ctl, v_ctl)
 
@@ -253,7 +263,15 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     fz_sum = plant.q.new_zeros((B,))
     wbc_ok_sum = plant.q.new_zeros((B,))
     for t in range(mpc_every):
-        q_t, v_t = plant.q, plant.v
+        if use_estimator:
+            gyro, accel = imu_from_plant(tree, plant.q, plant.v)
+            est = estimator_update(
+                tree, est, gyro, accel, plant.q[:, 7:], plant.v[:, 6:],
+                contacts, dt=wbc_dt,
+                base_pos_hint=plant.q[:, 0:3] if est_mocap else None)
+            q_t, v_t = est.q, est.v
+        else:
+            q_t, v_t = plant.q, plant.v
         frac = t / mpc_every
         s = torch.where(dur_pos, (back + frac) / dur_safe,
                         torch.zeros_like(dur))
@@ -312,6 +330,11 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
         "mpc_ok": mpc_ok,
         "wbc_ok_frac": wbc_ok_sum / mpc_every,
     }
+    if use_estimator:
+        # odometry-frame drift of the hint-free estimator against plant
+        # truth (stays 0 with est_mocap)
+        metrics["est_xy_err"] = torch.linalg.vector_norm(
+            est.q[:, 0:2] - plant.q[:, 0:2], dim=-1)
     return new_ctl, plant, est, metrics
 
 
@@ -324,8 +347,9 @@ def cascade_rollout(cc: CascadeConfigured, ctl: ControllerState,
     batch of scenarios on `device`.
 
     gait_id (B,) int; v_cmd (B, 3) or an (B, n_periods, 3) profile; payload:
-    optional (B,) base point mass (kg).  The states are moved to `device`
-    (default the card; raises if CUDA is asked for and absent).
+    optional (B,) base point mass (kg); est: the estimator's state when
+    use_estimator is set.  The states are moved to `device` (default the
+    card; raises if CUDA is asked for and absent).
 
     Returns (ctl, plant, metrics); each metric is stacked over periods on
     axis 1, (B, n_periods, ...), and stays on the device."""
@@ -333,6 +357,7 @@ def cascade_rollout(cc: CascadeConfigured, ctl: ControllerState,
     dev = resolve_device(device)
     ctl = _to_device(ctl, dev)
     plant = _to_device(plant, dev)
+    est = _to_device(est, dev)
     contact_params = _to_device(contact_params, dev)
     gait_id = torch.as_tensor(gait_id).to(dev)
     v_cmd = torch.as_tensor(v_cmd, dtype=plant.q.dtype).to(dev)

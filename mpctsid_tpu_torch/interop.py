@@ -22,11 +22,13 @@ import torch
 
 from mpctsid_tpu_torch.cascade.engine import ControllerState
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
+from mpctsid_tpu_torch.est.filter import EstimatorState
 from mpctsid_tpu_torch.utils import resolve_device
 
 __all__ = ["controller_state_from_numpy", "controller_state_to_numpy",
            "plant_state_from_numpy", "plant_state_to_numpy",
-           "contact_params_from_numpy", "contact_params_to_numpy"]
+           "contact_params_from_numpy", "contact_params_to_numpy",
+           "estimator_state_from_numpy", "estimator_state_to_numpy"]
 
 _INT_FIELDS = {"phase"}
 
@@ -71,6 +73,12 @@ def contact_params_from_numpy(arrays: dict, device="cuda",
     return _from_numpy(ContactParams, arrays, device, dtype)
 
 
+def estimator_state_from_numpy(arrays: dict, device="cuda",
+                               dtype=torch.float32) -> EstimatorState:
+    return _from_numpy(EstimatorState, arrays, device, dtype)
+
+
 controller_state_to_numpy = _to_numpy
 plant_state_to_numpy = _to_numpy
 contact_params_to_numpy = _to_numpy
+estimator_state_to_numpy = _to_numpy

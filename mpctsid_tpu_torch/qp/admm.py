@@ -38,14 +38,17 @@ the shared config tree uses it):
              scenarios per block, one warp each; raises when one scenario
              does not fit (JAX: "pallas_packed").
   "auto"     "vpu" when the problem lies on a CUDA device, "torch" on the CPU.
+  "mma"      the same iteration with K applied as given and every mat-vec
+             on the tensor cores (split-TF32 `mma.sync`), by `admm_iterate`;
+             one block per scenario, any shape, valid with equality rows
+             (JAX: "pallas").
   "fused"    the whole solve in one launch of `admm_solve_fused` (its own
              full-rescale Ruiz, factorization, iterations and rho
              adaptation); this function only unscales and computes the
              residuals and `ok`.
 
 Not ported yet, each raising NotImplementedError by name: modes "inv",
-"exact_inv" and "cholesky", `polish_kkt` (with qp/precision.py), and the
-backend "pallas" (the kernel `admm_iterate`).
+"exact_inv" and "cholesky", and `polish_kkt` (with qp/precision.py).
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ import dataclasses
 import torch
 
 from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
-from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate_m2,
-                                          admm_iterate_vpu,
+from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate,
+                                          admm_iterate_m2, admm_iterate_vpu,
                                           admm_iterate_vpu_packed,
                                           admm_solve_fused)
 
@@ -130,10 +133,12 @@ _BACKEND_NAMES = {
     "m2": "m2", "pallas_m2": "m2",
     "vpu": "vpu", "pallas_vpu": "vpu",
     "packed": "packed", "pallas_packed": "packed",
+    "mma": "mma", "pallas": "mma",
     "fused": "fused",
 }
 _ITERATION_KERNELS = {"vpu": admm_iterate_vpu,
-                      "packed": admm_iterate_vpu_packed}
+                      "packed": admm_iterate_vpu_packed,
+                      "mma": admm_iterate}
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -143,11 +148,6 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
         return "m2" if device.type == "cuda" else "torch"
     if backend == "auto":
         return "vpu" if device.type == "cuda" else "torch"
-    if backend == "pallas":
-        raise NotImplementedError(
-            "backend 'pallas': the kernel admm_iterate (the dot-product "
-            "iteration kernel) of qp/pallas_kernels.py is not ported to "
-            "mpctsid_tpu_torch yet; 'vpu' computes the same function")
     if backend not in _BACKEND_NAMES:
         raise ValueError(f"unknown backend {backend!r}")
     return _BACKEND_NAMES[backend]

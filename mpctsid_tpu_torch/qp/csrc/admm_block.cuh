@@ -135,6 +135,42 @@ struct IterVecs {
     float* part;  // (n_chunks * n) partial sums of the row reductions
 };
 
+// The z / y tail of one update for constraint row i, given acc = (A x_t)[i]:
+//     z_r = alpha acc + (1 - alpha) z;  z = clip(z_r + y / rho, l, u);
+//     y   = y + rho (z_r - z);          w = rho z - y
+__device__ __forceinline__ void project_row(const IterVecs& v, int i,
+                                            float acc, float alpha,
+                                            float one_m_alpha)
+{
+    const float zr = alpha * acc + one_m_alpha * v.z[i];
+    const float yi = v.y[i];
+    const float rh = v.rho[i];
+    const float zn = fminf(fmaxf(zr + v.rinv[i] * yi, v.l[i]), v.u[i]);
+    const float yn = yi + rh * (zr - zn);
+    v.z[i] = zn;
+    v.y[i] = yn;
+    v.w[i] = rh * zn - yn;
+}
+
+// Which matrices of one scenario live in shared memory: greedily in the
+// order of their reads per iteration — K^-1 (twice), A (twice), K (once) —
+// as far as `max_smem` allows beyond the `base` bytes of the vectors; the
+// rest is streamed from global memory / L2.  `smem` is the block's total.
+struct Residency {
+    int kinv, a, k;
+    size_t smem;
+};
+
+inline Residency greedy_residency(size_t base, size_t nn_bytes,
+                                  size_t mn_bytes, size_t max_smem)
+{
+    Residency r = {0, 0, 0, base};
+    if (r.smem + nn_bytes <= max_smem) { r.kinv = 1; r.smem += nn_bytes; }
+    if (r.smem + mn_bytes <= max_smem) { r.a = 1; r.smem += mn_bytes; }
+    if (r.smem + nn_bytes <= max_smem) { r.k = 1; r.smem += nn_bytes; }
+    return r;
+}
+
 // `iters` ADMM updates with the EXPLICIT refinement step, in the order and
 // with the matrix sides of the TPU kernels `_admm_kernel_vpu` /
 // `_admm_kernel_vpu_packed` / the loop body of `_admm_fused_kernel`:
@@ -200,17 +236,7 @@ __device__ __forceinline__ void refined_iterations(
 
         for (int i = warp; i < m; i += n_warps) {
             const float acc = warp_row_dot(A + (size_t)i * n, v.xt, n, lane);
-            if (lane == 0) {
-                const float zr = alpha * acc + one_m_alpha * v.z[i];
-                const float yi = v.y[i];
-                const float rh = v.rho[i];
-                const float zn =
-                    fminf(fmaxf(zr + v.rinv[i] * yi, v.l[i]), v.u[i]);
-                const float yn = yi + rh * (zr - zn);
-                v.z[i] = zn;
-                v.y[i] = yn;
-                v.w[i] = rh * zn - yn;
-            }
+            if (lane == 0) project_row(v, i, acc, alpha, one_m_alpha);
         }
         __syncthreads();
     }

@@ -154,15 +154,13 @@ int admm_vpu_launch(const float* Kinv, const float* K, const float* A,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
 
-    size_t smem = sizeof(float) *
+    const size_t vec_bytes = sizeof(float) *
         ((size_t)6 * n + (size_t)7 * m + (size_t)n_chunks * n);
-    if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-    const size_t nn_bytes = sizeof(float) * (size_t)n * (size_t)n;
-    const size_t mn_bytes = sizeof(float) * (size_t)m * (size_t)n;
-    int kinv_in_smem = 0, a_in_smem = 0, k_in_smem = 0;
-    if (smem + nn_bytes <= (size_t)max_smem) { kinv_in_smem = 1; smem += nn_bytes; }
-    if (smem + mn_bytes <= (size_t)max_smem) { a_in_smem = 1; smem += mn_bytes; }
-    if (smem + nn_bytes <= (size_t)max_smem) { k_in_smem = 1; smem += nn_bytes; }
+    if (vec_bytes > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+    const Residency res = greedy_residency(
+        vec_bytes, sizeof(float) * (size_t)n * (size_t)n,
+        sizeof(float) * (size_t)m * (size_t)n, (size_t)max_smem);
+    const size_t smem = res.smem;
 
     if (smem > 48 * 1024) {
         err = cudaFuncSetAttribute(admm_vpu_kernel,
@@ -172,7 +170,7 @@ int admm_vpu_launch(const float* Kinv, const float* K, const float* A,
     }
     admm_vpu_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
         Kinv, K, A, q, l, u, rho, x0, z0, y0, x_out, z_out, y_out,
-        n, m, iters, sigma, alpha, kinv_in_smem, a_in_smem, k_in_smem,
+        n, m, iters, sigma, alpha, res.kinv, res.a, res.k,
         col_threads, n_chunks);
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """The port's hand-written kernels and their plain PyTorch versions.
 
-Four kernels, all CUDA C++ under qp/csrc/, each replacing a TPU kernel of the
+Five kernels, all CUDA C++ under qp/csrc/, each replacing a TPU kernel of the
 JAX package's qp/pallas_kernels.py and keeping its function name:
 
   * `admm_iterate_m2` (admm_m2.cu) <- `admm_iterate_m2` /
@@ -19,6 +19,12 @@ JAX package's qp/pallas_kernels.py and keeping its function name:
     Ruiz, per adapt round K, its Cholesky-based inverse with one
     Newton-Schulz step, the refined iterations, rho adaptation); returns the
     SCALED x, y and the scales D, E, c.
+  * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
+    generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
+    mat-vec on the tensor cores: warp-level TF32 `mma.sync` with each
+    operand split into two TF32 parts in the kernel (three for the
+    cancelling product K x_a), so that the products keep f32 accuracy.  One
+    block per scenario, any shape.
 
 Every wrapper checks its arguments; on CUDA tensors it launches its kernel on
 PyTorch's current stream and raises on any failure (bad argument, build
@@ -31,17 +37,16 @@ Plain versions, used by the CPU tests and by the on-card comparison of
 chip_smoke.py and by nothing on the CUDA main path:
 `admm_iterate_m2_reference`, `admm_iterate_refined_reference` (ONE plain
 version for `admm_iterate_vpu` and `admm_iterate_vpu_packed`: they compute
-the same function) and `admm_solve_fused_reference`.
+the same function), `admm_iterate_reference` (the same loop with K as given)
+and `admm_solve_fused_reference`.
 
 Matrix sides.  M2, K and K^-1 are symmetric only up to rounding, so the side
 each is applied from is part of the function, and is the TPU kernels': M2
 TRANSPOSED (x_t[j] = sum_i M2[i, j] rhs[i]); K^-1 as given (x_a[i] =
-sum_j K^-1[i, j] rhs[j]); K TRANSPOSED (sum_i K[i, j] x_a[i]).  A is passed
-row-major (B, m, n) as the caller holds it; no transposed copy is made.
-
-`admm_iterate` (backend "pallas", the dot-product form of the generic
-iteration) is the one TPU kernel not ported yet; qp/admm.py raises
-NotImplementedError for it.
+sum_j K^-1[i, j] rhs[j]); K TRANSPOSED (sum_i K[i, j] x_a[i]) in
+`admm_iterate_vpu`, `admm_iterate_vpu_packed` and `admm_solve_fused`, but AS
+GIVEN (sum_j K[i, j] x_a[j]) in `admm_iterate`.  A is passed row-major
+(B, m, n) as the caller holds it; no transposed copy is made.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
 __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_iterate_vpu", "admm_iterate_vpu_packed",
            "admm_iterate_refined_reference", "check_refined_args",
+           "admm_iterate", "admm_iterate_reference",
            "packed_layout", "admm_solve_fused", "admm_solve_fused_reference",
            "check_fused_args", "build_all", "LIBRARIES"]
 
@@ -116,8 +122,9 @@ def check_m2_args(M2, A, q, l, u, rho_vec, x, z, y):
 
 
 def check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y):
-    """Raise unless the arguments are what the two refined-iteration kernels
-    take; returns (B, n, m).
+    """Raise unless the arguments are what the refined-iteration kernels
+    (`admm_iterate_vpu`, `admm_iterate_vpu_packed`, `admm_iterate`) take;
+    returns (B, n, m).
 
     All float32, on one device, contiguous; K_inv, K (B, n, n), A (B, m, n),
     q, x (B, n), l, u, rho_vec, z, y (B, m)."""
@@ -179,20 +186,16 @@ def admm_iterate_m2_reference(M2, A, q, l, u, rho_vec, x, z, y,
     return x, z, y
 
 
-def admm_iterate_refined_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
-                                   iters: int = 25, sigma: float = 1e-6,
-                                   alpha: float = 1.6):
-    """Plain PyTorch version of the iteration with the explicit refinement;
-    returns (x, z, y).
-
-    One plain version serves `admm_iterate_vpu` and `admm_iterate_vpu_packed`:
-    the two kernels compute the same function and differ only in how they
-    lay scenarios out on the card."""
+def _refined_loop(K_inv, K, A, q, l, u, rho_vec, x, z, y, iters: int,
+                  sigma: float, alpha: float, k_transposed: bool):
+    """The iteration with the explicit refinement r = rhs - K' x_a
+    (`k_transposed`) or r = rhs - K x_a; returns (x, z, y)."""
+    k_apply = _mtv if k_transposed else _mv
     rho_inv = 1.0 / rho_vec
     for _ in range(iters):
         rhs = sigma * x - q + _mtv(A, rho_vec * z - y)
         x_a = _mv(K_inv, rhs)                              # K^-1 rhs
-        r = rhs - _mtv(K, x_a)                             # rhs - K' x_a
+        r = rhs - k_apply(K, x_a)
         x_t = x_a + _mv(K_inv, r)
         z_t = _mv(A, x_t)
         x = alpha * x_t + (1.0 - alpha) * x
@@ -201,6 +204,28 @@ def admm_iterate_refined_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
         y = y + rho_vec * (z_r - z_n)
         z = z_n
     return x, z, y
+
+
+def admm_iterate_refined_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                                   iters: int = 25, sigma: float = 1e-6,
+                                   alpha: float = 1.6):
+    """Plain PyTorch version of the iteration with the explicit refinement,
+    K TRANSPOSED (r = rhs - K' x_a); returns (x, z, y).
+
+    One plain version serves `admm_iterate_vpu` and `admm_iterate_vpu_packed`:
+    the two kernels compute the same function and differ only in how they
+    lay scenarios out on the card."""
+    return _refined_loop(K_inv, K, A, q, l, u, rho_vec, x, z, y, iters,
+                         sigma, alpha, k_transposed=True)
+
+
+def admm_iterate_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                           iters: int = 25, sigma: float = 1e-6,
+                           alpha: float = 1.6):
+    """Plain PyTorch version of `admm_iterate`: the same loop with K AS GIVEN
+    (r = rhs - K x_a); returns (x, z, y)."""
+    return _refined_loop(K_inv, K, A, q, l, u, rho_vec, x, z, y, iters,
+                         sigma, alpha, k_transposed=False)
 
 
 def _amax(t):
@@ -287,6 +312,7 @@ LIBRARIES = {
     "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh",)),
     "admm_packed": (("admm_packed.cu",), ()),
     "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
+    "admm_mma": (("admm_mma.cu",), ("admm_block.cuh",)),
 }
 
 _PTR = ctypes.c_void_p
@@ -297,6 +323,7 @@ _LAUNCH_ARGTYPES = {
     "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
     "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 3 + [_PTR],
     "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT, _PTR],
+    "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
 }
 
 _LIBS: dict = {}
@@ -527,3 +554,47 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
 
 
 admm_solve_fused.launches = 0
+
+
+def _pick_mma_threads(n: int, m: int) -> int:
+    """Block size of the tensor-core kernel: about four 16 x 16 tiles of A
+    per warp, 2 to 16 warps.  Small problems are bound by barriers and do
+    better with few warps per block and many blocks per multiprocessor;
+    problems whose matrices are streamed want as many loads in flight as the
+    kernel's launch bound allows."""
+    tiles = ((m + 15) // 16) * ((n + 15) // 16)
+    return 32 * max(2, min(16, tiles // 4))
+
+
+def admm_iterate(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                 iters: int = 25, sigma: float = 1e-6, alpha: float = 1.6):
+    """`iters` ADMM updates with the explicit refinement and K AS GIVEN,
+    every mat-vec on the tensor cores; one block per scenario, any n and m;
+    returns (x, z, y).
+
+    CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
+    the plain version.  See the module docstring.
+
+    The kernel splits every operand into TF32 parts: two ("3xTF32") for A' w,
+    K^-1 rhs, K^-1 r and A x_t, three (an exact split of an f32) for the
+    cancelling product K x_a of the residual.  That is part of the function's
+    accuracy and fixed in admm_mma.cu.  Measured when the kernel was written,
+    on 4096 WBC-sized QPs with equality rows (H100, PERF.md): two parts
+    everywhere sat 8.2e-4 from a float64 run (the float32 plain version:
+    6.2e-4), three for K x_a alone 4.0e-4, three everywhere 3.6e-4; the third
+    part of K x_a cost 4-7 % of the kernel's time, a third part of the other
+    four 20-45 % more."""
+    B, n, m = check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y)
+    iters = _check_iters(iters)
+    if K_inv.device.type == "cpu":
+        return admm_iterate_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
+                                      iters=iters, sigma=sigma, alpha=alpha)
+    _require_cuda(K_inv.device, "admm_iterate")
+    out = _launch_iteration("admm_mma", (K_inv, K, A, q, l, u, rho_vec),
+                            x, z, y, (B, n, m), iters, sigma, alpha,
+                            (_pick_mma_threads(n, m),))
+    admm_iterate.launches += 1
+    return out
+
+
+admm_iterate.launches = 0

@@ -1,14 +1,14 @@
 """Entry script: run the closed-loop cascade in simulation from the CLI.
 
     python -m mpctsid_tpu_torch.run --gait trot --vx 0.3 --seconds 2
-    python -m mpctsid_tpu_torch.run --gait walk --profile weave \\
+    python -m mpctsid_tpu_torch.run --gait walk --profile weave --estimator \\
         --jsonl run.jsonl --plot run.png --batch 16
     python -m mpctsid_tpu_torch.run --cpu --seconds 0.2
 
 Runs on the GPU unless --cpu is given, and fails if there is none.  Metrics
 accumulate on the device and cross to the host once per run; they are
 optionally emitted as JSONL per MPC period plus a matplotlib summary plot.
---estimator is accepted and raises: the estimator is not ported yet."""
+--estimator puts the complementary filter (est/filter.py) in the loop."""
 
 from __future__ import annotations
 
@@ -32,8 +32,7 @@ def main(argv=None):
     p.add_argument("--profile", default="constant",
                    choices=["constant", "ramp", "weave"])
     p.add_argument("--estimator", action="store_true",
-                   help="run the complementary filter in the loop "
-                        "(not ported yet: raises)")
+                   help="run the complementary filter in the loop")
     p.add_argument("--batch", type=int, default=1,
                    help="number of identical scenarios (throughput check)")
     p.add_argument("--mu", type=float, default=0.7, help="ground friction")
@@ -47,14 +46,11 @@ def main(argv=None):
                                            init_controller)
     from mpctsid_tpu_torch.config import EngineConfig
     from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
+    from mpctsid_tpu_torch.est.filter import estimator_init
     from mpctsid_tpu_torch.model.gaits import GAIT_IDS
     from mpctsid_tpu_torch.model.solo12 import SOLO12
     from mpctsid_tpu_torch.utils import resolve_device
 
-    if args.estimator:
-        raise NotImplementedError(
-            "--estimator: est/filter.py is not ported to mpctsid_tpu_torch "
-            "yet; run without it")
     device = resolve_device("cpu" if args.cpu else "cuda")
 
     model = SOLO12
@@ -78,6 +74,7 @@ def main(argv=None):
     gid = np.full((B,), GAIT_IDS[args.gait], np.int32)
     ctl = init_controller(model, cfg, cc.tree, q0, gid, device=device)
     plant = PlantState.init(q0, device=device)
+    est = estimator_init(q0, device=device) if args.estimator else None
     cp = ContactParams.default(B, device=device)
     cp.mu = torch.full_like(cp.mu, args.mu)
     vs = np.broadcast_to(v_seq, (B,) + v_seq.shape)
@@ -85,7 +82,8 @@ def main(argv=None):
     t0 = time.time()
     ctl, plant, metrics = cascade_rollout(
         cc, ctl, plant, gid, np.ascontiguousarray(vs), cp,
-        n_periods=n_periods, device=device)
+        n_periods=n_periods, est=est, use_estimator=args.estimator,
+        device=device)
     # the one device -> host transfer of the run (it also waits for the device)
     metrics_np = {k: v[0].cpu().numpy() for k, v in metrics.items()}
     wall = time.time() - t0
@@ -95,7 +93,7 @@ def main(argv=None):
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"gait={args.gait} profile={args.profile} periods={n_periods} "
-          f"batch={B} device={where}")
+          f"batch={B} estimator={args.estimator} device={where}")
     print(f"  wall {wall:.1f}s | "
           f"{B * n_periods * cfg.cascade.mpc_every / wall:,.0f} "
           f"ticks/s")

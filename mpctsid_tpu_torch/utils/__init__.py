@@ -5,7 +5,9 @@ inverse, the ADMM fixed point) assumes full-f32 products; with reduced-
 precision matmuls the closed loop diverges.  On an NVIDIA card the trap is
 TF32, which keeps about three decimal digits.  `enforce_f32_matmuls` switches
 it off for matrix products and asserts that it stayed off; every entry point
-of the port calls it.  The hand-written kernels use f32 FMAs only.
+of the port calls it.  The hand-written kernels use f32 FMAs, except
+qp/csrc/admm_mma.cu, whose tensor-core products take every operand split
+into two or three TF32 parts and so keep f32 accuracy.
 
 Device.  `resolve_device` turns the `device=` argument of an entry point into
 a `torch.device` and raises when CUDA is asked for and absent: no code path

@@ -14,8 +14,9 @@ Decision variable x = [qdd(18); f(12)] in R^30.  Two deliberate choices:
     instead of being added/removed, keeping H's sparsity pattern static.
 
 The QP has equality rows (base dynamics, stance contacts), which puts it
-outside the M2 kernel's validity domain: `solve_wbc` takes the plain backend
-only ("torch"; "xla" is accepted as its name in the shared config tree).
+outside the M2 kernel's validity domain: `solve_wbc` takes every backend of
+qp/admm.py that keeps the explicit refinement residual and refuses the M2
+ones.
 """
 
 from __future__ import annotations
@@ -175,15 +176,15 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     QPSolution).
 
     backend: any backend of `admm_solve` that is valid with equality rows:
-    "torch" (plain), "vpu", "packed", "fused", "auto", or their JAX
-    spellings."""
+    "torch" (plain), "vpu", "packed", "mma", "fused", "auto", or their JAX
+    spellings ("xla", "pallas_vpu", "pallas_packed", "pallas")."""
     if backend in _M2_BACKENDS:
         raise ValueError(
             f"solve_wbc backend {backend!r}: the WBC QP has equality rows "
             "(base dynamics, stance contacts), outside the M2 kernel's "
             "domain: their 1e3 rho boost pushes cond(K) to ~1e4, where the "
             "folded map M2 loses the accuracy the explicit residual keeps; "
-            "use 'torch', 'vpu', 'packed', 'fused' or 'auto'")
+            "use 'torch', 'vpu', 'packed', 'mma', 'fused' or 'auto'")
     H, g, A, l, u, M, h, JcT = build_wbc_qp(
         tree, cfg, q, v, refs, extra_base_inertia=extra_base_inertia)
     # status_tol 0.5: a cold-started fixed-iteration WBC solve legitimately

@@ -3,6 +3,8 @@
 
     python3 scripts/profile_torch_cascade.py [--batch 4096] [--out DIR]
                                              [--wbc-backend torch fused ...]
+                                             [--mpc-backend pallas]
+                                             [--estimator]
 
 Needs a CUDA device (it fails without one).  For each batch size it
 
@@ -12,11 +14,15 @@ Needs a CUDA device (it fails without one).  For each batch size it
      functions on that state, each ended by a synchronize: footstep plan +
      MPC QP assembly, the MPC solve (kernel backend and plain backend), the
      WBC QP assembly alone, one WBC tick (QP assembly + solve) with each WBC
-     backend asked for, one plant step;
+     backend asked for, one plant step; with --mpc-backend also the MPC
+     solve on that backend, with --estimator also one estimator tick (IMU
+     model + filter update);
   3. for each WBC backend, times one whole period (wall clock, synchronized)
      and traces one more with torch.profiler: number of device kernels
      launched, launches of the port's own kernels, the device's busy time
-     and idle share, and the ten kernels with the most device time.
+     and idle share, and the ten kernels with the most device time.  With
+     --estimator the period runs on the estimated state (hint-free filter in
+     the loop), with --mpc-backend its MPC stage runs on that backend.
 
 Prints one JSON object per batch size; with --out also writes it to
 DIR/profile_torch_cascade.json.  The card's name and power limit are in it.
@@ -38,11 +44,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from mpctsid_tpu_torch import dyn  # noqa: E402
 from mpctsid_tpu_torch.cascade import (CascadeConfigured,  # noqa: E402
-                                       cascade_period, cascade_rollout,
-                                       init_controller, srb_state)
+                                       cascade_period, init_controller,
+                                       srb_state)
 from mpctsid_tpu_torch.config import EngineConfig  # noqa: E402
 from mpctsid_tpu_torch.env.plant import (ContactParams, PlantState,  # noqa: E402
                                          plant_step)
+from mpctsid_tpu_torch.est.filter import (estimator_init,  # noqa: E402
+                                          estimator_update, imu_from_plant)
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout  # noqa: E402
@@ -54,7 +62,8 @@ from mpctsid_tpu_torch.wbc.tsid import (WbcRefs, build_wbc_qp,  # noqa: E402
                                         solve_wbc)
 
 OWN_KERNELS = (kernels.admm_iterate_m2, kernels.admm_iterate_vpu,
-               kernels.admm_iterate_vpu_packed, kernels.admm_solve_fused)
+               kernels.admm_iterate_vpu_packed, kernels.admm_solve_fused,
+               kernels.admm_iterate)
 
 
 def timed(fn, reps: int = 3) -> float:
@@ -70,7 +79,8 @@ def timed(fn, reps: int = 3) -> float:
     return float(np.median(out))
 
 
-def profile_batch(B: int, device, wbc_backends) -> dict:
+def profile_batch(B: int, device, wbc_backends, mpc_backend=None,
+                  use_estimator: bool = False) -> dict:
     cfg = EngineConfig(gait="trot", v_ref=(0.3, 0.0, 0.0))
     cc = CascadeConfigured(SOLO12, cfg)
     q0 = np.zeros((B, 19), np.float32)
@@ -85,10 +95,13 @@ def profile_batch(B: int, device, wbc_backends) -> dict:
         np.random.default_rng(0).uniform(0.5, 0.9, size=B),
         dtype=torch.float32).to(device)
     v_np = np.tile(np.asarray(cfg.v_ref, np.float32), (B, 1))
-    ctl, plant, _ = cascade_rollout(cc, ctl, plant, gid_np, v_np, cp,
-                                    n_periods=2, device=device)
     gid = torch.as_tensor(gid_np).to(device)
     v = torch.as_tensor(v_np).to(device)
+    est = estimator_init(q0, device=device) if use_estimator else None
+    for _ in range(2):
+        ctl, plant, est, _ = cascade_period(cc, ctl, plant, gid, v, cp,
+                                            est=est,
+                                            use_estimator=use_estimator)
     dtype = plant.q.dtype
     N = cfg.mpc.horizon
 
@@ -138,6 +151,16 @@ def profile_batch(B: int, device, wbc_backends) -> dict:
         "plant_step_ms": timed(lambda: plant_step(cc.tree, plant, tau,
                                                   params=cp)),
     }
+    if mpc_backend is not None:
+        stages["mpc_solve_ms"] = {mpc_backend: timed(lambda: mpc(mpc_backend))}
+    if use_estimator:
+        def estimator_tick():
+            gyro, accel = imu_from_plant(cc.tree, plant.q, plant.v)
+            return estimator_update(cc.tree, est, gyro, accel,
+                                    plant.q[:, 7:], plant.v[:, 6:], contacts,
+                                    dt=cfg.cascade.wbc_dt)
+
+        stages["estimator_tick_ms"] = timed(estimator_tick)
     del qp
     torch.cuda.empty_cache()
 
@@ -146,7 +169,9 @@ def profile_batch(B: int, device, wbc_backends) -> dict:
 
     def profile_period(backend):
         def period():
-            return cascade_period(cc, ctl, plant, gid, v, cp,
+            return cascade_period(cc, ctl, plant, gid, v, cp, est=est,
+                                  use_estimator=use_estimator,
+                                  mpc_backend=mpc_backend,
                                   wbc_backend=backend)
 
         period_ms = timed(period, reps=2)
@@ -168,9 +193,12 @@ def profile_batch(B: int, device, wbc_backends) -> dict:
             "period_wall_ms": period_ms,
             "ticks_per_s": B * cfg.cascade.mpc_every / (period_ms / 1e3),
             "stage_sum_ms": (
-                stages["plan_and_mpc_qp_ms"] + stages["mpc_solve_m2_ms"]
-                + cfg.cascade.mpc_every * (stages["wbc_tick_ms"][backend]
-                                           + stages["plant_step_ms"])),
+                stages["plan_and_mpc_qp_ms"]
+                + (stages["mpc_solve_m2_ms"] if mpc_backend is None
+                   else stages["mpc_solve_ms"][mpc_backend])
+                + cfg.cascade.mpc_every * (
+                    stages["wbc_tick_ms"][backend] + stages["plant_step_ms"]
+                    + stages.get("estimator_tick_ms", 0.0))),
             "traced_period_wall_ms": traced_ms,
             "device_kernels_launched": launches,
             "own_kernel_launches": own,
@@ -182,7 +210,8 @@ def profile_batch(B: int, device, wbc_backends) -> dict:
                  "device_ms": e.device_time_total / 1e3} for e in top],
         }
 
-    return {"batch": B, "stages": stages,
+    return {"batch": B, "mpc_backend": mpc_backend or cfg.solver.mpc_backend,
+            "estimator": use_estimator, "stages": stages,
             "periods": {b: profile_period(b) for b in wbc_backends}}
 
 
@@ -191,7 +220,13 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[4096, 1])
     ap.add_argument("--wbc-backend", nargs="+", default=["torch"],
                     help="WBC backends to time (qp/admm.py names), e.g. "
-                         "torch fused packed vpu")
+                         "torch fused packed vpu pallas")
+    ap.add_argument("--mpc-backend", default=None,
+                    help="MPC backend of the whole periods (default: the "
+                         "config's, the M2 kernel), e.g. pallas")
+    ap.add_argument("--estimator", action="store_true",
+                    help="run the periods on the estimated state "
+                         "(complementary filter in the loop, hint-free)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -204,7 +239,8 @@ def main() -> int:
                          text=True).stdout.strip()
     result = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda,
-              "batches": [profile_batch(B, device, args.wbc_backend)
+              "batches": [profile_batch(B, device, args.wbc_backend,
+                                        args.mpc_backend, args.estimator)
                           for B in args.batch]}
     text = json.dumps(result, indent=1)
     print(text)

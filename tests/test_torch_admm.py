@@ -2,9 +2,9 @@
 
 `ruiz_equilibrate` and `admm_solve` against the JAX functions under
 `jax.vmap`, on the random QPs of tests/test_pallas_admm.py: backend "torch"
-against "xla", and the kernel backends "vpu", "packed" and "fused" (on the
-CPU: their plain versions) against "pallas_vpu", "pallas_packed" and "fused"
-in Pallas interpret mode.
+against "xla", and the kernel backends "vpu", "packed", "mma" and "fused" (on
+the CPU: their plain versions) against "pallas_vpu", "pallas_packed", "pallas"
+and "fused" in Pallas interpret mode.
 """
 
 import numpy as np
@@ -92,7 +92,6 @@ def test_ok_is_per_scenario_with_one_poisoned_scenario():
     (dict(mode="exact_inv"), "mode 'exact_inv'"),
     (dict(mode="cholesky"), "mode 'cholesky'"),
     (dict(polish_kkt=True), "polish"),
-    (dict(backend="pallas"), "admm_iterate"),
 ])
 def test_unported_options_raise_by_name(kw, match):
     qp = [tt(a)[None] for a in random_qp(0)]
@@ -109,7 +108,7 @@ def test_unknown_backend_and_unbatched_input_raise():
 
 
 KERNEL_BACKENDS = [("vpu", "pallas_vpu"), ("packed", "pallas_packed"),
-                   ("fused", "fused")]
+                   ("mma", "pallas"), ("fused", "fused")]
 
 
 @pytest.mark.parametrize("backend,jax_backend", KERNEL_BACKENDS)
@@ -171,7 +170,8 @@ def test_fused_backend_on_wbc_sized_qps_matches_jax_and_plain():
     np.testing.assert_allclose(npy(s_t.x), npy(s_p.x), atol=1e-3)
 
 
-@pytest.mark.parametrize("backend", ["vpu", "packed", "fused"])
+@pytest.mark.parametrize("backend", ["vpu", "packed", "mma", "pallas",
+                                     "fused"])
 def test_kernel_backend_keeps_a_poisoned_scenario_alone(backend):
     """A NaN problem in the batch flags ITS `ok` false and changes nothing,
     bit for bit, in the other scenarios' solutions (equality rows in)."""
@@ -195,6 +195,7 @@ def test_kernel_backend_keeps_a_poisoned_scenario_alone(backend):
     ("vpu", "vpu", "vpu"), ("pallas_vpu", "vpu", "vpu"),
     ("packed", "packed", "packed"), ("pallas_packed", "packed", "packed"),
     ("fused", "fused", "fused"),
+    ("mma", "mma", "mma"), ("pallas", "mma", "mma"),
     ("auto", "torch", "vpu"),
 ])
 def test_backend_names_resolve(name, cpu, cuda):
@@ -212,3 +213,18 @@ def test_pallas_m2_spelling_runs_and_auto_is_plain_on_the_cpu():
     s_p = tadmm.admm_solve(*qp, backend="torch", **kw)
     s_a = tadmm.admm_solve(*qp, backend="auto", **kw)
     assert torch.equal(s_a.x, s_p.x)
+
+
+def test_mma_backend_applies_k_as_given_and_differs_from_vpu_only_by_rounding():
+    """"mma" and "vpu" differ in one thing, the side K is applied from in
+    the refinement residual; K is symmetric up to rounding, so the two solves
+    agree far inside the backend budget but need not be bit-equal, and the
+    JAX spelling "pallas" IS "mma"."""
+    qp = [tt(a) for a in stacked(range(4), eq=True)]
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1)
+    s_m = tadmm.admm_solve(*qp, backend="mma", **kw)
+    s_j = tadmm.admm_solve(*qp, backend="pallas", **kw)
+    s_v = tadmm.admm_solve(*qp, backend="vpu", **kw)
+    assert torch.equal(s_m.x, s_j.x) and torch.equal(s_m.y, s_j.y)
+    np.testing.assert_allclose(npy(s_m.x), npy(s_v.x), atol=1e-3)
+    np.testing.assert_allclose(npy(s_m.y), npy(s_v.y), atol=1e-2)

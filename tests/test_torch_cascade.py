@@ -329,9 +329,11 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one():
 
 
 def test_estimator_in_the_loop_raises_by_name():
+    """use_estimator=True without an estimator state is refused, naming what
+    is missing (the estimator loop itself: tests/test_torch_estimator.py)."""
     cc, ctl, plant, gid = _standing(1)
     cp = ContactParams.default(1, device="cpu")
-    with pytest.raises(NotImplementedError, match="est/filter.py"):
+    with pytest.raises(ValueError, match="EstimatorState"):
         tengine.cascade_period(cc, ctl, plant, torch.as_tensor(gid),
                                torch.zeros(1, 3), cp, use_estimator=True)
 
@@ -342,8 +344,9 @@ def test_run_cli_on_the_cpu(capsys):
                    "--gait", "walk", "--vx", "0.2"])
     out = capsys.readouterr().out
     assert rc == 0 and "device=cpu" in out and "ticks/s" in out
-    with pytest.raises(NotImplementedError, match="estimator"):
-        run.main(["--cpu", "--estimator"])
+    rc = run.main(["--cpu", "--estimator", "--seconds", "0.02"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "estimator=True" in out and "fell=False" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             run.main(["--seconds", "0.02"])

@@ -5,10 +5,11 @@
 The JAX package (jit + vmap) rolls three scenarios (trot, walk, bound; three
 friction values, one payload) three periods from standing on its default
 backends; from that mid-gait state both packages run the fourth period with
-`wbc_backend` "pallas_vpu", "pallas_packed" and "fused" in turn.  On the CPU
-the JAX side runs its Pallas kernels in interpret mode and the port runs the
-plain versions of its CUDA kernels (chip_smoke.py holds the kernels
-themselves against those on the card).
+`wbc_backend` "pallas_vpu", "pallas_packed", "fused" and "pallas" in turn,
+and once with `mpc_backend="pallas"`.  On the CPU the JAX side runs its Pallas
+kernels in interpret mode and the port runs the plain versions of its CUDA
+kernels (chip_smoke.py holds the kernels themselves against those on the
+card).
 """
 
 import functools
@@ -43,7 +44,8 @@ V_CMD = np.array([[0.3, 0.0, 0.0], [0.2, 0.0, 0.1], [0.25, 0.0, 0.0]],
 MU = np.array([0.5, 0.7, 0.9], np.float32)
 PAYLOAD = np.array([0.0, 0.3, 0.0], np.float32)
 WARM_PERIODS = 3
-BACKENDS = ["pallas_vpu", "pallas_packed", "fused"]
+BACKENDS = ["pallas_vpu", "pallas_packed", "fused", "pallas"]
+MPC_PALLAS = "mpc_backend=pallas"      # key of the period with the MPC on it
 
 
 def _params_numpy():
@@ -56,9 +58,10 @@ def _params_numpy():
 def jax_side():
     """(state before the 4th period, {backend: state and metrics after}).
 
-    The JAX `solve_wbc` has no switch for Pallas interpret mode, and on the
-    CPU its kernels run only interpreted: the switch is set from outside, for
-    this module only.  Nothing in the JAX package changes."""
+    The JAX `solve_wbc` and `cascade_period` have no switch for Pallas
+    interpret mode, and on the CPU its kernels run only interpreted: the
+    switch is set from outside, for this module only.  Nothing in the JAX
+    package changes."""
     cfg = JEngineConfig()
     cc = jengine.CascadeConfigured(J_SOLO12, cfg)
     q0 = jj(standing_q0(B))
@@ -79,22 +82,23 @@ def jax_side():
         ctl, plant, _, _ = warm(ctl, plant, *args)
     before = (fields_to_numpy(ctl), fields_to_numpy(plant))
 
-    original = jtsid.admm_solve
-    jtsid.admm_solve = functools.partial(jadmm.admm_solve,
-                                         backend_interpret=True)
+    originals = (jtsid.admm_solve, jengine.admm_solve)
+    jtsid.admm_solve = jengine.admm_solve = functools.partial(
+        jadmm.admm_solve, backend_interpret=True)
     try:
         after = {}
-        for backend in BACKENDS:
-            ctl2, plant2, _, metrics = period_fn(wbc_backend=backend)(
-                ctl, plant, *args)
-            after[backend] = (fields_to_numpy(ctl2), fields_to_numpy(plant2),
-                              {k: npy(v) for k, v in metrics.items()})
+        runs = [(b, dict(wbc_backend=b)) for b in BACKENDS]
+        runs.append((MPC_PALLAS, dict(mpc_backend="pallas")))
+        for key, kw in runs:
+            ctl2, plant2, _, metrics = period_fn(**kw)(ctl, plant, *args)
+            after[key] = (fields_to_numpy(ctl2), fields_to_numpy(plant2),
+                          {k: npy(v) for k, v in metrics.items()})
     finally:
-        jtsid.admm_solve = original
+        jtsid.admm_solve, jengine.admm_solve = originals
     return before, after
 
 
-def _port_period(before, backend):
+def _port_period(before, backend, **kw):
     ctl_np, plant_np = before
     cc = tengine.CascadeConfigured(SOLO12, EngineConfig())
     ctl = interop.controller_state_from_numpy(ctl_np, device="cpu")
@@ -102,16 +106,18 @@ def _port_period(before, backend):
     cp = interop.contact_params_from_numpy(_params_numpy(), device="cpu")
     ctl2, plant2, _, metrics = tengine.cascade_period(
         cc, ctl, plant, torch.as_tensor(GID), tt(V_CMD), cp,
-        payload=tt(PAYLOAD), wbc_backend=backend)
+        payload=tt(PAYLOAD), wbc_backend=backend, **kw)
     return ctl2, plant2, metrics
 
 
 @pytest.fixture(scope="module")
 def port_side(jax_side):
     counters = [kernels.admm_iterate_vpu, kernels.admm_iterate_vpu_packed,
-                kernels.admm_solve_fused, kernels.admm_iterate_m2]
+                kernels.admm_solve_fused, kernels.admm_iterate_m2,
+                kernels.admm_iterate]
     launches = [f.launches for f in counters]
     out = {b: _port_period(jax_side[0], b) for b in BACKENDS + ["xla"]}
+    out[MPC_PALLAS] = _port_period(jax_side[0], "xla", mpc_backend="pallas")
     assert [f.launches for f in counters] == launches    # CPU: plain versions
     return out
 
@@ -173,7 +179,7 @@ def test_packed_and_vpu_backends_are_one_function_on_the_cpu(port_side):
     assert torch.equal(plant_v.v, plant_p.v)
 
 
-@pytest.mark.parametrize("backend", ["vpu", "packed", "fused"])
+@pytest.mark.parametrize("backend", ["vpu", "packed", "fused", "mma"])
 def test_poisoned_scenario_with_wbc_backend_falls_back_alone(backend):
     """Failure policy with a kernel backend in the WBC stage: a NaN command
     poisons scenario 1; it falls back to joint impedance and stays finite,
@@ -199,3 +205,39 @@ def test_poisoned_scenario_with_wbc_backend_falls_back_alone(backend):
     keep = [0, 2]
     assert torch.equal(plant_b.q[keep], clean[1].q[keep])
     assert torch.equal(ctl_b.wbc_warm_x[keep], clean[0].wbc_warm_x[keep])
+
+
+def test_period_with_mpc_backend_pallas_matches_jax_and_the_plain_mpc(
+        jax_side, port_side):
+    """The MPC stage on the dot-product iteration (n = 192, m = 320, 30
+    iterations in each of 2 rounds), the WBC on its default: the plan within
+    the 1e-3 N that two MPC backends are given (tests/test_torch_cascade.py),
+    of JAX with the same backend and of the port's plain MPC; the rest of the
+    period within the plain period's budgets."""
+    ctl_j, plant_j, met_j = jax_side[1][MPC_PALLAS]
+    ctl_t, plant_t, met_t = port_side[MPC_PALLAS]
+    ctl_p, _, _ = port_side["xla"]
+    np.testing.assert_allclose(npy(ctl_t.f_plan), ctl_j["f_plan"], atol=1e-3)
+    np.testing.assert_allclose(npy(ctl_t.f_plan), npy(ctl_p.f_plan),
+                               atol=1e-3)
+    np.testing.assert_allclose(npy(ctl_t.mpc_warm_x), ctl_j["mpc_warm_x"],
+                               atol=1e-3)
+    assert npy(met_t["mpc_ok"]).all() and met_j["mpc_ok"].all()
+    np.testing.assert_allclose(npy(met_t["mpc_prim_res"]),
+                               met_j["mpc_prim_res"], atol=1e-3)
+    np.testing.assert_allclose(npy(plant_t.q), plant_j["q"], atol=2e-3)
+    np.testing.assert_allclose(npy(plant_t.v)[:2], plant_j["v"][:2],
+                               atol=5e-2)
+    np.testing.assert_allclose(npy(plant_t.v)[2:], plant_j["v"][2:], atol=0.3)
+    assert npy(met_t["wbc_ok_frac"]).min() == 1.0
+
+
+def test_pallas_and_vpu_wbc_periods_differ_only_by_rounding(port_side):
+    """Kernel 5 applies K as given, kernels 2/3 transposed: two plain
+    versions on the CPU, so the periods need not be bit-equal, but K is
+    symmetric up to rounding and they stay within the WBC-noise budgets."""
+    _, plant_v, _ = port_side["pallas_vpu"]
+    _, plant_m, _ = port_side["pallas"]
+    np.testing.assert_allclose(npy(plant_m.q), npy(plant_v.q), atol=2e-3)
+    np.testing.assert_allclose(npy(plant_m.v)[:2], npy(plant_v.v)[:2],
+                               atol=5e-2)

@@ -2,7 +2,8 @@
 numpy-only data modules with the JAX package's.
 
 The port (`mpctsid_tpu_torch/`, `chip_smoke.py`) imports torch and numpy,
-never jax and nothing from `mpctsid_tpu`; only the tests import both.
+never jax, never flax and nothing from `mpctsid_tpu`; only the tests import
+both.
 """
 
 import dataclasses
@@ -29,16 +30,18 @@ import mpctsid_tpu_torch.plan.gait as t_plan_gait
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "mpctsid_tpu_torch"
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|mpctsid_tpu)(\.|\s|$)")
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|flax|mpctsid_tpu)(\.|\s|$)")
 
 PORT_SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def test_the_port_has_sources_to_check():
     names = {p.name for p in PORT_SOURCES}
-    assert {"admm.py", "kernels.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"admm.py", "kernels.py", "engine.py", "chip_smoke.py",
+            "filter.py", "interface.py", "sweep.py"} <= names
     for source in ("admm_m2.cu", "admm_vpu.cu", "admm_packed.cu",
-                   "admm_fused.cu", "admm_block.cuh"):
+                   "admm_fused.cu", "admm_mma.cu", "admm_block.cuh"):
         assert (PORT / "qp" / "csrc" / source).exists(), source
 
 
@@ -53,7 +56,8 @@ def test_no_source_line_imports_jax_or_the_jax_package(path):
 
 def test_forbidden_pattern_catches_what_it_should():
     for line in ("import jax", "from jax import numpy", "  import jax.numpy as jnp",
-                 "from mpctsid_tpu.qp import admm", "import mpctsid_tpu"):
+                 "from mpctsid_tpu.qp import admm", "import mpctsid_tpu",
+                 "from flax import serialization", "import flax"):
         assert FORBIDDEN.match(line), line
     for line in ("import mpctsid_tpu_torch", "from mpctsid_tpu_torch.qp import x",
                  "# import jax", "import jaxtyping"):
@@ -73,8 +77,11 @@ names = [m.name for m in pkgutil.walk_packages(mpctsid_tpu_torch.__path__,
                                                "mpctsid_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 25, names
+assert len(names) >= 29, names
+for n in ("est.filter", "env.interface", "sweep"):
+    assert "mpctsid_tpu_torch." + n in names, n
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m == "flax" or m.startswith("flax.") or m == "msgpack"
           or m == "mpctsid_tpu" or m.startswith("mpctsid_tpu.")]
 assert not loaded, loaded
 assert "triton" not in sys.modules
@@ -105,7 +112,8 @@ def test_kernel_on_a_cpu_tensor_does_not_reach_the_build_step(monkeypatch):
                                   z(1, 2), z(1, 2), torch.ones(1, 2), z(1, 3),
                                   z(1, 2), z(1, 2), iters=2)
     assert out[0].shape == (1, 3)
-    for fn in (kernels.admm_iterate_vpu, kernels.admm_iterate_vpu_packed):
+    for fn in (kernels.admm_iterate_vpu, kernels.admm_iterate_vpu_packed,
+               kernels.admm_iterate):
         out = fn(torch.eye(3)[None], torch.eye(3)[None], z(1, 2, 3), z(1, 3),
                  z(1, 2), z(1, 2), torch.ones(1, 2), z(1, 3), z(1, 2),
                  z(1, 2), iters=2)

@@ -1,7 +1,8 @@
 """Port parity for the kernels' module, qp/kernels.py.
 
 On the CPU a wrapper (`admm_iterate_m2`, `admm_iterate_vpu`,
-`admm_iterate_vpu_packed`, `admm_solve_fused`) runs its kernel's plain
+`admm_iterate_vpu_packed`, `admm_solve_fused`, `admm_iterate`) runs its
+kernel's plain
 version; the hand-written CUDA kernels themselves are held against those same
 plain versions on the GPU by chip_smoke.py.  Here each plain version is held
 against the TPU kernel it replaces, run as the JAX package's own tests run it
@@ -166,14 +167,15 @@ ITER_KW = dict(iters=30, sigma=1e-6, alpha=1.6)
 REFINED_ATOL = 1e-3
 
 
-def refined_inputs(seed, B=4, n=24, m=40, skew=0.0):
+def refined_inputs(seed, B=4, n=24, m=40, skew=0.0, eq=True):
     """Unit-scaled inputs of the refined iteration from random QPs WITH
     equality rows (rho boosted 1e3 on them, as the solver does) and a few
     infinite bounds (+-1e20, as the WBC's swing rows).  K^-1 is the float64
     inverse rounded to f32.  `skew` adds a deliberate relative asymmetry to K
-    and K^-1, so a test can fix which side each is applied from."""
+    and K^-1, so a test can fix which side each is applied from.  With
+    eq=False the QPs are inequality-only."""
     r = np.random.default_rng(seed)
-    P, q, A, l, u = stacked(range(seed, seed + B), n=n, m=m, eq=True)
+    P, q, A, l, u = stacked(range(seed, seed + B), n=n, m=m, eq=eq)
     l[:, 10:13] = -1e20
     u[:, 12:15] = 1e20
     eq = (u - l) < 1e-9
@@ -351,7 +353,8 @@ def _bad_refined(kind):
 def test_refined_argument_checks_raise(kind):
     with pytest.raises((TypeError, ValueError)):
         tk.check_refined_args(*_bad_refined(kind))
-    for fn in (tk.admm_iterate_vpu, tk.admm_iterate_vpu_packed):
+    for fn in (tk.admm_iterate_vpu, tk.admm_iterate_vpu_packed,
+               tk.admm_iterate):
         with pytest.raises((TypeError, ValueError)):
             fn(*_bad_refined(kind), iters=1)
 
@@ -415,3 +418,86 @@ def test_packed_layout_choice():
         assert tk.packed_layout(n, 2 * n, 5, smem, n_sm)[1] % 2 == 1
     with pytest.raises(ValueError, match="shared memory"):
         tk.packed_layout(192, 320, 8, smem, n_sm)
+
+
+# ---------------------------------------------------------------------------
+# the dot-product form of the generic iteration (kernel 5): K AS GIVEN
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("eq", [True, False], ids=["eq_rows", "ineq_only"])
+@pytest.mark.parametrize("seed", range(3))
+def test_mma_reference_matches_tpu_dot_kernel_interpret(seed, eq):
+    """`admm_iterate` (backend "pallas") takes one scenario; vmap gives it the
+    batch, as the solver does.  30 iterations.  With equality rows the
+    tolerance is REFINED_ATOL, for its reason; without them both sides run
+    the same arithmetic in another summation order at unit scale: 1e-4, as
+    for the M2 iteration."""
+    args = refined_inputs(10 + seed, eq=eq)
+    want = jax.vmap(lambda *a: jk.admm_iterate(*a, interpret=True,
+                                               **ITER_KW))(
+        *[jj(a) for a in args])
+    got = tk.admm_iterate_reference(*[tt(a) for a in args], **ITER_KW)
+    _assert_xzy(got, want, REFINED_ATOL if eq else 1e-4)
+
+
+def test_mma_reference_applies_k_as_given():
+    """With K skewed by 3e-5 of its largest entry the plain version still
+    agrees with the TPU kernel on x and z (y left out, as in the sides test
+    above), while applying K transposed (what kernels 2 and 3 do: the other
+    plain version, or K flipped) moves x by several times the tolerance.
+    This is the test that fails if `admm_iterate_reference` shared the
+    transposed side."""
+    args = refined_inputs(2, skew=3e-5)
+    want = jax.vmap(lambda *a: jk.admm_iterate(*a, interpret=True,
+                                               **ITER_KW))(
+        *[jj(a) for a in args])
+    targs = [tt(a) for a in args]
+    got = tk.admm_iterate_reference(*targs, **ITER_KW)
+    _assert_xzy(got[:2], want[:2], REFINED_ATOL)
+    x_other, _, _ = tk.admm_iterate_refined_reference(*targs, **ITER_KW)
+    assert (got[0] - x_other).abs().max() > 3 * REFINED_ATOL
+    assert (tt(npy(want[0])) - x_other).abs().max() > 3 * REFINED_ATOL
+    flipped = list(targs)
+    flipped[1] = targs[1].transpose(1, 2).contiguous()
+    x_f, _, _ = tk.admm_iterate_reference(*flipped, **ITER_KW)
+    # K' as given IS K transposed, up to the two products' summation orders
+    np.testing.assert_allclose(npy(x_f), npy(x_other), atol=REFINED_ATOL)
+
+
+def test_mma_and_refined_references_agree_on_a_symmetric_k():
+    """The two plain versions share one loop and differ only in K's side: on
+    an exactly symmetric K they agree up to the two batched products'
+    summation orders."""
+    targs = [tt(a) for a in refined_inputs(5, eq=False)]
+    targs[1] = (0.5 * (targs[1] + targs[1].transpose(1, 2))).contiguous()
+    a = tk.admm_iterate_reference(*targs, **ITER_KW)
+    b = tk.admm_iterate_refined_reference(*targs, **ITER_KW)
+    _assert_xzy(a, b, 1e-4)
+
+
+def test_mma_wrapper_on_cpu_is_the_plain_version():
+    """On CPU tensors nothing is launched or built."""
+    args = [tt(a) for a in refined_inputs(3, B=3)]
+    before = tk.admm_iterate.launches
+    want = tk.admm_iterate_reference(*args, iters=10, sigma=1e-6, alpha=1.6)
+    got = tk.admm_iterate(*args, iters=10, sigma=1e-6, alpha=1.6)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tk.admm_iterate.launches == before
+    assert not torch.equal(
+        want[0], tk.admm_iterate_refined_reference(*args, iters=10)[0])
+
+
+def test_mma_block_size_choice_and_library_entry():
+    # about four 16 x 16 tiles of A per warp, 2 to 16 warps
+    assert tk._pick_mma_threads(30, 50) == 64
+    assert tk._pick_mma_threads(24, 40) == 64
+    assert tk._pick_mma_threads(192, 320) == 512
+    assert tk._pick_mma_threads(64, 96) == 192
+    for n, m in ((1, 1), (30, 50), (100, 7), (192, 320), (1000, 2000)):
+        t = tk._pick_mma_threads(n, m)
+        assert t % 32 == 0 and 64 <= t <= 512
+    assert tk.LIBRARIES["admm_mma"] == (("admm_mma.cu",), ("admm_block.cuh",))
+    # the ABI of the one-block-per-scenario iteration kernels
+    assert tk._LAUNCH_ARGTYPES["admm_mma"] == tk._LAUNCH_ARGTYPES["admm_vpu"]
+    with pytest.raises(ValueError, match="iters"):
+        tk.admm_iterate(*[tt(x) for x in refined_inputs(4, B=2)], iters=-1)

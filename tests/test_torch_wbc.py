@@ -166,7 +166,8 @@ def jax_kernels_interpreted(monkeypatch):
         jadmm.admm_solve, backend_interpret=True))
 
 
-@pytest.mark.parametrize("backend", ["pallas_vpu", "pallas_packed", "fused"])
+@pytest.mark.parametrize("backend", ["pallas_vpu", "pallas_packed", "fused",
+                                     "pallas"])
 def test_solve_wbc_kernel_backend_matches_jax_same_backend(
         ticks, jax_kernels_interpreted, backend):
     """The production budget on the cascade's own ticks, the same backend on
@@ -191,7 +192,8 @@ def test_solve_wbc_kernel_backend_matches_jax_same_backend(
     assert npy(sol_t.ok).all() and npy(sol_j.ok).all()
 
 
-@pytest.mark.parametrize("backend", ["vpu", "packed", "fused", "auto"])
+@pytest.mark.parametrize("backend", ["vpu", "packed", "fused", "auto", "mma",
+                                     "pallas"])
 def test_solve_wbc_kernel_backend_matches_plain_backend(ticks, backend):
     """Within the port: a kernel backend against the plain one on the same
     ticks, same noise budget.  On CPU tensors "auto" IS the plain backend."""
@@ -215,6 +217,6 @@ def test_solve_wbc_kernel_backends_raise_by_name(ticks):
         with pytest.raises(ValueError, match="equality rows"):
             ttsid.solve_wbc(TTREE, CFG.wbc, tt(q), tt(v), _trefs(refs),
                             backend=backend)
-    with pytest.raises(NotImplementedError, match="admm_iterate"):
+    with pytest.raises(ValueError, match="unknown backend"):
         ttsid.solve_wbc(TTREE, CFG.wbc, tt(q), tt(v), _trefs(refs),
-                        backend="pallas")
+                        backend="cublas")
