@@ -24,12 +24,23 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  refuse it) and the main path's shape (B=4096, 30, 50), 13
                  iterations; also against EACH OTHER;
               3c the whole-solve kernel on the same QPs, 40 iterations in 3
-                 rounds, warm-started: unscaled x, y and the scales
-              3d the tensor-core iteration (K as given) on the shapes of 3b,
-                 the MPC shape and the main path's two shapes, against its
-                 plain version; against the generic kernel on a symmetric K;
-                 and on a visibly skewed K, where "as given" and
-                 "transposed" part; timed at both main-path shapes
+                 rounds, warm-started: unscaled x, y and the scales.  Its
+                 warp path (one warp per scenario, n <= 32) at B = 1, 37, 64
+                 and 4096 (a partial last block) at the WBC and the test
+                 shape and at n = 32, the edge; its block path at n = 33 and
+                 at the MPC shape (global workspace); the path each launch
+                 takes is checked, and two launches must agree bit for bit
+              3d the tensor-core iteration (K as given) against its plain
+                 version: its warp path at the same B's and shapes; its
+                 cluster path (matrices resident across a thread-block
+                 cluster) at the MPC shape (B = 1, 8, 4096: clusters of 3), at
+                 shapes that take clusters of 1, 2 and 6, at one whose n and
+                 m are no multiples of 16 per block and at two that even a
+                 cluster of 8 holds only in part (one with rows that are not
+                 16-byte aligned in device memory); against the generic kernel
+                 on a symmetric K; on a visibly skewed K, where "as given"
+                 and "transposed" part, on BOTH paths; two launches bit for
+                 bit; timed at both main-path shapes
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -209,6 +220,15 @@ def all_finite(tensors) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in tensors)
 
 
+def check_repeatable(label: str, fn) -> None:
+    """Two launches on the same inputs must agree bit for bit (no atomics,
+    no order that changes from run to run)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          f"{label}: two launches agree bit for bit")
+
+
 def compare_m2(name: str, args, iters: int = 30) -> float:
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
     got = kernels.admm_iterate_m2(*args, **kw)
@@ -250,10 +270,12 @@ def compare_refined(name: str, args, tol: float, packed: bool = True):
 
 
 def compare_mma(name: str, args, tol: float, iters: int = REFINED_ITERS,
-                f64: bool = True):
+                f64: bool = True, path: str = "warp", cluster: int = 0):
     """Kernel 5 against its plain version (K as given), and against the
     generic kernel on the same inputs with K made exactly symmetric (there
     the two sides of K are one function); returns the error against plain.
+    The launch must take `path` ("warp", or "cluster" with `cluster` blocks
+    per scenario), and two launches must agree bit for bit.
 
     With `f64` also the precision contract of the split-TF32 products:
     against a float64 run of the plain version the kernel must be as accurate
@@ -261,10 +283,18 @@ def compare_mma(name: str, args, tol: float, iters: int = REFINED_ITERS,
     maxima of chaotic rounding noise, hence the tenth of the tolerance)."""
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
     B, n, m = shape_of(args, 2)
+    lay = kernels.mma_layout(n, m, B,
+                             *kernels.device_limits(args[0].device))
+    check((lay.path, lay.cluster) == (path, cluster),
+          f"mma kernel, {name}: takes the {path} path"
+          + (f" with clusters of {cluster}" if cluster else "")
+          + f" ({lay})")
     want = kernels.admm_iterate_reference(*args, **kw)
     got = kernels.admm_iterate(*args, **kw)
     torch.cuda.synchronize()
     err = max_err(got, want)
+    check_repeatable(f"mma kernel, {name}",
+                     lambda: kernels.admm_iterate(*args, **kw))
     if f64:
         want64 = [t.float() for t in kernels.admm_iterate_reference(
             *[a.double() for a in args], **kw)]
@@ -312,7 +342,7 @@ def time_mma(args, iters: int, reps: int, smi: str) -> dict:
 SKEW = 3e-5     # of max |K|, added above the diagonal only
 
 
-def compare_mma_skewed(args) -> float:
+def compare_mma_skewed(name: str, args) -> float:
     """K made visibly non-symmetric: kernel 5 must follow the plain version
     that applies K AS GIVEN, and the plain version that applies K transposed
     (kernels 2 and 3) must lie far from both.  x and z are compared: on a
@@ -331,15 +361,16 @@ def compare_mma_skewed(args) -> float:
     err = max_err(got[:2], as_given[:2])
     apart = max_err(got[:2], transposed[:2])
     sides = max_err(as_given[:2], transposed[:2])
-    print(f"  mma skewed K ({SKEW:g} of max|K| above the diagonal): x, z vs "
-          f"plain K as given {err:.3e}; vs plain K transposed {apart:.3e} "
-          f"(the two plain versions {sides:.3e} apart)", flush=True)
+    print(f"  mma {name}, skewed K ({SKEW:g} of max|K| above the diagonal): "
+          f"x, z vs plain K as given {err:.3e}; vs plain K transposed "
+          f"{apart:.3e} (the two plain versions {sides:.3e} apart)",
+          flush=True)
     check(all_finite(got) and err < REFINED_EQ_TOL,
-          f"mma kernel applies K as given: < {REFINED_EQ_TOL:g} of that "
-          "plain version")
+          f"mma kernel, {name}, applies K as given: < {REFINED_EQ_TOL:g} of "
+          "that plain version")
     check(apart > 10 * REFINED_EQ_TOL and apart > 10 * err,
-          "mma kernel on a skewed K is far (> 10 tolerances, > 10 x its "
-          "error) from K applied transposed")
+          f"mma kernel, {name}, on a skewed K is far (> 10 tolerances, > 10 "
+          "x its error) from K applied transposed")
     return err
 
 
@@ -347,9 +378,10 @@ FUSED_KW = dict(iters=40, adapt_rounds=3, equilibrate_iters=8, rho0=0.1,
                 sigma=1e-6, alpha=1.6, rho_eq_scale=1e3, inf=1e20)
 
 
-def compare_fused(name: str, args) -> float:
+def compare_fused(name: str, args, path: str = "warp") -> float:
     """Kernel 4 against its plain version: the unscaled solution and the
-    scales; returns the max abs error of the unscaled x.
+    scales; returns the max abs error of the unscaled x.  The launch must
+    take `path` ("warp" or "block"), and two launches must agree bit for bit.
 
     Two float32 runs of this solver differ by chaotic rounding noise whose
     largest value grows with the number of QPs looked at (measured: max |dx|
@@ -358,8 +390,14 @@ def compare_fused(name: str, args) -> float:
     and, against a float64 run of the plain version, to being as accurate
     as the float32 plain version is (within a factor 2)."""
     B, n, m = shape_of(args, 2)
+    lay = kernels.fused_layout(n, m, B,
+                               *kernels.device_limits(args[0].device))
+    check(lay.path == path,
+          f"fused kernel, {name}: takes the {path} path ({lay})")
     xs, ys, D, E, c = kernels.admm_solve_fused(*args, **FUSED_KW)
     torch.cuda.synchronize()
+    check_repeatable(f"fused kernel, {name}",
+                     lambda: kernels.admm_solve_fused(*args, **FUSED_KW))
 
     def unscaled(xs_, ys_, D_, E_, c_):
         return D_ * xs_, E_ * ys_ / c_[:, None]
@@ -749,8 +787,16 @@ def main() -> int:
             compare_fused("test shape", fused_inputs(21, 3, 24, 40, device)),
             compare_fused("single", fused_inputs(22, 1, 30, 50, device)),
             compare_fused("odd batch", fused_inputs(23, 37, 30, 50, device)),
-            compare_fused("mpc shape (global workspace)",
-                          fused_inputs(24, 8, 192, 320, device))]
+            compare_fused("n = 32, the warp path's edge",
+                          fused_inputs(26, 64, 32, 50, device)),
+            compare_fused("n = 33 (block path)",
+                          fused_inputs(27, 8, 33, 55, device), path="block"),
+            compare_fused("mpc shape (block path, global workspace)",
+                          fused_inputs(24, 8, 192, 320, device),
+                          path="block")]
+    for seed, B_ in ((28, 1), (57, 37), (50, 64), (51, 4096)):
+        errs.append(compare_fused(f"test shape, B={B_}",
+                                  fused_inputs(seed, B_, 24, 40, device)))
     big = fused_inputs(25, Bt, n, m, device)
     errs.append(compare_fused("main path shape", big))
     fused_ms = time_ms(lambda: kernels.admm_solve_fused(*big, **FUSED_KW),
@@ -774,6 +820,7 @@ def main() -> int:
     print("== 3d. tensor-core iteration kernel (K as given) vs its plain "
           "version", flush=True)
     _, wbc_args = iteration_inputs(30, 64, 30, 50, device, eq=True)
+    _, mpc_args = iteration_inputs(35, 8, 192, 320, device, eq=True)
     errs = [compare_mma("wbc shape", wbc_args, REFINED_EQ_TOL),
             compare_mma("test shape", iteration_inputs(
                 31, 3, 24, 40, device, eq=True)[1], REFINED_EQ_TOL),
@@ -783,11 +830,39 @@ def main() -> int:
                 33, 37, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
             compare_mma("wbc shape, no equality rows", iteration_inputs(
                 34, 64, 30, 50, device, eq=False)[1], KERNEL_TOL),
-            compare_mma("mpc shape, equality rows (streamed matrices)",
-                        iteration_inputs(35, 8, 192, 320, device, eq=True)[1],
+            compare_mma("mpc shape, equality rows", mpc_args, REFINED_EQ_TOL,
+                        path="cluster", cluster=3),
+            compare_mma("mpc shape, single", iteration_inputs(
+                38, 1, 192, 320, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="cluster", cluster=3),
+            compare_mma("n=128 m=208 (clusters of 2)", iteration_inputs(
+                39, 8, 128, 208, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="cluster", cluster=2),
+            compare_mma("n=150 m=250 (ragged slices)", iteration_inputs(
+                40, 8, 150, 250, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="cluster", cluster=2),
+            compare_mma("n=100 m=170 (one block holds all)", iteration_inputs(
+                41, 8, 100, 170, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="cluster", cluster=1),
+            compare_mma("n=256 m=400 (clusters of 6)", iteration_inputs(
+                42, 4, 256, 400, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="cluster", cluster=6),
+            compare_mma("n=400 m=700 (K and A streamed)", iteration_inputs(
+                43, 2, 400, 700, device, eq=True)[1], REFINED_EQ_TOL,
+                        iters=5, f64=False, path="cluster", cluster=8),
+            compare_mma("n=401 m=701 (streamed, rows not 16-byte aligned)",
+                        iteration_inputs(44, 2, 401, 701, device, eq=True)[1],
+                        REFINED_EQ_TOL, iters=5, f64=False, path="cluster",
+                        cluster=8),
+            compare_mma("n=37 m=61 (odd n on the warp path)",
+                        iteration_inputs(45, 5, 37, 61, device, eq=True)[1],
                         REFINED_EQ_TOL),
-            compare_mma_skewed(wbc_args)]
-    del wbc_args
+            compare_mma_skewed("warp path", wbc_args),
+            compare_mma_skewed("cluster path", mpc_args)]
+    for seed, B_ in ((52, 1), (53, 37), (54, 64), (55, 4096)):
+        errs.append(compare_mma(f"test shape, B={B_}", iteration_inputs(
+            seed, B_, 24, 40, device, eq=True)[1], REFINED_EQ_TOL))
+    del wbc_args, mpc_args
     mma_reports = {}
     # the main path's two shapes: the WBC stage's (13 iterations, equality
     # rows) and the MPC stage's (30 iterations, none; 64 scenarios tiled to
@@ -803,7 +878,7 @@ def main() -> int:
     mma_reports["wbc"] = time_mma(big, REFINED_ITERS, 10, smi)
     del big
     errs.append(compare_mma("main path shape, mpc stage", mpc_big, KERNEL_TOL,
-                            iters=30, f64=False))
+                            iters=30, f64=False, path="cluster", cluster=3))
     mma_reports["mpc"] = time_mma(mpc_big, 30, 3, smi)
     del mpc_big
     torch.cuda.empty_cache()

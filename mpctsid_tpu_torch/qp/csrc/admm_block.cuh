@@ -1,7 +1,21 @@
-// Block-level pieces shared by the generic iteration kernel (admm_vpu.cu) and
-// the whole-solve kernel (admm_fused.cu): one thread block works on ONE
-// scenario, its vectors in shared memory, its matrices in shared or global
-// memory (the same code reads either: generic addressing).
+// Device code shared by the iteration and whole-solve kernels.
+//
+// Who shares what:
+//   * warp_sum / warp_max, IterVecs, project_row: every kernel that includes
+//     this header (admm_vpu.cu, admm_fused.cu, admm_mma.cu).
+//   * Block-level pieces, one thread block per scenario (block_sum / block_max,
+//     matT_vec_partial, sum_partials, warp_row_dot, greedy_residency,
+//     refined_iterations): the generic iteration kernel (admm_vpu.cu) and the
+//     block path of the whole-solve kernel (admm_fused.cu, n > 32).  The
+//     tensor-core kernel (admm_mma.cu) takes sum_partials only.
+//   * Warp-level pieces, one WARP per scenario (dot_strided, WarpVecs,
+//     warp_refined_iterations): the packed iteration kernel (admm_packed.cu)
+//     and the warp path of the whole-solve kernel (admm_fused.cu, n <= 32).
+//     Both run the same refined iteration with K TRANSPOSED on matrices that
+//     sit in the warp's own slice of shared memory; it is written once, here.
+//
+// The vectors of a scenario live in shared memory, its matrices in shared or
+// global memory (the same code reads either: generic addressing).
 //
 // No pointer here is __restrict__ / read-only qualified on purpose: the
 // whole-solve kernel rewrites its matrices in place (scaling, factorization)
@@ -28,6 +42,8 @@ __device__ __forceinline__ float warp_max(float v)
         v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
     return v;
 }
+
+// ---- block-level pieces: one thread block per scenario ---------------------
 
 // Sum (or max) over the whole block, returned to every thread.  `red` is 33
 // floats of shared memory; every thread of the block must call.
@@ -239,6 +255,103 @@ __device__ __forceinline__ void refined_iterations(
             if (lane == 0) project_row(v, i, acc, alpha, one_m_alpha);
         }
         __syncthreads();
+    }
+}
+
+// ---- warp-level pieces: one warp per scenario ------------------------------
+
+// sum_k a[k * stride] * v[k], four independent accumulators
+__device__ __forceinline__ float dot_strided(const float* a, int stride,
+                                             const float* v, int len)
+{
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    int k = 0;
+    for (; k + 3 < len; k += 4) {
+        a0 = fmaf(a[(k + 0) * stride], v[k + 0], a0);
+        a1 = fmaf(a[(k + 1) * stride], v[k + 1], a1);
+        a2 = fmaf(a[(k + 2) * stride], v[k + 2], a2);
+        a3 = fmaf(a[(k + 3) * stride], v[k + 3], a3);
+    }
+    for (; k < len; ++k) a0 = fmaf(a[k * stride], v[k], a0);
+    return (a0 + a1) + (a2 + a3);
+}
+
+// The vectors of one warp's scenario, all in the warp's slice of shared
+// memory.
+struct WarpVecs {
+    float* x;     // (n)
+    float* q;     // (n)
+    float* rhs;   // (n)
+    float* xa;    // (n) x_a, then x_t in place
+    float* r;     // (n)
+    float* z;     // (m)
+    float* y;     // (m)
+    float* w;     // (m) rho * z - y
+    float* l;     // (m)
+    float* u;     // (m)
+    float* rho;   // (m)
+    float* rinv;  // (m) 1 / rho
+};
+
+// `iters` updates of refined_iterations' function (K TRANSPOSED) by ONE warp.
+// The scenario's K^-1, K and A lie in shared memory with the row stride ld;
+// an ODD ld keeps both access patterns free of bank conflicts: lanes on
+// consecutive columns of one row (A' w, K' x_a) and lanes on consecutive rows
+// of one column (K^-1 rhs, K^-1 r, A x_t).  Each lane owns output elements
+// (lane, lane + 32, ...) of every mat-vec, so a product needs no reduction
+// across lanes; phases are separated by __syncwarp() only.  On entry v.w
+// holds rho z - y and the warp is synchronised; on exit x, z, y, w are
+// current and the warp is synchronised.
+__device__ __forceinline__ void warp_refined_iterations(
+    const float* sKinv, const float* sK, const float* sA, int ld, int n,
+    int m, int iters, float sigma, float alpha, const WarpVecs& v, int lane)
+{
+    float* sx = v.x;
+    float* sq = v.q;
+    float* srhs = v.rhs;
+    float* sxa = v.xa;
+    float* sr = v.r;
+    float* sz = v.z;
+    float* sy = v.y;
+    float* sw = v.w;
+    float* sl = v.l;
+    float* su = v.u;
+    float* srho = v.rho;
+    float* srinv = v.rinv;
+    const float one_m_alpha = 1.0f - alpha;
+    for (int it = 0; it < iters; ++it) {
+        // rhs = sigma x - q + A' w
+        for (int j = lane; j < n; j += 32)
+            srhs[j] = (sigma * sx[j] - sq[j]) + dot_strided(sA + j, ld, sw, m);
+        __syncwarp();
+        // x_a = K^-1 rhs
+        for (int i = lane; i < n; i += 32)
+            sxa[i] = dot_strided(sKinv + i * ld, 1, srhs, n);
+        __syncwarp();
+        // r = rhs - K' x_a   (the explicit residual, K transposed)
+        for (int j = lane; j < n; j += 32)
+            sr[j] = srhs[j] - dot_strided(sK + j, ld, sxa, n);
+        __syncwarp();
+        // x_t = x_a + K^-1 r;  x <- alpha x_t + (1 - alpha) x
+        for (int i = lane; i < n; i += 32) {
+            const float xt = sxa[i] + dot_strided(sKinv + i * ld, 1, sr, n);
+            sxa[i] = xt;
+            sx[i] = alpha * xt + one_m_alpha * sx[i];
+        }
+        __syncwarp();
+        // z_t = A x_t, then the z / y / w updates
+        for (int i = lane; i < m; i += 32) {
+            const float zt = dot_strided(sA + i * ld, 1, sxa, n);
+            const float zr = alpha * zt + one_m_alpha * sz[i];
+            const float yi = sy[i];
+            const float rh = srho[i];
+            const float zn = fminf(fmaxf(zr + srinv[i] * yi, sl[i]), su[i]);
+            const float yn = yi + rh * (zr - zn);
+            sz[i] = zn;
+            sy[i] = yn;
+            sw[i] = rh * zn - yn;
+        }
+        __syncwarp();
     }
 }
 

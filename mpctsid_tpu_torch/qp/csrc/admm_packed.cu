@@ -5,7 +5,8 @@
 // `admm_iterate_vpu_packed` / `admm_iterate_packed`, backend "pallas_packed")
 // of mpctsid_tpu/qp/pallas_kernels.py.  It computes the SAME function as the
 // generic kernel (admm_vpu.cu; the update and its matrix sides are written
-// out in admm_block.cuh), for matrices small enough that one scenario's
+// out in admm_block.cuh, where the warp-level loop itself lives:
+// `warp_refined_iterations`), for matrices small enough that one scenario's
 // K^-1, K and A fit in a fraction of a block's shared memory: the WBC QP,
 // n = 30, m = 50.  f32 FMAs only; the five mat-vecs are computed here.
 //
@@ -36,23 +37,11 @@
 
 #include <cuda_runtime.h>
 
+#include "admm_block.cuh"
+
 namespace {
 
-// sum_k a[k * stride] * v[k], four independent accumulators
-__device__ __forceinline__ float dot_strided(const float* a, int stride,
-                                             const float* v, int len)
-{
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int k = 0;
-    for (; k + 3 < len; k += 4) {
-        a0 = fmaf(a[(k + 0) * stride], v[k + 0], a0);
-        a1 = fmaf(a[(k + 1) * stride], v[k + 1], a1);
-        a2 = fmaf(a[(k + 2) * stride], v[k + 2], a2);
-        a3 = fmaf(a[(k + 3) * stride], v[k + 3], a3);
-    }
-    for (; k < len; ++k) a0 = fmaf(a[k * stride], v[k], a0);
-    return (a0 + a1) + (a2 + a3);
-}
+using namespace admm_block;
 
 __global__ void __launch_bounds__(512)
 admm_packed_kernel(const float* __restrict__ Kinv, const float* __restrict__ K,
@@ -130,41 +119,22 @@ admm_packed_kernel(const float* __restrict__ Kinv, const float* __restrict__ K,
     }
     __syncwarp();
 
-    const float one_m_alpha = 1.0f - alpha;
-    for (int it = 0; it < iters; ++it) {
-        // rhs = sigma x - q + A' w
-        for (int j = lane; j < n; j += 32)
-            srhs[j] = (sigma * sx[j] - sq[j]) + dot_strided(sA + j, ld, sw, m);
-        __syncwarp();
-        // x_a = K^-1 rhs
-        for (int i = lane; i < n; i += 32)
-            sxa[i] = dot_strided(sKinv + i * ld, 1, srhs, n);
-        __syncwarp();
-        // r = rhs - K' x_a   (the explicit residual, K transposed)
-        for (int j = lane; j < n; j += 32)
-            sr[j] = srhs[j] - dot_strided(sK + j, ld, sxa, n);
-        __syncwarp();
-        // x_t = x_a + K^-1 r;  x <- alpha x_t + (1 - alpha) x
-        for (int i = lane; i < n; i += 32) {
-            const float xt = sxa[i] + dot_strided(sKinv + i * ld, 1, sr, n);
-            sxa[i] = xt;
-            sx[i] = alpha * xt + one_m_alpha * sx[i];
-        }
-        __syncwarp();
-        // z_t = A x_t, then the z / y / w updates
-        for (int i = lane; i < m; i += 32) {
-            const float zt = dot_strided(sA + i * ld, 1, sxa, n);
-            const float zr = alpha * zt + one_m_alpha * sz[i];
-            const float yi = sy[i];
-            const float rh = srho[i];
-            const float zn = fminf(fmaxf(zr + srinv[i] * yi, sl[i]), su[i]);
-            const float yn = yi + rh * (zr - zn);
-            sz[i] = zn;
-            sy[i] = yn;
-            sw[i] = rh * zn - yn;
-        }
-        __syncwarp();
-    }
+    WarpVecs v;
+    v.x = sx;
+    v.q = sq;
+    v.rhs = srhs;
+    v.xa = sxa;
+    v.r = sr;
+    v.z = sz;
+    v.y = sy;
+    v.w = sw;
+    v.l = sl;
+    v.u = su;
+    v.rho = srho;
+    v.rinv = srinv;
+    // the loop is shared with the whole-solve kernel's warp path
+    warp_refined_iterations(sKinv, sK, sA, ld, n, m, iters, sigma, alpha, v,
+                            lane);
 
     for (int j = lane; j < n; j += 32) x_out[(size_t)b * n + j] = sx[j];
     for (int i = lane; i < m; i += 32) {
@@ -176,20 +146,6 @@ admm_packed_kernel(const float* __restrict__ Kinv, const float* __restrict__ K,
 }  // namespace
 
 extern "C" {
-
-// Shared memory a block may opt in to on the current device, in bytes
-// (negative: minus the CUDA error code).
-int admm_packed_max_smem(void)
-{
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return -(int)err;
-    int max_smem = 0;
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return -(int)err;
-    return max_smem;
-}
 
 // Launch on `stream` with `g` scenarios (warps) per block, rows padded to
 // `ld` floats and `slot_floats` floats of shared memory per scenario (the

@@ -18,13 +18,16 @@ JAX package's qp/pallas_kernels.py and keeping its function name:
     `admm_solve_fused_batch`: the whole solve in one launch (full-rescale
     Ruiz, per adapt round K, its Cholesky-based inverse with one
     Newton-Schulz step, the refined iterations, rho adaptation); returns the
-    SCALED x, y and the scales D, E, c.
+    SCALED x, y and the scales D, E, c.  n <= 32: one warp per scenario,
+    several per block; larger: one block per scenario (`fused_layout`).
   * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
     generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
     mat-vec on the tensor cores: warp-level TF32 `mma.sync` with each
     operand split into two TF32 parts in the kernel (three for the
-    cancelling product K x_a), so that the products keep f32 accuracy.  One
-    block per scenario, any shape.
+    cancelling product K x_a), so that the products keep f32 accuracy.  Any
+    shape; small scenarios one WARP each, several per block, large ones a
+    thread-block CLUSTER each with the matrices resident in the cluster's
+    shared memory (`mma_layout` decides).
 
 Every wrapper checks its arguments; on CUDA tensors it launches its kernel on
 PyTorch's current stream and raises on any failure (bad argument, build
@@ -52,6 +55,7 @@ GIVEN (sum_j K[i, j] x_a[j]) in `admm_iterate`.  A is passed row-major
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +65,10 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_iterate_vpu", "admm_iterate_vpu_packed",
            "admm_iterate_refined_reference", "check_refined_args",
            "admm_iterate", "admm_iterate_reference",
-           "packed_layout", "admm_solve_fused", "admm_solve_fused_reference",
+           "device_limits", "packed_layout", "fused_layout", "mma_layout",
+           "row_slices",
+           "FusedLayout", "MmaLayout", "admm_solve_fused",
+           "admm_solve_fused_reference",
            "check_fused_args", "build_all", "LIBRARIES"]
 
 
@@ -310,7 +317,7 @@ def admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0,
 LIBRARIES = {
     "admm_m2": (("admm_m2.cu",), ()),
     "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh",)),
-    "admm_packed": (("admm_packed.cu",), ()),
+    "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",)),
     "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
     "admm_mma": (("admm_mma.cu",), ("admm_block.cuh",)),
 }
@@ -322,8 +329,8 @@ _LAUNCH_ARGTYPES = {
     "admm_m2": [_PTR] * 12 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
     "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
     "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 3 + [_PTR],
-    "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT, _PTR],
-    "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
+    "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 4 + [_PTR],
+    "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 6 + [_PTR],
 }
 
 _LIBS: dict = {}
@@ -351,9 +358,6 @@ def _library(name: str):
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_INT]
         err.restype = ctypes.c_char_p
-        if name == "admm_packed":
-            lib.admm_packed_max_smem.argtypes = []
-            lib.admm_packed_max_smem.restype = _INT
         if name == "admm_fused":
             lib.admm_fused_workspace_floats.argtypes = [_INT] * 4
             lib.admm_fused_workspace_floats.restype = ctypes.c_longlong
@@ -377,6 +381,18 @@ def _pick_threads(n: int) -> int:
     """Block size: up to four row-chunk groups of one thread per column."""
     col_threads = min((n + 31) // 32 * 32, 1024)
     return col_threads * max(1, min(1024 // col_threads, 4))
+
+
+def device_limits(dev: torch.device):
+    """(shared memory a block may opt in to, in bytes; multiprocessors)."""
+    props = torch.cuda.get_device_properties(dev)
+    return props.shared_memory_per_block_optin, props.multi_processor_count
+
+
+def _slots_per_block(fit: int, cap: int, B: int, n_sm: int) -> int:
+    """Scenarios (warps) per block: what fits, at most `cap`, and no more
+    than spreads B over `n_sm` multiprocessors."""
+    return max(1, min(cap, fit, -(-B // max(1, n_sm))))
 
 
 # ------------------------------------------------------------------- wrappers
@@ -465,8 +481,7 @@ def packed_layout(n: int, m: int, B: int, smem_bytes: int, n_sm: int):
             f"{4 * slot_floats} bytes of shared memory (K^-1, K, A and the "
             f"vectors), a block has {smem_bytes}; use admm_iterate_vpu "
             "(backend 'vpu'), which streams what does not fit")
-    g = max(1, min(MAX_PACKED_G, fit, -(-B // max(1, n_sm))))
-    return g, ld, slot_floats
+    return _slots_per_block(fit, MAX_PACKED_G, B, n_sm), ld, slot_floats
 
 
 def admm_iterate_vpu_packed(K_inv, K, A, q, l, u, rho_vec, x, z, y,
@@ -486,20 +501,52 @@ def admm_iterate_vpu_packed(K_inv, K, A, q, l, u, rho_vec, x, z, y,
             K_inv, K, A, q, l, u, rho_vec, x, z, y, iters=iters, sigma=sigma,
             alpha=alpha)
     _require_cuda(dev, "admm_iterate_vpu_packed")
-    with torch.cuda.device(dev):
-        smem = _library("admm_packed").admm_packed_max_smem()
-    if smem <= 0:
-        raise RuntimeError("admm_packed: cannot read the device's shared "
-                           f"memory limit (CUDA error {-smem})")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     out = _launch_iteration("admm_packed", (K_inv, K, A, q, l, u, rho_vec),
                             x, z, y, (B, n, m), iters, sigma, alpha,
-                            packed_layout(n, m, B, smem, n_sm))
+                            packed_layout(n, m, B, *device_limits(dev)))
     admm_iterate_vpu_packed.launches += 1
     return out
 
 
 admm_iterate_vpu_packed.launches = 0
+
+
+MAX_FUSED_N = 32        # the warp path: lane i owns row i
+FUSED_SCRATCH_STRIDE = 32   # row stride of the factorization's scratch
+MAX_FUSED_SLOTS = 12    # warps per block there (leaves 170 registers each)
+MIN_WARP_SLOTS = 4      # fewer scenarios per block: not worth a warp each
+
+
+class FusedLayout(NamedTuple):
+    """How one launch of the whole-solve kernel is laid out."""
+    path: str          # "warp": a warp per scenario; "block": a block each
+    threads: int       # block size of the block path (0 on the warp path)
+    g: int             # scenarios (warps) per block on the warp path, else 0
+    ld: int            # row stride in shared memory on the warp path
+    slot_floats: int   # floats of shared memory per scenario there
+
+
+def fused_layout(n: int, m: int, B: int, smem_bytes: int,
+                 n_sm: int) -> FusedLayout:
+    """Which path a launch of `admm_solve_fused` takes, and its parameters.
+
+    n <= 32 and at least four scenarios fitting a block: the warp path.  One
+    scenario's slot holds the scratch matrix W of the factorization (n rows
+    of 32 floats, 16-byte aligned; at the end it holds K^-1), then P, A and
+    K with rows padded to the odd stride ld = n | 1 (no bank conflicts by
+    rows or by columns), as K^-1 is once it is done, and its 7 n + 10 m
+    vector entries; g is what fits in `smem_bytes`, at most 12, and no more
+    than spreads B over `n_sm` multiprocessors.  Otherwise the block path:
+    one block per scenario, matrices in shared memory or, where they do not
+    fit, in a global workspace."""
+    ld = n | 1
+    slot_floats = -(-(n * max(ld, FUSED_SCRATCH_STRIDE) + (2 * n + m) * ld
+                      + 7 * n + 10 * m) // 4) * 4
+    fit = smem_bytes // (4 * slot_floats)
+    if n <= MAX_FUSED_N and fit >= MIN_WARP_SLOTS:
+        g = _slots_per_block(fit, MAX_FUSED_SLOTS, B, n_sm)
+        return FusedLayout("warp", 0, g, ld, slot_floats)
+    return FusedLayout("block", _pick_threads(n), 0, 0, 0)
 
 
 def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
@@ -525,19 +572,22 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
         return admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0, **kw)
     _require_cuda(dev, "admm_solve_fused")
     lib = _library("admm_fused")
+    lay = fused_layout(n, m, B, *device_limits(dev))
     x_o = torch.empty_like(q)
     y_o = torch.empty_like(l)
     d_o = torch.empty_like(q)
     e_o = torch.empty_like(l)
     c_o = q.new_empty((B,))
-    threads = _pick_threads(n)
     with torch.cuda.device(dev):
-        ws_floats = lib.admm_fused_workspace_floats(B, n, m, threads)
-        if ws_floats < 0:
-            raise RuntimeError("admm_fused: cannot size the workspace (CUDA "
-                               f"error {-ws_floats})")
-        # matrices that do not fit in shared memory live here for the launch
-        workspace = q.new_empty((ws_floats,)) if ws_floats else None
+        workspace = None
+        if lay.path == "block":
+            ws_floats = lib.admm_fused_workspace_floats(B, n, m, lay.threads)
+            if ws_floats < 0:
+                raise RuntimeError("admm_fused: cannot size the workspace "
+                                   f"(CUDA error {-ws_floats})")
+            # matrices that do not fit in shared memory live here for the
+            # launch
+            workspace = q.new_empty((ws_floats,)) if ws_floats else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.admm_fused_launch(
             P.data_ptr(), q.data_ptr(), A.data_ptr(), l.data_ptr(),
@@ -547,7 +597,8 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
             workspace.data_ptr() if workspace is not None else None,
             B, n, m, kw["iters"], kw["adapt_rounds"],
             kw["equilibrate_iters"], kw["rho0"], kw["sigma"], kw["alpha"],
-            kw["rho_eq_scale"], kw["inf"], threads, stream)
+            kw["rho_eq_scale"], kw["inf"], lay.threads, lay.g, lay.ld,
+            lay.slot_floats, stream)
     _raise_on(rc, lib, "admm_fused", B, n, m)
     admm_solve_fused.launches += 1
     return x_o, y_o, d_o, e_o, c_o
@@ -556,21 +607,112 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
 admm_solve_fused.launches = 0
 
 
-def _pick_mma_threads(n: int, m: int) -> int:
-    """Block size of the tensor-core kernel: about four 16 x 16 tiles of A
-    per warp, 2 to 16 warps.  Small problems are bound by barriers and do
-    better with few warps per block and many blocks per multiprocessor;
-    problems whose matrices are streamed want as many loads in flight as the
-    kernel's launch bound allows."""
-    tiles = ((m + 15) // 16) * ((n + 15) // 16)
-    return 32 * max(2, min(16, tiles // 4))
+MAX_MMA_SLOTS = 4       # warps per block on kernel 5's warp path
+MMA_KSPLIT = 8          # depth slices per product, at most (admm_mma.cu)
+MMA_BARRIER_FLOATS = 8  # cluster path: four 8-byte barriers of the exchange
+MAX_CLUSTER = 8         # blocks per cluster, the portable maximum
+RES_KINV, RES_A, RES_K = 1, 2, 4
+
+
+class MmaLayout(NamedTuple):
+    """How one launch of the tensor-core iteration kernel is laid out."""
+    path: str          # "warp": a warp per scenario; "cluster": a cluster each
+    g: int             # scenarios (warps) per block on the warp path, else 0
+    cluster: int       # blocks per scenario on the cluster path, else 0
+    threads: int       # threads per block
+    ld: int            # row stride of the matrices in shared memory
+    resident: int      # cluster path: RES_KINV | RES_A | RES_K held on chip
+    smem_floats: int   # floats of shared memory per block
+    rows_n: int        # cluster path: rows of K^-1 and K per block
+    rows_m: int        # cluster path: rows of A per block
+
+    @property
+    def geometry(self):
+        """The launcher's trailing arguments."""
+        return (self.g, self.cluster, self.threads, self.ld, self.resident,
+                self.smem_floats)
+
+
+def _pad16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def row_slices(total: int, rows_per: int, cluster: int):
+    """[start, stop) of the rows each block of a cluster owns (the kernel's
+    own arithmetic): whole 16-row tiles, the last slices ragged or empty."""
+    return [(min(total, r * rows_per), min(total, (r + 1) * rows_per))
+            for r in range(cluster)]
+
+
+def mma_layout(n: int, m: int, B: int, smem_bytes: int,
+               n_sm: int) -> MmaLayout:
+    """Which path a launch of `admm_iterate` takes, and its parameters.
+
+    Rows are padded in shared memory to a multiple of four floats, for the
+    16-byte reads of rows "as given" (a stride free of bank conflicts, 16
+    modulo 32, was measured and lost: admm_mma.cu, "Row stride").
+
+    Warp path: one scenario's K^-1, K, A and its vectors (each padded to a
+    multiple of 16; rhs, x_a, r, x_t and w also as the TF32 parts the
+    products read) are a slot; where at least four slots fit `smem_bytes`,
+    a block holds g scenarios, one warp each (g: what fits, at most 4 —
+    several small blocks per multiprocessor overlap one's load with
+    another's iterations — and no more than spreads B over `n_sm`
+    multiprocessors).
+
+    Cluster path: a cluster of C blocks per scenario, C the least of 1 to 8
+    (8 is the portable maximum) at which a block's row slices of the three
+    matrices (whole 16-row tiles: rows_n of K^-1 and K, rows_m of A), its
+    vectors, its partial-sum buffer, the C x n exchange buffer and the
+    exchange's barriers fit
+    `smem_bytes`: the fewer blocks share a scenario, the more work each
+    barrier and each exchange is spread over (measured: admm_mma.cu).
+    Where even C = 8 does not hold all three slices they go to shared memory
+    greedily by reads per iteration (K^-1, A, K) and the rest is streamed.
+    Raises if the vectors alone do not fit."""
+    ld = (n + 3) // 4 * 4
+    np_, mp = _pad16(n), _pad16(m)
+    slot_floats = (2 * n + m) * ld + 13 * np_ + 9 * mp
+    fit = smem_bytes // (4 * slot_floats)
+    if fit >= MIN_WARP_SLOTS:
+        g = _slots_per_block(fit, MAX_MMA_SLOTS, B, n_sm)
+        return MmaLayout("warp", g, 0, 32 * g, ld, 0, g * slot_floats, 0, 0)
+
+    def block(cluster):
+        rows_n = -(-(np_ // 16) // cluster) * 16
+        rows_m = -(-(mp // 16) // cluster) * 16
+        vec = (14 * np_ + 9 * rows_m + MMA_KSPLIT * max(np_, rows_m)
+               + cluster * np_ + MMA_BARRIER_FLOATS)
+        return rows_n, rows_m, vec
+
+    for cluster in range(1, MAX_CLUSTER + 1):
+        rows_n, rows_m, floats = block(cluster)
+        resident = 0
+        # greedily by reads per iteration; all three or the next size
+        for bit, rows in ((RES_KINV, rows_n), (RES_A, rows_m),
+                          (RES_K, rows_n)):
+            if 4 * (floats + rows * ld) <= smem_bytes:
+                resident |= bit
+                floats += rows * ld
+        if resident == RES_KINV | RES_A | RES_K or cluster == MAX_CLUSTER:
+            break
+    if 4 * floats > smem_bytes:
+        raise ValueError(
+            f"admm_iterate: the vectors of n={n}, m={m} need {4 * floats} "
+            f"bytes of shared memory per block even across a cluster of 8, "
+            f"a block has {smem_bytes}")
+    # about five 16 x 16 tiles of the block's slice of A per warp, at most
+    # twelve warps (measured at the MPC shape: 8 and 16 warps are slower)
+    warps = max(2, min(12, (rows_m // 16) * (np_ // 16) // 5))
+    return MmaLayout("cluster", 0, cluster, 32 * warps, ld, resident, floats,
+                     rows_n, rows_m)
 
 
 def admm_iterate(K_inv, K, A, q, l, u, rho_vec, x, z, y,
                  iters: int = 25, sigma: float = 1e-6, alpha: float = 1.6):
     """`iters` ADMM updates with the explicit refinement and K AS GIVEN,
-    every mat-vec on the tensor cores; one block per scenario, any n and m;
-    returns (x, z, y).
+    every mat-vec on the tensor cores; any n and m (`mma_layout` picks a warp
+    or a thread-block cluster per scenario); returns (x, z, y).
 
     CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
     the plain version.  See the module docstring.
@@ -590,9 +732,10 @@ def admm_iterate(K_inv, K, A, q, l, u, rho_vec, x, z, y,
         return admm_iterate_reference(K_inv, K, A, q, l, u, rho_vec, x, z, y,
                                       iters=iters, sigma=sigma, alpha=alpha)
     _require_cuda(K_inv.device, "admm_iterate")
+    lay = mma_layout(n, m, B, *device_limits(K_inv.device))
     out = _launch_iteration("admm_mma", (K_inv, K, A, q, l, u, rho_vec),
                             x, z, y, (B, n, m), iters, sigma, alpha,
-                            (_pick_mma_threads(n, m),))
+                            lay.geometry)
     admm_iterate.launches += 1
     return out
 

@@ -488,16 +488,22 @@ def test_mma_wrapper_on_cpu_is_the_plain_version():
 
 
 def test_mma_block_size_choice_and_library_entry():
-    # about four 16 x 16 tiles of A per warp, 2 to 16 warps
-    assert tk._pick_mma_threads(30, 50) == 64
-    assert tk._pick_mma_threads(24, 40) == 64
-    assert tk._pick_mma_threads(192, 320) == 512
-    assert tk._pick_mma_threads(64, 96) == 192
+    # cluster path: about five 16 x 16 tiles of the block's slice of A per
+    # warp, 2 to 16 warps; warp path: one warp per scenario of the block
+    smem, n_sm = 232448, 132
+    assert tk.mma_layout(192, 320, 4096, smem, n_sm).threads == 384
+    assert tk.mma_layout(128, 208, 8, smem, n_sm).threads == 352
+    assert tk.mma_layout(30, 50, 4096, smem, n_sm).threads == 32 * 4
+    assert tk.mma_layout(24, 40, 3, smem, n_sm).threads == 32
     for n, m in ((1, 1), (30, 50), (100, 7), (192, 320), (1000, 2000)):
-        t = tk._pick_mma_threads(n, m)
-        assert t % 32 == 0 and 64 <= t <= 512
+        t = tk.mma_layout(n, m, 4096, smem, n_sm).threads
+        assert t % 32 == 0 and 32 <= t <= 512
     assert tk.LIBRARIES["admm_mma"] == (("admm_mma.cu",), ("admm_block.cuh",))
-    # the ABI of the one-block-per-scenario iteration kernels
-    assert tk._LAUNCH_ARGTYPES["admm_mma"] == tk._LAUNCH_ARGTYPES["admm_vpu"]
+    # the launcher's ABI: the iteration kernels' arguments, then the six
+    # integers of MmaLayout.geometry, then the stream
+    vpu = tk._LAUNCH_ARGTYPES["admm_vpu"]
+    assert tk._LAUNCH_ARGTYPES["admm_mma"] == (
+        vpu[:-2] + [tk._INT] * len(tk.mma_layout(30, 50, 1, smem, n_sm)
+                                   .geometry) + vpu[-1:])
     with pytest.raises(ValueError, match="iters"):
         tk.admm_iterate(*[tt(x) for x in refined_inputs(4, B=2)], iters=-1)
