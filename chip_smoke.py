@@ -14,15 +14,27 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
-              3a the M2 iteration: MPC shape (B=64, n=192, m=320), the test
-                 shape (B=3, n=24, m=40), B=1, a WBC-sized odd shape and the
-                 main path's shape (B=4096, 192, 320), 30 iterations;
+              3a the M2 iteration (a thread-block cluster per scenario):
+                 MPC shape (B=64, n=192, m=320: clusters of 2, M2 in
+                 registers, A in shared memory), the test shape (B=3, n=24,
+                 m=40: one block), B=1, a WBC-sized odd shape, B=67 (one
+                 cluster more than a wave), shapes that take clusters of 3
+                 and 7 (rows not 16-byte aligned), M2 in shared memory, A
+                 streamed, M2 and A streamed (unit-scaled, well-conditioned
+                 QPs: m >= n), a skewed M2 (the kernel must
+                 apply M2 transposed) on a cluster and on one block, and the
+                 main path's shape (B=4096, 192, 320), 30 iterations; each
+                 launch's layout is printed and checked, two launches must
+                 agree bit for bit;
               3b the generic and the packed refined iteration, inputs WITH
                  equality rows and infinite bounds: WBC shape (B=64, n=30,
-                 m=50), test shape, B=1, B=37 (a partial last block), the MPC
-                 shape (B=8, generic kernel only; the packed kernel must
-                 refuse it) and the main path's shape (B=4096, 30, 50), 13
-                 iterations; also against EACH OTHER;
+                 m=50), test shape, B=1, B=37, B=531 (a partial last block
+                 of warps), n=32, n=33, the MPC shape (B=8, generic kernel
+                 only; the packed kernel must refuse it) and the main path's
+                 shape (B=4096, 30, 50), 13 iterations; also against EACH
+                 OTHER; the generic kernel's path (a warp per scenario for
+                 n <= 32, else a block) checked, two launches bit for bit,
+                 and a skewed K (it must apply K transposed);
               3c the whole-solve kernel on the same QPs, 40 iterations in 3
                  rounds, warm-started: unscaled x, y and the scales.  Its
                  warp path (one warp per scenario, n <= 32) at B = 1, 37, 64
@@ -229,30 +241,113 @@ def check_repeatable(label: str, fn) -> None:
           f"{label}: two launches agree bit for bit")
 
 
-def compare_m2(name: str, args, iters: int = 30) -> float:
+def m2_residency(resident: int) -> str:
+    m2 = ("in registers" if resident & kernels.RES_M2_REGS else
+          "in shared memory" if resident & kernels.RES_M2 else "streamed")
+    a = "in shared memory" if resident & kernels.RES_M2_A else "streamed"
+    return f"M2 {m2}, A {a}"
+
+
+def compare_m2(name: str, args, iters: int = 30, cluster: int = 1,
+               resident: int = kernels.RES_M2_REGS | kernels.RES_M2_A,
+               gate: str = "plain"):
+    """Kernel 1 against its plain version and a float64 run of it; returns
+    the max abs error against the plain version.  The launch must take
+    clusters of `cluster` blocks with the slices where `resident` says, and
+    two launches must agree bit for bit.
+
+    Against the float64 run the kernel must be as accurate as the float32
+    plain version is (within a factor 2 plus a tenth of the tolerance), as
+    kernel 5 is.  With gate="float64" that is the only gate on the values:
+    for a QP whose plain float32 version itself lies at KERNEL_TOL from the
+    float64 run, two float32 summation orders lie that far apart too, and
+    the distance to the plain version is printed, not held."""
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+    B, n, m = shape_of(args, 1)
+    lay = kernels.m2_layout(n, m,
+                            kernels.device_limits(args[0].device)[0])
+    print(f"  m2 {name}: clusters of {lay.cluster} blocks x {lay.threads} "
+          f"threads, {m2_residency(lay.resident)}, {4 * lay.smem_floats} B "
+          f"of shared memory per block, "
+          f"{kernels.m2_active_clusters(lay)} clusters resident at once",
+          flush=True)
+    check((lay.cluster, lay.resident) == (cluster, resident),
+          f"m2 kernel, {name}: clusters of {cluster}, "
+          f"{m2_residency(resident)}")
     got = kernels.admm_iterate_m2(*args, **kw)
     torch.cuda.synchronize()
     want = kernels.admm_iterate_m2_reference(*args, **kw)
     err = max_err(got, want)
-    B, n, m = shape_of(args, 1)
+    check_repeatable(f"m2 kernel, {name}",
+                     lambda: kernels.admm_iterate_m2(*args, **kw))
+    want64 = [t.float() for t in kernels.admm_iterate_m2_reference(
+        *[a.double() for a in args], **kw)]
+    k64, p64 = max_err(got, want64), max_err(want, want64)
     print(f"  m2 {name}: B={B} n={n} m={m} iters={iters} "
-          f"max|d(x,z,y)|={err:.3e}", flush=True)
-    check(all_finite(got) and err < KERNEL_TOL,
-          f"m2 kernel vs plain, {name}: max abs err {err:.3e} < "
-          f"{KERNEL_TOL:g}")
+          f"max|d(x,z,y)|={err:.3e}; distance to a float64 run: kernel "
+          f"{k64:.3e}, plain {p64:.3e}", flush=True)
+    check(all_finite(got) and k64 <= 2.0 * p64 + KERNEL_TOL / 10,
+          f"m2 kernel, {name}: as close to the float64 run as the plain "
+          "float32 version (factor 2, plus a tenth of the tolerance)")
+    if gate == "plain":
+        check(err < KERNEL_TOL,
+              f"m2 kernel vs plain, {name}: max abs err {err:.3e} < "
+              f"{KERNEL_TOL:g}")
     return err
 
 
-def compare_refined(name: str, args, tol: float, packed: bool = True):
+def compare_m2_skewed(name: str, args, iters: int = 30) -> float:
+    """M2 made visibly non-symmetric: kernel 1 must follow the plain version,
+    which applies M2 TRANSPOSED, and lie far from the same loop with M2 as
+    given (the side a split of M2 by rows or by columns gets wrong)."""
+    kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
+    skewed = list(args)
+    M2 = args[0]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    noise = torch.randn(M2.shape, generator=g).to(M2.device)
+    skewed[0] = (M2 + SKEW * M2.abs().max() * torch.triu(noise, 1)
+                 ).contiguous()
+    got = kernels.admm_iterate_m2(*skewed, **kw)
+    torch.cuda.synchronize()
+    transposed = kernels.admm_iterate_m2_reference(*skewed, **kw)
+    as_given = kernels.admm_iterate_m2_reference(
+        skewed[0].transpose(1, 2).contiguous(), *skewed[1:], **kw)
+    err = max_err(got, transposed)
+    apart = max_err(got, as_given)
+    sides = max_err(transposed, as_given)
+    print(f"  m2 {name}, skewed M2 ({SKEW:g} of max|M2| above the diagonal): "
+          f"vs plain M2 transposed {err:.3e}; vs plain M2 as given "
+          f"{apart:.3e} (the two plain versions {sides:.3e} apart)",
+          flush=True)
+    check(all_finite(got) and err < KERNEL_TOL,
+          f"m2 kernel, {name}, applies M2 transposed: < {KERNEL_TOL:g} of "
+          "that plain version")
+    check(apart > 10 * KERNEL_TOL and apart > 10 * err,
+          f"m2 kernel, {name}, on a skewed M2 is far (> 10 tolerances, > 10 "
+          "x its error) from M2 applied as given")
+    return err
+
+
+def compare_refined(name: str, args, tol: float, packed: bool = True,
+                    path: str = "warp"):
     """Kernels 2 and 3 against the one plain version and against each other;
-    returns (err of the generic kernel, err of the packed kernel)."""
+    returns (err of the generic kernel, err of the packed kernel).  Kernel 2
+    must take `path` ("warp" or "block"), and two of its launches must agree
+    bit for bit."""
     kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
     B, n, m = shape_of(args, 2)
+    lay = kernels.vpu_layout(n, m, B, *kernels.device_limits(args[0].device))
+    print(f"  vpu {name}: {lay.path} path, "
+          + (f"{lay.g} scenarios (warps) per block" if lay.path == "warp"
+             else f"one block of {lay.threads} threads per scenario"),
+          flush=True)
+    check(lay.path == path, f"vpu kernel, {name}: takes the {path} path")
     want = kernels.admm_iterate_refined_reference(*args, **kw)
     got_v = kernels.admm_iterate_vpu(*args, **kw)
     torch.cuda.synchronize()
     err_v = max_err(got_v, want)
+    check_repeatable(f"vpu kernel, {name}",
+                     lambda: kernels.admm_iterate_vpu(*args, **kw))
     line = (f"  refined {name}: B={B} n={n} m={m} iters={REFINED_ITERS} "
             f"vpu vs plain {err_v:.3e}")
     ok = all_finite(got_v) and err_v < tol
@@ -342,35 +437,41 @@ def time_mma(args, iters: int, reps: int, smi: str) -> dict:
 SKEW = 3e-5     # of max |K|, added above the diagonal only
 
 
-def compare_mma_skewed(name: str, args) -> float:
-    """K made visibly non-symmetric: kernel 5 must follow the plain version
-    that applies K AS GIVEN, and the plain version that applies K transposed
-    (kernels 2 and 3) must lie far from both.  x and z are compared: on a
-    skewed K the refinement no longer cancels, and y (rho ~200 on equality
-    rows) amplifies the rounding of z beyond any fixed tolerance."""
+def compare_skewed_k(name: str, args, label: str = "mma") -> float:
+    """K made visibly non-symmetric: kernel 5 ("mma") must follow the plain
+    version that applies K AS GIVEN and lie far from the one that applies K
+    transposed; kernel 2 ("vpu") the other way round.  x and z are compared:
+    on a skewed K the refinement no longer cancels, and y (rho ~200 on
+    equality rows) amplifies the rounding of z beyond any fixed tolerance."""
     kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
     skewed = list(args)
     K = args[1]
     g = torch.Generator(device="cpu").manual_seed(0)
     noise = torch.randn(K.shape, generator=g).to(K.device)
     skewed[1] = (K + SKEW * K.abs().max() * torch.triu(noise, 1)).contiguous()
-    got = kernels.admm_iterate(*skewed, **kw)
+    given = label == "mma"
+    kernel = kernels.admm_iterate if given else kernels.admm_iterate_vpu
+    got = kernel(*skewed, **kw)
     torch.cuda.synchronize()
     as_given = kernels.admm_iterate_reference(*skewed, **kw)
     transposed = kernels.admm_iterate_refined_reference(*skewed, **kw)
-    err = max_err(got[:2], as_given[:2])
-    apart = max_err(got[:2], transposed[:2])
+    follows, other = ((as_given, transposed) if given
+                      else (transposed, as_given))
+    side, other_side = (("as given", "transposed") if given
+                        else ("transposed", "as given"))
+    err = max_err(got[:2], follows[:2])
+    apart = max_err(got[:2], other[:2])
     sides = max_err(as_given[:2], transposed[:2])
-    print(f"  mma {name}, skewed K ({SKEW:g} of max|K| above the diagonal): "
-          f"x, z vs plain K as given {err:.3e}; vs plain K transposed "
-          f"{apart:.3e} (the two plain versions {sides:.3e} apart)",
-          flush=True)
+    print(f"  {label} {name}, skewed K ({SKEW:g} of max|K| above the "
+          f"diagonal): x, z vs plain K {side} {err:.3e}; vs plain K "
+          f"{other_side} {apart:.3e} (the two plain versions {sides:.3e} "
+          "apart)", flush=True)
     check(all_finite(got) and err < REFINED_EQ_TOL,
-          f"mma kernel, {name}, applies K as given: < {REFINED_EQ_TOL:g} of "
-          "that plain version")
+          f"{label} kernel, {name}, applies K {side}: < {REFINED_EQ_TOL:g} "
+          "of that plain version")
     check(apart > 10 * REFINED_EQ_TOL and apart > 10 * err,
-          f"mma kernel, {name}, on a skewed K is far (> 10 tolerances, > 10 "
-          "x its error) from K applied transposed")
+          f"{label} kernel, {name}, on a skewed K is far (> 10 tolerances, "
+          f"> 10 x its error) from K applied {other_side}")
     return err
 
 
@@ -699,20 +800,49 @@ def main() -> int:
     print("== 3a. M2 iteration kernel vs plain PyTorch version, on the card",
           flush=True)
     mpc_args, _ = iteration_inputs(0, 64, 192, 320, device, eq=False)
-    errs = [compare_m2("mpc shape", mpc_args),
-            compare_m2("test shape",
-                       iteration_inputs(1, 3, 24, 40, device, eq=False)[0]),
+    test_args = iteration_inputs(1, 3, 24, 40, device, eq=False)[0]
+    errs = [compare_m2("mpc shape", mpc_args, cluster=2),
+            compare_m2("test shape", test_args),
             compare_m2("single",
-                       iteration_inputs(2, 1, 192, 320, device, eq=False)[0]),
+                       iteration_inputs(2, 1, 192, 320, device, eq=False)[0],
+                       cluster=2),
             compare_m2("wbc-sized, odd",
-                       iteration_inputs(3, 5, 30, 50, device, eq=False)[0])]
+                       iteration_inputs(3, 5, 30, 50, device, eq=False)[0]),
+            compare_m2("odd batch, one cluster more than a wave",
+                       iteration_inputs(4, 67, 192, 320, device, eq=False)[0],
+                       cluster=2),
+            compare_m2("n=256 m=400 (clusters of 3)",
+                       iteration_inputs(5, 4, 256, 400, device, eq=False)[0],
+                       cluster=3),
+            compare_m2("n=256 m=120 (clusters of 2, M2 in shared memory)",
+                       iteration_inputs(6, 4, 256, 120, device, eq=False)[0],
+                       cluster=2, resident=kernels.RES_M2 | kernels.RES_M2_A,
+                       gate="float64"),
+            compare_m2("n=256 m=256 (clusters of 3, M2 in shared memory)",
+                       iteration_inputs(6, 4, 256, 256, device, eq=False)[0],
+                       cluster=3,
+                       resident=kernels.RES_M2 | kernels.RES_M2_A),
+            compare_m2("n=401 m=701 (clusters of 7, rows not 16-byte "
+                       "aligned)",
+                       iteration_inputs(7, 2, 401, 701, device, eq=False)[0],
+                       cluster=7),
+            compare_m2("n=500 m=900 (A streamed)",
+                       iteration_inputs(8, 2, 500, 900, device, eq=False)[0],
+                       iters=10, cluster=8, resident=kernels.RES_M2),
+            compare_m2("n=1000 m=2000 (M2 and A streamed)",
+                       iteration_inputs(9, 1, 1000, 2000, device,
+                                        eq=False)[0],
+                       iters=5, cluster=8, resident=0),
+            compare_m2_skewed("cluster of 2", mpc_args),
+            compare_m2_skewed("one block", test_args)]
+    del test_args
     # the main path's own shape: the 64 scenarios tiled to B = 4096 (every
     # scenario has its own memory; the kernel's time does not depend on the
     # values), compared once more and then timed
     Bt, n, m, iters = 4096, 192, 320, 30
     big = [a.repeat((Bt // a.shape[0],) + (1,) * (a.dim() - 1)).contiguous()
            for a in mpc_args]
-    errs.append(compare_m2("main path shape", big, iters=iters))
+    errs.append(compare_m2("main path shape", big, iters=iters, cluster=2))
     kw = dict(iters=iters, sigma=1e-6, alpha=1.6)
     kernel_ms = time_ms(lambda: kernels.admm_iterate_m2(*big, **kw), 1, 3)
     plain_ms = time_ms(
@@ -741,11 +871,20 @@ def main() -> int:
         compare_refined("partial last block", iteration_inputs(
             13, 37, 30, 50, device, eq=True)[1], REFINED_EQ_TOL),
         compare_refined("wbc shape, no equality rows", iteration_inputs(
-            14, 64, 30, 50, device, eq=False)[1], KERNEL_TOL))
+            14, 64, 30, 50, device, eq=False)[1], KERNEL_TOL),
+        compare_refined("B=531, a partial last block of warps",
+                        iteration_inputs(17, 531, 30, 50, device,
+                                         eq=True)[1], REFINED_EQ_TOL),
+        compare_refined("n = 32, the warp path's edge", iteration_inputs(
+            18, 64, 32, 50, device, eq=True)[1], REFINED_EQ_TOL),
+        compare_refined("n = 33 (block path)", iteration_inputs(
+            19, 8, 33, 55, device, eq=True)[1], REFINED_EQ_TOL,
+                        path="block"))
     ev, ep = list(ev), list(ep)
+    ev.append(compare_skewed_k("warp path", wbc_args, label="vpu"))
     _, mpc_refined = iteration_inputs(15, 8, 192, 320, device, eq=True)
     ev.append(compare_refined("mpc shape (streamed matrices)", mpc_refined,
-                              REFINED_EQ_TOL, packed=False)[0])
+                              REFINED_EQ_TOL, packed=False, path="block")[0])
     refused = False
     try:
         kernels.admm_iterate_vpu_packed(*mpc_refined, iters=1)
@@ -857,8 +996,8 @@ def main() -> int:
             compare_mma("n=37 m=61 (odd n on the warp path)",
                         iteration_inputs(45, 5, 37, 61, device, eq=True)[1],
                         REFINED_EQ_TOL),
-            compare_mma_skewed("warp path", wbc_args),
-            compare_mma_skewed("cluster path", mpc_args)]
+            compare_skewed_k("warp path", wbc_args),
+            compare_skewed_k("cluster path", mpc_args)]
     for seed, B_ in ((52, 1), (53, 37), (54, 64), (55, 4096)):
         errs.append(compare_mma(f"test shape, B={B_}", iteration_inputs(
             seed, B_, 24, 40, device, eq=True)[1], REFINED_EQ_TOL))

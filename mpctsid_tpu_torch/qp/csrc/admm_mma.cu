@@ -142,11 +142,13 @@
 #include <stdint.h>
 
 #include "admm_block.cuh"
+#include "cluster_exchange.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using namespace admm_block;
+using namespace cluster_exchange;
 
 constexpr int MAX_KSPLIT = 8;   // depth slices per product, at most
 constexpr int PARTS = 2;        // TF32 parts per operand: A' w, K^-1 ., A x_t
@@ -395,56 +397,6 @@ __device__ __forceinline__ void mma_matvec(
                                            ksplit, warp, n_warps, emit);
 }
 
-// Asynchronous copies device memory -> shared memory (no register in
-// between, any number in flight); the issuing thread waits with
-// cp_async_wait(), then a barrier makes them visible to the others.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src)
-{
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src)
-{
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait()
-{
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// `rows` rows of a row-major (., n) matrix in device memory -> shared memory
-// with the row stride ld (a multiple of four), asynchronously; the pad
-// columns are zeroed.  Call cp_async_wait() before the barrier that
-// publishes the rows.
-__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
-                                          int rows, int n, int t, int T)
-{
-    if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        const int ld4 = ld >> 2;
-        for (int k = t; k < rows * ld4; k += T) {
-            const int i = k / ld4, j = (k - i * ld4) << 2;
-            if (j < n)
-                cp_async16(dst + 4 * k, src + (size_t)i * n + j);
-            else
-                reinterpret_cast<float4*>(dst)[k] =
-                    make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-    } else {
-        for (int k = t; k < rows * ld; k += T) {
-            const int i = k / ld, j = k - i * ld;
-            if (j < n)
-                cp_async4(dst + k, src + (size_t)i * n + j);
-            else
-                dst[k] = 0.f;
-        }
-    }
-}
-
 // What every path is given: the problem of B scenarios and where to write.
 struct IterArgs {
     const float *Kinv, *K, *A, *q, *l, *u, *rho, *x0, *z0, *y0;
@@ -589,74 +541,8 @@ admm_mma_warp_kernel(IterArgs a, int ld)
 
 // ---- the cluster path -------------------------------------------------------
 
-// The exchange between the blocks of a cluster.  A whole-cluster barrier
-// (cluster.sync()) costs a device-wide memory fence every time; instead each
-// value travels as an asynchronous store into the other block's shared
-// memory that reports its bytes to a transaction barrier (mbarrier) THERE.
-// The receiver posts how many bytes a step brings and waits for them: data
-// and signal arrive together, no fence, no cluster-wide rendezvous.  One
-// barrier per step of the iteration, one phase of it per iteration.
-
-__device__ __forceinline__ uint32_t shared_addr(const void* ptr)
-{
-    return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-// the same place in the shared memory of block `rank` of the cluster
-__device__ __forceinline__ uint32_t in_block(uint32_t addr, unsigned rank)
-{
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote) : "r"(addr), "r"(rank));
-    return remote;
-}
-
-__device__ __forceinline__ void barrier_init(uint64_t* bar)
-{
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 :: "r"(shared_addr(bar)) : "memory");
-}
-
-// one thread per block and step: `bytes` are on their way into this block
-__device__ __forceinline__ void barrier_expect(uint64_t* bar, unsigned bytes)
-{
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(shared_addr(bar)), "r"(bytes) : "memory");
-}
-
-// every thread: until the step's bytes have all arrived.  A count that never
-// completes (a bug) ends the launch with an error instead of hanging it.
-__device__ __forceinline__ void barrier_wait(uint64_t* bar, unsigned parity)
-{
-    const uint32_t addr = shared_addr(bar);
-#pragma unroll 1
-    for (int spin = 0; spin < (1 << 22); ++spin) {
-        uint32_t done;
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-        if (done) return;
-    }
-    __trap();
-}
-
-// value -> element `idx` of the copy of `ptr` in every block of the cluster,
-// counted by the copy of `bar` there
-__device__ __forceinline__ void store_all(unsigned C, float* ptr, int idx,
-                                          float value, uint64_t* bar)
-{
-    const uint32_t dst = shared_addr(ptr + idx), sig = shared_addr(bar);
-    for (unsigned c = 0; c < C; ++c)
-        asm volatile(
-            "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 "
-            "[%0], %1, [%2];\n"
-            :: "r"(in_block(dst, c)), "f"(value), "r"(in_block(sig, c))
-            : "memory");
-}
+// The exchange between the blocks of a cluster (st.async stores counted by
+// one mbarrier per step in the receiving block) is in cluster_exchange.cuh.
 
 // ... and its NS parts -> element `idx` of every block's copy of `v`
 template <int NS>

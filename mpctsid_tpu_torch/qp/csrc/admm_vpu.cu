@@ -9,26 +9,45 @@
 // well as the MPC stage (n = 192, m = 320).  Any n, m, B >= 1, no padding.
 // f32 FMAs only; the five mat-vecs are computed here, by this kernel.
 //
-// Design.  One block per scenario (the TPU kernel's one scenario per grid
-// step), every vector in shared memory for all iterations.  The matrices go
-// to shared memory greedily, in the order of their reads per iteration —
-// K^-1 (twice), A (twice), K (once) — as far as the block's opt-in limit
-// allows, and are streamed from global memory / L2 otherwise:
-//   WBC shape:  K^-1 + K + A = 13,200 B: all resident.
-//   MPC shape:  K^-1 (147,456 B) resident; A (245,760 B) and K stream.
-// Coalescing from row-major layouts as in admm_m2.cu: A' w and K' x_a reduce
-// over rows (one thread per column, rows dealt to `n_chunks` groups, partial
-// sums in shared memory); K^-1 rhs, K^-1 r and A x_t reduce over columns (one
-// warp per row, shuffle sum).  Seven __syncthreads() per iteration.
+// Two paths, chosen by the wrapper's vpu_layout() from (B, n, m), the
+// block's shared-memory limit and the number of multiprocessors:
+//
+//   * WARP path (n <= 32: the WBC shape n = 30, m = 50).  One WARP per
+//     scenario, several per block, no block barrier anywhere.  Lane i holds
+//     row i of K^-1 in registers (for x_a = K^-1 rhs and K^-1 r), lane j
+//     column j of K (for r = rhs - K' x_a); the vector operands are read
+//     from the warp's slice of shared memory as 16-byte broadcasts, a
+//     quarter of a shared-memory instruction per FMA.  A sits in the slice
+//     (cp.async) with a row stride of 4 mod 8 floats: A' w reads a row per
+//     step, lanes on neighbouring columns; A x_t reads 16-byte pieces of the
+//     rows lane, lane + 32, ..., eight rows of a quarter warp on different
+//     banks.  (Rows lane and lane + 32 of A also in registers for A x_t:
+//     171 registers instead of 128, measured 9-20 % slower, 0.093-0.105
+//     against 0.084-0.087 ms at the WBC shape, B = 4096, H100, in two
+//     calls; a patched copy in scripts/probe_kernel_designs.py.)  The
+//     elements of x, q, rhs, x_a, r and x_t that lane i owns stay in its
+//     registers; only what the other lanes read goes to shared memory.
+//   * BLOCK path (n > 32: the MPC shape).  One block per scenario (the TPU
+//     kernel's one scenario per grid step), every vector in shared memory
+//     for all iterations.  The matrices go to shared memory greedily, in the
+//     order of their reads per iteration — K^-1 (twice), A (twice), K
+//     (once) — as far as the block's opt-in limit allows, and are streamed
+//     from global memory / L2 otherwise (MPC shape: K^-1 resident; A and K
+//     stream).  Coalescing from row-major layouts: A' w and K' x_a reduce
+//     over rows (one thread per column, rows dealt to `n_chunks` groups,
+//     partial sums in shared memory); K^-1 rhs, K^-1 r and A x_t reduce over
+//     columns (one warp per row, shuffle sum).  Seven __syncthreads() per
+//     iteration (admm_block.cuh, `refined_iterations`).
 //
 // Bound on the card (chip_smoke.py computes it from the run's shapes): bytes
 // = K^-1, K, A and the vectors once per scenario against the memory rate;
 // operations = iters * (4 m n + 6 n^2) flops per scenario against the f32
-// FMA peak.  At the WBC shape the bytes side is the larger.  This kernel is
-// not near it: a block of 128 threads spends its time in barriers and
-// shared-memory latency, not in FMAs; the packed kernel (admm_packed.cu)
-// is the form built for the tiny matrices.
-//
+// FMA peak.  At the WBC shape the bytes side is the larger.  The block path
+// spends its time in barriers and shared-memory latency (0.646-0.655 ms at
+// B = 4096, 35x the bound); the warp path has neither barrier nor a
+// shared-memory read per FMA: 0.087-0.097 ms (the load alone 0.041;
+// NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+
 // Plain C interface (loaded with ctypes): device pointers and the stream as
 // integers, launch on that stream, no allocation, no synchronisation; returns
 // cudaGetLastError() of the launch.
@@ -36,10 +55,182 @@
 #include <cuda_runtime.h>
 
 #include "admm_block.cuh"
+#include "cluster_exchange.cuh"
 
 namespace {
 
 using namespace admm_block;
+using namespace cluster_exchange;
+
+constexpr int WARP_N = 32;          // the warp path: n <= 32, lane i on row i
+constexpr int MAX_WARP_SLOTS = 8;   // scenarios (warps) per block, at most
+
+__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// Floats of one scenario's slice on the warp path (the wrapper's
+// vpu_layout() computes the same): A with round4(m) rows of stride ld (the
+// pad rows zero), rhs, x_a, r, x_t (32 each, zero past n), w (round4(m),
+// zero past m), z, y, l, u, rho, 1 / rho (round4(m) each).
+__host__ __device__ __forceinline__ int vpu_slot_floats(int m, int ld)
+{
+    const int mp = round4(m);
+    return mp * ld + 4 * WARP_N + 7 * mp;
+}
+
+__device__ __forceinline__ float4 f4(const float* p)
+{
+    return *reinterpret_cast<const float4*>(p);
+}
+
+// sum_k reg[k] vec[k] over 32 entries, vec in 16-byte broadcasts
+__device__ __forceinline__ float dot32(const float (&reg)[WARP_N],
+                                       const float* vec)
+{
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARP_N; k += 4) {
+        const float4 v = f4(vec + k);
+        a0 = fmaf(reg[k], v.x, a0);
+        a1 = fmaf(reg[k + 1], v.y, a1);
+        a0 = fmaf(reg[k + 2], v.z, a0);
+        a1 = fmaf(reg[k + 3], v.w, a1);
+    }
+    return a0 + a1;
+}
+
+// sum_k row[k] vec[k], k < kp (a multiple of four), both in shared memory
+__device__ __forceinline__ float dot_row4(const float* row, const float* vec,
+                                          int kp)
+{
+    float a0 = 0.f, a1 = 0.f;
+    for (int k = 0; k < kp; k += 4) {
+        const float4 r = f4(row + k);
+        const float4 v = f4(vec + k);
+        a0 = fmaf(r.x, v.x, a0);
+        a1 = fmaf(r.y, v.y, a1);
+        a0 = fmaf(r.z, v.z, a0);
+        a1 = fmaf(r.w, v.w, a1);
+    }
+    return a0 + a1;
+}
+
+struct VpuArgs {
+    const float *Kinv, *K, *A, *q, *l, *u, *rho, *x0, *z0, *y0;
+    float *x_out, *z_out, *y_out;
+    int B, n, m, iters;
+    float sigma, alpha;
+};
+
+// The update of refined_iterations (admm_block.cuh: K TRANSPOSED) by one
+// warp per scenario; see the file's head.
+__global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
+admm_vpu_warp_kernel(VpuArgs a, int ld, int slot_floats)
+{
+    extern __shared__ __align__(16) float smem[];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+    if (b >= a.B) return;      // nothing below waits for another warp
+    const int n = a.n, m = a.m;
+    const int mp = round4(m);
+    const int kp = round4(n);
+    float* sA = smem + (size_t)warp * slot_floats;
+    float* p = sA + mp * ld;
+    float* s_rhs = p;  p += WARP_N;
+    float* s_xa = p;   p += WARP_N;
+    float* s_r = p;    p += WARP_N;
+    float* s_xt = p;   p += WARP_N;
+    float* s_w = p;    p += mp;
+    float* s_z = p;    p += mp;
+    float* s_y = p;    p += mp;
+    float* s_l = p;    p += mp;
+    float* s_u = p;    p += mp;
+    float* s_rho = p;  p += mp;
+    float* s_rinv = p;
+
+    // A -> the slice (asynchronously; pad columns zeroed), pad rows zeroed
+    load_rows(sA, ld, a.A + (size_t)b * m * n, m, n, lane, 32);
+    for (int k = m * ld + lane; k < mp * ld; k += 32) sA[k] = 0.f;
+    // row `lane` of K^-1 and column `lane` of K, zero past n
+    const float* gKinv = a.Kinv + (size_t)b * n * n;
+    const float* gK = a.K + (size_t)b * n * n;
+    const bool own = lane < n;
+    float kinv[WARP_N], kcol[WARP_N];
+#pragma unroll
+    for (int k = 0; k < WARP_N; ++k) {
+        kinv[k] = own && k < n ? gKinv[lane * n + k] : 0.f;
+        kcol[k] = own && k < n ? gK[k * n + lane] : 0.f;
+    }
+    float x = own ? a.x0[(size_t)b * n + lane] : 0.f;
+    const float q = own ? a.q[(size_t)b * n + lane] : 0.f;
+    for (int i = lane; i < mp; i += 32) {
+        const bool in = i < m;
+        const size_t gi = (size_t)b * m + i;
+        const float rh = in ? a.rho[gi] : 1.f;
+        const float zi = in ? a.z0[gi] : 0.f;
+        const float yi = in ? a.y0[gi] : 0.f;
+        s_z[i] = zi;
+        s_y[i] = yi;
+        s_l[i] = in ? a.l[gi] : 0.f;
+        s_u[i] = in ? a.u[gi] : 0.f;
+        s_rho[i] = rh;
+        s_rinv[i] = 1.0f / rh;
+        s_w[i] = in ? rh * zi - yi : 0.f;
+    }
+    cp_async_wait();
+    __syncwarp();
+
+    const float sigma = a.sigma, alpha = a.alpha;
+    const float one_m_alpha = 1.0f - alpha;
+    for (int it = 0; it < a.iters; ++it) {
+        // rhs = sigma x - q + A' w   (lane j: column j of A, w broadcast)
+        float a0 = 0.f, a1 = 0.f;
+        for (int i = 0; i < mp; i += 4) {
+            const float4 wv = f4(s_w + i);
+            const float* col = sA + i * ld + lane;
+            a0 = fmaf(col[0], wv.x, a0);
+            a1 = fmaf(col[ld], wv.y, a1);
+            a0 = fmaf(col[2 * ld], wv.z, a0);
+            a1 = fmaf(col[3 * ld], wv.w, a1);
+        }
+        const float rhs = (sigma * x - q) + (a0 + a1);
+        s_rhs[lane] = rhs;
+        __syncwarp();
+        // x_a = K^-1 rhs   (row `lane` of K^-1)
+        const float xa = dot32(kinv, s_rhs);
+        s_xa[lane] = xa;
+        __syncwarp();
+        // r = rhs - K' x_a   (the explicit residual, column `lane` of K)
+        s_r[lane] = rhs - dot32(kcol, s_xa);
+        __syncwarp();
+        // x_t = x_a + K^-1 r;  x <- alpha x_t + (1 - alpha) x
+        const float xt = xa + dot32(kinv, s_r);
+        s_xt[lane] = xt;
+        x = alpha * xt + one_m_alpha * x;
+        __syncwarp();
+        // z_t = A x_t, then the z / y / w updates of rows lane, lane + 32, ..
+        auto project = [&](int i, float zt) {
+            const float zr = alpha * zt + one_m_alpha * s_z[i];
+            const float yi = s_y[i];
+            const float rh = s_rho[i];
+            const float zn =
+                fminf(fmaxf(zr + s_rinv[i] * yi, s_l[i]), s_u[i]);
+            const float yn = yi + rh * (zr - zn);
+            s_z[i] = zn;
+            s_y[i] = yn;
+            s_w[i] = rh * zn - yn;
+        };
+        for (int i = lane; i < m; i += 32)
+            project(i, dot_row4(sA + i * ld, s_xt, kp));
+        __syncwarp();
+    }
+
+    if (own) a.x_out[(size_t)b * n + lane] = x;
+    for (int i = lane; i < m; i += 32) {
+        a.z_out[(size_t)b * m + i] = s_z[i];
+        a.y_out[(size_t)b * m + i] = s_y[i];
+    }
+}
 
 __global__ void __launch_bounds__(1024)
 admm_vpu_kernel(const float* __restrict__ Kinv, const float* __restrict__ K,
@@ -129,22 +320,23 @@ admm_vpu_kernel(const float* __restrict__ Kinv, const float* __restrict__ K,
 
 extern "C" {
 
-// Launch on `stream`.  `threads` is the block size, a multiple of 32 in
-// [32, 1024].  Returns the CUDA error code of the launch (0 = success).
+// Launch on `stream` with the geometry of the wrapper's vpu_layout():
+//   g > 0:   the warp path, g scenarios (warps) per block, A's row stride
+//            `ld` (a multiple of four, at least 32), `slot_floats` floats of
+//            shared memory per scenario (checked here);
+//   g == 0:  the block path, `threads` threads per block (a multiple of 32
+//            in [32, 1024]).
+// Returns the CUDA error code of the launch (0 = success).
 int admm_vpu_launch(const float* Kinv, const float* K, const float* A,
                     const float* q, const float* l, const float* u,
                     const float* rho, const float* x0, const float* z0,
                     const float* y0, float* x_out, float* z_out, float* y_out,
                     int B, int n, int m, int iters, float sigma, float alpha,
-                    int threads, void* stream)
+                    int g, int threads, int ld, int slot_floats,
+                    void* stream)
 {
-    if (B <= 0 || n <= 0 || m <= 0 || iters < 0 || threads < 32 ||
-        threads > 1024 || (threads & 31) != 0)
+    if (B <= 0 || n <= 0 || m <= 0 || iters < 0)
         return (int)cudaErrorInvalidValue;
-
-    const int n_up = (n + 31) / 32 * 32;
-    const int col_threads = n_up < threads ? n_up : threads;
-    const int n_chunks = threads / col_threads;
 
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -154,6 +346,31 @@ int admm_vpu_launch(const float* Kinv, const float* K, const float* A,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
 
+    if (g > 0) {
+        if (g > MAX_WARP_SLOTS || n > WARP_N || (ld & 3) != 0 ||
+            ld < WARP_N || slot_floats != vpu_slot_floats(m, ld))
+            return (int)cudaErrorInvalidValue;
+        const size_t smem = sizeof(float) * (size_t)g * (size_t)slot_floats;
+        if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+        const VpuArgs args = {Kinv, K, A, q, l, u, rho, x0, z0, y0,
+                              x_out, z_out, y_out, B, n, m, iters, sigma,
+                              alpha};
+        if (smem > 48 * 1024) {
+            err = cudaFuncSetAttribute(
+                admm_vpu_warp_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (err != cudaSuccess) return (int)err;
+        }
+        admm_vpu_warp_kernel<<<(B + g - 1) / g, 32 * g, smem, (cudaStream_t)stream>>>(
+            args, ld, slot_floats);
+        return (int)cudaGetLastError();
+    }
+
+    if (threads < 32 || threads > 1024 || (threads & 31) != 0)
+        return (int)cudaErrorInvalidValue;
+    const int n_up = (n + 31) / 32 * 32;
+    const int col_threads = n_up < threads ? n_up : threads;
+    const int n_chunks = threads / col_threads;
     const size_t vec_bytes = sizeof(float) *
         ((size_t)6 * n + (size_t)7 * m + (size_t)n_chunks * n);
     if (vec_bytes > (size_t)max_smem) return (int)cudaErrorInvalidValue;

@@ -6,11 +6,14 @@ JAX package's qp/pallas_kernels.py and keeping its function name:
   * `admm_iterate_m2` (admm_m2.cu) <- `admm_iterate_m2` /
     `admm_iterate_m2_packed_batch`: `iters` ADMM updates with the refinement
     folded into one precomputed map M2 = 2 K^-1 - K^-1 K K^-1.  The MPC
-    stage's iterations (inequality-only QPs).
+    stage's iterations (inequality-only QPs).  A thread-block cluster per
+    scenario, the least (1 to 8 blocks) that holds row slices of M2 (in
+    registers where they fit) and of A (in shared memory): `m2_layout`.
   * `admm_iterate_vpu` (admm_vpu.cu) <- `admm_iterate_vpu`: `iters` updates
     with the EXPLICIT refinement x_a = K^-1 rhs, r = rhs - K' x_a,
-    x_t = x_a + K^-1 r; valid with equality rows.  One block per scenario,
-    any shape.
+    x_t = x_a + K^-1 r; valid with equality rows.  n <= 32: one warp per
+    scenario with K^-1 and K in registers; larger: one block per scenario
+    (`vpu_layout`).
   * `admm_iterate_vpu_packed` (admm_packed.cu) <- `admm_iterate_vpu_packed` /
     `admm_iterate_packed`: the same function for small matrices, several
     scenarios per block, one warp each.
@@ -66,8 +69,10 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_iterate_refined_reference", "check_refined_args",
            "admm_iterate", "admm_iterate_reference",
            "device_limits", "packed_layout", "fused_layout", "mma_layout",
+           "m2_layout", "m2_block", "m2_active_clusters", "vpu_layout",
            "row_slices",
-           "FusedLayout", "MmaLayout", "admm_solve_fused",
+           "FusedLayout", "MmaLayout", "M2Layout", "VpuLayout",
+           "admm_solve_fused",
            "admm_solve_fused_reference",
            "check_fused_args", "build_all", "LIBRARIES"]
 
@@ -315,19 +320,19 @@ def admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0,
 
 # name -> (sources, headers) under qp/csrc/; one shared library per kernel
 LIBRARIES = {
-    "admm_m2": (("admm_m2.cu",), ()),
-    "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh",)),
+    "admm_m2": (("admm_m2.cu",), ("cluster_exchange.cuh",)),
+    "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
     "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",)),
     "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
-    "admm_mma": (("admm_mma.cu",), ("admm_block.cuh",)),
+    "admm_mma": (("admm_mma.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
 }
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLT = ctypes.c_float
 _LAUNCH_ARGTYPES = {
-    "admm_m2": [_PTR] * 12 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
-    "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT, _PTR],
+    "admm_m2": [_PTR] * 12 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 5 + [_PTR],
+    "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 4 + [_PTR],
     "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 3 + [_PTR],
     "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 4 + [_PTR],
     "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 6 + [_PTR],
@@ -361,6 +366,9 @@ def _library(name: str):
         if name == "admm_fused":
             lib.admm_fused_workspace_floats.argtypes = [_INT] * 4
             lib.admm_fused_workspace_floats.restype = ctypes.c_longlong
+        if name == "admm_m2":
+            lib.admm_m2_active_clusters.argtypes = [_INT] * 4
+            lib.admm_m2_active_clusters.restype = _INT
         _LIBS[name] = lib
     return lib
 
@@ -415,21 +423,122 @@ def _launch_iteration(name: str, inputs, x, z, y, dims, iters: int,
     return outs
 
 
+MAX_CLUSTER = 8         # blocks per cluster, the portable maximum
+MAX_M2_THREADS = 512    # admm_m2.cu: __launch_bounds__
+M2_REG_ROWS = 12        # admm_m2.cu: rows of M2 per thread in registers
+M2_BARRIER_FLOATS = 4   # admm_m2.cu: two 8-byte barriers of the exchange
+RES_M2, RES_M2_A, RES_M2_REGS = 1, 2, 4
+
+
+class M2Layout(NamedTuple):
+    """How one launch of the M2 iteration kernel is laid out."""
+    cluster: int       # blocks per scenario (a thread-block cluster)
+    threads: int       # threads per block
+    ld: int            # row stride of the matrices in shared memory
+    resident: int      # RES_M2 | RES_M2_A | RES_M2_REGS: where slices live
+    smem_floats: int   # floats of shared memory per block
+    rows_n: int        # rows of M2 per block
+    rows_m: int        # rows of A per block
+
+    @property
+    def geometry(self):
+        """The launcher's trailing arguments."""
+        return (self.cluster, self.threads, self.ld, self.resident,
+                self.smem_floats)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def m2_block(n: int, m: int, cluster: int, threads: int = 0):
+    """(rows_n, rows_m, threads, vector floats) of one block of kernel 1 at
+    a cluster size: whole groups of four rows per block, the last slices
+    ragged or empty; unless `threads` is given, about 16 rows of A per chunk
+    of a transposed product for each group of four columns, 64 to 512
+    threads, and where that many threads hold M2's slice in registers
+    (M2_REG_ROWS rows of four columns each), one such part per thread
+    instead, none idle in the M2 product (384 threads against 480 at the
+    MPC shape, 3.4 % faster: PERF.md); the vector floats as
+    admm_m2.cu's m2_vec_floats()."""
+    np_ = _round4(n)
+    rows_n = _round4(_cdiv(n, cluster))
+    rows_m = _round4(_cdiv(m, cluster))
+    if not threads:
+        threads = min(MAX_M2_THREADS, max(
+            64, _cdiv((np_ // 4) * max(1, _cdiv(rows_m, 16)), 32) * 32))
+        parts = (np_ // 4) * _cdiv(rows_n, M2_REG_ROWS)
+        if parts <= threads:
+            threads = max(64, _cdiv(parts, 32) * 32)
+    part = max(4 * threads, np_, rows_m)
+    vec = (M2_BARRIER_FLOATS + 3 * np_ + rows_n + M2_REG_ROWS + 7 * rows_m
+           + part + cluster * (rows_n + np_))
+    return rows_n, rows_m, threads, vec
+
+
+def m2_layout(n: int, m: int, smem_bytes: int) -> M2Layout:
+    """Which geometry a launch of `admm_iterate_m2` takes.
+
+    A cluster of C blocks per scenario, C the least of 1 to 8 (8 is the
+    portable maximum) at which a block holds its row slices of M2 and A:
+    M2's in REGISTERS where each thread's part is at most M2_REG_ROWS rows
+    of four columns (measured faster than M2 in shared memory: PERF.md),
+    else in shared memory; A's in shared memory (rows padded to the
+    stride ld, 4 mod 8 floats: the rows a quarter warp reads lie on
+    different banks), beside the vectors, partial sums and exchange
+    buffers.  The fewer blocks share a scenario, the less each exchange
+    costs per FMA.  Shapes that one block holds stay one block (a cluster of
+    1).  Where even 8 blocks cannot hold both slices, A is streamed from
+    device memory every iteration (and M2 too where its slice does not fit
+    either).  Neither the batch nor the multiprocessor count enters: one
+    scenario is one cluster whatever the batch.  The launcher recomputes the
+    block's floats from the geometry and refuses a mismatch.  Raises if the
+    vectors alone do not fit."""
+    np_ = _round4(n)
+    ld = np_ if np_ % 8 == 4 else np_ + 4
+    for cluster in range(1, MAX_CLUSTER + 1):
+        rows_n, rows_m, threads, vec = m2_block(n, m, cluster)
+        regs = (np_ // 4) * _cdiv(rows_n, M2_REG_ROWS) <= threads
+        floats = vec + rows_m * ld + (0 if regs else rows_n * ld)
+        if 4 * floats <= smem_bytes:
+            resident = RES_M2_A | (RES_M2_REGS if regs else RES_M2)
+            return M2Layout(cluster, threads, ld, resident, floats, rows_n,
+                            rows_m)
+    if 4 * vec > smem_bytes:
+        raise ValueError(
+            f"admm_iterate_m2: the vectors of n={n}, m={m} need {4 * vec} "
+            f"bytes of shared memory per block even across a cluster of 8, "
+            f"a block has {smem_bytes}")
+    resident, floats = 0, vec
+    for bit, rows in ((RES_M2, rows_n), (RES_M2_A, rows_m)):
+        if 4 * (floats + rows * ld) <= smem_bytes:
+            resident |= bit
+            floats += rows * ld
+    return M2Layout(MAX_CLUSTER, threads, ld, resident, floats, rows_n,
+                    rows_m)
+
+
 def admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
                     iters: int = 25, sigma: float = 1e-6, alpha: float = 1.6):
     """`iters` M2-folded ADMM updates for a batch; returns (x, z, y).
 
-    CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
-    the plain version.  See the module docstring."""
+    CUDA tensors: launches the hand-written kernel with the geometry of
+    `m2_layout`, or raises (also when the card cannot schedule the
+    cluster: nothing is handed to another layout).  CPU tensors: the plain
+    version.  See the module docstring."""
     B, n, m = check_m2_args(M2, A, q, l, u, rho_vec, x, z, y)
     iters = _check_iters(iters)
     if M2.device.type == "cpu":
         return admm_iterate_m2_reference(M2, A, q, l, u, rho_vec, x, z, y,
                                          iters=iters, sigma=sigma, alpha=alpha)
     _require_cuda(M2.device, "admm_iterate_m2")
+    lay = m2_layout(n, m, device_limits(M2.device)[0])
     out = _launch_iteration("admm_m2", (M2, A, q, l, u, rho_vec), x, z, y,
-                            (B, n, m), iters, sigma, alpha,
-                            (_pick_threads(n),))
+                            (B, n, m), iters, sigma, alpha, lay.geometry)
     admm_iterate_m2.launches += 1
     return out
 
@@ -437,10 +546,63 @@ def admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
 admm_iterate_m2.launches = 0
 
 
+def m2_active_clusters(lay: M2Layout, dev=None) -> int:
+    """How many clusters of `lay` the card holds at once (the occupancy
+    calculator's answer; 0: the launch would be refused)."""
+    lib = _library("admm_m2")
+    with torch.cuda.device(dev if dev is not None else
+                           torch.cuda.current_device()):
+        got = lib.admm_m2_active_clusters(lay.cluster, lay.threads,
+                                          lay.resident, lay.smem_floats)
+    if got < 0:
+        _raise_on(-got, lib, "admm_m2", 0, 0, 0)
+    return got
+
+
+MAX_VPU_N = 32          # kernel 2's warp path: lane i owns row i
+VPU_LD = 36             # its row stride of A: 4 mod 8 floats, at least 32
+MAX_VPU_SLOTS = 4       # warps per block there (admm_vpu.cu allows 8)
+
+
+class VpuLayout(NamedTuple):
+    """How one launch of the generic refined-iteration kernel is laid out."""
+    path: str          # "warp": a warp per scenario; "block": a block each
+    g: int             # scenarios (warps) per block on the warp path, else 0
+    threads: int       # threads per block
+    ld: int            # row stride of A in shared memory (warp path)
+    slot_floats: int   # floats of shared memory per scenario (warp path)
+
+    @property
+    def geometry(self):
+        """The launcher's trailing arguments."""
+        return (self.g, self.threads, self.ld, self.slot_floats)
+
+
+def vpu_layout(n: int, m: int, B: int, smem_bytes: int,
+               n_sm: int) -> VpuLayout:
+    """Which path a launch of `admm_iterate_vpu` takes, and its parameters.
+
+    n <= 32 and at least four scenarios fitting a block: the warp path.  One
+    scenario's slot holds A (round4(m) rows of stride VPU_LD, the pad rows
+    zero), rhs, x_a, r, x_t (32 floats each) and its seven m-vectors
+    (round4(m) each); g is what fits in `smem_bytes`, at most MAX_VPU_SLOTS,
+    and no more than spreads B over `n_sm` multiprocessors.  K^-1 and K sit
+    in registers.  Otherwise the block path: one block per scenario,
+    matrices in shared memory as far as they fit, the rest streamed."""
+    mp = _round4(m)
+    slot = mp * VPU_LD + 4 * MAX_VPU_N + 7 * mp
+    fit = smem_bytes // (4 * slot)
+    if n <= MAX_VPU_N and fit >= MIN_WARP_SLOTS:
+        g = _slots_per_block(fit, MAX_VPU_SLOTS, B, n_sm)
+        return VpuLayout("warp", g, 32 * g, VPU_LD, slot)
+    return VpuLayout("block", 0, _pick_threads(n), 0, 0)
+
+
 def admm_iterate_vpu(K_inv, K, A, q, l, u, rho_vec, x, z, y,
                      iters: int = 25, sigma: float = 1e-6, alpha: float = 1.6):
-    """`iters` ADMM updates with the explicit refinement, one block per
-    scenario, any n and m; returns (x, z, y).
+    """`iters` ADMM updates with the explicit refinement, any n and m (one
+    warp per scenario for n <= 32, else one block: `vpu_layout`); returns
+    (x, z, y).
 
     CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
     the plain version.  See the module docstring."""
@@ -451,9 +613,10 @@ def admm_iterate_vpu(K_inv, K, A, q, l, u, rho_vec, x, z, y,
             K_inv, K, A, q, l, u, rho_vec, x, z, y, iters=iters, sigma=sigma,
             alpha=alpha)
     _require_cuda(K_inv.device, "admm_iterate_vpu")
+    lay = vpu_layout(n, m, B, *device_limits(K_inv.device))
     out = _launch_iteration("admm_vpu", (K_inv, K, A, q, l, u, rho_vec),
                             x, z, y, (B, n, m), iters, sigma, alpha,
-                            (_pick_threads(n),))
+                            lay.geometry)
     admm_iterate_vpu.launches += 1
     return out
 
@@ -610,7 +773,6 @@ admm_solve_fused.launches = 0
 MAX_MMA_SLOTS = 4       # warps per block on kernel 5's warp path
 MMA_KSPLIT = 8          # depth slices per product, at most (admm_mma.cu)
 MMA_BARRIER_FLOATS = 8  # cluster path: four 8-byte barriers of the exchange
-MAX_CLUSTER = 8         # blocks per cluster, the portable maximum
 RES_KINV, RES_A, RES_K = 1, 2, 4
 
 

@@ -1,20 +1,37 @@
 #!/usr/bin/env python3
-"""Where the time of the two redesigned kernels goes: the tensor-core
+"""Where the time of the redesigned kernels goes: the M2 iteration
+(admm_m2.cu), the generic refined iteration (admm_vpu.cu), the tensor-core
 iteration (admm_mma.cu) and the whole solve (admm_fused.cu).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
+        [--kernels m2 vpu mma fused]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit:
+limit.  `--kernels` picks the parts (default: all four):
 
-  1. layouts (admm_mma.cu): the launcher is called with geometries other
+  m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
+     than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
+     registers or in shared memory, block sizes of 384 to 512 threads and
+     clusters of 2, 3 and 4 (interleaved over several rounds), the earlier
+     one-block layout (M2 in shared memory, A streamed), no iterations; and
+     patched copies (times only): A's loads taken out of the one-block
+     layout, the waits of the exchange removed, the three products skipped
+     (those three give wrong results), and one block per scenario with M2
+     and as many rows of A as fit beside it in shared memory, the other
+     rows of A streamed (right results);
+  vpu. (admm_vpu.cu, WBC shape) the warp path with 1 to 8 scenarios per
+     block, a patched copy that also holds rows lane and lane + 32 of A in
+     registers for A x_t (right results, m <= 64), no iterations, and the
+     block path (the earlier design) at the same shape;
+
+  mma 1. layouts (admm_mma.cu): the launcher is called with geometries other
      than the one `kernels.mma_layout` chooses (row stride and scenarios per
      block on the warp path; row stride, threads per block and cluster size
      on the cluster path), to show what the choice is worth, and with
      fewer scenarios (one wave of blocks, several);
-  2. variants (admm_mma.cu): copies of the source patched by text
+  mma 2. variants (admm_mma.cu): copies of the source patched by text
      substitution and built beside the real library (the shipped source has
      no switch): the tile products skipped or stripped of one part at a
      time, the TF32 rounding done by the conversion instruction, a
@@ -23,7 +40,7 @@ limit:
      barrier and exchange of an iteration.  Their RESULTS ARE WRONG on purpose; only their times are
      read, to split the kernel's time into products, barriers, exchange
      and rounding;
-  3. fused (admm_fused.cu): the whole solve with fewer iterations, rounds
+  fused. (admm_fused.cu) the whole solve with fewer iterations, rounds
      and Ruiz passes (what each part costs), with other numbers of
      scenarios per block, and a patched copy that reads the cycle counter at
      every phase boundary of one warp (the share of each phase of a round).
@@ -50,6 +67,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mpctsid_tpu_torch.qp import _build, kernels  # noqa: E402
 
+PARTS = ["m2", "vpu", "mma", "fused"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -380,33 +398,282 @@ def probe_fused(record, B, device, smem, n_sm, build):
                mean_cycles_per_solve=float(cycles[:, k].mean()))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--out", default=None)
-    a = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
-    smem, n_sm = kernels.device_limits(device)
-    smi = smi_line()
-    build = os.path.join(str(_build.build_dir()), "probe_kernel_designs")
-    os.makedirs(build, exist_ok=True)
-    B = a.batch
-    report = {"card": smi, "batch": B, "layouts": [], "variants": [],
-              "cluster_phases": [], "fused": []}
+# name -> substitutions applied to admm_m2.cu (results wrong, times only)
+M2_VARIANTS = {
+    # on the one-block layout the products read A from device memory; here they
+    # read an n-vector of shared memory instead (the same FMAs, no traffic)
+    "no A loads (one-block layout)": [
+        ("            matT_vec_chunks<true>(A_p, ld_a, mc, n, w, part, np, "
+         "ch_a, L_a);",
+         "            matT_vec_chunks<true>(x, 0, mc, n, w, part, np, ch_a, "
+         "L_a);"),
+        ("            mat_vec_streamed(A_p, ld_a, mc, n, xt, part);",
+         "            mat_vec_streamed(x, 0, mc, n, xt, part);")],
+    "no waits for the exchange": [
+        (f"        barrier_wait(bars + {k}, phase);\n", "") for k in (0, 1)],
+    "no products": [
+        ("        if (wide_a)\n            matT_vec_chunks<true>(A_p",
+         "        if (a.iters >= 0) {} else if (wide_a)\n"
+         "            matT_vec_chunks<true>(A_p"),
+        ("        if constexpr (REGS)\n            matT_vec_regs(",
+         "        if (a.iters >= 0) {} else if constexpr (REGS)\n"
+         "            matT_vec_regs("),
+        ("        if (a_smem)\n            mat_vec_chunks(",
+         "        if (a.iters >= 0) {} else if (a_smem)\n"
+         "            mat_vec_chunks(")],
+}
 
+
+# One block per scenario with M2's rows and the first `rows` rows of A in
+# shared memory, the other rows of A streamed from device memory every
+# iteration (A' w by chunks of rows, each chunk from where its rows live;
+# A x_t from shared memory for those rows, one warp per streamed row).  The
+# kernel computes what the shipped one does; `rows` must be a multiple of the
+# chunk of A' w.
+def m2_partial_a_subs(rows):
+    return [
+        ("template <bool REGS>\n__global__",
+         f"constexpr int A_RES_ROWS = {rows};\n\n"
+         "__device__ __forceinline__ void matT_vec_split(\n"
+         "    const float* sA, int ld, const float* gA, int gld, int depth,\n"
+         "    const float* vec, float* part, int np, int chunks, int L)\n"
+         "{\n"
+         "    const int cgs = np >> 2;\n"
+         "    for (int unit = threadIdx.x; unit < cgs * chunks;\n"
+         "         unit += blockDim.x) {\n"
+         "        const int ch = unit / cgs;\n"
+         "        const int j = 4 * (unit - ch * cgs);\n"
+         "        const int i1 = min(depth, ch * L + L);\n"
+         "        int i = ch * L;\n"
+         "        const bool res = i < A_RES_ROWS;\n"
+         "        const int s = res ? ld : gld;\n"
+         "        const float* mp = (res ? sA : gA) + (size_t)i * s + j;\n"
+         "        float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;\n"
+         "        for (; i + 3 < i1; i += 4, mp += 4 * s) {\n"
+         "            const float4 v = f4(vec + i);\n"
+         "            fma4(a0, f4(mp), v.x);\n"
+         "            fma4(a1, f4(mp + s), v.y);\n"
+         "            fma4(a0, f4(mp + 2 * s), v.z);\n"
+         "            fma4(a1, f4(mp + 3 * s), v.w);\n"
+         "        }\n"
+         "        for (; i < i1; ++i, mp += s) fma4(a0, f4(mp), vec[i]);\n"
+         "        *reinterpret_cast<float4*>(part + ch * np + j) =\n"
+         "            add4(a0, a1);\n"
+         "    }\n"
+         "}\n\n"
+         "template <bool REGS>\n__global__"),
+        ("    if (resident & RES_A) {\n"
+         "        load_rows(p, ld, A_p, mc, n, t, T);",
+         "    const float* A_g = A_p;\n"
+         "    if (resident & RES_A) {\n"
+         "        load_rows(p, ld, A_p, min(mc, A_RES_ROWS), n, t, T);"),
+        ("            matT_vec_chunks<true>(A_p, ld_a, mc, n, w, part, np, "
+         "ch_a, L_a);",
+         "            matT_vec_split(A_p, ld_a, A_g, n, mc, w, part, np, "
+         "ch_a, L_a);"),
+        ("            mat_vec_chunks(A_p, ld_a, mc, np, xt, part, kch_used, "
+         "KL);",
+         "        {\n"
+         "            mat_vec_chunks(A_p, ld_a, min(mc, A_RES_ROWS), np, xt,\n"
+         "                           part, 1, KL);\n"
+         "            mat_vec_streamed(A_g + (size_t)A_RES_ROWS * n, n,\n"
+         "                             mc - A_RES_ROWS, n, xt,\n"
+         "                             part + A_RES_ROWS);\n"
+         "        }"),
+        ("    if (resident & RES_A) want += rows_m * ld;",
+         "    if (resident & RES_A) want += A_RES_ROWS * ld;")]
+
+
+def m2_geometry(n, m, ld, cluster, threads=0, m2="regs", a_resident=True):
+    """The launcher's geometry for a cluster size, a block size and where M2
+    ("regs", "smem" or "streamed") and A live."""
+    rows_n, rows_m, threads, floats = kernels.m2_block(n, m, cluster, threads)
+    resident = kernels.RES_M2_A if a_resident else 0
+    if a_resident:
+        floats += rows_m * ld
+    if m2 == "regs":
+        resident |= kernels.RES_M2_REGS
+    elif m2 == "smem":
+        resident |= kernels.RES_M2
+        floats += rows_n * ld
+    return (cluster, threads, ld, resident, floats)
+
+
+def m2_launch(fn, args, iters, geometry):
+    B, n = args[0].shape[:2]
+    m = args[1].shape[1]
+    outs = [torch.empty_like(t) for t in args[6:]]
+    rc = fn(*(t.data_ptr() for t in (*args, *outs)), B, n, m, iters, 1e-6,
+            1.6, *geometry, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"m2 launch failed: CUDA error {rc}, {geometry}")
+    return outs
+
+
+def m2_launcher(lib):
+    fn = lib.admm_m2_launch
+    fn.argtypes = kernels._LAUNCH_ARGTYPES["admm_m2"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def probe_m2(record, B, device, smem, build):
+    n, m, it = MPC
+    src = inputs(1, B, n, m, device)
+    # M2 of the QP whose P is inputs()' K: K = P + A' rho A and its inverse
+    # in float64, M2 = 2 K^-1 - K^-1 K K^-1 (a converging iteration, so that
+    # two layouts' results can be compared), then A, q, l, u, rho, x, z, y
+    P, A, rho = (src[i].double() for i in (1, 2, 6))
+    K = P + torch.bmm((A * rho[:, :, None]).transpose(1, 2), A)
+    Ki = torch.linalg.inv(K)
+    args = [(2.0 * Ki - Ki @ K @ Ki).float().contiguous()] + src[2:]
+    del P, A, rho, K, Ki
+    lay = kernels.m2_layout(n, m, smem)
+    real = m2_launcher(kernels._library("admm_m2"))
+    ld = lay.ld
+    pr1 = m2_geometry(n, m, ld, 1, 512, m2="smem", a_resident=False)
+    for what, geo in (
+            ("chosen: clusters of 2, M2 in registers", lay.geometry),
+            ("clusters of 2, M2 in shared memory",
+             m2_geometry(n, m, ld, 2, m2="smem")),
+            ("clusters of 2, M2 in registers, A streamed",
+             m2_geometry(n, m, ld, 2, a_resident=False)),
+            ("clusters of 4, M2 in registers", m2_geometry(n, m, ld, 4)),
+            ("clusters of 4, M2 in shared memory",
+             m2_geometry(n, m, ld, 4, m2="smem")),
+            ("one block, M2 in shared memory, A streamed (one-block layout)",
+             pr1)):
+        record("m2", what=what, geometry=geo,
+               bytes_per_block=4 * geo[-1],
+               ms=time_ms(lambda: m2_launch(real, args, it, geo), 1, 3))
+    # block and cluster sizes, M2 in registers: interleaved rounds in one
+    # call (a single sample of each is within the spread between samples);
+    # 0 threads: m2_block's choice at that cluster size
+    rivals = [(2, t) for t in sorted({384, 416, 448, 480, 512, lay.threads})]
+    rivals += [(3, 0), (4, 0), (4, 256), (4, 384)]
+    geos = {r: m2_geometry(n, m, ld, *r) for r in rivals}
+    times = {r: [] for r in rivals}
+    for _ in range(6):
+        for r in rivals:
+            times[r].append(time_ms(
+                lambda: m2_launch(real, args, it, geos[r]), 1, 5))
+    for r in rivals:
+        record("m2", what="M2 in registers, cluster and block size",
+               cluster=r[0], threads=geos[r][1],
+               chosen=geos[r] == lay.geometry, rounds_ms=times[r],
+               median_ms=float(np.median(times[r])), min_ms=min(times[r]))
+    for iters in (0, 1):
+        record("m2", what=f"chosen layout, {iters} iterations",
+               ms=time_ms(lambda: m2_launch(real, args, iters,
+                                            lay.geometry), 1, 3))
+    active = kernels.m2_active_clusters(lay)
+    for Bs in (active, 2 * active):
+        part = [t[:Bs].contiguous() for t in args]
+        record("m2", what="scenarios", B=Bs, clusters_at_once=active,
+               ms=time_ms(lambda: m2_launch(real, part, it, lay.geometry),
+                          1, 3))
+    for name, subs in M2_VARIANTS.items():
+        fn = m2_launcher(build_variant(name, subs, build, source="admm_m2.cu"))
+        geos = ([("one-block layout", pr1)] if "one-block" in name else
+                [("chosen layout", lay.geometry),
+                 ("one-block layout", pr1)])
+        for where, geo in geos:
+            record("m2", variant=name, layout=where,
+                   ms=time_ms(lambda: m2_launch(fn, args, it, geo), 1, 3))
+
+    # one block per scenario: M2 does not fit registers (48 column groups x
+    # 16 chunks of 12 rows is 768 threads, over the 512 of a block), so it
+    # sits in shared memory, with as many rows of A beside it as fit, in
+    # whole chunks of A' w; the other rows streamed
+    rows_n, rows_m, threads, vec = kernels.m2_block(n, m, 1, 512)
+    chunk = kernels._round4(-(-m // max(1, threads // (kernels._round4(n)
+                                                        // 4))))
+    rows = (smem // 4 - vec - rows_n * ld) // ld // chunk * chunk
+    floats = vec + rows_n * ld + rows * ld
+    geo = (1, threads, ld, kernels.RES_M2 | kernels.RES_M2_A, floats)
+    fn = m2_launcher(build_variant("partial A", m2_partial_a_subs(rows),
+                                   build, source="admm_m2.cu"))
+    got = m2_launch(fn, args, it, geo)
+    want = m2_launch(real, args, it, lay.geometry)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    record("m2", what="one block, M2 in shared memory, rows of A in shared "
+           "memory, the rest streamed", rows_of_a_resident=rows,
+           rows_of_a=m, geometry=geo, bytes_per_block=4 * floats,
+           max_abs_diff_to_chosen=err,
+           ms=time_ms(lambda: m2_launch(fn, args, it, geo), 1, 3))
+
+
+def vpu_launch(fn, args, iters, geometry):
+    B, n = args[0].shape[:2]
+    m = args[2].shape[1]
+    outs = [torch.empty_like(t) for t in args[7:]]
+    rc = fn(*(t.data_ptr() for t in (*args, *outs)), B, n, m, iters, 1e-6,
+            1.6, *geometry, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vpu launch failed: CUDA error {rc}, {geometry}")
+    return outs
+
+
+# rows lane and lane + 32 of A in registers for A x_t (m <= 64): a patched
+# copy of admm_vpu.cu's warp path (the same results)
+VPU_A_IN_REGISTERS = [
+    ("    cp_async_wait();\n    __syncwarp();\n",
+     "    cp_async_wait();\n    __syncwarp();\n"
+     "    float areg[2][WARP_N];\n"
+     "#pragma unroll\n"
+     "    for (int h = 0; h < 2; ++h)\n"
+     "#pragma unroll\n"
+     "        for (int k = 0; k < WARP_N; ++k)\n"
+     "            areg[h][k] = lane + 32 * h < m && k < n\n"
+     "                ? sA[(lane + 32 * h) * ld + k] : 0.f;\n"),
+    ("        for (int i = lane; i < m; i += 32)\n"
+     "            project(i, dot_row4(sA + i * ld, s_xt, kp));\n",
+     "        if (lane < m) project(lane, dot32(areg[0], s_xt));\n"
+     "        if (lane + 32 < m) project(lane + 32, dot32(areg[1], s_xt));\n")]
+
+
+def probe_vpu(record, B, device, smem, n_sm, build):
+    n, m, it = WBC
+    assert m <= 64, "the patched copy holds two rows of A per lane"
+    args = inputs(0, B, n, m, device)
+    lay = kernels.vpu_layout(n, m, B, smem, n_sm)
+
+    def vpu_launcher(lib):
+        fn = lib.admm_vpu_launch
+        fn.argtypes = kernels._LAUNCH_ARGTYPES["admm_vpu"]
+        fn.restype = ctypes.c_int
+        return fn
+
+    real = vpu_launcher(kernels._library("admm_vpu"))
+    aregs = vpu_launcher(build_variant("A in registers", VPU_A_IN_REGISTERS,
+                                       build, source="admm_vpu.cu"))
+    got = vpu_launch(aregs, args, it, lay.geometry)
+    want = vpu_launch(real, args, it, lay.geometry)
+    torch.cuda.synchronize()
+    record("vpu", what="rows of A in registers vs shipped, max abs diff",
+           err=max(float((a - b).abs().max()) for a, b in zip(got, want)))
+    for g in (1, 2, 4, 8):
+        geo = (g, 32 * g, lay.ld, lay.slot_floats)
+        for A, fn in (("shared memory", real),
+                      ("registers and shared memory", aregs)):
+            record("vpu", path="warp", g=g, A=A, chosen=geo == lay.geometry,
+                   ms=time_ms(lambda: vpu_launch(fn, args, it, geo), 2, 10))
+    record("vpu", path="warp", what="chosen layout, 0 iterations (the load)",
+           geometry=lay.geometry,
+           ms=time_ms(lambda: vpu_launch(real, args, 0, lay.geometry), 2, 10))
+    block = (0, kernels._pick_threads(n), 0, 0)
+    record("vpu", path="block", what="one block per scenario (the block path)",
+           ms=time_ms(lambda: vpu_launch(real, args, it, block), 2, 10))
+
+
+def probe_mma(record, B, device, smem, n_sm, build):
     real = launcher(kernels._library("admm_mma"))
     wbc = inputs(0, B, *WBC[:2], device)
     mpc = inputs(1, B, *MPC[:2], device)
     chosen = {"wbc": kernels.mma_layout(*WBC[:2], B, smem, n_sm),
               "mpc": kernels.mma_layout(*MPC[:2], B, smem, n_sm)}
-    print(f"[{smi}] B={B}; chosen layouts: {chosen}", flush=True)
-
-    def record(kind, **row):
-        report[kind].append(row)
-        print(f"  {kind}: {row}", flush=True)
+    record("layouts", what="chosen layouts", chosen=str(chosen))
 
     # ---- 1. layouts -----------------------------------------------------
     n, m, it = WBC
@@ -476,10 +743,40 @@ def main() -> int:
 
     probe_cluster_phases(record, mpc, MPC[2], chosen["mpc"], build)
 
-    # ---- 3. the whole-solve kernel ------------------------------------------
-    del wbc, mpc
-    torch.cuda.empty_cache()
-    probe_fused(record, B, device, smem, n_sm, build)
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=4096)
+    ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", nargs="+", default=PARTS, choices=PARTS)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    device = torch.device("cuda", 0)
+    smem, n_sm = kernels.device_limits(device)
+    smi = smi_line()
+    build = os.path.join(str(_build.build_dir()), "probe_kernel_designs")
+    os.makedirs(build, exist_ok=True)
+    B = a.batch
+    report = {"card": smi, "batch": B, "m2": [], "vpu": [], "layouts": [],
+              "variants": [], "cluster_phases": [], "fused": []}
+
+    def record(kind, **row):
+        report[kind].append(row)
+        print(f"  {kind}: {row}", flush=True)
+
+    print(f"[{smi}] B={B}", flush=True)
+    if "m2" in a.kernels:
+        probe_m2(record, B, device, smem, build)
+        torch.cuda.empty_cache()
+    if "vpu" in a.kernels:
+        probe_vpu(record, B, device, smem, n_sm, build)
+    if "mma" in a.kernels:
+        probe_mma(record, B, device, smem, n_sm, build)
+    if "fused" in a.kernels:
+        torch.cuda.empty_cache()
+        probe_fused(record, B, device, smem, n_sm, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

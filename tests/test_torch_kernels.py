@@ -498,12 +498,19 @@ def test_mma_block_size_choice_and_library_entry():
     for n, m in ((1, 1), (30, 50), (100, 7), (192, 320), (1000, 2000)):
         t = tk.mma_layout(n, m, 4096, smem, n_sm).threads
         assert t % 32 == 0 and 32 <= t <= 512
-    assert tk.LIBRARIES["admm_mma"] == (("admm_mma.cu",), ("admm_block.cuh",))
-    # the launcher's ABI: the iteration kernels' arguments, then the six
-    # integers of MmaLayout.geometry, then the stream
-    vpu = tk._LAUNCH_ARGTYPES["admm_vpu"]
+    assert tk.LIBRARIES["admm_mma"] == (
+        ("admm_mma.cu",), ("admm_block.cuh", "cluster_exchange.cuh"))
+    # the launchers' ABI: the iteration kernels' arguments, then the
+    # integers of the layout's geometry, then the stream
+    common = [tk._PTR] * 13 + [tk._INT] * 4 + [tk._FLT] * 2
     assert tk._LAUNCH_ARGTYPES["admm_mma"] == (
-        vpu[:-2] + [tk._INT] * len(tk.mma_layout(30, 50, 1, smem, n_sm)
-                                   .geometry) + vpu[-1:])
+        common + [tk._INT] * len(tk.mma_layout(30, 50, 1, smem, n_sm)
+                                 .geometry) + [tk._PTR])
+    assert tk._LAUNCH_ARGTYPES["admm_vpu"] == (
+        common + [tk._INT] * len(tk.vpu_layout(30, 50, 1, smem, n_sm)
+                                 .geometry) + [tk._PTR])
+    assert tk._LAUNCH_ARGTYPES["admm_m2"] == (
+        common[1:] + [tk._INT] * len(tk.m2_layout(192, 320, smem)
+                                     .geometry) + [tk._PTR])
     with pytest.raises(ValueError, match="iters"):
         tk.admm_iterate(*[tt(x) for x in refined_inputs(4, B=2)], iters=-1)

@@ -1,8 +1,10 @@
-"""The layout functions of the redesigned kernels 4 and 5 (pure Python).
+"""The layout functions of the redesigned kernels 1, 2, 4 and 5 (pure Python).
 
-`fused_layout` and `mma_layout` (mpctsid_tpu_torch/qp/kernels.py) decide,
+`m2_layout`, `vpu_layout`, `fused_layout` and `mma_layout`
+(mpctsid_tpu_torch/qp/kernels.py) decide,
 from (B, n, m), a block's shared-memory limit and the number of
-multiprocessors, which path a launch takes and with what geometry; the CUDA
+multiprocessors (kernel 1: from n, m and the shared-memory limit alone),
+which path a launch takes and with what geometry; the CUDA
 launchers recompute the sizes and refuse a mismatch.  These tests hold the
 decisions at the shapes the port runs, on the H100's limits (232,448 bytes of
 shared memory per block, 132 multiprocessors).  No kernel runs here.
@@ -169,3 +171,199 @@ def test_fused_block_path_when_too_few_slots_fit():
     assert tk.fused_layout(32, 600, 8, SMEM, N_SM).path == "block"
     # and on a device with little shared memory
     assert tk.fused_layout(*WBC, 4096, 48 * 1024, N_SM).path == "block"
+
+
+# ------------------------------------------------------------------ kernel 1
+
+def _round4(v):
+    return (v + 3) // 4 * 4
+
+
+def _m2_floats(n, m, cluster, m2):
+    """Floats of one block of kernel 1 at a cluster size with M2 in
+    "regs" or "smem" and A in shared memory; None where the register
+    variant does not fit the block's threads."""
+    rows_n, rows_m, threads, vec = tk.m2_block(n, m, cluster)
+    np_ = _round4(n)
+    ld = np_ if np_ % 8 == 4 else np_ + 4
+    if m2 == "regs":
+        if (np_ // 4) * -(-rows_n // tk.M2_REG_ROWS) > threads:
+            return None
+        return vec + rows_m * ld
+    return vec + (rows_n + rows_m) * ld
+
+
+@pytest.mark.parametrize("n,m,cluster,resident", [
+    (24, 40, 1, tk.RES_M2_REGS | tk.RES_M2_A),
+    (30, 50, 1, tk.RES_M2_REGS | tk.RES_M2_A),
+    (100, 170, 1, tk.RES_M2_REGS | tk.RES_M2_A),
+    (128, 208, 1, tk.RES_M2_REGS | tk.RES_M2_A),
+    (192, 320, 2, tk.RES_M2_REGS | tk.RES_M2_A),
+    (256, 120, 2, tk.RES_M2 | tk.RES_M2_A),
+    (256, 256, 3, tk.RES_M2 | tk.RES_M2_A),
+    (256, 400, 3, tk.RES_M2_REGS | tk.RES_M2_A),
+    (400, 700, 7, tk.RES_M2_REGS | tk.RES_M2_A)])
+def test_m2_cluster_size_is_the_least_that_holds_m2_and_a(n, m, cluster,
+                                                          resident):
+    lay = tk.m2_layout(n, m, SMEM)
+    assert (lay.cluster, lay.resident) == (cluster, resident)
+    assert 4 * lay.smem_floats <= SMEM
+    # one block fewer holds neither M2 in registers nor in shared memory
+    if cluster > 1:
+        for m2 in ("regs", "smem"):
+            floats = _m2_floats(n, m, cluster - 1, m2)
+            assert floats is None or 4 * floats > SMEM
+    # M2 in registers wherever they hold each thread's part at this size
+    assert (lay.resident & tk.RES_M2_REGS != 0) == (
+        _m2_floats(n, m, cluster, "regs") is not None)
+
+
+def test_m2_mpc_shape_takes_clusters_of_two():
+    """M2 (147,456 B) and A (245,760 B) do not fit one block's 232,448 B;
+    two blocks hold 96 rows of M2 in registers and 160 rows of A each."""
+    lay = tk.m2_layout(*MPC, SMEM)
+    assert lay == tk.M2Layout(2, 384, 196, tk.RES_M2_REGS | tk.RES_M2_A,
+                              lay.smem_floats, 96, 160)
+    # the barriers, x, q, x_t, rhs (+ 12), seven m-vectors, the partial sums
+    # (4 per thread), the two exchange buffers; A's slice at stride 196
+    vec = 4 + 3 * 192 + 96 + 12 + 7 * 160 + 4 * 384 + 2 * (96 + 192)
+    assert lay.smem_floats == vec + 160 * 196
+    assert 4 * lay.smem_floats <= SMEM
+    # 48 groups of four columns x 8 chunks of 12 rows of M2: one per thread
+    assert 48 * 8 == lay.threads
+    assert lay.geometry == (2, 384, 196, lay.resident, lay.smem_floats)
+    # M2 and A of one scenario do not fit one block
+    assert 4 * (192 + 320) * 192 > SMEM
+
+
+@pytest.mark.parametrize("smem", [232448, 166912, 101376, 65536])
+def test_m2_cluster_grows_as_shared_memory_shrinks(smem):
+    """On a card with less shared memory per block the MPC shape takes
+    the least cluster that holds its slices there, never more than needed,
+    and the block always fits."""
+    lay = tk.m2_layout(*MPC, smem)
+    assert 4 * lay.smem_floats <= smem
+    assert lay.resident & tk.RES_M2_A
+    fits = [c for c in range(1, tk.MAX_CLUSTER + 1)
+            if any(f is not None and 4 * f <= smem
+                   for f in (_m2_floats(*MPC, c, "regs"),
+                             _m2_floats(*MPC, c, "smem")))]
+    assert lay.cluster == fits[0]
+    assert lay.cluster >= tk.m2_layout(*MPC, SMEM).cluster
+
+
+@pytest.mark.parametrize("n,m", [MPC, TEST, WBC, (100, 170), (128, 208),
+                                 (256, 400), (401, 700)])
+def test_m2_registers_take_one_part_of_m2_per_thread(n, m):
+    """Where M2's slice sits in registers the block has one part of it (12
+    rows of four columns) per thread, rounded up to a warp, at least 64
+    threads: no thread idles in the M2 product, none is there only for A."""
+    lay = tk.m2_layout(n, m, SMEM)
+    assert lay.resident & tk.RES_M2_REGS
+    parts = (_round4(n) // 4) * -(-lay.rows_n // tk.M2_REG_ROWS)
+    assert parts <= lay.threads
+    assert lay.threads == max(64, -(-parts // 32) * 32)
+
+
+@pytest.mark.parametrize("n", [1, 7, 24, 30, 31, 100, 192, 401])
+def test_m2_row_stride_is_four_mod_eight(n):
+    """A x_t reads 16-byte pieces of eight rows per quarter warp: a stride
+    of 4 mod 8 floats puts them on different banks."""
+    lay = tk.m2_layout(n, 2 * n, SMEM)
+    assert lay.ld % 8 == 4 and _round4(n) <= lay.ld < _round4(n) + 8
+
+
+@pytest.mark.parametrize("n,m", [MPC, TEST, WBC, (150, 250), (256, 400),
+                                 (401, 701), (500, 900), (1000, 2000)])
+def test_m2_row_slices_cover_every_row_once(n, m):
+    """Every row of M2 and of A belongs to exactly one block of the
+    cluster; slices start at multiples of four rows; and the reduce-scatter
+    of A' w sends each group of four columns to the one block that owns
+    those rows of M2, with as many bytes as that block expects."""
+    lay = tk.m2_layout(n, m, SMEM)
+    C = lay.cluster
+    for total, rows_per in ((n, lay.rows_n), (m, lay.rows_m)):
+        assert rows_per % 4 == 0
+        slices = tk.row_slices(total, rows_per, C)
+        covered = [r for a, b in slices for r in range(a, b)]
+        assert covered == list(range(total))
+        assert all(a % 4 == 0 or a == b == total for a, b in slices)
+    np_ = _round4(n)
+    received = [0] * C
+    for j in range(0, np_, 4):
+        owner = j // lay.rows_n
+        assert owner < C
+        received[owner] += 4
+    for r, (a, b) in enumerate(tk.row_slices(n, lay.rows_n, C)):
+        assert received[r] == _round4(b - a)     # admm_m2.cu: bytes1 / C
+
+
+def test_m2_streams_what_a_cluster_of_eight_cannot_hold():
+    # M2's slice in shared memory (too many rows per thread for registers),
+    # A streamed; then both streamed
+    lay = tk.m2_layout(500, 900, SMEM)
+    assert (lay.cluster, lay.resident) == (8, tk.RES_M2)
+    assert 4 * lay.smem_floats <= SMEM
+    lay = tk.m2_layout(1000, 2000, SMEM)
+    assert (lay.cluster, lay.resident) == (8, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.m2_layout(40000, 80000, SMEM)
+
+
+@pytest.mark.parametrize("n,m", [MPC, TEST, WBC, (256, 120), (500, 900)])
+def test_m2_block_size_and_vector_floats(n, m):
+    lay = tk.m2_layout(n, m, SMEM)
+    assert lay.threads % 32 == 0 and 64 <= lay.threads <= tk.MAX_M2_THREADS
+    rows_n, rows_m, threads, vec = tk.m2_block(n, m, lay.cluster)
+    assert (rows_n, rows_m, threads) == (lay.rows_n, lay.rows_m, lay.threads)
+    part = max(4 * threads, _round4(n), rows_m)
+    assert vec == (4 + 3 * _round4(n) + rows_n + tk.M2_REG_ROWS + 7 * rows_m
+                   + part + lay.cluster * (rows_n + _round4(n)))
+    mats = (lay.rows_m * lay.ld if lay.resident & tk.RES_M2_A else 0) + (
+        lay.rows_n * lay.ld if lay.resident & tk.RES_M2 else 0)
+    assert lay.smem_floats == vec + mats
+
+
+# ------------------------------------------------------------------ kernel 2
+
+@pytest.mark.parametrize("n", [1, 7, 24, 30, 32])
+@pytest.mark.parametrize("B", [1, 37, 531, 4096])
+def test_vpu_small_n_takes_the_warp_path(n, B):
+    m = 50
+    lay = tk.vpu_layout(n, m, B, SMEM, N_SM)
+    assert lay.path == "warp" and lay.ld == tk.VPU_LD
+    assert lay.ld % 8 == 4 and lay.ld >= 32
+    # A (round4(m) rows), rhs, x_a, r, x_t (32 each), 7 m-vectors
+    slot = 52 * lay.ld + 4 * 32 + 7 * 52
+    assert lay.slot_floats == slot
+    fit = SMEM // (4 * slot)
+    assert fit >= tk.MIN_WARP_SLOTS
+    assert 1 <= lay.g <= min(tk.MAX_VPU_SLOTS, fit)
+    assert lay.g <= max(1, -(-B // N_SM))
+    assert lay.threads == 32 * lay.g
+    blocks = -(-B // lay.g)
+    assert (blocks - 1) * lay.g < B <= blocks * lay.g
+    assert lay.geometry == (lay.g, lay.threads, lay.ld, slot)
+
+
+def test_vpu_warp_path_at_full_width():
+    lay = tk.vpu_layout(*WBC, 4096, SMEM, N_SM)
+    assert (lay.g, lay.slot_floats) == (tk.MAX_VPU_SLOTS, 2364)
+    # B = 531 spreads over the multiprocessors in blocks of four, the last
+    # one partial
+    lay = tk.vpu_layout(*WBC, 531, SMEM, N_SM)
+    assert lay.g == 4 and 531 % lay.g != 0
+
+
+@pytest.mark.parametrize("n,m", [(33, 55), MPC, (64, 96)])
+def test_vpu_larger_n_takes_the_block_path(n, m):
+    lay = tk.vpu_layout(n, m, 8, SMEM, N_SM)
+    assert lay == tk.VpuLayout("block", 0, tk._pick_threads(n), 0, 0)
+    assert lay.geometry == (0, tk._pick_threads(n), 0, 0)
+
+
+def test_vpu_block_path_when_too_few_slots_fit():
+    # n <= 32 but a tall A: fewer than four scenarios per block
+    assert tk.vpu_layout(30, 600, 8, SMEM, N_SM).path == "block"
+    # and on a device with little shared memory
+    assert tk.vpu_layout(*WBC, 4096, 32 * 1024, N_SM).path == "block"
