@@ -29,11 +29,14 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               3b the generic and the packed refined iteration, inputs WITH
                  equality rows and infinite bounds: WBC shape (B=64, n=30,
                  m=50), test shape, B=1, B=37, B=531 (a partial last block
-                 of warps), n=32, n=33, the MPC shape (B=8, generic kernel
-                 only; the packed kernel must refuse it) and the main path's
-                 shape (B=4096, 30, 50), 13 iterations; also against EACH
-                 OTHER; the generic kernel's path (a warp per scenario for
-                 n <= 32, else a block) checked, two launches bit for bit,
+                 of warps), n=32, n=33, n=31, n=40, n=32 with m=8, the MPC
+                 shape (B=8, generic kernel only; the packed kernel must
+                 refuse it) and the main path's shape (B=4096, 30, 50), 13
+                 iterations; also against EACH OTHER; the path of each
+                 launch checked (generic: a warp per scenario for n <= 32,
+                 else a block; packed: registers for n <= 32, else shared
+                 memory), two launches of each bit for bit, the packed
+                 register path bit for bit the generic warp path (one loop),
                  and a skewed K (it must apply K transposed);
               3c the whole-solve kernel on the same QPs, 40 iterations in 3
                  rounds, warm-started: unscaled x, y and the scales.  Its
@@ -74,6 +77,16 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               periods, default backends; then the same sweep stopped after
               one chunk, saved, loaded and finished: the two metric tables
               must be equal bit for bit
+  8. accuracy the paths that carry the contract's 1e-4: solve_mpc_batch at
+     tiers    B = 1024 on the port's own mid-gait trot MPC problems; the
+              polished MPC tier (100 iterations in 4 rounds, KKT polish) in
+              float32, on the plain backend and on the M2 kernel, against
+              the same solve in float64 on the card (within 1e-4 in x, the
+              largest over the batch); the df32 residual against a float64
+              mat-vec (at least 100x closer than a float32 one); the float64
+              WBC parity tier (WBC_PARITY_SOLVER's budget, warm-started,
+              polished) at B = 4096 on a mid-gait tick, against the same
+              call on the CPU
 
 The line before the last is one JSON object describing every kernel of the
 path; the last line is {"ok": true, "device": {...}}.
@@ -93,16 +106,19 @@ import torch
 
 from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
                                        engine, init_controller)
-from mpctsid_tpu_torch.config import PRESETS, EngineConfig
+from mpctsid_tpu_torch.config import PRESETS, WBC_PARITY_SOLVER, EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
 from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
+from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, solve_mpc_batch
 from mpctsid_tpu_torch.qp import _build, kernels
+from mpctsid_tpu_torch.qp.admm import admm_solve
+from mpctsid_tpu_torch.qp.precision import residual_matvec
 from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, run_sweep,
                                      summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
-from mpctsid_tpu_torch.wbc.tsid import solve_wbc
+from mpctsid_tpu_torch.wbc.tsid import WbcRefs, solve_wbc
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of the
 # bound, whatever the power limit of the card at hand (printed beside it).
@@ -143,6 +159,22 @@ ROLLOUT_PERIODS = 3        # 60 WBC ticks per scenario
 # H100), so it is held to eight times that.
 EST_DRIFT_TOL = 5e-3
 SWEEP_TOTAL, SWEEP_CHUNK, SWEEP_PERIODS = 2048, 1024, 3
+# Phase 8.  The contract's bar: control error < 1e-4 against the float64
+# reference (BASELINE.json:5), here the polished float32 MPC solution
+# against the same polished solve in float64, largest over the batch.
+CONTRACT_TOL = 1e-4
+MPC_TIER = dict(iters=100, adapt_rounds=4, rho=0.1, polish_kkt=True)
+TIER_B = 1024
+# The df32 residual must be this many times closer to float64 than a plain
+# float32 mat-vec.
+DF32_GAIN = 100.0
+# The float64 WBC tier on the card against the same call on the CPU.  Both
+# run the same float64 arithmetic in other summation orders (cuBLAS against
+# the CPU's BLAS); 150 ADMM iterations through a cond ~1e5 KKT and an LU
+# polish amplify a float64 rounding (1e-16 relative) to ~1e-11 relative of
+# torques of ~1-10 Nm.  1e-6 Nm is 1/270 of the tier's own budget
+# (1e-4 tau_max = 2.7e-4 Nm): no difference that passes can move the tier.
+WBC_TIER_CPU_TOL = 1e-6
 REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
 FAILURES: list[str] = []
 
@@ -328,12 +360,19 @@ def compare_m2_skewed(name: str, args, iters: int = 30) -> float:
     return err
 
 
+def packed_layout_of(B: int, n: int, m: int, device):
+    return kernels.packed_layout(n, m, B, *kernels.device_limits(device),
+                                 kernels.packed_slot_floats)
+
+
 def compare_refined(name: str, args, tol: float, packed: bool = True,
-                    path: str = "warp"):
+                    path: str = "warp", packed_path: str = "registers"):
     """Kernels 2 and 3 against the one plain version and against each other;
     returns (err of the generic kernel, err of the packed kernel).  Kernel 2
-    must take `path` ("warp" or "block"), and two of its launches must agree
-    bit for bit."""
+    must take `path` ("warp" or "block") and kernel 3 `packed_path`
+    ("registers" or "shared"); two launches of each must agree bit for bit,
+    and where kernel 2's warp path and kernel 3's register path run the one
+    loop of warp_regs.cuh, kernel 3 must give kernel 2's bits."""
     kw = dict(iters=REFINED_ITERS, sigma=1e-6, alpha=1.6)
     B, n, m = shape_of(args, 2)
     lay = kernels.vpu_layout(n, m, B, *kernels.device_limits(args[0].device))
@@ -353,12 +392,24 @@ def compare_refined(name: str, args, tol: float, packed: bool = True,
     ok = all_finite(got_v) and err_v < tol
     err_p = 0.0
     if packed:
+        play = packed_layout_of(B, n, m, args[0].device)
+        print(f"  packed {name}: {play.path} path, {play.g} scenarios "
+              f"(warps) per block, {4 * play.slot_floats} B of shared memory "
+              "per scenario", flush=True)
+        check(play.path == packed_path,
+              f"packed kernel, {name}: takes the {packed_path} path")
         got_p = kernels.admm_iterate_vpu_packed(*args, **kw)
         torch.cuda.synchronize()
         err_p = max_err(got_p, want)
         err_vp = max_err(got_p, got_v)
+        check_repeatable(f"packed kernel, {name}",
+                         lambda: kernels.admm_iterate_vpu_packed(*args, **kw))
         line += f", packed vs plain {err_p:.3e}, packed vs vpu {err_vp:.3e}"
         ok = ok and all_finite(got_p) and err_p < tol and err_vp < tol
+        if play.path == "registers" and lay.path == "warp":
+            check(all(torch.equal(a, b) for a, b in zip(got_p, got_v)),
+                  f"packed kernel, {name}: kernel 2's bits (one loop, "
+                  "warp_regs.cuh)")
     print(line, flush=True)
     check(ok, f"refined kernels vs plain and each other, {name}: < {tol:g}")
     return err_v, err_p
@@ -754,6 +805,155 @@ def capture_wbc_tick(cc, ctl, plant, gid, v, cp, tick: int, device):
     return captured[tick], ctl, plant
 
 
+def capture_mpc_inputs(cc, ctl, plant, gid, v, cp, device):
+    """(x0, x_ref, feet, contacts) of the MPC solve of one period (the
+    port's own planner: rollout, footsteps, gait table), and the state
+    after it."""
+    captured = []
+    original = engine.build_mpc_qp
+
+    def hook(model, cfg, x0, x_ref, feet, contacts, **kw):
+        captured.append((x0, x_ref, feet, contacts))
+        return original(model, cfg, x0, x_ref, feet, contacts, **kw)
+
+    engine.build_mpc_qp = hook
+    try:
+        ctl, plant, _ = cascade_rollout(cc, ctl, plant, gid, v, cp,
+                                        n_periods=1, device=device)
+    finally:
+        engine.build_mpc_qp = original
+    return captured[0], ctl, plant
+
+
+def varied_commands(B: int, seed: int):
+    """(B, 3) commanded vx, vy, yaw rate, one per scenario (numpy, seeded),
+    so that the trot scenarios of one batch pose different problems."""
+    r = np.random.default_rng(seed)
+    return np.stack([r.uniform(-0.4, 0.4, B), r.uniform(-0.2, 0.2, B),
+                     r.uniform(-0.5, 0.5, B)], axis=1).astype(np.float32)
+
+
+def timed(fn):
+    """(fn's result, wall seconds up to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def accuracy_tiers(smi: str, device) -> None:
+    """Phase 8: the paths of qp/ and mpc/ that carry the contract's 1e-4."""
+    cfg = PRESETS["config4_cascade_4k"]
+    B = TIER_B
+    cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=8,
+                                                device=device)
+    v = varied_commands(B, seed=8)
+    # two periods from standing reach mid-gait; the third's problems
+    ctl, plant, _ = cascade_rollout(cc, ctl, plant, gid, v, cp, n_periods=2,
+                                    device=device)
+    (x0, x_ref, feet, cont), _, _ = capture_mpc_inputs(cc, ctl, plant, gid,
+                                                       v, cp, device)
+
+    (forces, sol), sec = timed(lambda: solve_mpc_batch(
+        SOLO12, cfg.mpc, x0, x_ref, feet, cont))
+    swing = cont < 0.5
+    f_swing = float(forces[swing].abs().max()) if bool(swing.any()) else 0.0
+    print(f"  solve_mpc_batch B={B} (200 iterations, plain backend): "
+          f"{sec:.3f} s, ok {float(sol.ok.float().mean()):.4f}, max |f| on "
+          f"swing feet {f_swing:.3e} N  [{smi}]", flush=True)
+    check(tuple(forces.shape) == (B, cfg.mpc.horizon, 4, 3)
+          and all_finite((forces, sol.x, sol.y)) and bool(sol.ok.all()),
+          "solve_mpc_batch: (B, N, 4, 3) forces, finite, every solve ok")
+    check(f_swing < 1e-3, "solve_mpc_batch: swing-foot forces pinned "
+                          "(< 1e-3 N)")
+
+    qp = build_mpc_qp(SOLO12, cfg.mpc, x0, x_ref, feet, cont)
+    s64, sec64 = timed(lambda: admm_solve(
+        *(t.double() for t in qp), backend="torch", **MPC_TIER))
+    print(f"  polished MPC tier, float64 (plain backend): {sec64:.3f} s  "
+          f"[{smi}]", flush=True)
+    for backend in ("torch", cfg.solver.mpc_backend):
+        s32, sec = timed(lambda: admm_solve(*qp, backend=backend,
+                                            **MPC_TIER))
+        d = (s32.x.double() - s64.x).abs().amax(dim=1)
+        print(f"  polished MPC tier, float32, backend {backend}: {sec:.3f} "
+              f"s; max |x32 - x64| over B={B}: {float(d.max()):.3e} (median "
+              f"{float(d.median()):.3e})  [{smi}]", flush=True)
+        check(s32.x.dtype == torch.float32 and bool(s32.ok.all())
+              and float(d.max()) < CONTRACT_TOL,
+              f"polished MPC tier ({backend}): float32 within "
+              f"{CONTRACT_TOL:g} of the float64 solve, every scenario")
+    del qp, s64
+
+    # the df32 residual at the MPC KKT's size, cancelling (b = K x + 1e-6)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    K64 = torch.randn((256, 512, 512), generator=g,
+                      dtype=torch.float64).to(device)
+    x64 = torch.randn((256, 512), generator=g, dtype=torch.float64).to(device)
+    K32, x32 = K64.float(), x64.float()
+    exact = torch.bmm(K32.double(), x32.double()[:, :, None])[:, :, 0]
+    b32 = (exact + 1e-6 * torch.randn(exact.shape, generator=g,
+                                      dtype=torch.float64).to(device)).float()
+    ref = b32.double() - exact
+    r_df, sec_df = timed(lambda: residual_matvec(b32, K32, x32))
+    r_pl, sec_pl = timed(
+        lambda: b32 - torch.bmm(K32, x32[:, :, None])[:, :, 0])
+    e_df = float((r_df.double() - ref).abs().max())
+    e_pl = float((r_pl.double() - ref).abs().max())
+    print(f"  residual_matvec (256 x 512 x 512): df32 {sec_df * 1e3:.2f} ms, "
+          f"max |r - r64| {e_df:.3e}; float32 bmm {sec_pl * 1e3:.2f} ms, "
+          f"{e_pl:.3e}: {e_pl / max(e_df, 1e-300):.1f}x  [{smi}]", flush=True)
+    check(r_df.dtype == torch.float32 and e_df * DF32_GAIN <= e_pl,
+          f"residual_matvec: at least {DF32_GAIN:g}x closer to float64 than "
+          "a float32 mat-vec")
+    del K64, K32, exact
+
+    # the float64 WBC tier at full width on a mid-gait tick, card vs CPU
+    cfg4 = PRESETS["config4_cascade_4k"]
+    cc, ctl, plant, gid, v, cp = make_scenarios(cfg4, cfg4.batch, seed=9,
+                                                device=device)
+    v = varied_commands(cfg4.batch, seed=9)
+    ctl, plant, _ = cascade_rollout(cc, ctl, plant, gid, v, cp, n_periods=2,
+                                    device=device)
+    (tree, wcfg, q_t, v_t, refs, wkw), _, _ = capture_wbc_tick(
+        cc, ctl, plant, gid, v, cp, tick=10, device=device)
+
+    def tier(dev):
+        d64 = lambda t: t.to(dev, torch.float64)  # noqa: E731
+        refs64 = WbcRefs(**{k: d64(getattr(refs, k))
+                            for k in refs.__dataclass_fields__})
+        return solve_wbc(
+            tree, wcfg, d64(q_t), d64(v_t), refs64,
+            iters=WBC_PARITY_SOLVER.wbc_iters,
+            adapt_rounds=WBC_PARITY_SOLVER.wbc_adapt_rounds,
+            warm_x=d64(wkw["warm_x"]), warm_y=d64(wkw["warm_y"]),
+            backend="torch", polish=True,
+            extra_base_inertia=None if wkw.get("extra_base_inertia") is None
+            else d64(wkw["extra_base_inertia"]))
+
+    (tau_g, _, _, sol_g), sec_g = timed(lambda: tier(device))
+    t0 = time.time()
+    tau_c, _, _, sol_c = tier(torch.device("cpu"))
+    sec_c = time.time() - t0
+    d = (tau_g.cpu() - tau_c).abs().amax(dim=1)
+    tau32 = solve_wbc(tree, wcfg, q_t, v_t, refs, **wkw)[0]
+    d32 = (tau32.double() - tau_g).abs().amax(dim=1)
+    print(f"  float64 WBC tier B={cfg4.batch} ({WBC_PARITY_SOLVER.wbc_iters} "
+          f"iterations in {WBC_PARITY_SOLVER.wbc_adapt_rounds} rounds, "
+          f"polished): card {sec_g:.3f} s, CPU {sec_c:.3f} s; max |tau card "
+          f"- tau CPU| {float(d.max()):.3e} Nm (median "
+          f"{float(d.median()):.3e}); the float32 in-loop solve lies "
+          f"{float(d32.median()):.3e} Nm (median, max "
+          f"{float(d32.max()):.3e}) from it  [{smi}]", flush=True)
+    check(tau_g.dtype == torch.float64 and bool(sol_g.ok.all())
+          and bool(sol_c.ok.all()) and all_finite((tau_g,)),
+          "float64 WBC tier: float64, finite, every solve ok on both")
+    check(float(d.max()) < WBC_TIER_CPU_TOL,
+          f"float64 WBC tier: card within {WBC_TIER_CPU_TOL:g} Nm of the "
+          "CPU, every scenario")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -877,9 +1077,22 @@ def main() -> int:
                                          eq=True)[1], REFINED_EQ_TOL),
         compare_refined("n = 32, the warp path's edge", iteration_inputs(
             18, 64, 32, 50, device, eq=True)[1], REFINED_EQ_TOL),
-        compare_refined("n = 33 (block path)", iteration_inputs(
-            19, 8, 33, 55, device, eq=True)[1], REFINED_EQ_TOL,
-                        path="block"))
+        compare_refined("n = 33 (block path, packed shared path)",
+                        iteration_inputs(19, 8, 33, 55, device, eq=True)[1],
+                        REFINED_EQ_TOL, path="block", packed_path="shared"),
+        compare_refined("n = 31, odd (packed register path)",
+                        iteration_inputs(29, 37, 31, 47, device, eq=True)[1],
+                        REFINED_EQ_TOL),
+        compare_refined("n = 40 (packed shared path, several per block)",
+                        iteration_inputs(46, 300, 40, 60, device, eq=True)[1],
+                        REFINED_EQ_TOL, path="block", packed_path="shared"),
+        # the layout case, inequality-only: with four equality rows in
+        # eight the float32 iteration is noisy at 1e-2 (the plain version
+        # 6.1e-3 from float64 on the CPU; kernels 2 and 3, equal bit for
+        # bit, 1.26e-2 from it on the card)
+        compare_refined("n = 32, m = 8 (packed staging larger than A)",
+                        iteration_inputs(47, 64, 32, 8, device, eq=False)[1],
+                        KERNEL_TOL))
     ev, ep = list(ev), list(ep)
     ev.append(compare_skewed_k("warp path", wbc_args, label="vpu"))
     _, mpc_refined = iteration_inputs(15, 8, 192, 320, device, eq=True)
@@ -914,11 +1127,14 @@ def main() -> int:
         replaces="mpctsid_tpu/qp/pallas_kernels.py:155",
         max_abs_err=max(ev), ms=vpu_ms, plain_ms=plain_ms,
         bound_ms=bound[0], bound_by=bound[1])
+    play = packed_layout_of(Bt, n, m, device)
     reports["admm_iterate_vpu_packed"] = dict(
         source="mpctsid_tpu_torch/qp/csrc/admm_packed.cu",
         replaces="mpctsid_tpu/qp/pallas_kernels.py:274",
         max_abs_err=max(ep), ms=packed_ms, plain_ms=plain_ms,
-        bound_ms=bound[0], bound_by=bound[1])
+        bound_ms=bound[0], bound_by=bound[1],
+        layout=dict(path=play.path, g=play.g, threads=play.threads,
+                    ld=play.ld, slot_floats=play.slot_floats))
 
     # ---- 3c. kernel 4 vs plain ------------------------------------------
     print("== 3c. whole-solve kernel vs its plain version", flush=True)
@@ -1201,6 +1417,13 @@ def main() -> int:
     check(counts == expect, f"sweep: kernel launches are {expect}")
     check(summary["upright_frac"] == 1.0,
           "sweep: every scenario upright after its 60 ms")
+
+    # ---- 8. the accuracy tiers --------------------------------------------
+    print("== 8. accuracy tiers: solve_mpc_batch, the polished MPC tier in "
+          "float32 and float64, the df32 residual, the float64 WBC tier",
+          flush=True)
+    accuracy_tiers(smi, device)
+    torch.cuda.empty_cache()
 
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:

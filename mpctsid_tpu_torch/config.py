@@ -135,10 +135,11 @@ class EngineConfig:
 
 # --- named WBC parity tier (BASELINE.json:5 "per-solve control error < 1e-4") --------
 #
-# The WBC stage's 1e-4-of-tau_max tier runs the same admm_solve algorithm
-# with this higher budget, warm-started.  The port carries the budget so the
-# preset tree stays equal to the JAX package's; the f64 parity tier itself
-# (polish included) is not ported yet.
+# The WBC stage's 1e-4-of-tau_max tier (budget 2.7e-4 Nm) runs the same
+# admm_solve algorithm with this budget in a float64 island: float64 QPs,
+# backend "torch", warm-started, with the active-set KKT polish
+# (solve_wbc(polish=True) / admm_solve(polish_kkt=True)).  It exists to show
+# the contract number; the cascade runs float32.
 WBC_PARITY_SOLVER = SolverConfig(wbc_iters=150, wbc_adapt_rounds=3)
 
 

@@ -17,7 +17,7 @@ import torch
 
 from mpctsid_tpu_torch.config import MpcConfig
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
-from mpctsid_tpu_torch.qp.admm import INF
+from mpctsid_tpu_torch.qp.admm import INF, admm_solve
 from mpctsid_tpu_torch.qp.blockinv import inv3
 from mpctsid_tpu_torch.utils import device_constant
 
@@ -212,8 +212,20 @@ def build_mpc_qp(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet, contacts,
     return P, q, A_c, l_blk, u_blk
 
 
-def solve_mpc_batch(*args, **kwargs):
-    raise NotImplementedError(
-        "solve_mpc_batch is not ported to mpctsid_tpu_torch yet: build the QP "
-        "with build_mpc_qp and solve it with qp.admm.admm_solve, as "
-        "cascade_period does")
+def solve_mpc_batch(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet,
+                    contacts, warm_x=None, warm_y=None, iters: int = 200):
+    """Batched MPC solve: build the QPs of every scenario and solve them with
+    `admm_solve(iters=iters)` (the JAX function's budget and defaults: one
+    adapt round, the plain backend), warm-started from zeros unless
+    `warm_x` (B, 12 N) / `warm_y` (B, 20 N) are given.
+
+    Returns (forces (B, N, 4, 3), QPSolution)."""
+    P, q, A, l, u = build_mpc_qp(model, cfg, x0, x_ref, feet, contacts)
+    Bsz = x0.shape[0]
+    if warm_x is None:
+        warm_x = x0.new_zeros((Bsz, cfg.horizon * NU))
+    if warm_y is None:
+        warm_y = x0.new_zeros((Bsz, cfg.horizon * N_FEET * ROWS_PER_FOOT))
+    sol = admm_solve(P, q, A, l, u, x0=warm_x, y0=warm_y, iters=iters)
+    forces = sol.x.reshape(Bsz, cfg.horizon, N_FEET, 3)
+    return forces, sol

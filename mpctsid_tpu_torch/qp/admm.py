@@ -47,8 +47,28 @@ the shared config tree uses it):
              adaptation); this function only unscales and computes the
              residuals and `ok`.
 
-Not ported yet, each raising NotImplementedError by name: modes "inv",
-"exact_inv" and "cholesky", and `polish_kkt` (with qp/precision.py).
+Modes (how K is inverted each adapt round; the JAX package's):
+  "blockinv"  the blocked Cholesky inverse with one Newton-Schulz step
+              (qp/blockinv.py), the default and the one the cascade runs;
+  "inv"       22 cold-started Newton-Schulz steps (`_ns_inverse`; valid only
+              for cond(K) <~ 1e3 in float32, i.e. without equality rows);
+  "exact_inv" the LU-based inverse (`torch.linalg.inv_ex`);
+  "cholesky"  no inverse: every iteration solves with the Cholesky factor
+              (two triangular solves), so it always runs the plain loop.
+The kernel backends take "blockinv", "inv" and "exact_inv" (as the JAX
+package's Pallas backends do) and run "cholesky" on the plain loop; "fused"
+computes its own inverse and ignores `mode` (and `polish_kkt`), as in JAX.
+
+`polish_kkt=True` adds two rounds of the device-side active-set KKT polish
+(`_polish`: one regularised KKT solve by LU, three refinement steps on the
+df32 residual of qp/precision.py, accepted per scenario by the df32 KKT
+error).  This is the accuracy tier of the contract (control error < 1e-4
+against the float64 reference).
+
+Precision.  Float64 inputs with backend "torch" are computed in float64
+throughout, as the JAX function is under x64 (the WBC parity tier's float64
+island).  The kernels take float32 only and raise TypeError on anything
+else; nothing is cast quietly.
 """
 
 from __future__ import annotations
@@ -62,10 +82,13 @@ from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate,
                                           admm_iterate_m2, admm_iterate_vpu,
                                           admm_iterate_vpu_packed,
                                           admm_solve_fused)
+from mpctsid_tpu_torch.qp.precision import residual_matvec
 
 INF = 1e20
 
 __all__ = ["INF", "QPSolution", "ruiz_equilibrate", "admm_solve"]
+
+MODES = ("blockinv", "inv", "exact_inv", "cholesky")
 
 
 @dataclasses.dataclass
@@ -79,6 +102,21 @@ class QPSolution:
     # primal-feasible to `status_tol`.  Consumers use it for the
     # last-feasible-plan fallback (cascade/engine.py).
     ok: torch.Tensor         # (B,) bool
+
+
+def _ns_inverse(K, iters: int):
+    """Newton-Schulz iteration for K^-1 of SPD matrices (B, n, n):
+    X <- X (2I - K X) from the cold start X0 = I / ||K||_inf (per scenario),
+    which converges for SPD K.  Matmul-only; the residual ||I - X K||
+    squares each step."""
+    n = K.shape[-1]
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    norm_inf = K.abs().sum(dim=-1).amax(dim=-1)
+    X = eye / norm_inf[:, None, None]
+    eye2 = 2.0 * eye
+    for _ in range(iters):
+        X = torch.bmm(X, eye2 - torch.bmm(K, X))
+    return X
 
 
 def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
@@ -153,8 +191,34 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
     return _BACKEND_NAMES[backend]
 
 
+def _k_inverse(K, mode: str):
+    """K^-1 by `mode`'s method; None for "cholesky" (no inverse)."""
+    if mode == "blockinv":
+        # Blocked Cholesky + triangular inverse + 1 Newton-Schulz correction
+        return spd_inverse_chol(K, ns_steps=1)
+    if mode == "inv":
+        # cold-started every round: warm starts across rho changes can put
+        # ||I - X0 K|| > 1, where Newton-Schulz diverges
+        return _ns_inverse(K, iters=22)
+    if mode == "exact_inv":
+        # inv_ex: no host-side check of `info` (a singular K gives non-finite
+        # entries in its own scenario only); it returns column-major
+        # matrices, the kernels take row-major ones
+        return torch.linalg.inv_ex(K)[0].contiguous()
+    return None
+
+
+def _cholesky_factor(K):
+    """Lower Cholesky factors; a scenario whose K is not positive definite
+    gets NaN (as jnp.linalg.cholesky gives), no host-side check."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where(info[:, None, None] == 0, L,
+                       torch.full_like(L, float("nan")))
+
+
 def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
-               sigma: float, alpha: float, rho_eq_scale: float, backend: str):
+               sigma: float, alpha: float, rho_eq_scale: float, backend: str,
+               mode: str):
     """n_iters ADMM iterations at per-scenario rho_s (B,) with the eq boost.
 
     A function of its own so that K, K^-1 and M2 are freed when it returns:
@@ -163,10 +227,9 @@ def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
     K = torch.bmm((A * rho_vec[:, :, None]).transpose(1, 2), A)
     K += P
     K.diagonal(dim1=-2, dim2=-1).add_(sigma)
-    # Blocked Cholesky + triangular inverse + 1 Newton-Schulz correction
-    K_inv = spd_inverse_chol(K, ns_steps=1)
+    K_inv = _k_inverse(K, mode)
 
-    if backend == "m2":
+    if backend == "m2" and K_inv is not None:
         # Fold the refinement into ONE precomputed map:
         #   x_t = x_a + K_inv (rhs - K x_a) = (2 K_inv - K_inv K K_inv) rhs
         # Two batched matmuls here; the kernel then streams one matrix and
@@ -178,20 +241,31 @@ def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
         return admm_iterate_m2(M2, A, q, l, u, rho_vec, x, z, y,
                                iters=n_iters, sigma=sigma, alpha=alpha)
 
-    if backend in _ITERATION_KERNELS:
+    if backend in _ITERATION_KERNELS and K_inv is not None:
         # K^-1, K and A go to the kernel as they are; it keeps them on chip
         # for all iterations and forms the refinement residual explicitly
         return _ITERATION_KERNELS[backend](
             K_inv.contiguous(), K, A, q, l, u, rho_vec, x, z, y,
             iters=n_iters, sigma=sigma, alpha=alpha)
 
+    if K_inv is None:
+        L = _cholesky_factor(K)
+
+        def k_solve(rhs):
+            t = torch.linalg.solve_triangular(L, rhs[:, :, None], upper=False)
+            return torch.linalg.solve_triangular(L.transpose(1, 2), t,
+                                                 upper=True)[:, :, 0]
+    else:
+        def k_solve(rhs):
+            # one iterative-refinement step squares the explicit inverse's
+            # relative error for two extra matmuls
+            x_a = _mv(K_inv, rhs)
+            return x_a + _mv(K_inv, rhs - _mv(K, x_a))
+
     rho_inv = 1.0 / rho_vec
     for _ in range(n_iters):
         rhs = sigma * x - q + _mtv(A, rho_vec * z - y)
-        # one iterative-refinement step squares the explicit inverse's
-        # relative error for two extra matmuls
-        x_a = _mv(K_inv, rhs)
-        x_t = x_a + _mv(K_inv, rhs - _mv(K, x_a))
+        x_t = k_solve(rhs)
         z_t = _mv(A, x_t)
         x = alpha * x_t + (1.0 - alpha) * x
         z_r = alpha * z_t + (1.0 - alpha) * z
@@ -219,15 +293,8 @@ def admm_solve(P, q, A, l, u,
                backend: str = "torch",
                status_tol: float = 0.05) -> QPSolution:
     """Fixed-iteration OSQP-style ADMM over a batch; see the module docstring."""
-    if mode != "blockinv":
-        raise NotImplementedError(
-            f"admm_solve mode {mode!r} is not ported to mpctsid_tpu_torch "
-            "yet (modes 'inv', 'exact_inv' and 'cholesky' are reference "
-            "paths of the JAX package); use mode='blockinv'")
-    if polish_kkt:
-        raise NotImplementedError(
-            "admm_solve(polish_kkt=True): the active-set KKT polish (_polish, "
-            "qp/precision.py) is not ported to mpctsid_tpu_torch yet")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if P.dim() != 3:
         raise ValueError(
             f"P must carry a leading scenario axis (B, n, n); got "
@@ -271,7 +338,7 @@ def admm_solve(P, q, A, l, u,
     iters_per = max(1, iters // n_rounds)
     for r_i in range(n_rounds):
         x, z, y = _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, iters_per,
-                             sigma, alpha, rho_eq_scale, backend)
+                             sigma, alpha, rho_eq_scale, backend, mode)
         if r_i + 1 < n_rounds:
             Ax = _mv(A, x)
             Px = _mv(P, x)
@@ -287,7 +354,84 @@ def admm_solve(P, q, A, l, u,
                 rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
                 1e-3, 1e3)
 
+    if polish_kkt:
+        # polish in the SCALED frame (a well-conditioned KKT for the float32
+        # solve); the second round re-detects the active set at the polished
+        # point
+        eq = (u0 - l0) < 1e-9
+        x, y = _polish(P, q, A, l, u, x, y, eq)
+        x, y = _polish(P, q, A, l, u, x, y, eq, active_tol=1e-5)
     return _unscaled_solution(P0, q0, A0, l0, u0, x, y, D, E, c, status_tol)
+
+
+def _kkt_error(P, q, A, l, u, x, y):
+    """Per scenario max(|P x + q + A' y|, bound violation of A x), the
+    stationarity in df32 (qp/precision.py)."""
+    Ax = _mv(A, x)
+    viol = torch.maximum(torch.clamp_min(Ax - u, 0.0).amax(dim=-1),
+                         torch.clamp_min(l - Ax, 0.0).amax(dim=-1))
+    stat = residual_matvec(-(q + _mtv(A, y)), P, x).abs().amax(dim=-1)
+    return torch.maximum(stat, viol)
+
+
+def _polish(P, q, A, l, u, x, y, eq, active_tol: float = 1e-3,
+            delta: float = 1e-4):
+    """Device-side OSQP polish: one masked-KKT solve on the detected active
+    set, per scenario (JAX `_polish`).
+
+    Fixed shapes instead of slicing the active rows:
+        [[P + delta I,   A' diag(mask)], [x ]   [      -q        ]
+         [diag(mask) A,  -D_nu        ]] [nu] = [ mask * b_active ]
+    with D_nu = delta on active rows and 1 on inactive ones, which pins
+    nu_i = 0 for inactive constraints.  One batched LU factorisation of the
+    regularised system, three refinement steps against the UNregularised
+    one with the residual in df32, and the polished point kept only where
+    its df32 KKT error is no larger than the ADMM iterate's (a float32
+    objective comparison is noise in the MPC QP's flat valleys).  Dual-sign
+    checks are not used: they misfire on the degenerate swing-foot rows."""
+    B, n = q.shape
+    dtype = P.dtype
+    Ax = _mv(A, x)
+    # a side can only be active if its bound is finite
+    low = (l > -INF) & ((y < -active_tol) | ((Ax - l).abs() < active_tol))
+    upp = (u < INF) & ((y > active_tol) | ((Ax - u).abs() < active_tol))
+    low = (low | eq) & ~(upp & ~eq)
+    act = low | upp
+    mask = act.to(dtype)
+    b = torch.where(low, l, u)
+
+    AtM = A.transpose(1, 2) * mask[:, None, :]                # (B, n, m)
+    eye = torch.eye(n, dtype=dtype, device=P.device)
+    d_nu = torch.where(act, delta, 1.0).to(dtype)
+    kkt_reg = torch.cat([
+        torch.cat([P + delta * eye, AtM], dim=2),
+        torch.cat([AtM.transpose(1, 2), torch.diag_embed(-d_nu)], dim=2),
+    ], dim=1)
+    rhs = torch.cat([-q, mask * b], dim=1)
+    # lu_factor_ex: no host-side check of `info` (no synchronisation; a
+    # singular system gives non-finite values in its own scenario, which the
+    # acceptance test below then rejects)
+    lu, piv, _ = torch.linalg.lu_factor_ex(kkt_reg)
+
+    def solve(r):
+        return torch.linalg.lu_solve(lu, piv, r[:, :, None])[:, :, 0]
+
+    sol = solve(rhs)
+    kkt0 = torch.cat([
+        torch.cat([P, AtM], dim=2),
+        torch.cat([AtM.transpose(1, 2),
+                   torch.diag_embed(-torch.where(act, 0.0, 1.0).to(dtype))],
+                  dim=2),
+    ], dim=1)
+    # the refinement residual in df32: a plain float32 mat-vec has an
+    # accumulation floor of ~n eps |terms| ~ 1e-4 in the unscaled frame
+    for _ in range(3):
+        sol = sol + solve(residual_matvec(rhs, kkt0, sol))
+    xp = sol[:, :n]
+    yp = sol[:, n:] * mask
+    ok = (_kkt_error(P, q, A, l, u, xp, yp)
+          <= _kkt_error(P, q, A, l, u, x, y))[:, None]
+    return torch.where(ok, xp, x), torch.where(ok, yp, y)
 
 
 def _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,

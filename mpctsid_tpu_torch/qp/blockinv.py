@@ -22,7 +22,10 @@ Per-scenario safeguards (`bad`, `nonfinite` in `spd_inverse_chol`) reduce
 over the last two axes ONLY: one indefinite matrix must never change the
 result of another scenario of the batch.
 
-`spd_inverse_sorted` (diagonal pivot ordering) is not ported yet.
+`spd_inverse_sorted` eliminates in descending diagonal order (a per-scenario
+permutation, gathered and undone batch-wise) and polishes with Newton-Schulz:
+a reference path of the JAX package for the QP KKT matrices; the cascade
+uses `spd_inverse_chol`.
 """
 
 from __future__ import annotations
@@ -223,7 +226,40 @@ def spd_inverse_chol(K, ns_steps: int = 1):
     return X * s[..., :, None] * s[..., None, :]
 
 
+def _permute(K, perm):
+    """K[..., perm, :][..., :, perm] with a permutation per matrix."""
+    n = K.shape[-1]
+    rows = perm[..., :, None].expand(*perm.shape, n)
+    cols = perm[..., None, :].expand(*perm.shape[:-1], n, n)
+    return K.gather(-2, rows).gather(-1, cols)
+
+
 def spd_inverse_sorted(K, ns_steps: int = 2):
-    raise NotImplementedError(
-        "spd_inverse_sorted is not ported to mpctsid_tpu_torch yet "
-        "(no path of the cascade uses it); use spd_inverse_chol")
+    """SPD inverse with diagonal pivot ordering + Newton-Schulz refinement.
+
+    Unpivoted Schur elimination loses accuracy when small diagonal entries
+    are eliminated before large ones; eliminating in DESCENDING diagonal
+    order (the complete-pivoting order for SPD Gauss-Jordan) and then
+    `ns_steps` Newton-Schulz corrections X <- X (2I - K X) repair it.  The
+    order is each matrix's own (a stable argsort of its diagonal, as
+    jnp.argsort), so the batch needs no common permutation.
+
+    Safeguard, per matrix: Newton-Schulz contracts only when
+    ||I - K X|| < 1; where the elimination left a residual >= 1 (or NaN),
+    the cold start X0 = I / ||K||_inf (valid for SPD K) replaces it before
+    the refinement, and the result is coarse instead of poisoning the
+    batch."""
+    n = K.shape[-1]
+    perm = torch.argsort(-torch.diagonal(K, dim1=-2, dim2=-1), dim=-1,
+                         stable=True)
+    Kp = _permute(K, perm)
+    X = spd_inverse(Kp)
+    eye = torch.eye(n, dtype=K.dtype, device=K.device)
+    Y = Kp @ X
+    r = torch.sqrt(((eye - Y) ** 2).sum(dim=(-2, -1), keepdim=True))
+    cold = eye / Kp.abs().sum(dim=-1).amax(dim=-1)[..., None, None]
+    bad = ~(r < 1.0)                    # catches NaN in r as well
+    X = torch.where(bad, cold, X)
+    for _ in range(ns_steps):
+        X = X @ (2.0 * eye - Kp @ X)
+    return _permute(X, torch.argsort(perm, dim=-1))

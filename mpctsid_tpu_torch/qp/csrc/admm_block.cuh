@@ -9,8 +9,10 @@
 //     block path of the whole-solve kernel (admm_fused.cu, n > 32).  The
 //     tensor-core kernel (admm_mma.cu) takes sum_partials only.
 //   * Warp-level pieces, one WARP per scenario (dot_strided, WarpVecs,
-//     warp_refined_iterations): the packed iteration kernel (admm_packed.cu)
-//     and the warp path of the whole-solve kernel (admm_fused.cu, n <= 32).
+//     warp_refined_iterations): the shared-memory path of the packed
+//     iteration kernel (admm_packed.cu, n > 32) and the warp path of the
+//     whole-solve kernel (admm_fused.cu, n <= 32).  (The register path of
+//     the packed kernel runs the generic kernel's loop: warp_regs.cuh.)
 //     Both run the same refined iteration with K TRANSPOSED on matrices that
 //     sit in the warp's own slice of shared memory; it is written once, here.
 //

@@ -56,62 +56,24 @@
 
 #include "admm_block.cuh"
 #include "cluster_exchange.cuh"
+#include "warp_regs.cuh"
 
 namespace {
 
 using namespace admm_block;
 using namespace cluster_exchange;
 
-constexpr int WARP_N = 32;          // the warp path: n <= 32, lane i on row i
 constexpr int MAX_WARP_SLOTS = 8;   // scenarios (warps) per block, at most
 
-__host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+using warp_regs::WARP_N;
+using warp_regs::round4;
 
-// Floats of one scenario's slice on the warp path (the wrapper's
-// vpu_layout() computes the same): A with round4(m) rows of stride ld (the
-// pad rows zero), rhs, x_a, r, x_t (32 each, zero past n), w (round4(m),
-// zero past m), z, y, l, u, rho, 1 / rho (round4(m) each).
+// Floats of one scenario's slot on the warp path (the wrapper's
+// vpu_layout() computes the same): A with round4(m) rows of stride ld,
+// then the vectors of warp_regs.cuh.
 __host__ __device__ __forceinline__ int vpu_slot_floats(int m, int ld)
 {
-    const int mp = round4(m);
-    return mp * ld + 4 * WARP_N + 7 * mp;
-}
-
-__device__ __forceinline__ float4 f4(const float* p)
-{
-    return *reinterpret_cast<const float4*>(p);
-}
-
-// sum_k reg[k] vec[k] over 32 entries, vec in 16-byte broadcasts
-__device__ __forceinline__ float dot32(const float (&reg)[WARP_N],
-                                       const float* vec)
-{
-    float a0 = 0.f, a1 = 0.f;
-#pragma unroll
-    for (int k = 0; k < WARP_N; k += 4) {
-        const float4 v = f4(vec + k);
-        a0 = fmaf(reg[k], v.x, a0);
-        a1 = fmaf(reg[k + 1], v.y, a1);
-        a0 = fmaf(reg[k + 2], v.z, a0);
-        a1 = fmaf(reg[k + 3], v.w, a1);
-    }
-    return a0 + a1;
-}
-
-// sum_k row[k] vec[k], k < kp (a multiple of four), both in shared memory
-__device__ __forceinline__ float dot_row4(const float* row, const float* vec,
-                                          int kp)
-{
-    float a0 = 0.f, a1 = 0.f;
-    for (int k = 0; k < kp; k += 4) {
-        const float4 r = f4(row + k);
-        const float4 v = f4(vec + k);
-        a0 = fmaf(r.x, v.x, a0);
-        a1 = fmaf(r.y, v.y, a1);
-        a0 = fmaf(r.z, v.z, a0);
-        a1 = fmaf(r.w, v.w, a1);
-    }
-    return a0 + a1;
+    return round4(m) * ld + warp_regs::vec_floats(m);
 }
 
 struct VpuArgs {
@@ -122,7 +84,8 @@ struct VpuArgs {
 };
 
 // The update of refined_iterations (admm_block.cuh: K TRANSPOSED) by one
-// warp per scenario; see the file's head.
+// warp per scenario; see the file's head.  The loop is warp_regs.cuh's,
+// shared with the packed kernel's register path (admm_packed.cu).
 __global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
 admm_vpu_warp_kernel(VpuArgs a, int ld, int slot_floats)
 {
@@ -133,24 +96,12 @@ admm_vpu_warp_kernel(VpuArgs a, int ld, int slot_floats)
     if (b >= a.B) return;      // nothing below waits for another warp
     const int n = a.n, m = a.m;
     const int mp = round4(m);
-    const int kp = round4(n);
-    float* sA = smem + (size_t)warp * slot_floats;
-    float* p = sA + mp * ld;
-    float* s_rhs = p;  p += WARP_N;
-    float* s_xa = p;   p += WARP_N;
-    float* s_r = p;    p += WARP_N;
-    float* s_xt = p;   p += WARP_N;
-    float* s_w = p;    p += mp;
-    float* s_z = p;    p += mp;
-    float* s_y = p;    p += mp;
-    float* s_l = p;    p += mp;
-    float* s_u = p;    p += mp;
-    float* s_rho = p;  p += mp;
-    float* s_rinv = p;
+    const warp_regs::Slot s =
+        warp_regs::carve_slot(smem + (size_t)warp * slot_floats, m, mp * ld);
 
-    // A -> the slice (asynchronously; pad columns zeroed), pad rows zeroed
-    load_rows(sA, ld, a.A + (size_t)b * m * n, m, n, lane, 32);
-    for (int k = m * ld + lane; k < mp * ld; k += 32) sA[k] = 0.f;
+    // A -> the slot (asynchronously; pad columns zeroed), pad rows zeroed
+    load_rows(s.A, ld, a.A + (size_t)b * m * n, m, n, lane, 32);
+    for (int k = m * ld + lane; k < mp * ld; k += 32) s.A[k] = 0.f;
     // row `lane` of K^-1 and column `lane` of K, zero past n
     const float* gKinv = a.Kinv + (size_t)b * n * n;
     const float* gK = a.K + (size_t)b * n * n;
@@ -161,75 +112,18 @@ admm_vpu_warp_kernel(VpuArgs a, int ld, int slot_floats)
         kinv[k] = own && k < n ? gKinv[lane * n + k] : 0.f;
         kcol[k] = own && k < n ? gK[k * n + lane] : 0.f;
     }
-    float x = own ? a.x0[(size_t)b * n + lane] : 0.f;
-    const float q = own ? a.q[(size_t)b * n + lane] : 0.f;
-    for (int i = lane; i < mp; i += 32) {
-        const bool in = i < m;
-        const size_t gi = (size_t)b * m + i;
-        const float rh = in ? a.rho[gi] : 1.f;
-        const float zi = in ? a.z0[gi] : 0.f;
-        const float yi = in ? a.y0[gi] : 0.f;
-        s_z[i] = zi;
-        s_y[i] = yi;
-        s_l[i] = in ? a.l[gi] : 0.f;
-        s_u[i] = in ? a.u[gi] : 0.f;
-        s_rho[i] = rh;
-        s_rinv[i] = 1.0f / rh;
-        s_w[i] = in ? rh * zi - yi : 0.f;
-    }
+    const size_t vn = (size_t)b * n, vm = (size_t)b * m;
+    float x, q;
+    warp_regs::load_vectors(s, a.q + vn, a.l + vm, a.u + vm, a.rho + vm,
+                            a.x0 + vn, a.z0 + vm, a.y0 + vm, n, m, lane, x,
+                            q);
     cp_async_wait();
     __syncwarp();
 
-    const float sigma = a.sigma, alpha = a.alpha;
-    const float one_m_alpha = 1.0f - alpha;
-    for (int it = 0; it < a.iters; ++it) {
-        // rhs = sigma x - q + A' w   (lane j: column j of A, w broadcast)
-        float a0 = 0.f, a1 = 0.f;
-        for (int i = 0; i < mp; i += 4) {
-            const float4 wv = f4(s_w + i);
-            const float* col = sA + i * ld + lane;
-            a0 = fmaf(col[0], wv.x, a0);
-            a1 = fmaf(col[ld], wv.y, a1);
-            a0 = fmaf(col[2 * ld], wv.z, a0);
-            a1 = fmaf(col[3 * ld], wv.w, a1);
-        }
-        const float rhs = (sigma * x - q) + (a0 + a1);
-        s_rhs[lane] = rhs;
-        __syncwarp();
-        // x_a = K^-1 rhs   (row `lane` of K^-1)
-        const float xa = dot32(kinv, s_rhs);
-        s_xa[lane] = xa;
-        __syncwarp();
-        // r = rhs - K' x_a   (the explicit residual, column `lane` of K)
-        s_r[lane] = rhs - dot32(kcol, s_xa);
-        __syncwarp();
-        // x_t = x_a + K^-1 r;  x <- alpha x_t + (1 - alpha) x
-        const float xt = xa + dot32(kinv, s_r);
-        s_xt[lane] = xt;
-        x = alpha * xt + one_m_alpha * x;
-        __syncwarp();
-        // z_t = A x_t, then the z / y / w updates of rows lane, lane + 32, ..
-        auto project = [&](int i, float zt) {
-            const float zr = alpha * zt + one_m_alpha * s_z[i];
-            const float yi = s_y[i];
-            const float rh = s_rho[i];
-            const float zn =
-                fminf(fmaxf(zr + s_rinv[i] * yi, s_l[i]), s_u[i]);
-            const float yn = yi + rh * (zr - zn);
-            s_z[i] = zn;
-            s_y[i] = yn;
-            s_w[i] = rh * zn - yn;
-        };
-        for (int i = lane; i < m; i += 32)
-            project(i, dot_row4(sA + i * ld, s_xt, kp));
-        __syncwarp();
-    }
-
-    if (own) a.x_out[(size_t)b * n + lane] = x;
-    for (int i = lane; i < m; i += 32) {
-        a.z_out[(size_t)b * m + i] = s_z[i];
-        a.y_out[(size_t)b * m + i] = s_y[i];
-    }
+    x = warp_regs::warp_register_iterations(kinv, kcol, s, ld, n, m, a.iters,
+                                            a.sigma, a.alpha, x, q, lane);
+    warp_regs::store_results(s, x, a.x_out + vn, a.z_out + vm, a.y_out + vm,
+                             n, m, lane);
 }
 
 __global__ void __launch_bounds__(1024)

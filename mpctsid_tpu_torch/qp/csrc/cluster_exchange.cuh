@@ -7,8 +7,8 @@
 //     tensor-core iteration kernel (admm_mma.cu) and of the M2 iteration
 //     kernel (admm_m2.cu);
 //   * the asynchronous loads (cp_async4, cp_async16, cp_async_wait,
-//     load_rows): admm_mma.cu, admm_m2.cu and the warp path of the generic
-//     iteration kernel (admm_vpu.cu).
+//     load_rows): admm_mma.cu, admm_m2.cu, the warp path of the generic
+//     iteration kernel (admm_vpu.cu) and admm_packed.cu (cp_async4).
 //
 // The exchange.  A whole-cluster barrier (cluster.sync()) costs a device-wide
 // memory fence every time; instead each value travels as an asynchronous

@@ -16,7 +16,10 @@ JAX package's qp/pallas_kernels.py and keeping its function name:
     (`vpu_layout`).
   * `admm_iterate_vpu_packed` (admm_packed.cu) <- `admm_iterate_vpu_packed` /
     `admm_iterate_packed`: the same function for small matrices, several
-    scenarios per block, one warp each.
+    scenarios per block, one warp each: n <= 32 with K^-1 and K in
+    registers by kernel 2's own loop (warp_regs.cuh) after a coalesced,
+    staged load; larger n with the matrices in the warp's slice of shared
+    memory (`packed_layout`).
   * `admm_solve_fused` (admm_fused.cu) <- `admm_solve_fused` /
     `admm_solve_fused_batch`: the whole solve in one launch (full-rescale
     Ruiz, per adapt round K, its Cholesky-based inverse with one
@@ -68,10 +71,12 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_iterate_vpu", "admm_iterate_vpu_packed",
            "admm_iterate_refined_reference", "check_refined_args",
            "admm_iterate", "admm_iterate_reference",
-           "device_limits", "packed_layout", "fused_layout", "mma_layout",
+           "device_limits", "packed_layout", "packed_slot_floats",
+           "fused_layout", "mma_layout",
            "m2_layout", "m2_block", "m2_active_clusters", "vpu_layout",
            "row_slices",
-           "FusedLayout", "MmaLayout", "M2Layout", "VpuLayout",
+           "FusedLayout", "MmaLayout", "M2Layout", "PackedLayout",
+           "VpuLayout",
            "admm_solve_fused",
            "admm_solve_fused_reference",
            "check_fused_args", "build_all", "LIBRARIES"]
@@ -321,8 +326,11 @@ def admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0,
 # name -> (sources, headers) under qp/csrc/; one shared library per kernel
 LIBRARIES = {
     "admm_m2": (("admm_m2.cu",), ("cluster_exchange.cuh",)),
-    "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
-    "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",)),
+    "admm_vpu": (("admm_vpu.cu",), ("admm_block.cuh", "cluster_exchange.cuh",
+                                     "warp_regs.cuh")),
+    "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",
+                                           "cluster_exchange.cuh",
+                                           "packed_slot.h", "warp_regs.cuh")),
     "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
     "admm_mma": (("admm_mma.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
 }
@@ -333,7 +341,7 @@ _FLT = ctypes.c_float
 _LAUNCH_ARGTYPES = {
     "admm_m2": [_PTR] * 12 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 5 + [_PTR],
     "admm_vpu": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 4 + [_PTR],
-    "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 3 + [_PTR],
+    "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 4 + [_PTR],
     "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 4 + [_PTR],
     "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 6 + [_PTR],
 }
@@ -366,6 +374,9 @@ def _library(name: str):
         if name == "admm_fused":
             lib.admm_fused_workspace_floats.argtypes = [_INT] * 4
             lib.admm_fused_workspace_floats.restype = ctypes.c_longlong
+        if name == "admm_packed":
+            lib.admm_packed_slot_floats.argtypes = [_INT] * 3
+            lib.admm_packed_slot_floats.restype = _INT
         if name == "admm_m2":
             lib.admm_m2_active_clusters.argtypes = [_INT] * 4
             lib.admm_m2_active_clusters.restype = _INT
@@ -623,39 +634,74 @@ def admm_iterate_vpu(K_inv, K, A, q, l, u, rho_vec, x, z, y,
 
 admm_iterate_vpu.launches = 0
 
-MAX_PACKED_G = 16
+MAX_PACKED_REG_SLOTS = 4    # register path: warps per block (admm_packed.cu
+                            # allows 16; PERF.md has the measurement)
+MAX_PACKED_SHARED_SLOTS = 16    # shared path: warps per block
+PACKED_PATHS = {"shared": 0, "registers": 1}    # packed_slot.h's PATH_*
+PACKED_REG_LD = 36      # register path: A's row stride (packed_slot.h)
 
 
-def packed_layout(n: int, m: int, B: int, smem_bytes: int, n_sm: int):
-    """Shared-memory layout of the packed kernel: (g, ld, slot_floats).
+class PackedLayout(NamedTuple):
+    """How one launch of the packed refined-iteration kernel is laid out."""
+    path: str          # "registers": K^-1, K in registers; "shared": in the
+                       # warp's slice of shared memory
+    g: int             # scenarios (warps) per block
+    threads: int       # threads per block
+    ld: int            # row stride of A (of K^-1, K too on the shared path)
+    slot_floats: int   # floats of shared memory per scenario
 
-    One scenario's slot holds K^-1, K and A with rows padded to the odd
-    stride ld = n | 1 (no bank conflicts by rows or by columns) and its
-    twelve vectors.  g, the scenarios (warps) per block, is what fits in
-    `smem_bytes`, at most 16, and no more than spreads B over `n_sm`
-    multiprocessors.  Raises if not even one scenario fits: the packed kernel
-    is for small matrices and hands nothing to another kernel."""
-    ld = n | 1
-    slot_floats = (2 * n + m) * ld + 5 * n + 7 * m
-    fit = smem_bytes // (4 * slot_floats)
-    if fit < 1:
-        raise ValueError(
-            f"admm_iterate_vpu_packed: one scenario of n={n}, m={m} needs "
-            f"{4 * slot_floats} bytes of shared memory (K^-1, K, A and the "
-            f"vectors), a block has {smem_bytes}; use admm_iterate_vpu "
-            "(backend 'vpu'), which streams what does not fit")
-    return _slots_per_block(fit, MAX_PACKED_G, B, n_sm), ld, slot_floats
+    @property
+    def geometry(self):
+        """The launcher's trailing arguments."""
+        return (PACKED_PATHS[self.path], self.g, self.ld, self.slot_floats)
+
+
+def packed_layout(n: int, m: int, B: int, smem_bytes: int, n_sm: int,
+                  slot_floats) -> PackedLayout:
+    """Which path a launch of `admm_iterate_vpu_packed` takes, and its
+    parameters.
+
+    `slot_floats(path, n, m)` is the kernel's own count of one scenario's
+    floats of shared memory on a path (packed_slot.h, exported by the
+    library as `admm_packed_slot_floats`: `packed_slot_floats`), -1 where
+    the path does not take the shape.  n <= 32 with a slot that fits: the
+    register path (K^-1 and K in registers, A at the row stride 36);
+    otherwise, where a slot fits, the shared path (K^-1, K and A at the odd
+    stride n | 1 in the warp's slice).  g, the scenarios (warps) per block,
+    is what fits in `smem_bytes`, at most MAX_PACKED_REG_SLOTS or
+    MAX_PACKED_SHARED_SLOTS, and no more than spreads B over `n_sm`
+    multiprocessors.  Raises if not even one scenario fits: the packed
+    kernel is for small matrices and hands nothing to another kernel."""
+    for path, cap, ld in (("registers", MAX_PACKED_REG_SLOTS, PACKED_REG_LD),
+                          ("shared", MAX_PACKED_SHARED_SLOTS, n | 1)):
+        slot = int(slot_floats(PACKED_PATHS[path], n, m))
+        if slot > 0 and 4 * slot <= smem_bytes:
+            g = _slots_per_block(smem_bytes // (4 * slot), cap, B, n_sm)
+            return PackedLayout(path, g, 32 * g, ld, slot)
+    slot = int(slot_floats(PACKED_PATHS["shared"], n, m))
+    raise ValueError(
+        f"admm_iterate_vpu_packed: one scenario of n={n}, m={m} needs "
+        f"{4 * slot} bytes of shared memory (K^-1, K, A and the vectors), a "
+        f"block has {smem_bytes}; use admm_iterate_vpu (backend 'vpu'), "
+        "which streams what does not fit")
+
+
+def packed_slot_floats(path: int, n: int, m: int) -> int:
+    """The packed kernel's floats of shared memory per scenario on `path`
+    (0 shared, 1 registers), from its library (builds it on first use)."""
+    return _library("admm_packed").admm_packed_slot_floats(path, n, m)
 
 
 def admm_iterate_vpu_packed(K_inv, K, A, q, l, u, rho_vec, x, z, y,
                             iters: int = 25, sigma: float = 1e-6,
                             alpha: float = 1.6):
     """The function of `admm_iterate_vpu` for small matrices: several
-    scenarios per block, one warp each; returns (x, z, y).
+    scenarios per block, one warp each (`packed_layout`); returns
+    (x, z, y).
 
     CUDA tensors: launches the hand-written kernel, or raises (also when one
-    scenario does not fit the packed layout).  CPU tensors: the plain
-    version.  See the module docstring."""
+    scenario does not fit a block).  CPU tensors: the plain version.  See
+    the module docstring."""
     B, n, m = check_refined_args(K_inv, K, A, q, l, u, rho_vec, x, z, y)
     iters = _check_iters(iters)
     dev = K_inv.device
@@ -664,9 +710,10 @@ def admm_iterate_vpu_packed(K_inv, K, A, q, l, u, rho_vec, x, z, y,
             K_inv, K, A, q, l, u, rho_vec, x, z, y, iters=iters, sigma=sigma,
             alpha=alpha)
     _require_cuda(dev, "admm_iterate_vpu_packed")
+    lay = packed_layout(n, m, B, *device_limits(dev), packed_slot_floats)
     out = _launch_iteration("admm_packed", (K_inv, K, A, q, l, u, rho_vec),
                             x, z, y, (B, n, m), iters, sigma, alpha,
-                            packed_layout(n, m, B, *device_limits(dev)))
+                            lay.geometry)
     admm_iterate_vpu_packed.launches += 1
     return out
 

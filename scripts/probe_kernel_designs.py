@@ -67,7 +67,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mpctsid_tpu_torch.qp import _build, kernels  # noqa: E402
 
-PARTS = ["m2", "vpu", "mma", "fused"]
+PARTS = ["m2", "vpu", "packed", "mma", "fused"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -192,21 +192,32 @@ def launch(fn, args, iters, geometry):
     return outs
 
 
-def build_variant(name, subs, out_dir, source="admm_mma.cu"):
-    src = (_build.CSRC / source).read_text()
-    for old, new in subs:
-        if old not in src:
-            raise RuntimeError(f"variant {name!r}: pattern not in the "
-                               f"source: {old!r}")
-        src = src.replace(old, new)
+def build_variant(name, subs, out_dir, source="admm_mma.cu",
+                  header_subs=None):
+    """A copy of `source` (and of the headers named in `header_subs`, a dict
+    header -> substitutions) with the (old, new) text substitutions applied,
+    built into its own directory beside the real library; the copy's
+    directory comes first on the include path, so the patched headers win."""
     tag = "".join(c if c.isalnum() else "_" for c in name)
-    cu = os.path.join(out_dir, f"{source[:-3]}_{tag}.cu")
-    so = os.path.join(out_dir, f"lib{source[:-3]}_{tag}.so")
-    with open(cu, "w") as f:
-        f.write(src)
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I",
-                    str(_build.CSRC), "-o", so, cu], check=True,
-                   capture_output=True)
+    vdir = os.path.join(out_dir, f"{source[:-3]}_{tag}")
+    os.makedirs(vdir, exist_ok=True)
+    for fname, fsubs in [(source, subs), *(header_subs or {}).items()]:
+        src = (_build.CSRC / fname).read_text()
+        for old, new in fsubs:
+            if old not in src:
+                raise RuntimeError(f"variant {name!r}: pattern not in "
+                                   f"{fname}: {old!r}")
+            src = src.replace(old, new)
+        with open(os.path.join(vdir, fname), "w") as f:
+            f.write(src)
+    so = os.path.join(vdir, f"lib{source[:-3]}_{tag}.so")
+    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", vdir,
+                        "-I", str(_build.CSRC), "-o", so,
+                        os.path.join(vdir, source)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"variant {name!r} does not build:\n{r.stdout}"
+                           f"{r.stderr}")
     return ctypes.CDLL(so)
 
 
@@ -616,21 +627,22 @@ def vpu_launch(fn, args, iters, geometry):
 
 
 # rows lane and lane + 32 of A in registers for A x_t (m <= 64): a patched
-# copy of admm_vpu.cu's warp path (the same results)
-VPU_A_IN_REGISTERS = [
-    ("    cp_async_wait();\n    __syncwarp();\n",
-     "    cp_async_wait();\n    __syncwarp();\n"
+# copy of the warp loop kernels 2 and 3 share (warp_regs.cuh; the same
+# results)
+VPU_A_IN_REGISTERS = {"warp_regs.cuh": [
+    ("    for (int it = 0; it < iters; ++it) {\n",
      "    float areg[2][WARP_N];\n"
      "#pragma unroll\n"
      "    for (int h = 0; h < 2; ++h)\n"
      "#pragma unroll\n"
      "        for (int k = 0; k < WARP_N; ++k)\n"
      "            areg[h][k] = lane + 32 * h < m && k < n\n"
-     "                ? sA[(lane + 32 * h) * ld + k] : 0.f;\n"),
+     "                ? s.A[(lane + 32 * h) * ld + k] : 0.f;\n"
+     "    for (int it = 0; it < iters; ++it) {\n"),
     ("        for (int i = lane; i < m; i += 32)\n"
-     "            project(i, dot_row4(sA + i * ld, s_xt, kp));\n",
-     "        if (lane < m) project(lane, dot32(areg[0], s_xt));\n"
-     "        if (lane + 32 < m) project(lane + 32, dot32(areg[1], s_xt));\n")]
+     "            project(i, dot_row4(s.A + i * ld, s.xt, kp));\n",
+     "        if (lane < m) project(lane, dot32(areg[0], s.xt));\n"
+     "        if (lane + 32 < m) project(lane + 32, dot32(areg[1], s.xt));\n")]}
 
 
 def probe_vpu(record, B, device, smem, n_sm, build):
@@ -646,8 +658,9 @@ def probe_vpu(record, B, device, smem, n_sm, build):
         return fn
 
     real = vpu_launcher(kernels._library("admm_vpu"))
-    aregs = vpu_launcher(build_variant("A in registers", VPU_A_IN_REGISTERS,
-                                       build, source="admm_vpu.cu"))
+    aregs = vpu_launcher(build_variant("A in registers", [], build,
+                                       source="admm_vpu.cu",
+                                       header_subs=VPU_A_IN_REGISTERS))
     got = vpu_launch(aregs, args, it, lay.geometry)
     want = vpu_launch(real, args, it, lay.geometry)
     torch.cuda.synchronize()
@@ -665,6 +678,228 @@ def probe_vpu(record, B, device, smem, n_sm, build):
     block = (0, kernels._pick_threads(n), 0, 0)
     record("vpu", path="block", what="one block per scenario (the block path)",
            ms=time_ms(lambda: vpu_launch(real, args, it, block), 2, 10))
+
+
+# ---- kernel 3 (admm_packed.cu): the register path's load, other designs
+#
+# Patched copies of admm_packed.cu (the same results bit for bit; the
+# shipped source has no switch).  Each replaces the shipped load's steps 1
+# and 2 (K^-1 and K row by row to the odd stride n | 1, then into registers)
+# or the whole load, or adds an L2 prefetch.  The block-staged and bulk
+# designs copy K^-1 and K flat in 16-byte pieces, so they need n * n to be a
+# multiple of four (n = 30 is).
+
+PACKED_STEPS_1_2 = ("    // 1. K^-1 and K -> staging in A's place",
+                    "    // 3. A's rows -> the slot at stride REG_LD")
+PACKED_WHOLE_LOAD = ("    // 1. K^-1 and K -> staging in A's place",
+                     "__global__ void __launch_bounds__(32 * MAX_REG_SLOTS)")
+
+# row `lane` of K^-1 and column `lane` of K from a flat copy (stride n)
+_FILL_FLAT = """#pragma unroll
+    for (int k = 0; k < WARP_N; ++k) {
+        kinv[k] = own && k < n ? stKinv[lane * n + k] : 0.f;
+        kcol[k] = own && k < n ? stK[k * n + lane] : 0.f;
+    }
+    __syncwarp();
+"""
+_VECTORS = """    warp_regs::load_vectors(s, a.q + vn, a.l + vm, a.u + vm, a.rho + vm,
+                            a.x0 + vn, a.z0 + vm, a.y0 + vm, n, m, lane, x,
+                            q);
+"""
+
+# kernel 2's own per-warp load: K^-1's rows and K's columns straight from
+# device memory into registers, A by load_rows (cp.async, 4 bytes each)
+PACKED_KERNEL2_LOAD = """    const float* gKinv = a.Kinv + vn * n;
+    const float* gK = a.K + vn * n;
+    cluster_exchange::load_rows(s.A, REG_LD, a.A + vm * n, m, n, lane, 32);
+    for (int k = m * REG_LD + lane; k < mp * REG_LD; k += 32) s.A[k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < WARP_N; ++k) {
+        kinv[k] = own && k < n ? gKinv[lane * n + k] : 0.f;
+        kcol[k] = own && k < n ? gK[k * n + lane] : 0.f;
+    }
+""" + _VECTORS + """    cp_async_wait();
+    __syncwarp();
+}
+
+"""
+
+# one cp.async.bulk per matrix by lane 0, flat, counted by an mbarrier in
+# x_t's place (x_t is first written by the iterations, after the barrier is
+# gone); needs 16-byte multiples and alignment (n even, traps otherwise)
+PACKED_BULK_STEPS_1_2 = """    const int nn = n * n;
+    float* stKinv = s.A;
+    float* stK = s.A + round4(nn);
+    const float* gKinv = a.Kinv + vn * n;
+    const float* gK = a.K + vn * n;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(s.xt);
+    const unsigned bytes = 4u * (unsigned)nn;
+    if (((bytes & 15u) | (unsigned)(reinterpret_cast<uintptr_t>(gKinv) & 15)
+         | (unsigned)(reinterpret_cast<uintptr_t>(gK) & 15)) != 0u)
+        __trap();
+    if (lane == 0) {
+        cluster_exchange::barrier_init(bar);
+        asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+        asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+        cluster_exchange::barrier_expect(bar, 2u * bytes);
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\\n"
+            :: "r"(cluster_exchange::shared_addr(stKinv)), "l"(gKinv),
+               "r"(bytes), "r"(cluster_exchange::shared_addr(bar))
+            : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\\n"
+            :: "r"(cluster_exchange::shared_addr(stK)), "l"(gK),
+               "r"(bytes), "r"(cluster_exchange::shared_addr(bar))
+            : "memory");
+    }
+    __syncwarp();
+""" + _VECTORS + """    cluster_exchange::barrier_wait(bar, 0);
+""" + _FILL_FLAT + """    if (lane == 0)
+        asm volatile("mbarrier.inval.shared::cta.b64 [%0];\\n"
+                     :: "r"(cluster_exchange::shared_addr(bar)) : "memory");
+    __syncwarp();
+"""
+
+# before it iterates, each warp asks L2 for the matrices of the scenario
+# 2,112 ahead (the warps an H100 holds at once at g = 4: the warp that will
+# take this one's place), one 128-byte line per lane and step
+PACKED_L2_PREFETCH = [
+    ("__global__ void __launch_bounds__(32 * MAX_REG_SLOTS)",
+     """__device__ __forceinline__ void prefetch_scenario(const PackedArgs& a,
+                                                  int b, int lane)
+{
+    const size_t nn = (size_t)a.n * a.n, mn = (size_t)a.m * a.n;
+    const float* mats[3] = {a.Kinv + (size_t)b * nn, a.K + (size_t)b * nn,
+                            a.A + (size_t)b * mn};
+    const size_t counts[3] = {nn, nn, mn};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+        for (size_t off = (size_t)lane * 32; off < counts[k]; off += 32 * 32)
+            asm volatile("prefetch.global.L2 [%0];\\n" :: "l"(mats[k] + off));
+        if (lane == 0)
+            asm volatile("prefetch.global.L2 [%0];\\n"
+                         :: "l"(mats[k] + counts[k] - 1));
+    }
+}
+
+__global__ void __launch_bounds__(32 * MAX_REG_SLOTS)"""),
+    ("    load_scenario(a, b, s, kinv, kcol, x, q, lane);\n",
+     "    load_scenario(a, b, s, kinv, kcol, x, q, lane);\n"
+     "    if (b + 2112 < a.B) prefetch_scenario(a, b + 2112, lane);\n")]
+
+# the whole block copies its scenarios' K^-1 and K flat (16-byte cp.async),
+# waits at one block barrier, then each warp fills its registers
+PACKED_BLOCK_STAGED = [
+    ("    if (b >= a.B) return;      // nothing below waits for another warp\n"
+     "    const warp_regs::Slot s",
+     "    const warp_regs::Slot s"),
+    ("    float kinv[WARP_N], kcol[WARP_N], x, q;\n",
+     """    {
+        const int nn = a.n * a.n, c4 = nn >> 2;
+        const int G = blockDim.x >> 5, b0 = blockIdx.x * G;
+        const int Gv = min(G, a.B - b0);
+        if ((nn & 3) != 0) __trap();
+        for (int c = threadIdx.x; c < 2 * Gv * c4; c += blockDim.x) {
+            const int mat = c / (Gv * c4);
+            const int rest = c - mat * Gv * c4;
+            const int w = rest / c4, k = rest - w * c4;
+            cluster_exchange::cp_async16(
+                smem + (size_t)w * slot_floats + mat * round4(nn) + 4 * k,
+                (mat ? a.K : a.Kinv) + (size_t)(b0 + w) * nn + 4 * k);
+        }
+        cp_async_wait();
+        __syncthreads();
+    }
+    if (b >= a.B) return;
+    float kinv[WARP_N], kcol[WARP_N], x, q;
+""")]
+PACKED_BLOCK_STEPS_1_2 = """    const float* stKinv = s.A;
+    const float* stK = s.A + round4(n * n);
+""" + _VECTORS + _FILL_FLAT
+
+
+def _between(src, start, end):
+    """The text of `src` from `start` up to (not including) `end`."""
+    i = src.index(start)
+    return src[i:src.index(end, i)]
+
+
+def probe_packed(record, B, device, smem, n_sm, build, rounds=6):
+    """Kernel 3 at the WBC shape: the shipped design against kernel 2 and
+    the patched designs (other loads, an L2 prefetch), in interleaved
+    rounds, each also with 0 iterations (the load alone), the shipped design
+    at g = 4, 8, 12, 16 scenarios per block, and on one wave of scenarios
+    (B = 132 x 16)."""
+    n, m, it = WBC
+    args = inputs(0, B, n, m, device)
+    lay = kernels.packed_layout(n, m, B, smem, n_sm,
+                                kernels.packed_slot_floats)
+    vlay = kernels.vpu_layout(n, m, B, smem, n_sm)
+    record("packed", what="chosen layout", path=lay.path, g=lay.g,
+           slot_floats=lay.slot_floats, vpu_geometry=vlay.geometry)
+
+    def launcher_of(lib, name):
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = kernels._LAUNCH_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        return fn
+
+    src = (_build.CSRC / "admm_packed.cu").read_text()
+    steps = _between(src, *PACKED_STEPS_1_2)
+    designs = {
+        "shipped": (launcher_of(kernels._library("admm_packed"),
+                                "admm_packed"), lay.geometry),
+        "kernel 2": (launcher_of(kernels._library("admm_vpu"), "admm_vpu"),
+                     vlay.geometry)}
+    variants = {
+        "per-warp cp.async.bulk + mbarrier": [
+            (steps, PACKED_BULK_STEPS_1_2)],
+        "L2 prefetch of the next wave": PACKED_L2_PREFETCH,
+        "kernel 2's per-warp loads": [
+            (_between(src, *PACKED_WHOLE_LOAD), PACKED_KERNEL2_LOAD)],
+        "block-staged 16-byte cp.async": PACKED_BLOCK_STAGED + [
+            (steps, PACKED_BLOCK_STEPS_1_2)]}
+    for name, subs in variants.items():
+        t0 = time.time()
+        try:
+            lib = build_variant(name, subs, build, source="admm_packed.cu")
+        except RuntimeError as e:
+            record("packed", design=name, error=str(e)[-2000:])
+            continue
+        designs[name] = (launcher_of(lib, "admm_packed"), lay.geometry)
+        record("packed", design=name, build_s=round(time.time() - t0, 1))
+
+    want = vpu_launch(designs["shipped"][0], args, it, lay.geometry)
+    torch.cuda.synchronize()
+    for name, (fn, geo) in designs.items():
+        got = vpu_launch(fn, args, it, geo)
+        torch.cuda.synchronize()
+        record("packed", design=name, what="max abs diff to shipped, "
+               "bit for bit = 0", err=max(float((a - b).abs().max())
+                                          for a, b in zip(got, want)))
+    cases = [(name, fn, geo, iters) for name, (fn, geo) in designs.items()
+             for iters in (it, 0)]
+    # the shipped design on one wave of scenarios (no next wave to prefetch)
+    one_wave = inputs(0, 132 * 16, n, m, device)
+    for g in (4, 8, 12, 16):
+        geo = (kernels.PACKED_PATHS["registers"], g, lay.ld, lay.slot_floats)
+        if geo != lay.geometry:
+            cases.append((f"shipped, g={g}", designs["shipped"][0], geo, it))
+    cases.append(("shipped, B=2112 (one wave)", designs["shipped"][0],
+                  lay.geometry, it))
+    times = {f"{c[0]}, iters={c[3]}": [] for c in cases}
+    for r in range(rounds):
+        order = cases if r % 2 == 0 else cases[::-1]
+        for name, fn, geo, iters in order:
+            src_args = one_wave if "one wave" in name else args
+            times[f"{name}, iters={iters}"].append(time_ms(
+                lambda: vpu_launch(fn, src_args, iters, geo), 2, 10))
+    for key, ts in times.items():
+        record("packed", design=key, rounds=[round(t, 6) for t in ts],
+               median_ms=float(np.median(ts)))
 
 
 def probe_mma(record, B, device, smem, n_sm, build):
@@ -759,7 +994,8 @@ def main() -> int:
     build = os.path.join(str(_build.build_dir()), "probe_kernel_designs")
     os.makedirs(build, exist_ok=True)
     B = a.batch
-    report = {"card": smi, "batch": B, "m2": [], "vpu": [], "layouts": [],
+    report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
+              "layouts": [],
               "variants": [], "cluster_phases": [], "fused": []}
 
     def record(kind, **row):
@@ -772,6 +1008,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "vpu" in a.kernels:
         probe_vpu(record, B, device, smem, n_sm, build)
+    if "packed" in a.kernels:
+        probe_packed(record, B, device, smem, n_sm, build)
     if "mma" in a.kernels:
         probe_mma(record, B, device, smem, n_sm, build)
     if "fused" in a.kernels:

@@ -85,3 +85,29 @@ def random_qp(seed, n=24, m=40, eq=True):
 def stacked(seeds, **kw):
     qps = [random_qp(s, **kw) for s in seeds]
     return [np.stack([qp[i] for qp in qps]) for i in range(5)]
+
+
+def build_packed_slot_floats(directory):
+    """packed_slot::slot_floats of mpctsid_tpu_torch/qp/csrc/packed_slot.h
+    (the count kernel 3's library exports as `admm_packed_slot_floats`),
+    built with the host compiler into `directory`; a ctypes function
+    (path, n, m) -> floats."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.qp import _build
+
+    d = Path(directory)
+    cc = d / "slot.cc"
+    cc.write_text('#include "packed_slot.h"\n'
+                  'extern "C" int slot_floats(int path, int n, int m)\n'
+                  '{ return packed_slot::slot_floats(path, n, m); }\n')
+    so = d / "libslot.so"
+    subprocess.run(["g++", "-std=c++17", "-shared", "-fPIC", "-O1", "-I",
+                    str(_build.CSRC), "-o", str(so), str(cc)], check=True)
+    fn = ctypes.CDLL(str(so)).slot_floats
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn
+

@@ -4,7 +4,9 @@
 `jax.vmap`, on the random QPs of tests/test_pallas_admm.py: backend "torch"
 against "xla", and the kernel backends "vpu", "packed", "mma" and "fused" (on
 the CPU: their plain versions) against "pallas_vpu", "pallas_packed", "pallas"
-and "fused" in Pallas interpret mode.
+and "fused" in Pallas interpret mode; the modes "inv", "exact_inv" and
+"cholesky", the KKT polish (also against the float64 oracle) and float64
+solves.
 """
 
 import numpy as np
@@ -87,16 +89,140 @@ def test_ok_is_per_scenario_with_one_poisoned_scenario():
     assert torch.equal(sol.y[keep], clean.y[keep])
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mode="inv"), "mode 'inv'"),
-    (dict(mode="exact_inv"), "mode 'exact_inv'"),
-    (dict(mode="cholesky"), "mode 'cholesky'"),
-    (dict(polish_kkt=True), "polish"),
-])
-def test_unported_options_raise_by_name(kw, match):
+@pytest.mark.parametrize("mode,eq", [("inv", False), ("exact_inv", True),
+                                     ("cholesky", True)])
+@pytest.mark.parametrize("seed", range(2))
+def test_admm_solve_modes_match_jax_xla(seed, mode, eq):
+    """The three reference modes against the JAX function's "xla" path on
+    the same QP.  "inv" (22 cold Newton-Schulz steps) is valid without
+    equality rows only, as in JAX.  The JAX package's budget between two of
+    its backends, x 1e-3 and y 1e-2 (measured: inv 5e-7, exact_inv 2.8e-4,
+    cholesky 2.1e-4 on x)."""
+    qp = random_qp(seed, eq=eq)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1, mode=mode)
+    s_j = jadmm.admm_solve(*[jj(a) for a in qp], backend="xla", **kw)
+    s_t = tadmm.admm_solve(*[tt(a)[None] for a in qp], backend="torch", **kw)
+    np.testing.assert_allclose(npy(s_t.x)[0], npy(s_j.x), atol=1e-3)
+    np.testing.assert_allclose(npy(s_t.y)[0], npy(s_j.y), atol=1e-2)
+    assert bool(s_t.ok[0]) == bool(s_j.ok)
+
+
+@pytest.mark.parametrize("backend", ["vpu", "packed", "mma", "m2"])
+@pytest.mark.parametrize("mode", ["inv", "exact_inv", "cholesky"])
+def test_kernel_backends_take_the_modes_as_jax_does(backend, mode,
+                                                    monkeypatch):
+    """As in JAX, the kernel backends iterate on the mode's inverse ("inv",
+    "exact_inv"; "m2" folds it into M2) and run "cholesky", which has no
+    inverse, on the plain loop: there bit for bit the plain backend.  On the
+    CPU the kernels' plain versions run (the kernel's wrapper is called, once
+    per adapt round); the side K is applied from and M2's rounding are the
+    only differences elsewhere (x within 1e-3)."""
+    calls = []
+
+    def counted(fn):
+        def wrapper(*a, **k):
+            calls.append(tuple(t.is_contiguous() for t in a))
+            return fn(*a, **k)
+        return wrapper
+
+    if backend == "m2":
+        monkeypatch.setattr(tadmm, "admm_iterate_m2",
+                            counted(tadmm.admm_iterate_m2))
+    else:
+        monkeypatch.setitem(tadmm._ITERATION_KERNELS, backend,
+                            counted(tadmm._ITERATION_KERNELS[backend]))
+    qp = [tt(a) for a in stacked(range(3), eq=False)]
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1, mode=mode)
+    s_k = tadmm.admm_solve(*qp, backend=backend, **kw)
+    s_p = tadmm.admm_solve(*qp, backend="torch", **kw)
+    if mode == "cholesky":
+        assert calls == []
+        assert torch.equal(s_k.x, s_p.x) and torch.equal(s_k.y, s_p.y)
+    else:
+        # every argument handed to the kernel is contiguous, as the kernel
+        # demands (torch.linalg.inv_ex returns column-major matrices)
+        assert len(calls) == 2 and all(all(c) for c in calls)
+        np.testing.assert_allclose(npy(s_k.x), npy(s_p.x), atol=1e-3)
+    assert s_k.ok.all()
+
+
+@pytest.mark.parametrize("eq", [True, False])
+@pytest.mark.parametrize("seed", range(3))
+def test_polish_matches_jax_and_the_float64_oracle(seed, eq):
+    """polish_kkt=True: two rounds of the active-set KKT polish after the
+    iterations.  Against the JAX polish on the same QP, and both against the
+    float64 oracle (mpctsid_tpu/oracle/qp.py), the bar the JAX package's MPC
+    tier is held to (1e-4, tests/test_mpc_jax.py).  Measured: port and JAX
+    4e-8 - 1.3e-7 apart, each 4e-8 - 9e-8 from the oracle; held to 1e-5."""
+    from mpctsid_tpu.oracle.qp import solve_qp
+    qp = random_qp(seed, eq=eq)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1, polish_kkt=True)
+    s_j = jadmm.admm_solve(*[jj(a) for a in qp], backend="xla", **kw)
+    s_t = tadmm.admm_solve(*[tt(a)[None] for a in qp], backend="torch", **kw)
+    oracle = solve_qp(*qp)
+    np.testing.assert_allclose(npy(s_t.x)[0], npy(s_j.x), atol=1e-5)
+    np.testing.assert_allclose(npy(s_t.x)[0], oracle.x, atol=1e-5)
+    np.testing.assert_allclose(npy(s_t.y)[0], oracle.y, atol=1e-3)
+    # the polish only ever replaces the iterate by a point with a smaller
+    # df32 KKT error: far below the unpolished solve's
+    s_u = tadmm.admm_solve(*[tt(a)[None] for a in qp], backend="torch",
+                           **{**kw, "polish_kkt": False})
+    assert (np.abs(npy(s_t.x)[0] - oracle.x).max()
+            < np.abs(npy(s_u.x)[0] - oracle.x).max())
+
+
+def test_polish_is_per_scenario_with_one_poisoned_scenario():
+    """A NaN problem flags ITS `ok` false; the batched LU and the acceptance
+    test leave the other scenarios bit for bit as a clean batch has them."""
+    qp = stacked(range(4), eq=True)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1, polish_kkt=True)
+    clean = tadmm.admm_solve(*[tt(a) for a in qp], **kw)
+    assert clean.ok.all()
+    poisoned = [a.copy() for a in qp]
+    poisoned[1][2, 5] = np.nan
+    sol = tadmm.admm_solve(*[tt(a) for a in poisoned], **kw)
+    assert sol.ok.tolist() == [True, True, False, True]
+    keep = [0, 1, 3]
+    assert torch.equal(sol.x[keep], clean.x[keep])
+    assert torch.equal(sol.y[keep], clean.y[keep])
+
+
+def test_float64_solve_stays_float64_and_matches_jax_x64():
+    """backend "torch" on float64 QPs computes in float64 throughout, as the
+    JAX function does under x64 (toggled back in `finally`).  With the polish
+    both land on the float64 oracle's solution; they agree to 1e-9."""
+    from mpctsid_tpu.oracle.qp import solve_qp
+    qp = random_qp(4, eq=True)
+    kw = dict(iters=60, adapt_rounds=2, rho=0.1, polish_kkt=True)
+    s_t = tadmm.admm_solve(*[torch.tensor(a, dtype=torch.float64)[None]
+                             for a in qp], backend="torch", **kw)
+    assert s_t.x.dtype == torch.float64 and s_t.prim_res.dtype == torch.float64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        s_j = jadmm.admm_solve(*[jax.numpy.asarray(a, jax.numpy.float64)
+                                 for a in qp], backend="xla", **kw)
+        x_j = np.asarray(s_j.x)
+        assert x_j.dtype == np.float64
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    np.testing.assert_allclose(npy(s_t.x)[0], x_j, atol=1e-9)
+    np.testing.assert_allclose(npy(s_t.x)[0], solve_qp(*qp).x, atol=1e-8)
+
+
+@pytest.mark.parametrize("backend", ["vpu", "packed", "mma", "m2", "fused"])
+def test_kernel_backends_refuse_float64(backend):
+    """The kernels take float32 only: a float64 QP raises TypeError, never a
+    quiet cast (on the CPU the same check runs before the plain version)."""
+    qp = [torch.tensor(a, dtype=torch.float64) for a in stacked(range(2),
+                                                                eq=False)]
+    with pytest.raises(TypeError, match="float32"):
+        tadmm.admm_solve(*qp, iters=10, backend=backend)
+
+
+def test_unknown_mode_raises():
     qp = [tt(a)[None] for a in random_qp(0)]
-    with pytest.raises(NotImplementedError, match=match):
-        tadmm.admm_solve(*qp, **kw)
+    with pytest.raises(ValueError, match="unknown mode"):
+        tadmm.admm_solve(*qp, mode="lu")
 
 
 def test_unknown_backend_and_unbatched_input_raise():

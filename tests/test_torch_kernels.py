@@ -21,7 +21,8 @@ from mpctsid_tpu.qp.pallas_kernels import admm_iterate_m2_packed_batch
 from mpctsid_tpu_torch.qp import admm as tadmm
 from mpctsid_tpu_torch.qp import kernels as tk
 
-from _torch_port_util import jj, npy, random_qp, stacked, tt
+from _torch_port_util import (build_packed_slot_floats, jj, npy, random_qp,
+                             stacked, tt)
 
 
 def m2_inputs(seed, B=4, n=24, m=40):
@@ -402,22 +403,30 @@ def test_argument_checks_accept_good_arguments_and_refuse_bad_counts():
         tk.admm_solve_fused(*good, **dict(FUSED_KW, equilibrate_iters=-1))
 
 
-def test_packed_layout_choice():
-    """G from the bytes: what fits of the block's shared memory, at most 16,
-    no more than spreads the batch over the multiprocessors; an odd row
-    stride; a scenario that does not fit is refused with the reason."""
+def test_packed_layout_choice(tmp_path):
+    """n <= 32: the register path, A at the row stride 36, the slot the
+    kernel's own count (packed_slot.h); g what fits of the block's shared
+    memory, at most MAX_PACKED_REG_SLOTS (measured fastest: PERF.md),
+    no more than spreads the batch over the multiprocessors.  Larger n: the
+    shared path with an odd row stride.  A scenario that does not fit is
+    refused with the reason."""
+    slot_floats = build_packed_slot_floats(tmp_path)
     smem, n_sm = 232448, 132
-    g, ld, slot = tk.packed_layout(30, 50, 4096, smem, n_sm)
-    assert (ld, slot) == (31, 110 * 31 + 150 + 350)
-    assert g == smem // (4 * slot) == 14
-    assert tk.packed_layout(30, 50, 64, smem, n_sm)[0] == 1
-    assert tk.packed_layout(30, 50, 400, smem, n_sm)[0] == 4
-    assert tk.packed_layout(8, 12, 100000, smem, n_sm)[0] == 16
-    assert tk.packed_layout(24, 40, 1, smem, n_sm) == (1, 25, 88 * 25 + 400)
-    for n in (1, 7, 24, 30, 31, 64):
-        assert tk.packed_layout(n, 2 * n, 5, smem, n_sm)[1] % 2 == 1
+
+    def lay(n, m, B):
+        return tk.packed_layout(n, m, B, smem, n_sm, slot_floats)
+
+    assert lay(30, 50, 4096) == tk.PackedLayout("registers", 4, 128, 36,
+                                                2364)
+    assert lay(30, 50, 64).g == 1 and lay(30, 50, 400).g == 4
+    assert lay(8, 12, 100000).g == tk.MAX_PACKED_REG_SLOTS == 4
+    assert lay(24, 40, 1) == tk.PackedLayout(
+        "registers", 1, 32, 36, 40 * 36 + 4 * 32 + 7 * 40)
+    for n in (33, 40, 64):
+        got = lay(n, 2 * n, 5)
+        assert got.path == "shared" and got.ld == n | 1 and got.ld % 2 == 1
     with pytest.raises(ValueError, match="shared memory"):
-        tk.packed_layout(192, 320, 8, smem, n_sm)
+        lay(192, 320, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The layout functions of the redesigned kernels 1, 2, 4 and 5 (pure Python).
+"""The layout functions of the redesigned kernels 1-5 (pure Python).
 
-`m2_layout`, `vpu_layout`, `fused_layout` and `mma_layout`
+`m2_layout`, `vpu_layout`, `packed_layout`, `fused_layout` and `mma_layout`
 (mpctsid_tpu_torch/qp/kernels.py) decide,
 from (B, n, m), a block's shared-memory limit and the number of
 multiprocessors (kernel 1: from n, m and the shared-memory limit alone),
@@ -8,11 +8,16 @@ which path a launch takes and with what geometry; the CUDA
 launchers recompute the sizes and refuse a mismatch.  These tests hold the
 decisions at the shapes the port runs, on the H100's limits (232,448 bytes of
 shared memory per block, 132 multiprocessors).  No kernel runs here.
+Kernel 3's slot sizes come from the kernel's own count
+(qp/csrc/packed_slot.h), built here with the host compiler as its library
+exports it on the card.
 """
 
 import pytest
 
 from mpctsid_tpu_torch.qp import kernels as tk
+
+from _torch_port_util import build_packed_slot_floats
 
 SMEM, N_SM = 232448, 132
 WBC, TEST, MPC = (30, 50), (24, 40), (192, 320)
@@ -367,3 +372,77 @@ def test_vpu_block_path_when_too_few_slots_fit():
     assert tk.vpu_layout(30, 600, 8, SMEM, N_SM).path == "block"
     # and on a device with little shared memory
     assert tk.vpu_layout(*WBC, 4096, 32 * 1024, N_SM).path == "block"
+
+
+# ------------------------------------------------------------------ kernel 3
+
+@pytest.fixture(scope="module")
+def slot_floats(tmp_path_factory):
+    """packed_slot::slot_floats of qp/csrc/packed_slot.h, the count that
+    admm_packed.cu exports as `admm_packed_slot_floats`, built with g++."""
+    return build_packed_slot_floats(tmp_path_factory.mktemp("packed_slot"))
+
+
+REGS, SHARED = tk.PACKED_PATHS["registers"], tk.PACKED_PATHS["shared"]
+
+
+@pytest.mark.parametrize("n,m", [WBC, TEST, (32, 50), (7, 12), (1, 3)],
+                         ids=["wbc", "test", "n32", "small", "n1"])
+@pytest.mark.parametrize("B", [1, 37, 531, 4096])
+def test_packed_small_n_takes_the_register_path(n, m, B, slot_floats):
+    lay = tk.packed_layout(n, m, B, SMEM, N_SM, slot_floats)
+    assert lay.path == "registers" and lay.ld == tk.PACKED_REG_LD == 36
+    assert lay.ld % 8 == 4
+    # A's region: A at stride 36 or, while they pass through, K^-1 and K
+    # at the odd stride n | 1, whichever is larger; then rhs, x_a, r, x_t
+    # (32 each) and 7 m-vectors: the kernel's own count
+    mp = _round4(m)
+    stage = 2 * _round4(n * (n | 1))
+    assert lay.slot_floats == max(mp * 36, stage) + 4 * 32 + 7 * mp
+    assert lay.slot_floats == slot_floats(REGS, n, m)
+    assert lay.slot_floats % 4 == 0         # 16-byte aligned slots
+    fit = SMEM // (4 * lay.slot_floats)
+    assert 1 <= lay.g <= min(tk.MAX_PACKED_REG_SLOTS, fit)
+    assert lay.g <= max(1, -(-B // N_SM))
+    assert lay.threads == 32 * lay.g
+    blocks = -(-B // lay.g)
+    assert (blocks - 1) * lay.g < B <= blocks * lay.g
+    assert lay.geometry == (REGS, lay.g, 36, lay.slot_floats)
+
+
+def test_packed_register_slot_at_the_wbc_shape_is_kernel_2s(slot_floats):
+    """Kernels 2 and 3 run the same loop on the same slot: at n = 30,
+    m = 50 the two staged matrices (2 x 30 rows of 31 floats) fit in A's 52
+    rows of 36, so the slot is kernel 2's to the float."""
+    lay = tk.packed_layout(*WBC, 4096, SMEM, N_SM, slot_floats)
+    vlay = tk.vpu_layout(*WBC, 4096, SMEM, N_SM)
+    assert lay.slot_floats == vlay.slot_floats == 2364
+    assert (lay.path, lay.g) == ("registers", tk.MAX_PACKED_REG_SLOTS)
+    # where A is short, the staging area sets the region (n = 32, m = 4)
+    assert slot_floats(REGS, 32, 4) == 2 * 1056 + 4 * 32 + 7 * 4
+
+
+@pytest.mark.parametrize("n,m", [(33, 55), (40, 60), (48, 30)])
+def test_packed_larger_n_takes_the_shared_path(n, m, slot_floats):
+    lay = tk.packed_layout(n, m, 8, SMEM, N_SM, slot_floats)
+    assert lay.path == "shared" and lay.ld == n | 1
+    assert slot_floats(REGS, n, m) == -1       # no register path past 32
+    # K^-1, K, A at the odd stride, 5 n + 7 m vector entries
+    assert lay.slot_floats == (2 * n + m) * (n | 1) + 5 * n + 7 * m
+    assert lay.slot_floats == slot_floats(SHARED, n, m)
+    assert 1 <= lay.g <= tk.MAX_PACKED_SHARED_SLOTS
+    assert lay.geometry == (SHARED, lay.g, n | 1, lay.slot_floats)
+
+
+def test_packed_n33_edge(slot_floats):
+    lay = tk.packed_layout(33, 55, 8, SMEM, N_SM, slot_floats)
+    assert (lay.path, lay.ld, lay.slot_floats, lay.g) == (
+        "shared", 33, 4543, 1)      # B = 8 over 132 multiprocessors
+
+
+def test_packed_mpc_shape_is_refused_with_the_reason(slot_floats):
+    with pytest.raises(ValueError, match="shared memory") as e:
+        tk.packed_layout(*MPC, 8, SMEM, N_SM, slot_floats)
+    need = 4 * slot_floats(SHARED, *MPC)
+    assert str(need) in str(e.value) and need > SMEM
+    assert "admm_iterate_vpu" in str(e.value)

@@ -5,6 +5,7 @@ swing references and an MPC force plan.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -220,3 +221,116 @@ def test_solve_wbc_kernel_backends_raise_by_name(ticks):
     with pytest.raises(ValueError, match="unknown backend"):
         ttsid.solve_wbc(TTREE, CFG.wbc, tt(q), tt(v), _trefs(refs),
                         backend="cublas")
+
+
+# ---------------------------------------------------- the float64 parity tier
+
+N_ORACLE_TICKS = 12
+
+
+@pytest.fixture(scope="module")
+def oracle_ticks():
+    """(q, v, refs, oracle_tau) of the first ticks of the float64 oracle
+    cascade's trot from standing (tests/test_wbc_jax.py's fixture, cut to
+    N_ORACLE_TICKS ticks), numpy float64."""
+    import mpctsid_tpu.oracle.cascade as ocas
+    from mpctsid_tpu.oracle.cascade import OracleController
+    from mpctsid_tpu.oracle.sim import SimState, step as o_step
+
+    captured = []
+    orig = ocas.solve_wbc
+
+    def hook(tree, cfgw, q, v, refs, **kw):
+        out = orig(tree, cfgw, q, v, refs, **kw)
+        captured.append((q.copy(), v.copy(), refs, out[0].copy()))
+        return out
+
+    ocas.solve_wbc = hook
+    try:
+        q0 = np.zeros(19)
+        q0[2] = J_SOLO12.h_ref
+        q0[6] = 1.0
+        q0[7:] = J_SOLO12.q_stand
+        ctl = OracleController(J_SOLO12, JCFG, q0)
+        sim = SimState.init(q0)
+        for _ in range(N_ORACLE_TICKS):
+            cmd, _ = ctl.compute(sim.q, sim.v)
+            sim, _ = o_step(JTREE, sim, cmd.torque(sim.q[7:], sim.v[6:]))
+    finally:
+        ocas.solve_wbc = orig
+    return captured
+
+
+def _refs64(refs_list):
+    """Oracle WbcRefs of several ticks -> the port's, float64, batched."""
+    return ttsid.WbcRefs(**{k: torch.tensor(np.stack(
+        [np.asarray(getattr(r, k), np.float64) for r in refs_list]))
+        for k in FIELDS})
+
+
+def _tier64(q, v, refs, wx, wy):
+    """The port's float64 tier on a batch of ticks: solve_wbc(polish=True)
+    on float64 QPs with WBC_PARITY_SOLVER's budget, warm-started."""
+    from mpctsid_tpu_torch.config import WBC_PARITY_SOLVER as TIER
+
+    return ttsid.solve_wbc(
+        TTREE, CFG.wbc, torch.tensor(q), torch.tensor(v), refs,
+        iters=TIER.wbc_iters, adapt_rounds=TIER.wbc_adapt_rounds,
+        warm_x=wx, warm_y=wy, backend="torch", polish=True)
+
+
+def test_wbc_parity_tier_float64_under_1e4_of_the_oracle(oracle_ticks):
+    """The NAMED WBC tier (config.py WBC_PARITY_SOLVER) as
+    tests/test_wbc_jax.py holds the JAX package: float64 island, warm-started
+    tick to tick, polished, under 1e-4 tau_max (2.7e-4 Nm) against the
+    oracle cascade's torques, mean and max (the max under 1e-4 Nm, ~4x the
+    JAX package's measured 2.5e-5).  The port's float64 solve runs the same
+    arithmetic; everything it computes stays float64.  Measured over these
+    12 ticks: mean 1.5e-5, max 2.0e-5 Nm."""
+    errs = []
+    wx = wy = None
+    for q, v, refs, o_tau in oracle_ticks:
+        tau, _, _, sol = _tier64(q[None], v[None], _refs64([refs]), wx, wy)
+        assert tau.dtype == torch.float64 and sol.x.dtype == torch.float64
+        assert bool(sol.ok.all())
+        wx, wy = sol.x, sol.y
+        errs.append(np.abs(npy(tau)[0] - o_tau).max())
+    errs = np.asarray(errs)
+    assert errs.mean() < 1e-4 * CFG.wbc.tau_max, errs
+    assert errs.max() < 1e-4, errs
+
+
+def test_wbc_parity_tier_float64_matches_jax_x64(oracle_ticks):
+    """Four of those ticks at once, cold-started, against the JAX package's
+    float64 build and solve under x64 (toggled back in `finally`), one tick
+    at a time: two float64 runs of the same algorithm agree to 1e-8 Nm
+    (measured 3.9e-12)."""
+    from mpctsid_tpu.config import WBC_PARITY_SOLVER as JTIER
+    from mpctsid_tpu.qp.admm import admm_solve as j_admm
+
+    picks = [oracle_ticks[k] for k in (0, 3, 7, 11)]
+    q = np.stack([p[0] for p in picks])
+    v = np.stack([p[1] for p in picks])
+    tau_t = npy(_tier64(q, v, _refs64([p[2] for p in picks]), None,
+                        None)[0])
+    jax.config.update("jax_enable_x64", True)
+    try:
+        f64 = jax.numpy.float64
+        solve = jax.jit(lambda H, g, A, l, u: j_admm(
+            H, g, A, l, u, iters=JTIER.wbc_iters,
+            adapt_rounds=JTIER.wbc_adapt_rounds, rho=JTIER.rho,
+            status_tol=0.5, polish_kkt=True))
+        tau_j = []
+        for qk, vk, refs, _ in picks:
+            H, g, A, l, u, Mm, h, JcT = jtsid.build_wbc_qp(
+                JTREE, JCFG.wbc, jax.numpy.asarray(qk, f64),
+                jax.numpy.asarray(vk, f64),
+                jtsid.WbcRefs(*[jax.numpy.asarray(np.asarray(getattr(refs, f)),
+                                                  f64) for f in FIELDS]))
+            x = np.asarray(solve(H, g, A, l, u).x)
+            assert x.dtype == np.float64
+            tau_j.append(np.asarray(Mm)[6:] @ x[:18] + np.asarray(h)[6:]
+                         - np.asarray(JcT)[6:] @ x[18:])
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    np.testing.assert_allclose(tau_t, np.stack(tau_j), atol=1e-8, rtol=0)
