@@ -87,6 +87,26 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               WBC parity tier (WBC_PARITY_SOLVER's budget, warm-started,
               polished) at B = 4096 on a mid-gait tick, against the same
               call on the CPU
+  9. host     the single-robot deployment path (host.py, B = 1, full
+              Solo-12): a HostController per (MPC, WBC) backend pair (kernel
+              1 with each WBC backend, kernel 5 on both stages) captures its
+              four CUDA graphs (boundary, MPC, swing reference, WBC); over
+              two periods on the plant, every replay is held against the
+              same function run eagerly on the card (outputs and the warm
+              starts it writes); the profiler counts the port's kernels in
+              one replay of each graph (kernel 1 twice per MPC replay, the
+              WBC backend's kernel once or three times per WBC replay);
+              replay times; then 0.6 s of closed loop, sync on the plain
+              and the fused WBC (upright, forward progress, plans consumed,
+              WBC ok >= 0.99, no kernel launched outside the graphs, the
+              telemetry ring holding every tick's torques) and async
+              (planner thread on its own stream), with compute()'s p50 and
+              p99 against the 2 ms budget (printed, not a gate)
+  10. shard   a one-rank NCCL group runs sharded_cascade_rollout at
+              B = 1024 for one period: its all-reduced summary against the
+              same reductions of an unsharded cascade_rollout; entry()'s
+              cascade period on the card; dryrun_multichip refuses more
+              ranks than cards
 
 The line before the last is one JSON object describing every kernel of the
 path; the last line is {"ok": true, "device": {...}}.
@@ -94,6 +114,7 @@ path; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -107,8 +128,12 @@ import torch
 from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
                                        engine, init_controller)
 from mpctsid_tpu_torch.config import PRESETS, WBC_PARITY_SOLVER, EngineConfig
-from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
+from mpctsid_tpu_torch.dist import (init_scenario_group, scenario_summary,
+                                    sharded_cascade_rollout)
+from mpctsid_tpu_torch.entry import dryrun_multichip, entry
+from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
 from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
+from mpctsid_tpu_torch.host import HostController
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, solve_mpc_batch
@@ -118,6 +143,7 @@ from mpctsid_tpu_torch.qp.precision import residual_matvec
 from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, run_sweep,
                                      summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
+from mpctsid_tpu_torch.utils.graphs import CapturedCall
 from mpctsid_tpu_torch.wbc.tsid import WbcRefs, solve_wbc
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of the
@@ -176,6 +202,24 @@ DF32_GAIN = 100.0
 # (1e-4 tau_max = 2.7e-4 Nm): no difference that passes can move the tier.
 WBC_TIER_CPU_TOL = 1e-6
 REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
+# Phase 9.  A graph replays the kernels and ops its eager run launched, on
+# the same inputs: the same bits are expected; 1e-6 is the bar if a library
+# picks another summation order under capture.
+GRAPH_TOL = 1e-6
+HOST_SECONDS = 0.6         # simulated time of each closed-loop host run
+TICK_BUDGET_MS = 2.0       # p50 single-tick latency at B = 1 (BASELINE.json:2)
+# (MPC backend, WBC backend) of the captured host controllers: every WBC
+# backend, the MPC on kernel 1 (the default) and on kernel 5
+HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
+                 ("auto_mpc", "packed"), ("auto_mpc", "fused"),
+                 ("pallas", "pallas"))
+# name prefix of each kernel's __global__ functions, for the profiler
+KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
+                 "admm_iterate_vpu": "admm_vpu_",
+                 "admm_iterate_vpu_packed": "admm_packed_",
+                 "admm_solve_fused": "admm_fused_",
+                 "admm_iterate": "admm_mma_"}
+SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 FAILURES: list[str] = []
 
 
@@ -954,6 +998,320 @@ def accuracy_tiers(smi: str, device) -> None:
           "CPU, every scenario")
 
 
+# ------------------------------------------------- the single-robot host path
+
+def host_cfg(mpc_backend: str, wbc_backend: str) -> EngineConfig:
+    cfg = EngineConfig(gait="trot", v_ref=(0.25, 0.0, 0.0))
+    return dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, mpc_backend=mpc_backend, wbc_backend=wbc_backend))
+
+
+def backend_tag(mpc_backend: str, wbc_backend: str) -> str:
+    return f"mpc {mpc_backend}, wbc {wbc_backend}"
+
+
+class AgainstEager:
+    """Stands in for one of HostController's captured calls: every call
+    replays the graph, then runs the same function eagerly on the card from
+    the same static inputs, and keeps the largest difference of the outputs
+    and of the state the call writes in place (the warm starts)."""
+
+    def __init__(self, call):
+        self.call = call
+        self.max_diff = 0.0
+        self.calls = 0
+
+    def __call__(self, **new_values):
+        call = self.call
+        for key, value in new_values.items():
+            call.inputs[key].copy_(value)
+        before = {k: t.clone() for k, t in call.inputs.items()}
+        graph_out = call().clone()
+        graph_after = {k: t.clone() for k, t in call.inputs.items()}
+        for key, t in call.inputs.items():
+            t.copy_(before[key])
+        eager_out = call.fn(**call.inputs)
+        diffs = [float((graph_out - eager_out).abs().max())] + [
+            float((graph_after[k] - call.inputs[k]).abs().max())
+            for k in call.inputs]
+        # NaN compares False: count it as a failed comparison
+        self.max_diff = max([self.max_diff] + [
+            d if d == d else float("inf") for d in diffs])
+        self.calls += 1
+        return eager_out
+
+
+def standing_q0():
+    return standing(1)[0]
+
+
+class GraphPlant:
+    """The SimPlant of the host runs with its step captured as one CUDA
+    graph (`CapturedCall`): the plant is the test bed, not the controller
+    under test, and stepped eagerly it would take most of the phase's time
+    (tens of ms a tick at B = 1).  read() -> (q, v) numpy; apply(tau)."""
+
+    def __init__(self, tree, q0, device):
+        from mpctsid_tpu_torch.env.interface import SimPlant
+
+        sim = SimPlant(tree, q0, device=device)
+        st = sim.state
+
+        def step(q, v, anchor, in_contact, tau):
+            new, _ = plant_step(tree, PlantState(q, v, anchor, in_contact),
+                                tau, dt=sim.dt, params=sim.params)
+            for old, t in zip((q, v, anchor, in_contact),
+                              (new.q, new.v, new.anchor, new.in_contact)):
+                old.copy_(t)
+            return q
+
+        self.q, self.v = st.q, st.v
+        self._step = CapturedCall(
+            step, dict(q=st.q, v=st.v, anchor=st.anchor,
+                       in_contact=st.in_contact,
+                       tau=torch.zeros((1, 12), device=device)),
+            device, "plant step")
+
+    def read(self):
+        return self.q[0].cpu().numpy(), self.v[0].cpu().numpy()
+
+    def apply(self, tau) -> None:
+        self._step(tau=torch.as_tensor(tau).reshape(1, 12))
+
+
+def drive_host(ctl, seconds: float, device, settle: float = 0.0):
+    """Closed loop of `ctl` on the plant on the card: returns (min z, final
+    x, compute() wall seconds per tick, which ticks were period
+    boundaries, the returned torques)."""
+    cfg = ctl.cfg
+    plant = GraphPlant(ctl.tree, standing_q0(), device)
+    n = int(round(seconds / cfg.cascade.wbc_dt))
+    zs, xs, walls, taus = [], [], [], []
+    try:
+        for k in range(n):
+            q, v = plant.read()
+            t0 = time.perf_counter()
+            tau = ctl.compute(q, v)
+            walls.append(time.perf_counter() - t0)
+            plant.apply(tau)
+            if settle:
+                time.sleep(settle)
+            zs.append(float(q[2]))
+            xs.append(float(q[0]))
+            taus.append(tau)
+    finally:
+        ctl.close()
+    boundary = np.arange(n) % cfg.cascade.mpc_every == 0
+    return min(zs), xs[-1], np.asarray(walls), boundary, np.stack(taus)
+
+
+def latency_line(walls, boundary) -> str:
+    ms = walls * 1e3
+    return (f"compute() p50 {np.percentile(ms, 50):.3f} ms, p99 "
+            f"{np.percentile(ms, 99):.3f} ms over {ms.size} ticks; period "
+            f"boundaries (MPC) p50 {np.percentile(ms[boundary], 50):.3f} ms, "
+            f"p99 {np.percentile(ms[boundary], 99):.3f} ms; other ticks p50 "
+            f"{np.percentile(ms[~boundary], 50):.3f} ms")
+
+
+def kernels_per_replay(call) -> tuple[dict, int, dict, float]:
+    """Of ONE replay of a captured call, as the profiler sees it: ({kernel
+    prefix: launches}, device kernels in all, {kernel prefix: device ms},
+    device busy ms: the sum of every kernel's time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+    port_ms = dict.fromkeys(KERNEL_PREFIX.values(), 0.0)
+    total, busy_ms = 0, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        total += 1
+        busy_ms += ms
+        for prefix in counts:
+            # the profiler's names are demangled signatures ("void name(...)")
+            if prefix in e.name:
+                counts[prefix] += 1
+                port_ms[prefix] += ms
+    return counts, total, port_ms, busy_ms
+
+
+def host_graphs(smi: str, device) -> None:
+    """9a: every captured call against its eager run; 9b: the kernels in
+    each replay; the replay times."""
+    for mpc_backend, wbc_backend in HOST_BACKENDS:
+        tag = backend_tag(mpc_backend, wbc_backend)
+        cfg = host_cfg(mpc_backend, wbc_backend)
+        t0 = time.time()
+        ctl = HostController(SOLO12, cfg, standing_q0(), device=device)
+        capture_s = time.time() - t0
+        attrs = {"boundary": "_boundary", "mpc": "_mpc",
+                 "swing": "_swing_ref", "wbc": "_wbc"}
+        calls = {name: getattr(ctl, a) for name, a in attrs.items()}
+        compared = {name: AgainstEager(c) for name, c in calls.items()}
+        for name, a in attrs.items():
+            setattr(ctl, a, compared[name])
+        periods = 2
+        zmin, _, _, _, _ = drive_host(
+            ctl, periods * cfg.cascade.mpc_every * cfg.cascade.wbc_dt, device)
+        diffs = {k: c.max_diff for k, c in compared.items()}
+        print(f"  {tag}: 4 graphs captured in {capture_s:.2f} s; "
+              f"{periods} periods on the plant, each replay against the "
+              f"eager run: max |diff| {diffs} (calls "
+              f"{ {k: c.calls for k, c in compared.items()} })", flush=True)
+        check(all(d <= GRAPH_TOL for d in diffs.values())
+              and compared["mpc"].calls == periods
+              and compared["wbc"].calls == periods * cfg.cascade.mpc_every
+              and zmin > 0.15,
+              f"{tag}: every graph replay within {GRAPH_TOL} of its eager "
+              "run on the card")
+        # 9b: the kernels inside one replay of each graph
+        mpc_kernel = KERNEL_PREFIX[MPC_KERNEL_OF[mpc_backend]]
+        wbc_name = WBC_KERNEL_OF.get(wbc_backend)
+        per = {}
+        for name, call in calls.items():
+            per[name] = kernels_per_replay(call)
+        times = {name: time_ms(call, 3, 20) for name, call in calls.items()}
+        launched = {k: ({p: c for p, c in v[0].items() if c}, v[1])
+                    for k, v in per.items()}
+        device_ms = {k: ({p: round(t, 4) for p, t in v[2].items() if t},
+                         round(v[3], 4)) for k, v in per.items()}
+        print(f"    kernels per replay (port's, all): {launched}", flush=True)
+        print(f"    device ms per replay (port's kernels, busy in all): "
+              f"{device_ms}", flush=True)
+        print(f"    replay ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+              + f"  [{smi}]", flush=True)
+        want_mpc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        want_mpc[mpc_kernel] = cfg.solver.mpc_adapt_rounds
+        want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        if wbc_name is not None:
+            want_wbc[KERNEL_PREFIX[wbc_name]] = (
+                1 if wbc_backend == "fused" else cfg.solver.wbc_adapt_rounds)
+        check(per["mpc"][0] == want_mpc,
+              f"{tag}: one MPC replay launches {want_mpc}")
+        check(per["wbc"][0] == want_wbc,
+              f"{tag}: one WBC replay launches {want_wbc}")
+        none = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        check(per["boundary"][0] == none and per["swing"][0] == none,
+              f"{tag}: the boundary and swing graphs launch no QP kernel")
+        del ctl, calls, compared
+        torch.cuda.empty_cache()
+
+
+def host_closed_loop(smi: str, device) -> None:
+    """9c-9e: the sync and async controllers in closed loop on the card."""
+    seconds = HOST_SECONDS
+    sync_lines = {}
+    for mpc_backend, wbc_backend in (("auto_mpc", "xla"),
+                                     ("auto_mpc", "fused")):
+        tag = backend_tag(mpc_backend, wbc_backend)
+        cfg = host_cfg(mpc_backend, wbc_backend)
+        reset_launch_counts()
+        ctl = HostController(SOLO12, cfg, standing_q0(), device=device,
+                             telemetry=True)
+        at_capture = launch_counts()
+        zmin, x_end, walls, boundary, taus = drive_host(ctl, seconds, device)
+        counts = launch_counts()
+        rec = ctl.drain_telemetry(8192)
+        ok_frac = float(rec[:, 2].mean()) if len(rec) else 0.0
+        line = latency_line(walls, boundary)
+        sync_lines[tag] = line
+        print(f"  sync, {tag}: {seconds} s simulated: min z {zmin:.4f} m, "
+              f"x {x_end:+.4f} m, plan_period {ctl.plan_period}, wbc ok "
+              f"{ok_frac:.4f}; {line} (budget {TICK_BUDGET_MS} ms p50, not a "
+              f"gate)  [{smi}]", flush=True)
+        print(f"    launch counts after capture {at_capture}, after the run "
+              f"{counts}", flush=True)
+        check(zmin > 0.15 and x_end > 0.05 and ctl.plan_period > 0
+              and ok_frac >= 0.99,
+              f"sync, {tag}: upright (min z > 0.15), forward progress, plans "
+              "consumed, wbc ok fraction >= 0.99")
+        check(counts == at_capture,
+              f"sync, {tag}: no kernel launched outside the graphs while "
+              "running (counts unchanged since capture)")
+        # 9e: the telemetry ring
+        check(rec.shape == (len(taus), HostController.TELEM_LEN)
+              and np.array_equal(rec[:, 0], np.arange(len(taus),
+                                                      dtype=np.float32))
+              and np.array_equal(rec[:, 3:], taus)
+              and ctl._telem.dropped == 0,
+              f"sync, {tag}: telemetry holds one record per tick with the "
+              "returned torques, none dropped")
+        del ctl
+        torch.cuda.empty_cache()
+
+    for mpc_backend, wbc_backend in (("auto_mpc", "xla"),
+                                     ("auto_mpc", "fused")):
+        tag = backend_tag(mpc_backend, wbc_backend)
+        ctl = HostController(SOLO12, host_cfg(mpc_backend, wbc_backend),
+                             standing_q0(), device=device, async_mpc=True)
+        zmin, x_end, walls, boundary, _ = drive_host(ctl, seconds, device,
+                                                     settle=0.0005)
+        print(f"  async, {tag}: min z {zmin:.4f} m, x {x_end:+.4f} m, "
+              f"plan_period {ctl.plan_period}; "
+              f"{latency_line(walls, boundary)}  [{smi}]", flush=True)
+        print(f"    sync beside it: {sync_lines[tag]}", flush=True)
+        check(zmin > 0.15 and ctl.plan_period > 0,
+              f"async, {tag}: upright, plans published by the planner "
+              "thread consumed")
+        del ctl
+        torch.cuda.empty_cache()
+
+
+def sharded_path(smi: str, device) -> None:
+    """10: a one-rank NCCL group runs the sharded rollout; its summary
+    against the same reductions of an unsharded rollout; entry()."""
+    import torch.distributed as dist
+
+    cfg = PRESETS["config2_gait_sweep"]
+    with tempfile.TemporaryDirectory() as tmp:
+        group = init_scenario_group(device, f"file://{tmp}/store", 0, 1)
+        try:
+            cc, ctl, plant, gid, _, cp = make_scenarios(cfg, SHARD_B, seed=3,
+                                                        device=device)
+            v = varied_commands(SHARD_B, seed=3)
+            run = sharded_cascade_rollout(cc, 1, group=group, device=device)
+            (_, plant_s, met_s, summary), wall = timed(
+                lambda: run(ctl, plant, gid, v, cp))
+            _, plant_u, met_u = cascade_rollout(cc, ctl, plant, gid, v, cp,
+                                                n_periods=1, device=device)
+        finally:
+            dist.destroy_process_group()
+    want = scenario_summary(met_u, lambda t, op: t)
+    diffs = {k: abs(float(summary[k]) - float(want[k])) for k in want}
+    same_q = torch.equal(plant_s.q, plant_u.q)
+    print(f"  NCCL, 1 rank, B={SHARD_B}, 1 period in {wall:.2f} s: summary "
+          + ", ".join(f"{k} {float(t):.6g}" for k, t in summary.items())
+          + f"; |sharded - unsharded| {diffs}; plant q bit for bit "
+          f"{same_q}  [{smi}]", flush=True)
+    check(set(summary) == set(want) and all(d == 0.0 for d in diffs.values())
+          and int(summary["n_total"]) == SHARD_B,
+          "sharded rollout: the all-reduced summary equals the reductions of "
+          "the unsharded rollout")
+    fn, args = entry(device=device)
+    x = fn(*args)
+    torch.cuda.synchronize()
+    print(f"  entry(): x_srb {tuple(x.shape)}, finite "
+          f"{bool(torch.isfinite(x).all())}", flush=True)
+    check(tuple(x.shape) == (8, 12) and bool(torch.isfinite(x).all()),
+          "entry(): one cascade period on the card, finite output")
+    try:
+        dryrun_multichip(torch.cuda.device_count() + 1, device=device)
+        refused = False
+    except RuntimeError as e:
+        refused = "cards" in str(e)
+    check(refused, "dryrun_multichip(n, 'cuda') with fewer than n cards "
+                   "raises")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1424,6 +1782,21 @@ def main() -> int:
           flush=True)
     accuracy_tiers(smi, device)
     torch.cuda.empty_cache()
+
+    # ---- 9. the single-robot deployment path -------------------------------
+    t_host = time.time()
+    print("== 9a/9b. host controller (B=1): each captured graph against its "
+          "eager run, the kernels in each replay", flush=True)
+    host_graphs(smi, device)
+    print(f"== 9c-9e. host controller in closed loop on a SimPlant, "
+          f"{HOST_SECONDS} s: sync, async, telemetry", flush=True)
+    host_closed_loop(smi, device)
+
+    # ---- 10. the sharded rollout and the entry twins -----------------------
+    print("== 10. sharded rollout on a one-rank NCCL group; entry()",
+          flush=True)
+    sharded_path(smi, device)
+    print(f"  phases 9-10 took {time.time() - t_host:.1f} s", flush=True)
 
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:

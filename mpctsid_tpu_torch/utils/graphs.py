@@ -1,0 +1,90 @@
+"""A fixed-shape device call captured as one CUDA graph (the port's
+counterpart of `jax.jit` with donated arguments on a fixed-shape call).
+
+    call = CapturedCall(fn, {"x": x_buf, "warm": warm_buf}, device, "wbc")
+    out = call(x=new_x)      # copy_ into the static inputs, replay
+
+`fn(**static_inputs)` must take and return tensors of fixed shapes and may
+write into its inputs in place: a warm start written back into the buffer
+that the next call reads is what donation is in the JAX package.  On CUDA:
+
+  * `fn` runs once eagerly on a side stream first.  Three caches fill at
+    first use with host-to-device copies or builds, which a capture cannot
+    contain: `utils.device_constant`, the rigid-body constants
+    (`dyn/rigid_body.py::_CONSTS_CACHE`) and the kernel libraries
+    (`qp/kernels.py::_library`, which may start `nvcc`).  The static inputs
+    are restored after this warm-up, so it leaves no trace in the state.
+  * then one `torch.cuda.CUDAGraph` is captured, on a memory pool of its
+    own; a capture that fails raises, naming the call.  There is no eager
+    fallback on the card and no switch to turn capture off.
+  * `__call__(**new_values)` copies the new values into the static inputs
+    (on the current stream), replays the graph on the current stream and
+    returns the static outputs.  The caller copies out what it keeps before
+    the next replay overwrites them.
+
+On the CPU there is no graph: `__call__` copies the new values in the same
+way and calls `fn` eagerly, so the same caller code runs in the tests.
+
+Python numbers inside `fn` are baked into the graph at capture: whatever
+changes from call to call must be a tensor among the static inputs.  The
+kernels' launch counters count Python calls, so a replay does not move them;
+they move at the warm-up and the capture.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+__all__ = ["CapturedCall"]
+
+
+class CapturedCall:
+    """`fn` over fixed static input buffers; one CUDA graph on the card."""
+
+    def __init__(self, fn: Callable, static_inputs: dict, device,
+                 name: str = None):
+        self.fn = fn
+        self.inputs = dict(static_inputs)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.name = name or getattr(fn, "__name__", "call")
+        for key, t in self.inputs.items():
+            if not isinstance(t, torch.Tensor) or t.device != self.device:
+                raise ValueError(f"{self.name}: static input {key!r} must "
+                                 f"be a tensor on {self.device}")
+        self.graph = None
+        self.outputs = None
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _capture(self) -> None:
+        dev = self.device
+        saved = {k: t.clone() for k, t in self.inputs.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.fn(**self.inputs)
+            for k, t in self.inputs.items():
+                t.copy_(saved[k])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                outputs = self.fn(**self.inputs)
+        except Exception as e:
+            raise RuntimeError(
+                f"capturing {self.name!r} as a CUDA graph failed: {e}") from e
+        self.graph = graph
+        self.outputs = outputs
+
+    def __call__(self, **new_values):
+        for key, value in new_values.items():
+            self.inputs[key].copy_(value, non_blocking=True)
+        if self.graph is None:
+            return self.fn(**self.inputs)
+        self.graph.replay()
+        return self.outputs

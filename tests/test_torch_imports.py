@@ -39,7 +39,8 @@ PORT_SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 def test_the_port_has_sources_to_check():
     names = {p.name for p in PORT_SOURCES}
     assert {"admm.py", "kernels.py", "engine.py", "chip_smoke.py",
-            "filter.py", "interface.py", "sweep.py"} <= names
+            "filter.py", "interface.py", "sweep.py", "host.py", "graphs.py",
+            "runtime.py", "mesh.py", "entry.py"} <= names
     for source in ("admm_m2.cu", "admm_vpu.cu", "admm_packed.cu",
                    "admm_fused.cu", "admm_mma.cu", "admm_block.cuh"):
         assert (PORT / "qp" / "csrc" / source).exists(), source
@@ -77,8 +78,9 @@ names = [m.name for m in pkgutil.walk_packages(mpctsid_tpu_torch.__path__,
                                                "mpctsid_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 29, names
-for n in ("est.filter", "env.interface", "sweep"):
+assert len(names) >= 36, names
+for n in ("est.filter", "env.interface", "sweep", "host", "utils.graphs",
+          "native.runtime", "dist.mesh", "entry"):
     assert "mpctsid_tpu_torch." + n in names, n
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flax" or m.startswith("flax.") or m == "msgpack"
