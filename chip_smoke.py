@@ -107,6 +107,40 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               same reductions of an unsharded cascade_rollout; entry()'s
               cascade period on the card; dryrun_multichip refuses more
               ranks than cards
+  11. oracle  the contract against the float64 oracle (mpctsid_tpu_torch/
+              oracle/, numpy), which runs in a `spawn` pool of min(16, CPU
+              count) one-thread processes while the card works:
+              11a 512 MPC problems (128 each of trot, walk, bound, pace)
+                  planned by the oracle: the port's contract tier
+                  (mpc/srb.py::solve_mpc_contract: float64 condensation,
+                  polished float32 solve) on the plain backend and on
+                  kernel 1, every problem within 1e-4 of the oracle's
+                  solve_mpc; the float32 build_mpc_qp with the same solve
+                  printed beside it (over 1e-4 on a few problems: a
+                  standing shortfall), the in-loop budget on kernel 1
+                  printed; both assemblies' QPs against the oracle's;
+                  every kernel 1 launch held against its plain version
+              11b the oracle cascade's first 40 ticks of each gait, the four
+                  gaits as one batch, warm-started tick to tick: the port's
+                  float64 wbc/tsid.py::solve_wbc_contract within 1e-4 Nm on
+                  every tick; the in-loop float32 solve on the plain backend
+                  and kernels 2-5 against the oracle (1e-2 Nm gated on
+                  trot; walk, bound and pace printed: the in-loop budget
+                  does not reach it, in the JAX package either), and every
+                  kernel launch of those solves held against its plain
+                  version on the same inputs at the kernel's tolerance
+              11c a captured HostController per gait (kernel 1, plain WBC)
+                  and on trot with kernel 4, fed the oracle controller's
+                  (q, v): torques tick by tick against the oracle (1e-2 Nm
+                  gated on trot, printed on the others), and each
+                  controller's consumed MPC plans against a controller on
+                  the plain MPC backend fed the same sequence (1e-3 N)
+              11d config4_cascade_4k at B = 4096 for 40 periods, rows 0-3
+                  walk, bound, pace and trot at the JAX package's
+                  closed-loop commands: the per-gait bounds of
+                  tests/test_cascade_jax.py and x within 0.02 m of the
+                  oracle's closed loop; every row upright, kernel 1 twice
+                  a period
 
 The line before the last is one JSON object describing every kernel of the
 path; the last line is {"ok": true, "device": {...}}.
@@ -114,8 +148,10 @@ path; the last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -134,17 +170,24 @@ from mpctsid_tpu_torch.entry import dryrun_multichip, entry
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
 from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.host import HostController
-from mpctsid_tpu_torch.model.gaits import GAIT_IDS
+from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAITS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
-from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, solve_mpc_batch
+from mpctsid_tpu_torch.mpc.srb import (CONTRACT_BUDGET, build_mpc_qp,
+                                       solve_mpc_batch, solve_mpc_contract)
+from mpctsid_tpu_torch.oracle import cascade as ocascade
+from mpctsid_tpu_torch.oracle import mpc as ompc
+from mpctsid_tpu_torch.oracle import planner as oplanner
+from mpctsid_tpu_torch.oracle import sim as osim
 from mpctsid_tpu_torch.qp import _build, kernels
+from mpctsid_tpu_torch.qp import admm as admm_mod
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.qp.precision import residual_matvec
 from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, run_sweep,
-                                     summarize)
+                                     scenario_params, summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
 from mpctsid_tpu_torch.utils.graphs import CapturedCall
-from mpctsid_tpu_torch.wbc.tsid import WbcRefs, solve_wbc
+from mpctsid_tpu_torch.wbc.tsid import (CONTRACT_ITERS, WbcRefs, solve_wbc,
+                                        solve_wbc_contract)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of the
 # bound, whatever the power limit of the card at hand (printed beside it).
@@ -189,7 +232,7 @@ SWEEP_TOTAL, SWEEP_CHUNK, SWEEP_PERIODS = 2048, 1024, 3
 # reference (BASELINE.json:5), here the polished float32 MPC solution
 # against the same polished solve in float64, largest over the batch.
 CONTRACT_TOL = 1e-4
-MPC_TIER = dict(iters=100, adapt_rounds=4, rho=0.1, polish_kkt=True)
+MPC_TIER = CONTRACT_BUDGET      # the polished MPC tier (mpc/srb.py)
 TIER_B = 1024
 # The df32 residual must be this many times closer to float64 than a plain
 # float32 mat-vec.
@@ -220,6 +263,47 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "admm_solve_fused": "admm_fused_",
                  "admm_iterate": "admm_mma_"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
+# Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
+# oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
+# (tests/test_torch_host.py): measured 2.1e-3 - 4.0e-3 on trot.  On walk,
+# bound and pace the in-loop budget (40 iterations in 3 rounds) ends 0.1 -
+# 1.1 Nm from the oracle's converged QP in the JAX package as in the port
+# (tests/test_torch_oracle_parity.py, _oracle_host.py): printed there, a
+# standing shortfall (ROADMAP queue 3), gated on trot.
+TAU_TOL = 1e-2
+# 11c: consumed MPC plans of a kernel 1 host controller against one on the
+# plain MPC backend, same (q, v) sequence, N (the port's plans against the
+# JAX package's: tests/test_torch_host.py, _oracle_host.py)
+PLAN_TOL = 1e-3
+ORACLE_WORKERS = min(16, os.cpu_count() or 1)
+ORACLE_GAITS = ("trot", "walk", "bound", "pace")
+# each gait at the command of the JAX package's closed-loop tests
+# (tests/test_cascade_jax.py:50-72), friction 0.7 (the oracle's default)
+ORACLE_CMD = {"walk": (0.2, 0.0, 0.0), "bound": (0.25, 0.0, 0.0),
+              "pace": (0.3, 0.0, 0.0), "trot": (0.3, 0.0, 0.0)}
+ORACLE_S = 512             # 11a: MPC problems, 128 per gait
+ORACLE_QP_CHECKED = 32     # 11a: of them, QP matrices held to the oracle's
+ORACLE_TICKS = 40          # 11b, 11c: two periods from standing
+INLOOP_MPC = dict(iters=60, adapt_rounds=2, rho=0.1)   # the cascade's budget
+WBC_INLOOP_BACKENDS = ("xla", "vpu", "packed", "fused", "pallas")
+# 11c: (gait, MPC backend, WBC backend) of the captured host controllers
+ORACLE_HOSTS = (("trot", "auto_mpc", "xla"), ("walk", "auto_mpc", "xla"),
+                ("bound", "auto_mpc", "xla"), ("pace", "auto_mpc", "xla"),
+                ("trot", "auto_mpc", "fused"))
+LONG_PERIODS = 40          # 11d
+# 11d, rows 0-3: the JAX package's per-gait bounds over 40 periods
+# (tests/test_cascade_jax.py:50-60): (min height, max |roll|, |pitch|,
+# min x at the end); trot: height > 0.15, roll/pitch < 0.15
+GAIT_BOUNDS = {"walk": (0.20, 0.10, 0.05), "bound": (0.12, 0.25, 0.07),
+               "pace": (0.20, 0.25, 0.05), "trot": (0.15, 0.15, None)}
+# 11d: |x_port - x_oracle| at the end of 40 periods, m.  On the CPU the port
+# parts from the oracle by 8.3e-4 m at most over 10 periods
+# (tests/test_torch_oracle_loop.py, band 5e-3) and by 1.6e-3 / 1.7e-3 /
+# 5.5e-3 / 1.7e-4 m (walk / bound / pace / trot) over 40; chaotic contact
+# lets the parting grow with time (6.6x from 10 to 40 periods) and the
+# card's float32 rounding starts it elsewhere, so 40 periods get 3.6x the
+# largest CPU measurement.
+LONG_X_BAND = 0.02
 FAILURES: list[str] = []
 
 
@@ -1312,6 +1396,582 @@ def sharded_path(smi: str, device) -> None:
                    "raises")
 
 
+# ------------------------------------- 11. the contract against the oracle
+
+WBC_FIELDS = ("contacts", "f_mpc", "foot_pos_ref", "foot_vel_ref",
+              "foot_acc_ref", "q_posture", "base_rpy_ref", "h_ref")
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def _oracle_worker_init() -> None:
+    # below the main process, which drives the card from one core
+    os.nice(10)
+    torch.set_num_threads(1)
+
+
+def start_oracle_pool():
+    """A `spawn` pool of ORACLE_WORKERS processes, each on one BLAS/OpenMP
+    thread (the variables are set for the children only).  The oracle is
+    numpy: the workers never touch the card."""
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    os.environ.update(dict.fromkeys(THREAD_VARS, "1"))
+    try:
+        return multiprocessing.get_context("spawn").Pool(
+            ORACLE_WORKERS, initializer=_oracle_worker_init)
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = val
+
+
+def oracle_mpc_problems(S: int, seed: int):
+    """S MPC problems, S / 4 of each gait, planned by the oracle as
+    tests/test_torch_mpc.py plans them: a random gait phase, the state
+    perturbed (h +-0.01 m, v +-0.2 m/s, roll and pitch +-0.05), a command
+    vx +-0.5, vy +-0.2, yaw rate +-0.5.  [(gait, phase, (x0, x_ref, feet,
+    contacts))], the inputs rounded to float32 (the card's) and handed to
+    the oracle as such: identical inputs on both sides."""
+    cfg = EngineConfig()
+    out = []
+    for i in range(S):
+        gait = ORACLE_GAITS[i % len(ORACLE_GAITS)]
+        r = np.random.default_rng([seed, i])
+        x0 = np.zeros(12)
+        x0[2] = SOLO12.h_ref + r.normal() * 0.01
+        x0[6:8] = r.normal(size=2) * 0.2
+        x0[3:5] = r.normal(size=2) * 0.05
+        vc = np.array([r.uniform(-0.5, 0.5), r.uniform(-0.2, 0.2),
+                       r.uniform(-0.5, 0.5)])
+        phase = int(r.integers(0, 16))
+        sched = oplanner.GaitScheduler(GAITS[gait], phase=phase)
+        feet0 = SOLO12.shoulder_offsets.copy()
+        feet0[:, 2] = 0.0
+        fsteps, _ = oplanner.plan_footsteps_horizon(
+            SOLO12, cfg.mpc, cfg.cascade, sched, x0, vc, feet0)
+        problem = (x0, ompc.reference_rollout(SOLO12, cfg.mpc, x0, vc),
+                   fsteps, sched.horizon(cfg.mpc.horizon))
+        out.append((gait, phase, tuple(
+            np.asarray(a, np.float32).astype(np.float64) for a in problem)))
+    return out
+
+
+def oracle_mpc_solve(problem):
+    """Pool worker: the oracle's solve_mpc; (x, seconds)."""
+    cfg = EngineConfig()
+    t0 = time.perf_counter()
+    _, res = ompc.solve_mpc(SOLO12, cfg.mpc, cfg.solver, *problem)
+    return res.x, time.perf_counter() - t0
+
+
+def oracle_closed_loop(gait: str, ticks: int, record: int) -> dict:
+    """Pool worker: the oracle's controller (the reference's
+    Controller.compute() loop) on the oracle's simulator from standing, at
+    the gait's ORACLE_CMD, for `ticks` ticks.  Keeps the first `record`
+    ticks' (q, v, WBC references, WBC torque, applied torque) and the SRB
+    state at every period start."""
+    cfg = EngineConfig(gait=gait, v_ref=ORACLE_CMD[gait])
+    q0 = standing(1)[0].astype(np.float64)
+    ctl = ocascade.OracleController(SOLO12, cfg, q0)
+    sim = osim.SimState.init(q0)
+    wbc = []
+    original = ocascade.solve_wbc
+
+    def hook(tree, wcfg, q, v, refs, **kw):
+        out = original(tree, wcfg, q, v, refs, **kw)
+        wbc.append((refs, out[0].copy()))
+        return out
+
+    ocascade.solve_wbc = hook
+    recorded, starts = [], []
+    t0 = time.perf_counter()
+    try:
+        for k in range(ticks):
+            cmd, log = ctl.compute(sim.q, sim.v)
+            tau = cmd.torque(sim.q[7:], sim.v[6:])
+            if k % cfg.cascade.mpc_every == 0:
+                starts.append(log.x_srb)
+            if k < record:
+                recorded.append(dict(q=sim.q.copy(), v=sim.v.copy(),
+                                     refs=wbc[-1][0], wbc_tau=wbc[-1][1],
+                                     tau=tau))
+            wbc.clear()
+            sim, _ = osim.step(ctl.tree, sim, tau)
+    finally:
+        ocascade.solve_wbc = original
+    return dict(ticks=recorded, starts=np.stack(starts),
+                seconds=time.perf_counter() - t0)
+
+
+def by_gait(d, gaits, fmt=".3e") -> str:
+    """'gait max m (median m)' for each gait of per-scenario errors d."""
+    return "; ".join(
+        f"{g} max {np.max(d[gaits == g]):{fmt}} (median "
+        f"{np.median(d[gaits == g]):{fmt}})" for g in ORACLE_GAITS)
+
+
+# plain version and tolerance of each kernel whose launches phase 11 records
+# (refined iterations on the WBC QP, which has equality rows: REFINED_EQ_TOL)
+PLAIN_OF = {"admm_iterate_m2": (kernels.admm_iterate_m2_reference,
+                                KERNEL_TOL),
+            "admm_iterate_vpu": (kernels.admm_iterate_refined_reference,
+                                 REFINED_EQ_TOL),
+            "admm_iterate_vpu_packed": (
+                kernels.admm_iterate_refined_reference, REFINED_EQ_TOL),
+            "admm_iterate": (kernels.admm_iterate_reference, REFINED_EQ_TOL)}
+
+
+@contextlib.contextmanager
+def recorded_launches(log: list):
+    """Inside, every kernel wrapper that `admm_solve` calls appends (name,
+    inputs, keyword arguments, outputs) to `log`; the wrappers themselves
+    (and their launch counts) are unchanged."""
+    saved = (admm_mod.admm_iterate_m2, dict(admm_mod._ITERATION_KERNELS),
+             admm_mod.admm_solve_fused)
+
+    def recording(fn):
+        def call(*args, **kw):
+            inputs = [a.clone() for a in args]
+            out = fn(*args, **kw)
+            log.append((fn.__name__, inputs, kw, [o.clone() for o in out]))
+            return out
+        return call
+
+    admm_mod.admm_iterate_m2 = recording(saved[0])
+    for k, fn in saved[1].items():
+        admm_mod._ITERATION_KERNELS[k] = recording(fn)
+    admm_mod.admm_solve_fused = recording(saved[2])
+    try:
+        yield log
+    finally:
+        admm_mod.admm_iterate_m2 = saved[0]
+        admm_mod._ITERATION_KERNELS.update(saved[1])
+        admm_mod.admm_solve_fused = saved[2]
+
+
+def per_scenario(got, want) -> torch.Tensor:
+    """(B,) max abs difference of each scenario over a list of tensors."""
+    return torch.stack([(g.float() - w.float()).abs().reshape(len(g), -1)
+                        .amax(dim=1) for g, w in zip(got, want)]).amax(dim=0)
+
+
+def hold_launches(log: list, label: str, smi: str) -> None:
+    """Every recorded launch against its plain version on the same inputs.
+
+    Where the plain float32 version reproduces a float64 run of itself
+    (median distance over the scenarios under the kernel's tolerance), the
+    gates of phases 2-6: each scenario within the tolerance of the plain
+    version wherever that version lies within it of float64, and each launch
+    as close to float64 as the plain float32 version (largest over its
+    scenarios, factor 2, plus a tenth of the tolerance; compare_m2).
+
+    Where it does not, no two float32 summation orders agree either, and
+    the distance to the plain version is printed, not held: on the oracle's
+    WBC ticks with swing feet the 13 iterations of a round end a median
+    0.29 (first round) to 0.05 (third) from a float64 run of the same map
+    (measured on a CPU), and kernel and plain version differ by up to 10.
+    There the kernel's distances to float64 must be distributed as the plain
+    version's: their median within a factor 2 (plus a tenth of the
+    tolerance).  Kernel 4 on its unscaled (x, y) in units of the tolerances
+    x 1e-3, y 1e-2, its scales to 1e-4 relative, always."""
+    by: dict = {}
+    for name, args, kw, got in log:
+        args64 = [a.double() for a in args]
+        ok = all_finite(got)
+        if name == "admm_solve_fused":
+            def unscaled(xs, ys, D, E, c):
+                return D * xs, E * ys / c[:, None]
+            want = kernels.admm_solve_fused_reference(*args, **kw)
+            k, p = unscaled(*got), unscaled(*want)
+            w64 = [t.float() for t in unscaled(
+                *kernels.admm_solve_fused_reference(*args64, **kw))]
+            tols = (FUSED_X_TOL, FUSED_Y_TOL)
+            err, k64, p64 = (
+                torch.maximum(*[per_scenario([a], [b]) / t
+                                for a, b, t in zip(u, v, tols)])
+                for u, v in ((k, p), (k, w64), (p, w64)))
+            ok &= max(float(((a - b).abs() / b.abs()).max())
+                      for a, b in zip(got[2:], want[2:])) < FUSED_SCALE_RTOL
+            tol = 1.0
+        else:
+            plain, tol = PLAIN_OF[name]
+            want = plain(*args, **kw)
+            want64 = [t.float() for t in plain(*args64, **kw)]
+            err = per_scenario(got, want)
+            k64, p64 = per_scenario(got, want64), per_scenario(want, want64)
+        r = by.setdefault(name, dict(err=[], k64=[], p64=[], ok=True,
+                                     max_rule=True, tol=tol))
+        r["ok"] &= ok
+        r["max_rule"] &= (float(k64.max())
+                          <= 2.0 * float(p64.max()) + tol / 10)
+        for key, val in (("err", err), ("k64", k64), ("p64", p64)):
+            r[key].append(val.cpu())
+    for name, r in by.items():
+        tol = r["tol"]
+        err, k64, p64 = (torch.cat(r[key]) for key in ("err", "k64", "p64"))
+        med = {key: float(t.median()) for key, t in
+               (("err", err), ("k64", k64), ("p64", p64))}
+        held = p64 < tol
+        over = int((held & (err >= tol)).sum())
+        reproducible = med["p64"] < tol
+        unit = (" (in units of the tolerances x 1e-3, y 1e-2)"
+                if name == "admm_solve_fused" else f" (tolerance {tol:g})")
+        print(f"  {label}: {len(r['err'])} launches of {name}, {len(err)} "
+              f"scenarios, against the plain version on the same inputs"
+              f"{unit}: |d| max {float(err.max()):.3e}, median "
+              f"{med['err']:.3e}; distance to a float64 run: kernel max "
+              f"{float(k64.max()):.3e} median {med['k64']:.3e}, plain max "
+              f"{float(p64.max()):.3e} median {med['p64']:.3e}; "
+              f"{int(held.sum())} scenarios where the plain version lies "
+              f"within the tolerance of float64, {over} of them over  "
+              f"[{smi}]", flush=True)
+        if reproducible:
+            check(r["ok"] and r["max_rule"] and over == 0,
+                  f"{label}: every launch of {name} within {tol:g} of its "
+                  "plain version wherever that is within it of float64, and "
+                  "as close to float64 as the plain float32 version")
+        else:
+            check(r["ok"] and med["k64"] <= 2.0 * med["p64"] + tol / 10,
+                  f"{label}: {name}'s launches as close to float64 as its "
+                  "plain float32 version's (medians; the plain version does "
+                  "not reproduce float64 on these inputs)")
+
+
+def over_lines(x, x_o, problems, over) -> None:
+    for i in over[:5]:
+        c = np.argsort(-np.abs(x[i] - x_o[i]))[:3]
+        where = [(int(j // 12), int(j % 12 // 3), int(j % 3)) for j in c]
+        print(f"    over: {problems[i][0]}, phase {problems[i][1]}, "
+              f"coordinates (step, foot, axis) {where} off by "
+              f"{np.round(x[i, c] - x_o[i, c], 7).tolist()}", flush=True)
+
+
+def oracle_mpc_contract(problems, pending, smi: str, device) -> None:
+    """11a: the port's MPC contract tier (mpc/srb.py::solve_mpc_contract)
+    on the card against the oracle's solve_mpc on ORACLE_S problems of four
+    gaits; the float32 build_mpc_qp with the same solve beside it."""
+    cfg = EngineConfig()
+    S = len(problems)
+    gaits = np.array([p[0] for p in problems])
+    inputs = [torch.tensor(np.stack([p[2][i] for p in problems]),
+                           dtype=torch.float32).to(device) for i in range(4)]
+    sols, secs, log = {}, {}, []
+    with recorded_launches(log):
+        for backend in ("torch", "m2"):
+            (_, sol), sec = timed(lambda: solve_mpc_contract(
+                SOLO12, cfg.mpc, *inputs, backend=backend))
+            sols["contract", backend] = sol
+            secs["contract", backend] = sec
+        qp32, secs["float32"] = timed(
+            lambda: build_mpc_qp(SOLO12, cfg.mpc, *inputs))
+        for backend in ("torch", "m2"):
+            sols["float32", backend], secs["float32", backend] = timed(
+                lambda: admm_solve(*qp32, backend=backend, **CONTRACT_BUDGET))
+        sol, secs["in-loop"] = timed(lambda: admm_solve(
+            *qp32, backend="m2", **INLOOP_MPC))
+    x_inloop = sol.x.double().cpu().numpy()
+    hold_launches(log, "11a", smi)
+    del log
+
+    # the QP matrices of the first problems against the oracle's: the
+    # float32 assembly and the contract tier's (float64, rounded once)
+    k = ORACLE_QP_CHECKED
+    qps = {"float32": [t[:k] for t in qp32],
+           "contract": [t.float() for t in build_mpc_qp(
+               SOLO12, cfg.mpc, *(t[:k].double() for t in inputs))]}
+    worst = {a: [0.0] * 3 for a in qps}
+    qp_ok = {a: True for a in qps}
+    for i in range(k):
+        Po, qo, Ao, lo, uo = ompc.build_mpc_qp(SOLO12, cfg.mpc,
+                                               *problems[i][2])
+        stance = np.repeat(problems[i][2][3].reshape(-1) > 0.5, 5)
+        pinned = np.repeat(problems[i][2][3].reshape(-1) < 0.5, 3)
+        off = ~np.eye(len(qo), dtype=bool)
+        f32 = lambda a: a.astype(np.float32).astype(np.float64)  # noqa: E731
+        for a, qp in qps.items():
+            P, q, A, l, u = [t[i].double().cpu().numpy() for t in qp]
+            dP = P - Po
+            dq = float(np.abs(q - qo).max())
+            dPo = float(np.abs(dP[off]).max())
+            dPd = float(np.abs(np.diagonal(dP)[~pinned]).max())
+            worst[a] = [max(w, d) for w, d in zip(worst[a], (dq, dPo, dPd))]
+            qp_ok[a] &= bool(
+                dq < 1e-5 and dPo < 1e-5 and dPd < 1e-5
+                and (np.diagonal(dP)[pinned] > 1e5).all()
+                and np.array_equal(A, f32(Ao))
+                and np.array_equal(l[stance], f32(lo[stance]))
+                and np.array_equal(u[stance], f32(uo[stance]))
+                and (l[~stance] < -1e19).all() and (u[~stance] > 1e19).all())
+    for a in qps:
+        print(f"  QP of the first {k} problems, {a} assembly, against the "
+              f"oracle's: max |dq| {worst[a][0]:.3e}, |dP| off the diagonal "
+              f"{worst[a][1]:.3e}, on the unpinned diagonal "
+              f"{worst[a][2]:.3e}  [{smi}]", flush=True)
+        check(qp_ok[a], f"11a: {a}-assembled QP within the CPU test's "
+                        "budgets of the oracle's (q, P 1e-5; A, stance "
+                        "bounds exact; swing rows free, swing forces on the "
+                        "ridge)")
+
+    results = pending.get()           # a worker that raised raises here
+    x_o = np.stack([r[0] for r in results])
+    oracle_s = np.array([r[1] for r in results])
+    for (tier, backend), sol in sols.items():
+        x = sol.x.double().cpu().numpy()
+        d = np.abs(x - x_o).max(axis=1)
+        over = np.flatnonzero(d >= CONTRACT_TOL)
+        extra = ("solve_mpc_contract" if tier == "contract" else
+                 f"float32 build_mpc_qp + the same solve, + "
+                 f"{secs['float32'] / S * 1e3:.4f} ms assembly")
+        print(f"  {extra}, backend {backend}: max over S={S} "
+              f"{d.max():.3e}, {len(over)} over {CONTRACT_TOL:g}; "
+              f"{by_gait(d, gaits)}; {secs[tier, backend] / S * 1e3:.4f} ms "
+              f"per problem  [{smi}]", flush=True)
+        over_lines(x, x_o, problems, over)
+        if tier == "contract":
+            check(bool(sol.ok.all()) and sol.x.dtype == torch.float32
+                  and float(d.max()) < CONTRACT_TOL,
+                  f"11a: solve_mpc_contract, backend {backend}: every one "
+                  f"of {S} problems within {CONTRACT_TOL:g} of the oracle's "
+                  "solve_mpc")
+        elif len(over):
+            print(f"    the float32 assembly misses {CONTRACT_TOL:g} on "
+                  f"{len(over)} of {S}: a standing shortfall (ROADMAP "
+                  "queue 3), not a gate", flush=True)
+    d = np.abs(x_inloop - x_o).max(axis=1)
+    print(f"  in-loop budget (60 iterations in 2 rounds, kernel 1, float32 "
+          f"assembly, no polish): {by_gait(d, gaits)}; "
+          f"{secs['in-loop'] / S * 1e3:.4f} ms per solve (not a gate)",
+          flush=True)
+    print(f"  the oracle's solve_mpc: {oracle_s.mean() * 1e3:.2f} ms per "
+          f"solve (median {np.median(oracle_s) * 1e3:.2f}) on one core of "
+          f"this host, {ORACLE_WORKERS} workers", flush=True)
+
+
+def _oracle_tick(runs, k: int, dtype, device):
+    """Tick k of every gait's oracle run as one batch of four scenarios:
+    (q, v, refs, the oracle's WBC torques)."""
+    pick = [runs[g]["ticks"][k] for g in ORACLE_GAITS]
+
+    def put(a):
+        return torch.tensor(np.stack(a), dtype=dtype).to(device)
+
+    refs = WbcRefs(**{f: put([np.asarray(getattr(p["refs"], f), np.float64)
+                              for p in pick]) for f in WBC_FIELDS})
+    return (put([p["q"] for p in pick]), put([p["v"] for p in pick]), refs,
+            np.stack([p["wbc_tau"] for p in pick]))
+
+
+def gait_line(errs) -> str:
+    return ", ".join(f"{g} {e:.3e}" for g, e in zip(ORACLE_GAITS, errs))
+
+
+def oracle_wbc_contract(runs, smi: str, device) -> None:
+    """11b: the oracle cascade's first ORACLE_TICKS ticks of each gait, the
+    four gaits as one batch on the card, warm-started tick to tick."""
+    cfg = EngineConfig()
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    wx = wy = None
+    errs, ok = [], True
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for k in range(ORACLE_TICKS):
+        q, v, refs, tau_o = _oracle_tick(runs, k, torch.float64, device)
+        tau, _, _, sol = solve_wbc_contract(tree, cfg.wbc, q, v, refs,
+                                            warm_x=wx, warm_y=wy)
+        ok &= bool(sol.ok.all()) and tau.dtype == torch.float64
+        wx, wy = sol.x, sol.y
+        errs.append(np.abs(tau.cpu().numpy() - tau_o).max(axis=1))
+    torch.cuda.synchronize()
+    worst = np.max(errs, axis=0)
+    print(f"  solve_wbc_contract (float64, {CONTRACT_ITERS} iterations, "
+          f"polished): max |tau - tau_oracle| per gait {gait_line(worst)} "
+          f"Nm over {ORACLE_TICKS} ticks; "
+          f"{(time.time() - t0) / ORACLE_TICKS * 1e3:.1f} ms a tick at B = 4"
+          f"  [{smi}]", flush=True)
+    check(ok and float(worst.max()) < CONTRACT_TOL,
+          f"11b: solve_wbc_contract within {CONTRACT_TOL:g} Nm of the oracle "
+          "on every tick of every gait")
+    reset_launch_counts()
+    expect = dict.fromkeys(COUNTED, 0)
+    log: list = []
+    trot = ORACLE_GAITS.index("trot")
+    for backend in WBC_INLOOP_BACKENDS:
+        wx = torch.zeros((4, 30), device=device)
+        wy = torch.zeros((4, 50), device=device)
+        errs, ok = [], True
+        with recorded_launches(log):
+            for k in range(ORACLE_TICKS):
+                q, v, refs, tau_o = _oracle_tick(runs, k, torch.float32,
+                                                 device)
+                tau, _, _, sol = solve_wbc(
+                    tree, cfg.wbc, q, v, refs, iters=cfg.solver.wbc_iters,
+                    adapt_rounds=cfg.solver.wbc_adapt_rounds, warm_x=wx,
+                    warm_y=wy, backend=backend)
+                ok &= bool(sol.ok.all()) and bool(torch.isfinite(tau).all())
+                wx = torch.where(sol.ok[:, None], sol.x, wx)
+                wy = torch.where(sol.ok[:, None], sol.y, wy)
+                errs.append(np.abs(tau.double().cpu().numpy()
+                                   - tau_o).max(1))
+        worst = np.max(errs, axis=0)
+        print(f"  in-loop float32 WBC ({cfg.solver.wbc_iters} iterations in "
+              f"{cfg.solver.wbc_adapt_rounds} rounds), backend {backend}: "
+              f"max |tau - tau_oracle| {gait_line(worst)} Nm; over "
+              f"{TAU_TOL:g} on "
+              f"{[g for g, w in zip(ORACLE_GAITS, worst) if w > TAU_TOL]} "
+              f"(off trot: a standing shortfall, ROADMAP queue 3)  [{smi}]",
+              flush=True)
+        check(ok and worst[trot] < TAU_TOL,
+              f"11b: in-loop WBC on {backend}: every solve ok, trot within "
+              f"{TAU_TOL:g} Nm of the oracle on every tick")
+        if backend in WBC_KERNEL_OF:
+            expect[WBC_KERNEL_OF[backend]] += ORACLE_TICKS * (
+                1 if backend == "fused" else cfg.solver.wbc_adapt_rounds)
+    counts = launch_counts()
+    print(f"    launches {counts}", flush=True)
+    check(counts == expect, f"11b: kernels 2-5 launched {expect}")
+    hold_launches(log, "11b", smi)
+
+
+def oracle_host_contract(runs, smi: str, device) -> None:
+    """11c: the captured host controllers fed each gait's oracle (q, v)
+    sequence: their torques against the oracle controller's, and their
+    consumed MPC plans against a controller on the plain MPC backend."""
+    plain_plans = {}
+    for gait, mpc_backend, wbc_backend in (
+            [(g, "torch", "xla") for g in ORACLE_GAITS] + list(ORACLE_HOSTS)):
+        cfg = EngineConfig(gait=gait, v_ref=ORACLE_CMD[gait])
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+            cfg.solver, mpc_backend=mpc_backend, wbc_backend=wbc_backend))
+        seq = runs[gait]["ticks"]
+        ctl = HostController(SOLO12, cfg, seq[0]["q"], device=device)
+        taus, plans = [], []
+        try:
+            for t in seq:
+                taus.append(ctl.compute(t["q"], t["v"]))
+                plans.append(ctl.f_plan.copy())
+        finally:
+            ctl.close()
+        del ctl
+        torch.cuda.empty_cache()
+        taus, plans = np.stack(taus), np.stack(plans)
+        if mpc_backend == "torch":
+            plain_plans[gait] = plans
+            continue
+        d = np.abs(taus - np.stack([t["tau"] for t in seq])).max(axis=1)
+        dp = float(np.abs(plans - plain_plans[gait]).max())
+        print(f"  host path, {gait}, {backend_tag(mpc_backend, wbc_backend)}"
+              f": max |tau - tau_oracle| {d.max():.3e} Nm (tick "
+              f"{int(d.argmax())}, median {np.median(d):.3e}); consumed "
+              f"plans against the plain MPC backend's {dp:.3e} N  [{smi}]",
+              flush=True)
+        check(bool(np.isfinite(taus).all()) and dp < PLAN_TOL,
+              f"11c: host path ({gait}, {mpc_backend}/{wbc_backend}): "
+              f"finite torques, plans within {PLAN_TOL:g} N of the plain "
+              "MPC backend's on every tick")
+        if gait == "trot":
+            check(float(d.max()) < TAU_TOL,
+                  f"11c: host path (trot, {wbc_backend}) within {TAU_TOL:g} "
+                  "Nm of the oracle controller on every tick")
+        elif d.max() >= TAU_TOL:
+            print(f"    over {TAU_TOL:g} Nm: a standing shortfall of the "
+                  "in-loop WBC budget (ROADMAP queue 3), not a gate",
+                  flush=True)
+
+
+def oracle_long_horizon(long_runs, smi: str, device) -> None:
+    """11d: config4_cascade_4k at full width for LONG_PERIODS periods, rows
+    0-3 one gait each at ORACLE_CMD and friction 0.7, the other rows mixed
+    as the sweep draws them; rows 0-3 against the oracle's closed loop."""
+    cfg = PRESETS["config4_cascade_4k"]
+    B = cfg.batch
+    cc = CascadeConfigured(SOLO12, cfg)
+    gid, v, mu, _ = scenario_params(11, np.arange(B))
+    for b, gait in enumerate(("walk", "bound", "pace", "trot")):
+        gid[b], v[b], mu[b] = GAIT_IDS[gait], ORACLE_CMD[gait], 0.7
+    q0 = standing(B)
+    ctl = init_controller(SOLO12, cfg, cc.tree, q0, gid, device=device)
+    plant = PlantState.init(q0, device=device)
+    cp = ContactParams.default(B, device=device)
+    cp.mu = torch.as_tensor(mu, dtype=torch.float32).to(device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    ctl, plant, met = cascade_rollout(cc, ctl, plant, gid, v, cp,
+                                      n_periods=LONG_PERIODS, device=device)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    expect = expected_launches(cfg, LONG_PERIODS, cfg.solver.wbc_backend)[1]
+    x = met["x_srb"].double().cpu().numpy()
+    upright = (x[:, :, 2] > 0.12).all(axis=1)
+    print(f"  B={B}, {LONG_PERIODS} periods: {wall:.1f} s "
+          f"({wall / LONG_PERIODS:.3f} s per period), launches {counts}; "
+          f"upright {upright.mean():.4f}, mpc_ok "
+          f"{float(met['mpc_ok'].float().mean()):.4f}  [{smi}]", flush=True)
+    check(all_finite((plant.q, plant.v, met["x_srb"]))
+          and bool(met["mpc_ok"].all()) and bool(upright.all()),
+          f"11d: all {B} rows finite, every MPC solve ok, upright (height > "
+          f"0.12 m at every period start) for {LONG_PERIODS} periods")
+    check(counts == expect, f"11d: kernel launches are {expect}")
+    for b, gait in enumerate(("walk", "bound", "pace", "trot")):
+        xo = long_runs[gait].get()["starts"]
+        xp = x[b]
+        min_z, max_rp, min_x = GAIT_BOUNDS[gait]
+        dx = abs(xp[-1, 0] - xo[-1, 0])
+        print(f"  {gait} at {ORACLE_CMD[gait][0]} m/s: x {xp[-1, 0]:.4f} m "
+              f"(oracle {xo[-1, 0]:.4f}, |dx| {dx:.2e}); min height "
+              f"{xp[:, 2].min():.4f} m (oracle {xo[:, 2].min():.4f}); max "
+              f"|roll|, |pitch| {np.abs(xp[:, 3:5]).max():.4f} (oracle "
+              f"{np.abs(xo[:, 3:5]).max():.4f}); mean vx "
+              f"{xp[:, 6].mean():.4f} m/s (oracle {xo[:, 6].mean():.4f})",
+              flush=True)
+        check(xp[:, 2].min() > min_z and np.abs(xp[:, 3:5]).max() < max_rp
+              and (min_x is None or xp[-1, 0] > min_x),
+              f"11d: {gait} row holds the JAX package's bounds (height > "
+              f"{min_z}, roll/pitch < {max_rp}"
+              + ("" if min_x is None else f", x > {min_x}") + ")")
+        check(dx < LONG_X_BAND, f"11d: {gait} row's x within {LONG_X_BAND} "
+                                f"m of the oracle's after {LONG_PERIODS} "
+                                "periods")
+
+
+def oracle_contract(smi: str, device) -> None:
+    """Phase 11: the pool solves and rolls the oracle while the card
+    works; whatever a worker raises is raised here."""
+    problems = oracle_mpc_problems(ORACLE_S, seed=11)
+    ticks = LONG_PERIODS * EngineConfig().cascade.mpc_every
+    with start_oracle_pool() as pool:
+        t_pool = time.time()
+        long_runs = {g: pool.apply_async(oracle_closed_loop, (g, ticks, 0))
+                     for g in ORACLE_GAITS}
+        short_runs = {g: pool.apply_async(oracle_closed_loop,
+                                          (g, ORACLE_TICKS, ORACLE_TICKS))
+                      for g in ORACLE_GAITS}
+        solves = pool.map_async(oracle_mpc_solve, [p[2] for p in problems],
+                                chunksize=8)
+        print(f"== 11a. polished MPC tier vs the oracle's solve_mpc, "
+              f"S={ORACLE_S} (trot, walk, bound, pace)", flush=True)
+        oracle_mpc_contract(problems, solves, smi, device)
+        runs = {g: r.get() for g, r in short_runs.items()}
+        print(f"== 11b. WBC tiers vs the oracle cascade, {ORACLE_TICKS} "
+              "ticks per gait, B=4", flush=True)
+        oracle_wbc_contract(runs, smi, device)
+        print("== 11c. host path (captured graphs) vs the oracle controller",
+              flush=True)
+        oracle_host_contract(runs, smi, device)
+        print(f"== 11d. {LONG_PERIODS} periods at full width vs the "
+              "oracle's closed loop", flush=True)
+        oracle_long_horizon(long_runs, smi, device)
+        pool.close()
+        pool.join()
+        secs = {g: round(r.get()["seconds"], 2) for g, r in long_runs.items()}
+        print(f"  the oracle's pool ({ORACLE_WORKERS} workers) done "
+              f"{time.time() - t_pool:.1f} s after it started; the "
+              f"{LONG_PERIODS}-period closed loops took {secs} s each",
+              flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1797,6 +2457,14 @@ def main() -> int:
           flush=True)
     sharded_path(smi, device)
     print(f"  phases 9-10 took {time.time() - t_host:.1f} s", flush=True)
+
+    # ---- 11. the contract against the float64 oracle ------------------------
+    t_oracle = time.time()
+    print(f"== 11. the contract against the float64 oracle "
+          f"(mpctsid_tpu_torch/oracle/ in {ORACLE_WORKERS} processes)",
+          flush=True)
+    oracle_contract(smi, device)
+    print(f"  phase 11 took {time.time() - t_oracle:.1f} s", flush=True)
 
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:

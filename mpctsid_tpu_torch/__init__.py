@@ -23,6 +23,8 @@ Layout:
   wbc/      TSID-style task assembly -> qp/
   env/      batched penalty-contact plant; the host-side Plant protocol
   est/      complementary-filter state estimator
+  oracle/   the float64 numpy reference (a copy of the JAX package's; no
+            torch): the parity target of the contract's 1e-4
   cascade/  the closed-loop cascade: cascade_period / cascade_rollout
   interop   numpy <-> state dataclasses (carrying a state across packages)
   run       CLI entry point: one closed-loop run

@@ -376,8 +376,8 @@ def _kkt_error(P, q, A, l, u, x, y):
 
 def _polish(P, q, A, l, u, x, y, eq, active_tol: float = 1e-3,
             delta: float = 1e-4):
-    """Device-side OSQP polish: one masked-KKT solve on the detected active
-    set, per scenario (JAX `_polish`).
+    """Device-side OSQP polish: a masked-KKT solve on the detected active
+    set, per scenario (JAX `_polish`), and one correction of that set.
 
     Fixed shapes instead of slicing the active rows:
         [[P + delta I,   A' diag(mask)], [x ]   [      -q        ]
@@ -387,15 +387,66 @@ def _polish(P, q, A, l, u, x, y, eq, active_tol: float = 1e-3,
     regularised system, three refinement steps against the UNregularised
     one with the residual in df32, and the polished point kept only where
     its df32 KKT error is no larger than the ADMM iterate's (a float32
-    objective comparison is noise in the MPC QP's flat valleys).  Dual-sign
-    checks are not used: they misfire on the degenerate swing-foot rows."""
-    B, n = q.shape
-    dtype = P.dtype
+    objective comparison is noise in the MPC QP's flat valleys).
+
+    The correction.  An inequality row taken as active whose multiplier
+    comes out with the wrong sign (> 0 at a lower bound, < 0 at an upper
+    one, beyond the noise floor _SIGN_ULPS eps max|y|) may not be active at
+    the optimum: pinned to a bound the optimum leaves, the point is
+    stationary and feasible, so the KKT error cannot tell.  In float32 such
+    rows (within active_tol of their bound, multipliers 5.9e-7 - 6.6e-6 of
+    the wrong sign, 7.8e-5 - 1.0e-3 of the largest) moved 4 of 512 MPC
+    solutions by 1.0e-4 - 6.6e-4 from the float64 oracle's; the other 508
+    had no wrong sign at all.  The sign alone does not decide: it misfires
+    on degenerate rows (both pyramid sides tight at mu fz = 0), as on 12 of
+    160 float64 WBC polishes over the oracle's ticks, by up to 0.37 of the
+    largest multiplier.  So the scenarios with a wrong sign solve once more
+    without those rows, and that point replaces the first only where each
+    dropped row still holds (within _SIGN_ULPS eps (1 + |bound|)) and its
+    KKT error passes the same bar; else the first polish stands (or the
+    iterate, as before).  The second solve runs on those scenarios alone,
+    after one host synchronisation (the polish is never captured in a CUDA
+    graph)."""
     Ax = _mv(A, x)
     # a side can only be active if its bound is finite
     low = (l > -INF) & ((y < -active_tol) | ((Ax - l).abs() < active_tol))
     upp = (u < INF) & ((y > active_tol) | ((Ax - u).abs() < active_tol))
     low = (low | eq) & ~(upp & ~eq)
+    xp, yp = _active_set_solve(P, q, A, l, u, low, upp, delta)
+    err_x = _kkt_error(P, q, A, l, u, x, y)
+    noise = _SIGN_ULPS * torch.finfo(P.dtype).eps
+    floor = noise * yp.abs().amax(dim=-1, keepdim=True)
+    wrong = ~eq & ((low & (yp > floor)) | (upp & (yp < -floor)))
+    ok = (_kkt_error(P, q, A, l, u, xp, yp) <= err_x)[:, None]
+    xp, yp = torch.where(ok, xp, x), torch.where(ok, yp, y)
+    redo = wrong.any(dim=-1)
+    if bool(redo.any()):
+        i = redo.nonzero()[:, 0]
+        Pi, qi, Ai, li, ui = P[i], q[i], A[i], l[i], u[i]
+        wi, lo_i, up_i = wrong[i], low[i], upp[i]
+        xr, yr = _active_set_solve(Pi, qi, Ai, li, ui, lo_i & ~wi,
+                                   up_i & ~wi, delta)
+        Axr = _mv(Ai, xr)
+        b = torch.where(lo_i, li, ui)
+        slack = torch.where(lo_i, Axr - li, ui - Axr)
+        holds = ~(wi & (slack < -noise * (1.0 + b.abs()))).any(dim=-1)
+        take = (holds & (_kkt_error(Pi, qi, Ai, li, ui, xr, yr)
+                         <= err_x[i]))[:, None]
+        xp[i] = torch.where(take, xr, xp[i])
+        yp[i] = torch.where(take, yr, yp[i])
+    return xp, yp
+
+
+# multipliers and slacks within this many ulps of their scale are rounding
+# (`_polish`'s sign correction)
+_SIGN_ULPS = 64
+
+
+def _active_set_solve(P, q, A, l, u, low, upp, delta: float):
+    """(x, y) of the equality-constrained QP with the rows `low` at l and
+    `upp` at u, the rest free: `_polish`'s masked KKT system."""
+    B, n = q.shape
+    dtype = P.dtype
     act = low | upp
     mask = act.to(dtype)
     b = torch.where(low, l, u)
@@ -410,7 +461,7 @@ def _polish(P, q, A, l, u, x, y, eq, active_tol: float = 1e-3,
     rhs = torch.cat([-q, mask * b], dim=1)
     # lu_factor_ex: no host-side check of `info` (no synchronisation; a
     # singular system gives non-finite values in its own scenario, which the
-    # acceptance test below then rejects)
+    # acceptance test of `_polish` then rejects)
     lu, piv, _ = torch.linalg.lu_factor_ex(kkt_reg)
 
     def solve(r):
@@ -427,11 +478,7 @@ def _polish(P, q, A, l, u, x, y, eq, active_tol: float = 1e-3,
     # accumulation floor of ~n eps |terms| ~ 1e-4 in the unscaled frame
     for _ in range(3):
         sol = sol + solve(residual_matvec(rhs, kkt0, sol))
-    xp = sol[:, :n]
-    yp = sol[:, n:] * mask
-    ok = (_kkt_error(P, q, A, l, u, xp, yp)
-          <= _kkt_error(P, q, A, l, u, x, y))[:, None]
-    return torch.where(ok, xp, x), torch.where(ok, yp, y)
+    return sol[:, :n], sol[:, n:] * mask
 
 
 def _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,

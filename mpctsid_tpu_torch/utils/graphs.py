@@ -14,8 +14,13 @@ that the next call reads is what donation is in the JAX package.  On CUDA:
     (`dyn/rigid_body.py::_CONSTS_CACHE`) and the kernel libraries
     (`qp/kernels.py::_library`, which may start `nvcc`).  The static inputs
     are restored after this warm-up, so it leaves no trace in the state.
-  * then one `torch.cuda.CUDAGraph` is captured, on a memory pool of its
-    own; a capture that fails raises, naming the call.  There is no eager
+  * then the garbage collector runs, and one `torch.cuda.CUDAGraph` is
+    captured, on a memory pool of its own; a capture that fails raises,
+    naming the call.  (A dropped controller's graphs sit in reference
+    cycles until a collection frees them; one that ran during a capture
+    would tear a graph down mid-capture, and the capture fails with
+    cudaErrorStreamCaptureInvalidated.  `torch.cuda.graph` no longer
+    collects first by default, so this module does.)  There is no eager
     fallback on the card and no switch to turn capture off.
   * `__call__(**new_values)` copies the new values into the static inputs
     (on the current stream), replays the graph on the current stream and
@@ -33,6 +38,7 @@ they move at the warm-up and the capture.
 
 from __future__ import annotations
 
+import gc
 from typing import Callable
 
 import torch
@@ -71,6 +77,7 @@ class CapturedCall:
                 t.copy_(saved[k])
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):

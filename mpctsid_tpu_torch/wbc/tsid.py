@@ -13,6 +13,13 @@ Decision variable x = [qdd(18); f(12)] in R^30.  Two deliberate choices:
   * the swing-foot tracking task is weight-masked (w_foot * (1 - contact))
     instead of being added/removed, keeping H's sparsity pattern static.
 
+`solve_wbc_contract` is the tier held to the float64 oracle.  It drops the
+ridge and zeroes the swing forces' columns of A instead: those forces then
+leave every constraint, their cost 0.5 w_force f^2 (the MPC plan is zero on
+a swing foot) puts their optimum at exactly 0, and the QP's optimum is the
+oracle's (which pins them by l = u = 0 bounds).  The ridge alone moves the
+optimal torques by up to 1e-3 Nm on a bound tick.
+
 The QP has equality rows (base dynamics, stance contacts), which puts it
 outside the M2 kernel's validity domain: `solve_wbc` takes every backend of
 qp/admm.py that keeps the explicit refinement residual and refuses the M2
@@ -36,6 +43,16 @@ NF = 12
 NXW = NV + NF       # 30
 KD_CONTACT = 20.0   # stance-foot drift damping
 W_PIN = 1e6         # swing-force Hessian ridge (see module docstring)
+# The budget of `solve_wbc_contract`: float64 QPs, swing forces pinned
+# exactly, 1200 iterations in 3 rounds and the KKT polish.  WBC_PARITY_SOLVER's
+# 150 iterations with the ridge (the JAX package's float64 tier) stay within
+# 2.6e-5 Nm of the oracle on trot but lie 8e-3 / 0.11 / 0.31 Nm from it on
+# walk / bound / pace ticks: the active set is not found yet.  Measured over
+# the oracle cascade's first 40 ticks of each gait, warm-started tick to tick:
+# 600 iterations still leave 5.6e-4 Nm on two pace ticks, 1200 iterations
+# 3.0e-7 Nm at most (tests/test_torch_oracle_parity.py).
+CONTRACT_ITERS = 1200
+CONTRACT_ADAPT_ROUNDS = 3
 
 
 @dataclasses.dataclass
@@ -67,6 +84,14 @@ def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
 
     q (B, 19), v (B, 18).  extra_base_inertia: optional (B, 6, 6) base
     spatial-inertia addend (the WBC side of a payload perturbation)."""
+    return _build_wbc_qp(tree, cfg, q, v, refs, extra_base_inertia,
+                         exact_pin=False)
+
+
+def _build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
+                  extra_base_inertia, exact_pin: bool):
+    """`build_wbc_qp`; exact_pin: the swing forces pinned as
+    `solve_wbc_contract` pins them (see the module docstring)."""
     dtype = q.dtype
     dev = q.device
     B = q.shape[0]
@@ -124,7 +149,8 @@ def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
 
     # strict convexity + swing-force ridge
     H_diag[:, :NV] += 1e-6
-    H_diag[:, NV:] += 1e-6 + W_PIN * (1.0 - c).repeat_interleave(3, dim=-1)
+    ridge = W_PIN * (1.0 - c).repeat_interleave(3, dim=-1)
+    H_diag[:, NV:] += 1e-6 + (0.0 if exact_pin else ridge)
 
     # ---- constraints (50 rows) ------------------------------------------
     # base dynamics equalities (6)
@@ -158,6 +184,9 @@ def build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     u_con = torch.where(crep > 0.5, b_con, INF)
 
     A_c = torch.cat([A_dyn, A_tau, A_pyr, A_con], dim=1)
+    if exact_pin:
+        in_cols = torch.cat([q.new_ones((B, NV)), crep], dim=1)
+        A_c = A_c * in_cols[:, None, :]
     l_c = torch.cat([l_dyn, l_tau, l_pyr, l_con], dim=1)
     u_c = torch.cat([u_dyn, u_tau, u_pyr, u_con], dim=1)
     return H, g, A_c, l_c, u_c, M, h, JcT
@@ -185,8 +214,34 @@ def solve_wbc(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
             "domain: their 1e3 rho boost pushes cond(K) to ~1e4, where the "
             "folded map M2 loses the accuracy the explicit residual keeps; "
             "use 'torch', 'vpu', 'packed', 'mma', 'fused' or 'auto'")
-    H, g, A, l, u, M, h, JcT = build_wbc_qp(
-        tree, cfg, q, v, refs, extra_base_inertia=extra_base_inertia)
+    qp = build_wbc_qp(tree, cfg, q, v, refs,
+                      extra_base_inertia=extra_base_inertia)
+    return _solve_tick(qp, iters, adapt_rounds, warm_x, warm_y, backend,
+                       polish)
+
+
+def solve_wbc_contract(tree: KinematicTree, cfg: WbcConfig, q, v,
+                       refs: WbcRefs, warm_x=None, warm_y=None):
+    """One WBC tick of the tier held to the float64 oracle within the
+    contract's 1e-4 Nm: the inputs promoted to float64, the swing forces
+    pinned exactly (module docstring), CONTRACT_ITERS iterations in
+    CONTRACT_ADAPT_ROUNDS rounds on the plain backend, then the KKT polish.
+    Returns what `solve_wbc` returns, in float64."""
+    f64 = torch.float64
+    q, v = q.to(f64), v.to(f64)
+    refs = WbcRefs(**{f.name: getattr(refs, f.name).to(f64)
+                      for f in dataclasses.fields(refs)})
+    warm_x = None if warm_x is None else warm_x.to(f64)
+    warm_y = None if warm_y is None else warm_y.to(f64)
+    qp = _build_wbc_qp(tree, cfg, q, v, refs, None, exact_pin=True)
+    return _solve_tick(qp, CONTRACT_ITERS, CONTRACT_ADAPT_ROUNDS, warm_x,
+                       warm_y, "torch", True)
+
+
+def _solve_tick(qp, iters: int, adapt_rounds: int, warm_x, warm_y,
+                backend: str, polish: bool):
+    """Solve one tick's QP (`build_wbc_qp`'s tuple): (tau, qdd, f, sol)."""
+    H, g, A, l, u, M, h, JcT = qp
     # status_tol 0.5: a cold-started fixed-iteration WBC solve legitimately
     # sits at prim ~0.2 on the acceleration-scale constraint rows (m/s^2);
     # the failure policy should only trip on divergence/non-finite solves

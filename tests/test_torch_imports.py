@@ -44,6 +44,10 @@ def test_the_port_has_sources_to_check():
     for source in ("admm_m2.cu", "admm_vpu.cu", "admm_packed.cu",
                    "admm_fused.cu", "admm_mma.cu", "admm_block.cuh"):
         assert (PORT / "qp" / "csrc" / source).exists(), source
+    for module in ("__init__.py", "cascade.py", "dynamics.py",
+                   "estimator.py", "mpc.py", "planner.py", "qp.py", "sim.py",
+                   "wbc.py"):
+        assert PORT / "oracle" / module in PORT_SOURCES, module
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -78,9 +82,10 @@ names = [m.name for m in pkgutil.walk_packages(mpctsid_tpu_torch.__path__,
                                                "mpctsid_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-assert len(names) >= 36, names
+assert len(names) >= 45, names
 for n in ("est.filter", "env.interface", "sweep", "host", "utils.graphs",
-          "native.runtime", "dist.mesh", "entry"):
+          "native.runtime", "dist.mesh", "entry", "oracle.cascade",
+          "oracle.sim", "oracle.estimator"):
     assert "mpctsid_tpu_torch." + n in names, n
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "flax" or m.startswith("flax.") or m == "msgpack"
