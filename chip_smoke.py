@@ -74,9 +74,12 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
   6. single   B=1, one period per WBC backend (the single-robot shape)
   7. sweep    the Monte-Carlo entry point: run_sweep over 2048 scenarios
               (mixed gaits, commands, friction, payload) in chunks of 1024, 3
-              periods, default backends; then the same sweep stopped after
-              one chunk, saved, loaded and finished: the two metric tables
-              must be equal bit for bit
+              periods, default backends, each chunk replaying one CUDA graph
+              per period (captured once: the launch counters move by two
+              periods, the warm-up and the capture); then the same sweep
+              stopped after one chunk, saved, loaded and finished: the two
+              metric tables must be equal bit for bit; the first chunk run
+              eagerly (cascade_rollout) equals the sweep's bit for bit
   8. accuracy the paths that carry the contract's 1e-4: solve_mpc_batch at
      tiers    B = 1024 on the port's own mid-gait trot MPC problems; the
               polished MPC tier (100 iterations in 4 rounds, KKT polish) in
@@ -102,9 +105,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               telemetry ring holding every tick's torques) and async
               (planner thread on its own stream), with compute()'s p50 and
               p99 against the 2 ms budget (printed, not a gate)
-  10. shard   a one-rank NCCL group runs sharded_cascade_rollout at
-              B = 1024 for one period: its all-reduced summary against the
-              same reductions of an unsharded cascade_rollout; entry()'s
+  10. shard   a one-rank NCCL group runs sharded_cascade_rollout (the
+              graphed rollout) at B = 1024 for one period: its all-reduced
+              summary against the same reductions of an unsharded eager
+              cascade_rollout; entry()'s
               cascade period on the card; dryrun_multichip refuses more
               ranks than cards
   11. oracle  the contract against the float64 oracle (mpctsid_tpu_torch/
@@ -141,9 +145,29 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                   tests/test_cascade_jax.py and x within 0.02 m of the
                   oracle's closed loop; every row upright, kernel 1 twice
                   a period
+  12. graphs  the batched period as one CUDA graph
+              (cascade/graphed.py, the counterpart of jax.jit over the
+              cascade): for each of phase 4's five configurations at
+              B = 4096, a runner captures cascade_period from the rollout's
+              initial state (the launch counters move by two periods: the
+              warm-up and the capture); 12a each of the 3 periods replayed
+              from phase 4's eager state of the period before, every state
+              field and metric against eager (GRAPH_TOL; bit for bit
+              printed), and the 3-period chain through
+              cascade_rollout_graphed; 12b the profiler counts the kernels
+              inside one replay (kernel 1 twice, the WBC's kernel 20 or 60
+              times, kernel 5 62 times: an eager period's launches), the
+              copies, the device-busy ms; 12c period wall ms eager (phase
+              4's) and graphed, median of 3, each ended by a synchronize,
+              the idle share of a graphed period, the capture seconds and
+              the pool's bytes; 12d the plain and the fused WBC at B = 1
+              and B = 256: eager and graphed period times, the state after
+              3 replayed periods against eager
 
 The line before the last is one JSON object describing every kernel of the
-path; the last line is {"ok": true, "device": {...}}.
+path (`launches_per_captured_period`: the kernel's launches inside one
+replay of phase 12's graph); the last line is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -162,7 +186,9 @@ import numpy as np
 import torch
 
 from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
-                                       engine, init_controller)
+                                       cascade_rollout_graphed, clear_runners,
+                                       engine, init_controller, period_runner)
+from mpctsid_tpu_torch.cascade.graphed import cached_runners
 from mpctsid_tpu_torch.config import PRESETS, WBC_PARITY_SOLVER, EngineConfig
 from mpctsid_tpu_torch.dist import (init_scenario_group, scenario_summary,
                                     sharded_cascade_rollout)
@@ -182,7 +208,8 @@ from mpctsid_tpu_torch.qp import _build, kernels
 from mpctsid_tpu_torch.qp import admm as admm_mod
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.qp.precision import residual_matvec
-from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, run_sweep,
+from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, chunk_inputs,
+                                     chunk_metrics, run_sweep,
                                      scenario_params, summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
 from mpctsid_tpu_torch.utils.graphs import CapturedCall
@@ -249,6 +276,7 @@ REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
 # the same inputs: the same bits are expected; 1e-6 is the bar if a library
 # picks another summation order under capture.
 GRAPH_TOL = 1e-6
+GRAPH_TIMED = 3            # phase 12: timed periods, eager and graphed
 HOST_SECONDS = 0.6         # simulated time of each closed-loop host run
 TICK_BUDGET_MS = 2.0       # p50 single-tick latency at B = 1 (BASELINE.json:2)
 # (MPC backend, WBC backend) of the captured host controllers: every WBC
@@ -855,23 +883,80 @@ def make_scenarios(cfg, B: int, seed: int, device):
     return cc, ctl, plant, gid, v, cp
 
 
+@dataclasses.dataclass
+class EagerRecord:
+    """What phase 4's eager rollout of one configuration leaves for phase
+    12: the rollout's arguments, the state at every period boundary
+    ((ctl, plant, est) before period 0, after period 0, ...), each period's
+    metrics and wall seconds (each ended by a synchronize)."""
+
+    tag: str
+    cc: CascadeConfigured
+    gid: torch.Tensor
+    v: torch.Tensor
+    cp: ContactParams
+    use_estimator: bool
+    solver_kw: dict
+    states: list = dataclasses.field(default_factory=list)
+    metrics: list = dataclasses.field(default_factory=list)
+    walls: list = dataclasses.field(default_factory=list)
+
+
+@contextlib.contextmanager
+def recorded_periods(rec: EagerRecord):
+    """cascade_rollout's periods recorded into `rec` (the hook wraps
+    engine.cascade_period, which the rollout calls by name; the graphed
+    runner holds its own reference and is never recorded)."""
+    original = engine.cascade_period
+
+    def hook(cc, ctl, plant, gait_id, v_cmd, contact_params, est=None,
+             **kw):
+        if not rec.states:
+            rec.states.append((ctl, plant, est))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = original(cc, ctl, plant, gait_id, v_cmd, contact_params,
+                       est=est, **kw)
+        torch.cuda.synchronize()
+        rec.walls.append(time.time() - t0)
+        rec.states.append(out[:3])
+        rec.metrics.append(out[3])
+        return out
+
+    engine.cascade_period = hook
+    try:
+        yield rec
+    finally:
+        engine.cascade_period = original
+
+
 def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device,
                        mpc_backend: str = None, use_estimator: bool = False):
     """The main path at full width with one WBC backend: ROLLOUT_PERIODS
     periods of the preset from standing, every launch count set to 0 just
     before and read just after.  With `use_estimator` the controller runs on
-    the hint-free complementary filter's estimate.  Returns the counts."""
+    the hint-free complementary filter's estimate.  Returns the counts and
+    the rollout's `EagerRecord`."""
     B = cfg.batch
     cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=0, device=device)
     est = estimator_init(standing(B), device=device) if use_estimator else None
+    tag = f"wbc_backend={wbc_backend}"
+    if mpc_backend is not None:
+        tag = f"mpc_backend={mpc_backend} " + tag
+    if use_estimator:
+        tag = "estimator in the loop, " + tag
+    rec = EagerRecord(tag, cc, torch.as_tensor(gid).to(device),
+                      torch.as_tensor(v).to(device), cp, use_estimator,
+                      dict(mpc_backend=mpc_backend, wbc_backend=wbc_backend))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.time()
-    ctl, plant, metrics = cascade_rollout(
-        cc, ctl, plant, gid, v, cp, n_periods=ROLLOUT_PERIODS, device=device,
-        est=est, use_estimator=use_estimator, mpc_backend=mpc_backend,
-        wbc_backend=wbc_backend)
+    with recorded_periods(rec):
+        ctl, plant, metrics = cascade_rollout(
+            cc, ctl, plant, gid, v, cp, n_periods=ROLLOUT_PERIODS,
+            device=device, est=est, use_estimator=use_estimator,
+            mpc_backend=mpc_backend, wbc_backend=wbc_backend)
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
@@ -880,11 +965,6 @@ def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device,
     finite = all_finite((plant.q, plant.v, ctl.f_plan, x, metrics["tau_rms"]))
     dz = float((x[:, :, 2] - SOLO12.h_ref).abs().max())
     wbc_ok = float(metrics["wbc_ok_frac"].mean())
-    tag = f"wbc_backend={wbc_backend}"
-    if mpc_backend is not None:
-        tag = f"mpc_backend={mpc_backend} " + tag
-    if use_estimator:
-        tag = "estimator in the loop, " + tag
     print(f"  {tag}: {ticks / wall:.1f} ticks/s, "
           f"{wall / ROLLOUT_PERIODS:.3f} s per period, wall {wall:.2f} s, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
@@ -911,7 +991,7 @@ def full_width_rollout(cfg, wbc_backend: str, expect: dict, smi: str, device,
               and bool(torch.isfinite(drift).all())
               and float(drift.max()) < EST_DRIFT_TOL,
               f"{tag}: est_xy_err finite and < {EST_DRIFT_TOL} m")
-    return counts
+    return counts, rec
 
 
 def capture_wbc_tick(cc, ctl, plant, gid, v, cp, tick: int, device):
@@ -1198,10 +1278,10 @@ def latency_line(walls, boundary) -> str:
             f"{np.percentile(ms[~boundary], 50):.3f} ms")
 
 
-def kernels_per_replay(call) -> tuple[dict, int, dict, float]:
+def kernels_per_replay(call) -> tuple[dict, int, dict, float, int]:
     """Of ONE replay of a captured call, as the profiler sees it: ({kernel
     prefix: launches}, device kernels in all, {kernel prefix: device ms},
-    device busy ms: the sum of every kernel's time)."""
+    device busy ms: the sum of every kernel's time, copies and memsets)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1210,11 +1290,12 @@ def kernels_per_replay(call) -> tuple[dict, int, dict, float]:
         torch.cuda.synchronize()
     counts = dict.fromkeys(KERNEL_PREFIX.values(), 0)
     port_ms = dict.fromkeys(KERNEL_PREFIX.values(), 0.0)
-    total, busy_ms = 0, 0.0
+    total, busy_ms, copies = 0, 0.0, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            copies += 1
             continue
         ms = e.time_range.elapsed_us() / 1e3
         total += 1
@@ -1224,7 +1305,7 @@ def kernels_per_replay(call) -> tuple[dict, int, dict, float]:
             if prefix in e.name:
                 counts[prefix] += 1
                 port_ms[prefix] += ms
-    return counts, total, port_ms, busy_ms
+    return counts, total, port_ms, busy_ms, copies
 
 
 def host_graphs(smi: str, device) -> None:
@@ -1972,6 +2053,162 @@ def oracle_contract(smi: str, device) -> None:
               flush=True)
 
 
+# ------------------------------- 12. the batched period as one CUDA graph
+
+def flat_state(ctl, plant, est=None, metrics=None) -> dict:
+    """{"ctl.phase": tensor, ..., "metric.x_srb": tensor, ...}."""
+    out = {}
+    for prefix, st in (("ctl", ctl), ("plant", plant), ("est", est)):
+        if st is not None:
+            out.update({f"{prefix}.{f.name}": getattr(st, f.name)
+                        for f in dataclasses.fields(st)})
+    out.update({f"metric.{k}": t for k, t in (metrics or {}).items()})
+    return out
+
+
+def bit_diff(got: dict, want: dict) -> tuple[float, bool]:
+    """(the largest |got - want| over every tensor of `want`, NaN counted as
+    inf; whether every tensor is equal bit for bit)."""
+    worst, bitwise = 0.0, True
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        if g.dtype == torch.float32:
+            bitwise &= bool(torch.equal(g.view(torch.int32),
+                                        w.view(torch.int32)))
+        else:
+            bitwise &= bool(torch.equal(g, w))
+        if g.numel():
+            d = float((g.double() - w.double()).abs().max())
+            worst = max(worst, d if d == d else float("inf"))
+    return worst, bitwise
+
+
+def timed_ms(fn, reps: int = GRAPH_TIMED) -> list:
+    """Wall ms of `reps` calls of fn, each ended by a synchronize."""
+    return [timed(fn)[1] * 1e3 for _ in range(reps)]
+
+
+def expected_per_replay(cfg, wbc_backend, mpc_backend=None) -> dict:
+    """{kernel prefix: launches} of one period of this configuration."""
+    per = expected_launches(cfg, 1, wbc_backend, mpc_backend)[1]
+    return {KERNEL_PREFIX[name]: n for name, n in per.items()}
+
+
+def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
+    """12a-12c for one of phase 4's configurations at full width: capture
+    from the rollout's initial state; replay every period from the eager
+    state of the period before and hold state and metrics against eager;
+    the 3-period chain through cascade_rollout_graphed; the kernels in one
+    replay; times.  Returns {kernel prefix: launches in one replay}."""
+    tag = rec.tag
+    ctl0, plant0, est0 = rec.states[0]
+    clear_runners()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    runner = period_runner(rec.cc, ctl0, plant0, rec.gid, rec.cp, est=est0,
+                           use_estimator=rec.use_estimator, device=device,
+                           **rec.solver_kw)
+    at_capture = launch_counts()
+    per_period = expected_launches(cfg, 1, rec.solver_kw["wbc_backend"],
+                                   rec.solver_kw["mpc_backend"])[1]
+    check(at_capture == {k: 2 * n for k, n in per_period.items()},
+          f"12, {tag}: launch counters moved by two periods' launches (the "
+          "warm-up and the capture)")
+    # 12a: each period from the eager state of the period before
+    worst, bitwise = 0.0, True
+    for k in range(ROLLOUT_PERIODS):
+        c, p, e = rec.states[k]
+        runner.load(c, p, rec.gid, rec.cp, est=e)
+        out = runner(rec.v)
+        got = flat_state(*runner.state(), metrics=out)
+        want = flat_state(*rec.states[k + 1], metrics=rec.metrics[k])
+        d, b = bit_diff(got, want)
+        worst, bitwise = max(worst, d), bitwise and b
+    # the chain, through the entry point (the runner is cached)
+    ctl_g, plant_g, met_g = cascade_rollout_graphed(
+        rec.cc, ctl0, plant0, rec.gid, rec.v, rec.cp,
+        n_periods=ROLLOUT_PERIODS, est=est0, use_estimator=rec.use_estimator,
+        device=device, **rec.solver_kw)
+    eager_met = {k: torch.stack([m[k] for m in rec.metrics], dim=1)
+                 for k in rec.metrics[0]}
+    ctl_e, plant_e, _ = rec.states[-1]
+    chain, chain_bits = bit_diff(flat_state(ctl_g, plant_g, metrics=met_g),
+                                 flat_state(ctl_e, plant_e,
+                                            metrics=eager_met))
+    print(f"  {tag}: captured in {runner.call.capture_seconds:.2f} s, "
+          f"pool {runner.call.pool_bytes / 2**30:.3f} GiB; {ROLLOUT_PERIODS} "
+          f"periods each from eager's state: max |graph - eager| {worst:.3e}, bit "
+          f"for bit {bitwise}; the {ROLLOUT_PERIODS}-period chain "
+          f"(cascade_rollout_graphed): {chain:.3e}, bit for bit "
+          f"{chain_bits}", flush=True)
+    check(worst <= GRAPH_TOL and chain <= GRAPH_TOL,
+          f"12, {tag}: every replayed period and the chain within "
+          f"{GRAPH_TOL} of eager (state and metrics)")
+    check(launch_counts() == at_capture,
+          f"12, {tag}: nothing launched outside the graph while replaying")
+    # 12b: the kernels inside one replay
+    counts, nodes, port_ms, busy_ms, copies = kernels_per_replay(
+        lambda: runner(rec.v))
+    want = expected_per_replay(cfg, rec.solver_kw["wbc_backend"],
+                               rec.solver_kw["mpc_backend"])
+    # 12c: times, each ended by a synchronize
+    graph_ms = timed_ms(lambda: runner(rec.v))
+    eager_ms = [w * 1e3 for w in rec.walls]
+    g_med = float(np.median(graph_ms))
+    print(f"    one replay: {nodes} kernels + {copies} copies/memsets, the "
+          f"port's {({p: c for p, c in counts.items() if c})}, their device "
+          f"ms {({p: round(t, 3) for p, t in port_ms.items() if t})}; "
+          f"device busy {busy_ms:.3f} ms", flush=True)
+    print(f"    period wall ms, median of {len(graph_ms)}: eager "
+          f"{float(np.median(eager_ms)):.3f} ({eager_ms}), graphed "
+          f"{g_med:.3f} ({graph_ms}); device idle share of a graphed "
+          f"period {1.0 - busy_ms / g_med:.4f}  [{smi}]", flush=True)
+    check(counts == want, f"12, {tag}: one replay launches {want}, an "
+                          "eager period's launches")
+    runner = None
+    clear_runners()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def graphed_times(cfg, B: int, wbc_backend: str, smi: str, device) -> None:
+    """12d: eager and graphed period wall times at batch B (median of
+    GRAPH_TIMED, each ended by a synchronize), and the chained final state
+    held against eager."""
+    cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=4,
+                                                device=device)
+    gid_t = torch.as_tensor(gid).to(device)
+    v_t = torch.as_tensor(v).to(device)
+    eager_ms, c, p = [], ctl, plant
+    for _ in range(GRAPH_TIMED):
+        (c, p, _), wall = timed(lambda: cascade_rollout(
+            cc, c, p, gid, v, cp, n_periods=1, device=device,
+            wbc_backend=wbc_backend))
+        eager_ms.append(wall * 1e3)
+    clear_runners()
+    torch.cuda.empty_cache()
+    runner = period_runner(cc, ctl, plant, gid_t, cp, device=device,
+                           wbc_backend=wbc_backend)
+    runner.load(ctl, plant, gid_t, cp)
+    graph_ms = timed_ms(lambda: runner(v_t))
+    c_g, p_g, _ = runner.state()
+    d, bits = bit_diff(flat_state(c_g, p_g), flat_state(c, p))
+    print(f"  B={B}, wbc_backend={wbc_backend}: period wall ms, median of "
+          f"{GRAPH_TIMED}: eager {float(np.median(eager_ms)):.3f} "
+          f"({eager_ms}), graphed {float(np.median(graph_ms)):.3f} "
+          f"({graph_ms}); capture {runner.call.capture_seconds:.2f} s, pool "
+          f"{runner.call.pool_bytes / 2**30:.3f} GiB; after {GRAPH_TIMED} "
+          f"periods max |graph - eager| {d:.3e}, bit for bit {bits}  "
+          f"[{smi}]", flush=True)
+    check(d <= GRAPH_TOL, f"12d, B={B}, {wbc_backend}: {GRAPH_TIMED} "
+                          f"replayed periods within {GRAPH_TOL} of eager")
+    runner = None
+    clear_runners()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2274,17 +2511,22 @@ def main() -> int:
           f"{cfg.solver.mpc_backend} (default wbc_backend="
           f"{cfg.solver.wbc_backend})")
     path_launches = {}
+    records = []         # phase 12's references: (counted kernel, record)
     for wbc_backend in (cfg.solver.wbc_backend, "fused", "packed", "vpu"):
         counted, expect = expected_launches(cfg, ROLLOUT_PERIODS, wbc_backend)
-        counts = full_width_rollout(cfg, wbc_backend, expect, smi, device)
+        counts, rec = full_width_rollout(cfg, wbc_backend, expect, smi,
+                                         device)
         path_launches[counted] = counts[counted]
+        records.append((counted, rec))
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
     counted, expect = expected_launches(cfg, ROLLOUT_PERIODS, "pallas",
                                         mpc_backend="pallas")
-    counts = full_width_rollout(cfg, "pallas", expect, smi, device,
-                                mpc_backend="pallas", use_estimator=True)
+    counts, rec = full_width_rollout(cfg, "pallas", expect, smi, device,
+                                     mpc_backend="pallas", use_estimator=True)
     path_launches[counted] = counts[counted]
+    records.append((counted, rec))
+    del rec
     torch.cuda.empty_cache()
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched on the main path")
@@ -2394,6 +2636,7 @@ def main() -> int:
     print(f"== 7. run_sweep: {SWEEP_TOTAL} scenarios in chunks of "
           f"{SWEEP_CHUNK}, {SWEEP_PERIODS} periods; then interrupted, saved, "
           "loaded, finished", flush=True)
+    clear_runners()
     reset_launch_counts()
     t0 = time.time()
     whole = run_sweep(SweepState.fresh(0, SWEEP_TOTAL, SWEEP_PERIODS),
@@ -2401,6 +2644,9 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
+    (sweep_runner,) = cached_runners()
+    capture_s = sweep_runner.call.capture_seconds
+    del sweep_runner
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "sweep.npz")
         part = run_sweep(SweepState.fresh(0, SWEEP_TOTAL, SWEEP_PERIODS),
@@ -2413,9 +2659,10 @@ def main() -> int:
     summary = summarize(whole)
     sweep_cfg = EngineConfig()     # run_sweep builds its own, the default
     ticks = SWEEP_TOTAL * SWEEP_PERIODS * sweep_cfg.cascade.mpc_every
+    after = launch_counts()
     print(f"  {ticks / wall:.1f} "
-          f"ticks/s, wall {wall:.2f} s; launches {counts}; {summary}  "
-          f"[{smi}]", flush=True)
+          f"ticks/s, wall {wall:.2f} s ({capture_s:.2f} s of it the "
+          f"capture); launches {counts}; {summary}  [{smi}]", flush=True)
     differing = [k for k in METRIC_KEYS if not np.array_equal(
         whole.metrics[k].view(np.uint32), resumed.metrics[k].view(np.uint32))]
     check(whole.cursor == SWEEP_TOTAL and stopped_at == SWEEP_CHUNK
@@ -2429,12 +2676,30 @@ def main() -> int:
                              resumed.metrics[k].view(np.uint32))
               for k in METRIC_KEYS),
           "sweep: the last checkpoint holds the finished table")
-    expect = expected_launches(
-        sweep_cfg, SWEEP_TOTAL // SWEEP_CHUNK * SWEEP_PERIODS,
-        sweep_cfg.solver.wbc_backend)[1]
-    check(counts == expect, f"sweep: kernel launches are {expect}")
+    # one runner serves every chunk: its warm-up and capture are the only
+    # periods that move the counters
+    expect = expected_launches(sweep_cfg, 2, sweep_cfg.solver.wbc_backend)[1]
+    check(counts == expect, f"sweep: kernel launches are {expect} (one "
+                            "capture for the whole sweep)")
+    check(after == counts, "sweep: the stopped and the resumed run replayed "
+                           "the cached graph (no launch outside it)")
     check(summary["upright_frac"] == 1.0,
           "sweep: every scenario upright after its 60 ms")
+    # the first chunk, run eagerly, against the sweep's graphed first chunk
+    chunk = scenario_params(0, np.arange(SWEEP_CHUNK))
+    cc_e, ctl_e, plant_e, cp_e = chunk_inputs(*chunk, device)
+    _, _, met_e = cascade_rollout(cc_e, ctl_e, plant_e, chunk[0], chunk[1],
+                                  cp_e, n_periods=SWEEP_PERIODS,
+                                  payload=chunk[3], device=device)
+    eager_chunk = chunk_metrics(met_e, chunk[1], SWEEP_PERIODS)
+    differing = [k for k in METRIC_KEYS if not np.array_equal(
+        whole.metrics[k][:SWEEP_CHUNK].view(np.uint32),
+        eager_chunk[k].view(np.uint32))]
+    check(not differing, "sweep: the first chunk (graphed) equals the same "
+          f"chunk run eagerly bit for bit (differing metrics: {differing})")
+    del cc_e, ctl_e, plant_e, cp_e, met_e
+    clear_runners()
+    torch.cuda.empty_cache()
 
     # ---- 8. the accuracy tiers --------------------------------------------
     print("== 8. accuracy tiers: solve_mpc_batch, the polished MPC tier in "
@@ -2456,6 +2721,8 @@ def main() -> int:
     print("== 10. sharded rollout on a one-rank NCCL group; entry()",
           flush=True)
     sharded_path(smi, device)
+    clear_runners()
+    torch.cuda.empty_cache()
     print(f"  phases 9-10 took {time.time() - t_host:.1f} s", flush=True)
 
     # ---- 11. the contract against the float64 oracle ------------------------
@@ -2465,6 +2732,29 @@ def main() -> int:
           flush=True)
     oracle_contract(smi, device)
     print(f"  phase 11 took {time.time() - t_oracle:.1f} s", flush=True)
+
+    # ---- 12. the batched period as one CUDA graph ---------------------------
+    t_graph = time.time()
+    print(f"== 12a-12c. the batched period as one CUDA graph: preset "
+          f"config4_cascade_4k (B={cfg.batch}), phase 4's five "
+          "configurations, each replay against phase 4's eager periods",
+          flush=True)
+    graph_launches = {}
+    for counted, rec in records:
+        counts = graphed_period(rec, cfg, smi, device)
+        graph_launches[counted] = counts[KERNEL_PREFIX[counted]]
+    del records, rec
+    torch.cuda.empty_cache()
+    for name, count in graph_launches.items():
+        reports[name]["launches_per_captured_period"] = count
+    print("== 12d. eager and graphed period times at B = 1 and B = 256",
+          flush=True)
+    for B_, preset in ((1, "config1_trot_single"),
+                       (256, "config2_gait_sweep")):
+        pcfg = PRESETS[preset]
+        for wbc_backend in (pcfg.solver.wbc_backend, "fused"):
+            graphed_times(pcfg, B_, wbc_backend, smi, device)
+    print(f"  phase 12 took {time.time() - t_graph:.1f} s", flush=True)
 
     print(f"== total {time.time() - t_script:.1f} s", flush=True)
     if FAILURES:

@@ -25,7 +25,9 @@ Layout:
   est/      complementary-filter state estimator
   oracle/   the float64 numpy reference (a copy of the JAX package's; no
             torch): the parity target of the contract's 1e-4
-  cascade/  the closed-loop cascade: cascade_period / cascade_rollout
+  cascade/  the closed-loop cascade: cascade_period / cascade_rollout (the
+            eager reference) and cascade_rollout_graphed (one CUDA graph
+            per period, replayed: what run, sweep and dist/ call)
   interop   numpy <-> state dataclasses (carrying a state across packages)
   run       CLI entry point: one closed-loop run
   sweep     CLI entry point: Monte-Carlo scenario sweeps with checkpoints

@@ -3,9 +3,11 @@ the JAX package's dist/mesh.py, which shards over a device mesh).
 
 The engine's parallel dimension is the SCENARIO batch: the cascade is
 embarrassingly parallel across scenarios, so each process (one per card)
-runs `cascade_rollout` on its slice of the batch, and cross-process
-communication is used only for the global reductions the contract names:
-batch-wide QP residual summaries and Monte-Carlo metric aggregation.  Where
+runs `cascade_rollout_graphed` on its slice of the batch (one CUDA graph
+per period on its card, where the JAX module jits the sharded rollout), and
+cross-process communication is used only for the global reductions the
+contract names: batch-wide QP residual summaries and Monte-Carlo metric
+aggregation.  Where
 the JAX module writes `psum` / `pmax` / `pmin` over the mesh axis, this one
 calls `all_reduce` with SUM / MAX / MIN over a process group: NCCL on CUDA,
 gloo on the CPU.
@@ -28,8 +30,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mpctsid_tpu_torch.cascade.engine import (CascadeConfigured,
-                                              cascade_rollout)
+from mpctsid_tpu_torch.cascade.engine import CascadeConfigured
+from mpctsid_tpu_torch.cascade.graphed import cascade_rollout_graphed
 from mpctsid_tpu_torch.utils import resolve_device
 
 __all__ = ["init_scenario_group", "shard_scenarios",
@@ -150,9 +152,10 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
 def sharded_cascade_rollout(cc: CascadeConfigured, n_periods: int,
                             group=None, device="cuda", **solver_kw):
     """Returns fn(ctl, plant, gait_id, v_cmd, contact_params) ->
-    (ctl, plant, metrics, summary): `cascade_rollout` of this process's
-    scenarios on `device`, then the global summary (`scenario_summary`)
-    all-reduced over `group` (default: the default group)."""
+    (ctl, plant, metrics, summary): `cascade_rollout_graphed` of this
+    process's scenarios on `device`, then the global summary
+    (`scenario_summary`) all-reduced over `group` (default: the default
+    group), outside any graph."""
 
     def reduce(t, op):
         t = t.reshape(1).clone()
@@ -160,7 +163,7 @@ def sharded_cascade_rollout(cc: CascadeConfigured, n_periods: int,
         return t[0]
 
     def run(ctl, plant, gait_id, v_cmd, contact_params):
-        ctl, plant, metrics = cascade_rollout(
+        ctl, plant, metrics = cascade_rollout_graphed(
             cc, ctl, plant, gait_id, v_cmd, contact_params,
             n_periods=n_periods, device=device, **solver_kw)
         return ctl, plant, metrics, scenario_summary(metrics, reduce)

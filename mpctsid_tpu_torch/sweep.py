@@ -12,6 +12,12 @@ The checkpoint is a numpy `.npz` archive (`np.savez`).  The JAX package
 writes flax msgpack: the two packages' checkpoint files are NOT
 interchangeable, although they hold the same fields.
 
+Each chunk is one `cascade_rollout_graphed`: on the card every chunk of the
+sweep replays one CUDA graph per period, captured at the first chunk and
+cached (the counterpart of the JAX sweep's `_chunk_runner`, one compiled
+program per chunk shape); the padded tail chunk keeps the chunk's shape, so
+one capture serves the whole sweep.
+
 CLI (runs on the GPU unless --cpu is given, and fails if there is none):
     python -m mpctsid_tpu_torch.sweep --total 4096 --chunk 512 \\
         --ckpt sweep.npz --jsonl sweep_results.jsonl
@@ -30,7 +36,8 @@ import tempfile
 import numpy as np
 import torch
 
-from mpctsid_tpu_torch.cascade import (CascadeConfigured, cascade_rollout,
+from mpctsid_tpu_torch.cascade import (CascadeConfigured,
+                                       cascade_rollout_graphed,
                                        init_controller)
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
@@ -41,8 +48,8 @@ from mpctsid_tpu_torch.utils import resolve_device
 METRIC_KEYS = ["final_z", "upright", "final_x", "vx_err",
                "max_mpc_res", "mpc_fail", "min_wbc_ok_frac"]
 
-__all__ = ["METRIC_KEYS", "SweepState", "scenario_params", "run_sweep",
-           "summarize", "main"]
+__all__ = ["METRIC_KEYS", "SweepState", "scenario_params", "chunk_inputs",
+           "chunk_metrics", "run_sweep", "summarize", "main"]
 
 
 @dataclasses.dataclass
@@ -115,9 +122,9 @@ def scenario_params(seed: int, idx: np.ndarray):
     return gids, vcs, mus, payloads
 
 
-def _run_chunk(gids, vcs, mus, payloads, n_periods: int, device) -> dict:
-    """(gids, vcs, mus, payloads) of one chunk -> per-scenario metric dict
-    of numpy arrays (one device -> host transfer per metric)."""
+def chunk_inputs(gids, vcs, mus, payloads, device):
+    """The rollout's arguments for one chunk: (cc, ctl, plant, contact
+    params), fresh from standing, the chunk's friction and payload."""
     model = SOLO12
     cfg = EngineConfig()
     cc = CascadeConfigured(model, cfg)
@@ -133,9 +140,12 @@ def _run_chunk(gids, vcs, mus, payloads, n_periods: int, device) -> dict:
     cp = ContactParams.default(B, device=device)
     cp = dataclasses.replace(
         cp, mu=torch.as_tensor(mus, dtype=torch.float32).to(device))
-    ctl, plant, m = cascade_rollout(cc, ctl, plant, gids, vcs, cp,
-                                    n_periods=n_periods, payload=payloads,
-                                    device=device)
+    return cc, ctl, plant, cp
+
+
+def chunk_metrics(m: dict, vcs, n_periods: int) -> dict:
+    """A chunk's rollout metrics -> per-scenario metric dict of numpy arrays
+    (one device -> host transfer per metric)."""
     x = m["x_srb"]                                   # (B, n_periods, 12)
     vx_cmd = torch.as_tensor(vcs[:, 0], dtype=x.dtype).to(x.device)
     out = {
@@ -148,6 +158,17 @@ def _run_chunk(gids, vcs, mus, payloads, n_periods: int, device) -> dict:
         "min_wbc_ok_frac": m["wbc_ok_frac"].amin(dim=1),
     }
     return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _run_chunk(gids, vcs, mus, payloads, n_periods: int, device) -> dict:
+    """(gids, vcs, mus, payloads) of one chunk -> per-scenario metric dict
+    of numpy arrays.  The chunk's fresh state and parameters are copied into
+    the cached runner of the chunk's shape."""
+    cc, ctl, plant, cp = chunk_inputs(gids, vcs, mus, payloads, device)
+    _, _, m = cascade_rollout_graphed(cc, ctl, plant, gids, vcs, cp,
+                                      n_periods=n_periods, payload=payloads,
+                                      device=device)
+    return chunk_metrics(m, vcs, n_periods)
 
 
 def run_sweep(state: SweepState, chunk: int, ckpt_path: str | None = None,

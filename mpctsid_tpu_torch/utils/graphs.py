@@ -26,6 +26,12 @@ that the next call reads is what donation is in the JAX package.  On CUDA:
     (on the current stream), replays the graph on the current stream and
     returns the static outputs.  The caller copies out what it keeps before
     the next replay overwrites them.
+  * `capture_seconds` is the wall time of warm-up, capture and
+    instantiation, up to a synchronize; `pool_bytes` what the caching
+    allocator reserved over the capture (the graph's pool: it keeps the
+    eager call's peak for the graph's lifetime).  `close()` drops the graph
+    and its outputs, so that `torch.cuda.empty_cache()` can hand the pool
+    back; a closed call refuses to run.
 
 On the CPU there is no graph: `__call__` copies the new values in the same
 way and calls `fn` eagerly, so the same caller code runs in the tests.
@@ -39,6 +45,7 @@ they move at the warm-up and the capture.
 from __future__ import annotations
 
 import gc
+import time
 from typing import Callable
 
 import torch
@@ -63,11 +70,15 @@ class CapturedCall:
                                  f"be a tensor on {self.device}")
         self.graph = None
         self.outputs = None
+        self.capture_seconds = 0.0
+        self.pool_bytes = 0
+        self.closed = False
         if self.device.type == "cuda":
             self._capture()
 
     def _capture(self) -> None:
         dev = self.device
+        t0 = time.perf_counter()
         saved = {k: t.clone() for k, t in self.inputs.items()}
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -78,6 +89,10 @@ class CapturedCall:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         gc.collect()
+        # `torch.cuda.graph` empties the allocator's cache on entry; do it
+        # first, so that the growth of reserved memory is the graph's pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
@@ -85,10 +100,24 @@ class CapturedCall:
         except Exception as e:
             raise RuntimeError(
                 f"capturing {self.name!r} as a CUDA graph failed: {e}") from e
+        torch.cuda.synchronize(dev)
         self.graph = graph
         self.outputs = outputs
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.capture_seconds = time.perf_counter() - t0
+
+    def close(self) -> None:
+        """Drop the graph and its static outputs (the pool goes back to the
+        caching allocator with them)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = None
+        self.outputs = None
+        self.closed = True
 
     def __call__(self, **new_values):
+        if self.closed:
+            raise RuntimeError(f"{self.name!r} was closed")
         for key, value in new_values.items():
             self.inputs[key].copy_(value, non_blocking=True)
         if self.graph is None:

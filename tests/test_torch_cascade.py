@@ -21,6 +21,7 @@ from mpctsid_tpu.env import plant as jplant
 from mpctsid_tpu.model.solo12 import SOLO12 as J_SOLO12
 from mpctsid_tpu_torch import interop
 from mpctsid_tpu_torch.cascade import engine as tengine
+from mpctsid_tpu_torch.cascade import graphed
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
@@ -165,6 +166,35 @@ def test_period_metrics_match_jax(handoff, port_period):
     for name in ("tau_rms", "fz_sum", "mpc_prim_res", "mpc_dual_res",
                  "mpc_ok", "wbc_ok_frac"):
         assert tuple(met_t[name].shape) == (B,), name
+
+
+def test_graphed_period_matches_eager_and_jax(handoff, port_period):
+    """The same mid-gait period through cascade_rollout_graphed (one CUDA
+    graph per period on the card; on the CPU its function on the runner's
+    static buffers): bit for bit the port's eager period, and so within
+    this file's budgets of the JAX package's."""
+    (ctl_np, plant_np), (ctl_j, plant_j, met_j) = handoff
+    ctl_t, plant_t, met_t = port_period
+    cc = tengine.CascadeConfigured(SOLO12, EngineConfig())
+    ctl = interop.controller_state_from_numpy(ctl_np, device="cpu")
+    plant = interop.plant_state_from_numpy(plant_np, device="cpu")
+    cp = interop.contact_params_from_numpy(_params_numpy(), device="cpu")
+    ctl_g, plant_g, met_g = graphed.cascade_rollout_graphed(
+        cc, ctl, plant, GID, V_CMD, cp, n_periods=1, payload=tt(PAYLOAD),
+        device="cpu")
+    for name, want in interop.controller_state_to_numpy(ctl_t).items():
+        np.testing.assert_array_equal(npy(getattr(ctl_g, name)), want,
+                                      err_msg=name)
+    for name in ("q", "v", "anchor", "in_contact"):
+        np.testing.assert_array_equal(npy(getattr(plant_g, name)),
+                                      npy(getattr(plant_t, name)))
+    assert set(met_g) == set(met_t)
+    for name, t in met_t.items():
+        np.testing.assert_array_equal(npy(met_g[name][:, 0]), npy(t))
+    np.testing.assert_allclose(npy(ctl_g.f_plan), ctl_j["f_plan"], atol=1e-3)
+    np.testing.assert_allclose(npy(plant_g.q), plant_j["q"], atol=2e-3)
+    np.testing.assert_allclose(npy(met_g["x_srb"][:, 0]), met_j["x_srb"],
+                               atol=1e-5)
 
 
 def _standing(batch, gait="trot", **cfg_kw):
