@@ -33,7 +33,7 @@ import torch
 
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls, resolve_device
 
-__all__ = ["entry", "dryrun_multichip"]
+__all__ = ["entry", "dryrun_multichip", "run_ranks"]
 
 _CHILD_ENV = "_MPCTSID_TORCH_DRYRUN_CHILD"
 RANK_TIMEOUT_S = 600
@@ -86,20 +86,16 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """One sharded 5-period cascade over 2 * n_devices scenarios, one
-    process per rank; prints the OK line, raises on any failure."""
-    dev = resolve_device(device)
+def run_ranks(call: str, n_ranks: int,
+              timeout_s: float = RANK_TIMEOUT_S) -> str:
+    """Run the Python statement `call` (with `{rank}` in it) in `n_ranks`
+    fresh interpreters at the repository root, all started together, each
+    with the time limit `timeout_s`; returns rank 0's standard output and
+    raises RuntimeError naming every rank that failed.  A rank that would
+    start ranks of its own refuses (depth guard)."""
     if os.environ.get(_CHILD_ENV):
-        raise RuntimeError("dryrun_multichip was called inside one of its own "
+        raise RuntimeError("run_ranks was called inside one of its own "
                            "ranks; refusing to start ranks of ranks")
-    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
-        raise RuntimeError(
-            f"dryrun_multichip({n_devices}, device='cuda') needs "
-            f"{n_devices} cards, this machine has "
-            f"{torch.cuda.device_count()}; pass device='cpu' for gloo "
-            "processes on the CPU")
-    init_method = f"tcp://localhost:{_free_port()}"
     env = dict(os.environ, **{_CHILD_ENV: "1"})
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = os.pathsep.join(
@@ -107,45 +103,62 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
     procs = []
     logs = []
     try:
-        for rank in range(n_devices):
-            code = ("from mpctsid_tpu_torch.entry import _dryrun_rank; "
-                    f"_dryrun_rank({rank}, {n_devices}, {dev.type!r}, "
-                    f"{init_method!r})")
+        for rank in range(n_ranks):
             # files, not pipes: a rank blocked on a full pipe would stall
             # the collective the others wait in
             out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile(
                 "w+")
             logs.append((out, err))
-            procs.append(subprocess.Popen([sys.executable, "-c", code],
-                                          env=env, cwd=root, text=True,
-                                          stdout=out, stderr=err))
-        deadline = time.monotonic() + RANK_TIMEOUT_S
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", call.format(rank=rank)], env=env,
+                cwd=root, text=True, stdout=out, stderr=err))
+        deadline = time.monotonic() + timeout_s
         failures = []
         for rank, p in enumerate(procs):
             try:
                 p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
                 failures.append(f"rank {rank} did not finish in "
-                                f"{RANK_TIMEOUT_S} s")
+                                f"{timeout_s} s")
                 continue
             if p.returncode != 0:
                 err = logs[rank][1]
                 err.seek(0)
                 failures.append(f"rank {rank} exited {p.returncode}: "
                                 f"{err.read()[-2000:]}")
+        if failures:
+            raise RuntimeError("\n".join(failures))
+        out = logs[0][0]
+        out.seek(0)
+        return out.read()
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if failures:
-        raise RuntimeError("dryrun_multichip failed:\n" + "\n".join(failures))
-    out = logs[0][0]
-    out.seek(0)
-    sys.stdout.write(out.read())
-    for out, err in logs:
-        out.close()
-        err.close()
+        for out, err in logs:
+            out.close()
+            err.close()
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> None:
+    """One sharded 5-period cascade over 2 * n_devices scenarios, one
+    process per rank; prints the OK line, raises on any failure."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n_devices:
+        raise RuntimeError(
+            f"dryrun_multichip({n_devices}, device='cuda') needs "
+            f"{n_devices} cards, this machine has "
+            f"{torch.cuda.device_count()}; pass device='cpu' for gloo "
+            "processes on the CPU")
+    init_method = f"tcp://localhost:{_free_port()}"
+    try:
+        out = run_ranks("from mpctsid_tpu_torch.entry import _dryrun_rank; "
+                        f"_dryrun_rank({{rank}}, {n_devices}, {dev.type!r}, "
+                        f"{init_method!r})", n_devices)
+    except RuntimeError as e:
+        raise RuntimeError(f"dryrun_multichip failed:\n{e}") from e
+    sys.stdout.write(out)
 
 
 def _dryrun_rank(rank: int, world: int, device_type: str,

@@ -40,7 +40,7 @@ def test_the_port_has_sources_to_check():
     names = {p.name for p in PORT_SOURCES}
     assert {"admm.py", "kernels.py", "engine.py", "chip_smoke.py",
             "filter.py", "interface.py", "sweep.py", "host.py", "graphs.py",
-            "runtime.py", "mesh.py", "entry.py"} <= names
+            "runtime.py", "mesh.py", "entry.py", "bench.py"} <= names
     for source in ("admm_m2.cu", "admm_vpu.cu", "admm_packed.cu",
                    "admm_fused.cu", "admm_mma.cu", "admm_block.cuh"):
         assert (PORT / "qp" / "csrc" / source).exists(), source
