@@ -9,8 +9,9 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the five kernel libraries from
-              mpctsid_tpu_torch/qp/csrc, one nvcc each, all started together
+  2. build    builds the seven kernel libraries from
+              mpctsid_tpu_torch/qp/csrc and mpctsid_tpu_torch/dyn/csrc, one
+              nvcc each, all started together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
@@ -56,13 +57,24 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  on a symmetric K; on a visibly skewed K, where "as given"
                  and "transposed" part, on BOTH paths; two launches bit for
                  bit; timed at both main-path shapes
+              3e the WBC-build and plant-step kernels (dyn/csrc/, over the
+                 rigid-body core rbd.h) against build_wbc_qp_reference and
+                 plant_step_reference on the same inputs at B = 1, 37 and
+                 4096, float32 (1e-4 of each output's largest entry) and
+                 float64 (1e-10), payload off and on, exact_pin off and on:
+                 the four gaits' contact mixes; plant states sliding,
+                 sticking, pulled off the ground and above it, drawn away
+                 from the contact law's switching surfaces; two launches bit
+                 for bit; times at B = 1 and 4096 beside the plain chains'
+                 and the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
               the M2 kernel; once with the plain WBC and once with each
               kernel WBC backend ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
-              counts of every kernel (set to 0 before each rollout); then
+              counts of every kernel (set to 0 before each rollout; the WBC
+              build and the plant step once a tick on every path); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -98,8 +110,12 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               same function run eagerly on the card (outputs and the warm
               starts it writes); the profiler counts the port's kernels in
               one replay of each graph (kernel 1 twice per MPC replay, the
-              WBC backend's kernel once or three times per WBC replay);
-              replay times; then 0.6 s of closed loop, sync on the plain
+              WBC backend's kernel once or three times and the build kernel
+              once per WBC replay); replay times; the `fused` WBC replay
+              holds at most 40 kernels; on the plain and the `fused` WBC the
+              same call captured with the plain QP build and with the build
+              kernel, nodes and replay ms in turns (the before and after);
+              then 0.6 s of closed loop, sync on the plain
               and the fused WBC (upright, forward progress, plans consumed,
               WBC ok >= 0.99, no kernel launched outside the graphs, the
               telemetry ring holding every tick's torques) and async
@@ -209,8 +225,12 @@ from mpctsid_tpu_torch.cascade.graphed import cached_runners
 from mpctsid_tpu_torch.config import PRESETS, WBC_PARITY_SOLVER, EngineConfig
 from mpctsid_tpu_torch.dist import (init_scenario_group, scenario_summary,
                                     sharded_cascade_rollout)
+from mpctsid_tpu_torch.dyn import foot_positions, point_mass_spatial
+from mpctsid_tpu_torch.dyn import kernels as rbd_kernels
 from mpctsid_tpu_torch.entry import dryrun_multichip, entry
-from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
+from mpctsid_tpu_torch.env.plant import (ContactParams, PlantState,
+                                         contact_margins, plant_step,
+                                         plant_step_reference)
 from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.host import HostController
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAITS
@@ -230,6 +250,7 @@ from mpctsid_tpu_torch.sweep import (METRIC_KEYS, SweepState, chunk_inputs,
                                      scenario_params, summarize)
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls
 from mpctsid_tpu_torch.utils.graphs import CapturedCall
+from mpctsid_tpu_torch.wbc import tsid as tsid_mod
 from mpctsid_tpu_torch.wbc.tsid import (CONTRACT_ITERS, WbcRefs, solve_wbc,
                                         solve_wbc_contract)
 
@@ -296,6 +317,10 @@ GRAPH_TOL = 1e-6
 GRAPH_TIMED = 3            # phase 12: timed periods, eager and graphed
 HOST_SECONDS = 0.6         # simulated time of each closed-loop host run
 TICK_BUDGET_MS = 2.0       # p50 single-tick latency at B = 1 (BASELINE.json:2)
+# kernels in one replay of the host path's `fused` WBC graph: kernel 4, the
+# build kernel and the solve's unscaling, residuals and torques (854 with
+# the plain QP build on an H100)
+FUSED_WBC_NODES = 40
 # (MPC backend, WBC backend) of the captured host controllers: every WBC
 # backend, the MPC on kernel 1 (the default) and on kernel 5
 HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
@@ -306,7 +331,9 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "admm_iterate_vpu": "admm_vpu_",
                  "admm_iterate_vpu_packed": "admm_packed_",
                  "admm_solve_fused": "admm_fused_",
-                 "admm_iterate": "admm_mma_"}
+                 "admm_iterate": "admm_mma_",
+                 "wbc_build": "wbc_build_kernel",
+                 "plant_step": "plant_step_kernel"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 # Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
 # oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
@@ -827,13 +854,366 @@ def report_times(label, shape, kernel_ms, plain_ms, bound, smi) -> None:
           f"[{smi}]", flush=True)
 
 
+# ------------------------------------------ 3e. the rigid-body stage kernels
+
+# The WBC build and the plant step against their plain versions
+# (tests/test_torch_rbd_kernels.py holds the same arithmetic on the CPU):
+# float32 within 1e-4 of the plain result relative to the largest entry of
+# each output (of each diagonal block for H, whose 1e6 ridge would set the
+# scale), float64 within 1e-10 (measured on the CPU: 1.4e-7 / 8.8e-7 and
+# 1.1e-16 / 1.5e-15; on an H100: 3.5e-7 / 1.6e-6 and 1.1e-15 / 4.2e-15).
+# The infinite bounds (INF) where the plain version puts them.
+RBD_REL = {torch.float32: 1e-4, torch.float64: 1e-10}
+RBD_B = (1, 37, 4096)
+RBD_GAITS = ("trot", "walk", "bound", "pace")
+# plant states are drawn at least this far (m, N) from a switching surface
+# of the contact law at either substep, where one rounding flips a branch
+RBD_MARGIN = 1e-5
+# the plant's four kinds of scenario, in the order a batch interleaves them
+PLANT_KINDS = ("sliding", "sticking", "pulled off", "above")
+WBC_NAMES = ("H", "g", "A", "l", "u", "M", "h", "JcT")
+
+
+def rbd_ops() -> tuple[int, int, int]:
+    """Operations per scenario that each function NEEDS, for its bound:
+    (WBC build, plant substep, the re-solve of a clamping substep).  Multiply
+    and add are counted apart; a division, square root, sine or cosine as
+    one.  Counted from the model's structure, not from rbd.h's loops, which
+    do about 2.5x more (31 k a build, 30 k a substep): each joint turns
+    about a coordinate axis (that rotation of a 3-vector is 6 operations, a
+    dense one 15), a motion transform [[E, 0], [F, E]] has a zero block and
+    its congruence is formed on one triangle, a foot's Jacobian row has 9
+    non-zero columns (the base's 6, its own leg's 3), the legs' blocks of M
+    are decoupled (its SPD solves factor the legs first: 873 operations
+    where a dense 18 x 18 Cholesky takes 1,944), a row scale (contact
+    damping, task weights) is applied once, and a symmetric product is
+    formed on one triangle at 2 operations a term.  The 6 x 6 inertias are
+    data and counted dense; the anchor drag of a sliding foot (6) is left
+    out.  The payload addend (21 a crba, 36 a rnea) is not counted: the
+    timed runs carry none."""
+    rot, mv3, cross, mv6, sym6 = 6, 15, 9, 66, 21
+    quat_to_rot = 35
+    # leg kinematics: per level a sine and cosine, the placement rotated
+    # and added, the world rotation times an axis rotation (two columns)
+    kin = quat_to_rot + 4 * (3 * (2 + mv3 + 3 + 18) + mv3 + 3)
+    wrench = 2 * mv6 + 3 * cross + 9
+    # rnea at qdd = 0: forward (w, v, wdot, vdot) per level, backward (the
+    # body's wrench, its child's, the force carried to the parent)
+    fwd = (rot + 1) + (cross + 3 + rot) + (rot + 2 + 2) + (cross + 3 + rot
+                                                          + 2 + 2)
+    bwd = wrench + 2 * rot + cross + 3
+    rnea = 3 + wrench + 6 + 4 * (3 * fwd + 3 * bwd + 2 * 6 + 6)
+    # crba: per leg three congruences (F = E S' 27, X' I 180, the lower
+    # triangle of (X' I) X 132, the parent's inertia added), the base's sum,
+    # six joint forces carried to a parent (2 rotations, a cross, an add)
+    congruence = 27 + 180 + 132
+    crba = 4 * (3 * congruence + 2 * sym6 + sym6
+                + 6 * (2 * rot + cross + 3)) + sym6
+    jac = 4 * (3 + mv3 + 27 + 3 * (3 + cross))
+    shared = kin + rnea + crba + jac
+    jv = 12 * (9 + 8)                    # J v over the 9 non-zero columns
+    jtf = 2 * 12 * 9                     # J' f
+    jtdj = 12 + 12 * 9 + 2 * (12 * 21 + 4 * 3 * 18 + 4 * 3 * 6)
+    # the WBC build: drifts (per level r, three crosses, the joint's
+    # velocity and its cross, three updates; the foot), J v, rpy, the task
+    # accelerations, H = J' W J, g = -J' W b, the diagonal tasks, the rows
+    drifts = 3 * mv3 + cross + 4 * (3 * (3 + 3 * cross + 3 + cross + 12)
+                                    + 3 + 3 * cross + 6)
+    wbc = (shared + drifts + jv + 3 + (12 * 7 + 4 * 2) + jtdj
+           + (12 + jtf) + (24 + 84 + 21 + 30 + 20) + (24 + 108 + 24))
+    # the plant substep: elastic forces, M v over M's 216 non-zeros, J' D J,
+    # M + h J' D J on M's 117 lower non-zeros, the right-hand side, the
+    # factor and both triangular solves, the forces at v_imp and the cone,
+    # the integration
+    chol = 4 * (15 + 54 + 126) + 93
+    solve = 2 * 216
+    rhs = 18 + jtf + 3 * 18
+    integrate = quat_to_rot + mv3 + 6 + 3 + 5 + 2 + 1 + 2 + 1 + 3 + 28 + 8 \
+        + 4 + 24
+    substep = (shared + 20 + (216 + 198) + jtdj + 2 * 117 + rhs + chol
+               + solve + jv + 36 + 4 * 9 + integrate)
+    resolve = (rhs - 18) + chol + solve
+    return wbc, substep, resolve
+
+
+WBC_OPS, PLANT_SUBSTEP_OPS, PLANT_RESOLVE_OPS = rbd_ops()
+# floats per scenario: the build reads q, v and the eight references (104)
+# and the payload (36), and writes H, g, A, l, u, M, h, J (3,088); the plant
+# reads q, v, anchor, in_contact, tau, five contact parameters (66) and the
+# payload, and writes q, v, anchor, in_contact, f (61)
+WBC_IN, WBC_OUT, PLANT_IN, PLANT_OUT, PAYLOAD = 104, 3088, 66, 61, 36
+
+
+def random_states(r, n: int, spread: float):
+    """q (n, 19) near standing with unit quaternions, v (n, 18)."""
+    q = np.zeros((n, 19))
+    q[:, 0:2] = r.normal(size=(n, 2)) * 0.2
+    q[:, 2] = SOLO12.h_ref + r.normal(size=n) * 0.01
+    quat = np.concatenate([r.normal(size=(n, 3)) * 0.08, np.ones((n, 1))], 1)
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = SOLO12.q_stand + r.normal(size=(n, 12)) * spread * 0.5
+    return q, r.normal(size=(n, 18)) * spread
+
+
+def wbc_build_inputs(B: int, seed: int):
+    """(q, v, refs, payload) as float32 numpy: the four gaits' contact mixes
+    at random phases, states near standing, swing references near the feet,
+    an MPC plan on the stance feet (the CPU test's draw)."""
+    r = np.random.default_rng(seed)
+    q, v = random_states(r, B, 0.3)
+    contacts = np.stack([GAITS[RBD_GAITS[i % 4]].contacts_at(
+        int(r.integers(0, 16))) for i in range(B)])
+    tree = CascadeConfigured(SOLO12, EngineConfig()).tree
+    feet = foot_positions(tree, torch.tensor(q, dtype=torch.float64)).numpy()
+    refs = dict(
+        contacts=contacts,
+        f_mpc=np.concatenate([r.normal(size=(B, 4, 2)),
+                              r.uniform(2.0, 12.0, size=(B, 4, 1))], -1)
+        * contacts[..., None],
+        foot_pos_ref=feet + r.normal(size=(B, 4, 3)) * 0.01,
+        foot_vel_ref=r.normal(size=(B, 4, 3)) * 0.2,
+        foot_acc_ref=r.normal(size=(B, 4, 3)) * 2.0,
+        q_posture=np.tile(SOLO12.q_stand, (B, 1)),
+        base_rpy_ref=r.normal(size=(B, 2)) * 0.02,
+        h_ref=np.full(B, SOLO12.h_ref))
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    return (f32(q), f32(v), {k: f32(a) for k, a in refs.items()},
+            f32(r.uniform(0.0, 0.4, size=B)))
+
+
+def plant_step_inputs(B: int, seed: int, device):
+    """(state, params, tau, payload) as float32 numpy: the CPU test's four
+    kinds of scenario interleaved (PLANT_KINDS), each drawn at least
+    RBD_MARGIN from the contact law's switching surfaces at both substeps,
+    with the payload and without (checked in float64 on the card); and the
+    number of (scenario, substep) pairs that clamp a foot, per payload."""
+    tree = CascadeConfigured(SOLO12, EngineConfig()).tree
+    r = np.random.default_rng(seed)
+    per_kind = -(-B // len(PLANT_KINDS))
+    picked = []
+    for kind in PLANT_KINDS:
+        rows = []
+        while len(rows) < per_kind:
+            n = per_kind + 64
+            q, v = random_states(r, n, 0.2)
+            if kind == "above":
+                q[:, 2] += 0.03
+            else:
+                q[:, 2] -= r.uniform(0.002, 0.005, size=n)
+                v[:, 0:6] *= 0.1
+            if kind == "sliding":
+                v[:, 0:2] = r.normal(size=(n, 2)) * 1.5
+            if kind == "pulled off":
+                v[:, 2] = r.uniform(1.5, 2.5, size=n)
+            feet = foot_positions(
+                tree, torch.tensor(q, dtype=torch.float64)).numpy()
+            cand = dict(
+                q=q, v=v,
+                anchor=feet[..., 0:2] + r.normal(size=(n, 4, 2)) * 0.002,
+                in_contact=r.integers(0, 2, size=(n, 4)),
+                kp_n=np.full(n, 8000.0), kd_n=np.full(n, 100.0),
+                kp_t=np.full(n, 2000.0), kd_t=np.full(n, 30.0),
+                mu=r.uniform(0.3, 1.0, size=n),
+                tau=r.normal(size=(n, 12)) * 0.5,
+                payload=r.uniform(0.0, 0.4, size=n))
+            cand = {k: np.asarray(a, np.float32) for k, a in cand.items()}
+            ok = np.ones(n, bool)
+            for margin in plant_margins(tree, cand, device)[0]:
+                ok &= margin > RBD_MARGIN
+            rows += [{k: a[i] for k, a in cand.items()}
+                     for i in np.flatnonzero(ok)]
+        picked.append(rows[:per_kind])
+    order = [picked[i % len(PLANT_KINDS)][i // len(PLANT_KINDS)]
+             for i in range(B)]
+    out = {k: np.stack([row[k] for row in order]) for k in order[0]}
+    return out, [int(c) for c in plant_margins(tree, out, device)[1]]
+
+
+def plant_margins(tree, d, device):
+    """([least margin over both substeps, without and with the payload],
+    [clamping (scenario, substep) pairs, without and with it]), float64 on
+    the card."""
+    t64 = lambda a: torch.tensor(a, dtype=torch.float64,  # noqa: E731
+                                 device=device)
+    margins, clamps = [], []
+    for extra in (None, point_mass_spatial(t64(d["payload"]))):
+        st = PlantState(q=t64(d["q"]), v=t64(d["v"]), anchor=t64(d["anchor"]),
+                        in_contact=t64(d["in_contact"]))
+        cp = ContactParams(**{k: t64(d[k]) for k in
+                              ("kp_n", "kd_n", "kp_t", "kd_t", "mu")})
+        least, n_cl = None, 0
+        for _ in range(2):
+            m, cl = contact_margins(tree, st, t64(d["tau"]), 5e-4, cp,
+                                    extra)
+            least = m if least is None else torch.minimum(least, m)
+            n_cl += int(cl.sum())
+            st, _ = plant_step_reference(tree, st, t64(d["tau"]), 5e-4, 1,
+                                         cp, extra)
+        margins.append(least.cpu().numpy())
+        clamps.append(n_cl)
+    return margins, clamps
+
+
+def rbd_rel_err(got, want) -> tuple[float, float]:
+    """(largest |got - want| relative to the largest |want|, largest
+    |got - want|) over the finite entries; (inf, inf) unless the infinite
+    bounds are where the plain version puts them."""
+    inf_w = want.abs() >= 1e19
+    if not (torch.equal(inf_w, got.abs() >= 1e19)
+            and torch.equal(got[inf_w], want[inf_w])):
+        return float("inf"), float("inf")
+    d = (got - want)[~inf_w].abs().max()
+    scale = want[~inf_w].abs().max().clamp_min(1e-30)
+    return float(d / scale), float(d)
+
+
+def compare_wbc_build(tree, cfg, inputs, dtype, device) -> tuple:
+    """The build kernel against build_wbc_qp_reference on the card, payload
+    off and on, exact_pin off and on; two launches bit for bit.  Returns
+    the largest (relative, absolute) error."""
+    q, v, refs, payload = inputs
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    q, v, payload = t(q), t(v), t(payload)
+    refs = WbcRefs(**{k: t(a) for k, a in refs.items()})
+    worst = (0.0, 0.0)
+    for extra in (None, point_mass_spatial(payload)):
+        for pin in (False, True):
+            got = tsid_mod.wbc_build(tree, cfg, q, v, refs, extra, pin)
+            again = tsid_mod.wbc_build(tree, cfg, q, v, refs, extra, pin)
+            want = tsid_mod.build_wbc_qp_reference(tree, cfg, q, v, refs,
+                                                   extra, pin)
+            pairs = list(zip(got, want)) + [
+                (got[0][:, :18, :18], want[0][:, :18, :18]),
+                (got[0][:, 18:, 18:], want[0][:, 18:, 18:])]
+            errs = [rbd_rel_err(g, w) for g, w in pairs]
+            rel, ab = max(e[0] for e in errs), max(e[1] for e in errs)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            layout = all(g.shape == w.shape and g.stride() == w.stride()
+                         for g, w in zip(got, want))
+            check(rel <= RBD_REL[dtype] and same and layout,
+                  f"3e: wbc_build, B={q.shape[0]}, {str(dtype)[6:]}, payload "
+                  f"{extra is not None}, exact_pin {pin}: within "
+                  f"{RBD_REL[dtype]:g} of the plain version (relative), "
+                  "shapes and strides its own, two launches bit for bit")
+            worst = (max(worst[0], rel), max(worst[1], ab))
+    return worst
+
+
+def compare_plant_step(tree, inputs, dtype, device) -> tuple:
+    """The plant kernel against plant_step_reference on the card, payload
+    off and on; two launches bit for bit; returns the largest (relative,
+    absolute) error."""
+    d = inputs
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    st = PlantState(q=t(d["q"]), v=t(d["v"]), anchor=t(d["anchor"]),
+                    in_contact=t(d["in_contact"]))
+    cp = ContactParams(**{k: t(d[k]) for k in
+                          ("kp_n", "kd_n", "kp_t", "kd_t", "mu")})
+    worst = (0.0, 0.0)
+    for extra in (None, point_mass_spatial(t(d["payload"]))):
+        got = plant_step(tree, st, t(d["tau"]), params=cp,
+                         extra_base_inertia=extra)
+        again = plant_step(tree, st, t(d["tau"]), params=cp,
+                           extra_base_inertia=extra)
+        want = plant_step_reference(tree, st, t(d["tau"]), 0.001, 2, cp,
+                                    extra)
+        fields = ("q", "v", "anchor", "in_contact")
+        flat = lambda o: [getattr(o[0], k) for k in fields] + [o[1]]  # noqa
+        errs = [rbd_rel_err(g, w) for g, w in zip(flat(got), flat(want))]
+        rel, ab = max(e[0] for e in errs), max(e[1] for e in errs)
+        same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+        check(rel <= RBD_REL[dtype] and same and torch.equal(
+            got[0].in_contact, want[0].in_contact),
+              f"3e: plant_step, B={st.q.shape[0]}, {str(dtype)[6:]}, "
+              f"payload {extra is not None}: within {RBD_REL[dtype]:g} of "
+              "the plain version (relative), contacts equal, two launches "
+              "bit for bit")
+        worst = (max(worst[0], rel), max(worst[1], ab))
+    return worst
+
+
+def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
+    """3e: the WBC-build and plant-step kernels against their plain
+    versions at B = 1, 37 and 4096, float32 and float64; their times at
+    B = 1 and 4096 (float32, no payload: the main path's), the plain
+    chains' and the bounds."""
+    cfg = EngineConfig()
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    Bmax = max(RBD_B)
+    wbc_in = wbc_build_inputs(Bmax, 60)
+    plant_in, clamps = plant_step_inputs(Bmax, 61, device)
+    print(f"  plant states: {PLANT_KINDS} interleaved, each at least "
+          f"{RBD_MARGIN:g} from a switching surface; (scenario, substep) "
+          f"pairs that clamp a foot at B={Bmax}: {clamps[0]} (payload "
+          f"{clamps[1]})", flush=True)
+    errs = {"wbc_build": {}, "plant_step": {}}
+    for B in RBD_B:
+        w_in = (wbc_in[0][:B], wbc_in[1][:B],
+                {k: a[:B] for k, a in wbc_in[2].items()}, wbc_in[3][:B])
+        p_in = {k: a[:B] for k, a in plant_in.items()}
+        for dtype in (torch.float32, torch.float64):
+            e_w = compare_wbc_build(tree, cfg.wbc, w_in, dtype, device)
+            e_p = compare_plant_step(tree, p_in, dtype, device)
+            errs["wbc_build"][(B, dtype)] = e_w
+            errs["plant_step"][(B, dtype)] = e_p
+            print(f"  B={B} {str(dtype)[6:]}: wbc_build max rel "
+                  f"{e_w[0]:.3e} (abs {e_w[1]:.3e}), plant_step max rel "
+                  f"{e_p[0]:.3e} (abs {e_p[1]:.3e})", flush=True)
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    timed_out = {}
+    for B in (1, Bmax):
+        q, v = t(wbc_in[0][:B]), t(wbc_in[1][:B])
+        refs = WbcRefs(**{k: t(a[:B]) for k, a in wbc_in[2].items()})
+        st = PlantState(q=t(plant_in["q"][:B]), v=t(plant_in["v"][:B]),
+                        anchor=t(plant_in["anchor"][:B]),
+                        in_contact=t(plant_in["in_contact"][:B]))
+        cp = ContactParams(**{k: t(plant_in[k][:B]) for k in
+                              ("kp_n", "kd_n", "kp_t", "kd_t", "mu")})
+        tau = t(plant_in["tau"][:B])
+        w_ms = time_ms(lambda: tsid_mod.wbc_build(tree, cfg.wbc, q, v,
+                                                  refs), 3, 50)
+        w_plain = time_ms(lambda: tsid_mod.build_wbc_qp_reference(
+            tree, cfg.wbc, q, v, refs), 1, 3)
+        p_ms = time_ms(lambda: plant_step(tree, st, tau, params=cp), 3, 50)
+        p_plain = time_ms(lambda: plant_step_reference(
+            tree, st, tau, 0.001, 2, cp), 1, 3)
+        n_cl = clamps[0] if B == Bmax else plant_margins(
+            tree, {k: a[:B] for k, a in plant_in.items()}, device)[1][0]
+        w_bound = bound_ms(B * (WBC_IN + WBC_OUT), B * WBC_OPS)
+        p_bound = bound_ms(
+            B * (PLANT_IN + PLANT_OUT),
+            2 * B * PLANT_SUBSTEP_OPS + n_cl * PLANT_RESOLVE_OPS)
+        report_times("wbc_build", f"B={B} float32", w_ms, w_plain, w_bound,
+                     smi)
+        report_times("plant_step", f"B={B} float32, 2 substeps", p_ms,
+                     p_plain, p_bound, smi)
+        timed_out[B] = ((w_ms, w_plain, w_bound), (p_ms, p_plain, p_bound))
+    for i, (name, src, replaces) in enumerate((
+            ("wbc_build", "wbc_build.cu", "mpctsid_tpu/wbc/tsid.py:69"),
+            ("plant_step", "plant_step.cu", "mpctsid_tpu/env/plant.py:131"))):
+        (ms, plain, bound), (ms1, plain1, bound1) = (
+            timed_out[Bmax][i], timed_out[1][i])
+        f32 = [e for (B, dt), e in errs[name].items() if dt == torch.float32]
+        f64 = [e for (B, dt), e in errs[name].items() if dt == torch.float64]
+        reports[name] = dict(
+            source=f"mpctsid_tpu_torch/dyn/csrc/{src}", replaces=replaces,
+            max_abs_err=max(e[1] for e in f32),
+            max_rel_err=max(e[0] for e in f32),
+            max_rel_err_f64=max(e[0] for e in f64),
+            ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+            ms_b1=ms1, plain_ms_b1=plain1, bound_ms_b1=bound1[0],
+            bound_by_b1=bound1[1])
+
+
 # ---------------------------------------------------------------- main path
 
 COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "admm_iterate_vpu": kernels.admm_iterate_vpu,
            "admm_iterate_vpu_packed": kernels.admm_iterate_vpu_packed,
            "admm_solve_fused": kernels.admm_solve_fused,
-           "admm_iterate": kernels.admm_iterate}
+           "admm_iterate": kernels.admm_iterate,
+           "wbc_build": tsid_mod.wbc_build,
+           "plant_step": plant_step}
 
 
 def reset_launch_counts() -> None:
@@ -858,13 +1238,15 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     """(the kernel this rollout is there to count, every kernel's expected
     launches): the MPC's iteration kernel once per MPC adapt round; the
     whole-solve kernel once per WBC tick; a WBC iteration kernel once per WBC
-    adapt round."""
+    adapt round; the WBC build and the plant step once per tick, whatever
+    the backends."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     expect[mpc_kernel] = periods * cfg.solver.mpc_adapt_rounds
+    ticks = periods * cfg.cascade.mpc_every
+    expect["wbc_build"] = expect["plant_step"] = ticks
     counted = WBC_KERNEL_OF.get(wbc_backend, mpc_kernel)
     if wbc_backend in WBC_KERNEL_OF:
-        ticks = periods * cfg.cascade.mpc_every
         expect[counted] += ticks * (
             1 if wbc_backend == "fused" else cfg.solver.wbc_adapt_rounds)
     return counted, expect
@@ -1251,12 +1633,14 @@ class GraphPlant:
         self._step(tau=torch.as_tensor(tau).reshape(1, 12))
 
 
-def drive_host(ctl, seconds: float, device, settle: float = 0.0):
-    """Closed loop of `ctl` on the plant on the card: returns (min z, final
-    x, compute() wall seconds per tick, which ticks were period
-    boundaries, the returned torques)."""
+def drive_host(ctl, seconds: float, device, settle: float = 0.0,
+               plant=None):
+    """Closed loop of `ctl` on the plant on the card (a GraphPlant made here
+    unless given): returns (min z, final x, compute() wall seconds per tick,
+    which ticks were period boundaries, the returned torques)."""
     cfg = ctl.cfg
-    plant = GraphPlant(ctl.tree, standing_q0(), device)
+    if plant is None:
+        plant = GraphPlant(ctl.tree, standing_q0(), device)
     n = int(round(seconds / cfg.cascade.wbc_dt))
     zs, xs, walls, taus = [], [], [], []
     try:
@@ -1309,48 +1693,48 @@ def flush_cupti() -> None:
     raise RuntimeError("the profiler has not loaded CUPTI (libcupti.so.12)")
 
 
-def kernels_per_replay(call, observations: int = 1
+def kernels_per_replay(call, replays: int = 1
                        ) -> tuple[dict, int, dict, float, int]:
     """Of ONE replay of a captured call, as the profiler sees it: ({kernel
     prefix: launches}, device kernels in all, {kernel prefix: device ms},
     device busy ms: the sum of every kernel's time, copies and memsets).
-    With observations > 1, that many replays are profiled one by one and
-    each count is the largest seen (a profiler drops records, it never adds
-    them); the totals are those of the fullest observation."""
+    One profiled window holds `replays` replays back to back; every count is
+    the window's count over `replays`, rounded up, and times are averaged.
+    A profiler drops records, it never adds them: a window that loses fewer
+    than `replays` records of a kind still counts that kind right (in a
+    process a few minutes old the profiler drops a window's first or last
+    records, flush or not: on an H100 the build kernel of a profiled host
+    WBC replay, kernel 4 of a B = 1 MPC chain)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    best = None
-    for _ in range(observations):
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
+    per = lambda n: -(-n // replays)  # noqa: E731
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(replays):
             call()
-            torch.cuda.synchronize()
-            flush_cupti()
-        counts = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        port_ms = dict.fromkeys(KERNEL_PREFIX.values(), 0.0)
-        total, busy_ms, copies = 0, 0.0, 0
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            if "memcpy" in e.name.lower() or "memset" in e.name.lower():
-                copies += 1
-                continue
-            ms = e.time_range.elapsed_us() / 1e3
-            total += 1
-            busy_ms += ms
-            for prefix in counts:
-                # the profiler's names are demangled signatures ("void
-                # name(...)")
-                if prefix in e.name:
-                    counts[prefix] += 1
-                    port_ms[prefix] += ms
-        if best is not None:
-            counts = {k: max(n, best[0][k]) for k, n in counts.items()}
-        if best is None or total > best[1]:
-            best = (counts, total, port_ms, busy_ms, copies)
-        else:
-            best = (counts, *best[1:])
-    return best
+        torch.cuda.synchronize()
+        flush_cupti()
+    counts = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+    port_ms = dict.fromkeys(KERNEL_PREFIX.values(), 0.0)
+    total, busy_ms, copies = 0, 0.0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            copies += 1
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        total += 1
+        busy_ms += ms
+        for prefix in counts:
+            # the profiler's names are demangled signatures ("void
+            # name(...)")
+            if prefix in e.name:
+                counts[prefix] += 1
+                port_ms[prefix] += ms
+    return ({k: per(n) for k, n in counts.items()}, per(total),
+            {k: t / replays for k, t in port_ms.items()}, busy_ms / replays,
+            per(copies))
 
 
 def host_graphs(smi: str, device) -> None:
@@ -1387,7 +1771,9 @@ def host_graphs(smi: str, device) -> None:
         wbc_name = WBC_KERNEL_OF.get(wbc_backend)
         per = {}
         for name, call in calls.items():
-            per[name] = kernels_per_replay(call)
+            # three replays a window, two windows: the profiler drops a
+            # window's device records as the process ages (flush_cupti)
+            per[name] = kernels_per_replay(call, replays=3)
         times = {name: time_ms(call, 3, 20) for name, call in calls.items()}
         launched = {k: ({p: c for p, c in v[0].items() if c}, v[1])
                     for k, v in per.items()}
@@ -1402,6 +1788,7 @@ def host_graphs(smi: str, device) -> None:
         want_mpc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_mpc[mpc_kernel] = cfg.solver.mpc_adapt_rounds
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        want_wbc[KERNEL_PREFIX["wbc_build"]] = 1
         if wbc_name is not None:
             want_wbc[KERNEL_PREFIX[wbc_name]] = (
                 1 if wbc_backend == "fused" else cfg.solver.wbc_adapt_rounds)
@@ -1411,9 +1798,54 @@ def host_graphs(smi: str, device) -> None:
               f"{tag}: one WBC replay launches {want_wbc}")
         none = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         check(per["boundary"][0] == none and per["swing"][0] == none,
-              f"{tag}: the boundary and swing graphs launch no QP kernel")
+              f"{tag}: the boundary and swing graphs launch no port kernel")
+        print(f"    WBC replay: {per['wbc'][1]} kernels + {per['wbc'][4]} "
+              f"copies/memsets, {times['wbc']:.4f} ms  [{smi}]", flush=True)
+        if wbc_backend == "fused":
+            check(per["wbc"][1] <= FUSED_WBC_NODES,
+                  f"{tag}: the WBC replay holds at most {FUSED_WBC_NODES} "
+                  "kernels (854 with the plain QP build)")
+        if wbc_backend in ("xla", "fused"):
+            wbc_before_after(calls["wbc"], smi, device)
         del ctl, calls, compared
         torch.cuda.empty_cache()
+
+
+def wbc_before_after(call, smi: str, device) -> None:
+    """9b: the host path's captured WBC call (`call`) captured twice more
+    from copies of its inputs, once with the plain QP build
+    (build_wbc_qp_reference, the chain before the kernel) and once as it
+    ships (the build kernel); their kernels per replay and replay ms, timed
+    in turns (before, after, after, before)."""
+
+    def plain_build(tree, cfg, q, v, refs, extra_base_inertia=None,
+                    exact_pin=False):
+        return tsid_mod.build_wbc_qp_reference(tree, cfg, q, v, refs,
+                                               extra_base_inertia, exact_pin)
+
+    def capture(name):
+        inputs = {k: t.clone() for k, t in call.inputs.items()}
+        return CapturedCall(call.fn, inputs, device, name)
+
+    shipped = tsid_mod.wbc_build
+    tsid_mod.wbc_build = plain_build
+    try:
+        before = capture("wbc, plain build")
+    finally:
+        tsid_mod.wbc_build = shipped
+    after = capture("wbc, build kernel")
+    nodes = {k: kernels_per_replay(c, replays=3)[1]
+             for k, c in (("before", before), ("after", after))}
+    ms = {"before": [], "after": []}
+    for k in ("before", "after", "after", "before"):
+        ms[k].append(time_ms(before if k == "before" else after, 3, 20))
+    print(f"    WBC replay before / after the build kernel: "
+          f"{nodes['before']} / {nodes['after']} kernels, "
+          f"{np.mean(ms['before']):.4f} / {np.mean(ms['after']):.4f} ms "
+          f"(in turns: before {ms['before']}, after {ms['after']})  "
+          f"[{smi}]", flush=True)
+    before.close()
+    after.close()
 
 
 def host_closed_loop(smi: str, device) -> None:
@@ -1427,8 +1859,10 @@ def host_closed_loop(smi: str, device) -> None:
         reset_launch_counts()
         ctl = HostController(SOLO12, cfg, standing_q0(), device=device,
                              telemetry=True)
+        plant = GraphPlant(ctl.tree, standing_q0(), device)
         at_capture = launch_counts()
-        zmin, x_end, walls, boundary, taus = drive_host(ctl, seconds, device)
+        zmin, x_end, walls, boundary, taus = drive_host(ctl, seconds, device,
+                                                        plant=plant)
         counts = launch_counts()
         rec = ctl.drain_telemetry(8192)
         ok_frac = float(rec[:, 2].mean()) if len(rec) else 0.0
@@ -1953,9 +2387,11 @@ def oracle_wbc_contract(runs, smi: str, device) -> None:
         if backend in WBC_KERNEL_OF:
             expect[WBC_KERNEL_OF[backend]] += ORACLE_TICKS * (
                 1 if backend == "fused" else cfg.solver.wbc_adapt_rounds)
+        expect["wbc_build"] += ORACLE_TICKS
     counts = launch_counts()
     print(f"    launches {counts}", flush=True)
-    check(counts == expect, f"11b: kernels 2-5 launched {expect}")
+    check(counts == expect, f"11b: kernels 2-5 and the WBC build launched "
+                            f"{expect}")
     hold_launches(log, "11b", smi)
 
 
@@ -2309,7 +2745,7 @@ def bench_phase(smi: str, device, reports: dict) -> None:
     chains = {}
 
     def inspect(name, call):
-        chains[name] = kernels_per_replay(call, observations=2)[0]
+        chains[name] = kernels_per_replay(call, replays=3)[0]
 
     def nonzero(counts):
         return {k: n for k, n in counts.items() if n}
@@ -2333,6 +2769,10 @@ def bench_phase(smi: str, device, reports: dict) -> None:
               f"{nonzero(per)}", flush=True)
         check(per[m2] == 2, "13a: kernel 1 twice in one replay of the "
                             "headline's graph")
+        check(per[KERNEL_PREFIX["wbc_build"]] == 20
+              and per[KERNEL_PREFIX["plant_step"]] == 20,
+              "13a: the WBC build and the plant step once a tick in one "
+              "replay of the headline's graph")
         runner = None
         clear_runners()
         torch.cuda.empty_cache()
@@ -2405,7 +2845,7 @@ def bench_phase(smi: str, device, reports: dict) -> None:
     check(record_digests() == before, "13: RESULTS.md, BENCH_DETAIL.json and "
                                       "MULTIHOST_32K.json byte-identical")
     for name in ("admm_iterate_m2", "admm_iterate_vpu", "admm_solve_fused",
-                 "admm_iterate"):
+                 "admm_iterate", "wbc_build", "plant_step"):
         check(sum(by_function[name].values()) > 0,
               f"13: {name} launched by the bench")
     for name, functions in by_function.items():
@@ -2439,11 +2879,16 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     print("== 2. build", flush=True)
     t0 = time.time()
-    kernels.build_all()
+    _build.build_libraries(
+        [(name, src, hdr) for name, (src, hdr) in kernels.LIBRARIES.items()]
+        + rbd_kernels.build_specs())
     for name in kernels.LIBRARIES:
         kernels._library(name)
+    for name in rbd_kernels.LIBRARIES:
+        rbd_kernels._library(name)
+    n_libs = len(kernels.LIBRARIES) + len(rbd_kernels.LIBRARIES)
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
-    print(f"  {len(kernels.LIBRARIES)} libraries built together and loaded in "
+    print(f"  {n_libs} libraries built together and loaded in "
           f"{time.time() - t0:.2f} s; nvcc seconds each: "
           + ", ".join(f"{k} {v:.2f}" for k, v in _build.BUILD_SECONDS.items()),
           flush=True)
@@ -2703,6 +3148,12 @@ def main() -> int:
         max_abs_err=max(errs), **mma_reports["wbc"],
         **{k + "_mpc_shape": v for k, v in mma_reports["mpc"].items()})
 
+    # ---- 3e. the rigid-body stage kernels vs plain ----------------------
+    print("== 3e. WBC-build and plant-step kernels vs their plain versions",
+          flush=True)
+    rbd_kernels_phase(smi, device, reports)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
@@ -2720,6 +3171,10 @@ def main() -> int:
         counts, rec = full_width_rollout(cfg, wbc_backend, expect, smi,
                                          device)
         path_launches[counted] = counts[counted]
+        if wbc_backend == cfg.solver.wbc_backend:
+            # every rollout launches them; the default one is the main path
+            for name in ("wbc_build", "plant_step"):
+                path_launches[name] = counts[name]
         records.append((counted, rec))
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
@@ -2946,6 +3401,8 @@ def main() -> int:
     for counted, rec in records:
         counts = graphed_period(rec, cfg, smi, device)
         graph_launches[counted] = counts[KERNEL_PREFIX[counted]]
+        for name in ("wbc_build", "plant_step"):
+            graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
     del records, rec
     torch.cuda.empty_cache()
     for name, count in graph_launches.items():
@@ -2971,7 +3428,9 @@ def main() -> int:
         print("chip_smoke FAILED:", *FAILURES, sep="\n  ", file=sys.stderr)
         return 1
 
-    # no single PyTorch call computes any of these functions: library_ms null
+    # no single PyTorch call computes any of these functions: library_ms
+    # null (the WBC build and the plant step replace no TPU kernel: the JAX
+    # package leaves both stages to XLA; `replaces` names its functions)
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", library_ms=None, **r)
         for name, r in reports.items()]}))

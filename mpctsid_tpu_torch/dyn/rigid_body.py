@@ -70,6 +70,15 @@ class LegConsts(torch.nn.Module):
         buf("I_lower", _spatial_inertia(tree, 3))
         buf("I_base", _spatial_inertia(tree, 0))
         buf("eye4", np.eye(4))
+        # joint axis index per level (0 x, 1 y, 2 z): every leg turns about
+        # the same coordinate axes (the functions below write them out as
+        # HAA +x, HFE and KFE +y; dyn/kernels.py packs them for the kernels)
+        axes = []
+        for lvl in range(3):
+            ax = tree.axis[[1 + lvl, 4 + lvl, 7 + lvl, 10 + lvl]]
+            assert np.allclose(ax, ax[0]) and sorted(ax[0]) == [0.0, 0.0, 1.0]
+            axes.append(int(np.argmax(np.abs(ax[0]))))
+        buf("axes", axes)
 
 
 _CONSTS_CACHE: dict = {}

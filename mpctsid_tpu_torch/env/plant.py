@@ -10,7 +10,9 @@ velocity explicitly with the (bounded) clamped forces where clamping
 occurred.  All contact switching is masked arithmetic, per scenario: the
 `any_cl` switch reduces over a scenario's own feet only.  Per-scenario
 friction / contact parameters are data, enabling mu/load perturbation
-batches.
+batches.  On CUDA tensors a whole step is one launch of a hand-written
+kernel (dyn/csrc/plant_step.cu over the rigid-body core rbd.h); its plain
+version (`plant_step_reference`) runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import dataclasses
 import torch
 
 from mpctsid_tpu_torch import dyn
+from mpctsid_tpu_torch.dyn import kernels as rbd
 from mpctsid_tpu_torch.model.tree import NV, KinematicTree
 from mpctsid_tpu_torch.qp.blockinv import spd_inverse
 from mpctsid_tpu_torch.utils import resolve_device
@@ -62,8 +65,114 @@ class PlantState:
                           in_contact=q.new_zeros((B, 4)))
 
 
-def _substep(tree: KinematicTree, st: PlantState, tau, h_dt, p: ContactParams,
-             extra_base_inertia=None):
+def plant_step(tree: KinematicTree, st: PlantState, tau,
+               dt: float = 0.001, substeps: int = 2,
+               params: ContactParams | None = None,
+               extra_base_inertia=None):
+    """One 1 kHz plant step under joint torques tau (B, 12).
+
+    extra_base_inertia: optional (B, 6, 6) base spatial-inertia addend: the
+    TRUE payload carried by the plant in load-perturbation batches.
+
+    Returns (new_state, ground_forces (B, 4, 3) from the last substep).
+
+    CUDA tensors: every substep in one launch of the hand-written kernel on
+    the current stream (dyn/csrc/plant_step.cu; dyn/kernels.py launches
+    it), or an exception: there is no fallback.  CPU tensors, and only
+    because they lie on the CPU: `plant_step_reference`.  Either way the
+    arguments are checked first.  `plant_step.launches` counts kernel
+    launches."""
+    if params is None:
+        params = ContactParams.default(st.q.shape[0], device=st.q.device,
+                                       dtype=st.q.dtype)
+    if st.q.device.type == "cpu":
+        _plant_operands(st, tau, dt, substeps, params, extra_base_inertia)
+        return plant_step_reference(tree, st, tau, dt, substeps, params,
+                                    extra_base_inertia)
+    out = rbd.launch("plant_step", run_plant_step, st.q.device, tree, st,
+                     tau, dt, substeps, params, extra_base_inertia)
+    plant_step.launches += 1
+    return out
+
+
+plant_step.launches = 0
+
+
+def _plant_operands(st, tau, dt, substeps, params, extra_base_inertia):
+    """(inputs, parameters) of one step in rbd.h's PlantIn / PlantPar
+    order; raises unless the arguments are what the kernel takes."""
+    q = st.q
+    B = rbd.check_batch(q, st.v)
+    row = lambda n, t, *tail: rbd.rows(n, t, B, tail, q)  # noqa: E731
+    ins = [row("q", q, 19), row("v", st.v, NV),
+           row("anchor", st.anchor, 4, 2),
+           row("in_contact", st.in_contact, 4), row("tau", tau, 12),
+           row("kp_n", params.kp_n, 1), row("kd_n", params.kd_n, 1),
+           row("kp_t", params.kp_t, 1), row("kd_t", params.kd_t, 1),
+           row("mu", params.mu, 1),
+           (None, 0) if extra_base_inertia is None else
+           row("extra_base_inertia", extra_base_inertia, 6, 6)]
+    substeps = int(substeps)
+    if substeps < 1:
+        raise ValueError(f"substeps must be >= 1, got {substeps}")
+    dt = float(dt)
+    if not dt > 0.0:
+        raise ValueError(f"dt must be > 0, got {dt}")
+    return ins, [dt / substeps, substeps]
+
+
+def run_plant_step(launch_fn, tree, st, tau, dt: float = 0.001,
+                   substeps: int = 2, params=None, extra_base_inertia=None):
+    """The step through `launch_fn` (the kernel's C signature less the
+    stream; dyn/kernels.py::call); returns (rc, (new state, ground
+    forces)), the state of `st`'s own class."""
+    ins, par = _plant_operands(st, tau, dt, substeps, params,
+                               extra_base_inertia)
+    q = st.q
+    B = q.shape[0]
+    outs = [q.new_empty((B, 19)), q.new_empty((B, NV)),
+            q.new_empty((B, 4, 2)), q.new_empty((B, 4)),
+            q.new_empty((B, 4, 3))]
+    rc = rbd.call(launch_fn, tree, q, ins, outs, par)
+    q, v, anchor, in_c, f = outs
+    return rc, (dataclasses.replace(st, q=q, v=v, anchor=anchor,
+                                    in_contact=in_c), f)
+
+
+# ---------------------------------------------------------- the plain version
+
+def plant_step_reference(tree: KinematicTree, st: PlantState, tau,
+                         dt: float = 0.001, substeps: int = 2,
+                         params: ContactParams | None = None,
+                         extra_base_inertia=None):
+    """Plain PyTorch version of `plant_step` (`params` required)."""
+    h_dt = dt / substeps
+    f = st.q.new_zeros((st.q.shape[0], 4, 3))
+    for _ in range(substeps):
+        st, f = _substep_reference(tree, st, tau, h_dt, params,
+                                   extra_base_inertia=extra_base_inertia)
+    return st, f
+
+
+def contact_margins(tree: KinematicTree, st: PlantState, tau, h_dt: float,
+                    params: ContactParams, extra_base_inertia=None):
+    """((B,) distance of each scenario to the switching surfaces of ONE
+    substep of the contact law from state `st`, (B,) whether that substep
+    clamps a foot), from the plain version's own intermediates.  The
+    distance is the least over the feet of |foot z| and, for a foot in
+    contact, |f_raw z| (the unilateral clamp) and | |f_t| - mu f_z | (the
+    cone).  Within a rounding of a surface the kernel and its plain version
+    may take different branches; the CPU tests and chip_smoke.py draw their
+    comparison states away from them (run it in float64)."""
+    return _substep_reference(tree, st, tau, h_dt, params,
+                              extra_base_inertia, margins=True)[2]
+
+
+def _substep_reference(tree: KinematicTree, st: PlantState, tau, h_dt,
+                       p: ContactParams, extra_base_inertia=None,
+                       margins: bool = False):
+    """One substep: (new state, ground forces[, (margin, clamped) as
+    `contact_margins` returns them when `margins`])."""
     q, v = st.q, st.v
     B = q.shape[0]
     M = dyn.crba(tree, q, extra_base_inertia=extra_base_inertia)
@@ -133,25 +242,12 @@ def _substep(tree: KinematicTree, st: PlantState, tau, h_dt, p: ContactParams,
     v_new = torch.where(any_cl, v_exp, v_imp)
 
     q_new = dyn.integrate_q(q, v_new, h_dt)
-    return PlantState(q=q_new, v=v_new, anchor=anchor, in_contact=in_c), f_cl
-
-
-def plant_step(tree: KinematicTree, st: PlantState, tau,
-               dt: float = 0.001, substeps: int = 2,
-               params: ContactParams | None = None,
-               extra_base_inertia=None):
-    """One 1 kHz plant step under joint torques tau (B, 12).
-
-    extra_base_inertia: optional (B, 6, 6) base spatial-inertia addend: the
-    TRUE payload carried by the plant in load-perturbation batches.
-
-    Returns (new_state, ground_forces (B, 4, 3) from the last substep)."""
-    if params is None:
-        params = ContactParams.default(st.q.shape[0], device=st.q.device,
-                                       dtype=st.q.dtype)
-    h_dt = dt / substeps
-    f = st.q.new_zeros((st.q.shape[0], 4, 3))
-    for _ in range(substeps):
-        st, f = _substep(tree, st, tau, h_dt, params,
-                         extra_base_inertia=extra_base_inertia)
-    return st, f
+    new = dataclasses.replace(st, q=q_new, v=v_new, anchor=anchor,
+                              in_contact=in_c)
+    if not margins:
+        return new, f_cl
+    far = torch.full_like(ft_norm, float("inf"))
+    surface = torch.minimum((ft_norm - limit).abs(), f_raw[..., 2].abs())
+    least = torch.minimum(torch.where(in_c > 0.5, surface, far),
+                          feet[..., 2].abs()).amin(dim=1)
+    return new, f_cl, (least, any_cl[:, 0])

@@ -1,7 +1,7 @@
 """Builds the port's CUDA sources at first use and loads them with ctypes.
 
-Each `.cu` file under qp/csrc/ has a plain C interface (no PyTorch headers),
-so `nvcc` compiles it in seconds:
+Each `.cu` file under qp/csrc/ and dyn/csrc/ has a plain C interface (no
+PyTorch headers), so `nvcc` compiles it in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so <sources>
@@ -71,13 +71,13 @@ def find_nvcc() -> str:
         "run without the CUDA toolkit")
 
 
-def _target(name: str, sources: tuple[str, ...],
-            headers: tuple[str, ...]) -> Path:
+def _target(name: str, sources: tuple[str, ...], headers: tuple[str, ...],
+            csrc: Path = CSRC) -> Path:
     """The library's path: its name carries a hash of sources, headers and
     flags."""
     h = hashlib.sha256()
     for f in (*sources, *headers):
-        h.update((CSRC / f).read_bytes())
+        h.update((csrc / f).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -86,18 +86,20 @@ def build_libraries(specs) -> None:
     """Build every library of `specs` that the build directory lacks, one
     `nvcc` process each, all started together.
 
-    specs: iterable of (name, sources, headers); file names under qp/csrc/.
-    Raises if the toolchain is missing or any build fails."""
+    specs: iterable of (name, sources, headers[, csrc]); file names under
+    `csrc`, qp/csrc/ unless given.  Raises if the toolchain is missing or any
+    build fails."""
     jobs = []
-    for name, sources, headers in specs:
-        so = _target(name, sources, headers)
+    for name, sources, headers, *where in specs:
+        csrc = Path(where[0]) if where else CSRC
+        so = _target(name, sources, headers, csrc)
         if so.exists():
             BUILD_SECONDS.setdefault(name, 0.0)
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(CSRC / s) for s in sources]]
+               *[str(csrc / s) for s in sources]]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, so, tmp, cmd, proc, time.perf_counter()))
@@ -116,11 +118,12 @@ def build_libraries(specs) -> None:
 
 
 def load_library(name: str, sources: tuple[str, ...],
-                 headers: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (once per source hash) and load qp/csrc/<sources> as lib<name>."""
+                 headers: tuple[str, ...] = (),
+                 csrc: Path = CSRC) -> ctypes.CDLL:
+    """Build (once per source hash) and load <csrc>/<sources> as lib<name>."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_libraries([(name, sources, headers)])
-        lib = ctypes.CDLL(str(_target(name, sources, headers)))
+        build_libraries([(name, sources, headers, csrc)])
+        lib = ctypes.CDLL(str(_target(name, sources, headers, csrc)))
         _LIBS[name] = lib
     return lib

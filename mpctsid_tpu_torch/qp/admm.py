@@ -490,6 +490,6 @@ def _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,
     z_u = torch.minimum(torch.maximum(Ax0, l0), u0)
     prim = _amax(Ax0 - z_u) if A0.shape[1] else x.new_zeros((x.shape[0],))
     dual = _amax(_mv(P0, x) + q0 + _mtv(A0, y))
-    ok = (torch.isfinite(x).all(dim=-1) & torch.isfinite(prim)
-          & (prim < status_tol))
+    # prim >= 0, and `prim < status_tol` is False where it is NaN or inf
+    ok = torch.isfinite(x).all(dim=-1) & (prim < status_tol)
     return QPSolution(x=x, y=y, z=z_u, prim_res=prim, dual_res=dual, ok=ok)

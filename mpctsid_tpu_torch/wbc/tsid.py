@@ -20,6 +20,11 @@ a swing foot) puts their optimum at exactly 0, and the QP's optimum is the
 oracle's (which pins them by l = u = 0 bounds).  The ridge alone moves the
 optimal torques by up to 1e-3 Nm on a bound tick.
 
+On CUDA tensors the QP build (the dynamics, the foot kinematics and every
+cost and constraint row) is one launch of a hand-written kernel
+(`wbc_build`, dyn/csrc/wbc_build.cu over the rigid-body core rbd.h); its
+plain version (`build_wbc_qp_reference`) runs on CPU tensors.
+
 The QP has equality rows (base dynamics, stance contacts), which puts it
 outside the M2 kernel's validity domain: `solve_wbc` takes every backend of
 qp/admm.py that keeps the explicit refinement residual and refuses the M2
@@ -35,14 +40,17 @@ import torch
 
 from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.config import WbcConfig
+from mpctsid_tpu_torch.dyn import kernels as rbd
 from mpctsid_tpu_torch.model.tree import NV, KinematicTree
 from mpctsid_tpu_torch.qp.admm import INF, admm_solve
 from mpctsid_tpu_torch.utils import device_constant
 
 NF = 12
 NXW = NV + NF       # 30
+NCW = 50            # constraint rows
 KD_CONTACT = 20.0   # stance-foot drift damping
 W_PIN = 1e6         # swing-force Hessian ridge (see module docstring)
+WBC_EPS = 1e-6      # strict-convexity diagonal
 # The budget of `solve_wbc_contract`: float64 QPs, swing forces pinned
 # exactly, 1200 iterations in 3 rounds and the KKT polish.  WBC_PARITY_SOLVER's
 # 150 iterations with the ridge (the JAX package's float64 tier) stay within
@@ -92,6 +100,81 @@ def _build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
                   extra_base_inertia, exact_pin: bool):
     """`build_wbc_qp`; exact_pin: the swing forces pinned as
     `solve_wbc_contract` pins them (see the module docstring)."""
+    return wbc_build(tree, cfg, q, v, refs,
+                     extra_base_inertia=extra_base_inertia,
+                     exact_pin=exact_pin)
+
+
+# ------------------------------------------------- the build kernel's wrapper
+
+def wbc_build(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
+              extra_base_inertia=None, exact_pin: bool = False):
+    """`_build_wbc_qp`'s tuple (H, g, A, l, u, M, h_bias, JcT).
+
+    CUDA tensors: one launch of the hand-written kernel on the current
+    stream (dyn/csrc/wbc_build.cu; dyn/kernels.py launches it), or an
+    exception: there is no fallback.  CPU tensors, and only because they lie
+    on the CPU: `build_wbc_qp_reference`.  Either way the arguments are
+    checked first.  `wbc_build.launches` counts kernel launches."""
+    if q.device.type == "cpu":
+        _wbc_operands(cfg, q, v, refs, extra_base_inertia, exact_pin)
+        return build_wbc_qp_reference(tree, cfg, q, v, refs,
+                                      extra_base_inertia, exact_pin)
+    out = rbd.launch("wbc_build", run_wbc_build, q.device, tree, cfg, q, v,
+                     refs, extra_base_inertia, exact_pin)
+    wbc_build.launches += 1
+    return out
+
+
+wbc_build.launches = 0
+
+
+def _wbc_operands(cfg, q, v, refs, extra_base_inertia, exact_pin):
+    """(inputs, parameters) of one build in rbd.h's WbcIn / WbcPar order;
+    raises unless the arguments are what the kernel takes."""
+    B = rbd.check_batch(q, v)
+    row = lambda n, t, *tail: rbd.rows(n, t, B, tail, q)  # noqa: E731
+    ins = [row("q", q, 19), row("v", v, NV),
+           row("contacts", refs.contacts, 4),
+           row("f_mpc", refs.f_mpc, 4, 3),
+           row("foot_pos_ref", refs.foot_pos_ref, 4, 3),
+           row("foot_vel_ref", refs.foot_vel_ref, 4, 3),
+           row("foot_acc_ref", refs.foot_acc_ref, 4, 3),
+           row("q_posture", refs.q_posture, 12),
+           row("base_rpy_ref", refs.base_rpy_ref, 2),
+           row("h_ref", refs.h_ref, 1),
+           (None, 0) if extra_base_inertia is None else
+           row("extra_base_inertia", extra_base_inertia, 6, 6)]
+    par = [cfg.w_foot, cfg.w_force, cfg.w_posture, cfg.w_base, cfg.kp_foot,
+           cfg.kd_foot, cfg.kp_posture, cfg.kd_posture, cfg.kp_base,
+           cfg.kd_base, cfg.mu, cfg.tau_max, cfg.fz_min, cfg.fz_max,
+           KD_CONTACT, W_PIN, WBC_EPS, INF, 1.0 if exact_pin else 0.0]
+    return ins, par
+
+
+def run_wbc_build(launch_fn, tree, cfg, q, v, refs, extra_base_inertia=None,
+                  exact_pin: bool = False):
+    """The build through `launch_fn(dtype, B, consts, in, stride, out, par)
+    -> rc` (the kernel's C signature less the stream; dyn/kernels.py::call);
+    returns (rc, (H, g, A, l, u, M, h, JcT)), JcT the transposed view of the
+    J the kernel writes, as the plain version's."""
+    ins, par = _wbc_operands(cfg, q, v, refs, extra_base_inertia, exact_pin)
+    B = q.shape[0]
+    outs = [q.new_empty((B, NXW, NXW)), q.new_empty((B, NXW)),
+            q.new_empty((B, NCW, NXW)), q.new_empty((B, NCW)),
+            q.new_empty((B, NCW)), q.new_empty((B, NV, NV)),
+            q.new_empty((B, NV)), q.new_empty((B, NF, NV))]
+    rc = rbd.call(launch_fn, tree, q, ins, outs, par)
+    H, g, A, l, u, M, h, J = outs
+    return rc, (H, g, A, l, u, M, h, J.transpose(1, 2))
+
+
+# ---------------------------------------------------------- the plain version
+
+def build_wbc_qp_reference(tree: KinematicTree, cfg: WbcConfig, q, v,
+                           refs: WbcRefs, extra_base_inertia=None,
+                           exact_pin: bool = False):
+    """Plain PyTorch version of `wbc_build`."""
     dtype = q.dtype
     dev = q.device
     B = q.shape[0]
@@ -148,9 +231,9 @@ def _build_wbc_qp(tree: KinematicTree, cfg: WbcConfig, q, v, refs: WbcRefs,
     g[:, 2:5] += -cfg.w_base * a_base
 
     # strict convexity + swing-force ridge
-    H_diag[:, :NV] += 1e-6
+    H_diag[:, :NV] += WBC_EPS
     ridge = W_PIN * (1.0 - c).repeat_interleave(3, dim=-1)
-    H_diag[:, NV:] += 1e-6 + (0.0 if exact_pin else ridge)
+    H_diag[:, NV:] += WBC_EPS + (0.0 if exact_pin else ridge)
 
     # ---- constraints (50 rows) ------------------------------------------
     # base dynamics equalities (6)

@@ -111,3 +111,96 @@ def build_packed_slot_floats(directory):
     fn.restype = ctypes.c_int
     return fn
 
+
+
+RBD_HARNESS = r'''
+#include "rbd.h"
+
+namespace {
+
+template <typename T, int NI, int NO, int NP>
+void fill(rbd::Args<T, NI, NO, NP>& a, const void* const* in,
+          const long long* stride, void* const* out, const double* par)
+{
+    for (int k = 0; k < NI; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < NO; ++k) a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < NP; ++k) a.par[k] = (T)par[k];
+}
+
+template <typename T>
+int wbc(int B, const void* consts, const void* const* in,
+        const long long* stride, void* const* out, const double* par)
+{
+    rbd::WbcArgs<T> a;
+    fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        rbd::wbc_build_one<T>(static_cast<const T*>(consts), a, b);
+    return 0;
+}
+
+template <typename T>
+int plant(int B, const void* consts, const void* const* in,
+          const long long* stride, void* const* out, const double* par)
+{
+    rbd::PlantArgs<T> a;
+    fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        rbd::plant_step_one<T>(static_cast<const T*>(consts), a, b);
+    return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+int rbd_layout(int what) { return rbd::layout(what); }
+
+int wbc_build_host(int dtype, int B, const void* consts,
+                   const void* const* in, const long long* stride,
+                   void* const* out, const double* par)
+{
+    return dtype == 0 ? wbc<float>(B, consts, in, stride, out, par)
+                      : wbc<double>(B, consts, in, stride, out, par);
+}
+
+int plant_step_host(int dtype, int B, const void* consts,
+                    const void* const* in, const long long* stride,
+                    void* const* out, const double* par)
+{
+    return dtype == 0 ? plant<float>(B, consts, in, stride, out, par)
+                      : plant<double>(B, consts, in, stride, out, par);
+}
+
+}
+'''
+
+
+def build_rbd_harness(directory):
+    """mpctsid_tpu_torch/dyn/csrc/rbd.h, the per-scenario core of the
+    WBC-build and plant-step kernels, built with the host compiler into
+    `directory` as a loop over scenarios with the kernels' C signature (less
+    the stream).  Returns (wbc_build, plant_step, layout) ctypes functions:
+    `wbc.tsid.run_wbc_build` / `env.plant.run_plant_step` take the first
+    two."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.dyn import kernels
+
+    d = Path(directory)
+    cc = d / "rbd_harness.cc"
+    cc.write_text(RBD_HARNESS)
+    so = d / "librbd_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-shared", "-fPIC", "-O2", "-I",
+                    str(kernels.CSRC), "-o", str(so), str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for fn in (lib.wbc_build_host, lib.plant_step_host):
+        fn.argtypes = kernels.LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.rbd_layout.argtypes = [ctypes.c_int]
+    lib.rbd_layout.restype = ctypes.c_int
+    return lib.wbc_build_host, lib.plant_step_host, lib.rbd_layout
