@@ -91,10 +91,13 @@ class SolverConfig:
     wbc_iters: int = 40
     wbc_adapt_rounds: int = 3
     # QP backends (qp/admm.py): "auto_mpc" resolves to the M2 iteration
-    # kernel on a CUDA device (valid for the inequality-only MPC QP) and to
-    # the plain tensor path on the CPU; "xla" (alias "torch") is the plain
-    # path.  The WBC stays on the plain path: its equality-row rho boost puts
-    # it outside the M2 kernel's validity domain.
+    # kernel on a CUDA device (valid for the inequality-only MPC QP; its K^-1
+    # on the SPD-inverse kernel) and to the plain tensor path on the CPU;
+    # "xla" (alias "torch") is the plain path's function.  The WBC's
+    # equality-row rho boost puts it outside the M2 kernel's validity domain;
+    # on a CUDA device its default float32 solve is one launch of a
+    # hand-written kernel computing the plain path's function
+    # (wbc/tsid.py::_solve_tick), the plain path itself on the CPU.
     mpc_backend: str = "auto_mpc"
     wbc_backend: str = "xla"
     eps_abs: float = 1e-8          # oracle convergence tolerance (CPU only)

@@ -22,7 +22,11 @@ never changes another.
 
 Backends (the JAX package's spelling is accepted beside the port's, because
 the shared config tree uses it):
-  "torch"    the plain loop of batched matmuls (JAX: "xla").
+  "torch"    the plain loop of batched matmuls (JAX: "xla").  It stays the
+             plain chain here, on every device: it is the plain version of
+             kernel A, `admm_solve_warp` (the same function, unpolished, in
+             one launch of `admm_solve_plain_warp`, n <= 32, float32), which
+             wbc/tsid.py takes for the default WBC solve on the card.
   "m2"       the refinement folded into M2 = 2 K^-1 - K^-1 K K^-1 and the
              iterations run by the hand-written kernel `admm_iterate_m2`
              (JAX: "pallas_m2").  For INEQUALITY-ONLY QPs: with equality rows
@@ -48,8 +52,13 @@ the shared config tree uses it):
              residuals and `ok`.
 
 Modes (how K is inverted each adapt round; the JAX package's):
-  "blockinv"  the blocked Cholesky inverse with one Newton-Schulz step
-              (qp/blockinv.py), the default and the one the cascade runs;
+  "blockinv"  the Cholesky inverse with one Newton-Schulz step, the default
+              and the one the cascade runs: on the plain backend the blocked
+              chain of qp/blockinv.py (`spd_inverse_chol`); on the kernel
+              backends ("m2", "vpu", "packed", "mma") the SPD-inverse kernel
+              `chol_inverse` (kernel B: one launch for n <= 32, a
+              factorization launch, four batched products and a guard launch
+              above), whose plain version that chain is;
   "inv"       22 cold-started Newton-Schulz steps (`_ns_inverse`; valid only
               for cond(K) <~ 1e3 in float32, i.e. without equality rows);
   "exact_inv" the LU-based inverse (`torch.linalg.inv_ex`);
@@ -81,12 +90,14 @@ from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
 from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate,
                                           admm_iterate_m2, admm_iterate_vpu,
                                           admm_iterate_vpu_packed,
-                                          admm_solve_fused)
+                                          admm_solve_fused,
+                                          admm_solve_plain_warp, chol_inverse)
 from mpctsid_tpu_torch.qp.precision import residual_matvec
 
 INF = 1e20
 
-__all__ = ["INF", "QPSolution", "ruiz_equilibrate", "admm_solve"]
+__all__ = ["INF", "QPSolution", "ruiz_equilibrate", "admm_solve",
+           "admm_solve_warp", "scaled_solve"]
 
 MODES = ("blockinv", "inv", "exact_inv", "cholesky")
 
@@ -191,11 +202,16 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
     return _BACKEND_NAMES[backend]
 
 
-def _k_inverse(K, mode: str):
+def _k_inverse(K, mode: str, backend: str):
     """K^-1 by `mode`'s method; None for "cholesky" (no inverse)."""
     if mode == "blockinv":
-        # Blocked Cholesky + triangular inverse + 1 Newton-Schulz correction
-        return spd_inverse_chol(K, ns_steps=1)
+        # Cholesky + triangular inverse + 1 Newton-Schulz correction: the
+        # plain chain on the plain backend, the SPD-inverse kernel on the
+        # kernel backends (which take float32 CUDA tensors; on the CPU it is
+        # the same plain chain)
+        if backend == "torch":
+            return spd_inverse_chol(K, ns_steps=1)
+        return chol_inverse(K)
     if mode == "inv":
         # cold-started every round: warm starts across rho changes can put
         # ||I - X0 K|| > 1, where Newton-Schulz diverges
@@ -227,7 +243,7 @@ def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
     K = torch.bmm((A * rho_vec[:, :, None]).transpose(1, 2), A)
     K += P
     K.diagonal(dim1=-2, dim2=-1).add_(sigma)
-    K_inv = _k_inverse(K, mode)
+    K_inv = _k_inverse(K, mode, backend)
 
     if backend == "m2" and K_inv is not None:
         # Fold the refinement into ONE precomputed map:
@@ -300,28 +316,44 @@ def admm_solve(P, q, A, l, u,
             f"P must carry a leading scenario axis (B, n, n); got "
             f"{tuple(P.shape)}")
     backend = _resolve_backend(backend, P.device)
-    B, n, _ = P.shape
-    m = A.shape[1]
-    dtype = P.dtype
-
-    P0, q0, A0, l0, u0 = P, q, A, l, u
-    eqf = ((u0 - l0) < 1e-9).to(dtype)
-
+    kw = dict(iters=iters, rho=rho, sigma=sigma, alpha=alpha,
+              rho_eq_scale=rho_eq_scale, equilibrate_iters=equilibrate_iters,
+              adapt_rounds=adapt_rounds)
     if backend == "fused":
         # One launch per solve: Ruiz, K assembly, the Cholesky-based inverse,
         # all iterations and the rho adaptation (qp/kernels.py).  The plain
         # path of a WBC-sized solve is thousands of tiny device ops and is
         # launch bound.
-        xs, ys, D, E, c = admm_solve_fused(
-            *(t.contiguous() for t in (P, q, A, l, u, eqf)),
-            (P.new_zeros((B, n)) if x0 is None else x0.to(dtype)).contiguous(),
-            (P.new_zeros((B, m)) if y0 is None else y0.to(dtype)).contiguous(),
-            iters=iters, adapt_rounds=adapt_rounds,
-            equilibrate_iters=equilibrate_iters, rho0=rho, sigma=sigma,
-            alpha=alpha, rho_eq_scale=rho_eq_scale, inf=INF)
-        return _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,
-                                  status_tol)
+        return _whole_solve(admm_solve_fused, P, q, A, l, u, x0, y0,
+                            status_tol, **kw)
 
+    eqf = ((u - l) < 1e-9).to(P.dtype)
+    x, y, D, E, c, (Ps, qs, As, ls, us) = scaled_solve(
+        P, q, A, l, u, eqf, x0, y0, mode=mode, backend=backend, **kw)
+    if polish_kkt:
+        # polish in the SCALED frame (a well-conditioned KKT for the float32
+        # solve); the second round re-detects the active set at the polished
+        # point
+        eq = (u - l) < 1e-9
+        x, y = _polish(Ps, qs, As, ls, us, x, y, eq)
+        x, y = _polish(Ps, qs, As, ls, us, x, y, eq, active_tol=1e-5)
+    return _unscaled_solution(P, q, A, l, u, x, y, D, E, c, status_tol)
+
+
+def scaled_solve(P, q, A, l, u, eqf, x0=None, y0=None, iters: int = 60,
+                 rho: float = 0.1, sigma: float = 1e-6, alpha: float = 1.6,
+                 rho_eq_scale: float = 1e3, mode: str = "blockinv",
+                 equilibrate_iters: int = 8, adapt_rounds: int = 1,
+                 backend: str = "torch"):
+    """The ADMM chain of `admm_solve` in the scaled frame: Ruiz, the warm
+    start, the adapt rounds.  eqf (B, m): 1.0 on equality rows.  backend:
+    one of the port's resolved names but "fused".  Returns (x, y, D, E, c,
+    (P, q, A, l, u) scaled): x = D xs, y = E ys / c unscale the solution.
+    With backend "torch" and mode "blockinv" this is the plain version of
+    `kernels.admm_solve_plain_warp`."""
+    B, n = q.shape
+    m = A.shape[1]
+    dtype = P.dtype
     P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u, equilibrate_iters)
 
     x = P.new_zeros((B, n)) if x0 is None else (x0 / D).to(dtype)
@@ -353,15 +385,45 @@ def admm_solve(P, q, A, l, u,
             rho_s = torch.clamp(
                 rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
                 1e-3, 1e3)
+    return x, y, D, E, c, (P, q, A, l, u)
 
-    if polish_kkt:
-        # polish in the SCALED frame (a well-conditioned KKT for the float32
-        # solve); the second round re-detects the active set at the polished
-        # point
-        eq = (u0 - l0) < 1e-9
-        x, y = _polish(P, q, A, l, u, x, y, eq)
-        x, y = _polish(P, q, A, l, u, x, y, eq, active_tol=1e-5)
-    return _unscaled_solution(P0, q0, A0, l0, u0, x, y, D, E, c, status_tol)
+
+def admm_solve_warp(P, q, A, l, u, x0=None, y0=None, iters: int = 60,
+                    rho: float = 0.1, sigma: float = 1e-6, alpha: float = 1.6,
+                    rho_eq_scale: float = 1e3, equilibrate_iters: int = 8,
+                    adapt_rounds: int = 1,
+                    status_tol: float = 0.05) -> QPSolution:
+    """`admm_solve(backend="torch", mode="blockinv")`, unpolished, as one
+    launch of `kernels.admm_solve_plain_warp` (n <= 32, float32; the default
+    WBC solve on the card: wbc/tsid.py).  On CPU tensors the kernel's plain
+    version runs: the same chain as `admm_solve`, bit for bit.  The
+    arguments are `admm_solve`'s."""
+    return _whole_solve(admm_solve_plain_warp, P, q, A, l, u, x0, y0,
+                        status_tol, iters=iters, rho=rho, sigma=sigma,
+                        alpha=alpha, rho_eq_scale=rho_eq_scale,
+                        equilibrate_iters=equilibrate_iters,
+                        adapt_rounds=adapt_rounds)
+
+
+def _whole_solve(kernel, P, q, A, l, u, x0, y0, status_tol: float, *,
+                 iters: int, rho: float, sigma: float, alpha: float,
+                 rho_eq_scale: float, equilibrate_iters: int,
+                 adapt_rounds: int) -> QPSolution:
+    """One launch of a whole-solve kernel (`admm_solve_fused` or
+    `admm_solve_plain_warp`: the scaled x, y and D, E, c), then the
+    unscaling, the residuals and `ok` here."""
+    B, n = q.shape
+    m = A.shape[1]
+    dtype = P.dtype
+    eqf = ((u - l) < 1e-9).to(dtype)
+    xs, ys, D, E, c = kernel(
+        *(t.contiguous() for t in (P, q, A, l, u, eqf)),
+        (P.new_zeros((B, n)) if x0 is None else x0.to(dtype)).contiguous(),
+        (P.new_zeros((B, m)) if y0 is None else y0.to(dtype)).contiguous(),
+        iters=iters, adapt_rounds=adapt_rounds,
+        equilibrate_iters=equilibrate_iters, rho0=rho, sigma=sigma,
+        alpha=alpha, rho_eq_scale=rho_eq_scale, inf=INF)
+    return _unscaled_solution(P, q, A, l, u, xs, ys, D, E, c, status_tol)
 
 
 def _kkt_error(P, q, A, l, u, x, y):

@@ -18,6 +18,14 @@ serialises pivots; the port keeps the same arithmetic first so that it can be
 held against the reference value by value.  `torch.linalg.cholesky` is an A/B
 for a later change, not part of this module.
 
+`spd_inverse_chol(K, ns_steps=1)` is the plain version of the SPD-inverse
+kernel (qp/kernels.py::chol_inverse, qp/csrc/spd_inverse.cu), which the
+kernel backends of qp/admm.py call on the card: the same function (Jacobi
+scaling, Cholesky with the 1e-10 pivot floor, triangular inverse, one guarded
+Newton-Schulz step, the identity where the result is not finite) by a column
+sweep and a forward substitution instead of this recursion.  This chain
+stays what the plain backend, the float64 tiers and the CPU run.
+
 Per-scenario safeguards (`bad`, `nonfinite` in `spd_inverse_chol`) reduce
 over the last two axes ONLY: one indefinite matrix must never change the
 result of another scenario of the batch.

@@ -64,16 +64,9 @@
 //         everywhere.  Two __syncwarp() per round.
 //       - K = P + sigma I + A' diag(rho) A: lane i accumulates row i in 32
 //         registers, one row of A per step read as a broadcast.
-//       - Row i of Ks = s K s stays in registers for the Newton-Schulz step.
-//       - Cholesky: the same column sweep, lane i on row i, L' into W, the
-//         pivot broadcast by a shuffle, one __syncwarp() per column.  L^-1 by
-//         forward substitution, lane c on column c, row-major into the lower
-//         triangle of W while L' still sits above the diagonal.
-//       - X0 = L^-T L^-1: row i in registers (rows of L^-1 as 16-byte
-//         broadcasts), then X0' over W.  M = 2 I - Ks X0 and X = X0 M:
-//         column by column, the left operand's row in registers, the
-//         result written over the row of W just read.  |I - Ks X|^2 the
-//         same way, reduced on the fly.  The acceptance test, the finite
+//       - K^-1 by spd_inverse.cuh (row i of Ks = s K s in registers, the
+//         column-sweep Cholesky, L^-1 by forward substitution, X0 and the
+//         Newton-Schulz step over W).  The acceptance test, the finite
 //         safeguard, the 1e-10 pivot floor and the Jacobi scaling are the
 //         block path's to the letter.
 //       - The iterations are `warp_refined_iterations` (admm_block.cuh), the
@@ -95,15 +88,33 @@
 // per scenario, the design before, 3.90 ms.  PERF.md keeps the table and the
 // share of each phase.
 //
+// A second entry point, admm_plain_warp_launch, runs the warp path with the
+// NORM-ONLY Ruiz form of qp/admm.py::ruiz_equilibrate (the loop carries D, E
+// and c, reads the original |P| and |A| through weighted abs-max reductions,
+// lane j on column j, and applies the scaling once at the end): the function
+// of qp/admm.py::admm_solve(backend="torch"), the JAX package's
+// admm_solve(backend="xla") that XLA compiles (mpctsid_tpu/qp/admm.py:209),
+// in one launch.  It is the default WBC solve on the card
+// (wbc/tsid.py::_solve_tick).  The two Ruiz forms are equal in exact
+// arithmetic; everything after them is the same code (`warp_solve`).
+//
+// The warp path's K^-1 (Jacobi scaling, Cholesky, triangular inverse, the
+// guarded Newton-Schulz step) is spd_inverse.cuh's warp_scaled_inverse,
+// shared with the SPD-inverse kernel (spd_inverse.cu).
+//
 // Plain C interface (loaded with ctypes), as admm_m2.cu.
 
 #include <cuda_runtime.h>
 
 #include "admm_block.cuh"
+#include "spd_inverse.cuh"
 
 namespace {
 
 using namespace admm_block;
+using spd_warp::WN;
+using spd_warp::WS;
+using spd_warp::FULL;
 
 struct FusedParams {
     int n, m, iters_per, n_rounds, equilibrate_iters;
@@ -422,17 +433,13 @@ admm_fused_kernel(const float* __restrict__ P_in, const float* __restrict__ q_in
 
 // ---- the warp path ----------------------------------------------------------
 
-constexpr int WN = 32;              // largest n: lane i owns row and column i
 constexpr int MAX_WARP_SLOTS = 12;  // scenarios (warps) per block
-constexpr unsigned FULL = 0xffffffffu;
 
 struct FusedIO {
     const float *P, *q, *A, *l, *u, *eqf, *x0, *y0;
     float *x_out, *y_out, *d_out, *e_out, *c_out;
     int B;
 };
-
-constexpr int WS = 32;   // row stride of the factorization's scratch matrix
 
 // Floats of the scratch matrix W: n rows of WS floats while it is factored,
 // n rows of ld floats once it holds K^-1.
@@ -449,27 +456,13 @@ __host__ __device__ __forceinline__ int warp_slot_floats(int n, int m, int ld)
            & ~3;
 }
 
-// sum_r row[r] * wrow[r] over all WS entries: the row in registers, wrow a
-// row of W read by every lane alike in eight 16-byte broadcasts.  Entries
-// past n are zero on both sides.
-__device__ __forceinline__ float row_dot(const float (&row)[WN],
-                                         const float* wrow)
-{
-    const float4* w4 = reinterpret_cast<const float4*>(wrow);
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-    for (int q = 0; q < WS / 4; ++q) {
-        const float4 v = w4[q];
-        a0 = fmaf(row[4 * q + 0], v.x, a0);
-        a1 = fmaf(row[4 * q + 1], v.y, a1);
-        a2 = fmaf(row[4 * q + 2], v.z, a2);
-        a3 = fmaf(row[4 * q + 3], v.w, a3);
-    }
-    return (a0 + a1) + (a2 + a3);
-}
-
-__global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
-admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
+// The warp path's body.  NORM_RUIZ picks the equilibration: false, the
+// full-rescale form of kernel 4 (backend "fused"); true, the norm-only form of
+// qp/admm.py::ruiz_equilibrate (the plain backend's solve).  Everything after
+// the equilibration is the same code.
+template <bool NORM_RUIZ>
+__device__ __forceinline__ void warp_solve(const FusedIO& io,
+                                           const FusedParams& fp, int ld)
 {
     extern __shared__ __align__(16) float smem[];
     const int n = fp.n, m = fp.m;
@@ -546,46 +539,101 @@ admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
     float c = 1.0f;
     __syncwarp();
 
-    // ---- 1. full-rescale Ruiz + cost scaling ------------------------------
-    for (int it = 0; it < fp.equilibrate_iters; ++it) {
-        if (act) {
-            float mx = 0.f;
-            for (int i = 0; i < n; ++i) mx = fmaxf(mx, fabsf(colP[i * ld]));
-            for (int i = 0; i < m; ++i) mx = fmaxf(mx, fabsf(colA[i * ld]));
-            sdn[lane] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
-        }
-        for (int i = lane; i < m; i += 32) {
-            float mx = 0.f;
-            for (int k = 0; k < n; ++k) mx = fmaxf(mx, fabsf(sA[i * ld + k]));
-            sdm[i] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
-        }
-        __syncwarp();
-        float psum = 0.f, qmax = 0.f;
-        if (act) {
-            const float dj = sdn[lane];
-            for (int i = 0; i < n; ++i) {
-                const float pv = (colP[i * ld] * sdn[i]) * dj;
-                colP[i * ld] = pv;
-                psum = fmaxf(psum, fabsf(pv));      // abs-max of the column
+    // ---- 1. Ruiz equilibration + cost scaling -----------------------------
+    if constexpr (NORM_RUIZ) {
+        // norm-only: the loop carries D, E and c and reads the ORIGINAL |P|,
+        // |A| through weighted abs-max reductions (the scaled matrix's column
+        // max is c D_j max_i(D_i |P_ij|)); the scaling is applied once, after
+        for (int it = 0; it < fp.equilibrate_iters; ++it) {
+            float cn = 0.f;
+            if (act) {
+                float wp = 0.f, wa = 0.f;
+                for (int i = 0; i < n; ++i)
+                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
+                for (int i = 0; i < m; ++i)
+                    wa = fmaxf(wa, fabsf(colA[i * ld]) * sE[i]);
+                const float dj = sD[lane];
+                cn = fmaxf((c * dj) * wp, dj * wa);
             }
-            for (int i = 0; i < m; ++i)
-                colA[i * ld] = (colA[i * ld] * sdm[i]) * dj;
-            const float qj = v.q[lane] * dj;
-            v.q[lane] = qj;
-            sD[lane] *= dj;
-            qmax = fabsf(qj);
+            for (int i = lane; i < m; i += 32) {
+                float wr = 0.f;
+                for (int k = 0; k < n; ++k)
+                    wr = fmaxf(wr, fabsf(sA[i * ld + k]) * sD[k]);
+                const float cm = sE[i] * wr;
+                sdm[i] = cm < 1e-10f ? 1.0f : rsqrtf(fmaxf(cm, 1e-12f));
+            }
+            __syncwarp();       // every lane has read this round's D and E
+            if (act)
+                sD[lane] *= cn < 1e-10f ? 1.0f : rsqrtf(fmaxf(cn, 1e-12f));
+            for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
+            __syncwarp();
+            // cost scaling against the new D
+            float pcol = 0.f, qmax = 0.f;
+            if (act) {
+                float wp = 0.f;
+                for (int i = 0; i < n; ++i)
+                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
+                const float dj = sD[lane];
+                pcol = (c * dj) * wp;
+                qmax = c * (fabsf(v.q[lane]) * dj);
+            }
+            pcol = warp_sum(pcol);
+            qmax = warp_max(qmax);
+            c *= 1.0f / fmaxf(fmaxf(pcol / (float)n, qmax), 1e-12f);
         }
-        for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
-        psum = warp_sum(psum);
-        qmax = warp_max(qmax);
-        const float gamma =
-            1.0f / fmaxf(fmaxf(psum / (float)n, qmax), 1e-12f);
+        // P <- (c D_i) P_ij D_j, A <- E_i A_ij D_j, q <- c D q: lane j its
+        // column
         if (act) {
-            for (int i = 0; i < n; ++i) colP[i * ld] *= gamma;
-            v.q[lane] *= gamma;
+            const float dj = sD[lane];
+            for (int i = 0; i < n; ++i)
+                colP[i * ld] = ((c * sD[i]) * colP[i * ld]) * dj;
+            for (int i = 0; i < m; ++i)
+                colA[i * ld] = (sE[i] * colA[i * ld]) * dj;
+            v.q[lane] = (c * dj) * v.q[lane];
         }
-        c *= gamma;
         __syncwarp();
+    } else {
+        // full rescale (kernel 4): the matrices rescaled in place every round
+        for (int it = 0; it < fp.equilibrate_iters; ++it) {
+            if (act) {
+                float mx = 0.f;
+                for (int i = 0; i < n; ++i) mx = fmaxf(mx, fabsf(colP[i * ld]));
+                for (int i = 0; i < m; ++i) mx = fmaxf(mx, fabsf(colA[i * ld]));
+                sdn[lane] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
+            }
+            for (int i = lane; i < m; i += 32) {
+                float mx = 0.f;
+                for (int k = 0; k < n; ++k) mx = fmaxf(mx, fabsf(sA[i * ld + k]));
+                sdm[i] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
+            }
+            __syncwarp();
+            float psum = 0.f, qmax = 0.f;
+            if (act) {
+                const float dj = sdn[lane];
+                for (int i = 0; i < n; ++i) {
+                    const float pv = (colP[i * ld] * sdn[i]) * dj;
+                    colP[i * ld] = pv;
+                    psum = fmaxf(psum, fabsf(pv));      // abs-max of the column
+                }
+                for (int i = 0; i < m; ++i)
+                    colA[i * ld] = (colA[i * ld] * sdm[i]) * dj;
+                const float qj = v.q[lane] * dj;
+                v.q[lane] = qj;
+                sD[lane] *= dj;
+                qmax = fabsf(qj);
+            }
+            for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
+            psum = warp_sum(psum);
+            qmax = warp_max(qmax);
+            const float gamma =
+                1.0f / fmaxf(fmaxf(psum / (float)n, qmax), 1e-12f);
+            if (act) {
+                for (int i = 0; i < n; ++i) colP[i * ld] *= gamma;
+                v.q[lane] *= gamma;
+            }
+            c *= gamma;
+            __syncwarp();
+        }
     }
     for (int i = lane; i < m; i += 32) {
         const float li = v.l[i], ui = v.u[i];
@@ -633,134 +681,21 @@ admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
             }
         __syncwarp();
 
-        // Jacobi scaling: row `lane` of Ks = s K s, kept in registers (ks);
-        // zero in lanes past n and in columns past n
+        // K^-1 (spd_inverse.cuh): the Jacobi scale s, the Cholesky-based
+        // inverse of Ks = s K s with one guarded Newton-Schulz step over the
+        // scratch W; the identity where it is not finite; K^-1 = s X s
         const float si = act ? rsqrtf(fmaxf(sK[lane * ld + lane], 1e-30f))
                              : 0.f;
-        float ks[WN];
-#pragma unroll
-        for (int j = 0; j < WN; ++j) {
-            const float sj = __shfl_sync(FULL, si, j);
-            ks[j] = j < n ? (kr[j] * sj) * si : 0.f;
-        }
-        // W is factored with the row stride WS and holds TRANSPOSES: a lane
-        // stores its row's entry (i, j) at W[j][i], lanes on consecutive
-        // words, and what every lane reads alike is then a row of W, in
-        // 16-byte pieces.  Its columns past n must read as zero (the last
-        // round's K^-1 lay here with another stride).
-        if (act)
-            for (int j = n; j < WS; ++j) sW[lane * WS + j] = 0.f;
-
-        // Cholesky, left-looking column sweep: lane i forms entry (i, j) of
-        // L and stores it at W[j][i]; the pivot's own sum comes from lane j.
-        // Lanes above the diagonal store zeros.  Lane j keeps L[j][j].
-        float diag = 1.0f;
-#pragma unroll
-        for (int j = 0; j < WN; ++j) {
-            if (j < n) {
-                float vi = ks[j];
-                for (int k = 0; k < j; ++k)
-                    vi = fmaf(-sW[k * WS + own], sW[k * WS + j], vi);
-                const float vj = __shfl_sync(FULL, vi, j);
-                const float lij =
-                    lane >= j ? vi / sqrtf(fmaxf(vj, 1e-10f)) : 0.f;
-                if (lane == j) diag = lij;
-                if (act) sW[j * WS + lane] = lij;
-                __syncwarp();
-            }
-        }
-
-        // L^-1 by forward substitution, row-major into the lower triangle
-        // of W (L' stays above the diagonal until every row has used it):
-        // lane c forms column c; entry (i, c) needs row i of L, read by
-        // every lane alike from column i of W, and column c of L^-1 above it
-        for (int i = 0; i < n; ++i) {
-            float acc = 0.f;
-            for (int k = 0; k < i; ++k) {
-                const float lkc = k >= lane ? sW[k * WS + own] : 0.f;
-                acc = fmaf(sW[k * WS + i], lkc, acc);
-            }
-            const float lii = __shfl_sync(FULL, diag, i);
-            if (lane <= i)
-                sW[i * WS + lane] = lane == i ? 1.0f / lii : -acc / lii;
-            __syncwarp();
-        }
-        for (int k = 0; k < n; ++k)          // L' has served: zeros above
-            if (act && k < lane) sW[k * WS + lane] = 0.f;
-        __syncwarp();
-
-        // row `lane` of X0 = L^-T L^-1, in registers, then TRANSPOSED over W
         float x0r[WN];
-#pragma unroll
-        for (int j = 0; j < WN; ++j) x0r[j] = 0.f;
-        for (int r = 0; r < n; ++r) {
-            const float4* lr = reinterpret_cast<const float4*>(sW + r * WS);
-            const float li = act ? sW[r * WS + lane] : 0.f;
-#pragma unroll
-            for (int q = 0; q < WS / 4; ++q) {
-                const float4 v = lr[q];
-                x0r[4 * q + 0] = fmaf(li, v.x, x0r[4 * q + 0]);
-                x0r[4 * q + 1] = fmaf(li, v.y, x0r[4 * q + 1]);
-                x0r[4 * q + 2] = fmaf(li, v.z, x0r[4 * q + 2]);
-                x0r[4 * q + 3] = fmaf(li, v.w, x0r[4 * q + 3]);
-            }
-        }
-        __syncwarp();
-        if (act) {
-#pragma unroll
-            for (int j = 0; j < WN; ++j)
-                if (j < n) sW[j * WS + lane] = x0r[j];
-        }
-        __syncwarp();
-
-        // one Newton-Schulz step.  M = 2I - Ks X0 column by column: column j
-        // of X0 is row j of W, read by every lane, then overwritten by
-        // column j of M;  r0 = |I - Ks X0|_F^2
-        float r0 = 0.f;
-        for (int j = 0; j < n; ++j) {
-            const float acc = row_dot(ks, sW + j * WS);
-            const float eye = j == lane ? 1.0f : 0.f;
-            const float d = act ? eye - acc : 0.f;
-            r0 = fmaf(d, d, r0);
-            __syncwarp();
-            if (act) sW[j * WS + lane] = 2.0f * eye - acc;
-        }
-        r0 = warp_sum(r0);
-        __syncwarp();
-        // X = X0 M, the same way over M
-        for (int j = 0; j < n; ++j) {
-            const float acc = row_dot(x0r, sW + j * WS);
-            __syncwarp();
-            if (act) sW[j * WS + lane] = acc;
-        }
-        __syncwarp();
-        // r1 = |I - Ks X|_F^2
-        float r1 = 0.f;
-        for (int j = 0; j < n; ++j) {
-            const float acc = row_dot(ks, sW + j * WS);
-            const float d = act ? (j == lane ? 1.0f : 0.f) - acc : 0.f;
-            r1 = fmaf(d, d, r1);
-        }
-        r1 = warp_sum(r1);
-        // divergence safeguard (a NaN compares false: back to X0), then the
-        // finite safeguard (identity in the scaled frame); K^-1 = s X s
-        const bool take_x = r1 < r0 * 4.0f + 1.0f;
-        float bad = 0.f;
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-            if (j < n && act) {
-                x0r[j] = take_x ? sW[j * WS + lane] : x0r[j];
-                if (!isfinite(x0r[j])) bad += 1.0f;
-            }
-        bad = warp_sum(bad);
-        __syncwarp();
+        const bool bad = spd_warp::warp_scaled_inverse(kr, si, n, sW, lane,
+                                                       x0r);
         // from here W holds K^-1 as given, rows padded to ld, as the
         // iterations read it
 #pragma unroll
         for (int j = 0; j < WN; ++j) {
             const float sj = __shfl_sync(FULL, si, j);
             if (j < n && act) {
-                const float xv = bad > 0.f ? (j == lane ? 1.0f : 0.f) : x0r[j];
+                const float xv = bad ? (j == lane ? 1.0f : 0.f) : x0r[j];
                 sW[lane * ld + j] = (xv * sj) * si;
             }
         }
@@ -817,6 +752,74 @@ admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
     if (lane == 0) io.c_out[b] = c;
 }
 
+// kernel 4's warp path (backend "fused")
+__global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
+admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
+{
+    warp_solve<false>(io, fp, ld);
+}
+
+// the plain backend's solve (qp/admm.py's function, norm-only Ruiz): the
+// default WBC solve on the card (qp/kernels.py::admm_solve_plain_warp)
+__global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
+admm_plain_warp_kernel(FusedIO io, FusedParams fp, int ld)
+{
+    warp_solve<true>(io, fp, ld);
+}
+
+FusedParams make_params(int n, int m, int iters, int adapt_rounds,
+                        int equilibrate_iters, float rho0, float sigma,
+                        float alpha, float rho_eq_scale, float inf)
+{
+    FusedParams fp;
+    fp.n = n;
+    fp.m = m;
+    fp.n_rounds = adapt_rounds > 1 ? adapt_rounds : 1;
+    fp.iters_per = iters / fp.n_rounds > 1 ? iters / fp.n_rounds : 1;
+    fp.equilibrate_iters = equilibrate_iters;
+    fp.rho0 = rho0;
+    fp.sigma = sigma;
+    fp.alpha = alpha;
+    fp.rho_eq_scale = rho_eq_scale;
+    fp.inf = inf;
+    fp.mats_in_smem = 1;
+    fp.col_threads = 0;
+    fp.n_chunks = 0;
+    return fp;
+}
+
+int max_smem_optin(int* max_smem)
+{
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaDeviceGetAttribute(
+        max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// One launch of a warp-path kernel: g scenarios (warps) per block, rows
+// padded to `ld`, `slot_floats` floats of shared memory per scenario (checked
+// against the kernel's own count).
+int launch_warp(void (*kernel)(FusedIO, FusedParams, int), const FusedIO& io,
+                const FusedParams& fp, int g, int ld, int slot_floats,
+                int max_smem, void* stream)
+{
+    const size_t smem = sizeof(float) * (size_t)g * (size_t)slot_floats;
+    if (fp.n > WN || g <= 0 || g > MAX_WARP_SLOTS || ld < fp.n ||
+        slot_floats != warp_slot_floats(fp.n, fp.m, ld) ||
+        smem > (size_t)max_smem)
+        return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    kernel<<<(io.B + g - 1) / g, 32 * g, smem, (cudaStream_t)stream>>>(io, fp,
+                                                                      ld);
+    return (int)cudaGetLastError();
+}
+
 size_t vector_floats(int n, int m, int n_chunks)
 {
     return (size_t)8 * n + (size_t)10 * m + (size_t)n_chunks * n + 33;
@@ -869,46 +872,17 @@ int admm_fused_launch(const float* P, const float* q, const float* A,
     if (B <= 0 || n <= 0 || m <= 0 || iters < 0 || equilibrate_iters < 0)
         return (int)cudaErrorInvalidValue;
 
-    FusedParams fp;
-    fp.n = n;
-    fp.m = m;
-    fp.n_rounds = adapt_rounds > 1 ? adapt_rounds : 1;
-    fp.iters_per = iters / fp.n_rounds > 1 ? iters / fp.n_rounds : 1;
-    fp.equilibrate_iters = equilibrate_iters;
-    fp.rho0 = rho0;
-    fp.sigma = sigma;
-    fp.alpha = alpha;
-    fp.rho_eq_scale = rho_eq_scale;
-    fp.inf = inf;
-    fp.mats_in_smem = 1;
-    fp.col_threads = 0;
-    fp.n_chunks = 0;
-
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
+    FusedParams fp = make_params(n, m, iters, adapt_rounds, equilibrate_iters,
+                                 rho0, sigma, alpha, rho_eq_scale, inf);
     int max_smem = 0;
-    err = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaError_t err = (cudaError_t)max_smem_optin(&max_smem);
     if (err != cudaSuccess) return (int)err;
 
     if (g > 0) {
-        const size_t smem = sizeof(float) * (size_t)g * (size_t)slot_floats;
-        if (n > WN || g > MAX_WARP_SLOTS || ld < n ||
-            slot_floats != warp_slot_floats(n, m, ld) ||
-            smem > (size_t)max_smem)
-            return (int)cudaErrorInvalidValue;
-        if (smem > 48 * 1024) {
-            err = cudaFuncSetAttribute(
-                admm_fused_warp_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (err != cudaSuccess) return (int)err;
-        }
         const FusedIO io = {P, q, A, l, u, eqf, x0, y0,
                             x_out, y_out, d_out, e_out, c_out, B};
-        admm_fused_warp_kernel<<<(B + g - 1) / g, 32 * g, smem,
-                                 (cudaStream_t)stream>>>(io, fp, ld);
-        return (int)cudaGetLastError();
+        return launch_warp(admm_fused_warp_kernel, io, fp, g, ld, slot_floats,
+                           max_smem, stream);
     }
 
     if (threads < 32 || threads > 1024 || (threads & 31) != 0)
@@ -936,6 +910,35 @@ int admm_fused_launch(const float* P, const float* q, const float* A,
         P, q, A, l, u, eqf, x0, y0, x_out, y_out, d_out, e_out, c_out,
         workspace, fp);
     return (int)cudaGetLastError();
+}
+
+// The plain backend's solve (norm-only Ruiz, then kernel 4's warp path) on
+// `stream`, with the geometry of the wrapper's plain_warp_layout(): g > 0
+// scenarios (warps) per block, rows padded to `ld`, `slot_floats` floats of
+// shared memory per scenario.  n <= 32 only: there is no block path.
+// Returns the CUDA error code of the launch.
+int admm_plain_warp_launch(const float* P, const float* q, const float* A,
+                           const float* l, const float* u, const float* eqf,
+                           const float* x0, const float* y0,
+                           float* x_out, float* y_out, float* d_out,
+                           float* e_out, float* c_out,
+                           int B, int n, int m, int iters, int adapt_rounds,
+                           int equilibrate_iters, float rho0, float sigma,
+                           float alpha, float rho_eq_scale, float inf,
+                           int g, int ld, int slot_floats, void* stream)
+{
+    if (B <= 0 || n <= 0 || m <= 0 || iters < 0 || equilibrate_iters < 0)
+        return (int)cudaErrorInvalidValue;
+    const FusedParams fp = make_params(n, m, iters, adapt_rounds,
+                                       equilibrate_iters, rho0, sigma, alpha,
+                                       rho_eq_scale, inf);
+    int max_smem = 0;
+    const int err = max_smem_optin(&max_smem);
+    if (err != (int)cudaSuccess) return err;
+    const FusedIO io = {P, q, A, l, u, eqf, x0, y0,
+                        x_out, y_out, d_out, e_out, c_out, B};
+    return launch_warp(admm_plain_warp_kernel, io, fp, g, ld, slot_floats,
+                       max_smem, stream);
 }
 
 const char* admm_fused_error_string(int code)

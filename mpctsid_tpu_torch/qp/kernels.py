@@ -1,7 +1,8 @@
 """The port's hand-written kernels and their plain PyTorch versions.
 
-Five kernels, all CUDA C++ under qp/csrc/, each replacing a TPU kernel of the
-JAX package's qp/pallas_kernels.py and keeping its function name:
+Seven kernels, all CUDA C++ under qp/csrc/: five replace a TPU kernel of the
+JAX package's qp/pallas_kernels.py and keep its function name, two replace
+stages that the JAX package leaves to XLA:
 
   * `admm_iterate_m2` (admm_m2.cu) <- `admm_iterate_m2` /
     `admm_iterate_m2_packed_batch`: `iters` ADMM updates with the refinement
@@ -26,6 +27,22 @@ JAX package's qp/pallas_kernels.py and keeping its function name:
     Newton-Schulz step, the refined iterations, rho adaptation); returns the
     SCALED x, y and the scales D, E, c.  n <= 32: one warp per scenario,
     several per block; larger: one block per scenario (`fused_layout`).
+  * `admm_solve_plain_warp` (admm_fused.cu, its second entry point): the
+    function of qp/admm.py::admm_solve(backend="torch") — the JAX package's
+    admm_solve(backend="xla"), which XLA compiles — in one launch: kernel
+    4's warp path with the NORM-ONLY Ruiz form of `ruiz_equilibrate`;
+    returns the scaled x, y and D, E, c as kernel 4 does.  n <= 32 only
+    (`plain_warp_layout`); the default WBC solve on the card
+    (wbc/tsid.py::_solve_tick).  Its plain version is the eager chain itself
+    (`admm_solve_plain_reference` stops it before the unscaling).
+  * `chol_inverse` (spd_inverse.cu) <- the XLA compilation of
+    `spd_inverse_chol(K, ns_steps=1)` (qp/blockinv.py): K^-1 of the kernel
+    backends (qp/admm.py, mode "blockinv").  n <= 32: one warp per matrix,
+    the whole function in one launch (the warp factorization shared with
+    kernel 4, spd_inverse.cuh); larger: one block per matrix for the
+    Cholesky factor and the triangular inverse, the dense products of X0 and
+    of the Newton-Schulz step on torch.bmm, a second launch for the guard
+    (`spd_inverse_layout`).  Plain version: blockinv.spd_inverse_chol.
   * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
     generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
     mat-vec on the tensor cores: warp-level TF32 `mma.sync` with each
@@ -40,14 +57,16 @@ PyTorch's current stream and raises on any failure (bad argument, build
 failure, launch error): there is no fallback.  On CPU tensors, and only
 because the tensors lie on the CPU, it runs the plain version.
 `<wrapper>.launches` counts kernel launches (a plain integer, incremented
-only where the kernel launches).
+only where the kernel launches; `chol_inverse`'s block path counts its two
+launches, factor and guard, as one call).
 
 Plain versions, used by the CPU tests and by the on-card comparison of
 chip_smoke.py and by nothing on the CUDA main path:
 `admm_iterate_m2_reference`, `admm_iterate_refined_reference` (ONE plain
 version for `admm_iterate_vpu` and `admm_iterate_vpu_packed`: they compute
-the same function), `admm_iterate_reference` (the same loop with K as given)
-and `admm_solve_fused_reference`.
+the same function), `admm_iterate_reference` (the same loop with K as given),
+`admm_solve_fused_reference`, `admm_solve_plain_reference` (qp/admm.py's own
+chain) and blockinv.spd_inverse_chol.
 
 Matrix sides.  M2, K and K^-1 are symmetric only up to rounding, so the side
 each is applied from is part of the function, and is the TPU kernels': M2
@@ -79,7 +98,10 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "VpuLayout",
            "admm_solve_fused",
            "admm_solve_fused_reference",
-           "check_fused_args", "build_all", "LIBRARIES"]
+           "check_fused_args", "build_all", "LIBRARIES",
+           "admm_solve_plain_warp", "admm_solve_plain_reference",
+           "plain_warp_layout", "chol_inverse", "check_spd_args",
+           "spd_inverse_layout", "SpdLayout"]
 
 
 # ------------------------------------------------------------ argument checks
@@ -163,11 +185,35 @@ def check_fused_args(P, q, A, l, u, eqf, x0, y0):
     return _check_shapes(named, ("P",), ("q", "x0"), ("l", "u", "eqf", "y0"))
 
 
+def check_spd_args(K):
+    """Raise unless K is what the SPD-inverse kernel takes: float32,
+    contiguous, (B, n, n); returns (B, n)."""
+    _check_tensors({"K": K}, "K")
+    if K.dim() != 3 or K.shape[1] != K.shape[2]:
+        raise ValueError(f"K must be (B, n, n), got {tuple(K.shape)}")
+    B, n, _ = K.shape
+    if B < 1 or n < 1:
+        raise ValueError(f"empty problem: B={B}, n={n}")
+    return B, n
+
+
 def _check_iters(iters) -> int:
     iters = int(iters)
     if iters < 0:
         raise ValueError(f"iters must be >= 0, got {iters}")
     return iters
+
+
+def _solve_kw(iters, adapt_rounds, equilibrate_iters, rho0, sigma, alpha,
+              rho_eq_scale, inf) -> dict:
+    """The whole-solve kernels' scalar arguments, checked and typed."""
+    kw = dict(iters=_check_iters(iters), adapt_rounds=int(adapt_rounds),
+              equilibrate_iters=int(equilibrate_iters), rho0=float(rho0),
+              sigma=float(sigma), alpha=float(alpha),
+              rho_eq_scale=float(rho_eq_scale), inf=float(inf))
+    if kw["equilibrate_iters"] < 0:
+        raise ValueError("equilibrate_iters must be >= 0")
+    return kw
 
 
 # ------------------------------------------------------------- plain versions
@@ -331,8 +377,10 @@ LIBRARIES = {
     "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",
                                            "cluster_exchange.cuh",
                                            "packed_slot.h", "warp_regs.cuh")),
-    "admm_fused": (("admm_fused.cu",), ("admm_block.cuh",)),
+    "admm_fused": (("admm_fused.cu",), ("admm_block.cuh", "spd_inverse.cuh")),
     "admm_mma": (("admm_mma.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
+    "spd_inverse": (("spd_inverse.cu",), ("admm_block.cuh",
+                                           "spd_inverse.cuh")),
 }
 
 _PTR = ctypes.c_void_p
@@ -344,6 +392,22 @@ _LAUNCH_ARGTYPES = {
     "admm_packed": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 4 + [_PTR],
     "admm_fused": [_PTR] * 14 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 4 + [_PTR],
     "admm_mma": [_PTR] * 13 + [_INT] * 4 + [_FLT] * 2 + [_INT] * 6 + [_PTR],
+}
+# the libraries' other entry points: name -> {function: (argtypes, restype)}
+_ENTRY_POINTS = {
+    "admm_m2": {"admm_m2_active_clusters": ([_INT] * 4, _INT)},
+    "admm_packed": {"admm_packed_slot_floats": ([_INT] * 3, _INT)},
+    "admm_fused": {
+        "admm_fused_workspace_floats": ([_INT] * 4, ctypes.c_longlong),
+        "admm_plain_warp_launch": (
+            [_PTR] * 13 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 3 + [_PTR],
+            _INT)},
+    "spd_inverse": {
+        "spd_inverse_warp_launch": ([_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
+        "spd_inverse_factor_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR],
+                                      _INT),
+        "spd_inverse_select_launch": ([_PTR] * 6 + [_INT] * 2 + [_PTR],
+                                      _INT)},
 }
 
 _LIBS: dict = {}
@@ -365,21 +429,13 @@ def _library(name: str):
         from mpctsid_tpu_torch.qp import _build
 
         lib = _build.load_library(name, *LIBRARIES[name])
-        launch = getattr(lib, f"{name}_launch")
-        launch.argtypes = _LAUNCH_ARGTYPES[name]
-        launch.restype = _INT
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [_INT]
-        err.restype = ctypes.c_char_p
-        if name == "admm_fused":
-            lib.admm_fused_workspace_floats.argtypes = [_INT] * 4
-            lib.admm_fused_workspace_floats.restype = ctypes.c_longlong
-        if name == "admm_packed":
-            lib.admm_packed_slot_floats.argtypes = [_INT] * 3
-            lib.admm_packed_slot_floats.restype = _INT
-        if name == "admm_m2":
-            lib.admm_m2_active_clusters.argtypes = [_INT] * 4
-            lib.admm_m2_active_clusters.restype = _INT
+        entries = dict(_ENTRY_POINTS.get(name, {}))
+        if name in _LAUNCH_ARGTYPES:
+            entries[f"{name}_launch"] = (_LAUNCH_ARGTYPES[name], _INT)
+        entries[f"{name}_error_string"] = ([_INT], ctypes.c_char_p)
+        for fn, (argtypes, restype) in entries.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
 
@@ -770,13 +826,8 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
     CUDA tensors: launches the hand-written kernel, or raises.  CPU tensors:
     the plain version.  See the module docstring."""
     B, n, m = check_fused_args(P, q, A, l, u, eqf, x0, y0)
-    iters = _check_iters(iters)
-    kw = dict(iters=iters, adapt_rounds=int(adapt_rounds),
-              equilibrate_iters=int(equilibrate_iters), rho0=float(rho0),
-              sigma=float(sigma), alpha=float(alpha),
-              rho_eq_scale=float(rho_eq_scale), inf=float(inf))
-    if kw["equilibrate_iters"] < 0:
-        raise ValueError("equilibrate_iters must be >= 0")
+    kw = _solve_kw(iters, adapt_rounds, equilibrate_iters, rho0, sigma, alpha,
+                   rho_eq_scale, inf)
     dev = P.device
     if dev.type == "cpu":
         return admm_solve_fused_reference(P, q, A, l, u, eqf, x0, y0, **kw)
@@ -815,6 +866,166 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
 
 
 admm_solve_fused.launches = 0
+
+
+def plain_warp_layout(n: int, m: int, B: int, smem_bytes: int,
+                      n_sm: int) -> FusedLayout:
+    """The layout of `admm_solve_plain_warp`: `fused_layout`'s warp path, the
+    only one it has.  Raises where `fused_layout` would take the block path
+    (n > 32, or fewer than four scenarios fit a block)."""
+    lay = fused_layout(n, m, B, smem_bytes, n_sm)
+    if lay.path != "warp":
+        raise ValueError(
+            f"admm_solve_plain_warp: n={n}, m={m} does not fit the warp path "
+            f"(n <= {MAX_FUSED_N} and {MIN_WARP_SLOTS} slots of "
+            f"{4 * (lay.slot_floats or 0)} bytes in {smem_bytes}); the plain "
+            "backend's solve has no block path on the card")
+    return lay
+
+
+def admm_solve_plain_reference(P, q, A, l, u, eqf, x0, y0,
+                               iters: int, adapt_rounds: int,
+                               equilibrate_iters: int, rho0: float,
+                               sigma: float, alpha: float,
+                               rho_eq_scale: float, inf: float):
+    """Plain version of `admm_solve_plain_warp`: qp/admm.py's own chain of
+    `admm_solve(backend="torch", mode="blockinv")` (`admm.scaled_solve`),
+    stopped before the unscaling; returns the scaled (x, y) and (D, E, c).
+    Any device and dtype; `inf` must be admm.INF, the chain's convention."""
+    from mpctsid_tpu_torch.qp import admm
+
+    if inf != admm.INF:
+        raise ValueError(f"inf must be the plain chain's INF = {admm.INF:g}, "
+                         f"got {inf:g}")
+    x, y, D, E, c = admm.scaled_solve(
+        P, q, A, l, u, eqf, x0, y0, iters=iters, rho=rho0, sigma=sigma,
+        alpha=alpha, rho_eq_scale=rho_eq_scale,
+        equilibrate_iters=equilibrate_iters, adapt_rounds=adapt_rounds)[:5]
+    return x, y, D, E, c
+
+
+def admm_solve_plain_warp(P, q, A, l, u, eqf, x0, y0,
+                          iters: int, adapt_rounds: int,
+                          equilibrate_iters: int, rho0: float, sigma: float,
+                          alpha: float, rho_eq_scale: float, inf: float):
+    """qp/admm.py's plain solve (norm-only Ruiz, per round K, its
+    Cholesky-based inverse, the refined iterations, the rho adaptation) of a
+    batch in one launch; returns the SCALED (x, y) and the scales (D, E, c),
+    as `admm_solve_fused` does.
+
+    CUDA tensors: launches the hand-written kernel (kernel 4's warp path,
+    `plain_warp_layout`), or raises (a shape the warp path cannot take, a
+    build or launch failure).  CPU tensors: the plain version, the chain
+    itself.  See the module docstring."""
+    B, n, m = check_fused_args(P, q, A, l, u, eqf, x0, y0)
+    kw = _solve_kw(iters, adapt_rounds, equilibrate_iters, rho0, sigma, alpha,
+                   rho_eq_scale, inf)
+    dev = P.device
+    if dev.type == "cpu":
+        return admm_solve_plain_reference(P, q, A, l, u, eqf, x0, y0, **kw)
+    _require_cuda(dev, "admm_solve_plain_warp")
+    lay = plain_warp_layout(n, m, B, *device_limits(dev))
+    lib = _library("admm_fused")
+    outs = (torch.empty_like(q), torch.empty_like(l), torch.empty_like(q),
+            torch.empty_like(l), q.new_empty((B,)))
+    with torch.cuda.device(dev):
+        rc = lib.admm_plain_warp_launch(
+            *(t.data_ptr() for t in (P, q, A, l, u, eqf, x0, y0, *outs)),
+            B, n, m, kw["iters"], kw["adapt_rounds"], kw["equilibrate_iters"],
+            kw["rho0"], kw["sigma"], kw["alpha"], kw["rho_eq_scale"],
+            kw["inf"], lay.g, lay.ld, lay.slot_floats,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "admm_fused", B, n, m)
+    admm_solve_plain_warp.launches += 1
+    x_o, y_o, d_o, e_o, c_o = outs
+    return x_o, y_o, d_o, e_o, c_o
+
+
+admm_solve_plain_warp.launches = 0
+
+
+MAX_SPD_WARP_N = 32     # the warp path: lane i owns row i
+MAX_SPD_SLOTS = 8       # matrices (warps) per block there (spd_inverse.cu)
+
+
+class SpdLayout(NamedTuple):
+    """How one call of the SPD-inverse kernel is laid out."""
+    path: str          # "warp": a warp per matrix; "block": a block each
+    g: int             # matrices (warps) per block on the warp path, else 0
+    threads: int       # threads per block
+    in_smem: bool      # block path: the working matrix in shared memory
+    smem_floats: int   # floats of shared memory per block
+
+
+def spd_inverse_layout(n: int, B: int, smem_bytes: int,
+                       n_sm: int) -> SpdLayout:
+    """Which path `chol_inverse` takes, and its parameters.
+
+    n <= 32: the warp path, one warp per matrix with a scratch of n rows of
+    32 floats; g matrices per block, what fits `smem_bytes`, at most 8, and
+    no more than spreads B over `n_sm` multiprocessors.  Larger n: the block
+    path, one block per matrix (256 threads up to n = 64, 512 up to 128,
+    else 1024), its working matrix (n rows of stride n + 1) and two n-vectors
+    in shared memory where they fit, else the matrix in the L^-1 output."""
+    if n <= MAX_SPD_WARP_N:
+        slot = n * 32
+        g = _slots_per_block(smem_bytes // (4 * slot), MAX_SPD_SLOTS, B,
+                             n_sm)
+        return SpdLayout("warp", g, 32 * g, False, g * slot)
+    threads = 256 if n <= 64 else 512 if n <= 128 else 1024
+    full = 2 * n + n * (n + 1)
+    if 4 * full <= smem_bytes:
+        return SpdLayout("block", 0, threads, True, full)
+    return SpdLayout("block", 0, threads, False, 2 * n)
+
+
+def chol_inverse(K):
+    """K^-1 of a batch of SPD matrices (B, n, n): the function of
+    blockinv.spd_inverse_chol(K, ns_steps=1) (Jacobi scaling, Cholesky with
+    the 1e-10 pivot floor, triangular inverse, one Newton-Schulz step kept
+    only where it does not diverge, the identity where the result is not
+    finite), per matrix.
+
+    CUDA tensors: the hand-written kernel (`spd_inverse_layout`: n <= 32 one
+    launch; larger n the block factorization, four torch.bmm products and
+    the guard's launch), or an exception.  CPU tensors: the plain version.
+    See the module docstring."""
+    B, n = check_spd_args(K)
+    dev = K.device
+    if dev.type == "cpu":
+        return spd_inverse_chol(K, ns_steps=1)
+    _require_cuda(dev, "chol_inverse")
+    lay = spd_inverse_layout(n, B, *device_limits(dev))
+    lib = _library("spd_inverse")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if lay.path == "warp":
+            out = torch.empty_like(K)
+            rc = lib.spd_inverse_warp_launch(K.data_ptr(), out.data_ptr(), B,
+                                             n, lay.g, stream)
+            _raise_on(rc, lib, "spd_inverse", B, n, n)
+            chol_inverse.launches += 1
+            return out
+        Ks, Li, M = (torch.empty_like(K) for _ in range(3))
+        s = K.new_empty((B, n))
+        rc = lib.spd_inverse_factor_launch(
+            K.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
+            M.data_ptr(), B, n, lay.threads, int(lay.in_smem), stream)
+        _raise_on(rc, lib, "spd_inverse", B, n, n)
+        X0 = torch.bmm(Li.transpose(1, 2), Li)
+        M.baddbmm_(Ks, X0, alpha=-1.0)         # 2 I - Ks X0
+        X = torch.bmm(X0, M)
+        T1 = torch.bmm(Ks, X, out=Li)          # Ks X, over L^-1
+        out = Ks                               # Ks has served
+        rc = lib.spd_inverse_select_launch(
+            X0.data_ptr(), M.data_ptr(), X.data_ptr(), T1.data_ptr(),
+            s.data_ptr(), out.data_ptr(), B, n, stream)
+        _raise_on(rc, lib, "spd_inverse", B, n, n)
+    chol_inverse.launches += 1
+    return out
+
+
+chol_inverse.launches = 0
 
 
 MAX_MMA_SLOTS = 4       # warps per block on kernel 5's warp path

@@ -29,6 +29,20 @@ The QP has equality rows (base dynamics, stance contacts), which puts it
 outside the M2 kernel's validity domain: `solve_wbc` takes every backend of
 qp/admm.py that keeps the explicit refinement residual and refuses the M2
 ones.
+
+The solve on the card.  The default backend ("xla", alias "torch": the plain
+chain of qp/admm.py) is, for a float32, unpolished solve on CUDA tensors, ONE
+launch of a hand-written kernel (`qp/kernels.py::admm_solve_plain_warp`
+through `qp/admm.py::admm_solve_warp`: kernel 4's warp path with the plain
+chain's norm-only Ruiz), then the unscaling and residuals of
+`_unscaled_solution`; the chain itself is that kernel's plain version and
+runs on CPU tensors.  The route is taken in `_solve_tick` on what the caller
+asks for, not on what fails: the polished tier (`polish=True`) and the
+float64 tiers (`solve_wbc_contract`, config.WBC_PARITY_SOLVER's solves in
+float64) ask for the plain chain by their arguments and get it; a float32,
+unpolished CUDA solve always takes the kernel, or raises.  The kernel
+backends ("vpu", "packed", "mma") invert K on the SPD-inverse kernel
+(`qp/kernels.py::chol_inverse`), three launches a tick; "fused" is kernel 4.
 """
 
 from __future__ import annotations
@@ -42,7 +56,8 @@ from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.config import WbcConfig
 from mpctsid_tpu_torch.dyn import kernels as rbd
 from mpctsid_tpu_torch.model.tree import NV, KinematicTree
-from mpctsid_tpu_torch.qp.admm import INF, admm_solve
+from mpctsid_tpu_torch.qp.admm import (INF, _resolve_backend, admm_solve,
+                                       admm_solve_warp)
 from mpctsid_tpu_torch.utils import device_constant
 
 NF = 12
@@ -321,6 +336,15 @@ def solve_wbc_contract(tree: KinematicTree, cfg: WbcConfig, q, v,
                        warm_y, "torch", True)
 
 
+def takes_solve_kernel(H, backend: str, polish: bool) -> bool:
+    """Whether `_solve_tick` solves on `admm_solve_plain_warp`: the plain
+    backend asked for, unpolished, float32 on a CUDA device (module
+    docstring)."""
+    return (not polish and H.dtype == torch.float32
+            and H.device.type == "cuda"
+            and _resolve_backend(backend, H.device) == "torch")
+
+
 def _solve_tick(qp, iters: int, adapt_rounds: int, warm_x, warm_y,
                 backend: str, polish: bool):
     """Solve one tick's QP (`build_wbc_qp`'s tuple): (tau, qdd, f, sol)."""
@@ -328,9 +352,13 @@ def _solve_tick(qp, iters: int, adapt_rounds: int, warm_x, warm_y,
     # status_tol 0.5: a cold-started fixed-iteration WBC solve legitimately
     # sits at prim ~0.2 on the acceleration-scale constraint rows (m/s^2);
     # the failure policy should only trip on divergence/non-finite solves
-    sol = admm_solve(H, g, A, l, u, x0=warm_x, y0=warm_y,
-                     iters=iters, adapt_rounds=adapt_rounds, rho=0.1,
-                     status_tol=0.5, backend=backend, polish_kkt=polish)
+    kw = dict(x0=warm_x, y0=warm_y, iters=iters, adapt_rounds=adapt_rounds,
+              rho=0.1, status_tol=0.5)
+    if takes_solve_kernel(H, backend, polish):
+        sol = admm_solve_warp(H, g, A, l, u, **kw)
+    else:
+        sol = admm_solve(H, g, A, l, u, backend=backend, polish_kkt=polish,
+                         **kw)
     qdd = sol.x[:, :NV]
     f = sol.x[:, NV:]
     tau = (torch.bmm(M[:, 6:], qdd[:, :, None])[:, :, 0] + h[:, 6:]

@@ -244,23 +244,32 @@ FUSED_KW = dict(iters=40, adapt_rounds=3, equilibrate_iters=8, rho0=0.1,
 
 # phase boundaries of one adapt round of the warp path, by the source line
 # that opens the phase; PHASES[k] names what runs from mark k to mark k + 1
+# (file, anchor) of every phase boundary of a round of kernel 4's warp path;
+# the factorization's phases lie in spd_inverse.cuh (warp_scaled_inverse),
+# which the patched copy hands the counters to
 MARKS = [
-    "        // row `lane` of K = P + sigma I + (A rho)' A, in registers\n",
-    "        // Jacobi scaling: row `lane` of Ks = s K s, kept in registers",
-    "        // Cholesky, left-looking column sweep: lane i forms entry",
-    "        // L^-1 by forward substitution, row-major into the lower",
-    "        // row `lane` of X0 = L^-T L^-1, in registers, then TRANSPOSED",
-    "        // one Newton-Schulz step.  M = 2I - Ks X0 column by column:",
-    "        // X = X0 M, the same way over M\n",
-    "        // r1 = |I - Ks X|_F^2\n",
-    "        // divergence safeguard (a NaN compares false: back to X0), "
-    "then the\n        // finite safeguard (identity in the scaled frame); "
-    "K^-1 = s X s\n",
-    "        warp_refined_iterations(sW, sK, sA, ld, n, m, fp.iters_per,",
-    "        if (round + 1 < fp.n_rounds) {\n            // scaled residual "
-    "ratios -> rho_s\n            float m_axz = 0.f, m_ax = 0.f, m_z = 0.f;"
-    "\n            for (int i = lane; i < m; i += 32) {\n                "
-    "const float ax = dot_strided(",
+    ("admm_fused.cu",
+     "        // row `lane` of K = P + sigma I + (A rho)' A, in registers\n"),
+    ("admm_fused.cu", "        // K^-1 (spd_inverse.cuh): the Jacobi scale s,"),
+    ("spd_inverse.cuh", "    // Cholesky, left-looking column sweep: lane i "
+     "forms entry"),
+    ("spd_inverse.cuh", "    // L^-1 by forward substitution, row-major into "
+     "the lower"),
+    ("spd_inverse.cuh", "    // row `lane` of X0 = L^-T L^-1, in registers, "
+     "then TRANSPOSED"),
+    ("spd_inverse.cuh", "    // one Newton-Schulz step.  M = 2I - Ks X0 "
+     "column by column:"),
+    ("spd_inverse.cuh", "    // X = X0 M, the same way over M\n"),
+    ("spd_inverse.cuh", "    // r1 = |I - Ks X|_F^2\n"),
+    ("spd_inverse.cuh", "    // divergence safeguard (a NaN compares false: "
+     "back to X0), then the\n    // finite test of what is kept\n"),
+    ("admm_fused.cu",
+     "        warp_refined_iterations(sW, sK, sA, ld, n, m, fp.iters_per,"),
+    ("admm_fused.cu",
+     "        if (round + 1 < fp.n_rounds) {\n            // scaled residual "
+     "ratios -> rho_s\n            float m_axz = 0.f, m_ax = 0.f, m_z = 0.f;"
+     "\n            for (int i = lane; i < m; i += 32) {\n                "
+     "const float ax = dot_strided("),
 ]
 PHASES = ["K = P + sigma I + A' rho A", "Jacobi scaling", "Cholesky",
           "triangular inverse", "X0 = L^-T L^-1", "M = 2I - Ks X0",
@@ -391,13 +400,26 @@ def probe_fused(record, B, device, smem, n_sm, build):
              "round < fp.n_rounds; ++round) {\n        for (int i = lane; "
              "i < m; i += 32) {\n            const float rh = srpat[i] * "
              "rho_s;")]
-    for k, anchor in enumerate(MARKS):
-        subs.append((anchor, mark.format(k=(k - 1) % len(MARKS)) + anchor))
+    # the factorization takes the counters as two more arguments
+    header = [("                                                    "
+               "float (&xr)[WN])\n{",
+               "                                                    "
+               "float (&xr)[WN], long long* prof_, long long& prev_)\n{")]
+    subs.append(("        const bool bad = spd_warp::warp_scaled_inverse(kr, "
+                 "si, n, sW, lane,\n                                         "
+                 "              x0r);",
+                 "        const bool bad = spd_warp::warp_scaled_inverse(kr, "
+                 "si, n, sW, lane,\n                                         "
+                 "              x0r, prof_, prev_);"))
+    for k, (fname, anchor) in enumerate(MARKS):
+        pair = (anchor, mark.format(k=(k - 1) % len(MARKS)) + anchor)
+        (subs if fname == "admm_fused.cu" else header).append(pair)
     subs.append(("    if (lane == 0) io.c_out[b] = c;\n",
                  "    if (lane == 0) io.c_out[b] = c;\n    if (lane == 0)\n"
                  "        for (int k_ = 0; k_ < 11; ++k_)\n            "
                  "io.e_out[(size_t)b * m + k_] = (float)prof_[k_];\n"))
-    plib = build_variant("phase clocks", subs, build, source="admm_fused.cu")
+    plib = build_variant("phase clocks", subs, build, source="admm_fused.cu",
+                         header_subs={"spd_inverse.cuh": header})
     outs = fused_launch(plib, args, FUSED_KW, lay)
     torch.cuda.synchronize()
     cycles = outs[3][:, :11].double()            # (B, 11) over 3 rounds
