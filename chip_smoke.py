@@ -81,13 +81,15 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  as close to float64 as the plain float32 chain (factor 2),
                  two launches bit for bit; kernel B (chol_inverse) against
                  blockinv.spd_inverse_chol: n = 30 (warp path) and 192
-                 (block path) at B = 1, 37, 4096, n = 33 and 240 (the
-                 working matrix in device memory), the K of the cascade's
-                 own WBC and MPC solves: |I - K X| in float64 within twice
-                 the plain version's; a NaN and an indefinite matrix take
-                 the plain version's fallbacks and leave the rest of the
-                 batch bit for bit; times at B = 1 and 4096 beside the plain
-                 chains, torch.linalg.inv_ex (kernel B) and the bounds
+                 (blocked block path) at B = 1, 37, 4096, n = 33 and 240
+                 (the working matrix in device memory), the panel edges
+                 n = 63, 65, 191, 193 at B = 1 and 37 (each launch's layout
+                 checked), the K of the cascade's own WBC and MPC solves:
+                 |I - K X| in float64 within twice the plain version's; a
+                 NaN and an indefinite matrix take the plain version's
+                 fallbacks and leave the rest of the batch bit for bit;
+                 times at B = 1 and 4096 beside the plain chains,
+                 torch.linalg.inv_ex (kernel B) and the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -1064,6 +1066,30 @@ def solve_kernels_phase(smi: str, device, reports: dict) -> None:
         rel_err = max(rel_err, hold_inverses(
             [(K, kernels.chol_inverse(K))],
             f"chol_inverse, random K, n={n}", smi))
+    # the block path's panel edges: n one short of and one past a multiple
+    # of 32 (the identity pad fills the last panel), each launch's layout as
+    # spd_inverse_layout states it: panels of 32, 4 x 4 tiles, 64 threads a
+    # tile (128 / 256 / 512 a block), the working matrix in shared memory up
+    # to n = 192
+    for n in (63, 65, 191, 193):
+        np_ = -(-n // 32) * 32
+        threads = 128 if np_ <= 64 else 256 if np_ <= 96 else 512
+        for B in (1, 37):
+            K = iteration_inputs(300 + n + B, B, n, n + 20, device,
+                                 eq=True)[1][1]
+            lay = kernels.spd_inverse_layout(n, B, smem, n_sm)
+            check(lay == kernels.SpdLayout(
+                "block", 0, threads, np_ <= 192,
+                kernels.spd_block_floats(n, np_ <= 192), 32, 4, np_ + 4),
+                  f"chol_inverse B={B} n={n}: panels of 32 over np = {np_}, "
+                  f"4 x 4 tiles, {threads} threads, the working matrix in "
+                  f"{'shared' if np_ <= 192 else 'device'} memory ({lay})")
+            X = kernels.chol_inverse(K)
+            check_repeatable(f"chol_inverse B={B} n={n}",
+                             lambda: [kernels.chol_inverse(K)])
+            rel_err = max(rel_err, hold_inverses(
+                [(K, X)], f"chol_inverse, random K, panel edge B={B} n={n}",
+                smi))
     # the K the stages build: every inverse of a vpu solve of the cascade
     # WBC QPs and of a kernel 1 solve of the cascade MPC QPs
     log: list = []

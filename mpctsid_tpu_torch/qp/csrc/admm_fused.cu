@@ -88,15 +88,23 @@
 // per scenario, the design before, 3.90 ms.  PERF.md keeps the table and the
 // share of each phase.
 //
-// A second entry point, admm_plain_warp_launch, runs the warp path with the
-// NORM-ONLY Ruiz form of qp/admm.py::ruiz_equilibrate (the loop carries D, E
-// and c, reads the original |P| and |A| through weighted abs-max reductions,
-// lane j on column j, and applies the scaling once at the end): the function
-// of qp/admm.py::admm_solve(backend="torch"), the JAX package's
+// A second entry point, admm_plain_warp_launch (kernel A), runs one warp per
+// scenario with the NORM-ONLY Ruiz form of qp/admm.py::ruiz_equilibrate (the
+// loop carries D, E and c, reads the original |P| and |A| through weighted
+// abs-max reductions, and applies the scaling once at the end): the
+// function of qp/admm.py::admm_solve(backend="torch"), the JAX package's
 // admm_solve(backend="xla") that XLA compiles (mpctsid_tpu/qp/admm.py:209),
 // in one launch.  It is the default WBC solve on the card
-// (wbc/tsid.py::_solve_tick).  The two Ruiz forms are equal in exact
-// arithmetic; everything after them is the same code (`warp_solve`).
+// (wbc/tsid.py::_solve_tick).  Its body, `plain_register_solve`, keeps what
+// kernel 4's warp path writes to shared memory in registers: row i of K
+// (built from rows of A read as 16-byte broadcasts) and, once inverted, row
+// i of K^-1 stay in lane i, and the iterations are the register loop of
+// kernels 2 and 3 (warp_regs.cuh, K applied as given: K is symmetric), A and
+// the vectors in that loop's slot (rows of 36 floats).  Its Cholesky factor
+// and L^-1 come from the register sweep of spd_inverse.cuh (one reciprocal
+// a column, the same in every lane), X0 and the Newton-Schulz step from the
+// second half of kernel 4's inverse.  Kernel 4's body (`warp_solve`) is
+// untouched by it.
 //
 // The warp path's K^-1 (Jacobi scaling, Cholesky, triangular inverse, the
 // guarded Newton-Schulz step) is spd_inverse.cuh's warp_scaled_inverse,
@@ -108,6 +116,7 @@
 
 #include "admm_block.cuh"
 #include "spd_inverse.cuh"
+#include "warp_regs.cuh"
 
 namespace {
 
@@ -456,11 +465,8 @@ __host__ __device__ __forceinline__ int warp_slot_floats(int n, int m, int ld)
            & ~3;
 }
 
-// The warp path's body.  NORM_RUIZ picks the equilibration: false, the
-// full-rescale form of kernel 4 (backend "fused"); true, the norm-only form of
-// qp/admm.py::ruiz_equilibrate (the plain backend's solve).  Everything after
-// the equilibration is the same code.
-template <bool NORM_RUIZ>
+// Kernel 4's warp path (backend "fused"): the full-rescale Ruiz form, then
+// K, its inverse (spd_inverse.cuh) and the iterations over shared memory.
 __device__ __forceinline__ void warp_solve(const FusedIO& io,
                                            const FusedParams& fp, int ld)
 {
@@ -539,101 +545,47 @@ __device__ __forceinline__ void warp_solve(const FusedIO& io,
     float c = 1.0f;
     __syncwarp();
 
-    // ---- 1. Ruiz equilibration + cost scaling -----------------------------
-    if constexpr (NORM_RUIZ) {
-        // norm-only: the loop carries D, E and c and reads the ORIGINAL |P|,
-        // |A| through weighted abs-max reductions (the scaled matrix's column
-        // max is c D_j max_i(D_i |P_ij|)); the scaling is applied once, after
-        for (int it = 0; it < fp.equilibrate_iters; ++it) {
-            float cn = 0.f;
-            if (act) {
-                float wp = 0.f, wa = 0.f;
-                for (int i = 0; i < n; ++i)
-                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
-                for (int i = 0; i < m; ++i)
-                    wa = fmaxf(wa, fabsf(colA[i * ld]) * sE[i]);
-                const float dj = sD[lane];
-                cn = fmaxf((c * dj) * wp, dj * wa);
-            }
-            for (int i = lane; i < m; i += 32) {
-                float wr = 0.f;
-                for (int k = 0; k < n; ++k)
-                    wr = fmaxf(wr, fabsf(sA[i * ld + k]) * sD[k]);
-                const float cm = sE[i] * wr;
-                sdm[i] = cm < 1e-10f ? 1.0f : rsqrtf(fmaxf(cm, 1e-12f));
-            }
-            __syncwarp();       // every lane has read this round's D and E
-            if (act)
-                sD[lane] *= cn < 1e-10f ? 1.0f : rsqrtf(fmaxf(cn, 1e-12f));
-            for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
-            __syncwarp();
-            // cost scaling against the new D
-            float pcol = 0.f, qmax = 0.f;
-            if (act) {
-                float wp = 0.f;
-                for (int i = 0; i < n; ++i)
-                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
-                const float dj = sD[lane];
-                pcol = (c * dj) * wp;
-                qmax = c * (fabsf(v.q[lane]) * dj);
-            }
-            pcol = warp_sum(pcol);
-            qmax = warp_max(qmax);
-            c *= 1.0f / fmaxf(fmaxf(pcol / (float)n, qmax), 1e-12f);
-        }
-        // P <- (c D_i) P_ij D_j, A <- E_i A_ij D_j, q <- c D q: lane j its
-        // column
+    // ---- 1. full-rescale Ruiz + cost scaling: the matrices rescaled in place
+    // every round
+    for (int it = 0; it < fp.equilibrate_iters; ++it) {
         if (act) {
-            const float dj = sD[lane];
-            for (int i = 0; i < n; ++i)
-                colP[i * ld] = ((c * sD[i]) * colP[i * ld]) * dj;
-            for (int i = 0; i < m; ++i)
-                colA[i * ld] = (sE[i] * colA[i * ld]) * dj;
-            v.q[lane] = (c * dj) * v.q[lane];
+            float mx = 0.f;
+            for (int i = 0; i < n; ++i) mx = fmaxf(mx, fabsf(colP[i * ld]));
+            for (int i = 0; i < m; ++i) mx = fmaxf(mx, fabsf(colA[i * ld]));
+            sdn[lane] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
+        }
+        for (int i = lane; i < m; i += 32) {
+            float mx = 0.f;
+            for (int k = 0; k < n; ++k) mx = fmaxf(mx, fabsf(sA[i * ld + k]));
+            sdm[i] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
         }
         __syncwarp();
-    } else {
-        // full rescale (kernel 4): the matrices rescaled in place every round
-        for (int it = 0; it < fp.equilibrate_iters; ++it) {
-            if (act) {
-                float mx = 0.f;
-                for (int i = 0; i < n; ++i) mx = fmaxf(mx, fabsf(colP[i * ld]));
-                for (int i = 0; i < m; ++i) mx = fmaxf(mx, fabsf(colA[i * ld]));
-                sdn[lane] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
+        float psum = 0.f, qmax = 0.f;
+        if (act) {
+            const float dj = sdn[lane];
+            for (int i = 0; i < n; ++i) {
+                const float pv = (colP[i * ld] * sdn[i]) * dj;
+                colP[i * ld] = pv;
+                psum = fmaxf(psum, fabsf(pv));      // abs-max of the column
             }
-            for (int i = lane; i < m; i += 32) {
-                float mx = 0.f;
-                for (int k = 0; k < n; ++k) mx = fmaxf(mx, fabsf(sA[i * ld + k]));
-                sdm[i] = mx < 1e-10f ? 1.0f : rsqrtf(fmaxf(mx, 1e-12f));
-            }
-            __syncwarp();
-            float psum = 0.f, qmax = 0.f;
-            if (act) {
-                const float dj = sdn[lane];
-                for (int i = 0; i < n; ++i) {
-                    const float pv = (colP[i * ld] * sdn[i]) * dj;
-                    colP[i * ld] = pv;
-                    psum = fmaxf(psum, fabsf(pv));      // abs-max of the column
-                }
-                for (int i = 0; i < m; ++i)
-                    colA[i * ld] = (colA[i * ld] * sdm[i]) * dj;
-                const float qj = v.q[lane] * dj;
-                v.q[lane] = qj;
-                sD[lane] *= dj;
-                qmax = fabsf(qj);
-            }
-            for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
-            psum = warp_sum(psum);
-            qmax = warp_max(qmax);
-            const float gamma =
-                1.0f / fmaxf(fmaxf(psum / (float)n, qmax), 1e-12f);
-            if (act) {
-                for (int i = 0; i < n; ++i) colP[i * ld] *= gamma;
-                v.q[lane] *= gamma;
-            }
-            c *= gamma;
-            __syncwarp();
+            for (int i = 0; i < m; ++i)
+                colA[i * ld] = (colA[i * ld] * sdm[i]) * dj;
+            const float qj = v.q[lane] * dj;
+            v.q[lane] = qj;
+            sD[lane] *= dj;
+            qmax = fabsf(qj);
         }
+        for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
+        psum = warp_sum(psum);
+        qmax = warp_max(qmax);
+        const float gamma =
+            1.0f / fmaxf(fmaxf(psum / (float)n, qmax), 1e-12f);
+        if (act) {
+            for (int i = 0; i < n; ++i) colP[i * ld] *= gamma;
+            v.q[lane] *= gamma;
+        }
+        c *= gamma;
+        __syncwarp();
     }
     for (int i = lane; i < m; i += 32) {
         const float li = v.l[i], ui = v.u[i];
@@ -752,19 +704,300 @@ __device__ __forceinline__ void warp_solve(const FusedIO& io,
     if (lane == 0) io.c_out[b] = c;
 }
 
+// ---- kernel A: the plain backend's solve on the register loop -------------
+
+constexpr int PA = 36;     // row stride of P and A on kernel A's path
+
+// Floats of one scenario's slot on kernel A's path, a multiple of four: the
+// factorization's scratch W (n rows of WS), P (n rows of PA), then
+// warp_regs.cuh's slot (A in round4(m) rows of PA, rhs, x_a, r, x_t, and
+// w, z, y, l, u, rho, 1 / rho), then D (32), E, the Ruiz row scale and the
+// rho pattern (round4(m) each).  The wrapper's plain_warp_layout computes
+// the same.
+__host__ __device__ __forceinline__ int plain_slot_floats(int n, int m)
+{
+    const int mp = warp_regs::round4(m);
+    return n * WS + n * PA + mp * PA + warp_regs::vec_floats(m) + WN + 3 * mp;
+}
+
+// Kernel A's body: qp/admm.py's solve with the NORM-ONLY Ruiz form of
+// `ruiz_equilibrate` (the loop carries D, E and c and reads the original |P|
+// and |A| through weighted abs-max reductions, the scaling applied once at
+// the end), then per adapt round K, its inverse (spd_inverse.cuh) and the
+// refined iterations of kernels 2 and 3 (warp_regs.cuh): lane i holds row i
+// of K^-1 and row i of K (K is symmetric: its column i) in registers, and
+// reads A and the vectors from the slot in 16-byte pieces.  Lanes past n
+// hold zeros.
+__device__ __forceinline__ void plain_register_solve(const FusedIO& io,
+                                                     const FusedParams& fp)
+{
+    extern __shared__ __align__(16) float smem[];
+    const int n = fp.n, m = fp.m;
+    const int mp = warp_regs::round4(m), kp = warp_regs::round4(n);
+    const int T = blockDim.x;
+    const int t = threadIdx.x;
+    const int lane = t & 31;
+    const int warp = t >> 5;
+    const int G = T >> 5;
+    const int b0 = blockIdx.x * G;
+    const int slot_floats = plain_slot_floats(n, m);
+    const float sigma = fp.sigma;
+
+    // the whole block copies P and A of its scenarios, rows padded to PA
+    // with zeros, A's pad rows zero
+    for (int s = 0; s < G && b0 + s < io.B; ++s) {
+        float* dP = smem + (size_t)s * slot_floats + n * WS;
+        float* dA = dP + n * PA;
+        const float* gP = io.P + (size_t)(b0 + s) * n * n;
+        const float* gA = io.A + (size_t)(b0 + s) * m * n;
+        for (int k = t; k < n * PA; k += T) {
+            const int i = k / PA, j = k - i * PA;
+            dP[k] = j < n ? gP[i * n + j] : 0.f;
+        }
+        for (int k = t; k < mp * PA; k += T) {
+            const int i = k / PA, j = k - i * PA;
+            dA[k] = i < m && j < n ? gA[i * n + j] : 0.f;
+        }
+    }
+    __syncthreads();
+
+    const int b = b0 + warp;
+    if (b >= io.B) return;
+
+    float* sW = smem + (size_t)warp * slot_floats;   // the inverse's scratch
+    float* sP = sW + n * WS;
+    const warp_regs::Slot sl = warp_regs::carve_slot(sP + n * PA, m, mp * PA);
+    float* sD = sl.rinv + mp;    // (32) Ruiz column scale, 1 past n
+    float* sE = sD + WN;         // Ruiz row scale, 1 past m
+    float* sdm = sE + mp;        // this round's row factors
+    float* srpat = sdm + mp;     // 1 + eqf (rho_eq_scale - 1)
+    const float* sA = sl.A;
+
+    const bool act = lane < n;
+    const int own = act ? lane : 0;
+    const float* colP = sP + own;      // column `own` of P: colP[i * PA]
+    const float* colA = sA + own;
+    float q = act ? io.q[(size_t)b * n + lane] : 0.f;
+    sD[lane] = 1.0f;
+    for (int i = lane; i < mp; i += 32) {
+        const bool in = i < m;
+        sl.l[i] = in ? io.l[(size_t)b * m + i] : 0.f;
+        sl.u[i] = in ? io.u[(size_t)b * m + i] : 0.f;
+        srpat[i] = in ? 1.0f + io.eqf[(size_t)b * m + i] *
+                               (fp.rho_eq_scale - 1.0f)
+                      : 1.0f;
+        sE[i] = 1.0f;
+    }
+    float c = 1.0f;
+    __syncwarp();
+
+    // ---- 1. norm-only Ruiz + cost scaling (the scaled matrix's column max
+    // is c D_j max_i(D_i |P_ij|); rows of A in 16-byte pieces)
+    for (int it = 0; it < fp.equilibrate_iters; ++it) {
+        float cn = 0.f;
+        if (act) {
+            float wp = 0.f, wa = 0.f;
+            for (int i = 0; i < n; ++i)
+                wp = fmaxf(wp, fabsf(colP[i * PA]) * sD[i]);
+            for (int i = 0; i < m; ++i)
+                wa = fmaxf(wa, fabsf(colA[i * PA]) * sE[i]);
+            const float dj = sD[lane];
+            cn = fmaxf((c * dj) * wp, dj * wa);
+        }
+        for (int i = lane; i < m; i += 32) {
+            float wr = 0.f;
+            for (int k = 0; k < kp; k += 4) {
+                const float4 a = warp_regs::f4(sA + i * PA + k);
+                const float4 d = warp_regs::f4(sD + k);
+                wr = fmaxf(fmaxf(fmaxf(fmaxf(wr, fabsf(a.x) * d.x),
+                                       fabsf(a.y) * d.y),
+                                 fabsf(a.z) * d.z),
+                           fabsf(a.w) * d.w);
+            }
+            const float cm = sE[i] * wr;
+            sdm[i] = cm < 1e-10f ? 1.0f : rsqrtf(fmaxf(cm, 1e-12f));
+        }
+        __syncwarp();       // every lane has read this round's D and E
+        if (act)
+            sD[lane] *= cn < 1e-10f ? 1.0f : rsqrtf(fmaxf(cn, 1e-12f));
+        for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
+        __syncwarp();
+        // cost scaling against the new D
+        float pcol = 0.f, qmax = 0.f;
+        if (act) {
+            float wp = 0.f;
+            for (int i = 0; i < n; ++i)
+                wp = fmaxf(wp, fabsf(colP[i * PA]) * sD[i]);
+            const float dj = sD[lane];
+            pcol = (c * dj) * wp;
+            qmax = c * (fabsf(q) * dj);
+        }
+        pcol = warp_sum(pcol);
+        qmax = warp_max(qmax);
+        c *= 1.0f / fmaxf(fmaxf(pcol / (float)n, qmax), 1e-12f);
+    }
+    // P <- (c D_i) P_ij D_j, A <- E_i A_ij D_j, q <- c D q: lane j its column
+    if (act) {
+        const float dj = sD[lane];
+        float* cP = sP + lane;
+        float* cA = sl.A + lane;
+        for (int i = 0; i < n; ++i)
+            cP[i * PA] = ((c * sD[i]) * cP[i * PA]) * dj;
+        for (int i = 0; i < m; ++i)
+            cA[i * PA] = (sE[i] * cA[i * PA]) * dj;
+        q = (c * dj) * q;
+    }
+    for (int i = lane; i < m; i += 32) {
+        const float li = sl.l[i], ui = sl.u[i];
+        sl.l[i] = li <= -fp.inf ? li : sE[i] * li;
+        sl.u[i] = ui >= fp.inf ? ui : sE[i] * ui;
+    }
+
+    // ---- 2. warm start (x in registers; x_t carries it for A x) ----------
+    float x = act ? io.x0[(size_t)b * n + lane] / sD[lane] : 0.f;
+    for (int i = lane; i < mp; i += 32)
+        sl.y[i] = i < m ? (io.y0[(size_t)b * m + i] * c) / sE[i] : 0.f;
+    sl.xt[lane] = x;
+    __syncwarp();
+    for (int i = lane; i < mp; i += 32) {
+        const float ax = warp_regs::dot_row4(sA + i * PA, sl.xt, kp);
+        sl.z[i] = i < m ? fminf(fmaxf(ax, sl.l[i]), sl.u[i]) : 0.f;
+    }
+
+    // ---- 3. adapt rounds ----------------------------------------------------
+    float rho_s = fp.rho0;
+    for (int round = 0; round < fp.n_rounds; ++round) {
+        for (int i = lane; i < mp; i += 32) {
+            const float rh = srpat[i] * rho_s;
+            sl.rho[i] = rh;
+            sl.rinv[i] = 1.0f / rh;
+            sl.w[i] = rh * sl.z[i] - sl.y[i];
+        }
+        __syncwarp();
+
+        // K = P + sigma I + (A rho)' A: row `lane` in registers, a row of A
+        // per step in eight 16-byte broadcasts
+        float kr[WN];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) kr[j] = 0.f;
+        for (int r = 0; r < m; ++r) {
+            const float* ar = sA + r * PA;
+            const float ai = ar[own] * sl.rho[r];
+#pragma unroll
+            for (int j = 0; j < WN; j += 4) {
+                const float4 a = warp_regs::f4(ar + j);
+                kr[j] = fmaf(ai, a.x, kr[j]);
+                kr[j + 1] = fmaf(ai, a.y, kr[j + 1]);
+                kr[j + 2] = fmaf(ai, a.z, kr[j + 2]);
+                kr[j + 3] = fmaf(ai, a.w, kr[j + 3]);
+            }
+        }
+        float kd = 0.f;
+#pragma unroll
+        for (int j = 0; j < WN; j += 4) {
+            const float4 p = warp_regs::f4(sP + own * PA + j);
+            const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float kv = (pj[e] + (j + e == lane ? sigma : 0.f)) +
+                                 kr[j + e];
+                kr[j + e] = act && j + e < n ? kv : 0.f;
+                if (j + e == lane) kd = kv;
+            }
+        }
+
+        // row `lane` of K^-1 = s X s, kept in registers: the Jacobi scale s,
+        // Ks = s K s, its Cholesky factor and L^-1 in one register sweep
+        // (lanes past n an identity pad) into the scratch W, then X0 =
+        // L^-T L^-1 and one guarded Newton-Schulz step (spd_inverse.cuh);
+        // the identity where it is not finite
+        const float si = act ? rsqrtf(fmaxf(kd, 1e-30f)) : 0.f;
+        float ks[WN], kinv[WN];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+            const float sj = __shfl_sync(FULL, si, j);
+            ks[j] = j < n ? (kr[j] * sj) * si : 0.f;
+            kinv[j] = act ? ks[j] : (j == lane ? 1.0f : 0.f);
+        }
+        spd_warp::warp_chol_inverse(kinv, sW, WS, n, lane);
+        __syncwarp();
+        const bool bad = spd_warp::warp_x0_newton(ks, n, sW, lane, kinv);
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+            const float sj = __shfl_sync(FULL, si, j);
+            const float xv = bad ? (j == lane ? 1.0f : 0.f) : kinv[j];
+            kinv[j] = j < n && act ? (xv * sj) * si : 0.f;
+        }
+
+        x = warp_regs::warp_register_iterations(kinv, kr, sl, PA, n, m,
+                                                fp.iters_per, sigma,
+                                                fp.alpha, x, q, lane);
+
+        if (round + 1 < fp.n_rounds) {
+            // the residual ratios of the scaled problem -> rho_s (x through
+            // the slot's r, free between rounds)
+            sl.r[lane] = x;
+            __syncwarp();
+            float m_axz = 0.f, m_ax = 0.f, m_z = 0.f;
+            for (int i = lane; i < m; i += 32) {
+                const float ax = warp_regs::dot_row4(sA + i * PA, sl.r, kp);
+                m_axz = fmaxf(m_axz, fabsf(ax - sl.z[i]));
+                m_ax = fmaxf(m_ax, fabsf(ax));
+                m_z = fmaxf(m_z, fabsf(sl.z[i]));
+            }
+            float m_d = 0.f, m_px = 0.f, m_q = 0.f, m_aty = 0.f;
+            if (act) {
+                float px = 0.f, aty = 0.f;
+                for (int i = 0; i < n; ++i)
+                    px = fmaf(colP[i * PA], sl.r[i], px);
+                for (int i = 0; i < m; ++i)
+                    aty = fmaf(colA[i * PA], sl.y[i], aty);
+                m_d = fabsf((px + q) + aty);
+                m_px = fabsf(px);
+                m_q = fabsf(q);
+                m_aty = fabsf(aty);
+            }
+            m_axz = warp_max(m_axz);
+            m_ax = warp_max(m_ax);
+            m_z = warp_max(m_z);
+            m_d = warp_max(m_d);
+            m_px = warp_max(m_px);
+            m_q = warp_max(m_q);
+            m_aty = warp_max(m_aty);
+            const float rp = m_axz / fmaxf(fmaxf(m_ax, m_z), 1e-12f);
+            const float rd =
+                m_d / fmaxf(fmaxf(m_px, fmaxf(m_q, m_aty)), 1e-12f);
+            rho_s = fminf(fmaxf(rho_s * sqrtf(rp / fmaxf(rd, 1e-12f)), 1e-3f),
+                          1e3f);
+        }
+    }
+
+    // ---- 4. scaled iterates and the scales ---------------------------------
+    if (act) {
+        io.x_out[(size_t)b * n + lane] = x;
+        io.d_out[(size_t)b * n + lane] = sD[lane];
+    }
+    for (int i = lane; i < m; i += 32) {
+        io.y_out[(size_t)b * m + i] = sl.y[i];
+        io.e_out[(size_t)b * m + i] = sE[i];
+    }
+    if (lane == 0) io.c_out[b] = c;
+}
+
 // kernel 4's warp path (backend "fused")
 __global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
 admm_fused_warp_kernel(FusedIO io, FusedParams fp, int ld)
 {
-    warp_solve<false>(io, fp, ld);
+    warp_solve(io, fp, ld);
 }
 
-// the plain backend's solve (qp/admm.py's function, norm-only Ruiz): the
-// default WBC solve on the card (qp/kernels.py::admm_solve_plain_warp)
+// kernel A: the plain backend's solve (qp/admm.py's function, norm-only
+// Ruiz), the default WBC solve on the card
+// (qp/kernels.py::admm_solve_plain_warp); rows at the stride PA
 __global__ void __launch_bounds__(32 * MAX_WARP_SLOTS)
 admm_plain_warp_kernel(FusedIO io, FusedParams fp, int ld)
 {
-    warp_solve<true>(io, fp, ld);
+    plain_register_solve(io, fp);
 }
 
 FusedParams make_params(int n, int m, int iters, int adapt_rounds,
@@ -799,15 +1032,14 @@ int max_smem_optin(int* max_smem)
 
 // One launch of a warp-path kernel: g scenarios (warps) per block, rows
 // padded to `ld`, `slot_floats` floats of shared memory per scenario (checked
-// against the kernel's own count).
+// against `want_slot`, the kernel's own count for this ld; -1: ld refused).
 int launch_warp(void (*kernel)(FusedIO, FusedParams, int), const FusedIO& io,
                 const FusedParams& fp, int g, int ld, int slot_floats,
-                int max_smem, void* stream)
+                int want_slot, int max_smem, void* stream)
 {
     const size_t smem = sizeof(float) * (size_t)g * (size_t)slot_floats;
-    if (fp.n > WN || g <= 0 || g > MAX_WARP_SLOTS || ld < fp.n ||
-        slot_floats != warp_slot_floats(fp.n, fp.m, ld) ||
-        smem > (size_t)max_smem)
+    if (fp.n > WN || g <= 0 || g > MAX_WARP_SLOTS || want_slot < 0 ||
+        slot_floats != want_slot || smem > (size_t)max_smem)
         return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -882,7 +1114,8 @@ int admm_fused_launch(const float* P, const float* q, const float* A,
         const FusedIO io = {P, q, A, l, u, eqf, x0, y0,
                             x_out, y_out, d_out, e_out, c_out, B};
         return launch_warp(admm_fused_warp_kernel, io, fp, g, ld, slot_floats,
-                           max_smem, stream);
+                           ld < n ? -1 : warp_slot_floats(n, m, ld), max_smem,
+                           stream);
     }
 
     if (threads < 32 || threads > 1024 || (threads & 31) != 0)
@@ -912,10 +1145,11 @@ int admm_fused_launch(const float* P, const float* q, const float* A,
     return (int)cudaGetLastError();
 }
 
-// The plain backend's solve (norm-only Ruiz, then kernel 4's warp path) on
+// Kernel A, the plain backend's solve (norm-only Ruiz, the register loop) on
 // `stream`, with the geometry of the wrapper's plain_warp_layout(): g > 0
-// scenarios (warps) per block, rows padded to `ld`, `slot_floats` floats of
-// shared memory per scenario.  n <= 32 only: there is no block path.
+// scenarios (warps) per block, rows of P and A at ld = PA (36),
+// `slot_floats` floats of shared memory per scenario (plain_slot_floats).
+// n <= 32 only: there is no block path.
 // Returns the CUDA error code of the launch.
 int admm_plain_warp_launch(const float* P, const float* q, const float* A,
                            const float* l, const float* u, const float* eqf,
@@ -938,7 +1172,8 @@ int admm_plain_warp_launch(const float* P, const float* q, const float* A,
     const FusedIO io = {P, q, A, l, u, eqf, x0, y0,
                         x_out, y_out, d_out, e_out, c_out, B};
     return launch_warp(admm_plain_warp_kernel, io, fp, g, ld, slot_floats,
-                       max_smem, stream);
+                       ld != PA ? -1 : plain_slot_floats(n, m), max_smem,
+                       stream);
 }
 
 const char* admm_fused_error_string(int code)

@@ -18,7 +18,7 @@
 // (triangular inverse) + about 7 n^3 (X0 and the three products of the
 // Newton-Schulz step and its guard); bytes: K in, K^-1 out.  At n = 30 that is
 // 0.2 M FMAs per matrix in some 150 dependent steps; at n = 192 the
-// factorization is two sweeps of 192 dependent steps each, the products
+// factorization is 2.4 M FMAs (six panels, five block rows), the products
 // 6.8 M FMAs.
 //
 // Two paths, chosen by the wrapper's `spd_inverse_layout` (qp/kernels.py):
@@ -28,34 +28,44 @@
 //     factorization (spd_inverse.cuh, shared with admm_fused.cu) over a
 //     scratch of n rows of 32 floats; K is copied in and K^-1 out through
 //     that scratch, so both device-memory passes are coalesced.
-//   * BLOCK path, n > 32: one block per matrix for what is sequential, the
-//     dense products on cuBLAS through the wrapper (as the JAX package leaves
-//     them to XLA).  spd_inverse_block_kernel writes s, Ks and L^-1 (full, zeros
-//     above the diagonal) and 2 I into the Newton-Schulz buffer; the wrapper
-//     forms X0 = L^-T L^-1, M = 2 I - Ks X0 (in place), X = X0 M and
-//     T = Ks X with torch.bmm; spd_newton_select_kernel takes the guard
-//     (|M - I|^2 is |I - Ks X0|^2), the finite test and s X s.  Six device
-//     ops per inverse.  The factorization works on ONE matrix W with row
-//     stride ldw: Ks's lower triangle is factored in place (right-looking:
-//     column j, then the rank-1 update of the trailing lower triangle, rows
-//     over warps and columns over lanes), L's diagonal kept in a vector; then
-//     L^-1 by forward elimination (row k of L^-1 = row k of the eliminated
-//     identity over L[k][k]; rank-1 update of the rows below), stored
-//     TRANSPOSED in the upper triangle (U[c][i] = L^-1[i][c]), so both
-//     sweeps read and write rows of W on consecutive lanes and columns at the
-//     stride n + 1 (no bank conflicts).  W lives in shared memory when n (n +
-//     1) + 2 n floats fit (n = 192: 146 KB of the 227 KB a block can take),
-//     else in the matrix's own slice of the L^-1 output (row stride n), which
-//     ends transposed in place.
+//   * BLOCK path, n > 32: one block per matrix for the factorization and
+//     X0, the dense products of the Newton-Schulz step on cuBLAS through the
+//     wrapper (as the JAX package leaves them to XLA).
+//     spd_inverse_block_kernel writes s, Ks, X0 = L^-T L^-1 and 2 I into the
+//     Newton-Schulz buffer; the wrapper forms M = 2 I - Ks X0 (in place), X =
+//     X0 M and T = Ks X with torch.bmm; spd_newton_select_kernel takes the
+//     guard (|M - I|^2 is |I - Ks X0|^2), the finite test and s X s.  Five
+//     device ops per inverse.  The factorization is BLOCKED (spd_blocked.h):
+//     panels of 32 columns, each diagonal block factored and inverted by one
+//     warp in registers (spd_inverse.cuh's register sweep), the panel below
+//     it and the trailing update in 4 x 4 register tiles per thread, L^-1
+//     by blocked forward substitution in the same panel sweep (3 block
+//     barriers a panel, 17 at n = 192, where a scalar right-looking sweep
+//     needs 2 per column of each of its two sweeps: 768), then X0 from
+//     L^-1's lower triangle.  The working matrix W (n padded to a multiple
+//     of 32 with the identity, rows of n + 4 floats) lives in shared memory
+//     up to n = 192 (175 KB with the panel buffer), loaded with one
+//     cp.async.bulk per row where the rows are 16-byte aligned; larger n in
+//     a device-memory workspace (the wrapper's), by the same code.
 //
 // Plain C interface (loaded with ctypes), as admm_m2.cu.
 
 #include <cuda_runtime.h>
 
+#include <stdint.h>
+
 #include "admm_block.cuh"
+#include "cluster_exchange.cuh"
+#include "spd_blocked.h"
 #include "spd_inverse.cuh"
 
 namespace {
+
+using cluster_exchange::barrier_expect;
+using cluster_exchange::barrier_init;
+using cluster_exchange::barrier_wait;
+using cluster_exchange::shared_addr;
+using spd_blocked::PW;
 
 using spd_warp::FULL;
 using spd_warp::WN;
@@ -63,10 +73,12 @@ using spd_warp::WS;
 
 constexpr int MAX_SLOTS = 8;        // warp path: matrices (warps) per block
 
-// 1 / sqrt(max(d, 1e-30)) with NaN kept NaN, as torch.clamp_min keeps it
+// 1 / sqrt(max(d, 1e-30)) with NaN kept NaN, as torch.clamp_min keeps it:
+// the square root and the division both correctly rounded, so that s and
+// Ks are the plain version's bit for bit
 __device__ __forceinline__ float jacobi_scale(float d)
 {
-    return rsqrtf(d < 1e-30f ? 1e-30f : d);
+    return 1.0f / sqrtf(d < 1e-30f ? 1e-30f : d);
 }
 
 __global__ void __launch_bounds__(32 * MAX_SLOTS)
@@ -109,88 +121,123 @@ spd_inverse_warp_kernel(const float* __restrict__ K, float* __restrict__ out,
     for (int k = lane; k < n * n; k += 32) out[(size_t)b * nn + k] = sW[k];
 }
 
-__global__ void __launch_bounds__(1024)
+constexpr int MAX_BLOCK_THREADS = 512;  // block path
+
+// The diagonal block D (32 x 32 at stride ld, lower triangle valid) by one
+// warp: lane i loads row i, the register sweep of spd_inverse.cuh factors
+// and inverts it, and L^-1 (zeros above the diagonal) goes over D.
+__device__ __forceinline__ void diag_factor_warp(float* D, int ld, int lane)
+{
+    float r[PW];
+#pragma unroll
+    for (int q = 0; q < PW / 4; ++q) {
+        float v[4];
+        spd_blocked::load4(D + lane * ld + 4 * q, v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) r[4 * q + e] = v[e];
+    }
+    __syncwarp();
+    spd_warp::warp_chol_inverse(r, D, ld, PW, lane);
+}
+
+// spd_blocked::factor_and_invert's executor: the block's threads take the
+// units in turn, a barrier between phases, warp 0 the diagonal blocks
+struct BlockExec {
+    __device__ int first() const { return threadIdx.x; }
+    __device__ int step() const { return blockDim.x; }
+    __device__ void sync() const { __syncthreads(); }
+    __device__ void diag(float* D, int ld) const
+    {
+        if (threadIdx.x < 32) diag_factor_warp(D, ld, threadIdx.x);
+    }
+};
+
+// rows [0, n) of K (row stride n) -> W (row stride ld) by one cp.async.bulk
+// per row, counted by `bar`; every thread returns once all rows are in
+__device__ __forceinline__ void bulk_load_rows(float* W, int ld,
+                                               const float* K, int n,
+                                               uint64_t* bar)
+{
+    const int t = threadIdx.x;
+    if (t == 0) {
+        barrier_init(bar);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (t == 0) barrier_expect(bar, (unsigned)(sizeof(float) * n * n));
+    for (int i = t; i < n; i += blockDim.x)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\n"
+            :: "r"(shared_addr(W + i * ld)), "l"(K + (size_t)i * n),
+               "r"((unsigned)(sizeof(float) * n)), "r"(shared_addr(bar))
+            : "memory");
+    barrier_wait(bar, 0);
+}
+
+__global__ void __launch_bounds__(MAX_BLOCK_THREADS)
 spd_inverse_block_kernel(const float* __restrict__ K, float* __restrict__ ks,
-                         float* __restrict__ s_out, float* li,
-                         float* __restrict__ two_eye, int n, int in_smem)
+                         float* __restrict__ s_out, float* __restrict__ x0,
+                         float* __restrict__ two_eye, float* work, int n,
+                         int w_in_smem)
 {
     extern __shared__ __align__(16) float smem[];
     const int b = blockIdx.x;
     const int t = threadIdx.x, T = blockDim.x;
-    const int lane = t & 31, warp = t >> 5, n_warps = T >> 5;
+    const int np = spd_blocked::padded(n), ld = spd_blocked::stride(np);
     const size_t nn = (size_t)n * n;
     const float* gK = K + (size_t)b * nn;
     float* gKs = ks + (size_t)b * nn;
-    float* gLi = li + (size_t)b * nn;
-    float* s = smem;                 // n: the Jacobi scale
-    float* dL = s + n;               // n: the diagonal of L
-    float* W = in_smem ? dL + n : gLi;
-    const int ldw = in_smem ? n + 1 : n;
+    float* gX0 = x0 + (size_t)b * nn;
+    float* gM = two_eye + (size_t)b * nn;
+    float* s = smem;                                 // np: the Jacobi scale
+    float* P = s + np;                               // np rows of PLD
+    uint64_t* bar = reinterpret_cast<uint64_t*>(P + np * spd_blocked::PLD);
+    float* W = w_in_smem ? P + np * spd_blocked::PLD + 4
+                         : work + (size_t)b * np * ld;
 
+    // K -> W: a bulk copy per row where the rows are 16-byte aligned.  The
+    // element loops below run rows over warps and columns over lanes.
+    const int lane = t & 31, warp = t >> 5, n_warps = T >> 5;
+    if (w_in_smem && (n & 3) == 0 &&
+        (reinterpret_cast<uintptr_t>(gK) & 15) == 0) {
+        bulk_load_rows(W, ld, gK, n, bar);
+    } else {
+        for (int i = warp; i < n; i += n_warps)
+            for (int j = lane; j < n; j += 32)
+                W[i * ld + j] = gK[(size_t)i * n + j];
+        __syncthreads();
+    }
     for (int j = t; j < n; j += T) {
-        const float sj = jacobi_scale(gK[(size_t)j * n + j]);
+        const float sj = jacobi_scale(W[j * ld + j]);
         s[j] = sj;
         s_out[(size_t)b * n + j] = sj;
     }
     __syncthreads();
-    for (int k = t; k < n * n; k += T) {
-        const int i = k / n, j = k - i * n;
-        const float v = (gK[k] * s[i]) * s[j];
-        gKs[k] = v;
-        W[i * ldw + j] = v;
-        two_eye[(size_t)b * nn + k] = i == j ? 2.0f : 0.f;
-    }
-    __syncthreads();
-
-    // Cholesky of the lower triangle, right-looking, in place
-    for (int j = 0; j < n; ++j) {
-        const float piv = W[j * ldw + j];
-        const float d = sqrtf(piv < 1e-10f ? 1e-10f : piv);
-        if (t == 0) dL[j] = d;
-        for (int i = j + 1 + t; i < n; i += T) W[i * ldw + j] /= d;
-        __syncthreads();
-        for (int i = j + 1 + warp; i < n; i += n_warps) {
-            const float lij = W[i * ldw + j];
-            for (int k = j + 1 + lane; k <= i; k += 32)
-                W[i * ldw + k] = fmaf(-lij, W[k * ldw + j], W[i * ldw + k]);
-        }
-        __syncthreads();
-    }
-
-    // L^-1 by forward elimination of the identity, stored transposed in the
-    // upper triangle: U[c][i] = L^-1[i][c], c <= i
-    for (int k = t; k < n * n; k += T) {
-        const int r = k / n, c = k - r * n;
-        if (c >= r) W[r * ldw + c] = c == r ? 1.0f : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < n; ++k) {
-        const float dk = dL[k];
-        for (int c = t; c <= k; c += T) W[c * ldw + k] /= dk;
-        __syncthreads();
-        for (int c = warp; c <= k; c += n_warps) {
-            const float xkc = W[c * ldw + k];
-            for (int i = k + 1 + lane; i < n; i += 32)
-                W[c * ldw + i] = fmaf(-W[i * ldw + k], xkc, W[c * ldw + i]);
-        }
-        __syncthreads();
-    }
-
-    // L^-1, row-major, zeros above the diagonal
-    if (in_smem) {
-        for (int k = t; k < n * n; k += T) {
-            const int i = k / n, c = k - i * n;
-            gLi[k] = c <= i ? W[c * ldw + i] : 0.f;
-        }
-    } else {
-        for (int k = t; k < n * n; k += T) {
-            const int i = k / n, c = k - i * n;
-            if (c < i) {
-                gLi[k] = gLi[(size_t)c * n + i];
-                gLi[(size_t)c * n + i] = 0.f;
+    // Ks = s K s (out and over W), 2 I, and the identity's pad
+    for (int i = warp; i < np; i += n_warps) {
+        const float si = i < n ? s[i] : 0.f;
+        for (int j = lane; j < np; j += 32) {
+            if (i < n && j < n) {
+                const float v = (W[i * ld + j] * si) * s[j];
+                W[i * ld + j] = v;
+                gKs[(size_t)i * n + j] = v;
+                gM[(size_t)i * n + j] = i == j ? 2.0f : 0.f;
+            } else {
+                W[i * ld + j] = i == j ? 1.0f : 0.f;
             }
         }
     }
+    __syncthreads();
+
+    BlockExec ex;
+    spd_blocked::factor_and_invert(ex, W, ld, P, np);
+
+    // X0 = L^-T L^-1, symmetric, from L^-1 in W's lower triangle
+    for (int u = t; u < spd_blocked::tri(np / PW) * spd_blocked::UNITS;
+         u += T)
+        spd_blocked::x0_unit(W, ld, np, gX0, n, u,
+                             max(1, T / spd_blocked::UNITS));
 }
 
 // M = 2 I - Ks X0, X = X0 M, T = Ks X: keep X where |I - T|^2 < 4 |M - I|^2
@@ -270,27 +317,30 @@ int spd_inverse_warp_launch(const float* K, float* out, int B, int n, int g,
     return (int)cudaGetLastError();
 }
 
-// The block path's factorization (n > 32): one block of `threads` per
-// matrix; writes s (B, n), Ks and L^-1 (B, n, n) and 2 I into `two_eye`
-// (B, n, n).  in_smem: the working matrix in shared memory (n (n + 1) + 2 n
-// floats, checked here), else in `li`.  Returns the CUDA error code.
-int spd_inverse_factor_launch(const float* K, float* ks, float* s, float* li,
-                              float* two_eye, int B, int n, int threads,
-                              int in_smem, void* stream)
+// The block path's factorization (n > 32): one block of `threads` (a
+// multiple of 32, at most 512) per matrix; writes s (B, n), Ks and X0 =
+// L^-T L^-1 (B, n, n) and 2 I into `two_eye` (B, n, n).  w_in_smem: the
+// working matrix in shared memory (spd_blocked::smem_floats, checked here),
+// else in `work`, B np (np + 4) floats, np = n rounded up to a multiple of
+// 32.
+// Returns the CUDA error code.
+int spd_inverse_factor_launch(const float* K, float* ks, float* s, float* x0,
+                              float* two_eye, float* work, int B, int n,
+                              int threads, int w_in_smem, void* stream)
 {
-    if (B <= 0 || n <= WN || threads < 32 || threads > 1024 ||
-        (threads & 31) != 0)
+    if (B <= 0 || n <= WN || threads < 32 || threads > MAX_BLOCK_THREADS ||
+        (threads & 31) != 0 || (!w_in_smem && work == nullptr))
         return (int)cudaErrorInvalidValue;
     int max_smem = 0;
     int err = max_smem_optin(&max_smem);
     if (err != (int)cudaSuccess) return err;
-    const size_t smem = sizeof(float) *
-        ((size_t)2 * n + (in_smem ? (size_t)n * (n + 1) : 0));
+    const size_t smem =
+        sizeof(float) * (size_t)spd_blocked::smem_floats(n, w_in_smem != 0);
     if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
     err = set_smem((const void*)spd_inverse_block_kernel, smem);
     if (err != (int)cudaSuccess) return err;
     spd_inverse_block_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        K, ks, s, li, two_eye, n, in_smem);
+        K, ks, s, x0, two_eye, work, n, w_in_smem);
     return (int)cudaGetLastError();
 }
 

@@ -5,8 +5,10 @@
 //     once per adapt round, and
 //   * the warp path of the SPD-inverse kernel (spd_inverse.cu), K^-1 of the
 //     kernel backends' WBC solves.
-// It is written once, here; the block path of spd_inverse.cu (n > 32) runs
-// the same function with another layout.
+// It is written once, here, in two halves (the factorization, then X0 and
+// the Newton-Schulz step: `warp_x0_newton`).  Kernel A runs its own
+// factorization (`warp_chol_inverse`, the register sweep that the block path
+// of spd_inverse.cu runs on its diagonal blocks) and then the second half.
 //
 // The function (qp/blockinv.py::spd_inverse_chol with ns_steps = 1):
 //   s = rsqrt(max(diag K, 1e-30))  (the caller's, passed in as `si`),
@@ -36,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "admm_block.cuh"
+#include "spd_blocked.h"
 
 namespace spd_warp {
 
@@ -60,6 +63,118 @@ __device__ __forceinline__ float row_dot(const float (&row)[WN],
         a3 = fmaf(row[4 * q + 3], v.w, a3);
     }
     return (a0 + a1) + (a2 + a3);
+}
+
+// The Cholesky factor of a 32 x 32 block held one row per lane (r: row
+// `lane`, the entries past the diagonal ignored; pivots under 1e-10 floored,
+// spd_blocked.h) and its inverse in ONE sweep: per column j the pivot comes
+// by a shuffle from lane j, lane i forms L[i][j] from the column's one
+// reciprocal (the same in every lane, spd_blocked::div_by) and entry (j, i)
+// of L^-1 (lane c forms
+// column c; its partial sums acc[k] = sum_{j<k} L[k][j] L^-1[j][c] stay in
+// registers), and the one shuffle per row k > j that brings L[k][j] serves
+// both lane i's update of its row and the partial sums.  Row j of L^-1
+// (zeros above the diagonal) goes to D[j * ld], for j < rows.  The block
+// path of spd_inverse.cu runs it on each diagonal block, kernel A on Ks
+// with an identity pad; spd_blocked.h's diag_factor_host is this
+// arithmetic lane after lane.
+__device__ __forceinline__ void warp_chol_inverse(float (&r)[WN], float* D,
+                                                  int ld, int rows, int lane)
+{
+    float acc[WN];
+#pragma unroll
+    for (int k = 0; k < WN; ++k) acc[k] = 0.f;
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+        const float d = spd_blocked::pivot_root(__shfl_sync(FULL, r[j], j));
+        const float inv_d = 1.0f / d;
+        const float l = spd_blocked::column_entry(lane, j, r[j], d, inv_d);
+        const float x = spd_blocked::inverse_entry(lane, j, acc[j], d, inv_d);
+        if (j < rows) D[j * ld + lane] = x;
+#pragma unroll
+        for (int k = j + 1; k < WN; ++k) {
+            const float lk = __shfl_sync(FULL, l, k);
+            if (lane >= k) r[k] = fmaf(-l, lk, r[k]);
+            acc[k] = fmaf(lk, x, acc[k]);
+        }
+    }
+}
+
+// The second half of warp_scaled_inverse, on its own for kernel A: W holds
+// L^-1 of Ks (rows of WS floats, zeros above the diagonal and past n), ks
+// row `lane` of Ks (zero past n and in lanes past n).  X0 = L^-T L^-1, one
+// guarded Newton-Schulz step; xr, row `lane` of the kept X; true in every
+// lane where it is not finite.  W is free again on return.
+__device__ __forceinline__ bool warp_x0_newton(const float (&ks)[WN], int n,
+                                               float* sW, int lane,
+                                               float (&xr)[WN])
+{
+    const bool act = lane < n;
+    // row `lane` of X0 = L^-T L^-1, in registers, then TRANSPOSED over W
+#pragma unroll
+    for (int j = 0; j < WN; ++j) xr[j] = 0.f;
+    for (int r = 0; r < n; ++r) {
+        const float4* lr = reinterpret_cast<const float4*>(sW + r * WS);
+        const float li = act ? sW[r * WS + lane] : 0.f;
+#pragma unroll
+        for (int q = 0; q < WS / 4; ++q) {
+            const float4 v = lr[q];
+            xr[4 * q + 0] = fmaf(li, v.x, xr[4 * q + 0]);
+            xr[4 * q + 1] = fmaf(li, v.y, xr[4 * q + 1]);
+            xr[4 * q + 2] = fmaf(li, v.z, xr[4 * q + 2]);
+            xr[4 * q + 3] = fmaf(li, v.w, xr[4 * q + 3]);
+        }
+    }
+    __syncwarp();
+    if (act) {
+#pragma unroll
+        for (int j = 0; j < WN; ++j)
+            if (j < n) sW[j * WS + lane] = xr[j];
+    }
+    __syncwarp();
+
+    // one Newton-Schulz step.  M = 2I - Ks X0 column by column: column j of
+    // X0 is row j of W, read by every lane, then overwritten by column j of
+    // M;  r0 = |I - Ks X0|_F^2
+    float r0 = 0.f;
+    for (int j = 0; j < n; ++j) {
+        const float acc = row_dot(ks, sW + j * WS);
+        const float eye = j == lane ? 1.0f : 0.f;
+        const float d = act ? eye - acc : 0.f;
+        r0 = fmaf(d, d, r0);
+        __syncwarp();
+        if (act) sW[j * WS + lane] = 2.0f * eye - acc;
+    }
+    r0 = admm_block::warp_sum(r0);
+    __syncwarp();
+    // X = X0 M, the same way over M
+    for (int j = 0; j < n; ++j) {
+        const float acc = row_dot(xr, sW + j * WS);
+        __syncwarp();
+        if (act) sW[j * WS + lane] = acc;
+    }
+    __syncwarp();
+    // r1 = |I - Ks X|_F^2
+    float r1 = 0.f;
+    for (int j = 0; j < n; ++j) {
+        const float acc = row_dot(ks, sW + j * WS);
+        const float d = act ? (j == lane ? 1.0f : 0.f) - acc : 0.f;
+        r1 = fmaf(d, d, r1);
+    }
+    r1 = admm_block::warp_sum(r1);
+    // divergence safeguard (a NaN compares false: back to X0), then the
+    // finite test of what is kept
+    const bool take_x = r1 < r0 * 4.0f + 1.0f;
+    float bad = 0.f;
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+        if (j < n && act) {
+            xr[j] = take_x ? sW[j * WS + lane] : xr[j];
+            if (!isfinite(xr[j])) bad += 1.0f;
+        }
+    bad = admm_block::warp_sum(bad);
+    __syncwarp();
+    return bad > 0.f;
 }
 
 // In:  kr, row `lane` of K (read for j < n); si, the lane's Jacobi scale s
@@ -127,72 +242,7 @@ __device__ __forceinline__ bool warp_scaled_inverse(const float (&kr)[WN],
     for (int k = 0; k < n; ++k)          // L' has served: zeros above
         if (act && k < lane) sW[k * WS + lane] = 0.f;
     __syncwarp();
-
-    // row `lane` of X0 = L^-T L^-1, in registers, then TRANSPOSED over W
-#pragma unroll
-    for (int j = 0; j < WN; ++j) xr[j] = 0.f;
-    for (int r = 0; r < n; ++r) {
-        const float4* lr = reinterpret_cast<const float4*>(sW + r * WS);
-        const float li = act ? sW[r * WS + lane] : 0.f;
-#pragma unroll
-        for (int q = 0; q < WS / 4; ++q) {
-            const float4 v = lr[q];
-            xr[4 * q + 0] = fmaf(li, v.x, xr[4 * q + 0]);
-            xr[4 * q + 1] = fmaf(li, v.y, xr[4 * q + 1]);
-            xr[4 * q + 2] = fmaf(li, v.z, xr[4 * q + 2]);
-            xr[4 * q + 3] = fmaf(li, v.w, xr[4 * q + 3]);
-        }
-    }
-    __syncwarp();
-    if (act) {
-#pragma unroll
-        for (int j = 0; j < WN; ++j)
-            if (j < n) sW[j * WS + lane] = xr[j];
-    }
-    __syncwarp();
-
-    // one Newton-Schulz step.  M = 2I - Ks X0 column by column: column j of
-    // X0 is row j of W, read by every lane, then overwritten by column j of
-    // M;  r0 = |I - Ks X0|_F^2
-    float r0 = 0.f;
-    for (int j = 0; j < n; ++j) {
-        const float acc = row_dot(ks, sW + j * WS);
-        const float eye = j == lane ? 1.0f : 0.f;
-        const float d = act ? eye - acc : 0.f;
-        r0 = fmaf(d, d, r0);
-        __syncwarp();
-        if (act) sW[j * WS + lane] = 2.0f * eye - acc;
-    }
-    r0 = admm_block::warp_sum(r0);
-    __syncwarp();
-    // X = X0 M, the same way over M
-    for (int j = 0; j < n; ++j) {
-        const float acc = row_dot(xr, sW + j * WS);
-        __syncwarp();
-        if (act) sW[j * WS + lane] = acc;
-    }
-    __syncwarp();
-    // r1 = |I - Ks X|_F^2
-    float r1 = 0.f;
-    for (int j = 0; j < n; ++j) {
-        const float acc = row_dot(ks, sW + j * WS);
-        const float d = act ? (j == lane ? 1.0f : 0.f) - acc : 0.f;
-        r1 = fmaf(d, d, r1);
-    }
-    r1 = admm_block::warp_sum(r1);
-    // divergence safeguard (a NaN compares false: back to X0), then the
-    // finite test of what is kept
-    const bool take_x = r1 < r0 * 4.0f + 1.0f;
-    float bad = 0.f;
-#pragma unroll
-    for (int j = 0; j < WN; ++j)
-        if (j < n && act) {
-            xr[j] = take_x ? sW[j * WS + lane] : xr[j];
-            if (!isfinite(xr[j])) bad += 1.0f;
-        }
-    bad = admm_block::warp_sum(bad);
-    __syncwarp();
-    return bad > 0.f;
+    return warp_x0_newton(ks, n, sW, lane, xr);
 }
 
 }  // namespace spd_warp

@@ -30,8 +30,10 @@ stages that the JAX package leaves to XLA:
   * `admm_solve_plain_warp` (admm_fused.cu, its second entry point): the
     function of qp/admm.py::admm_solve(backend="torch") — the JAX package's
     admm_solve(backend="xla"), which XLA compiles — in one launch: kernel
-    4's warp path with the NORM-ONLY Ruiz form of `ruiz_equilibrate`;
-    returns the scaled x, y and D, E, c as kernel 4 does.  n <= 32 only
+    4's warp factorization with the NORM-ONLY Ruiz form of
+    `ruiz_equilibrate`, K and K^-1 held in registers, the iterations on the
+    register loop of kernels 2 and 3 (warp_regs.cuh); returns the scaled x,
+    y and D, E, c as kernel 4 does.  n <= 32 only
     (`plain_warp_layout`); the default WBC solve on the card
     (wbc/tsid.py::_solve_tick).  Its plain version is the eager chain itself
     (`admm_solve_plain_reference` stops it before the unscaling).
@@ -40,8 +42,9 @@ stages that the JAX package leaves to XLA:
     backends (qp/admm.py, mode "blockinv").  n <= 32: one warp per matrix,
     the whole function in one launch (the warp factorization shared with
     kernel 4, spd_inverse.cuh); larger: one block per matrix for the
-    Cholesky factor and the triangular inverse, the dense products of X0 and
-    of the Newton-Schulz step on torch.bmm, a second launch for the guard
+    Cholesky factor, the triangular inverse and X0 = L^-T L^-1, blocked by
+    panels of 32 columns (spd_blocked.h), the dense products of the
+    Newton-Schulz step on torch.bmm, a second launch for the guard
     (`spd_inverse_layout`).  Plain version: blockinv.spd_inverse_chol.
   * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
     generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
@@ -100,8 +103,9 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_solve_fused_reference",
            "check_fused_args", "build_all", "LIBRARIES",
            "admm_solve_plain_warp", "admm_solve_plain_reference",
-           "plain_warp_layout", "chol_inverse", "check_spd_args",
-           "spd_inverse_layout", "SpdLayout"]
+           "plain_warp_layout", "plain_warp_slot_floats", "chol_inverse",
+           "check_spd_args", "spd_inverse_layout", "spd_block_floats",
+           "SpdLayout"]
 
 
 # ------------------------------------------------------------ argument checks
@@ -377,9 +381,12 @@ LIBRARIES = {
     "admm_packed": (("admm_packed.cu",), ("admm_block.cuh",
                                            "cluster_exchange.cuh",
                                            "packed_slot.h", "warp_regs.cuh")),
-    "admm_fused": (("admm_fused.cu",), ("admm_block.cuh", "spd_inverse.cuh")),
+    "admm_fused": (("admm_fused.cu",), ("admm_block.cuh", "spd_blocked.h",
+                                         "spd_inverse.cuh", "warp_regs.cuh")),
     "admm_mma": (("admm_mma.cu",), ("admm_block.cuh", "cluster_exchange.cuh")),
     "spd_inverse": (("spd_inverse.cu",), ("admm_block.cuh",
+                                           "cluster_exchange.cuh",
+                                           "spd_blocked.h",
                                            "spd_inverse.cuh")),
 }
 
@@ -404,7 +411,7 @@ _ENTRY_POINTS = {
             _INT)},
     "spd_inverse": {
         "spd_inverse_warp_launch": ([_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
-        "spd_inverse_factor_launch": ([_PTR] * 5 + [_INT] * 4 + [_PTR],
+        "spd_inverse_factor_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR],
                                       _INT),
         "spd_inverse_select_launch": ([_PTR] * 6 + [_INT] * 2 + [_PTR],
                                       _INT)},
@@ -868,19 +875,38 @@ def admm_solve_fused(P, q, A, l, u, eqf, x0, y0,
 admm_solve_fused.launches = 0
 
 
+PLAIN_WARP_LD = 36      # kernel A: row stride of P and A (admm_fused.cu, PA)
+
+
+def plain_warp_slot_floats(n: int, m: int) -> int:
+    """Floats of one scenario's slot on kernel A's path (admm_fused.cu's
+    `plain_slot_floats`): the factorization's scratch (n rows of 32), P (n
+    rows of 36), A (round4(m) rows of 36), four 32-vectors, seven
+    round4(m)-vectors (warp_regs.cuh's slot), D (32) and three more
+    round4(m)-vectors (E, the Ruiz row scale, the rho pattern)."""
+    mp = _round4(m)
+    return (n * FUSED_SCRATCH_STRIDE + n * PLAIN_WARP_LD + mp * PLAIN_WARP_LD
+            + 4 * 32 + 7 * mp + 32 + 3 * mp)
+
+
 def plain_warp_layout(n: int, m: int, B: int, smem_bytes: int,
                       n_sm: int) -> FusedLayout:
-    """The layout of `admm_solve_plain_warp`: `fused_layout`'s warp path, the
-    only one it has.  Raises where `fused_layout` would take the block path
-    (n > 32, or fewer than four scenarios fit a block)."""
-    lay = fused_layout(n, m, B, smem_bytes, n_sm)
-    if lay.path != "warp":
+    """The layout of `admm_solve_plain_warp`: a warp per scenario, g of them
+    a block (what fits `smem_bytes`, at most 12, no more than spreads B over
+    `n_sm` multiprocessors), rows of P and A at the stride 36, the slot of
+    `plain_warp_slot_floats`.  Raises where there is no warp path: n > 32,
+    or fewer than four slots in a block (the plain backend's solve has no
+    block path on the card)."""
+    slot = plain_warp_slot_floats(n, m)
+    fit = smem_bytes // (4 * slot)
+    if n > MAX_FUSED_N or fit < MIN_WARP_SLOTS:
         raise ValueError(
             f"admm_solve_plain_warp: n={n}, m={m} does not fit the warp path "
             f"(n <= {MAX_FUSED_N} and {MIN_WARP_SLOTS} slots of "
-            f"{4 * (lay.slot_floats or 0)} bytes in {smem_bytes}); the plain "
+            f"{4 * slot} bytes in {smem_bytes}); the plain "
             "backend's solve has no block path on the card")
-    return lay
+    g = _slots_per_block(fit, MAX_FUSED_SLOTS, B, n_sm)
+    return FusedLayout("warp", 0, g, PLAIN_WARP_LD, slot)
 
 
 def admm_solve_plain_reference(P, q, A, l, u, eqf, x0, y0,
@@ -913,10 +939,10 @@ def admm_solve_plain_warp(P, q, A, l, u, eqf, x0, y0,
     batch in one launch; returns the SCALED (x, y) and the scales (D, E, c),
     as `admm_solve_fused` does.
 
-    CUDA tensors: launches the hand-written kernel (kernel 4's warp path,
-    `plain_warp_layout`), or raises (a shape the warp path cannot take, a
-    build or launch failure).  CPU tensors: the plain version, the chain
-    itself.  See the module docstring."""
+    CUDA tensors: launches the hand-written kernel (kernel A: a warp per
+    scenario on the register loop, `plain_warp_layout`), or raises (a shape
+    the warp path cannot take, a build or launch failure).  CPU tensors: the
+    plain version, the chain itself.  See the module docstring."""
     B, n, m = check_fused_args(P, q, A, l, u, eqf, x0, y0)
     kw = _solve_kw(iters, adapt_rounds, equilibrate_iters, rho0, sigma, alpha,
                    rho_eq_scale, inf)
@@ -946,6 +972,9 @@ admm_solve_plain_warp.launches = 0
 
 MAX_SPD_WARP_N = 32     # the warp path: lane i owns row i
 MAX_SPD_SLOTS = 8       # matrices (warps) per block there (spd_inverse.cu)
+SPD_PANEL = 32          # block path: panel width (spd_blocked.h, PW)
+SPD_TILE = 4            # block path: a thread's register tile, 4 x 4 (TR)
+SPD_PANEL_LD = SPD_PANEL + 4   # row stride of the panel buffer (PLD)
 
 
 class SpdLayout(NamedTuple):
@@ -955,6 +984,18 @@ class SpdLayout(NamedTuple):
     threads: int       # threads per block
     in_smem: bool      # block path: the working matrix in shared memory
     smem_floats: int   # floats of shared memory per block
+    panel: int = 0     # block path: columns per panel (one warp's lanes)
+    tile: int = 0      # block path: rows = columns of a thread's tile
+    ld: int = 0        # block path: row stride of the working matrix
+
+
+def spd_block_floats(n: int, in_smem: bool) -> int:
+    """Shared-memory floats of the block path (spd_blocked.h's
+    `smem_floats`): the Jacobi scale and the panel buffer (np = n rounded up
+    to a multiple of 32 entries, np rows of 36), the load's barrier (4) and,
+    in_smem, the working matrix (np rows of np + 4)."""
+    np_ = -(-n // SPD_PANEL) * SPD_PANEL
+    return np_ + np_ * SPD_PANEL_LD + 4 + (np_ * (np_ + 4) if in_smem else 0)
 
 
 def spd_inverse_layout(n: int, B: int, smem_bytes: int,
@@ -964,19 +1005,24 @@ def spd_inverse_layout(n: int, B: int, smem_bytes: int,
     n <= 32: the warp path, one warp per matrix with a scratch of n rows of
     32 floats; g matrices per block, what fits `smem_bytes`, at most 8, and
     no more than spreads B over `n_sm` multiprocessors.  Larger n: the block
-    path, one block per matrix (256 threads up to n = 64, 512 up to 128,
-    else 1024), its working matrix (n rows of stride n + 1) and two n-vectors
-    in shared memory where they fit, else the matrix in the L^-1 output."""
+    path, one block per matrix, the blocked factorization by panels of 32
+    columns in 4 x 4 register tiles (64 threads a 32 x 32 tile; 128 threads
+    up to two panels, 256 up to three, else 512).  Its working matrix (n
+    padded to np, a multiple of 32, rows of np + 4 floats) lives in shared
+    memory beside the panel buffer where both fit (n <= 192 on an H100),
+    else in a device-memory workspace of B np (np + 4) floats."""
     if n <= MAX_SPD_WARP_N:
         slot = n * 32
         g = _slots_per_block(smem_bytes // (4 * slot), MAX_SPD_SLOTS, B,
                              n_sm)
         return SpdLayout("warp", g, 32 * g, False, g * slot)
-    threads = 256 if n <= 64 else 512 if n <= 128 else 1024
-    full = 2 * n + n * (n + 1)
-    if 4 * full <= smem_bytes:
-        return SpdLayout("block", 0, threads, True, full)
-    return SpdLayout("block", 0, threads, False, 2 * n)
+    np_ = -(-n // SPD_PANEL) * SPD_PANEL
+    panels = np_ // SPD_PANEL
+    threads = 128 if panels <= 2 else 256 if panels <= 3 else 512
+    in_smem = 4 * spd_block_floats(n, True) <= smem_bytes
+    return SpdLayout("block", 0, threads, in_smem,
+                     spd_block_floats(n, in_smem), SPD_PANEL, SPD_TILE,
+                     np_ + 4)
 
 
 def chol_inverse(K):
@@ -987,8 +1033,9 @@ def chol_inverse(K):
     finite), per matrix.
 
     CUDA tensors: the hand-written kernel (`spd_inverse_layout`: n <= 32 one
-    launch; larger n the block factorization, four torch.bmm products and
-    the guard's launch), or an exception.  CPU tensors: the plain version.
+    launch; larger n the blocked factorization with X0 = L^-T L^-1, the
+    Newton-Schulz step's three torch.bmm products and the guard's launch),
+    or an exception.  CPU tensors: the plain version.
     See the module docstring."""
     B, n = check_spd_args(K)
     dev = K.device
@@ -1006,16 +1053,18 @@ def chol_inverse(K):
             _raise_on(rc, lib, "spd_inverse", B, n, n)
             chol_inverse.launches += 1
             return out
-        Ks, Li, M = (torch.empty_like(K) for _ in range(3))
+        Ks, X0, M = (torch.empty_like(K) for _ in range(3))
         s = K.new_empty((B, n))
+        work = None if lay.in_smem else K.new_empty((B * (lay.ld - 4)
+                                                     * lay.ld,))
         rc = lib.spd_inverse_factor_launch(
-            K.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
-            M.data_ptr(), B, n, lay.threads, int(lay.in_smem), stream)
+            K.data_ptr(), Ks.data_ptr(), s.data_ptr(), X0.data_ptr(),
+            M.data_ptr(), None if work is None else work.data_ptr(), B, n,
+            lay.threads, int(lay.in_smem), stream)
         _raise_on(rc, lib, "spd_inverse", B, n, n)
-        X0 = torch.bmm(Li.transpose(1, 2), Li)
         M.baddbmm_(Ks, X0, alpha=-1.0)         # 2 I - Ks X0
         X = torch.bmm(X0, M)
-        T1 = torch.bmm(Ks, X, out=Li)          # Ks X, over L^-1
+        T1 = torch.bmm(Ks, X)
         out = Ks                               # Ks has served
         rc = lib.spd_inverse_select_launch(
             X0.data_ptr(), M.data_ptr(), X.data_ptr(), T1.data_ptr(),

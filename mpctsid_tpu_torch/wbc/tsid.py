@@ -33,8 +33,9 @@ ones.
 The solve on the card.  The default backend ("xla", alias "torch": the plain
 chain of qp/admm.py) is, for a float32, unpolished solve on CUDA tensors, ONE
 launch of a hand-written kernel (`qp/kernels.py::admm_solve_plain_warp`
-through `qp/admm.py::admm_solve_warp`: kernel 4's warp path with the plain
-chain's norm-only Ruiz), then the unscaling and residuals of
+through `qp/admm.py::admm_solve_warp`: a warp per scenario with the plain
+chain's norm-only Ruiz, K and K^-1 in registers, the register loop of
+kernels 2 and 3), then the unscaling and residuals of
 `_unscaled_solution`; the chain itself is that kernel's plain version and
 runs on CPU tensors.  The route is taken in `_solve_tick` on what the caller
 asks for, not on what fails: the polished tier (`polish=True`) and the

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes: the M2 iteration
 (admm_m2.cu), the generic refined iteration (admm_vpu.cu), the tensor-core
-iteration (admm_mma.cu) and the whole solve (admm_fused.cu).
+iteration (admm_mma.cu), the whole solve (admm_fused.cu), and kernels B
+(spd_inverse.cu) and A (admm_fused.cu's plain-backend solve).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
-        [--kernels m2 vpu mma fused]
+        [--kernels m2 vpu packed mma fused spd plainwarp]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit.  `--kernels` picks the parts (default: all four):
+limit.  `--kernels` picks the parts (default: all seven):
 
   m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
      than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
@@ -43,7 +44,16 @@ limit.  `--kernels` picks the parts (default: all four):
   fused. (admm_fused.cu) the whole solve with fewer iterations, rounds
      and Ruiz passes (what each part costs), with other numbers of
      scenarios per block, and a patched copy that reads the cycle counter at
-     every phase boundary of one warp (the share of each phase of a round).
+     every phase boundary of one warp (the share of each phase of a round);
+  spd. (spd_inverse.cu, n = 192) kernel B's blocked block path against the
+     scalar sweep it replaced and against the blocked factorization with X0 on
+     torch.bmm (patched copies), whole chol_inverse and the factor launch
+     alone, in interleaved rounds at B = 1 and --batch; 128-512 threads;
+     torch.linalg.inv_ex; the share of each phase (cycle counter of thread
+     0 after every barrier);
+  plainwarp. (admm_fused.cu, WBC shape) kernel A against its design before
+     (kernel 4's warp body with the norm-only Ruiz, a patched copy) in interleaved
+     rounds at B = 1 and --batch, and the share of each of its phases.
 
 Prints one JSON object at the end; with --out also writes it to
 DIR/probe_kernel_designs.json.
@@ -67,7 +77,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from mpctsid_tpu_torch.qp import _build, kernels  # noqa: E402
 
-PARTS = ["m2", "vpu", "packed", "mma", "fused"]
+PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -414,10 +424,24 @@ def probe_fused(record, B, device, smem, n_sm, build):
     for k, (fname, anchor) in enumerate(MARKS):
         pair = (anchor, mark.format(k=(k - 1) % len(MARKS)) + anchor)
         (subs if fname == "admm_fused.cu" else header).append(pair)
-    subs.append(("    if (lane == 0) io.c_out[b] = c;\n",
+    subs.append(("    if (lane == 0) io.c_out[b] = c;\n}\n\n// ---- kernel A",
                  "    if (lane == 0) io.c_out[b] = c;\n    if (lane == 0)\n"
                  "        for (int k_ = 0; k_ < 11; ++k_)\n            "
-                 "io.e_out[(size_t)b * m + k_] = (float)prof_[k_];\n"))
+                 "io.e_out[(size_t)b * m + k_] = (float)prof_[k_];\n}\n\n"
+                 "// ---- kernel A"))
+    # the factorization's second half (X0, Newton-Schulz) takes them too;
+    # kernel A calls it with counters it does not read
+    header += [
+        ("                                               float (&xr)[WN])\n{",
+         "                                               float (&xr)[WN], "
+         "long long* prof_, long long& prev_)\n{"),
+        ("    return warp_x0_newton(ks, n, sW, lane, xr);",
+         "    return warp_x0_newton(ks, n, sW, lane, xr, prof_, prev_);")]
+    subs.append(("        const bool bad = spd_warp::warp_x0_newton(ks, n, sW, "
+                 "lane, kinv);",
+                 "        long long pa_[16] = {}, pb_ = 0;\n"
+                 "        const bool bad = spd_warp::warp_x0_newton(ks, n, sW, "
+                 "lane, kinv, pa_, pb_);"))
     plib = build_variant("phase clocks", subs, build, source="admm_fused.cu",
                          header_subs={"spd_inverse.cuh": header})
     outs = fused_launch(plib, args, FUSED_KW, lay)
@@ -1001,6 +1025,483 @@ def probe_mma(record, B, device, smem, n_sm, build):
     probe_cluster_phases(record, mpc, MPC[2], chosen["mpc"], build)
 
 
+# ---- kernels A and B against the designs they replaced -------------------
+
+# kernel B's scalar-sweep block path, the design before the blocked one (a
+# right-looking sweep, 2 x 192
+# dependent steps, the matrix in shared memory at the stride n + 1), put
+# back beside the shipped kernel as a second kernel and launcher
+SWEEP_KERNEL = r'''__global__ void __launch_bounds__(1024)
+spd_inverse_sweep_kernel(const float* __restrict__ K, float* __restrict__ ks,
+                         float* __restrict__ s_out, float* li,
+                         float* __restrict__ two_eye, int n, int in_smem)
+{
+    extern __shared__ __align__(16) float smem[];
+    const int b = blockIdx.x;
+    const int t = threadIdx.x, T = blockDim.x;
+    const int lane = t & 31, warp = t >> 5, n_warps = T >> 5;
+    const size_t nn = (size_t)n * n;
+    const float* gK = K + (size_t)b * nn;
+    float* gKs = ks + (size_t)b * nn;
+    float* gLi = li + (size_t)b * nn;
+    float* s = smem;                 // n: the Jacobi scale
+    float* dL = s + n;               // n: the diagonal of L
+    float* W = in_smem ? dL + n : gLi;
+    const int ldw = in_smem ? n + 1 : n;
+
+    for (int j = t; j < n; j += T) {
+        const float sj = jacobi_scale(gK[(size_t)j * n + j]);
+        s[j] = sj;
+        s_out[(size_t)b * n + j] = sj;
+    }
+    __syncthreads();
+    for (int k = t; k < n * n; k += T) {
+        const int i = k / n, j = k - i * n;
+        const float v = (gK[k] * s[i]) * s[j];
+        gKs[k] = v;
+        W[i * ldw + j] = v;
+        two_eye[(size_t)b * nn + k] = i == j ? 2.0f : 0.f;
+    }
+    __syncthreads();
+
+    // Cholesky of the lower triangle, right-looking, in place
+    for (int j = 0; j < n; ++j) {
+        const float piv = W[j * ldw + j];
+        const float d = sqrtf(piv < 1e-10f ? 1e-10f : piv);
+        if (t == 0) dL[j] = d;
+        for (int i = j + 1 + t; i < n; i += T) W[i * ldw + j] /= d;
+        __syncthreads();
+        for (int i = j + 1 + warp; i < n; i += n_warps) {
+            const float lij = W[i * ldw + j];
+            for (int k = j + 1 + lane; k <= i; k += 32)
+                W[i * ldw + k] = fmaf(-lij, W[k * ldw + j], W[i * ldw + k]);
+        }
+        __syncthreads();
+    }
+
+    // L^-1 by forward elimination of the identity, stored transposed in the
+    // upper triangle: U[c][i] = L^-1[i][c], c <= i
+    for (int k = t; k < n * n; k += T) {
+        const int r = k / n, c = k - r * n;
+        if (c >= r) W[r * ldw + c] = c == r ? 1.0f : 0.f;
+    }
+    __syncthreads();
+    for (int k = 0; k < n; ++k) {
+        const float dk = dL[k];
+        for (int c = t; c <= k; c += T) W[c * ldw + k] /= dk;
+        __syncthreads();
+        for (int c = warp; c <= k; c += n_warps) {
+            const float xkc = W[c * ldw + k];
+            for (int i = k + 1 + lane; i < n; i += 32)
+                W[c * ldw + i] = fmaf(-W[i * ldw + k], xkc, W[c * ldw + i]);
+        }
+        __syncthreads();
+    }
+
+    // L^-1, row-major, zeros above the diagonal
+    if (in_smem) {
+        for (int k = t; k < n * n; k += T) {
+            const int i = k / n, c = k - i * n;
+            gLi[k] = c <= i ? W[c * ldw + i] : 0.f;
+        }
+    } else {
+        for (int k = t; k < n * n; k += T) {
+            const int i = k / n, c = k - i * n;
+            if (c < i) {
+                gLi[k] = gLi[(size_t)c * n + i];
+                gLi[(size_t)c * n + i] = 0.f;
+            }
+        }
+    }
+}
+
+'''
+SWEEP_LAUNCH = r'''int spd_inverse_sweep_launch(const float* K, float* ks, float* s, float* li,
+                              float* two_eye, int B, int n, int threads,
+                              int in_smem, void* stream)
+{
+    if (B <= 0 || n <= WN || threads < 32 || threads > 1024 ||
+        (threads & 31) != 0)
+        return (int)cudaErrorInvalidValue;
+    int max_smem = 0;
+    int err = max_smem_optin(&max_smem);
+    if (err != (int)cudaSuccess) return err;
+    const size_t smem = sizeof(float) *
+        ((size_t)2 * n + (in_smem ? (size_t)n * (n + 1) : 0));
+    if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+    err = set_smem((const void*)spd_inverse_sweep_kernel, smem);
+    if (err != (int)cudaSuccess) return err;
+    spd_inverse_sweep_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+        K, ks, s, li, two_eye, n, in_smem);
+    return (int)cudaGetLastError();
+}
+
+'''
+SWEEP_SUBS = [
+    ("// M = 2 I - Ks X0, X = X0 M, T = Ks X:",
+     SWEEP_KERNEL + "// M = 2 I - Ks X0, X = X0 M, T = Ks X:"),
+    ("// The block path's guard, finite test and rescale",
+     SWEEP_LAUNCH + "// The block path's guard, finite test and rescale")]
+
+# kernel A's design before the register loop: kernel 4's warp body as a
+# template on the Ruiz form, its
+# norm-only instance the plain backend's solve, with kernel 4's slot
+WARP_BODY_NORM_RUIZ = r'''        // norm-only: the loop carries D, E and c and reads the ORIGINAL |P|,
+        // |A| through weighted abs-max reductions (the scaled matrix's column
+        // max is c D_j max_i(D_i |P_ij|)); the scaling is applied once, after
+        for (int it = 0; it < fp.equilibrate_iters; ++it) {
+            float cn = 0.f;
+            if (act) {
+                float wp = 0.f, wa = 0.f;
+                for (int i = 0; i < n; ++i)
+                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
+                for (int i = 0; i < m; ++i)
+                    wa = fmaxf(wa, fabsf(colA[i * ld]) * sE[i]);
+                const float dj = sD[lane];
+                cn = fmaxf((c * dj) * wp, dj * wa);
+            }
+            for (int i = lane; i < m; i += 32) {
+                float wr = 0.f;
+                for (int k = 0; k < n; ++k)
+                    wr = fmaxf(wr, fabsf(sA[i * ld + k]) * sD[k]);
+                const float cm = sE[i] * wr;
+                sdm[i] = cm < 1e-10f ? 1.0f : rsqrtf(fmaxf(cm, 1e-12f));
+            }
+            __syncwarp();       // every lane has read this round's D and E
+            if (act)
+                sD[lane] *= cn < 1e-10f ? 1.0f : rsqrtf(fmaxf(cn, 1e-12f));
+            for (int i = lane; i < m; i += 32) sE[i] *= sdm[i];
+            __syncwarp();
+            // cost scaling against the new D
+            float pcol = 0.f, qmax = 0.f;
+            if (act) {
+                float wp = 0.f;
+                for (int i = 0; i < n; ++i)
+                    wp = fmaxf(wp, fabsf(colP[i * ld]) * sD[i]);
+                const float dj = sD[lane];
+                pcol = (c * dj) * wp;
+                qmax = c * (fabsf(v.q[lane]) * dj);
+            }
+            pcol = warp_sum(pcol);
+            qmax = warp_max(qmax);
+            c *= 1.0f / fmaxf(fmaxf(pcol / (float)n, qmax), 1e-12f);
+        }
+        // P <- (c D_i) P_ij D_j, A <- E_i A_ij D_j, q <- c D q: lane j its
+        // column
+        if (act) {
+            const float dj = sD[lane];
+            for (int i = 0; i < n; ++i)
+                colP[i * ld] = ((c * sD[i]) * colP[i * ld]) * dj;
+            for (int i = 0; i < m; ++i)
+                colA[i * ld] = (sE[i] * colA[i * ld]) * dj;
+            v.q[lane] = (c * dj) * v.q[lane];
+        }
+        __syncwarp();
+'''
+WARP_BODY_SUBS = [
+    ("__device__ __forceinline__ void warp_solve(const FusedIO& io,",
+     "template <bool NORM_RUIZ>\n"
+     "__device__ __forceinline__ void warp_solve(const FusedIO& io,"),
+    ("    // ---- 1. full-rescale Ruiz + cost scaling: the matrices rescaled "
+     "in place\n    // every round\n",
+     "    if constexpr (NORM_RUIZ) {\n" + WARP_BODY_NORM_RUIZ + "    } else {\n"),
+    ("    for (int i = lane; i < m; i += 32) {\n        const float li = "
+     "v.l[i], ui = v.u[i];",
+     "    }\n    for (int i = lane; i < m; i += 32) {\n        const float "
+     "li = v.l[i], ui = v.u[i];"),
+    ("    warp_solve(io, fp, ld);\n", "    warp_solve<false>(io, fp, ld);\n"),
+    ("    plain_register_solve(io, fp);\n", "    warp_solve<true>(io, fp, ld);\n"),
+    ("ld != PA ? -1 : plain_slot_floats(n, m)",
+     "ld < n ? -1 : warp_slot_floats(n, m, ld)")]
+
+# a design measured and not shipped: the factor launch writes L^-1 (zeros
+# above the diagonal) and X0 = L^-T L^-1 is a fourth torch.bmm (six device
+# ops an inverse, as the scalar sweep has)
+LI_OUT_SUBS = [
+    ("    // X0 = L^-T L^-1, symmetric, from L^-1 in W's lower triangle\n"
+     "    for (int u = t; u < spd_blocked::tri(np / PW) * spd_blocked::UNITS;\n"
+     "         u += T)\n"
+     "        spd_blocked::x0_unit(W, ld, np, gX0, n, u,\n"
+     "                             max(1, T / spd_blocked::UNITS));\n",
+     "    // L^-1, row-major, zeros above the diagonal, over the X0 output\n"
+     "    for (int i = warp; i < n; i += n_warps)\n"
+     "        for (int c = lane; c < n; c += 32)\n"
+     "            gX0[(size_t)i * n + c] = c <= i ? W[i * ld + c] : 0.f;\n")]
+
+
+# the shipped block factorization with the cycle counter of thread 0 read
+# after every barrier (s_out carries the sums: the inverse is not kept)
+SPD_PHASES = ["load, Jacobi scale, pad", "diagonal block: factor and inverse",
+              "panel solve, a block row of L^-1",
+              "trailing update, the forward substitution's sums",
+              "X0 = L^-T L^-1 and its store"]
+SPD_CLOCK_HEADER_SUBS = [
+    ("        ex.diag(W + c0 * ld + c0, ld);\n        ex.sync();\n",
+     "        ex.diag(W + c0 * ld + c0, ld);\n        ex.sync();\n"
+     "        ex.mark(1);\n"),
+    ("                fwd_scale_unit(W, ld, p, u - R * UNITS);\n        }\n"
+     "        ex.sync();\n",
+     "                fwd_scale_unit(W, ld, p, u - R * UNITS);\n        }\n"
+     "        ex.sync();\n        ex.mark(2);\n"),
+    ("                fwd_update_unit(W, ld, P, p, u - tri(R) * UNITS);\n"
+     "        }\n        ex.sync();\n",
+     "                fwd_update_unit(W, ld, P, p, u - tri(R) * UNITS);\n"
+     "        }\n        ex.sync();\n        ex.mark(3);\n")]
+SPD_CLOCK_SUBS = [
+    ("struct BlockExec {\n",
+     "struct BlockExec {\n    long long prof[8] = {};\n"
+     "    long long prev = 0;\n"
+     "    __device__ void mark(int k)\n    {\n"
+     "        const long long now = clock64();\n"
+     "        prof[k] += now - prev;\n        prev = now;\n    }\n"),
+    ("    BlockExec ex;\n    spd_blocked::factor_and_invert(ex, W, ld, P, np);\n",
+     "    BlockExec ex;\n    ex.prev = clock64();\n"
+     "    ex.prof[0] = ex.prev - start_;\n"
+     "    spd_blocked::factor_and_invert(ex, W, ld, P, np);\n"),
+    ("    const int np = spd_blocked::padded(n), ld = spd_blocked::stride(np);\n",
+     "    const long long start_ = clock64();\n"
+     "    const int np = spd_blocked::padded(n), ld = spd_blocked::stride(np);\n"),
+    ("                             max(1, T / spd_blocked::UNITS));\n}\n",
+     "                             max(1, T / spd_blocked::UNITS));\n"
+     "    __syncthreads();\n    ex.mark(4);\n    if (t == 0)\n"
+     "        for (int k_ = 0; k_ < 5; ++k_)\n"
+     "            s_out[(size_t)b * n + k_] = (float)ex.prof[k_];\n}\n")]
+
+# the shipped kernel A with one warp's cycle counter read at its phase
+# boundaries (e_out carries the sums: the solve's scales are not kept)
+PLAIN_PHASES = ["Ruiz, warm start", "K = P + sigma I + A' rho A",
+                "K^-1", "iterations", "rho adaptation"]
+PLAIN_CLOCK_SUBS = [
+    ("    float* sW = smem + (size_t)warp * slot_floats;   // the inverse's "
+     "scratch\n",
+     "    float* sW = smem + (size_t)warp * slot_floats;   // the inverse's "
+     "scratch\n    long long prof_[5] = {};\n    long long prev_ = clock64();\n"
+     "#define MARK(k) { const long long now_ = clock64(); prof_[k] += now_ - "
+     "prev_; prev_ = now_; }\n"),
+    ("        for (int i = lane; i < mp; i += 32) {\n            const float rh "
+     "= srpat[i] * rho_s;",
+     "        MARK(round == 0 ? 0 : 4)\n        for (int i = lane; i < mp; i "
+     "+= 32) {\n            const float rh = srpat[i] * rho_s;"),
+    ("        // row `lane` of K^-1 = s X s, kept in registers:",
+     "        MARK(1)\n        // row `lane` of K^-1 = s X s, kept in "
+     "registers:"),
+    ("        x = warp_regs::warp_register_iterations(",
+     "        MARK(2)\n        x = warp_regs::warp_register_iterations("),
+    ("        if (round + 1 < fp.n_rounds) {\n            // the residual "
+     "ratios of the scaled problem",
+     "        MARK(3)\n        if (round + 1 < fp.n_rounds) {\n            "
+     "// the residual ratios of the scaled problem"),
+    ("    if (lane == 0) io.c_out[b] = c;\n}\n\n// kernel 4's warp path",
+     "    if (lane == 0) io.c_out[b] = c;\n    if (lane == 0)\n"
+     "        for (int k_ = 0; k_ < 5; ++k_)\n"
+     "            io.e_out[(size_t)b * m + k_] = (float)prof_[k_];\n}\n\n"
+     "// kernel 4's warp path")]
+
+
+def interleaved(record, kind, fns, rounds, warmup=2, reps=10, **tags):
+    """Time each of `fns` (name -> callable) in `rounds` rounds, the order
+    reversed every other round (a, b, b, a, ...); records each round's ms
+    and the median per design."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(time_ms(fns[k], warmup, reps))
+    for k in names:
+        record(kind, design=k, ms_rounds=[round(t, 5) for t in times[k]],
+               ms_median=float(np.median(times[k])), **tags)
+
+
+def spd_pipeline(lib, factor, K):
+    """The block path with a factor launch `factor` that writes s, Ks, L^-1
+    and 2 I (the scalar sweep's, or the blocked one with L^-1 out): X0 =
+    L^-T L^-1 and
+    the Newton-Schulz step on four torch.bmm, the guard launch as shipped."""
+    B, n = K.shape[:2]
+    Ks, Li, M = (torch.empty_like(K) for _ in range(3))
+    s = K.new_empty((B, n))
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = factor(K, Ks, s, Li, M, stream)
+    if rc != 0:
+        raise RuntimeError(f"factor launch failed: CUDA error {rc}")
+    X0 = torch.bmm(Li.transpose(1, 2), Li)
+    M.baddbmm_(Ks, X0, alpha=-1.0)
+    X = torch.bmm(X0, M)
+    T1 = torch.bmm(Ks, X, out=Li)
+    rc = lib.spd_inverse_select_launch(X0.data_ptr(), M.data_ptr(),
+                                       X.data_ptr(), T1.data_ptr(),
+                                       s.data_ptr(), Ks.data_ptr(), B, n,
+                                       stream)
+    if rc != 0:
+        raise RuntimeError(f"select launch failed: CUDA error {rc}")
+    return Ks
+
+
+def probe_spd(record, B, device, smem, n_sm, build, rounds=6):
+    """Kernel B's block path at n = 192 (the MPC's K^-1): the shipped
+    blocked factorization (X0 in the launch; three products) against the
+    scalar sweep it replaced (patched copy; four products) and against the
+    blocked factorization with X0 on torch.bmm (patched copy), whole
+    chol_inverse and factor launch alone, in interleaved rounds at B = 1 and
+    B; other block sizes; the share of each phase of the shipped factor
+    launch (cycle counter)."""
+    n = MPC[0]
+    r = np.random.default_rng(13)
+    Q = r.normal(size=(64, n, n))
+    K64 = torch.as_tensor(Q @ Q.transpose(0, 2, 1) / n + np.eye(n),
+                          dtype=torch.float32, device=device)
+    old = build_variant("scalar sweep", SWEEP_SUBS, build,
+                        source="spd_inverse.cu")
+    old.spd_inverse_sweep_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    old.spd_inverse_select_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lio = build_variant("L^-1 out", LI_OUT_SUBS, build,
+                        source="spd_inverse.cu")
+    for fn in (lio.spd_inverse_factor_launch, lio.spd_inverse_select_launch):
+        fn.argtypes = (kernels._ENTRY_POINTS["spd_inverse"]
+                       [fn.__name__][0])
+    lib = kernels._library("spd_inverse")
+    for Bs in (1, B):
+        K = K64[:1].contiguous() if Bs == 1 else K64.repeat(
+            Bs // 64, 1, 1).contiguous()
+        lay = kernels.spd_inverse_layout(n, Bs, smem, n_sm)
+        outs = [torch.empty_like(K) for _ in range(3)] + [K.new_empty((Bs, n))]
+
+        def factor_new(K_, Ks, s, Li, M, stream, threads=lay.threads):
+            return lib.spd_inverse_factor_launch(
+                K_.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
+                M.data_ptr(), None, Bs, n, threads, 1, stream)
+
+        def factor_li(K_, Ks, s, Li, M, stream):
+            return lio.spd_inverse_factor_launch(
+                K_.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
+                M.data_ptr(), None, Bs, n, lay.threads, 1, stream)
+
+        def factor_old(K_, Ks, s, Li, M, stream):
+            return old.spd_inverse_sweep_launch(
+                K_.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
+                M.data_ptr(), Bs, n, 1024, 1, stream)
+
+        X_new = kernels.chol_inverse(K)
+        X_old = spd_pipeline(old, factor_old, K)
+        X_li = spd_pipeline(lio, factor_li, K)
+        torch.cuda.synchronize()
+        eye = torch.eye(n, device=device, dtype=torch.float64)
+        res = [float((eye - K.double() @ X.double()).flatten(1).norm(dim=1)
+                     .max()) for X in (X_new, X_old, X_li)]
+        record("spd", B=Bs, what="|I - K X|_F max, shipped / scalar sweep / X0 "
+               "torch.bmm", residuals=res, layout=str(lay))
+        Ks, Li, M, s = outs
+        stream = torch.cuda.current_stream().cuda_stream
+        interleaved(record, "spd", {
+            "shipped (blocked), chol_inverse": lambda: kernels.chol_inverse(K),
+            "scalar sweep (the design before), chol_inverse": lambda: spd_pipeline(
+                old, factor_old, K),
+            "blocked, X0 on torch.bmm, chol_inverse":
+                lambda: spd_pipeline(lio, factor_li, K)}, rounds, B=Bs)
+        interleaved(record, "spd", {
+            "shipped (blocked), factor launch": lambda: factor_new(
+                K, Ks, s, Li, M, stream),
+            "scalar sweep (the design before), factor launch": lambda: factor_old(
+                K, Ks, s, Li, M, stream)}, rounds, B=Bs)
+        for threads in (128, 256, 512):
+            record("spd", B=Bs, what="factor launch, threads per block",
+                   threads=threads, ms=time_ms(lambda: factor_new(
+                       K, Ks, s, Li, M, stream, threads), 2, 10))
+        record("spd", B=Bs, what="torch.linalg.inv_ex (library call)",
+               ms=time_ms(lambda: torch.linalg.inv_ex(K), 2, 10))
+    # phase clocks at B: thread 0's cycles between barriers, per matrix
+    clk = build_variant("kernel B phase clocks", SPD_CLOCK_SUBS, build,
+                        source="spd_inverse.cu",
+                        header_subs={"spd_blocked.h": SPD_CLOCK_HEADER_SUBS,
+                                     # its include resolves to the copy
+                                     "spd_inverse.cuh": []})
+    clk.spd_inverse_factor_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    for Bs in (1, B):
+        K = K64[:1].contiguous() if Bs == 1 else K64.repeat(
+            Bs // 64, 1, 1).contiguous()
+        lay = kernels.spd_inverse_layout(n, Bs, smem, n_sm)
+        Ks, Li, M = (torch.empty_like(K) for _ in range(3))
+        s = K.new_empty((Bs, n))
+        rc = clk.spd_inverse_factor_launch(
+            K.data_ptr(), Ks.data_ptr(), s.data_ptr(), Li.data_ptr(),
+            M.data_ptr(), None, Bs, n, lay.threads, 1,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"phase-clock launch failed: CUDA error {rc}")
+        cycles = s[:, :len(SPD_PHASES)].double()
+        total = cycles.sum(dim=1, keepdim=True)
+        for k, name in enumerate(SPD_PHASES):
+            record("spd", B=Bs, what="share of a matrix's cycles",
+                   phase=name, share=round(float((cycles[:, k:k + 1]
+                                                  / total).mean()), 4),
+                   mean_cycles=float(cycles[:, k].mean()))
+
+
+def plain_launch(lib, args, lay):
+    B, n = args[1].shape
+    m = args[3].shape[1]
+    kw = FUSED_KW
+    outs = [torch.empty_like(args[1]), torch.empty_like(args[3]),
+            torch.empty_like(args[1]), torch.empty_like(args[3]),
+            args[1].new_empty((B,))]
+    rc = lib.admm_plain_warp_launch(
+        *(t.data_ptr() for t in (*args, *outs)), B, n, m, kw["iters"],
+        kw["adapt_rounds"], kw["equilibrate_iters"], kw["rho0"], kw["sigma"],
+        kw["alpha"], kw["rho_eq_scale"], kw["inf"], lay.g, lay.ld,
+        lay.slot_floats, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"plain-warp launch failed: CUDA error {rc}, {lay}")
+    return outs
+
+
+def probe_plainwarp(record, B, device, smem, n_sm, build, rounds=6):
+    """Kernel A at the WBC shape: the shipped register-loop solve against
+    its design before (kernel 4's warp body with the norm-only Ruiz,
+    patched copy) in
+    interleaved rounds at B = 1 and B; the share of each phase."""
+    n, m = WBC[:2]
+    args = fused_inputs(2, B, n, m, device)
+    argtypes = kernels._ENTRY_POINTS["admm_fused"]["admm_plain_warp_launch"][0]
+    old = build_variant("kernel 4 warp body", WARP_BODY_SUBS, build,
+                        source="admm_fused.cu")
+    old.admm_plain_warp_launch.argtypes = argtypes
+    lib = kernels._library("admm_fused")
+    for Bs in (1, B):
+        part = [t[:Bs].contiguous() for t in args]
+        lay = kernels.plain_warp_layout(n, m, Bs, smem, n_sm)
+        lay_old = kernels.fused_layout(n, m, Bs, smem, n_sm)
+        new_o = plain_launch(lib, part, lay)
+        old_o = plain_launch(old, part, lay_old)
+        ref = kernels.admm_solve_plain_reference(*part, **FUSED_KW)
+        torch.cuda.synchronize()
+        dx = [float((o[0] * o[2] - ref[0] * ref[2]).abs().max())
+              for o in (new_o, old_o)]
+        record("plainwarp", B=Bs, what="max |x - x_plain| (unscaled), "
+               "shipped / the design before", dx=dx, layout=str(lay),
+               layout_before=str(lay_old))
+        interleaved(record, "plainwarp", {
+            "shipped (register loop)": lambda: plain_launch(lib, part, lay),
+            "kernel 4's warp body (the design before)": lambda: plain_launch(
+                old, part, lay_old)}, rounds, B=Bs)
+    clk = build_variant("kernel A phase clocks", PLAIN_CLOCK_SUBS, build,
+                        source="admm_fused.cu")
+    clk.admm_plain_warp_launch.argtypes = argtypes
+    lay = kernels.plain_warp_layout(n, m, B, smem, n_sm)
+    outs = plain_launch(clk, args, lay)
+    torch.cuda.synchronize()
+    cycles = outs[3][:, :len(PLAIN_PHASES)].double()
+    total = cycles.sum(dim=1, keepdim=True)
+    for k, name in enumerate(PLAIN_PHASES):
+        record("plainwarp", B=B, what="share of a solve's cycles",
+               phase=name, share=round(float((cycles[:, k:k + 1]
+                                              / total).mean()), 4),
+               mean_cycles=float(cycles[:, k].mean()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -1018,7 +1519,8 @@ def main() -> int:
     B = a.batch
     report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
               "layouts": [],
-              "variants": [], "cluster_phases": [], "fused": []}
+              "variants": [], "cluster_phases": [], "fused": [], "spd": [],
+              "plainwarp": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -1037,6 +1539,11 @@ def main() -> int:
     if "fused" in a.kernels:
         torch.cuda.empty_cache()
         probe_fused(record, B, device, smem, n_sm, build)
+    if "spd" in a.kernels:
+        torch.cuda.empty_cache()
+        probe_spd(record, B, device, smem, n_sm, build)
+    if "plainwarp" in a.kernels:
+        probe_plainwarp(record, B, device, smem, n_sm, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

@@ -38,40 +38,72 @@ WBC_KW = dict(iters=40, adapt_rounds=3, equilibrate_iters=8, rho0=0.1,
 
 # ---------------------------------------------------------------- layouts
 
-@pytest.mark.parametrize("n, B, path, g, threads, in_smem, floats", [
-    (1, 1, "warp", 1, 32, False, 32),
-    (30, 1, "warp", 1, 32, False, 960),
-    (30, 37, "warp", 1, 32, False, 960),
-    (30, 4096, "warp", 8, 256, False, 8 * 960),
-    (32, 4096, "warp", 8, 256, False, 8 * 1024),
-    (33, 1, "block", 0, 256, True, 2 * 33 + 33 * 34),
-    (64, 8, "block", 0, 256, True, 2 * 64 + 64 * 65),
-    (65, 8, "block", 0, 512, True, 2 * 65 + 65 * 66),
-    (129, 8, "block", 0, 1024, True, 2 * 129 + 129 * 130),
-    (192, 4096, "block", 0, 1024, True, 37440),
-    (239, 1, "block", 0, 1024, True, 2 * 239 + 239 * 240),
-    (240, 1, "block", 0, 1024, False, 480),
+def _block(np_, in_smem):
+    """kernel B's block-path shared memory: the Jacobi scale (np), the panel
+    buffer (np rows of 36), the load's barrier (4), and in shared memory the
+    working matrix (np rows of np + 4)."""
+    return np_ + 36 * np_ + 4 + (np_ * (np_ + 4) if in_smem else 0)
+
+
+@pytest.mark.parametrize("n, B, path, g, threads, in_smem, floats, ld", [
+    (1, 1, "warp", 1, 32, False, 32, 0),
+    (30, 1, "warp", 1, 32, False, 960, 0),
+    (30, 37, "warp", 1, 32, False, 960, 0),
+    (30, 4096, "warp", 8, 256, False, 8 * 960, 0),
+    (32, 4096, "warp", 8, 256, False, 8 * 1024, 0),
+    (33, 1, "block", 0, 128, True, _block(64, True), 68),
+    (63, 37, "block", 0, 128, True, _block(64, True), 68),
+    (64, 8, "block", 0, 128, True, _block(64, True), 68),
+    (65, 8, "block", 0, 256, True, _block(96, True), 100),
+    (129, 8, "block", 0, 512, True, _block(160, True), 164),
+    (191, 1, "block", 0, 512, True, _block(192, True), 196),
+    (192, 4096, "block", 0, 512, True, 44740, 196),
+    (193, 1, "block", 0, 512, False, _block(224, False), 228),
+    (239, 37, "block", 0, 512, False, _block(256, False), 260),
+    (240, 1, "block", 0, 512, False, 9476, 260),
 ])
-def test_spd_inverse_layout(n, B, path, g, threads, in_smem, floats):
+def test_spd_inverse_layout(n, B, path, g, threads, in_smem, floats, ld):
     """Kernel B's path on the H100: a warp per matrix up to n = 32, at most
     8 a block and no more than spreads B over 132 SMs; a block per matrix
-    above, its working matrix (stride n + 1) and two n-vectors in shared
-    memory up to n = 239 (232,448 bytes), else in the L^-1 output."""
+    above, panels of 32 columns and 4 x 4 register tiles (64 threads a
+    32 x 32 tile: 128 threads up to two panels, 256 up to three, else 512),
+    n padded to np, a multiple of 32, its working matrix (rows of np + 4
+    floats, 16-byte aligned) in shared memory beside the panel buffer up to
+    n = 192 (178,960 bytes), else in a device-memory workspace."""
     lay = kernels.spd_inverse_layout(n, B, H100_SMEM, H100_SMS)
-    assert lay == kernels.SpdLayout(path, g, threads, in_smem, floats)
+    panel, tile = (32, 4) if path == "block" else (0, 0)
+    assert lay == kernels.SpdLayout(path, g, threads, in_smem, floats, panel,
+                                    tile, ld)
     assert 4 * lay.smem_floats <= H100_SMEM
+    if path == "block":
+        assert lay.ld % 4 == 0 and (lay.ld - 4) % 32 == 0 and lay.ld - 4 >= n
+        assert lay.smem_floats == kernels.spd_block_floats(n, in_smem)
 
 
 @pytest.mark.parametrize("n, m, B, g", [(30, 50, 1, 1), (30, 50, 37, 1),
-                                        (30, 50, 4096, 11), (32, 50, 4096, 10),
+                                        (30, 50, 4096, 12), (32, 50, 4096, 12),
                                         (24, 40, 300, 3)])
 def test_plain_warp_layout(n, m, B, g):
-    """Kernel A takes kernel 4's warp path with kernel 4's slots: eleven
-    WBC-sized scenarios a block at B = 4096 (20.3 KB each)."""
+    """Kernel A: a warp per scenario, rows of P and A at the stride 36 (4
+    mod 8: the register loop's slot, warp_regs.cuh), twelve WBC-sized
+    scenarios a block at B = 4096 (18.4 KB each)."""
     lay = kernels.plain_warp_layout(n, m, B, H100_SMEM, H100_SMS)
-    assert lay == kernels.fused_layout(n, m, B, H100_SMEM, H100_SMS)
-    assert lay.path == "warp" and lay.g == g and lay.ld == n | 1
+    assert lay.path == "warp" and lay.g == g and lay.ld == 36
+    assert lay.slot_floats == kernels.plain_warp_slot_floats(n, m)
+    assert lay.slot_floats % 4 == 0
     assert 4 * lay.g * lay.slot_floats <= H100_SMEM
+
+
+@pytest.mark.parametrize("n, m, floats", [(30, 50, 4592), (32, 50, 4728),
+                                          (24, 40, 3632), (1, 1, 412)])
+def test_plain_warp_slot_floats(n, m, floats):
+    """Kernel A's slot (admm_fused.cu's plain_slot_floats): the scratch of
+    the factorization (n rows of 32), P (n rows of 36), A (round4(m) rows of
+    36), rhs, x_a, r, x_t (32 each), w, z, y, l, u, rho, 1 / rho, E, the
+    Ruiz row scale and the rho pattern (round4(m) each) and D (32)."""
+    mp = -(-m // 4) * 4
+    assert floats == 32 * n + 36 * n + 36 * mp + 4 * 32 + 10 * mp + 32
+    assert kernels.plain_warp_slot_floats(n, m) == floats
 
 
 @pytest.mark.parametrize("n, m, smem", [(33, 50, H100_SMEM),
