@@ -58,16 +58,19 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  on a symmetric K; on a visibly skewed K, where "as given"
                  and "transposed" part, on BOTH paths; two launches bit for
                  bit; timed at both main-path shapes
-              3e the WBC-build and plant-step kernels (dyn/csrc/, over the
-                 rigid-body core rbd.h) against build_wbc_qp_reference and
-                 plant_step_reference on the same inputs at B = 1, 37 and
-                 4096, float32 (1e-4 of each output's largest entry) and
+              3e the WBC-build and plant-step kernels (dyn/csrc/, a warp per
+                 scenario over the rigid-body core rbd.h) against
+                 build_wbc_qp_reference and plant_step_reference on the same
+                 inputs at B = 1, 37, 4094 (its last block partly filled)
+                 and 4096, float32 (1e-4 of each output's largest entry) and
                  float64 (1e-10), payload off and on, exact_pin off and on:
                  the four gaits' contact mixes; plant states sliding,
                  sticking, pulled off the ground and above it, drawn away
-                 from the contact law's switching surfaces; two launches bit
-                 for bit; times at B = 1 and 4096 beside the plain chains'
-                 and the bounds
+                 from the contact law's switching surfaces; the layout each
+                 launch took (dyn/kernels.py::rbd_layout on the card's
+                 limits); two launches bit for bit; times at B = 1 and 4096
+                 (a one-launch CUDA graph's replay, and the eager wrapper)
+                 beside the plain chains' and the bounds
               3f kernel A (admm_solve_plain_warp: the default WBC solve in
                  one launch) against qp/admm.py's plain chain on the card:
                  random QPs with equality rows at B = 1, 37, 64 and n = 32
@@ -1166,11 +1169,14 @@ def solve_kernels_phase(smi: str, device, reports: dict) -> None:
 # (tests/test_torch_rbd_kernels.py holds the same arithmetic on the CPU):
 # float32 within 1e-4 of the plain result relative to the largest entry of
 # each output (of each diagonal block for H, whose 1e6 ridge would set the
-# scale), float64 within 1e-10 (measured on the CPU: 1.4e-7 / 8.8e-7 and
-# 1.1e-16 / 1.5e-15; on an H100: 3.5e-7 / 1.6e-6 and 1.1e-15 / 4.2e-15).
+# scale), float64 within 1e-10 (the warp-per-scenario kernels, measured on
+# the CPU: 1.3e-7 / 1.2e-6 and 1.1e-16 / 1.6e-15; on an H100: 7.8e-7 /
+# 2.6e-6 and 8.1e-16 / 4.6e-15).
 # The infinite bounds (INF) where the plain version puts them.
 RBD_REL = {torch.float32: 1e-4, torch.float64: 1e-10}
-RBD_B = (1, 37, 4096)
+# the last two: a last block partly filled (rbd.h's MAX_WARPS = 8 warps a
+# block) and the cascade's batch
+RBD_B = (1, 37, 4094, 4096)
 RBD_GAITS = ("trot", "walk", "bound", "pace")
 # plant states are drawn at least this far (m, N) from a switching surface
 # of the contact law at either substep, where one rounding flips a branch
@@ -1373,6 +1379,30 @@ def rbd_rel_err(got, want) -> tuple[float, float]:
     return float(d / scale), float(d)
 
 
+def rbd_layout_ok(name: str, B: int, dtype, device) -> bool:
+    """The layout the last launch of kernel `name` took is
+    dyn/kernels.py::rbd_layout's on the card's limits (and covers B)."""
+    want = rbd_kernels.rbd_layout(name, B, dtype,
+                                  *kernels.device_limits(device))
+    got = rbd_kernels.last_layout(name)
+    return got == want and got.warps * got.blocks >= B
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """ms of one replay of a CUDA graph that holds fn()'s launches: their
+    device time without the host's packing (the eager warm-up runs on a
+    side stream first)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, 3, reps)
+
+
 def compare_wbc_build(tree, cfg, inputs, dtype, device) -> tuple:
     """The build kernel against build_wbc_qp_reference on the card, payload
     off and on, exact_pin off and on; two launches bit for bit.  Returns
@@ -1385,6 +1415,7 @@ def compare_wbc_build(tree, cfg, inputs, dtype, device) -> tuple:
     for extra in (None, point_mass_spatial(payload)):
         for pin in (False, True):
             got = tsid_mod.wbc_build(tree, cfg, q, v, refs, extra, pin)
+            laid = rbd_layout_ok("wbc_build", q.shape[0], dtype, device)
             again = tsid_mod.wbc_build(tree, cfg, q, v, refs, extra, pin)
             want = tsid_mod.build_wbc_qp_reference(tree, cfg, q, v, refs,
                                                    extra, pin)
@@ -1396,11 +1427,13 @@ def compare_wbc_build(tree, cfg, inputs, dtype, device) -> tuple:
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             layout = all(g.shape == w.shape and g.stride() == w.stride()
                          for g, w in zip(got, want))
-            check(rel <= RBD_REL[dtype] and same and layout,
+            check(rel <= RBD_REL[dtype] and same and layout and laid,
                   f"3e: wbc_build, B={q.shape[0]}, {str(dtype)[6:]}, payload "
                   f"{extra is not None}, exact_pin {pin}: within "
                   f"{RBD_REL[dtype]:g} of the plain version (relative), "
-                  "shapes and strides its own, two launches bit for bit")
+                  "shapes and strides its own, the launch laid out as "
+                  f"rbd_layout says ({rbd_kernels.last_layout('wbc_build')}),"
+                  " two launches bit for bit")
             worst = (max(worst[0], rel), max(worst[1], ab))
     return worst
 
@@ -1419,6 +1452,7 @@ def compare_plant_step(tree, inputs, dtype, device) -> tuple:
     for extra in (None, point_mass_spatial(t(d["payload"]))):
         got = plant_step(tree, st, t(d["tau"]), params=cp,
                          extra_base_inertia=extra)
+        laid = rbd_layout_ok("plant_step", st.q.shape[0], dtype, device)
         again = plant_step(tree, st, t(d["tau"]), params=cp,
                            extra_base_inertia=extra)
         want = plant_step_reference(tree, st, t(d["tau"]), 0.001, 2, cp,
@@ -1428,21 +1462,25 @@ def compare_plant_step(tree, inputs, dtype, device) -> tuple:
         errs = [rbd_rel_err(g, w) for g, w in zip(flat(got), flat(want))]
         rel, ab = max(e[0] for e in errs), max(e[1] for e in errs)
         same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
-        check(rel <= RBD_REL[dtype] and same and torch.equal(
+        check(rel <= RBD_REL[dtype] and same and laid and torch.equal(
             got[0].in_contact, want[0].in_contact),
               f"3e: plant_step, B={st.q.shape[0]}, {str(dtype)[6:]}, "
               f"payload {extra is not None}: within {RBD_REL[dtype]:g} of "
-              "the plain version (relative), contacts equal, two launches "
-              "bit for bit")
+              "the plain version (relative), contacts equal, the launch "
+              "laid out as rbd_layout says "
+              f"({rbd_kernels.last_layout('plant_step')}), two launches bit "
+              "for bit")
         worst = (max(worst[0], rel), max(worst[1], ab))
     return worst
 
 
 def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
     """3e: the WBC-build and plant-step kernels against their plain
-    versions at B = 1, 37 and 4096, float32 and float64; their times at
-    B = 1 and 4096 (float32, no payload: the main path's), the plain
-    chains' and the bounds."""
+    versions at B = 1, 37, 4094 and 4096, float32 and float64, each
+    launch's layout; their times at B = 1 and 4096 (float32, no payload:
+    the main path's): a one-launch CUDA graph's replay (`ms`, the kernel's
+    device time) and the eager wrapper (`ms_eager`, its packing on the host
+    included), the plain chains' and the bounds."""
     cfg = EngineConfig()
     tree = CascadeConfigured(SOLO12, cfg).tree
     Bmax = max(RBD_B)
@@ -1476,11 +1514,13 @@ def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
         cp = ContactParams(**{k: t(plant_in[k][:B]) for k in
                               ("kp_n", "kd_n", "kp_t", "kd_t", "mu")})
         tau = t(plant_in["tau"][:B])
-        w_ms = time_ms(lambda: tsid_mod.wbc_build(tree, cfg.wbc, q, v,
-                                                  refs), 3, 50)
+        w_call = lambda: tsid_mod.wbc_build(  # noqa: E731
+            tree, cfg.wbc, q, v, refs)
+        p_call = lambda: plant_step(tree, st, tau, params=cp)  # noqa: E731
+        w_ms, w_eager = graph_ms(w_call), time_ms(w_call, 3, 50)
+        p_ms, p_eager = graph_ms(p_call), time_ms(p_call, 3, 50)
         w_plain = time_ms(lambda: tsid_mod.build_wbc_qp_reference(
             tree, cfg.wbc, q, v, refs), 1, 3)
-        p_ms = time_ms(lambda: plant_step(tree, st, tau, params=cp), 3, 50)
         p_plain = time_ms(lambda: plant_step_reference(
             tree, st, tau, 0.001, 2, cp), 1, 3)
         n_cl = clamps[0] if B == Bmax else plant_margins(
@@ -1489,15 +1529,18 @@ def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
         p_bound = bound_ms(
             B * (PLANT_IN + PLANT_OUT),
             2 * B * PLANT_SUBSTEP_OPS + n_cl * PLANT_RESOLVE_OPS)
-        report_times("wbc_build", f"B={B} float32", w_ms, w_plain, w_bound,
+        report_times("wbc_build", f"B={B} float32 (graph replay; eager "
+                     f"wrapper {w_eager:.4f} ms)", w_ms, w_plain, w_bound,
                      smi)
-        report_times("plant_step", f"B={B} float32, 2 substeps", p_ms,
+        report_times("plant_step", f"B={B} float32, 2 substeps (graph "
+                     f"replay; eager wrapper {p_eager:.4f} ms)", p_ms,
                      p_plain, p_bound, smi)
-        timed_out[B] = ((w_ms, w_plain, w_bound), (p_ms, p_plain, p_bound))
+        timed_out[B] = ((w_ms, w_plain, w_bound, w_eager),
+                        (p_ms, p_plain, p_bound, p_eager))
     for i, (name, src, replaces) in enumerate((
             ("wbc_build", "wbc_build.cu", "mpctsid_tpu/wbc/tsid.py:69"),
             ("plant_step", "plant_step.cu", "mpctsid_tpu/env/plant.py:131"))):
-        (ms, plain, bound), (ms1, plain1, bound1) = (
+        (ms, plain, bound, eager), (ms1, plain1, bound1, eager1) = (
             timed_out[Bmax][i], timed_out[1][i])
         f32 = [e for (B, dt), e in errs[name].items() if dt == torch.float32]
         f64 = [e for (B, dt), e in errs[name].items() if dt == torch.float64]
@@ -1507,8 +1550,8 @@ def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
             max_rel_err=max(e[0] for e in f32),
             max_rel_err_f64=max(e[0] for e in f64),
             ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            ms_b1=ms1, plain_ms_b1=plain1, bound_ms_b1=bound1[0],
-            bound_by_b1=bound1[1])
+            ms_eager=eager, ms_b1=ms1, plain_ms_b1=plain1,
+            bound_ms_b1=bound1[0], bound_by_b1=bound1[1], ms_eager_b1=eager1)
 
 
 # ---------------------------------------------------------------- main path

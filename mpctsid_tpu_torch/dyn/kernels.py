@@ -2,9 +2,10 @@
 over the rigid-body core dyn/csrc/rbd.h.
 
 rbd.h holds the per-scenario arithmetic (leg kinematics once per
-configuration, crba, rnea, foot Jacobians and drifts, integration, a dense
-Cholesky) and the whole body of each kernel; the .cu files under dyn/csrc/
-map a thread to its scenario:
+configuration, crba, rnea, foot Jacobians and drifts, integration, the
+arrow-structured SPD solve) as per-lane units of a warp, and the whole body
+of each kernel; the .cu files under dyn/csrc/ map a warp to its scenario,
+`rbd_layout`'s number of them a block, each with its slot of shared memory:
 
   * `wbc_build` (wbc_build.cu): the WBC QP build, wrapped by
     wbc/tsid.py::wbc_build;
@@ -32,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -41,7 +43,9 @@ from mpctsid_tpu_torch.model.tree import NV
 from mpctsid_tpu_torch.utils import device_constant
 
 __all__ = ["rbd_constants", "rows", "check_batch", "call", "launch",
-           "build_specs", "LIBRARIES", "LAYOUT", "LAUNCH_ARGTYPES", "CSRC"]
+           "build_specs", "rbd_layout", "last_layout", "RbdLayout",
+           "LIBRARIES", "LAYOUT", "SLOT_VALUES", "MAX_WARPS",
+           "LAUNCH_ARGTYPES", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -57,6 +61,12 @@ LIBRARIES = {
 # libraries report theirs (`<name>_layout`) and are refused if they differ.
 LAYOUT = dict(const_size=196, wbc_in=11, wbc_out=8, wbc_par=19, plant_in=11,
               plant_out=5, plant_par=2)
+
+# values (floats or doubles) of a warp's slice of shared memory: rbd.h's
+# WbcSlot and PlantSlot.  The libraries report theirs
+# (`<name>_slot_values`) and are refused if they differ.
+SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372}
+MAX_WARPS = 8           # rbd.h's MAX_WARPS: scenarios (warps) a block
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -87,6 +97,42 @@ def rbd_constants(tree, device, dtype) -> torch.Tensor:
     C = _consts(tree, torch.empty(0, dtype=torch.float64))
     return device_constant(("rbd_constants", id(C)),
                            lambda: _pack_constants(C), device, dtype)
+
+
+# ------------------------------------------------------------------ layout
+
+class RbdLayout(NamedTuple):
+    """How one launch of a rigid-body kernel is laid out."""
+    warps: int         # scenarios (warps) a block
+    blocks: int
+    slot_bytes: int    # shared bytes of a warp's slot
+    smem_bytes: int    # dynamic shared bytes a block
+
+
+def rbd_layout(name: str, B: int, dtype, smem_bytes: int,
+               n_sm: int) -> RbdLayout:
+    """The layout a launch of kernel `name` takes (rbd.h's
+    `warps_per_block`, which the launcher runs on the device's limits): a
+    warp per scenario with its slot (SLOT_VALUES of `dtype`, rounded to 16
+    bytes), as many warps a block as fit in `smem_bytes`, at most MAX_WARPS
+    and no more than spread B over `n_sm` multiprocessors.  Raises where no
+    slot fits."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    slot = -(-SLOT_VALUES[name] * itemsize // 16) * 16
+    fit = smem_bytes // slot
+    if fit < 1:
+        raise ValueError(f"{name}: a {slot}-byte slot does not fit in "
+                         f"{smem_bytes} bytes of shared memory")
+    g = max(1, min(MAX_WARPS, fit, -(-B // max(1, n_sm))))
+    return RbdLayout(g, -(-B // g), slot, g * slot)
+
+
+def last_layout(name: str) -> RbdLayout:
+    """The layout the last launch of kernel `name` took, as its library
+    reports it."""
+    fn = getattr(_library(name), f"{name}_last_layout")
+    g, blocks, smem = (fn(i) for i in range(3))
+    return RbdLayout(g, blocks, smem // max(1, g), smem)
 
 
 # ---------------------------------------------------------- operand packing
@@ -173,13 +219,18 @@ def _library(name: str):
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_INT]
         err.restype = ctypes.c_char_p
-        layout = getattr(lib, f"{name}_layout")
-        layout.argtypes = [_INT]
-        layout.restype = _INT
-        got = [layout(i) for i in range(len(LAYOUT))]
-        if got != list(LAYOUT.values()):
-            raise RuntimeError(f"{name}: the library's layout {got} is not "
-                               f"dyn/kernels.py's {list(LAYOUT.values())}")
+        for entry in ("layout", "last_layout"):
+            fn = getattr(lib, f"{name}_{entry}")
+            fn.argtypes = [_INT]
+            fn.restype = _INT
+        lib_slot = getattr(lib, f"{name}_slot_values")
+        lib_slot.restype = _INT
+        got = [getattr(lib, f"{name}_layout")(i) for i in range(len(LAYOUT))]
+        if got != list(LAYOUT.values()) or lib_slot() != SLOT_VALUES[name]:
+            raise RuntimeError(
+                f"{name}: the library's layout {got} and slot of "
+                f"{lib_slot()} values are not dyn/kernels.py's "
+                f"{list(LAYOUT.values())} and {SLOT_VALUES[name]}")
         _LIBS[name] = lib
     return lib
 

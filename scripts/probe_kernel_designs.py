@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the redesigned kernels goes: the M2 iteration
 (admm_m2.cu), the generic refined iteration (admm_vpu.cu), the tensor-core
-iteration (admm_mma.cu), the whole solve (admm_fused.cu), and kernels B
-(spd_inverse.cu) and A (admm_fused.cu's plain-backend solve).
+iteration (admm_mma.cu), the whole solve (admm_fused.cu), kernels B
+(spd_inverse.cu) and A (admm_fused.cu's plain-backend solve), the WBC build
+and the plant step (dyn/csrc/).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
-        [--kernels m2 vpu packed mma fused spd plainwarp]
+        [--kernels m2 vpu packed mma fused spd plainwarp build plant]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit.  `--kernels` picks the parts (default: all seven):
+limit.  `--kernels` picks the parts (default: all nine):
 
   m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
      than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
@@ -53,7 +54,14 @@ limit.  `--kernels` picks the parts (default: all seven):
      0 after every barrier);
   plainwarp. (admm_fused.cu, WBC shape) kernel A against its design before
      (kernel 4's warp body with the norm-only Ruiz, a patched copy) in interleaved
-     rounds at B = 1 and --batch, and the share of each of its phases.
+     rounds at B = 1 and --batch, and the share of each of its phases;
+  build, plant. (dyn/csrc/wbc_build.cu, plant_step.cu over rbd.h; float32,
+     chip_smoke.py's inputs) the shipped warp-per-scenario kernels against
+     PR 11's thread-per-scenario design (a patched copy of rbd.h with its
+     serial body put back) in interleaved rounds at B = 1 and --batch,
+     copies with 4 and 16 warps a block at --batch, each design's error
+     against the plain version, and the cycles of each phase (a patched
+     copy that reads the cycle counter at every phase boundary).
 
 Prints one JSON object at the end; with --out also writes it to
 DIR/probe_kernel_designs.json.
@@ -75,9 +83,18 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from mpctsid_tpu_torch.cascade import CascadeConfigured  # noqa: E402
+from mpctsid_tpu_torch.config import EngineConfig  # noqa: E402
+from mpctsid_tpu_torch.dyn import kernels as rbd_kernels  # noqa: E402
+from mpctsid_tpu_torch.env import plant  # noqa: E402
+from mpctsid_tpu_torch.env.plant import ContactParams, PlantState  # noqa: E402
+from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.qp import _build, kernels  # noqa: E402
+from mpctsid_tpu_torch.wbc import tsid  # noqa: E402
+from mpctsid_tpu_torch.wbc.tsid import WbcRefs  # noqa: E402
 
-PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp"]
+PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp", "build",
+         "plant"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -202,33 +219,59 @@ def launch(fn, args, iters, geometry):
     return outs
 
 
-def build_variant(name, subs, out_dir, source="admm_mma.cu",
-                  header_subs=None):
+def write_variant(name, subs, out_dir, source="admm_mma.cu",
+                  header_subs=None, csrc=None):
     """A copy of `source` (and of the headers named in `header_subs`, a dict
-    header -> substitutions) with the (old, new) text substitutions applied,
-    built into its own directory beside the real library; the copy's
-    directory comes first on the include path, so the patched headers win."""
+    header -> substitutions; a callable there maps the header's whole text)
+    with the (old, new) text substitutions applied, in its own directory;
+    returns the nvcc command that builds it beside the real library (the
+    copy's directory first on the include path, so the patched headers win)
+    and the library's path."""
+    csrc = csrc or _build.CSRC
     tag = "".join(c if c.isalnum() else "_" for c in name)
     vdir = os.path.join(out_dir, f"{source[:-3]}_{tag}")
     os.makedirs(vdir, exist_ok=True)
     for fname, fsubs in [(source, subs), *(header_subs or {}).items()]:
-        src = (_build.CSRC / fname).read_text()
-        for old, new in fsubs:
-            if old not in src:
-                raise RuntimeError(f"variant {name!r}: pattern not in "
-                                   f"{fname}: {old!r}")
-            src = src.replace(old, new)
+        src = (csrc / fname).read_text()
+        if callable(fsubs):
+            src = fsubs(src)
+        else:
+            for old, new in fsubs:
+                if old not in src:
+                    raise RuntimeError(f"variant {name!r}: pattern not in "
+                                       f"{fname}: {old!r}")
+                src = src.replace(old, new)
         with open(os.path.join(vdir, fname), "w") as f:
             f.write(src)
     so = os.path.join(vdir, f"lib{source[:-3]}_{tag}.so")
-    r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", vdir,
-                        "-I", str(_build.CSRC), "-o", so,
-                        os.path.join(vdir, source)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"variant {name!r} does not build:\n{r.stdout}"
-                           f"{r.stderr}")
-    return ctypes.CDLL(so)
+    return [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", vdir, "-I",
+            str(csrc), "-o", so, os.path.join(vdir, source)], so
+
+
+def build_variants(specs, out_dir):
+    """{name: CDLL} of the patched copies `specs` (name -> keyword
+    arguments of `write_variant`), their nvcc processes run together."""
+    procs = {}
+    for name, kw in specs.items():
+        cmd, so = write_variant(name, out_dir=out_dir, **kw)
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name!r} does not build:\n{out}")
+        libs[name] = ctypes.CDLL(so)
+    return libs
+
+
+def build_variant(name, subs, out_dir, source="admm_mma.cu",
+                  header_subs=None):
+    """One patched copy (`write_variant`), built; its CDLL."""
+    return build_variants({name: dict(subs=subs, source=source,
+                                      header_subs=header_subs)},
+                          out_dir)[name]
 
 
 def warp_geometry(n, m, ld, g):
@@ -1502,6 +1545,889 @@ def probe_plainwarp(record, B, device, smem, n_sm, build, rounds=6):
                mean_cycles=float(cycles[:, k].mean()))
 
 
+# ------------------------------------- the WBC build and the plant step
+
+# PR 11's design of the two rigid-body kernels (dyn/csrc/): a thread per
+# scenario in blocks of 32, the whole per-scenario body one serial chain in
+# local memory, dense 6 x 6 congruences and a dense 18 x 18 Cholesky.  Its
+# per-scenario functions as they stood in rbd.h, put back into a patched
+# copy of the header (namespace rbd::pr11, beside the shipped units; they
+# call the shipped helpers: the 3 x 3 products, wrench, xf_to_parent).
+THREAD_DESIGN = r"""
+RBD_FN float r_sin(float x) { return sinf(x); }
+RBD_FN double r_sin(double x) { return sin(x); }
+RBD_FN float r_cos(float x) { return cosf(x); }
+RBD_FN double r_cos(double x) { return cos(x); }
+
+// rotation by `angle` about coordinate axis `ax`
+template <typename T>
+RBD_FN void axis_rot(int ax, T angle, T* R)
+{
+    const T c = r_cos(angle), s = r_sin(angle);
+    for (int i = 0; i < 9; ++i) R[i] = T(0);
+    const int a = (ax + 1) % 3, b = (ax + 2) % 3;
+    R[3 * ax + ax] = T(1);
+    R[3 * a + a] = c;
+    R[3 * a + b] = -s;
+    R[3 * b + a] = s;
+    R[3 * b + b] = c;
+}
+
+template <typename T>
+RBD_FN void leg_kin(const T* C, const T* q, Kin<T>& k)
+{
+    quat_to_rot(q + 3, k.R0);
+    for (int i = 0; i < 3; ++i) k.p0[i] = q[i];
+    for (int leg = 0; leg < 4; ++leg) {
+        const T* Rp = k.R0;
+        const T* pp = k.p0;
+        for (int lvl = 0; lvl < 3; ++lvl) {
+            axis_rot(axis_of(C, lvl), q[7 + 3 * leg + lvl], k.Rr[leg][lvl]);
+            T d[3];
+            mv3(Rp, placement(C, lvl, leg), d);
+            for (int i = 0; i < 3; ++i) k.p[leg][lvl][i] = pp[i] + d[i];
+            mm3(Rp, k.Rr[leg][lvl], k.Rw[leg][lvl]);
+            Rp = k.Rw[leg][lvl];
+            pp = k.p[leg][lvl];
+        }
+        T d[3];
+        mv3(k.Rw[leg][2], C + C_FOOT + 3 * leg, d);
+        for (int i = 0; i < 3; ++i) k.p[leg][3][i] = k.p[leg][2][i] + d[i];
+    }
+}
+
+// tau (18) = M(q) a + C(q, v) v + g(q); a == nullptr means a = 0 (the bias
+// vector).  extra: optional 6x6 base spatial-inertia addend.
+template <typename T>
+RBD_FN void rnea(const T* C, const Kin<T>& k, const T* v, const T* a,
+                 const T* extra, T* tau)
+{
+    const T grav = C[C_GRAV];
+    const T w0[3] = {v[3], v[4], v[5]};
+    const T v0[3] = {v[0], v[1], v[2]};
+    T wd0[3], vd0[3];
+    for (int i = 0; i < 3; ++i) {
+        wd0[i] = a ? a[3 + i] : T(0);
+        vd0[i] = (a ? a[i] : T(0)) + grav * k.R0[6 + i];
+    }
+    T Ib[36];
+    for (int i = 0; i < 36; ++i)
+        Ib[i] = extra ? C[C_IBASE + i] + extra[i] : C[C_IBASE + i];
+    T n0[3], f0[3];
+    wrench(Ib, w0, v0, wd0, vd0, n0, f0);
+
+    T sn[3] = {T(0), T(0), T(0)}, sf[3] = {T(0), T(0), T(0)};
+    for (int leg = 0; leg < 4; ++leg) {
+        T w[3][3], vl[3][3], wd[3][3], vd[3][3];
+        const T *wp = w0, *vp = v0, *wdp = wd0, *vdp = vd0;
+        for (int lvl = 0; lvl < 3; ++lvl) {
+            const T* Rr = k.Rr[leg][lvl];
+            const T* pl = placement(C, lvl, leg);
+            const int ax = axis_of(C, lvl);
+            const T qd = v[6 + 3 * leg + lvl];
+            const T qdd = a ? a[6 + 3 * leg + lvl] : T(0);
+            T sq[3] = {T(0), T(0), T(0)};
+            sq[ax] = qd;
+            T t[3], c[3];
+            mtv3(Rr, wp, w[lvl]);
+            w[lvl][ax] += qd;
+            cross(wp, pl, t);
+            for (int i = 0; i < 3; ++i) t[i] = vp[i] + t[i];
+            mtv3(Rr, t, vl[lvl]);
+            mtv3(Rr, wdp, wd[lvl]);
+            wd[lvl][ax] += qdd;
+            cross(w[lvl], sq, c);
+            for (int i = 0; i < 3; ++i) wd[lvl][i] += c[i];
+            cross(wdp, pl, t);
+            for (int i = 0; i < 3; ++i) t[i] = vdp[i] + t[i];
+            mtv3(Rr, t, vd[lvl]);
+            cross(vl[lvl], sq, c);
+            for (int i = 0; i < 3; ++i) vd[lvl][i] += c[i];
+            wp = w[lvl];
+            vp = vl[lvl];
+            wdp = wd[lvl];
+            vdp = vd[lvl];
+        }
+        T nc[3], fc[3];
+        for (int lvl = 2; lvl >= 0; --lvl) {
+            T nb[3], fb[3];
+            wrench(C + C_INERTIA + 36 * lvl, w[lvl], vl[lvl], wd[lvl],
+                   vd[lvl], nb, fb);
+            if (lvl < 2)
+                for (int i = 0; i < 3; ++i) {
+                    nb[i] += nc[i];
+                    fb[i] += fc[i];
+                }
+            tau[6 + 3 * leg + lvl] = nb[axis_of(C, lvl)];
+            const T* Rr = k.Rr[leg][lvl];
+            T c[3];
+            mv3(Rr, fb, fc);
+            mv3(Rr, nb, nc);
+            cross(placement(C, lvl, leg), fc, c);
+            for (int i = 0; i < 3; ++i) nc[i] += c[i];
+        }
+        for (int i = 0; i < 3; ++i) {
+            sn[i] += nc[i];
+            sf[i] += fc[i];
+        }
+    }
+    for (int i = 0; i < 3; ++i) {
+        tau[i] = f0[i] + sf[i];
+        tau[3 + i] = n0[i] + sn[i];
+    }
+}
+
+// 6x6 motion transform child <- parent: [[R', 0], [R' skew(pl)', R']]
+template <typename T>
+RBD_FN void spatial_x(const T* Rr, const T* pl, T* X)
+{
+    for (int i = 0; i < 36; ++i) X[i] = T(0);
+    // skew(pl)' = -skew(pl)
+    const T Sk[9] = {T(0), pl[2], -pl[1], -pl[2], T(0), pl[0],
+                     pl[1], -pl[0], T(0)};
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j) {
+            const T rt = Rr[3 * j + i];          // R'[i][j]
+            X[6 * i + j] = rt;
+            X[6 * (3 + i) + 3 + j] = rt;
+            X[6 * (3 + i) + j] = Rr[i] * Sk[j] + Rr[3 + i] * Sk[3 + j]
+                                 + Rr[6 + i] * Sk[6 + j];
+        }
+}
+
+// out = base + X' Ic X (6x6)
+template <typename T>
+RBD_FN void congruence_add(const T* base, const T* X, const T* Ic, T* out)
+{
+    T XtI[36];
+    for (int i = 0; i < 6; ++i)
+        for (int j = 0; j < 6; ++j) {
+            T s = T(0);
+            for (int r = 0; r < 6; ++r) s += X[6 * r + i] * Ic[6 * r + j];
+            XtI[6 * i + j] = s;
+        }
+    for (int i = 0; i < 6; ++i)
+        for (int j = 0; j < 6; ++j) {
+            T s = T(0);
+            for (int r = 0; r < 6; ++r) s += XtI[6 * i + r] * X[6 * r + j];
+            out[6 * i + j] = base ? base[6 * i + j] + s : s;
+        }
+}
+
+// Mass matrix M (18x18): dense base block, 6x12 coupling, block-diagonal
+// legs.  extra: optional 6x6 base spatial-inertia addend.
+template <typename T>
+RBD_FN void crba(const T* C, const Kin<T>& k, const T* extra, T* M)
+{
+    for (int i = 0; i < NV * NV; ++i) M[i] = T(0);
+    const int a0 = axis_of(C, 0), a1 = axis_of(C, 1), a2 = axis_of(C, 2);
+    T S[36];
+    for (int i = 0; i < 36; ++i) S[i] = T(0);
+    for (int leg = 0; leg < 4; ++leg) {
+        const T* pl_h = placement(C, 0, leg);
+        const T* pl_u = placement(C, 1, leg);
+        const T* pl_l = placement(C, 2, leg);
+        const T* Ic_l = C + C_INERTIA + 72;
+        T X[36], Ic_u[36], Ic_h[36], Ib[36];
+        spatial_x(k.Rr[leg][2], pl_l, X);
+        congruence_add(C + C_INERTIA + 36, X, Ic_l, Ic_u);
+        spatial_x(k.Rr[leg][1], pl_u, X);
+        congruence_add(C + C_INERTIA, X, Ic_u, Ic_h);
+        spatial_x(k.Rr[leg][0], pl_h, X);
+        congruence_add((const T*)nullptr, X, Ic_h, Ib);
+        for (int i = 0; i < 36; ++i) S[i] += Ib[i];
+
+        // the joint motion subspaces are unit axes: I S is a column of I
+        // and S' F a component of F
+        T Fk[6], Fk_u[6], Fk_h[6], Fk_b[6];
+        T Fh[6], Fh_h[6], Fh_b[6], Fa[6], Fa_b[6];
+        for (int i = 0; i < 6; ++i) {
+            Fk[i] = Ic_l[6 * i + a2];
+            Fh[i] = Ic_u[6 * i + a1];
+            Fa[i] = Ic_h[6 * i + a0];
+        }
+        xf_to_parent(k.Rr[leg][2], pl_l, Fk, Fk_u);
+        xf_to_parent(k.Rr[leg][1], pl_u, Fk_u, Fk_h);
+        xf_to_parent(k.Rr[leg][0], pl_h, Fk_h, Fk_b);
+        xf_to_parent(k.Rr[leg][1], pl_u, Fh, Fh_h);
+        xf_to_parent(k.Rr[leg][0], pl_h, Fh_h, Fh_b);
+        xf_to_parent(k.Rr[leg][0], pl_h, Fa, Fa_b);
+        const T m_kk = Fk[a2], m_hk = Fk_u[a1], m_ak = Fk_h[a0];
+        const T m_hh = Fh[a1], m_ah = Fh_h[a0], m_aa = Fa[a0];
+        const T blk[9] = {m_aa, m_ah, m_ak, m_ah, m_hh, m_hk,
+                          m_ak, m_hk, m_kk};
+        const int o = 6 + 3 * leg;
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j)
+                M[NV * (o + i) + o + j] = blk[3 * i + j];
+        // base coupling: spatial forces [ang; lin] -> rows [lin; ang]
+        const T* cols[3] = {Fa_b, Fh_b, Fk_b};
+        for (int j = 0; j < 3; ++j)
+            for (int r = 0; r < 6; ++r) {
+                const T val = cols[j][(r + 3) % 6];
+                M[NV * r + o + j] = val;
+                M[NV * (o + j) + r] = val;
+            }
+    }
+    // base 6x6: [ang; lin] spatial inertia -> [lin; ang] generalized
+    for (int i = 0; i < 36; ++i) {
+        S[i] = C[C_IBASE + i] + S[i];
+        if (extra) S[i] = S[i] + extra[i];
+    }
+    for (int i = 0; i < 6; ++i)
+        for (int j = 0; j < 6; ++j)
+            M[NV * i + j] = S[6 * ((i + 3) % 6) + (j + 3) % 6];
+}
+
+// (12x18) world-frame linear-velocity Jacobians of the four feet, row
+// 3 * leg + i; joint columns only for each foot's own leg
+template <typename T>
+RBD_FN void foot_jacobians(const T* C, const Kin<T>& k, T* J)
+{
+    for (int i = 0; i < NF * NV; ++i) J[i] = T(0);
+    for (int leg = 0; leg < 4; ++leg) {
+        const T* pf = k.p[leg][3];
+        T d[3], r[3];
+        for (int i = 0; i < 3; ++i) d[i] = pf[i] - k.p0[i];
+        mtv3(k.R0, d, r);
+        // base_ang = -(R0 skew(r))
+        const T Sk[9] = {T(0), -r[2], r[1], r[2], T(0), -r[0],
+                         -r[1], r[0], T(0)};
+        T cols[3][3];
+        for (int lvl = 0; lvl < 3; ++lvl) {
+            const T* Rw = k.Rw[leg][lvl];
+            const int ax = axis_of(C, lvl);
+            const T axw[3] = {Rw[ax], Rw[3 + ax], Rw[6 + ax]};
+            T e[3];
+            for (int i = 0; i < 3; ++i) e[i] = pf[i] - k.p[leg][lvl][i];
+            cross(axw, e, cols[lvl]);
+        }
+        for (int i = 0; i < 3; ++i) {
+            T* row = J + NV * (3 * leg + i);
+            for (int j = 0; j < 3; ++j) {
+                row[j] = k.R0[3 * i + j];
+                row[3 + j] = -(k.R0[3 * i] * Sk[j]
+                               + k.R0[3 * i + 1] * Sk[3 + j]
+                               + k.R0[3 * i + 2] * Sk[6 + j]);
+            }
+            for (int lvl = 0; lvl < 3; ++lvl)
+                row[6 + 3 * leg + lvl] = cols[lvl][i];
+        }
+    }
+}
+
+// (12) world-frame Jdot v per foot (classical acceleration, qdd = 0,
+// gravity off)
+template <typename T>
+RBD_FN void foot_drifts(const T* C, const Kin<T>& k, const T* v, T* out)
+{
+    T w0[3], v0[3], a0[3], c[3];
+    mv3(k.R0, v + 3, w0);
+    mv3(k.R0, v, v0);
+    cross(v + 3, v, c);
+    mv3(k.R0, c, a0);
+    for (int leg = 0; leg < 4; ++leg) {
+        T w[3], vl[3], al[3] = {T(0), T(0), T(0)}, acc[3];
+        for (int i = 0; i < 3; ++i) {
+            w[i] = w0[i];
+            vl[i] = v0[i];
+            acc[i] = a0[i];
+        }
+        const T* pp = k.p0;
+        for (int lvl = 0; lvl < 4; ++lvl) {
+            const T* pn = k.p[leg][lvl];
+            T r[3], t1[3], t2[3], t3[3];
+            for (int i = 0; i < 3; ++i) r[i] = pn[i] - pp[i];
+            // a += al x r + w x (w x r) (at the foot this is the answer)
+            cross(al, r, t1);
+            cross(w, r, t2);
+            cross(w, t2, t3);
+            if (lvl == 3) {
+                for (int i = 0; i < 3; ++i)
+                    out[3 * leg + i] = acc[i] + t1[i] + t3[i];
+                break;
+            }
+            const T* Rw = k.Rw[leg][lvl];
+            const int ax = axis_of(C, lvl);
+            const T qd = v[6 + 3 * leg + lvl];
+            const T sq[3] = {Rw[ax] * qd, Rw[3 + ax] * qd, Rw[6 + ax] * qd};
+            T ws[3];
+            cross(w, sq, ws);
+            for (int i = 0; i < 3; ++i) {
+                acc[i] = acc[i] + t1[i] + t3[i];
+                vl[i] = vl[i] + t2[i];
+                al[i] = al[i] + ws[i];
+                w[i] = w[i] + sq[i];
+            }
+            pp = pn;
+        }
+    }
+}
+
+// integrate the generalized velocity (local convention) over dt
+template <typename T>
+RBD_FN void integrate_q(const T* q, const T* v, T dt, T* out)
+{
+    T R0[9], d[3];
+    quat_to_rot(q + 3, R0);
+    mv3(R0, v, d);
+    for (int i = 0; i < 3; ++i) out[i] = q[i] + d[i] * dt;
+    const T w[3] = {v[3] * dt, v[4] * dt, v[5] * dt};
+    const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const T th = r_sqrt(th2 + T(1e-30));
+    const T half = th / T(2);
+    const T sinc_half = th < T(1e-8) ? T(0.5) - th2 / T(48) : r_sin(half) / th;
+    const T x2 = w[0] * sinc_half, y2 = w[1] * sinc_half,
+            z2 = w[2] * sinc_half, w2 = r_cos(half);
+    const T x1 = q[3], y1 = q[4], z1 = q[5], w1 = q[6];
+    T quat[4] = {w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                 w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                 w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                 w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2};
+    const T nrm = r_sqrt(quat[0] * quat[0] + quat[1] * quat[1]
+                         + quat[2] * quat[2] + quat[3] * quat[3]);
+    for (int i = 0; i < 4; ++i) out[3 + i] = quat[i] / nrm;
+    for (int i = 0; i < 12; ++i) out[7 + i] = q[7 + i] + v[6 + i] * dt;
+}
+
+// In-place Cholesky A = L L' of an n x n SPD matrix (lower triangle read,
+// L written over it), then x = A^-1 b solved in place in b.
+template <typename T>
+RBD_FN void cholesky(T* A, int n)
+{
+    for (int j = 0; j < n; ++j) {
+        T s = A[n * j + j];
+        for (int k = 0; k < j; ++k) s -= A[n * j + k] * A[n * j + k];
+        const T d = r_sqrt(s);
+        A[n * j + j] = d;
+        for (int i = j + 1; i < n; ++i) {
+            T t = A[n * i + j];
+            for (int k = 0; k < j; ++k) t -= A[n * i + k] * A[n * j + k];
+            A[n * i + j] = t / d;
+        }
+    }
+}
+
+template <typename T>
+RBD_FN void cholesky_solve(const T* L, int n, T* b)
+{
+    for (int i = 0; i < n; ++i) {
+        T t = b[i];
+        for (int k = 0; k < i; ++k) t -= L[n * i + k] * b[k];
+        b[i] = t / L[n * i + i];
+    }
+    for (int i = n - 1; i >= 0; --i) {
+        T t = b[i];
+        for (int k = i + 1; k < n; ++k) t -= L[n * k + i] * b[k];
+        b[i] = t / L[n * i + i];
+    }
+}
+
+// ---- wbc/tsid.py::_build_wbc_qp for scenario b: (H, g, A, l, u, M, h, J)
+// with J = JcT' (the wrapper hands back its transposed view)
+template <typename T>
+RBD_FN void wbc_build_one(const T* C, const WbcArgs<T>& a, long long b)
+{
+    const T* q = a.row(WI_Q, b);
+    const T* v = a.row(WI_V, b);
+    const T* cts = a.row(WI_CONTACTS, b);
+    const T* f_mpc = a.row(WI_F_MPC, b);
+    const T* pos_ref = a.row(WI_POS_REF, b);
+    const T* vel_ref = a.row(WI_VEL_REF, b);
+    const T* acc_ref = a.row(WI_ACC_REF, b);
+    const T* q_post = a.row(WI_Q_POSTURE, b);
+    const T* rpy_ref = a.row(WI_RPY_REF, b);
+    const T* h_ref = a.row(WI_H_REF, b);
+    const T* extra = a.row(WI_EXTRA, b);
+    T* H = a.out[WO_H] + b * (NX * NX);
+    T* g = a.out[WO_G] + b * NX;
+    T* A = a.out[WO_A] + b * (NC * NX);
+    T* l = a.out[WO_L] + b * NC;
+    T* u = a.out[WO_U] + b * NC;
+    T* M = a.out[WO_M] + b * (NV * NV);
+    T* h = a.out[WO_BIAS] + b * NV;
+    T* J = a.out[WO_J] + b * (NF * NV);
+    const T* P = a.par;
+    const bool exact_pin = P[WP_EXACT_PIN] != T(0);
+    const T inf = P[WP_INF];
+
+    Kin<T> k;
+    leg_kin(C, q, k);
+    crba(C, k, extra, M);
+    rnea(C, k, v, (const T*)nullptr, extra, h);
+    foot_jacobians(C, k, J);
+    T drift[NF], foot_vel[NF], rpy[3];
+    foot_drifts(C, k, v, drift);
+    for (int r = 0; r < NF; ++r) {
+        T s = T(0);
+        for (int j = 0; j < NV; ++j) s += J[NV * r + j] * v[j];
+        foot_vel[r] = s;
+    }
+    rot_to_rpy(k.R0, rpy);
+
+    // ---- cost.  Swing-foot tracking weight-masked by (1 - contact): the
+    // task rows J_i qdd = a_des_i - drift_i touch the qdd block only
+    T w_rows[NF], b_t[NF];
+    for (int leg = 0; leg < 4; ++leg) {
+        const T w_leg = P[WP_W_FOOT] * (T(1) - cts[leg]);
+        for (int i = 0; i < 3; ++i) {
+            const int r = 3 * leg + i;
+            const T pf = k.p[leg][3][i];
+            const T a_des = acc_ref[r] + P[WP_KP_FOOT] * (pos_ref[r] - pf)
+                            + P[WP_KD_FOOT] * (vel_ref[r] - foot_vel[r]);
+            w_rows[r] = w_leg;
+            b_t[r] = a_des - drift[r];
+        }
+    }
+    for (int i = 0; i < NX; ++i) {
+        for (int j = 0; j < NX; ++j) {
+            T s = T(0);
+            if (i < NV && j < NV)
+                for (int r = 0; r < NF; ++r)
+                    s += J[NV * r + i] * (w_rows[r] * J[NV * r + j]);
+            H[NX * i + j] = s;
+        }
+    }
+    for (int i = 0; i < NV; ++i) {
+        T s = T(0);
+        for (int r = 0; r < NF; ++r) s += J[NV * r + i] * (w_rows[r] * b_t[r]);
+        g[i] = -s;
+    }
+    // force tracking
+    for (int i = 0; i < NF; ++i) {
+        H[NX * (NV + i) + NV + i] += P[WP_W_FORCE];
+        g[NV + i] = -P[WP_W_FORCE] * f_mpc[i];
+    }
+    // posture
+    for (int i = 0; i < 12; ++i) {
+        const T a_post = P[WP_KP_POSTURE] * (q_post[i] - q[7 + i])
+                         - P[WP_KD_POSTURE] * v[6 + i];
+        H[NX * (6 + i) + 6 + i] += P[WP_W_POSTURE];
+        g[6 + i] += -P[WP_W_POSTURE] * a_post;
+    }
+    // base height + roll + pitch (generalized coordinates 2, 3, 4)
+    const T a_base[3] = {
+        P[WP_KP_BASE] * (h_ref[0] - q[2]) - P[WP_KD_BASE] * v[2],
+        P[WP_KP_BASE] * (rpy_ref[0] - rpy[0]) - P[WP_KD_BASE] * v[3],
+        P[WP_KP_BASE] * (rpy_ref[1] - rpy[1]) - P[WP_KD_BASE] * v[4]};
+    for (int i = 0; i < 3; ++i) {
+        H[NX * (2 + i) + 2 + i] += P[WP_W_BASE];
+        g[2 + i] += -P[WP_W_BASE] * a_base[i];
+    }
+    // strict convexity + swing-force ridge
+    for (int i = 0; i < NV; ++i) H[NX * i + i] += P[WP_EPS];
+    for (int i = 0; i < NF; ++i) {
+        const T ridge = exact_pin ? T(0) : P[WP_W_PIN] * (T(1) - cts[i / 3]);
+        H[NX * (NV + i) + NV + i] += P[WP_EPS] + ridge;
+    }
+
+    // ---- constraints (50 rows): base dynamics (6), torque bounds (12),
+    // friction pyramid (20), stance contacts (12).  exact_pin zeroes the
+    // swing forces' columns.
+    T col_f[NF];
+    for (int i = 0; i < NF; ++i) col_f[i] = exact_pin ? cts[i / 3] : T(1);
+    for (int r = 0; r < NV; ++r) {
+        T* row = A + NX * r;
+        for (int j = 0; j < NV; ++j) row[j] = M[NV * r + j];
+        for (int i = 0; i < NF; ++i) {
+            const T val = -J[NV * i + r];
+            row[NV + i] = exact_pin ? val * col_f[i] : val;
+        }
+    }
+    for (int r = 0; r < 6; ++r) l[r] = u[r] = -h[r];
+    for (int r = 6; r < NV; ++r) {
+        l[r] = -P[WP_TAU_MAX] - h[r];
+        u[r] = P[WP_TAU_MAX] - h[r];
+    }
+    const T mu = P[WP_MU];
+    const T pyr[5][3] = {{T(1), T(0), -mu}, {T(1), T(0), mu},
+                         {T(0), T(1), -mu}, {T(0), T(1), mu},
+                         {T(0), T(0), T(1)}};
+    const T pyr_l[5] = {-inf, T(0), -inf, T(0), P[WP_FZ_MIN]};
+    const T pyr_u[5] = {T(0), inf, T(0), inf, P[WP_FZ_MAX]};
+    for (int leg = 0; leg < 4; ++leg) {
+        const bool stance = cts[leg] > T(0.5);
+        for (int s = 0; s < 5; ++s) {
+            const int r = NV + 5 * leg + s;
+            T* row = A + NX * r;
+            for (int j = 0; j < NX; ++j) row[j] = T(0);
+            for (int i = 0; i < 3; ++i) {
+                const T val = pyr[s][i];
+                const int c = 3 * leg + i;
+                row[NV + c] = exact_pin ? val * col_f[c] : val;
+            }
+            l[r] = stance ? pyr_l[s] : -inf;
+            u[r] = stance ? pyr_u[s] : inf;
+        }
+    }
+    for (int i = 0; i < NF; ++i) {
+        const int r = NV + 20 + i;
+        const T c = cts[i / 3];
+        T* row = A + NX * r;
+        for (int j = 0; j < NV; ++j) row[j] = J[NV * i + j] * c;
+        for (int j = 0; j < NF; ++j) row[NV + j] = T(0);
+        const T b_con = -drift[i] - P[WP_KD_CONTACT] * foot_vel[i];
+        l[r] = c > T(0.5) ? b_con : -inf;
+        u[r] = c > T(0.5) ? b_con : inf;
+    }
+}
+
+// ---- one substep of env/plant.py: implicit-damping contact integration,
+// cone clamp with anchor drag, explicit re-solve where clamped.  The two
+// 18 x 18 SPD solves go by Cholesky (the plain version forms inverses).
+template <typename T>
+RBD_FN void plant_substep(const T* C, T* q, T* v, T* anchor, T* in_c,
+                          const T* tau, const T* cp, const T* extra, T h_dt,
+                          T* f_cl)
+{
+    const T kp_n = cp[0], kd_n = cp[1], kp_t = cp[2], kd_t = cp[3],
+            mu = cp[4];
+    Kin<T> k;
+    leg_kin(C, q, k);
+    T M[NV * NV], Me[NV * NV], J[NF * NV], bias[NV];
+    crba(C, k, extra, M);
+    rnea(C, k, v, (const T*)nullptr, extra, bias);
+    foot_jacobians(C, k, J);
+
+    T f_el[NF], inc[4];
+    const T d_vec[3] = {kd_t, kd_t, kd_n};
+    for (int leg = 0; leg < 4; ++leg) {
+        const T* pf = k.p[leg][3];
+        const bool below = pf[2] < T(0);
+        if (below && in_c[leg] < T(0.5)) {
+            anchor[2 * leg] = pf[0];
+            anchor[2 * leg + 1] = pf[1];
+        }
+        inc[leg] = below ? T(1) : T(0);
+        f_el[3 * leg] = -kp_t * (pf[0] - anchor[2 * leg]) * inc[leg];
+        f_el[3 * leg + 1] = -kp_t * (pf[1] - anchor[2 * leg + 1]) * inc[leg];
+        f_el[3 * leg + 2] = -kp_n * pf[2] * inc[leg];
+    }
+    // M_eff = M + h sum_active J' D J; rhs = M v + h (tau_gen - bias + J' f)
+    T Mv[NV], rhs[NV], base[NV];
+    for (int i = 0; i < NV; ++i) {
+        T s = T(0);
+        for (int j = 0; j < NV; ++j) s += M[NV * i + j] * v[j];
+        Mv[i] = s;
+    }
+    for (int i = 0; i < NV; ++i) {
+        for (int j = 0; j <= i; ++j) {
+            T s = T(0);
+            for (int r = 0; r < NF; ++r)
+                s += J[NV * r + i]
+                     * (J[NV * r + j] * (d_vec[r % 3] * inc[r / 3]));
+            Me[NV * i + j] = M[NV * i + j] + h_dt * s;
+        }
+        base[i] = (i < 6 ? T(0) : tau[i - 6]) - bias[i];
+    }
+    for (int i = 0; i < NV; ++i) {
+        T s = T(0);
+        for (int r = 0; r < NF; ++r) s += f_el[r] * J[NV * r + i];
+        rhs[i] = Mv[i] + h_dt * (base[i] + s);
+    }
+    cholesky(Me, NV);
+    cholesky_solve(Me, NV, rhs);            // rhs is now v_imp
+
+    // contact forces at the implicit velocity, then the cone clamp
+    bool any_cl = false;
+    for (int leg = 0; leg < 4; ++leg) {
+        T fv[3];
+        for (int i = 0; i < 3; ++i) {
+            T s = T(0);
+            for (int j = 0; j < NV; ++j)
+                s += J[NV * (3 * leg + i) + j] * rhs[j];
+            fv[i] = s;
+        }
+        T f_raw[3];
+        for (int i = 0; i < 3; ++i)
+            f_raw[i] = f_el[3 * leg + i] - d_vec[i] * fv[i] * inc[leg];
+        const T fz = f_raw[2] > T(0) ? f_raw[2] : T(0);
+        const T limit = mu * fz;
+        const T ft_norm = r_sqrt(f_raw[0] * f_raw[0] + f_raw[1] * f_raw[1]);
+        const bool over = ft_norm > limit;
+        const T safe = ft_norm > T(1e-12) ? ft_norm : T(1e-12);
+        const T scale = over ? limit / safe : T(1);
+        const T ftx = f_raw[0] * scale, fty = f_raw[1] * scale;
+        const bool active = inc[leg] > T(0.5);
+        if (over && active) {
+            anchor[2 * leg] = k.p[leg][3][0] + (ftx + kd_t * fv[0]) / kp_t;
+            anchor[2 * leg + 1] = k.p[leg][3][1] + (fty + kd_t * fv[1]) / kp_t;
+        }
+        if ((over || f_raw[2] < T(0)) && active) any_cl = true;
+        f_cl[3 * leg] = ftx * inc[leg];
+        f_cl[3 * leg + 1] = fty * inc[leg];
+        f_cl[3 * leg + 2] = fz * inc[leg];
+    }
+    // explicit recomputation with the clamped (bounded) forces
+    if (any_cl) {
+        for (int i = 0; i < NV; ++i) {
+            T s = T(0);
+            for (int r = 0; r < NF; ++r) s += f_cl[r] * J[NV * r + i];
+            rhs[i] = Mv[i] + h_dt * (base[i] + s);
+        }
+        cholesky(M, NV);
+        cholesky_solve(M, NV, rhs);
+    }
+    integrate_q(q, rhs, h_dt, Me);          // Me: scratch for the new q
+    for (int i = 0; i < NQ; ++i) q[i] = Me[i];
+    for (int i = 0; i < NV; ++i) v[i] = rhs[i];
+    for (int leg = 0; leg < 4; ++leg) in_c[leg] = inc[leg];
+}
+
+// ---- env/plant.py::plant_step for scenario b: `substeps` substeps of
+// h_dt; writes the new (q, v, anchor, in_contact) and the last substep's
+// ground forces
+template <typename T>
+RBD_FN void plant_step_one(const T* C, const PlantArgs<T>& a, long long b)
+{
+    T q[NQ], v[NV], anchor[8], in_c[4], tau[12], cp[5], f[NF];
+    const T* src = a.row(PI_Q, b);
+    for (int i = 0; i < NQ; ++i) q[i] = src[i];
+    src = a.row(PI_V, b);
+    for (int i = 0; i < NV; ++i) v[i] = src[i];
+    src = a.row(PI_ANCHOR, b);
+    for (int i = 0; i < 8; ++i) anchor[i] = src[i];
+    src = a.row(PI_IN_CONTACT, b);
+    for (int i = 0; i < 4; ++i) in_c[i] = src[i];
+    src = a.row(PI_TAU, b);
+    for (int i = 0; i < 12; ++i) tau[i] = src[i];
+    for (int i = 0; i < 5; ++i) cp[i] = a.row(PI_KP_N + i, b)[0];
+    for (int i = 0; i < NF; ++i) f[i] = T(0);
+    const T* extra = a.row(PI_EXTRA, b);
+    const int substeps = (int)a.par[PP_SUBSTEPS];
+    for (int s = 0; s < substeps; ++s)
+        plant_substep(C, q, v, anchor, in_c, tau, cp, extra, a.par[PP_H_DT],
+                      f);
+    T* out = a.out[PO_Q] + b * NQ;
+    for (int i = 0; i < NQ; ++i) out[i] = q[i];
+    out = a.out[PO_V] + b * NV;
+    for (int i = 0; i < NV; ++i) out[i] = v[i];
+    out = a.out[PO_ANCHOR] + b * 8;
+    for (int i = 0; i < 8; ++i) out[i] = anchor[i];
+    out = a.out[PO_IN_CONTACT] + b * 4;
+    for (int i = 0; i < 4; ++i) out[i] = in_c[i];
+    out = a.out[PO_F] + b * NF;
+    for (int i = 0; i < NF; ++i) out[i] = f[i];
+}
+"""
+
+
+def thread_design_subs(name):
+    """(kernel subs, header subs) of PR 11's design of `name`: the launch
+    goes to a thread-per-scenario kernel over rbd::pr11's body."""
+    one, args = {"wbc_build": ("wbc_build_one", "WbcArgs"),
+                 "plant_step": ("plant_step_one", "PlantArgs")}[name]
+    kernel = (f"template <typename T>\n__global__ void __launch_bounds__(32)"
+              f"\n{name}_thread_kernel(const T* __restrict__ consts, "
+              f"const rbd::{args}<T> args, int B)\n{{\n"
+              "    const long long b = (long long)blockIdx.x * blockDim.x "
+              "+ threadIdx.x;\n    if (b >= B) return;\n"
+              f"    rbd::pr11::{one}<T>(consts, args, b);\n}}\n\n")
+    subs = [("int last_layout[3];", kernel + "int last_layout[3];"),
+            (f"    {name}_kernel<T><<<blocks, g * rbd::WARP, smem, stream>>>"
+             "(\n        static_cast<const T*>(consts), a, B, slot);",
+             f"    {name}_thread_kernel<T><<<(B + 31) / 32, 32, 0, stream>>>"
+             "(\n        static_cast<const T*>(consts), a, B);")]
+    header = [("}  // namespace rbd\n",
+               "namespace pr11 {\n" + THREAD_DESIGN
+               + "\n}  // namespace pr11\n\n}  // namespace rbd\n")]
+    return subs, {"rbd.h": header}
+
+
+# The phases of the shipped kernels, in the order their marks come: the
+# frame's nine (both kernels), then each kernel's own.  A patched copy
+# reads the cycle counter at every phase boundary of each warp (lane 0's
+# view) and writes the sums over the outputs (WBC: H's first entries; plant:
+# q's, then anchor's).  Store phases read the issue of the stores, not their
+# completion.
+FRAME_PHASES = ["kinematics",
+                "transforms F, base inertia, rnea forward, Jacobian rows",
+                "crba X' Ic X (lower leg), rnea's body wrenches",
+                "crba X' Ic X (upper leg), rnea's backward pass",
+                "crba X' Ic X (hip), joint forces, h's base rows",
+                "M's entries"]
+RBD_PHASES = {
+    "wbc_build": ["load"] + FRAME_PHASES + [
+        "drifts, J v, roll-pitch-yaw", "J'WJ entries, task rows",
+        "stores: H, g", "stores: A, l, u", "stores: M, h, J"],
+    "plant_step": ["load"] + FRAME_PHASES + [
+        "contact law, M v", "M + h J'DJ, rhs",
+        "arrow: legs' factors, V_L, y_L", "arrow: Schur complement, base rhs",
+        "arrow: base factor and solves", "arrow: legs' back solves",
+        "clamp", "re-solve rhs", "integrate", "stores"]}
+# category of each `ex.sync();` of rbd.h in source order: frame_phases,
+# wbc_build_warp, arrow_solve, plant_substep_warp, plant_step_warp
+RBD_SYNC_MARKS = (list(range(1, 7)) + [0, 7, 8] + [9, 10, 11, 12]
+                  + [7, 8, 13, 14, 15] + [0])
+RBD_CLOCK_EXEC = (
+    "    __device__ void sync() const { __syncwarp(); }\n};",
+    "    __device__ void sync() const { __syncwarp(); }\n"
+    "    long long* acc;\n    long long* last;\n"
+    "    __device__ void mark(int k) const\n    {\n        __syncwarp();\n"
+    "        const long long t = clock64();\n        acc[k] += t - *last;\n"
+    "        *last = t;\n    }\n};")
+
+
+def rbd_clock_header(src):
+    """rbd.h with every phase boundary a mark (RBD_SYNC_MARKS) and the
+    build's three store units a phase each."""
+    parts = src.split("ex.sync();")
+    if len(parts) - 1 != len(RBD_SYNC_MARKS):
+        raise RuntimeError(f"rbd.h has {len(parts) - 1} phase boundaries, "
+                           f"the clock patch knows {len(RBD_SYNC_MARKS)}")
+    out = parts[0]
+    for k, part in zip(RBD_SYNC_MARKS, parts[1:]):
+        out += f"ex.mark({k});" + part
+    for old, new in [RBD_CLOCK_EXEC, (
+            "    RBD_EACH_LANE(ex, lane) {\n"
+            "        wbc_cost_store_unit(lane, a, b, S);\n"
+            "        wbc_constraint_store_unit(lane, a, b, S);\n"
+            "        wbc_frame_store_unit(lane, a, b, S);\n    }\n",
+            "    RBD_EACH_LANE(ex, lane) wbc_cost_store_unit(lane, a, b, S);\n"
+            "    ex.mark(9);\n"
+            "    RBD_EACH_LANE(ex, lane) wbc_constraint_store_unit(lane, a, "
+            "b, S);\n    ex.mark(10);\n"
+            "    RBD_EACH_LANE(ex, lane) wbc_frame_store_unit(lane, a, b, S);"
+            "\n    ex.mark(11);\n")]:
+        if old not in out:
+            raise RuntimeError(f"clock patch: pattern not in rbd.h: {old!r}")
+        out = out.replace(old, new)
+    return out
+
+
+def rbd_clock_subs(name):
+    slot = {"wbc_build": "WbcSlot", "plant_step": "PlantSlot"}[name]
+    n = len(RBD_PHASES[name])
+    write = ("args.out[rbd::WO_H][b * 900 + k_] = (T)acc_[k_];"
+             if name == "wbc_build" else
+             "(k_ < 19 ? args.out[rbd::PO_Q][b * 19 + k_]\n"
+             "                     : args.out[rbd::PO_ANCHOR][b * 8 + k_"
+             " - 19]) = (T)acc_[k_];")
+    end = ("" if name == "wbc_build" else "    ex.mark(16);\n")
+    return [("    rbd::WarpExec ex;",
+             "    long long acc_[24] = {}, last_ = clock64();\n"
+             "    rbd::WarpExec ex{acc_, &last_};"),
+            (f"        *reinterpret_cast<rbd::{slot}<T>*>(smem + (size_t)warp"
+             " * slot));\n}",
+             f"        *reinterpret_cast<rbd::{slot}<T>*>(smem + (size_t)warp"
+             f" * slot));\n{end}    if ((threadIdx.x & 31) == 0)\n"
+             f"        for (int k_ = 0; k_ < {n}; ++k_)\n            {write}"
+             "\n}")]
+
+
+def rbd_lib_launcher(lib, name):
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = rbd_kernels.LAUNCH_ARGTYPES + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lambda *a: fn(*a, torch.cuda.current_stream().cuda_stream)
+
+
+def prepacked(run, fn):
+    """`run(fn)` once; then a callable that repeats that very launch (the
+    same operands, outputs written again): the kernel's time without the
+    wrapper's packing and allocation on the host."""
+    held = []
+
+    def grab(*a):
+        held.append(a)
+        return fn(*a)
+
+    keep = run(grab)
+    return lambda: (keep, fn(*held[0]))[1]
+
+
+def probe_rbd(record, kinds, B, device, build, rounds=6):
+    """The WBC build and the plant step (float32, the main path's inputs,
+    no payload) at B = 1 and B: the shipped warp-per-scenario kernels
+    against PR 11's thread-per-scenario design (patched copy) in
+    interleaved rounds, and against copies with 4 or 16 warps a block at B
+    (each launch repeated on operands packed once: the kernels' own time,
+    not the wrapper's packing); each design's largest error against the
+    plain version; the cycles of each phase (patched copy, lane 0 of every
+    warp)."""
+    from chip_smoke import plant_step_inputs, wbc_build_inputs
+
+    cfg = EngineConfig()
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    specs = {}
+    for name in kinds:
+        subs, hdr = thread_design_subs(name)
+        common = dict(source=f"{name}.cu", csrc=rbd_kernels.CSRC)
+        specs[f"{name} PR 11"] = dict(subs=subs, header_subs=hdr, **common)
+        specs[f"{name} clocks"] = dict(subs=rbd_clock_subs(name),
+                                       header_subs={"rbd.h": rbd_clock_header},
+                                       **common)
+        for g in (4, 16):
+            specs[f"{name} {g} warps"] = dict(subs=[], header_subs={"rbd.h": [
+                ("constexpr int MAX_WARPS = 8;",
+                 f"constexpr int MAX_WARPS = {g};")]}, **common)
+    t0 = time.time()
+    libs = build_variants(specs, build)
+    record("rbd", what="patched copies built", seconds=time.time() - t0,
+           copies=sorted(specs))
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    w_in = wbc_build_inputs(B, 60)
+    p_in = plant_step_inputs(B, 61, device)[0]
+    for name in kinds:
+        fns = {"shipped (a warp per scenario)": rbd_lib_launcher(
+                   rbd_kernels._library(name), name),
+               "PR 11 (a thread per scenario)": rbd_lib_launcher(
+                   libs[f"{name} PR 11"], name)}
+        for g in (4, 16):
+            fns[f"{g} warps a block"] = rbd_lib_launcher(
+                libs[f"{name} {g} warps"], name)
+        clock = rbd_lib_launcher(libs[f"{name} clocks"], name)
+        for Bs in (1, B):
+            if name == "wbc_build":
+                q, v = t(w_in[0][:Bs]), t(w_in[1][:Bs])
+                refs = WbcRefs(**{k: t(a[:Bs]) for k, a in w_in[2].items()})
+                run = lambda fn: tsid.run_wbc_build(  # noqa: E731
+                    fn, tree, cfg.wbc, q, v, refs)[1]
+                want = tsid.build_wbc_qp_reference(tree, cfg.wbc, q, v, refs)
+                flat = lambda o: list(o)  # noqa: E731
+            else:
+                st = PlantState(**{k: t(p_in[k][:Bs]) for k in
+                                   ("q", "v", "anchor", "in_contact")})
+                cp = ContactParams(**{k: t(p_in[k][:Bs]) for k in
+                                      ("kp_n", "kd_n", "kp_t", "kd_t", "mu")})
+                tau = t(p_in["tau"][:Bs])
+                run = lambda fn: plant.run_plant_step(  # noqa: E731
+                    fn, tree, st, tau, 0.001, 2, cp)[1]
+                want = plant.plant_step_reference(tree, st, tau, 0.001, 2,
+                                                  cp)
+                flat = lambda o: [o[0].q, o[0].v, o[0].anchor,  # noqa: E731
+                                  o[0].in_contact, o[1]]
+            errs = {}
+            for k, fn in fns.items():
+                got = run(fn)
+                torch.cuda.synchronize()
+                errs[k] = max(float(((g - w).abs().clamp_max(1e19).max()
+                                     / w.abs().clamp_max(1e19).max()
+                                     .clamp_min(1e-30)))
+                              for g, w in zip(flat(got), flat(want)))
+            record("rbd", kernel=name, B=Bs, what="largest error relative "
+                   "to the plain version's largest entry, per output",
+                   errs=errs, layout=str(rbd_kernels.last_layout(name)))
+            timed = {k: prepacked(run, fn) for k, fn in fns.items()
+                     if Bs == B or "warps a block" not in k}
+            interleaved(record, "rbd", timed, rounds, reps=20, kernel=name,
+                        B=Bs)
+            out = flat(run(clock))
+            torch.cuda.synchronize()
+            if name == "wbc_build":
+                cyc = out[0].reshape(Bs, -1)[:, :len(RBD_PHASES[name])]
+            else:
+                cyc = torch.cat([out[0], out[2].reshape(Bs, -1)], dim=1)[
+                    :, :len(RBD_PHASES[name])]
+            cyc = cyc.double()
+            total = cyc.sum(dim=1, keepdim=True)
+            for k, phase in enumerate(RBD_PHASES[name]):
+                record("rbd", kernel=name, B=Bs, what="share of a warp's "
+                       "cycles", phase=phase,
+                       share=round(float((cyc[:, k:k + 1] / total).mean()),
+                                   4), mean_cycles=float(cyc[:, k].mean()))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -1520,7 +2446,7 @@ def main() -> int:
     report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
               "layouts": [],
               "variants": [], "cluster_phases": [], "fused": [], "spd": [],
-              "plainwarp": []}
+              "plainwarp": [], "rbd": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -1544,6 +2470,10 @@ def main() -> int:
         probe_spd(record, B, device, smem, n_sm, build)
     if "plainwarp" in a.kernels:
         probe_plainwarp(record, B, device, smem, n_sm, build)
+    rbd_parts = [{"build": "wbc_build", "plant": "plant_step"}[k]
+                 for k in ("build", "plant") if k in a.kernels]
+    if rbd_parts:
+        probe_rbd(record, rbd_parts, B, device, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

@@ -130,25 +130,40 @@ void fill(rbd::Args<T, NI, NO, NP>& a, const void* const* in,
     for (int k = 0; k < NP; ++k) a.par[k] = (T)par[k];
 }
 
+// a scenario at a time, its warp's lanes one after another (reversed when
+// `reverse`), in a fresh slot filled with NaN: a unit that read what no
+// earlier phase wrote would show
 template <typename T>
 int wbc(int B, const void* consts, const void* const* in,
-        const long long* stride, void* const* out, const double* par)
+        const long long* stride, void* const* out, const double* par,
+        bool reverse)
 {
     rbd::WbcArgs<T> a;
     fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        rbd::wbc_build_one<T>(static_cast<const T*>(consts), a, b);
+    rbd::HostExec ex{reverse};
+    for (long long b = 0; b < B; ++b) {
+        rbd::WbcSlot<T> S;
+        T* raw = reinterpret_cast<T*>(&S);
+        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i) raw[i] = NAN;
+        rbd::wbc_build_warp<T>(ex, static_cast<const T*>(consts), a, b, S);
+    }
     return 0;
 }
 
 template <typename T>
 int plant(int B, const void* consts, const void* const* in,
-          const long long* stride, void* const* out, const double* par)
+          const long long* stride, void* const* out, const double* par,
+          bool reverse)
 {
     rbd::PlantArgs<T> a;
     fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        rbd::plant_step_one<T>(static_cast<const T*>(consts), a, b);
+    rbd::HostExec ex{reverse};
+    for (long long b = 0; b < B; ++b) {
+        rbd::PlantSlot<T> S;
+        T* raw = reinterpret_cast<T*>(&S);
+        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i) raw[i] = NAN;
+        rbd::plant_step_warp<T>(ex, static_cast<const T*>(consts), a, b, S);
+    }
     return 0;
 }
 
@@ -158,35 +173,51 @@ extern "C" {
 
 int rbd_layout(int what) { return rbd::layout(what); }
 
-int wbc_build_host(int dtype, int B, const void* consts,
-                   const void* const* in, const long long* stride,
-                   void* const* out, const double* par)
+// values of a warp's slot: the build's (kind 0), the plant's (1)
+int rbd_slot_values(int kind)
 {
-    return dtype == 0 ? wbc<float>(B, consts, in, stride, out, par)
-                      : wbc<double>(B, consts, in, stride, out, par);
+    return kind == 0 ? (int)(sizeof(rbd::WbcSlot<float>) / sizeof(float))
+                     : (int)(sizeof(rbd::PlantSlot<float>) / sizeof(float));
 }
 
-int plant_step_host(int dtype, int B, const void* consts,
-                    const void* const* in, const long long* stride,
-                    void* const* out, const double* par)
+int rbd_warps_per_block(long long B, int slot, int smem_optin, int n_sm)
 {
-    return dtype == 0 ? plant<float>(B, consts, in, stride, out, par)
-                      : plant<double>(B, consts, in, stride, out, par);
+    return rbd::warps_per_block(B, slot, smem_optin, n_sm);
 }
+
+#define RBD_ENTRY(name, body, reverse)                                     \
+    int name(int dtype, int B, const void* consts, const void* const* in,  \
+             const long long* stride, void* const* out, const double* par) \
+    {                                                                      \
+        return dtype == 0                                                  \
+                   ? body<float>(B, consts, in, stride, out, par, reverse) \
+                   : body<double>(B, consts, in, stride, out, par,         \
+                                  reverse);                                \
+    }
+
+RBD_ENTRY(wbc_build_host, wbc, false)
+RBD_ENTRY(plant_step_host, plant, false)
+RBD_ENTRY(wbc_build_host_reversed, wbc, true)
+RBD_ENTRY(plant_step_host_reversed, plant, true)
 
 }
 '''
 
 
 def build_rbd_harness(directory):
-    """mpctsid_tpu_torch/dyn/csrc/rbd.h, the per-scenario core of the
+    """mpctsid_tpu_torch/dyn/csrc/rbd.h, the warp-per-scenario core of the
     WBC-build and plant-step kernels, built with the host compiler into
-    `directory` as a loop over scenarios with the kernels' C signature (less
-    the stream).  Returns (wbc_build, plant_step, layout) ctypes functions:
-    `wbc.tsid.run_wbc_build` / `env.plant.run_plant_step` take the first
-    two."""
+    `directory`: each scenario's units run lane after lane between the
+    phases (rbd::HostExec), with the kernels' C signature (less the
+    stream).  Returns a namespace of ctypes functions: `wbc_build`,
+    `plant_step` (the lanes in order) and `wbc_build_reversed`,
+    `plant_step_reversed` (in reverse), which `wbc.tsid.run_wbc_build` /
+    `env.plant.run_plant_step` take; `layout` (rbd.h's counts),
+    `slot_values(kind)` (0 the build's slot, 1 the plant's) and
+    `warps_per_block(B, slot bytes, shared bytes a block, SMs)`."""
     import ctypes
     import subprocess
+    import types
     from pathlib import Path
 
     from mpctsid_tpu_torch.dyn import kernels
@@ -198,9 +229,20 @@ def build_rbd_harness(directory):
     subprocess.run(["g++", "-std=c++17", "-shared", "-fPIC", "-O2", "-I",
                     str(kernels.CSRC), "-o", str(so), str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
-    for fn in (lib.wbc_build_host, lib.plant_step_host):
-        fn.argtypes = kernels.LAUNCH_ARGTYPES
-        fn.restype = ctypes.c_int
+    fns = {}
+    for name in ("wbc_build", "plant_step"):
+        for tag in ("", "_reversed"):
+            fn = getattr(lib, f"{name}_host{tag}")
+            fn.argtypes = kernels.LAUNCH_ARGTYPES
+            fn.restype = ctypes.c_int
+            fns[name + tag] = fn
     lib.rbd_layout.argtypes = [ctypes.c_int]
     lib.rbd_layout.restype = ctypes.c_int
-    return lib.wbc_build_host, lib.plant_step_host, lib.rbd_layout
+    lib.rbd_slot_values.argtypes = [ctypes.c_int]
+    lib.rbd_slot_values.restype = ctypes.c_int
+    lib.rbd_warps_per_block.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 3
+    lib.rbd_warps_per_block.restype = ctypes.c_int
+    return types.SimpleNamespace(layout=lib.rbd_layout,
+                                 slot_values=lib.rbd_slot_values,
+                                 warps_per_block=lib.rbd_warps_per_block,
+                                 **fns)

@@ -1,10 +1,12 @@
 """The arithmetic of the WBC-build and plant-step kernels on the CPU.
 
 mpctsid_tpu_torch/dyn/csrc/rbd.h holds the whole per-scenario body of both
-CUDA kernels (the .cu files only map a thread to a scenario).  Here g++
-builds it into a host library with the kernels' C signature, and
+CUDA kernels as per-lane units of a warp (the .cu files only map a warp to
+a scenario).  Here g++ builds it into a host library with the kernels' C
+signature whose executor runs each scenario's 32 lanes one after another
+between the phases (tests/_torch_port_util.py::build_rbd_harness), and
 `wbc.tsid.run_wbc_build` / `env.plant.run_plant_step`, the wrappers' own
-operand packing, drive it.  Its results are held against the plain PyTorch versions
+operand packing, drive it.  Its results are held against the plain versions
 (`build_wbc_qp_reference`, `plant_step_reference`) and, in float32, against
 the JAX functions under jax.vmap, on numpy-seeded batches: the trot, walk,
 bound and pace contact mixes of the gait tables, payload on and off,
@@ -12,11 +14,12 @@ bound and pace contact mixes of the gait tables, payload on and off,
 ground, pressed into it, sliding and pulled off it.
 
 Tolerances.  The kernels sum in other orders than the plain chain, and the
-plant solves its two 18 x 18 SPD systems by Cholesky where the plain version
-forms inverses (cond ~1e2): float32 within 1e-4 of the plain result relative
-to the largest entry of each output (of each diagonal block for H, whose
-1e6 ridge would hide the rest), float64 within 1e-10.  Measured: 1.4e-7 and
-8.8e-7 (float32 build and plant), 1.1e-16 and 1.5e-15 (float64).  The plant
+plant solves its two 18 x 18 SPD systems by Cholesky (of their arrow
+structure) where the plain version forms inverses (cond ~1e2): float32
+within 1e-4 of the plain result relative to the largest entry of each output
+(of each diagonal block for H, whose 1e6 ridge would hide the rest), float64
+within 1e-10.  Measured: 1.3e-7 and 1.2e-6 (float32 build and plant),
+1.1e-16 and 1.6e-15 (float64).  The plant
 states are drawn away from its switching surfaces (a foot within 1e-5 m of
 the ground, a tangential force within 1e-5 N of the cone, a normal force
 within 1e-5 N of zero), where one rounding can flip a branch.
@@ -130,7 +133,7 @@ def test_wbc_build_matches_plain(harness, wbc_case, dtype, with_payload,
                                  exact_pin):
     q, v, refs, payload = torch_case(wbc_case, dtype)
     extra = tdyn.point_mass_spatial(payload) if with_payload else None
-    rc, got = ttsid.run_wbc_build(harness[0], TREE, CFG.wbc, q, v, refs,
+    rc, got = ttsid.run_wbc_build(harness.wbc_build, TREE, CFG.wbc, q, v, refs,
                                 extra, exact_pin)
     assert rc == 0
     want = ttsid.build_wbc_qp_reference(TREE, CFG.wbc, q, v, refs, extra,
@@ -162,8 +165,8 @@ def test_wbc_build_matches_jax(harness, wbc_case, with_payload):
             JTREE, JCFG.wbc, q_, v_, r_))(jj(q), jj(v), jrefs)
     tq, tv, trefs, tpay = torch_case(wbc_case, torch.float32)
     extra = tdyn.point_mass_spatial(tpay) if with_payload else None
-    rc, got = ttsid.run_wbc_build(harness[0], TREE, CFG.wbc, tq, tv, trefs,
-                                extra, False)
+    rc, got = ttsid.run_wbc_build(harness.wbc_build, TREE, CFG.wbc, tq, tv,
+                                  trefs, extra, False)
     assert rc == 0
     close_qp(got, [np.asarray(w) for w in want], REL[torch.float32],
              f"against JAX, payload={with_payload}")
@@ -174,7 +177,7 @@ def test_wbc_build_operand_strides(harness, wbc_case):
     buffer and non-contiguous rows (copied) give the result of contiguous
     inputs, bit for bit."""
     q, v, refs, _ = torch_case(wbc_case, torch.float32)
-    _, want = ttsid.run_wbc_build(harness[0], TREE, CFG.wbc, q, v, refs)
+    _, want = ttsid.run_wbc_build(harness.wbc_build, TREE, CFG.wbc, q, v, refs)
     wide = torch.cat([q, v, torch.zeros(B, 5)], dim=1)       # (B, 42)
     strided = dataclasses.replace(
         refs,
@@ -184,8 +187,8 @@ def test_wbc_build_operand_strides(harness, wbc_case):
         h_ref=torch.stack([refs.h_ref, refs.h_ref], dim=1)[:, 0])
     assert strided.q_posture.stride(0) == 0
     assert not strided.foot_pos_ref[0].is_contiguous()
-    _, got = ttsid.run_wbc_build(harness[0], TREE, CFG.wbc, wide[:, :19],
-                               wide[:, 19:37], strided)
+    _, got = ttsid.run_wbc_build(harness.wbc_build, TREE, CFG.wbc,
+                                 wide[:, :19], wide[:, 19:37], strided)
     for name, g, w in zip(NAMES, got, want):
         assert torch.equal(g, w), name
 
@@ -275,8 +278,8 @@ def plant_close(got, want, rel, what):
 def test_plant_step_matches_plain(harness, plant_case, dtype, with_payload):
     st, p, tau, payload = torch_plant(plant_case, dtype)
     extra = tdyn.point_mass_spatial(payload) if with_payload else None
-    rc, got = tplant.run_plant_step(harness[1], TREE, st, tau, 0.001, 2, p,
-                                 extra)
+    rc, got = tplant.run_plant_step(harness.plant_step, TREE, st, tau, 0.001,
+                                    2, p, extra)
     assert rc == 0
     assert type(got[0]) is tplant.PlantState
     want = tplant.plant_step_reference(TREE, st, tau, 0.001, 2, p, extra)
@@ -309,8 +312,8 @@ def test_plant_step_matches_jax(harness, plant_case, with_payload):
             JTREE, s, t, params=p))(st_j, jj(tau), cp_j)
     st, p, t_tau, t_pay = torch_plant(plant_case, torch.float32)
     extra = tdyn.point_mass_spatial(t_pay) if with_payload else None
-    rc, (st_t, f_t) = tplant.run_plant_step(harness[1], TREE, st, t_tau, 0.001,
-                                         2, p, extra)
+    rc, (st_t, f_t) = tplant.run_plant_step(harness.plant_step, TREE, st,
+                                            t_tau, 0.001, 2, p, extra)
     assert rc == 0
     np.testing.assert_allclose(npy(st_t.q), np.asarray(new_j.q), atol=2e-6)
     np.testing.assert_allclose(npy(st_t.v), np.asarray(new_j.v), atol=2e-4)
@@ -354,7 +357,7 @@ def test_layout_and_constants(harness):
     """The host build's layout is dyn/kernels.py's, and the packed
     constants are LegConsts' (placements, foot offsets, inertias), the
     joint axes (x, y, y) and gravity."""
-    assert [harness[2](i) for i in range(len(rbd.LAYOUT))] == \
+    assert [harness.layout(i) for i in range(len(rbd.LAYOUT))] == \
         list(rbd.LAYOUT.values())
     C = rbd.rbd_constants(TREE, "cpu", torch.float64)
     assert tuple(C.shape) == (rbd.LAYOUT["const_size"],)
