@@ -9,10 +9,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the eight kernel libraries (nine kernels: kernel A
-              is admm_fused.cu's second entry point) from
-              mpctsid_tpu_torch/qp/csrc and mpctsid_tpu_torch/dyn/csrc, one
-              nvcc each, all started together
+  2. build    builds the ten kernel libraries (thirteen kernels: kernel A
+              is admm_fused.cu's second entry point, the planner's three
+              kernels are planner.cu's) from mpctsid_tpu_torch/qp/csrc,
+              dyn/csrc and plan/csrc, one nvcc each, all started together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
@@ -93,6 +93,18 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  fallbacks and leave the rest of the batch bit for bit;
                  times at B = 1 and 4096 beside the plain chains,
                  torch.linalg.inv_ex (kernel B) and the bounds
+              3g the planner's kernels (plan/csrc/planner.cu: the footstep
+                 horizon, the reference rollout, the swing reference)
+                 against their plain versions at B = 1, 37 and 4096, float32
+                 (1e-5 of each output's largest entry) and float64 (1e-12),
+                 every gait, any yaw, swing durations of 0; the Ruiz kernel
+                 (qp/csrc/ruiz.cu) against admm.ruiz_equilibrate at the
+                 MPC's shape (its stride-0 constraint matrix, QPs built from
+                 planned states) and the WBC's (dense A from the build
+                 kernel) at B = 1, 37 and 4096 (1e-5); the entries whose
+                 bits part are counted; two launches bit for bit; times at
+                 B = 1 and 4096 (a one-launch graph's replay, the eager
+                 wrapper) beside the plain chains and the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -101,7 +113,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
               counts of every kernel (set to 0 before each rollout; the WBC
-              build and the plant step once a tick on every path); then
+              build, the plant step and the swing reference once a tick,
+              the footstep horizon, the reference rollout and Ruiz once a
+              period on every path, Ruiz once a tick more on the WBC
+              iteration backends); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -139,14 +154,19 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               same function run eagerly on the card (outputs and the warm
               starts it writes); the profiler counts the port's kernels in
               one replay of each graph (kernels 1 and B twice per MPC
-              replay, the WBC backend's kernel once (A, 4) or three times
-              with kernel B, and the build kernel once per WBC replay);
+              replay with the footstep, rollout and Ruiz kernels once, the
+              WBC backend's kernel once (A, 4) or three times with kernel B
+              and Ruiz once, the build kernel once per WBC replay, the
+              footstep kernel once per boundary replay, the swing kernel
+              once per swing replay);
               replay times; the `fused` WBC replay holds at most 40
               kernels, the default's at most 45, every MPC replay at most
               2,600; the default WBC replay captured with the plain solve
               chain and the MPC replay with the plain K^-1, the `fused` one
-              with the plain QP build, each beside the call as it ships,
-              nodes and replay ms in turns (the before and after);
+              with the plain QP build, and the boundary, MPC and swing
+              replays with the plain planner and Ruiz, each beside the
+              call as it ships, nodes and replay ms in turns (the before
+              and after);
               then 0.6 s of closed loop, sync on the default
               and the fused WBC (upright, forward progress, plans consumed,
               WBC ok >= 0.99, no kernel launched outside the graphs, the
@@ -271,6 +291,12 @@ from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAITS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.mpc.srb import (CONTRACT_BUDGET, build_mpc_qp,
                                        solve_mpc_batch, solve_mpc_contract)
+import mpctsid_tpu_torch.mpc.srb as srb_mod
+import mpctsid_tpu_torch.plan.footsteps as footsteps_mod
+import mpctsid_tpu_torch.plan.swing as swing_mod
+from mpctsid_tpu_torch.plan import kernels as plan_kernels
+from mpctsid_tpu_torch.plan.gait import TABLES as GAIT_TABLES
+from mpctsid_tpu_torch.plan.gait import contacts_horizon
 from mpctsid_tpu_torch.oracle import cascade as ocascade
 from mpctsid_tpu_torch.oracle import mpc as ompc
 from mpctsid_tpu_torch.oracle import planner as oplanner
@@ -378,7 +404,11 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "wbc_build": "wbc_build_kernel",
                  "plant_step": "plant_step_kernel",
                  "admm_solve_plain_warp": "admm_plain_warp_kernel",
-                 "chol_inverse": "spd_inverse_"}
+                 "chol_inverse": "spd_inverse_",
+                 "plan_footsteps_horizon": "plan_footsteps_kernel",
+                 "reference_rollout": "plan_rollout_kernel",
+                 "swing_foot_ref": "plan_swing_kernel",
+                 "ruiz_equilibrate": "ruiz_kernel"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 # Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
 # oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
@@ -1554,6 +1584,270 @@ def rbd_kernels_phase(smi: str, device, reports: dict) -> None:
             bound_ms_b1=bound1[0], bound_by_b1=bound1[1], ms_eager_b1=eager1)
 
 
+# ------------------------------- 3g. the planner and Ruiz as kernels
+
+# The planner kernels against their plain versions on the card: the same
+# arithmetic op by op (planner.h), but the plain version's rotations go
+# through cuBLAS (torch.bmm, einsum), whose products and sums the kernels
+# write out: float32 within 1e-5 of each output's largest entry, float64
+# within 1e-12 (measured on the CPU between the host build and the plain
+# version: 1.2e-7 and 1.1e-16, tests/test_torch_plan_kernels.py); the bits
+# that part are counted and printed.
+PLAN_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+PLAN_B = (1, 37, 4096)
+# Ruiz against its plain version: max and products are the plain version's
+# bit for bit; the mean's summation order and torch.rsqrt against rsqrtf may
+# part by an ulp, and eight rounds of rsqrt carry it on; relative to each
+# output's largest entry (the scales elementwise)
+RUIZ_REL = 1e-5
+# (name, shape tag, B's) of the Ruiz comparisons: the MPC's QPs (stride-0 A)
+# and the WBC's (dense A)
+RUIZ_B = (1, 37, 4096)
+
+
+def planner_inputs(B: int, seed: int) -> dict:
+    """numpy float64 inputs of the three planner kernels: every gait id,
+    phases over four periods, SRB states around the standing height with
+    any yaw, commands, feet near the shoulders, swing phases in [0, 1] and
+    durations (some 0: the clamp) and the apex height."""
+    r = np.random.default_rng(seed)
+    x = np.zeros((B, 12))
+    x[:, 0:2] = r.normal(size=(B, 2)) * 0.5
+    x[:, 2] = SOLO12.h_ref + r.normal(size=B) * 0.01
+    x[:, 3:5] = r.normal(size=(B, 2)) * 0.05
+    x[:, 5] = r.uniform(-np.pi, np.pi, B)
+    x[:, 6:12] = r.normal(size=(B, 6)) * 0.3
+    v_cmd = np.stack([r.uniform(-0.5, 0.5, B), r.uniform(-0.3, 0.3, B),
+                      r.uniform(-1.0, 1.0, B)], axis=1)
+    feet = (x[:, None, 0:3] + SOLO12.shoulder_offsets
+            + r.normal(size=(B, 4, 3)) * 0.02)
+    feet[:, :, 2] = r.normal(size=(B, 4)) * 0.01
+    T = r.uniform(0.06, 0.3, (B, 4)) * (r.uniform(size=(B, 4)) > 0.1)
+    return dict(gid=r.integers(0, len(GAIT_IDS), B).astype(np.int32),
+                phase=r.integers(0, 4 * 16, B).astype(np.int32), x=x,
+                v_cmd=v_cmd, feet=feet,
+                lift=feet + r.normal(size=(B, 4, 3)) * 0.05,
+                td=feet + r.normal(size=(B, 4, 3)) * 0.05,
+                s=r.uniform(0.0, 1.0, (B, 4)), T=T)
+
+
+def planner_calls(d: dict, dtype, device):
+    """{kernel name: (wrapper call, plain call)} on the inputs `d`."""
+    cfg = EngineConfig()
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    i = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    gid, ph, x, vc, feet = (i(d["gid"]), i(d["phase"]), t(d["x"]),
+                            t(d["v_cmd"]), t(d["feet"]))
+    sw = (t(d["lift"]), t(d["td"]), t(d["s"]), t(d["T"]),
+          cfg.cascade.swing_height)
+    fs_args = (SOLO12, cfg.mpc, cfg.cascade, gid, ph, x, vc, feet)
+    return {"plan_footsteps_horizon": (
+                lambda: footsteps_mod.plan_footsteps_horizon(*fs_args),
+                lambda: footsteps_mod.plan_footsteps_horizon_reference(
+                    *fs_args)),
+            "reference_rollout": (
+                lambda: srb_mod.reference_rollout(SOLO12, cfg.mpc, x, vc),
+                lambda: srb_mod.reference_rollout_reference(SOLO12, cfg.mpc,
+                                                            x, vc)),
+            "swing_foot_ref": (lambda: swing_mod.swing_foot_ref(*sw),
+                               lambda: swing_mod.swing_foot_ref_reference(
+                                   *sw))}
+
+
+def as_list(out):
+    return [out] if isinstance(out, torch.Tensor) else list(out)
+
+
+def kernel_vs_plain(name: str, call, plain, tol: float, tag: str) -> tuple:
+    """One wrapper call against its plain version on the card: (largest
+    |diff| relative to each output's largest entry, largest |diff|, entries
+    whose bits part, entries); two launches bit for bit, shapes and dtypes
+    the plain version's."""
+    got, again, want = as_list(call()), as_list(call()), as_list(plain())
+    errs = [rbd_rel_err(g, w) for g, w in zip(got, want)]
+    rel, ab = max(e[0] for e in errs), max(e[1] for e in errs)
+    parted = sum(int((g != w).sum()) for g, w in zip(got, want))
+    total = sum(w.numel() for w in want)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    shapes = all(g.shape == w.shape and g.dtype == w.dtype
+                 for g, w in zip(got, want))
+    check(rel <= tol and same and shapes and all_finite(got),
+          f"3g: {name}, {tag}: within {tol:g} of the plain version "
+          "(relative), finite, shapes and dtypes its own, two launches bit "
+          "for bit")
+    return rel, ab, parted, total
+
+
+def plan_bounds(B: int, d: dict, N: int) -> dict:
+    """{kernel: bound}: the values each function must read and write (4
+    bytes each: the ints of gait and phase, the float32 inputs it reads,
+    its outputs) and its operations on this data: the footstep horizon a
+    compare a step and foot and about 40 at each swing -> stance
+    transition (the Raibert target with its sin, cos and sqrt), the rollout
+    14 a step, the swing reference about 60 a foot."""
+    g, ph = d["gid"][:B], d["phase"][:B]
+    flags = GAIT_TABLES[g[:, None], (ph[:, None] + np.arange(N)) % 16]
+    trans = int(((flags[:, 1:] > 0.5) & (flags[:, :-1] < 0.5)).sum())
+    return {"plan_footsteps_horizon": bound_ms(
+                B * (2 + 12 + 3 + 12 + N * 12 + 12), B * 4 * N + 40 * trans),
+            "reference_rollout": bound_ms(B * (6 + N * 12), B * N * 14),
+            "swing_foot_ref": bound_ms(B * 4 * (8 + 9), B * 4 * 60)}
+
+
+def ruiz_bound_ms(B: int, n: int, m: int, iters: int, a_shared: bool):
+    """P, q, l, u in, A once where it is shared (else per scenario); Pb, qb,
+    Ab, lb, ub, D, E, c out.  Operations a scenario: each round two passes
+    over P (a product and a max an entry), one over A (two products and two
+    maxima an entry) and the scales; then the scaled P and A (two products
+    an entry)."""
+    floats = (B * (n * n + n + 2 * m) + (m * n if a_shared else B * m * n)
+              + B * (n * n + n + m * n + 2 * m + n + m + 1))
+    flops = B * (iters * (4.0 * n * n + 4.0 * m * n + 8.0 * (n + m))
+                 + 2.0 * n * n + 2.0 * m * n)
+    return bound_ms(floats, flops)
+
+
+def ruiz_qps(device):
+    """(MPC QPs, WBC QPs) at B = 4096 in float32 on the card: the MPC's
+    from build_mpc_qp on planned states (its A the stride-0 constant), the
+    WBC's from the build kernel on 3e's states (A dense)."""
+    cfg = EngineConfig()
+    Bt = max(RUIZ_B)
+    d = planner_inputs(Bt, 80)
+    t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                               device=device)
+    gid = torch.tensor(d["gid"] % 4, device=device)
+    ph = torch.tensor(d["phase"], device=device)
+    x, vc, feet = t(d["x"]), t(d["v_cmd"]), t(d["feet"])
+    fsteps, _ = footsteps_mod.plan_footsteps_horizon(
+        SOLO12, cfg.mpc, cfg.cascade, gid, ph, x, vc, feet)
+    x_ref = srb_mod.reference_rollout(SOLO12, cfg.mpc, x, vc)
+    cont = contacts_horizon(gid, ph, cfg.mpc.horizon, torch.float32)
+    mpc = build_mpc_qp(SOLO12, cfg.mpc, x, x_ref, fsteps, cont)
+    q, v, refs, _ = wbc_build_inputs(Bt, 81)
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    wbc = tsid_mod.wbc_build(tree, cfg.wbc, t(q), t(v),
+                             WbcRefs(**{k: t(a) for k, a in refs.items()}))
+    return mpc, wbc[:5]
+
+
+def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
+    """3g: the planner's three kernels and the Ruiz kernel against their
+    plain versions on the card, bit for bit where they agree (counted);
+    times at B = 1 and 4096 (a one-launch CUDA graph's replay as `ms` at
+    B = 1, the eager wrapper beside it), the plain chains and the bounds."""
+    N = EngineConfig().mpc.horizon
+    errs = {k: [] for k in ("plan_footsteps_horizon", "reference_rollout",
+                            "swing_foot_ref")}
+    d = planner_inputs(max(PLAN_B), 70)
+    for B in PLAN_B:
+        dB = {k: a[:B] for k, a in d.items()}
+        for dtype in (torch.float32, torch.float64):
+            line = []
+            for name, (call, plain) in planner_calls(dB, dtype,
+                                                     device).items():
+                e = kernel_vs_plain(name, call, plain, PLAN_REL[dtype],
+                                    f"B={B} {str(dtype)[6:]}")
+                errs[name].append((dtype, e))
+                line.append(f"{name} rel {e[0]:.3e} abs {e[1]:.3e} "
+                            f"({e[2]} of {e[3]} entries part)")
+            print(f"  B={B} {str(dtype)[6:]}: " + "; ".join(line),
+                  flush=True)
+    timed = {}
+    for B in (1, max(PLAN_B)):
+        dB = {k: a[:B] for k, a in d.items()}
+        bounds = plan_bounds(B, d, N)
+        for name, (call, plain) in planner_calls(dB, torch.float32,
+                                                 device).items():
+            ms, eager = graph_ms(call), time_ms(call, 3, 50)
+            plain_ms = time_ms(plain, 1, 3)
+            timed[name, B] = (ms, eager, plain_ms, bounds[name])
+            report_times(name, f"B={B} float32 (graph replay; eager wrapper "
+                         f"{eager:.4f} ms)", ms, plain_ms, bounds[name], smi)
+    for name, src, replaces in (
+            ("plan_footsteps_horizon", "planner.cu",
+             "mpctsid_tpu/plan/footsteps.py:37"),
+            ("reference_rollout", "planner.cu", "mpctsid_tpu/mpc/srb.py:53"),
+            ("swing_foot_ref", "planner.cu", "mpctsid_tpu/plan/swing.py:14")):
+        f32 = [e for dt, e in errs[name] if dt == torch.float32]
+        f64 = [e for dt, e in errs[name] if dt == torch.float64]
+        (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
+            timed[name, max(PLAN_B)], timed[name, 1])
+        reports[name] = dict(
+            source=f"mpctsid_tpu_torch/plan/csrc/{src}", replaces=replaces,
+            max_abs_err=max(e[1] for e in f32),
+            max_rel_err=max(e[0] for e in f32),
+            max_rel_err_f64=max(e[0] for e in f64),
+            entries_parted_f32=sum(e[2] for e in f32),
+            entries_f32=sum(e[3] for e in f32),
+            ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+            ms_eager=eager, ms_b1=ms1, plain_ms_b1=plain1,
+            bound_ms_b1=bound1[0], bound_by_b1=bound1[1], ms_eager_b1=eager1)
+
+    # ---- Ruiz
+    iters = 8
+    mpc, wbc = ruiz_qps(device)
+    check(mpc[2].stride(0) == 0, "3g: the MPC's A reaches Ruiz as the "
+                                 "stride-0 constant")
+    rz = {}
+    for shape, qp in (("mpc", mpc), ("wbc", wbc)):
+        for B in RUIZ_B:
+            args = [a[:B] for a in qp]
+            lay = kernels.ruiz_layout(args[0].shape[-1], args[2].shape[1], B,
+                                      kernels.device_limits(device)[0])
+            e = kernel_vs_plain(
+                "ruiz_equilibrate",
+                lambda: kernels.ruiz_equilibrate(*args, iters),
+                lambda: admm_mod.ruiz_equilibrate(*args, iters), RUIZ_REL,
+                f"{shape} shape B={B}")
+            rz.setdefault(shape, []).append(e)
+            print(f"  ruiz_equilibrate {shape} shape B={B} "
+                  f"(n={args[0].shape[-1]}, m={args[2].shape[1]}, "
+                  f"{lay}): rel {e[0]:.3e} abs {e[1]:.3e} ({e[2]} of {e[3]} "
+                  "entries part)", flush=True)
+        n, m = qp[0].shape[-1], qp[2].shape[1]
+        for B in (1, max(RUIZ_B)):
+            args = [a[:B] for a in qp]
+            call = lambda: kernels.ruiz_equilibrate(*args, iters)  # noqa
+            ms, eager = graph_ms(call), time_ms(call, 2, 10)
+            plain = time_ms(lambda: admm_mod.ruiz_equilibrate(*args, iters),
+                            1, 2)
+            bound = ruiz_bound_ms(B, n, m, iters, shape == "mpc")
+            rz[shape, B] = (ms, eager, plain, bound)
+            report_times("ruiz_equilibrate", f"{shape} shape B={B} n={n} "
+                         f"m={m} (graph replay; eager wrapper {eager:.4f} "
+                         "ms)", ms, plain, bound, smi)
+    del mpc, wbc
+    Bt = max(RUIZ_B)
+    (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
+        rz["mpc", Bt], rz["mpc", 1])
+    w, w1 = rz["wbc", Bt], rz["wbc", 1]
+    # the default path runs it at the MPC shape (one launch a period): the
+    # row's numbers; the WBC shape's (backends vpu, packed, mma) under
+    # *_wbc_shape
+    reports["ruiz_equilibrate"] = dict(
+        source="mpctsid_tpu_torch/qp/csrc/ruiz.cu",
+        replaces="mpctsid_tpu/qp/admm.py:80",
+        max_abs_err=max(e[1] for e in rz["mpc"] + rz["wbc"]),
+        max_rel_err=max(e[0] for e in rz["mpc"] + rz["wbc"]),
+        entries_parted=sum(e[2] for e in rz["mpc"] + rz["wbc"]),
+        entries=sum(e[3] for e in rz["mpc"] + rz["wbc"]),
+        ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+        ms_eager=eager, ms_b1=ms1, plain_ms_b1=plain1, bound_ms_b1=bound1[0],
+        bound_by_b1=bound1[1], ms_eager_b1=eager1, ms_wbc_shape=w[0],
+        ms_eager_wbc_shape=w[1], plain_ms_wbc_shape=w[2],
+        bound_ms_wbc_shape=w[3][0], ms_b1_wbc_shape=w1[0],
+        plain_ms_b1_wbc_shape=w1[2], bound_ms_b1_wbc_shape=w1[3][0])
+    for name in ("plan_footsteps_horizon", "reference_rollout",
+                 "swing_foot_ref", "ruiz_equilibrate"):
+        r = reports[name]
+        print(f"  {name}: replaces {r['replaces']} (XLA's fusion; no TPU "
+              f"kernel), source {r['source']}, library call none; B=4096 "
+              f"{r['ms']:.4f} ms (graph replay) / {r['ms_eager']:.4f} ms "
+              f"(eager), bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+              f"plain {r['plain_ms']:.3f} ms  [{smi}]", flush=True)
+
+
 # ---------------------------------------------------------------- main path
 
 COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
@@ -1564,7 +1858,11 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "wbc_build": tsid_mod.wbc_build,
            "plant_step": plant_step,
            "admm_solve_plain_warp": kernels.admm_solve_plain_warp,
-           "chol_inverse": kernels.chol_inverse}
+           "chol_inverse": kernels.chol_inverse,
+           "plan_footsteps_horizon": footsteps_mod.plan_footsteps_horizon,
+           "reference_rollout": srb_mod.reference_rollout,
+           "swing_foot_ref": swing_mod.swing_foot_ref,
+           "ruiz_equilibrate": kernels.ruiz_equilibrate}
 
 
 def reset_launch_counts() -> None:
@@ -1593,22 +1891,29 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
                       mpc_backend: str = None):
     """(the kernel this rollout is there to count, every kernel's expected
     launches): the MPC's iteration kernel and kernel B (its K^-1) once per
-    MPC adapt round; a whole-solve kernel (kernel A on the default backend,
+    MPC adapt round, the footstep horizon, the reference rollout and Ruiz
+    once per period; a whole-solve kernel (kernel A on the default backend,
     kernel 4 on `fused`) once per WBC tick; a WBC iteration kernel and
-    kernel B once per WBC adapt round; the WBC build and the plant step once
-    per tick, whatever the backends."""
+    kernel B once per WBC adapt round and Ruiz once per tick; the WBC
+    build, the plant step and the swing reference once per tick, whatever
+    the backends."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     expect[mpc_kernel] = periods * cfg.solver.mpc_adapt_rounds
     expect["chol_inverse"] = periods * cfg.solver.mpc_adapt_rounds
+    for name in ("plan_footsteps_horizon", "reference_rollout",
+                 "ruiz_equilibrate"):
+        expect[name] = periods
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
+    expect["swing_foot_ref"] = ticks
     counted = WBC_KERNEL_OF[wbc_backend]
     if wbc_backend in WHOLE_SOLVE:
         expect[counted] += ticks
     else:
         expect[counted] += ticks * cfg.solver.wbc_adapt_rounds
         expect["chol_inverse"] += ticks * cfg.solver.wbc_adapt_rounds
+        expect["ruiz_equilibrate"] += ticks
     return counted, expect
 
 
@@ -2148,6 +2453,9 @@ def host_graphs(smi: str, device) -> None:
         want_mpc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_mpc[mpc_kernel] = cfg.solver.mpc_adapt_rounds
         want_mpc[KERNEL_PREFIX["chol_inverse"]] = cfg.solver.mpc_adapt_rounds
+        for name in ("plan_footsteps_horizon", "reference_rollout",
+                     "ruiz_equilibrate"):
+            want_mpc[KERNEL_PREFIX[name]] = 1
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_wbc[KERNEL_PREFIX["wbc_build"]] = 1
         if wbc_backend in WHOLE_SOLVE:
@@ -2156,13 +2464,19 @@ def host_graphs(smi: str, device) -> None:
             want_wbc[KERNEL_PREFIX[wbc_name]] = cfg.solver.wbc_adapt_rounds
             want_wbc[KERNEL_PREFIX["chol_inverse"]] = (
                 cfg.solver.wbc_adapt_rounds)
+            want_wbc[KERNEL_PREFIX["ruiz_equilibrate"]] = 1
         check(per["mpc"][0] == want_mpc,
               f"{tag}: one MPC replay launches {want_mpc}")
         check(per["wbc"][0] == want_wbc,
               f"{tag}: one WBC replay launches {want_wbc}")
-        none = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        check(per["boundary"][0] == none and per["swing"][0] == none,
-              f"{tag}: the boundary and swing graphs launch no port kernel")
+        want_bd = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        want_bd[KERNEL_PREFIX["plan_footsteps_horizon"]] = 1
+        want_sw = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        want_sw[KERNEL_PREFIX["swing_foot_ref"]] = 1
+        check(per["boundary"][0] == want_bd and per["swing"][0] == want_sw,
+              f"{tag}: the boundary graph launches the footstep kernel once, "
+              "the swing graph the swing kernel once, and no other port "
+              "kernel")
         print(f"    WBC replay: {per['wbc'][1]} kernels + {per['wbc'][4]} "
               f"copies/memsets, {times['wbc']:.4f} ms; MPC replay: "
               f"{per['mpc'][1]} kernels + {per['mpc'][4]} copies/memsets, "
@@ -2181,6 +2495,13 @@ def host_graphs(smi: str, device) -> None:
                          "kernel A", plain_wbc_chain(), smi, device)
             before_after(calls["mpc"], "MPC replay, plain K^-1 / kernel B",
                          plain_inverses(), smi, device)
+            for name, what in (("boundary", "boundary replay, plain "
+                                "footsteps / planner kernel"),
+                               ("mpc", "MPC replay, plain planner and Ruiz "
+                                "/ their kernels"),
+                               ("swing", "swing replay, plain swing "
+                                "reference / its kernel")):
+                before_after(calls[name], what, plain_planner(), smi, device)
         check(per["mpc"][1] <= MPC_NODES,
               f"{tag}: the MPC replay holds at most {MPC_NODES} kernels "
               "(8,994-8,999 with the plain K^-1)")
@@ -2215,6 +2536,30 @@ def plain_wbc_chain():
         yield
     finally:
         tsid_mod.takes_solve_kernel = shipped
+
+
+@contextlib.contextmanager
+def plain_planner():
+    """The host path's planner and the kernel backends' Ruiz on their plain
+    chains (the four kernels' plain versions)."""
+    import mpctsid_tpu_torch.host as host_mod
+
+    patched = ((host_mod, "plan_footsteps_horizon",
+                footsteps_mod.plan_footsteps_horizon_reference),
+               (host_mod, "reference_rollout",
+                srb_mod.reference_rollout_reference),
+               (host_mod, "swing_foot_ref",
+                swing_mod.swing_foot_ref_reference),
+               (admm_mod, "ruiz_equilibrate_kernel",
+                admm_mod.ruiz_equilibrate))
+    shipped = [getattr(mod, name) for mod, name, _ in patched]
+    for mod, name, plain in patched:
+        setattr(mod, name, plain)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(patched, shipped):
+            setattr(mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -2845,11 +3190,12 @@ def oracle_wbc_contract(runs, smi: str, device) -> None:
         expect[WBC_KERNEL_OF[backend]] += ORACLE_TICKS * per_tick
         if backend not in WHOLE_SOLVE:
             expect["chol_inverse"] += ORACLE_TICKS * per_tick
+            expect["ruiz_equilibrate"] += ORACLE_TICKS
         expect["wbc_build"] += ORACLE_TICKS
     counts = launch_counts()
     print(f"    launches {counts}", flush=True)
-    check(counts == expect, f"11b: the WBC solve kernels (A, B, 2-5) and the "
-                            f"WBC build launched {expect}")
+    check(counts == expect, f"11b: the WBC solve kernels (A, B, 2-5), Ruiz "
+                            f"and the WBC build launched {expect}")
     hold_launches(log, "11b", smi)
 
 
@@ -3338,14 +3684,15 @@ def main() -> int:
     # ---- 2. build -------------------------------------------------------
     print("== 2. build", flush=True)
     t0 = time.time()
-    _build.build_libraries(
-        [(name, src, hdr) for name, (src, hdr) in kernels.LIBRARIES.items()]
-        + rbd_kernels.build_specs())
+    _build.build_libraries(kernels.build_specs() + rbd_kernels.build_specs()
+                           + plan_kernels.build_specs())
     for name in kernels.LIBRARIES:
         kernels._library(name)
     for name in rbd_kernels.LIBRARIES:
         rbd_kernels._library(name)
-    n_libs = len(kernels.LIBRARIES) + len(rbd_kernels.LIBRARIES)
+    plan_kernels._library()
+    n_libs = (len(kernels.LIBRARIES) + len(rbd_kernels.LIBRARIES)
+              + len(plan_kernels.build_specs()))
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
     print(f"  {n_libs} libraries built together and loaded in "
           f"{time.time() - t0:.2f} s; nvcc seconds each: "
@@ -3619,6 +3966,12 @@ def main() -> int:
     solve_kernels_phase(smi, device, reports)
     torch.cuda.empty_cache()
 
+    # ---- 3g. the planner and Ruiz vs plain ----------------------------------
+    print("== 3g. the planner kernels (footsteps, reference rollout, swing "
+          "reference) and Ruiz vs their plain versions", flush=True)
+    planner_ruiz_phase(smi, device, reports)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
@@ -3639,7 +3992,9 @@ def main() -> int:
         if wbc_backend == cfg.solver.wbc_backend:
             # every rollout launches them; the default one is the main path
             for name in ("wbc_build", "plant_step", "chol_inverse",
-                         MPC_KERNEL_OF[cfg.solver.mpc_backend]):
+                         MPC_KERNEL_OF[cfg.solver.mpc_backend],
+                         "plan_footsteps_horizon", "reference_rollout",
+                         "swing_foot_ref", "ruiz_equilibrate"):
                 path_launches[name] = counts[name]
         records.append((counted, rec))
         torch.cuda.empty_cache()
@@ -3870,7 +4225,9 @@ def main() -> int:
         counts = graphed_period(rec, cfg, smi, device)
         graph_launches[counted] = counts[KERNEL_PREFIX[counted]]
         for name in ("wbc_build", "plant_step", "chol_inverse",
-                     MPC_KERNEL_OF[cfg.solver.mpc_backend]):
+                     MPC_KERNEL_OF[cfg.solver.mpc_backend],
+                     "plan_footsteps_horizon", "reference_rollout",
+                     "swing_foot_ref", "ruiz_equilibrate"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
     del records, rec
     torch.cuda.empty_cache()

@@ -16,9 +16,12 @@ counterpart; PyTorch idiom inside:
 Layout:
   model/    Solo-12 parameters, gait tables, kinematic tree (numpy data)
   dyn/      batched rigid-body dynamics: FK, Jacobians, CRBA, RNEA
-  plan/     gait tables, Raibert footsteps, swing polynomials
-  qp/       batched dense ADMM QP core, blocked SPD inverse, and the five
-            hand-written CUDA kernels (qp/kernels.py, qp/csrc/)
+  plan/     gait tables, Raibert footsteps, swing polynomials; the footstep
+            horizon and the swing reference (and mpc/'s reference rollout)
+            as hand-written CUDA kernels (plan/kernels.py, plan/csrc/)
+  qp/       batched dense ADMM QP core, blocked SPD inverse, the five TPU
+            kernels, kernels A and B and Ruiz as hand-written CUDA kernels
+            (qp/kernels.py, qp/csrc/)
   mpc/      SRB discretization + condensation -> qp/
   wbc/      TSID-style task assembly -> qp/
   env/      batched penalty-contact plant; the host-side Plant protocol

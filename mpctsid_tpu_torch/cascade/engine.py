@@ -35,7 +35,8 @@ from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
-from mpctsid_tpu_torch.plan.gait import contacts_at, swing_tables
+from mpctsid_tpu_torch.plan.gait import (contacts_at, contacts_horizon,
+                                         swing_tables)
 from mpctsid_tpu_torch.plan.swing import swing_foot_ref
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.utils import (device_constant, enforce_f32_matmuls,
@@ -218,8 +219,7 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
 
     # MPC solve from the current state (one-solve-stale: consumed NEXT period)
     x_ref = reference_rollout(model, cfg.mpc, x_srb, v_used)
-    cont_h = torch.stack([contacts_at(gait_id, phase + k, dtype)
-                          for k in range(cfg.mpc.horizon)], dim=1)
+    cont_h = contacts_horizon(gait_id, phase, cfg.mpc.horizon, dtype)
     P, q_lin, A, l, u = build_mpc_qp(model, cfg.mpc, x_srb, x_ref, fsteps,
                                      cont_h, total_mass=ctl_mass)
     # MPC backend: "auto_mpc" resolves to the hand-written M2 iteration

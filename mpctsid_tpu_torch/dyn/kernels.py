@@ -137,22 +137,25 @@ def last_layout(name: str) -> RbdLayout:
 
 # ---------------------------------------------------------- operand packing
 
-def rows(name: str, t, B: int, tail: tuple, like: torch.Tensor):
+def rows(name: str, t, B: int, tail: tuple, like: torch.Tensor,
+         dtype=None):
     """(tensor, stride): `t` as rows of shape `tail` for B scenarios (a
     leading axis of B, or of 1 for one row shared by all; a (B,) tensor for
     a tail of (1,)), its first row's elements contiguous; the stride between
     two rows in elements (0 when shared).  Raises unless `t` is a tensor of
-    `like`'s dtype and device and of that shape; copies only a tensor whose
-    rows are not contiguous."""
+    `dtype` (`like`'s unless given) on `like`'s device and of that shape;
+    copies only a tensor whose rows are not contiguous.  The planner's and
+    the Ruiz kernel's wrappers hand their operands over the same way."""
+    want = like.dtype if dtype is None else dtype
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
     if tail == (1,) and t.dim() == 1:
         t = t[:, None]
-    if t.dtype != like.dtype:
-        raise TypeError(f"{name} must be {like.dtype} like q, got {t.dtype}")
+    if t.dtype != want:
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if t.device != like.device:
-        raise ValueError(f"{name} is on {t.device}, q on {like.device}: one "
-                         "device only")
+        raise ValueError(f"{name} is on {t.device}, not on {like.device}: "
+                         "one device only")
     if t.dim() != 1 + len(tail) or tuple(t.shape[1:]) != tail or \
             t.shape[0] not in (1, B):
         raise ValueError(f"{name} must be ({B}, {', '.join(map(str, tail))})"

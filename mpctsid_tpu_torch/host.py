@@ -66,7 +66,8 @@ from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import build_tree
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
-from mpctsid_tpu_torch.plan.gait import TABLES, contacts_at, swing_tables
+from mpctsid_tpu_torch.plan.gait import (TABLES, contacts_horizon,
+                                         swing_tables)
 from mpctsid_tpu_torch.plan.swing import swing_foot_ref
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls, resolve_device
@@ -208,8 +209,7 @@ class HostController:
             fsteps, _ = plan_footsteps_horizon(
                 model, cfg.mpc, cfg.cascade, gid, phase, x_srb, v_used, feet)
             x_ref = reference_rollout(model, cfg.mpc, x_srb, v_used)
-            cont = torch.stack([contacts_at(gid, phase + i)
-                                for i in range(N)], dim=1)
+            cont = contacts_horizon(gid, phase, N)
             P, q_lin, A, l, u = build_mpc_qp(model, cfg.mpc, x_srb, x_ref,
                                              fsteps, cont)
             sol = admm_solve(P, q_lin, A, l, u, x0=warm_x, y0=warm_y,

@@ -51,7 +51,45 @@ def _skew(r):
 def reference_rollout(model: Solo12Model, cfg: MpcConfig, x0, v_cmd):
     """(B, N, 12) reference states x_1..x_N from the commanded velocity.
 
-    x0 (B, 12), v_cmd (B, 3) body-frame [vx, vy, wz]."""
+    x0 (B, 12), v_cmd (B, 3) body-frame [vx, vy, wz].
+
+    CUDA tensors: one launch of the hand-written kernel `plan_rollout`
+    (plan/csrc/planner.cu: a thread per scenario; float32 or float64), or an
+    exception.  CPU tensors: the plain version, `reference_rollout_reference`
+    (about 276 kernels a call on the card)."""
+    from mpctsid_tpu_torch.plan import kernels
+
+    kernels.require_dtype("x0", x0)
+    if x0.device.type == "cpu":
+        return reference_rollout_reference(model, cfg, x0, v_cmd)
+    out = kernels.launch("rollout", run_rollout, x0.device, model, cfg, x0,
+                         v_cmd)
+    reference_rollout.launches += 1
+    return out
+
+
+reference_rollout.launches = 0
+
+
+def run_rollout(launch_fn, model: Solo12Model, cfg: MpcConfig, x0, v_cmd):
+    """(rc, x_ref): the rollout kernel's operands packed for `launch_fn`
+    (plan/kernels.py's signature less the stream), its output allocated
+    here."""
+    from mpctsid_tpu_torch.plan import kernels
+
+    B, N = x0.shape[0], cfg.horizon
+    ins = [kernels.rows("x0", x0, B, (12,), x0),
+           kernels.rows("v_cmd", v_cmd, B, (3,), x0)]
+    out = x0.new_empty((B, N, NX))
+    rc = kernels.call(launch_fn, x0.dtype, B, N, None, ins, [out],
+                      [cfg.dt, model.h_ref,
+                       kernels.rotation_forms(x0.dtype, B)[0]])
+    return rc, out
+
+
+def reference_rollout_reference(model: Solo12Model, cfg: MpcConfig, x0,
+                                v_cmd):
+    """Plain version of `reference_rollout` (any device and dtype)."""
     N = cfg.horizon
     dt = cfg.dt
     p, yaw = x0[:, 0:3], x0[:, 5]

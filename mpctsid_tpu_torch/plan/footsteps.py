@@ -2,19 +2,26 @@
 plan/footsteps.py, batch written out).
 
 Touchdown target = yaw-rotated shoulder position at projected touchdown time
-+ (T_stance/2) v + k (v - v_ref) + centrifugal 0.5 sqrt(h/g) (v x w).  The
-per-horizon-step working-position update is a Python loop of masked batched
-ops: a foot's position is replaced by a fresh Raibert target exactly at
++ (T_stance/2) v + k (v - v_ref) + centrifugal 0.5 sqrt(h/g) (v x w).  A
+foot's working position is replaced by a fresh Raibert target exactly at
 swing->stance transitions inside the horizon.
+
+`plan_footsteps_horizon` is, on CUDA tensors, one launch of the hand-written
+kernel `plan_footsteps` (plan/csrc/planner.cu: a thread per scenario and
+foot; plan/kernels.py); on CPU tensors it runs its plain version,
+`plan_footsteps_horizon_reference`: the per-horizon-step Python loop of
+masked batched ops (about 911 kernels a call on the card).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mpctsid_tpu_torch.config import CascadeConfig, MpcConfig
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.mpc.srb import rot_z
+from mpctsid_tpu_torch.plan import kernels
 from mpctsid_tpu_torch.plan.gait import contacts_horizon, swing_tables
 from mpctsid_tpu_torch.utils import device_constant
 
@@ -45,7 +52,62 @@ def plan_footsteps_horizon(model: Solo12Model, mpc: MpcConfig,
     """(feet (B, N, 4, 3), next_touchdown (B, 4, 3)).
 
     gait_id, phase (B,) ints; x (B, 12) SRB state; v_cmd (B, 3);
-    current_feet (B, 4, 3) world foot positions."""
+    current_feet (B, 4, 3) world foot positions.
+
+    CUDA tensors: one launch of the kernel `plan_footsteps` (float32 or
+    float64), or an exception.  CPU tensors: the plain version,
+    `plan_footsteps_horizon_reference`."""
+    kernels.require_dtype("x", x)
+    if x.device.type == "cpu":
+        return plan_footsteps_horizon_reference(
+            model, mpc, cascade, gait_id, phase, x, v_cmd, current_feet)
+    out = kernels.launch("footsteps", run_footsteps, x.device, model, mpc,
+                         cascade, gait_id, phase, x, v_cmd, current_feet)
+    plan_footsteps_horizon.launches += 1
+    return out
+
+
+plan_footsteps_horizon.launches = 0
+
+
+def _int_rows(name: str, t, B: int, like):
+    """(int32 rows, stride) of a (B,) or (1,) integer tensor."""
+    if not isinstance(t, torch.Tensor) or t.dtype.is_floating_point or \
+            t.dtype == torch.bool:
+        raise TypeError(f"{name} must be an integer tensor, got "
+                        f"{getattr(t, 'dtype', type(t))}")
+    return kernels.rows(name, t.to(torch.int32), B, (1,), like, torch.int32)
+
+
+def run_footsteps(launch_fn, model: Solo12Model, mpc: MpcConfig,
+                  cascade: CascadeConfig, gait_id, phase, x, v_cmd,
+                  current_feet):
+    """(rc, (feet, next_td)): the footstep kernel's operands packed for
+    `launch_fn` (plan/kernels.py's signature less the stream: the CUDA
+    library's, or the CPU tests' host build of planner.h), its outputs
+    allocated here.  Gait ids must lie in [0, 5): the kernel reads its
+    table without a check."""
+    B = x.shape[0]
+    N = mpc.horizon
+    ins = [_int_rows("gait_id", gait_id, B, x),
+           _int_rows("phase", phase, B, x),
+           kernels.rows("x", x, B, (12,), x),
+           kernels.rows("v_cmd", v_cmd, B, (3,), x),
+           kernels.rows("current_feet", current_feet, B, (4, 3), x)]
+    feet = x.new_empty((B, N, 4, 3))
+    td = x.new_empty((B, 4, 3))
+    par = [mpc.dt, model.h_ref, model.g, cascade.t_stance_factor,
+           cascade.k_raibert, *kernels.rotation_forms(x.dtype, B),
+           *np.asarray(model.shoulder_offsets).ravel()]
+    rc = kernels.call(launch_fn, x.dtype, B, N, kernels.gait_tables(x.device),
+                      ins, [feet, td], par)
+    return rc, (feet, td)
+
+
+def plan_footsteps_horizon_reference(model: Solo12Model, mpc: MpcConfig,
+                                     cascade: CascadeConfig, gait_id, phase,
+                                     x, v_cmd, current_feet):
+    """Plain version of `plan_footsteps_horizon` (any device and dtype)."""
     N = mpc.horizon
     dtype = x.dtype
     B = x.shape[0]

@@ -6,8 +6,11 @@ PyTorch headers), so `nvcc` compiles it in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build dir>/<name>-<hash>.so <sources>
 
-One library per kernel; `build_libraries` starts one `nvcc` per missing
-library, all together, and waits for them (what `-Xptxas -v` reports —
+One library per kernel (a spec may add flags of its own after the
+common ones: the planner and Ruiz kernels are built with -fmad=false, so
+that nvcc contracts no product and sum that the plain PyTorch version
+rounds apart); `build_libraries` starts one `nvcc` per missing library,
+all together, and waits for them (what `-Xptxas -v` reports —
 registers, spills, static shared memory — is kept in `BUILD_LOG`).
 
 The build directory is `build/mpctsid_tpu_torch/` beside the package (the
@@ -72,13 +75,13 @@ def find_nvcc() -> str:
 
 
 def _target(name: str, sources: tuple[str, ...], headers: tuple[str, ...],
-            csrc: Path = CSRC) -> Path:
+            csrc: Path = CSRC, flags: tuple[str, ...] = ()) -> Path:
     """The library's path: its name carries a hash of sources, headers and
     flags."""
     h = hashlib.sha256()
     for f in (*sources, *headers):
         h.update((csrc / f).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -86,19 +89,20 @@ def build_libraries(specs) -> None:
     """Build every library of `specs` that the build directory lacks, one
     `nvcc` process each, all started together.
 
-    specs: iterable of (name, sources, headers[, csrc]); file names under
-    `csrc`, qp/csrc/ unless given.  Raises if the toolchain is missing or any
-    build fails."""
+    specs: iterable of (name, sources, headers[, csrc[, flags]]); file
+    names under `csrc`, qp/csrc/ unless given; `flags` follow NVCC_FLAGS.
+    Raises if the toolchain is missing or any build fails."""
     jobs = []
-    for name, sources, headers, *where in specs:
-        csrc = Path(where[0]) if where else CSRC
-        so = _target(name, sources, headers, csrc)
+    for name, sources, headers, *rest in specs:
+        csrc = Path(rest[0]) if rest and rest[0] is not None else CSRC
+        flags = tuple(rest[1]) if len(rest) > 1 else ()
+        so = _target(name, sources, headers, csrc, flags)
         if so.exists():
             BUILD_SECONDS.setdefault(name, 0.0)
             continue
         so.parent.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [find_nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp),
                *[str(csrc / s) for s in sources]]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -119,11 +123,13 @@ def build_libraries(specs) -> None:
 
 def load_library(name: str, sources: tuple[str, ...],
                  headers: tuple[str, ...] = (),
-                 csrc: Path = CSRC) -> ctypes.CDLL:
-    """Build (once per source hash) and load <csrc>/<sources> as lib<name>."""
+                 csrc: Path = CSRC,
+                 flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (once per source hash) and load <csrc>/<sources> as lib<name>,
+    nvcc given `flags` after NVCC_FLAGS."""
     lib = _LIBS.get(name)
     if lib is None:
-        build_libraries([(name, sources, headers, csrc)])
-        lib = ctypes.CDLL(str(_target(name, sources, headers, csrc)))
+        build_libraries([(name, sources, headers, csrc, flags)])
+        lib = ctypes.CDLL(str(_target(name, sources, headers, csrc, flags)))
         _LIBS[name] = lib
     return lib

@@ -7,7 +7,9 @@ Solves, for every scenario b of a batch,
 with the OSQP operator splitting and a FIXED iteration count, so every
 scenario runs in lockstep and nothing depends on the data:
 
-  * norm-only Ruiz equilibration + cost scaling (`ruiz_equilibrate`);
+  * norm-only Ruiz equilibration + cost scaling (`ruiz_equilibrate`; on
+    the kernel backends "m2", "vpu", "packed" and "mma" the Ruiz kernel
+    `kernels.ruiz_equilibrate`, one launch, whose plain version it is);
   * K = P + sigma I + A' diag(rho) A inverted once per adapt round by the
     blocked Cholesky inverse (qp/blockinv.py) and applied as a dense inverse
     with one step of iterative refinement;
@@ -92,6 +94,8 @@ from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate,
                                           admm_iterate_vpu_packed,
                                           admm_solve_fused,
                                           admm_solve_plain_warp, chol_inverse)
+from mpctsid_tpu_torch.qp.kernels import \
+    ruiz_equilibrate as ruiz_equilibrate_kernel
 from mpctsid_tpu_torch.qp.precision import residual_matvec
 
 INF = 1e20
@@ -354,7 +358,10 @@ def scaled_solve(P, q, A, l, u, eqf, x0=None, y0=None, iters: int = 60,
     B, n = q.shape
     m = A.shape[1]
     dtype = P.dtype
-    P, q, A, l, u, D, E, c = ruiz_equilibrate(P, q, A, l, u, equilibrate_iters)
+    # the plain chain on the plain backend; the Ruiz kernel on the kernel
+    # backends (its plain version, this module's function, on the CPU)
+    ruiz = ruiz_equilibrate if backend == "torch" else ruiz_equilibrate_kernel
+    P, q, A, l, u, D, E, c = ruiz(P, q, A, l, u, equilibrate_iters)
 
     x = P.new_zeros((B, n)) if x0 is None else (x0 / D).to(dtype)
     y = P.new_zeros((B, m)) if y0 is None else (y0 * c[:, None] / E).to(dtype)

@@ -1,7 +1,7 @@
 """The port's hand-written kernels and their plain PyTorch versions.
 
-Seven kernels, all CUDA C++ under qp/csrc/: five replace a TPU kernel of the
-JAX package's qp/pallas_kernels.py and keep its function name, two replace
+Eight kernels, all CUDA C++ under qp/csrc/: five replace a TPU kernel of the
+JAX package's qp/pallas_kernels.py and keep its function name, three replace
 stages that the JAX package leaves to XLA:
 
   * `admm_iterate_m2` (admm_m2.cu) <- `admm_iterate_m2` /
@@ -46,6 +46,13 @@ stages that the JAX package leaves to XLA:
     panels of 32 columns (spd_blocked.h), the dense products of the
     Newton-Schulz step on torch.bmm, a second launch for the guard
     (`spd_inverse_layout`).  Plain version: blockinv.spd_inverse_chol.
+  * `ruiz_equilibrate` (ruiz.cu) <- the XLA compilation of qp/admm.py's
+    `ruiz_equilibrate` (the norm-only equilibration and cost scaling, and
+    the scaled problem): the first step of every solve on the kernel
+    backends (qp/admm.py::scaled_solve: "m2", "vpu", "packed", "mma").  One
+    block per scenario, P in shared memory where it fits, A read through
+    its batch stride (the MPC's stride-0 constraint matrix is never
+    materialized): `ruiz_layout`.  Plain version: admm.ruiz_equilibrate.
   * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
     generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
     mat-vec on the tensor cores: warp-level TF32 `mma.sync` with each
@@ -69,7 +76,7 @@ chip_smoke.py and by nothing on the CUDA main path:
 version for `admm_iterate_vpu` and `admm_iterate_vpu_packed`: they compute
 the same function), `admm_iterate_reference` (the same loop with K as given),
 `admm_solve_fused_reference`, `admm_solve_plain_reference` (qp/admm.py's own
-chain) and blockinv.spd_inverse_chol.
+chain), blockinv.spd_inverse_chol and admm.ruiz_equilibrate.
 
 Matrix sides.  M2, K and K^-1 are symmetric only up to rounding, so the side
 each is applied from is part of the function, and is the TPU kernels': M2
@@ -87,6 +94,7 @@ from typing import NamedTuple
 
 import torch
 
+from mpctsid_tpu_torch.dyn.kernels import rows
 from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
 
 __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
@@ -105,7 +113,8 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "admm_solve_plain_warp", "admm_solve_plain_reference",
            "plain_warp_layout", "plain_warp_slot_floats", "chol_inverse",
            "check_spd_args", "spd_inverse_layout", "spd_block_floats",
-           "SpdLayout"]
+           "SpdLayout", "ruiz_equilibrate", "ruiz_layout", "RuizLayout",
+           "check_ruiz_args", "run_ruiz", "ruiz_smem_floats", "build_specs"]
 
 
 # ------------------------------------------------------------ argument checks
@@ -388,6 +397,7 @@ LIBRARIES = {
                                            "cluster_exchange.cuh",
                                            "spd_blocked.h",
                                            "spd_inverse.cuh")),
+    "ruiz": (("ruiz.cu",), ("ruiz.h",)),
 }
 
 _PTR = ctypes.c_void_p
@@ -409,6 +419,12 @@ _ENTRY_POINTS = {
         "admm_plain_warp_launch": (
             [_PTR] * 13 + [_INT] * 6 + [_FLT] * 5 + [_INT] * 3 + [_PTR],
             _INT)},
+    "ruiz": {
+        "ruiz_launch": ([ctypes.POINTER(_PTR),
+                         ctypes.POINTER(ctypes.c_longlong),
+                         ctypes.POINTER(_PTR)] + [_INT] * 6 + [_PTR], _INT),
+        "ruiz_smem_floats": ([_INT] * 4, ctypes.c_longlong),
+        "ruiz_threads": ([_INT], _INT)},
     "spd_inverse": {
         "spd_inverse_warp_launch": ([_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
         "spd_inverse_factor_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR],
@@ -420,13 +436,18 @@ _ENTRY_POINTS = {
 _LIBS: dict = {}
 
 
+def build_specs() -> list:
+    """(name, sources, headers) of each library under qp/csrc/, for
+    `qp/_build.py::build_libraries`."""
+    return [(name, src, hdr) for name, (src, hdr) in LIBRARIES.items()]
+
+
 def build_all() -> None:
     """Build every kernel library that is missing, all `nvcc` runs started
     together (each library is otherwise built at its first launch)."""
     from mpctsid_tpu_torch.qp import _build
 
-    _build.build_libraries(
-        [(name, src, hdr) for name, (src, hdr) in LIBRARIES.items()])
+    _build.build_libraries(build_specs())
 
 
 def _library(name: str):
@@ -1210,3 +1231,124 @@ def admm_iterate(K_inv, K, A, q, l, u, rho_vec, x, z, y,
 
 
 admm_iterate.launches = 0
+
+
+RUIZ_GROUPS = 4         # row groups of a block (ruiz.h, GROUPS)
+RUIZ_MAX_WIDTH = 256    # threads of a group at most (ruiz.h, MAX_WIDTH)
+RUIZ_SCRATCH = 40       # floats of reduction scratch (ruiz.h, SCRATCH)
+RUIZ_SLOTS = 4          # nonzeros of A kept per (row group, column)
+
+
+class RuizLayout(NamedTuple):
+    """How one launch of the Ruiz kernel is laid out."""
+    blocks: int        # one per scenario
+    threads: int       # GROUPS row groups of `width` threads
+    width: int         # threads of a row group: one a column
+    p_in_smem: bool    # P held in shared memory (else read each pass)
+    slots: int         # nonzeros of A kept per (group, column), or 0
+    smem_floats: int   # dynamic shared memory of a block, in floats
+
+
+def ruiz_smem_floats(n: int, m: int, p_in_smem: bool, slots: int) -> int:
+    """ruiz.h's `smem_floats`: P (n^2, where it is held), D, E, the row
+    groups' column maxima (2 G n), the row maxima, the column norms (n),
+    the reduction scratch and, with `slots`, the kept nonzeros of A (a
+    count and `slots` rows and values per group and column)."""
+    return ((n * n if p_in_smem else 0) + n + m + 2 * RUIZ_GROUPS * n + m
+            + n + RUIZ_SCRATCH
+            + (RUIZ_GROUPS * n * (1 + 2 * slots) if slots else 0))
+
+
+def ruiz_layout(n: int, m: int, B: int, smem_bytes: int) -> RuizLayout:
+    """The layout of `ruiz_equilibrate`: a block per scenario, G = 4 row
+    groups of W = min(round32(n), 256) threads; P in shared memory where
+    its n^2 floats fit beside the rest in `smem_bytes`, else read from
+    device memory each pass; then RUIZ_SLOTS nonzeros of A kept per group
+    and column where they fit too (n = 192, m = 320 on an H100: P and the
+    lists, 185 KB).  Raises where not even the rest fits."""
+    width = min(-(-n // 32) * 32, RUIZ_MAX_WIDTH)
+    in_smem = 4 * ruiz_smem_floats(n, m, True, 0) <= smem_bytes
+    slots = (RUIZ_SLOTS if 4 * ruiz_smem_floats(n, m, in_smem, RUIZ_SLOTS)
+             <= smem_bytes else 0)
+    floats = ruiz_smem_floats(n, m, in_smem, slots)
+    if 4 * floats > smem_bytes:
+        raise ValueError(f"ruiz_equilibrate: n={n}, m={m} needs {4 * floats} "
+                         f"bytes of shared memory without P, the card has "
+                         f"{smem_bytes}")
+    return RuizLayout(B, RUIZ_GROUPS * width, width, in_smem, slots, floats)
+
+
+def check_ruiz_args(P, q, A, l, u):
+    """Raise unless the arguments are what the Ruiz kernel takes; returns
+    (B, n, m).  All float32 on one device; P (B, n, n), A (B, m, n), q (B,
+    n), l, u (B, m); a scenario's entries contiguous, scenarios at any
+    stride (A may be a stride-0 broadcast)."""
+    named = dict(P=P, q=q, A=A, l=l, u=u)
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != P.device:
+            raise ValueError(f"{name} is on {t.device}, P on {P.device}: one "
+                             "device only")
+    if P.dim() != 3 or P.shape[1] != P.shape[2]:
+        raise ValueError(f"P must be (B, n, n), got {tuple(P.shape)}")
+    B, n, _ = P.shape
+    if A.dim() != 3 or A.shape[2] != n:
+        raise ValueError(f"A must be (B={B}, m, n={n}), got {tuple(A.shape)}")
+    m = A.shape[1]
+    if B < 1 or n < 1 or m < 1:
+        raise ValueError(f"empty problem: B={B}, n={n}, m={m}")
+    return B, n, m
+
+
+def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
+    """qp/admm.py's `ruiz_equilibrate` (norm-only modified Ruiz scaling and
+    cost scaling, then the scaled problem): (Pb, qb, Ab, lb, ub, D, E, c)
+    with D (B, n), E (B, m), c (B,).
+
+    CUDA tensors: one launch of the hand-written kernel (a block per
+    scenario, `ruiz_layout`; float32 only, TypeError otherwise), or an
+    exception.  CPU tensors: the plain version, admm.ruiz_equilibrate (any
+    dtype).  The kernel reads A through its batch stride: a stride-0
+    broadcast is never copied.  See the module docstring."""
+    if P.device.type == "cpu":
+        from mpctsid_tpu_torch.qp import admm
+
+        return admm.ruiz_equilibrate(P, q, A, l, u, iters)
+    B, n, m = check_ruiz_args(P, q, A, l, u)
+    dev = P.device
+    _require_cuda(dev, "ruiz_equilibrate")
+    lay = ruiz_layout(n, m, B, device_limits(dev)[0])
+    lib = _library("ruiz")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc, outs = run_ruiz(lambda *a: lib.ruiz_launch(*a, stream), P, q, A,
+                            l, u, iters, lay.p_in_smem, lay.slots)
+    _raise_on(rc, lib, "ruiz", B, n, m)
+    ruiz_equilibrate.launches += 1
+    return outs
+
+
+def run_ruiz(launch_fn, P, q, A, l, u, iters: int, p_in_smem: bool,
+             slots: int):
+    """(rc, (Pb, qb, Ab, lb, ub, D, E, c)): the Ruiz kernel's operands
+    packed for `launch_fn(in, stride, out, B, n, m, iters, p_in_smem,
+    slots) -> rc` (the library's `ruiz_launch` less the stream, or the CPU
+    tests' host build of ruiz.h), its outputs allocated here."""
+    B, n, m = check_ruiz_args(P, q, A, l, u)
+    ins = [rows("P", P, B, (n, n), P), rows("q", q, B, (n,), P),
+           rows("A", A, B, (m, n), P), rows("l", l, B, (m,), P),
+           rows("u", u, B, (m,), P)]
+    outs = (P.new_empty((B, n, n)), P.new_empty((B, n)),
+            P.new_empty((B, m, n)), P.new_empty((B, m)), P.new_empty((B, m)),
+            P.new_empty((B, n)), P.new_empty((B, m)), P.new_empty((B,)))
+    rc = launch_fn((_PTR * len(ins))(*[t.data_ptr() for t, _ in ins]),
+                   (ctypes.c_longlong * len(ins))(*[s for _, s in ins]),
+                   (_PTR * len(outs))(*[t.data_ptr() for t in outs]),
+                   B, n, m, _check_iters(iters), int(p_in_smem), int(slots))
+    return rc, outs
+
+
+ruiz_equilibrate.launches = 0

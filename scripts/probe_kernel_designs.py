@@ -61,7 +61,17 @@ limit.  `--kernels` picks the parts (default: all nine):
      serial body put back) in interleaved rounds at B = 1 and --batch,
      copies with 4 and 16 warps a block at --batch, each design's error
      against the plain version, and the cycles of each phase (a patched
-     copy that reads the cycle counter at every phase boundary).
+     copy that reads the cycle counter at every phase boundary);
+  ruiz. (qp/csrc/ruiz.cu, the MPC shape n = 192, m = 320 with the stride-0
+     constraint matrix, and the WBC shape n = 30, m = 50 dense; 8 rounds)
+     the shipped kernel with 0, 1 and 8 rounds (the fixed cost: P in, Pb
+     and Ab out; the cost of a round), with A read whole every round (no
+     lists of its nonzeros, PR 15's first design), P read from device
+     memory instead of shared memory, and patched copies of ruiz.h, A read
+     whole (times only, their results are wrong): a round without the row
+     maxima's warp reduction and shared atomic (`RUIZ_SUBS`), without the
+     pass over A, without the passes over P; interleaved rounds at B = 1
+     and --batch.
 
 Prints one JSON object at the end; with --out also writes it to
 DIR/probe_kernel_designs.json.
@@ -94,7 +104,7 @@ from mpctsid_tpu_torch.wbc import tsid  # noqa: E402
 from mpctsid_tpu_torch.wbc.tsid import WbcRefs  # noqa: E402
 
 PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp", "build",
-         "plant"]
+         "plant", "ruiz"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -2428,6 +2438,91 @@ def probe_rbd(record, kinds, B, device, build, rounds=6):
                                    4), mean_cycles=float(cyc[:, k].mean()))
 
 
+# patched copies of ruiz.h: (name, substitutions); their results are wrong
+RUIZ_SUBS = {
+    "no row maxima": [("ex.row_max(war + i, av[c] * Dj, jc);", "")],
+    "no pass over A": [("for (int i0 = g; i0 < m; i0 += GROUPS * CHUNK)",
+                        "for (int i0 = m; i0 < m; i0 += GROUPS * CHUNK)")],
+    "no passes over P": [("for (int i = g; i < n; i += GROUPS)",
+                          "for (int i = n; i < n; i += GROUPS)")],
+}
+
+
+def ruiz_inputs(seed, B, n, m, device, shared_a):
+    """Random SPD P (64 tiled to B), q, bounds with infinite entries, and A:
+    the MPC's pyramid constant broadcast (stride 0) or random dense rows."""
+    from mpctsid_tpu_torch.mpc.srb import _constraint_matrix
+
+    r = np.random.default_rng(seed)
+    src = min(B, 64)
+
+    def dev(a):
+        t = torch.as_tensor(a, dtype=torch.float32)
+        return t.repeat((-(-B // src),) + (1,) * (t.dim() - 1))[:B].to(
+            device).contiguous()
+
+    Q = r.normal(size=(src, n, n))
+    P = Q @ Q.transpose(0, 2, 1) / n + np.eye(n)
+    lo = -np.abs(r.normal(size=(src, m))) - 0.1
+    lo[:, ::5] = -1e20
+    if shared_a:
+        A = torch.as_tensor(_constraint_matrix(n // 12, 0.7),
+                            dtype=torch.float32, device=device)
+        A = A.expand(B, m, n)
+    else:
+        A = dev(r.normal(size=(src, m, n)))
+    return [dev(P), dev(r.normal(size=(src, n))), A, dev(lo), dev(-lo)]
+
+
+def ruiz_call(fn, args, iters, p_in_smem, slots):
+    """One launch of a Ruiz library's `ruiz_launch` through
+    kernels.run_ruiz's packing."""
+    rc, outs = kernels.run_ruiz(
+        lambda *a: fn(*a, torch.cuda.current_stream().cuda_stream), *args,
+        iters, p_in_smem, slots)
+    if rc != 0:
+        raise RuntimeError(f"ruiz launch failed: CUDA error {rc}")
+    return outs
+
+
+def probe_ruiz(record, B, device, smem, build, rounds=6):
+    argtypes, restype = kernels._ENTRY_POINTS["ruiz"]["ruiz_launch"]
+    libs = build_variants(
+        {name: dict(subs=[], source="ruiz.cu", header_subs={"ruiz.h": subs})
+         for name, subs in RUIZ_SUBS.items()}, build)
+    fns = {"shipped": kernels._library("ruiz").ruiz_launch}
+    for name, lib in libs.items():
+        lib.ruiz_launch.argtypes = argtypes
+        lib.ruiz_launch.restype = restype
+        fns[name] = lib.ruiz_launch
+    for shape, (n, m), shared in (("mpc", (192, 320), True),
+                                  ("wbc", (30, 50), False)):
+        for b in (1, B):
+            args = ruiz_inputs(90, b, n, m, device, shared)
+            lay = kernels.ruiz_layout(n, m, b, smem)
+            designs = {f"shipped, {k} rounds": (
+                lambda k=k: ruiz_call(fns["shipped"], args, k,
+                                      lay.p_in_smem, lay.slots))
+                for k in (0, 1, 8)}
+            if lay.slots:
+                designs["A read whole every round, 8 rounds"] = (
+                    lambda: ruiz_call(fns["shipped"], args, 8,
+                                      lay.p_in_smem, 0))
+            if lay.p_in_smem:
+                designs["P read from device memory, 8 rounds"] = (
+                    lambda: ruiz_call(fns["shipped"], args, 8, False,
+                                      lay.slots))
+            for name in RUIZ_SUBS:
+                designs[f"{name}, 8 rounds"] = (
+                    lambda name=name: ruiz_call(fns[name], args, 8,
+                                                lay.p_in_smem, 0))
+            interleaved(record, "ruiz", designs, rounds, warmup=2,
+                        reps=10 if b > 1 else 50, shape=shape, B=b, n=n,
+                        m=m)
+            del args
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -2446,7 +2541,7 @@ def main() -> int:
     report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
               "layouts": [],
               "variants": [], "cluster_phases": [], "fused": [], "spd": [],
-              "plainwarp": [], "rbd": []}
+              "plainwarp": [], "rbd": [], "ruiz": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -2474,6 +2569,9 @@ def main() -> int:
                  for k in ("build", "plant") if k in a.kernels]
     if rbd_parts:
         probe_rbd(record, rbd_parts, B, device, build)
+    if "ruiz" in a.kernels:
+        torch.cuda.empty_cache()
+        probe_ruiz(record, B, device, smem, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

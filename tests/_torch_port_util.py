@@ -246,3 +246,182 @@ def build_rbd_harness(directory):
                                  slot_values=lib.rbd_slot_values,
                                  warps_per_block=lib.rbd_warps_per_block,
                                  **fns)
+
+
+PLANNER_HARNESS = r'''
+#include "planner.h"
+
+namespace {
+
+template <typename T>
+int footsteps(int B, int N, const void* tables, const void* const* in,
+              const long long* stride, void* const* out, const double* par)
+{
+    planner::FootArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::footsteps_foot<T>(a, static_cast<const int*>(tables), N,
+                                       b, f);
+    return 0;
+}
+
+template <typename T>
+int rollout(int B, int N, const void*, const void* const* in,
+            const long long* stride, void* const* out, const double* par)
+{
+    planner::RollArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int k = 0; k < N; ++k) planner::rollout_step<T>(a, N, b, k);
+    return 0;
+}
+
+template <typename T>
+int swing(int B, int, const void*, const void* const* in,
+          const long long* stride, void* const* out, const double* par)
+{
+    planner::SwingArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::swing_foot<T>(a, b, f);
+    return 0;
+}
+
+}  // namespace
+
+#define PLAN_ENTRY(name, body)                                              \
+    extern "C" int name(int dtype, int B, int N, const void* tables,        \
+                        const void* const* in, const long long* stride,     \
+                        void* const* out, const double* par)                \
+    {                                                                       \
+        return dtype == 0                                                   \
+                   ? body<float>(B, N, tables, in, stride, out, par)        \
+                   : body<double>(B, N, tables, in, stride, out, par);      \
+    }
+
+extern "C" int planner_layout(int what) { return planner::layout(what); }
+
+PLAN_ENTRY(plan_footsteps_host, footsteps)
+PLAN_ENTRY(plan_rollout_host, rollout)
+PLAN_ENTRY(plan_swing_host, swing)
+'''
+
+
+def build_planner_harness(directory):
+    """mpctsid_tpu_torch/plan/csrc/planner.h, the per-thread arithmetic of
+    the planner's three kernels, built with the host compiler into
+    `directory` (-std=c++17: no floating-point contraction), each kernel's
+    threads run one after another with the kernels' C signature (less the
+    stream).  Returns a namespace of ctypes functions `footsteps`,
+    `rollout`, `swing`, which the wrappers' packing (`plan.footsteps.
+    run_footsteps`, `mpc.srb.run_rollout`, `plan.swing.run_swing`) takes,
+    and `layout(i)` (planner.h's counts)."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.plan import kernels
+
+    d = Path(directory).resolve()
+    cc = d / "planner_harness.cc"
+    cc.write_text(PLANNER_HARNESS)
+    so = d / "libplanner_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name in ("footsteps", "rollout", "swing"):
+        fn = getattr(lib, f"plan_{name}_host")
+        fn.argtypes = kernels.LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    lib.planner_layout.argtypes = [ctypes.c_int]
+    lib.planner_layout.restype = ctypes.c_int
+    return types.SimpleNamespace(layout=lib.planner_layout, **fns)
+
+
+RUIZ_HARNESS = r'''
+#include <vector>
+
+#include "ruiz.h"
+
+extern "C" {
+
+long long ruiz_smem_floats(int n, int m, int p_in_smem, int slots)
+{
+    return ruiz::smem_floats(n, m, p_in_smem != 0, slots);
+}
+
+int ruiz_threads(int n) { return ruiz::threads(n); }
+
+// a scenario at a time, its units one after another, in a fresh shared
+// memory filled with NaN: a unit that read what no earlier phase wrote
+// would show
+int ruiz_host(const void* const* in, const long long* stride,
+              void* const* out, int B, int n, int m, int iters, int p_in_smem,
+              int slots)
+{
+    ruiz::Args a;
+    for (int k = 0; k < ruiz::I_COUNT; ++k) {
+        a.in[k] = static_cast<const float*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < ruiz::O_COUNT; ++k)
+        a.out[k] = static_cast<float*>(out[k]);
+    a.n = n;
+    a.m = m;
+    a.iters = iters;
+    a.p_in_smem = p_in_smem;
+    a.slots = slots;
+    ruiz::HostExec ex;
+    ex.block = ruiz::threads(n);
+    std::vector<float> s(ruiz::smem_floats(n, m, p_in_smem != 0, slots));
+    for (long long b = 0; b < B; ++b) {
+        for (auto& v : s) v = NAN;
+        ruiz::equilibrate(ex, a, b, s.data());
+    }
+    return 0;
+}
+
+}
+'''
+
+
+def build_ruiz_harness(directory):
+    """mpctsid_tpu_torch/qp/csrc/ruiz.h, the Ruiz kernel's per-scenario
+    body, built with the host compiler into `directory`: each scenario's
+    units run one after another (ruiz::HostExec) in a NaN-filled shared
+    memory, with the launcher's C signature less the stream.  Returns a
+    namespace of ctypes functions: `launch` (which
+    `qp.kernels.run_ruiz` takes), `smem_floats(n, m, p_in_smem, slots)`
+    and `threads(n)`."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.qp import _build
+
+    d = Path(directory).resolve()
+    cc = d / "ruiz_harness.cc"
+    cc.write_text(RUIZ_HARNESS)
+    so = d / "libruiz_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(_build.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    lib.ruiz_host.argtypes = [ctypes.POINTER(P), ctypes.POINTER(LL),
+                              ctypes.POINTER(P)] + [ctypes.c_int] * 6
+    lib.ruiz_host.restype = ctypes.c_int
+    lib.ruiz_smem_floats.argtypes = [ctypes.c_int] * 4
+    lib.ruiz_smem_floats.restype = LL
+    lib.ruiz_threads.argtypes = [ctypes.c_int]
+    lib.ruiz_threads.restype = ctypes.c_int
+    return types.SimpleNamespace(launch=lib.ruiz_host,
+                                 smem_floats=lib.ruiz_smem_floats,
+                                 threads=lib.ruiz_threads)

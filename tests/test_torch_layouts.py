@@ -446,3 +446,49 @@ def test_packed_mpc_shape_is_refused_with_the_reason(slot_floats):
     need = 4 * slot_floats(SHARED, *MPC)
     assert str(need) in str(e.value) and need > SMEM
     assert "admm_iterate_vpu" in str(e.value)
+
+
+# --------------------------------------------------------------- Ruiz kernel
+
+@pytest.mark.parametrize("B", [1, 37, 4096])
+def test_ruiz_mpc_shape_holds_p_in_shared_memory(B):
+    """The MPC's n = 192, m = 320: a block per scenario of 4 row groups of
+    192 threads, P (147,456 bytes) in shared memory beside the scales and
+    maxima, and four nonzeros of A kept per group and column, 185,504
+    bytes in all: one block per multiprocessor."""
+    lay = tk.ruiz_layout(*MPC, B, SMEM)
+    assert lay == tk.RuizLayout(B, 768, 192, True, 4, 46376)
+    assert 4 * lay.smem_floats <= SMEM < 2 * 4 * lay.smem_floats
+
+
+@pytest.mark.parametrize("n,m,threads", [(30, 50, 128), (24, 40, 128),
+                                         (33, 55, 256), (256, 100, 1024),
+                                         (400, 700, 1024)])
+def test_ruiz_threads_are_four_row_groups_of_a_column_each(n, m, threads):
+    lay = tk.ruiz_layout(n, m, 4096, SMEM)
+    assert lay.threads == threads == 4 * lay.width
+    assert lay.width % 32 == 0 and lay.width <= 256
+    assert lay.width >= min(n, 256)
+
+
+def test_ruiz_streams_p_where_it_does_not_fit():
+    # 232 x 232 floats with the rest just fit, without the lists of A's
+    # nonzeros, which P comes before; 240 x 240 do not: P is read from
+    # device memory and the lists fit
+    lay = tk.ruiz_layout(232, 100, 1, SMEM)
+    assert lay.p_in_smem and lay.slots == 0
+    assert 4 * tk.ruiz_smem_floats(232, 100, True, tk.RUIZ_SLOTS) > SMEM
+    lay = tk.ruiz_layout(240, 400, 1, SMEM)
+    assert not lay.p_in_smem and lay.slots == tk.RUIZ_SLOTS
+    assert lay.smem_floats == tk.ruiz_smem_floats(240, 400, False, 4)
+    assert 4 * tk.ruiz_smem_floats(240, 400, True, 0) > SMEM
+
+
+def test_ruiz_wbc_shape_keeps_the_lists():
+    lay = tk.ruiz_layout(*WBC, 4096, SMEM)
+    assert lay == tk.RuizLayout(4096, 128, 32, True, 4, 2420)
+
+
+def test_ruiz_refuses_what_does_not_fit_even_without_p():
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.ruiz_layout(2000, 20000, 1, SMEM)
