@@ -102,8 +102,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  MPC's shape (its stride-0 constraint matrix, QPs built from
                  planned states) and the WBC's (dense A from the build
                  kernel) at B = 1, 37 and 4096 (1e-5); the entries whose
-                 bits part are counted; two launches bit for bit; times at
-                 B = 1 and 4096 (a one-launch graph's replay, the eager
+                 bits part are counted; two launches bit for bit; each
+                 launch's layout (path: a thread-block cluster or a warp per
+                 scenario; cluster size, blocks a multiprocessor); times at
+                 B = 1, 256 and 4096 (a one-launch graph's replay, the eager
                  wrapper) beside the plain chains and the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
@@ -1600,9 +1602,10 @@ PLAN_B = (1, 37, 4096)
 # part by an ulp, and eight rounds of rsqrt carry it on; relative to each
 # output's largest entry (the scales elementwise)
 RUIZ_REL = 1e-5
-# (name, shape tag, B's) of the Ruiz comparisons: the MPC's QPs (stride-0 A)
-# and the WBC's (dense A)
+# B's of the Ruiz comparisons, the MPC's QPs (stride-0 A) and the WBC's
+# (dense A), and of its times
 RUIZ_B = (1, 37, 4096)
+RUIZ_TIMED_B = (1, 256, 4096)
 
 
 def planner_inputs(B: int, seed: int) -> dict:
@@ -1731,11 +1734,30 @@ def ruiz_qps(device):
     return mpc, wbc[:5]
 
 
+def ruiz_layout_line(args, device) -> str:
+    """The layout a Ruiz launch on `args` takes: path, cluster size,
+    scenarios a block, blocks a multiprocessor (the occupancy calculator's
+    count for the launched kernel), where P lies, A's lists."""
+    n, m, B = args[0].shape[-1], args[2].shape[1], args[0].shape[0]
+    lay = kernels.ruiz_layout(n, m, B, *kernels.device_limits(device))
+    path, size, p_in_smem, slots = lay.geometry
+    per_sm = kernels._library("ruiz").ruiz_blocks_per_sm(path, n, m, size,
+                                                         p_in_smem, slots)
+    check(per_sm >= 1, f"3g: Ruiz's layout {lay} fits a multiprocessor")
+    return (f"path {lay.path}, cluster {lay.cluster}, "
+            f"{lay.warps or 1} scenario(s) a block, {lay.blocks} blocks of "
+            f"{lay.threads} threads, {per_sm} blocks a multiprocessor, "
+            f"{lay.width} columns a block, P in shared memory "
+            f"{lay.p_in_smem}, slots {lay.slots}, {4 * lay.smem_floats} "
+            "bytes of shared memory a block")
+
+
 def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
     """3g: the planner's three kernels and the Ruiz kernel against their
     plain versions on the card, bit for bit where they agree (counted);
-    times at B = 1 and 4096 (a one-launch CUDA graph's replay as `ms` at
-    B = 1, the eager wrapper beside it), the plain chains and the bounds."""
+    times at B = 1 and 4096 (Ruiz: 1, 256 and 4096; a one-launch CUDA
+    graph's replay as `ms`, the eager wrapper beside it), the plain chains
+    and the bounds."""
     N = EngineConfig().mpc.horizon
     errs = {k: [] for k in ("plan_footsteps_horizon", "reference_rollout",
                             "swing_foot_ref")}
@@ -1793,8 +1815,6 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
     for shape, qp in (("mpc", mpc), ("wbc", wbc)):
         for B in RUIZ_B:
             args = [a[:B] for a in qp]
-            lay = kernels.ruiz_layout(args[0].shape[-1], args[2].shape[1], B,
-                                      kernels.device_limits(device)[0])
             e = kernel_vs_plain(
                 "ruiz_equilibrate",
                 lambda: kernels.ruiz_equilibrate(*args, iters),
@@ -1802,11 +1822,11 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
                 f"{shape} shape B={B}")
             rz.setdefault(shape, []).append(e)
             print(f"  ruiz_equilibrate {shape} shape B={B} "
-                  f"(n={args[0].shape[-1]}, m={args[2].shape[1]}, "
-                  f"{lay}): rel {e[0]:.3e} abs {e[1]:.3e} ({e[2]} of {e[3]} "
-                  "entries part)", flush=True)
+                  f"(n={args[0].shape[-1]}, m={args[2].shape[1]}; "
+                  f"{ruiz_layout_line(args, device)}): rel {e[0]:.3e} abs "
+                  f"{e[1]:.3e} ({e[2]} of {e[3]} entries part)", flush=True)
         n, m = qp[0].shape[-1], qp[2].shape[1]
-        for B in (1, max(RUIZ_B)):
+        for B in RUIZ_TIMED_B:
             args = [a[:B] for a in qp]
             call = lambda: kernels.ruiz_equilibrate(*args, iters)  # noqa
             ms, eager = graph_ms(call), time_ms(call, 2, 10)
@@ -1822,6 +1842,7 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
     (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
         rz["mpc", Bt], rz["mpc", 1])
     w, w1 = rz["wbc", Bt], rz["wbc", 1]
+    mid, wmid = rz["mpc", 256], rz["wbc", 256]
     # the default path runs it at the MPC shape (one launch a period): the
     # row's numbers; the WBC shape's (backends vpu, packed, mma) under
     # *_wbc_shape
@@ -1837,7 +1858,10 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
         bound_by_b1=bound1[1], ms_eager_b1=eager1, ms_wbc_shape=w[0],
         ms_eager_wbc_shape=w[1], plain_ms_wbc_shape=w[2],
         bound_ms_wbc_shape=w[3][0], ms_b1_wbc_shape=w1[0],
-        plain_ms_b1_wbc_shape=w1[2], bound_ms_b1_wbc_shape=w1[3][0])
+        plain_ms_b1_wbc_shape=w1[2], bound_ms_b1_wbc_shape=w1[3][0],
+        ms_b256=mid[0], plain_ms_b256=mid[2], bound_ms_b256=mid[3][0],
+        ms_b256_wbc_shape=wmid[0], plain_ms_b256_wbc_shape=wmid[2],
+        bound_ms_b256_wbc_shape=wmid[3][0])
     for name in ("plan_footsteps_horizon", "reference_rollout",
                  "swing_foot_ref", "ruiz_equilibrate"):
         r = reports[name]
@@ -3446,6 +3470,10 @@ def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
           f"port's {({p: c for p, c in counts.items() if c})}, their device "
           f"ms {({p: round(t, 3) for p, t in port_ms.items() if t})}; "
           f"device busy {busy_ms:.3f} ms", flush=True)
+    print(f"    Ruiz in the period: "
+          f"{port_ms[KERNEL_PREFIX['ruiz_equilibrate']]:.3f} device ms "
+          "(the first design, a block per scenario, at B = 4096: 3.151 on "
+          "the default period, 7.44 on packed / vpu)", flush=True)
     print(f"    period wall ms, median of {len(graph_ms)}: eager "
           f"{float(np.median(eager_ms)):.3f} ({eager_ms}), graphed "
           f"{g_med:.3f} ({graph_ms}); device idle share of a graphed "

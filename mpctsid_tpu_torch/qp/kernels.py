@@ -49,10 +49,13 @@ stages that the JAX package leaves to XLA:
   * `ruiz_equilibrate` (ruiz.cu) <- the XLA compilation of qp/admm.py's
     `ruiz_equilibrate` (the norm-only equilibration and cost scaling, and
     the scaled problem): the first step of every solve on the kernel
-    backends (qp/admm.py::scaled_solve: "m2", "vpu", "packed", "mma").  One
-    block per scenario, P in shared memory where it fits, A read through
-    its batch stride (the MPC's stride-0 constraint matrix is never
-    materialized): `ruiz_layout`.  Plain version: admm.ruiz_equilibrate.
+    backends (qp/admm.py::scaled_solve: "m2", "vpu", "packed", "mma").  A
+    warp per scenario at the WBC's shape (n <= 32, m <= 64: columns in
+    lanes' registers), else a thread-block cluster per scenario, each block
+    a slice of the columns with its columns of P in shared memory where
+    they fit; A read through its batch stride (the MPC's stride-0
+    constraint matrix is never materialized): `ruiz_layout`.  Plain
+    version: admm.ruiz_equilibrate.
   * `admm_iterate` (admm_mma.cu) <- `admm_iterate` (backend "pallas"): the
     generic iteration with K applied AS GIVEN (r = rhs - K x_a) and every
     mat-vec on the tensor cores: warp-level TF32 `mma.sync` with each
@@ -114,7 +117,8 @@ __all__ = ["admm_iterate_m2", "admm_iterate_m2_reference", "check_m2_args",
            "plain_warp_layout", "plain_warp_slot_floats", "chol_inverse",
            "check_spd_args", "spd_inverse_layout", "spd_block_floats",
            "SpdLayout", "ruiz_equilibrate", "ruiz_layout", "RuizLayout",
-           "check_ruiz_args", "run_ruiz", "ruiz_smem_floats", "build_specs"]
+           "check_ruiz_args", "run_ruiz", "ruiz_smem_floats",
+           "ruiz_slice_width", "build_specs"]
 
 
 # ------------------------------------------------------------ argument checks
@@ -397,7 +401,7 @@ LIBRARIES = {
                                            "cluster_exchange.cuh",
                                            "spd_blocked.h",
                                            "spd_inverse.cuh")),
-    "ruiz": (("ruiz.cu",), ("ruiz.h",)),
+    "ruiz": (("ruiz.cu",), ("ruiz.h", "cluster_exchange.cuh")),
 }
 
 _PTR = ctypes.c_void_p
@@ -422,9 +426,10 @@ _ENTRY_POINTS = {
     "ruiz": {
         "ruiz_launch": ([ctypes.POINTER(_PTR),
                          ctypes.POINTER(ctypes.c_longlong),
-                         ctypes.POINTER(_PTR)] + [_INT] * 6 + [_PTR], _INT),
-        "ruiz_smem_floats": ([_INT] * 4, ctypes.c_longlong),
-        "ruiz_threads": ([_INT], _INT)},
+                         ctypes.POINTER(_PTR)] + [_INT] * 8 + [_PTR], _INT),
+        "ruiz_smem_floats": ([_INT] * 6, ctypes.c_longlong),
+        "ruiz_threads": ([_INT] * 3, _INT),
+        "ruiz_blocks_per_sm": ([_INT] * 6, _INT)},
     "spd_inverse": {
         "spd_inverse_warp_launch": ([_PTR] * 2 + [_INT] * 3 + [_PTR], _INT),
         "spd_inverse_factor_launch": ([_PTR] * 6 + [_INT] * 4 + [_PTR],
@@ -1234,48 +1239,109 @@ admm_iterate.launches = 0
 
 
 RUIZ_GROUPS = 4         # row groups of a block (ruiz.h, GROUPS)
-RUIZ_MAX_WIDTH = 256    # threads of a group at most (ruiz.h, MAX_WIDTH)
-RUIZ_SCRATCH = 40       # floats of reduction scratch (ruiz.h, SCRATCH)
+RUIZ_MAX_WIDTH = 96     # threads of a group at most (ruiz.h, MAX_WIDTH)
+RUIZ_HEAD = 72          # floats before the arrays (ruiz.h, HEAD)
+RUIZ_P_GROUPS = 16      # runs of rows of the passes over P (ruiz.h)
 RUIZ_SLOTS = 4          # nonzeros of A kept per (row group, column)
+RUIZ_MAX_CLUSTER = 8    # blocks a scenario at most (ruiz.h, MAX_CLUSTER)
+RUIZ_WARP_N, RUIZ_WARP_M = 32, 64   # the warp path's shapes (ruiz.h)
+RUIZ_WARPS = 4          # scenarios a block on the warp path, at most
+RUIZ_BATCH_CLUSTER = 2  # blocks a scenario where the batch fills the card
+RUIZ_SMALL_CLUSTER = 4  # ... where it does not, at most (8 measured slower)
+RUIZ_PATHS = ("warp", "cluster")    # ruiz.h's Path codes, in order
 
 
 class RuizLayout(NamedTuple):
     """How one launch of the Ruiz kernel is laid out."""
-    blocks: int        # one per scenario
-    threads: int       # GROUPS row groups of `width` threads
-    width: int         # threads of a row group: one a column
-    p_in_smem: bool    # P held in shared memory (else read each pass)
+    path: str          # "warp" or "cluster"
+    blocks: int        # of the grid
+    threads: int       # of a block
+    cluster: int       # blocks a scenario (1 on the warp path)
+    warps: int         # scenarios a block on the warp path (else 0)
+    width: int         # columns a block holds: 32 (warp) or its slice
+    p_in_smem: bool    # its columns of P in shared memory (else read each
+                       # pass; the warp path holds them in registers)
     slots: int         # nonzeros of A kept per (group, column), or 0
     smem_floats: int   # dynamic shared memory of a block, in floats
 
-
-def ruiz_smem_floats(n: int, m: int, p_in_smem: bool, slots: int) -> int:
-    """ruiz.h's `smem_floats`: P (n^2, where it is held), D, E, the row
-    groups' column maxima (2 G n), the row maxima, the column norms (n),
-    the reduction scratch and, with `slots`, the kept nonzeros of A (a
-    count and `slots` rows and values per group and column)."""
-    return ((n * n if p_in_smem else 0) + n + m + 2 * RUIZ_GROUPS * n + m
-            + n + RUIZ_SCRATCH
-            + (RUIZ_GROUPS * n * (1 + 2 * slots) if slots else 0))
+    @property
+    def geometry(self) -> tuple:
+        """(path, size, p_in_smem, slots): the launcher's arguments."""
+        size = self.warps if self.path == "warp" else self.cluster
+        return (RUIZ_PATHS.index(self.path), size, int(self.p_in_smem),
+                self.slots)
 
 
-def ruiz_layout(n: int, m: int, B: int, smem_bytes: int) -> RuizLayout:
-    """The layout of `ruiz_equilibrate`: a block per scenario, G = 4 row
-    groups of W = min(round32(n), 256) threads; P in shared memory where
-    its n^2 floats fit beside the rest in `smem_bytes`, else read from
-    device memory each pass; then RUIZ_SLOTS nonzeros of A kept per group
-    and column where they fit too (n = 192, m = 320 on an H100: P and the
-    lists, 185 KB).  Raises where not even the rest fits."""
-    width = min(-(-n // 32) * 32, RUIZ_MAX_WIDTH)
-    in_smem = 4 * ruiz_smem_floats(n, m, True, 0) <= smem_bytes
-    slots = (RUIZ_SLOTS if 4 * ruiz_smem_floats(n, m, in_smem, RUIZ_SLOTS)
-             <= smem_bytes else 0)
-    floats = ruiz_smem_floats(n, m, in_smem, slots)
+def ruiz_slice_width(n: int, cluster: int) -> int:
+    """ruiz.h's `slice_width`: a block's columns, a multiple of 4."""
+    cols = -(-n // cluster)
+    return -(-cols // 4) * 4
+
+
+def ruiz_smem_floats(n: int, m: int, cluster: int, p_in_smem: bool,
+                     slots: int) -> int:
+    """ruiz.h's `cluster_smem_floats`: the head (barriers, flags, the sums'
+    scratch), the block's columns of P (where held), D, E, its row maxima,
+    every block's row maxima (C m), the column maxima over P by run of rows
+    (16 w) and over A by row group (G w), the sends' staging (2 w), the
+    column norms and |q| D (2 n) and, with `slots`, the kept nonzeros of A
+    (a count and `slots` rows and values per group and column)."""
+    w = ruiz_slice_width(n, cluster)
+    n4, m4 = -(-n // 4) * 4, -(-m // 4) * 4     # each array 16-byte aligned
+    return (RUIZ_HEAD + (n * w if p_in_smem else 0) + 3 * n4 + 2 * m4
+            + cluster * m4 + (RUIZ_P_GROUPS + RUIZ_GROUPS + 2) * w
+            + (RUIZ_GROUPS * w * (1 + 2 * slots) if slots else 0))
+
+
+def _ruiz_cluster_size(n: int, B: int, n_sm: int) -> int:
+    """RUIZ_BATCH_CLUSTER blocks a scenario where B of them fill the card,
+    twice as many while they do not (up to RUIZ_SMALL_CLUSTER), and no more
+    than leave every block some columns."""
+    cluster = RUIZ_BATCH_CLUSTER
+    while cluster < RUIZ_SMALL_CLUSTER and B * cluster < n_sm:
+        cluster *= 2
+    while cluster > 1 and (cluster - 1) * ruiz_slice_width(n, cluster) >= n:
+        cluster //= 2
+    return cluster
+
+
+def ruiz_layout(n: int, m: int, B: int, smem_bytes: int,
+                n_sm: int) -> RuizLayout:
+    """The layout of `ruiz_equilibrate`.  n <= 32 and m <= 64 (the WBC's
+    QPs): the warp path, a warp per scenario, RUIZ_WARPS a block (fewer
+    where B does not fill the card).  Else the cluster path: C blocks per
+    scenario (`_ruiz_cluster_size`: 2 at a large B, 4 at a small one), G =
+    4 row groups of W = min(round32(w), 96) threads on a slice of w
+    columns, its columns of P in shared memory where they fit beside the
+    rest in `smem_bytes` (a larger cluster where that makes them fit), else
+    read from device memory each pass; then RUIZ_SLOTS nonzeros of A kept
+    per group and column where they fit too.  Raises where not even the
+    rest fits."""
+    if n <= RUIZ_WARP_N and m <= RUIZ_WARP_M:
+        warps = _slots_per_block(RUIZ_WARPS, RUIZ_WARPS, B, n_sm)
+        return RuizLayout("warp", -(-B // warps), 32 * warps, 1, warps, 32,
+                          False, 0, 0)
+    def fits(cluster, p_in_smem, slots):
+        return 4 * ruiz_smem_floats(n, m, cluster, p_in_smem,
+                                    slots) <= smem_bytes
+
+    cluster = _ruiz_cluster_size(n, B, n_sm)
+    in_smem = fits(cluster, True, 0)
+    larger = cluster
+    while not in_smem and larger < RUIZ_MAX_CLUSTER:
+        larger *= 2
+        if fits(larger, True, 0):
+            cluster, in_smem = larger, True
+    slots = RUIZ_SLOTS if fits(cluster, in_smem, RUIZ_SLOTS) else 0
+    floats = ruiz_smem_floats(n, m, cluster, in_smem, slots)
     if 4 * floats > smem_bytes:
         raise ValueError(f"ruiz_equilibrate: n={n}, m={m} needs {4 * floats} "
-                         f"bytes of shared memory without P, the card has "
-                         f"{smem_bytes}")
-    return RuizLayout(B, RUIZ_GROUPS * width, width, in_smem, slots, floats)
+                         f"bytes of shared memory per block without P, a "
+                         f"block has {smem_bytes}")
+    w = ruiz_slice_width(n, cluster)
+    width = min(-(-w // 32) * 32, RUIZ_MAX_WIDTH)
+    return RuizLayout("cluster", B * cluster, RUIZ_GROUPS * width, cluster,
+                      0, w, in_smem, slots, floats)
 
 
 def check_ruiz_args(P, q, A, l, u):
@@ -1308,11 +1374,12 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
     cost scaling, then the scaled problem): (Pb, qb, Ab, lb, ub, D, E, c)
     with D (B, n), E (B, m), c (B,).
 
-    CUDA tensors: one launch of the hand-written kernel (a block per
-    scenario, `ruiz_layout`; float32 only, TypeError otherwise), or an
-    exception.  CPU tensors: the plain version, admm.ruiz_equilibrate (any
-    dtype).  The kernel reads A through its batch stride: a stride-0
-    broadcast is never copied.  See the module docstring."""
+    CUDA tensors: one launch of the hand-written kernel (a warp or a
+    thread-block cluster per scenario, `ruiz_layout`; float32 only,
+    TypeError otherwise), or an exception.  CPU tensors: the plain version,
+    admm.ruiz_equilibrate (any dtype).  The kernel reads A through its
+    batch stride: a stride-0 broadcast is never copied.  See the module
+    docstring."""
     if P.device.type == "cpu":
         from mpctsid_tpu_torch.qp import admm
 
@@ -1320,23 +1387,23 @@ def ruiz_equilibrate(P, q, A, l, u, iters: int = 8):
     B, n, m = check_ruiz_args(P, q, A, l, u)
     dev = P.device
     _require_cuda(dev, "ruiz_equilibrate")
-    lay = ruiz_layout(n, m, B, device_limits(dev)[0])
+    lay = ruiz_layout(n, m, B, *device_limits(dev))
     lib = _library("ruiz")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc, outs = run_ruiz(lambda *a: lib.ruiz_launch(*a, stream), P, q, A,
-                            l, u, iters, lay.p_in_smem, lay.slots)
+                            l, u, iters, lay.geometry)
     _raise_on(rc, lib, "ruiz", B, n, m)
     ruiz_equilibrate.launches += 1
     return outs
 
 
-def run_ruiz(launch_fn, P, q, A, l, u, iters: int, p_in_smem: bool,
-             slots: int):
+def run_ruiz(launch_fn, P, q, A, l, u, iters: int, geometry):
     """(rc, (Pb, qb, Ab, lb, ub, D, E, c)): the Ruiz kernel's operands
-    packed for `launch_fn(in, stride, out, B, n, m, iters, p_in_smem,
-    slots) -> rc` (the library's `ruiz_launch` less the stream, or the CPU
-    tests' host build of ruiz.h), its outputs allocated here."""
+    packed for `launch_fn(in, stride, out, B, n, m, iters, path, size,
+    p_in_smem, slots) -> rc` (the library's `ruiz_launch` less the stream,
+    or the CPU tests' host build of ruiz.h), `geometry` a layout's (path,
+    size, p_in_smem, slots), its outputs allocated here."""
     B, n, m = check_ruiz_args(P, q, A, l, u)
     ins = [rows("P", P, B, (n, n), P), rows("q", q, B, (n,), P),
            rows("A", A, B, (m, n), P), rows("l", l, B, (m,), P),
@@ -1347,7 +1414,7 @@ def run_ruiz(launch_fn, P, q, A, l, u, iters: int, p_in_smem: bool,
     rc = launch_fn((_PTR * len(ins))(*[t.data_ptr() for t, _ in ins]),
                    (ctypes.c_longlong * len(ins))(*[s for _, s in ins]),
                    (_PTR * len(outs))(*[t.data_ptr() for t in outs]),
-                   B, n, m, _check_iters(iters), int(p_in_smem), int(slots))
+                   B, n, m, _check_iters(iters), *(int(g) for g in geometry))
     return rc, outs
 
 

@@ -6,12 +6,12 @@ iteration (admm_mma.cu), the whole solve (admm_fused.cu), kernels B
 and the plant step (dyn/csrc/).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
-        [--kernels m2 vpu packed mma fused spd plainwarp build plant]
+        [--kernels m2 vpu packed mma fused spd plainwarp build plant ruiz]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit.  `--kernels` picks the parts (default: all nine):
+limit.  `--kernels` picks the parts (default: all ten):
 
   m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
      than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
@@ -62,16 +62,22 @@ limit.  `--kernels` picks the parts (default: all nine):
      copies with 4 and 16 warps a block at --batch, each design's error
      against the plain version, and the cycles of each phase (a patched
      copy that reads the cycle counter at every phase boundary);
-  ruiz. (qp/csrc/ruiz.cu, the MPC shape n = 192, m = 320 with the stride-0
-     constraint matrix, and the WBC shape n = 30, m = 50 dense; 8 rounds)
-     the shipped kernel with 0, 1 and 8 rounds (the fixed cost: P in, Pb
-     and Ab out; the cost of a round), with A read whole every round (no
-     lists of its nonzeros, PR 15's first design), P read from device
-     memory instead of shared memory, and patched copies of ruiz.h, A read
-     whole (times only, their results are wrong): a round without the row
-     maxima's warp reduction and shared atomic (`RUIZ_SUBS`), without the
-     pass over A, without the passes over P; interleaved rounds at B = 1
-     and --batch.
+  ruiz. (qp/csrc/ruiz.cu over ruiz.h, the MPC shape n = 192, m = 320 with
+     the stride-0 constraint matrix, and the WBC shape n = 30, m = 50 dense;
+     8 rounds; B = 1, 256 and --batch) the shipped kernel against its
+     first design (a block per scenario, P in shared memory: its ruiz.h and
+     ruiz.cu kept here as a patched copy, FIRST_RUIZ_H / FIRST_RUIZ_CU), both
+     held bit for bit against each other and the plain version on the same
+     inputs, then timed in interleaved rounds beside the shipped kernel
+     with 0 and 1 rounds, the layouts `ruiz_layout` does not choose
+     (clusters of 1-8 blocks, P read from device memory, A read whole
+     every round; warps a block, the cluster path at the WBC shape) and
+     patched copies that undo one choice each (`RUIZ_SUBS`: Ab read from A,
+     8 or 4 runs of rows over P, 8 rows of A loaded ahead, the warp path's
+     row maxima by warp reductions), and the cycles of each stage of a
+     round (a patched copy that reads the cycle counter at every block
+     barrier and exchange wait, `RUIZ_CLOCK_SUBS`; plus load and stores).
+     Times are one-launch CUDA graphs' replays.
 
 Prints one JSON object at the end; with --out also writes it to
 DIR/probe_kernel_designs.json.
@@ -99,7 +105,7 @@ from mpctsid_tpu_torch.dyn import kernels as rbd_kernels  # noqa: E402
 from mpctsid_tpu_torch.env import plant  # noqa: E402
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
-from mpctsid_tpu_torch.qp import _build, kernels  # noqa: E402
+from mpctsid_tpu_torch.qp import _build, admm, kernels  # noqa: E402
 from mpctsid_tpu_torch.wbc import tsid  # noqa: E402
 from mpctsid_tpu_torch.wbc.tsid import WbcRefs  # noqa: E402
 
@@ -2438,14 +2444,570 @@ def probe_rbd(record, kinds, B, device, build, rounds=6):
                                    4), mean_cycles=float(cyc[:, k].mean()))
 
 
-# patched copies of ruiz.h: (name, substitutions); their results are wrong
-RUIZ_SUBS = {
-    "no row maxima": [("ex.row_max(war + i, av[c] * Dj, jc);", "")],
-    "no pass over A": [("for (int i0 = g; i0 < m; i0 += GROUPS * CHUNK)",
-                        "for (int i0 = m; i0 < m; i0 += GROUPS * CHUNK)")],
-    "no passes over P": [("for (int i = g; i < n; i += GROUPS)",
-                          "for (int i = n; i < n; i += GROUPS)")],
+# The first design of the Ruiz kernel (a block per scenario, G = 4 row groups
+# of a thread a column, all of P in shared memory where it fits), its ruiz.h
+# and ruiz.cu as they were, less their head comments: the patched copy the
+# shipped kernel is timed and held bit for bit against
+FIRST_RUIZ_H = r"""#pragma once
+
+#include <math.h>
+#include <string.h>
+
+#if defined(__CUDACC__)
+#define RUIZ_FN __host__ __device__ __forceinline__
+#else
+#define RUIZ_FN inline
+#endif
+
+namespace ruiz {
+
+constexpr int WARP = 32;
+constexpr int GROUPS = 4;           // row groups: threads G x W
+constexpr int MAX_WIDTH = 256;      // W: threads of a group (columns)
+constexpr float INF = 1e20f;        // qp/admm.py's finite infinity
+constexpr int SCRATCH = 40;         // warp sums (32), c, max |q| D, spare
+constexpr int CHUNK = 8;            // rows of A loaded ahead
+
+// threads of a row group: one a column, a multiple of 32, at most 256
+RUIZ_FN int width(int n)
+{
+    const int w = (n + WARP - 1) / WARP * WARP;
+    return w < MAX_WIDTH ? w : MAX_WIDTH;
 }
+
+RUIZ_FN int threads(int n) { return GROUPS * width(n); }
+
+// `slots`: nonzeros of A kept per (row group, column), 0 for none
+RUIZ_FN long long smem_floats(int n, int m, bool p_in_smem, int slots)
+{
+    return (p_in_smem ? (long long)n * n : 0) + n + m + 2LL * GROUPS * n
+           + m + n + SCRATCH
+           + (slots > 0 ? (long long)GROUPS * n * (1 + 2 * slots) : 0);
+}
+
+enum In { I_P, I_Q, I_A, I_L, I_U, I_COUNT };
+enum Out { O_P, O_Q, O_A, O_L, O_U, O_D, O_E, O_C, O_COUNT };
+
+struct Args {
+    const float* in[I_COUNT];
+    long long stride[I_COUNT];     // elements between two scenarios
+    float* out[O_COUNT];           // contiguous, B rows each
+    int n, m, iters;
+    int p_in_smem;
+    int slots;                     // nonzeros of A kept per (group, column)
+};
+
+// --------------------------------------------------------------- arithmetic
+
+RUIZ_FN unsigned bits(float v)
+{
+#if defined(__CUDA_ARCH__)
+    return __float_as_uint(v);
+#else
+    unsigned u;
+    memcpy(&u, &v, sizeof(u));
+    return u;
+#endif
+}
+
+// maximum of two non-negative floats (or NaN) by their bit patterns
+RUIZ_FN float mx(float a, float b) { return bits(a) >= bits(b) ? a : b; }
+
+RUIZ_FN float rsqrt_of(float v)
+{
+#if defined(__CUDA_ARCH__)
+    return rsqrtf(v);
+#else
+    return 1.0f / sqrtf(v);
+#endif
+}
+
+// torch.where(v < 1e-10, 1, torch.rsqrt(torch.clamp_min(v, 1e-12)))
+RUIZ_FN float scale_of(float v)
+{
+    return v < 1e-10f ? 1.0f : rsqrt_of(v < 1e-12f ? 1e-12f : v);
+}
+
+// --------------------------------------------------------------- host twin
+
+#if !defined(__CUDA_ARCH__)
+// Runs the units one after the other; the executor-owned steps on plain
+// loops with the card's arithmetic.
+struct HostExec {
+    int block = 0;      // the kernel's threads (block_sum's layout)
+
+    template <class F>
+    void units(int count, F f)
+    {
+        for (int u = 0; u < count; ++u) f(u);
+    }
+    int threads() const { return block; }
+    void sync() {}
+    // lane `jc` of a warp offers v for row i: the warp's max reaches *dst
+    void row_max(float* dst, float v, int /*jc*/) { *dst = mx(*dst, v); }
+    // one unit's v into *dst
+    void atomic_max(float* dst, float v) { *dst = mx(*dst, v); }
+    // the card's tree: thread t sums v[t], v[t + T], ... in order; lanes
+    // of each warp pairwise at offsets 16, 8, 4, 2, 1; the warps' sums in
+    // order
+    float block_sum(const float* v, int n, float* /*scratch*/)
+    {
+        const int T = block;
+        float total = 0.0f;
+        for (int w = 0; w < T / WARP; ++w) {
+            float lane[WARP];
+            for (int l = 0; l < WARP; ++l) {
+                float s = 0.0f;
+                for (int j = w * WARP + l; j < n; j += T) s = s + v[j];
+                lane[l] = s;
+            }
+            for (int off = WARP / 2; off > 0; off /= 2)
+                for (int l = 0; l < off; ++l)
+                    lane[l] = lane[l] + lane[l + off];
+            total = total + lane[0];
+        }
+        return total;
+    }
+};
+#endif
+
+// ------------------------------------------------------------------- body
+
+// dst[k] = f(k, src[k]) for k in [0, total): thread t takes k = k0 + c T
+// + t, c < CHUNK (consecutive threads on consecutive addresses), its CHUNK
+// loads issued before any of its stores (a store may alias a later load
+// for all the compiler knows, and would hold each load back).
+template <class Ex, class F>
+RUIZ_FN void streamed(Ex& ex, const float* src, float* dst, long long total,
+                      F f)
+{
+    const int T = ex.threads();
+    ex.units(T, [&](int t) {
+        for (long long k0 = 0; k0 < total; k0 += (long long)T * CHUNK) {
+            float v[CHUNK];
+            for (int c = 0; c < CHUNK; ++c) {
+                const long long k = k0 + (long long)c * T + t;
+                v[c] = k < total ? src[k] : 0.0f;
+            }
+            for (int c = 0; c < CHUNK; ++c) {
+                const long long k = k0 + (long long)c * T + t;
+                if (k < total) dst[k] = f(k, v[c]);
+            }
+        }
+    });
+}
+
+// Scenario b of `a`, its shared memory `s` (smem_floats).  Unit layout of
+// the column passes: unit u = g W + jc is row group g (rows i = g, g + G,
+// ...) on columns j = j0 + jc, j0 = 0, W, 2 W, ...: a warp's lanes share g
+// and take consecutive columns, so that a row of P or A is read in
+// consecutive addresses and a row's maximum is one warp reduction.
+//
+// Sparse A.  A zero entry adds nothing to a maximum of non-negative values,
+// so the first round's pass over A also keeps each unit's nonzeros (row and
+// |A_ij|, NaN included) in `slots` places per (group, column); where every
+// unit's fit (the MPC's pyramid rows: at most 2 a group and column), the
+// later rounds read those lists instead of A, with one shared atomic
+// maximum per entry, and give the same bits.  Where one does not (a dense
+// A), every round reads A.
+template <class Ex>
+RUIZ_FN void equilibrate(Ex& ex, const Args& a, long long b, float* s)
+{
+    const int n = a.n, m = a.m, W = width(n);
+    const float* Pg = a.in[I_P] + b * a.stride[I_P];
+    const float* q = a.in[I_Q] + b * a.stride[I_Q];
+    const float* A = a.in[I_A] + b * a.stride[I_A];
+    float* Ps = s;
+    float* D = Ps + (a.p_in_smem ? (long long)n * n : 0);
+    float* E = D + n;
+    float* part_p = E + m;                 // [G][n] column maxima over P
+    float* part_a = part_p + GROUPS * n;   // [G][n] column maxima over A
+    float* war = part_a + GROUPS * n;      // [m] row maxima over A
+    float* pcol = war + m;                 // [n]
+    float* red = pcol + n;                 // scratch; c, max |q| D at 32, 33,
+                                           // 1 at 34 while A is read whole
+    float* nz_cnt = red + SCRATCH;         // [G][n] nonzeros kept
+    float* nz_row = nz_cnt + GROUPS * n;   // [G][n][slots] their rows
+    float* nz_val = nz_row + GROUPS * n * a.slots;   // and |A_ij|
+    const float* P = a.p_in_smem ? Ps : Pg;
+    const int S = a.slots;
+
+    streamed(ex, Pg, Ps, a.p_in_smem ? (long long)n * n : 0,
+             [](long long, float v) { return v; });
+    ex.units(n, [&](int j) { D[j] = 1.0f; });
+    ex.units(m, [&](int i) { E[i] = 1.0f; war[i] = 0.0f; });
+    ex.units(1, [&](int) {
+        red[32] = 1.0f;
+        red[34] = S > 0 ? 0.0f : 1.0f;
+    });
+    ex.sync();
+
+    for (int it = 0; it < a.iters; ++it) {
+        const bool whole = it == 0 || red[34] != 0.0f;
+        const bool keep = it == 0 && S > 0;
+        // max_i D_i |P_ij|, max_i E_i |A_ij| by row group; max_j |A_ij| D_j
+        ex.units(GROUPS * W, [&](int u) {
+            const int g = u / W, jc = u % W;
+            for (int j0 = 0; j0 < n; j0 += W) {
+                const int j = j0 + jc;
+                const bool live = j < n;
+                float wp = 0.0f, wa = 0.0f;
+                const float Dj = live ? D[j] : 0.0f;
+                const int gj = g * n + j;
+                // after the first round, the last round's cost scaling took
+                // these maxima with the same D
+                if (live && it > 0) wp = part_p[gj];
+                if (live && it == 0)
+                    for (int i = g; i < n; i += GROUPS)
+                        wp = mx(wp, fabsf(P[(long long)i * n + j]) * D[i]);
+                if (!whole) {
+                    // the nonzeros kept in the first round
+                    if (live)
+                        for (int k = 0; k < (int)nz_cnt[gj]; ++k) {
+                            const int i = (int)nz_row[gj * S + k];
+                            const float v = nz_val[gj * S + k];
+                            wa = mx(wa, v * E[i]);
+                            ex.atomic_max(war + i, v * Dj);
+                        }
+                } else {
+                    int kept = 0;
+                    // CHUNK rows' loads issued before their maxima: the
+                    // shared atomics of row_max would otherwise hold each
+                    // load back
+                    for (int i0 = g; i0 < m; i0 += GROUPS * CHUNK) {
+                        float av[CHUNK];
+                        for (int c = 0; c < CHUNK; ++c) {
+                            const int i = i0 + c * GROUPS;
+                            av[c] = live && i < m
+                                        ? fabsf(A[(long long)i * n + j])
+                                        : 0.0f;
+                        }
+                        for (int c = 0; c < CHUNK; ++c) {
+                            const int i = i0 + c * GROUPS;
+                            if (i < m) {
+                                wa = mx(wa, av[c] * E[i]);
+                                ex.row_max(war + i, av[c] * Dj, jc);
+                                if (keep && live && av[c] != 0.0f) {
+                                    if (kept < S) {
+                                        nz_row[gj * S + kept] = (float)i;
+                                        nz_val[gj * S + kept] = av[c];
+                                    }
+                                    ++kept;
+                                }
+                            }
+                        }
+                    }
+                    if (keep && live) {
+                        nz_cnt[gj] = (float)kept;
+                        if (kept > S) red[34] = 1.0f;
+                    }
+                }
+                if (live) {
+                    part_p[g * n + j] = wp;
+                    part_a[g * n + j] = wa;
+                }
+            }
+        });
+        ex.sync();
+        // the scales: D from the columns, E from the rows (with the c of
+        // this round's start)
+        const float c = red[32];
+        ex.units(n > m ? n : m, [&](int k) {
+            if (k < n) {
+                float wp = part_p[k], wa = part_a[k];
+                for (int g = 1; g < GROUPS; ++g) {
+                    wp = mx(wp, part_p[g * n + k]);
+                    wa = mx(wa, part_a[g * n + k]);
+                }
+                const float cn = mx(c * D[k] * wp, D[k] * wa);
+                D[k] = D[k] * scale_of(cn);
+            }
+            if (k < m) {
+                E[k] = E[k] * scale_of(E[k] * war[k]);
+                war[k] = 0.0f;
+            }
+            if (k == 0) red[33] = 0.0f;
+        });
+        ex.sync();
+        // cost scaling against the new D: max_i D_i |P_ij| again
+        ex.units(GROUPS * W, [&](int u) {
+            const int g = u / W, jc = u % W;
+            for (int j = jc; j < n; j += W) {
+                float wp = 0.0f;
+                for (int i = g; i < n; i += GROUPS)
+                    wp = mx(wp, fabsf(P[(long long)i * n + j]) * D[i]);
+                part_p[g * n + j] = wp;
+            }
+        });
+        ex.sync();
+        // the column norms; max_j |q_j| D_j into red[33] (whole warps: W
+        // threads)
+        ex.units(W, [&](int jc) {
+            float qm = 0.0f;
+            for (int j = jc; j < n; j += W) {
+                float wp = part_p[j];
+                for (int g = 1; g < GROUPS; ++g)
+                    wp = mx(wp, part_p[g * n + j]);
+                pcol[j] = c * D[j] * wp;
+                qm = mx(qm, fabsf(q[j]) * D[j]);
+            }
+            ex.row_max(red + 33, qm, jc);
+        });
+        ex.sync();
+        const float sum = ex.block_sum(pcol, n, red);
+        ex.units(1, [&](int) {
+            const float qmax = red[33];
+            const float mean = sum * (1.0f / (float)n);
+            const float v = mx(mean, c * qmax);
+            const float gamma = 1.0f / (v < 1e-12f ? 1e-12f : v);
+            red[32] = c * gamma;
+        });
+        ex.sync();
+    }
+
+    // the scaled problem: Pb = (c D_i) P_ij D_j, qb = c D q, Ab = E_i A_ij
+    // D_j, the bounds E l, E u unless infinite
+    const float c = red[32];
+    float* Pb = a.out[O_P] + b * (long long)n * n;
+    float* Ab = a.out[O_A] + b * (long long)m * n;
+    streamed(ex, P, Pb, (long long)n * n, [&](long long k, float v) {
+        return c * D[k / n] * v * D[k % n];
+    });
+    streamed(ex, A, Ab, (long long)m * n, [&](long long k, float v) {
+        return E[k / n] * v * D[k % n];
+    });
+    ex.units(n, [&](int j) {
+        a.out[O_Q][b * n + j] = c * D[j] * q[j];
+        a.out[O_D][b * n + j] = D[j];
+    });
+    const float* l = a.in[I_L] + b * a.stride[I_L];
+    const float* u = a.in[I_U] + b * a.stride[I_U];
+    ex.units(m, [&](int i) {
+        a.out[O_L][b * m + i] = l[i] <= -INF ? l[i] : E[i] * l[i];
+        a.out[O_U][b * m + i] = u[i] >= INF ? u[i] : E[i] * u[i];
+        a.out[O_E][b * m + i] = E[i];
+    });
+    ex.units(1, [&](int) { a.out[O_C][b] = c; });
+}
+
+}  // namespace ruiz
+"""
+
+FIRST_RUIZ_CU = r"""#include <cuda_runtime.h>
+
+#include "ruiz.h"
+
+namespace {
+
+struct DevExec {
+    template <class F>
+    __device__ void units(int count, F f)
+    {
+        for (int u = threadIdx.x; u < count; u += blockDim.x) f(u);
+    }
+    __device__ int threads() const { return blockDim.x; }
+    __device__ void sync() { __syncthreads(); }
+    // every lane of a warp calls it for the same row
+    __device__ void row_max(float* dst, float v, int jc)
+    {
+        const unsigned r = __reduce_max_sync(0xffffffffu, __float_as_uint(v));
+        if ((jc & (ruiz::WARP - 1)) == 0)
+            atomicMax(reinterpret_cast<unsigned*>(dst), r);
+    }
+    __device__ void atomic_max(float* dst, float v)
+    {
+        atomicMax(reinterpret_cast<unsigned*>(dst), __float_as_uint(v));
+    }
+    // the tree of ruiz::HostExec::block_sum; the total in thread 0
+    __device__ float block_sum(const float* v, int n, float* scratch)
+    {
+        const int t = threadIdx.x, T = blockDim.x;
+        float s = 0.0f;
+        for (int j = t; j < n; j += T) s = s + v[j];
+        for (int off = ruiz::WARP / 2; off > 0; off /= 2)
+            s = s + __shfl_down_sync(0xffffffffu, s, off);
+        if ((t & (ruiz::WARP - 1)) == 0) scratch[t / ruiz::WARP] = s;
+        __syncthreads();
+        float total = 0.0f;
+        if (t == 0)
+            for (int w = 0; w < T / ruiz::WARP; ++w)
+                total = total + scratch[w];
+        return total;
+    }
+};
+
+__global__ void __launch_bounds__(ruiz::GROUPS * ruiz::MAX_WIDTH)
+ruiz_kernel(const ruiz::Args a)
+{
+    extern __shared__ __align__(16) float smem[];
+    DevExec ex;
+    ruiz::equilibrate(ex, a, blockIdx.x, smem);
+}
+
+}  // namespace
+
+extern "C" {
+
+long long ruiz_smem_floats(int n, int m, int p_in_smem, int slots)
+{
+    return ruiz::smem_floats(n, m, p_in_smem != 0, slots);
+}
+
+int ruiz_threads(int n) { return ruiz::threads(n); }
+
+int ruiz_launch(const void* const* in, const long long* stride,
+                void* const* out, int B, int n, int m, int iters,
+                int p_in_smem, int slots, void* stream)
+{
+    if (B < 1 || n < 1 || m < 1 || iters < 0 || slots < 0)
+        return (int)cudaErrorInvalidValue;
+    ruiz::Args a;
+    for (int k = 0; k < ruiz::I_COUNT; ++k) {
+        if (in[k] == nullptr) return (int)cudaErrorInvalidValue;
+        a.in[k] = static_cast<const float*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < ruiz::O_COUNT; ++k) {
+        if (out[k] == nullptr) return (int)cudaErrorInvalidValue;
+        a.out[k] = static_cast<float*>(out[k]);
+    }
+    a.n = n;
+    a.m = m;
+    a.iters = iters;
+    a.p_in_smem = p_in_smem;
+    a.slots = slots;
+    const long long bytes =
+        4 * ruiz::smem_floats(n, m, p_in_smem != 0, slots);
+    int dev, optin;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (bytes > optin) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(ruiz_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    ruiz_kernel<<<B, ruiz::threads(n), (size_t)bytes,
+                  (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+const char* ruiz_error_string(int code)
+{
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
+"""
+
+
+def first_layout(n, m, smem):
+    """(p_in_smem, slots) of the first design's layout: P in shared memory
+    where its n^2 floats fit beside the rest, then 4 nonzeros of A kept per
+    group and column where they fit too."""
+    def floats(p, slots):
+        return ((n * n if p else 0) + 4 * n + 2 * m + 8 * n + 40
+                + (4 * n * (1 + 2 * slots) if slots else 0))
+    p = 4 * floats(True, 0) <= smem
+    return p, (4 if 4 * floats(p, 4) <= smem else 0)
+
+
+# the shipped kernel with the cycle counter read at its stage boundaries
+# (times only; the counts overwrite qb's first entries of each scenario).
+# The cluster path's rank 0, summed over the rounds (a mark after every
+# block barrier and around every exchange wait): the pass over A or its
+# lists (and the first round's over P), D's update, the sends, the first
+# wait, E and the cost pass over P, the norms, their sends, the second wait,
+# the sum and c; then the load and the stores.  The warp path: the load, each
+# of a round's five phases summed over the rounds, the stores.
+RUIZ_CLOCK_SUBS = [
+    ("    bool bulk_in;\n",
+     "    bool bulk_in;\n    long long seg[11], last, t0, t_end;\n"
+     "    int phase, syncs;\n"
+     "    __device__ void mark(int k)\n    {\n"
+     "        const long long now = clock64();\n"
+     "        seg[k] += now - last;\n        last = now;\n    }\n"),
+    ("    __device__ void sync() { __syncthreads(); }\n",
+     "    __device__ void sync()\n    {\n        __syncthreads();\n"
+     "        mark(phase);\n        ++phase;\n    }\n"),
+    ("        if (threadIdx.x == 0) barrier_expect(bars + bar, bytes);\n"
+     "        barrier_wait(bars + bar, (unsigned)(it & 1));\n",
+     "        mark(phase);\n"
+     "        if (threadIdx.x == 0) barrier_expect(bars + bar, bytes);\n"
+     "        barrier_wait(bars + bar, (unsigned)(it & 1));\n"
+     "        mark(phase + 1);\n        phase += 2;\n"),
+    ("    __device__ void cluster_sync() { cg::this_cluster().sync(); }\n",
+     "    __device__ void cluster_sync()\n    {\n"
+     "        cg::this_cluster().sync();\n"
+     "        if (++syncs == 2) t_end = clock64();\n    }\n"),
+    ("        if (bulk_in) barrier_wait(bars + ruiz::BAR_LOAD, 0);\n",
+     "        if (bulk_in) barrier_wait(bars + ruiz::BAR_LOAD, 0);\n"
+     "        last = clock64();\n        seg[9] = last - t0;\n"),
+    ("        sum = total;\n        qmax = m;\n",
+     "        sum = total;\n        qmax = m;\n        mark(8);\n"
+     "        phase = 0;\n"),
+    ("    ex.bulk_in = false;\n",
+     "    ex.bulk_in = false;\n    ex.syncs = ex.phase = 0;\n"
+     "    for (int k = 0; k < 11; ++k) ex.seg[k] = 0;\n"
+     "    ex.t0 = ex.last = clock64();\n"),
+    ("    ruiz::equilibrate_cluster(ex, a, blockIdx.x / ex.C);\n",
+     "    ruiz::equilibrate_cluster(ex, a, blockIdx.x / ex.C);\n"
+     "    ex.seg[10] = clock64() - ex.t_end;\n    __syncthreads();\n"
+     "    if (threadIdx.x == 0 && ex.k.r == 0)\n"
+     "        for (int k = 0; k < 11; ++k)\n"
+     "            a.out[ruiz::O_Q][(blockIdx.x / ex.C) * a.n + k] =\n"
+     "                (float)ex.seg[k];\n"),
+    ("    ruiz::Lane s;\n    int lane;\n",
+     "    ruiz::Lane s;\n    int lane;\n    int calls, last;\n"
+     "    long long t, cyc[7];\n"),
+    ("        f(lane, s);\n",
+     "        f(lane, s);\n        const long long now = clock64();\n"
+     "        cyc[calls == 0 ? 0 : calls == last ? 6 : 1 + (calls - 1) % 5]"
+     " +=\n            now - t;\n"
+     "        t = now;\n        ++calls;\n"),
+    ("    ruiz::equilibrate_warp(ex, a, b);\n",
+     "    ex.calls = 0;\n    ex.last = 1 + 5 * a.iters;\n"
+     "    for (int k = 0; k < 7; ++k) ex.cyc[k] = 0;\n    ex.t = clock64();\n"
+     "    ruiz::equilibrate_warp(ex, a, b);\n"
+     "    if (ex.lane == 0)\n"
+     "        for (int k = 0; k < 7; ++k)\n"
+     "            a.out[ruiz::O_Q][b * a.n + k] = (float)ex.cyc[k];\n"),
+]
+# patched copies of ruiz.h that undo one choice of the shipped design
+# (right results, the same bits)
+RUIZ_SUBS = {
+    "Ab read from A": [
+        ("        const bool lists = a.iters > 0 && S > 0",
+         "        const bool lists = false && a.iters > 0 && S > 0")],
+    "8 runs of rows over P": [
+        ("constexpr int P_GROUPS = 16;", "constexpr int P_GROUPS = 8;")],
+    "4 runs of rows over P": [
+        ("constexpr int P_GROUPS = 16;", "constexpr int P_GROUPS = 4;")],
+    "8 rows of A loaded ahead": [
+        ("constexpr int CHUNK = 16; ", "constexpr int CHUNK = 8; ")],
+    "row maxima by warp reductions": [
+        ("                    ex.put(i, j, fabsf(s.a[i]) * s.D);\n",
+         "                    const float r = ex.max_of(s, [i](const Lane& t) "
+         "{\n                        return t.live ? fabsf(t.a[i]) * t.D "
+         ": 0.0f;\n                    });\n"
+         "                    if (j == (i & (WARP - 1))) s.war[i >> 5] = r;\n"),
+        ("                if (j + WARP * k < m) s.war[k] = ex.row_max(j + WARP "
+         "* k, n);\n", "                (void)j;\n")],
+}
+# which of them apply to which path
+RUIZ_SUB_PATH = {"Ab read from A": "cluster", "8 runs of rows over P": "cluster",
+                 "4 runs of rows over P": "cluster",
+                 "8 rows of A loaded ahead": "cluster",
+                 "row maxima by warp reductions": "warp"}
+RUIZ_PHASES = {
+    "cluster": ["pass over A or its lists (first round: and over P)",
+                "D's update", "D's and the row maxima's sends", "first wait",
+                "E and the cost pass over P", "the norms", "the norms' sends",
+                "second wait", "sum and c", "load", "stores"],
+    "warp": ["load", "column maxima, the row tile", "row maxima",
+             "scales", "cost pass", "sum and c", "stores"]}
 
 
 def ruiz_inputs(seed, B, n, m, device, shared_a):
@@ -2474,51 +3036,131 @@ def ruiz_inputs(seed, B, n, m, device, shared_a):
     return [dev(P), dev(r.normal(size=(src, n))), A, dev(lo), dev(-lo)]
 
 
-def ruiz_call(fn, args, iters, p_in_smem, slots):
+def ruiz_call(fn, args, iters, geometry):
     """One launch of a Ruiz library's `ruiz_launch` through
-    kernels.run_ruiz's packing."""
+    kernels.run_ruiz's packing; `geometry` the launcher's arguments after
+    `iters` (the first design's: p_in_smem, slots)."""
     rc, outs = kernels.run_ruiz(
         lambda *a: fn(*a, torch.cuda.current_stream().cuda_stream), *args,
-        iters, p_in_smem, slots)
+        iters, geometry)
     if rc != 0:
         raise RuntimeError(f"ruiz launch failed: CUDA error {rc}")
     return outs
 
 
-def probe_ruiz(record, B, device, smem, build, rounds=6):
+def graphed(call):
+    """`call` captured as a one-launch CUDA graph (after a warm-up on a
+    side stream): its replay, which times the device and not the host's
+    packing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call()
+    return graph.replay
+
+
+def probe_ruiz(record, B, device, smem, n_sm, build, rounds=6):
+    """The shipped Ruiz kernel against its first design (a patched copy) at
+    both shapes and B = 1, 256 and --batch, in interleaved rounds: bit for
+    bit on the same inputs, the times, the layouts not chosen (clusters of
+    1-8 blocks, P read from device memory, A read whole every round) and
+    each phase's cycles (a patched copy that reads the cycle counter).
+    Times are one-launch CUDA graphs' replays."""
     argtypes, restype = kernels._ENTRY_POINTS["ruiz"]["ruiz_launch"]
-    libs = build_variants(
-        {name: dict(subs=[], source="ruiz.cu", header_subs={"ruiz.h": subs})
-         for name, subs in RUIZ_SUBS.items()}, build)
-    fns = {"shipped": kernels._library("ruiz").ruiz_launch}
+    specs = {"first": dict(subs=lambda _: FIRST_RUIZ_CU, source="ruiz.cu",
+                          header_subs={"ruiz.h": lambda _: FIRST_RUIZ_H}),
+             "clock": dict(subs=RUIZ_CLOCK_SUBS, source="ruiz.cu")}
+    specs.update({name: dict(subs=[], source="ruiz.cu",
+                             header_subs={"ruiz.h": subs})
+                  for name, subs in RUIZ_SUBS.items()})
+    libs = build_variants(specs, build)
+    shipped = kernels._library("ruiz")
     for name, lib in libs.items():
-        lib.ruiz_launch.argtypes = argtypes
+        lib.ruiz_launch.argtypes = (argtypes if name != "first" else
+                                    argtypes[:3] + [ctypes.c_int] * 6
+                                    + [ctypes.c_void_p])
         lib.ruiz_launch.restype = restype
-        fns[name] = lib.ruiz_launch
+    fns = {"shipped": shipped.ruiz_launch}
+    fns.update({name: lib.ruiz_launch for name, lib in libs.items()})
     for shape, (n, m), shared in (("mpc", (192, 320), True),
                                   ("wbc", (30, 50), False)):
-        for b in (1, B):
+        for b in sorted({1, 256, B}):
             args = ruiz_inputs(90, b, n, m, device, shared)
-            lay = kernels.ruiz_layout(n, m, b, smem)
-            designs = {f"shipped, {k} rounds": (
-                lambda k=k: ruiz_call(fns["shipped"], args, k,
-                                      lay.p_in_smem, lay.slots))
-                for k in (0, 1, 8)}
-            if lay.slots:
-                designs["A read whole every round, 8 rounds"] = (
-                    lambda: ruiz_call(fns["shipped"], args, 8,
-                                      lay.p_in_smem, 0))
-            if lay.p_in_smem:
-                designs["P read from device memory, 8 rounds"] = (
-                    lambda: ruiz_call(fns["shipped"], args, 8, False,
-                                      lay.slots))
+            lay = kernels.ruiz_layout(n, m, b, smem, n_sm)
+            old = first_layout(n, m, smem)
+            ship = ruiz_call(fns["shipped"], args, 8, lay.geometry)
+            prev = ruiz_call(fns["first"], args, 8, old)
+            plain = admm.ruiz_equilibrate(*args, 8)
+            record("ruiz", what="bits", shape=shape, B=b, layout=str(lay),
+                   blocks_per_sm=int(shipped.ruiz_blocks_per_sm(
+                       lay.geometry[0], n, m, *lay.geometry[1:])),
+                   parted_vs_first=sum(int((x != y).sum())
+                                      for x, y in zip(ship, prev)),
+                   parted_vs_plain=sum(int((x != y).sum())
+                                       for x, y in zip(ship, plain)),
+                   entries=sum(x.numel() for x in ship))
+            del ship, prev, plain
+            designs = {"shipped": lambda: ruiz_call(fns["shipped"], args, 8,
+                                                    lay.geometry),
+                       "first design": lambda: ruiz_call(fns["first"], args,
+                                                           8, old)}
             for name in RUIZ_SUBS:
-                designs[f"{name}, 8 rounds"] = (
-                    lambda name=name: ruiz_call(fns[name], args, 8,
-                                                lay.p_in_smem, 0))
-            interleaved(record, "ruiz", designs, rounds, warmup=2,
+                if RUIZ_SUB_PATH[name] == lay.path:
+                    designs[name] = (lambda name=name: ruiz_call(
+                        fns[name], args, 8, lay.geometry))
+            for k in (0, 1):
+                designs[f"shipped, {k} rounds"] = (
+                    lambda k=k: ruiz_call(fns["shipped"], args, k,
+                                          lay.geometry))
+            if lay.path == "cluster":
+                for c in (1, 2, 3, 4, 6, 8):
+                    if c != lay.cluster:
+                        g = (1, c, int(lay.p_in_smem), lay.slots)
+                        if 4 * kernels.ruiz_smem_floats(n, m, c, *g[2:]) \
+                                <= smem:
+                            designs[f"cluster of {c}"] = (
+                                lambda g=g: ruiz_call(fns["shipped"], args,
+                                                      8, g))
+                if lay.slots:
+                    g = lay.geometry[:3] + (0,)
+                    designs["A read whole every round"] = (
+                        lambda g=g: ruiz_call(fns["shipped"], args, 8, g))
+                if lay.p_in_smem:
+                    g = (1, lay.cluster, 0, lay.slots)
+                    designs["P read from device memory"] = (
+                        lambda g=g: ruiz_call(fns["shipped"], args, 8, g))
+            else:
+                for w in (1, 2, 4, 8):
+                    if w != lay.warps:
+                        g = (0, w, 0, 0)
+                        designs[f"{w} warps a block"] = (
+                            lambda g=g: ruiz_call(fns["shipped"], args, 8,
+                                                  g))
+                g = (1, 1, 1, 4)
+                designs["cluster path, one block"] = (
+                    lambda g=g: ruiz_call(fns["shipped"], args, 8, g))
+            replays = {name: graphed(call) for name, call in designs.items()}
+            interleaved(record, "ruiz", replays, rounds, warmup=2,
                         reps=10 if b > 1 else 50, shape=shape, B=b, n=n,
                         m=m)
+            del replays
+            torch.cuda.empty_cache()
+            cyc = ruiz_call(fns["clock"], args, 8, lay.geometry)[1]
+            torch.cuda.synchronize()
+            phases = RUIZ_PHASES[lay.path]
+            cyc = cyc[:, :len(phases)].double()
+            total = cyc.sum(dim=1, keepdim=True)
+            for k, phase in enumerate(phases):
+                record("ruiz", what="share of a block's cycles"
+                       if lay.path == "cluster" else
+                       "share of a warp's cycles", shape=shape, B=b,
+                       phase=phase,
+                       share=round(float((cyc[:, k:k + 1] / total).mean()),
+                                   4), mean_cycles=float(cyc[:, k].mean()))
             del args
             torch.cuda.empty_cache()
 
@@ -2571,7 +3213,7 @@ def main() -> int:
         probe_rbd(record, rbd_parts, B, device, build)
     if "ruiz" in a.kernels:
         torch.cuda.empty_cache()
-        probe_ruiz(record, B, device, smem, build)
+        probe_ruiz(record, B, device, smem, n_sm, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

@@ -351,19 +351,44 @@ RUIZ_HARNESS = r'''
 
 extern "C" {
 
-long long ruiz_smem_floats(int n, int m, int p_in_smem, int slots)
+long long ruiz_smem_floats(int n, int m, int C, int p_in_smem, int slots)
 {
-    return ruiz::smem_floats(n, m, p_in_smem != 0, slots);
+    return ruiz::cluster_smem_floats(n, m, C, p_in_smem != 0, slots);
 }
 
-int ruiz_threads(int n) { return ruiz::threads(n); }
+int ruiz_threads(int n, int C) { return ruiz::cluster_threads(n, C); }
 
-// a scenario at a time, its units one after another, in a fresh shared
-// memory filled with NaN: a unit that read what no earlier phase wrote
-// would show
+int ruiz_slice_width(int n, int C) { return ruiz::slice_width(n, C); }
+
+float ruiz_tree_sum(const float* v, int n) { return ruiz::tree_sum(v, n); }
+
+// the first design's block sum: thread t of T sums v[t], v[t + T], ...;
+// the lanes of each warp pairwise at 16, 8, 4, 2, 1; all T / 32 warps'
+// sums in order, from 0
+float ruiz_block_sum(const float* v, int n, int T)
+{
+    float total = 0.0f;
+    for (int w = 0; w < T / 32; ++w) {
+        float lane[32];
+        for (int l = 0; l < 32; ++l) {
+            float s = 0.0f;
+            for (int j = w * 32 + l; j < n; j += T) s = s + v[j];
+            lane[l] = s;
+        }
+        for (int off = 16; off > 0; off /= 2)
+            for (int l = 0; l < off; ++l) lane[l] = lane[l] + lane[l + off];
+        total = total + lane[0];
+    }
+    return total;
+}
+
+// a scenario at a time: on the warp path its 32 lanes in turn, on the
+// cluster path its C ranks in turn, each in a fresh shared memory (and
+// fresh registers) filled with NaN: a unit that read what no earlier phase
+// wrote or sent would show
 int ruiz_host(const void* const* in, const long long* stride,
-              void* const* out, int B, int n, int m, int iters, int p_in_smem,
-              int slots)
+              void* const* out, int B, int n, int m, int iters, int path,
+              int size, int p_in_smem, int slots)
 {
     ruiz::Args a;
     for (int k = 0; k < ruiz::I_COUNT; ++k) {
@@ -375,14 +400,34 @@ int ruiz_host(const void* const* in, const long long* stride,
     a.n = n;
     a.m = m;
     a.iters = iters;
+    a.cluster = path == ruiz::PATH_CLUSTER ? size : 1;
     a.p_in_smem = p_in_smem;
     a.slots = slots;
-    ruiz::HostExec ex;
-    ex.block = ruiz::threads(n);
-    std::vector<float> s(ruiz::smem_floats(n, m, p_in_smem != 0, slots));
+    if (path == ruiz::PATH_WARP) {
+        if (n > ruiz::WARP_N || m > ruiz::WARP_M) return 1;
+        for (long long b = 0; b < B; ++b) {
+            ruiz::HostWarp ex;
+            for (auto& l : ex.lane) {
+                for (auto& v : l.p) v = NAN;
+                for (auto& v : l.a) v = NAN;
+                l.e[0] = l.e[1] = l.war[0] = l.war[1] = NAN;
+                l.D = l.q = l.wp = l.wa = l.pcol = l.qd = l.c = NAN;
+            }
+            ruiz::equilibrate_warp(ex, a, b);
+        }
+        return 0;
+    }
+    if (size < 1 || size > ruiz::MAX_CLUSTER) return 1;
+    const long long floats =
+        ruiz::cluster_smem_floats(n, m, size, p_in_smem != 0, slots);
+    std::vector<float> s(floats * size);
     for (long long b = 0; b < B; ++b) {
         for (auto& v : s) v = NAN;
-        ruiz::equilibrate(ex, a, b, s.data());
+        ruiz::HostCluster ex;
+        ex.C = size;
+        for (int r = 0; r < size; ++r)
+            ex.rank[r] = ruiz::Rank{r, s.data() + r * floats, NAN};
+        ruiz::equilibrate_cluster(ex, a, b);
     }
     return 0;
 }
@@ -393,12 +438,14 @@ int ruiz_host(const void* const* in, const long long* stride,
 
 def build_ruiz_harness(directory):
     """mpctsid_tpu_torch/qp/csrc/ruiz.h, the Ruiz kernel's per-scenario
-    body, built with the host compiler into `directory`: each scenario's
-    units run one after another (ruiz::HostExec) in a NaN-filled shared
-    memory, with the launcher's C signature less the stream.  Returns a
-    namespace of ctypes functions: `launch` (which
-    `qp.kernels.run_ruiz` takes), `smem_floats(n, m, p_in_smem, slots)`
-    and `threads(n)`."""
+    bodies, built with the host compiler into `directory`: the warp path's
+    lanes one after another in each phase (ruiz::HostWarp), the cluster
+    path's ranks in turn (ruiz::HostCluster), in NaN-filled memory, with
+    the launcher's C signature less the stream.  Returns a namespace of
+    ctypes functions: `launch` (which `qp.kernels.run_ruiz` takes),
+    `smem_floats(n, m, C, p_in_smem, slots)`, `threads(n, C)`,
+    `slice_width(n, C)`, `tree_sum(v, n)` and `block_sum(v, n, T)` (the
+    first design's sum over T threads)."""
     import ctypes
     import subprocess
     import types
@@ -414,14 +461,36 @@ def build_ruiz_harness(directory):
                     "-fPIC", "-O2", "-I", str(_build.CSRC), "-o", str(so),
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
-    P, LL = ctypes.c_void_p, ctypes.c_longlong
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    FP = ctypes.POINTER(ctypes.c_float)
     lib.ruiz_host.argtypes = [ctypes.POINTER(P), ctypes.POINTER(LL),
-                              ctypes.POINTER(P)] + [ctypes.c_int] * 6
-    lib.ruiz_host.restype = ctypes.c_int
-    lib.ruiz_smem_floats.argtypes = [ctypes.c_int] * 4
+                              ctypes.POINTER(P)] + [I] * 8
+    lib.ruiz_host.restype = I
+    lib.ruiz_smem_floats.argtypes = [I] * 5
     lib.ruiz_smem_floats.restype = LL
-    lib.ruiz_threads.argtypes = [ctypes.c_int]
-    lib.ruiz_threads.restype = ctypes.c_int
+    lib.ruiz_threads.argtypes = [I, I]
+    lib.ruiz_threads.restype = I
+    lib.ruiz_slice_width.argtypes = [I, I]
+    lib.ruiz_slice_width.restype = I
+    lib.ruiz_tree_sum.argtypes = [FP, I]
+    lib.ruiz_tree_sum.restype = ctypes.c_float
+    lib.ruiz_block_sum.argtypes = [FP, I, I]
+    lib.ruiz_block_sum.restype = ctypes.c_float
+
+    def as_floats(v):
+        v = np.ascontiguousarray(v, dtype=np.float32)
+        return v.ctypes.data_as(FP), v
+
+    def tree_sum(v, n):
+        ptr, keep = as_floats(v)
+        return lib.ruiz_tree_sum(ptr, n)
+
+    def block_sum(v, n, T):
+        ptr, keep = as_floats(v)
+        return lib.ruiz_block_sum(ptr, n, T)
+
     return types.SimpleNamespace(launch=lib.ruiz_host,
                                  smem_floats=lib.ruiz_smem_floats,
-                                 threads=lib.ruiz_threads)
+                                 threads=lib.ruiz_threads,
+                                 slice_width=lib.ruiz_slice_width,
+                                 tree_sum=tree_sum, block_sum=block_sum)

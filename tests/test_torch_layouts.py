@@ -450,45 +450,93 @@ def test_packed_mpc_shape_is_refused_with_the_reason(slot_floats):
 
 # --------------------------------------------------------------- Ruiz kernel
 
-@pytest.mark.parametrize("B", [1, 37, 4096])
-def test_ruiz_mpc_shape_holds_p_in_shared_memory(B):
-    """The MPC's n = 192, m = 320: a block per scenario of 4 row groups of
-    192 threads, P (147,456 bytes) in shared memory beside the scales and
-    maxima, and four nonzeros of A kept per group and column, 185,504
-    bytes in all: one block per multiprocessor."""
-    lay = tk.ruiz_layout(*MPC, B, SMEM)
-    assert lay == tk.RuizLayout(B, 768, 192, True, 4, 46376)
-    assert 4 * lay.smem_floats <= SMEM < 2 * 4 * lay.smem_floats
+@pytest.mark.parametrize("B,cluster", [(1, 4), (37, 4), (4096, 2)])
+def test_ruiz_mpc_shape_holds_p_in_shared_memory(B, cluster):
+    """The MPC's n = 192, m = 320: a thread-block cluster per scenario,
+    each block 4 row groups on its slice of the columns with that slice of
+    P in shared memory beside the scales, the exchange's arrays and four
+    nonzeros of A kept per group and column.  At B = 4096 two blocks of 96
+    columns (73,728 bytes of P, 103,712 bytes in all): two blocks a
+    multiprocessor; a small batch spreads a scenario over more."""
+    lay = tk.ruiz_layout(*MPC, B, SMEM, N_SM)
+    w = 192 // cluster
+    assert lay.path == "cluster" and lay.cluster == cluster
+    assert lay.p_in_smem and lay.slots == 4 and lay.width == w
+    assert lay.blocks == B * cluster
+    assert lay.threads == 4 * -(-w // 32) * 32
+    assert lay.smem_floats == 72 + 192 * w + 3 * 192 + 2 * 320 \
+        + cluster * 320 + 22 * w + 4 * w * 9
+    if B == 4096:
+        assert lay.smem_floats == 25928
+        # two blocks' shared memory (and their 1 KB each) in a
+        # multiprocessor's 228 KB
+        assert 2 * (4 * lay.smem_floats + 1024) <= 233472
+    assert lay.geometry == (1, cluster, 1, 4)
 
 
-@pytest.mark.parametrize("n,m,threads", [(30, 50, 128), (24, 40, 128),
-                                         (33, 55, 256), (256, 100, 1024),
-                                         (400, 700, 1024)])
+@pytest.mark.parametrize("n,m,threads", [(33, 55, 128), (192, 320, 384),
+                                         (45, 70, 128), (256, 100, 384),
+                                         (400, 700, 384), (120, 60, 256)])
 def test_ruiz_threads_are_four_row_groups_of_a_column_each(n, m, threads):
-    lay = tk.ruiz_layout(n, m, 4096, SMEM)
-    assert lay.threads == threads == 4 * lay.width
-    assert lay.width % 32 == 0 and lay.width <= 256
-    assert lay.width >= min(n, 256)
+    """The cluster path (n > 32): 4 row groups of W threads, a thread a
+    column of the block's slice, W a multiple of 32 and at most 96 (wider
+    slices in sweeps of 96 columns: two blocks of at most 384 threads a
+    multiprocessor)."""
+    lay = tk.ruiz_layout(n, m, 4096, SMEM, N_SM)
+    assert lay.path == "cluster"
+    assert lay.threads == threads == 4 * min(-(-lay.width // 32) * 32, 96)
+    assert lay.width == tk.ruiz_slice_width(n, lay.cluster)
+    assert lay.width % 4 == 0 and lay.width * lay.cluster >= n
 
 
 def test_ruiz_streams_p_where_it_does_not_fit():
-    # 232 x 232 floats with the rest just fit, without the lists of A's
-    # nonzeros, which P comes before; 240 x 240 do not: P is read from
-    # device memory and the lists fit
-    lay = tk.ruiz_layout(232, 100, 1, SMEM)
-    assert lay.p_in_smem and lay.slots == 0
-    assert 4 * tk.ruiz_smem_floats(232, 100, True, tk.RUIZ_SLOTS) > SMEM
-    lay = tk.ruiz_layout(240, 400, 1, SMEM)
-    assert not lay.p_in_smem and lay.slots == tk.RUIZ_SLOTS
-    assert lay.smem_floats == tk.ruiz_smem_floats(240, 400, False, 4)
-    assert 4 * tk.ruiz_smem_floats(240, 400, True, 0) > SMEM
+    # n = 400: two blocks' slices of P (320 KB) do not fit, four blocks'
+    # do; n = 680: not even eight blocks' (88 columns, 239 KB): P is read
+    # from device memory on the batch's cluster of 2, with the lists
+    lay = tk.ruiz_layout(400, 100, 4096, SMEM, N_SM)
+    assert lay.p_in_smem and lay.cluster == 4
+    assert 4 * tk.ruiz_smem_floats(400, 100, 2, True, 0) > SMEM
+    lay = tk.ruiz_layout(680, 100, 4096, SMEM, N_SM)
+    assert not lay.p_in_smem and lay.cluster == 2 and lay.slots == 4
+    assert 4 * tk.ruiz_smem_floats(680, 100, 8, True, 0) > SMEM
+    assert lay.smem_floats == tk.ruiz_smem_floats(680, 100, 2, False, 4)
 
 
 def test_ruiz_wbc_shape_keeps_the_lists():
-    lay = tk.ruiz_layout(*WBC, 4096, SMEM)
-    assert lay == tk.RuizLayout(4096, 128, 32, True, 4, 2420)
+    """The WBC's n = 30, m = 50 takes the warp path: a warp per scenario,
+    four a block, each lane holding its column of P and of A in registers
+    (no shared memory, no lists); the same width with more than 64 rows of
+    A goes to the cluster path, which keeps the lists."""
+    lay = tk.ruiz_layout(*WBC, 4096, SMEM, N_SM)
+    assert lay == tk.RuizLayout("warp", 1024, 128, 1, 4, 32, False, 0, 0)
+    assert lay.geometry == (0, 4, 0, 0)
+    lay = tk.ruiz_layout(30, 80, 4096, SMEM, N_SM)
+    assert lay.path == "cluster" and lay.slots == tk.RUIZ_SLOTS
+
+
+@pytest.mark.parametrize("B,warps", [(1, 1), (37, 1), (256, 2), (4096, 4)])
+def test_ruiz_warp_path_spreads_a_small_batch(B, warps):
+    lay = tk.ruiz_layout(*WBC, B, SMEM, N_SM)
+    assert (lay.path, lay.warps, lay.threads) == ("warp", warps, 32 * warps)
+    assert lay.blocks == -(-B // warps)
+
+
+@pytest.mark.parametrize("n,m,path", [(32, 64, "warp"), (33, 64, "cluster"),
+                                      (32, 65, "cluster"), (1, 1, "warp")])
+def test_ruiz_path_edge(n, m, path):
+    assert tk.ruiz_layout(n, m, 4096, SMEM, N_SM).path == path
+
+
+@pytest.mark.parametrize("B,cluster", [(1, 4), (16, 4), (33, 4), (65, 4),
+                                       (66, 2), (4096, 2)])
+def test_ruiz_cluster_size_follows_the_batch(B, cluster):
+    """Twice as many blocks a scenario while B of them leave the card's 132
+    multiprocessors idle, up to 4 (clusters of 8 measured slower at B = 1);
+    at n = 33 at most 2 (every block some columns)."""
+    assert tk.ruiz_layout(*MPC, B, SMEM, N_SM).cluster == cluster
+    assert tk.ruiz_layout(33, 55, B, SMEM, N_SM).cluster == min(cluster, 2)
 
 
 def test_ruiz_refuses_what_does_not_fit_even_without_p():
     with pytest.raises(ValueError, match="shared memory"):
-        tk.ruiz_layout(2000, 20000, 1, SMEM)
+        tk.ruiz_layout(2000, 20000, 1, SMEM, N_SM)
