@@ -9,10 +9,11 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the ten kernel libraries (thirteen kernels: kernel A
-              is admm_fused.cu's second entry point, the planner's three
+  2. build    builds the eleven kernel libraries (fifteen kernels: kernel A
+              is admm_fused.cu's second entry point, the planner's four
               kernels are planner.cu's) from mpctsid_tpu_torch/qp/csrc,
-              dyn/csrc and plan/csrc, one nvcc each, all started together
+              dyn/csrc, plan/csrc and mpc/csrc, one nvcc each, all started
+              together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
@@ -94,10 +95,12 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  times at B = 1 and 4096 beside the plain chains,
                  torch.linalg.inv_ex (kernel B) and the bounds
               3g the planner's kernels (plan/csrc/planner.cu: the footstep
-                 horizon, the reference rollout, the swing reference)
-                 against their plain versions at B = 1, 37 and 4096, float32
-                 (1e-5 of each output's largest entry) and float64 (1e-12),
-                 every gait, any yaw, swing durations of 0; the Ruiz kernel
+                 horizon, the reference rollout, the swing reference, the
+                 swing reference at a tick) against their plain versions at
+                 B = 1, 37 and 4096, float32 (1e-5 of each output's largest
+                 entry) and float64 (1e-12), every gait, any yaw, swing
+                 durations of 0, the swing reference at a tick bit for bit
+                 its plain chain; the Ruiz kernel
                  (qp/csrc/ruiz.cu) against admm.ruiz_equilibrate at the
                  MPC's shape (its stride-0 constraint matrix, QPs built from
                  planned states) and the WBC's (dense A from the build
@@ -107,6 +110,17 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  scenario; cluster size, blocks a multiprocessor); times at
                  B = 1, 256 and 4096 (a one-launch graph's replay, the eager
                  wrapper) beside the plain chains and the bounds
+              3h the MPC QP build kernel (mpc/csrc/mpc_build.cu: a block per
+                 scenario over the horizon's structure) against
+                 build_mpc_qp_reference on planned states of four gaits at
+                 B = 1, 37 and 4096, float32 and float64 (1e-5 / 1e-12 of
+                 each scenario's largest |P| off the ridge, of each diagonal
+                 entry, of its largest |q|), payload mass none and given;
+                 the float32 kernel as close to the float64 plain version as
+                 the float32 plain chain (factor 2); l and u bit for bit; P
+                 exactly symmetric; A the stride-0 constant; two launches
+                 bit for bit; times at B = 1 and 4096 (graph replay, eager)
+                 beside the plain chain and the bound
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -115,10 +129,11 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
               counts of every kernel (set to 0 before each rollout; the WBC
-              build, the plant step and the swing reference once a tick,
-              the footstep horizon, the reference rollout and Ruiz once a
-              period on every path, Ruiz once a tick more on the WBC
-              iteration backends); then
+              build, the plant step and the swing reference at the tick
+              once a tick, the footstep horizon, the reference rollout, the
+              MPC build and Ruiz once a period on every path, Ruiz once a
+              tick more on the WBC iteration backends; swing_foot_ref's
+              kernel never: it is off the path); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -156,19 +171,20 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               same function run eagerly on the card (outputs and the warm
               starts it writes); the profiler counts the port's kernels in
               one replay of each graph (kernels 1 and B twice per MPC
-              replay with the footstep, rollout and Ruiz kernels once, the
-              WBC backend's kernel once (A, 4) or three times with kernel B
-              and Ruiz once, the build kernel once per WBC replay, the
-              footstep kernel once per boundary replay, the swing kernel
-              once per swing replay);
+              replay with the footstep, rollout, MPC build and Ruiz kernels
+              once, the WBC backend's kernel once (A, 4) or three times
+              with kernel B and Ruiz once, the build kernel once per WBC
+              replay, the footstep kernel once per boundary replay, the
+              swing-at-a-tick kernel once per swing replay);
               replay times; the `fused` WBC replay holds at most 40
               kernels, the default's at most 45, every MPC replay at most
-              2,600; the default WBC replay captured with the plain solve
-              chain and the MPC replay with the plain K^-1, the `fused` one
-              with the plain QP build, and the boundary, MPC and swing
-              replays with the plain planner and Ruiz, each beside the
-              call as it ships, nodes and replay ms in turns (the before
-              and after);
+              2,600, every swing replay at most 4; the default WBC replay
+              captured with the plain solve chain and the MPC replay with
+              the plain K^-1 and with the plain MPC QP build, the `fused`
+              one with the plain WBC QP build, and the boundary, MPC and
+              swing replays with the plain planner and Ruiz, each beside
+              the call as it ships, nodes and replay ms in turns (the
+              before and after);
               then 0.6 s of closed loop, sync on the default
               and the fused WBC (upright, forward progress, plans consumed,
               WBC ok >= 0.99, no kernel launched outside the graphs, the
@@ -294,6 +310,7 @@ from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.mpc.srb import (CONTRACT_BUDGET, build_mpc_qp,
                                        solve_mpc_batch, solve_mpc_contract)
 import mpctsid_tpu_torch.mpc.srb as srb_mod
+from mpctsid_tpu_torch.mpc import kernels as mpc_kernels
 import mpctsid_tpu_torch.plan.footsteps as footsteps_mod
 import mpctsid_tpu_torch.plan.swing as swing_mod
 from mpctsid_tpu_torch.plan import kernels as plan_kernels
@@ -321,6 +338,7 @@ from mpctsid_tpu_torch.wbc.tsid import (CONTRACT_ITERS, WbcRefs, solve_wbc,
 # bound, whatever the power limit of the card at hand (printed beside it).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12     # outside the tensor cores
 # The tensor cores' dense TF32 rate.  A product that keeps f32 accuracy takes
 # at least three TF32 products (hi hi, hi lo, lo hi), so the f32-equivalent
 # peak of split-TF32 work is a third of it: the operations side of kernel 5.
@@ -390,6 +408,10 @@ FUSED_WBC_NODES = 40
 # inverses)
 DEFAULT_WBC_NODES = 45
 MPC_NODES = 2600
+# the host path's swing replay: the phase's cast, the swing kernel at the
+# tick and the output's cat and copy (17 with plan_swing and its plain
+# prelude on an H100)
+SWING_NODES = 4
 # (MPC backend, WBC backend) of the captured host controllers: every WBC
 # backend, the MPC on kernel 1 (the default) and on kernel 5
 HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
@@ -410,7 +432,9 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "plan_footsteps_horizon": "plan_footsteps_kernel",
                  "reference_rollout": "plan_rollout_kernel",
                  "swing_foot_ref": "plan_swing_kernel",
-                 "ruiz_equilibrate": "ruiz_kernel"}
+                 "swing_reference_at": "plan_swing_at_kernel",
+                 "ruiz_equilibrate": "ruiz_kernel",
+                 "build_mpc_qp": "mpc_build_kernel"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 # Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
 # oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
@@ -970,8 +994,8 @@ def fused_bound_ms(B: int, n: int, m: int, iters: int, adapt_rounds: int,
 
 def report_times(label, shape, kernel_ms, plain_ms, bound, smi) -> None:
     b_ms, by, bytes_ms, flops_ms, flop_per_s = bound
-    unit = ("f32" if flop_per_s == F32_FLOP_PER_S
-            else "f32-equivalent in split TF32 on the tensor cores")
+    unit = {F32_FLOP_PER_S: "f32", F64_FLOP_PER_S: "f64"}.get(
+        flop_per_s, "f32-equivalent in split TF32 on the tensor cores")
     print(f"  {label} {shape}: kernel {kernel_ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {by} (bytes "
           f"{bytes_ms:.4f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, flops "
@@ -1609,10 +1633,10 @@ RUIZ_TIMED_B = (1, 256, 4096)
 
 
 def planner_inputs(B: int, seed: int) -> dict:
-    """numpy float64 inputs of the three planner kernels: every gait id,
+    """numpy float64 inputs of the four planner kernels: every gait id,
     phases over four periods, SRB states around the standing height with
     any yaw, commands, feet near the shoulders, swing phases in [0, 1] and
-    durations (some 0: the clamp) and the apex height."""
+    durations (some 0: the clamp), ticks' fractions of an MPC step."""
     r = np.random.default_rng(seed)
     x = np.zeros((B, 12))
     x[:, 0:2] = r.normal(size=(B, 2)) * 0.5
@@ -1626,12 +1650,16 @@ def planner_inputs(B: int, seed: int) -> dict:
             + r.normal(size=(B, 4, 3)) * 0.02)
     feet[:, :, 2] = r.normal(size=(B, 4)) * 0.01
     T = r.uniform(0.06, 0.3, (B, 4)) * (r.uniform(size=(B, 4)) > 0.1)
-    return dict(gid=r.integers(0, len(GAIT_IDS), B).astype(np.int32),
-                phase=r.integers(0, 4 * 16, B).astype(np.int32), x=x,
-                v_cmd=v_cmd, feet=feet,
-                lift=feet + r.normal(size=(B, 4, 3)) * 0.05,
-                td=feet + r.normal(size=(B, 4, 3)) * 0.05,
-                s=r.uniform(0.0, 1.0, (B, 4)), T=T)
+    d = dict(gid=r.integers(0, len(GAIT_IDS), B).astype(np.int32),
+             phase=r.integers(0, 4 * 16, B).astype(np.int32), x=x,
+             v_cmd=v_cmd, feet=feet,
+             lift=feet + r.normal(size=(B, 4, 3)) * 0.05,
+             td=feet + r.normal(size=(B, 4, 3)) * 0.05,
+             s=r.uniform(0.0, 1.0, (B, 4)), T=T)
+    # the swing reference at a tick: the ticks' fractions t / 20
+    mpc_every = EngineConfig().cascade.mpc_every
+    d["t_frac"] = r.integers(0, mpc_every, B) / mpc_every
+    return d
 
 
 def planner_calls(d: dict, dtype, device):
@@ -1642,6 +1670,8 @@ def planner_calls(d: dict, dtype, device):
     gid, ph, x, vc, feet = (i(d["gid"]), i(d["phase"]), t(d["x"]),
                             t(d["v_cmd"]), t(d["feet"]))
     sw = (t(d["lift"]), t(d["td"]), t(d["s"]), t(d["T"]),
+          cfg.cascade.swing_height)
+    at = (gid, ph, t(d["t_frac"]), t(d["lift"]), t(d["td"]), cfg.mpc.dt,
           cfg.cascade.swing_height)
     fs_args = (SOLO12, cfg.mpc, cfg.cascade, gid, ph, x, vc, feet)
     return {"plan_footsteps_horizon": (
@@ -1654,7 +1684,10 @@ def planner_calls(d: dict, dtype, device):
                                                             x, vc)),
             "swing_foot_ref": (lambda: swing_mod.swing_foot_ref(*sw),
                                lambda: swing_mod.swing_foot_ref_reference(
-                                   *sw))}
+                                   *sw)),
+            "swing_reference_at": (
+                lambda: swing_mod.swing_reference_at(*at),
+                lambda: swing_mod.swing_reference_at_reference(*at))}
 
 
 def as_list(out):
@@ -1687,14 +1720,18 @@ def plan_bounds(B: int, d: dict, N: int) -> dict:
     its outputs) and its operations on this data: the footstep horizon a
     compare a step and foot and about 40 at each swing -> stance
     transition (the Raibert target with its sin, cos and sqrt), the rollout
-    14 a step, the swing reference about 60 a foot."""
+    14 a step, the swing reference about 60 a foot (at a tick 5 more: T
+    and s; the tables' 980 ints read once)."""
     g, ph = d["gid"][:B], d["phase"][:B]
     flags = GAIT_TABLES[g[:, None], (ph[:, None] + np.arange(N)) % 16]
     trans = int(((flags[:, 1:] > 0.5) & (flags[:, :-1] < 0.5)).sum())
     return {"plan_footsteps_horizon": bound_ms(
                 B * (2 + 12 + 3 + 12 + N * 12 + 12), B * 4 * N + 40 * trans),
             "reference_rollout": bound_ms(B * (6 + N * 12), B * N * 14),
-            "swing_foot_ref": bound_ms(B * 4 * (8 + 9), B * 4 * 60)}
+            "swing_foot_ref": bound_ms(B * 4 * (8 + 9), B * 4 * 60),
+            "swing_reference_at": bound_ms(
+                B * (3 + 24 + 36) + plan_kernels.LAYOUT["table_ints"],
+                B * 4 * 65)}
 
 
 def ruiz_bound_ms(B: int, n: int, m: int, iters: int, a_shared: bool):
@@ -1753,14 +1790,15 @@ def ruiz_layout_line(args, device) -> str:
 
 
 def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
-    """3g: the planner's three kernels and the Ruiz kernel against their
-    plain versions on the card, bit for bit where they agree (counted);
+    """3g: the planner's four kernels and the Ruiz kernel against their
+    plain versions on the card, bit for bit where they agree (counted; the
+    swing reference at a tick gated bit for bit);
     times at B = 1 and 4096 (Ruiz: 1, 256 and 4096; a one-launch CUDA
     graph's replay as `ms`, the eager wrapper beside it), the plain chains
     and the bounds."""
     N = EngineConfig().mpc.horizon
     errs = {k: [] for k in ("plan_footsteps_horizon", "reference_rollout",
-                            "swing_foot_ref")}
+                            "swing_foot_ref", "swing_reference_at")}
     d = planner_inputs(max(PLAN_B), 70)
     for B in PLAN_B:
         dB = {k: a[:B] for k, a in d.items()}
@@ -1773,6 +1811,9 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
                 errs[name].append((dtype, e))
                 line.append(f"{name} rel {e[0]:.3e} abs {e[1]:.3e} "
                             f"({e[2]} of {e[3]} entries part)")
+                if name == "swing_reference_at":
+                    check(e[2] == 0, f"3g: swing_reference_at, B={B} "
+                          f"{str(dtype)[6:]}: bit for bit its plain chain")
             print(f"  B={B} {str(dtype)[6:]}: " + "; ".join(line),
                   flush=True)
     timed = {}
@@ -1790,7 +1831,9 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
             ("plan_footsteps_horizon", "planner.cu",
              "mpctsid_tpu/plan/footsteps.py:37"),
             ("reference_rollout", "planner.cu", "mpctsid_tpu/mpc/srb.py:53"),
-            ("swing_foot_ref", "planner.cu", "mpctsid_tpu/plan/swing.py:14")):
+            ("swing_foot_ref", "planner.cu", "mpctsid_tpu/plan/swing.py:14"),
+            ("swing_reference_at", "planner.cu",
+             "mpctsid_tpu/plan/swing.py:14")):
         f32 = [e for dt, e in errs[name] if dt == torch.float32]
         f64 = [e for dt, e in errs[name] if dt == torch.float64]
         (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
@@ -1863,13 +1906,195 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
         ms_b256_wbc_shape=wmid[0], plain_ms_b256_wbc_shape=wmid[2],
         bound_ms_b256_wbc_shape=wmid[3][0])
     for name in ("plan_footsteps_horizon", "reference_rollout",
-                 "swing_foot_ref", "ruiz_equilibrate"):
+                 "swing_foot_ref", "swing_reference_at", "ruiz_equilibrate"):
         r = reports[name]
         print(f"  {name}: replaces {r['replaces']} (XLA's fusion; no TPU "
               f"kernel), source {r['source']}, library call none; B=4096 "
               f"{r['ms']:.4f} ms (graph replay) / {r['ms_eager']:.4f} ms "
               f"(eager), bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"plain {r['plain_ms']:.3f} ms  [{smi}]", flush=True)
+
+
+# ------------------------------- 3h. the MPC QP build as a kernel
+
+# The build kernel against build_mpc_qp_reference on the card: the same
+# function over the horizon's structure, its sums in another order than
+# the plain chain's dense Su' diag(Q) Su (cuBLAS): P off the diagonal
+# relative to the scenario's largest |P| off the ridge, P's diagonal
+# relative to each entry, q relative to the scenario's largest |q|
+# (measured on the CPU between the host build and the plain version:
+# 7.7e-7 in float32, 1.2e-15 in float64, tests/test_torch_mpc_build_
+# kernel.py).  l and u bit for bit, P exactly symmetric.
+MPC_BUILD_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+MPC_BUILD_B = (1, 37, 4096)
+
+
+def mpc_build_inputs(B: int, dtype, device) -> tuple:
+    """(x0, x_ref, feet, contacts, mass) of B scenarios in `dtype`:
+    3g's planner inputs of the four gaits planned by the footstep and
+    rollout kernels (float64 plans for float64), payloads of up to 1 kg."""
+    cfg = EngineConfig()
+    d = planner_inputs(B, 90)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    gid = torch.tensor(d["gid"] % 4, device=device)
+    ph = torch.tensor(d["phase"], device=device)
+    x, vc, feet = t(d["x"]), t(d["v_cmd"]), t(d["feet"])
+    fsteps, _ = footsteps_mod.plan_footsteps_horizon(
+        SOLO12, cfg.mpc, cfg.cascade, gid, ph, x, vc, feet)
+    x_ref = srb_mod.reference_rollout(SOLO12, cfg.mpc, x, vc)
+    cont = contacts_horizon(gid, ph, cfg.mpc.horizon, dtype)
+    mass = SOLO12.total_mass + torch.rand(B, generator=torch.Generator(
+        device="cpu").manual_seed(91), dtype=torch.float64).to(device, dtype)
+    return x, x_ref, fsteps, cont, mass
+
+
+def mpc_build_errors(got, want, cont) -> tuple:
+    """(P off-diagonal, P's diagonal, q): the largest errors relative as
+    MPC_BUILD_REL says, in float64."""
+    P, q = got[0].double(), got[1].double()
+    Pw, qw = want[0].double(), want[1].double()
+    eye = torch.eye(P.shape[-1], dtype=torch.bool, device=P.device)
+    pinned = (cont.reshape(cont.shape[0], -1) < 0.5).repeat_interleave(3, 1)
+    d, dw = P.diagonal(dim1=1, dim2=2), Pw.diagonal(dim1=1, dim2=2)
+    scale = torch.maximum(Pw.masked_fill(eye, 0.0).abs().amax((1, 2)),
+                          dw.masked_fill(pinned, 0.0).abs().amax(1))
+    off = (P - Pw).masked_fill(eye, 0.0).abs().amax((1, 2)) / scale
+    diag = ((d - dw).abs() / dw.abs()).amax(1)
+    qe = (q - qw).abs().amax(1) / qw.abs().amax(1)
+    return float(off.max()), float(diag.max()), float(qe.max())
+
+
+def mpc_build_abs(got, ref) -> tuple:
+    """(P off-diagonal, P's diagonal, q): largest absolute errors against
+    the float64 plain version `ref`."""
+    dP = got[0].double() - ref[0]
+    eye = torch.eye(dP.shape[-1], dtype=torch.bool, device=dP.device)
+    return (float(dP.masked_fill(eye, 0.0).abs().max()),
+            float(dP.diagonal(dim1=1, dim2=2).abs().max()),
+            float((got[1].double() - ref[1]).abs().max()))
+
+
+def mpc_build_bound_ms(B: int, N: int, dtype=torch.float32):
+    """x0, x_ref, feet, contacts in; P, q, l, u out (float64: twice the
+    bytes, the operations at the float64 rate).  Operations a scenario
+    over the horizon's structure: P's 136 blocks of Su_{j,i}' W_j (12 x 12
+    x 12 multiply-adds each), the N W_j = S_j B_j over B's six nonzero rows,
+    the N steps of S and g (A' S A by A's two 3 x 3 blocks: about 8
+    operations an entry), Su's blocks (A_k on a column: 24 operations), the
+    N models (about 400 operations each)."""
+    n, m, nb = 12 * N, 20 * N, N * (N + 1) // 2
+    floats = B * (12 + 12 * N + 12 * N + 4 * N + n * n + n + 2 * m)
+    flops = B * (nb * 144 * 24 + N * 144 * 12 + N * 144 * 8
+                 + (nb - N) * 12 * 24 + N * 400)
+    if dtype == torch.float64:
+        return bound_ms(2 * floats, flops, F64_FLOP_PER_S)
+    return bound_ms(floats, flops)
+
+
+def mpc_build_phase(smi: str, device, reports: dict) -> None:
+    """3h: the MPC QP build kernel against its plain version at B = 1, 37
+    and 4096, float32 and float64, with and without the payload mass; the
+    float32 kernel as close to the float64 plain version as the float32
+    plain chain (factor 2); l and u bit for bit; P symmetric; A the plain
+    version's stride-0 constant; two launches bit for bit; times at B = 1
+    and 4096 (a one-launch graph's replay, the eager wrapper) beside the
+    plain chain and the bound."""
+    cfg = EngineConfig()
+    N = cfg.mpc.horizon
+    optin, _ = kernels.device_limits(device)
+    rels, abs_err, abs_f64, closer = [], [], [], True
+    inputs = {dt: mpc_build_inputs(max(MPC_BUILD_B), dt, device)
+              for dt in (torch.float32, torch.float64)}
+    for B in MPC_BUILD_B:
+        for with_mass in (False, True):
+            ref = None
+            for dtype in (torch.float64, torch.float32):
+                x, x_ref, feet, cont, mass = (a[:B] for a in inputs[dtype])
+                m = mass if with_mass else None
+                call = lambda: build_mpc_qp(  # noqa: E731
+                    SOLO12, cfg.mpc, x, x_ref, feet, cont, total_mass=m)
+                got, again = call(), call()
+                want = srb_mod.build_mpc_qp_reference(
+                    SOLO12, cfg.mpc, x, x_ref, feet, cont, total_mass=m)
+                e = mpc_build_errors(got, want, cont)
+                tag = (f"B={B} {str(dtype)[6:]} mass "
+                       f"{'given' if with_mass else 'none'}")
+                lay = mpc_kernels.mpc_build_layout(B, N, dtype, optin)
+                check(max(e) <= MPC_BUILD_REL[dtype]
+                      and all(torch.equal(a, b) for a, b in zip(got, again))
+                      and torch.equal(got[0], got[0].transpose(1, 2))
+                      and torch.equal(got[3], want[3])
+                      and torch.equal(got[4], want[4])
+                      and got[2].data_ptr() == want[2].data_ptr()
+                      and (B == 1 or got[2].stride(0) == 0)
+                      and all(g.shape == w.shape and g.dtype == w.dtype
+                              for g, w in zip(got, want))
+                      and all_finite(got),
+                      f"3h: build_mpc_qp, {tag}: within "
+                      f"{MPC_BUILD_REL[dtype]:g} of the plain version (P off "
+                      "the diagonal, its diagonal, q), l and u bit for bit, "
+                      "P symmetric, A the plain version's constant (a "
+                      "stride-0 view), two launches bit for bit")
+                line = (f"  build_mpc_qp {tag} ({lay.blocks} blocks of "
+                        f"{lay.threads} threads, {lay.smem_bytes} bytes of "
+                        f"shared memory, {lay.blocks_per_sm} a "
+                        f"multiprocessor): rel P off-diagonal {e[0]:.3e}, "
+                        f"diagonal {e[1]:.3e}, q {e[2]:.3e}")
+                if dtype == torch.float64:
+                    ref = want
+                else:
+                    rels.append(e)
+                    abs_err.append(max(float((g.double() - w.double())
+                                             .abs().max())
+                                       for g, w in zip(got[:2], want[:2])))
+                    k, p = mpc_build_abs(got, ref), mpc_build_abs(want, ref)
+                    abs_f64.append(k)
+                    closer &= all(a <= 2.0 * b for a, b in zip(k, p))
+                    line += (f"; against the float64 plain version: kernel "
+                             f"{k[0]:.3e} / {k[1]:.3e} / {k[2]:.3e}, plain "
+                             f"float32 {p[0]:.3e} / {p[1]:.3e} / "
+                             f"{p[2]:.3e}")
+                print(line, flush=True)
+                del got, again, want
+        torch.cuda.empty_cache()
+    check(closer, "3h: the float32 kernel no farther from the float64 plain "
+                  "version than twice the float32 plain chain (P off the "
+                  "diagonal, its diagonal, q; every B, mass none and given)")
+    timed = {}
+    for B in (1, max(MPC_BUILD_B)):
+        for dtype in (torch.float32, torch.float64):
+            x, x_ref, feet, cont, _ = (a[:B] for a in inputs[dtype])
+            args = (SOLO12, cfg.mpc, x, x_ref, feet, cont)
+            call = lambda: build_mpc_qp(*args)  # noqa: E731
+            ms, eager = graph_ms(call, reps=20), time_ms(call, 2, 10)
+            plain_ms = time_ms(
+                lambda: srb_mod.build_mpc_qp_reference(*args), 1, 3)
+            bound = mpc_build_bound_ms(B, N, dtype)
+            timed[B, dtype] = (ms, eager, plain_ms, bound)
+            report_times("build_mpc_qp", f"B={B} {str(dtype)[6:]} (graph "
+                         f"replay; eager wrapper {eager:.4f} ms)", ms,
+                         plain_ms, bound, smi)
+    Bt = max(MPC_BUILD_B)
+    f32 = torch.float32
+    (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
+        timed[Bt, f32], timed[1, f32])
+    ms64 = timed[Bt, torch.float64]
+    reports["build_mpc_qp"] = dict(
+        source="mpctsid_tpu_torch/mpc/csrc/mpc_build.cu",
+        replaces="mpctsid_tpu/mpc/srb.py:120",
+        max_abs_err=max(abs_err), max_rel_err=max(max(e) for e in rels),
+        max_abs_err_vs_f64=max(max(a) for a in abs_f64),
+        ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+        ms_eager=eager, ms_b1=ms1, plain_ms_b1=plain1, bound_ms_b1=bound1[0],
+        bound_by_b1=bound1[1], ms_eager_b1=eager1, ms_f64=ms64[0],
+        plain_ms_f64=ms64[2], bound_ms_f64=ms64[3][0])
+    r = reports["build_mpc_qp"]
+    print(f"  build_mpc_qp: replaces {r['replaces']} (XLA's fusion; no TPU "
+          f"kernel), source {r['source']}, library call none; B=4096 "
+          f"{r['ms']:.4f} ms (graph replay) / {r['ms_eager']:.4f} ms "
+          f"(eager), bound {r['bound_ms']:.4f} ms by {r['bound_by']}, plain "
+          f"{r['plain_ms']:.3f} ms; float64 {r['ms_f64']:.4f} ms, plain "
+          f"{r['plain_ms_f64']:.3f} ms  [{smi}]", flush=True)
 
 
 # ---------------------------------------------------------------- main path
@@ -1886,7 +2111,9 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "plan_footsteps_horizon": footsteps_mod.plan_footsteps_horizon,
            "reference_rollout": srb_mod.reference_rollout,
            "swing_foot_ref": swing_mod.swing_foot_ref,
-           "ruiz_equilibrate": kernels.ruiz_equilibrate}
+           "swing_reference_at": swing_mod.swing_reference_at,
+           "ruiz_equilibrate": kernels.ruiz_equilibrate,
+           "build_mpc_qp": srb_mod.build_mpc_qp}
 
 
 def reset_launch_counts() -> None:
@@ -1915,22 +2142,23 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
                       mpc_backend: str = None):
     """(the kernel this rollout is there to count, every kernel's expected
     launches): the MPC's iteration kernel and kernel B (its K^-1) once per
-    MPC adapt round, the footstep horizon, the reference rollout and Ruiz
-    once per period; a whole-solve kernel (kernel A on the default backend,
-    kernel 4 on `fused`) once per WBC tick; a WBC iteration kernel and
-    kernel B once per WBC adapt round and Ruiz once per tick; the WBC
-    build, the plant step and the swing reference once per tick, whatever
-    the backends."""
+    MPC adapt round, the footstep horizon, the reference rollout, the MPC
+    build and Ruiz once per period; a whole-solve kernel (kernel A on the
+    default backend, kernel 4 on `fused`) once per WBC tick; a WBC
+    iteration kernel and kernel B once per WBC adapt round and Ruiz once
+    per tick; the WBC build, the plant step and the swing reference at the
+    tick once per tick, whatever the backends (swing_foot_ref's kernel is
+    off the path: never)."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     expect[mpc_kernel] = periods * cfg.solver.mpc_adapt_rounds
     expect["chol_inverse"] = periods * cfg.solver.mpc_adapt_rounds
     for name in ("plan_footsteps_horizon", "reference_rollout",
-                 "ruiz_equilibrate"):
+                 "ruiz_equilibrate", "build_mpc_qp"):
         expect[name] = periods
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
-    expect["swing_foot_ref"] = ticks
+    expect["swing_reference_at"] = ticks
     counted = WBC_KERNEL_OF[wbc_backend]
     if wbc_backend in WHOLE_SOLVE:
         expect[counted] += ticks
@@ -2478,7 +2706,7 @@ def host_graphs(smi: str, device) -> None:
         want_mpc[mpc_kernel] = cfg.solver.mpc_adapt_rounds
         want_mpc[KERNEL_PREFIX["chol_inverse"]] = cfg.solver.mpc_adapt_rounds
         for name in ("plan_footsteps_horizon", "reference_rollout",
-                     "ruiz_equilibrate"):
+                     "ruiz_equilibrate", "build_mpc_qp"):
             want_mpc[KERNEL_PREFIX[name]] = 1
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_wbc[KERNEL_PREFIX["wbc_build"]] = 1
@@ -2496,11 +2724,14 @@ def host_graphs(smi: str, device) -> None:
         want_bd = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_bd[KERNEL_PREFIX["plan_footsteps_horizon"]] = 1
         want_sw = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        want_sw[KERNEL_PREFIX["swing_foot_ref"]] = 1
+        want_sw[KERNEL_PREFIX["swing_reference_at"]] = 1
         check(per["boundary"][0] == want_bd and per["swing"][0] == want_sw,
               f"{tag}: the boundary graph launches the footstep kernel once, "
-              "the swing graph the swing kernel once, and no other port "
-              "kernel")
+              "the swing graph the swing-at-a-tick kernel once, and no "
+              "other port kernel")
+        check(per["swing"][1] <= SWING_NODES,
+              f"{tag}: the swing replay holds at most {SWING_NODES} kernels "
+              "(17 with plan_swing and its plain prelude)")
         print(f"    WBC replay: {per['wbc'][1]} kernels + {per['wbc'][4]} "
               f"copies/memsets, {times['wbc']:.4f} ms; MPC replay: "
               f"{per['mpc'][1]} kernels + {per['mpc'][4]} copies/memsets, "
@@ -2526,6 +2757,8 @@ def host_graphs(smi: str, device) -> None:
                                ("swing", "swing replay, plain swing "
                                 "reference / its kernel")):
                 before_after(calls[name], what, plain_planner(), smi, device)
+            before_after(calls["mpc"], "MPC replay, plain QP build / build "
+                         "kernel", plain_mpc_build(), smi, device)
         check(per["mpc"][1] <= MPC_NODES,
               f"{tag}: the MPC replay holds at most {MPC_NODES} kernels "
               "(8,994-8,999 with the plain K^-1)")
@@ -2572,8 +2805,8 @@ def plain_planner():
                 footsteps_mod.plan_footsteps_horizon_reference),
                (host_mod, "reference_rollout",
                 srb_mod.reference_rollout_reference),
-               (host_mod, "swing_foot_ref",
-                swing_mod.swing_foot_ref_reference),
+               (host_mod, "swing_reference_at",
+                swing_mod.swing_reference_at_reference),
                (admm_mod, "ruiz_equilibrate_kernel",
                 admm_mod.ruiz_equilibrate))
     shipped = [getattr(mod, name) for mod, name, _ in patched]
@@ -2584,6 +2817,20 @@ def plain_planner():
     finally:
         for (mod, name, _), fn in zip(patched, shipped):
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_mpc_build():
+    """The host path's MPC QP built by its plain chain
+    (build_mpc_qp_reference, the chain before the build kernel)."""
+    import mpctsid_tpu_torch.host as host_mod
+
+    shipped = host_mod.build_mpc_qp
+    host_mod.build_mpc_qp = srb_mod.build_mpc_qp_reference
+    try:
+        yield
+    finally:
+        host_mod.build_mpc_qp = shipped
 
 
 @contextlib.contextmanager
@@ -3713,14 +3960,17 @@ def main() -> int:
     print("== 2. build", flush=True)
     t0 = time.time()
     _build.build_libraries(kernels.build_specs() + rbd_kernels.build_specs()
-                           + plan_kernels.build_specs())
+                           + plan_kernels.build_specs()
+                           + mpc_kernels.build_specs())
     for name in kernels.LIBRARIES:
         kernels._library(name)
     for name in rbd_kernels.LIBRARIES:
         rbd_kernels._library(name)
     plan_kernels._library()
+    mpc_kernels._library()
     n_libs = (len(kernels.LIBRARIES) + len(rbd_kernels.LIBRARIES)
-              + len(plan_kernels.build_specs()))
+              + len(plan_kernels.build_specs())
+              + len(mpc_kernels.build_specs()))
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
     print(f"  {n_libs} libraries built together and loaded in "
           f"{time.time() - t0:.2f} s; nvcc seconds each: "
@@ -3996,8 +4246,14 @@ def main() -> int:
 
     # ---- 3g. the planner and Ruiz vs plain ----------------------------------
     print("== 3g. the planner kernels (footsteps, reference rollout, swing "
-          "reference) and Ruiz vs their plain versions", flush=True)
+          "reference, swing reference at a tick) and Ruiz vs their plain "
+          "versions", flush=True)
     planner_ruiz_phase(smi, device, reports)
+    torch.cuda.empty_cache()
+
+    # ---- 3h. the MPC QP build vs plain --------------------------------------
+    print("== 3h. the MPC QP build kernel vs its plain version", flush=True)
+    mpc_build_phase(smi, device, reports)
     torch.cuda.empty_cache()
 
     # ---- 4. main path at full size, each WBC backend --------------------
@@ -4022,8 +4278,11 @@ def main() -> int:
             for name in ("wbc_build", "plant_step", "chol_inverse",
                          MPC_KERNEL_OF[cfg.solver.mpc_backend],
                          "plan_footsteps_horizon", "reference_rollout",
-                         "swing_foot_ref", "ruiz_equilibrate"):
+                         "swing_reference_at", "ruiz_equilibrate",
+                         "build_mpc_qp"):
                 path_launches[name] = counts[name]
+            # swing_foot_ref's kernel left the path for swing_reference_at's
+            off_path = counts["swing_foot_ref"]
         records.append((counted, rec))
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
@@ -4038,6 +4297,7 @@ def main() -> int:
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched on the main path")
         reports[name]["launches"] = count
+    reports["swing_foot_ref"]["launches"] = off_path
 
     # ---- 5. kernels on the path vs plain on the path --------------------
     print("== 5a. mpc_backend 'm2' (kernel) vs 'torch' (plain), B=256",
@@ -4255,7 +4515,8 @@ def main() -> int:
         for name in ("wbc_build", "plant_step", "chol_inverse",
                      MPC_KERNEL_OF[cfg.solver.mpc_backend],
                      "plan_footsteps_horizon", "reference_rollout",
-                     "swing_foot_ref", "ruiz_equilibrate"):
+                     "swing_foot_ref", "swing_reference_at",
+                     "ruiz_equilibrate", "build_mpc_qp"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
     del records, rec
     torch.cuda.empty_cache()

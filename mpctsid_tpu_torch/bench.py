@@ -268,7 +268,7 @@ def _mpc_qp_batch(cc, args):
     from mpctsid_tpu_torch.cascade.engine import srb_state
     from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
     from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
-    from mpctsid_tpu_torch.plan.gait import contacts_at
+    from mpctsid_tpu_torch.plan.gait import contacts_horizon
 
     model, cfg = cc.model, cc.cfg
     _, plant, gid, vc = args[:4]
@@ -278,8 +278,7 @@ def _mpc_qp_batch(cc, args):
     fsteps, _ = plan_footsteps_horizon(model, cfg.mpc, cfg.cascade, gid,
                                        phase, x_srb, vc, feet)
     x_ref = reference_rollout(model, cfg.mpc, x_srb, vc)
-    cont = torch.stack([contacts_at(gid, phase + k, x_srb.dtype)
-                        for k in range(cfg.mpc.horizon)], dim=1)
+    cont = contacts_horizon(gid, phase, cfg.mpc.horizon, x_srb.dtype)
     return build_mpc_qp(model, cfg.mpc, x_srb, x_ref, fsteps, cont)
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from mpctsid_tpu_torch import dyn
@@ -35,9 +36,8 @@ from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
-from mpctsid_tpu_torch.plan.gait import (contacts_at, contacts_horizon,
-                                         swing_tables)
-from mpctsid_tpu_torch.plan.swing import swing_foot_ref
+from mpctsid_tpu_torch.plan.gait import contacts_at, contacts_horizon
+from mpctsid_tpu_torch.plan.swing import swing_reference_at
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.utils import (device_constant, enforce_f32_matmuls,
                                      resolve_device)
@@ -245,9 +245,12 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     # WBC consumes the stale plan's column covering the current period
     f_used = ctl.f_plan[:, 1] * contacts[..., None]
 
-    back, _, dur, _ = swing_tables(gait_id, phase, dtype)
-    T_swing = dur * cfg.mpc.dt
     mpc_every = cfg.cascade.mpc_every
+    # each tick's fraction of its MPC step, t / mpc_every, one row shared by
+    # every scenario
+    fracs = device_constant(("swing_fracs", mpc_every),
+                            lambda: np.arange(mpc_every) / mpc_every, dev,
+                            dtype)
     wbc_dt = cfg.cascade.wbc_dt
     tau_max = cfg.wbc.tau_max
 
@@ -255,8 +258,6 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
                               dev, dtype).expand(B, 12)
     rpy_ref = plant.q.new_zeros((B, 2))
     h_ref = plant.q.new_full((B,), model.h_ref)
-    dur_pos = dur > 0
-    dur_safe = torch.clamp_min(dur, 1.0)
 
     wx, wy = ctl.wbc_warm_x, ctl.wbc_warm_y
     tau_sq_sum = plant.q.new_zeros((B,))
@@ -272,11 +273,9 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
             q_t, v_t = est.q, est.v
         else:
             q_t, v_t = plant.q, plant.v
-        frac = t / mpc_every
-        s = torch.where(dur_pos, (back + frac) / dur_safe,
-                        torch.zeros_like(dur))
-        pos, vel, acc = swing_foot_ref(liftoff, touchdown, s, T_swing,
-                                       cfg.cascade.swing_height)
+        pos, vel, acc = swing_reference_at(
+            gait_id, phase, fracs[t:t + 1], liftoff, touchdown, cfg.mpc.dt,
+            cfg.cascade.swing_height)
         refs = WbcRefs(
             contacts=contacts, f_mpc=f_used,
             foot_pos_ref=pos, foot_vel_ref=vel, foot_acc_ref=acc,

@@ -26,10 +26,11 @@ counterpart of the JAX package's `jax.jit(..., donate_argnums=...)`:
     device ops between its jitted calls; here they are captured too, so that
     nothing on the card runs eagerly;
   * `_mpc` (once per period): footsteps, reference rollout, the contact
-    horizon, `build_mpc_qp` and `admm_solve` (with the default `auto_mpc`,
-    the M2 iteration kernel, two launches per solve);
-  * `_swing_ref` and `_wbc` (every tick): the swing-foot references, then
-    `WbcRefs`, `solve_wbc` and the torque clip.
+    horizon, `build_mpc_qp` (one kernel launch) and `admm_solve` (with the
+    default `auto_mpc`, the M2 iteration kernel, two launches per solve);
+  * `_swing_ref` and `_wbc` (every tick): the swing-foot references
+    (`swing_reference_at`, one kernel launch with its tables and phase),
+    then `WbcRefs`, `solve_wbc` and the torque clip.
 
 The ok-select of the warm starts (keep the previous one after a failed
 solve) happens inside the graph, which writes the new warm start into the
@@ -66,9 +67,8 @@ from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import build_tree
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
-from mpctsid_tpu_torch.plan.gait import (TABLES, contacts_horizon,
-                                         swing_tables)
-from mpctsid_tpu_torch.plan.swing import swing_foot_ref
+from mpctsid_tpu_torch.plan.gait import TABLES, contacts_horizon
+from mpctsid_tpu_torch.plan.swing import swing_reference_at
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.utils import enforce_f32_matmuls, resolve_device
 from mpctsid_tpu_torch.utils.graphs import CapturedCall
@@ -223,12 +223,9 @@ class HostController:
 
         def _swing_ref(tick, liftoff, touchdown, out):
             phase = tick[:, _PHASE][:, 0].to(torch.int32)
-            back, _, dur, _ = swing_tables(gid, phase)
-            T_swing = dur * cfg.mpc.dt
-            s = torch.where(dur > 0, (back + tick[:, _T_FRAC])
-                            / torch.clamp_min(dur, 1.0), torch.zeros_like(dur))
-            pos, vel, acc = swing_foot_ref(liftoff, touchdown, s, T_swing,
-                                           cfg.cascade.swing_height)
+            pos, vel, acc = swing_reference_at(
+                gid, phase, tick[:, _T_FRAC], liftoff, touchdown,
+                cfg.mpc.dt, cfg.cascade.swing_height)
             out.copy_(torch.cat([pos.reshape(1, 12), vel.reshape(1, 12),
                                  acc.reshape(1, 12)], dim=1))
             return out

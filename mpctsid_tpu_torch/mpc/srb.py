@@ -2,9 +2,11 @@
 (counterpart of the JAX package's mpc/srb.py, batch written out).
 
 12-state single rigid body, horizon 16, dt 20 ms, friction pyramid + force
-bounds, swing forces pinned to zero by a ridge.  The horizon recursion
-(condensation) is a Python loop over the N = 16 steps, each step one batched
-(B, 12, 12) @ (B, 12, 12 N) product.
+bounds, swing forces pinned to zero by a ridge.  On CUDA tensors the QP
+build is one launch of the hand-written kernel `mpc_build`
+(mpc/csrc/mpc_build.cu); its plain version, `build_mpc_qp_reference`, runs
+the horizon recursion (condensation) as a Python loop over the N = 16
+steps, each step one batched (B, 12, 12) @ (B, 12, 12 N) product.
 
 State x = [p(3), rpy(3), v(3), w_world(3)]; input u = 4 stacked forces (12,).
 Every argument carries a leading scenario axis.
@@ -166,6 +168,13 @@ def _constraint_matrix(N: int, mu: float) -> np.ndarray:
     return A_np
 
 
+# Swing-foot forces are pinned by a large ridge on P's diagonal instead of
+# l = u = 0 constraint rows: the row formulation makes the active set rank-
+# deficient at mu*fz = 0 (5 rows, rank 3).  The ridge shifts the solution
+# by O(|q| / W_PIN) ~ 1e-6 N.
+W_PIN = 1e6
+
+
 def build_mpc_qp(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet, contacts,
                  total_mass=None):
     """Condensed MPC QP (P, q, A, l, u) over U in R^{12N}, per scenario.
@@ -174,7 +183,65 @@ def build_mpc_qp(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet, contacts,
     {0, 1}; total_mass: optional (B,) per-scenario mass (payload).
     Returns P (B, 12N, 12N), q (B, 12N), A (B, 20N, 12N), l, u (B, 20N).  A
     is the same constant for every scenario and comes back as a stride-0
-    view; do not write into it."""
+    view; do not write into it.
+
+    CUDA tensors: one launch of the hand-written kernel `mpc_build`
+    (mpc/csrc/mpc_build.cu: a block per scenario over the horizon's
+    structure; float32 or float64), or an exception.  CPU tensors: the
+    plain version, `build_mpc_qp_reference` (about 196 kernels a call on
+    the card)."""
+    from mpctsid_tpu_torch.mpc import kernels
+
+    kernels.require_dtype("x0", x0)
+    if x0.device.type == "cpu":
+        return build_mpc_qp_reference(model, cfg, x0, x_ref, feet, contacts,
+                                      total_mass)
+    P, q, l_blk, u_blk = kernels.launch(run_mpc_build, x0.device, model, cfg,
+                                        x0, x_ref, feet, contacts, total_mass)
+    build_mpc_qp.launches += 1
+    A_c = device_constant(("mpc_A", cfg.horizon, cfg.mu),
+                          lambda: _constraint_matrix(cfg.horizon, cfg.mu),
+                          x0.device, x0.dtype)
+    return P, q, A_c.expand(x0.shape[0], -1, -1), l_blk, u_blk
+
+
+build_mpc_qp.launches = 0
+
+
+def run_mpc_build(launch_fn, model: Solo12Model, cfg: MpcConfig, x0, x_ref,
+                  feet, contacts, total_mass=None):
+    """(rc, (P, q, l, u)): the build kernel's operands packed for
+    `launch_fn` (mpc/kernels.py's signature less the stream), its outputs
+    allocated here.  Contacts and mass of another float dtype than x0's are
+    converted as the plain version converts them (l and u come back in the
+    contacts' dtype, as there)."""
+    from mpctsid_tpu_torch.dyn.kernels import rows
+    from mpctsid_tpu_torch.mpc import kernels
+
+    kernels.require_dtype("contacts", contacts)
+    B, N, dtype = x0.shape[0], cfg.horizon, x0.dtype
+    c_dtype = contacts.dtype
+    ins = [rows("x0", x0, B, (NX,), x0),
+           rows("x_ref", x_ref, B, (N, NX), x0),
+           rows("feet", feet, B, (N, N_FEET, 3), x0),
+           rows("contacts", contacts.to(dtype), B, (N, N_FEET), x0),
+           (None, 0) if total_mass is None else
+           rows("total_mass", total_mass.to(dtype), B, (1,), x0)]
+    n, m = N * NU, N * N_FEET * ROWS_PER_FOOT
+    outs = [x0.new_empty((B, n, n)), x0.new_empty((B, n)),
+            x0.new_empty((B, m)), x0.new_empty((B, m))]
+    par = [cfg.dt, -cfg.dt * model.g, cfg.w_force, W_PIN, cfg.fz_min,
+           cfg.fz_max, INF, cfg.dt / model.total_mass,
+           float(total_mass is not None), *cfg.q_diag,
+           *np.asarray(model.srb_inertia).ravel()]
+    rc = kernels.call(launch_fn, dtype, B, N, ins, outs, par)
+    P, q, l_blk, u_blk = outs
+    return rc, (P, q, l_blk.to(c_dtype), u_blk.to(c_dtype))
+
+
+def build_mpc_qp_reference(model: Solo12Model, cfg: MpcConfig, x0, x_ref,
+                           feet, contacts, total_mass=None):
+    """Plain version of `build_mpc_qp` (any device and dtype)."""
     N = cfg.horizon
     dtype = x0.dtype
     dev = x0.device
@@ -211,11 +278,8 @@ def build_mpc_qp(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet, contacts,
              - x_ref.reshape(Bsz, -1))
     q = torch.bmm((q_diag * drift)[:, None, :], Su)[:, 0]
 
-    # Swing-foot forces are pinned by a large ridge instead of l = u = 0
-    # constraint rows: the row formulation makes the active set rank-
-    # deficient at mu*fz = 0 (5 rows, rank 3).  The ridge shifts the solution
-    # by O(|q| / w_pin) ~ 1e-6 N.
-    w_pin = 1e6
+    # swing-foot forces pinned by the ridge W_PIN
+    w_pin = W_PIN
     cvec = contacts.reshape(Bsz, -1)                             # (B, N*4)
     pin = w_pin * (1.0 - cvec.repeat_interleave(3, dim=-1))
     P_diag = P.diagonal(dim1=-2, dim2=-1)

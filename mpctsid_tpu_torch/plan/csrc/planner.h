@@ -1,13 +1,13 @@
 // The planner's per-scenario arithmetic: the footstep horizon, the
-// reference rollout and the swing reference, for the kernels of
-// planner.cu.
+// reference rollout and the swing reference (from given phases, and at a
+// tick from the gait tables), for the kernels of planner.cu.
 //
 // Plain C++: every function is marked PLAN_FN, `__host__ __device__` under
 // nvcc and plain `inline` under a host compiler, so the tests build this
 // very arithmetic with g++ and run it on the CPU
 // (tests/test_torch_plan_kernels.py).  One call computes what one thread of
 // a kernel computes: a (scenario, foot) of the footstep horizon and of the
-// swing reference, a (scenario, step) of the reference rollout.  Templated
+// swing references, a (scenario, step) of the reference rollout.  Templated
 // on the value type (float, double).
 //
 // Rounding.  Each expression is the plain PyTorch version's, op by op and
@@ -41,10 +41,15 @@ namespace planner {
 constexpr int N_GAITS = 5;      // model/gaits.py's tables
 constexpr int PERIOD = 16;      // GAIT_PERIOD: MPC steps per gait cycle
 constexpr int FEET = 4;
-// the gait tables as one int array: stance flags [gait][phase][foot], then
-// the stance steps per period [gait][foot] (plan/gait.py: TABLES,
-// _STANCE_STEPS_NP)
-constexpr int TABLE_INTS = N_GAITS * PERIOD * FEET + N_GAITS * FEET;
+// the gait tables as one int array: stance flags [gait][phase][foot], the
+// stance steps per period [gait][foot], then the swing tables' steps since
+// lift-off and swing durations [gait][phase][foot] (plan/gait.py: TABLES,
+// _STANCE_STEPS_NP, _BACK_NP, _DUR_NP)
+constexpr int FLAG_INTS = N_GAITS * PERIOD * FEET;
+constexpr int STANCE_OFF = FLAG_INTS;
+constexpr int BACK_OFF = STANCE_OFF + N_GAITS * FEET;
+constexpr int DUR_OFF = BACK_OFF + FLAG_INTS;
+constexpr int TABLE_INTS = DUR_OFF + FLAG_INTS;
 
 // ---- operands, in the order of the launchers' arrays
 enum FootIn { FI_GAIT, FI_PHASE, FI_X, FI_VCMD, FI_FEET, FI_COUNT };
@@ -60,15 +65,19 @@ enum RollPar { RP_DT, RP_H_REF, RP_FUSED_BMM, RP_COUNT };
 enum SwingIn { SI_LIFT, SI_TD, SI_S, SI_T, SI_COUNT };
 enum SwingOut { SO_POS, SO_VEL, SO_ACC, SO_COUNT };
 enum SwingPar { SP_H64, SP_COUNT };     // 64 h_apex
+// the swing reference at a tick: gait id and phase (int32), the tick's
+// fraction of its MPC step, lift-off and touchdown points; dt, 64 h_apex
+enum SwingAtIn { SA_GAIT, SA_PHASE, SA_TFRAC, SA_LIFT, SA_TD, SA_COUNT };
+enum SwingAtPar { SAP_DT, SAP_H64, SAP_COUNT };
 
 // the gait tables' ints and each kernel's operand counts: inputs, outputs,
-// parameters of the footsteps, the rollout, the swing reference
-// (plan/kernels.py::LAYOUT; -1 past the end)
+// parameters of the footsteps, the rollout, the swing reference and the
+// swing reference at a tick (plan/kernels.py::LAYOUT; -1 past the end)
 inline int layout(int what)
 {
     const int counts[] = {TABLE_INTS, FI_COUNT, FO_COUNT, FP_COUNT,
                           RI_COUNT, 1, RP_COUNT, SI_COUNT, SO_COUNT,
-                          SP_COUNT};
+                          SP_COUNT, SA_COUNT, SO_COUNT, SAP_COUNT};
     return what >= 0 && what < (int)(sizeof(counts) / sizeof(int))
                ? counts[what] : -1;
 }
@@ -91,6 +100,8 @@ template <typename T> using FootArgs = Args<T, FI_COUNT, FO_COUNT, FP_COUNT>;
 template <typename T> using RollArgs = Args<T, RI_COUNT, 1, RP_COUNT>;
 template <typename T>
 using SwingArgs = Args<T, SI_COUNT, SO_COUNT, SP_COUNT>;
+template <typename T>
+using SwingAtArgs = Args<T, SA_COUNT, SO_COUNT, SAP_COUNT>;
 
 // the launchers' arrays -> Args (host side: the kernels take Args by value)
 template <typename T, int NI, int NO, int NP>
@@ -144,7 +155,18 @@ PLAN_FN int stance_flag(const int* tables, int g, int ph, int f)
 
 PLAN_FN int stance_steps(const int* tables, int g, int f)
 {
-    return tables[N_GAITS * PERIOD * FEET + g * FEET + f];
+    return tables[STANCE_OFF + g * FEET + f];
+}
+
+// steps since lift-off and swing duration in steps (0 in stance)
+PLAN_FN int swing_back(const int* tables, int g, int ph, int f)
+{
+    return tables[BACK_OFF + (g * PERIOD + wrap(ph)) * FEET + f];
+}
+
+PLAN_FN int swing_dur(const int* tables, int g, int ph, int f)
+{
+    return tables[DUR_OFF + (g * PERIOD + wrap(ph)) * FEET + f];
 }
 
 // ---- the footstep horizon: plan/footsteps.py::plan_footsteps_horizon for
@@ -255,16 +277,15 @@ PLAN_FN void rollout_step(const RollArgs<T>& a, int N, long long b, int k)
     o[11] = wz;
 }
 
-// ---- the swing reference: plan/swing.py::swing_foot_ref for foot f of
-// scenario b.  pos, vel, acc (B, 4, 3).
+// ---- the swing reference of one foot (plan/swing.py::
+// swing_foot_ref_reference): the quintic xy and sextic z from lift-off
+// `lo` to touchdown `td` at phase s of a swing of T seconds, apex H / 64;
+// pos, vel, acc at element o (and o + 1, o + 2) of the outputs.
 template <typename T>
-PLAN_FN void swing_foot(const SwingArgs<T>& a, long long b, int f)
+PLAN_FN void swing_eval(const T* lo, const T* td, T s, T Tsw, T H,
+                        T* const* out, long long o)
 {
-    const T* lo = a.template row<T>(SI_LIFT, b) + 3 * f;
-    const T* td = a.template row<T>(SI_TD, b) + 3 * f;
-    const T s = a.template row<T>(SI_S, b)[f];
-    const T ds = (T)1 / clamp_min(a.template row<T>(SI_T, b)[f], (T)1e-6);
-    const T H = a.par[SP_H64];
+    const T ds = (T)1 / clamp_min(Tsw, (T)1e-6);
     const T s2 = s * s, s3 = s * s * s;
     const T s4 = p_pow(s, (T)4), s5 = p_pow(s, (T)5);
     const T blend = (T)10 * s3 - (T)15 * s4 + (T)6 * s5;
@@ -272,17 +293,47 @@ PLAN_FN void swing_foot(const SwingArgs<T>& a, long long b, int f)
     const T ddblend = ((T)60 * s - (T)180 * s2 + (T)120 * s3) * ds * ds;
     const T one = (T)1 - s;
     const T one2 = one * one, one3 = one * one * one;
-    const long long o = (b * FEET + f) * 3;
     for (int c = 0; c < 2; ++c) {
         const T d = td[c] - lo[c];
-        a.out[SO_POS][o + c] = lo[c] + d * blend;
-        a.out[SO_VEL][o + c] = d * dblend;
-        a.out[SO_ACC][o + c] = d * ddblend;
+        out[SO_POS][o + c] = lo[c] + d * blend;
+        out[SO_VEL][o + c] = d * dblend;
+        out[SO_ACC][o + c] = d * ddblend;
     }
-    a.out[SO_POS][o + 2] = H * s3 * one3;
-    a.out[SO_VEL][o + 2] = H * ((T)3 * s2 * one3 - (T)3 * s3 * one2) * ds;
-    a.out[SO_ACC][o + 2] = H * ((T)6 * s * one3 - (T)18 * s2 * one2
-                                + (T)6 * s3 * one) * ds * ds;
+    out[SO_POS][o + 2] = H * s3 * one3;
+    out[SO_VEL][o + 2] = H * ((T)3 * s2 * one3 - (T)3 * s3 * one2) * ds;
+    out[SO_ACC][o + 2] = H * ((T)6 * s * one3 - (T)18 * s2 * one2
+                              + (T)6 * s3 * one) * ds * ds;
+}
+
+// plan/swing.py::swing_foot_ref for foot f of scenario b.  pos, vel, acc
+// (B, 4, 3).
+template <typename T>
+PLAN_FN void swing_foot(const SwingArgs<T>& a, long long b, int f)
+{
+    swing_eval(a.template row<T>(SI_LIFT, b) + 3 * f,
+               a.template row<T>(SI_TD, b) + 3 * f,
+               a.template row<T>(SI_S, b)[f], a.template row<T>(SI_T, b)[f],
+               a.par[SP_H64], a.out, (b * FEET + f) * 3);
+}
+
+// ---- plan/swing.py::swing_reference_at for foot f of scenario b: the
+// foot's steps since lift-off and swing duration from the gait tables, the
+// swing's seconds T = dur dt and phase s = (back + t_frac) / max(dur, 1)
+// (0 in stance), each one rounding as in the plain chain, then the
+// reference as swing_foot's.
+template <typename T>
+PLAN_FN void swing_at_foot(const SwingAtArgs<T>& a, const int* tables,
+                           long long b, int f)
+{
+    const int g = *a.template row<int>(SA_GAIT, b);
+    const int ph = *a.template row<int>(SA_PHASE, b);
+    const T back = (T)swing_back(tables, g, ph, f);
+    const T dur = (T)swing_dur(tables, g, ph, f);
+    const T tf = *a.template row<T>(SA_TFRAC, b);
+    const T s = dur > (T)0 ? (back + tf) / clamp_min(dur, (T)1) : (T)0;
+    swing_eval(a.template row<T>(SA_LIFT, b) + 3 * f,
+               a.template row<T>(SA_TD, b) + 3 * f, s, dur * a.par[SAP_DT],
+               a.par[SAP_H64], a.out, (b * FEET + f) * 3);
 }
 
 }  // namespace planner

@@ -70,15 +70,6 @@ def plan_footsteps_horizon(model: Solo12Model, mpc: MpcConfig,
 plan_footsteps_horizon.launches = 0
 
 
-def _int_rows(name: str, t, B: int, like):
-    """(int32 rows, stride) of a (B,) or (1,) integer tensor."""
-    if not isinstance(t, torch.Tensor) or t.dtype.is_floating_point or \
-            t.dtype == torch.bool:
-        raise TypeError(f"{name} must be an integer tensor, got "
-                        f"{getattr(t, 'dtype', type(t))}")
-    return kernels.rows(name, t.to(torch.int32), B, (1,), like, torch.int32)
-
-
 def run_footsteps(launch_fn, model: Solo12Model, mpc: MpcConfig,
                   cascade: CascadeConfig, gait_id, phase, x, v_cmd,
                   current_feet):
@@ -89,8 +80,8 @@ def run_footsteps(launch_fn, model: Solo12Model, mpc: MpcConfig,
     table without a check."""
     B = x.shape[0]
     N = mpc.horizon
-    ins = [_int_rows("gait_id", gait_id, B, x),
-           _int_rows("phase", phase, B, x),
+    ins = [kernels.int_rows("gait_id", gait_id, B, x),
+           kernels.int_rows("phase", phase, B, x),
            kernels.rows("x", x, B, (12,), x),
            kernels.rows("v_cmd", v_cmd, B, (3,), x),
            kernels.rows("current_feet", current_feet, B, (4, 3), x)]

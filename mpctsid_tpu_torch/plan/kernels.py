@@ -1,9 +1,10 @@
-"""The launch machinery of the planner's three hand-written kernels
+"""The launch machinery of the planner's four hand-written kernels
 (plan/csrc/planner.cu over planner.h, one library):
 
   * `plan_footsteps`, wrapped by plan/footsteps.py::plan_footsteps_horizon;
   * `plan_rollout`, wrapped by mpc/srb.py::reference_rollout;
-  * `plan_swing`, wrapped by plan/swing.py::swing_foot_ref.
+  * `plan_swing`, wrapped by plan/swing.py::swing_foot_ref;
+  * `plan_swing_at`, wrapped by plan/swing.py::swing_reference_at.
 
 Each stage owns its wrapper and its plain PyTorch version; this module
 knows the kernels' common C signature
@@ -32,23 +33,25 @@ import numpy as np
 import torch
 
 from mpctsid_tpu_torch.dyn.kernels import rows
-from mpctsid_tpu_torch.plan.gait import _STANCE_STEPS_NP, TABLES
+from mpctsid_tpu_torch.plan.gait import (_BACK_NP, _DUR_NP, _STANCE_STEPS_NP,
+                                         TABLES)
 from mpctsid_tpu_torch.utils import device_constant
 
 __all__ = ["LIBRARY", "CSRC", "FLAGS", "LAYOUT", "LAUNCH_ARGTYPES",
-           "gait_tables", "rows", "call", "launch", "build_specs",
-           "require_dtype", "rotation_forms"]
+           "gait_tables", "rows", "int_rows", "call", "launch",
+           "build_specs", "require_dtype", "rotation_forms"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = ("planner", ("planner.cu",), ("planner.h",))
 FLAGS = ("-fmad=false",)
 
 # planner.h's counts (`planner_layout`): the gait tables' ints; inputs,
-# outputs and parameters of the footsteps, the rollout and the swing
-# reference.  The library is refused if its counts differ.
-LAYOUT = dict(table_ints=340, foot_in=5, foot_out=2, foot_par=19,
+# outputs and parameters of the footsteps, the rollout, the swing
+# reference and the swing reference at a tick.  The library is refused if
+# its counts differ.
+LAYOUT = dict(table_ints=980, foot_in=5, foot_out=2, foot_par=19,
               roll_in=2, roll_out=1, roll_par=3, swing_in=4, swing_out=3,
-              swing_par=1)
+              swing_par=1, swing_at_in=5, swing_at_out=3, swing_at_par=2)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -60,9 +63,11 @@ LAUNCH_ARGTYPES = [_INT, _INT, _INT, _PTR, ctypes.POINTER(_PTR),
 
 
 def _tables_np() -> np.ndarray:
-    """planner.h's table layout: stance flags [gait][phase][foot], then the
-    stance steps per period [gait][foot]."""
-    out = np.concatenate([TABLES.ravel(), _STANCE_STEPS_NP.ravel()])
+    """planner.h's table layout: stance flags [gait][phase][foot], the
+    stance steps per period [gait][foot], then the swing tables' steps
+    since lift-off and swing durations [gait][phase][foot]."""
+    out = np.concatenate([TABLES.ravel(), _STANCE_STEPS_NP.ravel(),
+                          _BACK_NP.ravel(), _DUR_NP.ravel()])
     assert out.size == LAYOUT["table_ints"]
     return np.rint(out).astype(np.int32)
 
@@ -96,6 +101,16 @@ def require_dtype(what: str, t) -> None:
         raise TypeError(f"{what} must be a torch.Tensor, got {type(t)}")
     if t.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what} must be float32 or float64, got {t.dtype}")
+
+
+def int_rows(name: str, t, B: int, like):
+    """(int32 rows, stride) of a (B,) or (1,) integer tensor (gait ids,
+    phases)."""
+    if not isinstance(t, torch.Tensor) or t.dtype.is_floating_point or \
+            t.dtype == torch.bool:
+        raise TypeError(f"{name} must be an integer tensor, got "
+                        f"{getattr(t, 'dtype', type(t))}")
+    return rows(name, t.to(torch.int32), B, (1,), like, torch.int32)
 
 
 def call(launch_fn, dtype, B: int, N: int, tables, ins, outs, par) -> int:
@@ -132,7 +147,7 @@ def _library():
 
         name, src, hdr = LIBRARY
         lib = _build.load_library(name, src, hdr, csrc=CSRC, flags=FLAGS)
-        for kernel in ("footsteps", "rollout", "swing"):
+        for kernel in ("footsteps", "rollout", "swing", "swing_at"):
             fn = getattr(lib, f"plan_{kernel}_launch")
             fn.argtypes = LAUNCH_ARGTYPES + [_PTR]
             fn.restype = _INT

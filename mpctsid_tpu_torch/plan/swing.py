@@ -8,6 +8,12 @@ scenario at once; stance feet get zeros via the mask the caller applies.
 `plan_swing` (plan/csrc/planner.cu: a thread per scenario and foot;
 plan/kernels.py); on CPU tensors it runs its plain version,
 `swing_foot_ref_reference` (about 56 kernels a call on the card).
+
+`swing_reference_at` is the reference at a control tick with its whole
+per-tick chain (the gait's swing tables, the swing's seconds and phase),
+what the cascade and the host path call every tick: on CUDA tensors one
+launch of the kernel `plan_swing_at`, on CPU tensors its plain version,
+`swing_reference_at_reference`.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numbers
 import torch
 
 from mpctsid_tpu_torch.plan import kernels
+from mpctsid_tpu_torch.plan.gait import swing_tables
 
 
 def swing_foot_ref(p_liftoff, p_touchdown, s, T, h_apex):
@@ -82,3 +89,67 @@ def swing_foot_ref_reference(p_liftoff, p_touchdown, s, T, h_apex):
     vel = torch.cat([vxy, vz], dim=-1)
     acc = torch.cat([axy, az], dim=-1)
     return pos, vel, acc
+
+
+def swing_reference_at(gait_id, phase, t_frac, liftoff, touchdown, dt,
+                       h_apex):
+    """(pos, vel, acc), each (B, 4, 3): the swing reference at a control
+    tick.
+
+    gait_id, phase (B,) or (1,) integers; t_frac (B,) or (1,) (a row shared
+    by every scenario) the tick's fraction of its MPC step, in liftoff's
+    dtype; liftoff/touchdown (B, 4, 3); dt the MPC step in seconds and
+    h_apex the apex height (numbers).  A foot's swing lasts T = dur dt
+    seconds and is at phase s = (back + t_frac) / max(dur, 1) (0 in
+    stance), back and dur its steps since lift-off and swing duration from
+    the gait's tables.
+
+    CUDA tensors: one launch of the kernel `plan_swing_at` (float32 or
+    float64), or an exception.  CPU tensors: the plain version,
+    `swing_reference_at_reference`."""
+    kernels.require_dtype("liftoff", liftoff)
+    if liftoff.device.type == "cpu":
+        return swing_reference_at_reference(gait_id, phase, t_frac, liftoff,
+                                            touchdown, dt, h_apex)
+    out = kernels.launch("swing_at", run_swing_at, liftoff.device, gait_id,
+                         phase, t_frac, liftoff, touchdown, dt, h_apex)
+    swing_reference_at.launches += 1
+    return out
+
+
+swing_reference_at.launches = 0
+
+
+def run_swing_at(launch_fn, gait_id, phase, t_frac, liftoff, touchdown, dt,
+                 h_apex):
+    """(rc, (pos, vel, acc)): the kernel's operands packed for `launch_fn`
+    (plan/kernels.py's signature less the stream), its outputs allocated
+    here.  Gait ids must lie in [0, 5): the kernel reads its tables without
+    a check."""
+    for what, v in (("dt", dt), ("h_apex", h_apex)):
+        if not isinstance(v, numbers.Real):
+            raise TypeError(f"{what} must be a number, got {type(v)}")
+    like = liftoff
+    B = like.shape[0]
+    ins = [kernels.int_rows("gait_id", gait_id, B, like),
+           kernels.int_rows("phase", phase, B, like),
+           kernels.rows("t_frac", t_frac, B, (1,), like),
+           kernels.rows("liftoff", liftoff, B, (4, 3), like),
+           kernels.rows("touchdown", touchdown, B, (4, 3), like)]
+    outs = [like.new_empty((B, 4, 3)) for _ in range(3)]
+    rc = kernels.call(launch_fn, like.dtype, B, 1,
+                      kernels.gait_tables(like.device), ins, outs,
+                      [dt, 64.0 * float(h_apex)])
+    return rc, tuple(outs)
+
+
+def swing_reference_at_reference(gait_id, phase, t_frac, liftoff, touchdown,
+                                 dt, h_apex):
+    """Plain version of `swing_reference_at` (any device and dtype): the
+    swing tables' gathers, T, s, then `swing_foot_ref_reference`."""
+    back, _, dur, _ = swing_tables(gait_id, phase, liftoff.dtype)
+    T_swing = dur * dt
+    frac = t_frac.reshape(-1, 1)
+    s = torch.where(dur > 0, (back + frac) / torch.clamp_min(dur, 1.0),
+                    torch.zeros_like(dur))
+    return swing_foot_ref_reference(liftoff, touchdown, s, T_swing, h_apex)

@@ -3,15 +3,17 @@
 (admm_m2.cu), the generic refined iteration (admm_vpu.cu), the tensor-core
 iteration (admm_mma.cu), the whole solve (admm_fused.cu), kernels B
 (spd_inverse.cu) and A (admm_fused.cu's plain-backend solve), the WBC build
-and the plant step (dyn/csrc/).
+and the plant step (dyn/csrc/), Ruiz (ruiz.cu) and the MPC QP build
+(mpc/csrc/mpc_build.cu).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
-        [--kernels m2 vpu packed mma fused spd plainwarp build plant ruiz]
+        [--kernels m2 vpu packed mma fused spd plainwarp build plant ruiz
+                   mpcbuild]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit.  `--kernels` picks the parts (default: all ten):
+limit.  `--kernels` picks the parts (default: all eleven):
 
   m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
      than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
@@ -78,6 +80,14 @@ limit.  `--kernels` picks the parts (default: all ten):
      round (a patched copy that reads the cycle counter at every block
      barrier and exchange wait, `RUIZ_CLOCK_SUBS`; plus load and stores).
      Times are one-launch CUDA graphs' replays.
+  mpcbuild. (mpc/csrc/mpc_build.cu over mpc_build.h, N = 16, float32; B = 1
+     and --batch) the shipped MPC QP build timed in interleaved rounds
+     beside copies of its header with 192 and 768 threads a block (bit for
+     bit the shipped kernel: the units do not depend on the threads), a
+     copy that skips P's rows (wrong P; the time of the rest) and the
+     float64 build; and the cycles of each phase (a patched copy that
+     reads the cycle counter of thread 0 after every block barrier,
+     `MPC_BUILD_CLOCK_SUBS`).  Times are one-launch CUDA graphs' replays.
 
 Prints one JSON object at the end; with --out also writes it to
 DIR/probe_kernel_designs.json.
@@ -110,7 +120,7 @@ from mpctsid_tpu_torch.wbc import tsid  # noqa: E402
 from mpctsid_tpu_torch.wbc.tsid import WbcRefs  # noqa: E402
 
 PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp", "build",
-         "plant", "ruiz"]
+         "plant", "ruiz", "mpcbuild"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -3165,6 +3175,128 @@ def probe_ruiz(record, B, device, smem, n_sm, build, rounds=6):
             torch.cuda.empty_cache()
 
 
+# The cycle counter of thread 0 of the first STAMP_BLOCKS blocks: at the
+# start, after every block barrier of mpcb::build_scenario and at the end
+MPC_BUILD_CLOCK_SUBS = [
+    ("struct BlockExec {",
+     "constexpr int STAMPS = 40, STAMP_BLOCKS = 4096;\n"
+     "__device__ long long mpcb_stamps[STAMPS * STAMP_BLOCKS];\n\n"
+     "struct BlockExec {\n    mutable int k = 1;\n"
+     "    __device__ void stamp(int i) const\n    {\n"
+     "        if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS"
+     " && i < STAMPS)\n"
+     "            mpcb_stamps[blockIdx.x * STAMPS + i] = clock64();\n"
+     "    }"),
+    ("    __device__ void sync() const { __syncthreads(); }",
+     "    __device__ void sync() const\n    {\n        __syncthreads();\n"
+     "        stamp(k++);\n    }"),
+    ("    const BlockExec ex{};\n",
+     "    const BlockExec ex{};\n    ex.stamp(0);\n"),
+    ("                            reinterpret_cast<T*>(smem));\n}",
+     "                            reinterpret_cast<T*>(smem));\n"
+     "    __syncthreads();\n    ex.stamp(ex.k);\n}"),
+    ('extern "C" {\n',
+     'extern "C" {\n\nint mpc_build_stamps(long long* out, int n)\n{\n'
+     "    return (int)cudaMemcpyFromSymbol(out, mpcb_stamps,\n"
+     "                                     n * sizeof(long long));\n}\n")]
+# phases between the stamps at N = 16: (name, first stamp, last stamp)
+MPC_BUILD_PHASES = [("models (B_k, M_k)", 0, 1), ("Su's blocks, drift", 1, 2),
+                    ("S_15, g_15", 2, 3),
+                    ("backward recursion: S_j, g_j, W_j, q_j", 3, 34),
+                    ("P's rows, l, u", 34, 35)]
+
+
+def mpc_build_inputs(B, dtype, device):
+    """B trot scenarios from standing at a walking command (values do not
+    change the build's time)."""
+    from mpctsid_tpu_torch.mpc import srb
+    from mpctsid_tpu_torch.plan.gait import contacts_horizon
+
+    cfg = EngineConfig()
+    x0 = torch.zeros((B, 12), dtype=dtype, device=device)
+    x0[:, 2] = SOLO12.h_ref
+    vc = torch.tensor([0.3, 0.0, 0.2], dtype=dtype,
+                      device=device).expand(B, 3).contiguous()
+    x_ref = srb.reference_rollout_reference(SOLO12, cfg.mpc, x0, vc)
+    feet = torch.as_tensor(SOLO12.shoulder_offsets, dtype=dtype,
+                           device=device).expand(B, 16, 4, 3).contiguous()
+    gid = torch.zeros((B,), dtype=torch.int32, device=device)
+    ph = torch.arange(B, dtype=torch.int32, device=device) % 16
+    return x0, x_ref, feet, contacts_horizon(gid, ph, 16, dtype)
+
+
+def probe_mpc_build(record, B, device, build, rounds=6):
+    """The shipped MPC build against copies with other block sizes and one
+    without P's rows, in interleaved rounds, and the share of each phase's
+    cycles (`MPC_BUILD_CLOCK_SUBS`)."""
+    from mpctsid_tpu_torch.mpc import kernels as mk
+    from mpctsid_tpu_torch.mpc import srb
+
+    cfg = EngineConfig()
+    csrc = mk.CSRC
+    specs = {f"{t} threads a block": dict(
+                 subs=[], source="mpc_build.cu", csrc=csrc,
+                 header_subs={"mpc_build.h": [(
+                     "constexpr int THREADS = 384;",
+                     f"constexpr int THREADS = {t};")]})
+             for t in (192, 768)}
+    specs["no P rows"] = dict(
+        subs=[], source="mpc_build.cu", csrc=csrc,
+        header_subs={"mpc_build.h": [(
+            "        if (u < N * n)\n            p_unit(",
+            "        if (u < N * n)\n            continue;\n"
+            "        else if (N < 0)\n            p_unit(")]})
+    specs["clock"] = dict(subs=MPC_BUILD_CLOCK_SUBS, source="mpc_build.cu",
+                          csrc=csrc)
+    libs = build_variants(specs, build)
+    shipped = mk._library()
+    fns = {"shipped": shipped.mpc_build_launch}
+    for name, lib in libs.items():
+        lib.mpc_build_launch.argtypes = mk.LAUNCH_ARGTYPES + [ctypes.c_void_p]
+        lib.mpc_build_launch.restype = ctypes.c_int
+        fns[name] = lib.mpc_build_launch
+
+    def call(name, args):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc, outs = srb.run_mpc_build(
+            lambda *a: fns[name](*a, stream), SOLO12, cfg.mpc, *args)
+        if rc != 0:
+            raise RuntimeError(f"mpc_build {name}: CUDA error {rc}")
+        return outs
+
+    for b in sorted({1, B}):
+        args = mpc_build_inputs(b, torch.float32, device)
+        args64 = mpc_build_inputs(b, torch.float64, device)
+        ship = call("shipped", args)
+        for t in (192, 768):
+            got = call(f"{t} threads a block", args)
+            record("mpcbuild", what="bits", B=b, design=f"{t} threads",
+                   parted_vs_shipped=sum(int((x != y).sum())
+                                         for x, y in zip(ship, got)))
+        designs = {name: (lambda name=name: call(name, args))
+                   for name in fns if name != "clock"}
+        designs["shipped, float64"] = lambda: call("shipped", args64)
+        replays = {name: graphed(c) for name, c in designs.items()}
+        interleaved(record, "mpcbuild", replays, rounds, warmup=2,
+                    reps=10 if b > 1 else 50, B=b)
+        del replays
+        call("clock", args)
+        stamps = np.zeros(40 * 4096, dtype=np.int64)
+        rc = libs["clock"].mpc_build_stamps(
+            stamps.ctypes.data_as(ctypes.c_void_p), stamps.size)
+        if rc != 0:
+            raise RuntimeError(f"mpc_build_stamps: CUDA error {rc}")
+        st = stamps.reshape(4096, 40)[:min(b, 4096)].astype(np.float64)
+        total = st[:, 35] - st[:, 0]
+        for phase, i, j in MPC_BUILD_PHASES:
+            cyc = st[:, j] - st[:, i]
+            record("mpcbuild", what="share of a block's cycles", B=b,
+                   phase=phase, share=round(float((cyc / total).mean()), 4),
+                   mean_cycles=float(cyc.mean()))
+        del args, args64, ship
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -3183,7 +3315,7 @@ def main() -> int:
     report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
               "layouts": [],
               "variants": [], "cluster_phases": [], "fused": [], "spd": [],
-              "plainwarp": [], "rbd": [], "ruiz": []}
+              "plainwarp": [], "rbd": [], "ruiz": [], "mpcbuild": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -3214,6 +3346,9 @@ def main() -> int:
     if "ruiz" in a.kernels:
         torch.cuda.empty_cache()
         probe_ruiz(record, B, device, smem, n_sm, build)
+    if "mpcbuild" in a.kernels:
+        torch.cuda.empty_cache()
+        probe_mpc_build(record, B, device, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

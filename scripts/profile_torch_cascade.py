@@ -55,6 +55,7 @@ from mpctsid_tpu_torch.model.gaits import GAIT_IDS  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout  # noqa: E402
 from mpctsid_tpu_torch.plan import (contacts_at,  # noqa: E402
+                                    contacts_horizon,
                                     plan_footsteps_horizon)
 from mpctsid_tpu_torch.qp import kernels  # noqa: E402
 from mpctsid_tpu_torch.qp.admm import admm_solve  # noqa: E402
@@ -113,8 +114,7 @@ def profile_batch(B: int, device, wbc_backends, mpc_backend=None,
         fsteps, _ = plan_footsteps_horizon(SOLO12, cfg.mpc, cfg.cascade, gid,
                                            ctl.phase, x_srb, v, feet_now)
         x_ref = reference_rollout(SOLO12, cfg.mpc, x_srb, v)
-        cont_h = torch.stack([contacts_at(gid, ctl.phase + k, dtype)
-                              for k in range(N)], dim=1)
+        cont_h = contacts_horizon(gid, ctl.phase, N, dtype)
         return build_mpc_qp(SOLO12, cfg.mpc, x_srb, x_ref, fsteps, cont_h)
 
     qp = assemble()

@@ -289,6 +289,19 @@ int swing(int B, int, const void*, const void* const* in,
     return 0;
 }
 
+template <typename T>
+int swing_at(int B, int, const void* tables, const void* const* in,
+             const long long* stride, void* const* out, const double* par)
+{
+    planner::SwingAtArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::swing_at_foot<T>(a, static_cast<const int*>(tables), b,
+                                      f);
+    return 0;
+}
+
 }  // namespace
 
 #define PLAN_ENTRY(name, body)                                              \
@@ -306,18 +319,20 @@ extern "C" int planner_layout(int what) { return planner::layout(what); }
 PLAN_ENTRY(plan_footsteps_host, footsteps)
 PLAN_ENTRY(plan_rollout_host, rollout)
 PLAN_ENTRY(plan_swing_host, swing)
+PLAN_ENTRY(plan_swing_at_host, swing_at)
 '''
 
 
 def build_planner_harness(directory):
     """mpctsid_tpu_torch/plan/csrc/planner.h, the per-thread arithmetic of
-    the planner's three kernels, built with the host compiler into
+    the planner's four kernels, built with the host compiler into
     `directory` (-std=c++17: no floating-point contraction), each kernel's
     threads run one after another with the kernels' C signature (less the
     stream).  Returns a namespace of ctypes functions `footsteps`,
-    `rollout`, `swing`, which the wrappers' packing (`plan.footsteps.
-    run_footsteps`, `mpc.srb.run_rollout`, `plan.swing.run_swing`) takes,
-    and `layout(i)` (planner.h's counts)."""
+    `rollout`, `swing`, `swing_at`, which the wrappers' packing
+    (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
+    `plan.swing.run_swing`, `plan.swing.run_swing_at`) takes, and
+    `layout(i)` (planner.h's counts)."""
     import ctypes
     import subprocess
     import types
@@ -334,7 +349,7 @@ def build_planner_harness(directory):
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("footsteps", "rollout", "swing"):
+    for name in ("footsteps", "rollout", "swing", "swing_at"):
         fn = getattr(lib, f"plan_{name}_host")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -494,3 +509,99 @@ def build_ruiz_harness(directory):
                                  threads=lib.ruiz_threads,
                                  slice_width=lib.ruiz_slice_width,
                                  tree_sum=tree_sum, block_sum=block_sum)
+
+
+MPC_BUILD_HARNESS = r'''
+#include <limits>
+#include <vector>
+
+#include "mpc_build.h"
+
+namespace {
+
+// a scenario at a time, its block's units one after another in each phase
+// (reversed when `reverse`), in fresh shared memory filled with NaN: a
+// unit that read what no earlier phase wrote would show
+template <typename T>
+int build(int B, int N, const void* const* in, const long long* stride,
+          void* const* out, const double* par, bool reverse)
+{
+    mpcb::Args<T> a;
+    mpcb::fill(a, in, stride, out, par);
+    std::vector<T> smem((size_t)mpcb::smem_values(N));
+    const mpcb::HostExec ex{reverse};
+    for (long long b = 0; b < B; ++b) {
+        for (auto& v : smem) v = std::numeric_limits<T>::quiet_NaN();
+        mpcb::build_scenario<T>(ex, a, N, b, smem.data());
+    }
+    return 0;
+}
+
+int entry(int dtype, int B, int N, const void* const* in,
+          const long long* stride, void* const* out, const double* par,
+          bool reverse)
+{
+    return dtype == 0 ? build<float>(B, N, in, stride, out, par, reverse)
+                      : build<double>(B, N, in, stride, out, par, reverse);
+}
+
+}  // namespace
+
+extern "C" {
+
+int mpc_build_layout(int what) { return mpcb::layout(what); }
+
+long long mpc_build_smem_values(int N) { return mpcb::smem_values(N); }
+
+int mpc_build_host(int dtype, int B, int N, const void* const* in,
+                   const long long* stride, void* const* out,
+                   const double* par)
+{
+    return entry(dtype, B, N, in, stride, out, par, false);
+}
+
+int mpc_build_host_reversed(int dtype, int B, int N, const void* const* in,
+                            const long long* stride, void* const* out,
+                            const double* par)
+{
+    return entry(dtype, B, N, in, stride, out, par, true);
+}
+
+}  // extern "C"
+'''
+
+
+def build_mpc_build_harness(directory):
+    """mpctsid_tpu_torch/mpc/csrc/mpc_build.h, the MPC build kernel's
+    per-scenario body, built with the host compiler into `directory`: a
+    block's units one after another in each phase (mpcb::HostExec, in order
+    or reversed), in NaN-filled shared memory, with the launcher's C
+    signature less the stream.  Returns a namespace of ctypes functions:
+    `launch` and `launch_reversed` (which `mpc.srb.run_mpc_build` takes),
+    `layout(i)` and `smem_values(N)` (mpc_build.h's counts)."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.mpc import kernels
+
+    d = Path(directory).resolve()
+    cc = d / "mpc_build_harness.cc"
+    cc.write_text(MPC_BUILD_HARNESS)
+    so = d / "libmpc_build_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("mpc_build_host", "mpc_build_host_reversed"):
+        getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    lib.mpc_build_layout.argtypes = [ctypes.c_int]
+    lib.mpc_build_layout.restype = ctypes.c_int
+    lib.mpc_build_smem_values.argtypes = [ctypes.c_int]
+    lib.mpc_build_smem_values.restype = ctypes.c_longlong
+    return types.SimpleNamespace(launch=lib.mpc_build_host,
+                                 launch_reversed=lib.mpc_build_host_reversed,
+                                 layout=lib.mpc_build_layout,
+                                 smem_values=lib.mpc_build_smem_values)

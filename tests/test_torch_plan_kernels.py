@@ -2,9 +2,9 @@
 with g++ (`_torch_port_util.build_planner_harness`: each kernel's threads
 run one after another, with the kernels' C signature less the stream) and
 driven by the wrappers' own packing (`plan.footsteps.run_footsteps`,
-`mpc.srb.run_rollout`, `plan.swing.run_swing`), held against the plain
-versions and against the JAX functions on numpy-seeded inputs of four
-gaits.
+`mpc.srb.run_rollout`, `plan.swing.run_swing`, `plan.swing.run_swing_at`),
+held against the plain versions and against the JAX functions on
+numpy-seeded inputs of four gaits.
 
 Tolerances.  The header writes each expression of the plain version op by
 op, but in the card's rounding (a tensor over a Python number is the product
@@ -17,7 +17,10 @@ version (positions below 2 m; measured 6e-8), float64 within 1e-12
 tests/test_torch_plan.py (2e-6 for the footsteps; 1e-6 / 1e-5 / 1e-4 and
 relative 1e-5 for the swing reference where T > 0; where T = 0 is clamped
 to 1e-6, relative 1e-3: there the acceleration's bracket cancels and
-ds^2 = 1e12 scales the rounding up).
+ds^2 = 1e12 scales the rounding up).  The swing reference at a tick
+(`swing_reference_at`) forms T and s op by op as its plain prelude does:
+bit for bit `plan_swing` on the prelude's T and s, over every gait, phase
+and tick.
 """
 
 import numpy as np
@@ -31,6 +34,7 @@ from mpctsid_tpu.config import EngineConfig as JEngineConfig
 from mpctsid_tpu.model.solo12 import SOLO12 as J_SOLO12
 from mpctsid_tpu.mpc import srb as jsrb
 from mpctsid_tpu.plan import footsteps as jfs
+from mpctsid_tpu.plan import gait as jgait
 from mpctsid_tpu.plan import swing as jswing
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS
@@ -39,6 +43,7 @@ from mpctsid_tpu_torch.mpc import srb as tsrb
 from mpctsid_tpu_torch.plan import footsteps as tfs
 from mpctsid_tpu_torch.plan import kernels as pk
 from mpctsid_tpu_torch.plan import swing as tswing
+from mpctsid_tpu_torch.plan.gait import swing_tables
 
 from _torch_port_util import build_planner_harness, jj, npy
 
@@ -78,6 +83,32 @@ def inputs(seed, B):
                 v_cmd=v_cmd, feet=feet,
                 lift=feet + r.normal(size=(B, 4, 3)) * 0.05,
                 td=feet + r.normal(size=(B, 4, 3)) * 0.05, s=s, T=T)
+
+
+def tick_inputs(seed, dtype):
+    """Every (gait, phase over three periods, tick of the period) of the
+    swing reference at a tick: gait ids and phases (int32), the ticks'
+    fractions t / 20 in `dtype`, lift-off and touchdown points."""
+    r = np.random.default_rng(seed)
+    g, ph, t = np.meshgrid(np.arange(len(GAIT_IDS)), np.arange(48),
+                           np.arange(CFG.cascade.mpc_every), indexing="ij")
+    B = g.size
+    lift = r.normal(size=(B, 4, 3)) * 0.1
+    return (torch.tensor(g.ravel(), dtype=torch.int32),
+            torch.tensor(ph.ravel(), dtype=torch.int32),
+            torch.tensor(t.ravel() / CFG.cascade.mpc_every, dtype=dtype),
+            torch.tensor(lift, dtype=dtype),
+            torch.tensor(lift + r.normal(size=(B, 4, 3)) * 0.05,
+                         dtype=dtype))
+
+
+def plain_prelude(gid, phase, t_frac, dtype):
+    """The swing reference's per-tick prelude as the cascade and the host
+    path ran it before `swing_reference_at`: (s, T)."""
+    back, _, dur, _ = swing_tables(gid, phase, dtype)
+    s = torch.where(dur > 0, (back + t_frac[:, None])
+                    / torch.clamp_min(dur, 1.0), torch.zeros_like(dur))
+    return s, dur * CFG.mpc.dt
 
 
 def tensors(d, dtype):
@@ -257,3 +288,89 @@ def test_argument_checks(harness):
     with pytest.raises(ValueError):
         tswing.run_swing(harness.swing, t["lift"], t["td"],
                          t["s"][:, :3], t["T"], 0.05)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swing_at_header_is_plan_swing_on_the_plain_prelude(harness, dtype):
+    """The swing reference at a tick: bit for bit the swing kernel's
+    arithmetic on the plain prelude's s and T, at every gait, phase and
+    tick; against the plain version within the swing reference's
+    tolerance."""
+    gid, ph, tf, lift, td = tick_inputs(9, dtype)
+    h = CFG.cascade.swing_height
+    rc, got = tswing.run_swing_at(harness.swing_at, gid, ph, tf, lift, td,
+                                  CFG.mpc.dt, h)
+    s, T = plain_prelude(gid, ph, tf, dtype)
+    rc2, want = tswing.run_swing(harness.swing, lift, td, s, T, h)
+    assert rc == rc2 == 0
+    for g, w in zip(got, want):
+        assert g.shape == (gid.shape[0], 4, 3) and g.dtype == dtype
+        assert torch.equal(g, w)
+    # the plain version's s ** 4 and s ** 5 are PyTorch's vectorized
+    # powers: an ulp of them, amplified where the velocity's bracket
+    # 30 s^2 - 60 s^3 + 30 s^4 cancels near s = 1, parts the float32
+    # velocity by 1.5e-6 of 1 + |v| (measured)
+    plain = tswing.swing_reference_at_reference(gid, ph, tf, lift, td,
+                                                CFG.mpc.dt, h)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    for g, w in zip(got, plain):
+        assert float(((g - w).abs() / (1.0 + w.abs())).max()) < tol
+
+
+def test_swing_at_plain_version_against_jax():
+    """swing_reference_at_reference against the JAX package's swing_tables
+    and swing_foot_ref with the cascade's prelude, in float32: the budgets
+    of test_swing_header_against_jax."""
+    gid, ph, tf, lift, td = tick_inputs(10, torch.float32)
+    h = CFG.cascade.swing_height
+    got = tswing.swing_reference_at_reference(gid, ph, tf, lift, td,
+                                              CFG.mpc.dt, h)
+
+    def one(g, p, f, lo, tdn):
+        back, _, dur, _ = jgait.swing_tables(g, p)
+        s = jnp.where(dur > 0, (back + f) / jnp.maximum(dur, 1.0), 0.0)
+        return jswing.swing_foot_ref(lo, tdn, s, dur * JCFG.mpc.dt, h)
+
+    want = jax.vmap(one)(jnp.asarray(npy(gid)), jnp.asarray(npy(ph)),
+                         jj(npy(tf)), jj(npy(lift)), jj(npy(td)))
+    _, _, dur, _ = swing_tables(gid, ph)
+    live = npy(dur) > 0
+    for g, w, tol in zip(got, want, [1e-6, 1e-5, 1e-4]):
+        np.testing.assert_allclose(npy(g)[live], npy(w)[live], atol=tol,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(npy(g)[~live], npy(w)[~live], atol=tol,
+                                   rtol=1e-3)
+
+
+def test_swing_at_shared_tick_row_and_cpu_wrapper(harness):
+    """A tick fraction shared by every scenario (a leading axis of 1, the
+    cascade's stride-0 row) gives what a per-scenario copy gives, bit for
+    bit; on CPU tensors the entry is its plain version; its arguments are
+    checked."""
+    gid, ph, tf, lift, td = tick_inputs(11, torch.float32)
+    h = CFG.cascade.swing_height
+    shared = tf[5:6]
+    _, a = tswing.run_swing_at(harness.swing_at, gid, ph, shared, lift, td,
+                               CFG.mpc.dt, h)
+    _, b = tswing.run_swing_at(harness.swing_at, gid, ph,
+                               shared.expand(gid.shape[0]).contiguous(), lift,
+                               td, CFG.mpc.dt, h)
+    assert all(torch.equal(g, w) for g, w in zip(a, b))
+    for frac in (tf, shared, shared[:, None]):
+        got = tswing.swing_reference_at(gid, ph, frac, lift, td, CFG.mpc.dt,
+                                        h)
+        want = tswing.swing_reference_at_reference(gid, ph, frac, lift, td,
+                                                   CFG.mpc.dt, h)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(TypeError):
+        tswing.run_swing_at(harness.swing_at, gid.float(), ph, tf, lift, td,
+                            CFG.mpc.dt, h)
+    with pytest.raises(TypeError):
+        tswing.run_swing_at(harness.swing_at, gid, ph, tf.double(), lift, td,
+                            CFG.mpc.dt, h)
+    with pytest.raises(TypeError):
+        tswing.run_swing_at(harness.swing_at, gid, ph, tf, lift, td,
+                            torch.tensor(CFG.mpc.dt), h)
+    with pytest.raises(ValueError):
+        tswing.run_swing_at(harness.swing_at, gid, ph, tf, lift[:, :3], td,
+                            CFG.mpc.dt, h)
