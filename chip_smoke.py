@@ -9,11 +9,11 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the eleven kernel libraries (fifteen kernels: kernel A
-              is admm_fused.cu's second entry point, the planner's four
-              kernels are planner.cu's) from mpctsid_tpu_torch/qp/csrc,
-              dyn/csrc, plan/csrc and mpc/csrc, one nvcc each, all started
-              together
+  2. build    builds the thirteen kernel libraries (nineteen kernels: kernel
+              A is admm_fused.cu's second entry point, the planner's four
+              kernels are planner.cu's, the solve tail's three
+              solve_tail.cu's) from mpctsid_tpu_torch/qp/csrc, dyn/csrc,
+              plan/csrc and mpc/csrc, one nvcc each, all started together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
@@ -121,6 +121,24 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  exactly symmetric; A the stride-0 constant; two launches
                  bit for bit; times at B = 1 and 4096 (graph replay, eager)
                  beside the plain chain and the bound
+              3i the period head (dyn/csrc/period_head.cu: a warp per
+                 scenario over rbd.h's leg kinematics) against
+                 period_head_reference at B = 1, 256 and 4096, float32 and
+                 float64 (1e-5 / 1e-12 of each output's largest entry), the
+                 lift-off points of the feet that stay put bit for bit, the
+                 layout rbd_layout's; the solve tail (qp/csrc/
+                 solve_tail.cu) on the MPC's QPs (the build kernel, its
+                 stride-0 A, the blocks declared, an iterate of kernel 1)
+                 and WBC-sized QPs (dense A, an iterate of kernel 2) at
+                 B = 1, 256 and 4096: kkt_blocks against the dense K (1e-6
+                 of each scenario's largest |K|; rho_vec and K off the
+                 blocks bit for bit), adapt_rho against the plain chain (as
+                 close to float64 as it, within 1e-4), unscale against
+                 _unscaled_solution (x and y bit for bit, z / prim / dual
+                 within 1e-5 of their scales, ok flips counted and allowed
+                 only where prim lies within that of status_tol); two
+                 launches bit for bit; times (graph replay, eager, the
+                 plain chain eager and as a graph) beside the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -129,11 +147,13 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
               counts of every kernel (set to 0 before each rollout; the WBC
-              build, the plant step and the swing reference at the tick
-              once a tick, the footstep horizon, the reference rollout, the
-              MPC build and Ruiz once a period on every path, Ruiz once a
-              tick more on the WBC iteration backends; swing_foot_ref's
-              kernel never: it is off the path); then
+              build, the plant step, the swing reference at the tick and
+              the epilogue once a tick, the period head, the footstep
+              horizon, the reference rollout, the MPC build, Ruiz and the
+              epilogue once a period and kkt_blocks once an MPC adapt
+              round on every path, the rho adaptation between rounds,
+              Ruiz once a tick more on the WBC iteration backends;
+              swing_foot_ref's kernel never: it is off the path); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -172,9 +192,11 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               starts it writes); the profiler counts the port's kernels in
               one replay of each graph (kernels 1 and B twice per MPC
               replay with the footstep, rollout, MPC build and Ruiz kernels
-              once, the WBC backend's kernel once (A, 4) or three times
-              with kernel B and Ruiz once, the build kernel once per WBC
-              replay, the footstep kernel once per boundary replay, the
+              once, kkt_blocks twice, adapt_rho and unscale once; the WBC
+              backend's kernel once (A, 4) or three times with kernel B,
+              Ruiz once and adapt_rho twice, the build kernel and unscale
+              once per WBC replay; the period head and the footstep kernel
+              once per boundary replay, at most 6 kernels in all; the
               swing-at-a-tick kernel once per swing replay);
               replay times; the `fused` WBC replay holds at most 40
               kernels, the default's at most 45, every MPC replay at most
@@ -184,7 +206,9 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               one with the plain WBC QP build, and the boundary, MPC and
               swing replays with the plain planner and Ruiz, each beside
               the call as it ships, nodes and replay ms in turns (the
-              before and after);
+              before and after), and so the boundary replay with the
+              plain period head, the MPC and the default WBC replays with
+              the plain solve tail (K, rho adaptation, epilogue);
               then 0.6 s of closed loop, sync on the default
               and the fused WBC (upright, forward progress, plans consumed,
               WBC ok >= 0.99, no kernel launched outside the graphs, the
@@ -242,9 +266,9 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               field and metric against eager (GRAPH_TOL; bit for bit
               printed), and the 3-period chain through
               cascade_rollout_graphed; 12b the profiler counts the kernels
-              inside one replay (kernels 1 and B twice, the WBC's kernel 20
-              or 60 times with kernel B 60 more, kernel 5 62 times: an eager
-              period's launches), the
+              per replay in a window of three (kernels 1 and B twice, the
+              WBC's kernel 20 or 60 times with kernel B 60 more, kernel 5 62
+              times: an eager period's launches), the
               copies, the device-busy ms; 12c period wall ms eager (phase
               4's) and graphed, median of 3, each ended by a synchronize,
               the idle share of a graphed period, the capture seconds and
@@ -307,8 +331,9 @@ from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.host import HostController
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAITS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
-from mpctsid_tpu_torch.mpc.srb import (CONTRACT_BUDGET, build_mpc_qp,
-                                       solve_mpc_batch, solve_mpc_contract)
+from mpctsid_tpu_torch.mpc.srb import (CONTRACT_BUDGET, MPC_A_BLOCKS,
+                                       build_mpc_qp, solve_mpc_batch,
+                                       solve_mpc_contract)
 import mpctsid_tpu_torch.mpc.srb as srb_mod
 from mpctsid_tpu_torch.mpc import kernels as mpc_kernels
 import mpctsid_tpu_torch.plan.footsteps as footsteps_mod
@@ -321,6 +346,7 @@ from mpctsid_tpu_torch.oracle import mpc as ompc
 from mpctsid_tpu_torch.oracle import planner as oplanner
 from mpctsid_tpu_torch.oracle import sim as osim
 from mpctsid_tpu_torch.qp import _build, kernels
+from mpctsid_tpu_torch.qp import tail as kernels_tail
 from mpctsid_tpu_torch.qp import admm as admm_mod
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.qp.blockinv import spd_inverse_chol
@@ -403,11 +429,15 @@ TICK_BUDGET_MS = 2.0       # p50 single-tick latency at B = 1 (BASELINE.json:2)
 # the plain QP build on an H100)
 FUSED_WBC_NODES = 40
 # the same for the default WBC (kernel A in kernel 4's place; 3,014-3,019
-# with the plain solve chain on an H100), and the host path's MPC replay on
-# kernel 1 with kernel B's two inverses (8,994-8,999 with the plain
-# inverses)
-DEFAULT_WBC_NODES = 45
+# with the plain solve chain, 36 with the plain epilogue on an H100), and
+# the host path's MPC replay on kernel 1 with kernel B's two inverses
+# (8,994-8,999 with the plain inverses)
+DEFAULT_WBC_NODES = 35
 MPC_NODES = 2600
+# the host path's boundary replay: the phase's cast, the period head, the
+# footstep kernel, the touchdown select and the snapshot's cat (173 with
+# the plain period head on an H100)
+BOUNDARY_NODES = 6
 # the host path's swing replay: the phase's cast, the swing kernel at the
 # tick and the output's cat and copy (17 with plan_swing and its plain
 # prelude on an H100)
@@ -434,7 +464,11 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "swing_foot_ref": "plan_swing_kernel",
                  "swing_reference_at": "plan_swing_at_kernel",
                  "ruiz_equilibrate": "ruiz_kernel",
-                 "build_mpc_qp": "mpc_build_kernel"}
+                 "build_mpc_qp": "mpc_build_kernel",
+                 "period_head": "period_head_kernel",
+                 "kkt_blocks": "tail_kkt_kernel",
+                 "adapt_rho": "tail_adapt_kernel",
+                 "unscale": "tail_unscale_kernel"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 # Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
 # oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
@@ -1155,7 +1189,8 @@ def solve_kernels_phase(smi: str, device, reports: dict) -> None:
     with recorded_launches(log):
         admm_solve(*wbc[:5], x0=wbc[6], y0=wbc[7], iters=40, adapt_rounds=3,
                    rho=0.1, backend="vpu")
-        admm_solve(*mpc_qp, backend="m2", **INLOOP_MPC)
+        admm_solve(*mpc_qp, backend="m2", a_blocks=MPC_A_BLOCKS,
+                   **INLOOP_MPC)
     for n in (30, 192):
         pairs = [(a[0], g[0]) for name, a, _, g in log
                  if name == "chol_inverse" and a[0].shape[-1] == n]
@@ -2097,6 +2132,337 @@ def mpc_build_phase(smi: str, device, reports: dict) -> None:
           f"{r['plain_ms_f64']:.3f} ms  [{smi}]", flush=True)
 
 
+# ------------------------ 3i. the period head and the solve's tail as kernels
+
+# The period head against period_head_reference: rbd.h's rotations and the
+# CUDA math library's angles where the plain version calls torch.bmm and
+# PyTorch's atan2 / asin: each output within 1e-5 (float32) / 1e-12
+# (float64) of its largest entry (the CPU's host build: 2.2e-8 / 0); the
+# lift-off points of the feet that stay put are the inputs' bits.
+HEAD_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# kkt_blocks: K within 1e-6 of each scenario's largest |K| (the CPU: 2.9e-8),
+# rho_vec and K off the blocks bit for bit.  adapt_rho (its sums in
+# double): rho_s within 1e-6 (relative) of the plain version run in
+# float64 on the same float32 inputs, on every scenario (a float32
+# rounding of the output is 6e-8); its distance from the plain float32
+# chain is printed, not held: the dual residual's numerator cancels by up
+# to 1e6 at the MPC shape, so that chain's rho lies up to 15 % from the
+# function's value.  unscale: x and y bit for
+# bit; z and prim within 1e-5 of each scenario's largest |A x| (at least
+# 1), dual within 1e-5 of its largest term (|P x|, |q|, |A' y|); an `ok`
+# that parts from the plain version's is counted and must sit where prim
+# lies within that tolerance of status_tol.
+KKT_REL = 1e-6
+TAIL_REL = 1e-5
+TAIL_B = (1, 256, 4096)
+TAIL_ITERS = 20        # plain iterations that make the iterates of 3i
+ADAPT_REL = 1e-6
+WBC_STATUS_TOL = 0.5   # wbc/tsid.py's status_tol
+
+
+def period_head_inputs(B: int, seed: int, dtype, device) -> tuple:
+    """(q, v, to_swing, liftoff, v_int, v_cmd): states near standing with
+    any yaw, lift-off masks of every kind, integrals on both sides of the
+    clamp, commands as the planner's inputs."""
+    r = np.random.default_rng(seed)
+    q, v = random_states(r, B, 0.3)
+    yaw = r.uniform(-np.pi, np.pi, B)
+    cz, sz = np.cos(yaw / 2), np.sin(yaw / 2)
+    x, y, z, w = q[:, 3:7].T
+    q[:, 3:7] = np.stack([cz * x - sz * y, cz * y + sz * x,
+                          cz * z + sz * w, cz * w - sz * z], 1)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (t(q), t(v), t((r.random((B, 4)) < 0.4).astype(np.float64)),
+            t(r.normal(size=(B, 4, 3)) * 0.2), t(r.uniform(-0.25, 0.25,
+                                                           (B, 3))),
+            t(r.uniform(-0.5, 0.5, (B, 3))))
+
+
+def period_head_bound_ms(B: int, dtype=torch.float32):
+    """q, v, the lift-off mask and points, v_int, v_cmd in (59 values a
+    scenario); the feet, x_srb, the lift-off points, v_int, v_used out (42);
+    about 1,000 operations a scenario (the four legs' kinematics, three
+    rotations, placements and products each; x_srb's two rotations and
+    angles; the integrator)."""
+    floats, flops = B * (59 + 42), B * 1000.0
+    if dtype == torch.float64:
+        return bound_ms(2 * floats, flops, F64_FLOP_PER_S)
+    return bound_ms(floats, flops)
+
+
+def a_shared(A) -> bool:
+    """Every scenario reads the same A (a stride-0 or single-scenario view,
+    as the MPC's unscaled A), so the function needs its entries once."""
+    return A.shape[0] == 1 or A.stride(0) == 0
+
+
+def kkt_bound_ms(B: int, n: int, m: int, blocks, shared: bool):
+    """P read and K written (n^2 each), eqf in and rho_vec out (m each),
+    rho_s in (1), A's k r c block entries read (once if every scenario
+    shares A; Ruiz's scaled A is a scenario's own); per block entry of K
+    r products and sums, K's n^2 sums with P."""
+    r, c = blocks
+    k = m // r
+    floats = B * (2 * n * n + 2 * m + 1) + (1 if shared else B) * k * r * c
+    return bound_ms(floats, B * (3.0 * r * c * c * k + n * n + 3 * m))
+
+
+def tail_bound_ms(B: int, n: int, m: int, nz_a: int, shared: bool,
+                  unscale: bool):
+    """adapt_rho: P (n^2), q, x (n each), z, y (m each), rho_s in, rho_s
+    out: n^2 + 2 n + 2 m + 2; unscale: P0 (n^2), q0, xs, D (n each), l0,
+    u0, ys, E (m each), c in, x (n), y, z (m each), prim, dual out and ok
+    (one byte): n^2 + 4 n + 6 m + 3 floats and a byte; both read A's
+    entries (`nz_a`: its blocks or all m n), once when every scenario
+    shares A.  Operations: P x (2 n^2), A x and A' y (4 nz_a), the
+    elementwise work (about 10 (n + m))."""
+    per = (n * n + 4 * n + 6 * m + 3 + 0.25 if unscale
+           else n * n + 2 * n + 2 * m + 2)
+    floats = B * per + (1 if shared else B) * nz_a
+    return bound_ms(floats, B * (2.0 * n * n + 4.0 * nz_a + 10.0 * (n + m)))
+
+
+def scaled_iterates(P, q, A, l, u, backend: str, seed: int, blocks):
+    """The scaled problem (Ruiz on the card), eqf, a per-scenario rho and
+    the iterate that TAIL_ITERS iterations at that rho reach from zero on
+    `backend` (A's blocks as `blocks` declares)."""
+    B = q.shape[0]
+    eqf = ((u - l) < 1e-9).to(P.dtype)
+    Ps, qs, As, ls, us, D, E, c = kernels.ruiz_equilibrate(P, q, A, l, u)
+    r = np.random.default_rng(seed)
+    rho_s = torch.tensor(10.0 ** r.uniform(-2, 1, B), dtype=P.dtype,
+                         device=P.device)
+    z0 = torch.minimum(torch.maximum(torch.zeros_like(ls), ls), us)
+    x, z, y = admm_mod._run_block(
+        Ps, qs, As.contiguous(), ls, us, eqf, rho_s,
+        torch.zeros_like(qs), z0.contiguous(), torch.zeros_like(ls),
+        TAIL_ITERS, 1e-6, 1.6, 1e3, backend, "blockinv", blocks)
+    return (Ps, qs, As, ls, us, D, E, c), eqf, rho_s, (x, z, y)
+
+
+def tail_problems(B: int, device):
+    """{shape: ((P, q, A, l, u), scaled, eqf, rho_s, iterate, blocks,
+    status_tol)} at B: the MPC's QPs (3h's planned states, the build
+    kernel, its stride-0 A; the iterate on kernel 1) and WBC-sized random
+    QPs with equality rows (the iterate on kernel 2)."""
+    out = {}
+    qp = build_mpc_qp(SOLO12, EngineConfig().mpc, *mpc_build_inputs(
+        B, torch.float32, device)[:4])
+    out["mpc"] = (qp, *scaled_iterates(*qp, "m2", 60, MPC_A_BLOCKS),
+                  MPC_A_BLOCKS, 0.05)
+    _, P, q, A, l, u = random_qps(61, B, 30, 50, eq=True)
+    qp = [torch.as_tensor(a, dtype=torch.float32, device=device)
+          for a in (P, q, A, l, u)]
+    out["wbc"] = (qp, *scaled_iterates(*qp, "vpu", 62, None), None,
+                  WBC_STATUS_TOL)
+    return out
+
+
+def plain_unscale(qp, xs, ys, D, E, c, tol):
+    s = admm_mod._unscaled_solution(*qp, xs, ys, D, E, c, tol)
+    return s.x, s.y, s.z, s.prim_res, s.dual_res, s.ok
+
+
+def unscale_scales(qp, x, y):
+    """Per scenario: max(1, |A x|) (z and prim), the largest of |P x|, |q|,
+    |A' y| (dual), in float64."""
+    P, q, A = (t.double() for t in qp[:3])
+    A = A.expand(P.shape[0], -1, -1)
+    x, y = x.double(), y.double()
+    Ax = torch.einsum("bmn,bn->bm", A, x)
+    dual = torch.stack([torch.einsum("bij,bj->bi", P, x).abs().amax(1),
+                        q.abs().amax(1),
+                        torch.einsum("bmn,bm->bn", A, y).abs().amax(1)])
+    return torch.clamp_min(Ax.abs().amax(1), 1.0), dual.amax(0)
+
+
+def head_tail_phase(smi: str, device, reports: dict) -> None:
+    """3i: the period head, kkt_blocks, adapt_rho and unscale against their
+    plain versions at B = 1, 256 and 4096 (the period head also in
+    float64), two launches bit for bit, times (a one-launch graph's replay,
+    the eager wrapper, the plain chain eager and as a graph) beside the
+    bounds."""
+    cfg = EngineConfig()
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    optin, n_sm = kernels.device_limits(device)
+    rep = {k: dict(err=0.0, times={}) for k in ("period_head", "kkt_blocks",
+                                              "adapt_rho", "unscale")}
+
+    def timed_pair(name, key, call, plain, bound):
+        ms, eager = graph_ms(call, reps=20), time_ms(call, 2, 10)
+        plain_ms, plain_g = time_ms(plain, 1, 3), graph_ms(plain, reps=5)
+        rep[name]["times"][key] = (ms, eager, plain_ms, plain_g, bound)
+        report_times(name, f"{key} (graph replay; eager wrapper {eager:.4f} "
+                     f"ms; plain chain as a graph {plain_g:.4f} ms)", ms,
+                     plain_ms, bound, smi)
+
+    # ---- the period head
+    for B in TAIL_B:
+        for dtype in (torch.float32, torch.float64):
+            args = period_head_inputs(B, 70 + B, dtype, device)
+            call = lambda: engine.period_head(  # noqa: E731
+                tree, cfg.cascade, *args)
+            plain = lambda: engine.period_head_reference(  # noqa: E731
+                tree, cfg.cascade, *args)
+            got, again, want = call(), call(), plain()
+            errs = [rbd_rel_err(g, w) for g, w in zip(got, want)]
+            rel = max(e[0] for e in errs)
+            stay = args[2] < 0.5
+            lay = rbd_kernels.last_layout("period_head")
+            check(rel <= HEAD_REL[dtype] and all_finite(got)
+                  and all(torch.equal(a, b) for a, b in zip(got, again))
+                  and torch.equal(got[2][stay], args[3][stay])
+                  and torch.equal(got[4], args[5] + got[3])
+                  and all(g.shape == w.shape and g.dtype == w.dtype
+                          for g, w in zip(got, want))
+                  and rbd_layout_ok("period_head", B, dtype, device),
+                  f"3i: period_head B={B} {str(dtype)[6:]}: within "
+                  f"{HEAD_REL[dtype]:g} of the plain version (each output's "
+                  "largest entry), the feet that stay keep their lift-off "
+                  "bits, two launches bit for bit, the layout rbd_layout's")
+            parted = sum(int((g != w).sum()) for g, w in zip(got, want))
+            print(f"  period_head B={B} {str(dtype)[6:]} ({lay.warps} warps "
+                  f"a block, {lay.blocks} blocks): rel {rel:.3e}, abs "
+                  f"{max(e[1] for e in errs):.3e}, entries that part from "
+                  f"the plain version {parted} of "
+                  f"{sum(w.numel() for w in want)}", flush=True)
+            if dtype == torch.float32:
+                rep["period_head"]["err"] = max(rep["period_head"]["err"],
+                                                max(e[1] for e in errs))
+                timed_pair("period_head", f"B={B}", call, plain,
+                           period_head_bound_ms(B))
+    # ---- the solve's tail
+    flips, over_flips = 0, 0
+    for B in TAIL_B:
+        problems = tail_problems(B, device)
+        for shape, (qp, scaled, eqf, rho_s, it, blocks, stol) in \
+                problems.items():
+            Ps, qs, As, ls, us, D, E, c = scaled
+            x, z, y = it
+            n, m = qs.shape[1], ls.shape[1]
+            tag = f"{shape} shape B={B}"
+            if blocks is not None:
+                call = lambda: kernels_tail.kkt_blocks(  # noqa: E731
+                    Ps, As, eqf, rho_s, 1e-6, 1e3, blocks)
+                plain = lambda: admm_mod._dense_kkt(  # noqa: E731
+                    Ps, As, eqf, rho_s, 1e-6, 1e3)
+                (K, rv), again, (Kp, rvp) = call(), call(), plain()
+                scale = Kp.abs().reshape(B, -1).amax(1).double()
+                rel = float(((K.double() - Kp.double()).abs()
+                             .reshape(B, -1).amax(1) / scale).max())
+                r_, c_ = blocks
+                inside = torch.block_diag(*[torch.ones(c_, c_)] * (n // c_)
+                                          ).bool().to(device)
+                check(rel <= KKT_REL and torch.equal(rv, rvp)
+                      and torch.equal(K[:, ~inside], Ps[:, ~inside])
+                      and torch.equal(K, again[0]) and all_finite((K,)),
+                      f"3i: kkt_blocks {tag}: K within {KKT_REL:g} of each "
+                      "scenario's largest |K|, off the blocks P's bits, "
+                      "rho_vec bit for bit, two launches bit for bit")
+                err = float((K - Kp).abs().max())
+                rep["kkt_blocks"]["err"] = max(rep["kkt_blocks"]["err"], err)
+                print(f"  kkt_blocks {tag}: rel {rel:.3e}, abs {err:.3e}, "
+                      f"entries that part {int((K != Kp).sum())} of "
+                      f"{K.numel()}", flush=True)
+                timed_pair("kkt_blocks", f"B={B}", call, plain,
+                           kkt_bound_ms(B, n, m, blocks, a_shared(As)))
+                del K, Kp, again
+            # adapt_rho
+            call = lambda: kernels_tail.adapt_rho(  # noqa: E731
+                Ps, qs, As, x, z, y, rho_s, a_blocks=blocks)
+            plain = lambda: admm_mod._adapt_rho(  # noqa: E731
+                Ps, qs, As, x, z, y, rho_s)
+            rho, again, want = call(), call(), plain()
+            w64 = admm_mod._adapt_rho(*(t.double() for t in (
+                Ps, qs, As, x, z, y, rho_s)))
+            rel = lambda a, b: ((a.double() - b.double()).abs()  # noqa: E731
+                                / b.double().abs())
+            k64, p64, kp = rel(rho, w64), rel(want, w64), rel(rho, want)
+            check(float(k64.max()) <= ADAPT_REL and torch.equal(rho, again)
+                  and all_finite((rho,)),
+                  f"3i: adapt_rho {tag}: within {ADAPT_REL:g} (relative) of "
+                  "the plain version in float64 on every scenario, two "
+                  "launches bit for bit")
+            rep["adapt_rho"]["err"] = max(rep["adapt_rho"]["err"],
+                                          float((rho - want).abs().max()))
+            print(f"  adapt_rho {tag}: to float64: kernel max "
+                  f"{float(k64.max()):.3e} median {float(k64.median()):.3e}; "
+                  f"the plain float32 chain to float64 max "
+                  f"{float(p64.max()):.3e} median {float(p64.median()):.3e}, "
+                  f"to the kernel max {float(kp.max()):.3e}", flush=True)
+            nz = (m // blocks[0]) * blocks[0] * blocks[1] if blocks else m * n
+            key = f"{shape} B={B}"
+            timed_pair("adapt_rho", key, call, plain,
+                       tail_bound_ms(B, n, m, nz, a_shared(As), False))
+            # unscale, on the unscaled problem (the MPC's stride-0 A)
+            xs, ys = x, y
+            call = lambda: kernels_tail.unscale(  # noqa: E731
+                *qp, xs, ys, D, E, c, stol, a_blocks=blocks)
+            plain = lambda: plain_unscale(qp, xs, ys, D, E, c,  # noqa: E731
+                                          stol)
+            got, again, want = call(), call(), plain()
+            zs, ds = unscale_scales(qp, want[0], want[1])
+            ez = float(((got[2].double() - want[2].double()).abs().amax(1)
+                        / zs).max())
+            ep = float(((got[3].double() - want[3].double()).abs()
+                        / zs).max())
+            ed = float(((got[4].double() - want[4].double()).abs()
+                        / ds).max())
+            flip = got[5] != want[5]
+            near = (want[3].double() - stol).abs() <= TAIL_REL * zs
+            flips += int(flip.sum())
+            over_flips += int((flip & ~near).sum())
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                  and max(ez, ep, ed) <= TAIL_REL
+                  and bool((~flip | near).all())
+                  and all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"3i: unscale {tag}: x, y bit for bit, z / prim / dual "
+                  f"within {TAIL_REL:g} of their scales, ok as the plain "
+                  "version's but where prim lies within that of status_tol, "
+                  "two launches bit for bit")
+            rep["unscale"]["err"] = max(rep["unscale"]["err"], max(
+                float((a.double() - b.double()).abs().max())
+                for a, b in zip(got[2:5], want[2:5])))
+            print(f"  unscale {tag}: x, y bit for bit; rel z {ez:.3e}, prim "
+                  f"{ep:.3e}, dual {ed:.3e}; ok flips {int(flip.sum())} "
+                  f"(prim within {TAIL_REL:g} of status_tol: "
+                  f"{int(near.sum())} scenarios)", flush=True)
+            timed_pair("unscale", key, call, plain,
+                       tail_bound_ms(B, n, m, nz, a_shared(qp[2]), True))
+        del problems
+        torch.cuda.empty_cache()
+    print(f"  unscale: {flips} ok flips in all, {over_flips} of them away "
+          "from status_tol", flush=True)
+    Bt = max(TAIL_B)
+    main = {"period_head": f"B={Bt}", "kkt_blocks": f"B={Bt}",
+            "adapt_rho": f"mpc B={Bt}", "unscale": f"wbc B={Bt}"}
+    sources = {"period_head": "mpctsid_tpu_torch/dyn/csrc/period_head.cu",
+               "kkt_blocks": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu",
+               "adapt_rho": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu",
+               "unscale": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu"}
+    replaces = {"period_head": "mpctsid_tpu/cascade/engine.py:176",
+                "kkt_blocks": "mpctsid_tpu/qp/admm.py:222",
+                "adapt_rho": "mpctsid_tpu/qp/admm.py:329",
+                "unscale": "mpctsid_tpu/qp/admm.py:199"}
+    for name, r in rep.items():
+        ms, eager, plain_ms, plain_g, bound = r["times"][main[name]]
+        reports[name] = dict(
+            source=sources[name], replaces=replaces[name],
+            max_abs_err=r["err"], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound[0], bound_by=bound[1], ms_eager=eager,
+            plain_graph_ms=plain_g,
+            times={k: dict(ms=v[0], ms_eager=v[1], plain_ms=v[2],
+                           plain_graph_ms=v[3], bound_ms=v[4][0],
+                           bound_by=v[4][1])
+                   for k, v in r["times"].items()})
+        print(f"  {name}: replaces {replaces[name]} (XLA's ops; no TPU "
+              f"kernel), source {sources[name]}, library call none; "
+              f"{main[name]} {ms:.4f} ms (graph replay) / {eager:.4f} ms "
+              f"(eager), bound {bound[0]:.4f} ms by {bound[1]}, plain "
+              f"{plain_ms:.3f} ms ({plain_g:.4f} as a graph)  [{smi}]",
+              flush=True)
+
+
 # ---------------------------------------------------------------- main path
 
 COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
@@ -2113,7 +2479,11 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "swing_foot_ref": swing_mod.swing_foot_ref,
            "swing_reference_at": swing_mod.swing_reference_at,
            "ruiz_equilibrate": kernels.ruiz_equilibrate,
-           "build_mpc_qp": srb_mod.build_mpc_qp}
+           "build_mpc_qp": srb_mod.build_mpc_qp,
+           "period_head": engine.period_head,
+           "kkt_blocks": kernels_tail.kkt_blocks,
+           "adapt_rho": kernels_tail.adapt_rho,
+           "unscale": kernels_tail.unscale}
 
 
 def reset_launch_counts() -> None:
@@ -2141,30 +2511,38 @@ MPC_KERNEL_OF = {"auto_mpc": "admm_iterate_m2", "m2": "admm_iterate_m2",
 def expected_launches(cfg, periods: int, wbc_backend: str,
                       mpc_backend: str = None):
     """(the kernel this rollout is there to count, every kernel's expected
-    launches): the MPC's iteration kernel and kernel B (its K^-1) once per
-    MPC adapt round, the footstep horizon, the reference rollout, the MPC
-    build and Ruiz once per period; a whole-solve kernel (kernel A on the
-    default backend, kernel 4 on `fused`) once per WBC tick; a WBC
-    iteration kernel and kernel B once per WBC adapt round and Ruiz once
-    per tick; the WBC build, the plant step and the swing reference at the
-    tick once per tick, whatever the backends (swing_foot_ref's kernel is
-    off the path: never)."""
+    launches): the MPC's iteration kernel, kernel B (its K^-1) and K from
+    the declared blocks (kkt_blocks) once per MPC adapt round, the rho
+    adaptation between them; the period head, the footstep horizon, the
+    reference rollout, the MPC build, Ruiz and the epilogue (unscale) once
+    per period; a whole-solve kernel (kernel A on the default backend,
+    kernel 4 on `fused`) once per WBC tick; a WBC iteration kernel and
+    kernel B once per WBC adapt round, the rho adaptation between them and
+    Ruiz once per tick; the WBC build, the plant step, the swing reference
+    at the tick and the epilogue once per tick, whatever the backends
+    (swing_foot_ref's kernel is off the path: never)."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
-    expect[mpc_kernel] = periods * cfg.solver.mpc_adapt_rounds
-    expect["chol_inverse"] = periods * cfg.solver.mpc_adapt_rounds
+    rounds = cfg.solver.mpc_adapt_rounds
+    expect[mpc_kernel] = periods * rounds
+    expect["chol_inverse"] = periods * rounds
+    expect["kkt_blocks"] = periods * rounds
+    expect["adapt_rho"] = periods * (rounds - 1)
     for name in ("plan_footsteps_horizon", "reference_rollout",
-                 "ruiz_equilibrate", "build_mpc_qp"):
+                 "ruiz_equilibrate", "build_mpc_qp", "period_head",
+                 "unscale"):
         expect[name] = periods
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
     expect["swing_reference_at"] = ticks
+    expect["unscale"] += ticks
     counted = WBC_KERNEL_OF[wbc_backend]
     if wbc_backend in WHOLE_SOLVE:
         expect[counted] += ticks
     else:
         expect[counted] += ticks * cfg.solver.wbc_adapt_rounds
         expect["chol_inverse"] += ticks * cfg.solver.wbc_adapt_rounds
+        expect["adapt_rho"] += ticks * (cfg.solver.wbc_adapt_rounds - 1)
         expect["ruiz_equilibrate"] += ticks
     return counted, expect
 
@@ -2385,11 +2763,13 @@ def accuracy_tiers(smi: str, device) -> None:
 
     qp = build_mpc_qp(SOLO12, cfg.mpc, x0, x_ref, feet, cont)
     s64, sec64 = timed(lambda: admm_solve(
-        *(t.double() for t in qp), backend="torch", **MPC_TIER))
+        *(t.double() for t in qp), backend="torch", a_blocks=MPC_A_BLOCKS,
+        **MPC_TIER))
     print(f"  polished MPC tier, float64 (plain backend): {sec64:.3f} s  "
           f"[{smi}]", flush=True)
     for backend in ("torch", cfg.solver.mpc_backend):
         s32, sec = timed(lambda: admm_solve(*qp, backend=backend,
+                                            a_blocks=MPC_A_BLOCKS,
                                             **MPC_TIER))
         d = (s32.x.double() - s64.x).abs().amax(dim=1)
         print(f"  polished MPC tier, float32, backend {backend}: {sec:.3f} "
@@ -2703,19 +3083,25 @@ def host_graphs(smi: str, device) -> None:
               + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
               + f"  [{smi}]", flush=True)
         want_mpc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        want_mpc[mpc_kernel] = cfg.solver.mpc_adapt_rounds
-        want_mpc[KERNEL_PREFIX["chol_inverse"]] = cfg.solver.mpc_adapt_rounds
+        rounds = cfg.solver.mpc_adapt_rounds
+        want_mpc[mpc_kernel] = rounds
+        want_mpc[KERNEL_PREFIX["chol_inverse"]] = rounds
+        want_mpc[KERNEL_PREFIX["kkt_blocks"]] = rounds
+        want_mpc[KERNEL_PREFIX["adapt_rho"]] = rounds - 1
         for name in ("plan_footsteps_horizon", "reference_rollout",
-                     "ruiz_equilibrate", "build_mpc_qp"):
+                     "ruiz_equilibrate", "build_mpc_qp", "unscale"):
             want_mpc[KERNEL_PREFIX[name]] = 1
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_wbc[KERNEL_PREFIX["wbc_build"]] = 1
+        want_wbc[KERNEL_PREFIX["unscale"]] = 1
         if wbc_backend in WHOLE_SOLVE:
             want_wbc[KERNEL_PREFIX[wbc_name]] = 1
         else:
             want_wbc[KERNEL_PREFIX[wbc_name]] = cfg.solver.wbc_adapt_rounds
             want_wbc[KERNEL_PREFIX["chol_inverse"]] = (
                 cfg.solver.wbc_adapt_rounds)
+            want_wbc[KERNEL_PREFIX["adapt_rho"]] = (
+                cfg.solver.wbc_adapt_rounds - 1)
             want_wbc[KERNEL_PREFIX["ruiz_equilibrate"]] = 1
         check(per["mpc"][0] == want_mpc,
               f"{tag}: one MPC replay launches {want_mpc}")
@@ -2723,12 +3109,16 @@ def host_graphs(smi: str, device) -> None:
               f"{tag}: one WBC replay launches {want_wbc}")
         want_bd = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_bd[KERNEL_PREFIX["plan_footsteps_horizon"]] = 1
+        want_bd[KERNEL_PREFIX["period_head"]] = 1
         want_sw = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_sw[KERNEL_PREFIX["swing_reference_at"]] = 1
         check(per["boundary"][0] == want_bd and per["swing"][0] == want_sw,
-              f"{tag}: the boundary graph launches the footstep kernel once, "
-              "the swing graph the swing-at-a-tick kernel once, and no "
-              "other port kernel")
+              f"{tag}: the boundary graph launches the period head and the "
+              "footstep kernel once, the swing graph the swing-at-a-tick "
+              "kernel once, and no other port kernel")
+        check(per["boundary"][1] <= BOUNDARY_NODES,
+              f"{tag}: the boundary replay holds at most {BOUNDARY_NODES} "
+              "kernels (173 with the plain period head)")
         check(per["swing"][1] <= SWING_NODES,
               f"{tag}: the swing replay holds at most {SWING_NODES} kernels "
               "(17 with plan_swing and its plain prelude)")
@@ -2745,9 +3135,18 @@ def host_graphs(smi: str, device) -> None:
         if wbc_backend == "xla":
             check(per["wbc"][1] <= DEFAULT_WBC_NODES,
                   f"{tag}: the WBC replay holds at most {DEFAULT_WBC_NODES} "
-                  "kernels (3,014-3,019 with the plain solve chain)")
+                  "kernels (3,014-3,019 with the plain solve chain, 36 with "
+                  "the plain epilogue)")
             before_after(calls["wbc"], "WBC replay, plain solve chain / "
                          "kernel A", plain_wbc_chain(), smi, device)
+            before_after(calls["boundary"], "boundary replay, plain period "
+                         "head / its kernel", plain_period_head(), smi,
+                         device)
+            before_after(calls["mpc"], "MPC replay, plain solve tail (K, "
+                         "rho adaptation, epilogue) / its kernels",
+                         plain_solve_tail(), smi, device)
+            before_after(calls["wbc"], "WBC replay, plain epilogue / its "
+                         "kernel", plain_solve_tail(), smi, device)
             before_after(calls["mpc"], "MPC replay, plain K^-1 / kernel B",
                          plain_inverses(), smi, device)
             for name, what in (("boundary", "boundary replay, plain "
@@ -2831,6 +3230,47 @@ def plain_mpc_build():
         yield
     finally:
         host_mod.build_mpc_qp = shipped
+
+
+@contextlib.contextmanager
+def plain_period_head():
+    """The host path's period head on its plain chain
+    (period_head_reference, the ops before the kernel)."""
+    import mpctsid_tpu_torch.host as host_mod
+
+    shipped = host_mod.period_head
+    host_mod.period_head = engine.period_head_reference
+    try:
+        yield
+    finally:
+        host_mod.period_head = shipped
+
+
+@contextlib.contextmanager
+def plain_solve_tail():
+    """The kernel backends' K, rho adaptation and epilogue on their plain
+    chains (qp/admm.py's `_dense_kkt`, `_adapt_rho`, `_unscaled_solution`)."""
+    def kkt(P, A, eqf, rho_s, sigma, rho_eq_scale, a_blocks):
+        return admm_mod._dense_kkt(P, A, eqf, rho_s, sigma, rho_eq_scale)
+
+    def adapt(P, q, A, x, z, y, rho_s, a_blocks=None):
+        return admm_mod._adapt_rho(P, q, A, x, z, y, rho_s)
+
+    def unscale(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol,
+                a_blocks=None):
+        return plain_unscale((P0, q0, A0, l0, u0), xs, ys, D, E, c,
+                             status_tol)
+
+    patched = (("kkt_blocks", kkt), ("adapt_rho_kernel", adapt),
+               ("unscale_kernel", unscale))
+    shipped = [getattr(admm_mod, name) for name, _ in patched]
+    for name, plain in patched:
+        setattr(admm_mod, name, plain)
+    try:
+        yield
+    finally:
+        for (name, _), fn in zip(patched, shipped):
+            setattr(admm_mod, name, fn)
 
 
 @contextlib.contextmanager
@@ -3299,9 +3739,10 @@ def oracle_mpc_contract(problems, pending, smi: str, device) -> None:
             lambda: build_mpc_qp(SOLO12, cfg.mpc, *inputs))
         for backend in ("torch", "m2"):
             sols["float32", backend], secs["float32", backend] = timed(
-                lambda: admm_solve(*qp32, backend=backend, **CONTRACT_BUDGET))
+                lambda: admm_solve(*qp32, backend=backend,
+                                   a_blocks=MPC_A_BLOCKS, **CONTRACT_BUDGET))
         sol, secs["in-loop"] = timed(lambda: admm_solve(
-            *qp32, backend="m2", **INLOOP_MPC))
+            *qp32, backend="m2", a_blocks=MPC_A_BLOCKS, **INLOOP_MPC))
     x_inloop = sol.x.double().cpu().numpy()
     hold_launches(log, "11a", smi)
     del log
@@ -3461,8 +3902,10 @@ def oracle_wbc_contract(runs, smi: str, device) -> None:
         expect[WBC_KERNEL_OF[backend]] += ORACLE_TICKS * per_tick
         if backend not in WHOLE_SOLVE:
             expect["chol_inverse"] += ORACLE_TICKS * per_tick
+            expect["adapt_rho"] += ORACLE_TICKS * (per_tick - 1)
             expect["ruiz_equilibrate"] += ORACLE_TICKS
         expect["wbc_build"] += ORACLE_TICKS
+        expect["unscale"] += ORACLE_TICKS
     counts = launch_counts()
     print(f"    launches {counts}", flush=True)
     check(counts == expect, f"11b: the WBC solve kernels (A, B, 2-5), Ruiz "
@@ -3705,8 +4148,11 @@ def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
     check(launch_counts() == at_capture,
           f"12, {tag}: nothing launched outside the graph while replaying")
     # 12b: the kernels inside one replay
+    # three replays a window, as phases 9 and 13 count: late in the process
+    # the profiler drops a window's record now and then (flush_cupti), and
+    # one dropped record would read as a kernel launched no time
     counts, nodes, port_ms, busy_ms, copies = kernels_per_replay(
-        lambda: runner(rec.v))
+        lambda: runner(rec.v), replays=3)
     want = expected_per_replay(cfg, rec.solver_kw["wbc_backend"],
                                rec.solver_kw["mpc_backend"])
     # 12c: times, each ended by a synchronize
@@ -3961,16 +4407,19 @@ def main() -> int:
     t0 = time.time()
     _build.build_libraries(kernels.build_specs() + rbd_kernels.build_specs()
                            + plan_kernels.build_specs()
-                           + mpc_kernels.build_specs())
+                           + mpc_kernels.build_specs()
+                           + kernels_tail.build_specs())
     for name in kernels.LIBRARIES:
         kernels._library(name)
     for name in rbd_kernels.LIBRARIES:
         rbd_kernels._library(name)
     plan_kernels._library()
     mpc_kernels._library()
+    kernels_tail._library()
     n_libs = (len(kernels.LIBRARIES) + len(rbd_kernels.LIBRARIES)
               + len(plan_kernels.build_specs())
-              + len(mpc_kernels.build_specs()))
+              + len(mpc_kernels.build_specs())
+              + len(kernels_tail.build_specs()))
     print(f"  nvcc {' '.join(_build.NVCC_FLAGS)}  ->  {_build.build_dir()}")
     print(f"  {n_libs} libraries built together and loaded in "
           f"{time.time() - t0:.2f} s; nvcc seconds each: "
@@ -4256,6 +4705,12 @@ def main() -> int:
     mpc_build_phase(smi, device, reports)
     torch.cuda.empty_cache()
 
+    # ---- 3i. the period head and the solve's tail vs plain ----------------
+    print("== 3i. the period head and the solve's tail (kkt_blocks, "
+          "adapt_rho, unscale) vs their plain versions", flush=True)
+    head_tail_phase(smi, device, reports)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
@@ -4279,7 +4734,8 @@ def main() -> int:
                          MPC_KERNEL_OF[cfg.solver.mpc_backend],
                          "plan_footsteps_horizon", "reference_rollout",
                          "swing_reference_at", "ruiz_equilibrate",
-                         "build_mpc_qp"):
+                         "build_mpc_qp", "period_head", "kkt_blocks",
+                         "adapt_rho", "unscale"):
                 path_launches[name] = counts[name]
             # swing_foot_ref's kernel left the path for swing_reference_at's
             off_path = counts["swing_foot_ref"]
@@ -4516,7 +4972,8 @@ def main() -> int:
                      MPC_KERNEL_OF[cfg.solver.mpc_backend],
                      "plan_footsteps_horizon", "reference_rollout",
                      "swing_foot_ref", "swing_reference_at",
-                     "ruiz_equilibrate", "build_mpc_qp"):
+                     "ruiz_equilibrate", "build_mpc_qp", "period_head",
+                     "kkt_blocks", "adapt_rho", "unscale"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
     del records, rec
     torch.cuda.empty_cache()

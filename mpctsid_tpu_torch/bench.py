@@ -283,12 +283,14 @@ def _mpc_qp_batch(cc, args):
 
 
 def _solve_chain(qp, backend, iters, adapt_rounds, name):
-    """One warm-started step of a chain of MPC solves, captured on the card
+    """One warm-started step of a chain of MPC solves (their A declared
+    block diagonal, `MPC_A_BLOCKS`), captured on the card
     (`CapturedCall`): the solution is written back into the static x and y
     that the next step starts from, and each step's cost moves by
     1e-7 * mean(x), a data dependency between the steps.  Returns (call,
     make_run); make_run(n)() starts the chain from zero, runs n steps and
     returns sum(x)."""
+    from mpctsid_tpu_torch.mpc.srb import MPC_A_BLOCKS
     from mpctsid_tpu_torch.qp.admm import admm_solve
     from mpctsid_tpu_torch.utils.graphs import CapturedCall
 
@@ -297,7 +299,7 @@ def _solve_chain(qp, backend, iters, adapt_rounds, name):
     def step(x, y):
         sol = admm_solve(P, q + 1e-7 * x.mean(dim=-1, keepdim=True), A, l, u,
                          x0=x, y0=y, iters=iters, adapt_rounds=adapt_rounds,
-                         rho=0.1, backend=backend)
+                         rho=0.1, backend=backend, a_blocks=MPC_A_BLOCKS)
         x.copy_(sol.x)
         y.copy_(sol.y)
         return x

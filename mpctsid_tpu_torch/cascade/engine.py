@@ -29,12 +29,13 @@ import numpy as np
 import torch
 
 from mpctsid_tpu_torch import dyn
-from mpctsid_tpu_torch.config import EngineConfig
+from mpctsid_tpu_torch.config import CascadeConfig, EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
 from mpctsid_tpu_torch.est.filter import estimator_update, imu_from_plant
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
-from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
+from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
+                                       reference_rollout)
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
 from mpctsid_tpu_torch.plan.gait import contacts_at, contacts_horizon
 from mpctsid_tpu_torch.plan.swing import swing_reference_at
@@ -79,6 +80,82 @@ def srb_state(q, v):
     v_w = torch.bmm(R0, v[:, 0:3, None])[:, :, 0]
     w_w = torch.bmm(R0, v[:, 3:6, None])[:, :, 0]
     return torch.cat([q[:, 0:3], rpy, v_w, w_w], dim=-1)
+
+
+def period_head(tree, cfg: CascadeConfig, q, v, to_swing, liftoff, v_int,
+                v_cmd):
+    """What a period boundary computes of the measured state before the
+    footstep plan: (feet_now (B, 4, 3), x_srb (B, 12), liftoff (B, 4, 3),
+    v_int (B, 3), v_used (B, 3)).
+
+    q (B, 19), v (B, 18); to_swing (B, 4): the feet that lift off now, bool
+    or a float mask (> 0.5); liftoff (B, 4, 3) the lift-off points so far;
+    v_int (B, 3) the velocity-error integral; v_cmd (B, 3) the command.
+    The lifted feet take their current position; the integral takes one
+    period of the body-frame velocity error (cfg.ki_vint, clamped to
+    cfg.v_int_max); v_used = v_cmd + the new integral.  Any input may be a
+    row of a packed buffer (a stride between scenarios).
+
+    CUDA tensors: one launch of the hand-written kernel `period_head`
+    (dyn/csrc/period_head.cu: a warp per scenario over rbd.h's leg
+    kinematics; float32 or float64), or an exception.  CPU tensors: the
+    plain version, `period_head_reference`."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    kernels.check_batch(q, v)
+    if q.device.type == "cpu":
+        return period_head_reference(tree, cfg, q, v, to_swing, liftoff,
+                                     v_int, v_cmd)
+    out = kernels.launch("period_head", run_period_head, q.device, tree,
+                         cfg, q, v, to_swing, liftoff, v_int, v_cmd)
+    period_head.launches += 1
+    return out
+
+
+period_head.launches = 0
+
+
+def run_period_head(launch_fn, tree, cfg: CascadeConfig, q, v, to_swing,
+                    liftoff, v_int, v_cmd):
+    """(rc, outputs): the period-head kernel's operands packed for
+    `launch_fn` (dyn/kernels.py's signature less the stream), its outputs
+    allocated here; a bool `to_swing` goes over as q's dtype."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    B = kernels.check_batch(q, v)
+    if to_swing.dtype == torch.bool:
+        to_swing = to_swing.to(q.dtype)
+    ins = [kernels.rows("q", q, B, (19,), q),
+           kernels.rows("v", v, B, (18,), q),
+           kernels.rows("to_swing", to_swing, B, (4,), q),
+           kernels.rows("liftoff", liftoff, B, (4, 3), q),
+           kernels.rows("v_int", v_int, B, (3,), q),
+           kernels.rows("v_cmd", v_cmd, B, (3,), q)]
+    outs = (q.new_empty((B, 4, 3)), q.new_empty((B, 12)),
+            q.new_empty((B, 4, 3)), q.new_empty((B, 3)), q.new_empty((B, 3)))
+    par = [cfg.ki_vint * (cfg.mpc_every * cfg.wbc_dt), cfg.v_int_max]
+    rc = kernels.call(launch_fn, tree, q, ins, outs, par)
+    return rc, outs
+
+
+def period_head_reference(tree, cfg: CascadeConfig, q, v, to_swing, liftoff,
+                          v_int, v_cmd):
+    """Plain version of `period_head` (any device and dtype)."""
+    feet_now = dyn.foot_positions(tree, q)
+    x_srb = srb_state(q, v)
+    lifted = to_swing if to_swing.dtype == torch.bool else to_swing > 0.5
+    liftoff = torch.where(lifted[..., None], feet_now, liftoff)
+    # Offset-free velocity tracking (config.py CascadeConfig.ki_vint):
+    # integrate the body-frame velocity error once per period and bias the
+    # command fed to the planner + reference rollout; the clamp bounds windup.
+    cy, sy = torch.cos(x_srb[:, 5]), torch.sin(x_srb[:, 5])
+    v_meas = torch.stack([cy * x_srb[:, 6] + sy * x_srb[:, 7],
+                          -sy * x_srb[:, 6] + cy * x_srb[:, 7],
+                          x_srb[:, 11]], dim=-1)
+    t_period = cfg.mpc_every * cfg.wbc_dt
+    v_int = torch.clamp(v_int + cfg.ki_vint * t_period * (v_cmd - v_meas),
+                        -cfg.v_int_max, cfg.v_int_max).to(q.dtype)
+    return feet_now, x_srb, liftoff, v_int, v_cmd + v_int
 
 
 def init_controller(model: Solo12Model, cfg: EngineConfig, tree, q0,
@@ -191,26 +268,14 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
 
     q_ctl = est.q if use_estimator else plant.q
     v_ctl = est.v if use_estimator else plant.v
-    feet_now = dyn.foot_positions(tree, q_ctl)
-    x_srb = srb_state(q_ctl, v_ctl)
-
-    # lift-off bookkeeping at stance->swing transitions
+    # the feet, the SRB state, lift-off bookkeeping at stance->swing
+    # transitions and the offset-free velocity integrator (one launch on
+    # the card)
     swing = contacts < 0.5
     to_swing = swing & (ctl.prev_contacts > 0.5)
-    liftoff = torch.where(to_swing[..., None], feet_now, ctl.liftoff)
-
-    # Offset-free velocity tracking (config.py CascadeConfig.ki_vint):
-    # integrate the body-frame velocity error once per period and bias the
-    # command fed to the planner + reference rollout; the clamp bounds windup.
-    cy, sy = torch.cos(x_srb[:, 5]), torch.sin(x_srb[:, 5])
-    v_meas = torch.stack([cy * x_srb[:, 6] + sy * x_srb[:, 7],
-                          -sy * x_srb[:, 6] + cy * x_srb[:, 7],
-                          x_srb[:, 11]], dim=-1)
-    t_period = cfg.cascade.mpc_every * cfg.cascade.wbc_dt
-    v_int = torch.clamp(
-        ctl.v_int + cfg.cascade.ki_vint * t_period * (v_cmd - v_meas),
-        -cfg.cascade.v_int_max, cfg.cascade.v_int_max).to(dtype)
-    v_used = v_cmd + v_int
+    feet_now, x_srb, liftoff, v_int, v_used = period_head(
+        tree, cfg.cascade, q_ctl, v_ctl, to_swing, ctl.liftoff, ctl.v_int,
+        v_cmd)
 
     # footstep plan + touchdown targets for swinging feet
     fsteps, next_td = plan_footsteps_horizon(
@@ -228,7 +293,7 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     mpc_sol = admm_solve(P, q_lin, A, l, u,
                          x0=ctl.mpc_warm_x, y0=ctl.mpc_warm_y,
                          iters=mpc_iters, adapt_rounds=mpc_rounds, rho=0.1,
-                         backend=mpc_backend)
+                         backend=mpc_backend, a_blocks=MPC_A_BLOCKS)
     del P, q_lin, A, l, u
     # Infeasible/diverged-QP policy: on a bad solve, carry the LAST FEASIBLE
     # plan forward one period (shift columns, hold the tail) instead of

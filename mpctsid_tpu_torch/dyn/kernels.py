@@ -10,7 +10,10 @@ of each kernel; the .cu files under dyn/csrc/ map a warp to its scenario,
   * `wbc_build` (wbc_build.cu): the WBC QP build, wrapped by
     wbc/tsid.py::wbc_build;
   * `plant_step` (plant_step.cu): the plant step, every substep in one
-    launch, wrapped by env/plant.py::plant_step.
+    launch, wrapped by env/plant.py::plant_step;
+  * `period_head` (period_head.cu over period_head.h): a period boundary's
+    foot positions, SRB state, lift-off select and velocity integrator,
+    wrapped by cascade/engine.py::period_head.
 
 Each stage owns its wrapper, its plain PyTorch version and its constants;
 this module knows only the kernels' common C signature:
@@ -44,7 +47,8 @@ from mpctsid_tpu_torch.utils import device_constant
 
 __all__ = ["rbd_constants", "rows", "check_batch", "call", "launch",
            "build_specs", "rbd_layout", "last_layout", "RbdLayout",
-           "LIBRARIES", "LAYOUT", "SLOT_VALUES", "MAX_WARPS",
+           "LIBRARIES", "LAYOUT", "HEAD_LAYOUT", "LAYOUTS",
+           "SLOT_VALUES", "MAX_WARPS",
            "LAUNCH_ARGTYPES", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -54,18 +58,28 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {
     "wbc_build": (("wbc_build.cu",), ("rbd.h",)),
     "plant_step": (("plant_step.cu",), ("rbd.h",)),
+    "period_head": (("period_head.cu",), ("rbd.h", "period_head.h")),
 }
+# nvcc flags after qp/_build.py's common ones: the period head contracts no
+# product and sum that its plain version rounds apart
+FLAGS = {"period_head": ("-fmad=false",)}
 
 # rbd.h's counts, in the order of its enum Layout: the constants' size and
 # the number of inputs, outputs and parameters of each kernel.  The
 # libraries report theirs (`<name>_layout`) and are refused if they differ.
 LAYOUT = dict(const_size=196, wbc_in=11, wbc_out=8, wbc_par=19, plant_in=11,
               plant_out=5, plant_par=2)
+# period_head.h's counts after rbd.h's (`rbd::head::layout`): its inputs,
+# outputs and parameters
+HEAD_LAYOUT = dict(head_in=6, head_out=5, head_par=2)
+# the counts each library reports, in the order of its `_layout(i)`
+LAYOUTS = {"wbc_build": LAYOUT, "plant_step": LAYOUT,
+           "period_head": {**LAYOUT, **HEAD_LAYOUT}}
 
 # values (floats or doubles) of a warp's slice of shared memory: rbd.h's
 # WbcSlot and PlantSlot.  The libraries report theirs
 # (`<name>_slot_values`) and are refused if they differ.
-SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372}
+SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 288}
 MAX_WARPS = 8           # rbd.h's MAX_WARPS: scenarios (warps) a block
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -202,7 +216,8 @@ def build_specs() -> list:
     `qp/_build.py::build_libraries` (chip_smoke.py builds them beside the
     qp/ kernels, every nvcc started together; each is otherwise built at
     its first launch)."""
-    return [(name, src, hdr, CSRC) for name, (src, hdr) in LIBRARIES.items()]
+    return [(name, src, hdr, CSRC, FLAGS.get(name, ()))
+            for name, (src, hdr) in LIBRARIES.items()]
 
 
 _LIBS: dict = {}
@@ -215,7 +230,8 @@ def _library(name: str):
     if lib is None:
         from mpctsid_tpu_torch.qp import _build
 
-        lib = _build.load_library(name, *LIBRARIES[name], csrc=CSRC)
+        lib = _build.load_library(name, *LIBRARIES[name], csrc=CSRC,
+                                  flags=FLAGS.get(name, ()))
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = LAUNCH_ARGTYPES + [_PTR]
         fn.restype = _INT
@@ -228,12 +244,13 @@ def _library(name: str):
             fn.restype = _INT
         lib_slot = getattr(lib, f"{name}_slot_values")
         lib_slot.restype = _INT
-        got = [getattr(lib, f"{name}_layout")(i) for i in range(len(LAYOUT))]
-        if got != list(LAYOUT.values()) or lib_slot() != SLOT_VALUES[name]:
+        want = list(LAYOUTS[name].values())
+        got = [getattr(lib, f"{name}_layout")(i) for i in range(len(want))]
+        if got != want or lib_slot() != SLOT_VALUES[name]:
             raise RuntimeError(
                 f"{name}: the library's layout {got} and slot of "
-                f"{lib_slot()} values are not dyn/kernels.py's "
-                f"{list(LAYOUT.values())} and {SLOT_VALUES[name]}")
+                f"{lib_slot()} values are not dyn/kernels.py's {want} and "
+                f"{SLOT_VALUES[name]}")
         _LIBS[name] = lib
     return lib
 

@@ -21,10 +21,10 @@ and on CUDA each is one captured CUDA graph (`utils/graphs.py`), the
 counterpart of the JAX package's `jax.jit(..., donate_argnums=...)`:
 
   * `_boundary` (once per period): foot positions, the SRB state, lift-off
-    bookkeeping, the offset-free velocity integrator and the touchdown
-    targets (`plan_footsteps_horizon`).  In the JAX package these are eager
-    device ops between its jitted calls; here they are captured too, so that
-    nothing on the card runs eagerly;
+    bookkeeping and the offset-free velocity integrator (`period_head`, one
+    kernel launch), and the touchdown targets (`plan_footsteps_horizon`).
+    In the JAX package these are eager device ops between its jitted calls;
+    here they are captured too, so that nothing on the card runs eagerly;
   * `_mpc` (once per period): footsteps, reference rollout, the contact
     horizon, `build_mpc_qp` (one kernel launch) and `admm_solve` (with the
     default `auto_mpc`, the M2 iteration kernel, two launches per solve);
@@ -60,12 +60,13 @@ import torch
 from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.cascade.engine import (N_MPC_ROWS, N_MPC_VARS,
                                               N_WBC_ROWS, N_WBC_VARS,
-                                              srb_state)
+                                              period_head)
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAIT_PERIOD
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import build_tree
-from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout
+from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
+                                       reference_rollout)
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
 from mpctsid_tpu_torch.plan.gait import TABLES, contacts_horizon
 from mpctsid_tpu_torch.plan.swing import swing_reference_at
@@ -169,29 +170,21 @@ class HostController:
         self._stream = torch.cuda.Stream(dev) if card else None
 
         tau_max = cfg.wbc.tau_max
-        mpc_every = cfg.cascade.mpc_every
-        t_period = mpc_every * cfg.cascade.wbc_dt
 
         # --- the device calls ------------------------------------------
         def _boundary(tick, liftoff, touchdown, v_int, out):
             q, v = tick[:, _Q], tick[:, _V]
             phase = tick[:, _PHASE][:, 0].to(torch.int32)
             contacts = tick[:, _CONTACTS]
-            feet_now = dyn.foot_positions(self.tree, q)
-            liftoff.copy_(torch.where(tick[:, _TO_SWING][..., None] > 0.5,
-                                      feet_now, liftoff))
-            x_srb = srb_state(q, v)
-            # offset-free velocity integrator (cascade/engine.py twin): bias
-            # the command handed to the planner thread / sync solve
-            cy, sy = torch.cos(x_srb[:, 5]), torch.sin(x_srb[:, 5])
-            v_meas = torch.stack([cy * x_srb[:, 6] + sy * x_srb[:, 7],
-                                  -sy * x_srb[:, 6] + cy * x_srb[:, 7],
-                                  x_srb[:, 11]], dim=-1)
-            v_cmd = tick[:, _V_CMD]
-            v_int.copy_(torch.clamp(
-                v_int + cfg.cascade.ki_vint * t_period * (v_cmd - v_meas),
-                -cfg.cascade.v_int_max, cfg.cascade.v_int_max))
-            v_used = v_cmd + v_int
+            # the feet, the SRB state, the lift-off select and the offset-
+            # free velocity integrator (cascade/engine.py twin), which biases
+            # the command handed to the planner thread / sync solve: one
+            # kernel launch on the card
+            feet_now, x_srb, new_liftoff, new_v_int, v_used = period_head(
+                self.tree, cfg.cascade, q, v, tick[:, _TO_SWING], liftoff,
+                v_int, tick[:, _V_CMD])
+            liftoff.copy_(new_liftoff)
+            v_int.copy_(new_v_int)
             # touchdown targets of the swinging feet (cheap planner op)
             _, next_td = plan_footsteps_horizon(
                 model, cfg.mpc, cfg.cascade, gid, phase, x_srb, v_used,
@@ -214,7 +207,8 @@ class HostController:
                                              fsteps, cont)
             sol = admm_solve(P, q_lin, A, l, u, x0=warm_x, y0=warm_y,
                              iters=mpc_iters, adapt_rounds=mpc_rounds,
-                             rho=0.1, backend=cfg.solver.mpc_backend)
+                             rho=0.1, backend=cfg.solver.mpc_backend,
+                             a_blocks=MPC_A_BLOCKS)
             ok = sol.ok[:, None]
             warm_x.copy_(torch.where(ok, sol.x, warm_x))
             warm_y.copy_(torch.where(ok, sol.y, warm_y))

@@ -27,6 +27,11 @@ NX = 12
 NU = 12
 N_FEET = 4
 ROWS_PER_FOOT = 5
+# The QP's constraint matrix is block diagonal: one ROWS_PER_FOOT x 3
+# friction pyramid per (step, foot) (`_constraint_matrix`).  Every MPC
+# caller of `admm_solve` declares it (`a_blocks=MPC_A_BLOCKS`), so that the
+# kernel backends form K and read A from the blocks alone (qp/tail.py).
+MPC_A_BLOCKS = (ROWS_PER_FOOT, 3)
 
 
 def rot_z(yaw):
@@ -328,7 +333,8 @@ def solve_mpc_batch(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet,
         warm_x = x0.new_zeros((Bsz, cfg.horizon * NU))
     if warm_y is None:
         warm_y = x0.new_zeros((Bsz, cfg.horizon * N_FEET * ROWS_PER_FOOT))
-    sol = admm_solve(P, q, A, l, u, x0=warm_x, y0=warm_y, iters=iters)
+    sol = admm_solve(P, q, A, l, u, x0=warm_x, y0=warm_y, iters=iters,
+                     a_blocks=MPC_A_BLOCKS)
     forces = sol.x.reshape(Bsz, cfg.horizon, N_FEET, 3)
     return forces, sol
 
@@ -355,6 +361,6 @@ def solve_mpc_contract(model: Solo12Model, cfg: MpcConfig, x0, x_ref, feet,
     qp = build_mpc_qp(model, cfg, x0.to(f64), x_ref.to(f64), feet.to(f64),
                       contacts.to(f64))
     sol = admm_solve(*(t.float() for t in qp), backend=backend,
-                     **CONTRACT_BUDGET)
+                     a_blocks=MPC_A_BLOCKS, **CONTRACT_BUDGET)
     forces = sol.x.reshape(x0.shape[0], cfg.horizon, N_FEET, 3)
     return forces, sol

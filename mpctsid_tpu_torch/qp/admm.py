@@ -15,7 +15,12 @@ scenario runs in lockstep and nothing depends on the data:
     with one step of iterative refinement;
   * per-row rho with the 1e3 equality boost (rows with l == u), finite-
     infinity convention INF = 1e20;
-  * per-scenario rho adaptation between rounds, rho clipped to [1e-3, 1e3].
+  * per-scenario rho adaptation between rounds, rho clipped to [1e-3, 1e3];
+  * on the kernel backends the solve's tail stages are kernels too
+    (qp/tail.py): K from the blocks of an A its caller declares block
+    diagonal (`a_blocks`, the MPC's friction pyramids), the rho adaptation
+    and the epilogue (unscaling, residuals, `ok`; also after the
+    whole-solve kernels).
 
 Shapes: P (B, n, n), q (B, n), A (B, m, n), l, u (B, m).  Every per-scenario
 quantity (`rho_s`, the residual ratios, Ruiz's cost scale, `QPSolution.ok`)
@@ -97,6 +102,9 @@ from mpctsid_tpu_torch.qp.kernels import (_mtv, _mv, admm_iterate,
 from mpctsid_tpu_torch.qp.kernels import \
     ruiz_equilibrate as ruiz_equilibrate_kernel
 from mpctsid_tpu_torch.qp.precision import residual_matvec
+from mpctsid_tpu_torch.qp.tail import adapt_rho as adapt_rho_kernel
+from mpctsid_tpu_torch.qp.tail import check_blocks, kkt_blocks
+from mpctsid_tpu_torch.qp.tail import unscale as unscale_kernel
 
 INF = 1e20
 
@@ -236,17 +244,31 @@ def _cholesky_factor(K):
                        torch.full_like(L, float("nan")))
 
 
-def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
-               sigma: float, alpha: float, rho_eq_scale: float, backend: str,
-               mode: str):
-    """n_iters ADMM iterations at per-scenario rho_s (B,) with the eq boost.
-
-    A function of its own so that K, K^-1 and M2 are freed when it returns:
-    at B = 4096, n = 192 each of them is 604 MB."""
+def _dense_kkt(P, A, eqf, rho_s, sigma: float, rho_eq_scale: float):
+    """(K, rho_vec): K = P + sigma I + A' diag(rho_vec) A by a dense
+    product over all m rows, rho_vec = (1 + eqf (rho_eq_scale - 1)) rho_s
+    (the plain version of `tail.kkt_blocks`)."""
     rho_vec = ((1.0 + eqf * (rho_eq_scale - 1.0)) * rho_s[:, None]).contiguous()
     K = torch.bmm((A * rho_vec[:, :, None]).transpose(1, 2), A)
     K += P
     K.diagonal(dim1=-2, dim2=-1).add_(sigma)
+    return K, rho_vec
+
+
+def _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, n_iters: int,
+               sigma: float, alpha: float, rho_eq_scale: float, backend: str,
+               mode: str, a_blocks=None):
+    """n_iters ADMM iterations at per-scenario rho_s (B,) with the eq boost.
+
+    A function of its own so that K, K^-1 and M2 are freed when it returns:
+    at B = 4096, n = 192 each of them is 604 MB.  On the kernel backends a
+    declared block-diagonal A (`a_blocks`) forms K from its blocks
+    (`tail.kkt_blocks`); otherwise K is the dense product."""
+    if a_blocks is not None and backend != "torch":
+        K, rho_vec = kkt_blocks(P, A, eqf, rho_s, sigma, rho_eq_scale,
+                                a_blocks)
+    else:
+        K, rho_vec = _dense_kkt(P, A, eqf, rho_s, sigma, rho_eq_scale)
     K_inv = _k_inverse(K, mode, backend)
 
     if backend == "m2" and K_inv is not None:
@@ -311,14 +333,25 @@ def admm_solve(P, q, A, l, u,
                polish_kkt: bool = False,
                adapt_rounds: int = 1,
                backend: str = "torch",
-               status_tol: float = 0.05) -> QPSolution:
-    """Fixed-iteration OSQP-style ADMM over a batch; see the module docstring."""
+               status_tol: float = 0.05,
+               a_blocks=None) -> QPSolution:
+    """Fixed-iteration OSQP-style ADMM over a batch; see the module docstring.
+
+    a_blocks: None, or (r, c): the caller declares that A is block diagonal
+    with equal r x c blocks tiling (m, n) (the MPC's friction pyramids,
+    mpc/srb.py::MPC_A_BLOCKS); a declaration that does not tile A raises
+    ValueError.  It changes no result's meaning: on the kernel backends K
+    is formed from the blocks and the rho adaptation and the epilogue read
+    only them (qp/tail.py); the plain backend and every CPU run compute
+    exactly what they compute without it."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
     if P.dim() != 3:
         raise ValueError(
             f"P must carry a leading scenario axis (B, n, n); got "
             f"{tuple(P.shape)}")
+    if a_blocks is not None:
+        check_blocks(P.shape[-1], A.shape[-2], a_blocks)
     backend = _resolve_backend(backend, P.device)
     kw = dict(iters=iters, rho=rho, sigma=sigma, alpha=alpha,
               rho_eq_scale=rho_eq_scale, equilibrate_iters=equilibrate_iters,
@@ -329,11 +362,12 @@ def admm_solve(P, q, A, l, u,
         # path of a WBC-sized solve is thousands of tiny device ops and is
         # launch bound.
         return _whole_solve(admm_solve_fused, P, q, A, l, u, x0, y0,
-                            status_tol, **kw)
+                            status_tol, a_blocks=a_blocks, **kw)
 
     eqf = ((u - l) < 1e-9).to(P.dtype)
     x, y, D, E, c, (Ps, qs, As, ls, us) = scaled_solve(
-        P, q, A, l, u, eqf, x0, y0, mode=mode, backend=backend, **kw)
+        P, q, A, l, u, eqf, x0, y0, mode=mode, backend=backend,
+        a_blocks=a_blocks, **kw)
     if polish_kkt:
         # polish in the SCALED frame (a well-conditioned KKT for the float32
         # solve); the second round re-detects the active set at the polished
@@ -341,19 +375,21 @@ def admm_solve(P, q, A, l, u,
         eq = (u - l) < 1e-9
         x, y = _polish(Ps, qs, As, ls, us, x, y, eq)
         x, y = _polish(Ps, qs, As, ls, us, x, y, eq, active_tol=1e-5)
-    return _unscaled_solution(P, q, A, l, u, x, y, D, E, c, status_tol)
+    return _solution(P, q, A, l, u, x, y, D, E, c, status_tol,
+                     kernel=backend != "torch", a_blocks=a_blocks)
 
 
 def scaled_solve(P, q, A, l, u, eqf, x0=None, y0=None, iters: int = 60,
                  rho: float = 0.1, sigma: float = 1e-6, alpha: float = 1.6,
                  rho_eq_scale: float = 1e3, mode: str = "blockinv",
                  equilibrate_iters: int = 8, adapt_rounds: int = 1,
-                 backend: str = "torch"):
+                 backend: str = "torch", a_blocks=None):
     """The ADMM chain of `admm_solve` in the scaled frame: Ruiz, the warm
     start, the adapt rounds.  eqf (B, m): 1.0 on equality rows.  backend:
-    one of the port's resolved names but "fused".  Returns (x, y, D, E, c,
-    (P, q, A, l, u) scaled): x = D xs, y = E ys / c unscale the solution.
-    With backend "torch" and mode "blockinv" this is the plain version of
+    one of the port's resolved names but "fused"; a_blocks: `admm_solve`'s
+    declaration of A's blocks.  Returns (x, y, D, E, c, (P, q, A, l, u)
+    scaled): x = D xs, y = E ys / c unscale the solution.  With backend
+    "torch" and mode "blockinv" this is the plain version of
     `kernels.admm_solve_plain_warp`."""
     B, n = q.shape
     m = A.shape[1]
@@ -377,22 +413,32 @@ def scaled_solve(P, q, A, l, u, eqf, x0=None, y0=None, iters: int = 60,
     iters_per = max(1, iters // n_rounds)
     for r_i in range(n_rounds):
         x, z, y = _run_block(P, q, A, l, u, eqf, rho_s, x, z, y, iters_per,
-                             sigma, alpha, rho_eq_scale, backend, mode)
+                             sigma, alpha, rho_eq_scale, backend, mode,
+                             a_blocks)
         if r_i + 1 < n_rounds:
-            Ax = _mv(A, x)
-            Px = _mv(P, x)
-            Aty = _mtv(A, y)
-            rp = _amax(Ax - z) / torch.clamp_min(
-                torch.maximum(_amax(Ax), _amax(z)), 1e-12)
-            rd = _amax(Px + q + Aty) / torch.clamp_min(
-                torch.maximum(_amax(Px),
-                              torch.maximum(_amax(q), _amax(Aty))), 1e-12)
-            # f32 deviation from OSQP's [1e-6, 1e6]: rho bounds [1e-3, 1e3];
-            # tiny rho drives cond(K) past what an f32 factorization inverts
-            rho_s = torch.clamp(
-                rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
-                1e-3, 1e3)
+            # the plain chain on the plain backend; the kernel on the kernel
+            # backends (its plain version, `_adapt_rho`, on the CPU)
+            rho_s = (_adapt_rho(P, q, A, x, z, y, rho_s) if backend == "torch"
+                     else adapt_rho_kernel(P, q, A, x, z, y, rho_s,
+                                           a_blocks=a_blocks))
     return x, y, D, E, c, (P, q, A, l, u)
+
+
+def _adapt_rho(P, q, A, x, z, y, rho_s):
+    """The per-scenario rho (B,) of the next adapt round from the scaled
+    residual ratio (the plain version of `tail.adapt_rho`)."""
+    Ax = _mv(A, x)
+    Px = _mv(P, x)
+    Aty = _mtv(A, y)
+    rp = _amax(Ax - z) / torch.clamp_min(
+        torch.maximum(_amax(Ax), _amax(z)), 1e-12)
+    rd = _amax(Px + q + Aty) / torch.clamp_min(
+        torch.maximum(_amax(Px),
+                      torch.maximum(_amax(q), _amax(Aty))), 1e-12)
+    # f32 deviation from OSQP's [1e-6, 1e6]: rho bounds [1e-3, 1e3];
+    # tiny rho drives cond(K) past what an f32 factorization inverts
+    return torch.clamp(rho_s * torch.sqrt(rp / torch.clamp_min(rd, 1e-12)),
+                       1e-3, 1e3)
 
 
 def admm_solve_warp(P, q, A, l, u, x0=None, y0=None, iters: int = 60,
@@ -415,10 +461,11 @@ def admm_solve_warp(P, q, A, l, u, x0=None, y0=None, iters: int = 60,
 def _whole_solve(kernel, P, q, A, l, u, x0, y0, status_tol: float, *,
                  iters: int, rho: float, sigma: float, alpha: float,
                  rho_eq_scale: float, equilibrate_iters: int,
-                 adapt_rounds: int) -> QPSolution:
+                 adapt_rounds: int, a_blocks=None) -> QPSolution:
     """One launch of a whole-solve kernel (`admm_solve_fused` or
     `admm_solve_plain_warp`: the scaled x, y and D, E, c), then the
-    unscaling, the residuals and `ok` here."""
+    unscaling, the residuals and `ok` (`tail.unscale`: one more launch on
+    the card)."""
     B, n = q.shape
     m = A.shape[1]
     dtype = P.dtype
@@ -430,7 +477,8 @@ def _whole_solve(kernel, P, q, A, l, u, x0, y0, status_tol: float, *,
         iters=iters, adapt_rounds=adapt_rounds,
         equilibrate_iters=equilibrate_iters, rho0=rho, sigma=sigma,
         alpha=alpha, rho_eq_scale=rho_eq_scale, inf=INF)
-    return _unscaled_solution(P, q, A, l, u, xs, ys, D, E, c, status_tol)
+    return _solution(P, q, A, l, u, xs, ys, D, E, c, status_tol, kernel=True,
+                     a_blocks=a_blocks)
 
 
 def _kkt_error(P, q, A, l, u, x, y):
@@ -548,6 +596,21 @@ def _active_set_solve(P, q, A, l, u, low, upp, delta: float):
     for _ in range(3):
         sol = sol + solve(residual_matvec(rhs, kkt0, sol))
     return sol[:, :n], sol[:, n:] * mask
+
+
+def _solution(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol: float,
+              kernel: bool, a_blocks=None) -> QPSolution:
+    """The solve's epilogue.  Routing: the kernel backends and the
+    whole-solve kernels (`kernel`) take `tail.unscale` (one launch on a
+    CUDA device, float32 only, as the kernels before it; its plain version
+    on the CPU); the plain backend takes `_unscaled_solution`."""
+    if kernel:
+        x, y, z, prim, dual, ok = unscale_kernel(
+            P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol,
+            a_blocks=a_blocks)
+        return QPSolution(x=x, y=y, z=z, prim_res=prim, dual_res=dual, ok=ok)
+    return _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,
+                              status_tol)
 
 
 def _unscaled_solution(P0, q0, A0, l0, u0, xs, ys, D, E, c,

@@ -41,7 +41,8 @@ cs.enforce_f32_matmuls()
 _build.build_libraries(
     cs.kernels.build_specs() + cs.rbd_kernels.build_specs()
     + cs.plan_kernels.build_specs()
-    + (cs.mpc_kernels.build_specs() if hasattr(cs, "mpc_kernels") else []))
+    + (cs.mpc_kernels.build_specs() if hasattr(cs, "mpc_kernels") else [])
+    + (cs.kernels_tail.build_specs() if hasattr(cs, "kernels_tail") else []))
 ctl = cs.HostController(cs.SOLO12, cs.host_cfg("auto_mpc", "xla"),
                         cs.standing_q0(), device=dev)
 plant = cs.GraphPlant(ctl.tree, cs.standing_q0(), dev)

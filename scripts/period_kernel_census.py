@@ -8,7 +8,7 @@ Captures `cascade_period` of the preset config4_cascade_4k (trot) at the
 given batch with chip_smoke.py's runner (`period_runner`, as phase 12
 does), replays it once to warm up, then profiles one replay in a fresh
 process and prints every device event (kernels, copies, memsets) with its
-count and the total.  Run it from two checkouts in one call on the same
+count and its device ms, and the totals.  Run it from two checkouts in one call on the same
 card and diff the outputs to see what a change adds to or takes out of a
 period (phase 12's count is taken late in a long process, where the
 profiler's records vary by a few).  Needs an NVIDIA GPU (exits 2 without
@@ -57,13 +57,16 @@ def main() -> int:
         runner(v_t)
         torch.cuda.synchronize()
         cs.flush_cupti()
-    names = collections.Counter(
-        e.name for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA)
+    names, ms = collections.Counter(), collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            names[e.name] += 1
+            ms[e.name] += e.time_range.elapsed_us() / 1e3
     lines = [f"[{cs.nvidia_smi_line()}] B={a.batch} wbc_backend="
              f"{a.wbc_backend}: {sum(names.values())} device events in one "
-             "replay"]
-    lines += [f"{c:6d} {name}" for name, c in sorted(names.items())]
+             f"replay, {sum(ms.values()):.3f} device ms"]
+    lines += [f"{c:6d} {ms[name]:10.4f} {name}"
+              for name, c in sorted(names.items())]
     text = "\n".join(lines) + "\n"
     print(text, end="")
     if a.out:

@@ -47,8 +47,10 @@ def run(inputs, cfg, inverse, smi):
                                       backend=backend)
             qp32 = cs.build_mpc_qp(cs.SOLO12, cfg.mpc, *inputs)
             for backend in ("torch", "m2"):
-                cs.admm_solve(*qp32, backend=backend, **cs.CONTRACT_BUDGET)
-            cs.admm_solve(*qp32, backend="m2", **cs.INLOOP_MPC)
+                cs.admm_solve(*qp32, backend=backend,
+                              a_blocks=cs.MPC_A_BLOCKS, **cs.CONTRACT_BUDGET)
+            cs.admm_solve(*qp32, backend="m2", a_blocks=cs.MPC_A_BLOCKS,
+                          **cs.INLOOP_MPC)
     finally:
         admm_mod.chol_inverse = shipped
     failures = len(cs.FAILURES)

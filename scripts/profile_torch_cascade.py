@@ -53,7 +53,8 @@ from mpctsid_tpu_torch.est.filter import (estimator_init,  # noqa: E402
                                           estimator_update, imu_from_plant)
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
-from mpctsid_tpu_torch.mpc.srb import build_mpc_qp, reference_rollout  # noqa: E402
+from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,  # noqa: E402
+                                       reference_rollout)
 from mpctsid_tpu_torch.plan import (contacts_at,  # noqa: E402
                                     contacts_horizon,
                                     plan_footsteps_horizon)
@@ -123,7 +124,7 @@ def profile_batch(B: int, device, wbc_backends, mpc_backend=None,
         return admm_solve(*qp, x0=ctl.mpc_warm_x, y0=ctl.mpc_warm_y,
                           iters=cfg.solver.mpc_iters,
                           adapt_rounds=cfg.solver.mpc_adapt_rounds, rho=0.1,
-                          backend=backend)
+                          backend=backend, a_blocks=MPC_A_BLOCKS)
 
     contacts = contacts_at(gid, ctl.phase, dtype)
     refs = WbcRefs(

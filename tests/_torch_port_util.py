@@ -605,3 +605,243 @@ def build_mpc_build_harness(directory):
                                  launch_reversed=lib.mpc_build_host_reversed,
                                  layout=lib.mpc_build_layout,
                                  smem_values=lib.mpc_build_smem_values)
+
+
+PERIOD_HEAD_HARNESS = r'''
+#include <limits>
+
+#include "period_head.h"
+
+namespace {
+
+// a scenario at a time, its warp's lanes one after another in each phase
+// (reversed when `reverse`), from a slot filled with NaN
+template <typename T>
+int head(int B, const void* consts, const void* const* in,
+         const long long* stride, void* const* out, const double* par,
+         bool reverse)
+{
+    rbd::head::HeadArgs<T> a;
+    for (int k = 0; k < rbd::head::HI_COUNT; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < rbd::head::HO_COUNT; ++k)
+        a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < rbd::head::HP_COUNT; ++k) a.par[k] = (T)par[k];
+    const rbd::HostExec ex{reverse};
+    rbd::head::HeadSlot<T> S;
+    T* raw = reinterpret_cast<T*>(&S);
+    for (long long b = 0; b < B; ++b) {
+        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i)
+            raw[i] = std::numeric_limits<T>::quiet_NaN();
+        rbd::head::period_head_warp<T>(ex, static_cast<const T*>(consts), a,
+                                       b, S);
+    }
+    return 0;
+}
+
+}  // namespace
+
+#define HEAD_ENTRY(name, reverse)                                           \
+    extern "C" int name(int dtype, int B, const void* consts,               \
+                        const void* const* in, const long long* stride,     \
+                        void* const* out, const double* par)                \
+    {                                                                       \
+        return dtype == 0                                                   \
+                   ? head<float>(B, consts, in, stride, out, par, reverse)  \
+                   : head<double>(B, consts, in, stride, out, par,          \
+                                  reverse);                                 \
+    }
+
+HEAD_ENTRY(period_head_host, false)
+HEAD_ENTRY(period_head_host_reversed, true)
+
+extern "C" int period_head_layout(int what)
+{
+    return rbd::head::layout(what);
+}
+
+extern "C" int period_head_slot_values()
+{
+    return (int)(sizeof(rbd::head::HeadSlot<float>) / sizeof(float));
+}
+
+extern "C" int period_head_warps_per_block(long long B, int slot, int optin,
+                                           int n_sm)
+{
+    return rbd::warps_per_block(B, slot, optin, n_sm);
+}
+'''
+
+
+def build_period_head_harness(directory):
+    """mpctsid_tpu_torch/dyn/csrc/period_head.h (over rbd.h's leg
+    kinematics), the period-head kernel's per-scenario body, built with the
+    host compiler into `directory` (-ffp-contract=off, as the library's
+    -fmad=false): each scenario's lanes one after another between the
+    phases (rbd::HostExec), from a NaN-filled slot, with the kernel's C
+    signature less the stream.  Returns a namespace of ctypes functions:
+    `launch` and `launch_reversed` (which
+    `cascade.engine.run_period_head` takes), `layout(i)`, `slot_values()`
+    and `warps_per_block(B, slot bytes, shared bytes, SMs)`."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.dyn import kernels
+
+    d = Path(directory).resolve()
+    cc = d / "period_head_harness.cc"
+    cc.write_text(PERIOD_HEAD_HARNESS)
+    so = d / "libperiod_head_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("period_head_host", "period_head_host_reversed"):
+        getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    lib.period_head_layout.argtypes = [ctypes.c_int]
+    lib.period_head_layout.restype = ctypes.c_int
+    lib.period_head_slot_values.restype = ctypes.c_int
+    lib.period_head_warps_per_block.argtypes = [ctypes.c_longlong] + [
+        ctypes.c_int] * 3
+    lib.period_head_warps_per_block.restype = ctypes.c_int
+    return types.SimpleNamespace(
+        launch=lib.period_head_host,
+        launch_reversed=lib.period_head_host_reversed,
+        layout=lib.period_head_layout, slot_values=lib.period_head_slot_values,
+        warps_per_block=lib.period_head_warps_per_block)
+
+
+SOLVE_TAIL_HARNESS = r'''
+#include <limits>
+#include <vector>
+
+#include "solve_tail.h"
+
+namespace {
+
+template <typename T>
+void nan_fill(std::vector<T>& v)
+{
+    for (auto& e : v) e = std::numeric_limits<T>::quiet_NaN();
+}
+
+// kkt_blocks' units over the whole batch, in order or reversed
+template <typename T>
+int kkt(const void* const* in, const long long* stride, void* const* out,
+        const double* par, int B, tail::Shape s, bool reverse)
+{
+    tail::KktArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    tail::kkt_blocks<T>(tail::HostExec{reverse}, a, s, (long long)B);
+    return 0;
+}
+
+// a scenario at a time, its block's units one after another in each phase
+// (reversed when `reverse`), in fresh shared memory filled with NaN
+template <typename T>
+int adapt(const void* const* in, const long long* stride, void* const* out,
+          const double* par, int B, tail::Shape s, bool reverse)
+{
+    tail::AdaptArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    std::vector<double> smem(
+        (size_t)tail::smem_values(s.n, s.m, !s.blocks(), s.lanes));
+    for (long long b = 0; b < B; ++b) {
+        nan_fill(smem);
+        tail::adapt_rho<T>(tail::HostExec{reverse}, a, s, b, smem.data());
+    }
+    return 0;
+}
+
+template <typename T>
+int unscale(const void* const* in, const long long* stride,
+            void* const* out, const double* par, int B, tail::Shape s,
+            bool reverse)
+{
+    tail::UnArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    a.ok = static_cast<unsigned char*>(out[tail::UO_OK]);
+    std::vector<T> smem(
+        (size_t)tail::smem_values(s.n, s.m, !s.blocks(), s.lanes));
+    for (long long b = 0; b < B; ++b) {
+        nan_fill(smem);
+        tail::unscale<T>(tail::HostExec{reverse}, a, s, b, smem.data());
+    }
+    return 0;
+}
+
+}  // namespace
+
+#define TAIL_ENTRY(name, body, reverse)                                     \
+    extern "C" int name(int dtype, const void* const* in,                   \
+                        const long long* stride, void* const* out,          \
+                        const double* par, int B, int n, int m, int r,      \
+                        int c, int, int, int lanes)                         \
+    {                                                                       \
+        const tail::Shape s{n, m, r, c, lanes};                             \
+        return dtype == 0                                                   \
+                   ? body<float>(in, stride, out, par, B, s, reverse)       \
+                   : body<double>(in, stride, out, par, B, s, reverse);     \
+    }
+
+TAIL_ENTRY(solve_tail_kkt_host, kkt, false)
+TAIL_ENTRY(solve_tail_kkt_host_reversed, kkt, true)
+TAIL_ENTRY(solve_tail_adapt_host, adapt, false)
+TAIL_ENTRY(solve_tail_adapt_host_reversed, adapt, true)
+TAIL_ENTRY(solve_tail_unscale_host, unscale, false)
+TAIL_ENTRY(solve_tail_unscale_host_reversed, unscale, true)
+
+extern "C" int solve_tail_layout(int what) { return tail::layout(what); }
+
+extern "C" long long solve_tail_smem_values(int n, int m, int dense,
+                                            int lanes)
+{
+    return tail::smem_values(n, m, dense, lanes);
+}
+'''
+
+
+def build_solve_tail_harness(directory):
+    """mpctsid_tpu_torch/qp/csrc/solve_tail.h, the solve-tail kernels'
+    bodies, built with the host compiler into `directory`
+    (-ffp-contract=off, as the library's -fmad=false): kkt_blocks' entries
+    one after another over the batch, adapt_rho's and unscale's units one
+    after another per phase of each scenario from NaN-filled shared memory,
+    in order or reversed, with the launchers' C signature less the stream.
+    Returns a namespace: `kkt`, `adapt`, `unscale` and their `*_reversed`
+    twins (which qp/tail.py's `run_kkt`, `run_adapt`, `run_unscale` take),
+    `layout(i)` and `smem_values(n, m, dense, lanes)`."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.qp import _build, tail
+
+    d = Path(directory).resolve()
+    cc = d / "solve_tail_harness.cc"
+    cc.write_text(SOLVE_TAIL_HARNESS)
+    so = d / "libsolve_tail_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(_build.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for entry in ("kkt", "adapt", "unscale"):
+        for tag in ("", "_reversed"):
+            fn = getattr(lib, f"solve_tail_{entry}_host{tag}")
+            fn.argtypes = tail.LAUNCH_ARGTYPES
+            fn.restype = ctypes.c_int
+            fns[entry + tag] = fn
+    lib.solve_tail_layout.argtypes = [ctypes.c_int]
+    lib.solve_tail_layout.restype = ctypes.c_int
+    lib.solve_tail_smem_values.argtypes = [ctypes.c_int] * 4
+    lib.solve_tail_smem_values.restype = ctypes.c_longlong
+    return types.SimpleNamespace(layout=lib.solve_tail_layout,
+                                 smem_values=lib.solve_tail_smem_values,
+                                 **fns)
