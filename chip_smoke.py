@@ -130,13 +130,18 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  solve_tail.cu) on the MPC's QPs (the build kernel, its
                  stride-0 A, the blocks declared, an iterate of kernel 1)
                  and WBC-sized QPs (dense A, an iterate of kernel 2) at
-                 B = 1, 256 and 4096: kkt_blocks against the dense K (1e-6
+                 B = 1, 256 and 4096: kkt_blocks (a block a tile of K)
+                 bit for bit the kernel's order written out elementwise
+                 (qp/tail.py::kkt_in_order) and against the dense K (1e-6
                  of each scenario's largest |K|; rho_vec and K off the
-                 blocks bit for bit), adapt_rho against the plain chain (as
-                 close to float64 as it, within 1e-4), unscale against
-                 _unscaled_solution (x and y bit for bit, z / prim / dual
-                 within 1e-5 of their scales, ok flips counted and allowed
-                 only where prim lies within that of status_tol); two
+                 blocks bit for bit), its library call (one torch.baddbmm)
+                 timed; adapt_rho against the plain chain run in float64
+                 (1e-6); unscale (a warp a scenario at the WBC shape, a
+                 block at the MPC's) bit for bit unscale_in_order and
+                 against _unscaled_solution (x and y bit for bit, z / prim
+                 / dual within 1e-5 of their scales, ok flips counted and
+                 allowed only where prim lies within that of status_tol);
+                 each launch's geometry the layout function's; two
                  launches bit for bit; times (graph replay, eager, the
                  plain chain eager and as a graph) beside the bounds
   4. rollout  the main path at full size: cascade_rollout of the preset
@@ -2288,13 +2293,24 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
     rep = {k: dict(err=0.0, times={}) for k in ("period_head", "kkt_blocks",
                                               "adapt_rho", "unscale")}
 
-    def timed_pair(name, key, call, plain, bound):
+    def timed_pair(name, key, call, plain, bound, library=None):
         ms, eager = graph_ms(call, reps=20), time_ms(call, 2, 10)
         plain_ms, plain_g = time_ms(plain, 1, 3), graph_ms(plain, reps=5)
-        rep[name]["times"][key] = (ms, eager, plain_ms, plain_g, bound)
+        lib_ms = None if library is None else graph_ms(library, reps=20)
+        rep[name]["times"][key] = (ms, eager, plain_ms, plain_g, bound,
+                                   lib_ms)
+        lib_txt = ("" if lib_ms is None else
+                   f"; library call {lib_ms:.4f} ms as a graph")
         report_times(name, f"{key} (graph replay; eager wrapper {eager:.4f} "
-                     f"ms; plain chain as a graph {plain_g:.4f} ms)", ms,
-                     plain_ms, bound, smi)
+                     f"ms; plain chain as a graph {plain_g:.4f} ms{lib_txt})",
+                     ms, plain_ms, bound, smi)
+
+    def layout_ok(entry, want):
+        got = kernels_tail.last_layout(entry)
+        if got != want:
+            print(f"  {entry}: the last launch took {got}, the layout "
+                  f"function says {want}", flush=True)
+        return got == want
 
     # ---- the period head
     for B in TAIL_B:
@@ -2347,6 +2363,12 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                 plain = lambda: admm_mod._dense_kkt(  # noqa: E731
                     Ps, As, eqf, rho_s, 1e-6, 1e3)
                 (K, rv), again, (Kp, rvp) = call(), call(), plain()
+                lay = kernels_tail.kkt_layout(
+                    B, n, m, blocks, optin,
+                    aligned=kernels_tail.bulk_rows(Ps, n * n))
+                lay_ok = layout_ok("kkt", lay)
+                Ko, rvo = kernels_tail.kkt_in_order(Ps, As, eqf, rho_s, 1e-6,
+                                                    1e3, blocks)
                 scale = Kp.abs().reshape(B, -1).amax(1).double()
                 rel = float(((K.double() - Kp.double()).abs()
                              .reshape(B, -1).amax(1) / scale).max())
@@ -2355,34 +2377,49 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                                           ).bool().to(device)
                 check(rel <= KKT_REL and torch.equal(rv, rvp)
                       and torch.equal(K[:, ~inside], Ps[:, ~inside])
-                      and torch.equal(K, again[0]) and all_finite((K,)),
-                      f"3i: kkt_blocks {tag}: K within {KKT_REL:g} of each "
-                      "scenario's largest |K|, off the blocks P's bits, "
-                      "rho_vec bit for bit, two launches bit for bit")
+                      and torch.equal(K, Ko) and torch.equal(rv, rvo)
+                      and torch.equal(K, again[0]) and all_finite((K,))
+                      and lay_ok,
+                      f"3i: kkt_blocks {tag}: K and rho_vec bit for bit the "
+                      "kernel's order written out elementwise (kkt_in_order), "
+                      f"K within {KKT_REL:g} of each scenario's largest |K|, "
+                      "off the blocks P's bits, rho_vec the plain version's, "
+                      "two launches bit for bit, the layout kkt_layout's")
                 err = float((K - Kp).abs().max())
                 rep["kkt_blocks"]["err"] = max(rep["kkt_blocks"]["err"], err)
-                print(f"  kkt_blocks {tag}: rel {rel:.3e}, abs {err:.3e}, "
-                      f"entries that part {int((K != Kp).sum())} of "
-                      f"{K.numel()}", flush=True)
+                print(f"  kkt_blocks {tag} ({lay.blocks} blocks of "
+                      f"{lay.threads}, pieces of {lay.lanes}): rel {rel:.3e}, "
+                      f"abs {err:.3e}, entries that part from the plain "
+                      f"version {int((K != Kp).sum())} of {K.numel()}, from "
+                      f"kkt_in_order {int((K != Ko).sum())}", flush=True)
+                del K, Kp, Ko, again
+                # the library call for K: one baddbmm, its operands made
+                # outside the timed window
+                P_sig = Ps + 1e-6 * torch.eye(n, device=device)
+                A_b = As.expand(B, m, n)
+                AtR = (A_b * rv[:, :, None]).transpose(1, 2)
                 timed_pair("kkt_blocks", f"B={B}", call, plain,
-                           kkt_bound_ms(B, n, m, blocks, a_shared(As)))
-                del K, Kp, again
+                           kkt_bound_ms(B, n, m, blocks, a_shared(As)),
+                           lambda: torch.baddbmm(P_sig, AtR, A_b))
+                del P_sig, AtR, A_b
             # adapt_rho
             call = lambda: kernels_tail.adapt_rho(  # noqa: E731
                 Ps, qs, As, x, z, y, rho_s, a_blocks=blocks)
             plain = lambda: admm_mod._adapt_rho(  # noqa: E731
                 Ps, qs, As, x, z, y, rho_s)
             rho, again, want = call(), call(), plain()
+            lay_ok = layout_ok("adapt", kernels_tail.adapt_layout(
+                n, m, B, optin, blocks is None))
             w64 = admm_mod._adapt_rho(*(t.double() for t in (
                 Ps, qs, As, x, z, y, rho_s)))
             rel = lambda a, b: ((a.double() - b.double()).abs()  # noqa: E731
                                 / b.double().abs())
             k64, p64, kp = rel(rho, w64), rel(want, w64), rel(rho, want)
             check(float(k64.max()) <= ADAPT_REL and torch.equal(rho, again)
-                  and all_finite((rho,)),
+                  and all_finite((rho,)) and lay_ok,
                   f"3i: adapt_rho {tag}: within {ADAPT_REL:g} (relative) of "
                   "the plain version in float64 on every scenario, two "
-                  "launches bit for bit")
+                  "launches bit for bit, the layout adapt_layout's")
             rep["adapt_rho"]["err"] = max(rep["adapt_rho"]["err"],
                                           float((rho - want).abs().max()))
             print(f"  adapt_rho {tag}: to float64: kernel max "
@@ -2401,6 +2438,14 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
             plain = lambda: plain_unscale(qp, xs, ys, D, E, c,  # noqa: E731
                                           stol)
             got, again, want = call(), call(), plain()
+            aligned = kernels_tail.bulk_rows(qp[0], n * n) and (
+                blocks is not None or kernels_tail.bulk_rows(qp[2], m * n))
+            lay = kernels_tail.tail_layout(n, m, B, optin, n_sm,
+                                           blocks is None, aligned=aligned)
+            lay_ok = layout_ok("unscale", lay)
+            ordered = kernels_tail.unscale_in_order(
+                *qp, xs, ys, D, E, c, stol, blocks, lanes=lay.lanes)
+            in_order = all(torch.equal(a, b) for a, b in zip(got, ordered))
             zs, ds = unscale_scales(qp, want[0], want[1])
             ez = float(((got[2].double() - want[2].double()).abs().amax(1)
                         / zs).max())
@@ -2414,16 +2459,22 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
             over_flips += int((flip & ~near).sum())
             check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
                   and max(ez, ep, ed) <= TAIL_REL
-                  and bool((~flip | near).all())
+                  and bool((~flip | near).all()) and in_order and lay_ok
                   and all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"3i: unscale {tag}: x, y bit for bit, z / prim / dual "
-                  f"within {TAIL_REL:g} of their scales, ok as the plain "
-                  "version's but where prim lies within that of status_tol, "
-                  "two launches bit for bit")
+                  f"3i: unscale {tag} ({lay.path} path): x, y bit for bit, "
+                  "z / prim / dual bit for bit the kernel's order written "
+                  f"out elementwise (unscale_in_order) and within "
+                  f"{TAIL_REL:g} of the plain version's scales, ok as the "
+                  "plain version's but where prim lies within that of "
+                  "status_tol, two launches bit for bit, the layout "
+                  "tail_layout's")
             rep["unscale"]["err"] = max(rep["unscale"]["err"], max(
                 float((a.double() - b.double()).abs().max())
                 for a, b in zip(got[2:5], want[2:5])))
-            print(f"  unscale {tag}: x, y bit for bit; rel z {ez:.3e}, prim "
+            print(f"  unscale {tag} ({lay.path} path, {lay.blocks} blocks "
+                  f"of {lay.threads}): in order: "
+                  f"{[int((a != b).sum()) for a, b in zip(got, ordered)]} "
+                  f"entries part; x, y bit for bit; rel z {ez:.3e}, prim "
                   f"{ep:.3e}, dual {ed:.3e}; ok flips {int(flip.sum())} "
                   f"(prim within {TAIL_REL:g} of status_tol: "
                   f"{int(near.sum())} scenarios)", flush=True)
@@ -2445,18 +2496,20 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                 "adapt_rho": "mpctsid_tpu/qp/admm.py:329",
                 "unscale": "mpctsid_tpu/qp/admm.py:199"}
     for name, r in rep.items():
-        ms, eager, plain_ms, plain_g, bound = r["times"][main[name]]
+        ms, eager, plain_ms, plain_g, bound, lib_ms = r["times"][main[name]]
         reports[name] = dict(
             source=sources[name], replaces=replaces[name],
             max_abs_err=r["err"], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], ms_eager=eager,
-            plain_graph_ms=plain_g,
+            bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+            ms_eager=eager, plain_graph_ms=plain_g,
             times={k: dict(ms=v[0], ms_eager=v[1], plain_ms=v[2],
                            plain_graph_ms=v[3], bound_ms=v[4][0],
-                           bound_by=v[4][1])
+                           bound_by=v[4][1], library_ms=v[5])
                    for k, v in r["times"].items()})
+        lib_txt = ("none" if lib_ms is None else
+                   f"{lib_ms:.4f} ms (torch.baddbmm)")
         print(f"  {name}: replaces {replaces[name]} (XLA's ops; no TPU "
-              f"kernel), source {sources[name]}, library call none; "
+              f"kernel), source {sources[name]}, library call {lib_txt}; "
               f"{main[name]} {ms:.4f} ms (graph replay) / {eager:.4f} ms "
               f"(eager), bound {bound[0]:.4f} ms by {bound[1]}, plain "
               f"{plain_ms:.3f} ms ({plain_g:.4f} as a graph)  [{smi}]",
@@ -5001,7 +5054,8 @@ def main() -> int:
         return 1
 
     # one PyTorch call computes kernel B's function (torch.linalg.inv_ex,
-    # timed in 3f); none computes the others': library_ms null.  The WBC
+    # timed in 3f) and kkt_blocks' (torch.baddbmm, 3i); none computes the
+    # others': library_ms null.  The WBC
     # build, the plant step and kernels A and B replace no TPU kernel: the
     # JAX package leaves those stages to XLA; `replaces` names its functions
     print(json.dumps({"kernels": [

@@ -24,24 +24,44 @@
 //               status_tol.  A0 dense, or block diagonal as declared.
 //
 // Plain C++ marked TAIL_FN (`__host__ __device__` under nvcc), run in
-// phases over units (`TAIL_UNITS`) with `ex.sync()` between phases: on the
-// card (solve_tail.cu) a block's threads take the units in turn (one
-// block a scenario for adapt_rho and unscale; kkt_blocks is one phase of
-// independent entries over the whole batch); on the host (HostExec) one
-// thread runs every unit, in order or reversed, so the CPU tests build
-// this arithmetic with g++ (tests/test_torch_solve_tail_kernels.py).  A
-// unit never reads what another unit writes in its own phase.
+// phases over units (`TAIL_UNITS`) with `ex.sync()` between phases, or
+// over a warp's lanes (`ex.lanes`).  On the card (solve_tail.cu) a block's
+// threads, or a warp's lanes, take the units; on the host (HostExec,
+// HostWarp) one thread runs every unit or lane, in order or reversed, so
+// the CPU tests build this arithmetic with g++
+// (tests/test_torch_solve_tail_*.py).  A unit never reads what another
+// unit writes in its own phase.  The designs:
+//
+//   kkt_blocks  a block a TILE of one scenario's K (`kkt_tile`: a run of
+//               consecutive entries, P's rows being contiguous): the rows
+//               of rho_vec the tile owns and the c x c block entries it
+//               meets are formed once, the entries in shared memory
+//               (`kkt_setup`), then the tile streams from P to K in pieces
+//               of V values (16 bytes on the card), each piece patched
+//               where it meets a diagonal block (`kkt_piece`).
+//   adapt_rho   a block a scenario (`adapt_rho`, `products`): a row of P
+//               (and of a dense A) split over 1 or MAX_LANES units.
+//   unscale     two paths (qp/tail.py::tail_layout): a WARP a scenario
+//               where n and m are at most WARP_DIM (`unscale_warp_rows`: P
+//               and a dense A in the warp's shared memory, by bulk copy
+//               into one of two slots or staged by the lanes, lane i the
+//               rows i, i + 32, maxima by the executor's `max_of`), else a
+//               BLOCK a scenario (`unscale_block`: each warp streams
+//               ROW_GROUP rows of P at once, lane l the terms j = l, l + 32,
+//               ..., then the 32 partials summed in order).
 //
 // Bits.  The library is built with -fmad=false: every product and sum
 // rounds as PyTorch's elementwise ops round them.  So rho_vec, x and y are
 // the plain versions' bit for bit (the same ops in the same order), and
-// K's entries outside the blocks are P's bits.  The dot products (a
-// block's r terms, a row of P) are sums in a fixed order where the plain
-// versions call cuBLAS: K's blocks, z, prim and dual are held to them
-// within a tolerance.  adapt_rho sums in double (see there): its rho is
-// held to the plain version within the rounding that the residuals'
-// cancellation allows the float32 chain.  The maxima are taken
-// NaN-propagating, as torch.amax.
+// K's entries outside the blocks are 0 + P.  The dot products (a block's r
+// terms, a row of P) are sums in a fixed order where the plain versions
+// call cuBLAS: K's blocks, z, prim and dual are held to them within a
+// tolerance, and bit for bit to the same order written out elementwise
+// (tests/test_torch_solve_tail_redesign.py, chip_smoke.py phase 3i).
+// adapt_rho sums in double (see there): its rho is held to the plain
+// version within the rounding that the residuals' cancellation allows the
+// float32 chain.  The maxima are taken NaN-propagating, as torch.amax, in
+// any order with the same result.
 //
 // Operands: each input a first row plus the stride between two
 // scenarios' rows in elements (0 for one row shared by every scenario, as
@@ -51,11 +71,16 @@
 #pragma once
 
 #include <math.h>
+#include <stdint.h>
 
 #if defined(__CUDACC__)
 #define TAIL_FN __host__ __device__ __forceinline__
+#define TAIL_UNROLL _Pragma("unroll")
+#define TAIL_UNROLL8 _Pragma("unroll 8")
 #else
 #define TAIL_FN inline
+#define TAIL_UNROLL
+#define TAIL_UNROLL8
 #endif
 
 // the units of a phase: on the card this thread's, on the host all of them
@@ -68,7 +93,14 @@ namespace tail {
 constexpr int PARTS = 32;       // partial maxima a quantity, one a unit
 constexpr int MAXIMA = 7;       // adapt_rho's seven inf-norms
 constexpr int MAX_LANES = 32;   // units (partial sums) a row of P at most
-constexpr int KKT_RUN = 4;      // kkt_blocks: consecutive entries a unit
+constexpr int KKT_PIECES = 8;   // kkt_blocks: pieces of a tile a thread
+constexpr int WARP = 32;
+constexpr int WARP_DIM = 64;    // unscale's warp path: n, m at most this
+constexpr int MAX_WARPS = 16;   // ... and scenarios a block at most
+constexpr int ROW_GROUP = 2;    // unscale's block path: rows a warp streams
+constexpr int STREAM_NQ = 6;    // ... with n = 32 STREAM_NQ unrolled whole
+constexpr int STAGE = 20;       // unscale's one-slot warp path: values a
+                                // lane loads before it stores them
 
 // ---- operands, in the order of the launchers' arrays
 enum KktIn { KI_P, KI_A, KI_EQF, KI_RHO_S, KI_COUNT };
@@ -83,18 +115,20 @@ enum UnOut { UO_X, UO_Y, UO_Z, UO_PRIM, UO_DUAL, UO_OK, UO_COUNT };
 enum UnPar { UP_STATUS_TOL, UP_COUNT };
 
 // inputs, outputs, parameters of the three stages, the partial maxima,
-// the partial sums a row (qp/tail.py::LAYOUT; -1 past the end)
+// the partial sums a row, then the constants of the layouts
+// (qp/tail.py::LAYOUT; -1 past the end)
 inline int layout(int what)
 {
     const int counts[] = {KI_COUNT, KO_COUNT, KP_COUNT, AI_COUNT, AO_COUNT,
-                          UI_COUNT, UO_COUNT, UP_COUNT, PARTS, MAX_LANES};
+                          UI_COUNT, UO_COUNT, UP_COUNT, PARTS, MAX_LANES,
+                          KKT_PIECES, WARP_DIM, MAX_WARPS};
     return what >= 0 && what < (int)(sizeof(counts) / sizeof(int))
                ? counts[what] : -1;
 }
 
-// values of a scenario's shared memory (adapt_rho: doubles; unscale: T):
-// x (n), y (m), two m-vectors (A x; A x - z), two n-vectors (P x, A' y),
-// the partial maxima and the `lanes` partial sums of each of P's rows and,
+// values of a scenario's shared memory in adapt_rho (doubles): x (n), y
+// (m), two m-vectors (A x; A x - z), two n-vectors (P x, A' y), the
+// partial maxima and the `lanes` partial sums of each of P's rows and,
 // when A is dense (`dense` 1), of A's rows
 TAIL_FN long long smem_values(int n, int m, int dense, int lanes)
 {
@@ -161,7 +195,50 @@ TAIL_FN T nanmin(T a, T b)
     return (a != a || a < b) ? a : b;
 }
 
-// ---- kkt_blocks: K's B n n entries in runs of KKT_RUN, then rho_vec's B m
+// ---- kkt_blocks: a block a tile of one scenario's K
+//
+// A scenario's n^2 entries are cut into tiles of `tile` consecutive
+// entries (a block's threads x KKT_PIECES pieces of V values; a scenario's
+// last tile may be shorter).  A tile meets the rows i0..i1 and their
+// groups g0..g1 (row i's diagonal block is group i / c: columns [g c,
+// g c + c), A's rows [g r, g r + r)).
+
+struct KktTile {
+    int e0, e1;     // the tile's entries [e0, e1) of the scenario's K
+    int i0, i1;     // the rows it meets
+    int g0, g1;     // their groups
+};
+
+TAIL_FN int kkt_tiles(int n, int tile) { return (n * n + tile - 1) / tile; }
+
+TAIL_FN KktTile kkt_tile(const Shape& s, int tile, int t)
+{
+    KktTile tl;
+    tl.e0 = t * tile;
+    tl.e1 = s.n * s.n - tl.e0 < tile ? s.n * s.n : tl.e0 + tile;
+    tl.i0 = tl.e0 / s.n;
+    tl.i1 = (tl.e1 - 1) / s.n;
+    tl.g0 = tl.i0 / s.c;
+    tl.g1 = tl.i1 / s.c;
+    return tl;
+}
+
+// values of a tile's shared memory, over every tile of `tile` entries:
+// the c block entries of each row it meets
+TAIL_FN long long kkt_smem_values(int n, int c, int tile)
+{
+    const int len = tile < n * n ? tile : n * n;
+    const int rows = (len - 1) / n + 2;
+    return (long long)(rows < n ? rows : n) * c;
+}
+
+// bytes of a block's shared memory: the block entries and, on the card's
+// aligned path (`bulk`), the tile itself after a 16-byte barrier
+TAIL_FN long long kkt_smem_bytes(int n, int c, int tile, int bulk, int size)
+{
+    return (bulk ? 16LL + (long long)tile * size : 0LL)
+           + kkt_smem_values(n, c, tile) * size;
+}
 
 template <typename T>
 TAIL_FN T rho_of(const KktArgs<T>& a, long long b, int k)
@@ -171,63 +248,73 @@ TAIL_FN T rho_of(const KktArgs<T>& a, long long b, int k)
     return t * a.row(KI_RHO_S, b)[0];
 }
 
-// K[b, i, j]: the block's r terms in order, then P's entry, then sigma on
-// the diagonal (the plain version's sum, then `+= P`, then the diagonal)
-template <typename T>
-TAIL_FN T kkt_value(const KktArgs<T>& a, const Shape& s, long long b, int i,
-                    int j)
-{
-    const T* P = a.row(KI_P, b);
-    T v = T(0);
-    if (i / s.c == j / s.c) {
-        const T* A = a.row(KI_A, b);
-        const int k0 = (i / s.c) * s.r;
-        for (int kk = 0; kk < s.r; ++kk) {
-            const int k = k0 + kk;
-            const T t = A[(long long)k * s.n + i] * rho_of(a, b, k);
-            v = v + t * A[(long long)k * s.n + j];
-        }
-    }
-    v = v + P[(long long)i * s.n + j];
-    if (i == j) v = v + a.par[KP_SIGMA];
-    return v;
-}
-
-// a unit is KKT_RUN consecutive entries of K over the batch (the last one
-// may be shorter), then rho_vec's entries one a unit: a thread keeps
-// KKT_RUN loads of P in flight
+// the tile's setup, one phase: rho_vec's rows of the groups met (each
+// written out by the one tile that holds its group's first diagonal
+// entry), and each met row's c block entries: the r terms (A[k, i] rho_k)
+// A[k, j] in order of k from 0 (the plain version's sum; `+ P` and sigma
+// come in `kkt_piece`), rho_k formed where it is used, so that every load
+// of the phase is issued at once
 template <typename T, class Exec>
-TAIL_FN void kkt_blocks(const Exec& ex, const KktArgs<T>& a, const Shape& s,
-                        long long B)
+TAIL_FN void kkt_setup(const Exec& ex, const KktArgs<T>& a, const Shape& s,
+                       long long b, const KktTile& tl, T* blk)
 {
-    const long long nn = (long long)s.n * s.n, nK = B * nn;
-    const long long runs = (nK + KKT_RUN - 1) / KKT_RUN;
-    TAIL_UNITS(ex, u, runs + B * s.m) {
-        if (u < runs) {
-            const long long e0 = u * KKT_RUN;
-            long long b = e0 / nn;
-            int i = (int)((e0 % nn) / s.n), j = (int)(e0 % s.n);
-            T v[KKT_RUN];
-            for (int t = 0; t < KKT_RUN; ++t) {
-                v[t] = e0 + t < nK ? kkt_value(a, s, b, i, j) : T(0);
-                if (++j == s.n) {
-                    j = 0;
-                    if (++i == s.n) {
-                        i = 0;
-                        ++b;
-                    }
-                }
-            }
-            for (int t = 0; t < KKT_RUN; ++t)
-                if (e0 + t < nK) a.out[KO_K][e0 + t] = v[t];
-        } else {
-            const long long f = u - runs;
-            a.out[KO_RHO_VEC][f] = rho_of(a, f / s.m, (int)(f % s.m));
+    const int n = s.n, r = s.r, c = s.c;
+    const long long rho_units = (long long)(tl.g1 - tl.g0 + 1) * r;
+    const T* A = a.row(KI_A, b);
+    TAIL_UNITS(ex, u, rho_units + (long long)(tl.i1 - tl.i0 + 1) * c) {
+        if (u < rho_units) {
+            const int k = tl.g0 * r + (int)u;
+            const int anchor = (k / r) * c * (n + 1);
+            if (anchor >= tl.e0 && anchor < tl.e1)
+                a.out[KO_RHO_VEC][b * s.m + k] = rho_of(a, b, k);
+            continue;
         }
+        const int w = (int)(u - rho_units);
+        const int i = tl.i0 + w / c, g = i / c;
+        const int j = g * c + w % c;
+        T v = T(0);
+        for (int kk = 0; kk < r; ++kk) {
+            const int k = g * r + kk;
+            const T t = A[(long long)k * n + i] * rho_of(a, b, k);
+            v = v + t * A[(long long)k * n + j];
+        }
+        blk[w] = v;
+    }
+    ex.sync();
+}
+
+// the piece of V entries at `e` (of the scenario's K, within one row), v
+// holding P's values there: K = (block entry or 0) + P, then + sigma on
+// the diagonal (the plain version's `+= P`, then the diagonal)
+template <int V, typename T>
+TAIL_FN void kkt_piece(const KktArgs<T>& a, const Shape& s,
+                       const KktTile& tl, const T* smem, int e, T* v)
+{
+    const int i = e / s.n, j = e - i * s.n;
+    const int jb = (i / s.c) * s.c;
+    const T* blk = smem + (i - tl.i0) * s.c;
+    TAIL_UNROLL
+    for (int t = 0; t < V; ++t) {
+        const int jj = j + t - jb;
+        const bool in = jj >= 0 && jj < s.c;
+        const T add = in ? blk[in ? jj : 0] : T(0);
+        v[t] = add + v[t];
+        if (j + t == i) v[t] = v[t] + a.par[KP_SIGMA];
     }
 }
 
-// ---- the dot products of one scenario (adapt_rho and unscale)
+// what the launcher and the host build refuse: a piece of V values that
+// straddles rows, a tile that is no whole number of pieces, a grid that
+// is not B times the tiles
+TAIL_FN bool kkt_bad(int B, const Shape& s, int threads, int blocks, int V)
+{
+    if (!s.blocks() || V < 1 || s.n % V != 0) return true;
+    return (long long)blocks
+           != (long long)B * kkt_tiles(s.n, threads * KKT_PIECES * V);
+}
+
+// ---- the dot products of one scenario (adapt_rho and unscale's block
+// path)
 //
 // A row of P (and of a dense A) is L units (s.lanes, 1 or MAX_LANES, a
 // template constant): unit (row, l) sums the terms j = l, l + L, ... in
@@ -290,7 +377,8 @@ struct Smem {
     T* px;     // n: P x
     T* aty;    // n: A' y
     T* part;   // MAXIMA x PARTS
-    T* lanes;  // (n + dense rows of A) x s.lanes
+    T* lanes;  // adapt_rho: (n + dense rows of A) x s.lanes; unscale's
+               // block path: MAX_LANES x (those rows + 1), transposed
     TAIL_FN Smem(T* base, int n, int m)
         : x(base), y(x + n), ax(y + m), dz(ax + m), px(dz + m), aty(px + n),
           part(aty + n), lanes(part + MAXIMA * PARTS)
@@ -405,11 +493,128 @@ TAIL_FN void adapt_rho_body(const Exec& ex, const AdaptArgs<T>& a,
     }
 }
 
-// ---- unscale: one scenario b
+// the two row splits a layout takes (qp/tail.py::adapt_layout): a unit a
+// row (lanes 1) or MAX_LANES units a row, each a compile-time constant
+template <typename T, class Exec>
+TAIL_FN void adapt_rho(const Exec& ex, const AdaptArgs<T>& a, const Shape& s,
+                       long long b, double* smem)
+{
+    if (s.lanes == MAX_LANES) adapt_rho_body<MAX_LANES>(ex, a, s, b, smem);
+    else adapt_rho_body<1>(ex, a, s, b, smem);
+}
 
-template <int L, typename T, class Exec>
-TAIL_FN void unscale_body(const Exec& ex, const UnArgs<T>& a, const Shape& s,
-                          long long b, T* smem)
+// ---- unscale: x and y of one scenario (both paths), the plain ops
+template <typename T>
+TAIL_FN T unscale_x(const UnArgs<T>& a, long long b, int u)
+{
+    return a.row(UI_D, b)[u] * a.row(UI_XS, b)[u];
+}
+template <typename T>
+TAIL_FN T unscale_y(const UnArgs<T>& a, long long b, int k)
+{
+    return (a.row(UI_E, b)[k] * a.row(UI_YS, b)[k]) / a.row(UI_C, b)[0];
+}
+
+// ---- unscale's block path: one scenario b over a block
+//
+// Shared memory: Smem's vectors (its first 3 PARTS partial maxima used)
+// and, transposed, lane l's partial of split row `row` at
+// lanes[l (split + 1) + row] (odd stride: a warp's 32 stores and a
+// thread's reads of one column fall in 32 banks).
+
+TAIL_FN long long block_smem_values(int n, int m, int dense)
+{
+    const int split = n + (dense ? m : 0);
+    return 3LL * n + 3LL * m + (long long)MAXIMA * PARTS
+           + (long long)WARP * (split + 1);
+}
+
+// unit (group g, lane l) of the `rows` rows of M (n columns each, split
+// rows row_off ...): the ROW_GROUP rows from g ROW_GROUP, lane l's terms
+// j = l, l + 32, ... of each in order (lane_partial<32>'s sum).  NQ > 0:
+// n = 32 NQ, every load of the group issued before the first sum; NQ = 0:
+// any n, the rows' loads of one j together.
+template <int NQ, typename T>
+TAIL_FN void row_group(const T* M, int rows, int n, int g, int l,
+                       const T* x, T* lanes, int ld, int row_off)
+{
+    const int r0 = g * ROW_GROUP;
+    const T* R[ROW_GROUP];
+    TAIL_UNROLL
+    for (int rr = 0; rr < ROW_GROUP; ++rr)
+        R[rr] = M + (long long)(r0 + rr < rows ? r0 + rr : rows - 1) * n;
+    T acc[ROW_GROUP];
+    if (NQ > 0) {
+        T v[ROW_GROUP][NQ > 0 ? NQ : 1];
+        TAIL_UNROLL
+        for (int rr = 0; rr < ROW_GROUP; ++rr)
+            TAIL_UNROLL
+            for (int qq = 0; qq < NQ; ++qq) v[rr][qq] = R[rr][l + WARP * qq];
+        TAIL_UNROLL
+        for (int rr = 0; rr < ROW_GROUP; ++rr) {
+            acc[rr] = T(0);
+            TAIL_UNROLL
+            for (int qq = 0; qq < NQ; ++qq)
+                acc[rr] = acc[rr] + v[rr][qq] * x[l + WARP * qq];
+        }
+    } else {
+        TAIL_UNROLL
+        for (int rr = 0; rr < ROW_GROUP; ++rr) acc[rr] = T(0);
+        for (int j = l; j < n; j += WARP) {
+            T v[ROW_GROUP];
+            TAIL_UNROLL
+            for (int rr = 0; rr < ROW_GROUP; ++rr) v[rr] = R[rr][j];
+            TAIL_UNROLL
+            for (int rr = 0; rr < ROW_GROUP; ++rr)
+                acc[rr] = acc[rr] + v[rr] * x[j];
+        }
+    }
+    TAIL_UNROLL
+    for (int rr = 0; rr < ROW_GROUP; ++rr)
+        if (r0 + rr < rows)
+            lanes[(long long)l * ld + row_off + r0 + rr] = acc[rr];
+}
+
+// the row groups of `rows` rows of M over a phase's units
+template <int NQ, typename T, class Exec>
+TAIL_FN void row_groups(const Exec& ex, const T* M, int rows, int n,
+                        const T* x, T* lanes, int ld, int row_off)
+{
+    const long long groups = (rows + ROW_GROUP - 1) / ROW_GROUP;
+    TAIL_UNITS(ex, u, groups * WARP)
+        row_group<NQ>(M, rows, n, (int)(u / WARP), (int)(u % WARP), x, lanes,
+                      ld, row_off);
+}
+
+// a split row's 32 partials, in order (sum_lanes<32>'s)
+template <typename T>
+TAIL_FN T sum_column(const T* lanes, int ld, int row)
+{
+    T v = lanes[row];
+    for (int l = 1; l < WARP; ++l) v = v + lanes[(long long)l * ld + row];
+    return v;
+}
+
+// the largest of PARTS partial maxima, NaN-propagating, by four chains
+// side by side (the same value as max_parts' one chain)
+template <typename V>
+TAIL_FN V max_tree(const V* part)
+{
+    constexpr int Q = PARTS / 4;
+    V a0 = part[0], a1 = part[Q], a2 = part[2 * Q], a3 = part[3 * Q];
+    TAIL_UNROLL
+    for (int p = 1; p < Q; ++p) {
+        a0 = nanmax(a0, part[p]);
+        a1 = nanmax(a1, part[Q + p]);
+        a2 = nanmax(a2, part[2 * Q + p]);
+        a3 = nanmax(a3, part[3 * Q + p]);
+    }
+    return nanmax(nanmax(a0, a1), nanmax(a2, a3));
+}
+
+template <int NQ, typename T, class Exec>
+TAIL_FN void unscale_block_body(const Exec& ex, const UnArgs<T>& a,
+                                const Shape& s, long long b, T* smem)
 {
     const int n = s.n, m = s.m;
     Smem<T> S(smem, n, m);
@@ -418,27 +623,35 @@ TAIL_FN void unscale_body(const Exec& ex, const UnArgs<T>& a, const Shape& s,
     const T* A = a.row(UI_A, b);
     TAIL_UNITS(ex, u, n + m) {
         if (u < n) {
-            const T x = a.row(UI_D, b)[u] * a.row(UI_XS, b)[u];
+            const T x = unscale_x(a, b, (int)u);
             S.x[u] = x;
             a.out[UO_X][b * n + u] = x;
         } else {
             const int k = (int)u - n;
-            const T y = (a.row(UI_E, b)[k] * a.row(UI_YS, b)[k])
-                        / a.row(UI_C, b)[0];
+            const T y = unscale_y(a, b, k);
             S.y[k] = y;
             a.out[UO_Y][b * m + k] = y;
         }
     }
     ex.sync();
-    products<L>(ex, s, P, A, S);
+    // the products: the block rows of A, the columns of A', the split rows
+    // a group of ROW_GROUP a warp
+    const int split = split_rows(s), ld = split + 1;
+    const long long rows = s.blocks() ? m : 0;
+    TAIL_UNITS(ex, u, rows + n) {
+        if (u < rows) S.ax[u] = a_block_row_dot(A, s, (int)u, S.x);
+        else S.aty[u - rows] = a_col_dot(A, s, (int)(u - rows), S.y);
+    }
+    if (!s.blocks()) row_groups<NQ>(ex, A, m, n, S.x, S.lanes, ld, n);
+    row_groups<NQ>(ex, P, n, n, S.x, S.lanes, ld, 0);
     ex.sync();
     // P x; A x of a dense A; z = clip(A x, l, u) and A x - z
     TAIL_UNITS(ex, u, n + m) {
         if (u < n) {
-            S.px[u] = sum_lanes<L>(S.lanes + u * L);
+            S.px[u] = sum_column(S.lanes, ld, (int)u);
         } else {
             const int k = (int)u - n;
-            const T ax = s.blocks() ? S.ax[k] : sum_lanes<L>(S.lanes + u * L);
+            const T ax = s.blocks() ? S.ax[k] : sum_column(S.lanes, ld, n + k);
             const T zu = nanmin(nanmax(ax, a.row(UI_L, b)[k]),
                                 a.row(UI_U, b)[k]);
             a.out[UO_Z][b * m + k] = zu;
@@ -462,44 +675,333 @@ TAIL_FN void unscale_body(const Exec& ex, const UnArgs<T>& a, const Shape& s,
         S.part[u] = v;
     }
     ex.sync();
-    TAIL_UNITS(ex, u, 1) {
-        const T prim = max_parts(S.part);
-        const T dual = max_parts(S.part + PARTS);
+    // prim, dual and ok, a unit each
+    TAIL_UNITS(ex, u, 3) {
+        if (u == 1) {
+            a.out[UO_DUAL][b] = max_tree(S.part + PARTS);
+            continue;
+        }
+        const T prim = max_tree(S.part);
+        if (u == 0) {
+            a.out[UO_PRIM][b] = prim;
+            continue;
+        }
         bool finite = true;
         for (int p = 0; p < PARTS; ++p) finite &= S.part[2 * PARTS + p] > T(0);
-        a.out[UO_PRIM][b] = prim;
-        a.out[UO_DUAL][b] = dual;
         a.ok[b] = finite && prim < a.par[UP_STATUS_TOL] ? 1 : 0;
     }
 }
 
-// the two row splits a layout takes (qp/tail.py::tail_layout): a unit a
-// row (lanes 1) or MAX_LANES units a row, each a compile-time constant
 template <typename T, class Exec>
-TAIL_FN void adapt_rho(const Exec& ex, const AdaptArgs<T>& a, const Shape& s,
-                       long long b, double* smem)
+TAIL_FN void unscale_block(const Exec& ex, const UnArgs<T>& a,
+                           const Shape& s, long long b, T* smem)
 {
-    if (s.lanes == MAX_LANES) adapt_rho_body<MAX_LANES>(ex, a, s, b, smem);
-    else adapt_rho_body<1>(ex, a, s, b, smem);
+    if (s.n == WARP * STREAM_NQ)
+        unscale_block_body<STREAM_NQ>(ex, a, s, b, smem);
+    else
+        unscale_block_body<0>(ex, a, s, b, smem);
 }
 
-template <typename T, class Exec>
-TAIL_FN void unscale(const Exec& ex, const UnArgs<T>& a, const Shape& s,
-                     long long b, T* smem)
+// ---- unscale's warp path: one scenario b over a warp
+//
+// Lane i sums rows i, i + 32 of P x and A x and columns i, i + 32 of A' y,
+// each over its terms in index order (lane_partial<1>'s and a_col_dot's
+// sums), from P's rows and a dense A's in the warp's shared memory at a
+// row stride ld; the maxima and the finiteness flag over the lanes by the
+// executor.  Two ways in (qp/tail.py::tail_layout, `lanes`): 2 slots, a
+// persistent warp whose next scenario's P and A arrive by bulk copy into
+// one slot while it works on the other (the card's; ld = n: rows i and
+// i + 16 of an even n share a bank); 1 slot, the warp's lanes stage them
+// through registers at the odd stride `warp_ld` (any alignment; the host
+// build runs both).
+
+TAIL_FN int warp_ld(int n) { return n | 1; }
+
+// values of a warp's slot: P's n rows and a dense A's m at stride ld
+TAIL_FN long long slot_values(int n, int m, int dense, int ld)
 {
-    if (s.lanes == MAX_LANES) unscale_body<MAX_LANES>(ex, a, s, b, smem);
-    else unscale_body<1>(ex, a, s, b, smem);
+    return (long long)(n + (dense ? m : 0)) * ld;
+}
+
+// bytes of one warp's shared memory, a multiple of 16: 1 slot (staged
+// through registers at warp_ld), x, y; or 2 slots at ld = n after two
+// mbarriers, x, y
+TAIL_FN long long warp_smem_bytes(int n, int m, int dense, int slots,
+                                  int size)
+{
+    const long long v =
+        slots == 1 ? slot_values(n, m, dense, warp_ld(n)) + n + m
+                   : 2 * slot_values(n, m, dense, n) + n + m;
+    return (16 * (slots == 2) + v * size + 15) / 16 * 16;
+}
+
+// a lane's vector inputs, entries l and l + 32: D, xs, q (n); E, ys, l0,
+// u0 (m); and c
+template <typename T>
+struct LaneIn {
+    T d[2], xs[2], q[2], e[2], ys[2], lo[2], hi[2], c;
+};
+
+// lane l's vector inputs of scenario b (zeros past n and m), loaded ahead
+// of their use where the executor can
+template <typename T>
+TAIL_FN void load_lane(LaneIn<T>& v, const UnArgs<T>& a, const Shape& s,
+                       long long b, int l)
+{
+    for (int k = 0; k < 2; ++k) {
+        const int u = l + WARP * k;
+        const bool in_n = u < s.n, in_m = u < s.m;
+        v.d[k] = in_n ? a.row(UI_D, b)[u] : T(0);
+        v.xs[k] = in_n ? a.row(UI_XS, b)[u] : T(0);
+        v.q[k] = in_n ? a.row(UI_Q, b)[u] : T(0);
+        v.e[k] = in_m ? a.row(UI_E, b)[u] : T(0);
+        v.ys[k] = in_m ? a.row(UI_YS, b)[u] : T(0);
+        v.lo[k] = in_m ? a.row(UI_L, b)[u] : T(0);
+        v.hi[k] = in_m ? a.row(UI_U, b)[u] : T(0);
+    }
+    v.c = a.row(UI_C, b)[0];
+}
+
+// a lane's state: its vector inputs, its part of the maxima
+template <typename T>
+struct UnLane {
+    LaneIn<T> in;
+    T prim, dual;
+    bool finite;
+};
+
+template <typename T>
+TAIL_FN T row_dot(const T* row, const T* x, int n)
+{
+    T v = T(0);
+    TAIL_UNROLL8
+    for (int j = 0; j < n; ++j) v = v + row[j] * x[j];
+    return v;
+}
+
+// lane l's part of the warp's copy of P's n rows and then A's m (m 0: no
+// A) into shared memory at row stride ld: the values l, l + 32, ... of the
+// two, STAGE of them loaded before any is stored
+template <typename T>
+TAIL_FN void stage_rows(int l, const T* P, const T* A, int n, int m, int ld,
+                        T* Ps, T* As)
+{
+    const int pp = n * n, count = pp + m * n;
+    for (int e0 = 0; e0 < count; e0 += WARP * STAGE) {
+        T v[STAGE];
+        TAIL_UNROLL
+        for (int q = 0; q < STAGE; ++q) {
+            const int e = e0 + q * WARP + l;
+            if (e < count) v[q] = e < pp ? P[e] : A[e - pp];
+        }
+        TAIL_UNROLL
+        for (int q = 0; q < STAGE; ++q) {
+            const int e = e0 + q * WARP + l;
+            if (e >= count) continue;
+            const int f = e < pp ? e : e - pp, row = f / n;
+            (e < pp ? Ps : As)[row * ld + f - row * n] = v[q];
+        }
+    }
+}
+
+// scenario b from its rows in the warp's shared memory (Ps, and As when A
+// is dense, at stride ld), with the x and y arrays xs, ys and each lane's
+// vector inputs in its state.  The rows may still be arriving in the
+// first phase (`stage(l, st)`, lane l's part of their copy, which may also
+// load the inputs) and are read only after the warp's barrier.  Lane l's
+// chains (rows l, l + 32 of A x, row l of P x, and row l + 32 and the
+// columns l, l + 32 of A' y) are each summed in index order from 0; the
+// rows of one pass over j side by side.
+template <typename T, class Ex, class Stage>
+TAIL_FN void unscale_warp_rows(Ex& ex, const UnArgs<T>& a, const Shape& s,
+                               long long b, const T* Ps, const T* As, int ld,
+                               T* xs, T* ys, Stage stage)
+{
+    const int n = s.n, m = s.m;
+    const bool dense = !s.blocks();
+    const T* A = a.row(UI_A, b);
+    ex.lanes([&](int l, UnLane<T>& st) {
+        stage(l, st);
+        for (int k = 0; k < 2; ++k) {
+            const int u = l + WARP * k;
+            if (u < n) {
+                const T x = st.in.d[k] * st.in.xs[k];
+                xs[u] = x;
+                a.out[UO_X][b * n + u] = x;
+            }
+            if (u < m) {
+                const T y = (st.in.e[k] * st.in.ys[k]) / st.in.c;
+                ys[u] = y;
+                a.out[UO_Y][b * m + u] = y;
+            }
+        }
+    });
+    ex.sync();
+    ex.lanes([&](int l, UnLane<T>& st) {
+        // rows l and l + 32 of A x (dense: one pass over j beside row l of
+        // P x), rows past the end clamped and their sums dropped
+        T ax[2] = {T(0), T(0)}, px0 = T(0);
+        const T* p0 = Ps + (l < n ? l : n - 1) * ld;
+        if (dense && m > 0) {
+            const T* a0 = As + (l < m ? l : m - 1) * ld;
+            const T* a1 = As + (l + WARP < m ? l + WARP : m - 1) * ld;
+            TAIL_UNROLL8
+            for (int j = 0; j < n; ++j) {
+                const T xj = xs[j];
+                ax[0] = ax[0] + a0[j] * xj;
+                ax[1] = ax[1] + a1[j] * xj;
+                px0 = px0 + p0[j] * xj;
+            }
+        } else {
+            px0 = row_dot(p0, xs, n);
+            for (int k = 0; k < 2; ++k)
+                if (l + WARP * k < m)
+                    ax[k] = a_block_row_dot(A, s, l + WARP * k, xs);
+        }
+        st.prim = T(0);
+        for (int k = 0; k < 2; ++k) {
+            const int r = l + WARP * k;
+            if (r >= m) continue;
+            const T zu = nanmin(nanmax(ax[k], st.in.lo[k]), st.in.hi[k]);
+            a.out[UO_Z][b * m + r] = zu;
+            st.prim = nanmax(st.prim, t_abs(ax[k] - zu));
+        }
+        // columns l and l + 32 of A' y (dense: one pass over k)
+        T aty[2] = {T(0), T(0)};
+        if (dense) {
+            const int c0 = l < n ? l : n - 1;
+            const int c1 = l + WARP < n ? l + WARP : n - 1;
+            TAIL_UNROLL8
+            for (int k = 0; k < m; ++k) {
+                const T yk = ys[k];
+                aty[0] = aty[0] + As[k * ld + c0] * yk;
+                aty[1] = aty[1] + As[k * ld + c1] * yk;
+            }
+        } else {
+            for (int k = 0; k < 2; ++k)
+                if (l + WARP * k < n)
+                    aty[k] = a_col_dot(A, s, l + WARP * k, ys);
+        }
+        st.dual = T(0);
+        st.finite = true;
+        for (int k = 0; k < 2; ++k) {
+            const int i = l + WARP * k;
+            if (i >= n) continue;
+            const T px = k == 0 ? px0 : row_dot(Ps + i * ld, xs, n);
+            st.dual = nanmax(st.dual, t_abs((px + st.in.q[k]) + aty[k]));
+            st.finite = st.finite && t_finite(xs[i]);
+        }
+    });
+    ex.lanes([&](int l, UnLane<T>& st) {
+        const T prim =
+            ex.max_of(st, [](const UnLane<T>& t) { return t.prim; });
+        const T dual =
+            ex.max_of(st, [](const UnLane<T>& t) { return t.dual; });
+        const bool finite =
+            ex.all_of(st, [](const UnLane<T>& t) { return t.finite; });
+        if (l == 0) {
+            a.out[UO_PRIM][b] = prim;
+            a.out[UO_DUAL][b] = dual;
+            a.ok[b] = finite && prim < a.par[UP_STATUS_TOL] ? 1 : 0;
+        }
+    });
+    ex.sync();
+}
+
+// the one-slot way (rows the bulk copies cannot take): the lanes stage P's
+// and a dense A's rows at warp_ld and load their vector inputs
+template <typename T, class Ex>
+TAIL_FN void unscale_warp(Ex& ex, const UnArgs<T>& a, const Shape& s,
+                          long long b, T* smem)
+{
+    const int n = s.n, m = s.m, ld = warp_ld(n);
+    const bool dense = !s.blocks();
+    T* Ps = smem;
+    T* As = Ps + n * ld;
+    T* xs = Ps + slot_values(n, m, dense, ld);
+    const T* P = a.row(UI_P, b);
+    const T* A = a.row(UI_A, b);
+    unscale_warp_rows(ex, a, s, b, Ps, As, ld, xs, xs + n,
+                      [&](int l, UnLane<T>& st) {
+        load_lane(st.in, a, s, b, l);
+        stage_rows(l, P, A, n, dense ? m : 0, ld, Ps, As);
+    });
+}
+
+// whether bulk copies take these rows: each scenario's (count values of
+// `size` bytes) 16-byte aligned and a whole number of 16-byte pieces
+TAIL_FN bool rows_bulk(const void* p, long long stride, long long count,
+                       int size)
+{
+    return (uintptr_t)p % 16 == 0 && (stride * size) % 16 == 0
+           && (count * size) % 16 == 0;
+}
+
+// whether the two-slot warp path takes unscale's operands: P's rows and a
+// dense A's
+TAIL_FN bool unscale_bulk(const void* P, long long p_stride, const void* A,
+                          long long a_stride, const Shape& s, int size)
+{
+    return rows_bulk(P, p_stride, (long long)s.n * s.n, size)
+           && (s.blocks()
+               || rows_bulk(A, a_stride, (long long)s.m * s.n, size));
+}
+
+// what the launcher and the host build refuse: lanes 1 or 2 is the warp
+// path (n, m at most WARP_DIM; threads a whole number of warps, at most
+// MAX_WARPS; 1 slot: blocks the scenarios over them; 2 slots: at most
+// that many, the warps walking the rest), lanes MAX_LANES the block path
+// (a block a scenario)
+TAIL_FN bool unscale_bad(int B, const Shape& s, int threads, int blocks)
+{
+    if (s.lanes == 1 || s.lanes == 2) {
+        const int w = threads / WARP, need = (B + w - 1) / w;
+        return s.n > WARP_DIM || s.m > WARP_DIM || w < 1 || w > MAX_WARPS
+               || threads % WARP != 0 || blocks < 1
+               || (s.lanes == 1 ? blocks != need : blocks > need);
+    }
+    return s.lanes != MAX_LANES || blocks != B;
 }
 
 #if !defined(__CUDA_ARCH__)
-// the host executor: one thread runs every unit of a phase, in order or
-// reversed
+// the host executors: one thread runs every unit of a phase, or every
+// lane of a warp, in order or reversed
 struct HostExec {
     bool reverse;
 
     long long first(long long n) const { return reverse ? n - 1 : 0; }
     long long next(long long u) const { return reverse ? u - 1 : u + 1; }
     void sync() const {}
+};
+
+template <typename T>
+struct HostWarp {
+    bool reverse;
+    UnLane<T> lane[WARP];
+
+    template <class F>
+    void lanes(F f)
+    {
+        for (int k = 0; k < WARP; ++k) {
+            const int l = reverse ? WARP - 1 - k : k;
+            f(l, lane[l]);
+        }
+    }
+    void sync() const {}
+    template <class G>
+    T max_of(const UnLane<T>&, G g) const
+    {
+        T v = g(lane[0]);
+        for (int l = 1; l < WARP; ++l) v = nanmax(v, g(lane[l]));
+        return v;
+    }
+    template <class G>
+    bool all_of(const UnLane<T>&, G g) const
+    {
+        bool v = true;
+        for (int l = 0; l < WARP; ++l) v = v && g(lane[l]);
+        return v;
+    }
 };
 #endif
 

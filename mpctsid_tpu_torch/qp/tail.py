@@ -30,7 +30,8 @@ counts launches.
 
 A is read through its batch stride (the MPC's constant A is a stride-0
 view: never copied).  Each launch's geometry is a pure layout function of
-the shapes and the device's limits (`kkt_layout`, `tail_layout`).
+the shapes and the device's limits (`kkt_layout`, `adapt_layout`,
+`tail_layout`), which the launchers check.
 """
 
 from __future__ import annotations
@@ -44,27 +45,33 @@ from mpctsid_tpu_torch.dyn.kernels import rows
 from mpctsid_tpu_torch.qp.kernels import device_limits
 
 __all__ = ["kkt_blocks", "adapt_rho", "unscale", "check_blocks",
-           "kkt_layout", "tail_layout", "TailLayout", "smem_values",
-           "run_kkt", "run_adapt", "run_unscale", "LIBRARY", "LAYOUT",
+           "kkt_layout", "adapt_layout", "tail_layout", "TailLayout",
+           "smem_values", "kkt_smem_values", "kkt_smem_bytes",
+           "unscale_smem_bytes", "bulk_rows",
+           "run_kkt", "run_adapt", "run_unscale", "kkt_in_order",
+           "unscale_in_order", "last_layout", "LIBRARY", "LAYOUT",
            "LAUNCH_ARGTYPES", "FLAGS", "build_specs"]
 
-LIBRARY = ("solve_tail", ("solve_tail.cu",), ("solve_tail.h",))
+LIBRARY = ("solve_tail", ("solve_tail.cu",),
+           ("solve_tail.h", "cluster_exchange.cuh"))
+_ENTRIES = ("kkt", "adapt", "unscale")    # solve_tail_<entry>_launch
 # every product and sum rounds as PyTorch's elementwise ops round them
 FLAGS = ("-fmad=false",)
 
 # solve_tail.h's counts (`tail::layout`): inputs, outputs and parameters of
-# kkt_blocks, adapt_rho, unscale, then the partial maxima a quantity and the
-# partial sums a row at most.  The library is refused if its counts differ.
+# kkt_blocks, adapt_rho, unscale, the partial maxima a quantity and the
+# partial sums a row at most, then the layouts' constants: the pieces of a
+# kkt_blocks tile a thread, unscale's warp path (n and m at most
+# `warp_dim`, at most `max_warps` scenarios a block).  The library is
+# refused if its counts differ.
 LAYOUT = dict(kkt_in=4, kkt_out=2, kkt_par=2, adapt_in=7, adapt_out=1,
               unscale_in=10, unscale_out=6, unscale_par=1, parts=32,
-              max_lanes=32)
+              max_lanes=32, kkt_pieces=8, warp_dim=64, max_warps=16)
 MAXIMA = 7               # adapt_rho's inf-norms (solve_tail.h, MAXIMA)
-KKT_RUN = 4              # kkt_blocks: consecutive entries of K a thread
-KKT_THREADS = 256        # kkt_blocks: threads a block
-KKT_BLOCKS_PER_SM = 8    # ... and blocks a multiprocessor of the grid
-TAIL_THREADS = 512       # adapt_rho / unscale: a block a scenario
-TAIL_THREADS_SMALL = 128     # ... when n and m are at most SMALL_DIM
-SMALL_DIM = 64
+KKT_THREADS = 128        # kkt_blocks: threads a block (a tile)
+TAIL_THREADS = 512       # adapt_rho / unscale's block path: a scenario
+TAIL_THREADS_LARGE_B = 256    # unscale's block path where B is at least
+LARGE_B_WAVES = 4             # this many blocks a multiprocessor
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _PTR = ctypes.c_void_p
@@ -77,12 +84,60 @@ LAUNCH_ARGTYPES = [_INT, ctypes.POINTER(_PTR),
 
 
 def smem_values(n: int, m: int, dense: bool, lanes: int) -> int:
-    """Values of a scenario's shared memory in adapt_rho (doubles) and
-    unscale (the operands' type) (`tail::smem_values`): x, y, A x, A x - z,
-    P x, A' y, the partial maxima, and the `lanes` partial sums of each of
-    P's rows and (`dense`) A's."""
+    """Values (doubles) of a scenario's shared memory in adapt_rho
+    (`tail::smem_values`): x, y, A x, A x - z, P x, A' y, the partial
+    maxima, and the `lanes` partial sums of each of P's rows and (`dense`)
+    A's."""
     return (3 * n + 3 * m + MAXIMA * LAYOUT["parts"]
             + lanes * (n + (m if dense else 0)))
+
+
+def kkt_smem_values(n: int, c: int, tile: int) -> int:
+    """Values of a kkt_blocks tile's shared memory, tiles of `tile`
+    entries (`tail::kkt_smem_values`): the c block entries of each row a
+    tile meets, at most."""
+    return min(n, (min(tile, n * n) - 1) // n + 2) * c
+
+
+def kkt_smem_bytes(n: int, c: int, tile: int, bulk: bool,
+                   itemsize: int) -> int:
+    """Bytes of a kkt_blocks block's shared memory (`tail::kkt_smem_bytes`):
+    the block entries and, where the tile comes in by bulk copy (`bulk`),
+    the tile after its 16-byte barrier."""
+    return ((16 + tile * itemsize) if bulk else 0) + \
+        kkt_smem_values(n, c, tile) * itemsize
+
+
+def unscale_smem_bytes(n: int, m: int, dense: bool, warps: int, slots: int,
+                       itemsize: int) -> int:
+    """Bytes of a block's shared memory in unscale
+    (`solve_tail_unscale_smem_bytes`).  The warp path, `warps` warps, each
+    (`tail::warp_smem_bytes`, rounded to 16 bytes): 1 slot, P's rows and a
+    dense A's at the odd stride n | 1, x, y; or 2 slots at stride n after
+    two mbarriers, x, y.  The block path (`warps` 0): adapt_rho's vectors
+    and maxima, then the 32 partials of each split row at a stride of the
+    rows + 1."""
+    split = n + (m if dense else 0)
+    if warps > 0:
+        if slots == 1:
+            v = split * (n | 1) + n + m
+        else:
+            v = 2 * split * n + n + m
+        return warps * (-(-(16 * (slots == 2) + v * itemsize) // 16) * 16)
+    return (3 * n + 3 * m + MAXIMA * LAYOUT["parts"]
+            + LAYOUT["max_lanes"] * (split + 1)) * itemsize
+
+
+def bulk_rows(t: torch.Tensor, count: int) -> bool:
+    """Whether each scenario's rows of `t` (count values) lie 16-byte
+    aligned and fill whole 16-byte pieces, as the kernels' bulk copies and
+    16-byte loads need (solve_tail.h `rows_bulk`): contiguous rows, the
+    first at a 16-byte boundary, the scenario stride a multiple of 16
+    bytes (or 0)."""
+    size = t.element_size()
+    stride = t.stride(0) if t.shape[0] > 1 else 0
+    return (t[0].is_contiguous() and t.data_ptr() % 16 == 0
+            and stride * size % 16 == 0 and count * size % 16 == 0)
 
 
 def check_blocks(n: int, m: int, a_blocks) -> tuple:
@@ -100,10 +155,13 @@ def check_blocks(n: int, m: int, a_blocks) -> tuple:
 
 
 class TailLayout(NamedTuple):
+    path: str           # "tiles" (kkt_blocks), "block" or "warp"
     threads: int
     blocks: int
-    smem_bytes: int     # dynamic shared memory a block (0 for kkt_blocks)
-    lanes: int          # units a row of P (1 for kkt_blocks)
+    smem_bytes: int     # dynamic shared memory a block
+    lanes: int          # kkt_blocks: values a piece; adapt_rho and the
+                        # block path: units a row of P; the warp path: its
+                        # slots (1 or 2)
 
     @property
     def geometry(self) -> tuple:
@@ -111,35 +169,85 @@ class TailLayout(NamedTuple):
         return self.threads, self.blocks, self.lanes
 
 
-def kkt_layout(B: int, n: int, m: int, n_sm: int) -> TailLayout:
-    """kkt_blocks over B scenarios: one thread a run of KKT_RUN entries of
-    K and an entry of rho_vec, KKT_THREADS a block, a grid of at most
-    KKT_BLOCKS_PER_SM blocks a multiprocessor walking the rest."""
-    total = -(-B * n * n // KKT_RUN) + B * m
-    blocks = max(1, min(-(-total // KKT_THREADS), KKT_BLOCKS_PER_SM * n_sm))
-    return TailLayout(KKT_THREADS, blocks, 0, 1)
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
 
 
-def tail_layout(n: int, m: int, B: int, smem_optin: int, dense: bool,
-                dtype=torch.float32) -> TailLayout:
-    """adapt_rho and unscale over B scenarios, A `dense` or its blocks
-    declared: a block a scenario; when n and m are at most SMALL_DIM (the
-    WBC shape) TAIL_THREADS_SMALL threads and a unit a row of P, else
-    TAIL_THREADS and MAX_LANES units a row (their reads of a row
-    consecutive); the scenario's vectors and partial sums in shared
-    memory, values of `dtype` (adapt_rho's: float64, whatever its
-    operands').  Raises ValueError when they do not fit the `smem_optin`
-    bytes a block may have."""
-    small = max(n, m) <= SMALL_DIM
-    lanes = 1 if small else LAYOUT["max_lanes"]
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    smem = smem_values(n, m, dense, lanes) * itemsize
+def _fit(name: str, smem: int, smem_optin: int) -> None:
     if smem > smem_optin:
-        raise ValueError(f"the solve tail at n = {n}, m = {m} needs {smem} "
-                         f"bytes of shared memory a block, over the "
-                         f"device's {smem_optin}")
-    return TailLayout(TAIL_THREADS_SMALL if small else TAIL_THREADS, B, smem,
+        raise ValueError(f"{name} needs {smem} bytes of shared memory a "
+                         f"block, over the device's {smem_optin}")
+
+
+def kkt_layout(B: int, n: int, m: int, a_blocks, smem_optin: int,
+               dtype=torch.float32, aligned: bool = True) -> TailLayout:
+    """kkt_blocks over B scenarios: a block of KKT_THREADS a tile of
+    KKT_THREADS x `kkt_pieces` pieces of one scenario's K, B times its
+    tiles in all.  Where P is `aligned` (`bulk_rows`) and n a multiple of
+    a 16-byte piece (float4 / double2), the tile comes in by one bulk copy
+    and leaves by one bulk store (its buffer in shared memory); else a
+    piece is a value, held in registers.  Raises ValueError where a
+    block's shared memory does not fit `smem_optin`."""
+    r, c = check_blocks(n, m, a_blocks)
+    if r == 0:
+        raise ValueError("kkt_blocks needs a_blocks")
+    size = _itemsize(dtype)
+    vec = 16 // size if aligned and n % (16 // size) == 0 else 1
+    tile = KKT_THREADS * LAYOUT["kkt_pieces"] * vec
+    tiles = -(-n * n // tile)
+    smem = kkt_smem_bytes(n, c, tile, vec > 1, size)
+    _fit(f"kkt_blocks at n = {n}, a_blocks = {(r, c)}", smem, smem_optin)
+    return TailLayout("tiles", KKT_THREADS, B * tiles, smem, vec)
+
+
+def adapt_layout(n: int, m: int, B: int, smem_optin: int,
+                 dense: bool) -> TailLayout:
+    """adapt_rho over B scenarios, A `dense` or its blocks declared: a
+    block a scenario; where n and m are at most `warp_dim` (the WBC shape)
+    128 threads and a unit a row of P, else TAIL_THREADS and `max_lanes`
+    units a row (their reads of a row consecutive); the scenario's vectors
+    and partial sums in shared memory, in float64 whatever the operands.
+    Raises ValueError when they do not fit `smem_optin`."""
+    small = max(n, m) <= LAYOUT["warp_dim"]
+    lanes = 1 if small else LAYOUT["max_lanes"]
+    smem = smem_values(n, m, dense, lanes) * 8
+    _fit(f"adapt_rho at n = {n}, m = {m}", smem, smem_optin)
+    return TailLayout("block", 128 if small else TAIL_THREADS, B, smem,
                       lanes)
+
+
+def tail_layout(n: int, m: int, B: int, smem_optin: int, n_sm: int,
+                dense: bool, dtype=torch.float32,
+                aligned: bool = True) -> TailLayout:
+    """unscale over B scenarios, A `dense` or its blocks declared.  Where n
+    and m are at most `warp_dim` (the WBC shape): the warp path, a warp a
+    scenario, as many a block as fit `smem_optin`, at most `max_warps` and
+    no more than spread B over `n_sm` multiprocessors.  Where P and a
+    dense A are `aligned` (`bulk_rows`; lanes 2, two slots): at most
+    `n_sm` blocks, each warp walking its scenarios, the next one's rows
+    arriving by bulk copy while it works on the current one; else (lanes
+    1, one slot) a block for each `warps` scenarios, the lanes staging the
+    rows.  Else the block path: a block a scenario, rows of P streamed a
+    warp `row_group` at a time (lanes `max_lanes`), TAIL_THREADS a block,
+    TAIL_THREADS_LARGE_B (more blocks a multiprocessor) where B is at
+    least LARGE_B_WAVES blocks a multiprocessor.  Raises ValueError where
+    one scenario does not fit."""
+    size = _itemsize(dtype)
+    if max(n, m) <= LAYOUT["warp_dim"]:
+        slots = 2 if aligned else 1
+        slot = unscale_smem_bytes(n, m, dense, 1, slots, size)
+        _fit(f"unscale at n = {n}, m = {m}", slot, smem_optin)
+        warps = max(1, min(LAYOUT["max_warps"], smem_optin // slot,
+                           -(-B // max(1, n_sm))))
+        blocks = -(-B // warps)
+        if slots == 2:
+            blocks = min(blocks, n_sm)
+        return TailLayout("warp", 32 * warps, blocks, warps * slot, slots)
+    smem = unscale_smem_bytes(n, m, dense, 0, 1, size)
+    _fit(f"unscale at n = {n}, m = {m}", smem, smem_optin)
+    threads = (TAIL_THREADS_LARGE_B if B >= LARGE_B_WAVES * n_sm
+               else TAIL_THREADS)
+    return TailLayout("block", threads, B, smem, LAYOUT["max_lanes"])
 
 
 # ------------------------------------------------------------------ packing
@@ -217,6 +325,109 @@ def run_unscale(launch_fn, P0, q0, A0, l0, u0, xs, ys, D, E, c,
     return rc, outs
 
 
+# -------------------------------------- the kernels' sums, written out
+
+def _nanmax(a, b):
+    return torch.where((a != a) | (a > b), a, b)
+
+
+def _nanmin(a, b):
+    return torch.where((a != a) | (a < b), a, b)
+
+
+def kkt_in_order(P, A, eqf, rho_s, sigma: float, rho_eq_scale: float,
+                 a_blocks):
+    """(K, rho_vec) of `kkt_blocks` by elementwise PyTorch ops in the
+    kernel's order (solve_tail.h `kkt_setup`, `kkt_piece`): each block
+    entry's r terms (A[k, i] rho_k) A[k, j] from 0 in order of k, then + P,
+    then + sigma on the diagonal; off the blocks 0 + P.  Each op rounds
+    once, as the kernel's under -fmad=false, so on any device this is the
+    kernel's K bit for bit (the checks of the CPU tests and chip_smoke.py
+    phase 3i)."""
+    B, n, m = _dims(P, A)
+    r, c = check_blocks(n, m, a_blocks)
+    G = n // c
+    A = A.expand(B, m, n)
+    rho_vec = (1.0 + eqf * (rho_eq_scale - 1.0)) * rho_s[:, None]
+    Ab = torch.stack([A[:, g * r:(g + 1) * r, g * c:(g + 1) * c]
+                      for g in range(G)], 1)           # (B, G, r, c)
+    rb = rho_vec.reshape(B, G, r)
+    v = P.new_zeros((B, G, c, c))
+    for kk in range(r):
+        t = Ab[:, :, kk, :] * rb[:, :, kk, None]
+        v = v + t[..., :, None] * Ab[:, :, kk, None, :]
+    K = torch.zeros_like(P) + P
+    for g in range(G):
+        sl = slice(g * c, (g + 1) * c)
+        K[:, sl, sl] = v[:, g] + P[:, sl, sl]
+    diag = K.diagonal(dim1=-2, dim2=-1)
+    diag.copy_(diag + sigma)
+    return K, rho_vec.contiguous()
+
+
+def unscale_in_order(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol: float,
+                     a_blocks=None, lanes: int = 1):
+    """(x, y, z, prim, dual, ok) of `unscale` by elementwise PyTorch ops
+    in the kernel's order: a row of P (and of a dense A) summed over j in
+    index order from 0 (`lanes` 1, the warp path) or as 32 partials over j
+    = l, l + 32, ... each from 0, then summed in order of l (`lanes` 32,
+    the block path); A's block rows and A' y's columns in index order;
+    the maxima NaN-propagating.  On any device the kernel's outputs bit for
+    bit."""
+    B, n, m = _dims(P0, A0)
+    r, cb = check_blocks(n, m, a_blocks)
+    A0 = A0.expand(B, m, n)
+    x = D * xs
+    y = E * ys / c[:, None]
+
+    def rows_dot(M):
+        if lanes == 1:
+            v = M.new_zeros(M.shape[:2])
+            for j in range(n):
+                v = v + M[:, :, j] * x[:, j, None]
+            return v
+        parts = []
+        for ln in range(LAYOUT["max_lanes"]):
+            p = M.new_zeros(M.shape[:2])
+            for j in range(ln, n, LAYOUT["max_lanes"]):
+                p = p + M[:, :, j] * x[:, j, None]
+            parts.append(p)
+        v = parts[0]
+        for p in parts[1:]:
+            v = v + p
+        return v
+
+    px = rows_dot(P0)
+    aty = P0.new_zeros((B, n))
+    if r:
+        ax = P0.new_zeros((B, m))
+        k = torch.arange(m, device=P0.device)
+        j0 = (k // r) * cb
+        for jj in range(cb):
+            cols = (j0 + jj)[None, :, None].expand(B, m, 1)
+            ax = ax + A0.gather(2, cols)[..., 0] * x.gather(
+                1, (j0 + jj)[None].expand(B, m))
+        j = torch.arange(n, device=P0.device)
+        k0 = (j // cb) * r
+        for kk in range(r):
+            rws = (k0 + kk)[None, None, :].expand(B, 1, n)
+            aty = aty + A0.gather(1, rws)[:, 0] * y.gather(
+                1, (k0 + kk)[None].expand(B, n))
+    else:
+        ax = rows_dot(A0)
+        for k in range(m):
+            aty = aty + A0[:, k, :] * y[:, k, None]
+    z = _nanmin(_nanmax(ax, l0), u0)
+
+    def amax(v):    # of absolute values: the kernel's maximum from 0
+        return v.amax(dim=1) if v.shape[1] else v.new_zeros((B,))
+
+    prim = amax((ax - z).abs())
+    dual = amax(((px + q0) + aty).abs())
+    ok = torch.isfinite(x).all(dim=1) & (prim < status_tol)
+    return x, y, z, prim, dual, ok
+
+
 # ---------------------------------------------------------------- wrappers
 
 def _require_float32(P) -> None:
@@ -241,7 +452,8 @@ def kkt_blocks(P, A, eqf, rho_s, sigma: float, rho_eq_scale: float,
         return admm._dense_kkt(P, A, eqf, rho_s, sigma, rho_eq_scale)
     _require_float32(P)
     dev = P.device
-    lay = kkt_layout(B, n, m, device_limits(dev)[1])
+    lay = kkt_layout(B, n, m, a_blocks, device_limits(dev)[0],
+                     aligned=bulk_rows(P, n * n))
     out = _launch("kkt", run_kkt, dev, P, A, eqf, rho_s, sigma, rho_eq_scale,
                   a_blocks, lay.geometry)
     kkt_blocks.launches += 1
@@ -265,8 +477,7 @@ def adapt_rho(P, q, A, x, z, y, rho_s, a_blocks=None):
         return admm._adapt_rho(P, q, A, x, z, y, rho_s)
     _require_float32(P)
     dev = P.device
-    lay = tail_layout(n, m, B, device_limits(dev)[0], a_blocks is None,
-                      torch.float64)
+    lay = adapt_layout(n, m, B, device_limits(dev)[0], a_blocks is None)
     out = _launch("adapt", run_adapt, dev, P, q, A, x, z, y, rho_s, a_blocks,
                   lay.geometry)
     adapt_rho.launches += 1
@@ -295,7 +506,9 @@ def unscale(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol: float,
         return s.x, s.y, s.z, s.prim_res, s.dual_res, s.ok
     _require_float32(P0)
     dev = P0.device
-    lay = tail_layout(n, m, B, device_limits(dev)[0], a_blocks is None)
+    dense = a_blocks is None
+    aligned = bulk_rows(P0, n * n) and (not dense or bulk_rows(A0, m * n))
+    lay = tail_layout(n, m, B, *device_limits(dev), dense, aligned=aligned)
     out = _launch("unscale", run_unscale, dev, P0, q0, A0, l0, u0, xs, ys, D,
                   E, c, status_tol, a_blocks, lay.geometry)
     unscale.launches += 1
@@ -329,7 +542,7 @@ def _library():
 
         name, src, hdr = LIBRARY
         lib = _build.load_library(name, src, hdr, flags=FLAGS)
-        for entry in ("kkt", "adapt", "unscale"):
+        for entry in _ENTRIES:
             fn = getattr(lib, f"solve_tail_{entry}_launch")
             fn.argtypes = LAUNCH_ARGTYPES + [_PTR]
             fn.restype = _INT
@@ -337,14 +550,32 @@ def _library():
         lib.solve_tail_error_string.restype = ctypes.c_char_p
         lib.solve_tail_layout.argtypes = [_INT]
         lib.solve_tail_layout.restype = _INT
-        lib.solve_tail_smem_values.argtypes = [_INT] * 4
-        lib.solve_tail_smem_values.restype = ctypes.c_longlong
+        lib.solve_tail_last_layout.argtypes = [_INT, _INT]
+        lib.solve_tail_last_layout.restype = ctypes.c_longlong
+        for name, count in (("smem_values", 4), ("kkt_smem_bytes", 5),
+                            ("unscale_smem_bytes", 6)):
+            fn = getattr(lib, f"solve_tail_{name}")
+            fn.argtypes = [_INT] * count
+            fn.restype = ctypes.c_longlong
         got = [lib.solve_tail_layout(i) for i in range(len(LAYOUT))]
         if got != list(LAYOUT.values()):
             raise RuntimeError(f"solve_tail: the library's layout {got} is "
                                f"not qp/tail.py's {list(LAYOUT.values())}")
         _LIBS["solve_tail"] = lib
     return lib
+
+
+def last_layout(entry: str) -> TailLayout:
+    """The geometry the library's last launch of `entry` ("kkt", "adapt",
+    "unscale") took, as it reports it (chip_smoke.py holds it against the
+    layout functions)."""
+    lib = _library()
+    k = _ENTRIES.index(entry)
+    threads, blocks, smem, lanes = (int(lib.solve_tail_last_layout(k, i))
+                                    for i in range(4))
+    path = ("tiles" if entry == "kkt" else
+            "warp" if entry == "unscale" and lanes in (1, 2) else "block")
+    return TailLayout(path, threads, blocks, smem, lanes)
 
 
 def _launch(entry: str, run, dev: torch.device, *args):

@@ -3,17 +3,17 @@
 (admm_m2.cu), the generic refined iteration (admm_vpu.cu), the tensor-core
 iteration (admm_mma.cu), the whole solve (admm_fused.cu), kernels B
 (spd_inverse.cu) and A (admm_fused.cu's plain-backend solve), the WBC build
-and the plant step (dyn/csrc/), Ruiz (ruiz.cu) and the MPC QP build
-(mpc/csrc/mpc_build.cu).
+and the plant step (dyn/csrc/), Ruiz (ruiz.cu), the MPC QP build
+(mpc/csrc/mpc_build.cu) and the solve tail (solve_tail.cu).
 
     python3 scripts/probe_kernel_designs.py [--batch 4096] [--out DIR]
         [--kernels m2 vpu packed mma fused spd plainwarp build plant ruiz
-                   mpcbuild]
+                   mpcbuild tail]
 
 Needs an NVIDIA GPU and nvcc.  All times are CUDA events at the main path's
 shapes (WBC: n = 30, m = 50, 13 iterations, the whole solve 40 in 3 rounds;
 MPC: n = 192, m = 320, 30 iterations), each with the card's name and power
-limit.  `--kernels` picks the parts (default: all eleven):
+limit.  `--kernels` picks the parts (default: all twelve):
 
   m2. (admm_m2.cu, MPC shape) the launcher called with other geometries
      than `kernels.m2_layout` chooses: clusters of 1, 2 and 4, M2 in
@@ -80,6 +80,26 @@ limit.  `--kernels` picks the parts (default: all eleven):
      round (a patched copy that reads the cycle counter at every block
      barrier and exchange wait, `RUIZ_CLOCK_SUBS`; plus load and stores).
      Times are one-launch CUDA graphs' replays.
+  tail. (qp/csrc/solve_tail.cu over solve_tail.h, chip_smoke.py phase 3i's
+     problems: the MPC shape with its stride-0 A and declared blocks, the
+     WBC shape dense; B = 1, 256 and --batch) kkt_blocks and unscale
+     against their first design (its solve_tail.h and .cu kept here,
+     FIRST_TAIL_H / FIRST_TAIL_CU, built as a patched copy), adapt_rho
+     (whose design stayed) against the same build: every output's bits
+     against the first design's, then the times in interleaved rounds
+     beside the layouts not chosen (kkt: a value a piece, 64-512 threads;
+     unscale: warps a block, a scenario a warp, one slot staged by the
+     lanes and the block path at the WBC shape, 256-1024 threads at the
+     MPC shape), patched copies that undo or push one choice each
+     (`TAIL_HEADER_VARIANTS`: 4 or 16 pieces a thread, 1 or 4 rows a
+     group, the rows' loads by j; `TAIL_REGISTER_KKT_SUBS`: K's aligned
+     tiles in registers; `tail_ring_subs`: at the MPC shape P's rows by
+     bulk copy through rings of 3 x 32 and 4 x 16 rows), the library call
+     for K
+     (torch.baddbmm) and the plain chains, each with its share of the
+     bound; the cycles of each phase (`TAIL_CLOCK_SUBS`); and ptxas'
+     registers, shared memory and spills of every entry of every build.
+     Times are one-launch CUDA graphs' replays.
   mpcbuild. (mpc/csrc/mpc_build.cu over mpc_build.h, N = 16, float32; B = 1
      and --batch) the shipped MPC QP build timed in interleaved rounds
      beside copies of its header with 192 and 768 threads a block (bit for
@@ -120,7 +140,7 @@ from mpctsid_tpu_torch.wbc import tsid  # noqa: E402
 from mpctsid_tpu_torch.wbc.tsid import WbcRefs  # noqa: E402
 
 PARTS = ["m2", "vpu", "packed", "mma", "fused", "spd", "plainwarp", "build",
-         "plant", "ruiz", "mpcbuild"]
+         "plant", "ruiz", "mpcbuild", "tail"]
 WBC = (30, 50, 13)
 MPC = (192, 320, 30)
 
@@ -246,13 +266,14 @@ def launch(fn, args, iters, geometry):
 
 
 def write_variant(name, subs, out_dir, source="admm_mma.cu",
-                  header_subs=None, csrc=None):
+                  header_subs=None, csrc=None, flags=()):
     """A copy of `source` (and of the headers named in `header_subs`, a dict
     header -> substitutions; a callable there maps the header's whole text)
     with the (old, new) text substitutions applied, in its own directory;
     returns the nvcc command that builds it beside the real library (the
-    copy's directory first on the include path, so the patched headers win)
-    and the library's path."""
+    copy's directory first on the include path, so the patched headers win;
+    `flags` after the common ones, as the library's own) and the library's
+    path."""
     csrc = csrc or _build.CSRC
     tag = "".join(c if c.isalnum() else "_" for c in name)
     vdir = os.path.join(out_dir, f"{source[:-3]}_{tag}")
@@ -270,8 +291,12 @@ def write_variant(name, subs, out_dir, source="admm_mma.cu",
         with open(os.path.join(vdir, fname), "w") as f:
             f.write(src)
     so = os.path.join(vdir, f"lib{source[:-3]}_{tag}.so")
-    return [_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", vdir, "-I",
-            str(csrc), "-o", so, os.path.join(vdir, source)], so
+    return [_build.find_nvcc(), *_build.NVCC_FLAGS, *flags, "-I", vdir,
+            "-I", str(csrc), "-o", so, os.path.join(vdir, source)], so
+
+
+# name -> the compiler's output of each patched copy built (ptxas -v)
+VARIANT_LOGS: dict = {}
 
 
 def build_variants(specs, out_dir):
@@ -288,6 +313,7 @@ def build_variants(specs, out_dir):
         out = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name!r} does not build:\n{out}")
+        VARIANT_LOGS[name] = out
         libs[name] = ctypes.CDLL(so)
     return libs
 
@@ -1379,6 +1405,7 @@ def interleaved(record, kind, fns, rounds, warmup=2, reps=10, **tags):
     for k in names:
         record(kind, design=k, ms_rounds=[round(t, 5) for t in times[k]],
                ms_median=float(np.median(times[k])), **tags)
+    return {k: float(np.median(times[k])) for k in names}
 
 
 def spd_pipeline(lib, factor, K):
@@ -3297,6 +3324,1142 @@ def probe_mpc_build(record, B, device, build, rounds=6):
         torch.cuda.empty_cache()
 
 
+# ---- the solve tail (qp/csrc/solve_tail.cu over solve_tail.h)
+
+# kkt_blocks with its aligned tiles held in registers (KKT_PIECES 16-byte
+# pieces a thread, loaded before the setup) instead of coming in by bulk
+# copy: the unaligned path's kernel taken for every launch
+TAIL_REGISTER_KKT_SUBS = [
+    ("    const long long smem = tail::kkt_smem_bytes(s.n, s.c, tile, V > 1,",
+     "    const long long smem = tail::kkt_smem_bytes(s.n, s.c, tile, 0,"),
+    ("        err = set_smem(tail_kkt_kernel_bulk<T>, smem);\n"
+     "        if (err != cudaSuccess) return (int)err;\n"
+     "        tail_kkt_kernel_bulk<T>\n",
+     "        err = set_smem(tail_kkt_kernel<T, V16>, smem);\n"
+     "        if (err != cudaSuccess) return (int)err;\n"
+     "        tail_kkt_kernel<T, V16>\n")]
+
+
+# The cycle counter of each block's thread 0 (a warp's lane 0 on the warp
+# path) at the start, after every barrier and at the end of a launch, for
+# the first STAMP_UNITS blocks (scenarios on the warp path)
+TAIL_CLOCK_SUBS = [
+    ("struct BlockExec {\n",
+     "constexpr int STAMPS = 16, STAMP_UNITS = 8192;\n"
+     "__device__ long long tail_stamps[STAMPS * STAMP_UNITS];\n"
+     "__device__ __forceinline__ void stamp(long long unit, int i, bool lead)"
+     "\n{\n    if (lead && unit < STAMP_UNITS && i < STAMPS)\n"
+     "        tail_stamps[unit * STAMPS + i] = clock64();\n}\n\n"
+     "struct BlockExec {\n    mutable int k = 1;\n"),
+    ("    __device__ void sync() const { __syncthreads(); }",
+     "    __device__ void sync() const\n    {\n        __syncthreads();\n"
+     "        stamp(blockIdx.x, k++, threadIdx.x == 0);\n    }"),
+    ("    tail::UnLane<T> s;\n    int lane;\n",
+     "    tail::UnLane<T> s;\n    int lane;\n    long long unit = 1LL << 40;\n"
+     "    mutable int k = 0;\n"),
+    ("    __device__ void sync() const { __syncwarp(); }",
+     "    __device__ void sync() const\n    {\n        __syncwarp();\n"
+     "        stamp(unit, k++, lane == 0);\n    }"),
+    # kkt_blocks' bulk kernel: start, setup, the copy's wait, the store
+    ("    const int b = blockIdx.x / tiles, t = blockIdx.x - b * tiles;\n"
+     "    const int step = blockDim.x * V, tile",
+     "    stamp(blockIdx.x, 0, threadIdx.x == 0);\n"
+     "    const int b = blockIdx.x / tiles, t = blockIdx.x - b * tiles;\n"
+     "    const int step = blockDim.x * V, tile"),
+    ("    tail::kkt_setup(BlockExec{}, a, s, (long long)b, tl, sm);\n"
+     "    barrier_wait(bar, 0);\n",
+     "    const BlockExec ex{};\n"
+     "    tail::kkt_setup(ex, a, s, (long long)b, tl, sm);\n"
+     "    barrier_wait(bar, 0);\n    stamp(blockIdx.x, 2, threadIdx.x == 0);\n"),
+    ("        asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
+     "\"memory\");\n    }\n}",
+     "        asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
+     "\"memory\");\n        stamp(blockIdx.x, 3, true);\n    }\n}"),
+    # unscale's block path: start, its barriers, end
+    ("    tail::unscale_block<T>(BlockExec{}, a, s, (long long)blockIdx.x,\n"
+     "                           reinterpret_cast<T*>(smem));\n}",
+     "    const BlockExec ex{};\n    stamp(blockIdx.x, 0, threadIdx.x == 0);\n"
+     "    tail::unscale_block<T>(ex, a, s, (long long)blockIdx.x,\n"
+     "                           reinterpret_cast<T*>(smem));\n"
+     "    __syncthreads();\n    stamp(blockIdx.x, ex.k, threadIdx.x == 0);\n}"),
+    # unscale's two-slot warp path: a scenario's wait, then its barriers
+    ("        barrier_wait(bars + cur, (k >> 1) & 1);\n",
+     "        ex.unit = b;\n        ex.k = 2;\n        stamp(b, 0, ex.lane == 0);\n"
+     "        barrier_wait(bars + cur, (k >> 1) & 1);\n"
+     "        stamp(b, 1, ex.lane == 0);\n"),
+    ('extern "C" {\n',
+     'extern "C" {\n\nint solve_tail_stamps(long long* out, int n)\n{\n'
+     "    return (int)cudaMemcpyFromSymbol(out, tail_stamps,\n"
+     "                                     n * sizeof(long long));\n}\n")]
+TAIL_STAMPS, TAIL_STAMP_UNITS = 16, 8192
+# the phases between the stamps of each launch
+TAIL_PHASES = {
+    "tiles": ["rho_vec's rows and block entries (the tile's copy in "
+              "flight)", "the copy's remaining wait",
+              "pieces patched, the bulk store issued and read out"],
+    "block": ["x, y", "products (P's rows streamed)", "row sums, z",
+              "partial maxima", "prim, dual, ok"],
+    "warp": ["waiting for the scenario's P and A", "x, y",
+             "products, maxima, stores"]}
+# patched copies of solve_tail.h that undo or push one choice each
+TAIL_HEADER_VARIANTS = {
+    "4 pieces a thread": ("constexpr int KKT_PIECES = 8;",
+                          "constexpr int KKT_PIECES = 4;"),
+    "16 pieces a thread": ("constexpr int KKT_PIECES = 8;",
+                           "constexpr int KKT_PIECES = 16;"),
+    "1 row a group": ("constexpr int ROW_GROUP = 2;",
+                      "constexpr int ROW_GROUP = 1;"),
+    "4 rows a group": ("constexpr int ROW_GROUP = 2;",
+                       "constexpr int ROW_GROUP = 4;"),
+    "rows' loads by j": ("constexpr int STREAM_NQ = 6;",
+                         "constexpr int STREAM_NQ = 0;")}
+
+# unscale's block path with P's rows by bulk copy through a ring of `slots`
+# chunks of `rows` rows in shared memory (each chunk's mbarrier, the next
+# chunks in flight while the block sums one) instead of from device memory:
+# a kernel of its own (`tail_unscale_ring_kernel`) in place of the block
+# kernel, for 16-byte aligned rows of P only
+TAIL_RING_KERNEL = r"""
+constexpr int RING_ROWS = %(rows)d, RING_SLOTS = %(slots)d;
+constexpr int RING_HEAD = 16 * ((RING_SLOTS * 8 + 15) / 16);
+
+// the block executor with the ring: P's rows through it (`p_rows`)
+template <typename T>
+struct RingExec : BlockExec {
+    uint64_t* bars;
+    T* ring;
+    const T* P;
+    int n;
+
+    __device__ void issue(int c) const
+    {
+        if (threadIdx.x != 0) return;
+        const int r0 = c * RING_ROWS, k = c %% RING_SLOTS;
+        const int rows = n - r0 < RING_ROWS ? n - r0 : RING_ROWS;
+        const unsigned bytes = (unsigned)(rows * n * sizeof(T));
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        barrier_expect(bars + k, bytes);
+        bulk_load(ring + (long long)k * RING_ROWS * n, P + (long long)r0 * n,
+                  bytes, bars + k);
+    }
+    template <int NQ>
+    __device__ void p_rows(const T*, const T* x, T* lanes, int ld,
+                           int) const
+    {
+        const int chunks = (n + RING_ROWS - 1) / RING_ROWS;
+        for (int c = 0; c < chunks; ++c) {
+            const int r0 = c * RING_ROWS;
+            const int rows = n - r0 < RING_ROWS ? n - r0 : RING_ROWS;
+            barrier_wait(bars + c %% RING_SLOTS, (c / RING_SLOTS) & 1);
+            tail::row_groups<NQ>(BlockExec{},
+                                 ring + (long long)(c %% RING_SLOTS)
+                                            * RING_ROWS * n,
+                                 rows, n, x, lanes, ld, r0);
+            __syncthreads();
+            if (c + RING_SLOTS < chunks) issue(c + RING_SLOTS);
+        }
+    }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+tail_unscale_ring_kernel(const tail::UnArgs<T> a, const tail::Shape s)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const long long b = blockIdx.x;
+    RingExec<T> ex;
+    ex.bars = reinterpret_cast<uint64_t*>(smem);
+    ex.ring = reinterpret_cast<T*>(smem + RING_HEAD);
+    ex.P = a.row(tail::UI_P, b);
+    ex.n = s.n;
+    if (threadIdx.x == 0) {
+        for (int k = 0; k < RING_SLOTS; ++k) bulk_barrier_init(ex.bars + k);
+        for (int c = 0; c < RING_SLOTS && c * RING_ROWS < s.n; ++c)
+            ex.issue(c);
+    }
+    tail::unscale_block<T>(
+        ex, a, s, b, ex.ring + (long long)RING_SLOTS * RING_ROWS * s.n);
+}
+
+"""
+
+
+def tail_ring_subs(rows, slots):
+    """solve_tail.cu with the block path's P rows through a ring of
+    `slots` chunks of `rows` rows (TAIL_RING_KERNEL: its executor's
+    `p_rows`, which `tail_ring_header` has the body call; BlockExec's reads
+    them from device memory as the shipped body does)."""
+    def sub(src):
+        src = src.replace(
+            "    __device__ void sync() const { __syncthreads(); }\n};",
+            "    __device__ void sync() const { __syncthreads(); }\n"
+            "    template <int NQ, typename T>\n"
+            "    __device__ void p_rows(const T* P, const T* x, T* lanes,\n"
+            "                           int ld, int n) const\n    {\n"
+            "        tail::row_groups<NQ>(*this, P, n, n, x, lanes, ld, 0);\n"
+            "    }\n};", 1)
+        at = src.index("// unscale's warp path, one slot:")
+        src = (src[:at] + TAIL_RING_KERNEL % dict(rows=rows, slots=slots)
+               + src[at:])
+        old = ("        err = set_smem(tail_unscale_kernel_block<T>, smem);\n"
+               "        if (err != cudaSuccess) return (int)err;\n"
+               "        tail_unscale_kernel_block<T>\n")
+        new = ("        const long long ring = RING_HEAD + (long long)"
+               "RING_SLOTS * RING_ROWS * s.n * size;\n"
+               "        err = set_smem(tail_unscale_ring_kernel<T>, "
+               "smem + ring);\n"
+               "        if (err != cudaSuccess) return (int)err;\n"
+               "        tail_unscale_ring_kernel<T>\n"
+               "            <<<blocks, threads, (size_t)(smem + ring), "
+               "stream>>>(a, s);\n"
+               "        if (false) tail_unscale_kernel_block<T>\n")
+        if old not in src:
+            raise RuntimeError("tail ring: the block kernel's launch is not "
+                               "in solve_tail.cu")
+        return src.replace(old, new)
+    return sub
+
+
+# ... and the body asking its executor for P's rows' partials
+TAIL_RING_HEADER = [
+    ("    row_groups<NQ>(ex, P, n, n, S.x, S.lanes, ld, 0);\n",
+     "    ex.template p_rows<NQ>(P, S.x, S.lanes, ld, n);\n")]
+# the pieces a thread of kkt_blocks takes in each build
+TAIL_PIECES = {"4 pieces a thread": 4, "16 pieces a thread": 16}
+
+
+def ptxas_entries(log):
+    """[{function, registers, smem, stack, spill_stores, spill_loads}] of
+    every entry function in an `nvcc -Xptxas -v` log."""
+    out, cur = [], None
+    for line in (log or "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = dict(function=m.group(1))
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def first_tail_geometry(entry, B, n, m, n_sm):
+    """The first design's geometry (its kkt_layout and tail_layout)."""
+    if entry == "kkt":
+        total = -(-B * n * n // 4) + B * m
+        return (256, max(1, min(-(-total // 256), 8 * n_sm)), 1)
+    return (128, B, 1) if max(n, m) <= 64 else (512, B, 32)
+
+
+def kkt_geometry(B, n, threads, pieces, vec):
+    return (threads, B * -(-n * n // (threads * pieces * vec)), vec)
+
+
+def probe_tail(record, B, device, smem, n_sm, build, rounds=6):
+    """kkt_blocks and unscale (and adapt_rho, which kept its design)
+    against their first design (FIRST_TAIL_H / FIRST_TAIL_CU, a patched
+    copy) on phase 3i's problems at both shapes and B = 1, 256 and
+    --batch: every output's bits against the first design's, then the
+    times in interleaved rounds beside the layouts not chosen, the
+    patched copies of TAIL_HEADER_VARIANTS and TAIL_REGISTER_KKT_SUBS, the
+    library call for K and the plain chains, each with its share of the
+    bound;
+    the cycles of each phase (TAIL_CLOCK_SUBS); ptxas' registers, shared
+    memory and spills of every entry.  Times are one-launch CUDA graphs'
+    replays."""
+    import threading
+
+    from chip_smoke import (a_shared, kkt_bound_ms, tail_bound_ms,
+                            tail_problems)
+    from mpctsid_tpu_torch.mpc import kernels as mpc_kernels
+    from mpctsid_tpu_torch.qp import tail
+
+    # the libraries phase 3i's problems run on, built beside the copies
+    shipped = threading.Thread(target=_build.build_libraries, args=(
+        kernels.build_specs() + mpc_kernels.build_specs()
+        + tail.build_specs(),))
+    shipped.start()
+    flags = tail.FLAGS
+    specs = {"first design": dict(
+                 subs=lambda _: FIRST_TAIL_CU, source="solve_tail.cu",
+                 header_subs={"solve_tail.h": lambda _: FIRST_TAIL_H},
+                 flags=flags),
+             "clock": dict(subs=TAIL_CLOCK_SUBS, source="solve_tail.cu",
+                           flags=flags),
+             "16-byte pieces in registers": dict(
+                 subs=TAIL_REGISTER_KKT_SUBS, source="solve_tail.cu",
+                 flags=flags),
+             "a ring of 3 chunks of 32 rows": dict(
+                 subs=tail_ring_subs(32, 3), source="solve_tail.cu",
+                 header_subs={"solve_tail.h": TAIL_RING_HEADER},
+                 flags=flags),
+             "a ring of 4 chunks of 16 rows": dict(
+                 subs=tail_ring_subs(16, 4), source="solve_tail.cu",
+                 header_subs={"solve_tail.h": TAIL_RING_HEADER},
+                 flags=flags)}
+    specs.update({name: dict(subs=[], source="solve_tail.cu",
+                             header_subs={"solve_tail.h": [sub]},
+                             flags=flags)
+                  for name, sub in TAIL_HEADER_VARIANTS.items()})
+    libs = build_variants(specs, build)
+    shipped.join()
+    libs["shipped"] = tail._library()
+    for name, lib in libs.items():
+        for entry in ("kkt", "adapt", "unscale"):
+            fn = getattr(lib, f"solve_tail_{entry}_launch")
+            fn.argtypes = tail.LAUNCH_ARGTYPES + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    logs = dict(VARIANT_LOGS, shipped=_build.BUILD_LOG.get("solve_tail"))
+    for name in ("shipped", *specs):
+        for row in ptxas_entries(logs.get(name)):
+            record("tail", what="ptxas", library=name, **row)
+
+    runs = {"kkt": tail.run_kkt, "adapt": tail.run_adapt,
+            "unscale": tail.run_unscale}
+
+    def call(lib, entry, args, geometry):
+        fn = getattr(libs[lib], f"solve_tail_{entry}_launch")
+        stream = torch.cuda.current_stream().cuda_stream
+        rc, out = runs[entry](lambda *a: fn(*a, stream), *args, geometry)
+        if rc != 0:
+            raise RuntimeError(f"{lib} {entry} {geometry}: CUDA error {rc}")
+        return out if isinstance(out, tuple) else (out,)
+
+    def parted(got, want):
+        return [int((g != w).sum()) for g, w in zip(got, want)]
+
+    def timed(entry, shape, b, designs, bound, kernel_designs):
+        """designs: name -> callable; kernel_designs: name -> (lib,
+        geometry), held bit for bit against the first design first."""
+        ref = call("first design", entry, args_of[entry],
+                   first_tail_geometry(entry, b, n, m, n_sm))
+        for name, (lib, geometry) in kernel_designs.items():
+            record("tail", what="bits", kernel=entry, shape=shape, B=b,
+                   design=name, geometry=list(geometry),
+                   parted_vs_first=parted(call(lib, entry, args_of[entry],
+                                               geometry), ref),
+                   entries=[int(t.numel()) for t in ref])
+        del ref
+        replays = {name: graphed(c) for name, c in designs.items()}
+        med = interleaved(record, "tail", replays, rounds, warmup=2,
+                          reps=10 if b > 1 else 50, kernel=entry,
+                          shape=shape, B=b, n=n, m=m)
+        for name, ms in med.items():
+            record("tail", what="share of the bound", kernel=entry,
+                   shape=shape, B=b, design=name, ms=ms, bound_ms=bound[0],
+                   bound_by=bound[1], share=round(bound[0] / ms, 4))
+        del replays
+        torch.cuda.empty_cache()
+
+    def phases(entry, shape, b, args, geometry, path):
+        call("clock", entry, args, geometry)
+        torch.cuda.synchronize()
+        st = np.zeros(TAIL_STAMPS * TAIL_STAMP_UNITS, dtype=np.int64)
+        rc = libs["clock"].solve_tail_stamps(
+            st.ctypes.data_as(ctypes.c_void_p), st.size)
+        if rc != 0:
+            raise RuntimeError(f"solve_tail_stamps: CUDA error {rc}")
+        units = min(geometry[1] if path != "warp" else b, TAIL_STAMP_UNITS)
+        st = st.reshape(TAIL_STAMP_UNITS, TAIL_STAMPS)[:units].astype(
+            np.float64)
+        names = TAIL_PHASES[path]
+        total = st[:, len(names)] - st[:, 0]
+        for k, phase in enumerate(names):
+            cyc = st[:, k + 1] - st[:, k]
+            record("tail", what="share of the cycles", kernel=entry,
+                   shape=shape, B=b, phase=phase,
+                   share=round(float((cyc / total).mean()), 4),
+                   mean_cycles=float(cyc.mean()))
+
+    for b in sorted({1, 256, B}):
+        problems = tail_problems(b, device)
+        for shape, (qp, scaled, eqf, rho_s, it, blocks, stol) in \
+                problems.items():
+            Ps, qs, As, ls, us, D, E, c = scaled
+            x, z, y = it
+            n, m = qs.shape[1], ls.shape[1]
+            args_of = {"kkt": (Ps, As, eqf, rho_s, 1e-6, 1e3, blocks),
+                       "adapt": (Ps, qs, As, x, z, y, rho_s, blocks),
+                       "unscale": (*qp, x, y, D, E, c, stol, blocks)}
+            nz = ((m // blocks[0]) * blocks[0] * blocks[1] if blocks
+                  else m * n)
+            if blocks is not None:
+                lay = tail.kkt_layout(b, n, m, blocks, smem)
+                pieces = tail.LAYOUT["kkt_pieces"]
+                kd = {"shipped": ("shipped", lay.geometry),
+                      "a value a piece": ("shipped", kkt_geometry(
+                          b, n, lay.threads, pieces, 1)),
+                      "16-byte pieces in registers": (
+                          "16-byte pieces in registers", lay.geometry)}
+                for t in (64, 256, 512):
+                    kd[f"{t} threads"] = ("shipped", kkt_geometry(
+                        b, n, t, pieces, lay.lanes))
+                for name, p in TAIL_PIECES.items():
+                    kd[name] = (name, kkt_geometry(b, n, lay.threads, p,
+                                                   lay.lanes))
+                K, rv = call("shipped", "kkt", args_of["kkt"], lay.geometry)
+                Ko, rvo = tail.kkt_in_order(*args_of["kkt"])
+                record("tail", what="bits", kernel="kkt", shape=shape, B=b,
+                       design="shipped against kkt_in_order",
+                       parted=parted((K, rv), (Ko, rvo)))
+                A_b = As.expand(b, m, n)
+                P_sig = Ps + 1e-6 * torch.eye(n, device=device)
+                AtR = (A_b * rv[:, :, None]).transpose(1, 2)
+                del K, rv, Ko, rvo
+                designs = {name: (lambda lib=lib, g=g: call(
+                               lib, "kkt", args_of["kkt"], g))
+                           for name, (lib, g) in kd.items()}
+                designs["first design"] = lambda: call(
+                    "first design", "kkt", args_of["kkt"],
+                    first_tail_geometry("kkt", b, n, m, n_sm))
+                designs["library: torch.baddbmm"] = lambda: torch.baddbmm(
+                    P_sig, AtR, A_b)
+                designs["plain: _dense_kkt"] = lambda: admm._dense_kkt(
+                    Ps, As, eqf, rho_s, 1e-6, 1e3)
+                timed("kkt", shape, b, designs,
+                      kkt_bound_ms(b, n, m, blocks, a_shared(As)), kd)
+                del P_sig, AtR, A_b
+                phases("kkt", shape, b, args_of["kkt"], lay.geometry, "tiles")
+            # adapt_rho: its design kept; bits against the first build
+            lay_a = tail.adapt_layout(n, m, b, smem, blocks is None)
+            timed("adapt", shape, b,
+                  {"shipped": lambda: call("shipped", "adapt",
+                                           args_of["adapt"], lay_a.geometry),
+                   "first design": lambda: call(
+                       "first design", "adapt", args_of["adapt"],
+                       first_tail_geometry("adapt", b, n, m, n_sm))},
+                  tail_bound_ms(b, n, m, nz, a_shared(As), False),
+                  {"shipped": ("shipped", lay_a.geometry)})
+            # unscale
+            lay = tail.tail_layout(n, m, b, smem, n_sm, blocks is None)
+            kd = {"shipped": ("shipped", lay.geometry)}
+            if lay.path == "warp":
+                for w in (1, 2, 4, 8):
+                    if 32 * w != lay.threads:
+                        kd[f"{w} warps a block"] = (
+                            "shipped", (32 * w, min(-(-b // w), n_sm), 2))
+                w = lay.threads // 32
+                if -(-b // w) > lay.blocks:
+                    kd["a scenario a warp"] = ("shipped",
+                                               (lay.threads, -(-b // w), 2))
+                kd["one slot, the lanes staging"] = (
+                    "shipped", (lay.threads, -(-b // w), 1))
+                kd["block path"] = ("shipped", (512, b, 32))
+                kd["block path, 128 threads"] = ("shipped", (128, b, 32))
+            else:
+                for t in (256, 512, 1024):
+                    if t != lay.threads:
+                        kd[f"{t} threads"] = ("shipped", (t, b, 32))
+                for name in ("1 row a group", "4 rows a group",
+                             "rows' loads by j", "a ring of 3 chunks of 32 "
+                             "rows", "a ring of 4 chunks of 16 rows"):
+                    kd[name] = (name, lay.geometry)
+            got = call("shipped", "unscale", args_of["unscale"],
+                       lay.geometry)
+            ordered = tail.unscale_in_order(*args_of["unscale"],
+                                            lanes=lay.lanes)
+            record("tail", what="bits", kernel="unscale", shape=shape, B=b,
+                   design="shipped against unscale_in_order",
+                   parted=parted(got, ordered))
+            del got, ordered
+            designs = {name: (lambda lib=lib, g=g: call(
+                           lib, "unscale", args_of["unscale"], g))
+                       for name, (lib, g) in kd.items()}
+            designs["first design"] = lambda: call(
+                "first design", "unscale", args_of["unscale"],
+                first_tail_geometry("unscale", b, n, m, n_sm))
+            designs["plain: _unscaled_solution"] = lambda: \
+                admm._unscaled_solution(*args_of["unscale"][:11])
+            timed("unscale", shape, b, designs,
+                  tail_bound_ms(b, n, m, nz, a_shared(qp[2]), True), kd)
+            phases("unscale", shape, b, args_of["unscale"], lay.geometry,
+                   lay.path)
+        del problems
+        torch.cuda.empty_cache()
+
+
+
+# The first design of kkt_blocks and unscale (and of adapt_rho, which kept
+# it): qp/csrc/solve_tail.h and solve_tail.cu before their redesign,
+# less their head comments, built as a patched copy.  kkt_blocks: a
+# thread a run of four consecutive entries of K over the whole batch, a
+# grid-stride loop; adapt_rho and unscale: a block a scenario.
+FIRST_TAIL_H = r"""#pragma once
+
+#include <math.h>
+
+#if defined(__CUDACC__)
+#define TAIL_FN __host__ __device__ __forceinline__
+#else
+#define TAIL_FN inline
+#endif
+
+// the units of a phase: on the card this thread's, on the host all of them
+#define TAIL_UNITS(ex, u, count)                                            \
+    for (long long u = (ex).first(count); u >= 0 && u < (count);            \
+         u = (ex).next(u))
+
+namespace tail {
+
+constexpr int PARTS = 32;       // partial maxima a quantity, one a unit
+constexpr int MAXIMA = 7;       // adapt_rho's seven inf-norms
+constexpr int MAX_LANES = 32;   // units (partial sums) a row of P at most
+constexpr int KKT_RUN = 4;      // kkt_blocks: consecutive entries a unit
+
+// ---- operands, in the order of the launchers' arrays
+enum KktIn { KI_P, KI_A, KI_EQF, KI_RHO_S, KI_COUNT };
+enum KktOut { KO_K, KO_RHO_VEC, KO_COUNT };
+// sigma; rho_eq_scale - 1 (as the plain version's Python number)
+enum KktPar { KP_SIGMA, KP_EQ_M1, KP_COUNT };
+enum AdaptIn { AI_P, AI_Q, AI_A, AI_X, AI_Z, AI_Y, AI_RHO_S, AI_COUNT };
+enum AdaptOut { AO_RHO_S, AO_COUNT };
+enum UnIn { UI_P, UI_Q, UI_A, UI_L, UI_U, UI_XS, UI_YS, UI_D, UI_E, UI_C,
+            UI_COUNT };
+enum UnOut { UO_X, UO_Y, UO_Z, UO_PRIM, UO_DUAL, UO_OK, UO_COUNT };
+enum UnPar { UP_STATUS_TOL, UP_COUNT };
+
+// inputs, outputs, parameters of the three stages, the partial maxima,
+// the partial sums a row (qp/tail.py::LAYOUT; -1 past the end)
+inline int layout(int what)
+{
+    const int counts[] = {KI_COUNT, KO_COUNT, KP_COUNT, AI_COUNT, AO_COUNT,
+                          UI_COUNT, UO_COUNT, UP_COUNT, PARTS, MAX_LANES};
+    return what >= 0 && what < (int)(sizeof(counts) / sizeof(int))
+               ? counts[what] : -1;
+}
+
+// values of a scenario's shared memory (adapt_rho: doubles; unscale: T):
+// x (n), y (m), two m-vectors (A x; A x - z), two n-vectors (P x, A' y),
+// the partial maxima and the `lanes` partial sums of each of P's rows and,
+// when A is dense (`dense` 1), of A's rows
+TAIL_FN long long smem_values(int n, int m, int dense, int lanes)
+{
+    return 3LL * n + 3LL * m + (long long)MAXIMA * PARTS
+           + (long long)lanes * (n + (dense ? m : 0));
+}
+
+// A's structure: r x c blocks tiling (m, n), or dense (r = c = 0); the
+// units a row of P (and of a dense A) is split over (1 or MAX_LANES)
+struct Shape {
+    int n, m, r, c, lanes;
+    TAIL_FN bool blocks() const { return r > 0; }
+};
+
+template <typename T, int NI, int NO, int NP>
+struct Args {
+    const T* in[NI];
+    long long stride[NI];
+    T* out[NO];
+    unsigned char* ok;      // unscale's ok (bytes); null elsewhere
+    T par[NP > 0 ? NP : 1];
+
+    TAIL_FN const T* row(int k, long long b) const
+    {
+        return in[k] + b * stride[k];
+    }
+};
+
+template <typename T> using KktArgs = Args<T, KI_COUNT, KO_COUNT, KP_COUNT>;
+template <typename T> using AdaptArgs = Args<T, AI_COUNT, AO_COUNT, 0>;
+template <typename T> using UnArgs = Args<T, UI_COUNT, UO_COUNT - 1, UP_COUNT>;
+
+// the launchers' arrays into Args (unscale's ok, its last output, is set
+// by its launcher)
+template <typename T, int NI, int NO, int NP>
+inline void fill(Args<T, NI, NO, NP>& a, const void* const* in,
+                 const long long* stride, void* const* out,
+                 const double* par)
+{
+    for (int k = 0; k < NI; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < NO; ++k) a.out[k] = static_cast<T*>(out[k]);
+    a.ok = nullptr;
+    for (int k = 0; k < NP; ++k) a.par[k] = (T)par[k];
+}
+
+// |v| and a NaN-propagating maximum (torch.amax, torch.maximum)
+TAIL_FN float t_abs(float v) { return fabsf(v); }
+TAIL_FN double t_abs(double v) { return fabs(v); }
+TAIL_FN float t_sqrt(float v) { return sqrtf(v); }
+TAIL_FN double t_sqrt(double v) { return sqrt(v); }
+TAIL_FN bool t_finite(float v) { return isfinite(v); }
+TAIL_FN bool t_finite(double v) { return isfinite(v); }
+template <typename T>
+TAIL_FN T nanmax(T a, T b)
+{
+    return (a != a || a > b) ? a : b;
+}
+template <typename T>
+TAIL_FN T nanmin(T a, T b)
+{
+    return (a != a || a < b) ? a : b;
+}
+
+// ---- kkt_blocks: K's B n n entries in runs of KKT_RUN, then rho_vec's B m
+
+template <typename T>
+TAIL_FN T rho_of(const KktArgs<T>& a, long long b, int k)
+{
+    // (1 + eqf (s - 1)) rho_s, the plain version's three rounded ops
+    const T t = T(1) + a.row(KI_EQF, b)[k] * a.par[KP_EQ_M1];
+    return t * a.row(KI_RHO_S, b)[0];
+}
+
+// K[b, i, j]: the block's r terms in order, then P's entry, then sigma on
+// the diagonal (the plain version's sum, then `+= P`, then the diagonal)
+template <typename T>
+TAIL_FN T kkt_value(const KktArgs<T>& a, const Shape& s, long long b, int i,
+                    int j)
+{
+    const T* P = a.row(KI_P, b);
+    T v = T(0);
+    if (i / s.c == j / s.c) {
+        const T* A = a.row(KI_A, b);
+        const int k0 = (i / s.c) * s.r;
+        for (int kk = 0; kk < s.r; ++kk) {
+            const int k = k0 + kk;
+            const T t = A[(long long)k * s.n + i] * rho_of(a, b, k);
+            v = v + t * A[(long long)k * s.n + j];
+        }
+    }
+    v = v + P[(long long)i * s.n + j];
+    if (i == j) v = v + a.par[KP_SIGMA];
+    return v;
+}
+
+// a unit is KKT_RUN consecutive entries of K over the batch (the last one
+// may be shorter), then rho_vec's entries one a unit: a thread keeps
+// KKT_RUN loads of P in flight
+template <typename T, class Exec>
+TAIL_FN void kkt_blocks(const Exec& ex, const KktArgs<T>& a, const Shape& s,
+                        long long B)
+{
+    const long long nn = (long long)s.n * s.n, nK = B * nn;
+    const long long runs = (nK + KKT_RUN - 1) / KKT_RUN;
+    TAIL_UNITS(ex, u, runs + B * s.m) {
+        if (u < runs) {
+            const long long e0 = u * KKT_RUN;
+            long long b = e0 / nn;
+            int i = (int)((e0 % nn) / s.n), j = (int)(e0 % s.n);
+            T v[KKT_RUN];
+            for (int t = 0; t < KKT_RUN; ++t) {
+                v[t] = e0 + t < nK ? kkt_value(a, s, b, i, j) : T(0);
+                if (++j == s.n) {
+                    j = 0;
+                    if (++i == s.n) {
+                        i = 0;
+                        ++b;
+                    }
+                }
+            }
+            for (int t = 0; t < KKT_RUN; ++t)
+                if (e0 + t < nK) a.out[KO_K][e0 + t] = v[t];
+        } else {
+            const long long f = u - runs;
+            a.out[KO_RHO_VEC][f] = rho_of(a, f / s.m, (int)(f % s.m));
+        }
+    }
+}
+
+// ---- the dot products of one scenario (adapt_rho and unscale)
+//
+// A row of P (and of a dense A) is L units (s.lanes, 1 or MAX_LANES, a
+// template constant): unit (row, l) sums the terms j = l, l + L, ... in
+// order into its partial, so that a warp's units read one row's
+// consecutive entries (L = 32, long rows; a unit a row for short ones,
+// L = 1); the next phase sums a row's partials in order.  A block row of A (c terms) and a column of A'
+// (a column block's r rows, or all m) are one unit each.
+
+// The products are taken in the accumulator type V (the value type of the
+// scenario's shared memory): T for unscale, double for adapt_rho.
+
+// (A x)_k over row k's block columns
+template <typename V, typename T>
+TAIL_FN V a_block_row_dot(const T* A, const Shape& s, int k, const V* x)
+{
+    const int j0 = (k / s.r) * s.c;
+    V v = V(0);
+    for (int j = j0; j < j0 + s.c; ++j)
+        v = v + V(A[(long long)k * s.n + j]) * x[j];
+    return v;
+}
+
+// (A' y)_j: over column j's block rows, or all m
+template <typename V, typename T>
+TAIL_FN V a_col_dot(const T* A, const Shape& s, int j, const V* y)
+{
+    const int k0 = s.blocks() ? (j / s.c) * s.r : 0;
+    const int k1 = s.blocks() ? k0 + s.r : s.m;
+    V v = V(0);
+    for (int k = k0; k < k1; ++k)
+        v = v + V(A[(long long)k * s.n + j]) * y[k];
+    return v;
+}
+
+// lane l's partial of row `row` of M (n columns) against x
+template <int L, typename V, typename T>
+TAIL_FN V lane_partial(const T* M, int n, int row, int l, const V* x)
+{
+    V v = V(0);
+    for (int j = l; j < n; j += L)
+        v = v + V(M[(long long)row * n + j]) * x[j];
+    return v;
+}
+
+template <int L, typename V>
+TAIL_FN V sum_lanes(const V* part)
+{
+    V v = part[0];
+    for (int l = 1; l < L; ++l) v = v + part[l];
+    return v;
+}
+
+// shared memory of a scenario
+template <typename T>
+struct Smem {
+    T* x;      // n
+    T* y;      // m
+    T* ax;     // m: A x
+    T* dz;     // m: A x - z
+    T* px;     // n: P x
+    T* aty;    // n: A' y
+    T* part;   // MAXIMA x PARTS
+    T* lanes;  // (n + dense rows of A) x s.lanes
+    TAIL_FN Smem(T* base, int n, int m)
+        : x(base), y(x + n), ax(y + m), dz(ax + m), px(dz + m), aty(px + n),
+          part(aty + n), lanes(part + MAXIMA * PARTS)
+    {
+    }
+};
+
+// rows of the lane-split products: P's n, and A's m when A is dense
+TAIL_FN int split_rows(const Shape& s) { return s.n + (s.blocks() ? 0 : s.m); }
+
+// phase of the products: lane partials of P's rows (and a dense A's), the
+// block rows of A, the columns of A'
+template <int L, typename V, typename T, class Exec>
+TAIL_FN void products(const Exec& ex, const Shape& s, const T* P,
+                      const T* A, Smem<V>& S)
+{
+    const int n = s.n, m = s.m;
+    const long long split = (long long)split_rows(s) * L;
+    const long long rows = s.blocks() ? m : 0;
+    TAIL_UNITS(ex, u, split + rows + n) {
+        if (u < split) {
+            const int row = (int)(u / L), l = (int)(u % L);
+            S.lanes[u] = row < n ? lane_partial<L>(P, n, row, l, S.x)
+                                 : lane_partial<L>(A, n, row - n, l, S.x);
+        } else if (u < split + rows) {
+            const int k = (int)(u - split);
+            S.ax[k] = a_block_row_dot(A, s, k, S.x);
+        } else {
+            const int j = (int)(u - split - rows);
+            S.aty[j] = a_col_dot(A, s, j, S.y);
+        }
+    }
+}
+
+// max in V over the entries e = p, p + PARTS, ... of v(e),
+// NaN-propagating, from 0 (every quantity is an absolute value)
+#define TAIL_PART_MAX(V, p, count, expr)                                    \
+    [&]() {                                                                 \
+        V acc = V(0);                                                       \
+        for (int e = (int)(p); e < (count); e += PARTS)                     \
+            acc = nanmax(acc, (expr));                                      \
+        return acc;                                                         \
+    }()
+
+template <typename V>
+TAIL_FN V max_parts(const V* part)
+{
+    V v = part[0];
+    for (int p = 1; p < PARTS; ++p) v = nanmax(v, part[p]);
+    return v;
+}
+
+// ---- adapt_rho: one scenario b
+//
+// In double whatever T is: the dual residual's numerator cancels (on the
+// MPC's QP the swing forces' ridge makes |P x| up to 1e6 times the
+// residual), so float32 sums in any order leave rho a few percent from
+// the function's value; summed in double from the float32 inputs and
+// rounded once, rho is that value to T's rounding.
+
+template <int L, typename T, class Exec>
+TAIL_FN void adapt_rho_body(const Exec& ex, const AdaptArgs<T>& a,
+                            const Shape& s, long long b, double* smem)
+{
+    using D = double;
+    const int n = s.n, m = s.m;
+    Smem<D> S(smem, n, m);
+    const T* P = a.row(AI_P, b);
+    const T* q = a.row(AI_Q, b);
+    const T* A = a.row(AI_A, b);
+    const T* z = a.row(AI_Z, b);
+    TAIL_UNITS(ex, u, n + m) {
+        if (u < n) S.x[u] = D(a.row(AI_X, b)[u]);
+        else S.y[u - n] = D(a.row(AI_Y, b)[u - n]);
+    }
+    ex.sync();
+    products<L>(ex, s, P, A, S);
+    ex.sync();
+    TAIL_UNITS(ex, u, split_rows(s)) {
+        if (u < n) S.px[u] = sum_lanes<L>(S.lanes + u * L);
+        else S.ax[u - n] = sum_lanes<L>(S.lanes + u * L);
+    }
+    ex.sync();
+    // the seven inf-norms, PARTS units each
+    TAIL_UNITS(ex, u, MAXIMA * PARTS) {
+        const int w = (int)u / PARTS, p = (int)u % PARTS;
+        D v;
+        switch (w) {
+        case 0: v = TAIL_PART_MAX(D, p, m, t_abs(S.ax[e] - D(z[e]))); break;
+        case 1: v = TAIL_PART_MAX(D, p, m, t_abs(S.ax[e])); break;
+        case 2: v = TAIL_PART_MAX(D, p, m, t_abs(D(z[e]))); break;
+        case 3:
+            v = TAIL_PART_MAX(D, p, n,
+                              t_abs((S.px[e] + D(q[e])) + S.aty[e]));
+            break;
+        case 4: v = TAIL_PART_MAX(D, p, n, t_abs(S.px[e])); break;
+        case 5: v = TAIL_PART_MAX(D, p, n, t_abs(D(q[e]))); break;
+        default: v = TAIL_PART_MAX(D, p, n, t_abs(S.aty[e])); break;
+        }
+        S.part[u] = v;
+    }
+    ex.sync();
+    TAIL_UNITS(ex, u, 1) {
+        D mx[MAXIMA];
+        for (int w = 0; w < MAXIMA; ++w) mx[w] = max_parts(S.part + w * PARTS);
+        const D tiny = D(T(1e-12));
+        const D rp = mx[0] / nanmax(nanmax(mx[1], mx[2]), tiny);
+        const D rd = mx[3] / nanmax(nanmax(mx[4], nanmax(mx[5], mx[6])),
+                                    tiny);
+        const D r = D(a.row(AI_RHO_S, b)[0]) * t_sqrt(rp / nanmax(rd, tiny));
+        a.out[AO_RHO_S][b] = T(nanmin(nanmax(r, D(T(1e-3))), D(T(1e3))));
+    }
+}
+
+// ---- unscale: one scenario b
+
+template <int L, typename T, class Exec>
+TAIL_FN void unscale_body(const Exec& ex, const UnArgs<T>& a, const Shape& s,
+                          long long b, T* smem)
+{
+    const int n = s.n, m = s.m;
+    Smem<T> S(smem, n, m);
+    const T* P = a.row(UI_P, b);
+    const T* q = a.row(UI_Q, b);
+    const T* A = a.row(UI_A, b);
+    TAIL_UNITS(ex, u, n + m) {
+        if (u < n) {
+            const T x = a.row(UI_D, b)[u] * a.row(UI_XS, b)[u];
+            S.x[u] = x;
+            a.out[UO_X][b * n + u] = x;
+        } else {
+            const int k = (int)u - n;
+            const T y = (a.row(UI_E, b)[k] * a.row(UI_YS, b)[k])
+                        / a.row(UI_C, b)[0];
+            S.y[k] = y;
+            a.out[UO_Y][b * m + k] = y;
+        }
+    }
+    ex.sync();
+    products<L>(ex, s, P, A, S);
+    ex.sync();
+    // P x; A x of a dense A; z = clip(A x, l, u) and A x - z
+    TAIL_UNITS(ex, u, n + m) {
+        if (u < n) {
+            S.px[u] = sum_lanes<L>(S.lanes + u * L);
+        } else {
+            const int k = (int)u - n;
+            const T ax = s.blocks() ? S.ax[k] : sum_lanes<L>(S.lanes + u * L);
+            const T zu = nanmin(nanmax(ax, a.row(UI_L, b)[k]),
+                                a.row(UI_U, b)[k]);
+            a.out[UO_Z][b * m + k] = zu;
+            S.dz[k] = ax - zu;
+        }
+    }
+    ex.sync();
+    // prim, dual and x's finiteness (1 where finite), PARTS units each
+    TAIL_UNITS(ex, u, 3 * PARTS) {
+        const int w = (int)u / PARTS, p = (int)u % PARTS;
+        T v;
+        if (w == 0) {
+            v = TAIL_PART_MAX(T, p, m, t_abs(S.dz[e]));
+        } else if (w == 1) {
+            v = TAIL_PART_MAX(T, p, n, t_abs((S.px[e] + q[e]) + S.aty[e]));
+        } else {
+            v = T(1);
+            for (int e = p; e < n; e += PARTS)
+                if (!t_finite(S.x[e])) v = T(0);
+        }
+        S.part[u] = v;
+    }
+    ex.sync();
+    TAIL_UNITS(ex, u, 1) {
+        const T prim = max_parts(S.part);
+        const T dual = max_parts(S.part + PARTS);
+        bool finite = true;
+        for (int p = 0; p < PARTS; ++p) finite &= S.part[2 * PARTS + p] > T(0);
+        a.out[UO_PRIM][b] = prim;
+        a.out[UO_DUAL][b] = dual;
+        a.ok[b] = finite && prim < a.par[UP_STATUS_TOL] ? 1 : 0;
+    }
+}
+
+// the two row splits a layout takes (qp/tail.py::tail_layout): a unit a
+// row (lanes 1) or MAX_LANES units a row, each a compile-time constant
+template <typename T, class Exec>
+TAIL_FN void adapt_rho(const Exec& ex, const AdaptArgs<T>& a, const Shape& s,
+                       long long b, double* smem)
+{
+    if (s.lanes == MAX_LANES) adapt_rho_body<MAX_LANES>(ex, a, s, b, smem);
+    else adapt_rho_body<1>(ex, a, s, b, smem);
+}
+
+template <typename T, class Exec>
+TAIL_FN void unscale(const Exec& ex, const UnArgs<T>& a, const Shape& s,
+                     long long b, T* smem)
+{
+    if (s.lanes == MAX_LANES) unscale_body<MAX_LANES>(ex, a, s, b, smem);
+    else unscale_body<1>(ex, a, s, b, smem);
+}
+
+#if !defined(__CUDA_ARCH__)
+// the host executor: one thread runs every unit of a phase, in order or
+// reversed
+struct HostExec {
+    bool reverse;
+
+    long long first(long long n) const { return reverse ? n - 1 : 0; }
+    long long next(long long u) const { return reverse ? u - 1 : u + 1; }
+    void sync() const {}
+};
+#endif
+
+}  // namespace tail
+"""
+
+FIRST_TAIL_CU = r"""#include <cuda_runtime.h>
+
+#include "solve_tail.h"
+
+namespace {
+
+// every entry of the batch over the grid
+struct GridExec {
+    __device__ long long first(long long) const
+    {
+        return (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    }
+    __device__ long long next(long long u) const
+    {
+        return u + (long long)gridDim.x * blockDim.x;
+    }
+};
+
+// one scenario's units over a block
+struct BlockExec {
+    __device__ long long first(long long) const { return threadIdx.x; }
+    __device__ long long next(long long u) const { return u + blockDim.x; }
+    __device__ void sync() const { __syncthreads(); }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+tail_kkt_kernel(const tail::KktArgs<T> a, const tail::Shape s, long long B)
+{
+    tail::kkt_blocks<T>(GridExec{}, a, s, B);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+tail_adapt_kernel(const tail::AdaptArgs<T> a, const tail::Shape s)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    tail::adapt_rho<T>(BlockExec{}, a, s, (long long)blockIdx.x,
+                       reinterpret_cast<double*>(smem));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(1024)
+tail_unscale_kernel(const tail::UnArgs<T> a, const tail::Shape s)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    tail::unscale<T>(BlockExec{}, a, s, (long long)blockIdx.x,
+                     reinterpret_cast<T*>(smem));
+}
+
+bool bad_shape(int B, int n, int m, int r, int c, int threads, int blocks,
+               int lanes)
+{
+    if (B < 1 || n < 1 || m < 0 || threads < 32 || threads > 1024
+        || threads % 32 != 0 || blocks < 1
+        || (lanes != 1 && lanes != tail::MAX_LANES))
+        return true;
+    if (r == 0 && c == 0) return false;
+    // r x c blocks tiling (m, n)
+    return r < 1 || c < 1 || m % r != 0 || n % c != 0 || m / r != n / c;
+}
+
+// a block a scenario, its shared memory smem_values of V
+template <typename V, class Kernel, class A>
+int launch_scenarios(Kernel kernel, const A& a, tail::Shape s, int B,
+                     int threads, cudaStream_t stream)
+{
+    const long long smem = tail::smem_values(s.n, s.m, !s.blocks(), s.lanes)
+                           * (long long)sizeof(V);
+    int dev, optin;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (smem > optin) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, threads, (size_t)smem, stream>>>(a, s);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int kkt(const void* const* in, const long long* stride, void* const* out,
+        const double* par, int B, tail::Shape s, int threads, int blocks,
+        cudaStream_t stream)
+{
+    if (!s.blocks()) return (int)cudaErrorInvalidValue;
+    tail::KktArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    tail_kkt_kernel<T><<<blocks, threads, 0, stream>>>(a, s, (long long)B);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+int adapt(const void* const* in, const long long* stride, void* const* out,
+          const double* par, int B, tail::Shape s, int threads,
+          cudaStream_t stream)
+{
+    tail::AdaptArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    return launch_scenarios<double>(tail_adapt_kernel<T>, a, s, B, threads,
+                                    stream);
+}
+
+template <typename T>
+int unscale(const void* const* in, const long long* stride, void* const* out,
+            const double* par, int B, tail::Shape s, int threads,
+            cudaStream_t stream)
+{
+    tail::UnArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    a.ok = static_cast<unsigned char*>(out[tail::UO_OK]);
+    return launch_scenarios<T>(tail_unscale_kernel<T>, a, s, B, threads,
+                               stream);
+}
+
+bool null_in(const void* const* p, int count)
+{
+    for (int k = 0; k < count; ++k)
+        if (p[k] == nullptr) return true;
+    return false;
+}
+
+}  // namespace
+
+extern "C" {
+
+// solve_tail.h's counts (qp/tail.py::LAYOUT)
+int solve_tail_layout(int what) { return tail::layout(what); }
+
+// values (floats or doubles) of a scenario's shared memory
+long long solve_tail_smem_values(int n, int m, int dense, int lanes)
+{
+    return tail::smem_values(n, m, dense, lanes);
+}
+
+int solve_tail_kkt_launch(int dtype, const void* const* in,
+                          const long long* stride, void* const* out,
+                          const double* par, int B, int n, int m, int r,
+                          int c, int threads, int blocks, int lanes,
+                          void* stream)
+{
+    if (bad_shape(B, n, m, r, c, threads, blocks, lanes)
+        || null_in(in, tail::KI_COUNT)
+        || null_in((const void* const*)out, tail::KO_COUNT))
+        return (int)cudaErrorInvalidValue;
+    const tail::Shape s{n, m, r, c, lanes};
+    if (dtype == 0)
+        return kkt<float>(in, stride, out, par, B, s, threads, blocks,
+                          (cudaStream_t)stream);
+    if (dtype == 1)
+        return kkt<double>(in, stride, out, par, B, s, threads, blocks,
+                           (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+int solve_tail_adapt_launch(int dtype, const void* const* in,
+                            const long long* stride, void* const* out,
+                            const double* par, int B, int n, int m, int r,
+                            int c, int threads, int blocks, int lanes,
+                            void* stream)
+{
+    if (bad_shape(B, n, m, r, c, threads, blocks, lanes) || blocks != B
+        || null_in(in, tail::AI_COUNT)
+        || null_in((const void* const*)out, tail::AO_COUNT))
+        return (int)cudaErrorInvalidValue;
+    const tail::Shape s{n, m, r, c, lanes};
+    if (dtype == 0)
+        return adapt<float>(in, stride, out, par, B, s, threads,
+                            (cudaStream_t)stream);
+    if (dtype == 1)
+        return adapt<double>(in, stride, out, par, B, s, threads,
+                             (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+int solve_tail_unscale_launch(int dtype, const void* const* in,
+                              const long long* stride, void* const* out,
+                              const double* par, int B, int n, int m, int r,
+                              int c, int threads, int blocks, int lanes,
+                              void* stream)
+{
+    if (bad_shape(B, n, m, r, c, threads, blocks, lanes) || blocks != B
+        || null_in(in, tail::UI_COUNT)
+        || null_in((const void* const*)out, tail::UO_COUNT))
+        return (int)cudaErrorInvalidValue;
+    const tail::Shape s{n, m, r, c, lanes};
+    if (dtype == 0)
+        return unscale<float>(in, stride, out, par, B, s, threads,
+                              (cudaStream_t)stream);
+    if (dtype == 1)
+        return unscale<double>(in, stride, out, par, B, s, threads,
+                               (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+const char* solve_tail_error_string(int code)
+{
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
+"""
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -3315,7 +4478,8 @@ def main() -> int:
     report = {"card": smi, "batch": B, "m2": [], "vpu": [], "packed": [],
               "layouts": [],
               "variants": [], "cluster_phases": [], "fused": [], "spd": [],
-              "plainwarp": [], "rbd": [], "ruiz": [], "mpcbuild": []}
+              "plainwarp": [], "rbd": [], "ruiz": [], "mpcbuild": [],
+              "tail": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -3349,6 +4513,9 @@ def main() -> int:
     if "mpcbuild" in a.kernels:
         torch.cuda.empty_cache()
         probe_mpc_build(record, B, device, build)
+    if "tail" in a.kernels:
+        torch.cuda.empty_cache()
+        probe_tail(record, B, device, smem, n_sm, build)
 
     if a.out:
         os.makedirs(a.out, exist_ok=True)

@@ -730,14 +730,50 @@ void nan_fill(std::vector<T>& v)
     for (auto& e : v) e = std::numeric_limits<T>::quiet_NaN();
 }
 
-// kkt_blocks' units over the whole batch, in order or reversed
+// kkt_blocks: the tiles of each scenario in turn (`threads` x KKT_PIECES
+// pieces of V = `lanes` values a tile), each tile's setup units one after
+// another in fresh NaN-filled shared memory, then its pieces one after
+// another, P's values copied in, patched and copied out; all in order or
+// reversed
 template <typename T>
 int kkt(const void* const* in, const long long* stride, void* const* out,
-        const double* par, int B, tail::Shape s, bool reverse)
+        const double* par, int B, tail::Shape s, int threads, int blocks,
+        bool reverse)
 {
+    const int V = s.lanes;
+    if (V > 4 || threads < 1 || tail::kkt_bad(B, s, threads, blocks, V))
+        return 1;
     tail::KktArgs<T> a;
     tail::fill(a, in, stride, out, par);
-    tail::kkt_blocks<T>(tail::HostExec{reverse}, a, s, (long long)B);
+    const int tile = threads * tail::KKT_PIECES * V;
+    const int tiles = tail::kkt_tiles(s.n, tile);
+    std::vector<T> smem((size_t)tail::kkt_smem_values(s.n, s.c, tile));
+    // the card's aligned path patches the tile in shared memory, the
+    // unaligned one in registers: the same arithmetic on the pieces
+    for (int b = 0; b < B; ++b) {
+        for (int k = 0; k < tiles; ++k) {
+            const int t = reverse ? tiles - 1 - k : k;
+            const tail::KktTile tl = tail::kkt_tile(s, tile, t);
+            nan_fill(smem);
+            tail::kkt_setup(tail::HostExec{reverse}, a, s, (long long)b, tl,
+                            smem.data());
+            const T* P = a.row(tail::KI_P, b);
+            T* K = a.out[tail::KO_K] + (long long)b * s.n * s.n;
+            const int pieces = (tl.e1 - tl.e0) / V;
+            for (int p = 0; p < pieces; ++p) {
+                const int e = tl.e0 + V * (reverse ? pieces - 1 - p : p);
+                T v[4];
+                for (int i = 0; i < V; ++i) v[i] = P[e + i];
+                switch (V) {
+                case 1: tail::kkt_piece<1>(a, s, tl, smem.data(), e, v); break;
+                case 2: tail::kkt_piece<2>(a, s, tl, smem.data(), e, v); break;
+                case 4: tail::kkt_piece<4>(a, s, tl, smem.data(), e, v); break;
+                default: return 1;
+                }
+                for (int i = 0; i < V; ++i) K[e + i] = v[i];
+            }
+        }
+    }
     return 0;
 }
 
@@ -745,7 +781,7 @@ int kkt(const void* const* in, const long long* stride, void* const* out,
 // (reversed when `reverse`), in fresh shared memory filled with NaN
 template <typename T>
 int adapt(const void* const* in, const long long* stride, void* const* out,
-          const double* par, int B, tail::Shape s, bool reverse)
+          const double* par, int B, tail::Shape s, int, int, bool reverse)
 {
     tail::AdaptArgs<T> a;
     tail::fill(a, in, stride, out, par);
@@ -758,19 +794,55 @@ int adapt(const void* const* in, const long long* stride, void* const* out,
     return 0;
 }
 
+// unscale: the warp path a scenario's 32 lanes one after another in each
+// phase (lanes 1: the lanes stage the rows; lanes 2: the rows copied in
+// whole at stride n, as the card's bulk copies, into a NaN-filled slot),
+// the block path (lanes 32) its block's units; in order or reversed, from
+// NaN-filled shared memory
 template <typename T>
 int unscale(const void* const* in, const long long* stride,
             void* const* out, const double* par, int B, tail::Shape s,
-            bool reverse)
+            int threads, int blocks, bool reverse)
 {
+    if (tail::unscale_bad(B, s, threads, blocks)) return 1;
+    const int dense = !s.blocks(), n = s.n, m = s.m;
+    if (s.lanes == 2
+        && !tail::unscale_bulk(in[tail::UI_P], stride[tail::UI_P],
+                               in[tail::UI_A], stride[tail::UI_A], s,
+                               sizeof(T)))
+        return 1;
     tail::UnArgs<T> a;
     tail::fill(a, in, stride, out, par);
     a.ok = static_cast<unsigned char*>(out[tail::UO_OK]);
-    std::vector<T> smem(
-        (size_t)tail::smem_values(s.n, s.m, !s.blocks(), s.lanes));
-    for (long long b = 0; b < B; ++b) {
+    std::vector<T> smem((size_t)(
+        s.lanes == tail::MAX_LANES
+            ? tail::block_smem_values(n, m, dense)
+            : tail::warp_smem_bytes(n, m, dense, s.lanes, sizeof(T))
+                  / sizeof(T)));
+    for (long long k = 0; k < B; ++k) {
+        const long long b = reverse ? B - 1 - k : k;
         nan_fill(smem);
-        tail::unscale<T>(tail::HostExec{reverse}, a, s, b, smem.data());
+        tail::HostWarp<T> ex{reverse, {}};
+        if (s.lanes == 1) {
+            tail::unscale_warp<T>(ex, a, s, b, smem.data());
+        } else if (s.lanes == 2) {
+            T* Ps = smem.data();
+            const T* P = a.row(tail::UI_P, b);
+            const T* A = a.row(tail::UI_A, b);
+            for (int e = 0; e < n * n; ++e) Ps[e] = P[e];
+            if (dense)
+                for (int e = 0; e < m * n; ++e) Ps[n * n + e] = A[e];
+            T* xs = Ps + tail::slot_values(n, m, dense, n);
+            // each lane's vector inputs loaded ahead, as the card's warp
+            // loads them a scenario ahead
+            for (int l = 0; l < tail::WARP; ++l)
+                tail::load_lane(ex.lane[l].in, a, s, b, l);
+            tail::unscale_warp_rows(ex, a, s, b, Ps, Ps + n * n, n, xs,
+                                    xs + n, [](int, tail::UnLane<T>&) {});
+        } else {
+            tail::unscale_block<T>(tail::HostExec{reverse}, a, s, b,
+                                   smem.data());
+        }
     }
     return 0;
 }
@@ -781,12 +853,14 @@ int unscale(const void* const* in, const long long* stride,
     extern "C" int name(int dtype, const void* const* in,                   \
                         const long long* stride, void* const* out,          \
                         const double* par, int B, int n, int m, int r,      \
-                        int c, int, int, int lanes)                         \
+                        int c, int threads, int blocks, int lanes)          \
     {                                                                       \
         const tail::Shape s{n, m, r, c, lanes};                             \
         return dtype == 0                                                   \
-                   ? body<float>(in, stride, out, par, B, s, reverse)       \
-                   : body<double>(in, stride, out, par, B, s, reverse);     \
+                   ? body<float>(in, stride, out, par, B, s, threads,       \
+                                 blocks, reverse)                           \
+                   : body<double>(in, stride, out, par, B, s, threads,      \
+                                  blocks, reverse);                         \
     }
 
 TAIL_ENTRY(solve_tail_kkt_host, kkt, false)
@@ -803,19 +877,38 @@ extern "C" long long solve_tail_smem_values(int n, int m, int dense,
 {
     return tail::smem_values(n, m, dense, lanes);
 }
+
+extern "C" long long solve_tail_kkt_smem_bytes(int n, int c, int tile,
+                                               int bulk, int size)
+{
+    return tail::kkt_smem_bytes(n, c, tile, bulk, size);
+}
+
+extern "C" long long solve_tail_unscale_smem_bytes(int n, int m, int dense,
+                                                   int warps, int slots,
+                                                   int size)
+{
+    return warps > 0
+               ? warps * tail::warp_smem_bytes(n, m, dense, slots, size)
+               : tail::block_smem_values(n, m, dense) * size;
+}
 '''
 
 
 def build_solve_tail_harness(directory):
     """mpctsid_tpu_torch/qp/csrc/solve_tail.h, the solve-tail kernels'
     bodies, built with the host compiler into `directory`
-    (-ffp-contract=off, as the library's -fmad=false): kkt_blocks' entries
-    one after another over the batch, adapt_rho's and unscale's units one
-    after another per phase of each scenario from NaN-filled shared memory,
-    in order or reversed, with the launchers' C signature less the stream.
-    Returns a namespace: `kkt`, `adapt`, `unscale` and their `*_reversed`
-    twins (which qp/tail.py's `run_kkt`, `run_adapt`, `run_unscale` take),
-    `layout(i)` and `smem_values(n, m, dense, lanes)`."""
+    (-ffp-contract=off, as the library's -fmad=false): kkt_blocks' tiles
+    in turn (each tile's setup units, then its pieces, one after another),
+    adapt_rho's units and unscale's units (block path) or lanes (warp
+    path) one after another per phase of each scenario, from NaN-filled
+    shared memory, in order or reversed, with the launchers' C signature
+    less the stream and the launchers' checks of the geometry (a refused
+    one returns 1).  Returns a namespace: `kkt`, `adapt`, `unscale` and
+    their `*_reversed` twins (which qp/tail.py's `run_kkt`, `run_adapt`,
+    `run_unscale` take), `layout(i)`, `smem_values(n, m, dense, lanes)`,
+    `kkt_smem_bytes(n, c, tile, bulk, size)` and `unscale_smem_bytes(n, m,
+    dense, warps, slots, size)`."""
     import ctypes
     import subprocess
     import types
@@ -840,8 +933,12 @@ def build_solve_tail_harness(directory):
             fns[entry + tag] = fn
     lib.solve_tail_layout.argtypes = [ctypes.c_int]
     lib.solve_tail_layout.restype = ctypes.c_int
-    lib.solve_tail_smem_values.argtypes = [ctypes.c_int] * 4
-    lib.solve_tail_smem_values.restype = ctypes.c_longlong
-    return types.SimpleNamespace(layout=lib.solve_tail_layout,
-                                 smem_values=lib.solve_tail_smem_values,
+    smem = {}
+    for name, count in (("smem_values", 4), ("kkt_smem_bytes", 5),
+                        ("unscale_smem_bytes", 6)):
+        fn = getattr(lib, f"solve_tail_{name}")
+        fn.argtypes = [ctypes.c_int] * count
+        fn.restype = ctypes.c_longlong
+        smem[name] = fn
+    return types.SimpleNamespace(layout=lib.solve_tail_layout, **smem,
                                  **fns)

@@ -111,6 +111,12 @@ def scaled_state(qp, seed):
     return (Ps, qs, As, ls, us, D, E, c), eqf, rho_s, (x, z, y)
 
 
+def kkt_geometry(P, A, dtype=None):
+    """kkt_blocks' geometry at P's shape on an H100 (`kkt_layout`)."""
+    return tail.kkt_layout(P.shape[0], P.shape[1], A.shape[1], BLOCKS,
+                           H100_OPTIN, dtype or P.dtype).geometry
+
+
 def scenario_rel(got, want, scale):
     """Largest |got - want| of each scenario over its `scale` (B,)."""
     d = (got.double() - want.double()).abs().reshape(got.shape[0], -1)
@@ -164,7 +170,7 @@ def test_wrong_declarations_raise():
 def test_kkt_blocks_matches_plain(harness, dtype, B):
     (Ps, _, As, *_), eqf, rho_s, _ = scaled_state(mpc_qp(B, B, dtype), B)
     rc, (K, rho_vec) = tail.run_kkt(harness.kkt, Ps, As, eqf, rho_s, 1e-6,
-                                    1e3, BLOCKS, (256, 1, 1))
+                                    1e3, BLOCKS, kkt_geometry(Ps, As))
     assert rc == 0
     Kp, rho_p = tadmm._dense_kkt(Ps, As, eqf, rho_s, 1e-6, 1e3)
     assert torch.equal(rho_vec, rho_p)
@@ -177,7 +183,8 @@ def test_kkt_blocks_matches_plain(harness, dtype, B):
     assert torch.equal(K[:, ~inside], Ps[:, ~inside])
     assert torch.equal(Kp[:, ~inside], Ps[:, ~inside])
     _, (K_rev, rho_rev) = tail.run_kkt(harness.kkt_reversed, Ps, As, eqf,
-                                       rho_s, 1e-6, 1e3, BLOCKS, (256, 1, 1))
+                                       rho_s, 1e-6, 1e3, BLOCKS,
+                                       kkt_geometry(Ps, As))
     assert torch.equal(K_rev, K) and torch.equal(rho_rev, rho_vec)
 
 
@@ -188,7 +195,7 @@ def test_kkt_blocks_with_equality_rows(harness):
     eqf[:, ::7] = 1.0
     A0 = As[:1].expand(2, -1, -1)
     rc, (K, rho_vec) = tail.run_kkt(harness.kkt, Ps, A0, eqf, rho_s, 1e-6,
-                                    1e3, BLOCKS, (256, 1, 1))
+                                    1e3, BLOCKS, kkt_geometry(Ps, A0))
     Kp, rho_p = tadmm._dense_kkt(Ps, A0, eqf, rho_s, 1e-6, 1e3)
     assert rc == 0 and torch.equal(rho_vec, rho_p)
     scale = Kp.abs().reshape(2, -1).amax(dim=1).double()
@@ -287,10 +294,16 @@ def unscale_scales(qp, x, y):
 @pytest.mark.parametrize("lanes", [1, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_unscale_matches_plain(harness, dtype, lanes):
+    """lanes 1: the warp path (a lane a row; the shapes within
+    `warp_dim`), two scenarios a block; lanes 32: the block path, a row
+    of P over a warp's 32 lanes, at every shape."""
     for label, qp, xs, ys, D, E, c, blocks, tol in unscale_cases(dtype):
-        B = xs.shape[0]
+        B, n = xs.shape
+        if lanes == 1 and max(n, ys.shape[1]) > tail.LAYOUT["warp_dim"]:
+            continue
+        geometry = (64, -(-B // 2), 1) if lanes == 1 else (256, B, lanes)
         rc, got = tail.run_unscale(harness.unscale, *qp, xs, ys, D, E, c,
-                                   tol, blocks, (256, B, lanes))
+                                   tol, blocks, geometry)
         assert rc == 0, label
         s = tadmm._unscaled_solution(*qp, xs, ys, D, E, c, tol)
         x, y, z, prim, dual, ok = got
@@ -303,7 +316,7 @@ def test_unscale_matches_plain(harness, dtype, lanes):
                       / d_scale).max()) <= TOL[dtype], label
         assert ok.dtype == torch.bool and torch.equal(ok, s.ok), label
         _, rev = tail.run_unscale(harness.unscale_reversed, *qp, xs, ys, D,
-                                  E, c, tol, blocks, (256, B, lanes))
+                                  E, c, tol, blocks, geometry)
         assert all(torch.equal(a, b) for a, b in zip(rev, got)), label
 
 
@@ -328,31 +341,37 @@ def test_unscale_ok_flags(harness):
 def test_layouts_and_counts(harness):
     assert [harness.layout(i) for i in range(len(tail.LAYOUT))] == list(
         tail.LAYOUT.values())
+    assert harness.layout(len(tail.LAYOUT)) == -1
     for n, m in ((192, 320), (30, 50), (24, 40), (1000, 2000)):
         for dense in (0, 1):
             for lanes in (1, 32):
                 assert harness.smem_values(n, m, dense, lanes) == \
                     tail.smem_values(n, m, bool(dense), lanes)
-    lay = tail.kkt_layout(4096, 192, 320, H100_SMS)
-    assert lay.threads == tail.KKT_THREADS and lay.smem_bytes == 0
-    assert lay.blocks == tail.KKT_BLOCKS_PER_SM * H100_SMS
-    small = tail.kkt_layout(1, 192, 320, H100_SMS)
-    assert small.blocks * small.threads >= 192 * 192 // tail.KKT_RUN + 320
-    assert tail.kkt_layout(1, 3, 5, H100_SMS).blocks == 1
-    mpc = tail.tail_layout(192, 320, 4096, H100_OPTIN, dense=False)
+            for warps in (0, 1, 3, 8):
+                for slots, size in ((1, 4), (2, 4), (1, 8), (2, 8)):
+                    assert harness.unscale_smem_bytes(
+                        n, m, dense, warps, slots, size) == \
+                        tail.unscale_smem_bytes(n, m, bool(dense), warps,
+                                                slots, size)
+    for n, c in ((192, 3), (30, 3), (3, 3), (96, 2)):
+        for tile in (1024, 4096, 2048, 37):
+            for bulk, size in ((0, 4), (1, 4), (1, 8)):
+                assert harness.kkt_smem_bytes(n, c, tile, bulk, size) == \
+                    tail.kkt_smem_bytes(n, c, tile, bool(bulk), size)
+    mpc = tail.adapt_layout(192, 320, 4096, H100_OPTIN, dense=False)
     assert mpc.geometry == (tail.TAIL_THREADS, 4096, 32)
-    assert mpc.smem_bytes == 4 * tail.smem_values(192, 320, False, 32)
-    assert tail.tail_layout(192, 320, 1, H100_OPTIN, dense=True
-                            ).smem_bytes > mpc.smem_bytes
-    assert tail.tail_layout(192, 320, 1, H100_OPTIN, False,
-                            torch.float64).smem_bytes == 2 * mpc.smem_bytes
-    wbc = tail.tail_layout(30, 50, 1, H100_OPTIN, dense=True)
-    assert wbc.geometry == (tail.TAIL_THREADS_SMALL, 1, 1)
-    assert tail.kkt_layout(7, 192, 320, H100_SMS).lanes == 1
-    assert tail.tail_layout(30, 50, 1, H100_OPTIN, True,
-                            torch.float64).smem_bytes == 2 * wbc.smem_bytes
+    assert mpc.smem_bytes == 8 * tail.smem_values(192, 320, False, 32)
+    assert tail.adapt_layout(192, 320, 1, H100_OPTIN, dense=True
+                             ).smem_bytes > mpc.smem_bytes
+    wbc = tail.adapt_layout(30, 50, 1, H100_OPTIN, dense=True)
+    assert wbc.geometry == (128, 1, 1)
+    assert wbc.smem_bytes == 8 * tail.smem_values(30, 50, True, 1)
     with pytest.raises(ValueError):
-        tail.tail_layout(2000, 2000, 1, H100_OPTIN, dense=True)
+        tail.adapt_layout(2000, 2000, 1, H100_OPTIN, dense=True)
+    with pytest.raises(ValueError):
+        tail.tail_layout(2000, 2000, 1, H100_OPTIN, H100_SMS, dense=True)
+    with pytest.raises(ValueError):
+        tail.kkt_layout(1, 192, 320, None, H100_OPTIN)
 
 
 # --------------------------------------------- the wrappers and admm_solve
