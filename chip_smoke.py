@@ -111,7 +111,9 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  B = 1, 256 and 4096 (a one-launch graph's replay, the eager
                  wrapper) beside the plain chains and the bounds
               3h the MPC QP build kernel (mpc/csrc/mpc_build.cu: a block per
-                 scenario over the horizon's structure) against
+                 scenario over the horizon's structure, the recursion's
+                 warps publishing each W_j to warps that stream P's row
+                 blocks behind it) against
                  build_mpc_qp_reference on planned states of four gaits at
                  B = 1, 37 and 4096, float32 and float64 (1e-5 / 1e-12 of
                  each scenario's largest |P| off the ridge, of each diagonal
@@ -119,8 +121,9 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  the float32 kernel as close to the float64 plain version as
                  the float32 plain chain (factor 2); l and u bit for bit; P
                  exactly symmetric; A the stride-0 constant; two launches
-                 bit for bit; times at B = 1 and 4096 (graph replay, eager)
-                 beside the plain chain and the bound
+                 bit for bit; each launch's geometry mpc_build_layout's;
+                 times at B = 1 and 4096 (graph replay, eager) beside the
+                 plain chain and the bound
               3i the period head (dyn/csrc/period_head.cu: a warp per
                  scenario over rbd.h's leg kinematics) against
                  period_head_reference at B = 1, 256 and 4096, float32 and
@@ -135,10 +138,11 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  (qp/tail.py::kkt_in_order) and against the dense K (1e-6
                  of each scenario's largest |K|; rho_vec and K off the
                  blocks bit for bit), its library call (one torch.baddbmm)
-                 timed; adapt_rho against the plain chain run in float64
-                 (1e-6); unscale (a warp a scenario at the WBC shape, a
-                 block at the MPC's) bit for bit unscale_in_order and
-                 against _unscaled_solution (x and y bit for bit, z / prim
+                 timed; adapt_rho (the epilogue's layouts) bit for bit
+                 qp/tail.py::adapt_in_order and against the plain chain run
+                 in float64 (1e-6); unscale (a warp a scenario at the WBC
+                 shape, a block at the MPC's) bit for bit unscale_in_order
+                 and against _unscaled_solution (x and y bit for bit, z / prim
                  / dual within 1e-5 of their scales, ok flips counted and
                  allowed only where prim lies within that of status_tol);
                  each launch's geometry the layout function's; two
@@ -426,6 +430,7 @@ REFINED_ITERS = 13         # the WBC's 40 iterations in 3 rounds
 # the same inputs: the same bits are expected; 1e-6 is the bar if a library
 # picks another summation order under capture.
 GRAPH_TOL = 1e-6
+INSPECT_WINDOWS = 3        # 13b, 13d: profiled windows of a bench chain
 GRAPH_TIMED = 3            # phase 12: timed periods, eager and graphed
 HOST_SECONDS = 0.6         # simulated time of each closed-loop host run
 TICK_BUDGET_MS = 2.0       # p50 single-tick latency at B = 1 (BASELINE.json:2)
@@ -2060,7 +2065,11 @@ def mpc_build_phase(smi: str, device, reports: dict) -> None:
                 tag = (f"B={B} {str(dtype)[6:]} mass "
                        f"{'given' if with_mass else 'none'}")
                 lay = mpc_kernels.mpc_build_layout(B, N, dtype, optin)
-                check(max(e) <= MPC_BUILD_REL[dtype]
+                threads, blocks, smem, per_sm = mpc_kernels.last_layout()
+                geometry_ok = ((threads, blocks, smem)
+                               == (lay.threads, lay.blocks, lay.smem_bytes)
+                               and per_sm >= lay.blocks_per_sm)
+                check(max(e) <= MPC_BUILD_REL[dtype] and geometry_ok
                       and all(torch.equal(a, b) for a, b in zip(got, again))
                       and torch.equal(got[0], got[0].transpose(1, 2))
                       and torch.equal(got[3], want[3])
@@ -2074,11 +2083,14 @@ def mpc_build_phase(smi: str, device, reports: dict) -> None:
                       f"{MPC_BUILD_REL[dtype]:g} of the plain version (P off "
                       "the diagonal, its diagonal, q), l and u bit for bit, "
                       "P symmetric, A the plain version's constant (a "
-                      "stride-0 view), two launches bit for bit")
+                      "stride-0 view), two launches bit for bit, the "
+                      "launch's geometry mpc_build_layout's (blocks a "
+                      "multiprocessor at least its)")
                 line = (f"  build_mpc_qp {tag} ({lay.blocks} blocks of "
                         f"{lay.threads} threads, {lay.smem_bytes} bytes of "
                         f"shared memory, {lay.blocks_per_sm} a "
-                        f"multiprocessor): rel P off-diagonal {e[0]:.3e}, "
+                        f"multiprocessor by the layout, {per_sm} by the "
+                        f"occupancy API): rel P off-diagonal {e[0]:.3e}, "
                         f"diagonal {e[1]:.3e}, q {e[2]:.3e}")
                 if dtype == torch.float64:
                     ref = want
@@ -2408,21 +2420,33 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
             plain = lambda: admm_mod._adapt_rho(  # noqa: E731
                 Ps, qs, As, x, z, y, rho_s)
             rho, again, want = call(), call(), plain()
-            lay_ok = layout_ok("adapt", kernels_tail.adapt_layout(
-                n, m, B, optin, blocks is None))
+            dense = blocks is None
+            lay = kernels_tail.adapt_layout(
+                n, m, B, optin, n_sm, dense,
+                aligned=kernels_tail.bulk_rows(Ps, n * n) and (
+                    not dense or kernels_tail.bulk_rows(As, m * n)))
+            lay_ok = layout_ok("adapt", lay)
+            ordered = kernels_tail.adapt_in_order(Ps, qs, As, x, z, y, rho_s,
+                                                  blocks, lanes=lay.lanes)
             w64 = admm_mod._adapt_rho(*(t.double() for t in (
                 Ps, qs, As, x, z, y, rho_s)))
             rel = lambda a, b: ((a.double() - b.double()).abs()  # noqa: E731
                                 / b.double().abs())
             k64, p64, kp = rel(rho, w64), rel(want, w64), rel(rho, want)
             check(float(k64.max()) <= ADAPT_REL and torch.equal(rho, again)
+                  and torch.equal(rho, ordered)
                   and all_finite((rho,)) and lay_ok,
-                  f"3i: adapt_rho {tag}: within {ADAPT_REL:g} (relative) of "
-                  "the plain version in float64 on every scenario, two "
-                  "launches bit for bit, the layout adapt_layout's")
+                  f"3i: adapt_rho {tag} ({lay.path} path): bit for bit the "
+                  "kernel's order written out elementwise (adapt_in_order), "
+                  f"within {ADAPT_REL:g} (relative) of the plain version in "
+                  "float64 on every scenario, two launches bit for bit, "
+                  "the layout adapt_layout's")
             rep["adapt_rho"]["err"] = max(rep["adapt_rho"]["err"],
                                           float((rho - want).abs().max()))
-            print(f"  adapt_rho {tag}: to float64: kernel max "
+            print(f"  adapt_rho {tag} ({lay.path} path, {lay.blocks} blocks "
+                  f"of {lay.threads}): from adapt_in_order "
+                  f"{int((rho != ordered).sum())} of {rho.numel()} part; "
+                  f"to float64: kernel max "
                   f"{float(k64.max()):.3e} median {float(k64.median()):.3e}; "
                   f"the plain float32 chain to float64 max "
                   f"{float(p64.max()):.3e} median {float(p64.median()):.3e}, "
@@ -4323,7 +4347,16 @@ def bench_phase(smi: str, device, reports: dict) -> None:
     chains = {}
 
     def inspect(name, call):
-        chains[name] = kernels_per_replay(call, replays=3)[0]
+        # A profiler drops records and never adds them, so each count is the
+        # most that any of INSPECT_WINDOWS windows of three replays saw (on
+        # an H100 one run's single window saw no solve kernel in one of the
+        # B = 1 chains, late in the process, where other runs saw them all).
+        windows = [kernels_per_replay(call, replays=3)[0]
+                   for _ in range(INSPECT_WINDOWS)]
+        chains[name] = {k: max(w[k] for w in windows) for k in windows[0]}
+        if any(w != chains[name] for w in windows):
+            print(f"    {name}: the profiler's windows differ: "
+                  f"{[nonzero(w) for w in windows]}", flush=True)
 
     def nonzero(counts):
         return {k: n for k, n in counts.items() if n}
@@ -4368,11 +4401,12 @@ def bench_phase(smi: str, device, reports: dict) -> None:
         check(set(lat["mpc_ms_by_backend"]) == set(bench.CARD_MPC_BACKENDS)
               and all(math.isfinite(t) and t > 0 for t in times),
               "13b: every time finite and positive, every backend timed")
-        check(all(chains.get(f"measure_latency:{be}", {}).get(k, 0) > 0
-                  for be, k in (("auto_mpc", m2), ("pallas_vpu", vpu),
-                                ("fused", fused))),
+        seen = {be: chains.get(f"measure_latency:{be}", {}).get(k, 0)
+                for be, k in (("auto_mpc", m2), ("pallas_vpu", vpu),
+                              ("fused", fused))}
+        check(all(n > 0 for n in seen.values()),
               "13b: kernels 1, 2 and 4 each launched inside their chain's "
-              "replay")
+              f"replay (seen a replay: {seen})")
         clear_runners()
         torch.cuda.empty_cache()
 
@@ -4412,9 +4446,9 @@ def bench_phase(smi: str, device, reports: dict) -> None:
               f"13d {sharded['config']}: no failed MPC solve")
         print(f"    the port's kernels in one replay of each chain: "
               f"{ {k: nonzero(c) for k, c in chains.items()} }", flush=True)
-        check(chains.get("pallas_vs_xla:pallas", {}).get(mma, 0) > 0,
-              "13d: kernel 5 launched inside the pallas_vs_xla chain's "
-              "replay")
+        seen = chains.get("pallas_vs_xla:pallas", {}).get(mma, 0)
+        check(seen > 0, "13d: kernel 5 launched inside the pallas_vs_xla "
+                        f"chain's replay (seen a replay: {seen})")
         check(sorted(os.listdir(out)) == ["BENCH_DETAIL_TORCH.json",
                                           "RESULTS_TORCH.md"],
               "13d: write_results wrote its two files under --out")

@@ -27,20 +27,27 @@ import torch
 from mpctsid_tpu_torch.plan.kernels import require_dtype
 
 __all__ = ["LIBRARY", "CSRC", "LAYOUT", "LAUNCH_ARGTYPES", "NX", "BLK",
-           "smem_values", "MpcBuildLayout", "mpc_build_layout", "call",
-           "launch", "build_specs", "require_dtype"]
+           "smem_values", "barrier_bytes", "smem_bytes", "MpcBuildLayout",
+           "mpc_build_layout", "last_layout", "call", "launch", "build_specs",
+           "require_dtype"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = ("mpc_build", ("mpc_build.cu",), ("mpc_build.h",))
 
 # mpc_build.h's counts (`mpcb::layout`): inputs, outputs, parameters,
-# threads a block.  The library is refused if its counts differ.
-LAYOUT = dict(inputs=5, outputs=4, params=30, threads=384)
+# threads a block, the producer's warps, the blocks a multiprocessor the
+# launch bounds guarantee by registers in float32 and float64.  The library
+# is refused if its counts differ.
+LAYOUT = dict(inputs=5, outputs=4, params=30, threads=384, producer_warps=5,
+              min_blocks_f32=4, min_blocks_f64=2)
 NX = 12
 BLK = NX * NX
+HALF = 6        # rows 0:6 of a Su block; rows 6:12 are B's, stored once
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _DTYPE_BYTES = {torch.float32: 4, torch.float64: 8}
+_MIN_BLOCKS = {torch.float32: "min_blocks_f32",
+               torch.float64: "min_blocks_f64"}
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -50,10 +57,22 @@ LAUNCH_ARGTYPES = [_INT, _INT, _INT, ctypes.POINTER(_PTR),
 
 
 def smem_values(N: int) -> int:
-    """Values of a block's shared memory at horizon N (`mpcb::smem_values`:
-    Su's N (N + 1) / 2 blocks, the N W_j, S and S A_j, the N M_k, the
-    drifts and the g_j)."""
-    return (N * (N + 1) // 2 + N + 2) * BLK + 9 * N + 2 * NX * N
+    """Values of a block's shared memory at horizon N (`mpcb::smem_values`):
+    rows 0:6 of Su's N (N + 1) / 2 blocks, rows 6:12 of the N B_i, the N
+    W_j, S and S A_j, the N M_k, the drifts and the g_j, diag(Q)."""
+    return (HALF * NX * (N * (N + 1) // 2) + (HALF + NX) * NX * N + 2 * BLK
+            + 9 * N + 2 * NX * N + NX)
+
+
+def barrier_bytes(N: int) -> int:
+    """Bytes of the N mbarriers (one a step of the recursion) before the
+    values, rounded to 16 (`mpcb::barrier_bytes`)."""
+    return (8 * N + 15) // 16 * 16
+
+
+def smem_bytes(N: int, dtype) -> int:
+    """Bytes of a block's dynamic shared memory (`mpcb::smem_bytes`)."""
+    return barrier_bytes(N) + smem_values(N) * _DTYPE_BYTES[dtype]
 
 
 class MpcBuildLayout(NamedTuple):
@@ -61,7 +80,8 @@ class MpcBuildLayout(NamedTuple):
     threads: int            # a block's
     smem_bytes: int         # a block's dynamic shared memory
     blocks_per_sm: int      # resident blocks a multiprocessor, by shared
-                            # memory and threads
+                            # memory, threads and the launch bounds'
+                            # registers
 
 
 def mpc_build_layout(B: int, N: int, dtype, smem_optin: int,
@@ -70,19 +90,22 @@ def mpc_build_layout(B: int, N: int, dtype, smem_optin: int,
     """The launch of B scenarios at horizon N in `dtype` on a device whose
     block may opt in to `smem_optin` bytes of shared memory (the SM's
     `smem_per_sm` less 1 KB a block reserved by the runtime): a block of
-    LAYOUT["threads"] per scenario, all of Su in shared memory.  Raises
-    ValueError when it does not fit (N > 18 in float64, N > 26 in float32
-    on an H100)."""
+    LAYOUT["threads"] per scenario, Su (rows 0:6 of each block, rows 6:12
+    of each B_i once) in shared memory; resident blocks as shared memory
+    and threads allow, at most the launch bounds' (4 in float32, 2 in
+    float64 at N = 16 on an H100).  Raises ValueError when it does not fit
+    (N > 24 in float64, N > 36 in float32 on an H100)."""
     if B < 1 or N < 1:
         raise ValueError(f"B and N must be >= 1, got {B}, {N}")
-    smem = smem_values(N) * _DTYPE_BYTES[dtype]
+    smem = smem_bytes(N, dtype)
     if smem > smem_optin:
         raise ValueError(f"the MPC build at N = {N} in {dtype} needs {smem} "
                          f"bytes of shared memory a block, over the "
                          f"device's {smem_optin}")
     threads = LAYOUT["threads"]
     per_sm = max(1, min(smem_per_sm // (smem + 1024),
-                        threads_per_sm // threads))
+                        threads_per_sm // threads,
+                        LAYOUT[_MIN_BLOCKS[dtype]]))
     return MpcBuildLayout(B, threads, smem, per_sm)
 
 
@@ -126,14 +149,23 @@ def _library():
         lib.mpc_build_error_string.restype = ctypes.c_char_p
         lib.mpc_build_layout.argtypes = [_INT]
         lib.mpc_build_layout.restype = _INT
-        lib.mpc_build_smem_values.argtypes = [_INT]
-        lib.mpc_build_smem_values.restype = ctypes.c_longlong
+        for fn in (lib.mpc_build_smem_values, lib.mpc_build_last_layout):
+            fn.argtypes = [_INT]
+            fn.restype = ctypes.c_longlong
         got = [lib.mpc_build_layout(i) for i in range(len(LAYOUT))]
         if got != list(LAYOUT.values()):
             raise RuntimeError(f"mpc_build: the library's layout {got} is "
                                f"not mpc/kernels.py's {list(LAYOUT.values())}")
         _LIBS["mpc_build"] = lib
     return lib
+
+
+def last_layout() -> tuple:
+    """(threads, blocks, bytes of dynamic shared memory, resident blocks a
+    multiprocessor by the occupancy API) of the library's last launch
+    (chip_smoke.py holds it against `mpc_build_layout`)."""
+    lib = _library()
+    return tuple(int(lib.mpc_build_last_layout(i)) for i in range(4))
 
 
 def launch(run, dev: torch.device, *args, **kw):

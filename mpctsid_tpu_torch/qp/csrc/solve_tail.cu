@@ -40,14 +40,18 @@
 // MPC shape: a block a scenario whose warps stream P in groups of
 // ROW_GROUP rows (n = 192: 12 loads a lane issued together), the partials
 // transposed at an odd stride, then two phases of partial maxima.
-// adapt_rho (its first design): a block a scenario, its threads taking
-// the units of each phase in turn (a row of P, and of a dense A, split
-// over 32 units that read its consecutive entries at the MPC's shape, a
-// unit a row at the WBC's, `adapt_layout`; the inf-norms as 32 partial
-// maxima each, then one thread; its sums in double).  The designs these
-// replaced (a thread a run of four entries of K over the batch; a block a
-// scenario for unscale too) and the candidates that did not ship live on
-// as patched copies in scripts/probe_kernel_designs.py.  A is read through
+// adapt_rho takes the epilogue's two layouts (`adapt_layout`), its sums
+// in double: at the WBC shape the persistent two-slot warps (or the
+// staged one-slot warp), a lane a row of P and of A and a column of A',
+// the seven inf-norms by shuffle trees; at the MPC shape a block a
+// scenario (256 threads from B = 4 x 132 blocks, else 512) whose warps
+// stream P's rows in groups, the seven inf-norms by shuffle trees in each
+// warp and then one warp over the warps'.  The designs these replaced (a
+// thread a run of four entries of K over the batch; a block a scenario
+// for unscale and for adapt_rho, its units a row or a part of one, the
+// maxima as 32 partials each and one thread's scan) and the candidates
+// that did not ship live on as patched copies in
+// scripts/probe_kernel_designs.py.  A is read through
 // its batch stride: the MPC's stride-0 constant is never copied.  float
 // and double (the CPU tests' float64 runs; the port's solves on the card
 // are float32).
@@ -57,10 +61,10 @@
 // solve_tail.h's In / Out / Par order, (r, c) the declared blocks or (0,
 // 0), the geometry of qp/tail.py's layout functions (checked here: a
 // multiple of 32 threads, at most 1024; kkt: blocks = B x tiles and lanes
-// the values a piece, 1 or 16 bytes' worth; adapt: blocks = B, lanes 1 or
-// 32, the units a row of P; unscale: lanes 1 or 2 the warp path's slots,
-// threads / 32 scenarios a block, blocks = B over them (1 slot) or at
-// most that (2); lanes 32 the block path, blocks = B).
+// the values a piece, 1 or 16 bytes' worth; adapt and unscale: lanes 1 or
+// 2 the warp path's slots, threads / 32 scenarios a block, blocks = B
+// over them (1 slot) or at most that (2); lanes 32 the block path, blocks
+// = B).
 // Returns a cudaError_t (0 on success); launches on `stream` and allocates
 // nothing.
 
@@ -100,6 +104,28 @@ struct BlockExec {
     __device__ long long first(long long) const { return threadIdx.x; }
     __device__ long long next(long long u) const { return u + blockDim.x; }
     __device__ void sync() const { __syncthreads(); }
+    // adapt_rho's maxima: a unit a thread; the block's seven maxima, NaN-
+    // propagating, by a shuffle tree in each warp, the warps' in `part`,
+    // then one more in warp 0 (valid in warp 0)
+    __device__ int width() const { return (int)blockDim.x; }
+    __device__ void block_max(double* mx, double* part) const
+    {
+        const int lane = threadIdx.x % tail::WARP;
+        const int warp = threadIdx.x / tail::WARP;
+        const int warps = blockDim.x / tail::WARP;
+        for (int w = 0; w < tail::MAXIMA; ++w) {
+            for (int off = tail::WARP / 2; off > 0; off >>= 1)
+                mx[w] = tail::nanmax(mx[w], __shfl_xor_sync(FULL, mx[w], off));
+            if (lane == 0) part[warp * tail::MAXIMA + w] = mx[w];
+        }
+        __syncthreads();
+        if (warp != 0) return;
+        for (int w = 0; w < tail::MAXIMA; ++w) {
+            mx[w] = lane < warps ? part[lane * tail::MAXIMA + w] : 0.0;
+            for (int off = tail::WARP / 2; off > 0; off >>= 1)
+                mx[w] = tail::nanmax(mx[w], __shfl_xor_sync(FULL, mx[w], off));
+        }
+    }
 };
 
 // a piece of V values: one 16-byte access, or V = 1 scalar ones; from
@@ -138,10 +164,11 @@ __device__ __forceinline__ void store_piece(T* p, const T* v)
     }
 }
 
-// one scenario over a warp: this lane's part of the maxima
-template <typename T>
+// one scenario over a warp: this lane's state (tail::UnLane,
+// tail::AdaptLane), its part of the maxima
+template <class Lane>
 struct WarpExec {
-    tail::UnLane<T> s;
+    Lane s;
     int lane;
 
     template <class F>
@@ -151,15 +178,15 @@ struct WarpExec {
     }
     __device__ void sync() const { __syncwarp(); }
     template <class G>
-    __device__ T max_of(const tail::UnLane<T>& t, G g) const
+    __device__ auto max_of(const Lane& t, G g) const
     {
-        T v = g(t);
+        auto v = g(t);
         for (int off = tail::WARP / 2; off > 0; off >>= 1)
             v = tail::nanmax(v, __shfl_xor_sync(FULL, v, off));
         return v;
     }
     template <class G>
-    __device__ bool all_of(const tail::UnLane<T>& t, G g) const
+    __device__ bool all_of(const Lane& t, G g) const
     {
         return __all_sync(FULL, g(t)) != 0;
     }
@@ -265,13 +292,14 @@ tail_kkt_kernel_bulk(const tail::KktArgs<T> a, const tail::Shape s,
     }
 }
 
+// adapt_rho's block path: a block a scenario
 template <typename T>
 __global__ void __launch_bounds__(1024)
-tail_adapt_kernel(const tail::AdaptArgs<T> a, const tail::Shape s)
+tail_adapt_kernel_block(const tail::AdaptArgs<T> a, const tail::Shape s)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    tail::adapt_rho<T>(BlockExec{}, a, s, (long long)blockIdx.x,
-                       reinterpret_cast<double*>(smem));
+    tail::adapt_block<T>(BlockExec{}, a, s, (long long)blockIdx.x,
+                         reinterpret_cast<double*>(smem));
 }
 
 template <typename T>
@@ -283,8 +311,8 @@ tail_unscale_kernel_block(const tail::UnArgs<T> a, const tail::Shape s)
                            reinterpret_cast<T*>(smem));
 }
 
-// unscale's warp path, one slot: a warp a scenario, its lanes staging P
-// and a dense A through registers
+// the warp paths, one slot: a warp a scenario, its lanes staging P and a
+// dense A through registers
 template <typename T>
 __global__ void __launch_bounds__(tail::MAX_WARPS * tail::WARP)
 tail_unscale_kernel_warp(const tail::UnArgs<T> a, const tail::Shape s, int B)
@@ -293,7 +321,7 @@ tail_unscale_kernel_warp(const tail::UnArgs<T> a, const tail::Shape s, int B)
     const int w = threadIdx.x / tail::WARP;
     const long long b = (long long)blockIdx.x * (blockDim.x / tail::WARP) + w;
     if (b >= B) return;
-    WarpExec<T> ex;
+    WarpExec<tail::UnLane<T>> ex;
     ex.lane = threadIdx.x % tail::WARP;
     tail::unscale_warp<T>(
         ex, a, s, b,
@@ -302,11 +330,74 @@ tail_unscale_kernel_warp(const tail::UnArgs<T> a, const tail::Shape s, int B)
                                              sizeof(T))));
 }
 
-// unscale's warp path, two slots: a persistent warp walks the scenarios
-// b, b + (the grid's warps), ...; lane 0 issues the bulk copies of the
-// next scenario's P (and dense A) into the slot the warp is not reading
-// while it works on the current one, each slot's copies counted by its
-// own mbarrier (phase k >> 1 of slot k & 1 at the warp's k-th scenario)
+template <typename T>
+__global__ void __launch_bounds__(tail::MAX_WARPS * tail::WARP)
+tail_adapt_kernel_warp(const tail::AdaptArgs<T> a, const tail::Shape s, int B)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int w = threadIdx.x / tail::WARP;
+    const long long b = (long long)blockIdx.x * (blockDim.x / tail::WARP) + w;
+    if (b >= B) return;
+    WarpExec<tail::AdaptLane<T>> ex;
+    ex.lane = threadIdx.x % tail::WARP;
+    tail::adapt_warp<T>(ex, a, s, b,
+                        smem + w * tail::adapt_warp_smem_bytes(
+                                       s.n, s.m, !s.blocks(), 1, sizeof(T)));
+}
+
+// the warp paths, two slots: a persistent warp walks the scenarios b =
+// first, first + stride, ...; lane 0 issues the bulk copies of the next
+// scenario's P (P + b ps) and dense A (A + b as) into the slot the warp is
+// not reading while it works on the current one, each slot's copies
+// counted by its own mbarrier (phase k >> 1 of slot k & 1 at the warp's
+// k-th scenario); `load(b, in)` the lane's inputs a scenario ahead, then
+// `body(b, rows)` from the scenario's rows in shared memory (at `base + 16`
+// after the two mbarriers, P's and A's at row stride n)
+template <typename T, class In, class Load, class Body>
+__device__ __forceinline__ void walk_scenarios(
+    unsigned char* base, const T* P, long long ps, const T* A, long long as,
+    int n, int m, bool dense, long long first, long long stride, int B,
+    int lane, In& in, Load load, Body body)
+{
+    uint64_t* bars = reinterpret_cast<uint64_t*>(base);
+    const long long slot = tail::slot_values(n, m, dense, n);
+    T* slots = reinterpret_cast<T*>(base + 16);
+    const unsigned pbytes = (unsigned)(n * n * sizeof(T));
+    const unsigned abytes = dense ? (unsigned)(m * n * sizeof(T)) : 0u;
+    load(first, in);
+    auto issue = [&](long long b, int k) {
+        T* dst = slots + k * slot;
+        barrier_expect(bars + k, pbytes + abytes);
+        bulk_load(dst, P + b * ps, pbytes, bars + k);
+        if (abytes) bulk_load(dst + n * n, A + b * as, abytes, bars + k);
+    };
+    if (lane == 0) {
+        bulk_barrier_init(bars);
+        bulk_barrier_init(bars + 1);
+        issue(first, 0);
+    }
+    __syncwarp();
+    int k = 0;
+    for (long long b = first; b < B; b += stride, ++k) {
+        const int cur = k & 1;
+        // the next scenario's rows by bulk copy, its inputs into
+        // registers, both in flight while the warp works on this one
+        In next = in;
+        if (b + stride < B) {
+            if (lane == 0) {
+                // the warp's reads of that slot (its scenario before) are
+                // done
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                issue(b + stride, cur ^ 1);
+            }
+            load(b + stride, next);
+        }
+        barrier_wait(bars + cur, (k >> 1) & 1);
+        body(b, slots + cur * slot);
+        in = next;
+    }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(tail::MAX_WARPS * tail::WARP)
 tail_unscale_kernel_warp_bulk(const tail::UnArgs<T> a, const tail::Shape s,
@@ -316,53 +407,53 @@ tail_unscale_kernel_warp_bulk(const tail::UnArgs<T> a, const tail::Shape s,
     const int n = s.n, m = s.m, dense = !s.blocks();
     const int w = threadIdx.x / tail::WARP, W = blockDim.x / tail::WARP;
     const long long first = (long long)blockIdx.x * W + w;
-    const long long stride = (long long)gridDim.x * W;
     if (first >= B) return;
     unsigned char* base =
         smem + w * tail::warp_smem_bytes(n, m, dense, 2, sizeof(T));
-    uint64_t* bars = reinterpret_cast<uint64_t*>(base);
-    const long long slot = tail::slot_values(n, m, dense, n);
-    T* slots = reinterpret_cast<T*>(base + 16);
-    T* xs = slots + 2 * slot;
-    const unsigned pbytes = (unsigned)(n * n * sizeof(T));
-    const unsigned abytes = dense ? (unsigned)(m * n * sizeof(T)) : 0u;
-    WarpExec<T> ex;
+    T* xs = reinterpret_cast<T*>(base + 16)
+            + 2 * tail::slot_values(n, m, dense, n);
+    WarpExec<tail::UnLane<T>> ex;
     ex.lane = threadIdx.x % tail::WARP;
-    tail::load_lane(ex.s.in, a, s, first, ex.lane);
-    auto issue = [&](long long b, int k) {
-        T* dst = slots + k * slot;
-        barrier_expect(bars + k, pbytes + abytes);
-        bulk_load(dst, a.row(tail::UI_P, b), pbytes, bars + k);
-        if (abytes)
-            bulk_load(dst + n * n, a.row(tail::UI_A, b), abytes, bars + k);
-    };
-    if (ex.lane == 0) {
-        bulk_barrier_init(bars);
-        bulk_barrier_init(bars + 1);
-        issue(first, 0);
-    }
-    __syncwarp();
-    int k = 0;
-    for (long long b = first; b < B; b += stride, ++k) {
-        const int cur = k & 1;
-        // the next scenario's rows by bulk copy, its vector inputs into
-        // registers, both in flight while the warp works on this one
-        tail::LaneIn<T> next = ex.s.in;
-        if (b + stride < B) {
-            if (ex.lane == 0) {
-                // the warp's reads of that slot (its scenario before) are
-                // done
-                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                issue(b + stride, cur ^ 1);
-            }
-            tail::load_lane(next, a, s, b + stride, ex.lane);
-        }
-        barrier_wait(bars + cur, (k >> 1) & 1);
-        const T* Ps = slots + cur * slot;
-        tail::unscale_warp_rows(ex, a, s, b, Ps, Ps + n * n, n, xs, xs + n,
-                                [](int, tail::UnLane<T>&) {});
-        ex.s.in = next;
-    }
+    walk_scenarios<T>(
+        base, a.in[tail::UI_P], a.stride[tail::UI_P], a.in[tail::UI_A],
+        a.stride[tail::UI_A], n, m, dense, first, (long long)gridDim.x * W,
+        B, ex.lane, ex.s.in,
+        [&](long long b, tail::LaneIn<T>& v) {
+            tail::load_lane(v, a, s, b, ex.lane);
+        },
+        [&](long long b, const T* Ps) {
+            tail::unscale_warp_rows(ex, a, s, b, Ps, Ps + n * n, n, xs,
+                                    xs + n, [](int, tail::UnLane<T>&) {});
+        });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tail::MAX_WARPS * tail::WARP)
+tail_adapt_kernel_warp_bulk(const tail::AdaptArgs<T> a, const tail::Shape s,
+                            int B)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int n = s.n, m = s.m, dense = !s.blocks();
+    const int w = threadIdx.x / tail::WARP, W = blockDim.x / tail::WARP;
+    const long long first = (long long)blockIdx.x * W + w;
+    if (first >= B) return;
+    unsigned char* base =
+        smem + w * tail::adapt_warp_smem_bytes(n, m, dense, 2, sizeof(T));
+    double* xs = reinterpret_cast<double*>(
+        base + tail::adapt_rows_bytes(n, m, dense, 2, sizeof(T)));
+    WarpExec<tail::AdaptLane<T>> ex;
+    ex.lane = threadIdx.x % tail::WARP;
+    walk_scenarios<T>(
+        base, a.in[tail::AI_P], a.stride[tail::AI_P], a.in[tail::AI_A],
+        a.stride[tail::AI_A], n, m, dense, first, (long long)gridDim.x * W,
+        B, ex.lane, ex.s.in,
+        [&](long long b, tail::AdaptLaneIn<T>& v) {
+            tail::load_adapt_lane(v, a, s, b, ex.lane);
+        },
+        [&](long long b, const T* Ps) {
+            tail::adapt_warp_rows(ex, a, s, b, Ps, Ps + n * n, n, xs, xs + n,
+                                  [](int, tail::AdaptLane<T>&) {});
+        });
 }
 
 bool bad_shape(int B, int n, int m, int r, int c, int threads, int blocks)
@@ -428,17 +519,40 @@ int kkt(const void* const* in, const long long* stride, void* const* out,
 
 template <typename T>
 int adapt(const void* const* in, const long long* stride, void* const* out,
-          const double* par, int B, tail::Shape s, int threads,
+          const double* par, int B, tail::Shape s, int threads, int blocks,
           cudaStream_t stream)
 {
+    if (tail::scenario_bad(B, s, threads, blocks))
+        return (int)cudaErrorInvalidValue;
+    const int dense = !s.blocks(), size = (int)sizeof(T);
+    // the two-slot warp path's bulk copies need aligned rows
+    if (s.lanes == 2
+        && !tail::warp_bulk(in[tail::AI_P], stride[tail::AI_P],
+                            in[tail::AI_A], stride[tail::AI_A], s, size))
+        return (int)cudaErrorInvalidValue;
     tail::AdaptArgs<T> a;
     tail::fill(a, in, stride, out, par);
-    const long long smem = tail::smem_values(s.n, s.m, !s.blocks(), s.lanes)
-                           * (long long)sizeof(double);
-    cudaError_t err = set_smem(tail_adapt_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    tail_adapt_kernel<T><<<B, threads, (size_t)smem, stream>>>(a, s);
-    return launched(1, threads, B, smem, s.lanes);
+    const long long smem = tail::adapt_smem_bytes(
+        s.n, s.m, dense,
+        s.lanes == tail::MAX_LANES ? 0 : threads / tail::WARP, s.lanes, size);
+    cudaError_t err;
+    if (s.lanes == 1) {
+        err = set_smem(tail_adapt_kernel_warp<T>, smem);
+        if (err != cudaSuccess) return (int)err;
+        tail_adapt_kernel_warp<T>
+            <<<blocks, threads, (size_t)smem, stream>>>(a, s, B);
+    } else if (s.lanes == 2) {
+        err = set_smem(tail_adapt_kernel_warp_bulk<T>, smem);
+        if (err != cudaSuccess) return (int)err;
+        tail_adapt_kernel_warp_bulk<T>
+            <<<blocks, threads, (size_t)smem, stream>>>(a, s, B);
+    } else {
+        err = set_smem(tail_adapt_kernel_block<T>, smem);
+        if (err != cudaSuccess) return (int)err;
+        tail_adapt_kernel_block<T>
+            <<<blocks, threads, (size_t)smem, stream>>>(a, s);
+    }
+    return launched(1, threads, blocks, smem, s.lanes);
 }
 
 template <typename T>
@@ -446,13 +560,13 @@ int unscale(const void* const* in, const long long* stride, void* const* out,
             const double* par, int B, tail::Shape s, int threads, int blocks,
             cudaStream_t stream)
 {
-    if (tail::unscale_bad(B, s, threads, blocks))
+    if (tail::scenario_bad(B, s, threads, blocks))
         return (int)cudaErrorInvalidValue;
     const int dense = !s.blocks(), size = (int)sizeof(T);
     // the two-slot warp path's bulk copies need aligned rows
     if (s.lanes == 2
-        && !tail::unscale_bulk(in[tail::UI_P], stride[tail::UI_P],
-                               in[tail::UI_A], stride[tail::UI_A], s, size))
+        && !tail::warp_bulk(in[tail::UI_P], stride[tail::UI_P],
+                            in[tail::UI_A], stride[tail::UI_A], s, size))
         return (int)cudaErrorInvalidValue;
     tail::UnArgs<T> a;
     tail::fill(a, in, stride, out, par);
@@ -496,10 +610,13 @@ extern "C" {
 // solve_tail.h's counts (qp/tail.py::LAYOUT)
 int solve_tail_layout(int what) { return tail::layout(what); }
 
-// values (floats or doubles) of a scenario's shared memory in adapt_rho
-long long solve_tail_smem_values(int n, int m, int dense, int lanes)
+// bytes of a block's shared memory in adapt_rho: `warps` warps of `slots`
+// slots on the warp path, or (warps 0) the block path; values of `size`
+// bytes
+long long solve_tail_adapt_smem_bytes(int n, int m, int dense, int warps,
+                                      int slots, int size)
 {
-    return tail::smem_values(n, m, dense, lanes);
+    return tail::adapt_smem_bytes(n, m, dense, warps, slots, size);
 }
 
 // bytes of a kkt_blocks block's shared memory (tiles of `tile` entries,
@@ -555,17 +672,16 @@ int solve_tail_adapt_launch(int dtype, const void* const* in,
                             int c, int threads, int blocks, int lanes,
                             void* stream)
 {
-    if (bad_shape(B, n, m, r, c, threads, blocks) || blocks != B
-        || (lanes != 1 && lanes != tail::MAX_LANES)
+    if (bad_shape(B, n, m, r, c, threads, blocks)
         || null_in(in, tail::AI_COUNT)
         || null_in((const void* const*)out, tail::AO_COUNT))
         return (int)cudaErrorInvalidValue;
     const tail::Shape s{n, m, r, c, lanes};
     if (dtype == 0)
-        return adapt<float>(in, stride, out, par, B, s, threads,
+        return adapt<float>(in, stride, out, par, B, s, threads, blocks,
                             (cudaStream_t)stream);
     if (dtype == 1)
-        return adapt<double>(in, stride, out, par, B, s, threads,
+        return adapt<double>(in, stride, out, par, B, s, threads, blocks,
                              (cudaStream_t)stream);
     return (int)cudaErrorInvalidValue;
 }

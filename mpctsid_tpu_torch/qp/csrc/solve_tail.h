@@ -39,8 +39,14 @@
 //               (`kkt_setup`), then the tile streams from P to K in pieces
 //               of V values (16 bytes on the card), each piece patched
 //               where it meets a diagonal block (`kkt_piece`).
-//   adapt_rho   a block a scenario (`adapt_rho`, `products`): a row of P
-//               (and of a dense A) split over 1 or MAX_LANES units.
+//   adapt_rho   the epilogue's two paths (qp/tail.py::adapt_layout), its
+//               sums in double: a WARP a scenario where n and m are at most
+//               WARP_DIM (`adapt_warp_rows`: lane i the rows i, i + 32 of
+//               P x and A x and the columns i, i + 32 of A' y, each in index
+//               order), else a BLOCK a scenario (`adapt_block`: warps
+//               streaming ADAPT_ROW_GROUP rows of P, lane l the terms j =
+//               l, l + 32, ..., the 32 partials summed in order); the seven
+//               inf-norms by the executor's maxima (shuffle trees).
 //   unscale     two paths (qp/tail.py::tail_layout): a WARP a scenario
 //               where n and m are at most WARP_DIM (`unscale_warp_rows`: P
 //               and a dense A in the warp's shared memory, by bulk copy
@@ -95,9 +101,10 @@ constexpr int MAXIMA = 7;       // adapt_rho's seven inf-norms
 constexpr int MAX_LANES = 32;   // units (partial sums) a row of P at most
 constexpr int KKT_PIECES = 8;   // kkt_blocks: pieces of a tile a thread
 constexpr int WARP = 32;
-constexpr int WARP_DIM = 64;    // unscale's warp path: n, m at most this
+constexpr int WARP_DIM = 64;    // the warp paths: n, m at most this
 constexpr int MAX_WARPS = 16;   // ... and scenarios a block at most
 constexpr int ROW_GROUP = 2;    // unscale's block path: rows a warp streams
+constexpr int ADAPT_ROW_GROUP = 4;  // ... adapt_rho's
 constexpr int STREAM_NQ = 6;    // ... with n = 32 STREAM_NQ unrolled whole
 constexpr int STAGE = 20;       // unscale's one-slot warp path: values a
                                 // lane loads before it stores them
@@ -126,18 +133,10 @@ inline int layout(int what)
                ? counts[what] : -1;
 }
 
-// values of a scenario's shared memory in adapt_rho (doubles): x (n), y
-// (m), two m-vectors (A x; A x - z), two n-vectors (P x, A' y), the
-// partial maxima and the `lanes` partial sums of each of P's rows and,
-// when A is dense (`dense` 1), of A's rows
-TAIL_FN long long smem_values(int n, int m, int dense, int lanes)
-{
-    return 3LL * n + 3LL * m + (long long)MAXIMA * PARTS
-           + (long long)lanes * (n + (dense ? m : 0));
-}
-
-// A's structure: r x c blocks tiling (m, n), or dense (r = c = 0); the
-// units a row of P (and of a dense A) is split over (1 or MAX_LANES)
+// A's structure: r x c blocks tiling (m, n), or dense (r = c = 0);
+// `lanes` the path's (qp/tail.py's layouts: kkt_blocks' values a piece;
+// adapt_rho's and unscale's warp path its slots, 1 or 2, their block path
+// MAX_LANES)
 struct Shape {
     int n, m, r, c, lanes;
     TAIL_FN bool blocks() const { return r > 0; }
@@ -313,18 +312,12 @@ TAIL_FN bool kkt_bad(int B, const Shape& s, int threads, int blocks, int V)
            != (long long)B * kkt_tiles(s.n, threads * KKT_PIECES * V);
 }
 
-// ---- the dot products of one scenario (adapt_rho and unscale's block
-// path)
+// ---- the dot products of one scenario (adapt_rho and unscale)
 //
-// A row of P (and of a dense A) is L units (s.lanes, 1 or MAX_LANES, a
-// template constant): unit (row, l) sums the terms j = l, l + L, ... in
-// order into its partial, so that a warp's units read one row's
-// consecutive entries (L = 32, long rows; a unit a row for short ones,
-// L = 1); the next phase sums a row's partials in order.  A block row of A (c terms) and a column of A'
-// (a column block's r rows, or all m) are one unit each.
-
-// The products are taken in the accumulator type V (the value type of the
-// scenario's shared memory): T for unscale, double for adapt_rho.
+// A block row of A (c terms) and a column of A' (a column block's r rows,
+// or all m) are one unit each, summed in index order.  The products are
+// taken in the accumulator type V (the value type of the scenario's
+// shared memory): T for unscale, double for adapt_rho.
 
 // (A x)_k over row k's block columns
 template <typename V, typename T>
@@ -349,36 +342,18 @@ TAIL_FN V a_col_dot(const T* A, const Shape& s, int j, const V* y)
     return v;
 }
 
-// lane l's partial of row `row` of M (n columns) against x
-template <int L, typename V, typename T>
-TAIL_FN V lane_partial(const T* M, int n, int row, int l, const V* x)
-{
-    V v = V(0);
-    for (int j = l; j < n; j += L)
-        v = v + V(M[(long long)row * n + j]) * x[j];
-    return v;
-}
-
-template <int L, typename V>
-TAIL_FN V sum_lanes(const V* part)
-{
-    V v = part[0];
-    for (int l = 1; l < L; ++l) v = v + part[l];
-    return v;
-}
-
 // shared memory of a scenario
 template <typename T>
 struct Smem {
     T* x;      // n
     T* y;      // m
     T* ax;     // m: A x
-    T* dz;     // m: A x - z
+    T* dz;     // m: A x - z (unscale), z (adapt_rho)
     T* px;     // n: P x
     T* aty;    // n: A' y
-    T* part;   // MAXIMA x PARTS
-    T* lanes;  // adapt_rho: (n + dense rows of A) x s.lanes; unscale's
-               // block path: MAX_LANES x (those rows + 1), transposed
+    T* part;   // MAXIMA x PARTS: unscale's partial maxima; adapt_rho's
+               // block path: a warp's seven maxima (at most 32 warps)
+    T* lanes;  // MAX_LANES x (P's rows, a dense A's, + 1), transposed
     TAIL_FN Smem(T* base, int n, int m)
         : x(base), y(x + n), ax(y + m), dz(ax + m), px(dz + m), aty(px + n),
           part(aty + n), lanes(part + MAXIMA * PARTS)
@@ -386,32 +361,9 @@ struct Smem {
     }
 };
 
-// rows of the lane-split products: P's n, and A's m when A is dense
+// rows whose products are split over a warp's lanes on the block paths:
+// P's n, and A's m when A is dense
 TAIL_FN int split_rows(const Shape& s) { return s.n + (s.blocks() ? 0 : s.m); }
-
-// phase of the products: lane partials of P's rows (and a dense A's), the
-// block rows of A, the columns of A'
-template <int L, typename V, typename T, class Exec>
-TAIL_FN void products(const Exec& ex, const Shape& s, const T* P,
-                      const T* A, Smem<V>& S)
-{
-    const int n = s.n, m = s.m;
-    const long long split = (long long)split_rows(s) * L;
-    const long long rows = s.blocks() ? m : 0;
-    TAIL_UNITS(ex, u, split + rows + n) {
-        if (u < split) {
-            const int row = (int)(u / L), l = (int)(u % L);
-            S.lanes[u] = row < n ? lane_partial<L>(P, n, row, l, S.x)
-                                 : lane_partial<L>(A, n, row - n, l, S.x);
-        } else if (u < split + rows) {
-            const int k = (int)(u - split);
-            S.ax[k] = a_block_row_dot(A, s, k, S.x);
-        } else {
-            const int j = (int)(u - split - rows);
-            S.aty[j] = a_col_dot(A, s, j, S.y);
-        }
-    }
-}
 
 // max in V over the entries e = p, p + PARTS, ... of v(e),
 // NaN-propagating, from 0 (every quantity is an absolute value)
@@ -422,86 +374,6 @@ TAIL_FN void products(const Exec& ex, const Shape& s, const T* P,
             acc = nanmax(acc, (expr));                                      \
         return acc;                                                         \
     }()
-
-template <typename V>
-TAIL_FN V max_parts(const V* part)
-{
-    V v = part[0];
-    for (int p = 1; p < PARTS; ++p) v = nanmax(v, part[p]);
-    return v;
-}
-
-// ---- adapt_rho: one scenario b
-//
-// In double whatever T is: the dual residual's numerator cancels (on the
-// MPC's QP the swing forces' ridge makes |P x| up to 1e6 times the
-// residual), so float32 sums in any order leave rho a few percent from
-// the function's value; summed in double from the float32 inputs and
-// rounded once, rho is that value to T's rounding.
-
-template <int L, typename T, class Exec>
-TAIL_FN void adapt_rho_body(const Exec& ex, const AdaptArgs<T>& a,
-                            const Shape& s, long long b, double* smem)
-{
-    using D = double;
-    const int n = s.n, m = s.m;
-    Smem<D> S(smem, n, m);
-    const T* P = a.row(AI_P, b);
-    const T* q = a.row(AI_Q, b);
-    const T* A = a.row(AI_A, b);
-    const T* z = a.row(AI_Z, b);
-    TAIL_UNITS(ex, u, n + m) {
-        if (u < n) S.x[u] = D(a.row(AI_X, b)[u]);
-        else S.y[u - n] = D(a.row(AI_Y, b)[u - n]);
-    }
-    ex.sync();
-    products<L>(ex, s, P, A, S);
-    ex.sync();
-    TAIL_UNITS(ex, u, split_rows(s)) {
-        if (u < n) S.px[u] = sum_lanes<L>(S.lanes + u * L);
-        else S.ax[u - n] = sum_lanes<L>(S.lanes + u * L);
-    }
-    ex.sync();
-    // the seven inf-norms, PARTS units each
-    TAIL_UNITS(ex, u, MAXIMA * PARTS) {
-        const int w = (int)u / PARTS, p = (int)u % PARTS;
-        D v;
-        switch (w) {
-        case 0: v = TAIL_PART_MAX(D, p, m, t_abs(S.ax[e] - D(z[e]))); break;
-        case 1: v = TAIL_PART_MAX(D, p, m, t_abs(S.ax[e])); break;
-        case 2: v = TAIL_PART_MAX(D, p, m, t_abs(D(z[e]))); break;
-        case 3:
-            v = TAIL_PART_MAX(D, p, n,
-                              t_abs((S.px[e] + D(q[e])) + S.aty[e]));
-            break;
-        case 4: v = TAIL_PART_MAX(D, p, n, t_abs(S.px[e])); break;
-        case 5: v = TAIL_PART_MAX(D, p, n, t_abs(D(q[e]))); break;
-        default: v = TAIL_PART_MAX(D, p, n, t_abs(S.aty[e])); break;
-        }
-        S.part[u] = v;
-    }
-    ex.sync();
-    TAIL_UNITS(ex, u, 1) {
-        D mx[MAXIMA];
-        for (int w = 0; w < MAXIMA; ++w) mx[w] = max_parts(S.part + w * PARTS);
-        const D tiny = D(T(1e-12));
-        const D rp = mx[0] / nanmax(nanmax(mx[1], mx[2]), tiny);
-        const D rd = mx[3] / nanmax(nanmax(mx[4], nanmax(mx[5], mx[6])),
-                                    tiny);
-        const D r = D(a.row(AI_RHO_S, b)[0]) * t_sqrt(rp / nanmax(rd, tiny));
-        a.out[AO_RHO_S][b] = T(nanmin(nanmax(r, D(T(1e-3))), D(T(1e3))));
-    }
-}
-
-// the two row splits a layout takes (qp/tail.py::adapt_layout): a unit a
-// row (lanes 1) or MAX_LANES units a row, each a compile-time constant
-template <typename T, class Exec>
-TAIL_FN void adapt_rho(const Exec& ex, const AdaptArgs<T>& a, const Shape& s,
-                       long long b, double* smem)
-{
-    if (s.lanes == MAX_LANES) adapt_rho_body<MAX_LANES>(ex, a, s, b, smem);
-    else adapt_rho_body<1>(ex, a, s, b, smem);
-}
 
 // ---- unscale: x and y of one scenario (both paths), the plain ops
 template <typename T>
@@ -530,63 +402,63 @@ TAIL_FN long long block_smem_values(int n, int m, int dense)
 }
 
 // unit (group g, lane l) of the `rows` rows of M (n columns each, split
-// rows row_off ...): the ROW_GROUP rows from g ROW_GROUP, lane l's terms
-// j = l, l + 32, ... of each in order (lane_partial<32>'s sum).  NQ > 0:
-// n = 32 NQ, every load of the group issued before the first sum; NQ = 0:
-// any n, the rows' loads of one j together.
-template <int NQ, typename T>
+// rows row_off ...): the G rows from g G, lane l's terms j = l, l + 32,
+// ... of each in order, from 0, in the accumulator type V.  NQ > 0: n = 32
+// NQ, every load of the group issued before the first sum; NQ = 0: any n,
+// the rows' loads of one j together.
+template <int NQ, int G, typename V, typename T>
 TAIL_FN void row_group(const T* M, int rows, int n, int g, int l,
-                       const T* x, T* lanes, int ld, int row_off)
+                       const V* x, V* lanes, int ld, int row_off)
 {
-    const int r0 = g * ROW_GROUP;
-    const T* R[ROW_GROUP];
+    const int r0 = g * G;
+    const T* R[G];
     TAIL_UNROLL
-    for (int rr = 0; rr < ROW_GROUP; ++rr)
+    for (int rr = 0; rr < G; ++rr)
         R[rr] = M + (long long)(r0 + rr < rows ? r0 + rr : rows - 1) * n;
-    T acc[ROW_GROUP];
+    V acc[G];
     if (NQ > 0) {
-        T v[ROW_GROUP][NQ > 0 ? NQ : 1];
+        T v[G][NQ > 0 ? NQ : 1];
         TAIL_UNROLL
-        for (int rr = 0; rr < ROW_GROUP; ++rr)
+        for (int rr = 0; rr < G; ++rr)
             TAIL_UNROLL
             for (int qq = 0; qq < NQ; ++qq) v[rr][qq] = R[rr][l + WARP * qq];
         TAIL_UNROLL
-        for (int rr = 0; rr < ROW_GROUP; ++rr) {
-            acc[rr] = T(0);
+        for (int rr = 0; rr < G; ++rr) {
+            acc[rr] = V(0);
             TAIL_UNROLL
             for (int qq = 0; qq < NQ; ++qq)
-                acc[rr] = acc[rr] + v[rr][qq] * x[l + WARP * qq];
+                acc[rr] = acc[rr] + V(v[rr][qq]) * x[l + WARP * qq];
         }
     } else {
         TAIL_UNROLL
-        for (int rr = 0; rr < ROW_GROUP; ++rr) acc[rr] = T(0);
+        for (int rr = 0; rr < G; ++rr) acc[rr] = V(0);
         for (int j = l; j < n; j += WARP) {
-            T v[ROW_GROUP];
+            T v[G];
             TAIL_UNROLL
-            for (int rr = 0; rr < ROW_GROUP; ++rr) v[rr] = R[rr][j];
+            for (int rr = 0; rr < G; ++rr) v[rr] = R[rr][j];
             TAIL_UNROLL
-            for (int rr = 0; rr < ROW_GROUP; ++rr)
-                acc[rr] = acc[rr] + v[rr] * x[j];
+            for (int rr = 0; rr < G; ++rr)
+                acc[rr] = acc[rr] + V(v[rr]) * x[j];
         }
     }
     TAIL_UNROLL
-    for (int rr = 0; rr < ROW_GROUP; ++rr)
+    for (int rr = 0; rr < G; ++rr)
         if (r0 + rr < rows)
             lanes[(long long)l * ld + row_off + r0 + rr] = acc[rr];
 }
 
 // the row groups of `rows` rows of M over a phase's units
-template <int NQ, typename T, class Exec>
+template <int NQ, int G, typename V, typename T, class Exec>
 TAIL_FN void row_groups(const Exec& ex, const T* M, int rows, int n,
-                        const T* x, T* lanes, int ld, int row_off)
+                        const V* x, V* lanes, int ld, int row_off)
 {
-    const long long groups = (rows + ROW_GROUP - 1) / ROW_GROUP;
+    const long long groups = (rows + G - 1) / G;
     TAIL_UNITS(ex, u, groups * WARP)
-        row_group<NQ>(M, rows, n, (int)(u / WARP), (int)(u % WARP), x, lanes,
-                      ld, row_off);
+        row_group<NQ, G>(M, rows, n, (int)(u / WARP), (int)(u % WARP), x,
+                         lanes, ld, row_off);
 }
 
-// a split row's 32 partials, in order (sum_lanes<32>'s)
+// a split row's 32 partials, in order
 template <typename T>
 TAIL_FN T sum_column(const T* lanes, int ld, int row)
 {
@@ -596,7 +468,7 @@ TAIL_FN T sum_column(const T* lanes, int ld, int row)
 }
 
 // the largest of PARTS partial maxima, NaN-propagating, by four chains
-// side by side (the same value as max_parts' one chain)
+// side by side (any order gives the same value)
 template <typename V>
 TAIL_FN V max_tree(const V* part)
 {
@@ -642,8 +514,9 @@ TAIL_FN void unscale_block_body(const Exec& ex, const UnArgs<T>& a,
         if (u < rows) S.ax[u] = a_block_row_dot(A, s, (int)u, S.x);
         else S.aty[u - rows] = a_col_dot(A, s, (int)(u - rows), S.y);
     }
-    if (!s.blocks()) row_groups<NQ>(ex, A, m, n, S.x, S.lanes, ld, n);
-    row_groups<NQ>(ex, P, n, n, S.x, S.lanes, ld, 0);
+    if (!s.blocks())
+        row_groups<NQ, ROW_GROUP>(ex, A, m, n, S.x, S.lanes, ld, n);
+    row_groups<NQ, ROW_GROUP>(ex, P, n, n, S.x, S.lanes, ld, 0);
     ex.sync();
     // P x; A x of a dense A; z = clip(A x, l, u) and A x - z
     TAIL_UNITS(ex, u, n + m) {
@@ -770,12 +643,13 @@ struct UnLane {
     bool finite;
 };
 
-template <typename T>
-TAIL_FN T row_dot(const T* row, const T* x, int n)
+// row . x over j in index order from 0, in the accumulator type V
+template <typename V, typename T>
+TAIL_FN V row_dot(const T* row, const V* x, int n)
 {
-    T v = T(0);
+    V v = V(0);
     TAIL_UNROLL8
-    for (int j = 0; j < n; ++j) v = v + row[j] * x[j];
+    for (int j = 0; j < n; ++j) v = v + V(row[j]) * x[j];
     return v;
 }
 
@@ -928,6 +802,278 @@ TAIL_FN void unscale_warp(Ex& ex, const UnArgs<T>& a, const Shape& s,
     });
 }
 
+// ---- adapt_rho: one scenario b
+//
+// In double whatever T is: the dual residual's numerator cancels (on the
+// MPC's QP the swing forces' ridge makes |P x| up to 1e6 times the
+// residual), so float32 sums in any order leave rho a few percent from
+// the function's value; summed in double from the float32 inputs and
+// rounded once, rho is that value to T's rounding.  The sums keep the
+// first design's orders, so rho keeps its bits: a row of P (or of
+// a dense A) over j in index order on the warp path, as 32 partials over
+// j = l, l + 32, ... summed in order of l on the block path; A's block
+// rows and A' y's columns in index order.  The seven inf-norms are maxima
+// of absolute values (NaN-propagating): the same in any order.
+
+// quantity 0 |A x - z|, 1 |A x|, 2 |z| of row k; 3 |P x + q + A' y|, 4
+// |P x|, 5 |q|, 6 |A' y| of column i: into the running maxima mx
+TAIL_FN void adapt_prim(double* mx, double ax, double z)
+{
+    mx[0] = nanmax(mx[0], t_abs(ax - z));
+    mx[1] = nanmax(mx[1], t_abs(ax));
+    mx[2] = nanmax(mx[2], t_abs(z));
+}
+
+TAIL_FN void adapt_dual(double* mx, double px, double q, double aty)
+{
+    mx[3] = nanmax(mx[3], t_abs((px + q) + aty));
+    mx[4] = nanmax(mx[4], t_abs(px));
+    mx[5] = nanmax(mx[5], t_abs(q));
+    mx[6] = nanmax(mx[6], t_abs(aty));
+}
+
+// rho from the seven maxima: rho_s sqrt(rp / max(rd, 1e-12)) in [1e-3, 1e3]
+template <typename T>
+TAIL_FN T adapt_finish(const double* mx, T rho_s)
+{
+    using D = double;
+    const D tiny = D(T(1e-12));
+    const D rp = mx[0] / nanmax(nanmax(mx[1], mx[2]), tiny);
+    const D rd = mx[3] / nanmax(nanmax(mx[4], nanmax(mx[5], mx[6])), tiny);
+    const D r = D(rho_s) * t_sqrt(rp / nanmax(rd, tiny));
+    return T(nanmin(nanmax(r, D(T(1e-3))), D(T(1e3))));
+}
+
+// the block path (MPC shape): Smem<double>'s vectors (z in dz), a warp's
+// seven maxima in `part`, the 32 partials of each split row transposed in
+// `lanes` (unscale's block path's layout, block_smem_values doubles), then
+// q (n)
+TAIL_FN long long adapt_block_values(int n, int m, int dense)
+{
+    return block_smem_values(n, m, dense) + n;
+}
+
+template <int NQ, typename T, class Exec>
+TAIL_FN void adapt_block_body(const Exec& ex, const AdaptArgs<T>& a,
+                              const Shape& s, long long b, double* smem)
+{
+    using D = double;
+    const int n = s.n, m = s.m;
+    Smem<D> S(smem, n, m);
+    D* qs = smem + block_smem_values(n, m, !s.blocks());
+    const T* P = a.row(AI_P, b);
+    const T* A = a.row(AI_A, b);
+    // x, y and the maxima's z and q, so that the last phases read no
+    // device memory
+    TAIL_UNITS(ex, u, 2 * (n + m)) {
+        if (u < n) S.x[u] = D(a.row(AI_X, b)[u]);
+        else if (u < n + m) S.y[u - n] = D(a.row(AI_Y, b)[u - n]);
+        else if (u < n + 2 * m) S.dz[u - n - m] = D(a.row(AI_Z, b)[u - n - m]);
+        else qs[u - n - 2 * m] = D(a.row(AI_Q, b)[u - n - 2 * m]);
+    }
+    ex.sync();
+    // the products: the block rows of A, the columns of A', the split rows
+    // a group of ROW_GROUP a warp
+    const int split = split_rows(s), ld = split + 1;
+    const long long rows = s.blocks() ? m : 0;
+    TAIL_UNITS(ex, u, rows + n) {
+        if (u < rows) S.ax[u] = a_block_row_dot(A, s, (int)u, S.x);
+        else S.aty[u - rows] = a_col_dot(A, s, (int)(u - rows), S.y);
+    }
+    if (!s.blocks())
+        row_groups<NQ, ADAPT_ROW_GROUP>(ex, A, m, n, S.x, S.lanes, ld, n);
+    row_groups<NQ, ADAPT_ROW_GROUP>(ex, P, n, n, S.x, S.lanes, ld, 0);
+    ex.sync();
+    TAIL_UNITS(ex, u, split) {
+        if (u < n) S.px[u] = sum_column(S.lanes, ld, (int)u);
+        else S.ax[u - n] = sum_column(S.lanes, ld, (int)u);
+    }
+    ex.sync();
+    // the maxima: each unit's share of the entries, then the block's
+    D mx[MAXIMA];
+    for (int w = 0; w < MAXIMA; ++w) mx[w] = D(0);
+    const int width = ex.width();
+    TAIL_UNITS(ex, u, width) {
+        for (long long e = u; e < m; e += width)
+            adapt_prim(mx, S.ax[e], S.dz[e]);
+        for (long long e = u; e < n; e += width)
+            adapt_dual(mx, S.px[e], qs[e], S.aty[e]);
+    }
+    ex.block_max(mx, S.part);
+    TAIL_UNITS(ex, u, 1)
+        a.out[AO_RHO_S][b] = adapt_finish(mx, a.row(AI_RHO_S, b)[0]);
+}
+
+template <typename T, class Exec>
+TAIL_FN void adapt_block(const Exec& ex, const AdaptArgs<T>& a,
+                         const Shape& s, long long b, double* smem)
+{
+    if (s.n == WARP * STREAM_NQ)
+        adapt_block_body<STREAM_NQ>(ex, a, s, b, smem);
+    else
+        adapt_block_body<0>(ex, a, s, b, smem);
+}
+
+// the warp path (the WBC shape): a lane's inputs, entries l and l + 32: x,
+// q (n); y, z (m); and rho_s
+template <typename T>
+struct AdaptLaneIn {
+    T x[2], q[2], y[2], z[2], rho;
+};
+
+template <typename T>
+TAIL_FN void load_adapt_lane(AdaptLaneIn<T>& v, const AdaptArgs<T>& a,
+                             const Shape& s, long long b, int l)
+{
+    for (int k = 0; k < 2; ++k) {
+        const int u = l + WARP * k;
+        const bool in_n = u < s.n, in_m = u < s.m;
+        v.x[k] = in_n ? a.row(AI_X, b)[u] : T(0);
+        v.q[k] = in_n ? a.row(AI_Q, b)[u] : T(0);
+        v.y[k] = in_m ? a.row(AI_Y, b)[u] : T(0);
+        v.z[k] = in_m ? a.row(AI_Z, b)[u] : T(0);
+    }
+    v.rho = a.row(AI_RHO_S, b)[0];
+}
+
+// a lane's state: its inputs, its part of the seven maxima
+template <typename T>
+struct AdaptLane {
+    AdaptLaneIn<T> in;
+    double mx[MAXIMA];
+};
+
+// bytes of one warp's shared memory in adapt_rho, a multiple of 16: the
+// rows as unscale's warp path keeps them (1 slot at warp_ld, or 2 slots
+// at ld = n after two mbarriers), then x and y in double
+TAIL_FN long long adapt_rows_bytes(int n, int m, int dense, int slots,
+                                   int size)
+{
+    const long long v = slots == 1 ? slot_values(n, m, dense, warp_ld(n))
+                                   : 2 * slot_values(n, m, dense, n);
+    return 16 * (slots == 2) + (v * size + 7) / 8 * 8;
+}
+
+TAIL_FN long long adapt_warp_smem_bytes(int n, int m, int dense, int slots,
+                                        int size)
+{
+    return (adapt_rows_bytes(n, m, dense, slots, size) + 8LL * (n + m) + 15)
+           / 16 * 16;
+}
+
+// bytes of a block's shared memory in adapt_rho: `warps` warps of `slots`
+// slots on the warp path, or (warps 0) the block path
+TAIL_FN long long adapt_smem_bytes(int n, int m, int dense, int warps,
+                                   int slots, int size)
+{
+    return warps > 0 ? warps * adapt_warp_smem_bytes(n, m, dense, slots, size)
+                     : adapt_block_values(n, m, dense) * 8;
+}
+
+// scenario b from its rows in the warp's shared memory (Ps, and As when A
+// is dense, at stride ld), x and y in double at xs and ys: lane l's rows
+// l, l + 32 of A x and of P x, its columns l, l + 32 of A' y, each summed
+// in index order from 0 (the rows of one pass over j side by side), its
+// part of the maxima, then the warp's by the executor.  The rows may still
+// be arriving in the first phase (`stage(l, st)`, which may also load the
+// lane's inputs) and are read only after the warp's barrier.
+template <typename T, class Ex, class Stage>
+TAIL_FN void adapt_warp_rows(Ex& ex, const AdaptArgs<T>& a, const Shape& s,
+                             long long b, const T* Ps, const T* As, int ld,
+                             double* xs, double* ys, Stage stage)
+{
+    using D = double;
+    const int n = s.n, m = s.m;
+    const bool dense = !s.blocks();
+    const T* A = a.row(AI_A, b);
+    ex.lanes([&](int l, AdaptLane<T>& st) {
+        stage(l, st);
+        for (int k = 0; k < 2; ++k) {
+            const int u = l + WARP * k;
+            if (u < n) xs[u] = D(st.in.x[k]);
+            if (u < m) ys[u] = D(st.in.y[k]);
+        }
+    });
+    ex.sync();
+    ex.lanes([&](int l, AdaptLane<T>& st) {
+        for (int w = 0; w < MAXIMA; ++w) st.mx[w] = D(0);
+        // rows l and l + 32 of A x (dense: one pass over j beside row l of
+        // P x), rows past the end clamped and their sums dropped
+        D ax[2] = {D(0), D(0)}, px0 = D(0);
+        const T* p0 = Ps + (l < n ? l : n - 1) * ld;
+        if (dense && m > 0) {
+            const T* a0 = As + (l < m ? l : m - 1) * ld;
+            const T* a1 = As + (l + WARP < m ? l + WARP : m - 1) * ld;
+            TAIL_UNROLL8
+            for (int j = 0; j < n; ++j) {
+                const D xj = xs[j];
+                ax[0] = ax[0] + D(a0[j]) * xj;
+                ax[1] = ax[1] + D(a1[j]) * xj;
+                px0 = px0 + D(p0[j]) * xj;
+            }
+        } else {
+            px0 = row_dot(p0, xs, n);
+            for (int k = 0; k < 2; ++k)
+                if (l + WARP * k < m)
+                    ax[k] = a_block_row_dot(A, s, l + WARP * k, xs);
+        }
+        for (int k = 0; k < 2; ++k)
+            if (l + WARP * k < m) adapt_prim(st.mx, ax[k], D(st.in.z[k]));
+        // columns l and l + 32 of A' y (dense: one pass over k)
+        D aty[2] = {D(0), D(0)};
+        if (dense) {
+            const int c0 = l < n ? l : n - 1;
+            const int c1 = l + WARP < n ? l + WARP : n - 1;
+            TAIL_UNROLL8
+            for (int k = 0; k < m; ++k) {
+                const D yk = ys[k];
+                aty[0] = aty[0] + D(As[k * ld + c0]) * yk;
+                aty[1] = aty[1] + D(As[k * ld + c1]) * yk;
+            }
+        } else {
+            for (int k = 0; k < 2; ++k)
+                if (l + WARP * k < n)
+                    aty[k] = a_col_dot(A, s, l + WARP * k, ys);
+        }
+        for (int k = 0; k < 2; ++k) {
+            const int i = l + WARP * k;
+            if (i >= n) continue;
+            const D px = k == 0 ? px0 : row_dot(Ps + i * ld, xs, n);
+            adapt_dual(st.mx, px, D(st.in.q[k]), aty[k]);
+        }
+    });
+    ex.lanes([&](int l, AdaptLane<T>& st) {
+        D mx[MAXIMA];
+        for (int w = 0; w < MAXIMA; ++w)
+            mx[w] = ex.max_of(st, [w](const AdaptLane<T>& t) {
+                return t.mx[w];
+            });
+        if (l == 0) a.out[AO_RHO_S][b] = adapt_finish(mx, st.in.rho);
+    });
+    ex.sync();
+}
+
+// the one-slot way: the lanes stage P's and a dense A's rows at warp_ld
+// and load their inputs; `smem` holds adapt_warp_smem_bytes(.., 1, ..)
+template <typename T, class Ex>
+TAIL_FN void adapt_warp(Ex& ex, const AdaptArgs<T>& a, const Shape& s,
+                        long long b, unsigned char* smem)
+{
+    const int n = s.n, m = s.m, ld = warp_ld(n);
+    const bool dense = !s.blocks();
+    T* Ps = reinterpret_cast<T*>(smem);
+    T* As = Ps + n * ld;
+    double* xs = reinterpret_cast<double*>(
+        smem + adapt_rows_bytes(n, m, dense, 1, (int)sizeof(T)));
+    const T* P = a.row(AI_P, b);
+    const T* A = a.row(AI_A, b);
+    adapt_warp_rows(ex, a, s, b, Ps, As, ld, xs, xs + n,
+                    [&](int l, AdaptLane<T>& st) {
+        load_adapt_lane(st.in, a, s, b, l);
+        stage_rows(l, P, A, n, dense ? m : 0, ld, Ps, As);
+    });
+}
+
 // whether bulk copies take these rows: each scenario's (count values of
 // `size` bytes) 16-byte aligned and a whole number of 16-byte pieces
 TAIL_FN bool rows_bulk(const void* p, long long stride, long long count,
@@ -937,9 +1083,9 @@ TAIL_FN bool rows_bulk(const void* p, long long stride, long long count,
            && (count * size) % 16 == 0;
 }
 
-// whether the two-slot warp path takes unscale's operands: P's rows and a
-// dense A's
-TAIL_FN bool unscale_bulk(const void* P, long long p_stride, const void* A,
+// whether the two-slot warp path takes the operands: P's rows and a dense
+// A's
+TAIL_FN bool warp_bulk(const void* P, long long p_stride, const void* A,
                           long long a_stride, const Shape& s, int size)
 {
     return rows_bulk(P, p_stride, (long long)s.n * s.n, size)
@@ -947,12 +1093,12 @@ TAIL_FN bool unscale_bulk(const void* P, long long p_stride, const void* A,
                || rows_bulk(A, a_stride, (long long)s.m * s.n, size));
 }
 
-// what the launcher and the host build refuse: lanes 1 or 2 is the warp
-// path (n, m at most WARP_DIM; threads a whole number of warps, at most
-// MAX_WARPS; 1 slot: blocks the scenarios over them; 2 slots: at most
-// that many, the warps walking the rest), lanes MAX_LANES the block path
-// (a block a scenario)
-TAIL_FN bool unscale_bad(int B, const Shape& s, int threads, int blocks)
+// what the launchers of adapt_rho and unscale and the host build refuse:
+// lanes 1 or 2 is the warp path (n, m at most WARP_DIM; threads a whole
+// number of warps, at most MAX_WARPS; 1 slot: blocks the scenarios over
+// them; 2 slots: at most that many, the warps walking the rest), lanes
+// MAX_LANES the block path (a block a scenario)
+TAIL_FN bool scenario_bad(int B, const Shape& s, int threads, int blocks)
 {
     if (s.lanes == 1 || s.lanes == 2) {
         const int w = threads / WARP, need = (B + w - 1) / w;
@@ -972,12 +1118,17 @@ struct HostExec {
     long long first(long long n) const { return reverse ? n - 1 : 0; }
     long long next(long long u) const { return reverse ? u - 1 : u + 1; }
     void sync() const {}
+    // adapt_rho's block maxima: any number of units (here 96, a block's
+    // threads on the card) running into the same maxima make the block's
+    int width() const { return 96; }
+    void block_max(double*, double*) const {}
 };
 
-template <typename T>
+// a warp's lanes, each with its state (UnLane, AdaptLane)
+template <class Lane>
 struct HostWarp {
     bool reverse;
-    UnLane<T> lane[WARP];
+    Lane lane[WARP];
 
     template <class F>
     void lanes(F f)
@@ -989,14 +1140,14 @@ struct HostWarp {
     }
     void sync() const {}
     template <class G>
-    T max_of(const UnLane<T>&, G g) const
+    auto max_of(const Lane&, G g) const
     {
-        T v = g(lane[0]);
+        auto v = g(lane[0]);
         for (int l = 1; l < WARP; ++l) v = nanmax(v, g(lane[l]));
         return v;
     }
     template <class G>
-    bool all_of(const UnLane<T>&, G g) const
+    bool all_of(const Lane&, G g) const
     {
         bool v = true;
         for (int l = 0; l < WARP; ++l) v = v && g(lane[l]);

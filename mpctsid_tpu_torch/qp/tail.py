@@ -10,9 +10,10 @@ their wrappers: three stages of qp/admm.py around the ADMM iterations.
     qp/admm.py::_dense_kkt (the dense product over all m rows).
   * `adapt_rho` (entry `adapt_rho`): the per-scenario rho of the next adapt
     round, its sums in float64 (the residual ratio cancels: float32 sums
-    leave rho up to 15 % from the function's value on the MPC's QPs).  A
-    dense, or its declared blocks only.  Plain version:
-    qp/admm.py::_adapt_rho.
+    leave rho up to 15 % from the function's value on the MPC's QPs), on
+    the epilogue's layouts (a warp a scenario at the WBC shape, a block at
+    the MPC's).  A dense, or its declared blocks only.  Plain version:
+    qp/admm.py::_adapt_rho; its sums written out, `adapt_in_order`.
   * `unscale` (entry `unscale`): the solve's epilogue, (x, y, z, prim, dual,
     ok).  A dense, or its declared blocks only.  Plain version:
     qp/admm.py::_unscaled_solution.
@@ -46,11 +47,11 @@ from mpctsid_tpu_torch.qp.kernels import device_limits
 
 __all__ = ["kkt_blocks", "adapt_rho", "unscale", "check_blocks",
            "kkt_layout", "adapt_layout", "tail_layout", "TailLayout",
-           "smem_values", "kkt_smem_values", "kkt_smem_bytes",
+           "adapt_smem_bytes", "kkt_smem_values", "kkt_smem_bytes",
            "unscale_smem_bytes", "bulk_rows",
            "run_kkt", "run_adapt", "run_unscale", "kkt_in_order",
-           "unscale_in_order", "last_layout", "LIBRARY", "LAYOUT",
-           "LAUNCH_ARGTYPES", "FLAGS", "build_specs"]
+           "adapt_in_order", "unscale_in_order", "last_layout", "LIBRARY",
+           "LAYOUT", "LAUNCH_ARGTYPES", "FLAGS", "build_specs"]
 
 LIBRARY = ("solve_tail", ("solve_tail.cu",),
            ("solve_tail.h", "cluster_exchange.cuh"))
@@ -69,8 +70,8 @@ LAYOUT = dict(kkt_in=4, kkt_out=2, kkt_par=2, adapt_in=7, adapt_out=1,
               max_lanes=32, kkt_pieces=8, warp_dim=64, max_warps=16)
 MAXIMA = 7               # adapt_rho's inf-norms (solve_tail.h, MAXIMA)
 KKT_THREADS = 128        # kkt_blocks: threads a block (a tile)
-TAIL_THREADS = 512       # adapt_rho / unscale's block path: a scenario
-TAIL_THREADS_LARGE_B = 256    # unscale's block path where B is at least
+TAIL_THREADS = 512       # adapt_rho's and unscale's block paths: a scenario
+TAIL_THREADS_LARGE_B = 256    # unscale's where B is at least
 LARGE_B_WAVES = 4             # this many blocks a multiprocessor
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -83,13 +84,31 @@ LAUNCH_ARGTYPES = [_INT, ctypes.POINTER(_PTR),
                    ctypes.POINTER(ctypes.c_double)] + [_INT] * 8
 
 
-def smem_values(n: int, m: int, dense: bool, lanes: int) -> int:
-    """Values (doubles) of a scenario's shared memory in adapt_rho
-    (`tail::smem_values`): x, y, A x, A x - z, P x, A' y, the partial
-    maxima, and the `lanes` partial sums of each of P's rows and (`dense`)
-    A's."""
+def _block_values(n: int, m: int, dense: bool) -> int:
+    """Values of a scenario's shared memory on the block paths
+    (`tail::block_smem_values`): x, y, A x, A x - z, P x, A' y, the partial
+    maxima, then the 32 partials of each of P's rows and (`dense`) A's at a
+    stride of the rows + 1."""
+    split = n + (m if dense else 0)
     return (3 * n + 3 * m + MAXIMA * LAYOUT["parts"]
-            + lanes * (n + (m if dense else 0)))
+            + LAYOUT["max_lanes"] * (split + 1))
+
+
+def adapt_smem_bytes(n: int, m: int, dense: bool, warps: int, slots: int,
+                     itemsize: int) -> int:
+    """Bytes of a block's shared memory in adapt_rho
+    (`tail::adapt_smem_bytes`).  The warp path, `warps` warps, each
+    (`tail::adapt_warp_smem_bytes`, rounded to 16): the rows as unscale's
+    warp path keeps them (1 slot at the odd stride n | 1; or 2 slots at
+    stride n after two mbarriers), rounded to 8 bytes, then x and y in
+    float64.  The block path (`warps` 0): its vectors, the warps' maxima,
+    the partials and q, in float64."""
+    if warps > 0:
+        split = n + (m if dense else 0)
+        rows = split * (n | 1) if slots == 1 else 2 * split * n
+        head = 16 * (slots == 2) + -(-rows * itemsize // 8) * 8
+        return warps * (-(-(head + 8 * (n + m)) // 16) * 16)
+    return (_block_values(n, m, dense) + n) * 8
 
 
 def kkt_smem_values(n: int, c: int, tile: int) -> int:
@@ -124,8 +143,7 @@ def unscale_smem_bytes(n: int, m: int, dense: bool, warps: int, slots: int,
         else:
             v = 2 * split * n + n + m
         return warps * (-(-(16 * (slots == 2) + v * itemsize) // 16) * 16)
-    return (3 * n + 3 * m + MAXIMA * LAYOUT["parts"]
-            + LAYOUT["max_lanes"] * (split + 1)) * itemsize
+    return _block_values(n, m, dense) * itemsize
 
 
 def bulk_rows(t: torch.Tensor, count: int) -> bool:
@@ -200,20 +218,45 @@ def kkt_layout(B: int, n: int, m: int, a_blocks, smem_optin: int,
     return TailLayout("tiles", KKT_THREADS, B * tiles, smem, vec)
 
 
-def adapt_layout(n: int, m: int, B: int, smem_optin: int,
-                 dense: bool) -> TailLayout:
-    """adapt_rho over B scenarios, A `dense` or its blocks declared: a
-    block a scenario; where n and m are at most `warp_dim` (the WBC shape)
-    128 threads and a unit a row of P, else TAIL_THREADS and `max_lanes`
-    units a row (their reads of a row consecutive); the scenario's vectors
-    and partial sums in shared memory, in float64 whatever the operands.
-    Raises ValueError when they do not fit `smem_optin`."""
-    small = max(n, m) <= LAYOUT["warp_dim"]
-    lanes = 1 if small else LAYOUT["max_lanes"]
-    smem = smem_values(n, m, dense, lanes) * 8
+def _warp_layout(name: str, B: int, smem_optin: int, n_sm: int,
+                 slot_bytes, aligned: bool) -> TailLayout:
+    """The warp path of adapt_rho and unscale: a warp a scenario, as many a
+    block as fit `smem_optin` (a warp's bytes `slot_bytes(slots)`), at most
+    `max_warps` and no more than spread B over `n_sm` multiprocessors;
+    where the rows are `aligned` two slots (lanes 2) and at most `n_sm`
+    blocks, each warp walking its scenarios, else one slot (lanes 1) and a
+    block for each `warps` scenarios."""
+    slots = 2 if aligned else 1
+    slot = slot_bytes(slots)
+    _fit(name, slot, smem_optin)
+    warps = max(1, min(LAYOUT["max_warps"], smem_optin // slot,
+                       -(-B // max(1, n_sm))))
+    blocks = -(-B // warps)
+    if slots == 2:
+        blocks = min(blocks, n_sm)
+    return TailLayout("warp", 32 * warps, blocks, warps * slot, slots)
+
+
+def adapt_layout(n: int, m: int, B: int, smem_optin: int, n_sm: int,
+                 dense: bool, dtype=torch.float32,
+                 aligned: bool = True) -> TailLayout:
+    """adapt_rho over B scenarios, A `dense` or its blocks declared: the
+    epilogue's layouts (`tail_layout`), its sums in float64.  Where n and m
+    are at most `warp_dim` (the WBC shape): the warp path, a lane a row of
+    P and of A and a column of A' (lanes: its slots, 2 where P and a dense
+    A are `aligned`).  Else the block path, a block of TAIL_THREADS a
+    scenario, rows of P streamed a warp ADAPT_ROW_GROUP at a time (lanes
+    `max_lanes`; 512 threads read faster than 256 at every B measured).
+    Raises ValueError where one scenario does not fit `smem_optin`."""
+    size = _itemsize(dtype)
+    if max(n, m) <= LAYOUT["warp_dim"]:
+        return _warp_layout(
+            f"adapt_rho at n = {n}, m = {m}", B, smem_optin, n_sm,
+            lambda slots: adapt_smem_bytes(n, m, dense, 1, slots, size),
+            aligned)
+    smem = adapt_smem_bytes(n, m, dense, 0, 1, size)
     _fit(f"adapt_rho at n = {n}, m = {m}", smem, smem_optin)
-    return TailLayout("block", 128 if small else TAIL_THREADS, B, smem,
-                      lanes)
+    return TailLayout("block", TAIL_THREADS, B, smem, LAYOUT["max_lanes"])
 
 
 def tail_layout(n: int, m: int, B: int, smem_optin: int, n_sm: int,
@@ -234,15 +277,10 @@ def tail_layout(n: int, m: int, B: int, smem_optin: int, n_sm: int,
     one scenario does not fit."""
     size = _itemsize(dtype)
     if max(n, m) <= LAYOUT["warp_dim"]:
-        slots = 2 if aligned else 1
-        slot = unscale_smem_bytes(n, m, dense, 1, slots, size)
-        _fit(f"unscale at n = {n}, m = {m}", slot, smem_optin)
-        warps = max(1, min(LAYOUT["max_warps"], smem_optin // slot,
-                           -(-B // max(1, n_sm))))
-        blocks = -(-B // warps)
-        if slots == 2:
-            blocks = min(blocks, n_sm)
-        return TailLayout("warp", 32 * warps, blocks, warps * slot, slots)
+        return _warp_layout(
+            f"unscale at n = {n}, m = {m}", B, smem_optin, n_sm,
+            lambda slots: unscale_smem_bytes(n, m, dense, 1, slots, size),
+            aligned)
     smem = unscale_smem_bytes(n, m, dense, 0, 1, size)
     _fit(f"unscale at n = {n}, m = {m}", smem, smem_optin)
     threads = (TAIL_THREADS_LARGE_B if B >= LARGE_B_WAVES * n_sm
@@ -365,6 +403,95 @@ def kkt_in_order(P, A, eqf, rho_s, sigma: float, rho_eq_scale: float,
     return K, rho_vec.contiguous()
 
 
+def _rows_dot(M, x, lanes: int):
+    """Each row of M (B, rows, n) against x (B, n) in M's dtype: over j in
+    index order from 0 (`lanes` 1 or 2, the warp paths), or as 32 partials
+    over j = l, l + 32, ... each from 0, summed in order of l (`lanes` 32,
+    the block paths)."""
+    n = M.shape[2]
+    if lanes != LAYOUT["max_lanes"]:
+        v = M.new_zeros(M.shape[:2])
+        for j in range(n):
+            v = v + M[:, :, j] * x[:, j, None]
+        return v
+    parts = []
+    for ln in range(LAYOUT["max_lanes"]):
+        p = M.new_zeros(M.shape[:2])
+        for j in range(ln, n, LAYOUT["max_lanes"]):
+            p = p + M[:, :, j] * x[:, j, None]
+        parts.append(p)
+    v = parts[0]
+    for p in parts[1:]:
+        v = v + p
+    return v
+
+
+def _a_products(A, x, y, a_blocks, lanes: int):
+    """(A x, A' y) in x's dtype as the kernels sum them: A's block rows and
+    A' y's columns in index order over the declared blocks, or a dense A's
+    rows by `_rows_dot` and its columns over k in index order."""
+    B, n = x.shape
+    m = y.shape[1]
+    r, cb = check_blocks(n, m, a_blocks)
+    A = A.expand(B, m, n).to(x.dtype)
+    aty = x.new_zeros((B, n))
+    if not r:
+        for k in range(m):
+            aty = aty + A[:, k, :] * y[:, k, None]
+        return _rows_dot(A, x, lanes), aty
+    ax = x.new_zeros((B, m))
+    k = torch.arange(m, device=x.device)
+    j0 = (k // r) * cb
+    for jj in range(cb):
+        cols = (j0 + jj)[None, :, None].expand(B, m, 1)
+        ax = ax + A.gather(2, cols)[..., 0] * x.gather(
+            1, (j0 + jj)[None].expand(B, m))
+    j = torch.arange(n, device=x.device)
+    k0 = (j // cb) * r
+    for kk in range(r):
+        rws = (k0 + kk)[None, None, :].expand(B, 1, n)
+        aty = aty + A.gather(1, rws)[:, 0] * y.gather(
+            1, (k0 + kk)[None].expand(B, n))
+    return ax, aty
+
+
+def adapt_in_order(P, q, A, x, z, y, rho_s, a_blocks=None, lanes: int = 1):
+    """rho (B,) of `adapt_rho` by elementwise float64 PyTorch ops in the
+    kernel's order (solve_tail.h `adapt_warp_rows`, `adapt_block_body`): x
+    and y widened to float64, P x (and a dense A's x) as `_rows_dot` sums
+    them for `lanes` (the path's: 1 or 2 the warp path, 32 the block
+    path), A's block rows and A' y's columns in index order, the seven
+    inf-norms NaN-propagating, rho = rho_s sqrt(rp / max(rd, tiny))
+    clamped to [1e-3, 1e3] with the bounds rounded to P's dtype first, then
+    rounded once to P's dtype.  Each op rounds once, as the kernel's under
+    -fmad=false, so on any device this is the kernel's rho bit for bit (the
+    checks of the CPU tests and chip_smoke.py phase 3i)."""
+    B, n, m = _dims(P, A)
+    d = torch.float64
+    x, y = x.to(d), y.to(d)
+    px = _rows_dot(P.to(d), x, lanes)
+    ax, aty = _a_products(A, x, y, a_blocks, lanes)
+    z, q = z.to(d), q.to(d)
+
+    def amax(v):    # of absolute values: the kernel's maximum from 0
+        return v.amax(dim=1) if v.shape[1] else v.new_zeros((B,))
+
+    def const(v):   # T(v) widened, as the kernel's D(T(v))
+        return torch.tensor(v, dtype=P.dtype).to(d).item()
+
+    tiny = const(1e-12)
+    rp = amax((ax - z).abs()) / _nanmax(
+        _nanmax(amax(ax.abs()), amax(z.abs())), torch.full_like(px[:, 0],
+                                                                tiny))
+    rd = amax(((px + q) + aty).abs()) / _nanmax(_nanmax(
+        amax(px.abs()), _nanmax(amax(q.abs()), amax(aty.abs()))),
+        torch.full_like(px[:, 0], tiny))
+    r = rho_s.to(d) * torch.sqrt(rp / _nanmax(rd, torch.full_like(rd, tiny)))
+    r = _nanmin(_nanmax(r, torch.full_like(r, const(1e-3))),
+                torch.full_like(r, const(1e3)))
+    return r.to(P.dtype)
+
+
 def unscale_in_order(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol: float,
                      a_blocks=None, lanes: int = 1):
     """(x, y, z, prim, dual, ok) of `unscale` by elementwise PyTorch ops
@@ -375,48 +502,10 @@ def unscale_in_order(P0, q0, A0, l0, u0, xs, ys, D, E, c, status_tol: float,
     the maxima NaN-propagating.  On any device the kernel's outputs bit for
     bit."""
     B, n, m = _dims(P0, A0)
-    r, cb = check_blocks(n, m, a_blocks)
-    A0 = A0.expand(B, m, n)
     x = D * xs
     y = E * ys / c[:, None]
-
-    def rows_dot(M):
-        if lanes == 1:
-            v = M.new_zeros(M.shape[:2])
-            for j in range(n):
-                v = v + M[:, :, j] * x[:, j, None]
-            return v
-        parts = []
-        for ln in range(LAYOUT["max_lanes"]):
-            p = M.new_zeros(M.shape[:2])
-            for j in range(ln, n, LAYOUT["max_lanes"]):
-                p = p + M[:, :, j] * x[:, j, None]
-            parts.append(p)
-        v = parts[0]
-        for p in parts[1:]:
-            v = v + p
-        return v
-
-    px = rows_dot(P0)
-    aty = P0.new_zeros((B, n))
-    if r:
-        ax = P0.new_zeros((B, m))
-        k = torch.arange(m, device=P0.device)
-        j0 = (k // r) * cb
-        for jj in range(cb):
-            cols = (j0 + jj)[None, :, None].expand(B, m, 1)
-            ax = ax + A0.gather(2, cols)[..., 0] * x.gather(
-                1, (j0 + jj)[None].expand(B, m))
-        j = torch.arange(n, device=P0.device)
-        k0 = (j // cb) * r
-        for kk in range(r):
-            rws = (k0 + kk)[None, None, :].expand(B, 1, n)
-            aty = aty + A0.gather(1, rws)[:, 0] * y.gather(
-                1, (k0 + kk)[None].expand(B, n))
-    else:
-        ax = rows_dot(A0)
-        for k in range(m):
-            aty = aty + A0[:, k, :] * y[:, k, None]
+    px = _rows_dot(P0, x, lanes)
+    ax, aty = _a_products(A0, x, y, a_blocks, lanes)
     z = _nanmin(_nanmax(ax, l0), u0)
 
     def amax(v):    # of absolute values: the kernel's maximum from 0
@@ -477,7 +566,9 @@ def adapt_rho(P, q, A, x, z, y, rho_s, a_blocks=None):
         return admm._adapt_rho(P, q, A, x, z, y, rho_s)
     _require_float32(P)
     dev = P.device
-    lay = adapt_layout(n, m, B, device_limits(dev)[0], a_blocks is None)
+    dense = a_blocks is None
+    aligned = bulk_rows(P, n * n) and (not dense or bulk_rows(A, m * n))
+    lay = adapt_layout(n, m, B, *device_limits(dev), dense, aligned=aligned)
     out = _launch("adapt", run_adapt, dev, P, q, A, x, z, y, rho_s, a_blocks,
                   lay.geometry)
     adapt_rho.launches += 1
@@ -552,7 +643,7 @@ def _library():
         lib.solve_tail_layout.restype = _INT
         lib.solve_tail_last_layout.argtypes = [_INT, _INT]
         lib.solve_tail_last_layout.restype = ctypes.c_longlong
-        for name, count in (("smem_values", 4), ("kkt_smem_bytes", 5),
+        for name, count in (("adapt_smem_bytes", 6), ("kkt_smem_bytes", 5),
                             ("unscale_smem_bytes", 6)):
             fn = getattr(lib, f"solve_tail_{name}")
             fn.argtypes = [_INT] * count
@@ -574,7 +665,7 @@ def last_layout(entry: str) -> TailLayout:
     threads, blocks, smem, lanes = (int(lib.solve_tail_last_layout(k, i))
                                     for i in range(4))
     path = ("tiles" if entry == "kkt" else
-            "warp" if entry == "unscale" and lanes in (1, 2) else "block")
+            "warp" if lanes in (1, 2) else "block")
     return TailLayout(path, threads, blocks, smem, lanes)
 
 

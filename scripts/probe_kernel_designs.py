@@ -3202,35 +3202,74 @@ def probe_ruiz(record, B, device, smem, n_sm, build, rounds=6):
             torch.cuda.empty_cache()
 
 
-# The cycle counter of thread 0 of the first STAMP_BLOCKS blocks: at the
-# start, after every block barrier of mpcb::build_scenario and at the end
+# The cycle counter of the first STAMP_BLOCKS blocks (N = 16): thread 0 at
+# the start and after the models; producer thread 0 as it publishes each
+# W_j and when it is done; consumer thread 0 when each W_j's wait returns
+# and when it is done
+MPC_STAMPS, MPC_STAMP_BLOCKS = 40, 4096
 MPC_BUILD_CLOCK_SUBS = [
-    ("struct BlockExec {",
-     "constexpr int STAMPS = 40, STAMP_BLOCKS = 4096;\n"
-     "__device__ long long mpcb_stamps[STAMPS * STAMP_BLOCKS];\n\n"
-     "struct BlockExec {\n    mutable int k = 1;\n"
-     "    __device__ void stamp(int i) const\n    {\n"
-     "        if (threadIdx.x == 0 && blockIdx.x < STAMP_BLOCKS"
-     " && i < STAMPS)\n"
-     "            mpcb_stamps[blockIdx.x * STAMPS + i] = clock64();\n"
+    ("// a block's units in turn (the models)\n",
+     f"constexpr int STAMPS = {MPC_STAMPS}, STAMP_BLOCKS = {MPC_STAMP_BLOCKS};"
+     "\n__device__ long long mpcb_stamps[STAMPS * STAMP_BLOCKS];\n"
+     "__device__ __forceinline__ void stamp(int i, bool lead)\n{\n"
+     "    if (lead && blockIdx.x < STAMP_BLOCKS && i < STAMPS)\n"
+     "        mpcb_stamps[blockIdx.x * STAMPS + i] = clock64();\n}\n\n"
+     "// a block's units in turn (the models)\n"),
+    ("            asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\"\n"
+     "                         :: \"r\"(shared_addr(bars + j)) : \"memory\");\n",
+     "            asm volatile(\"mbarrier.arrive.shared::cta.b64 _, [%0];\\n\"\n"
+     "                         :: \"r\"(shared_addr(bars + j)) : \"memory\");\n"
+     "        stamp(2 + j, tid == 0);\n"),
+    ("    __device__ void await(int j) const { barrier_wait(bars + j); }",
+     "    __device__ void await(int j) const\n    {\n"
+     "        barrier_wait(bars + j);\n        stamp(18 + j, tid == 0);\n"
      "    }"),
-    ("    __device__ void sync() const { __syncthreads(); }",
-     "    __device__ void sync() const\n    {\n        __syncthreads();\n"
-     "        stamp(k++);\n    }"),
-    ("    const BlockExec ex{};\n",
-     "    const BlockExec ex{};\n    ex.stamp(0);\n"),
-    ("                            reinterpret_cast<T*>(smem));\n}",
-     "                            reinterpret_cast<T*>(smem));\n"
-     "    __syncthreads();\n    ex.stamp(ex.k);\n}"),
+    ("    const long long b = blockIdx.x;\n    if (threadIdx.x == 0)\n",
+     "    const long long b = blockIdx.x;\n    stamp(0, threadIdx.x == 0);\n"
+     "    if (threadIdx.x == 0)\n"),
+    ("    __syncthreads();\n    if ((int)threadIdx.x < PRODUCER_THREADS)\n"
+     "        mpcb::producer(GroupExec{(int)threadIdx.x, PRODUCER_THREADS, 1, "
+     "bars},\n                       a, N, b, sm);\n    else\n"
+     "        mpcb::consumer(GroupExec{(int)threadIdx.x - PRODUCER_THREADS,\n"
+     "                                 CONSUMER_THREADS, 2, bars},\n"
+     "                       a, N, b, sm);\n",
+     "    __syncthreads();\n    stamp(1, threadIdx.x == 0);\n"
+     "    if ((int)threadIdx.x < PRODUCER_THREADS) {\n"
+     "        mpcb::producer(GroupExec{(int)threadIdx.x, PRODUCER_THREADS, 1, "
+     "bars},\n                       a, N, b, sm);\n"
+     "        stamp(35, threadIdx.x == 0);\n    } else {\n"
+     "        mpcb::consumer(GroupExec{(int)threadIdx.x - PRODUCER_THREADS,\n"
+     "                                 CONSUMER_THREADS, 2, bars},\n"
+     "                       a, N, b, sm);\n"
+     "        stamp(34, (int)threadIdx.x == PRODUCER_THREADS);\n    }\n"),
     ('extern "C" {\n',
      'extern "C" {\n\nint mpc_build_stamps(long long* out, int n)\n{\n'
      "    return (int)cudaMemcpyFromSymbol(out, mpcb_stamps,\n"
      "                                     n * sizeof(long long));\n}\n")]
-# phases between the stamps at N = 16: (name, first stamp, last stamp)
-MPC_BUILD_PHASES = [("models (B_k, M_k)", 0, 1), ("Su's blocks, drift", 1, 2),
-                    ("S_15, g_15", 2, 3),
-                    ("backward recursion: S_j, g_j, W_j, q_j", 3, 34),
-                    ("P's rows, l, u", 34, 35)]
+
+
+def mpc_build_phases(st, N=16):
+    """{phase: cycles (one a block)} from the clock copy's stamps (blocks,
+    MPC_STAMPS): stamp 2 + j is W_j published, 18 + j W_j's wait done."""
+    pub = lambda j: st[:, 2 + j]  # noqa: E731
+    got = lambda j: st[:, 18 + j]  # noqa: E731
+    steps = np.stack([pub(j) - pub(j + 1) for j in range(N - 1)], 1)
+    rows = np.stack([got(j) - got(j + 1) for j in range(N - 1)], 1)
+    end = np.maximum(st[:, 34], st[:, 35])
+    return {
+        "models (all warps)": st[:, 1] - st[:, 0],
+        "producer: free response, drift, step 15 to W_15": pub(N - 1)
+        - st[:, 1],
+        "producer: a step of the recursion (mean of 15)": steps.mean(1),
+        "producer: all 16 steps": pub(0) - st[:, 1],
+        "consumers: Su's columns and l, u, then W_15's wait": got(N - 1)
+        - st[:, 1],
+        "consumers: a row block and the next W's wait (mean of 15)":
+            rows.mean(1),
+        "consumers: waiting for W_j past their row block j + 1 (total)":
+            np.clip(got(0) - pub(0), 0, None),
+        "consumers: the last row block": st[:, 34] - got(0),
+        "whole block": end - st[:, 0]}
 
 
 def mpc_build_inputs(B, dtype, device):
@@ -3252,36 +3291,168 @@ def mpc_build_inputs(B, dtype, device):
     return x0, x_ref, feet, contacts_horizon(gid, ph, 16, dtype)
 
 
+# patched copies of the shipped header that undo or push one choice each
+MPC_HEADER_VARIANTS = {
+    f"{w} producer warp{'s' * (w > 1)}": [("constexpr int PRODUCER_WARPS = 5;",
+                             f"constexpr int PRODUCER_WARPS = {w};")]
+    for w in (1, 2, 4, 6)}
+MPC_HEADER_VARIANTS.update({
+    "3 blocks a multiprocessor (launch bounds)": [
+        ("constexpr int MIN_BLOCKS_F32 = 4;",
+         "constexpr int MIN_BLOCKS_F32 = 3;")],
+    "no P rows": [("        ex.await(j);\n"
+                   "        consumer_rows(ex, a, N, b, j, sm);",
+                   "        ex.await(j);\n        if (N < 0)\n"
+                   "            consumer_rows(ex, a, N, b, j, sm);")],
+    # the diagonal's pin in one fused multiply-add, and with every op
+    # rounded apart: which of them the first design's bits are
+    "pin as one fma": [
+        ("            acc[k][k] = (acc[k][k] + a.par[PAR_W_FORCE]) + pin;",
+         "            acc[k][k] = mb_fma(a.par[PAR_W_PIN], (T)1 - ct[(c0 + k)"
+         " / 3],\n                               acc[k][k] + "
+         "a.par[PAR_W_FORCE]);\n            (void)pin;")],
+    "pin rounded apart": [
+        ("            acc[k][k] = (acc[k][k] + a.par[PAR_W_FORCE]) + pin;",
+         "#if defined(__CUDA_ARCH__)\n"
+         "            if constexpr (sizeof(T) == 4)\n"
+         "                acc[k][k] = __fadd_rn(__fadd_rn(acc[k][k], "
+         "a.par[PAR_W_FORCE]),\n"
+         "                                      __fmul_rn(a.par[PAR_W_PIN], "
+         "(T)1 - ct[(c0 + k) / 3]));\n"
+         "            else\n"
+         "                acc[k][k] = __dadd_rn(__dadd_rn(acc[k][k], "
+         "a.par[PAR_W_FORCE]),\n"
+         "                                      __dmul_rn(a.par[PAR_W_PIN], "
+         "(T)1 - ct[(c0 + k) / 3]));\n"
+         "            (void)pin;\n#else\n"
+         "            acc[k][k] = (acc[k][k] + a.par[PAR_W_FORCE]) + pin;\n"
+         "#endif")]})
+# the consumers' waits for W_j: a back-off between polls, or suspended in
+# the try_wait itself, instead of polling back to back
+MPC_WAIT_VARIANTS = {
+    "waits: 64 ns back-off": [(
+        "        if (done) return;\n    }\n    __trap();",
+        "        if (done) return;\n        __nanosleep(64);\n    }\n"
+        "    __trap();")],
+    "waits: 256 ns back-off": [(
+        "        if (done) return;\n    }\n    __trap();",
+        "        if (done) return;\n        __nanosleep(256);\n    }\n"
+        "    __trap();")],
+    "waits: suspended in try_wait": [(
+        "            \"mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n\"",
+        "            \"mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, "
+        "%3;\\n\""), (
+        "            : \"=r\"(done) : \"r\"(addr), \"r\"(0u) : \"memory\");",
+        "            : \"=r\"(done) : \"r\"(addr), \"r\"(0u), \"r\"(20000u)\n"
+        "            : \"memory\");")]}
+
+# variants whose results are wrong on purpose (times only)
+MPC_WRONG = ("no P rows", "first design, no P rows")
+
+# each row block staged in shared memory (12 x n values after diag(Q),
+# one block fewer a multiprocessor) and stored by one bulk copy of 9,216
+# bytes, the stage free again once the copy engine has read it
+MPC_BULK_STORE = dict(
+    header=[
+        ("    T* qd;      // diag(Q)\n",
+         "    T* qd;      // diag(Q)\n    T* stage;   // a row block of P\n"),
+        ("          d(m + 9 * N), g(d + NX * N), qd(g + NX * N)\n",
+         "          d(m + 9 * N), g(d + NX * N), qd(g + NX * N),\n"
+         "          stage(qd + 16)\n"),
+        ("           + 2LL * BLK + 9LL * N + 2LL * NX * N + NX;",
+         "           + 2LL * BLK + 9LL * N + 2LL * NX * N + 16\n"
+         "           + (long long)NX * NU * N;"),
+        ("    T* P = a.out[OUT_P] + b * n * n + (long long)(NX * j + r0) * n"
+         " + NU * i\n           + c0;",
+         "    T* P = sm.stage + (long long)r0 * n + NU * i + c0;"),
+        ("        ex.await(j);\n        consumer_rows(ex, a, N, b, j, sm);\n"
+         "    }\n",
+         "        ex.await(j);\n        ex.stage_free();\n"
+         "        consumer_rows(ex, a, N, b, j, sm);\n"
+         "        ex.store_stage(a.out[OUT_P] + b * sm.n * sm.n\n"
+         "                           + (long long)NX * j * sm.n,\n"
+         "                       sm.stage, NX * sm.n * (int)sizeof(T));\n"
+         "    }\n    ex.stage_free();\n"),
+        ("constexpr int MIN_BLOCKS_F32 = 4;", "constexpr int MIN_BLOCKS_F32 = 3;"),
+    ],
+    cu=[("    __device__ void await(int j) const { barrier_wait(bars + j); }",
+         "    __device__ void await(int j) const { barrier_wait(bars + j); }\n"
+         "    // the stage's last bulk store has read it\n"
+         "    __device__ void stage_free() const\n    {\n"
+         "        if (tid == 0)\n"
+         "            asm volatile(\"cp.async.bulk.wait_group.read 0;\\n\" ::: "
+         "\"memory\");\n"
+         "        sync();\n    }\n"
+         "    __device__ void store_stage(void* dst, const void* src,\n"
+         "                                int bytes) const\n    {\n"
+         "        asm volatile(\"fence.proxy.async.shared::cta;\\n\" ::: "
+         "\"memory\");\n"
+         "        sync();\n        if (tid != 0) return;\n"
+         "        asm volatile(\"cp.async.bulk.global.shared::cta.bulk_group\"\n"
+         "                     \" [%0], [%1], %2;\\n\" :: \"l\"(dst),\n"
+         "                     \"r\"(shared_addr(src)), \"r\"(bytes) : "
+         "\"memory\");\n"
+         "        asm volatile(\"cp.async.bulk.commit_group;\\n\" ::: "
+         "\"memory\");\n    }")])
+
+
 def probe_mpc_build(record, B, device, build, rounds=6):
-    """The shipped MPC build against copies with other block sizes and one
-    without P's rows, in interleaved rounds, and the share of each phase's
-    cycles (`MPC_BUILD_CLOCK_SUBS`)."""
+    """The shipped MPC build (the pipelined block) against its first design
+    (its mpc_build.h and .cu, FIRST_MPC_BUILD_H / FIRST_MPC_BUILD_CU,
+    built as a patched copy): P, q, l and u bit for bit on chip_smoke.py
+    phase 3h's inputs (float32 and float64, B = 1, 37 and --batch, mass
+    none and given); then the times in interleaved rounds beside the
+    copies of MPC_HEADER_VARIANTS (1 and 2 producer warps, the launch
+    bounds at 3 blocks, no P rows, the pin's two roundings), the row
+    blocks staged and bulk-stored (MPC_BULK_STORE) and the first design
+    with and without its P rows, each with its share of the bound;
+    the cycles of the producer's steps and the consumers' row blocks
+    (`MPC_BUILD_CLOCK_SUBS`); ptxas' registers and spills of every build.
+    Times are one-launch CUDA graphs' replays."""
+    import threading
+
+    from chip_smoke import mpc_build_bound_ms
+    from chip_smoke import mpc_build_inputs as planned_inputs
     from mpctsid_tpu_torch.mpc import kernels as mk
     from mpctsid_tpu_torch.mpc import srb
 
     cfg = EngineConfig()
     csrc = mk.CSRC
-    specs = {f"{t} threads a block": dict(
-                 subs=[], source="mpc_build.cu", csrc=csrc,
-                 header_subs={"mpc_build.h": [(
-                     "constexpr int THREADS = 384;",
-                     f"constexpr int THREADS = {t};")]})
-             for t in (192, 768)}
-    specs["no P rows"] = dict(
-        subs=[], source="mpc_build.cu", csrc=csrc,
-        header_subs={"mpc_build.h": [(
-            "        if (u < N * n)\n            p_unit(",
-            "        if (u < N * n)\n            continue;\n"
-            "        else if (N < 0)\n            p_unit(")]})
-    specs["clock"] = dict(subs=MPC_BUILD_CLOCK_SUBS, source="mpc_build.cu",
-                          csrc=csrc)
+    shipped_build = threading.Thread(target=_build.build_libraries, args=(
+        kernels.build_specs() + mk.build_specs()
+        + rbd_kernels.build_specs(),))
+    shipped_build.start()
+    first = dict(subs=lambda _: FIRST_MPC_BUILD_CU, source="mpc_build.cu",
+                 csrc=csrc, header_subs={
+                     "mpc_build.h": lambda _: FIRST_MPC_BUILD_H})
+    specs = {"first design": first,
+             "first design, no P rows": dict(first, header_subs={
+                 "mpc_build.h": lambda _: FIRST_MPC_BUILD_H.replace(
+                     "        if (u < N * n)\n            p_unit(",
+                     "        if (u < N * n)\n            continue;\n"
+                     "        else if (N < 0)\n            p_unit(")}),
+             "clock": dict(subs=MPC_BUILD_CLOCK_SUBS, source="mpc_build.cu",
+                           csrc=csrc)}
+    specs.update({name: dict(subs=[], source="mpc_build.cu", csrc=csrc,
+                             header_subs={"mpc_build.h": sub})
+                  for name, sub in MPC_HEADER_VARIANTS.items()})
+    specs.update({name: dict(subs=sub, source="mpc_build.cu", csrc=csrc)
+                  for name, sub in MPC_WAIT_VARIANTS.items()})
+    specs["bulk-stored row blocks"] = dict(
+        subs=MPC_BULK_STORE["cu"], source="mpc_build.cu", csrc=csrc,
+        header_subs={"mpc_build.h": MPC_BULK_STORE["header"]})
     libs = build_variants(specs, build)
-    shipped = mk._library()
-    fns = {"shipped": shipped.mpc_build_launch}
+    shipped_build.join()
+    libs["shipped"] = mk._library()
+    fns = {}
     for name, lib in libs.items():
         lib.mpc_build_launch.argtypes = mk.LAUNCH_ARGTYPES + [ctypes.c_void_p]
         lib.mpc_build_launch.restype = ctypes.c_int
         fns[name] = lib.mpc_build_launch
+    logs = dict(VARIANT_LOGS, shipped=_build.BUILD_LOG.get("mpc_build"))
+    for name in ("shipped", *specs):
+        for row in ptxas_entries(logs.get(name)):
+            record("mpcbuild", what="ptxas", library=name, **row)
 
     def call(name, args):
         stream = torch.cuda.current_stream().cuda_stream
@@ -3291,36 +3462,64 @@ def probe_mpc_build(record, B, device, build, rounds=6):
             raise RuntimeError(f"mpc_build {name}: CUDA error {rc}")
         return outs
 
+    def parted(got, want):
+        return [int((g != w).sum()) for g, w in zip(got, want)]
+
+    # the bits: every build against the first design on planned states
+    inputs = {dt: planned_inputs(max(B, 37), dt, device)
+              for dt in (torch.float32, torch.float64)}
+    for b in sorted({1, 37, B}):
+        for dtype in (torch.float32, torch.float64):
+            for with_mass in (False, True):
+                x, x_ref, feet, cont, mass = (t[:b] for t in inputs[dtype])
+                args = (x, x_ref, feet, cont, mass if with_mass else None)
+                ref = call("first design", args)
+                names = ["shipped"] if b != 37 else [
+                    n for n in fns if n not in MPC_WRONG
+                    and n not in ("first design", "clock")]
+                for name in names:
+                    got = call(name, args)
+                    record("mpcbuild", what="bits", B=b,
+                           dtype=str(dtype)[6:], mass=with_mass,
+                           design=name, parted_vs_first=parted(got, ref),
+                           entries=[int(t.numel()) for t in ref],
+                           symmetric=bool(torch.equal(
+                               got[0], got[0].transpose(1, 2))))
+                del ref
+        torch.cuda.empty_cache()
+    del inputs
+    # the times and the cycles
     for b in sorted({1, B}):
         args = mpc_build_inputs(b, torch.float32, device)
         args64 = mpc_build_inputs(b, torch.float64, device)
-        ship = call("shipped", args)
-        for t in (192, 768):
-            got = call(f"{t} threads a block", args)
-            record("mpcbuild", what="bits", B=b, design=f"{t} threads",
-                   parted_vs_shipped=sum(int((x != y).sum())
-                                         for x, y in zip(ship, got)))
         designs = {name: (lambda name=name: call(name, args))
                    for name in fns if name != "clock"}
         designs["shipped, float64"] = lambda: call("shipped", args64)
+        designs["first design, float64"] = lambda: call("first design",
+                                                         args64)
         replays = {name: graphed(c) for name, c in designs.items()}
-        interleaved(record, "mpcbuild", replays, rounds, warmup=2,
-                    reps=10 if b > 1 else 50, B=b)
+        med = interleaved(record, "mpcbuild", replays, rounds, warmup=2,
+                          reps=10 if b > 1 else 50, B=b)
+        for name, ms in med.items():
+            bound = mpc_build_bound_ms(
+                b, 16, torch.float64 if "float64" in name else torch.float32)
+            record("mpcbuild", what="share of the bound", B=b, design=name,
+                   ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                   share=round(bound[0] / ms, 4))
         del replays
         call("clock", args)
-        stamps = np.zeros(40 * 4096, dtype=np.int64)
+        torch.cuda.synchronize()
+        stamps = np.zeros(MPC_STAMPS * MPC_STAMP_BLOCKS, dtype=np.int64)
         rc = libs["clock"].mpc_build_stamps(
             stamps.ctypes.data_as(ctypes.c_void_p), stamps.size)
         if rc != 0:
             raise RuntimeError(f"mpc_build_stamps: CUDA error {rc}")
-        st = stamps.reshape(4096, 40)[:min(b, 4096)].astype(np.float64)
-        total = st[:, 35] - st[:, 0]
-        for phase, i, j in MPC_BUILD_PHASES:
-            cyc = st[:, j] - st[:, i]
-            record("mpcbuild", what="share of a block's cycles", B=b,
-                   phase=phase, share=round(float((cyc / total).mean()), 4),
+        st = stamps.reshape(MPC_STAMP_BLOCKS, MPC_STAMPS)[
+            :min(b, MPC_STAMP_BLOCKS)].astype(np.float64)
+        for phase, cyc in mpc_build_phases(st).items():
+            record("mpcbuild", what="cycles of a block", B=b, phase=phase,
                    mean_cycles=float(cyc.mean()))
-        del args, args64, ship
+        del args, args64
         torch.cuda.empty_cache()
 
 
@@ -3354,8 +3553,8 @@ TAIL_CLOCK_SUBS = [
     ("    __device__ void sync() const { __syncthreads(); }",
      "    __device__ void sync() const\n    {\n        __syncthreads();\n"
      "        stamp(blockIdx.x, k++, threadIdx.x == 0);\n    }"),
-    ("    tail::UnLane<T> s;\n    int lane;\n",
-     "    tail::UnLane<T> s;\n    int lane;\n    long long unit = 1LL << 40;\n"
+    ("    Lane s;\n    int lane;\n",
+     "    Lane s;\n    int lane;\n    long long unit = 1LL << 40;\n"
      "    mutable int k = 0;\n"),
     ("    __device__ void sync() const { __syncwarp(); }",
      "    __device__ void sync() const\n    {\n        __syncwarp();\n"
@@ -3382,11 +3581,28 @@ TAIL_CLOCK_SUBS = [
      "    tail::unscale_block<T>(ex, a, s, (long long)blockIdx.x,\n"
      "                           reinterpret_cast<T*>(smem));\n"
      "    __syncthreads();\n    stamp(blockIdx.x, ex.k, threadIdx.x == 0);\n}"),
-    # unscale's two-slot warp path: a scenario's wait, then its barriers
+    # adapt_rho's block path: start, its barriers, end
+    ("    tail::adapt_block<T>(BlockExec{}, a, s, (long long)blockIdx.x,\n"
+     "                         reinterpret_cast<double*>(smem));\n}",
+     "    const BlockExec ex{};\n    stamp(blockIdx.x, 0, threadIdx.x == 0);\n"
+     "    tail::adapt_block<T>(ex, a, s, (long long)blockIdx.x,\n"
+     "                         reinterpret_cast<double*>(smem));\n"
+     "    __syncthreads();\n    stamp(blockIdx.x, ex.k, threadIdx.x == 0);\n}"),
+    # the two-slot warp paths: a scenario's wait, then its barriers
     ("        barrier_wait(bars + cur, (k >> 1) & 1);\n",
-     "        ex.unit = b;\n        ex.k = 2;\n        stamp(b, 0, ex.lane == 0);\n"
+     "        stamp(b, 0, lane == 0);\n"
      "        barrier_wait(bars + cur, (k >> 1) & 1);\n"
-     "        stamp(b, 1, ex.lane == 0);\n"),
+     "        stamp(b, 1, lane == 0);\n"),
+    ("        [&](long long b, const T* Ps) {\n"
+     "            tail::unscale_warp_rows(",
+     "        [&](long long b, const T* Ps) {\n"
+     "            ex.unit = b;\n            ex.k = 2;\n"
+     "            tail::unscale_warp_rows("),
+    ("        [&](long long b, const T* Ps) {\n"
+     "            tail::adapt_warp_rows(",
+     "        [&](long long b, const T* Ps) {\n"
+     "            ex.unit = b;\n            ex.k = 2;\n"
+     "            tail::adapt_warp_rows("),
     ('extern "C" {\n',
      'extern "C" {\n\nint solve_tail_stamps(long long* out, int n)\n{\n'
      "    return (int)cudaMemcpyFromSymbol(out, tail_stamps,\n"
@@ -3400,7 +3616,11 @@ TAIL_PHASES = {
     "block": ["x, y", "products (P's rows streamed)", "row sums, z",
               "partial maxima", "prim, dual, ok"],
     "warp": ["waiting for the scenario's P and A", "x, y",
-             "products, maxima, stores"]}
+             "products, maxima, stores"],
+    "adapt block": ["x, y", "products (P's rows streamed)", "row sums",
+                    "the maxima (shuffles, one warp over the warps), rho"],
+    "adapt warp": ["waiting for the scenario's P and A", "x, y",
+                   "products, the maxima by shuffles, rho"]}
 # patched copies of solve_tail.h that undo or push one choice each
 TAIL_HEADER_VARIANTS = {
     "4 pieces a thread": ("constexpr int KKT_PIECES = 8;",
@@ -3412,7 +3632,11 @@ TAIL_HEADER_VARIANTS = {
     "4 rows a group": ("constexpr int ROW_GROUP = 2;",
                        "constexpr int ROW_GROUP = 4;"),
     "rows' loads by j": ("constexpr int STREAM_NQ = 6;",
-                         "constexpr int STREAM_NQ = 0;")}
+                         "constexpr int STREAM_NQ = 0;"),
+    "adapt: 2 rows a group": ("constexpr int ADAPT_ROW_GROUP = 4;",
+                              "constexpr int ADAPT_ROW_GROUP = 2;"),
+    "adapt: 8 rows a group": ("constexpr int ADAPT_ROW_GROUP = 4;",
+                              "constexpr int ADAPT_ROW_GROUP = 8;")}
 
 # unscale's block path with P's rows by bulk copy through a ring of `slots`
 # chunks of `rows` rows in shared memory (each chunk's mbarrier, the next
@@ -3451,7 +3675,7 @@ struct RingExec : BlockExec {
             const int r0 = c * RING_ROWS;
             const int rows = n - r0 < RING_ROWS ? n - r0 : RING_ROWS;
             barrier_wait(bars + c %% RING_SLOTS, (c / RING_SLOTS) & 1);
-            tail::row_groups<NQ>(BlockExec{},
+            tail::row_groups<NQ, tail::ROW_GROUP>(BlockExec{},
                                  ring + (long long)(c %% RING_SLOTS)
                                             * RING_ROWS * n,
                                  rows, n, x, lanes, ld, r0);
@@ -3491,14 +3715,15 @@ def tail_ring_subs(rows, slots):
     them from device memory as the shipped body does)."""
     def sub(src):
         src = src.replace(
-            "    __device__ void sync() const { __syncthreads(); }\n};",
+            "    __device__ void sync() const { __syncthreads(); }\n",
             "    __device__ void sync() const { __syncthreads(); }\n"
             "    template <int NQ, typename T>\n"
             "    __device__ void p_rows(const T* P, const T* x, T* lanes,\n"
             "                           int ld, int n) const\n    {\n"
-            "        tail::row_groups<NQ>(*this, P, n, n, x, lanes, ld, 0);\n"
-            "    }\n};", 1)
-        at = src.index("// unscale's warp path, one slot:")
+            "        tail::row_groups<NQ, tail::ROW_GROUP>(*this, P, n, n, x,\n"
+            "                                              lanes, ld, 0);\n"
+            "    }\n", 1)
+        at = src.index("// the warp paths, one slot:")
         src = (src[:at] + TAIL_RING_KERNEL % dict(rows=rows, slots=slots)
                + src[at:])
         old = ("        err = set_smem(tail_unscale_kernel_block<T>, smem);\n"
@@ -3522,8 +3747,10 @@ def tail_ring_subs(rows, slots):
 
 # ... and the body asking its executor for P's rows' partials
 TAIL_RING_HEADER = [
-    ("    row_groups<NQ>(ex, P, n, n, S.x, S.lanes, ld, 0);\n",
-     "    ex.template p_rows<NQ>(P, S.x, S.lanes, ld, n);\n")]
+    ("    row_groups<NQ, ROW_GROUP>(ex, P, n, n, S.x, S.lanes, ld, 0);\n"
+     "    ex.sync();\n    // P x; A x of a dense A;",
+     "    ex.template p_rows<NQ>(P, S.x, S.lanes, ld, n);\n    ex.sync();\n"
+     "    // P x; A x of a dense A;")]
 # the pieces a thread of kkt_blocks takes in each build
 TAIL_PIECES = {"4 pieces a thread": 4, "16 pieces a thread": 16}
 
@@ -3672,7 +3899,7 @@ def probe_tail(record, B, device, smem, n_sm, build, rounds=6):
         units = min(geometry[1] if path != "warp" else b, TAIL_STAMP_UNITS)
         st = st.reshape(TAIL_STAMP_UNITS, TAIL_STAMPS)[:units].astype(
             np.float64)
-        names = TAIL_PHASES[path]
+        names = TAIL_PHASES.get(f"{entry} {path}", TAIL_PHASES[path])
         total = st[:, len(names)] - st[:, 0]
         for k, phase in enumerate(names):
             cyc = st[:, k + 1] - st[:, k]
@@ -3730,16 +3957,43 @@ def probe_tail(record, B, device, smem, n_sm, build, rounds=6):
                       kkt_bound_ms(b, n, m, blocks, a_shared(As)), kd)
                 del P_sig, AtR, A_b
                 phases("kkt", shape, b, args_of["kkt"], lay.geometry, "tiles")
-            # adapt_rho: its design kept; bits against the first build
-            lay_a = tail.adapt_layout(n, m, b, smem, blocks is None)
-            timed("adapt", shape, b,
-                  {"shipped": lambda: call("shipped", "adapt",
-                                           args_of["adapt"], lay_a.geometry),
-                   "first design": lambda: call(
-                       "first design", "adapt", args_of["adapt"],
-                       first_tail_geometry("adapt", b, n, m, n_sm))},
-                  tail_bound_ms(b, n, m, nz, a_shared(As), False),
-                  {"shipped": ("shipped", lay_a.geometry)})
+            # adapt_rho: the epilogue's layouts, beside those not chosen
+            lay = tail.adapt_layout(n, m, b, smem, n_sm, blocks is None)
+            kd = {"shipped": ("shipped", lay.geometry)}
+            if lay.path == "warp":
+                for w in (1, 2, 4, 8):
+                    if 32 * w != lay.threads:
+                        kd[f"{w} warps a block"] = (
+                            "shipped", (32 * w, min(-(-b // w), n_sm), 2))
+                w = lay.threads // 32
+                kd["one slot, the lanes staging"] = (
+                    "shipped", (lay.threads, -(-b // w), 1))
+                kd["block path"] = ("shipped", (512, b, 32))
+            else:
+                for t in (256, 512, 1024):
+                    if t != lay.threads:
+                        kd[f"{t} threads"] = ("shipped", (t, b, 32))
+                for name in ("adapt: 2 rows a group", "adapt: 8 rows a group",
+                             "rows' loads by j"):
+                    kd[name] = (name, lay.geometry)
+            got = call("shipped", "adapt", args_of["adapt"], lay.geometry)
+            ordered = tail.adapt_in_order(*args_of["adapt"], lanes=lay.lanes)
+            record("tail", what="bits", kernel="adapt", shape=shape, B=b,
+                   design="shipped against adapt_in_order",
+                   parted=parted(got, (ordered,)))
+            del got, ordered
+            designs = {name: (lambda lib=lib, g=g: call(
+                           lib, "adapt", args_of["adapt"], g))
+                       for name, (lib, g) in kd.items()}
+            designs["first design"] = lambda: call(
+                "first design", "adapt", args_of["adapt"],
+                first_tail_geometry("adapt", b, n, m, n_sm))
+            designs["plain: _adapt_rho"] = lambda: admm._adapt_rho(
+                *args_of["adapt"][:7])
+            timed("adapt", shape, b, designs,
+                  tail_bound_ms(b, n, m, nz, a_shared(As), False), kd)
+            phases("adapt", shape, b, args_of["adapt"], lay.geometry,
+                   lay.path)
             # unscale
             lay = tail.tail_layout(n, m, b, smem, n_sm, blocks is None)
             kd = {"shipped": ("shipped", lay.geometry)}
@@ -4452,6 +4706,557 @@ int solve_tail_unscale_launch(int dtype, const void* const* in,
 }
 
 const char* solve_tail_error_string(int code)
+{
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
+"""
+
+
+# The first design of the MPC QP build: mpc/csrc/mpc_build.h and
+# mpc_build.cu before the pipeline, verbatim, built as a patched copy: a
+# block of 384 threads a scenario, its phases one after another between
+# __syncthreads(), P after the whole recursion, all 12 rows of every Su
+# block in shared memory (22,704 values at N = 16).
+FIRST_MPC_BUILD_H = r"""// The per-scenario body of the MPC QP build kernel (mpc_build.cu):
+// mpc/srb.py's `build_mpc_qp`, the condensed centroidal MPC QP (P, q, l, u)
+// of one scenario over its horizon's structure.
+//
+// Plain C++: every function is marked MPCB_FN, `__host__ __device__` under
+// nvcc and plain `inline` under a host compiler, so the tests build this
+// very arithmetic with g++ and run it on the CPU
+// (tests/test_torch_mpc_build_kernel.py).  The body runs in phases over
+// units (`MPCB_UNITS(ex, u, count)`) with a barrier between phases
+// (`ex.sync()`): on the card (mpc_build.cu's BlockExec) a block's threads
+// take the units in turn and the barrier is __syncthreads(); on the host
+// (HostExec) one thread runs every unit of a phase, in order or reversed.
+// A unit never reads what another unit writes in its own phase.
+//
+// What it computes, per scenario (A_k = I + E_k is the one-step model of
+// step k: dt I at (0:3, 6:9), M_k = dt Rz_k' at (3:6, 9:12); Q = diag(q)):
+//
+//   1. the N one-step models (srb_discrete): M_k, and B_k (rows 6:9 dt / m
+//      per foot, rows 9:12 dt I_w^-1 [r_f]x with the closed-form inverse of
+//      the world inertia Rz I_b Rz'), B_k kept as Su's diagonal block;
+//   2. the drift: x_{k+1} = A_k x_k + c_k from x0, d_k = x_{k+1} - x_ref_k;
+//      and Su's blocks Su_{k,j} = A_k ... A_{j+1} B_j (j < k), a thread a
+//      column of B_j walking k;
+//   3. backwards, S_{N-1} = Q, S_j = Q + A_{j+1}' S_{j+1} A_{j+1}, g_{N-1}
+//      = Q d_{N-1}, g_j = Q d_j + A_{j+1}' g_{j+1}; W_j = S_j B_j and
+//      q_j = B_j' g_j (the sums over B's nonzero rows 6:12);
+//   4. P_ij = Su_{j,i}' W_j for i <= j, every entry a 12-term dot product of
+//      a column of a Su block and a column of a W block, P_ji = P_ij' by the
+//      same expression (so P is exactly symmetric); the diagonal
+//      (P_ii + w_force) + pin, in the plain version's order; the bound rows
+//      l and u by the plain version's selects on contacts > 0.5.
+//
+// Bits.  P and q are the plain version's function in another order of
+// sums (its P is Su' diag(Q) Su by cuBLAS, not even exactly symmetric):
+// held to it within a tolerance, in float32 against the float64 plain
+// version.  Each dot product is a chain of fused multiply-adds in a fixed
+// order (`dot12`), so two launches agree bit for bit and an entry and its
+// mirror are the same value.  l and u are the plain version's bit for bit.
+//
+// Shapes: x0 (12), x_ref (N, 12), feet (N, 4, 3), contacts (N, 4), mass
+// (1, optional) a scenario, each a first row plus a stride in elements (0
+// for a row shared by every scenario); P (n, n), q (n), l, u (m)
+// contiguous, n = 12 N, m = 20 N.
+
+#pragma once
+
+#include <math.h>
+
+#if defined(__CUDACC__)
+#define MPCB_FN __host__ __device__ __forceinline__
+#else
+#define MPCB_FN inline
+#endif
+
+// the units of a phase: on the card this thread's, on the host all of them
+#define MPCB_UNITS(ex, u, count)                                            \
+    for (int u = (ex).first(count); u >= 0 && u < (count); u = (ex).next(u))
+
+namespace mpcb {
+
+constexpr int NX = 12;          // state
+constexpr int NU = 12;          // input: four feet's forces
+constexpr int FEET = 4;
+constexpr int ROWS_PER_FOOT = 5;
+constexpr int BLK = NX * NU;    // values of a 12 x 12 block
+constexpr int THREADS = 384;    // a block's threads: two rows of P at once
+
+// ---- operands, in the order of the launcher's arrays
+enum In { IN_X0, IN_XREF, IN_FEET, IN_CONTACTS, IN_MASS, IN_COUNT };
+enum Out { OUT_P, OUT_Q, OUT_L, OUT_U, OUT_COUNT };
+// dt; c_8 = -dt g; w_force; the ridge w_pin; fz_min, fz_max; the finite
+// infinity of the bounds; dt / model mass; 1 if the mass input is given;
+// diag(Q) (12); the body inertia I_b (3 x 3, row-major)
+enum Par { PAR_DT, PAR_C8, PAR_W_FORCE, PAR_W_PIN, PAR_FZ_MIN, PAR_FZ_MAX,
+           PAR_INF, PAR_DT_OVER_M, PAR_HAS_MASS, PAR_Q,
+           PAR_IB = PAR_Q + NX, PAR_COUNT = PAR_IB + 9 };
+
+// inputs, outputs, parameters, threads a block (mpc/kernels.py::LAYOUT;
+// -1 past the end)
+inline int layout(int what)
+{
+    const int counts[] = {IN_COUNT, OUT_COUNT, PAR_COUNT, THREADS};
+    return what >= 0 && what < (int)(sizeof(counts) / sizeof(int))
+               ? counts[what] : -1;
+}
+
+// Su's blocks before block row j: block (j, i), j >= i, is tri(j) + i
+MPCB_FN int tri(int j) { return j * (j + 1) / 2; }
+
+// values of a scenario's shared memory: Su's N (N + 1) / 2 blocks, the N
+// W_j, S and S A_j, the N M_k (3 x 3), the drifts d and the g_j (N x 12)
+MPCB_FN long long smem_values(int N)
+{
+    return (long long)(tri(N) + N + 2) * BLK + 9LL * N + 2LL * NX * N;
+}
+
+template <typename T>
+struct Smem {
+    T* su;
+    T* w;
+    T* s;
+    T* t;
+    T* m;
+    T* d;
+    T* g;
+
+    MPCB_FN Smem(T* base, int N)
+        : su(base), w(su + (long long)tri(N) * BLK), s(w + N * BLK),
+          t(s + BLK), m(t + BLK), d(m + 9 * N), g(d + NX * N)
+    {
+    }
+};
+
+template <typename T>
+struct Args {
+    const T* in[IN_COUNT];
+    long long stride[IN_COUNT];
+    T* out[OUT_COUNT];
+    T par[PAR_COUNT];
+
+    MPCB_FN const T* row(int k, long long b) const
+    {
+        return in[k] + b * stride[k];
+    }
+};
+
+// the launcher's arrays -> Args (host side: the kernel takes Args by value)
+template <typename T>
+inline void fill(Args<T>& a, const void* const* in, const long long* stride,
+                 void* const* out, const double* par)
+{
+    for (int k = 0; k < IN_COUNT; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < OUT_COUNT; ++k) a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < PAR_COUNT; ++k) a.par[k] = (T)par[k];
+}
+
+MPCB_FN float mb_sin(float a) { return sinf(a); }
+MPCB_FN double mb_sin(double a) { return sin(a); }
+MPCB_FN float mb_cos(float a) { return cosf(a); }
+MPCB_FN double mb_cos(double a) { return cos(a); }
+MPCB_FN float mb_fma(float a, float b, float c) { return fmaf(a, b, c); }
+MPCB_FN double mb_fma(double a, double b, double c) { return fma(a, b, c); }
+
+// sum_e x[e sx] y[e sy] over the 12 rows, a chain of fused multiply-adds
+// from e = 0: every entry of P and its mirror go through it alike
+template <typename T>
+MPCB_FN T dot12(const T* x, int sx, const T* y, int sy)
+{
+    T acc = x[0] * y[0];
+    for (int e = 1; e < NX; ++e) acc = mb_fma(x[e * sx], y[e * sy], acc);
+    return acc;
+}
+
+// v <- A_k v in place (rows 0:6 read only rows 6:12, which stay)
+template <typename T>
+MPCB_FN void apply_a(const T* M, T dt, T* v)
+{
+    for (int i = 0; i < 3; ++i) v[i] = v[i] + dt * v[6 + i];
+    for (int i = 0; i < 3; ++i)
+        v[3 + i] = v[3 + i] + (M[3 * i] * v[9] + M[3 * i + 1] * v[10]
+                               + M[3 * i + 2] * v[11]);
+}
+
+// (A_k' v)[c] for v[e] = v[e * sv]: column c of A_k has its 1 and, for
+// c in 6:9, dt at row c - 6, for c in 9:12, M_k's column c - 9 at rows 3:6
+template <typename T>
+MPCB_FN T at_entry(const T* M, T dt, const T* v, int sv, int c)
+{
+    if (c < 6) return v[c * sv];
+    if (c < 9) return v[c * sv] + dt * v[(c - 6) * sv];
+    const int m = c - 9;
+    return v[c * sv] + (M[m] * v[3 * sv] + M[3 + m] * v[4 * sv]
+                        + M[6 + m] * v[5 * sv]);
+}
+
+// ---- 1. step k's model as seen from foot f: B_k's columns 3f:3f+3 into
+// Su's diagonal block k, and (f = 0) M_k
+template <typename T>
+MPCB_FN void model_unit(const Args<T>& a, long long b, int k, int f,
+                        const Smem<T>& sm)
+{
+    const T* xr = a.row(IN_XREF, b) + k * NX;
+    const T* ft = a.row(IN_FEET, b) + (k * FEET + f) * 3;
+    const T dt = a.par[PAR_DT];
+    const T* Ib = a.par + PAR_IB;
+    const T c = mb_cos(xr[5]), s = mb_sin(xr[5]);
+    const T R[9] = {c, -s, (T)0, s, c, (T)0, (T)0, (T)0, (T)1};
+    // I_w = (Rz I_b) Rz'
+    T X[9], W[9];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            X[3 * i + j] = R[3 * i] * Ib[j] + R[3 * i + 1] * Ib[3 + j]
+                           + R[3 * i + 2] * Ib[6 + j];
+    for (int i = 0; i < 3; ++i)
+        for (int j = 0; j < 3; ++j)
+            W[3 * i + j] = X[3 * i] * R[3 * j] + X[3 * i + 1] * R[3 * j + 1]
+                           + X[3 * i + 2] * R[3 * j + 2];
+    // qp/blockinv.py::inv3: the adjugate over the determinant
+    const T A00 = W[4] * W[8] - W[5] * W[7];
+    const T A01 = W[2] * W[7] - W[1] * W[8];
+    const T A02 = W[1] * W[5] - W[2] * W[4];
+    const T A10 = W[5] * W[6] - W[3] * W[8];
+    const T A11 = W[0] * W[8] - W[2] * W[6];
+    const T A12 = W[2] * W[3] - W[0] * W[5];
+    const T A20 = W[3] * W[7] - W[4] * W[6];
+    const T A21 = W[1] * W[6] - W[0] * W[7];
+    const T A22 = W[0] * W[4] - W[1] * W[3];
+    const T det = W[0] * A00 + W[1] * A10 + W[2] * A20;
+    const T inv[9] = {A00 / det, A01 / det, A02 / det, A10 / det, A11 / det,
+                      A12 / det, A20 / det, A21 / det, A22 / det};
+    // [r]x, r = foot - p_ref
+    const T r0 = ft[0] - xr[0], r1 = ft[1] - xr[1], r2 = ft[2] - xr[2];
+    const T K[9] = {(T)0, -r2, r1, r2, (T)0, -r0, -r1, r0, (T)0};
+    // dt / m: the model's (a parameter) or reciprocal(m) * dt (PyTorch's
+    // Python number over a tensor)
+    const T bv = a.par[PAR_HAS_MASS] != (T)0
+                     ? ((T)1 / a.row(IN_MASS, b)[0]) * dt
+                     : a.par[PAR_DT_OVER_M];
+    T* Bk = sm.su + (long long)(tri(k) + k) * BLK;
+    for (int j = 0; j < 3; ++j) {
+        const int col = 3 * f + j;
+        for (int e = 0; e < 6; ++e) Bk[e * NU + col] = (T)0;
+        for (int e = 0; e < 3; ++e)
+            Bk[(6 + e) * NU + col] = e == j ? bv : (T)0;
+        for (int e = 0; e < 3; ++e)
+            Bk[(9 + e) * NU + col] =
+                dt * (inv[3 * e] * K[j] + inv[3 * e + 1] * K[3 + j]
+                      + inv[3 * e + 2] * K[6 + j]);
+    }
+    if (f == 0)
+        for (int i = 0; i < 3; ++i)
+            for (int j = 0; j < 3; ++j)
+                sm.m[9 * k + 3 * i + j] = dt * R[3 * j + i];
+}
+
+// ---- 2. column c of Su's block column i: B_i's column, then A_k applied
+// for k = i + 1 ... N - 1, each written into block (k, i)
+template <typename T>
+MPCB_FN void su_unit(const Args<T>& a, int N, int i, int c, const Smem<T>& sm)
+{
+    const T dt = a.par[PAR_DT];
+    T v[NX];
+    const T* Bi = sm.su + (long long)(tri(i) + i) * BLK;
+    for (int e = 0; e < NX; ++e) v[e] = Bi[e * NU + c];
+    for (int k = i + 1; k < N; ++k) {
+        apply_a(sm.m + 9 * k, dt, v);
+        T* blk = sm.su + (long long)(tri(k) + i) * BLK;
+        for (int e = 0; e < NX; ++e) blk[e * NU + c] = v[e];
+    }
+}
+
+// the free response from x0 and its drift from the reference
+template <typename T>
+MPCB_FN void drift_unit(const Args<T>& a, int N, long long b,
+                        const Smem<T>& sm)
+{
+    const T* x0 = a.row(IN_X0, b);
+    const T* xr = a.row(IN_XREF, b);
+    const T dt = a.par[PAR_DT];
+    T x[NX];
+    for (int e = 0; e < NX; ++e) x[e] = x0[e];
+    for (int k = 0; k < N; ++k) {
+        apply_a(sm.m + 9 * k, dt, x);
+        x[8] = x[8] + a.par[PAR_C8];
+        for (int e = 0; e < NX; ++e) sm.d[k * NX + e] = x[e] - xr[k * NX + e];
+    }
+}
+
+// ---- 4. rows 12 i ... 12 i + 11 of P at column col
+template <typename T>
+MPCB_FN void p_unit(const Args<T>& a, int N, long long b, int i, int col,
+                    const Smem<T>& sm)
+{
+    const int n = N * NU, j = col / NU, c = col % NU;
+    T* P = a.out[OUT_P] + b * n * n + (long long)(NX * i) * n + col;
+    if (j > i) {
+        // P_ij[r][c] = Su_{j,i}[:, r] . W_j[:, c]
+        const T* su = sm.su + (long long)(tri(j) + i) * BLK;
+        T y[NX];
+        for (int e = 0; e < NX; ++e) y[e] = sm.w[j * BLK + e * NU + c];
+        for (int r = 0; r < NX; ++r)
+            P[(long long)r * n] = dot12(su + r, NU, y, 1);
+    } else if (j < i) {
+        // P_ij = P_ji': P_ij[r][c] = Su_{i,j}[:, c] . W_i[:, r]
+        const T* su = sm.su + (long long)(tri(i) + j) * BLK;
+        T x[NX];
+        for (int e = 0; e < NX; ++e) x[e] = su[e * NU + c];
+        for (int r = 0; r < NX; ++r)
+            P[(long long)r * n] = dot12(x, 1, sm.w + i * BLK + r, NU);
+    } else {
+        // the diagonal block B_i' S_i B_i: its upper triangle as above,
+        // the lower one as the mirror's expression
+        const T* su = sm.su + (long long)(tri(i) + i) * BLK;
+        const T* w = sm.w + i * BLK;
+        const T pin = a.par[PAR_W_PIN]
+                      * ((T)1 - a.row(IN_CONTACTS, b)[i * FEET + c / 3]);
+        for (int r = 0; r < NX; ++r) {
+            T v = r <= c ? dot12(su + r, NU, w + c, NU)
+                         : dot12(su + c, NU, w + r, NU);
+            if (r == c) v = (v + a.par[PAR_W_FORCE]) + pin;
+            P[(long long)r * n] = v;
+        }
+    }
+}
+
+// the pyramid rows of (step, foot) kf: stance feet get the friction
+// pyramid and the normal-force box, swing feet free rows
+template <typename T>
+MPCB_FN void bounds_unit(const Args<T>& a, int N, long long b, int kf)
+{
+    const int m = N * FEET * ROWS_PER_FOOT;
+    const bool stance = a.row(IN_CONTACTS, b)[kf] > (T)0.5;
+    const T inf = a.par[PAR_INF], ninf = -a.par[PAR_INF], zero = (T)0;
+    T* l = a.out[OUT_L] + b * m + ROWS_PER_FOOT * kf;
+    T* u = a.out[OUT_U] + b * m + ROWS_PER_FOOT * kf;
+    l[0] = ninf;
+    l[1] = stance ? zero : ninf;
+    l[2] = ninf;
+    l[3] = stance ? zero : ninf;
+    l[4] = stance ? a.par[PAR_FZ_MIN] : ninf;
+    u[0] = stance ? zero : inf;
+    u[1] = inf;
+    u[2] = stance ? zero : inf;
+    u[3] = inf;
+    u[4] = stance ? a.par[PAR_FZ_MAX] : inf;
+}
+
+// ---- the scenario b, in phases over the executor's units; `base` holds
+// smem_values(N) values
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <typename T, class Exec>
+MPCB_FN void build_scenario(const Exec& ex, const Args<T>& a, int N,
+                            long long b, T* base)
+{
+    const Smem<T> sm(base, N);
+    const int n = N * NU;
+    const T dt = a.par[PAR_DT];
+    const T* Q = a.par + PAR_Q;
+    T* q = a.out[OUT_Q] + b * n;
+
+    MPCB_UNITS(ex, u, N * FEET) model_unit(a, b, u / FEET, u % FEET, sm);
+    ex.sync();
+    MPCB_UNITS(ex, u, N * NU + 1) {
+        if (u < N * NU)
+            su_unit(a, N, u / NU, u % NU, sm);
+        else
+            drift_unit(a, N, b, sm);
+    }
+    ex.sync();
+    // S_{N-1} = Q, g_{N-1} = Q d_{N-1}
+    MPCB_UNITS(ex, u, BLK + NX) {
+        if (u < BLK)
+            sm.s[u] = u / NU == u % NU ? Q[u / NU] : (T)0;
+        else
+            sm.g[(N - 1) * NX + u - BLK] =
+                Q[u - BLK] * sm.d[(N - 1) * NX + u - BLK];
+    }
+    ex.sync();
+    for (int j = N - 1;; --j) {
+        const T* Bj = sm.su + (long long)(tri(j) + j) * BLK;
+        const T* gj = sm.g + j * NX;
+        const T* Mj = sm.m + 9 * j;
+        // W_j = S_j B_j and q_j = B_j' g_j over B's rows 6:12; T = S_j A_j
+        MPCB_UNITS(ex, u, 2 * BLK + NX) {
+            if (u < BLK) {
+                const int r = u / NU, c = u % NU;
+                T v = sm.s[r * NX + 6] * Bj[6 * NU + c];
+                for (int e = 7; e < NX; ++e)
+                    v = v + sm.s[r * NX + e] * Bj[e * NU + c];
+                sm.w[j * BLK + u] = v;
+            } else if (u < 2 * BLK) {
+                const int e = u - BLK;
+                if (j > 0) sm.t[e] = at_entry(Mj, dt, sm.s + (e / NX) * NX,
+                                              1, e % NX);
+            } else {
+                const int c = u - 2 * BLK;
+                T v = Bj[6 * NU + c] * gj[6];
+                for (int e = 7; e < NX; ++e) v = v + Bj[e * NU + c] * gj[e];
+                q[NU * j + c] = v;
+            }
+        }
+        if (j == 0) break;
+        ex.sync();
+        // S_{j-1} = Q + A_j' (S_j A_j), g_{j-1} = Q d_{j-1} + A_j' g_j
+        MPCB_UNITS(ex, u, BLK + NX) {
+            if (u < BLK) {
+                const int r = u / NX, c = u % NX;
+                const T qd = r == c ? Q[r] : (T)0;
+                sm.s[u] = qd + at_entry(Mj, dt, sm.t + c, NX, r);
+            } else {
+                const int e = u - BLK;
+                sm.g[(j - 1) * NX + e] = Q[e] * sm.d[(j - 1) * NX + e]
+                                         + at_entry(Mj, dt, gj, 1, e);
+            }
+        }
+        ex.sync();
+    }
+    ex.sync();
+    MPCB_UNITS(ex, u, N * n + N * FEET) {
+        if (u < N * n)
+            p_unit(a, N, b, u / n, u % n, sm);
+        else
+            bounds_unit(a, N, b, u - N * n);
+    }
+}
+
+#if !defined(__CUDA_ARCH__)
+// the host executor: one thread runs every unit of a phase, in order or
+// reversed
+struct HostExec {
+    bool reverse;
+
+    int first(int n) const { return reverse ? n - 1 : 0; }
+    int next(int u) const { return reverse ? u - 1 : u + 1; }
+    void sync() const {}
+};
+#endif
+
+}  // namespace mpcb
+"""
+
+FIRST_MPC_BUILD_CU = r"""// The MPC QP build in one launch — CUDA, sm_90a.
+//
+// Computes mpc/srb.py::build_mpc_qp's (P, q, l, u) for a batch: the N
+// one-step SRB models, the condensation over the horizon and the QP's cost
+// and bound rows (its constraint matrix is a constant the wrapper hands
+// back as a stride-0 view).  The JAX package has no Pallas kernel here: it
+// leaves this stage to XLA under `jax.jit` (mpctsid_tpu/mpc/srb.py:120).
+// Run op by op the plain PyTorch chain is about 196 kernels a call (16
+// steps of three torch.bmm, the stacks, the dense Su' diag(Q) Su, the
+// bound selects), each 1.3-1.9 us of a CUDA graph's replay at B = 1; at
+// B = 4096 its dense P is 58 GFLOP and Su 604 MB of traffic.
+//
+// What bounds it on this card: bytes.  Over the horizon's structure
+// (each A_k is I plus two 3 x 3 blocks, Su block lower-triangular, Q
+// diagonal) a scenario needs about 1 MFLOP, and writes P: 147 KB in
+// float32 (192 x 192), 604 MB at B = 4096, 0.19 ms at 3.35 TB/s.
+//
+// Design (first): a block of 384 threads per scenario, the body of
+// mpc_build.h (shared with the CPU tests' host executor) in phases between
+// __syncthreads(): the models (a thread a step and foot), Su's 136 blocks
+// (a thread a column of B_j walking the horizon) and the drift, the
+// backward recursion of S_j and g_j (16 steps of two phases: a thread an
+// entry), then P: a thread a (row block, column), its column of W_j or of a
+// Su block in registers, writing 12 rows, so a warp stores 32 consecutive
+// values of a row.  Su, W, S and the drifts stay in dynamic shared memory
+// (mpcb::smem_values(16) = 22,704 values: 91 KB in float32, two blocks a
+// multiprocessor; 182 KB in float64, one).  No atomics, every sum in a
+// fixed order: two launches agree bit for bit.  float and double (the
+// contract's float64 condensation).
+//
+// Launch: mpc_build_launch(dtype, B, N, in, stride, out, par, stream) with
+// the arrays in mpc_build.h's In / Out / Par order (the mass input may be
+// null when PAR_HAS_MASS is 0); dtype 0 float, 1 double.  Returns a
+// cudaError_t (0 on success; cudaErrorInvalidValue when the shared memory
+// of N does not fit the device); launches on `stream` and allocates
+// nothing.
+
+#include <cuda_runtime.h>
+
+#include "mpc_build.h"
+
+namespace {
+
+struct BlockExec {
+    __device__ int first(int) const { return (int)threadIdx.x; }
+    __device__ int next(int u) const { return u + (int)blockDim.x; }
+    __device__ void sync() const { __syncthreads(); }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(mpcb::THREADS)
+mpc_build_kernel(const mpcb::Args<T> a, int N)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const BlockExec ex{};
+    mpcb::build_scenario<T>(ex, a, N, (long long)blockIdx.x,
+                            reinterpret_cast<T*>(smem));
+}
+
+template <typename T>
+int launch(int B, int N, const void* const* in, const long long* stride,
+           void* const* out, const double* par, cudaStream_t stream)
+{
+    mpcb::Args<T> a;
+    mpcb::fill(a, in, stride, out, par);
+    int dev, optin;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    const long long smem = mpcb::smem_values(N) * (long long)sizeof(T);
+    if (smem > optin) return (int)cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(mpc_build_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    mpc_build_kernel<T><<<B, mpcb::THREADS, (size_t)smem, stream>>>(a, N);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// mpc_build.h's counts (mpc/kernels.py::LAYOUT)
+int mpc_build_layout(int what) { return mpcb::layout(what); }
+
+// values (floats or doubles) of a block's shared memory at horizon N
+long long mpc_build_smem_values(int N) { return mpcb::smem_values(N); }
+
+int mpc_build_launch(int dtype, int B, int N, const void* const* in,
+                     const long long* stride, void* const* out,
+                     const double* par, void* stream)
+{
+    if (B < 1 || N < 1) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < mpcb::IN_COUNT; ++k)
+        if (in[k] == nullptr
+            && (k != mpcb::IN_MASS || par[mpcb::PAR_HAS_MASS] != 0.0))
+            return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < mpcb::OUT_COUNT; ++k)
+        if (out[k] == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return launch<float>(B, N, in, stride, out, par,
+                             (cudaStream_t)stream);
+    if (dtype == 1)
+        return launch<double>(B, N, in, stride, out, par,
+                              (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+const char* mpc_build_error_string(int code)
 {
     return cudaGetErrorString((cudaError_t)code);
 }

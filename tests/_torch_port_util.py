@@ -519,53 +519,151 @@ MPC_BUILD_HARNESS = r'''
 
 namespace {
 
-// a scenario at a time, its block's units one after another in each phase
-// (reversed when `reverse`), in fresh shared memory filled with NaN: a
-// unit that read what no earlier phase wrote would show
+// a small generator for the shuffled schedule (its seed settable)
+unsigned long long g_seed = 1;
+
+unsigned next_random(unsigned long long& s)
+{
+    s = s * 6364136223846793005ULL + 1442695040888963407ULL;
+    return (unsigned)(s >> 33);
+}
+
+// the schedules of a scenario, each in fresh shared memory filled with NaN
+// (a unit that read what no earlier phase wrote would show):
+//   0  the card's pipeline in one thread: the models, the producer's start
+//      and the consumers', then the producer's step j and the consumers'
+//      row block j for j = N-1 ... 0;
+//   1  the first design's phase order over the same units: the models; Su's
+//      columns with the free response; the drift and S_{N-1}; the
+//      recursion's two phases a step; then every row block and the bounds;
+//   2  the pipeline with the row blocks delayed: after each producer step a
+//      random number of the row blocks whose W_j is out run, in a random
+//      order (the rest at the end), and each phase's units in order or
+//      reversed at random;
+//   3  a wrong one: row block N-1 before the step that makes W_{N-1} (what
+//      the tests show the NaN fill catches).
+// `reverse` runs every phase's units reversed (schedules 0 and 1).
+template <typename T>
+void scenario(const mpcb::Args<T>& a, int N, long long b,
+              const mpcb::Smem<T>& sm, int schedule, bool reverse)
+{
+    using mpcb::HostExec;
+    const HostExec ex{reverse};
+    mpcb::model_phase(ex, a, N, b, sm);
+    if (schedule == 0 || schedule == 3) {
+        mpcb::producer_begin(ex, a, N, b, sm);
+        mpcb::consumer_begin(ex, a, N, b, sm);
+        for (int j = N - 1; j >= 0; --j) {
+            if (schedule == 3 && j == N - 1)
+                mpcb::consumer_rows(ex, a, N, b, j, sm);
+            mpcb::producer_step(ex, a, N, b, j, sm);
+            if (schedule == 0 || j < N - 1)
+                mpcb::consumer_rows(ex, a, N, b, j, sm);
+        }
+        return;
+    }
+    if (schedule == 1) {
+        MPCB_UNITS(ex, u, N * mpcb::NU + 1) {
+            if (u < N * mpcb::NU)
+                mpcb::su_unit(a, N, u / mpcb::NU, u % mpcb::NU, sm);
+            else
+                mpcb::free_response_unit(a, N, b, sm);
+        }
+        MPCB_UNITS(ex, u, mpcb::BLK + mpcb::NX * N) {
+            if (u < mpcb::BLK)
+                sm.s[u] = u / mpcb::NU == u % mpcb::NU ? sm.qd[u / mpcb::NU]
+                                                       : (T)0;
+            else
+                mpcb::drift_unit(a, N, b, u - mpcb::BLK, sm);
+        }
+        for (int j = N - 1; j >= 0; --j) {
+            MPCB_UNITS(ex, u, mpcb::BLK + mpcb::NX)
+                mpcb::step_unit(a, N, b, j, u, sm);
+            if (j > 0)
+                MPCB_UNITS(ex, u, mpcb::BLK + mpcb::NX)
+                    mpcb::back_unit(a, j, u, sm);
+        }
+        const int tiles = mpcb::row_block_tiles(N);
+        MPCB_UNITS(ex, u, N * tiles + N * mpcb::FEET) {
+            if (u < N * tiles)
+                mpcb::p_tile(a, N, b, N - 1 - u / tiles, u % tiles, sm);
+            else
+                mpcb::bounds_unit(a, N, b, u - N * tiles);
+        }
+        return;
+    }
+    unsigned long long s = g_seed * 1000003ULL + (unsigned long long)b;
+    auto coin = [&]() { return HostExec{(next_random(s) & 1) != 0}; };
+    mpcb::producer_begin(coin(), a, N, b, sm);
+    mpcb::consumer_begin(coin(), a, N, b, sm);
+    std::vector<int> ready;
+    auto run_some = [&](int count) {
+        for (int k = 0; k < count && !ready.empty(); ++k) {
+            const size_t at = next_random(s) % ready.size();
+            const int j = ready[at];
+            ready.erase(ready.begin() + (long)at);
+            mpcb::consumer_rows(coin(), a, N, b, j, sm);
+        }
+    };
+    for (int j = N - 1; j >= 0; --j) {
+        mpcb::producer_step(coin(), a, N, b, j, sm);
+        ready.push_back(j);
+        run_some((int)(next_random(s) % 3));
+    }
+    run_some((int)ready.size());
+}
+
 template <typename T>
 int build(int B, int N, const void* const* in, const long long* stride,
-          void* const* out, const double* par, bool reverse)
+          void* const* out, const double* par, int schedule, bool reverse)
 {
     mpcb::Args<T> a;
     mpcb::fill(a, in, stride, out, par);
     std::vector<T> smem((size_t)mpcb::smem_values(N));
-    const mpcb::HostExec ex{reverse};
+    const mpcb::Smem<T> sm(smem.data(), N);
     for (long long b = 0; b < B; ++b) {
         for (auto& v : smem) v = std::numeric_limits<T>::quiet_NaN();
-        mpcb::build_scenario<T>(ex, a, N, b, smem.data());
+        scenario<T>(a, N, b, sm, schedule, reverse);
     }
     return 0;
 }
 
 int entry(int dtype, int B, int N, const void* const* in,
           const long long* stride, void* const* out, const double* par,
-          bool reverse)
+          int schedule, bool reverse)
 {
-    return dtype == 0 ? build<float>(B, N, in, stride, out, par, reverse)
-                      : build<double>(B, N, in, stride, out, par, reverse);
+    return dtype == 0
+               ? build<float>(B, N, in, stride, out, par, schedule, reverse)
+               : build<double>(B, N, in, stride, out, par, schedule,
+                               reverse);
 }
 
 }  // namespace
 
+#define MPCB_ENTRY(name, schedule, reverse)                                 \
+    extern "C" int name(int dtype, int B, int N, const void* const* in,     \
+                        const long long* stride, void* const* out,          \
+                        const double* par)                                  \
+    {                                                                       \
+        return entry(dtype, B, N, in, stride, out, par, schedule, reverse); \
+    }
+
+MPCB_ENTRY(mpc_build_host, 0, false)
+MPCB_ENTRY(mpc_build_host_reversed, 0, true)
+MPCB_ENTRY(mpc_build_host_phases, 1, false)
+MPCB_ENTRY(mpc_build_host_phases_reversed, 1, true)
+MPCB_ENTRY(mpc_build_host_shuffled, 2, false)
+MPCB_ENTRY(mpc_build_host_early, 3, false)
+
 extern "C" {
+
+void mpc_build_shuffle_seed(int seed) { g_seed = (unsigned long long)seed; }
 
 int mpc_build_layout(int what) { return mpcb::layout(what); }
 
 long long mpc_build_smem_values(int N) { return mpcb::smem_values(N); }
 
-int mpc_build_host(int dtype, int B, int N, const void* const* in,
-                   const long long* stride, void* const* out,
-                   const double* par)
-{
-    return entry(dtype, B, N, in, stride, out, par, false);
-}
-
-int mpc_build_host_reversed(int dtype, int B, int N, const void* const* in,
-                            const long long* stride, void* const* out,
-                            const double* par)
-{
-    return entry(dtype, B, N, in, stride, out, par, true);
-}
+long long mpc_build_barrier_bytes(int N) { return mpcb::barrier_bytes(N); }
 
 }  // extern "C"
 '''
@@ -573,12 +671,18 @@ int mpc_build_host_reversed(int dtype, int B, int N, const void* const* in,
 
 def build_mpc_build_harness(directory):
     """mpctsid_tpu_torch/mpc/csrc/mpc_build.h, the MPC build kernel's
-    per-scenario body, built with the host compiler into `directory`: a
-    block's units one after another in each phase (mpcb::HostExec, in order
-    or reversed), in NaN-filled shared memory, with the launcher's C
-    signature less the stream.  Returns a namespace of ctypes functions:
-    `launch` and `launch_reversed` (which `mpc.srb.run_mpc_build` takes),
-    `layout(i)` and `smem_values(N)` (mpc_build.h's counts)."""
+    per-scenario body, built with the host compiler into `directory`: each
+    scenario's units one after another in each phase (mpcb::HostExec, in
+    order or reversed), in NaN-filled shared memory, with the launcher's C
+    signature less the stream, in three schedules (the harness's head
+    says which).  Returns a namespace of ctypes functions: `launch` and
+    `launch_reversed` (the card's pipeline: the producer's step j, then the
+    consumers' row block j), `phases` and `phases_reversed` (the first
+    design's phase order over the same units), `shuffled` (the row blocks
+    delayed at random, each after its step; `shuffle_seed(seed)` sets the
+    draw) and `early` (row block N-1 before its step: wrong on purpose),
+    all of which `mpc.srb.run_mpc_build` takes; `layout(i)`,
+    `smem_values(N)` and `barrier_bytes(N)` (mpc_build.h's counts)."""
     import ctypes
     import subprocess
     import types
@@ -594,17 +698,28 @@ def build_mpc_build_harness(directory):
                     "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("mpc_build_host", "mpc_build_host_reversed"):
+    names = {"launch": "mpc_build_host",
+             "launch_reversed": "mpc_build_host_reversed",
+             "phases": "mpc_build_host_phases",
+             "phases_reversed": "mpc_build_host_phases_reversed",
+             "shuffled": "mpc_build_host_shuffled",
+             "early": "mpc_build_host_early"}
+    for name in names.values():
         getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
+    lib.mpc_build_shuffle_seed.argtypes = [ctypes.c_int]
+    lib.mpc_build_shuffle_seed.restype = None
     lib.mpc_build_layout.argtypes = [ctypes.c_int]
     lib.mpc_build_layout.restype = ctypes.c_int
-    lib.mpc_build_smem_values.argtypes = [ctypes.c_int]
-    lib.mpc_build_smem_values.restype = ctypes.c_longlong
-    return types.SimpleNamespace(launch=lib.mpc_build_host,
-                                 launch_reversed=lib.mpc_build_host_reversed,
-                                 layout=lib.mpc_build_layout,
-                                 smem_values=lib.mpc_build_smem_values)
+    for fn in (lib.mpc_build_smem_values, lib.mpc_build_barrier_bytes):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_longlong
+    return types.SimpleNamespace(
+        **{k: getattr(lib, v) for k, v in names.items()},
+        shuffle_seed=lib.mpc_build_shuffle_seed,
+        layout=lib.mpc_build_layout,
+        smem_values=lib.mpc_build_smem_values,
+        barrier_bytes=lib.mpc_build_barrier_bytes)
 
 
 PERIOD_HEAD_HARNESS = r'''
@@ -777,19 +892,55 @@ int kkt(const void* const* in, const long long* stride, void* const* out,
     return 0;
 }
 
-// a scenario at a time, its block's units one after another in each phase
-// (reversed when `reverse`), in fresh shared memory filled with NaN
+// adapt_rho, as unscale below: the warp path (lanes 1: the lanes stage the
+// rows; lanes 2: the rows copied in whole at stride n, as the card's bulk
+// copies) a scenario's 32 lanes one after another in each phase, the block
+// path (lanes 32) its block's units; in order or reversed, from NaN-filled
+// shared memory
 template <typename T>
 int adapt(const void* const* in, const long long* stride, void* const* out,
-          const double* par, int B, tail::Shape s, int, int, bool reverse)
+          const double* par, int B, tail::Shape s, int threads, int blocks,
+          bool reverse)
 {
+    if (tail::scenario_bad(B, s, threads, blocks)) return 1;
+    const int dense = !s.blocks(), n = s.n, m = s.m;
+    if (s.lanes == 2
+        && !tail::warp_bulk(in[tail::AI_P], stride[tail::AI_P],
+                            in[tail::AI_A], stride[tail::AI_A], s,
+                            sizeof(T)))
+        return 1;
     tail::AdaptArgs<T> a;
     tail::fill(a, in, stride, out, par);
-    std::vector<double> smem(
-        (size_t)tail::smem_values(s.n, s.m, !s.blocks(), s.lanes));
-    for (long long b = 0; b < B; ++b) {
+    std::vector<double> smem((size_t)(
+        tail::adapt_smem_bytes(n, m, dense,
+                               s.lanes == tail::MAX_LANES ? 0 : 1, s.lanes,
+                               sizeof(T)) / 8));
+    unsigned char* raw = reinterpret_cast<unsigned char*>(smem.data());
+    for (long long k = 0; k < B; ++k) {
+        const long long b = reverse ? B - 1 - k : k;
         nan_fill(smem);
-        tail::adapt_rho<T>(tail::HostExec{reverse}, a, s, b, smem.data());
+        tail::HostWarp<tail::AdaptLane<T>> ex{reverse, {}};
+        if (s.lanes == 1) {
+            tail::adapt_warp<T>(ex, a, s, b, raw);
+        } else if (s.lanes == 2) {
+            T* Ps = reinterpret_cast<T*>(raw + 16);
+            const T* P = a.row(tail::AI_P, b);
+            const T* A = a.row(tail::AI_A, b);
+            for (int e = 0; e < n * n; ++e) Ps[e] = P[e];
+            if (dense)
+                for (int e = 0; e < m * n; ++e) Ps[n * n + e] = A[e];
+            double* xs = reinterpret_cast<double*>(
+                raw + tail::adapt_rows_bytes(n, m, dense, 2, sizeof(T)));
+            // each lane's inputs loaded ahead, as the card's warp loads
+            // them a scenario ahead
+            for (int l = 0; l < tail::WARP; ++l)
+                tail::load_adapt_lane(ex.lane[l].in, a, s, b, l);
+            tail::adapt_warp_rows(ex, a, s, b, Ps, Ps + n * n, n, xs, xs + n,
+                                  [](int, tail::AdaptLane<T>&) {});
+        } else {
+            tail::adapt_block<T>(tail::HostExec{reverse}, a, s, b,
+                                 smem.data());
+        }
     }
     return 0;
 }
@@ -804,12 +955,12 @@ int unscale(const void* const* in, const long long* stride,
             void* const* out, const double* par, int B, tail::Shape s,
             int threads, int blocks, bool reverse)
 {
-    if (tail::unscale_bad(B, s, threads, blocks)) return 1;
+    if (tail::scenario_bad(B, s, threads, blocks)) return 1;
     const int dense = !s.blocks(), n = s.n, m = s.m;
     if (s.lanes == 2
-        && !tail::unscale_bulk(in[tail::UI_P], stride[tail::UI_P],
-                               in[tail::UI_A], stride[tail::UI_A], s,
-                               sizeof(T)))
+        && !tail::warp_bulk(in[tail::UI_P], stride[tail::UI_P],
+                            in[tail::UI_A], stride[tail::UI_A], s,
+                            sizeof(T)))
         return 1;
     tail::UnArgs<T> a;
     tail::fill(a, in, stride, out, par);
@@ -822,7 +973,7 @@ int unscale(const void* const* in, const long long* stride,
     for (long long k = 0; k < B; ++k) {
         const long long b = reverse ? B - 1 - k : k;
         nan_fill(smem);
-        tail::HostWarp<T> ex{reverse, {}};
+        tail::HostWarp<tail::UnLane<T>> ex{reverse, {}};
         if (s.lanes == 1) {
             tail::unscale_warp<T>(ex, a, s, b, smem.data());
         } else if (s.lanes == 2) {
@@ -872,10 +1023,11 @@ TAIL_ENTRY(solve_tail_unscale_host_reversed, unscale, true)
 
 extern "C" int solve_tail_layout(int what) { return tail::layout(what); }
 
-extern "C" long long solve_tail_smem_values(int n, int m, int dense,
-                                            int lanes)
+extern "C" long long solve_tail_adapt_smem_bytes(int n, int m, int dense,
+                                                 int warps, int slots,
+                                                 int size)
 {
-    return tail::smem_values(n, m, dense, lanes);
+    return tail::adapt_smem_bytes(n, m, dense, warps, slots, size);
 }
 
 extern "C" long long solve_tail_kkt_smem_bytes(int n, int c, int tile,
@@ -900,15 +1052,15 @@ def build_solve_tail_harness(directory):
     bodies, built with the host compiler into `directory`
     (-ffp-contract=off, as the library's -fmad=false): kkt_blocks' tiles
     in turn (each tile's setup units, then its pieces, one after another),
-    adapt_rho's units and unscale's units (block path) or lanes (warp
-    path) one after another per phase of each scenario, from NaN-filled
-    shared memory, in order or reversed, with the launchers' C signature
-    less the stream and the launchers' checks of the geometry (a refused
-    one returns 1).  Returns a namespace: `kkt`, `adapt`, `unscale` and
-    their `*_reversed` twins (which qp/tail.py's `run_kkt`, `run_adapt`,
-    `run_unscale` take), `layout(i)`, `smem_values(n, m, dense, lanes)`,
-    `kkt_smem_bytes(n, c, tile, bulk, size)` and `unscale_smem_bytes(n, m,
-    dense, warps, slots, size)`."""
+    adapt_rho's and unscale's units (block path) or lanes (warp path) one
+    after another per phase of each scenario, from NaN-filled shared
+    memory, in order or reversed, with the launchers' C signature less the
+    stream and the launchers' checks of the geometry (a refused one
+    returns 1).  Returns a namespace: `kkt`, `adapt`, `unscale` and their
+    `*_reversed` twins (which qp/tail.py's `run_kkt`, `run_adapt`,
+    `run_unscale` take), `layout(i)`, `adapt_smem_bytes(n, m, dense,
+    warps, slots, size)`, `kkt_smem_bytes(n, c, tile, bulk, size)` and
+    `unscale_smem_bytes(n, m, dense, warps, slots, size)`."""
     import ctypes
     import subprocess
     import types
@@ -934,7 +1086,7 @@ def build_solve_tail_harness(directory):
     lib.solve_tail_layout.argtypes = [ctypes.c_int]
     lib.solve_tail_layout.restype = ctypes.c_int
     smem = {}
-    for name, count in (("smem_values", 4), ("kkt_smem_bytes", 5),
+    for name, count in (("adapt_smem_bytes", 6), ("kkt_smem_bytes", 5),
                         ("unscale_smem_bytes", 6)):
         fn = getattr(lib, f"solve_tail_{name}")
         fn.argtypes = [ctypes.c_int] * count
@@ -942,3 +1094,115 @@ def build_solve_tail_harness(directory):
         smem[name] = fn
     return types.SimpleNamespace(layout=lib.solve_tail_layout, **smem,
                                  **fns)
+
+
+FIRST_DESIGN_HARNESS = r'''
+#include <limits>
+#include <vector>
+
+#include "%(header)s"
+
+namespace {
+
+template <typename T>
+void nan_fill(std::vector<T>& v)
+{
+    for (auto& e : v) e = std::numeric_limits<T>::quiet_NaN();
+}
+
+#if %(mpc)d
+// the first MPC build: a scenario's phases, their units one after another
+template <typename T>
+int mpc(int B, int N, const void* const* in, const long long* stride,
+        void* const* out, const double* par)
+{
+    mpcb::Args<T> a;
+    mpcb::fill(a, in, stride, out, par);
+    std::vector<T> smem((size_t)mpcb::smem_values(N));
+    for (long long b = 0; b < B; ++b) {
+        nan_fill(smem);
+        mpcb::build_scenario<T>(mpcb::HostExec{false}, a, N, b, smem.data());
+    }
+    return 0;
+}
+#else
+// the first adapt_rho: a scenario's units one after another per phase
+template <typename T>
+int adapt(const void* const* in, const long long* stride, void* const* out,
+          const double* par, int B, int n, int m, int r, int c, int lanes)
+{
+    tail::AdaptArgs<T> a;
+    tail::fill(a, in, stride, out, par);
+    const tail::Shape s{n, m, r, c, lanes};
+    std::vector<double> smem(
+        (size_t)tail::smem_values(n, m, !s.blocks(), lanes));
+    for (long long b = 0; b < B; ++b) {
+        nan_fill(smem);
+        tail::adapt_rho<T>(tail::HostExec{false}, a, s, b, smem.data());
+    }
+    return 0;
+}
+#endif
+
+}  // namespace
+
+extern "C" int first_design(int dtype, const void* const* in,
+                            const long long* stride, void* const* out,
+                            const double* par, int B, int n, int m, int r,
+                            int c, int threads, int blocks, int lanes)
+{
+#if %(mpc)d
+    (void)m; (void)r; (void)c; (void)threads; (void)blocks; (void)lanes;
+    return dtype == 0 ? mpc<float>(B, n, in, stride, out, par)
+                      : mpc<double>(B, n, in, stride, out, par);
+#else
+    (void)threads; (void)blocks;
+    return dtype == 0 ? adapt<float>(in, stride, out, par, B, n, m, r, c,
+                                     lanes)
+                      : adapt<double>(in, stride, out, par, B, n, m, r, c,
+                                      lanes);
+#endif
+}
+'''
+
+
+def build_first_design_harness(directory, kernel):
+    """The first design of `kernel` ("mpc_build": its mpc_build.h;
+    "adapt_rho": its solve_tail.h), whose sources live on verbatim in
+    scripts/probe_kernel_designs.py (FIRST_MPC_BUILD_H, FIRST_TAIL_H),
+    built with the host compiler into `directory` (-ffp-contract=off):
+    each scenario's units one after another per phase, from NaN-filled
+    shared memory.  Returns the launcher: for "mpc_build" with the MPC
+    build's C signature less the stream (`mpc.srb.run_mpc_build` takes
+    it), for "adapt_rho" with the solve tail's (`qp/tail.py::run_adapt`;
+    the geometry's lanes the first design's units a row, 1 or 32)."""
+    import ctypes
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.mpc import kernels as mk
+    from mpctsid_tpu_torch.qp import tail
+
+    name, header = {"mpc_build": ("FIRST_MPC_BUILD_H", "mpc_build.h"),
+                    "adapt_rho": ("FIRST_TAIL_H", "solve_tail.h")}[kernel]
+    script = (Path(__file__).resolve().parents[1] / "scripts"
+              / "probe_kernel_designs.py").read_text()
+    source = re.search(name + r' = r"""(.*?)"""', script, re.S).group(1)
+    d = Path(directory).resolve()
+    (d / header).write_text(source)
+    cc = d / f"first_{kernel}.cc"
+    cc.write_text(FIRST_DESIGN_HARNESS % dict(header=header,
+                                              mpc=kernel == "mpc_build"))
+    so = d / f"libfirst_{kernel}.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(d), "-o", str(so), str(cc)],
+                   check=True)
+    fn = ctypes.CDLL(str(so)).first_design
+    fn.restype = ctypes.c_int
+    fn.argtypes = tail.LAUNCH_ARGTYPES
+    if kernel == "adapt_rho":
+        return fn
+    # the MPC build's signature (dtype, B, N, in, stride, out, par)
+    return lambda dtype, B, N, ins, stride, outs, par: fn(
+        dtype, ins, stride, outs, par, B, N, 0, 0, 0, 0, 0, 0)

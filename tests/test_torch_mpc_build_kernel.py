@@ -1,7 +1,8 @@
 """The MPC QP build kernel's arithmetic on the CPU: mpc/csrc/mpc_build.h
 built with g++ (`_torch_port_util.build_mpc_build_harness`: each scenario's
 block run unit after unit in each phase, in order and reversed, in
-NaN-filled shared memory, with the kernel's C signature less the stream)
+NaN-filled shared memory, the producer's step j before the consumers' row
+block j, with the kernel's C signature less the stream)
 and driven by the wrapper's own packing (`mpc.srb.run_mpc_build`), held
 against the plain version (`build_mpc_qp_reference`) and, through the
 solve, against the JAX package's `build_mpc_qp`.
@@ -110,8 +111,11 @@ def test_layout_counts_match_the_header(harness):
     assert harness.layout(len(mk.LAYOUT)) == -1
     for n in range(1, 21):
         assert harness.smem_values(n) == mk.smem_values(n)
-    # 22,704 values at the horizon of 16: Su's 136 blocks, 16 W_j, S, S A
-    assert mk.smem_values(16) == 22704
+        assert harness.barrier_bytes(n) == mk.barrier_bytes(n)
+    # 14,076 values at the horizon of 16: rows 0:6 of Su's 136 blocks,
+    # rows 6:12 of the 16 B_i, 16 W_j, S, S A, the M_k, d, g and diag(Q);
+    # 128 bytes of mbarriers before them
+    assert mk.smem_values(16) == 14076 and mk.barrier_bytes(16) == 128
 
 
 @pytest.mark.parametrize("B", [1, 37, 4096])
@@ -120,20 +124,20 @@ def test_mpc_build_layout_on_the_h100(B):
                               H100_SMEM_PER_SM)
     f64 = mk.mpc_build_layout(B, 16, torch.float64, H100_OPTIN,
                               H100_SMEM_PER_SM)
-    assert f32 == mk.MpcBuildLayout(B, 384, 4 * 22704, 2)
-    assert f64 == mk.MpcBuildLayout(B, 384, 8 * 22704, 1)
+    assert f32 == mk.MpcBuildLayout(B, 384, 128 + 4 * 14076, 4)
+    assert f64 == mk.MpcBuildLayout(B, 384, 128 + 8 * 14076, 2)
 
 
 def test_mpc_build_layout_refuses_what_does_not_fit():
-    # float64 fits up to N = 18 (224,784 bytes), float32 up to N = 26
-    assert mk.mpc_build_layout(1, 18, torch.float64, H100_OPTIN).smem_bytes \
-        == 8 * mk.smem_values(18) <= H100_OPTIN
-    assert mk.mpc_build_layout(1, 26, torch.float32, H100_OPTIN).smem_bytes \
+    # float64 fits up to N = 24 (223,200 bytes), float32 up to N = 36
+    assert mk.mpc_build_layout(1, 24, torch.float64, H100_OPTIN).smem_bytes \
+        == 192 + 8 * mk.smem_values(24) <= H100_OPTIN
+    assert mk.mpc_build_layout(1, 36, torch.float32, H100_OPTIN).smem_bytes \
         <= H100_OPTIN
     with pytest.raises(ValueError):
-        mk.mpc_build_layout(1, 19, torch.float64, H100_OPTIN)
+        mk.mpc_build_layout(1, 25, torch.float64, H100_OPTIN)
     with pytest.raises(ValueError):
-        mk.mpc_build_layout(1, 27, torch.float32, H100_OPTIN)
+        mk.mpc_build_layout(1, 37, torch.float32, H100_OPTIN)
     with pytest.raises(ValueError):
         mk.mpc_build_layout(0, 16, torch.float32, H100_OPTIN)
 

@@ -221,13 +221,17 @@ def adapt_cases(dtype):
 @pytest.mark.parametrize("lanes", [1, 32])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_adapt_rho_matches_plain(harness, dtype, lanes):
-    """Each row of P summed by one unit or split over 32 (the layouts of
-    the WBC's and the MPC's shapes)."""
+    """lanes 1: the warp path (a lane a row of P; the shapes within
+    `warp_dim`), two scenarios a block; lanes 32: the block path, a row of
+    P over a warp's 32 lanes, at every shape."""
     for label, P, q, A, x, z, y, rho_s, blocks in adapt_cases(dtype):
         B, n = q.shape
         m = A.shape[1]
+        if lanes == 1 and max(n, m) > tail.LAYOUT["warp_dim"]:
+            continue
+        geometry = (64, -(-B // 2), 1) if lanes == 1 else (256, B, lanes)
         rc, rho = tail.run_adapt(harness.adapt, P, q, A, x, z, y, rho_s,
-                                 blocks, (256, B, lanes))
+                                 blocks, geometry)
         assert rc == 0, label
         want = tadmm._adapt_rho(P, q, A, x, z, y, rho_s)
         w64 = tadmm._adapt_rho(*(t.double() for t in (P, q, A, x, z, y,
@@ -244,7 +248,7 @@ def test_adapt_rho_matches_plain(harness, dtype, lanes):
             assert rel(rho, w64) <= 2.0 * rel(want, w64) + 1e-6, label
             assert rel(rho, want.double()) <= 1e-4, label
         _, rev = tail.run_adapt(harness.adapt_reversed, P, q, A, x, z, y,
-                                rho_s, blocks, (256, B, lanes))
+                                rho_s, blocks, geometry)
         assert torch.equal(rev, rho), label
         assert rho.shape == (B,) and bool(((rho >= 1e-3 * (1 - 1e-6))
                                            & (rho <= 1e3 * (1 + 1e-6))).all())
@@ -344,30 +348,32 @@ def test_layouts_and_counts(harness):
     assert harness.layout(len(tail.LAYOUT)) == -1
     for n, m in ((192, 320), (30, 50), (24, 40), (1000, 2000)):
         for dense in (0, 1):
-            for lanes in (1, 32):
-                assert harness.smem_values(n, m, dense, lanes) == \
-                    tail.smem_values(n, m, bool(dense), lanes)
             for warps in (0, 1, 3, 8):
                 for slots, size in ((1, 4), (2, 4), (1, 8), (2, 8)):
                     assert harness.unscale_smem_bytes(
                         n, m, dense, warps, slots, size) == \
                         tail.unscale_smem_bytes(n, m, bool(dense), warps,
                                                 slots, size)
+                    assert harness.adapt_smem_bytes(
+                        n, m, dense, warps, slots, size) == \
+                        tail.adapt_smem_bytes(n, m, bool(dense), warps,
+                                              slots, size)
     for n, c in ((192, 3), (30, 3), (3, 3), (96, 2)):
         for tile in (1024, 4096, 2048, 37):
             for bulk, size in ((0, 4), (1, 4), (1, 8)):
                 assert harness.kkt_smem_bytes(n, c, tile, bulk, size) == \
                     tail.kkt_smem_bytes(n, c, tile, bool(bulk), size)
-    mpc = tail.adapt_layout(192, 320, 4096, H100_OPTIN, dense=False)
+    mpc = tail.adapt_layout(192, 320, 4096, H100_OPTIN, H100_SMS,
+                            dense=False)
     assert mpc.geometry == (tail.TAIL_THREADS, 4096, 32)
-    assert mpc.smem_bytes == 8 * tail.smem_values(192, 320, False, 32)
-    assert tail.adapt_layout(192, 320, 1, H100_OPTIN, dense=True
+    assert mpc.smem_bytes == tail.adapt_smem_bytes(192, 320, False, 0, 1, 4)
+    assert tail.adapt_layout(192, 320, 1, H100_OPTIN, H100_SMS, dense=True
                              ).smem_bytes > mpc.smem_bytes
-    wbc = tail.adapt_layout(30, 50, 1, H100_OPTIN, dense=True)
-    assert wbc.geometry == (128, 1, 1)
-    assert wbc.smem_bytes == 8 * tail.smem_values(30, 50, True, 1)
+    wbc = tail.adapt_layout(30, 50, 1, H100_OPTIN, H100_SMS, dense=True)
+    assert wbc.geometry == (32, 1, 2)
+    assert wbc.smem_bytes == tail.adapt_smem_bytes(30, 50, True, 1, 2, 4)
     with pytest.raises(ValueError):
-        tail.adapt_layout(2000, 2000, 1, H100_OPTIN, dense=True)
+        tail.adapt_layout(2000, 2000, 1, H100_OPTIN, H100_SMS, dense=True)
     with pytest.raises(ValueError):
         tail.tail_layout(2000, 2000, 1, H100_OPTIN, H100_SMS, dense=True)
     with pytest.raises(ValueError):

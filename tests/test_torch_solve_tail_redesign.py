@@ -366,8 +366,9 @@ def test_layouts_on_h100(B):
     with pytest.raises(ValueError):
         tail.tail_layout(N_MPC, M_MPC, B, mpc.smem_bytes - 4, H100_SMS,
                          dense=False)
-    # adapt_rho keeps its layout
-    assert tail.adapt_layout(N_MPC, M_MPC, B, H100_OPTIN, False).geometry \
-        == (tail.TAIL_THREADS, B, 32)
-    assert tail.adapt_layout(30, 50, B, H100_OPTIN, True).geometry == \
-        (128, B, 1)
+    # adapt_rho takes the warp path's geometry (its own shared memory) and
+    # a block of 512 threads a scenario at every B
+    assert tail.adapt_layout(N_MPC, M_MPC, B, H100_OPTIN, H100_SMS,
+                             False).geometry == (tail.TAIL_THREADS, B, 32)
+    assert tail.adapt_layout(30, 50, B, H100_OPTIN, H100_SMS, True
+                             ).geometry == wbc.geometry
