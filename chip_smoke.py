@@ -96,11 +96,14 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  torch.linalg.inv_ex (kernel B) and the bounds
               3g the planner's kernels (plan/csrc/planner.cu: the footstep
                  horizon, the reference rollout, the swing reference, the
-                 swing reference at a tick) against their plain versions at
-                 B = 1, 37 and 4096, float32 (1e-5 of each output's largest
-                 entry) and float64 (1e-12), every gait, any yaw, swing
-                 durations of 0, the swing reference at a tick bit for bit
-                 its plain chain; the Ruiz kernel
+                 swing reference over a period and at a tick, one kernel)
+                 against their plain versions at B = 1, 37 and 4096,
+                 float32 (1e-5 of each output's largest entry) and float64
+                 (1e-12), every gait, any yaw, swing durations of 0, the
+                 swing reference over a period and at a tick bit for bit
+                 their plain chains, the period bit for bit the kernel's
+                 own launches at each tick; times beside the launch floor
+                 (a one-kernel graph: a fill_ of one value); the Ruiz kernel
                  (qp/csrc/ruiz.cu) against admm.ruiz_equilibrate at the
                  MPC's shape (its stride-0 constraint matrix, QPs built from
                  planned states) and the WBC's (dense A from the build
@@ -156,13 +159,14 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               ("fused", "packed", "vpu"); checks
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
               counts of every kernel (set to 0 before each rollout; the WBC
-              build, the plant step, the swing reference at the tick and
-              the epilogue once a tick, the period head, the footstep
-              horizon, the reference rollout, the MPC build, Ruiz and the
-              epilogue once a period and kkt_blocks once an MPC adapt
+              build, the plant step and the epilogue once a tick, the
+              period head, the footstep horizon, the reference rollout,
+              the swing reference over the period, the MPC build, Ruiz and
+              the epilogue once a period and kkt_blocks once an MPC adapt
               round on every path, the rho adaptation between rounds,
               Ruiz once a tick more on the WBC iteration backends;
-              swing_foot_ref's kernel never: it is off the path); then
+              swing_foot_ref's kernel and swing_reference_at (the host
+              path's, one tick) never on this path); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -195,7 +199,8 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
   9. host     the single-robot deployment path (host.py, B = 1, full
               Solo-12): a HostController per (MPC, WBC) backend pair (kernel
               1 with each WBC backend, kernel 5 on both stages) captures its
-              four CUDA graphs (boundary, MPC, swing reference, WBC); over
+              three CUDA graphs (boundary, MPC, WBC with the swing reference
+              at its tick); over
               two periods on the plant, every replay is held against the
               same function run eagerly on the card (outputs and the warm
               starts it writes); the profiler counts the port's kernels in
@@ -203,17 +208,17 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               replay with the footstep, rollout, MPC build and Ruiz kernels
               once, kkt_blocks twice, adapt_rho and unscale once; the WBC
               backend's kernel once (A, 4) or three times with kernel B,
-              Ruiz once and adapt_rho twice, the build kernel and unscale
-              once per WBC replay; the period head and the footstep kernel
-              once per boundary replay, at most 6 kernels in all; the
-              swing-at-a-tick kernel once per swing replay);
+              Ruiz once and adapt_rho twice, the swing kernel at the tick,
+              the build kernel and unscale once per WBC replay; the period
+              head and the footstep kernel once per boundary replay, at
+              most 6 kernels in all);
               replay times; the `fused` WBC replay holds at most 40
-              kernels, the default's at most 45, every MPC replay at most
-              2,600, every swing replay at most 4; the default WBC replay
+              kernels, the default's at most 35, every MPC replay at most
+              2,600; the default WBC replay
               captured with the plain solve chain and the MPC replay with
               the plain K^-1 and with the plain MPC QP build, the `fused`
               one with the plain WBC QP build, and the boundary, MPC and
-              swing replays with the plain planner and Ruiz, each beside
+              WBC replays with the plain planner and Ruiz, each beside
               the call as it ships, nodes and replay ms in turns (the
               before and after), and so the boundary replay with the
               plain period head, the MPC and the default WBC replays with
@@ -297,7 +302,8 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               BENCH_DETAIL.json and MULTIHOST_32K.json byte-identical
 
 The line before the last is one JSON object describing every kernel of the
-path (`launches_per_captured_period`: the kernel's launches inside one
+path (swing_reference_at and swing_references_period are one kernel, at one
+tick and over a period; `launches_per_captured_period`: the kernel's launches inside one
 replay of phase 12's graph; `bench_launches`: {bench function: the
 kernel's launches there}, the wrappers' counters, which move at each
 graph's warm-up and capture); the last line is {"ok": true, "device":
@@ -448,10 +454,6 @@ MPC_NODES = 2600
 # footstep kernel, the touchdown select and the snapshot's cat (173 with
 # the plain period head on an H100)
 BOUNDARY_NODES = 6
-# the host path's swing replay: the phase's cast, the swing kernel at the
-# tick and the output's cat and copy (17 with plan_swing and its plain
-# prelude on an H100)
-SWING_NODES = 4
 # (MPC backend, WBC backend) of the captured host controllers: every WBC
 # backend, the MPC on kernel 1 (the default) and on kernel 5
 HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
@@ -459,7 +461,8 @@ HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
                  ("pallas", "pallas"))
 # name prefix of each kernel's __global__ functions, for the profiler
 # (kernel B's block path launches spd_inverse_block_kernel and its guard,
-# spd_newton_select_kernel, once per call: the prefix counts calls)
+# spd_newton_select_kernel, once per call: the prefix counts calls; the
+# swing reference over a period and at a tick are one kernel)
 KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "admm_iterate_vpu": "admm_vpu_",
                  "admm_iterate_vpu_packed": "admm_packed_",
@@ -473,6 +476,7 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "reference_rollout": "plan_rollout_kernel",
                  "swing_foot_ref": "plan_swing_kernel",
                  "swing_reference_at": "plan_swing_at_kernel",
+                 "swing_references_period": "plan_swing_at_kernel",
                  "ruiz_equilibrate": "ruiz_kernel",
                  "build_mpc_qp": "mpc_build_kernel",
                  "period_head": "period_head_kernel",
@@ -1701,10 +1705,17 @@ def planner_inputs(B: int, seed: int) -> dict:
              lift=feet + r.normal(size=(B, 4, 3)) * 0.05,
              td=feet + r.normal(size=(B, 4, 3)) * 0.05,
              s=r.uniform(0.0, 1.0, (B, 4)), T=T)
-    # the swing reference at a tick: the ticks' fractions t / 20
+    # the swing reference at a tick: the ticks' fractions t / 20; over a
+    # period: every tick's
     mpc_every = EngineConfig().cascade.mpc_every
     d["t_frac"] = r.integers(0, mpc_every, B) / mpc_every
     return d
+
+
+def period_fracs(dtype, device):
+    """The cascade's row of the period's tick fractions, t / mpc_every."""
+    T = EngineConfig().cascade.mpc_every
+    return torch.tensor(np.arange(T) / T, dtype=dtype, device=device)
 
 
 def planner_calls(d: dict, dtype, device):
@@ -1718,6 +1729,8 @@ def planner_calls(d: dict, dtype, device):
           cfg.cascade.swing_height)
     at = (gid, ph, t(d["t_frac"]), t(d["lift"]), t(d["td"]), cfg.mpc.dt,
           cfg.cascade.swing_height)
+    period = (gid, ph, period_fracs(dtype, device), t(d["lift"]),
+              t(d["td"]), cfg.mpc.dt, cfg.cascade.swing_height)
     fs_args = (SOLO12, cfg.mpc, cfg.cascade, gid, ph, x, vc, feet)
     return {"plan_footsteps_horizon": (
                 lambda: footsteps_mod.plan_footsteps_horizon(*fs_args),
@@ -1732,7 +1745,11 @@ def planner_calls(d: dict, dtype, device):
                                    *sw)),
             "swing_reference_at": (
                 lambda: swing_mod.swing_reference_at(*at),
-                lambda: swing_mod.swing_reference_at_reference(*at))}
+                lambda: swing_mod.swing_reference_at_reference(*at)),
+            "swing_references_period": (
+                lambda: swing_mod.swing_references_period(*period),
+                lambda: swing_mod.swing_references_period_reference(
+                    *period))}
 
 
 def as_list(out):
@@ -1766,7 +1783,9 @@ def plan_bounds(B: int, d: dict, N: int) -> dict:
     compare a step and foot and about 40 at each swing -> stance
     transition (the Raibert target with its sin, cos and sqrt), the rollout
     14 a step, the swing reference about 60 a foot (at a tick 5 more: T
-    and s; the tables' 980 ints read once)."""
+    and s; the tables' 980 ints read once; over a period the same at each
+    of its T ticks, gait, phase, lift-off and touchdown read once, the T
+    fractions once, 3 T x 12 values written)."""
     g, ph = d["gid"][:B], d["phase"][:B]
     flags = GAIT_TABLES[g[:, None], (ph[:, None] + np.arange(N)) % 16]
     trans = int(((flags[:, 1:] > 0.5) & (flags[:, :-1] < 0.5)).sum())
@@ -1776,7 +1795,22 @@ def plan_bounds(B: int, d: dict, N: int) -> dict:
             "swing_foot_ref": bound_ms(B * 4 * (8 + 9), B * 4 * 60),
             "swing_reference_at": bound_ms(
                 B * (3 + 24 + 36) + plan_kernels.LAYOUT["table_ints"],
-                B * 4 * 65)}
+                B * 4 * 65),
+            "swing_references_period": swing_period_bound_ms(B)}
+
+
+def swing_period_bound_ms(B: int):
+    T = EngineConfig().cascade.mpc_every
+    return bound_ms(B * (2 + 24 + 36 * T) + T
+                    + plan_kernels.LAYOUT["table_ints"], B * T * 4 * 65)
+
+
+def launch_floor_ms() -> float:
+    """ms of one replay of a one-kernel CUDA graph (a fill_ of one value):
+    what a launch costs whatever it does, beside which a kernel that is all
+    launch latency reads."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.fill_(1.0))
 
 
 def ruiz_bound_ms(B: int, n: int, m: int, iters: int, a_shared: bool):
@@ -1834,16 +1868,42 @@ def ruiz_layout_line(args, device) -> str:
             "bytes of shared memory a block")
 
 
+PLANNER_KERNELS = ("plan_footsteps_horizon", "reference_rollout",
+                   "swing_foot_ref", "swing_reference_at",
+                   "swing_references_period")
+# the swing reference at a tick and over a period: bit for bit their plain
+# chains (gated)
+SWING_BITWISE = ("swing_reference_at", "swing_references_period")
+
+
+def period_vs_ticks(d: dict, dtype, device) -> int:
+    """Entries of the period kernel that part from its own launches at one
+    tick (swing_reference_at) at each of the period's fractions."""
+    cfg = EngineConfig()
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    gid = torch.tensor(d["gid"], device=device)
+    ph = torch.tensor(d["phase"], device=device)
+    fr = period_fracs(dtype, device)
+    rest = (t(d["lift"]), t(d["td"]), cfg.mpc.dt, cfg.cascade.swing_height)
+    period = swing_mod.swing_references_period(gid, ph, fr, *rest)
+    parted = 0
+    for k in range(fr.shape[0]):
+        tick = swing_mod.swing_reference_at(gid, ph, fr[k:k + 1], *rest)
+        parted += sum(int((p[:, k] != q).sum())
+                      for p, q in zip(period, tick))
+    return parted
+
+
 def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
-    """3g: the planner's four kernels and the Ruiz kernel against their
-    plain versions on the card, bit for bit where they agree (counted; the
-    swing reference at a tick gated bit for bit);
-    times at B = 1 and 4096 (Ruiz: 1, 256 and 4096; a one-launch CUDA
-    graph's replay as `ms`, the eager wrapper beside it), the plain chains
-    and the bounds."""
+    """3g: the planner's kernels and the Ruiz kernel against their plain
+    versions on the card, bit for bit where they agree (counted; the swing
+    reference over a period and at a tick gated bit for bit, the period
+    also against its own launches at each tick); times at B = 1 and 4096
+    (Ruiz: 1, 256 and 4096; a one-launch CUDA graph's replay as `ms`, the
+    eager wrapper beside it), the plain chains, the bounds and the launch
+    floor."""
     N = EngineConfig().mpc.horizon
-    errs = {k: [] for k in ("plan_footsteps_horizon", "reference_rollout",
-                            "swing_foot_ref", "swing_reference_at")}
+    errs = {k: [] for k in PLANNER_KERNELS}
     d = planner_inputs(max(PLAN_B), 70)
     for B in PLAN_B:
         dB = {k: a[:B] for k, a in d.items()}
@@ -1856,9 +1916,15 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
                 errs[name].append((dtype, e))
                 line.append(f"{name} rel {e[0]:.3e} abs {e[1]:.3e} "
                             f"({e[2]} of {e[3]} entries part)")
-                if name == "swing_reference_at":
-                    check(e[2] == 0, f"3g: swing_reference_at, B={B} "
+                if name in SWING_BITWISE:
+                    check(e[2] == 0, f"3g: {name}, B={B} "
                           f"{str(dtype)[6:]}: bit for bit its plain chain")
+            own = period_vs_ticks(dB, dtype, device)
+            line.append(f"swing_references_period against its own launches "
+                        f"at each tick: {own} entries part")
+            check(own == 0, f"3g: swing_references_period, B={B} "
+                  f"{str(dtype)[6:]}: bit for bit swing_reference_at at "
+                  "each of the period's fractions")
             print(f"  B={B} {str(dtype)[6:]}: " + "; ".join(line),
                   flush=True)
     timed = {}
@@ -1869,30 +1935,39 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
                                                  device).items():
             ms, eager = graph_ms(call), time_ms(call, 3, 50)
             plain_ms = time_ms(plain, 1, 3)
-            timed[name, B] = (ms, eager, plain_ms, bounds[name])
+            floor = launch_floor_ms()
+            timed[name, B] = (ms, eager, plain_ms, bounds[name], floor)
             report_times(name, f"B={B} float32 (graph replay; eager wrapper "
-                         f"{eager:.4f} ms)", ms, plain_ms, bounds[name], smi)
-    for name, src, replaces in (
-            ("plan_footsteps_horizon", "planner.cu",
-             "mpctsid_tpu/plan/footsteps.py:37"),
-            ("reference_rollout", "planner.cu", "mpctsid_tpu/mpc/srb.py:53"),
-            ("swing_foot_ref", "planner.cu", "mpctsid_tpu/plan/swing.py:14"),
-            ("swing_reference_at", "planner.cu",
-             "mpctsid_tpu/plan/swing.py:14")):
+                         f"{eager:.4f} ms; launch floor {floor:.4f} ms)", ms,
+                         plain_ms, bounds[name], smi)
+    # the JAX functions each kernel stands for (XLA fuses them; no Pallas
+    # kernel): the period's swing reference is the JAX engine's
+    # swing_tables once a period and swing_foot_ref at every tick
+    # (mpctsid_tpu/cascade/engine.py:236-255)
+    for name, replaces in (
+            ("plan_footsteps_horizon", "mpctsid_tpu/plan/footsteps.py:37"),
+            ("reference_rollout", "mpctsid_tpu/mpc/srb.py:53"),
+            ("swing_foot_ref", "mpctsid_tpu/plan/swing.py:14"),
+            ("swing_reference_at", "mpctsid_tpu/plan/swing.py:14"),
+            ("swing_references_period",
+             "mpctsid_tpu/cascade/engine.py:236")):
         f32 = [e for dt, e in errs[name] if dt == torch.float32]
         f64 = [e for dt, e in errs[name] if dt == torch.float64]
-        (ms, eager, plain, bound), (ms1, eager1, plain1, bound1) = (
+        (ms, eager, plain, bound, floor), (ms1, eager1, plain1, bound1,
+                                           floor1) = (
             timed[name, max(PLAN_B)], timed[name, 1])
         reports[name] = dict(
-            source=f"mpctsid_tpu_torch/plan/csrc/{src}", replaces=replaces,
+            source="mpctsid_tpu_torch/plan/csrc/planner.cu",
+            replaces=replaces,
             max_abs_err=max(e[1] for e in f32),
             max_rel_err=max(e[0] for e in f32),
             max_rel_err_f64=max(e[0] for e in f64),
             entries_parted_f32=sum(e[2] for e in f32),
             entries_f32=sum(e[3] for e in f32),
             ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-            ms_eager=eager, ms_b1=ms1, plain_ms_b1=plain1,
-            bound_ms_b1=bound1[0], bound_by_b1=bound1[1], ms_eager_b1=eager1)
+            ms_eager=eager, floor_ms=floor, ms_b1=ms1, plain_ms_b1=plain1,
+            bound_ms_b1=bound1[0], bound_by_b1=bound1[1], ms_eager_b1=eager1,
+            floor_ms_b1=floor1)
 
     # ---- Ruiz
     iters = 8
@@ -1950,14 +2025,16 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
         ms_b256=mid[0], plain_ms_b256=mid[2], bound_ms_b256=mid[3][0],
         ms_b256_wbc_shape=wmid[0], plain_ms_b256_wbc_shape=wmid[2],
         bound_ms_b256_wbc_shape=wmid[3][0])
-    for name in ("plan_footsteps_horizon", "reference_rollout",
-                 "swing_foot_ref", "swing_reference_at", "ruiz_equilibrate"):
+    for name in (*PLANNER_KERNELS, "ruiz_equilibrate"):
         r = reports[name]
+        floor = ("" if "floor_ms" not in r else
+                 f", launch floor {r['floor_ms']:.4f} ms (B=1: kernel "
+                 f"{r['ms_b1']:.4f}, floor {r['floor_ms_b1']:.4f})")
         print(f"  {name}: replaces {r['replaces']} (XLA's fusion; no TPU "
               f"kernel), source {r['source']}, library call none; B=4096 "
               f"{r['ms']:.4f} ms (graph replay) / {r['ms_eager']:.4f} ms "
-              f"(eager), bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-              f"plain {r['plain_ms']:.3f} ms  [{smi}]", flush=True)
+              f"(eager), bound {r['bound_ms']:.4f} ms by {r['bound_by']}"
+              f"{floor}, plain {r['plain_ms']:.3f} ms  [{smi}]", flush=True)
 
 
 # ------------------------------- 3h. the MPC QP build as a kernel
@@ -2313,6 +2390,11 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                                    lib_ms)
         lib_txt = ("" if lib_ms is None else
                    f"; library call {lib_ms:.4f} ms as a graph")
+        if name == "period_head":
+            # all launch latency at small B: beside what a launch costs
+            floor = rep[name].setdefault("floor", {})[key] = \
+                launch_floor_ms()
+            lib_txt += f"; launch floor {floor:.4f} ms"
         report_times(name, f"{key} (graph replay; eager wrapper {eager:.4f} "
                      f"ms; plain chain as a graph {plain_g:.4f} ms{lib_txt})",
                      ms, plain_ms, bound, smi)
@@ -2528,7 +2610,9 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
             ms_eager=eager, plain_graph_ms=plain_g,
             times={k: dict(ms=v[0], ms_eager=v[1], plain_ms=v[2],
                            plain_graph_ms=v[3], bound_ms=v[4][0],
-                           bound_by=v[4][1], library_ms=v[5])
+                           bound_by=v[4][1], library_ms=v[5],
+                           **({"floor_ms": r["floor"][k]}
+                              if k in r.get("floor", {}) else {}))
                    for k, v in r["times"].items()})
         lib_txt = ("none" if lib_ms is None else
                    f"{lib_ms:.4f} ms (torch.baddbmm)")
@@ -2555,6 +2639,7 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "reference_rollout": srb_mod.reference_rollout,
            "swing_foot_ref": swing_mod.swing_foot_ref,
            "swing_reference_at": swing_mod.swing_reference_at,
+           "swing_references_period": swing_mod.swing_references_period,
            "ruiz_equilibrate": kernels.ruiz_equilibrate,
            "build_mpc_qp": srb_mod.build_mpc_qp,
            "period_head": engine.period_head,
@@ -2591,13 +2676,14 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     launches): the MPC's iteration kernel, kernel B (its K^-1) and K from
     the declared blocks (kkt_blocks) once per MPC adapt round, the rho
     adaptation between them; the period head, the footstep horizon, the
-    reference rollout, the MPC build, Ruiz and the epilogue (unscale) once
-    per period; a whole-solve kernel (kernel A on the default backend,
-    kernel 4 on `fused`) once per WBC tick; a WBC iteration kernel and
-    kernel B once per WBC adapt round, the rho adaptation between them and
-    Ruiz once per tick; the WBC build, the plant step, the swing reference
-    at the tick and the epilogue once per tick, whatever the backends
-    (swing_foot_ref's kernel is off the path: never)."""
+    reference rollout, the swing reference over the period, the MPC build,
+    Ruiz and the epilogue (unscale) once per period; a whole-solve kernel
+    (kernel A on the default backend, kernel 4 on `fused`) once per WBC
+    tick; a WBC iteration kernel and kernel B once per WBC adapt round, the
+    rho adaptation between them and Ruiz once per tick; the WBC build, the
+    plant step and the epilogue once per tick, whatever the backends
+    (swing_foot_ref's kernel and the swing reference at one tick, the host
+    path's, are off this path: never)."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     rounds = cfg.solver.mpc_adapt_rounds
@@ -2606,12 +2692,11 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     expect["kkt_blocks"] = periods * rounds
     expect["adapt_rho"] = periods * (rounds - 1)
     for name in ("plan_footsteps_horizon", "reference_rollout",
-                 "ruiz_equilibrate", "build_mpc_qp", "period_head",
-                 "unscale"):
+                 "swing_references_period", "ruiz_equilibrate",
+                 "build_mpc_qp", "period_head", "unscale"):
         expect[name] = periods
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
-    expect["swing_reference_at"] = ticks
     expect["unscale"] += ticks
     counted = WBC_KERNEL_OF[wbc_backend]
     if wbc_backend in WHOLE_SOLVE:
@@ -3120,8 +3205,7 @@ def host_graphs(smi: str, device) -> None:
         t0 = time.time()
         ctl = HostController(SOLO12, cfg, standing_q0(), device=device)
         capture_s = time.time() - t0
-        attrs = {"boundary": "_boundary", "mpc": "_mpc",
-                 "swing": "_swing_ref", "wbc": "_wbc"}
+        attrs = {"boundary": "_boundary", "mpc": "_mpc", "wbc": "_wbc"}
         calls = {name: getattr(ctl, a) for name, a in attrs.items()}
         compared = {name: AgainstEager(c) for name, c in calls.items()}
         for name, a in attrs.items():
@@ -3130,7 +3214,7 @@ def host_graphs(smi: str, device) -> None:
         zmin, _, _, _, _ = drive_host(
             ctl, periods * cfg.cascade.mpc_every * cfg.cascade.wbc_dt, device)
         diffs = {k: c.max_diff for k, c in compared.items()}
-        print(f"  {tag}: 4 graphs captured in {capture_s:.2f} s; "
+        print(f"  {tag}: {len(attrs)} graphs captured in {capture_s:.2f} s; "
               f"{periods} periods on the plant, each replay against the "
               f"eager run: max |diff| {diffs} (calls "
               f"{ {k: c.calls for k, c in compared.items()} })", flush=True)
@@ -3169,6 +3253,7 @@ def host_graphs(smi: str, device) -> None:
                      "ruiz_equilibrate", "build_mpc_qp", "unscale"):
             want_mpc[KERNEL_PREFIX[name]] = 1
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+        want_wbc[KERNEL_PREFIX["swing_reference_at"]] = 1
         want_wbc[KERNEL_PREFIX["wbc_build"]] = 1
         want_wbc[KERNEL_PREFIX["unscale"]] = 1
         if wbc_backend in WHOLE_SOLVE:
@@ -3187,18 +3272,12 @@ def host_graphs(smi: str, device) -> None:
         want_bd = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_bd[KERNEL_PREFIX["plan_footsteps_horizon"]] = 1
         want_bd[KERNEL_PREFIX["period_head"]] = 1
-        want_sw = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        want_sw[KERNEL_PREFIX["swing_reference_at"]] = 1
-        check(per["boundary"][0] == want_bd and per["swing"][0] == want_sw,
+        check(per["boundary"][0] == want_bd,
               f"{tag}: the boundary graph launches the period head and the "
-              "footstep kernel once, the swing graph the swing-at-a-tick "
-              "kernel once, and no other port kernel")
+              "footstep kernel once, and no other port kernel")
         check(per["boundary"][1] <= BOUNDARY_NODES,
               f"{tag}: the boundary replay holds at most {BOUNDARY_NODES} "
               "kernels (173 with the plain period head)")
-        check(per["swing"][1] <= SWING_NODES,
-              f"{tag}: the swing replay holds at most {SWING_NODES} kernels "
-              "(17 with plan_swing and its plain prelude)")
         print(f"    WBC replay: {per['wbc'][1]} kernels + {per['wbc'][4]} "
               f"copies/memsets, {times['wbc']:.4f} ms; MPC replay: "
               f"{per['mpc'][1]} kernels + {per['mpc'][4]} copies/memsets, "
@@ -3230,8 +3309,8 @@ def host_graphs(smi: str, device) -> None:
                                 "footsteps / planner kernel"),
                                ("mpc", "MPC replay, plain planner and Ruiz "
                                 "/ their kernels"),
-                               ("swing", "swing replay, plain swing "
-                                "reference / its kernel")):
+                               ("wbc", "WBC replay, plain swing reference "
+                                "/ its kernel")):
                 before_after(calls[name], what, plain_planner(), smi, device)
             before_after(calls["mpc"], "MPC replay, plain QP build / build "
                          "kernel", plain_mpc_build(), smi, device)
@@ -4167,9 +4246,13 @@ def timed_ms(fn, reps: int = GRAPH_TIMED) -> list:
 
 
 def expected_per_replay(cfg, wbc_backend, mpc_backend=None) -> dict:
-    """{kernel prefix: launches} of one period of this configuration."""
+    """{kernel prefix: launches} of one period of this configuration (the
+    launches of wrappers of one kernel added up)."""
     per = expected_launches(cfg, 1, wbc_backend, mpc_backend)[1]
-    return {KERNEL_PREFIX[name]: n for name, n in per.items()}
+    want = dict.fromkeys(KERNEL_PREFIX.values(), 0)
+    for name, n in per.items():
+        want[KERNEL_PREFIX[name]] += n
+    return want
 
 
 def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
@@ -4782,8 +4865,8 @@ def main() -> int:
 
     # ---- 3g. the planner and Ruiz vs plain ----------------------------------
     print("== 3g. the planner kernels (footsteps, reference rollout, swing "
-          "reference, swing reference at a tick) and Ruiz vs their plain "
-          "versions", flush=True)
+          "reference, swing reference over a period and at a tick) and Ruiz "
+          "vs their plain versions", flush=True)
     planner_ruiz_phase(smi, device, reports)
     torch.cuda.empty_cache()
 
@@ -4820,12 +4903,16 @@ def main() -> int:
             for name in ("wbc_build", "plant_step", "chol_inverse",
                          MPC_KERNEL_OF[cfg.solver.mpc_backend],
                          "plan_footsteps_horizon", "reference_rollout",
-                         "swing_reference_at", "ruiz_equilibrate",
+                         "swing_references_period", "ruiz_equilibrate",
                          "build_mpc_qp", "period_head", "kkt_blocks",
                          "adapt_rho", "unscale"):
                 path_launches[name] = counts[name]
-            # swing_foot_ref's kernel left the path for swing_reference_at's
-            off_path = counts["swing_foot_ref"]
+            # off this path: swing_foot_ref's kernel (the cascade takes
+            # the swing reference with its tables) and the swing reference
+            # at one tick (the host path's WBC graph runs it; the batched
+            # period takes the whole period's at once)
+            off_path = {k: counts[k] for k in ("swing_foot_ref",
+                                                "swing_reference_at")}
         records.append((counted, rec))
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
@@ -4840,7 +4927,8 @@ def main() -> int:
     for name, count in path_launches.items():
         check(count > 0, f"{name} was launched on the main path")
         reports[name]["launches"] = count
-    reports["swing_foot_ref"]["launches"] = off_path
+    for name, count in off_path.items():
+        reports[name]["launches"] = count
 
     # ---- 5. kernels on the path vs plain on the path --------------------
     print("== 5a. mpc_backend 'm2' (kernel) vs 'torch' (plain), B=256",
@@ -5058,7 +5146,7 @@ def main() -> int:
         for name in ("wbc_build", "plant_step", "chol_inverse",
                      MPC_KERNEL_OF[cfg.solver.mpc_backend],
                      "plan_footsteps_horizon", "reference_rollout",
-                     "swing_foot_ref", "swing_reference_at",
+                     "swing_foot_ref", "swing_references_period",
                      "ruiz_equilibrate", "build_mpc_qp", "period_head",
                      "kkt_blocks", "adapt_rho", "unscale"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])

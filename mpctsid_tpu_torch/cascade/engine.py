@@ -38,7 +38,7 @@ from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
                                        reference_rollout)
 from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
 from mpctsid_tpu_torch.plan.gait import contacts_at, contacts_horizon
-from mpctsid_tpu_torch.plan.swing import swing_reference_at
+from mpctsid_tpu_torch.plan.swing import swing_references_period
 from mpctsid_tpu_torch.qp.admm import admm_solve
 from mpctsid_tpu_torch.utils import (device_constant, enforce_f32_matmuls,
                                      resolve_device)
@@ -311,11 +311,16 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     f_used = ctl.f_plan[:, 1] * contacts[..., None]
 
     mpc_every = cfg.cascade.mpc_every
-    # each tick's fraction of its MPC step, t / mpc_every, one row shared by
-    # every scenario
+    # the swing-foot references of every tick of the period at once (their
+    # gait tables, lift-off and touchdown points are the period's): each
+    # tick's fraction of its MPC step, t / mpc_every, one row shared by
+    # every scenario; one launch on the card, tick t reads [:, t]
     fracs = device_constant(("swing_fracs", mpc_every),
                             lambda: np.arange(mpc_every) / mpc_every, dev,
                             dtype)
+    swing_pos, swing_vel, swing_acc = swing_references_period(
+        gait_id, phase, fracs, liftoff, touchdown, cfg.mpc.dt,
+        cfg.cascade.swing_height)
     wbc_dt = cfg.cascade.wbc_dt
     tau_max = cfg.wbc.tau_max
 
@@ -338,12 +343,9 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
             q_t, v_t = est.q, est.v
         else:
             q_t, v_t = plant.q, plant.v
-        pos, vel, acc = swing_reference_at(
-            gait_id, phase, fracs[t:t + 1], liftoff, touchdown, cfg.mpc.dt,
-            cfg.cascade.swing_height)
         refs = WbcRefs(
-            contacts=contacts, f_mpc=f_used,
-            foot_pos_ref=pos, foot_vel_ref=vel, foot_acc_ref=acc,
+            contacts=contacts, f_mpc=f_used, foot_pos_ref=swing_pos[:, t],
+            foot_vel_ref=swing_vel[:, t], foot_acc_ref=swing_acc[:, t],
             q_posture=q_stand, base_rpy_ref=rpy_ref, h_ref=h_ref)
         tau_ff, qdd, _, wbc_sol = solve_wbc(
             tree, cfg.wbc, q_t, v_t, refs,

@@ -10,7 +10,7 @@ Deployment shape:
       reads latest COMPLETED plan                     MPC graph replay on the
       (native PlanBuffer, one-solve-stale,            planner's own stream
        wait-free seqlock read)                        -> PlanBuffer.publish
-      swing + WBC graph replays -> torques
+      WBC graph replay -> torques
 
 The batched simulation path (cascade/engine.py) runs all of this for B
 scenarios at once; THIS module drives one physical robot, where the 1 kHz
@@ -22,15 +22,19 @@ counterpart of the JAX package's `jax.jit(..., donate_argnums=...)`:
 
   * `_boundary` (once per period): foot positions, the SRB state, lift-off
     bookkeeping and the offset-free velocity integrator (`period_head`, one
-    kernel launch), and the touchdown targets (`plan_footsteps_horizon`).
+    kernel launch), the touchdown targets (`plan_footsteps_horizon`), and
+    the gait phase as an int32 for the WBC graph.
     In the JAX package these are eager device ops between its jitted calls;
     here they are captured too, so that nothing on the card runs eagerly;
   * `_mpc` (once per period): footsteps, reference rollout, the contact
     horizon, `build_mpc_qp` (one kernel launch) and `admm_solve` (with the
     default `auto_mpc`, the M2 iteration kernel, two launches per solve);
-  * `_swing_ref` and `_wbc` (every tick): the swing-foot references
-    (`swing_reference_at`, one kernel launch with its tables and phase),
-    then `WbcRefs`, `solve_wbc` and the torque clip.
+  * `_wbc` (every tick): the swing-foot references (`swing_reference_at`,
+    one kernel launch with its tables and phase) straight into `WbcRefs`,
+    then `solve_wbc` and the torque clip.
+
+A tick replays two graphs on its stream (boundary ticks three, or two in
+async mode, where the MPC graph runs on the planner thread's stream).
 
 The ok-select of the warm starts (keep the previous one after a failed
 solve) happens inside the graph, which writes the new warm start into the
@@ -153,8 +157,10 @@ class HostController:
         tick0[0, _F_USED] = (fb[1] * c0[:, None]).reshape(-1)
         tick0[0, _V_CMD] = cfg.v_ref
         tick = torch.as_tensor(tick0).to(dev)
+        # the gait phase as the planner kernels take it, written at each
+        # boundary (the first tick is one) and read by every WBC replay
+        phase_i = torch.zeros((1,), dtype=torch.int32, device=dev)
         snap = torch.zeros((1, SNAP_LEN), **f32)
-        swing = torch.zeros((1, 36), **f32)
         mpc_out = torch.zeros((1, N_MPC_VARS + 1), **f32)
         wbc_out = torch.zeros((1, WBC_OUT_LEN), **f32)
         self._tick = tick
@@ -172,9 +178,9 @@ class HostController:
         tau_max = cfg.wbc.tau_max
 
         # --- the device calls ------------------------------------------
-        def _boundary(tick, liftoff, touchdown, v_int, out):
+        def _boundary(tick, liftoff, touchdown, v_int, phase, out):
             q, v = tick[:, _Q], tick[:, _V]
-            phase = tick[:, _PHASE][:, 0].to(torch.int32)
+            phase.copy_(tick[:, _PHASE][:, 0])
             contacts = tick[:, _CONTACTS]
             # the feet, the SRB state, the lift-off select and the offset-
             # free velocity integrator (cascade/engine.py twin), which biases
@@ -215,22 +221,14 @@ class HostController:
             out.copy_(torch.cat([sol.x, ok.to(sol.x.dtype)], dim=1))
             return out
 
-        def _swing_ref(tick, liftoff, touchdown, out):
-            phase = tick[:, _PHASE][:, 0].to(torch.int32)
+        def _wbc(tick, phase, liftoff, touchdown, warm_x, warm_y, out):
             pos, vel, acc = swing_reference_at(
                 gid, phase, tick[:, _T_FRAC], liftoff, touchdown,
                 cfg.mpc.dt, cfg.cascade.swing_height)
-            out.copy_(torch.cat([pos.reshape(1, 12), vel.reshape(1, 12),
-                                 acc.reshape(1, 12)], dim=1))
-            return out
-
-        def _wbc(tick, swing, warm_x, warm_y, out):
             refs = WbcRefs(
                 contacts=tick[:, _CONTACTS],
                 f_mpc=tick[:, _F_USED].reshape(1, 4, 3),
-                foot_pos_ref=swing[:, 0:12].reshape(1, 4, 3),
-                foot_vel_ref=swing[:, 12:24].reshape(1, 4, 3),
-                foot_acc_ref=swing[:, 24:36].reshape(1, 4, 3),
+                foot_pos_ref=pos, foot_vel_ref=vel, foot_acc_ref=acc,
                 q_posture=q_stand, base_rpy_ref=rpy_ref, h_ref=h_ref)
             tau, qdd, _, sol = solve_wbc(self.tree, cfg.wbc, tick[:, _Q],
                                          tick[:, _V], refs, iters=wbc_iters,
@@ -248,7 +246,8 @@ class HostController:
         # CUDA work on another thread during a capture is an error
         self._boundary = CapturedCall(
             _boundary, dict(tick=tick, liftoff=liftoff, touchdown=touchdown,
-                            v_int=v_int, out=snap), dev, "host boundary")
+                            v_int=v_int, phase=phase_i, out=snap), dev,
+            "host boundary")
         # sync mode: the MPC reads the boundary's snapshot in place; async:
         # a buffer of its own, filled by the planner thread
         mpc_snap = snap.clone() if async_mpc else snap
@@ -257,11 +256,9 @@ class HostController:
                        warm_x=torch.zeros((1, N_MPC_VARS), **f32),
                        warm_y=torch.zeros((1, N_MPC_ROWS), **f32),
                        out=mpc_out), dev, "host MPC solve")
-        self._swing_ref = CapturedCall(
-            _swing_ref, dict(tick=tick, liftoff=liftoff, touchdown=touchdown,
-                             out=swing), dev, "host swing reference")
         self._wbc = CapturedCall(
-            _wbc, dict(tick=tick, swing=swing,
+            _wbc, dict(tick=tick, phase=phase_i, liftoff=liftoff,
+                       touchdown=touchdown,
                        warm_x=torch.zeros((1, N_WBC_VARS), **f32),
                        warm_y=torch.zeros((1, N_WBC_ROWS), **f32),
                        out=wbc_out), dev, "host WBC solve")
@@ -371,7 +368,6 @@ class HostController:
                     self._snap_host.copy_(snap, non_blocking=True)
                 else:
                     self._mpc_host.copy_(self._mpc(), non_blocking=True)
-            self._swing_ref()
             self._wbc_host.copy_(self._wbc(), non_blocking=True)
             if self._stream is not None:
                 self._stream.synchronize()

@@ -4,39 +4,46 @@
 //                   (scenario, foot): the 16-step horizon loop, the Raibert
 //                   target at each swing -> stance transition, the first
 //                   one kept as the next touchdown;
-//   plan_rollout:   mpc/srb.py::reference_rollout, a thread per (scenario,
-//                   step): the commanded-velocity rollout up to its step;
+//   plan_rollout:   mpc/srb.py::reference_rollout, a group of G lanes per
+//                   scenario (G = N's next power of two, at most 32: two
+//                   scenarios a warp at N = 16): lane l takes step l of
+//                   each chunk of G steps, one sin and cos of its own yaw;
+//                   the positions are the ordered prefix sums of the
+//                   steps' terms, read from the lanes before by shuffles;
+//                   a block's rows staged in shared memory and written
+//                   with 16-byte stores;
 //   plan_swing:     plan/swing.py::swing_foot_ref, a thread per (scenario,
 //                   foot): the quintic xy / sextic z reference and its
 //                   derivatives;
-//   plan_swing_at:  plan/swing.py::swing_reference_at, the same reference
-//                   at a control tick with its whole per-tick chain, a
-//                   thread per (scenario, foot): the foot's steps since
-//                   lift-off and swing duration from the gait tables, the
-//                   swing's seconds and phase, then plan_swing's
-//                   evaluation.  With plan_swing and its plain prelude
-//                   (the tables' gathers, T = dur dt, the phase's where
-//                   and division) the host's swing graph was 17 kernels a
-//                   tick, each a CUDA graph node of 1.3-1.9 us at B = 1.
+//   plan_swing_at:  plan/swing.py::swing_references_period, the swing
+//                   reference at each of a period's T ticks in one launch
+//                   (swing_reference_at is the same kernel at T = 1): a
+//                   block a run of (scenario, tick) rows, a unit per
+//                   (scenario, foot) reading the gait tables, lift-off and
+//                   touchdown once, then a unit per (scenario, tick, foot)
+//                   evaluating the reference, the rows staged in shared
+//                   memory and written with 16-byte stores.
 //
 // The JAX package has no Pallas kernel here: XLA fuses each of these chains
 // under `jax.jit` (mpctsid_tpu/plan/footsteps.py:37, mpc/srb.py:53,
-// plan/swing.py:14).  Op by op the plain PyTorch chains are about 911, 276,
-// 56 and 72 kernels a call (the swing reference at a tick: its prelude's 16
-// and the reference's 56), each 1.3-1.9 us of a CUDA graph's replay at
-// B = 1.
+// plan/swing.py:14; the JAX cascade evaluates the swing reference every
+// tick from tables taken once a period, cascade/engine.py:236-255).  Op by
+// op the plain PyTorch chains are about 911, 276, 56 and 72 kernels a call
+// (the swing reference at a tick: its prelude's 16 and the reference's
+// 56), each 1.3-1.9 us of a CUDA graph's replay at B = 1.
 //
-// What bounds them on this card: neither bytes nor operations.  Per
-// scenario the footstep horizon reads 20 values and writes 204, the rollout
-// reads 6 and writes 192, the swing reference reads 32 and writes 36 (at a
-// tick it reads 27 and 8 table entries); under 1,000 operations each.  At
-// B = 1 a launch is one thread's chain of dependent steps (16 steps of sin,
-// cos, sqrt): its latency is the time; at B = 4096 the writes (3.3 MB and
-// 3.1 MB) are.  One thread per independent unit, 128 threads a block,
-// nothing shared.  The rollout is a
-// recursion over its 16 steps; a thread per step repeats the steps before
-// its own (136 steps a scenario for 16) so that a warp writes 32
-// consecutive rows of the output, not 32 rows 768 bytes apart.
+// What bounds them on this card: neither bytes nor operations, but a
+// launch and its dependent chain.  Per scenario the footstep horizon reads
+// 20 values and writes 204, the rollout reads 6 and writes 192, the swing
+// reference reads 32 and writes 36, over a period 27 and 8 table entries
+// and writes 720 (T = 20); under 1,000 operations a scenario and tick.
+// Hence the redesigns: the swing reference launched once a period where
+// its inputs are fixed (it had been launched at every tick, each launch
+// mostly latency), the rollout's recursion split so that a step costs one
+// sin and cos (the first design repeated each step's prefix: 136 a
+// scenario at N = 16, a chain of 16 on one thread at B = 1), and stores
+// that a warp issues as contiguous 16-byte pieces (the first designs'
+// scalar rows lay 48 bytes apart).
 //
 // The arithmetic is planner.h's (shared with the CPU tests' g++ build),
 // op by op the plain version's; -fmad=false keeps nvcc from contracting a
@@ -44,8 +51,10 @@
 //
 // Launch: plan_<name>_launch(dtype, B, N, tables, in, stride, out, par,
 // stream) with the arrays in planner.h's order (tables for the footsteps
-// and the swing reference at a tick, N unused by the swing references);
-// dtype 0 float, 1 double.
+// and the swing reference over a period; N the horizon of the footsteps
+// and the rollout, the period's ticks T of the swing reference, unused by
+// plan_swing); dtype 0 float, 1 double.  The rollout's and the swing
+// period's outputs must start on 16 bytes (the wrappers allocate them).
 // Returns a cudaError_t (0 on success); launches on `stream` and allocates
 // nothing.
 
@@ -56,6 +65,22 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int ROLL_THREADS = 128;
+constexpr int SWING_THREADS = 256;
+constexpr unsigned FULL = 0xffffffffu;
+// dynamic shared memory a block may take without opting in
+constexpr long long SMEM_LIMIT = 48 * 1024;
+
+// the block copies `bytes` (a multiple of 16) from shared memory to
+// `dst`, 16 bytes a thread and consecutive threads on consecutive pieces
+__device__ __forceinline__ void copy_out(void* dst, const void* src,
+                                         long long bytes)
+{
+    const int4* s = static_cast<const int4*>(src);
+    int4* d = static_cast<int4*>(dst);
+    for (long long i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+        d[i] = s[i];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -68,13 +93,47 @@ plan_footsteps_kernel(const planner::FootArgs<T> a,
                                (int)(t % planner::FEET));
 }
 
+// G lanes a scenario, blockDim.x / G scenarios a block; the block's rows
+// (B, N, 12) staged in shared memory, then copied out
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-plan_rollout_kernel(const planner::RollArgs<T> a, int N, int B)
+__global__ void __launch_bounds__(ROLL_THREADS)
+plan_rollout_kernel(const planner::RollArgs<T> a, int N, int B, int G)
 {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)B * N) return;
-    planner::rollout_step<T>(a, N, t / N, (int)(t % N));
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* stage = reinterpret_cast<T*>(smem);
+    const int groups = blockDim.x / G;
+    const int grp = threadIdx.x / G, l = threadIdx.x % G;
+    const long long b0 = (long long)blockIdx.x * groups;
+    const long long b = b0 + grp;
+    // a group past the last scenario runs the last one's steps (its lanes
+    // take part in the warp's shuffles) and stores nothing
+    const long long bb = b < B ? b : B - 1;
+    const T* x = a.template row<T>(planner::RI_X, bb);
+    const T* vc = a.template row<T>(planner::RI_VCMD, bb);
+    const T dt = a.par[planner::RP_DT], h = a.par[planner::RP_H_REF];
+    const bool fused = a.par[planner::RP_FUSED_BMM] != (T)0;
+    const T vbx = vc[0], vby = vc[1], wz = vc[2];
+    T px = x[0], py = x[1], yaw = x[5];
+    for (int c0 = 0; c0 < N; c0 += G) {
+        const planner::RollTerm<T> t =
+            planner::rollout_term(yaw, l, wz, dt, vbx, vby, fused);
+        T qx = px, qy = py;
+        planner::ordered_prefix(qx, qy, G, l, [&](int j, T& tx, T& ty) {
+            tx = __shfl_sync(FULL, t.tx, j, G);
+            ty = __shfl_sync(FULL, t.ty, j, G);
+        });
+        if (b < B && c0 + l < N)
+            planner::rollout_row(stage + ((long long)grp * N + c0 + l) * 12,
+                                 qx, qy, h, t, wz);
+        // the next chunk starts where this chunk's last lane ends
+        px = __shfl_sync(FULL, qx, G - 1, G);
+        py = __shfl_sync(FULL, qy, G - 1, G);
+        yaw = __shfl_sync(FULL, t.yaw_next, G - 1, G);
+    }
+    __syncthreads();
+    const long long live = B - b0 < groups ? B - b0 : groups;
+    copy_out(a.out[0] + b0 * N * 12, stage,
+             live * N * 12 * (long long)sizeof(T));
 }
 
 template <typename T>
@@ -86,20 +145,54 @@ plan_swing_kernel(const planner::SwingArgs<T> a, int B)
     planner::swing_foot<T>(a, t / planner::FEET, (int)(t % planner::FEET));
 }
 
+// a block `swing_block_rows(Tn)` rows of the (B Tn, 4, 3) outputs: the
+// (scenario, foot) set-ups, the (row, foot) evaluations into the staging
+// area, the staging copied out (planner.h's three phases)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SWING_THREADS)
 plan_swing_at_kernel(const planner::SwingAtArgs<T> a,
-                     const int* __restrict__ tables, int B)
+                     const int* __restrict__ tables, int B, int Tn)
 {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)B * planner::FEET) return;
-    planner::swing_at_foot<T>(a, tables, t / planner::FEET,
-                              (int)(t % planner::FEET));
+    extern __shared__ __align__(16) unsigned char smem[];
+    const planner::SwingBlock k = planner::swing_block(B, Tn, blockIdx.x);
+    const int R = planner::swing_block_rows(Tn);
+    T* s0 = reinterpret_cast<T*>(smem);
+    T* const stage[3] = {s0, s0 + 12 * R, s0 + 24 * R};
+    planner::SwingFoot<T>* feet =
+        reinterpret_cast<planner::SwingFoot<T>*>(s0 + 36 * R);
+    const int units = planner::FEET * k.rows;
+    // the first phase-2 unit's tick fraction, read beside phase 1's reads
+    T tf = (int)threadIdx.x < units
+        ? planner::swing_frac(a, Tn, k, threadIdx.x) : (T)0;
+    for (int u = threadIdx.x; u < planner::FEET * k.nb; u += blockDim.x)
+        feet[u] = planner::swing_setup(a, tables, k, u);
+    __syncthreads();
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+        if (u != (int)threadIdx.x) tf = planner::swing_frac(a, Tn, k, u);
+        planner::swing_tick(a, feet[planner::swing_setup_unit(Tn, k, u)], tf,
+                            u, stage);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < planner::SO_COUNT; ++o)
+        copy_out(a.out[o] + k.r0 * 12, stage[o],
+                 12LL * k.rows * (long long)sizeof(T));
 }
 
-int blocks_of(long long threads)
+int blocks_of(long long threads, int per_block)
 {
-    return (int)((threads + THREADS - 1) / THREADS);
+    return (int)((threads + per_block - 1) / per_block);
+}
+
+// threads a block: `most`, or the work's units rounded up to a warp
+int threads_for(long long units, int most)
+{
+    return units >= most ? most : (int)((units + 31) / 32 * 32);
+}
+
+bool aligned16(const void* p)
+{
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
 }
 
 template <typename T>
@@ -109,7 +202,8 @@ int footsteps(int B, int N, const void* tables, const void* const* in,
 {
     planner::FootArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_footsteps_kernel<T><<<blocks_of((long long)B * planner::FEET),
+    plan_footsteps_kernel<T><<<blocks_of((long long)B * planner::FEET,
+                                         THREADS),
                                THREADS, 0, stream>>>(
         a, static_cast<const int*>(tables), N, B);
     return (int)cudaGetLastError();
@@ -121,8 +215,14 @@ int rollout(int B, int N, const void* const* in, const long long* stride,
 {
     planner::RollArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_rollout_kernel<T><<<blocks_of((long long)B * N), THREADS, 0,
-                             stream>>>(a, N, B);
+    const int G = planner::rollout_lanes(N);
+    const int threads = threads_for((long long)B * G, ROLL_THREADS);
+    const int groups = threads / G;
+    const long long smem = (long long)groups * N * 12 * sizeof(T);
+    if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    if (!aligned16(out[0])) return (int)cudaErrorMisalignedAddress;
+    plan_rollout_kernel<T><<<blocks_of(B, groups), threads, (size_t)smem,
+                             stream>>>(a, N, B, G);
     return (int)cudaGetLastError();
 }
 
@@ -132,21 +232,30 @@ int swing(int B, const void* const* in, const long long* stride,
 {
     planner::SwingArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_swing_kernel<T><<<blocks_of((long long)B * planner::FEET), THREADS,
-                           0, stream>>>(a, B);
+    plan_swing_kernel<T><<<blocks_of((long long)B * planner::FEET, THREADS),
+                           THREADS, 0, stream>>>(a, B);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
-int swing_at(int B, const void* tables, const void* const* in,
+int swing_at(int B, int Tn, const void* tables, const void* const* in,
              const long long* stride, void* const* out, const double* par,
              cudaStream_t stream)
 {
     planner::SwingAtArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_swing_at_kernel<T><<<blocks_of((long long)B * planner::FEET),
-                              THREADS, 0, stream>>>(
-        a, static_cast<const int*>(tables), B);
+    const int R = planner::swing_block_rows(Tn);
+    const long long rows = (long long)B * Tn;
+    const long long smem =
+        (36LL * R + 7LL * planner::FEET * planner::swing_block_scenarios(Tn))
+        * (long long)sizeof(T);
+    for (int k = 0; k < planner::SO_COUNT; ++k)
+        if (!aligned16(out[k])) return (int)cudaErrorMisalignedAddress;
+    const int threads =
+        threads_for(planner::FEET * (rows < R ? rows : R), SWING_THREADS);
+    plan_swing_at_kernel<T><<<blocks_of(rows, R), threads, (size_t)smem,
+                              stream>>>(
+        a, static_cast<const int*>(tables), B, Tn);
     return (int)cudaGetLastError();
 }
 
@@ -211,14 +320,13 @@ int plan_swing_at_launch(int dtype, int B, int N, const void* tables,
                          const void* const* in, const long long* stride,
                          void* const* out, const double* par, void* stream)
 {
-    (void)N;
     if (!valid(dtype, B, planner::SA_COUNT, in, planner::SO_COUNT, out)
-        || tables == nullptr)
+        || tables == nullptr || N < 1)
         return (int)cudaErrorInvalidValue;
     return dtype == 0
-        ? swing_at<float>(B, tables, in, stride, out, par,
+        ? swing_at<float>(B, N, tables, in, stride, out, par,
                           (cudaStream_t)stream)
-        : swing_at<double>(B, tables, in, stride, out, par,
+        : swing_at<double>(B, N, tables, in, stride, out, par,
                            (cudaStream_t)stream);
 }
 

@@ -1,14 +1,18 @@
 // The planner's per-scenario arithmetic: the footstep horizon, the
-// reference rollout and the swing reference (from given phases, and at a
-// tick from the gait tables), for the kernels of planner.cu.
+// reference rollout and the swing reference (from given phases, and over a
+// period's ticks from the gait tables), for the kernels of planner.cu.
 //
 // Plain C++: every function is marked PLAN_FN, `__host__ __device__` under
 // nvcc and plain `inline` under a host compiler, so the tests build this
 // very arithmetic with g++ and run it on the CPU
-// (tests/test_torch_plan_kernels.py).  One call computes what one thread of
-// a kernel computes: a (scenario, foot) of the footstep horizon and of the
-// swing references, a (scenario, step) of the reference rollout.  Templated
-// on the value type (float, double).
+// (tests/test_torch_plan_kernels.py, tests/test_torch_plan_period.py).
+// One call computes what one unit of a kernel computes: a (scenario, foot)
+// of the footstep horizon and of the swing reference from given phases; a
+// step's terms of the reference rollout and their ordered prefix (the
+// kernel hands terms between lanes by shuffles, the tests' host glue by
+// an array); a (scenario, foot) set-up and a (scenario, tick, foot)
+// evaluation of the swing reference over a period.
+// Templated on the value type (float, double).
 //
 // Rounding.  Each expression is the plain PyTorch version's, op by op and
 // in its order: one rounding per op, no FMA (planner.cu is built with
@@ -65,14 +69,15 @@ enum RollPar { RP_DT, RP_H_REF, RP_FUSED_BMM, RP_COUNT };
 enum SwingIn { SI_LIFT, SI_TD, SI_S, SI_T, SI_COUNT };
 enum SwingOut { SO_POS, SO_VEL, SO_ACC, SO_COUNT };
 enum SwingPar { SP_H64, SP_COUNT };     // 64 h_apex
-// the swing reference at a tick: gait id and phase (int32), the tick's
-// fraction of its MPC step, lift-off and touchdown points; dt, 64 h_apex
+// the swing reference over a period's ticks: gait id and phase (int32),
+// the ticks' fractions of their MPC step (a row of T), lift-off and
+// touchdown points; dt, 64 h_apex
 enum SwingAtIn { SA_GAIT, SA_PHASE, SA_TFRAC, SA_LIFT, SA_TD, SA_COUNT };
 enum SwingAtPar { SAP_DT, SAP_H64, SAP_COUNT };
 
 // the gait tables' ints and each kernel's operand counts: inputs, outputs,
 // parameters of the footsteps, the rollout, the swing reference and the
-// swing reference at a tick (plan/kernels.py::LAYOUT; -1 past the end)
+// swing reference over a period (plan/kernels.py::LAYOUT; -1 past the end)
 inline int layout(int what)
 {
     const int counts[] = {TABLE_INTS, FI_COUNT, FO_COUNT, FP_COUNT,
@@ -239,38 +244,83 @@ PLAN_FN void footsteps_foot(const FootArgs<T>& a, const int* tables, int N,
     td[2] = tdz;
 }
 
-// ---- the reference rollout: mpc/srb.py::reference_rollout, step k of
-// scenario b: the k + 1 steps of the recursion up to it (each thread of a
-// scenario repeats its own prefix, so that a warp's threads write
-// consecutive rows), the state after step k.  out (B, N, 12): [p_x, p_y,
-// h_ref, 0, 0, yaw, v_world, 0, 0, wz].
-template <typename T>
-PLAN_FN void rollout_step(const RollArgs<T>& a, int N, long long b, int k)
+// ---- the reference rollout: mpc/srb.py::reference_rollout.  out (B, N,
+// 12), row k the state after step k: [p_x, p_y, h_ref, 0, 0, yaw_{k+1},
+// v_world_k, 0, 0, wz], where
+//     yaw_{k+1} = yaw_k + wz dt,  v_world_k = rot_z(yaw_k) [vbx, vby, 0],
+//     p_{k+1} = p_k + v_world_k dt.
+// Two pieces: step k's terms from its own yaw (`rollout_term`: k adds of
+// wz dt, one sin and cos), then p_{k+1} = ((p_0 + t_0) + t_1) ... + t_k,
+// the ordered prefix of the terms t_j = v_world_j dt (`ordered_prefix`):
+// the recursion's own operations in its order, so its bits.  The steps go
+// in chunks of G lanes (`rollout_lanes`); a chunk starts from the yaw and
+// the positions that the last lane of the chunk before reached.
+
+// lanes a scenario's steps take at a time: N's next power of two, at most
+// a warp
+PLAN_FN int rollout_lanes(int N)
 {
-    const T* x = a.template row<T>(RI_X, b);
-    const T* vc = a.template row<T>(RI_VCMD, b);
-    const T dt = a.par[RP_DT];
-    const bool fused = a.par[RP_FUSED_BMM] != (T)0;
-    T px = x[0], py = x[1], yaw = x[5], vwx = (T)0, vwy = (T)0;
-    const T vbx = vc[0], vby = vc[1], wz = vc[2];
-    for (int j = 0; j <= k; ++j) {
-        const T c = p_cos(yaw), s = p_sin(yaw);
-        // v_world = rot_z(yaw) [vbx, vby, 0] (torch.bmm)
-        vwx = dot2(c, vbx, -s, vby, fused);
-        vwy = dot2(s, vbx, c, vby, fused);
-        px = px + vwx * dt;
-        py = py + vwy * dt;
-        yaw = yaw + wz * dt;
+    int g = 1;
+    while (g < N && g < 32) g *= 2;
+    return g;
+}
+
+template <typename T>
+struct RollTerm {
+    T yaw_next;     // yaw_{k+1}
+    T vwx, vwy;     // v_world_k
+    T tx, ty;       // v_world_k dt
+};
+
+// step k = (chunk's first step) + l: yaw_k by l adds from the chunk's first
+// yaw, its rotation (torch.bmm's form) and terms
+template <typename T>
+PLAN_FN RollTerm<T> rollout_term(T yaw_first, int l, T wz, T dt, T vbx,
+                                 T vby, bool fused)
+{
+    T yaw = yaw_first;
+    for (int i = 0; i < l; ++i) yaw = yaw + wz * dt;
+    const T c = p_cos(yaw), s = p_sin(yaw);
+    RollTerm<T> r;
+    r.vwx = dot2(c, vbx, -s, vby, fused);
+    r.vwy = dot2(s, vbx, c, vby, fused);
+    r.tx = r.vwx * dt;
+    r.ty = r.vwy * dt;
+    r.yaw_next = yaw + wz * dt;
+    return r;
+}
+
+// (px, py) + t_0 + ... + t_l in that order, t_j = get(j) for every j < G
+// (the card's shuffles need every lane to ask for every j)
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <typename T, typename Get>
+PLAN_FN void ordered_prefix(T& px, T& py, int G, int l, Get get)
+{
+    for (int j = 0; j < G; ++j) {
+        T tx, ty;
+        get(j, tx, ty);
+        if (j <= l) {
+            px = px + tx;
+            py = py + ty;
+        }
     }
-    T* o = a.out[0] + (b * N + k) * 12;
+}
+
+// row k of the output
+template <typename T>
+PLAN_FN void rollout_row(T* o, T px, T py, T h_ref, const RollTerm<T>& t,
+                         T wz)
+{
     o[0] = px;
     o[1] = py;
-    o[2] = a.par[RP_H_REF];
+    o[2] = h_ref;
     o[3] = (T)0;
     o[4] = (T)0;
-    o[5] = yaw;
-    o[6] = vwx;
-    o[7] = vwy;
+    o[5] = t.yaw_next;
+    o[6] = t.vwx;
+    o[7] = t.vwy;
     o[8] = (T)0;
     o[9] = (T)0;
     o[10] = (T)0;
@@ -279,13 +329,13 @@ PLAN_FN void rollout_step(const RollArgs<T>& a, int N, long long b, int k)
 
 // ---- the swing reference of one foot (plan/swing.py::
 // swing_foot_ref_reference): the quintic xy and sextic z from lift-off
-// `lo` to touchdown `td` at phase s of a swing of T seconds, apex H / 64;
-// pos, vel, acc at element o (and o + 1, o + 2) of the outputs.
+// `lo` to touchdown at phase s of a swing whose seconds' reciprocal is ds
+// (1 / max(T, 1e-6)), apex H / 64; d = touchdown - lift-off (x, y); pos,
+// vel, acc at element o (and o + 1, o + 2) of the outputs.
 template <typename T>
-PLAN_FN void swing_eval(const T* lo, const T* td, T s, T Tsw, T H,
+PLAN_FN void swing_poly(T s, T ds, T lo0, T lo1, T d0, T d1, T H,
                         T* const* out, long long o)
 {
-    const T ds = (T)1 / clamp_min(Tsw, (T)1e-6);
     const T s2 = s * s, s3 = s * s * s;
     const T s4 = p_pow(s, (T)4), s5 = p_pow(s, (T)5);
     const T blend = (T)10 * s3 - (T)15 * s4 + (T)6 * s5;
@@ -293,47 +343,135 @@ PLAN_FN void swing_eval(const T* lo, const T* td, T s, T Tsw, T H,
     const T ddblend = ((T)60 * s - (T)180 * s2 + (T)120 * s3) * ds * ds;
     const T one = (T)1 - s;
     const T one2 = one * one, one3 = one * one * one;
-    for (int c = 0; c < 2; ++c) {
-        const T d = td[c] - lo[c];
-        out[SO_POS][o + c] = lo[c] + d * blend;
-        out[SO_VEL][o + c] = d * dblend;
-        out[SO_ACC][o + c] = d * ddblend;
-    }
+    out[SO_POS][o] = lo0 + d0 * blend;
+    out[SO_VEL][o] = d0 * dblend;
+    out[SO_ACC][o] = d0 * ddblend;
+    out[SO_POS][o + 1] = lo1 + d1 * blend;
+    out[SO_VEL][o + 1] = d1 * dblend;
+    out[SO_ACC][o + 1] = d1 * ddblend;
     out[SO_POS][o + 2] = H * s3 * one3;
     out[SO_VEL][o + 2] = H * ((T)3 * s2 * one3 - (T)3 * s3 * one2) * ds;
     out[SO_ACC][o + 2] = H * ((T)6 * s * one3 - (T)18 * s2 * one2
                               + (T)6 * s3 * one) * ds * ds;
 }
 
+template <typename T>
+PLAN_FN T swing_rate(T Tsw) { return (T)1 / clamp_min(Tsw, (T)1e-6); }
+
 // plan/swing.py::swing_foot_ref for foot f of scenario b.  pos, vel, acc
 // (B, 4, 3).
 template <typename T>
 PLAN_FN void swing_foot(const SwingArgs<T>& a, long long b, int f)
 {
-    swing_eval(a.template row<T>(SI_LIFT, b) + 3 * f,
-               a.template row<T>(SI_TD, b) + 3 * f,
-               a.template row<T>(SI_S, b)[f], a.template row<T>(SI_T, b)[f],
-               a.par[SP_H64], a.out, (b * FEET + f) * 3);
+    const T* lo = a.template row<T>(SI_LIFT, b) + 3 * f;
+    const T* td = a.template row<T>(SI_TD, b) + 3 * f;
+    swing_poly(a.template row<T>(SI_S, b)[f],
+               swing_rate(a.template row<T>(SI_T, b)[f]), lo[0], lo[1],
+               td[0] - lo[0], td[1] - lo[1], a.par[SP_H64], a.out,
+               (b * FEET + f) * 3);
 }
 
-// ---- plan/swing.py::swing_reference_at for foot f of scenario b: the
-// foot's steps since lift-off and swing duration from the gait tables, the
-// swing's seconds T = dur dt and phase s = (back + t_frac) / max(dur, 1)
-// (0 in stance), each one rounding as in the plain chain, then the
-// reference as swing_foot's.
-template <typename T>
-PLAN_FN void swing_at_foot(const SwingAtArgs<T>& a, const int* tables,
-                           long long b, int f)
+// ---- plan/swing.py::swing_references_period: the swing reference at
+// each of a period's T ticks (swing_reference_at at every fraction of the
+// row), outputs (B, T, 4, 3).  Row r = b T + t of the (B T, 4, 3)
+// outputs; a block of the kernel takes `swing_block_rows(T)` rows (whole
+// scenarios where T <= SWING_ROWS) in three phases:
+//   1. a unit per (scenario, foot) the block touches (`swing_setup`): the
+//      foot's steps since lift-off and swing duration from the gait tables,
+//      the swing's seconds' reciprocal, lift-off and the step, read once;
+//   2. a unit per (row, foot) (`swing_tick`): the tick's fraction
+//      (`swing_frac`), the phase s = (back + t_frac) / max(dur, 1) (0 in
+//      stance), then `swing_poly` into a staging area of the block's rows
+//      (three arrays of rows x 12 values);
+//   3. the staging copied out, the block's rows being contiguous.
+// Every value is the plain chain's at its tick, op by op: slice [:, t]
+// is the reference at fraction t alone (the kernel at T = 1).
+constexpr int SWING_ROWS = 64;
+
+PLAN_FN int swing_block_rows(int T)
 {
+    return T <= SWING_ROWS ? T * (SWING_ROWS / T) : SWING_ROWS;
+}
+
+// the most scenarios the rows of one block touch
+PLAN_FN int swing_block_scenarios(int T)
+{
+    return (swing_block_rows(T) - 1) / T + 2;
+}
+
+template <typename T>
+struct SwingFoot {
+    T back, dur, ds;    // steps since lift-off and duration; 1 / seconds
+    T lo0, lo1, d0, d1; // lift-off and touchdown - lift-off (x, y)
+};
+
+// block `blk`'s rows [r0, r0 + rows) of the B T rows and their scenarios
+// [b_lo, b_lo + nb)
+struct SwingBlock {
+    long long r0, b_lo;
+    int rows, nb;
+};
+
+PLAN_FN SwingBlock swing_block(long long B, int T, long long blk)
+{
+    const int R = swing_block_rows(T);
+    SwingBlock k;
+    k.r0 = blk * R;
+    const long long left = B * T - k.r0;
+    k.rows = left < R ? (int)left : R;
+    k.b_lo = k.r0 / T;
+    k.nb = (int)((k.r0 + k.rows - 1) / T - k.b_lo + 1);
+    return k;
+}
+
+// phase 1, unit u < 4 nb: foot u % 4 of the block's scenario u / 4
+template <typename T>
+PLAN_FN SwingFoot<T> swing_setup(const SwingAtArgs<T>& a, const int* tables,
+                                 const SwingBlock& k, int u)
+{
+    const long long b = k.b_lo + u / FEET;
+    const int f = u % FEET;
     const int g = *a.template row<int>(SA_GAIT, b);
     const int ph = *a.template row<int>(SA_PHASE, b);
-    const T back = (T)swing_back(tables, g, ph, f);
-    const T dur = (T)swing_dur(tables, g, ph, f);
-    const T tf = *a.template row<T>(SA_TFRAC, b);
-    const T s = dur > (T)0 ? (back + tf) / clamp_min(dur, (T)1) : (T)0;
-    swing_eval(a.template row<T>(SA_LIFT, b) + 3 * f,
-               a.template row<T>(SA_TD, b) + 3 * f, s, dur * a.par[SAP_DT],
-               a.par[SAP_H64], a.out, (b * FEET + f) * 3);
+    const T* lo = a.template row<T>(SA_LIFT, b) + 3 * f;
+    const T* td = a.template row<T>(SA_TD, b) + 3 * f;
+    SwingFoot<T> p;
+    p.back = (T)swing_back(tables, g, ph, f);
+    p.dur = (T)swing_dur(tables, g, ph, f);
+    p.ds = swing_rate(p.dur * a.par[SAP_DT]);
+    p.lo0 = lo[0];
+    p.lo1 = lo[1];
+    p.d0 = td[0] - lo[0];
+    p.d1 = td[1] - lo[1];
+    return p;
+}
+
+// phase 2, unit u < 4 rows: foot u % 4 of the block's row u / 4 ...
+// whose set-up is the block's phase-1 unit `swing_setup_unit`
+PLAN_FN int swing_setup_unit(int Tn, const SwingBlock& k, int u)
+{
+    return (int)((k.r0 + u / FEET) / Tn - k.b_lo) * FEET + u % FEET;
+}
+
+// ... at the fraction `swing_frac` of its tick ...
+template <typename T>
+PLAN_FN T swing_frac(const SwingAtArgs<T>& a, int Tn, const SwingBlock& k,
+                     int u)
+{
+    const long long r = k.r0 + u / FEET;
+    const long long b = r / Tn;
+    return a.template row<T>(SA_TFRAC, b)[r - b * Tn];
+}
+
+// ... into `out` (pos, vel, acc of the block's rows) at 3 u
+template <typename T>
+PLAN_FN void swing_tick(const SwingAtArgs<T>& a, const SwingFoot<T>& p, T tf,
+                        int u, T* const* out)
+{
+    const T s = p.dur > (T)0 ? (p.back + tf) / clamp_min(p.dur, (T)1)
+                             : (T)0;
+    swing_poly(s, p.ds, p.lo0, p.lo1, p.d0, p.d1, a.par[SAP_H64], out,
+               3LL * u);
 }
 
 }  // namespace planner

@@ -9,11 +9,15 @@ scenario at once; stance feet get zeros via the mask the caller applies.
 plan/kernels.py); on CPU tensors it runs its plain version,
 `swing_foot_ref_reference` (about 56 kernels a call on the card).
 
-`swing_reference_at` is the reference at a control tick with its whole
-per-tick chain (the gait's swing tables, the swing's seconds and phase),
-what the cascade and the host path call every tick: on CUDA tensors one
-launch of the kernel `plan_swing_at`, on CPU tensors its plain version,
-`swing_reference_at_reference`.
+`swing_references_period` is the reference at each of a period's ticks
+with its whole per-tick chain (the gait's swing tables, the swing's
+seconds and phase), what the cascade takes once a period (the JAX
+engine's `swing_tables` once a period and `swing_foot_ref` at each tick,
+mpctsid_tpu/cascade/engine.py:236-255): on CUDA tensors one launch of the
+kernel `plan_swing_at`, on CPU tensors its plain version,
+`swing_references_period_reference`.  `swing_reference_at`, the reference
+at one tick (what the host path's WBC graph takes every tick), is the
+same kernel at one tick.
 """
 
 from __future__ import annotations
@@ -91,6 +95,74 @@ def swing_foot_ref_reference(p_liftoff, p_touchdown, s, T, h_apex):
     return pos, vel, acc
 
 
+def swing_references_period(gait_id, phase, fracs, liftoff, touchdown, dt,
+                            h_apex):
+    """(pos, vel, acc), each (B, T, 4, 3): the swing reference at each of
+    T ticks; slice [:, t] is `swing_reference_at` at fraction fracs[t],
+    bit for bit.
+
+    gait_id, phase (B,) or (1,) integers; fracs (T,) the ticks' fractions
+    of their MPC step, one row shared by every scenario (or (1, T), or
+    (B, T) a row each), in liftoff's dtype; liftoff/touchdown (B, 4, 3);
+    dt the MPC step in seconds and h_apex the apex height (numbers).
+
+    CUDA tensors: one launch of the kernel `plan_swing_at` (float32 or
+    float64), or an exception.  CPU tensors: the plain version,
+    `swing_references_period_reference`."""
+    kernels.require_dtype("liftoff", liftoff)
+    if liftoff.device.type == "cpu":
+        return swing_references_period_reference(
+            gait_id, phase, fracs, liftoff, touchdown, dt, h_apex)
+    out = kernels.launch("swing_at", run_swing_period, liftoff.device,
+                         gait_id, phase, fracs, liftoff, touchdown, dt,
+                         h_apex)
+    swing_references_period.launches += 1
+    return out
+
+
+swing_references_period.launches = 0
+
+
+def run_swing_period(launch_fn, gait_id, phase, fracs, liftoff, touchdown,
+                     dt, h_apex):
+    """(rc, (pos, vel, acc)): the kernel's operands packed for `launch_fn`
+    (plan/kernels.py's signature less the stream, N the ticks T), its
+    outputs allocated here.  Gait ids must lie in [0, 5): the kernel reads
+    its tables without a check."""
+    for what, v in (("dt", dt), ("h_apex", h_apex)):
+        if not isinstance(v, numbers.Real):
+            raise TypeError(f"{what} must be a number, got {type(v)}")
+    if not isinstance(fracs, torch.Tensor) or fracs.dim() not in (1, 2) or \
+            fracs.shape[-1] < 1:
+        raise ValueError("fracs must be a (T,), (1, T) or (B, T) tensor, "
+                         f"got {getattr(fracs, 'shape', type(fracs))}")
+    rows = fracs[None] if fracs.dim() == 1 else fracs
+    like = liftoff
+    B, T = like.shape[0], rows.shape[1]
+    ins = [kernels.int_rows("gait_id", gait_id, B, like),
+           kernels.int_rows("phase", phase, B, like),
+           kernels.rows("fracs", rows, B, (T,), like),
+           kernels.rows("liftoff", liftoff, B, (4, 3), like),
+           kernels.rows("touchdown", touchdown, B, (4, 3), like)]
+    outs = [like.new_empty((B, T, 4, 3)) for _ in range(3)]
+    rc = kernels.call(launch_fn, like.dtype, B, T,
+                      kernels.gait_tables(like.device), ins, outs,
+                      [dt, 64.0 * float(h_apex)])
+    return rc, tuple(outs)
+
+
+def swing_references_period_reference(gait_id, phase, fracs, liftoff,
+                                      touchdown, dt, h_apex):
+    """Plain version of `swing_references_period` (any device and dtype):
+    `swing_reference_at_reference` at each fraction, stacked."""
+    rows = fracs[None] if fracs.dim() == 1 else fracs
+    ticks = [swing_reference_at_reference(gait_id, phase, rows[:, t],
+                                          liftoff, touchdown, dt, h_apex)
+             for t in range(rows.shape[1])]
+    return tuple(torch.stack([tick[k] for tick in ticks], dim=1)
+                 for k in range(3))
+
+
 def swing_reference_at(gait_id, phase, t_frac, liftoff, touchdown, dt,
                        h_apex):
     """(pos, vel, acc), each (B, 4, 3): the swing reference at a control
@@ -104,9 +176,9 @@ def swing_reference_at(gait_id, phase, t_frac, liftoff, touchdown, dt,
     stance), back and dur its steps since lift-off and swing duration from
     the gait's tables.
 
-    CUDA tensors: one launch of the kernel `plan_swing_at` (float32 or
-    float64), or an exception.  CPU tensors: the plain version,
-    `swing_reference_at_reference`."""
+    CUDA tensors: one launch of the kernel `plan_swing_at` (the period
+    kernel at one tick; float32 or float64), or an exception.  CPU
+    tensors: the plain version, `swing_reference_at_reference`."""
     kernels.require_dtype("liftoff", liftoff)
     if liftoff.device.type == "cpu":
         return swing_reference_at_reference(gait_id, phase, t_frac, liftoff,
@@ -122,25 +194,14 @@ swing_reference_at.launches = 0
 
 def run_swing_at(launch_fn, gait_id, phase, t_frac, liftoff, touchdown, dt,
                  h_apex):
-    """(rc, (pos, vel, acc)): the kernel's operands packed for `launch_fn`
-    (plan/kernels.py's signature less the stream), its outputs allocated
-    here.  Gait ids must lie in [0, 5): the kernel reads its tables without
-    a check."""
-    for what, v in (("dt", dt), ("h_apex", h_apex)):
-        if not isinstance(v, numbers.Real):
-            raise TypeError(f"{what} must be a number, got {type(v)}")
-    like = liftoff
-    B = like.shape[0]
-    ins = [kernels.int_rows("gait_id", gait_id, B, like),
-           kernels.int_rows("phase", phase, B, like),
-           kernels.rows("t_frac", t_frac, B, (1,), like),
-           kernels.rows("liftoff", liftoff, B, (4, 3), like),
-           kernels.rows("touchdown", touchdown, B, (4, 3), like)]
-    outs = [like.new_empty((B, 4, 3)) for _ in range(3)]
-    rc = kernels.call(launch_fn, like.dtype, B, 1,
-                      kernels.gait_tables(like.device), ins, outs,
-                      [dt, 64.0 * float(h_apex)])
-    return rc, tuple(outs)
+    """(rc, (pos, vel, acc)): `run_swing_period` at one tick, t_frac a
+    scenario's (or every scenario's) one fraction; the outputs (B, 4, 3)."""
+    if not isinstance(t_frac, torch.Tensor):
+        raise TypeError(f"t_frac must be a torch.Tensor, got {type(t_frac)}")
+    rows = t_frac[:, None] if t_frac.dim() == 1 else t_frac
+    rc, outs = run_swing_period(launch_fn, gait_id, phase, rows, liftoff,
+                                touchdown, dt, h_apex)
+    return rc, tuple(o[:, 0] for o in outs)
 
 
 def swing_reference_at_reference(gait_id, phase, t_frac, liftoff, touchdown,

@@ -249,6 +249,9 @@ def build_rbd_harness(directory):
 
 
 PLANNER_HARNESS = r'''
+#include <limits>
+#include <vector>
+
 #include "planner.h"
 
 namespace {
@@ -266,14 +269,50 @@ int footsteps(int B, int N, const void* tables, const void* const* in,
     return 0;
 }
 
+// the rollout's pieces for scenario b, glued as the kernel glues them
+// (its chunks of G lanes; the terms handed over by an array where the
+// kernel's lanes shuffle them)
+template <typename T>
+void rollout_scenario(const planner::RollArgs<T>& a, int N, long long b)
+{
+    const T* x = a.template row<T>(planner::RI_X, b);
+    const T* vc = a.template row<T>(planner::RI_VCMD, b);
+    const T dt = a.par[planner::RP_DT];
+    const bool fused = a.par[planner::RP_FUSED_BMM] != (T)0;
+    const int G = planner::rollout_lanes(N);
+    planner::RollTerm<T> terms[32];
+    T px = x[0], py = x[1], yaw = x[5];
+    for (int c0 = 0; c0 < N; c0 += G) {
+        for (int l = 0; l < G; ++l)
+            terms[l] = planner::rollout_term(yaw, l, vc[2], dt, vc[0], vc[1],
+                                             fused);
+        T last_x = px, last_y = py;
+        for (int l = 0; l < G; ++l) {
+            T qx = px, qy = py;
+            planner::ordered_prefix(qx, qy, G, l, [&](int j, T& tx, T& ty) {
+                tx = terms[j].tx;
+                ty = terms[j].ty;
+            });
+            if (c0 + l < N)
+                planner::rollout_row(a.out[0] + (b * N + c0 + l) * 12, qx, qy,
+                                     a.par[planner::RP_H_REF], terms[l],
+                                     vc[2]);
+            last_x = qx;
+            last_y = qy;
+        }
+        px = last_x;
+        py = last_y;
+        yaw = terms[G - 1].yaw_next;
+    }
+}
+
 template <typename T>
 int rollout(int B, int N, const void*, const void* const* in,
             const long long* stride, void* const* out, const double* par)
 {
     planner::RollArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        for (int k = 0; k < N; ++k) planner::rollout_step<T>(a, N, b, k);
+    for (long long b = 0; b < B; ++b) rollout_scenario<T>(a, N, b);
     return 0;
 }
 
@@ -289,17 +328,59 @@ int swing(int B, int, const void*, const void* const* in,
     return 0;
 }
 
+// the swing reference over a period (N its ticks): the kernel's blocks
+// one after another, each block's phases in turn, their units in order or
+// reversed, in NaN-filled staging and set-up areas
 template <typename T>
-int swing_at(int B, int, const void* tables, const void* const* in,
-             const long long* stride, void* const* out, const double* par)
+int swing_period(bool reverse, int B, int N, const void* tables,
+                 const void* const* in, const long long* stride,
+                 void* const* out, const double* par)
 {
     planner::SwingAtArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        for (int f = 0; f < planner::FEET; ++f)
-            planner::swing_at_foot<T>(a, static_cast<const int*>(tables), b,
-                                      f);
+    const int R = planner::swing_block_rows(N);
+    const T nan = std::numeric_limits<T>::quiet_NaN();
+    std::vector<T> stage(36 * (size_t)R);
+    std::vector<planner::SwingFoot<T>> feet(
+        planner::FEET * (size_t)planner::swing_block_scenarios(N));
+    T* const st[3] = {stage.data(), stage.data() + 12 * R,
+                      stage.data() + 24 * R};
+    const long long rows = (long long)B * N;
+    for (long long blk = 0; blk * R < rows; ++blk) {
+        const planner::SwingBlock k = planner::swing_block(B, N, blk);
+        for (auto& v : stage) v = nan;
+        for (auto& f : feet) f = {nan, nan, nan, nan, nan, nan, nan};
+        if ((size_t)(planner::FEET * k.nb) > feet.size()) return -1;
+        for (int i = 0; i < planner::FEET * k.nb; ++i) {
+            const int u = reverse ? planner::FEET * k.nb - 1 - i : i;
+            feet[u] = planner::swing_setup(a, static_cast<const int*>(tables),
+                                           k, u);
+        }
+        for (int i = 0; i < planner::FEET * k.rows; ++i) {
+            const int u = reverse ? planner::FEET * k.rows - 1 - i : i;
+            planner::swing_tick(a, feet[planner::swing_setup_unit(N, k, u)],
+                                planner::swing_frac(a, N, k, u), u, st);
+        }
+        for (int o = 0; o < planner::SO_COUNT; ++o)
+            for (long long i = 0; i < 12LL * k.rows; ++i)
+                a.out[o][k.r0 * 12 + i] = st[o][i];
+    }
     return 0;
+}
+
+template <typename T>
+int swing_at(int B, int N, const void* tables, const void* const* in,
+             const long long* stride, void* const* out, const double* par)
+{
+    return swing_period<T>(false, B, N, tables, in, stride, out, par);
+}
+
+template <typename T>
+int swing_at_reversed(int B, int N, const void* tables,
+                      const void* const* in, const long long* stride,
+                      void* const* out, const double* par)
+{
+    return swing_period<T>(true, B, N, tables, in, stride, out, par);
 }
 
 }  // namespace
@@ -320,19 +401,24 @@ PLAN_ENTRY(plan_footsteps_host, footsteps)
 PLAN_ENTRY(plan_rollout_host, rollout)
 PLAN_ENTRY(plan_swing_host, swing)
 PLAN_ENTRY(plan_swing_at_host, swing_at)
+PLAN_ENTRY(plan_swing_at_reversed_host, swing_at_reversed)
 '''
 
 
 def build_planner_harness(directory):
-    """mpctsid_tpu_torch/plan/csrc/planner.h, the per-thread arithmetic of
-    the planner's four kernels, built with the host compiler into
-    `directory` (-std=c++17: no floating-point contraction), each kernel's
-    threads run one after another with the kernels' C signature (less the
-    stream).  Returns a namespace of ctypes functions `footsteps`,
-    `rollout`, `swing`, `swing_at`, which the wrappers' packing
+    """mpctsid_tpu_torch/plan/csrc/planner.h, the arithmetic of the
+    planner's four kernels, built with the host compiler into `directory`
+    (-std=c++17: no floating-point contraction), each kernel's units run
+    one after another with the kernels' C signature (less the stream): the
+    rollout's pieces glued by an array, the kernel's chunks of lanes in
+    turn (`rollout_scenario`), the swing
+    reference over a period block by block, phase by phase, from NaN-filled
+    staging (`swing_at`; `swing_at_reversed` each phase's units reversed).
+    Returns a namespace of ctypes functions `footsteps`, `rollout`,
+    `swing`, `swing_at`, `swing_at_reversed`, which the wrappers' packing
     (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
-    `plan.swing.run_swing`, `plan.swing.run_swing_at`) takes, and
-    `layout(i)` (planner.h's counts)."""
+    `plan.swing.run_swing`, `plan.swing.run_swing_period`, `run_swing_at`)
+    takes, and `layout(i)` (planner.h's counts)."""
     import ctypes
     import subprocess
     import types
@@ -349,7 +435,8 @@ def build_planner_harness(directory):
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("footsteps", "rollout", "swing", "swing_at"):
+    for name in ("footsteps", "rollout", "swing", "swing_at",
+                 "swing_at_reversed"):
         fn = getattr(lib, f"plan_{name}_host")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -357,6 +444,92 @@ def build_planner_harness(directory):
     lib.planner_layout.argtypes = [ctypes.c_int]
     lib.planner_layout.restype = ctypes.c_int
     return types.SimpleNamespace(layout=lib.planner_layout, **fns)
+
+
+FIRST_PLANNER_HARNESS = r"""
+#include "planner.h"
+
+namespace {
+
+template <typename T>
+int rollout(int B, int N, const void*, const void* const* in,
+            const long long* stride, void* const* out, const double* par)
+{
+    planner::RollArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int k = 0; k < N; ++k) planner::rollout_step<T>(a, N, b, k);
+    return 0;
+}
+
+template <typename T>
+int swing_at(int B, int, const void* tables, const void* const* in,
+             const long long* stride, void* const* out, const double* par)
+{
+    planner::SwingAtArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::swing_at_foot<T>(a, static_cast<const int*>(tables), b,
+                                      f);
+    return 0;
+}
+
+}  // namespace
+
+#define FIRST_ENTRY(name, body)                                             \
+    extern "C" int name(int dtype, int B, int N, const void* tables,        \
+                        const void* const* in, const long long* stride,     \
+                        void* const* out, const double* par)                \
+    {                                                                       \
+        return dtype == 0                                                   \
+                   ? body<float>(B, N, tables, in, stride, out, par)        \
+                   : body<double>(B, N, tables, in, stride, out, par);      \
+    }
+
+FIRST_ENTRY(first_rollout, rollout)
+FIRST_ENTRY(first_swing_at, swing_at)
+"""
+
+
+def build_first_planner_harness(directory):
+    """The planner's first designs of the reference rollout (a thread per
+    step repeating the recursion up to it, `rollout_step`) and the swing
+    reference at a tick (`swing_at_foot`), whose planner.h lives on
+    verbatim in scripts/probe_planner_designs.py (FIRST_PLANNER_H), built
+    with the host compiler into `directory` (-ffp-contract=off), each
+    thread one after another.  Returns a namespace of `rollout` and
+    `swing_at` with the kernels' C signature less the stream
+    (`mpc.srb.run_rollout`, `plan.swing.run_swing_at` take them; the first
+    design's tick fraction is one value a scenario)."""
+    import ctypes
+    import re
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.plan import kernels
+
+    script = (Path(__file__).resolve().parents[1] / "scripts"
+              / "probe_planner_designs.py").read_text()
+    source = re.search(r'FIRST_PLANNER_H = r"""(.*?)"""', script,
+                       re.S).group(1)
+    d = Path(directory).resolve()
+    (d / "planner.h").write_text(source)
+    cc = d / "first_planner.cc"
+    cc.write_text(FIRST_PLANNER_HARNESS)
+    so = d / "libfirst_planner.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(d), "-o", str(so), str(cc)],
+                   check=True)
+    lib = ctypes.CDLL(str(so))
+    fns = {}
+    for name in ("rollout", "swing_at"):
+        fn = getattr(lib, f"first_{name}")
+        fn.argtypes = kernels.LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 RUIZ_HARNESS = r'''

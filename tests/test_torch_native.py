@@ -183,8 +183,12 @@ def test_telemetry_ring_concurrent_producer_consumer():
             out = tr.pop(256)
             if out.size:
                 got.append(out.copy())
-            if stop.is_set() and tr.pop(256).size == 0:
-                break
+            if stop.is_set():
+                # the producer has finished: drain what is left, keeping it
+                rest = tr.pop(256)
+                if rest.size == 0:
+                    break
+                got.append(rest.copy())
             time.sleep(0)
 
     th = threading.Thread(target=consumer)
