@@ -100,8 +100,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  against their plain versions at B = 1, 37 and 4096,
                  float32 (1e-5 of each output's largest entry) and float64
                  (1e-12), every gait, any yaw, swing durations of 0, the
-                 swing reference over a period and at a tick bit for bit
-                 their plain chains, the period bit for bit the kernel's
+                 footstep horizon (a warp a scenario, a unit a (step, foot))
+                 and the swing reference over a period and at a tick bit
+                 for bit their plain chains, the period bit for bit the
+                 kernel's
                  own launches at each tick; times beside the launch floor
                  (a one-kernel graph: a fill_ of one value); the Ruiz kernel
                  (qp/csrc/ruiz.cu) against admm.ruiz_equilibrate at the
@@ -132,7 +134,13 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  period_head_reference at B = 1, 256 and 4096, float32 and
                  float64 (1e-5 / 1e-12 of each output's largest entry), the
                  lift-off points of the feet that stay put bit for bit, the
-                 layout rbd_layout's; the solve tail (qp/csrc/
+                 layout rbd_layout's; the period plan (the same kernel with
+                 the footstep plan and the touchdown select in its warp)
+                 against period_plan_reference at the same B's and dtypes
+                 (the same tolerances) and bit for bit the chain of
+                 period_head, plan_footsteps_horizon on its outputs and the
+                 select, timed beside the launch floor, the plain chain and
+                 the two kernels' chain as a graph; the solve tail (qp/csrc/
                  solve_tail.cu) on the MPC's QPs (the build kernel, its
                  stride-0 A, the blocks declared, an iterate of kernel 1)
                  and WBC-sized QPs (dense A, an iterate of kernel 2) at
@@ -160,13 +168,15 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               finiteness, mpc_ok, wbc_ok_frac, base height, and the launch
               counts of every kernel (set to 0 before each rollout; the WBC
               build, the plant step and the epilogue once a tick, the
-              period head, the footstep horizon, the reference rollout,
-              the swing reference over the period, the MPC build, Ruiz and
-              the epilogue once a period and kkt_blocks once an MPC adapt
-              round on every path, the rho adaptation between rounds,
-              Ruiz once a tick more on the WBC iteration backends;
-              swing_foot_ref's kernel and swing_reference_at (the host
-              path's, one tick) never on this path); then
+              period plan (the period head with the footstep plan), the
+              reference rollout, the swing reference over the period, the
+              MPC build, Ruiz and the epilogue once a period and
+              kkt_blocks once an MPC adapt round on every path, the rho
+              adaptation between rounds, Ruiz once a tick more on the WBC
+              iteration backends; swing_foot_ref's kernel, the footstep
+              kernel and the period head alone (the plan off) and
+              swing_reference_at (the host path's, one tick) never on this
+              path); then
               the same preset on the ESTIMATED state (complementary filter in
               the loop, hint-free) with both QP stages on the tensor-core
               kernel
@@ -205,13 +215,14 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               same function run eagerly on the card (outputs and the warm
               starts it writes); the profiler counts the port's kernels in
               one replay of each graph (kernels 1 and B twice per MPC
-              replay with the footstep, rollout, MPC build and Ruiz kernels
-              once, kkt_blocks twice, adapt_rho and unscale once; the WBC
+              replay with the rollout, MPC build and Ruiz kernels once (the
+              footsteps come in the boundary's snapshot), kkt_blocks twice,
+              adapt_rho and unscale once; the WBC
               backend's kernel once (A, 4) or three times with kernel B,
               Ruiz once and adapt_rho twice, the swing kernel at the tick,
               the build kernel and unscale once per WBC replay; the period
-              head and the footstep kernel once per boundary replay, at
-              most 6 kernels in all);
+              plan once per boundary replay, at most BOUNDARY_NODES kernels
+              in all);
               replay times; the `fused` WBC replay holds at most 40
               kernels, the default's at most 35, every MPC replay at most
               2,600; the default WBC replay
@@ -221,7 +232,7 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               WBC replays with the plain planner and Ruiz, each beside
               the call as it ships, nodes and replay ms in turns (the
               before and after), and so the boundary replay with the
-              plain period head, the MPC and the default WBC replays with
+              plain period plan, the MPC and the default WBC replays with
               the plain solve tail (K, rho adaptation, epilogue);
               then 0.6 s of closed loop, sync on the default
               and the fused WBC (upright, forward progress, plans consumed,
@@ -355,7 +366,7 @@ import mpctsid_tpu_torch.plan.footsteps as footsteps_mod
 import mpctsid_tpu_torch.plan.swing as swing_mod
 from mpctsid_tpu_torch.plan import kernels as plan_kernels
 from mpctsid_tpu_torch.plan.gait import TABLES as GAIT_TABLES
-from mpctsid_tpu_torch.plan.gait import contacts_horizon
+from mpctsid_tpu_torch.plan.gait import contacts_at, contacts_horizon
 from mpctsid_tpu_torch.oracle import cascade as ocascade
 from mpctsid_tpu_torch.oracle import mpc as ompc
 from mpctsid_tpu_torch.oracle import planner as oplanner
@@ -450,10 +461,12 @@ FUSED_WBC_NODES = 40
 # (8,994-8,999 with the plain inverses)
 DEFAULT_WBC_NODES = 35
 MPC_NODES = 2600
-# the host path's boundary replay: the phase's cast, the period head, the
-# footstep kernel, the touchdown select and the snapshot's cat (173 with
-# the plain period head on an H100)
-BOUNDARY_NODES = 6
+# the host path's boundary replay: the phase's cast, the period plan (the
+# head, the footsteps and the touchdown select in one kernel) and the
+# snapshot's cat (measured on an H100; 6 before the plan: the period head,
+# the footstep kernel, the swing mask and the select in its place; 1,124
+# with the plain period plan)
+BOUNDARY_NODES = 3
 # (MPC backend, WBC backend) of the captured host controllers: every WBC
 # backend, the MPC on kernel 1 (the default) and on kernel 5
 HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
@@ -462,7 +475,9 @@ HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
 # name prefix of each kernel's __global__ functions, for the profiler
 # (kernel B's block path launches spd_inverse_block_kernel and its guard,
 # spd_newton_select_kernel, once per call: the prefix counts calls; the
-# swing reference over a period and at a tick are one kernel)
+# swing reference over a period and at a tick are one kernel; the period
+# head and the period plan are two entry points of one body, told apart
+# by their names)
 KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "admm_iterate_vpu": "admm_vpu_",
                  "admm_iterate_vpu_packed": "admm_packed_",
@@ -480,6 +495,7 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "ruiz_equilibrate": "ruiz_kernel",
                  "build_mpc_qp": "mpc_build_kernel",
                  "period_head": "period_head_kernel",
+                 "period_plan": "period_plan_kernel",
                  "kkt_blocks": "tail_kkt_kernel",
                  "adapt_rho": "tail_adapt_kernel",
                  "unscale": "tail_unscale_kernel"}
@@ -1786,9 +1802,7 @@ def plan_bounds(B: int, d: dict, N: int) -> dict:
     and s; the tables' 980 ints read once; over a period the same at each
     of its T ticks, gait, phase, lift-off and touchdown read once, the T
     fractions once, 3 T x 12 values written)."""
-    g, ph = d["gid"][:B], d["phase"][:B]
-    flags = GAIT_TABLES[g[:, None], (ph[:, None] + np.arange(N)) % 16]
-    trans = int(((flags[:, 1:] > 0.5) & (flags[:, :-1] < 0.5)).sum())
+    trans = transitions(d["gid"][:B], d["phase"][:B], N)
     return {"plan_footsteps_horizon": bound_ms(
                 B * (2 + 12 + 3 + 12 + N * 12 + 12), B * 4 * N + 40 * trans),
             "reference_rollout": bound_ms(B * (6 + N * 12), B * N * 14),
@@ -1871,9 +1885,10 @@ def ruiz_layout_line(args, device) -> str:
 PLANNER_KERNELS = ("plan_footsteps_horizon", "reference_rollout",
                    "swing_foot_ref", "swing_reference_at",
                    "swing_references_period")
-# the swing reference at a tick and over a period: bit for bit their plain
-# chains (gated)
-SWING_BITWISE = ("swing_reference_at", "swing_references_period")
+# the footstep horizon and the swing reference at a tick and over a period:
+# bit for bit their plain chains (gated)
+PLAN_BITWISE = ("plan_footsteps_horizon", "swing_reference_at",
+                "swing_references_period")
 
 
 def period_vs_ticks(d: dict, dtype, device) -> int:
@@ -1916,7 +1931,7 @@ def planner_ruiz_phase(smi: str, device, reports: dict) -> None:
                 errs[name].append((dtype, e))
                 line.append(f"{name} rel {e[0]:.3e} abs {e[1]:.3e} "
                             f"({e[2]} of {e[3]} entries part)")
-                if name in SWING_BITWISE:
+                if name in PLAN_BITWISE:
                     check(e[2] == 0, f"3g: {name}, B={B} "
                           f"{str(dtype)[6:]}: bit for bit its plain chain")
             own = period_vs_ticks(dB, dtype, device)
@@ -2284,6 +2299,51 @@ def period_head_bound_ms(B: int, dtype=torch.float32):
     return bound_ms(floats, flops)
 
 
+def period_plan_inputs(B: int, seed: int, dtype, device, d: dict) -> tuple:
+    """(gait_id, phase, q, v, to_swing, liftoff, touchdown, v_int, v_cmd):
+    the period head's inputs, the planner's gait ids (every gait), phases
+    and touchdown points of `d` (planner_inputs)."""
+    q, v, ts, lo, vi, vc = period_head_inputs(B, seed, dtype, device)
+    return (torch.tensor(d["gid"][:B], device=device),
+            torch.tensor(d["phase"][:B], device=device), q, v, ts, lo,
+            torch.tensor(d["td"][:B], dtype=dtype, device=device), vi, vc)
+
+
+def transitions(gid, phase, N: int) -> int:
+    """Swing -> stance transitions of every foot over the horizon of the
+    scenarios (gait ids, phases): the steps at which the footstep plan
+    forms a Raibert target."""
+    flags = GAIT_TABLES[gid[:, None], (phase[:, None] + np.arange(N)) % 16]
+    return int(((flags[:, 1:] > 0.5) & (flags[:, :-1] < 0.5)).sum())
+
+
+def period_plan_bound_ms(B: int, gid, phase, dtype=torch.float32):
+    """The period head's 59 values in and 42 out, the touchdown points in
+    (12), gait and phase (2 ints), the footsteps (N x 12), next touchdown
+    and touchdown points (12 each) out: 71 values and 2 ints in, 258 out a
+    scenario at N = 16 (the gait tables' ints once); the
+    head's 1,000 operations a scenario, a compare a step and foot and about
+    40 at each transition of this data (the Raibert target)."""
+    N = EngineConfig().mpc.horizon
+    per = 59 + 12 + 42 + N * 12 + 24
+    flops = B * (1000.0 + 4 * N) + 40.0 * transitions(gid[:B], phase[:B], N)
+    tables = plan_kernels.LAYOUT["table_ints"]
+    if dtype == torch.float64:
+        return bound_ms(2 * B * per + B * 2 + tables, flops, F64_FLOP_PER_S)
+    return bound_ms(B * (per + 2) + tables, flops)
+
+
+def period_plan_chain(tree, cfg, gid, phase, q, v, ts, lo, td, vi, vc):
+    """The first designs' order on the card: period_head, then
+    plan_footsteps_horizon on its outputs, then the touchdown select (the
+    parent's chain, which period_plan must give bit for bit)."""
+    h = engine.period_head(tree, cfg.cascade, q, v, ts, lo, vi, vc)
+    f, ntd = footsteps_mod.plan_footsteps_horizon(
+        SOLO12, cfg.mpc, cfg.cascade, gid, phase, h[1], h[4], h[0])
+    swing = contacts_at(gid, phase, q.dtype) < 0.5
+    return (*h, f, ntd, torch.where(swing[..., None], ntd, td))
+
+
 def a_shared(A) -> bool:
     """Every scenario reads the same A (a stride-0 or single-scenario view,
     as the MPC's unscaled A), so the function needs its entries once."""
@@ -2379,10 +2439,10 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
     cfg = EngineConfig()
     tree = CascadeConfigured(SOLO12, cfg).tree
     optin, n_sm = kernels.device_limits(device)
-    rep = {k: dict(err=0.0, times={}) for k in ("period_head", "kkt_blocks",
-                                              "adapt_rho", "unscale")}
+    rep = {k: dict(err=0.0, times={}) for k in (
+        "period_head", "period_plan", "kkt_blocks", "adapt_rho", "unscale")}
 
-    def timed_pair(name, key, call, plain, bound, library=None):
+    def timed_pair(name, key, call, plain, bound, library=None, chain=None):
         ms, eager = graph_ms(call, reps=20), time_ms(call, 2, 10)
         plain_ms, plain_g = time_ms(plain, 1, 3), graph_ms(plain, reps=5)
         lib_ms = None if library is None else graph_ms(library, reps=20)
@@ -2390,7 +2450,13 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                                    lib_ms)
         lib_txt = ("" if lib_ms is None else
                    f"; library call {lib_ms:.4f} ms as a graph")
-        if name == "period_head":
+        if chain is not None:
+            # the kernels it fuses, launched one after another
+            c = rep[name].setdefault("chain", {})[key] = graph_ms(chain,
+                                                                  reps=20)
+            lib_txt += (f"; period_head, plan_footsteps_horizon and the "
+                        f"select as a graph {c:.4f} ms")
+        if name in ("period_head", "period_plan"):
             # all launch latency at small B: beside what a launch costs
             floor = rep[name].setdefault("floor", {})[key] = \
                 launch_floor_ms()
@@ -2441,6 +2507,49 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                                                 max(e[1] for e in errs))
                 timed_pair("period_head", f"B={B}", call, plain,
                            period_head_bound_ms(B))
+    # ---- the period plan: the head, the footsteps and the select in one
+    # launch, bit for bit the chain of the kernels it fuses
+    d = planner_inputs(max(TAIL_B), 71)
+    for B in TAIL_B:
+        for dtype in (torch.float32, torch.float64):
+            args = period_plan_inputs(B, 90 + B, dtype, device, d)
+            call = lambda: engine.period_plan(  # noqa: E731
+                SOLO12, tree, cfg, *args)
+            plain = lambda: engine.period_plan_reference(  # noqa: E731
+                SOLO12, tree, cfg, *args)
+            chain = lambda: period_plan_chain(tree, cfg, *args)  # noqa
+            got = call()
+            lay = rbd_kernels.last_layout("period_head")
+            again, want, kernels_chain = call(), plain(), chain()
+            errs = [rbd_rel_err(g, w) for g, w in zip(got, want)]
+            rel = max(e[0] for e in errs)
+            vs_chain = [int((g != c).sum())
+                        for g, c in zip(got, kernels_chain)]
+            vs_plain = [int((g != w).sum()) for g, w in zip(got, want)]
+            check(rel <= HEAD_REL[dtype] and all_finite(got)
+                  and sum(vs_chain) == 0
+                  and all(torch.equal(a, b) for a, b in zip(got, again))
+                  and all(g.shape == w.shape and g.dtype == w.dtype
+                          for g, w in zip(got, want))
+                  and lay == rbd_kernels.rbd_layout(
+                      "period_head", B, dtype, optin, n_sm),
+                  f"3i: period_plan B={B} {str(dtype)[6:]}: bit for bit "
+                  "period_head, plan_footsteps_horizon and the select, "
+                  f"within {HEAD_REL[dtype]:g} of the plain version (each "
+                  "output's largest entry), two launches bit for bit, the "
+                  "layout rbd_layout's")
+            print(f"  period_plan B={B} {str(dtype)[6:]} ({lay.warps} warps "
+                  f"a block, {lay.blocks} blocks): rel {rel:.3e} (footsteps "
+                  f"{errs[5][0]:.3e}), abs {max(e[1] for e in errs):.3e}; "
+                  f"entries that part from the kernels' chain {vs_chain}, "
+                  f"from the plain version {vs_plain} of "
+                  f"{[w.numel() for w in want]}", flush=True)
+            if dtype == torch.float32:
+                rep["period_plan"]["err"] = max(rep["period_plan"]["err"],
+                                                max(e[1] for e in errs))
+                timed_pair("period_plan", f"B={B}", call, plain,
+                           period_plan_bound_ms(B, d["gid"], d["phase"]),
+                           chain=chain)
     # ---- the solve's tail
     flips, over_flips = 0, 0
     for B in TAIL_B:
@@ -2591,13 +2700,16 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
     print(f"  unscale: {flips} ok flips in all, {over_flips} of them away "
           "from status_tol", flush=True)
     Bt = max(TAIL_B)
-    main = {"period_head": f"B={Bt}", "kkt_blocks": f"B={Bt}",
-            "adapt_rho": f"mpc B={Bt}", "unscale": f"wbc B={Bt}"}
+    main = {"period_head": f"B={Bt}", "period_plan": f"B={Bt}",
+            "kkt_blocks": f"B={Bt}", "adapt_rho": f"mpc B={Bt}",
+            "unscale": f"wbc B={Bt}"}
     sources = {"period_head": "mpctsid_tpu_torch/dyn/csrc/period_head.cu",
+               "period_plan": "mpctsid_tpu_torch/dyn/csrc/period_head.cu",
                "kkt_blocks": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu",
                "adapt_rho": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu",
                "unscale": "mpctsid_tpu_torch/qp/csrc/solve_tail.cu"}
     replaces = {"period_head": "mpctsid_tpu/cascade/engine.py:176",
+                "period_plan": "mpctsid_tpu/cascade/engine.py:175",
                 "kkt_blocks": "mpctsid_tpu/qp/admm.py:222",
                 "adapt_rho": "mpctsid_tpu/qp/admm.py:329",
                 "unscale": "mpctsid_tpu/qp/admm.py:199"}
@@ -2612,7 +2724,9 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
                            plain_graph_ms=v[3], bound_ms=v[4][0],
                            bound_by=v[4][1], library_ms=v[5],
                            **({"floor_ms": r["floor"][k]}
-                              if k in r.get("floor", {}) else {}))
+                              if k in r.get("floor", {}) else {}),
+                           **({"chain_graph_ms": r["chain"][k]}
+                              if k in r.get("chain", {}) else {}))
                    for k, v in r["times"].items()})
         lib_txt = ("none" if lib_ms is None else
                    f"{lib_ms:.4f} ms (torch.baddbmm)")
@@ -2643,6 +2757,7 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "ruiz_equilibrate": kernels.ruiz_equilibrate,
            "build_mpc_qp": srb_mod.build_mpc_qp,
            "period_head": engine.period_head,
+           "period_plan": engine.period_plan,
            "kkt_blocks": kernels_tail.kkt_blocks,
            "adapt_rho": kernels_tail.adapt_rho,
            "unscale": kernels_tail.unscale}
@@ -2675,15 +2790,17 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     """(the kernel this rollout is there to count, every kernel's expected
     launches): the MPC's iteration kernel, kernel B (its K^-1) and K from
     the declared blocks (kkt_blocks) once per MPC adapt round, the rho
-    adaptation between them; the period head, the footstep horizon, the
-    reference rollout, the swing reference over the period, the MPC build,
-    Ruiz and the epilogue (unscale) once per period; a whole-solve kernel
+    adaptation between them; the period plan (the period head with the
+    footstep horizon), the reference rollout, the swing reference over the
+    period, the MPC build, Ruiz and the epilogue (unscale) once per period;
+    a whole-solve kernel
     (kernel A on the default backend, kernel 4 on `fused`) once per WBC
     tick; a WBC iteration kernel and kernel B once per WBC adapt round, the
     rho adaptation between them and Ruiz once per tick; the WBC build, the
     plant step and the epilogue once per tick, whatever the backends
-    (swing_foot_ref's kernel and the swing reference at one tick, the host
-    path's, are off this path: never)."""
+    (swing_foot_ref's kernel, the footstep kernel and the period head
+    alone, and the swing reference at one tick, the host path's, are off
+    this path: never)."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     rounds = cfg.solver.mpc_adapt_rounds
@@ -2691,9 +2808,9 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     expect["chol_inverse"] = periods * rounds
     expect["kkt_blocks"] = periods * rounds
     expect["adapt_rho"] = periods * (rounds - 1)
-    for name in ("plan_footsteps_horizon", "reference_rollout",
+    for name in ("period_plan", "reference_rollout",
                  "swing_references_period", "ruiz_equilibrate",
-                 "build_mpc_qp", "period_head", "unscale"):
+                 "build_mpc_qp", "unscale"):
         expect[name] = periods
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
@@ -3249,8 +3366,9 @@ def host_graphs(smi: str, device) -> None:
         want_mpc[KERNEL_PREFIX["chol_inverse"]] = rounds
         want_mpc[KERNEL_PREFIX["kkt_blocks"]] = rounds
         want_mpc[KERNEL_PREFIX["adapt_rho"]] = rounds - 1
-        for name in ("plan_footsteps_horizon", "reference_rollout",
-                     "ruiz_equilibrate", "build_mpc_qp", "unscale"):
+        # the footsteps come in the boundary's snapshot
+        for name in ("reference_rollout", "ruiz_equilibrate",
+                     "build_mpc_qp", "unscale"):
             want_mpc[KERNEL_PREFIX[name]] = 1
         want_wbc = dict.fromkeys(KERNEL_PREFIX.values(), 0)
         want_wbc[KERNEL_PREFIX["swing_reference_at"]] = 1
@@ -3270,18 +3388,21 @@ def host_graphs(smi: str, device) -> None:
         check(per["wbc"][0] == want_wbc,
               f"{tag}: one WBC replay launches {want_wbc}")
         want_bd = dict.fromkeys(KERNEL_PREFIX.values(), 0)
-        want_bd[KERNEL_PREFIX["plan_footsteps_horizon"]] = 1
-        want_bd[KERNEL_PREFIX["period_head"]] = 1
+        want_bd[KERNEL_PREFIX["period_plan"]] = 1
         check(per["boundary"][0] == want_bd,
-              f"{tag}: the boundary graph launches the period head and the "
-              "footstep kernel once, and no other port kernel")
+              f"{tag}: the boundary graph launches the period plan once, "
+              "and no other port kernel (no footstep kernel, no period head "
+              "alone)")
         check(per["boundary"][1] <= BOUNDARY_NODES,
               f"{tag}: the boundary replay holds at most {BOUNDARY_NODES} "
-              "kernels (173 with the plain period head)")
+              "kernels")
         print(f"    WBC replay: {per['wbc'][1]} kernels + {per['wbc'][4]} "
               f"copies/memsets, {times['wbc']:.4f} ms; MPC replay: "
               f"{per['mpc'][1]} kernels + {per['mpc'][4]} copies/memsets, "
-              f"{times['mpc']:.4f} ms  [{smi}]", flush=True)
+              f"{times['mpc']:.4f} ms; boundary replay: "
+              f"{per['boundary'][1]} kernels + {per['boundary'][4]} "
+              f"copies/memsets, {times['boundary']:.4f} ms  [{smi}]",
+              flush=True)
         if wbc_backend == "fused":
             check(per["wbc"][1] <= FUSED_WBC_NODES,
                   f"{tag}: the WBC replay holds at most {FUSED_WBC_NODES} "
@@ -3296,8 +3417,8 @@ def host_graphs(smi: str, device) -> None:
             before_after(calls["wbc"], "WBC replay, plain solve chain / "
                          "kernel A", plain_wbc_chain(), smi, device)
             before_after(calls["boundary"], "boundary replay, plain period "
-                         "head / its kernel", plain_period_head(), smi,
-                         device)
+                         "plan (head, footsteps, select) / its kernel",
+                         plain_period_plan(), smi, device)
             before_after(calls["mpc"], "MPC replay, plain solve tail (K, "
                          "rho adaptation, epilogue) / its kernels",
                          plain_solve_tail(), smi, device)
@@ -3305,9 +3426,7 @@ def host_graphs(smi: str, device) -> None:
                          "kernel", plain_solve_tail(), smi, device)
             before_after(calls["mpc"], "MPC replay, plain K^-1 / kernel B",
                          plain_inverses(), smi, device)
-            for name, what in (("boundary", "boundary replay, plain "
-                                "footsteps / planner kernel"),
-                               ("mpc", "MPC replay, plain planner and Ruiz "
+            for name, what in (("mpc", "MPC replay, plain planner and Ruiz "
                                 "/ their kernels"),
                                ("wbc", "WBC replay, plain swing reference "
                                 "/ its kernel")):
@@ -3352,13 +3471,13 @@ def plain_wbc_chain():
 
 @contextlib.contextmanager
 def plain_planner():
-    """The host path's planner and the kernel backends' Ruiz on their plain
-    chains (the four kernels' plain versions)."""
+    """The host path's MPC and WBC planner kernels (the rollout, the swing
+    reference at a tick) and the kernel backends' Ruiz on their plain
+    chains (the three kernels' plain versions; the boundary's footsteps:
+    `plain_period_plan`)."""
     import mpctsid_tpu_torch.host as host_mod
 
-    patched = ((host_mod, "plan_footsteps_horizon",
-                footsteps_mod.plan_footsteps_horizon_reference),
-               (host_mod, "reference_rollout",
+    patched = ((host_mod, "reference_rollout",
                 srb_mod.reference_rollout_reference),
                (host_mod, "swing_reference_at",
                 swing_mod.swing_reference_at_reference),
@@ -3389,17 +3508,18 @@ def plain_mpc_build():
 
 
 @contextlib.contextmanager
-def plain_period_head():
-    """The host path's period head on its plain chain
-    (period_head_reference, the ops before the kernel)."""
+def plain_period_plan():
+    """The host path's period plan on its plain chain
+    (period_plan_reference: the head, the footsteps and the select as the
+    ops before the kernels)."""
     import mpctsid_tpu_torch.host as host_mod
 
-    shipped = host_mod.period_head
-    host_mod.period_head = engine.period_head_reference
+    shipped = host_mod.period_plan
+    host_mod.period_plan = engine.period_plan_reference
     try:
         yield
     finally:
-        host_mod.period_head = shipped
+        host_mod.period_plan = shipped
 
 
 @contextlib.contextmanager
@@ -4902,17 +5022,20 @@ def main() -> int:
             # every rollout launches them; the default one is the main path
             for name in ("wbc_build", "plant_step", "chol_inverse",
                          MPC_KERNEL_OF[cfg.solver.mpc_backend],
-                         "plan_footsteps_horizon", "reference_rollout",
+                         "period_plan", "reference_rollout",
                          "swing_references_period", "ruiz_equilibrate",
-                         "build_mpc_qp", "period_head", "kkt_blocks",
-                         "adapt_rho", "unscale"):
+                         "build_mpc_qp", "kkt_blocks", "adapt_rho",
+                         "unscale"):
                 path_launches[name] = counts[name]
             # off this path: swing_foot_ref's kernel (the cascade takes
-            # the swing reference with its tables) and the swing reference
-            # at one tick (the host path's WBC graph runs it; the batched
-            # period takes the whole period's at once)
-            off_path = {k: counts[k] for k in ("swing_foot_ref",
-                                                "swing_reference_at")}
+            # the swing reference with its tables), the footstep kernel and
+            # the period head alone (the period plan runs both in one
+            # launch, here and in the host path's boundary) and the swing
+            # reference at one tick (the host path's WBC graph runs it; the
+            # batched period takes the whole period's at once)
+            off_path = {k: counts[k] for k in (
+                "swing_foot_ref", "swing_reference_at",
+                "plan_footsteps_horizon", "period_head")}
         records.append((counted, rec))
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
@@ -5148,7 +5271,7 @@ def main() -> int:
                      "plan_footsteps_horizon", "reference_rollout",
                      "swing_foot_ref", "swing_references_period",
                      "ruiz_equilibrate", "build_mpc_qp", "period_head",
-                     "kkt_blocks", "adapt_rho", "unscale"):
+                     "period_plan", "kkt_blocks", "adapt_rho", "unscale"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
     del records, rec
     torch.cuda.empty_cache()

@@ -36,7 +36,8 @@ from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
 from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
                                        reference_rollout)
-from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
+from mpctsid_tpu_torch.plan import kernels as plan_kernels
+from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon_reference
 from mpctsid_tpu_torch.plan.gait import contacts_at, contacts_horizon
 from mpctsid_tpu_torch.plan.swing import swing_references_period
 from mpctsid_tpu_torch.qp.admm import admm_solve
@@ -115,11 +116,11 @@ def period_head(tree, cfg: CascadeConfig, q, v, to_swing, liftoff, v_int,
 period_head.launches = 0
 
 
-def run_period_head(launch_fn, tree, cfg: CascadeConfig, q, v, to_swing,
-                    liftoff, v_int, v_cmd):
-    """(rc, outputs): the period-head kernel's operands packed for
-    `launch_fn` (dyn/kernels.py's signature less the stream), its outputs
-    allocated here; a bool `to_swing` goes over as q's dtype."""
+def _head_operands(cfg: CascadeConfig, q, v, to_swing, liftoff, v_int,
+                   v_cmd):
+    """(B, inputs, outputs, parameters) of the period head in
+    period_head.h's order, the outputs allocated here; a bool `to_swing`
+    goes over as q's dtype."""
     from mpctsid_tpu_torch.dyn import kernels
 
     B = kernels.check_batch(q, v)
@@ -134,6 +135,18 @@ def run_period_head(launch_fn, tree, cfg: CascadeConfig, q, v, to_swing,
     outs = (q.new_empty((B, 4, 3)), q.new_empty((B, 12)),
             q.new_empty((B, 4, 3)), q.new_empty((B, 3)), q.new_empty((B, 3)))
     par = [cfg.ki_vint * (cfg.mpc_every * cfg.wbc_dt), cfg.v_int_max]
+    return B, ins, outs, par
+
+
+def run_period_head(launch_fn, tree, cfg: CascadeConfig, q, v, to_swing,
+                    liftoff, v_int, v_cmd):
+    """(rc, outputs): the period-head kernel's operands packed for
+    `launch_fn` (dyn/kernels.py's signature less the stream), its outputs
+    allocated here; a bool `to_swing` goes over as q's dtype."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    _, ins, outs, par = _head_operands(cfg, q, v, to_swing, liftoff, v_int,
+                                       v_cmd)
     rc = kernels.call(launch_fn, tree, q, ins, outs, par)
     return rc, outs
 
@@ -156,6 +169,83 @@ def period_head_reference(tree, cfg: CascadeConfig, q, v, to_swing, liftoff,
     v_int = torch.clamp(v_int + cfg.ki_vint * t_period * (v_cmd - v_meas),
                         -cfg.v_int_max, cfg.v_int_max).to(q.dtype)
     return feet_now, x_srb, liftoff, v_int, v_cmd + v_int
+
+
+def period_plan(model: Solo12Model, tree, cfg: EngineConfig, gait_id, phase,
+                q, v, to_swing, liftoff, touchdown, v_int, v_cmd):
+    """A period boundary's head, footstep plan and touchdown select:
+    (feet_now (B, 4, 3), x_srb (B, 12), liftoff (B, 4, 3), v_int (B, 3),
+    v_used (B, 3), fsteps (B, N, 4, 3), next_td (B, 4, 3), touchdown
+    (B, 4, 3)).
+
+    `period_head` on (q, v, to_swing, liftoff, v_int, v_cmd), then
+    plan/footsteps.py::plan_footsteps_horizon(gait_id, phase, x_srb, v_used,
+    feet_now), then the touchdown points of the feet that swing at `phase`
+    (contacts_at < 0.5) replaced by next_td; gait_id, phase (B,) ints,
+    touchdown (B, 4, 3); cfg the engine's (its cascade and mpc parts).
+
+    CUDA tensors: one launch of the hand-written kernel `period_plan`
+    (dyn/csrc/period_head.cu: the period head's warp per scenario, then the
+    footstep horizon's (step, foot) units and the select in the same warp;
+    float32 or float64), bit for bit the chain of the `period_head` and
+    footstep kernels and the select, or an exception.  CPU tensors: the
+    plain version, `period_plan_reference`."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    kernels.check_batch(q, v)
+    if q.device.type == "cpu":
+        return period_plan_reference(model, tree, cfg, gait_id, phase, q, v,
+                                     to_swing, liftoff, touchdown, v_int,
+                                     v_cmd)
+    out = kernels.launch("period_head", run_period_plan, q.device, model,
+                         tree, cfg, gait_id, phase, q, v, to_swing, liftoff,
+                         touchdown, v_int, v_cmd, entry="period_plan")
+    period_plan.launches += 1
+    return out
+
+
+period_plan.launches = 0
+
+
+def run_period_plan(launch_fn, model: Solo12Model, tree, cfg: EngineConfig,
+                    gait_id, phase, q, v, to_swing, liftoff, touchdown,
+                    v_int, v_cmd):
+    """(rc, outputs): the period-plan kernel's operands packed for
+    `launch_fn` (dyn/kernels.py's signature less the stream): the head's,
+    then the touchdown points, gait ids, phases and the gait tables; the
+    parameters the head's, the horizon and the footstep kernel's
+    (plan/footsteps.py::run_footsteps' order).  Gait ids must lie in
+    [0, 5): the kernel reads its tables without a check."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    B, ins, outs, par = _head_operands(cfg.cascade, q, v, to_swing, liftoff,
+                                       v_int, v_cmd)
+    N = cfg.mpc.horizon
+    ins += [kernels.rows("touchdown", touchdown, B, (4, 3), q),
+            plan_kernels.int_rows("gait_id", gait_id, B, q),
+            plan_kernels.int_rows("phase", phase, B, q),
+            (plan_kernels.gait_tables(q.device), 0)]
+    outs += (q.new_empty((B, N, 4, 3)), q.new_empty((B, 4, 3)),
+             q.new_empty((B, 4, 3)))
+    par += [N, cfg.mpc.dt, model.h_ref, model.g, cfg.cascade.t_stance_factor,
+            cfg.cascade.k_raibert, *plan_kernels.rotation_forms(q.dtype, B),
+            *np.asarray(model.shoulder_offsets).ravel()]
+    rc = kernels.call(launch_fn, tree, q, ins, outs, par)
+    return rc, outs
+
+
+def period_plan_reference(model: Solo12Model, tree, cfg: EngineConfig,
+                          gait_id, phase, q, v, to_swing, liftoff, touchdown,
+                          v_int, v_cmd):
+    """Plain version of `period_plan` (any device and dtype): the JAX
+    engine's boundary block (mpctsid_tpu/cascade/engine.py:175-201)."""
+    feet_now, x_srb, liftoff, v_int, v_used = period_head_reference(
+        tree, cfg.cascade, q, v, to_swing, liftoff, v_int, v_cmd)
+    fsteps, next_td = plan_footsteps_horizon_reference(
+        model, cfg.mpc, cfg.cascade, gait_id, phase, x_srb, v_used, feet_now)
+    swing = contacts_at(gait_id, phase, q.dtype) < 0.5
+    touchdown = torch.where(swing[..., None], next_td, touchdown)
+    return feet_now, x_srb, liftoff, v_int, v_used, fsteps, next_td, touchdown
 
 
 def init_controller(model: Solo12Model, cfg: EngineConfig, tree, q0,
@@ -269,18 +359,13 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     q_ctl = est.q if use_estimator else plant.q
     v_ctl = est.v if use_estimator else plant.v
     # the feet, the SRB state, lift-off bookkeeping at stance->swing
-    # transitions and the offset-free velocity integrator (one launch on
-    # the card)
-    swing = contacts < 0.5
-    to_swing = swing & (ctl.prev_contacts > 0.5)
-    feet_now, x_srb, liftoff, v_int, v_used = period_head(
-        tree, cfg.cascade, q_ctl, v_ctl, to_swing, ctl.liftoff, ctl.v_int,
-        v_cmd)
-
-    # footstep plan + touchdown targets for swinging feet
-    fsteps, next_td = plan_footsteps_horizon(
-        model, cfg.mpc, cfg.cascade, gait_id, phase, x_srb, v_used, feet_now)
-    touchdown = torch.where(swing[..., None], next_td, ctl.touchdown)
+    # transitions, the offset-free velocity integrator, the footstep plan
+    # and the touchdown targets of the swinging feet (one launch on the
+    # card)
+    to_swing = (contacts < 0.5) & (ctl.prev_contacts > 0.5)
+    _, x_srb, liftoff, v_int, v_used, fsteps, _, touchdown = period_plan(
+        model, tree, cfg, gait_id, phase, q_ctl, v_ctl, to_swing,
+        ctl.liftoff, ctl.touchdown, ctl.v_int, v_cmd)
 
     # MPC solve from the current state (one-solve-stale: consumed NEXT period)
     x_ref = reference_rollout(model, cfg.mpc, x_srb, v_used)

@@ -13,12 +13,17 @@ of each kernel; the .cu files under dyn/csrc/ map a warp to its scenario,
     launch, wrapped by env/plant.py::plant_step;
   * `period_head` (period_head.cu over period_head.h): a period boundary's
     foot positions, SRB state, lift-off select and velocity integrator,
-    wrapped by cascade/engine.py::period_head.
+    wrapped by cascade/engine.py::period_head; its second entry point
+    `period_plan`, the same and the footstep horizon (plan/csrc/planner.h's
+    units) and the touchdown select in one launch, wrapped by
+    cascade/engine.py::period_plan.
 
 Each stage owns its wrapper, its plain PyTorch version and its constants;
 this module knows only the kernels' common C signature:
 
-    <name>_launch(dtype, B, consts, in, stride, out, par, stream) -> rc
+    <entry>_launch(dtype, B, consts, in, stride, out, par, stream) -> rc
+
+(`ENTRIES`: a library's entry points, `<name>` unless listed)
 
 The model's constants (dyn/rigid_body.py::LegConsts, its joint axes and
 gravity) go to the card once per tree, device and dtype as one small tensor
@@ -48,7 +53,7 @@ from mpctsid_tpu_torch.utils import device_constant
 __all__ = ["rbd_constants", "rows", "check_batch", "call", "launch",
            "build_specs", "rbd_layout", "last_layout", "RbdLayout",
            "LIBRARIES", "LAYOUT", "HEAD_LAYOUT", "LAYOUTS",
-           "SLOT_VALUES", "MAX_WARPS",
+           "SLOT_VALUES", "MAX_WARPS", "ENTRIES",
            "LAUNCH_ARGTYPES", "CSRC"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -58,8 +63,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARIES = {
     "wbc_build": (("wbc_build.cu",), ("rbd.h",)),
     "plant_step": (("plant_step.cu",), ("rbd.h",)),
-    "period_head": (("period_head.cu",), ("rbd.h", "period_head.h")),
+    "period_head": (("period_head.cu",),
+                    ("rbd.h", "period_head.h", "../../plan/csrc/planner.h")),
 }
+# the entry points of a library that has more than its name's
+ENTRIES = {"period_head": ("period_head", "period_plan")}
 # nvcc flags after qp/_build.py's common ones: the period head contracts no
 # product and sum that its plain version rounds apart
 FLAGS = {"period_head": ("-fmad=false",)}
@@ -70,16 +78,21 @@ FLAGS = {"period_head": ("-fmad=false",)}
 LAYOUT = dict(const_size=196, wbc_in=11, wbc_out=8, wbc_par=19, plant_in=11,
               plant_out=5, plant_par=2)
 # period_head.h's counts after rbd.h's (`rbd::head::layout`): its inputs,
-# outputs and parameters
-HEAD_LAYOUT = dict(head_in=6, head_out=5, head_par=2)
+# outputs and parameters, then the period plan's after them (touchdown,
+# gait, phase, tables; footsteps, next touchdown, touchdown; the horizon
+# and planner.h's 19 FootPar values)
+HEAD_LAYOUT = dict(head_in=6, head_out=5, head_par=2, plan_in=4, plan_out=3,
+                   plan_par=20)
 # the counts each library reports, in the order of its `_layout(i)`
 LAYOUTS = {"wbc_build": LAYOUT, "plant_step": LAYOUT,
            "period_head": {**LAYOUT, **HEAD_LAYOUT}}
 
 # values (floats or doubles) of a warp's slice of shared memory: rbd.h's
-# WbcSlot and PlantSlot.  The libraries report theirs
-# (`<name>_slot_values`) and are refused if they differ.
-SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 288}
+# WbcSlot and PlantSlot, period_head.h's HeadSlot (the plan's 16 staged
+# steps, the leg kinematics, x_srb, v_used, the feet and the next
+# touchdown; the head alone uses the same slot).  The libraries report
+# theirs (`<name>_slot_values`) and are refused if they differ.
+SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 507}
 MAX_WARPS = 8           # rbd.h's MAX_WARPS: scenarios (warps) a block
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
@@ -232,9 +245,10 @@ def _library(name: str):
 
         lib = _build.load_library(name, *LIBRARIES[name], csrc=CSRC,
                                   flags=FLAGS.get(name, ()))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = LAUNCH_ARGTYPES + [_PTR]
-        fn.restype = _INT
+        for entry in ENTRIES.get(name, (name,)):
+            fn = getattr(lib, f"{entry}_launch")
+            fn.argtypes = LAUNCH_ARGTYPES + [_PTR]
+            fn.restype = _INT
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [_INT]
         err.restype = ctypes.c_char_p
@@ -255,19 +269,21 @@ def _library(name: str):
     return lib
 
 
-def launch(name: str, run, dev: torch.device, *args, **kw):
+def launch(name: str, run, dev: torch.device, *args, entry: str = None,
+           **kw):
     """`run(launch_fn, *args, **kw) -> (rc, out)` through the CUDA library
-    of kernel `name` on the current stream of `dev`; returns `out`, raises on
-    a launch error."""
+    of kernel `name` (its entry point `entry`, `name` unless given) on the
+    current stream of `dev`; returns `out`, raises on a launch error."""
+    entry = entry or name
     if dev.type != "cuda":
-        raise RuntimeError(f"{name} runs on cuda or cpu, not {dev}")
+        raise RuntimeError(f"{entry} runs on cuda or cpu, not {dev}")
     lib = _library(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{entry}_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc, out = run(lambda *a: fn(*a, stream), *args, **kw)
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}: "
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}: "
                            f"{msg}")
     return out

@@ -21,14 +21,16 @@ and on CUDA each is one captured CUDA graph (`utils/graphs.py`), the
 counterpart of the JAX package's `jax.jit(..., donate_argnums=...)`:
 
   * `_boundary` (once per period): foot positions, the SRB state, lift-off
-    bookkeeping and the offset-free velocity integrator (`period_head`, one
-    kernel launch), the touchdown targets (`plan_footsteps_horizon`), and
-    the gait phase as an int32 for the WBC graph.
+    bookkeeping, the offset-free velocity integrator, the footstep plan and
+    the touchdown targets (`period_plan`, one kernel launch), and the gait
+    phase as an int32 for the WBC graph; it writes the MPC's snapshot
+    [x_srb 12 | feet 12 | biased command 3 | phase 1 | footsteps N x 12].
     In the JAX package these are eager device ops between its jitted calls;
     here they are captured too, so that nothing on the card runs eagerly;
-  * `_mpc` (once per period): footsteps, reference rollout, the contact
-    horizon, `build_mpc_qp` (one kernel launch) and `admm_solve` (with the
-    default `auto_mpc`, the M2 iteration kernel, two launches per solve);
+  * `_mpc` (once per period): the footsteps from the snapshot, reference
+    rollout, the contact horizon, `build_mpc_qp` (one kernel launch) and
+    `admm_solve` (with the default `auto_mpc`, the M2 iteration kernel, two
+    launches per solve);
   * `_wbc` (every tick): the swing-foot references (`swing_reference_at`,
     one kernel launch with its tables and phase) straight into `WbcRefs`,
     then `solve_wbc` and the torque clip.
@@ -64,14 +66,13 @@ import torch
 from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.cascade.engine import (N_MPC_ROWS, N_MPC_VARS,
                                               N_WBC_ROWS, N_WBC_VARS,
-                                              period_head)
+                                              period_plan)
 from mpctsid_tpu_torch.config import EngineConfig
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAIT_PERIOD
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import build_tree
 from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
                                        reference_rollout)
-from mpctsid_tpu_torch.plan.footsteps import plan_footsteps_horizon
 from mpctsid_tpu_torch.plan.gait import TABLES, contacts_horizon
 from mpctsid_tpu_torch.plan.swing import swing_reference_at
 from mpctsid_tpu_torch.qp.admm import admm_solve
@@ -87,8 +88,16 @@ _CONTACTS, _F_USED = slice(37, 41), slice(41, 53)
 _PHASE, _T_FRAC = slice(53, 54), slice(54, 55)
 _TO_SWING, _V_CMD = slice(55, 59), slice(59, 62)   # read at boundaries only
 TICK_LEN = 62
-# the MPC's snapshot: [x_srb 12 | feet 12 | biased command 3 | phase 1]
-SNAP_LEN = 28
+# the MPC's snapshot: [x_srb 12 | feet 12 | biased command 3 | phase 1 |
+# footsteps N x 12]: SNAP_HEAD values, then the footsteps (220 at N = 16)
+SNAP_HEAD = 28
+_FSTEPS = slice(SNAP_HEAD, None)
+
+
+def snap_len(horizon: int) -> int:
+    """Values of the MPC's snapshot at an MPC horizon of `horizon`."""
+    return SNAP_HEAD + 12 * horizon
+
 # the WBC's result: [tau 12 | qdd 18 | ok 1]
 WBC_OUT_LEN = 31
 
@@ -160,7 +169,7 @@ class HostController:
         # the gait phase as the planner kernels take it, written at each
         # boundary (the first tick is one) and read by every WBC replay
         phase_i = torch.zeros((1,), dtype=torch.int32, device=dev)
-        snap = torch.zeros((1, SNAP_LEN), **f32)
+        snap = torch.zeros((1, snap_len(N)), **f32)
         mpc_out = torch.zeros((1, N_MPC_VARS + 1), **f32)
         wbc_out = torch.zeros((1, WBC_OUT_LEN), **f32)
         self._tick = tick
@@ -170,7 +179,7 @@ class HostController:
         # plain DMA on the tick's stream
         card = dev.type == "cuda"
         self._tick_host = torch.zeros((1, TICK_LEN), pin_memory=card)
-        self._snap_host = torch.zeros((1, SNAP_LEN), pin_memory=card)
+        self._snap_host = torch.zeros((1, snap_len(N)), pin_memory=card)
         self._wbc_host = torch.zeros((1, WBC_OUT_LEN), pin_memory=card)
         self._mpc_host = torch.zeros((1, N_MPC_VARS + 1), pin_memory=card)
         self._stream = torch.cuda.Stream(dev) if card else None
@@ -181,32 +190,29 @@ class HostController:
         def _boundary(tick, liftoff, touchdown, v_int, phase, out):
             q, v = tick[:, _Q], tick[:, _V]
             phase.copy_(tick[:, _PHASE][:, 0])
-            contacts = tick[:, _CONTACTS]
-            # the feet, the SRB state, the lift-off select and the offset-
-            # free velocity integrator (cascade/engine.py twin), which biases
-            # the command handed to the planner thread / sync solve: one
-            # kernel launch on the card
-            feet_now, x_srb, new_liftoff, new_v_int, v_used = period_head(
-                self.tree, cfg.cascade, q, v, tick[:, _TO_SWING], liftoff,
-                v_int, tick[:, _V_CMD])
+            # the feet, the SRB state, the lift-off select, the offset-free
+            # velocity integrator (which biases the command handed to the
+            # planner thread / sync solve), the footstep plan and the
+            # touchdown targets of the swinging feet (cascade/engine.py
+            # twin): one kernel launch on the card
+            (feet_now, x_srb, new_liftoff, new_v_int, v_used, fsteps, _,
+             new_td) = period_plan(model, self.tree, cfg, gid, phase, q, v,
+                                   tick[:, _TO_SWING], liftoff, touchdown,
+                                   v_int, tick[:, _V_CMD])
             liftoff.copy_(new_liftoff)
             v_int.copy_(new_v_int)
-            # touchdown targets of the swinging feet (cheap planner op)
-            _, next_td = plan_footsteps_horizon(
-                model, cfg.mpc, cfg.cascade, gid, phase, x_srb, v_used,
-                feet_now)
-            touchdown.copy_(torch.where((contacts < 0.5)[..., None], next_td,
-                                        touchdown))
+            touchdown.copy_(new_td)
             out.copy_(torch.cat([x_srb, feet_now.reshape(1, 12), v_used,
-                                 tick[:, _PHASE]], dim=1))
+                                 tick[:, _PHASE], fsteps.reshape(1, 12 * N)],
+                                dim=1))
             return out
 
         def _mpc(snap, warm_x, warm_y, out):
             x_srb, v_used = snap[:, 0:12], snap[:, 24:27]
-            feet = snap[:, 12:24].reshape(1, 4, 3)
             phase = snap[:, 27].to(torch.int32)
-            fsteps, _ = plan_footsteps_horizon(
-                model, cfg.mpc, cfg.cascade, gid, phase, x_srb, v_used, feet)
+            # the boundary's footsteps (planned on this snapshot's x_srb,
+            # command and feet)
+            fsteps = snap[:, _FSTEPS].reshape(1, N, 4, 3)
             x_ref = reference_rollout(model, cfg.mpc, x_srb, v_used)
             cont = contacts_horizon(gid, phase, N)
             P, q_lin, A, l, u = build_mpc_qp(model, cfg.mpc, x_srb, x_ref,

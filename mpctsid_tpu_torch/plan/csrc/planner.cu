@@ -1,9 +1,12 @@
 // The planner's four kernels — CUDA, sm_90a, built with -fmad=false.
 //
-//   plan_footsteps: plan/footsteps.py::plan_footsteps_horizon, a thread per
-//                   (scenario, foot): the 16-step horizon loop, the Raibert
-//                   target at each swing -> stance transition, the first
-//                   one kept as the next touchdown;
+//   plan_footsteps: plan/footsteps.py::plan_footsteps_horizon, a warp per
+//                   scenario: a unit per (step, foot), 64 at N = 16, two a
+//                   lane, each the Raibert target at the last swing ->
+//                   stance transition up to its step (none where there is
+//                   none), the rows staged in shared memory and written
+//                   with 16-byte stores, the first transition's row kept
+//                   as the next touchdown;
 //   plan_rollout:   mpc/srb.py::reference_rollout, a group of G lanes per
 //                   scenario (G = N's next power of two, at most 32: two
 //                   scenarios a warp at N = 16): lane l takes step l of
@@ -41,9 +44,14 @@
 // its inputs are fixed (it had been launched at every tick, each launch
 // mostly latency), the rollout's recursion split so that a step costs one
 // sin and cos (the first design repeated each step's prefix: 136 a
-// scenario at N = 16, a chain of 16 on one thread at B = 1), and stores
-// that a warp issues as contiguous 16-byte pieces (the first designs'
-// scalar rows lay 48 bytes apart).
+// scenario at N = 16, a chain of 16 on one thread at B = 1), the footstep
+// horizon's 16-step chain on a thread per (scenario, foot) split into
+// independent (step, foot) units (a step's value is the target at its last
+// transition, a closed form in that step), and stores that a warp issues
+// as contiguous 16-byte pieces (the first designs' scalar rows lay 48
+// bytes apart).  On the cascade's main path the footstep units run inside
+// the period plan (dyn/csrc/period_head.cu, one launch a period); this
+// kernel serves plan_footsteps_horizon's other callers.
 //
 // The arithmetic is planner.h's (shared with the CPU tests' g++ build),
 // op by op the plain version's; -fmad=false keeps nvcc from contracting a
@@ -53,8 +61,9 @@
 // stream) with the arrays in planner.h's order (tables for the footsteps
 // and the swing reference over a period; N the horizon of the footsteps
 // and the rollout, the period's ticks T of the swing reference, unused by
-// plan_swing); dtype 0 float, 1 double.  The rollout's and the swing
-// period's outputs must start on 16 bytes (the wrappers allocate them).
+// plan_swing); dtype 0 float, 1 double.  The footsteps', the rollout's
+// and the swing period's outputs must start on 16 bytes (the wrappers
+// allocate them).
 // Returns a cudaError_t (0 on success); launches on `stream` and allocates
 // nothing.
 
@@ -65,6 +74,7 @@
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int FOOT_WARPS = 4;     // scenarios (warps) a footstep block
 constexpr int ROLL_THREADS = 128;
 constexpr int SWING_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
@@ -82,15 +92,27 @@ __device__ __forceinline__ void copy_out(void* dst, const void* src,
         d[i] = s[i];
 }
 
+// a warp per scenario, blockDim.x / 32 of them a block, each with its
+// staging rows (planner.h's footsteps_warp)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(planner::WARP * FOOT_WARPS)
 plan_footsteps_kernel(const planner::FootArgs<T> a,
                       const int* __restrict__ tables, int N, int B)
 {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)B * planner::FEET) return;
-    planner::footsteps_foot<T>(a, tables, N, t / planner::FEET,
-                               (int)(t % planner::FEET));
+    __shared__ __align__(16) T stage[FOOT_WARPS][planner::FOOT_CHUNK * 12];
+    const int w = threadIdx.x / planner::WARP;
+    const long long b =
+        (long long)blockIdx.x * (blockDim.x / planner::WARP) + w;
+    if (b >= B) return;
+    const planner::FootScene<T> s{
+        a.template row<T>(planner::FI_X, b),
+        a.template row<T>(planner::FI_VCMD, b),
+        a.template row<T>(planner::FI_FEET, b),
+        *a.template row<int>(planner::FI_GAIT, b),
+        *a.template row<int>(planner::FI_PHASE, b)};
+    planner::footsteps_warp(planner::WarpExec{}, tables, N, s, a.par,
+                            stage[w], a.out[planner::FO_FEET] + b * N * 12,
+                            a.out[planner::FO_TD] + b * 12);
 }
 
 // G lanes a scenario, blockDim.x / G scenarios a block; the block's rows
@@ -202,9 +224,11 @@ int footsteps(int B, int N, const void* tables, const void* const* in,
 {
     planner::FootArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_footsteps_kernel<T><<<blocks_of((long long)B * planner::FEET,
-                                         THREADS),
-                               THREADS, 0, stream>>>(
+    if (!aligned16(out[planner::FO_FEET]))
+        return (int)cudaErrorMisalignedAddress;
+    const int warps = B < FOOT_WARPS ? B : FOOT_WARPS;
+    plan_footsteps_kernel<T><<<blocks_of(B, warps), warps * planner::WARP, 0,
+                               stream>>>(
         a, static_cast<const int*>(tables), N, B);
     return (int)cudaGetLastError();
 }

@@ -1,13 +1,16 @@
 // The planner's per-scenario arithmetic: the footstep horizon, the
 // reference rollout and the swing reference (from given phases, and over a
-// period's ticks from the gait tables), for the kernels of planner.cu.
+// period's ticks from the gait tables), for the kernels of planner.cu and,
+// the footstep horizon, for the period plan (dyn/csrc/period_head.h).
 //
 // Plain C++: every function is marked PLAN_FN, `__host__ __device__` under
 // nvcc and plain `inline` under a host compiler, so the tests build this
 // very arithmetic with g++ and run it on the CPU
-// (tests/test_torch_plan_kernels.py, tests/test_torch_plan_period.py).
-// One call computes what one unit of a kernel computes: a (scenario, foot)
-// of the footstep horizon and of the swing reference from given phases; a
+// (tests/test_torch_plan_kernels.py, tests/test_torch_plan_period.py,
+// tests/test_torch_period_plan.py).
+// One call computes what one unit of a kernel computes: a (step, foot) of
+// the footstep horizon (`footsteps_warp` glues a scenario's on a warp), a
+// (scenario, foot) of the swing reference from given phases; a
 // step's terms of the reference rollout and their ordered prefix (the
 // kernel hands terms between lanes by shuffles, the tests' host glue by
 // an array); a (scenario, foot) set-up and a (scenario, tick, foot)
@@ -33,6 +36,7 @@
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #if defined(__CUDACC__)
 #define PLAN_FN __host__ __device__ __forceinline__
@@ -174,74 +178,203 @@ PLAN_FN int swing_dur(const int* tables, int g, int ph, int f)
     return tables[DUR_OFF + (g * PERIOD + wrap(ph)) * FEET + f];
 }
 
-// ---- the footstep horizon: plan/footsteps.py::plan_footsteps_horizon for
-// foot f of scenario b.  feet (B, N, 4, 3) and next_td (B, 4, 3).  The
-// Raibert target (`raibert_touchdown`) is formed only at the steps where
-// the foot goes from swing to stance: the only steps that read it.
+// ---- the footstep horizon: plan/footsteps.py::plan_footsteps_horizon.
+// feet (B, N, 4, 3) and next_td (B, 4, 3).  Row (k, f) of feet is the
+// Raibert target (`raibert_touchdown`) at the last step j <= k where foot f
+// goes from swing to stance, or the current foot * [1, 1, 0] where there is
+// none; next_td is the target at the first such step (row 0 where there is
+// none).  So no row depends on another: a unit per (step, foot)
+// (`footstep_unit`) finds its step j (`footstep_source`, from the foot's
+// transitions over a period, `foot_transitions`) and forms the target
+// there (`raibert_at`, the first design's loop body at k = j, op by op and
+// in its order: its bits), a lane without a transition before its step
+// forming none.  `footsteps_warp` runs a scenario's 4 N units on a
+// warp's 32 lanes, FOOT_CHUNK steps at a time staged in shared memory and
+// copied out in 16-byte pieces.
+
+constexpr int WARP = 32;
+constexpr int FOOT_CHUNK = 16;  // steps a warp stages at a time (64 units)
+
+// what a scenario's footstep units read: x_srb (12 values), the command
+// (3), the current feet (4 x 3), the gait id and phase
 template <typename T>
-PLAN_FN void footsteps_foot(const FootArgs<T>& a, const int* tables, int N,
-                            long long b, int f)
+struct FootScene {
+    const T* x;
+    const T* vc;
+    const T* cf;
+    int g, ph;
+};
+
+// foot f's swing -> stance transitions over a period, as the first
+// design's scan finds them: bit i set where the stance flag at phase
+// ph + i is > 0 and the one at ph + i - 1 is 0 (the tables repeat every
+// PERIOD phases).  Step k >= 1 of the horizon is a transition where bit
+// k % PERIOD is set (`transition_at`); step 0 never is (the scan's `prev`
+// starts at the flag at ph itself).  The period's 16 flags in one pass, no
+// load waiting on another.
+PLAN_FN unsigned foot_transitions(const int* tables, int g, int ph, int f)
 {
-    const int g = *a.template row<int>(FI_GAIT, b);
-    const int ph = *a.template row<int>(FI_PHASE, b);
-    const T* x = a.template row<T>(FI_X, b);
-    const T* vc = a.template row<T>(FI_VCMD, b);
-    const T* cf = a.template row<T>(FI_FEET, b) + 3 * f;
-    const T dt = a.par[FP_DT], h_ref = a.par[FP_H_REF];
-    const T shx = a.par[FP_SH + 3 * f], shy = a.par[FP_SH + 3 * f + 1];
-    const T t_stance = (T)stance_steps(tables, g, f) * dt;
+    unsigned pos = 0u, zero = 0u;       // bit i: the flag at ph + i
+    for (int i = 0; i < PERIOD; ++i) {
+        const int c = stance_flag(tables, g, ph + i, f);
+        pos |= (unsigned)(c > 0) << i;
+        zero |= (unsigned)(c == 0) << i;
+    }
+    const unsigned prev_zero = (zero << 1) | (zero >> (PERIOD - 1));
+    return pos & prev_zero & ((1u << PERIOD) - 1u);
+}
+
+PLAN_FN bool transition_at(unsigned trans, int i)
+{
+    return i > 0 && ((trans >> (i % PERIOD)) & 1u) != 0u;
+}
+
+// the last transition step j <= k, or -1
+PLAN_FN int footstep_source(unsigned trans, int k)
+{
+    for (int i = k; i > 0; --i)
+        if (transition_at(trans, i)) return i;
+    return -1;
+}
+
+// the first transition step within the horizon of N steps, or -1
+PLAN_FN int footstep_first(unsigned trans, int N)
+{
+    for (int i = 1; i < N; ++i)
+        if (transition_at(trans, i)) return i;
+    return -1;
+}
+
+// the Raibert target (x, y) of foot f at step j; `fp` the FootPar values
+template <typename T>
+PLAN_FN void raibert_at(const int* tables, const FootScene<T>& s, const T* fp,
+                        int f, int j, T& tx, T& ty)
+{
+    const T* x = s.x;
+    const T* vc = s.vc;
+    const T dt = fp[FP_DT], h_ref = fp[FP_H_REF];
+    const T shx = fp[FP_SH + 3 * f], shy = fp[FP_SH + 3 * f + 1];
+    const T t_stance = (T)stance_steps(tables, s.g, f) * dt;
     const T yaw0 = x[5], vx = x[6], vy = x[7], wz = vc[2];
-    const T inv_g = (T)1 / a.par[FP_G];
-    const bool fused_bmm = a.par[FP_FUSED_BMM] != (T)0;
-    const bool fused_einsum = a.par[FP_FUSED_EINSUM] != (T)0;
-    // current_feet * [1, 1, 0]
-    T wx = cf[0] * (T)1, wy = cf[1] * (T)1, wzr = cf[2] * (T)0;
-    T tdx = wx, tdy = wy, tdz = wzr;
-    bool found = false;
-    int prev = stance_flag(tables, g, ph, f);
-    T* feet = a.out[FO_FEET];
-    for (int k = 0; k < N; ++k) {
-        const int ck = stance_flag(tables, g, ph + k, f);
-        if (ck > 0 && prev == 0) {          // swing -> stance at step k
-            const T yaw = yaw0 + wz * dt * (T)k;
-            const T c = p_cos(yaw), s = p_sin(yaw);
-            // v_ref_world = rot_z(yaw_k) [vcx, vcy, 0] (torch.bmm)
-            const T vrx = dot2(c, vc[0], -s, vc[1], fused_bmm);
-            const T vry = dot2(s, vc[0], c, vc[1], fused_bmm);
-            const T pkx = x[0] + vx * dt * (T)k;
-            const T pky = x[1] + vy * dt * (T)k;
-            // shoulder = p_k + rot_z(yaw_k) sh_f (torch.einsum)
-            T px = pkx + dot2(c, shx, -s, shy, fused_einsum);
-            T py = pky + dot2(s, shx, c, shy, fused_einsum);
-            const T ts = a.par[FP_TSF] * t_stance;
-            px = px + ts * vx;
-            py = py + ts * vy;
-            px = px + a.par[FP_KR] * (vx - vrx);
-            py = py + a.par[FP_KR] * (vy - vry);
-            const T h = clamp_min(h_ref, (T)1e-3);
-            const T cfg = (T)0.5 * p_sqrt(h * inv_g);
-            px = px + cfg * (vy * wz);
-            py = py + cfg * (-vx * wz);
-            wx = px;
-            wy = py;
-            wzr = (T)0;
-            if (!found) {
-                tdx = px;
-                tdy = py;
-                tdz = (T)0;
-                found = true;
+    const T inv_g = (T)1 / fp[FP_G];
+    const bool fused_bmm = fp[FP_FUSED_BMM] != (T)0;
+    const bool fused_einsum = fp[FP_FUSED_EINSUM] != (T)0;
+    const T yaw = yaw0 + wz * dt * (T)j;
+    const T c = p_cos(yaw), sn = p_sin(yaw);
+    // v_ref_world = rot_z(yaw_j) [vcx, vcy, 0] (torch.bmm)
+    const T vrx = dot2(c, vc[0], -sn, vc[1], fused_bmm);
+    const T vry = dot2(sn, vc[0], c, vc[1], fused_bmm);
+    const T pkx = x[0] + vx * dt * (T)j;
+    const T pky = x[1] + vy * dt * (T)j;
+    // shoulder = p_j + rot_z(yaw_j) sh_f (torch.einsum)
+    T px = pkx + dot2(c, shx, -sn, shy, fused_einsum);
+    T py = pky + dot2(sn, shx, c, shy, fused_einsum);
+    const T ts = fp[FP_TSF] * t_stance;
+    px = px + ts * vx;
+    py = py + ts * vy;
+    px = px + fp[FP_KR] * (vx - vrx);
+    py = py + fp[FP_KR] * (vy - vry);
+    const T h = clamp_min(h_ref, (T)1e-3);
+    const T cfg = (T)0.5 * p_sqrt(h * inv_g);
+    px = px + cfg * (vy * wz);
+    py = py + cfg * (-vx * wz);
+    tx = px;
+    ty = py;
+}
+
+// row (k, f) of the feet into o[0..2]; `trans` foot f's transitions
+template <typename T>
+PLAN_FN void footstep_unit(const int* tables, const FootScene<T>& s,
+                           const T* fp, unsigned trans, int k, int f, T* o)
+{
+    const int j = footstep_source(trans, k);
+    if (j < 0) {                    // current_feet * [1, 1, 0]
+        const T* cf = s.cf + 3 * f;
+        o[0] = cf[0] * (T)1;
+        o[1] = cf[1] * (T)1;
+        o[2] = cf[2] * (T)0;
+        return;
+    }
+    raibert_at(tables, s, fp, f, j, o[0], o[1]);
+    o[2] = (T)0;
+}
+
+// piece i of 16 bytes from src to dst
+PLAN_FN void copy16(void* dst, const void* src, long long i)
+{
+#if defined(__CUDA_ARCH__)
+    static_cast<int4*>(dst)[i] = static_cast<const int4*>(src)[i];
+#else
+    memcpy(static_cast<char*>(dst) + 16 * i,
+           static_cast<const char*>(src) + 16 * i, 16);
+#endif
+}
+
+// the executors of `footsteps_warp` (dyn/csrc/rbd.h's have the same
+// shape): a phase runs its body for each lane the executor gives this
+// thread, its own on the card, all 32 on the host in order or reversed;
+// sync() between two phases.  No unit reads what another lane writes in
+// its own phase.
+#if defined(__CUDACC__)
+struct WarpExec {
+    __device__ int first() const { return threadIdx.x & (WARP - 1); }
+    __device__ int step() const { return WARP; }
+    __device__ int lane(int i) const { return i; }
+    __device__ void sync() const { __syncwarp(); }
+};
+#endif
+
+#if !defined(__CUDA_ARCH__)
+struct HostExec {
+    bool reverse;
+    int first() const { return 0; }
+    int step() const { return 1; }
+    int lane(int i) const { return reverse ? WARP - 1 - i : i; }
+    void sync() const {}
+};
+#endif
+
+// one scenario's horizon of N steps on a warp: per chunk of FOOT_CHUNK
+// steps (1) the units (k, f) in `stage` (FOOT_CHUNK x 12 values, 16-byte
+// aligned) at row k's 12 values, unit u = 4 k + f on lane u % 32 (so a
+// lane's feet are all lane % 4, whose transitions it finds once a phase);
+// (2) the chunk copied to `feet` (the scenario's N x 12 values, 16-byte
+// aligned) in 16-byte pieces, and lane 4 i + f (i < 3) takes entry i of
+// foot f's next touchdown into td[3 f + i] where its row (the first
+// transition's, else row 0) is in the chunk.  Ends with a sync.
+#if defined(__CUDACC__)
+#pragma nv_exec_check_disable
+#endif
+template <typename T, class Exec>
+PLAN_FN void footsteps_warp(const Exec& ex, const int* tables, int N,
+                            const FootScene<T>& s, const T* fp, T* stage,
+                            T* feet, T* td)
+{
+    for (int c0 = 0; c0 < N; c0 += FOOT_CHUNK) {
+        const int steps = N - c0 < FOOT_CHUNK ? N - c0 : FOOT_CHUNK;
+        for (int i = ex.first(); i < WARP; i += ex.step()) {
+            const int lane = ex.lane(i), f = lane % FEET;
+            const unsigned trans = foot_transitions(tables, s.g, s.ph, f);
+            for (int u = lane; u < FEET * steps; u += WARP)
+                footstep_unit(tables, s, fp, trans, c0 + u / FEET, f,
+                              stage + 3 * u);
+        }
+        ex.sync();
+        for (int i = ex.first(); i < WARP; i += ex.step()) {
+            const int lane = ex.lane(i), f = lane % FEET;
+            const long long pieces = 12LL * steps * (long long)sizeof(T) / 16;
+            for (long long p = lane; p < pieces; p += WARP)
+                copy16(feet + 12LL * c0, stage, p);
+            if (lane < 3 * FEET) {
+                const int j = footstep_first(
+                    foot_transitions(tables, s.g, s.ph, f), N);
+                const int row = j < 0 ? 0 : j, e = 3 * f + lane / FEET;
+                if (row >= c0 && row < c0 + steps)
+                    td[e] = stage[12 * (row - c0) + e];
             }
         }
-        T* o = feet + ((b * N + k) * FEET + f) * 3;
-        o[0] = wx;
-        o[1] = wy;
-        o[2] = wzr;
-        prev = ck;
+        ex.sync();
     }
-    T* td = a.out[FO_TD] + (b * FEET + f) * 3;
-    td[0] = tdx;
-    td[1] = tdy;
-    td[2] = tdz;
 }
 
 // ---- the reference rollout: mpc/srb.py::reference_rollout.  out (B, N,

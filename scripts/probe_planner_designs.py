@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """The planner's redesigned kernels against their first designs, on the
-card: the swing reference over a period (`plan_swing_at`) and the reference
-rollout (`plan_rollout`).
+card: the swing reference over a period (`plan_swing_at`), the reference
+rollout (`plan_rollout`), the footstep horizon (`plan_footsteps`) and the
+period head with the footstep plan (`period_plan`).
 
-    python3 scripts/probe_planner_designs.py [--kernels swing rollout]
-        [--batch 4096] [--rounds 6] [--out DIR]
+    python3 scripts/probe_planner_designs.py [--kernels swing rollout
+        footsteps head] [--batch 4096] [--rounds 6] [--out DIR]
 
 Needs an NVIDIA GPU and nvcc.  The first designs (the rollout a thread
 per (scenario, step) repeating the recursion up to its step; the swing
@@ -26,7 +27,20 @@ inputs (`planner_inputs`), float32 and float64, B = 1, 37 and --batch:
      block at 32 and 128 (patched copies of planner.h's SWING_ROWS);
   rollout. the shipped kernel against the first design (parted entries),
      then in interleaved rounds at B = 1, 256 and --batch beside patched
-     copies with 64 and 256 threads a block.
+     copies with 64 and 256 threads a block;
+  footsteps. the shipped kernel (a warp per scenario, a unit per (step,
+     foot)) against the first design (a thread per (scenario, foot) looping
+     over the horizon: FIRST_PLANNER_H / _CU), parted entries, then
+     interleaved rounds at B = 1, 256 and --batch;
+  head. the period plan (one launch: the head, the footsteps and the
+     touchdown select) against the first designs' chain (the period head
+     kept verbatim as `FIRST_PERIOD_HEAD_H` / `FIRST_PERIOD_HEAD_CU`, built
+     as a copy with -fmad=false, then the first footstep kernel on its
+     outputs and the select as a torch.where): every output's parted
+     entries, and the shipped period head (the plan off) against the first;
+     then interleaved rounds at B = 1, 256 and --batch of the first chain
+     (three launches), the shipped chain (period_head, plan_footsteps, the
+     select), one period_plan, and each period head alone.
 
 Every timed set also times a one-kernel graph (a `fill_` of a one-element
 tensor: the launch floor) and prints each time beside the floor and the
@@ -50,14 +64,18 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
 import probe_kernel_designs as pkd  # noqa: E402
+from mpctsid_tpu_torch.cascade import CascadeConfigured, engine  # noqa: E402
 from mpctsid_tpu_torch.config import EngineConfig  # noqa: E402
+from mpctsid_tpu_torch.dyn import kernels as dk  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.mpc import srb  # noqa: E402
+from mpctsid_tpu_torch.plan import footsteps as fs  # noqa: E402
 from mpctsid_tpu_torch.plan import kernels as pk  # noqa: E402
+from mpctsid_tpu_torch.plan.gait import contacts_at  # noqa: E402
 from mpctsid_tpu_torch.plan import swing  # noqa: E402
 from mpctsid_tpu_torch.qp import _build  # noqa: E402
 
-PARTS = ["swing", "rollout"]
+PARTS = ["swing", "rollout", "footsteps", "head"]
 BITS_B = (1, 37)          # and --batch
 TIMED_B = (1, 256)        # and --batch
 
@@ -156,14 +174,20 @@ def variant_specs() -> dict:
         "256 threads a block": dict(subs=lambda s: header_sub(
             threads, threads.replace("128", "256"))(s),
             header_subs={"planner.h": same}, **common),
+        "first period head": dict(
+            subs=lambda _: FIRST_PERIOD_HEAD_CU, source="period_head.cu",
+            csrc=dk.CSRC, flags=dk.FLAGS["period_head"],
+            header_subs={"period_head.h": lambda _: FIRST_PERIOD_HEAD_H}),
     }
 
 
-def launcher(lib, kernel: str):
-    """plan_<kernel>_launch of a built copy, on the current stream (the
-    wrappers' `launch_fn`: the C signature less the stream)."""
-    fn = getattr(lib, f"plan_{kernel}_launch")
-    fn.argtypes = pk.LAUNCH_ARGTYPES + [pk._PTR]
+def launcher(lib, kernel: str, argtypes=pk.LAUNCH_ARGTYPES):
+    """plan_<kernel>_launch of a built copy (<kernel>_launch where
+    `argtypes` are dyn/kernels.py's), on the current stream (the wrappers'
+    `launch_fn`: the C signature less the stream)."""
+    fn = getattr(lib, f"plan_{kernel}_launch" if argtypes is
+                 pk.LAUNCH_ARGTYPES else f"{kernel}_launch")
+    fn.argtypes = argtypes + [pk._PTR]
     fn.restype = pk._INT
 
     def run(*a):
@@ -305,6 +329,104 @@ def probe_rollout(record, B_max, rounds, libs, device):
                bound_ms=cs.plan_bounds(B, d, N)["reference_rollout"][0])
 
 
+def probe_footsteps(record, B_max, rounds, libs, device):
+    cfg = EngineConfig()
+    d = cs.planner_inputs(B_max, 70)
+    first = launcher(libs["first design"], "footsteps")
+
+    def args(B, dtype):
+        t = tensors(d, B, dtype, device)
+        feet = torch.tensor(d["feet"][:B], dtype=dtype, device=device)
+        return (SOLO12, cfg.mpc, cfg.cascade, t["gid"], t["phase"], t["x"],
+                t["v_cmd"], feet)
+    for B in (*BITS_B, B_max):
+        for dtype in (torch.float32, torch.float64):
+            a = args(B, dtype)
+            got = fs.plan_footsteps_horizon(*a)
+            want = checked(fs.run_footsteps(first, *a))
+            record("footsteps_bits", B=B, dtype=str(dtype)[6:],
+                   parted=parted(got, want),
+                   entries=sum(w.numel() for w in want))
+    for B in (*TIMED_B, B_max):
+        a = args(B, torch.float32)
+        fns = {"first design": lambda: checked(fs.run_footsteps(first, *a)),
+               "new": lambda: fs.plan_footsteps_horizon(*a),
+               "launch floor (one fill_)": floor_fn(device)}
+        replays = {k: pkd.graphed(f) for k, f in fns.items()}
+        ms = pkd.interleaved(record, "footsteps_times", replays, rounds, B=B)
+        record("footsteps_summary", B=B, ms=ms,
+               bound_ms=cs.plan_bounds(B, d, cfg.mpc.horizon)[
+                   "plan_footsteps_horizon"][0])
+
+
+def probe_head(record, B_max, rounds, libs, device):
+    cfg = EngineConfig()
+    tree = CascadeConfigured(SOLO12, cfg).tree
+    d = cs.planner_inputs(B_max, 70)
+    head_first = launcher(libs["first period head"], "period_head",
+                          dk.LAUNCH_ARGTYPES)
+    foot_first = launcher(libs["first design"], "footsteps")
+
+    def args(B, dtype):
+        q, v, ts, lo, vi, vc = cs.period_head_inputs(B, 70 + B, dtype,
+                                                     device)
+        t = tensors(d, B, dtype, device)
+        return t["gid"], t["phase"], q, v, ts, lo, t["td"], vi, vc
+
+    def first_chain(gid, ph, q, v, ts, lo, td, vi, vc):
+        h = checked(engine.run_period_head(head_first, tree, cfg.cascade, q,
+                                           v, ts, lo, vi, vc))
+        f, ntd = checked(fs.run_footsteps(foot_first, SOLO12, cfg.mpc,
+                                          cfg.cascade, gid, ph, h[1], h[4],
+                                          h[0]))
+        swing = contacts_at(gid, ph, q.dtype) < 0.5
+        return (*h, f, ntd, torch.where(swing[..., None], ntd, td))
+
+    def new_chain(gid, ph, q, v, ts, lo, td, vi, vc):
+        h = engine.period_head(tree, cfg.cascade, q, v, ts, lo, vi, vc)
+        f, ntd = fs.plan_footsteps_horizon(SOLO12, cfg.mpc, cfg.cascade, gid,
+                                           ph, h[1], h[4], h[0])
+        swing = contacts_at(gid, ph, q.dtype) < 0.5
+        return (*h, f, ntd, torch.where(swing[..., None], ntd, td))
+
+    def plan(a):
+        return engine.period_plan(SOLO12, tree, cfg, *a)
+
+    for B in (*BITS_B, B_max):
+        for dtype in (torch.float32, torch.float64):
+            a = args(B, dtype)
+            got, want = plan(a), first_chain(*a)
+            head_new = engine.period_head(tree, cfg.cascade, *a[2:6],
+                                          *a[7:])
+            record("head_bits", B=B, dtype=str(dtype)[6:],
+                   plan_vs_first_chain_parted=[parted([g], [w])
+                                               for g, w in zip(got, want)],
+                   plan_vs_new_chain_parted=parted(got, new_chain(*a)),
+                   head_vs_first_parted=parted(head_new, want[:5]),
+                   entries=sum(w.numel() for w in want))
+    for B in (*TIMED_B, B_max):
+        a = args(B, torch.float32)
+        fns = {"first designs: head, footsteps, select (3 launches)":
+               lambda: first_chain(*a),
+               "new: period_head, plan_footsteps, select (3 launches)":
+               lambda: new_chain(*a),
+               "new: period_plan (one launch)": lambda: plan(a),
+
+               "first period head alone": lambda: checked(
+                   engine.run_period_head(head_first, tree, cfg.cascade,
+                                          *a[2:6], *a[7:])),
+               "new period head alone (the plan off)":
+               lambda: engine.period_head(tree, cfg.cascade, *a[2:6],
+                                          *a[7:]),
+               "launch floor (one fill_)": floor_fn(device)}
+        replays = {k: pkd.graphed(f) for k, f in fns.items()}
+        ms = pkd.interleaved(record, "head_times", replays, rounds, B=B)
+        record("head_summary", B=B, ms=ms,
+               bound_ms_plan=cs.period_plan_bound_ms(B, d["gid"],
+                                                     d["phase"])[0],
+               bound_ms_head=cs.period_head_bound_ms(B)[0])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=4096)
@@ -320,14 +442,16 @@ def main() -> int:
     smi = pkd.smi_line()
     build = os.path.join(str(_build.build_dir()), "probe_planner_designs")
     os.makedirs(build, exist_ok=True)
-    # the shipped library and every copy, their nvcc processes together
-    _build.build_libraries(pk.build_specs())
+    # the shipped libraries and every copy, their nvcc processes together
+    _build.build_libraries(pk.build_specs() + dk.build_specs())
     libs = pkd.build_variants(variant_specs(), build)
     report = {"card": smi, "batch": a.batch, "swing_bits": [],
               "swing_variant_bits": [], "swing_times": [],
               "swing_summary": [], "rollout_bits": [],
               "rollout_variant_bits": [], "rollout_times": [],
-              "rollout_summary": []}
+              "rollout_summary": [], "footsteps_bits": [],
+              "footsteps_times": [], "footsteps_summary": [],
+              "head_bits": [], "head_times": [], "head_summary": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -338,11 +462,19 @@ def main() -> int:
         probe_swing(record, a.batch, a.rounds, libs, device)
     if "rollout" in a.kernels:
         probe_rollout(record, a.batch, a.rounds, libs, device)
+    if "footsteps" in a.kernels:
+        probe_footsteps(record, a.batch, a.rounds, libs, device)
+    if "head" in a.kernels:
+        probe_head(record, a.batch, a.rounds, libs, device)
     bits = ([r["period_vs_first_parted"] + r["at_vs_first_parted"]
              for r in report["swing_bits"]]
             + [r["parted"] for r in report["rollout_bits"]
                + report["swing_variant_bits"]
-               + report["rollout_variant_bits"]])
+               + report["rollout_variant_bits"]
+               + report["footsteps_bits"]]
+            + [sum(r["plan_vs_first_chain_parted"])
+               + r["plan_vs_new_chain_parted"]
+               + r["head_vs_first_parted"] for r in report["head_bits"]])
     report["parted_total"] = int(sum(bits))
     print(f"  entries parted from the first designs (and between the "
           f"variants): {report['parted_total']}", flush=True)
@@ -925,6 +1057,279 @@ int plan_swing_at_launch(int dtype, int B, int N, const void* tables,
 }
 
 const char* planner_error_string(int code)
+{
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
+"""
+
+
+# ---------------------------------------------- the period head's first
+# design: period_head.h and period_head.cu as they were before the plan
+# went into it, verbatim
+
+FIRST_PERIOD_HEAD_H = r"""// The per-scenario body of the period-head kernel (period_head.cu): what
+// a controller computes of the measured state once per MPC period, before
+// the footstep plan (cascade/engine.py::period_head):
+//
+//   feet_now  = foot_positions(q)                       (4 x 3, world)
+//   x_srb     = srb_state(q, v) = [p, rpy, R0 v_lin, R0 w]   (12)
+//   liftoff'  = to_swing > 0.5 ? feet_now : liftoff      (4 x 3)
+//   v_meas    = [cy vx_w + sy vy_w, -sy vx_w + cy vy_w, wz_w], yaw = rpy[2]
+//   v_int'    = clamp(v_int + gain (v_cmd - v_meas), -v_max, v_max)
+//   v_used    = v_cmd + v_int'
+//
+// with gain = ki_vint * t_period.  The leg kinematics are rbd.h's
+// `kin_unit` (the WBC build's and the plant step's), not a copy: lanes 0-3
+// run one leg each.  Then lanes 0-11 take the feet and the lift-off select,
+// lanes 12-23 the SRB state (a lane an entry), lanes 0-2 the integrator.
+// The phases run through rbd.h's executors: on the card a warp per
+// scenario (`WarpExec`, `__syncwarp()` between phases), on the host the 32
+// lanes one after another in either order (`HostExec`), so the CPU tests
+// build this arithmetic with g++ (tests/test_torch_period_head_kernel.py).
+// No unit reads what another lane writes in its own phase.
+//
+// Bits.  The plain version (engine.py::period_head_reference) takes the
+// rotations through `torch.bmm` / broadcast matmuls and atan2 / asin from
+// PyTorch's math library; here they are rbd.h's products and the CUDA math
+// library's: held to it within a tolerance.  The library is built with
+// -fmad=false, so the integrator's products and sums round as the plain
+// version's elementwise ops do.
+
+#pragma once
+
+#include "rbd.h"
+
+namespace rbd {
+namespace head {
+
+// operands, in the order of the launcher's arrays: each input a first row
+// and a stride between scenarios (rbd::Args), each output contiguous (B, ...)
+enum In { HI_Q, HI_V, HI_TO_SWING, HI_LIFTOFF, HI_V_INT, HI_V_CMD, HI_COUNT };
+enum Out { HO_FEET, HO_X_SRB, HO_LIFTOFF, HO_V_INT, HO_V_USED, HO_COUNT };
+// gain = ki_vint * t_period; the integrator's bound v_int_max
+enum Par { HP_GAIN, HP_V_INT_MAX, HP_COUNT };
+
+// what dyn/kernels.py checks (HEAD_LAYOUT): after rbd.h's own counts,
+// the head's inputs, outputs and parameters
+inline int layout(int what)
+{
+    if (what < L_PLANT_PAR + 1) return ::rbd::layout(what);
+    switch (what - (L_PLANT_PAR + 1)) {
+    case 0: return HI_COUNT;
+    case 1: return HO_COUNT;
+    case 2: return HP_COUNT;
+    default: return -1;
+    }
+}
+
+template <typename T> using HeadArgs = Args<T, HI_COUNT, HO_COUNT, HP_COUNT>;
+
+// a warp's slot of shared memory
+template <typename T>
+struct HeadSlot {
+    Kin<T> k;
+    T x[12];    // x_srb
+};
+
+// NaN-propagating clamp, as torch.clamp
+template <typename T>
+RBD_FN T clamp_nan(T v, T lo, T hi)
+{
+    return v != v ? v : (v < lo ? lo : (v > hi ? hi : v));
+}
+
+// entry e of x_srb (lanes 12-23, e = lane - 12)
+template <typename T>
+RBD_FN T srb_entry(int e, const T* q, const T* v, const T* R)
+{
+    if (e < 3) return q[e];
+    if (e < 6) {
+        T rpy[3];
+        rot_to_rpy(R, rpy);
+        return rpy[e - 3];
+    }
+    const T* w = e < 9 ? v : v + 3;
+    const int i = (e - 6) % 3;
+    return R[3 * i] * w[0] + R[3 * i + 1] * w[1] + R[3 * i + 2] * w[2];
+}
+
+// the whole body of one scenario b
+template <typename T, class Exec>
+RBD_FN void period_head_warp(const Exec& ex, const T* C,
+                             const HeadArgs<T>& a, long long b,
+                             HeadSlot<T>& S)
+{
+    const T* q = a.row(HI_Q, b);
+    const T* v = a.row(HI_V, b);
+    RBD_EACH_LANE(ex, lane) kin_unit(lane, C, q, S.k);
+    ex.sync();
+    RBD_EACH_LANE(ex, lane) {
+        if (lane < 12) {
+            const int leg = lane / 3, i = lane % 3;
+            const T f = S.k.p[leg][3][i];
+            const T sw = a.row(HI_TO_SWING, b)[leg];
+            a.out[HO_FEET][b * 12 + lane] = f;
+            a.out[HO_LIFTOFF][b * 12 + lane] =
+                sw > T(0.5) ? f : a.row(HI_LIFTOFF, b)[lane];
+        } else if (lane < 24) {
+            const T x = srb_entry(lane - 12, q, v, S.k.R0);
+            S.x[lane - 12] = x;
+            a.out[HO_X_SRB][b * 12 + lane - 12] = x;
+        }
+    }
+    ex.sync();
+    RBD_EACH_LANE(ex, lane) {
+        if (lane < 3) {
+            T sy, cy;
+            r_sincos(S.x[5], &sy, &cy);
+            const T vm = lane == 0 ? cy * S.x[6] + sy * S.x[7]
+                         : (lane == 1 ? -sy * S.x[6] + cy * S.x[7]
+                                      : S.x[11]);
+            const T vc = a.row(HI_V_CMD, b)[lane];
+            const T vmax = a.par[HP_V_INT_MAX];
+            const T vi = clamp_nan(
+                a.row(HI_V_INT, b)[lane] + a.par[HP_GAIN] * (vc - vm),
+                -vmax, vmax);
+            a.out[HO_V_INT][b * 3 + lane] = vi;
+            a.out[HO_V_USED][b * 3 + lane] = vc + vi;
+        }
+    }
+}
+
+}  // namespace head
+}  // namespace rbd
+"""
+
+FIRST_PERIOD_HEAD_CU = r"""// The period head in one launch — CUDA, sm_90a.
+//
+// Computes cascade/engine.py::period_head for a batch: the foot positions,
+// the SRB state, the lift-off select and the offset-free velocity
+// integrator of a period boundary (period_head.h says what and how).  The
+// JAX package has no Pallas kernel here: its cascade leaves these ops to
+// XLA under `jax.jit` (mpctsid_tpu/cascade/engine.py:66, :176), and its
+// host path runs them as eager device ops and numpy
+// (mpctsid_tpu/host.py:269-290).  Run op by op the plain PyTorch chain is
+// about 170 kernels (the LegKin chain, quat_to_rot, rot_to_rpy, two bmm,
+// the stacks and the integrator), each 1.3-1.9 us of a CUDA graph's replay
+// at B = 1: the node count, not the arithmetic, is the stage's time.
+//
+// What bounds it on this card: bytes.  Per scenario it reads 59 values
+// (q, v, the lift-off mask and positions, v_int, v_cmd) and writes 42, for
+// about 700 operations (chip_smoke.py::period_head_bound_ms).
+//
+// Design (first): a warp per scenario, rbd::warps_per_block's number a
+// block (the WBC build's layout; dyn/kernels.py::rbd_layout), each warp
+// with its slot (rbd::head::HeadSlot: the leg kinematics and x_srb, 288
+// values).  float and double.
+//
+// Launch: period_head_launch(dtype, B, consts, in, stride, out, par,
+// stream) with the arrays in period_head.h's In / Out / Par order; dtype 0
+// float, 1 double.  Returns a cudaError_t (0 on success); launches on
+// `stream` and allocates nothing.
+
+#include <cuda_runtime.h>
+
+#include "period_head.h"
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(rbd::WARP * rbd::MAX_WARPS)
+period_head_kernel(const T* __restrict__ consts,
+                   const rbd::head::HeadArgs<T> args, int B, int slot)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warp = threadIdx.x / rbd::WARP;
+    const long long b =
+        (long long)blockIdx.x * (blockDim.x / rbd::WARP) + warp;
+    if (b >= B) return;
+    rbd::WarpExec ex;
+    rbd::head::period_head_warp<T>(
+        ex, consts, args, b,
+        *reinterpret_cast<rbd::head::HeadSlot<T>*>(
+            smem + (size_t)warp * slot));
+}
+
+int last_layout[3];   // warps a block, blocks, shared bytes a block
+
+template <typename T>
+int launch(int B, const void* consts, const void* const* in,
+           const long long* stride, void* const* out, const double* par,
+           cudaStream_t stream)
+{
+    rbd::head::HeadArgs<T> a;
+    for (int k = 0; k < rbd::head::HI_COUNT; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < rbd::head::HO_COUNT; ++k)
+        a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < rbd::head::HP_COUNT; ++k) a.par[k] = (T)par[k];
+    int dev, optin, n_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    const int slot =
+        rbd::slot_bytes((int)sizeof(rbd::head::HeadSlot<T>));
+    const int g = rbd::warps_per_block(B, slot, optin, n_sm);
+    if (g < 1) return (int)cudaErrorInvalidValue;
+    const int blocks = (B + g - 1) / g, smem = g * slot;
+    period_head_kernel<T><<<blocks, g * rbd::WARP, smem, stream>>>(
+        static_cast<const T*>(consts), a, B, slot);
+    last_layout[0] = g;
+    last_layout[1] = blocks;
+    last_layout[2] = smem;
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// rbd.h's counts, then the head's (dyn/kernels.py::LAYOUT, HEAD_LAYOUT)
+int period_head_layout(int what) { return rbd::head::layout(what); }
+
+// values (floats or doubles) of a warp's slot: rbd::head::HeadSlot
+int period_head_slot_values()
+{
+    static_assert(sizeof(rbd::head::HeadSlot<double>)
+                  == 2 * sizeof(rbd::head::HeadSlot<float>),
+                  "slot of values");
+    return (int)(sizeof(rbd::head::HeadSlot<float>) / sizeof(float));
+}
+
+// the last launch's warps a block (0), blocks (1), shared bytes a block (2)
+int period_head_last_layout(int what)
+{
+    return what >= 0 && what < 3 ? last_layout[what] : -1;
+}
+
+int period_head_launch(int dtype, int B, const void* consts,
+                       const void* const* in, const long long* stride,
+                       void* const* out, const double* par, void* stream)
+{
+    if (B < 1 || consts == nullptr) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < rbd::head::HI_COUNT; ++k)
+        if (in[k] == nullptr) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < rbd::head::HO_COUNT; ++k)
+        if (out[k] == nullptr) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+        return launch<float>(B, consts, in, stride, out, par,
+                             (cudaStream_t)stream);
+    if (dtype == 1)
+        return launch<double>(B, consts, in, stride, out, par,
+                              (cudaStream_t)stream);
+    return (int)cudaErrorInvalidValue;
+}
+
+const char* period_head_error_string(int code)
 {
     return cudaGetErrorString((cudaError_t)code);
 }

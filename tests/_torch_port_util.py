@@ -256,17 +256,45 @@ PLANNER_HARNESS = r'''
 
 namespace {
 
+// the footstep kernel's warps one after another, each scenario's lanes in
+// order or reversed (planner::HostExec) from NaN-filled staging rows
+template <typename T>
+int footsteps_warps(bool reverse, int B, int N, const void* tables,
+                    const void* const* in, const long long* stride,
+                    void* const* out, const double* par)
+{
+    planner::FootArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    alignas(16) T stage[planner::FOOT_CHUNK * 12];
+    for (long long b = 0; b < B; ++b) {
+        for (auto& v : stage) v = std::numeric_limits<T>::quiet_NaN();
+        const planner::FootScene<T> s{
+            a.template row<T>(planner::FI_X, b),
+            a.template row<T>(planner::FI_VCMD, b),
+            a.template row<T>(planner::FI_FEET, b),
+            *a.template row<int>(planner::FI_GAIT, b),
+            *a.template row<int>(planner::FI_PHASE, b)};
+        planner::footsteps_warp(planner::HostExec{reverse},
+                                static_cast<const int*>(tables), N, s, a.par,
+                                stage, a.out[planner::FO_FEET] + b * N * 12,
+                                a.out[planner::FO_TD] + b * 12);
+    }
+    return 0;
+}
+
 template <typename T>
 int footsteps(int B, int N, const void* tables, const void* const* in,
               const long long* stride, void* const* out, const double* par)
 {
-    planner::FootArgs<T> a;
-    planner::fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        for (int f = 0; f < planner::FEET; ++f)
-            planner::footsteps_foot<T>(a, static_cast<const int*>(tables), N,
-                                       b, f);
-    return 0;
+    return footsteps_warps<T>(false, B, N, tables, in, stride, out, par);
+}
+
+template <typename T>
+int footsteps_reversed(int B, int N, const void* tables,
+                       const void* const* in, const long long* stride,
+                       void* const* out, const double* par)
+{
+    return footsteps_warps<T>(true, B, N, tables, in, stride, out, par);
 }
 
 // the rollout's pieces for scenario b, glued as the kernel glues them
@@ -398,6 +426,7 @@ int swing_at_reversed(int B, int N, const void* tables,
 extern "C" int planner_layout(int what) { return planner::layout(what); }
 
 PLAN_ENTRY(plan_footsteps_host, footsteps)
+PLAN_ENTRY(plan_footsteps_reversed_host, footsteps_reversed)
 PLAN_ENTRY(plan_rollout_host, rollout)
 PLAN_ENTRY(plan_swing_host, swing)
 PLAN_ENTRY(plan_swing_at_host, swing_at)
@@ -410,12 +439,15 @@ def build_planner_harness(directory):
     planner's four kernels, built with the host compiler into `directory`
     (-std=c++17: no floating-point contraction), each kernel's units run
     one after another with the kernels' C signature (less the stream): the
+    footsteps a warp per scenario, its lanes in order (`footsteps`) or
+    reversed (`footsteps_reversed`) from NaN-filled staging rows; the
     rollout's pieces glued by an array, the kernel's chunks of lanes in
     turn (`rollout_scenario`), the swing
     reference over a period block by block, phase by phase, from NaN-filled
     staging (`swing_at`; `swing_at_reversed` each phase's units reversed).
-    Returns a namespace of ctypes functions `footsteps`, `rollout`,
-    `swing`, `swing_at`, `swing_at_reversed`, which the wrappers' packing
+    Returns a namespace of ctypes functions `footsteps`,
+    `footsteps_reversed`, `rollout`, `swing`, `swing_at`,
+    `swing_at_reversed`, which the wrappers' packing
     (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
     `plan.swing.run_swing`, `plan.swing.run_swing_period`, `run_swing_at`)
     takes, and `layout(i)` (planner.h's counts)."""
@@ -435,8 +467,8 @@ def build_planner_harness(directory):
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("footsteps", "rollout", "swing", "swing_at",
-                 "swing_at_reversed"):
+    for name in ("footsteps", "footsteps_reversed", "rollout", "swing",
+                 "swing_at", "swing_at_reversed"):
         fn = getattr(lib, f"plan_{name}_host")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -450,6 +482,19 @@ FIRST_PLANNER_HARNESS = r"""
 #include "planner.h"
 
 namespace {
+
+template <typename T>
+int footsteps(int B, int N, const void* tables, const void* const* in,
+              const long long* stride, void* const* out, const double* par)
+{
+    planner::FootArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::footsteps_foot<T>(a, static_cast<const int*>(tables), N,
+                                       b, f);
+    return 0;
+}
 
 template <typename T>
 int rollout(int B, int N, const void*, const void* const* in,
@@ -487,21 +532,25 @@ int swing_at(int B, int, const void* tables, const void* const* in,
                    : body<double>(B, N, tables, in, stride, out, par);      \
     }
 
+FIRST_ENTRY(first_footsteps, footsteps)
 FIRST_ENTRY(first_rollout, rollout)
 FIRST_ENTRY(first_swing_at, swing_at)
 """
 
 
 def build_first_planner_harness(directory):
-    """The planner's first designs of the reference rollout (a thread per
-    step repeating the recursion up to it, `rollout_step`) and the swing
-    reference at a tick (`swing_at_foot`), whose planner.h lives on
+    """The planner's first designs of the footstep horizon (a thread per
+    (scenario, foot) looping over the steps, `footsteps_foot`), the
+    reference rollout (a thread per step repeating the recursion up to it,
+    `rollout_step`) and the swing reference at a tick (`swing_at_foot`),
+    whose planner.h lives on
     verbatim in scripts/probe_planner_designs.py (FIRST_PLANNER_H), built
     with the host compiler into `directory` (-ffp-contract=off), each
-    thread one after another.  Returns a namespace of `rollout` and
-    `swing_at` with the kernels' C signature less the stream
-    (`mpc.srb.run_rollout`, `plan.swing.run_swing_at` take them; the first
-    design's tick fraction is one value a scenario)."""
+    thread one after another.  Returns a namespace of `footsteps`,
+    `rollout` and `swing_at` with the kernels' C signature less the stream
+    (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
+    `plan.swing.run_swing_at` take them; the first design's tick fraction
+    is one value a scenario)."""
     import ctypes
     import re
     import subprocess
@@ -524,7 +573,7 @@ def build_first_planner_harness(directory):
                    check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("rollout", "swing_at"):
+    for name in ("footsteps", "rollout", "swing_at"):
         fn = getattr(lib, f"first_{name}")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -903,47 +952,67 @@ PERIOD_HEAD_HARNESS = r'''
 namespace {
 
 // a scenario at a time, its warp's lanes one after another in each phase
-// (reversed when `reverse`), from a slot filled with NaN
-template <typename T>
+// (reversed when `reverse`), from a slot filled with NaN; the plan's
+// operands after the head's where PLAN (period_head.cu's launcher)
+template <bool PLAN, typename T>
 int head(int B, const void* consts, const void* const* in,
          const long long* stride, void* const* out, const double* par,
          bool reverse)
 {
-    rbd::head::HeadArgs<T> a;
-    for (int k = 0; k < rbd::head::HI_COUNT; ++k) {
+    using namespace rbd::head;
+    HeadArgs<T> a;
+    for (int k = 0; k < HI_COUNT; ++k) {
         a.in[k] = static_cast<const T*>(in[k]);
         a.stride[k] = stride[k];
     }
-    for (int k = 0; k < rbd::head::HO_COUNT; ++k)
-        a.out[k] = static_cast<T*>(out[k]);
-    for (int k = 0; k < rbd::head::HP_COUNT; ++k) a.par[k] = (T)par[k];
+    for (int k = 0; k < HO_COUNT; ++k) a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < HP_COUNT; ++k) a.par[k] = (T)par[k];
+    PlanArgs<T> p{};
+    if (PLAN) {
+        const void* const* pin = in + HI_COUNT;
+        const long long* pst = stride + HI_COUNT;
+        p.touchdown = static_cast<const T*>(pin[PLI_TOUCHDOWN]);
+        p.gait = static_cast<const int*>(pin[PLI_GAIT]);
+        p.phase = static_cast<const int*>(pin[PLI_PHASE]);
+        p.tables = static_cast<const int*>(pin[PLI_TABLES]);
+        p.td_stride = pst[PLI_TOUCHDOWN];
+        p.gait_stride = pst[PLI_GAIT];
+        p.phase_stride = pst[PLI_PHASE];
+        for (int k = 0; k < PLO_COUNT; ++k)
+            p.out[k] = static_cast<T*>(out[HO_COUNT + k]);
+        p.N = (int)par[HP_COUNT + PLP_N];
+        for (int k = 0; k < planner::FP_COUNT; ++k)
+            p.fp[k] = (T)par[HP_COUNT + PLP_FOOT + k];
+    }
     const rbd::HostExec ex{reverse};
-    rbd::head::HeadSlot<T> S;
+    HeadSlot<T> S;
     T* raw = reinterpret_cast<T*>(&S);
     for (long long b = 0; b < B; ++b) {
         for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i)
             raw[i] = std::numeric_limits<T>::quiet_NaN();
-        rbd::head::period_head_warp<T>(ex, static_cast<const T*>(consts), a,
-                                       b, S);
+        period_warp<PLAN>(ex, static_cast<const T*>(consts), a, p, b, S);
     }
     return 0;
 }
 
 }  // namespace
 
-#define HEAD_ENTRY(name, reverse)                                           \
+#define HEAD_ENTRY(name, plan, reverse)                                     \
     extern "C" int name(int dtype, int B, const void* consts,               \
                         const void* const* in, const long long* stride,     \
                         void* const* out, const double* par)                \
     {                                                                       \
         return dtype == 0                                                   \
-                   ? head<float>(B, consts, in, stride, out, par, reverse)  \
-                   : head<double>(B, consts, in, stride, out, par,          \
-                                  reverse);                                 \
+                   ? head<plan, float>(B, consts, in, stride, out, par,     \
+                                       reverse)                             \
+                   : head<plan, double>(B, consts, in, stride, out, par,    \
+                                        reverse);                           \
     }
 
-HEAD_ENTRY(period_head_host, false)
-HEAD_ENTRY(period_head_host_reversed, true)
+HEAD_ENTRY(period_head_host, false, false)
+HEAD_ENTRY(period_head_host_reversed, false, true)
+HEAD_ENTRY(period_plan_host, true, false)
+HEAD_ENTRY(period_plan_host_reversed, true, true)
 
 extern "C" int period_head_layout(int what)
 {
@@ -965,14 +1034,17 @@ extern "C" int period_head_warps_per_block(long long B, int slot, int optin,
 
 def build_period_head_harness(directory):
     """mpctsid_tpu_torch/dyn/csrc/period_head.h (over rbd.h's leg
-    kinematics), the period-head kernel's per-scenario body, built with the
-    host compiler into `directory` (-ffp-contract=off, as the library's
+    kinematics and plan/csrc/planner.h's footstep units), the period-head
+    and period-plan kernels' per-scenario body, built with the host
+    compiler into `directory` (-ffp-contract=off, as the library's
     -fmad=false): each scenario's lanes one after another between the
-    phases (rbd::HostExec), from a NaN-filled slot, with the kernel's C
+    phases (rbd::HostExec), from a NaN-filled slot, with the kernels' C
     signature less the stream.  Returns a namespace of ctypes functions:
-    `launch` and `launch_reversed` (which
-    `cascade.engine.run_period_head` takes), `layout(i)`, `slot_values()`
-    and `warps_per_block(B, slot bytes, shared bytes, SMs)`."""
+    `launch` and `launch_reversed` (the plan off, which
+    `cascade.engine.run_period_head` takes), `plan` and `plan_reversed`
+    (the plan on, which `cascade.engine.run_period_plan` takes),
+    `layout(i)`, `slot_values()` and `warps_per_block(B, slot bytes,
+    shared bytes, SMs)`."""
     import ctypes
     import subprocess
     import types
@@ -988,7 +1060,8 @@ def build_period_head_harness(directory):
                     "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("period_head_host", "period_head_host_reversed"):
+    for name in ("period_head_host", "period_head_host_reversed",
+                 "period_plan_host", "period_plan_host_reversed"):
         getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
         getattr(lib, name).restype = ctypes.c_int
     lib.period_head_layout.argtypes = [ctypes.c_int]
@@ -1000,6 +1073,7 @@ def build_period_head_harness(directory):
     return types.SimpleNamespace(
         launch=lib.period_head_host,
         launch_reversed=lib.period_head_host_reversed,
+        plan=lib.period_plan_host, plan_reversed=lib.period_plan_host_reversed,
         layout=lib.period_head_layout, slot_values=lib.period_head_slot_values,
         warps_per_block=lib.period_head_warps_per_block)
 
