@@ -9,11 +9,13 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
 
   1. device   card name and power limit (nvidia-smi), torch/CUDA versions,
               the asserted full-f32 matmul settings
-  2. build    builds the thirteen kernel libraries (nineteen kernels: kernel
-              A is admm_fused.cu's second entry point, the planner's four
-              kernels are planner.cu's, the solve tail's three
-              solve_tail.cu's) from mpctsid_tpu_torch/qp/csrc, dyn/csrc,
-              plan/csrc and mpc/csrc, one nvcc each, all started together
+  2. build    builds the fourteen kernel libraries (twenty-two kernels:
+              kernel A is admm_fused.cu's second entry point, the planner's
+              four kernels are planner.cu's, the solve tail's three
+              solve_tail.cu's, the period plan period_head.cu's second and
+              the estimator's update est_step.cu's second) from
+              mpctsid_tpu_torch/qp/csrc, dyn/csrc, plan/csrc and mpc/csrc,
+              one nvcc each, all started together
   3. kernels  each kernel against its plain PyTorch version on the card, same
               inputs (numpy seed), then its time, the plain version's time
               and the card's bound at the main path's shape:
@@ -159,6 +161,19 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  each launch's geometry the layout function's; two
                  launches bit for bit; times (graph replay, eager, the
                  plain chain eager and as a graph) beside the bounds
+              3j the estimator's tick (dyn/csrc/est_step.cu: a warp per
+                 scenario over rbd.h's leg kinematics and integration
+                 step; est_step, the plant's IMU model and the update, and
+                 est_update, the update alone) against
+                 estimator_tick_reference / estimator_update_reference at
+                 B = 1, 256 and 4096, float32 and float64, with and
+                 without the position hint (1e-5 / 1e-12 of each output's
+                 largest entry), the contact patterns in turn, two
+                 accelerometer readings at and under 1e-6; 60 chained ticks
+                 on recorded plant states at B = 256 (1e-4 / 1e-11); the
+                 layout rbd_layout's; two launches bit for bit; times
+                 (graph replay, eager, the plain chain eager and as a
+                 graph) beside the launch floor and the bound
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -178,7 +193,8 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               swing_reference_at (the host path's, one tick) never on this
               path); then
               the same preset on the ESTIMATED state (complementary filter in
-              the loop, hint-free) with both QP stages on the tensor-core
+              the loop, hint-free; its tick, est_step, once a WBC tick, its
+              update alone never) with both QP stages on the tensor-core
               kernel
   5. backends kernel on the path against plain on the path, B=256: the MPC
               backends "m2" and "torch" over two periods; each WBC backend,
@@ -298,7 +314,10 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
               4's) and graphed, median of 3, each ended by a synchronize,
               the idle share of a graphed period, the capture seconds and
               the pool's bytes; 12d the default and the fused WBC at B = 1
-              and B = 256: eager and graphed period times, the state after
+              and B = 256, and the estimator's period at B = 1 on the
+              default backends (its kernels in one replay, the most of
+              three profiled windows: the estimator's tick once a WBC
+              tick): eager and graphed period times, the state after
               3 replayed periods against eager
   13. bench   the port's bench (mpctsid_tpu_torch/bench.py, every timed
               rollout on graphs) into a temporary --out: 13a the headline
@@ -353,6 +372,7 @@ from mpctsid_tpu_torch.entry import dryrun_multichip, entry
 from mpctsid_tpu_torch.env.plant import (ContactParams, PlantState,
                                          contact_margins, plant_step,
                                          plant_step_reference)
+import mpctsid_tpu_torch.est.filter as est_mod
 from mpctsid_tpu_torch.est.filter import EstimatorState, estimator_init
 from mpctsid_tpu_torch.host import HostController
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS, GAITS
@@ -477,7 +497,7 @@ HOST_BACKENDS = (("auto_mpc", "xla"), ("auto_mpc", "vpu"),
 # spd_newton_select_kernel, once per call: the prefix counts calls; the
 # swing reference over a period and at a tick are one kernel; the period
 # head and the period plan are two entry points of one body, told apart
-# by their names)
+# by their names, as are the estimator's tick and update)
 KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "admm_iterate_vpu": "admm_vpu_",
                  "admm_iterate_vpu_packed": "admm_packed_",
@@ -498,7 +518,9 @@ KERNEL_PREFIX = {"admm_iterate_m2": "admm_m2_",
                  "period_plan": "period_plan_kernel",
                  "kkt_blocks": "tail_kkt_kernel",
                  "adapt_rho": "tail_adapt_kernel",
-                 "unscale": "tail_unscale_kernel"}
+                 "unscale": "tail_unscale_kernel",
+                 "est_step": "est_step_kernel",
+                 "est_update": "est_update_kernel"}
 SHARD_B = 1024             # phase 10: scenarios of the one-rank NCCL rollout
 # Phase 11, the contract against the float64 oracle (mpctsid_tpu_torch/
 # oracle/).  Torques of the in-loop float32 WBC against the oracle, Nm
@@ -2738,6 +2760,213 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
               flush=True)
 
 
+# ------------------------------- 3j. the estimator's tick as a kernel
+
+# est_step (the IMU model and the update) and est_update (the update alone)
+# against estimator_tick_reference / estimator_update_reference: rbd.h's
+# rotations and the CUDA math library's sin, cos and sqrt where the plain
+# version calls torch.matmul and PyTorch's: each output within 1e-5
+# (float32) / 1e-12 (float64) of its largest entry after one tick (the
+# period head's tolerances; the CPU's host build: the plain chain's bits),
+# 1e-4 / 1e-11 after 60 chained ticks on recorded plant states.
+EST_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
+EST_CHAIN_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
+EST_B = (1, 256, 4096)
+EST_CHAIN_B = 256
+EST_CHAIN_TICKS = 60
+# the contact patterns the scenarios take in turn: none in stance, all, the
+# trot pairs, a single foot
+EST_CONTACTS = ((0, 0, 0, 0), (1, 1, 1, 1), (1, 0, 0, 1), (0, 1, 1, 0),
+                (1, 0, 0, 0), (0, 0, 1, 0))
+# phase 12's estimator replay (B = 4096, kernel 5 on both QP stages):
+# 14,221 kernels on an H100 with the estimator as its plain chain (about
+# 630 kernels a tick); the tick one launch in its place
+EST_REPLAY_NODES = 1650
+
+
+def est_inputs(B: int, seed: int, dtype, device) -> dict:
+    """The estimator's inputs: a plant near standing with any yaw (q_plant,
+    v_plant), an estimate a little off it, the contact patterns in turn,
+    IMU readings for the update (the last two scenarios' accelerometer at
+    and under 1e-6: the tilt gain 0), the joints, a position hint."""
+    r = np.random.default_rng(seed)
+    q, v = random_states(r, B, 0.3)
+    yaw = r.uniform(-np.pi, np.pi, B)
+    cz, sz = np.cos(yaw / 2), np.sin(yaw / 2)
+    x, y, z, w = q[:, 3:7].T
+    q[:, 3:7] = np.stack([cz * x - sz * y, cz * y + sz * x,
+                          cz * z + sz * w, cz * w - sz * z], 1)
+    qe, ve = random_states(r, B, 0.1)
+    qe[:, 0:3] = q[:, 0:3] + r.normal(size=(B, 3)) * 0.01
+    accel = np.array([0.0, 0.0, 9.81]) + r.normal(size=(B, 3)) * 0.5
+    accel[-1] = 0.0
+    if B > 1:
+        accel[-2] = [0.0, 6e-7, 8e-7]
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return dict(q_p=t(q), v_p=t(v),
+                est=EstimatorState(q=t(qe), v=t(ve)),
+                c=t(np.array([EST_CONTACTS[i % len(EST_CONTACTS)]
+                              for i in range(B)], np.float64)),
+                gyro=t(r.normal(size=(B, 3)) * 0.2), accel=t(accel),
+                qj=t(SOLO12.q_stand + r.normal(size=(B, 12)) * 0.1),
+                qdj=t(r.normal(size=(B, 12)) * 0.5),
+                hint=t(r.normal(size=(B, 3)) * 0.05))
+
+
+def est_step_bound_ms(B: int, dtype=torch.float32, update: bool = False,
+                      hint: bool = False):
+    """The values est_step.h reads a scenario: the estimate's base pose
+    est.q[0:7] and linear velocity est.v[0:3] (10), the joints' positions
+    and rates (24), the contacts (4), the gyro (3); the tick the plant's
+    quaternion q_plant[3:7] (4, its IMU model; 45 in all), the update the
+    accelerometer (3; 44); the hint's x and y (2) where it is given.  Both
+    write q' and v' (37).  About 2,000 operations a scenario: two
+    integration steps (125 each), two more rotations from quaternions (47
+    each; the tick's IMU model a third), the four legs' kinematics (225
+    each, one rotation of the base between them) and residual velocities
+    (160 each), the fusion (100)."""
+    floats = B * ((44 if update else 45) + (2 if hint else 0) + 37)
+    if dtype == torch.float64:
+        return bound_ms(2 * floats, B * 2000.0, F64_FLOP_PER_S)
+    return bound_ms(floats, B * 2000.0)
+
+
+def recorded_plant(tree, B: int, ticks: int, dtype, device) -> list:
+    """`ticks` plant states of B scenarios from standing: the plant step
+    under a joint PD law toward the standing posture plus a random offset
+    per scenario (the estimator's open-loop inputs)."""
+    plant = PlantState.init(standing(B), device=device, dtype=dtype)
+    cp = ContactParams.default(B, device=device, dtype=dtype)
+    r = np.random.default_rng(5)
+    target = torch.tensor(SOLO12.q_stand + r.normal(size=(B, 12)) * 0.15,
+                          dtype=dtype, device=device)
+    states = []
+    for _ in range(ticks):
+        tau = torch.clamp(3.0 * (target - plant.q[:, 7:])
+                          - 0.1 * plant.v[:, 6:], -2.5, 2.5)
+        plant, _ = plant_step(tree, plant, tau, dt=0.001, params=cp)
+        states.append((plant.q, plant.v))
+    return states
+
+
+def est_phase(smi: str, device, reports: dict) -> None:
+    """3j: est_step and est_update against their plain versions at B = 1,
+    256 and 4096 in both dtypes, with and without the hint, two launches
+    bit for bit, the layout rbd_layout's; 60 chained ticks at B = 256;
+    times (a one-launch graph's replay, the eager wrapper, the plain chain
+    eager and as a graph, the launch floor) beside the bounds."""
+    tree = CascadeConfigured(SOLO12, EngineConfig()).tree
+    rep = {k: dict(err=0.0, times={}) for k in ("est_step", "est_update")}
+    for B in EST_B:
+        for dtype in (torch.float32, torch.float64):
+            d = est_inputs(B, 110 + B, dtype, device)
+            calls = {
+                "est_step": (
+                    lambda h: est_mod.estimator_tick(
+                        tree, d["est"], d["q_p"], d["v_p"], d["c"],
+                        base_pos_hint=h),
+                    lambda h: est_mod.estimator_tick_reference(
+                        tree, d["est"], d["q_p"], d["v_p"], d["c"],
+                        base_pos_hint=h),
+                    d["q_p"][:, 0:3]),
+                "est_update": (
+                    lambda h: est_mod.estimator_update(
+                        tree, d["est"], d["gyro"], d["accel"], d["qj"],
+                        d["qdj"], d["c"], base_pos_hint=h),
+                    lambda h: est_mod.estimator_update_reference(
+                        tree, d["est"], d["gyro"], d["accel"], d["qj"],
+                        d["qdj"], d["c"], base_pos_hint=h),
+                    d["hint"])}
+            for name, (call, plain, hint) in calls.items():
+                rels, abss, ok = [], [], True
+                for h in (None, hint):
+                    got, again = call(h), call(h)
+                    lay = rbd_kernels.last_layout("est_step")
+                    want = plain(h)
+                    for g, w in ((got.q, want.q), (got.v, want.v)):
+                        rel, ab = rbd_rel_err(g, w)
+                        rels.append(rel)
+                        abss.append(ab)
+                        ok &= g.shape == w.shape and g.dtype == w.dtype
+                    ok &= (all_finite((got.q, got.v))
+                           and torch.equal(got.q, again.q)
+                           and torch.equal(got.v, again.v)
+                           and rbd_layout_ok("est_step", B, dtype, device))
+                    if h is not None:
+                        ok &= torch.equal(got.q[:, 0:2], h[:, 0:2])
+                    if name == "est_step":
+                        ok &= (torch.equal(got.v[:, 3:], d["v_p"][:, 3:])
+                               and torch.equal(got.q[:, 7:],
+                                               d["q_p"][:, 7:]))
+                check(ok and max(rels) <= EST_REL[dtype],
+                      f"3j: {name} B={B} {str(dtype)[6:]}: within "
+                      f"{EST_REL[dtype]:g} of the plain version (each "
+                      "output's largest entry), with and without the hint, "
+                      "two launches bit for bit, the layout rbd_layout's")
+                print(f"  {name} B={B} {str(dtype)[6:]} ({lay.warps} warps "
+                      f"a block, {lay.blocks} blocks, {lay.smem_bytes} "
+                      f"shared bytes a block): rel {max(rels):.3e}, abs "
+                      f"{max(abss):.3e}", flush=True)
+                if dtype != torch.float32:
+                    continue
+                rep[name]["err"] = max(rep[name]["err"], max(abss))
+                fn, ref = (lambda: call(None)), (lambda: plain(None))
+                ms, eager = graph_ms(fn, reps=20), time_ms(fn, 2, 10)
+                plain_ms, plain_g = time_ms(ref, 1, 3), graph_ms(ref, reps=5)
+                floor = launch_floor_ms()
+                bound = est_step_bound_ms(B, update=name == "est_update")
+                rep[name]["times"][f"B={B}"] = (ms, eager, plain_ms, plain_g,
+                                                bound, floor)
+                report_times(name, f"B={B} (graph replay; eager wrapper "
+                             f"{eager:.4f} ms; plain chain as a graph "
+                             f"{plain_g:.4f} ms; launch floor {floor:.4f} "
+                             "ms)", ms, plain_ms, bound, smi)
+            del d, calls
+    # 60 chained ticks on recorded plant states, each side its own estimate
+    for dtype in (torch.float32, torch.float64):
+        B = EST_CHAIN_B
+        states = recorded_plant(tree, B, EST_CHAIN_TICKS, dtype, device)
+        c = torch.tensor([EST_CONTACTS[i % len(EST_CONTACTS)]
+                          for i in range(B)], dtype=dtype, device=device)
+        est = est_mod.estimator_init(standing(B), device=device, dtype=dtype)
+        ref, worst = est, 0.0
+        for q_p, v_p in states:
+            est = est_mod.estimator_tick(tree, est, q_p, v_p, c)
+            ref = est_mod.estimator_tick_reference(tree, ref, q_p, v_p, c)
+            worst = max(worst, rbd_rel_err(est.q, ref.q)[0],
+                        rbd_rel_err(est.v, ref.v)[0])
+        check(worst <= EST_CHAIN_REL[dtype] and all_finite((est.q, est.v)),
+              f"3j: est_step, {EST_CHAIN_TICKS} chained ticks at B={B} "
+              f"{str(dtype)[6:]}: within {EST_CHAIN_REL[dtype]:g} of the "
+              "plain chain at every tick")
+        print(f"  est_step {EST_CHAIN_TICKS} chained ticks B={B} "
+              f"{str(dtype)[6:]}: largest rel {worst:.3e}", flush=True)
+    Bt = max(EST_B)
+    replaces = {"est_step": "mpctsid_tpu/est/filter.py:101",
+                "est_update": "mpctsid_tpu/est/filter.py:38"}
+    what = {"est_step": "imu_from_plant (:101) and estimator_update (:38)",
+            "est_update": "estimator_update"}
+    for name, r in rep.items():
+        ms, eager, plain_ms, plain_g, bound, floor = r["times"][f"B={Bt}"]
+        reports[name] = dict(
+            source="mpctsid_tpu_torch/dyn/csrc/est_step.cu",
+            replaces=replaces[name], max_abs_err=r["err"], ms=ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+            library_ms=None, ms_eager=eager, plain_graph_ms=plain_g,
+            floor_ms=floor,
+            times={k: dict(ms=v[0], ms_eager=v[1], plain_ms=v[2],
+                           plain_graph_ms=v[3], bound_ms=v[4][0],
+                           bound_by=v[4][1], floor_ms=v[5])
+                   for k, v in r["times"].items()})
+        print(f"  {name}: replaces {replaces[name]}, {what[name]} (XLA's "
+              "ops; no TPU kernel), source mpctsid_tpu_torch/dyn/csrc/"
+              f"est_step.cu, library call none; B={Bt} {ms:.4f} ms (graph "
+              f"replay) / {eager:.4f} ms (eager), floor {floor:.4f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]}, plain "
+              f"{plain_ms:.3f} ms ({plain_g:.4f} as a graph)  [{smi}]",
+              flush=True)
+
+
 # ---------------------------------------------------------------- main path
 
 COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
@@ -2760,7 +2989,9 @@ COUNTED = {"admm_iterate_m2": kernels.admm_iterate_m2,
            "period_plan": engine.period_plan,
            "kkt_blocks": kernels_tail.kkt_blocks,
            "adapt_rho": kernels_tail.adapt_rho,
-           "unscale": kernels_tail.unscale}
+           "unscale": kernels_tail.unscale,
+           "est_step": est_mod.estimator_tick,
+           "est_update": est_mod.estimator_update}
 
 
 def reset_launch_counts() -> None:
@@ -2786,7 +3017,7 @@ MPC_KERNEL_OF = {"auto_mpc": "admm_iterate_m2", "m2": "admm_iterate_m2",
 
 
 def expected_launches(cfg, periods: int, wbc_backend: str,
-                      mpc_backend: str = None):
+                      mpc_backend: str = None, use_estimator: bool = False):
     """(the kernel this rollout is there to count, every kernel's expected
     launches): the MPC's iteration kernel, kernel B (its K^-1) and K from
     the declared blocks (kkt_blocks) once per MPC adapt round, the rho
@@ -2797,10 +3028,11 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     (kernel A on the default backend, kernel 4 on `fused`) once per WBC
     tick; a WBC iteration kernel and kernel B once per WBC adapt round, the
     rho adaptation between them and Ruiz once per tick; the WBC build, the
-    plant step and the epilogue once per tick, whatever the backends
+    plant step and the epilogue once per tick, whatever the backends; the
+    estimator's tick (est_step) once per tick where `use_estimator`
     (swing_foot_ref's kernel, the footstep kernel and the period head
-    alone, and the swing reference at one tick, the host path's, are off
-    this path: never)."""
+    alone, the swing reference at one tick, the host path's, and the
+    estimator's update alone are off this path: never)."""
     expect = dict.fromkeys(COUNTED, 0)
     mpc_kernel = MPC_KERNEL_OF[mpc_backend or cfg.solver.mpc_backend]
     rounds = cfg.solver.mpc_adapt_rounds
@@ -2815,6 +3047,7 @@ def expected_launches(cfg, periods: int, wbc_backend: str,
     ticks = periods * cfg.cascade.mpc_every
     expect["wbc_build"] = expect["plant_step"] = ticks
     expect["unscale"] += ticks
+    expect["est_step"] = ticks if use_estimator else 0
     counted = WBC_KERNEL_OF[wbc_backend]
     if wbc_backend in WHOLE_SOLVE:
         expect[counted] += ticks
@@ -4365,10 +4598,12 @@ def timed_ms(fn, reps: int = GRAPH_TIMED) -> list:
     return [timed(fn)[1] * 1e3 for _ in range(reps)]
 
 
-def expected_per_replay(cfg, wbc_backend, mpc_backend=None) -> dict:
+def expected_per_replay(cfg, wbc_backend, mpc_backend=None,
+                        use_estimator: bool = False) -> dict:
     """{kernel prefix: launches} of one period of this configuration (the
     launches of wrappers of one kernel added up)."""
-    per = expected_launches(cfg, 1, wbc_backend, mpc_backend)[1]
+    per = expected_launches(cfg, 1, wbc_backend, mpc_backend,
+                            use_estimator)[1]
     want = dict.fromkeys(KERNEL_PREFIX.values(), 0)
     for name, n in per.items():
         want[KERNEL_PREFIX[name]] += n
@@ -4391,7 +4626,8 @@ def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
                            **rec.solver_kw)
     at_capture = launch_counts()
     per_period = expected_launches(cfg, 1, rec.solver_kw["wbc_backend"],
-                                   rec.solver_kw["mpc_backend"])[1]
+                                   rec.solver_kw["mpc_backend"],
+                                   rec.use_estimator)[1]
     check(at_capture == {k: 2 * n for k, n in per_period.items()},
           f"12, {tag}: launch counters moved by two periods' launches (the "
           "warm-up and the capture)")
@@ -4434,7 +4670,8 @@ def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
     counts, nodes, port_ms, busy_ms, copies = kernels_per_replay(
         lambda: runner(rec.v), replays=3)
     want = expected_per_replay(cfg, rec.solver_kw["wbc_backend"],
-                               rec.solver_kw["mpc_backend"])
+                               rec.solver_kw["mpc_backend"],
+                               rec.use_estimator)
     # 12c: times, each ended by a synchronize
     graph_ms = timed_ms(lambda: runner(rec.v))
     eager_ms = [w * 1e3 for w in rec.walls]
@@ -4453,43 +4690,79 @@ def graphed_period(rec: EagerRecord, cfg, smi: str, device) -> dict:
           f"period {1.0 - busy_ms / g_med:.4f}  [{smi}]", flush=True)
     check(counts == want, f"12, {tag}: one replay launches {want}, an "
                           "eager period's launches")
+    if rec.use_estimator:
+        check(nodes <= EST_REPLAY_NODES,
+              f"12, {tag}: one replay holds at most {EST_REPLAY_NODES} "
+              "kernels (the estimator's tick one launch)")
     runner = None
     clear_runners()
     torch.cuda.empty_cache()
     return counts
 
 
-def graphed_times(cfg, B: int, wbc_backend: str, smi: str, device) -> None:
+def graphed_times(cfg, B: int, wbc_backend: str, smi: str, device,
+                  use_estimator: bool = False) -> None:
     """12d: eager and graphed period wall times at batch B (median of
     GRAPH_TIMED, each ended by a synchronize), and the chained final state
-    held against eager."""
+    held against eager.  With `use_estimator` the controller runs on the
+    estimate, and the kernels of one replay are counted (the most of
+    INSPECT_WINDOWS profiled windows of three replays: the estimator's tick
+    once a WBC tick)."""
     cc, ctl, plant, gid, v, cp = make_scenarios(cfg, B, seed=4,
                                                 device=device)
     gid_t = torch.as_tensor(gid).to(device)
     v_t = torch.as_tensor(v).to(device)
-    eager_ms, c, p = [], ctl, plant
+    est = estimator_init(standing(B), device=device) if use_estimator \
+        else None
+    eager_ms, c, p, e = [], ctl, plant, est
     for _ in range(GRAPH_TIMED):
-        (c, p, _), wall = timed(lambda: cascade_rollout(
-            cc, c, p, gid, v, cp, n_periods=1, device=device,
-            wbc_backend=wbc_backend))
+        if use_estimator:
+            # cascade_rollout hands back no estimate: the period itself
+            (c, p, e, _), wall = timed(lambda: engine.cascade_period(
+                cc, c, p, gid_t, v_t, cp, est=e, use_estimator=True,
+                wbc_backend=wbc_backend))
+        else:
+            (c, p, _), wall = timed(lambda: cascade_rollout(
+                cc, c, p, gid, v, cp, n_periods=1, device=device,
+                wbc_backend=wbc_backend))
         eager_ms.append(wall * 1e3)
     clear_runners()
     torch.cuda.empty_cache()
-    runner = period_runner(cc, ctl, plant, gid_t, cp, device=device,
+    runner = period_runner(cc, ctl, plant, gid_t, cp, est=est,
+                           use_estimator=use_estimator, device=device,
                            wbc_backend=wbc_backend)
-    runner.load(ctl, plant, gid_t, cp)
+    runner.load(ctl, plant, gid_t, cp, est=est)
     graph_ms = timed_ms(lambda: runner(v_t))
-    c_g, p_g, _ = runner.state()
-    d, bits = bit_diff(flat_state(c_g, p_g), flat_state(c, p))
-    print(f"  B={B}, wbc_backend={wbc_backend}: period wall ms, median of "
+    c_g, p_g, e_g = runner.state()
+    d, bits = bit_diff(flat_state(c_g, p_g, e_g), flat_state(c, p, e))
+    tag = f"B={B}, wbc_backend={wbc_backend}" + (
+        ", estimator in the loop" if use_estimator else "")
+    print(f"  {tag}: period wall ms, median of "
           f"{GRAPH_TIMED}: eager {float(np.median(eager_ms)):.3f} "
           f"({eager_ms}), graphed {float(np.median(graph_ms)):.3f} "
           f"({graph_ms}); capture {runner.call.capture_seconds:.2f} s, pool "
           f"{runner.call.pool_bytes / 2**30:.3f} GiB; after {GRAPH_TIMED} "
           f"periods max |graph - eager| {d:.3e}, bit for bit {bits}  "
           f"[{smi}]", flush=True)
-    check(d <= GRAPH_TOL, f"12d, B={B}, {wbc_backend}: {GRAPH_TIMED} "
-                          f"replayed periods within {GRAPH_TOL} of eager")
+    check(d <= GRAPH_TOL, f"12d, {tag}: {GRAPH_TIMED} replayed periods "
+                          f"within {GRAPH_TOL} of eager")
+    if use_estimator:
+        counts, nodes = dict.fromkeys(KERNEL_PREFIX.values(), 0), 0
+        for _ in range(INSPECT_WINDOWS):
+            got, n, _, busy, _ = kernels_per_replay(lambda: runner(v_t),
+                                                    replays=3)
+            counts = {k: max(counts[k], got[k]) for k in counts}
+            nodes = max(nodes, n)
+        ticks = cfg.cascade.mpc_every
+        print(f"    one replay: {nodes} kernels (the most of "
+              f"{INSPECT_WINDOWS} windows), the estimator's tick "
+              f"{counts[KERNEL_PREFIX['est_step']]} times, its update "
+              f"{counts[KERNEL_PREFIX['est_update']]}; device busy "
+              f"{busy:.3f} ms", flush=True)
+        check(counts[KERNEL_PREFIX["est_step"]] == ticks
+              and counts[KERNEL_PREFIX["est_update"]] == 0,
+              f"12d, {tag}: the estimator's tick {ticks} times in one "
+              "replay, its update alone never")
     runner = None
     clear_runners()
     torch.cuda.empty_cache()
@@ -5001,6 +5274,12 @@ def main() -> int:
     head_tail_phase(smi, device, reports)
     torch.cuda.empty_cache()
 
+    # ---- 3j. the estimator's tick vs plain ---------------------------------
+    print("== 3j. the estimator's tick (est_step) and update (est_update) "
+          "vs their plain versions", flush=True)
+    est_phase(smi, device, reports)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path at full size, each WBC backend --------------------
     print("== 4. main path: cascade_rollout, preset config4_cascade_4k",
           flush=True)
@@ -5040,10 +5319,15 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the estimator-in-the-loop path, both QP stages on kernel 5
     counted, expect = expected_launches(cfg, ROLLOUT_PERIODS, "pallas",
-                                        mpc_backend="pallas")
+                                        mpc_backend="pallas",
+                                        use_estimator=True)
     counts, rec = full_width_rollout(cfg, "pallas", expect, smi, device,
                                      mpc_backend="pallas", use_estimator=True)
     path_launches[counted] = counts[counted]
+    # the estimator's tick: one launch a tick on this path (its update
+    # alone, est_update, the second entry point: off every path)
+    path_launches["est_step"] = counts["est_step"]
+    off_path["est_update"] = counts["est_update"]
     records.append((counted, rec))
     del rec
     torch.cuda.empty_cache()
@@ -5273,17 +5557,25 @@ def main() -> int:
                      "ruiz_equilibrate", "build_mpc_qp", "period_head",
                      "period_plan", "kkt_blocks", "adapt_rho", "unscale"):
             graph_launches.setdefault(name, counts[KERNEL_PREFIX[name]])
+        if rec.use_estimator:
+            # the estimator's kernels, from the configuration that runs it
+            for name in ("est_step", "est_update"):
+                graph_launches[name] = counts[KERNEL_PREFIX[name]]
     del records, rec
     torch.cuda.empty_cache()
     for name, count in graph_launches.items():
         reports[name]["launches_per_captured_period"] = count
-    print("== 12d. eager and graphed period times at B = 1 and B = 256",
+    print("== 12d. eager and graphed period times at B = 1 and B = 256; "
+          "the estimator's period at B = 1 on the default backends",
           flush=True)
     for B_, preset in ((1, "config1_trot_single"),
                        (256, "config2_gait_sweep")):
         pcfg = PRESETS[preset]
         for wbc_backend in (pcfg.solver.wbc_backend, "fused"):
             graphed_times(pcfg, B_, wbc_backend, smi, device)
+    pcfg = PRESETS["config1_trot_single"]
+    graphed_times(pcfg, 1, pcfg.solver.wbc_backend, smi, device,
+                  use_estimator=True)
     print(f"  phase 12 took {time.time() - t_graph:.1f} s", flush=True)
 
     # ---- 13. the port's bench ------------------------------------------------

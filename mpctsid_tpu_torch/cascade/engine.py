@@ -16,9 +16,9 @@ on the host, and the metrics stay on the device until the caller fetches
 them.
 
 With `use_estimator=True` the controller consumes the complementary-filter
-estimate (est/filter.py), fed by the plant's IMU and encoders every tick,
-instead of the plant's true state; the actuator law and the plant keep the
-truth.
+estimate (est/filter.py::estimator_tick), fed by the plant's IMU and
+encoders every tick, instead of the plant's true state; the actuator law and
+the plant keep the truth.
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import torch
 from mpctsid_tpu_torch import dyn
 from mpctsid_tpu_torch.config import CascadeConfig, EngineConfig
 from mpctsid_tpu_torch.env.plant import ContactParams, PlantState, plant_step
-from mpctsid_tpu_torch.est.filter import estimator_update, imu_from_plant
+from mpctsid_tpu_torch.est.filter import estimator_tick
 from mpctsid_tpu_torch.model.solo12 import Solo12Model
 from mpctsid_tpu_torch.model.tree import KinematicTree, build_tree
 from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,
@@ -420,10 +420,10 @@ def cascade_period(cc: CascadeConfigured, ctl: ControllerState,
     wbc_ok_sum = plant.q.new_zeros((B,))
     for t in range(mpc_every):
         if use_estimator:
-            gyro, accel = imu_from_plant(tree, plant.q, plant.v)
-            est = estimator_update(
-                tree, est, gyro, accel, plant.q[:, 7:], plant.v[:, 6:],
-                contacts, dt=wbc_dt,
+            # the plant's IMU and encoders into the filter (one launch on
+            # the card)
+            est = estimator_tick(
+                tree, est, plant.q, plant.v, contacts, dt=wbc_dt,
                 base_pos_hint=plant.q[:, 0:3] if est_mocap else None)
             q_t, v_t = est.q, est.v
         else:

@@ -1367,34 +1367,44 @@ RBD_FN void clamp_unit(int lane, PlantSlot<T>& S)
     S.f_cl[3 * leg + 2] = fz * inc;
 }
 
-// lane 0: the base's position and orientation over dt (integrate_q's local
-// convention); lanes 1-12: the joints; lanes 0-17: v; lanes 0-3: contacts
+// the base's position and orientation q[0:7] over dt, in place, from the
+// base's velocity v[0:6] (integrate_q's local convention): the plant's
+// integration (lane 0 of `integrate_unit`) and the estimator's attitude
+// steps (est_step.h)
+template <typename T>
+RBD_FN void integrate_base(const T* v, T dt, T* q)
+{
+    T R0[9], d[3];
+    quat_to_rot(q + 3, R0);
+    mv3(R0, v, d);
+    const T w[3] = {v[3] * dt, v[4] * dt, v[5] * dt};
+    const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+    const T th = r_sqrt(th2 + T(1e-30));
+    T sh, ch;
+    r_sincos(th / T(2), &sh, &ch);
+    const T sinc_half = th < T(1e-8) ? T(0.5) - th2 / T(48) : sh / th;
+    const T x2 = w[0] * sinc_half, y2 = w[1] * sinc_half,
+            z2 = w[2] * sinc_half, w2 = ch;
+    const T x1 = q[3], y1 = q[4], z1 = q[5], w1 = q[6];
+    const T quat[4] = {w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                       w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                       w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+                       w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2};
+    const T nrm = r_sqrt(quat[0] * quat[0] + quat[1] * quat[1]
+                         + quat[2] * quat[2] + quat[3] * quat[3]);
+    for (int i = 0; i < 3; ++i) q[i] = q[i] + d[i] * dt;
+    for (int i = 0; i < 4; ++i) q[3 + i] = quat[i] / nrm;
+}
+
+// lane 0: the base's position and orientation over dt (`integrate_base`);
+// lanes 1-12: the joints; lanes 0-17: v; lanes 0-3: contacts
 template <typename T>
 RBD_FN void integrate_unit(int lane, T dt, PlantSlot<T>& S)
 {
     const T* v = S.vi;
     T* q = S.q;
     if (lane == 0) {
-        T R0[9], d[3];
-        quat_to_rot(q + 3, R0);
-        mv3(R0, v, d);
-        const T w[3] = {v[3] * dt, v[4] * dt, v[5] * dt};
-        const T th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-        const T th = r_sqrt(th2 + T(1e-30));
-        T sh, ch;
-        r_sincos(th / T(2), &sh, &ch);
-        const T sinc_half = th < T(1e-8) ? T(0.5) - th2 / T(48) : sh / th;
-        const T x2 = w[0] * sinc_half, y2 = w[1] * sinc_half,
-                z2 = w[2] * sinc_half, w2 = ch;
-        const T x1 = q[3], y1 = q[4], z1 = q[5], w1 = q[6];
-        const T quat[4] = {w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-                           w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-                           w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
-                           w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2};
-        const T nrm = r_sqrt(quat[0] * quat[0] + quat[1] * quat[1]
-                             + quat[2] * quat[2] + quat[3] * quat[3]);
-        for (int i = 0; i < 3; ++i) q[i] = q[i] + d[i] * dt;
-        for (int i = 0; i < 4; ++i) q[3 + i] = quat[i] / nrm;
+        integrate_base(v, dt, q);
     } else if (lane <= 12) {
         q[6 + lane] = q[6 + lane] + v[5 + lane] * dt;
     }

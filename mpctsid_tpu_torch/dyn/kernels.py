@@ -1,4 +1,4 @@
-"""The launch and operand machinery of the two hand-written kernels built
+"""The launch and operand machinery of the hand-written kernels built
 over the rigid-body core dyn/csrc/rbd.h.
 
 rbd.h holds the per-scenario arithmetic (leg kinematics once per
@@ -16,7 +16,12 @@ of each kernel; the .cu files under dyn/csrc/ map a warp to its scenario,
     wrapped by cascade/engine.py::period_head; its second entry point
     `period_plan`, the same and the footstep horizon (plan/csrc/planner.h's
     units) and the touchdown select in one launch, wrapped by
-    cascade/engine.py::period_plan.
+    cascade/engine.py::period_plan;
+  * `est_step` (est_step.cu over est_step.h): the state estimator's tick,
+    the plant's IMU model and one complementary-filter update, wrapped by
+    est/filter.py::estimator_tick; its second entry point `est_update`,
+    the update with the IMU's readings given, wrapped by
+    est/filter.py::estimator_update.
 
 Each stage owns its wrapper, its plain PyTorch version and its constants;
 this module knows only the kernels' common C signature:
@@ -52,7 +57,7 @@ from mpctsid_tpu_torch.utils import device_constant
 
 __all__ = ["rbd_constants", "rows", "check_batch", "call", "launch",
            "build_specs", "rbd_layout", "last_layout", "RbdLayout",
-           "LIBRARIES", "LAYOUT", "HEAD_LAYOUT", "LAYOUTS",
+           "LIBRARIES", "LAYOUT", "HEAD_LAYOUT", "EST_LAYOUT", "LAYOUTS",
            "SLOT_VALUES", "MAX_WARPS", "ENTRIES",
            "LAUNCH_ARGTYPES", "CSRC"]
 
@@ -65,12 +70,15 @@ LIBRARIES = {
     "plant_step": (("plant_step.cu",), ("rbd.h",)),
     "period_head": (("period_head.cu",),
                     ("rbd.h", "period_head.h", "../../plan/csrc/planner.h")),
+    "est_step": (("est_step.cu",), ("rbd.h", "est_step.h")),
 }
 # the entry points of a library that has more than its name's
-ENTRIES = {"period_head": ("period_head", "period_plan")}
-# nvcc flags after qp/_build.py's common ones: the period head contracts no
-# product and sum that its plain version rounds apart
-FLAGS = {"period_head": ("-fmad=false",)}
+ENTRIES = {"period_head": ("period_head", "period_plan"),
+           "est_step": ("est_step", "est_update")}
+# nvcc flags after qp/_build.py's common ones: the period head and the
+# estimator contract no product and sum that their plain versions round
+# apart
+FLAGS = {"period_head": ("-fmad=false",), "est_step": ("-fmad=false",)}
 
 # rbd.h's counts, in the order of its enum Layout: the constants' size and
 # the number of inputs, outputs and parameters of each kernel.  The
@@ -83,16 +91,25 @@ LAYOUT = dict(const_size=196, wbc_in=11, wbc_out=8, wbc_par=19, plant_in=11,
 # and planner.h's 19 FootPar values)
 HEAD_LAYOUT = dict(head_in=6, head_out=5, head_par=2, plan_in=4, plan_out=3,
                    plan_par=20)
+# est_step.h's counts after rbd.h's (`rbd::est::layout`): its inputs
+# (the estimate, the IMU's readings, the joints, contacts, the hint, the
+# plant's configuration), outputs (q', v') and parameters (dt, the gains
+# and their complements, the hint flag)
+EST_LAYOUT = dict(est_in=9, est_out=2, est_par=7)
 # the counts each library reports, in the order of its `_layout(i)`
 LAYOUTS = {"wbc_build": LAYOUT, "plant_step": LAYOUT,
-           "period_head": {**LAYOUT, **HEAD_LAYOUT}}
+           "period_head": {**LAYOUT, **HEAD_LAYOUT},
+           "est_step": {**LAYOUT, **EST_LAYOUT}}
 
 # values (floats or doubles) of a warp's slice of shared memory: rbd.h's
 # WbcSlot and PlantSlot, period_head.h's HeadSlot (the plan's 16 staged
 # steps, the leg kinematics, x_srb, v_used, the feet and the next
-# touchdown; the head alone uses the same slot).  The libraries report
-# theirs (`<name>_slot_values`) and are refused if they differ.
-SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 507}
+# touchdown; the head alone uses the same slot), est_step.h's EstSlot (the
+# leg kinematics, the corrected configuration, the IMU's readings, the
+# feet's odometry terms and heights, the fused velocity).  The libraries
+# report theirs (`<name>_slot_values`) and are refused if they differ.
+SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 507,
+               "est_step": 320}
 MAX_WARPS = 8           # rbd.h's MAX_WARPS: scenarios (warps) a block
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}

@@ -8,6 +8,13 @@ new state and never writes into the one it was given.  Inputs are the plant's
 sensor model: gyro / accel (`imu_from_plant`), joint encoders, and the gait's
 contact flags.  Every switch (no stance foot, a vanishing accelerometer
 reading) is a per-scenario mask.
+
+On CUDA tensors `estimator_update`, and `estimator_tick` (the IMU model and
+the update together, the cascade's tick), are one launch each of the
+hand-written kernel `est_step` (dyn/csrc/est_step.cu over est_step.h: a
+warp per scenario over rbd.h's leg kinematics), or an exception; on CPU
+tensors their plain versions, `estimator_update_reference` and
+`estimator_tick_reference`.
 """
 
 from __future__ import annotations
@@ -24,7 +31,9 @@ from mpctsid_tpu_torch.utils import device_constant, resolve_device
 GRAV = 9.81
 
 __all__ = ["GRAV", "EstimatorState", "estimator_init", "estimator_update",
-           "imu_from_plant"]
+           "estimator_update_reference", "estimator_tick",
+           "estimator_tick_reference", "imu_from_plant", "run_est_update",
+           "run_est_step"]
 
 
 @dataclasses.dataclass
@@ -57,7 +66,151 @@ def estimator_update(tree: KinematicTree, st: EstimatorState,
     ground => base z = -mean stance-foot z relative to the base), blended at
     alpha_z per tick with the velocity integral.  base_pos_hint (B, 3), when
     given (sim ground truth / mocap analog), overrides only the drifting
-    integrated x-y."""
+    integrated x-y.
+
+    CUDA tensors: one launch of the hand-written kernel `est_update`
+    (dyn/csrc/est_step.cu; float32 or float64), or an exception.  CPU
+    tensors: the plain version, `estimator_update_reference`."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    kernels.check_batch(st.q, st.v)
+    if st.q.device.type == "cpu":
+        return estimator_update_reference(
+            tree, st, gyro, accel, q_joints, qd_joints, contacts, dt=dt,
+            alpha_tilt=alpha_tilt, alpha_vel=alpha_vel, alpha_z=alpha_z,
+            base_pos_hint=base_pos_hint)
+    q, v = kernels.launch("est_step", run_est_update, st.q.device, tree, st,
+                          gyro, accel, q_joints, qd_joints, contacts, dt,
+                          alpha_tilt, alpha_vel, alpha_z, base_pos_hint,
+                          entry="est_update")
+    estimator_update.launches += 1
+    return EstimatorState(q=q, v=v)
+
+
+estimator_update.launches = 0
+
+
+def estimator_tick(tree: KinematicTree, st: EstimatorState, q_plant, v_plant,
+                   contacts, dt: float = 0.001, alpha_tilt: float = 0.02,
+                   alpha_vel: float = 0.97, alpha_z: float = 0.05,
+                   base_pos_hint=None) -> EstimatorState:
+    """The cascade's estimator tick for a batch: the plant's IMU model
+    (`imu_from_plant` at qdd = None) and one `estimator_update` on it, the
+    joint encoders read off the plant's q_plant (B, 19) and v_plant
+    (B, 18); contacts (B, 4); base_pos_hint (B, 3) as estimator_update's.
+
+    CUDA tensors: one launch of the hand-written kernel `est_step`
+    (dyn/csrc/est_step.cu: a warp per scenario; float32 or float64), or an
+    exception.  CPU tensors: the plain version, `estimator_tick_reference`."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    kernels.check_batch(st.q, st.v)
+    if st.q.device.type == "cpu":
+        return estimator_tick_reference(
+            tree, st, q_plant, v_plant, contacts, dt=dt,
+            alpha_tilt=alpha_tilt, alpha_vel=alpha_vel, alpha_z=alpha_z,
+            base_pos_hint=base_pos_hint)
+    q, v = kernels.launch("est_step", run_est_step, st.q.device, tree, st,
+                          q_plant, v_plant, contacts, dt, alpha_tilt,
+                          alpha_vel, alpha_z, base_pos_hint)
+    estimator_tick.launches += 1
+    return EstimatorState(q=q, v=v)
+
+
+estimator_tick.launches = 0
+
+
+def estimator_tick_reference(tree: KinematicTree, st: EstimatorState,
+                             q_plant, v_plant, contacts, dt: float = 0.001,
+                             alpha_tilt: float = 0.02,
+                             alpha_vel: float = 0.97, alpha_z: float = 0.05,
+                             base_pos_hint=None) -> EstimatorState:
+    """Plain version of `estimator_tick` (any device and dtype)."""
+    gyro, accel = imu_from_plant(tree, q_plant, v_plant)
+    return estimator_update_reference(
+        tree, st, gyro, accel, q_plant[:, 7:], v_plant[:, 6:], contacts,
+        dt=dt, alpha_tilt=alpha_tilt, alpha_vel=alpha_vel, alpha_z=alpha_z,
+        base_pos_hint=base_pos_hint)
+
+
+def _est_operands(st: EstimatorState, gyro, accel, q_joints, qd_joints,
+                  contacts, dt, alpha_tilt, alpha_vel, alpha_z,
+                  base_pos_hint, q_plant=None):
+    """(inputs, outputs, parameters) of the estimator kernels in
+    est_step.h's order, the outputs allocated here: the tick's q_plant in
+    place of accel (None), a bool or other-dtype contacts row cast to the
+    estimate's dtype."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    q = st.q
+    B = kernels.check_batch(st.q, st.v)
+    if contacts.dtype != q.dtype:
+        contacts = contacts.to(q.dtype)
+    none = (None, 0)
+    ins = [kernels.rows("est.q", st.q, B, (19,), q),
+           kernels.rows("est.v", st.v, B, (18,), q),
+           kernels.rows("gyro", gyro, B, (3,), q),
+           none if accel is None else kernels.rows("accel", accel, B, (3,),
+                                                   q),
+           kernels.rows("q_joints", q_joints, B, (12,), q),
+           kernels.rows("qd_joints", qd_joints, B, (12,), q),
+           kernels.rows("contacts", contacts, B, (4,), q),
+           none if base_pos_hint is None else kernels.rows(
+               "base_pos_hint", base_pos_hint, B, (3,), q),
+           none if q_plant is None else kernels.rows("q_plant", q_plant, B,
+                                                     (19,), q)]
+    outs = (q.new_empty((B, 19)), q.new_empty((B, 18)))
+    # the tilt gain rounded through float32 in both dtypes: the plain
+    # version's torch.where(a_norm > 1e-6, alpha_tilt, 0.0) of two Python
+    # numbers is float32, torch's default dtype, before its .to(dtype)
+    gain = float(torch.tensor(alpha_tilt, dtype=torch.float32))
+    par = [dt, gain, alpha_vel, 1.0 - alpha_vel, alpha_z, 1.0 - alpha_z,
+           0.0 if base_pos_hint is None else 1.0]
+    return ins, outs, par
+
+
+def run_est_update(launch_fn, tree, st: EstimatorState, gyro, accel,
+                   q_joints, qd_joints, contacts, dt, alpha_tilt, alpha_vel,
+                   alpha_z, base_pos_hint):
+    """(rc, (q, v)): the `est_update` kernel's operands packed for
+    `launch_fn` (dyn/kernels.py's signature less the stream), its outputs
+    allocated here."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    ins, outs, par = _est_operands(st, gyro, accel, q_joints, qd_joints,
+                                   contacts, dt, alpha_tilt, alpha_vel,
+                                   alpha_z, base_pos_hint)
+    return kernels.call(launch_fn, tree, st.q, ins, outs, par), outs
+
+
+def run_est_step(launch_fn, tree, st: EstimatorState, q_plant, v_plant,
+                 contacts, dt, alpha_tilt, alpha_vel, alpha_z,
+                 base_pos_hint):
+    """(rc, (q, v)): the `est_step` kernel's operands packed for
+    `launch_fn`: gyro, the joints' positions and rates as rows of the
+    plant's q and v (their strides), accel not given (the kernel's IMU
+    model reads q_plant)."""
+    from mpctsid_tpu_torch.dyn import kernels
+
+    B = kernels.check_batch(q_plant, v_plant)
+    if B != st.q.shape[0]:
+        raise ValueError(f"the plant's batch {B} is not the estimate's "
+                         f"{st.q.shape[0]}")
+    ins, outs, par = _est_operands(st, v_plant[:, 3:6], None, q_plant[:, 7:],
+                                   v_plant[:, 6:], contacts, dt, alpha_tilt,
+                                   alpha_vel, alpha_z, base_pos_hint,
+                                   q_plant=q_plant)
+    return kernels.call(launch_fn, tree, st.q, ins, outs, par), outs
+
+
+def estimator_update_reference(tree: KinematicTree, st: EstimatorState,
+                               gyro, accel, q_joints, qd_joints, contacts,
+                               dt: float = 0.001,
+                               alpha_tilt: float = 0.02,
+                               alpha_vel: float = 0.97,
+                               alpha_z: float = 0.05,
+                               base_pos_hint=None) -> EstimatorState:
+    """Plain version of `estimator_update` (any device and dtype)."""
     B = st.q.shape[0]
     dev, dtype = st.q.device, st.q.dtype
     zeros3 = st.q.new_zeros((B, 3))

@@ -15,9 +15,10 @@
 //                   steps' terms, read from the lanes before by shuffles;
 //                   a block's rows staged in shared memory and written
 //                   with 16-byte stores;
-//   plan_swing:     plan/swing.py::swing_foot_ref, a thread per (scenario,
-//                   foot): the quintic xy / sextic z reference and its
-//                   derivatives;
+//   plan_swing:     plan/swing.py::swing_foot_ref, a block 64 scenarios:
+//                   a unit per (scenario, foot) evaluating the quintic xy
+//                   / sextic z reference and its derivatives into shared
+//                   memory, the block's rows written with 16-byte stores;
 //   plan_swing_at:  plan/swing.py::swing_references_period, the swing
 //                   reference at each of a period's T ticks in one launch
 //                   (swing_reference_at is the same kernel at T = 1): a
@@ -73,7 +74,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int FOOT_WARPS = 4;     // scenarios (warps) a footstep block
 constexpr int ROLL_THREADS = 128;
 constexpr int SWING_THREADS = 256;
@@ -158,13 +158,25 @@ plan_rollout_kernel(const planner::RollArgs<T> a, int N, int B, int G)
              live * N * 12 * (long long)sizeof(T));
 }
 
+// a block SWING_FOOT_ROWS scenarios of the (B, 4, 3) outputs: the
+// (scenario, foot) units into the staging area, the staging copied out
+// (planner.h's two phases)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SWING_THREADS)
 plan_swing_kernel(const planner::SwingArgs<T> a, int B)
 {
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= (long long)B * planner::FEET) return;
-    planner::swing_foot<T>(a, t / planner::FEET, (int)(t % planner::FEET));
+    constexpr int R = planner::SWING_FOOT_ROWS;
+    __shared__ __align__(16) T stage[3][12 * R];
+    T* const st[3] = {stage[0], stage[1], stage[2]};
+    const long long b0 = (long long)blockIdx.x * R;
+    const int rows = B - b0 < R ? (int)(B - b0) : R;
+    for (int u = threadIdx.x; u < planner::FEET * rows; u += blockDim.x)
+        planner::swing_foot_unit(a, b0, u, st);
+    __syncthreads();
+#pragma unroll
+    for (int o = 0; o < planner::SO_COUNT; ++o)
+        copy_out(a.out[o] + b0 * 12, stage[o],
+                 12LL * rows * (long long)sizeof(T));
 }
 
 // a block `swing_block_rows(Tn)` rows of the (B Tn, 4, 3) outputs: the
@@ -256,8 +268,12 @@ int swing(int B, const void* const* in, const long long* stride,
 {
     planner::SwingArgs<T> a;
     planner::fill(a, in, stride, out, par);
-    plan_swing_kernel<T><<<blocks_of((long long)B * planner::FEET, THREADS),
-                           THREADS, 0, stream>>>(a, B);
+    for (int k = 0; k < planner::SO_COUNT; ++k)
+        if (!aligned16(out[k])) return (int)cudaErrorMisalignedAddress;
+    const int R = planner::SWING_FOOT_ROWS;
+    const int threads = threads_for(
+        planner::FEET * (long long)(B < R ? B : R), SWING_THREADS);
+    plan_swing_kernel<T><<<blocks_of(B, R), threads, 0, stream>>>(a, B);
     return (int)cudaGetLastError();
 }
 

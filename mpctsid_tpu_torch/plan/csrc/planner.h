@@ -491,17 +491,31 @@ PLAN_FN void swing_poly(T s, T ds, T lo0, T lo1, T d0, T d1, T H,
 template <typename T>
 PLAN_FN T swing_rate(T Tsw) { return (T)1 / clamp_min(Tsw, (T)1e-6); }
 
-// plan/swing.py::swing_foot_ref for foot f of scenario b.  pos, vel, acc
-// (B, 4, 3).
+// ---- plan/swing.py::swing_foot_ref, outputs pos, vel, acc (B, 4, 3).  A
+// block of the kernel takes SWING_FOOT_ROWS scenarios (rows of 12 values)
+// in two phases:
+//   1. a unit per (scenario, foot) (`swing_foot_unit`): the foot's phase,
+//      swing rate, lift-off and step, then `swing_poly` into a staging
+//      area of the block's rows (three arrays of rows x 12 values);
+//   2. the staging copied out, the block's rows being contiguous.
+// Every value is the first design's (a thread per (scenario, foot)
+// storing its values where they lie), op by op.
+constexpr int SWING_FOOT_ROWS = 64;
+
+// phase 1, unit u < 4 rows of the block whose first scenario is b0: foot
+// u % 4 of scenario b0 + u / 4, into `out` (pos, vel, acc of the block's
+// rows) at 3 u
 template <typename T>
-PLAN_FN void swing_foot(const SwingArgs<T>& a, long long b, int f)
+PLAN_FN void swing_foot_unit(const SwingArgs<T>& a, long long b0, int u,
+                             T* const* out)
 {
+    const long long b = b0 + u / FEET;
+    const int f = u % FEET;
     const T* lo = a.template row<T>(SI_LIFT, b) + 3 * f;
     const T* td = a.template row<T>(SI_TD, b) + 3 * f;
     swing_poly(a.template row<T>(SI_S, b)[f],
                swing_rate(a.template row<T>(SI_T, b)[f]), lo[0], lo[1],
-               td[0] - lo[0], td[1] - lo[1], a.par[SP_H64], a.out,
-               (b * FEET + f) * 3);
+               td[0] - lo[0], td[1] - lo[1], a.par[SP_H64], out, 3LL * u);
 }
 
 // ---- plan/swing.py::swing_references_period: the swing reference at

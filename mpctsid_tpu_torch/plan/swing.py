@@ -5,7 +5,8 @@ h, zero velocity/acceleration at both ends.  Evaluates all four feet of every
 scenario at once; stance feet get zeros via the mask the caller applies.
 
 `swing_foot_ref` is, on CUDA tensors, one launch of the hand-written kernel
-`plan_swing` (plan/csrc/planner.cu: a thread per scenario and foot;
+`plan_swing` (plan/csrc/planner.cu: a block 64 scenarios, a unit per
+scenario and foot, the rows staged and stored 16 bytes a thread;
 plan/kernels.py); on CPU tensors it runs its plain version,
 `swing_foot_ref_reference` (about 56 kernels a call on the card).
 

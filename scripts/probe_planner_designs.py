@@ -5,7 +5,7 @@ rollout (`plan_rollout`), the footstep horizon (`plan_footsteps`) and the
 period head with the footstep plan (`period_plan`).
 
     python3 scripts/probe_planner_designs.py [--kernels swing rollout
-        footsteps head] [--batch 4096] [--rounds 6] [--out DIR]
+        footsteps head swingref] [--batch 4096] [--rounds 6] [--out DIR]
 
 Needs an NVIDIA GPU and nvcc.  The first designs (the rollout a thread
 per (scenario, step) repeating the recursion up to its step; the swing
@@ -40,7 +40,13 @@ inputs (`planner_inputs`), float32 and float64, B = 1, 37 and --batch:
      entries, and the shipped period head (the plan off) against the first;
      then interleaved rounds at B = 1, 256 and --batch of the first chain
      (three launches), the shipped chain (period_head, plan_footsteps, the
-     select), one period_plan, and each period head alone.
+     select), one period_plan, and each period head alone;
+  swingref. the shipped swing reference (`plan_swing`: a block 64
+     scenarios, a unit per (scenario, foot) into staging rows, the rows
+     stored 16 bytes a thread) against its first design (a thread per
+     (scenario, foot) storing its values where they lie: FIRST_PLANNER_H /
+     _CU), parted entries, then interleaved rounds at B = 1, 256 and
+     --batch.
 
 Every timed set also times a one-kernel graph (a `fill_` of a one-element
 tensor: the launch floor) and prints each time beside the floor and the
@@ -75,7 +81,7 @@ from mpctsid_tpu_torch.plan.gait import contacts_at  # noqa: E402
 from mpctsid_tpu_torch.plan import swing  # noqa: E402
 from mpctsid_tpu_torch.qp import _build  # noqa: E402
 
-PARTS = ["swing", "rollout", "footsteps", "head"]
+PARTS = ["swing", "rollout", "footsteps", "head", "swingref"]
 BITS_B = (1, 37)          # and --batch
 TIMED_B = (1, 256)        # and --batch
 
@@ -359,6 +365,34 @@ def probe_footsteps(record, B_max, rounds, libs, device):
                    "plan_footsteps_horizon"][0])
 
 
+def probe_swingref(record, B_max, rounds, libs, device):
+    h = EngineConfig().cascade.swing_height
+    d = cs.planner_inputs(B_max, 70)
+    first = launcher(libs["first design"], "swing")
+
+    def args(B, dtype):
+        t = lambda a: torch.tensor(a[:B], dtype=dtype,  # noqa: E731
+                                   device=device)
+        return (t(d["lift"]), t(d["td"]), t(d["s"]), t(d["T"]), h)
+    for B in (*BITS_B, 64, 65, B_max):
+        for dtype in (torch.float32, torch.float64):
+            a = args(B, dtype)
+            got = swing.swing_foot_ref(*a)
+            want = checked(swing.run_swing(first, *a))
+            record("swingref_bits", B=B, dtype=str(dtype)[6:],
+                   parted=parted(got, want),
+                   entries=sum(w.numel() for w in want))
+    for B in (*TIMED_B, B_max):
+        a = args(B, torch.float32)
+        fns = {"first design": lambda: checked(swing.run_swing(first, *a)),
+               "new": lambda: swing.swing_foot_ref(*a),
+               "launch floor (one fill_)": floor_fn(device)}
+        replays = {k: pkd.graphed(f) for k, f in fns.items()}
+        ms = pkd.interleaved(record, "swingref_times", replays, rounds, B=B)
+        record("swingref_summary", B=B, ms=ms,
+               bound_ms=cs.plan_bounds(B, d, 16)["swing_foot_ref"][0])
+
+
 def probe_head(record, B_max, rounds, libs, device):
     cfg = EngineConfig()
     tree = CascadeConfigured(SOLO12, cfg).tree
@@ -451,7 +485,9 @@ def main() -> int:
               "rollout_variant_bits": [], "rollout_times": [],
               "rollout_summary": [], "footsteps_bits": [],
               "footsteps_times": [], "footsteps_summary": [],
-              "head_bits": [], "head_times": [], "head_summary": []}
+              "head_bits": [], "head_times": [], "head_summary": [],
+              "swingref_bits": [], "swingref_times": [],
+              "swingref_summary": []}
 
     def record(kind, **row):
         report[kind].append(row)
@@ -466,12 +502,14 @@ def main() -> int:
         probe_footsteps(record, a.batch, a.rounds, libs, device)
     if "head" in a.kernels:
         probe_head(record, a.batch, a.rounds, libs, device)
+    if "swingref" in a.kernels:
+        probe_swingref(record, a.batch, a.rounds, libs, device)
     bits = ([r["period_vs_first_parted"] + r["at_vs_first_parted"]
              for r in report["swing_bits"]]
             + [r["parted"] for r in report["rollout_bits"]
                + report["swing_variant_bits"]
                + report["rollout_variant_bits"]
-               + report["footsteps_bits"]]
+               + report["footsteps_bits"] + report["swingref_bits"]]
             + [sum(r["plan_vs_first_chain_parted"])
                + r["plan_vs_new_chain_parted"]
                + r["head_vs_first_parted"] for r in report["head_bits"]])

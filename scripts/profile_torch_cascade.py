@@ -50,7 +50,7 @@ from mpctsid_tpu_torch.config import EngineConfig  # noqa: E402
 from mpctsid_tpu_torch.env.plant import (ContactParams, PlantState,  # noqa: E402
                                          plant_step)
 from mpctsid_tpu_torch.est.filter import (estimator_init,  # noqa: E402
-                                          estimator_update, imu_from_plant)
+                                          estimator_tick)
 from mpctsid_tpu_torch.model.gaits import GAIT_IDS  # noqa: E402
 from mpctsid_tpu_torch.model.solo12 import SOLO12  # noqa: E402
 from mpctsid_tpu_torch.mpc.srb import (MPC_A_BLOCKS, build_mpc_qp,  # noqa: E402
@@ -155,13 +155,9 @@ def profile_batch(B: int, device, wbc_backends, mpc_backend=None,
     if mpc_backend is not None:
         stages["mpc_solve_ms"] = {mpc_backend: timed(lambda: mpc(mpc_backend))}
     if use_estimator:
-        def estimator_tick():
-            gyro, accel = imu_from_plant(cc.tree, plant.q, plant.v)
-            return estimator_update(cc.tree, est, gyro, accel,
-                                    plant.q[:, 7:], plant.v[:, 6:], contacts,
-                                    dt=cfg.cascade.wbc_dt)
-
-        stages["estimator_tick_ms"] = timed(estimator_tick)
+        stages["estimator_tick_ms"] = timed(lambda: estimator_tick(
+            cc.tree, est, plant.q, plant.v, contacts,
+            dt=cfg.cascade.wbc_dt))
     del qp
     torch.cuda.empty_cache()
 

@@ -344,16 +344,47 @@ int rollout(int B, int N, const void*, const void* const* in,
     return 0;
 }
 
+// the swing reference: the kernel's blocks of SWING_FOOT_ROWS scenarios
+// one after another, each block's units in order or reversed, in a
+// NaN-filled staging area, then the staging copied out
+template <typename T>
+int swing_blocks(bool reverse, int B, const void* const* in,
+                 const long long* stride, void* const* out,
+                 const double* par)
+{
+    planner::SwingArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    const int R = planner::SWING_FOOT_ROWS;
+    std::vector<T> stage(36 * (size_t)R);
+    T* const st[3] = {stage.data(), stage.data() + 12 * R,
+                      stage.data() + 24 * R};
+    for (long long b0 = 0; b0 < B; b0 += R) {
+        const int rows = B - b0 < R ? (int)(B - b0) : R;
+        for (auto& v : stage) v = std::numeric_limits<T>::quiet_NaN();
+        for (int i = 0; i < planner::FEET * rows; ++i) {
+            const int u = reverse ? planner::FEET * rows - 1 - i : i;
+            planner::swing_foot_unit(a, b0, u, st);
+        }
+        for (int o = 0; o < planner::SO_COUNT; ++o)
+            for (long long i = 0; i < 12LL * rows; ++i)
+                a.out[o][b0 * 12 + i] = st[o][i];
+    }
+    return 0;
+}
+
 template <typename T>
 int swing(int B, int, const void*, const void* const* in,
           const long long* stride, void* const* out, const double* par)
 {
-    planner::SwingArgs<T> a;
-    planner::fill(a, in, stride, out, par);
-    for (long long b = 0; b < B; ++b)
-        for (int f = 0; f < planner::FEET; ++f)
-            planner::swing_foot<T>(a, b, f);
-    return 0;
+    return swing_blocks<T>(false, B, in, stride, out, par);
+}
+
+template <typename T>
+int swing_reversed(int B, int, const void*, const void* const* in,
+                   const long long* stride, void* const* out,
+                   const double* par)
+{
+    return swing_blocks<T>(true, B, in, stride, out, par);
 }
 
 // the swing reference over a period (N its ticks): the kernel's blocks
@@ -429,6 +460,7 @@ PLAN_ENTRY(plan_footsteps_host, footsteps)
 PLAN_ENTRY(plan_footsteps_reversed_host, footsteps_reversed)
 PLAN_ENTRY(plan_rollout_host, rollout)
 PLAN_ENTRY(plan_swing_host, swing)
+PLAN_ENTRY(plan_swing_reversed_host, swing_reversed)
 PLAN_ENTRY(plan_swing_at_host, swing_at)
 PLAN_ENTRY(plan_swing_at_reversed_host, swing_at_reversed)
 '''
@@ -442,11 +474,13 @@ def build_planner_harness(directory):
     footsteps a warp per scenario, its lanes in order (`footsteps`) or
     reversed (`footsteps_reversed`) from NaN-filled staging rows; the
     rollout's pieces glued by an array, the kernel's chunks of lanes in
-    turn (`rollout_scenario`), the swing
+    turn (`rollout_scenario`), the swing reference block by block from
+    NaN-filled staging (`swing`; `swing_reversed` each block's units
+    reversed), the swing
     reference over a period block by block, phase by phase, from NaN-filled
     staging (`swing_at`; `swing_at_reversed` each phase's units reversed).
     Returns a namespace of ctypes functions `footsteps`,
-    `footsteps_reversed`, `rollout`, `swing`, `swing_at`,
+    `footsteps_reversed`, `rollout`, `swing`, `swing_reversed`, `swing_at`,
     `swing_at_reversed`, which the wrappers' packing
     (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
     `plan.swing.run_swing`, `plan.swing.run_swing_period`, `run_swing_at`)
@@ -468,7 +502,7 @@ def build_planner_harness(directory):
     lib = ctypes.CDLL(str(so))
     fns = {}
     for name in ("footsteps", "footsteps_reversed", "rollout", "swing",
-                 "swing_at", "swing_at_reversed"):
+                 "swing_reversed", "swing_at", "swing_at_reversed"):
         fn = getattr(lib, f"plan_{name}_host")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -508,6 +542,18 @@ int rollout(int B, int N, const void*, const void* const* in,
 }
 
 template <typename T>
+int swing(int B, int, const void*, const void* const* in,
+          const long long* stride, void* const* out, const double* par)
+{
+    planner::SwingArgs<T> a;
+    planner::fill(a, in, stride, out, par);
+    for (long long b = 0; b < B; ++b)
+        for (int f = 0; f < planner::FEET; ++f)
+            planner::swing_foot<T>(a, b, f);
+    return 0;
+}
+
+template <typename T>
 int swing_at(int B, int, const void* tables, const void* const* in,
              const long long* stride, void* const* out, const double* par)
 {
@@ -534,6 +580,7 @@ int swing_at(int B, int, const void* tables, const void* const* in,
 
 FIRST_ENTRY(first_footsteps, footsteps)
 FIRST_ENTRY(first_rollout, rollout)
+FIRST_ENTRY(first_swing, swing)
 FIRST_ENTRY(first_swing_at, swing_at)
 """
 
@@ -542,15 +589,17 @@ def build_first_planner_harness(directory):
     """The planner's first designs of the footstep horizon (a thread per
     (scenario, foot) looping over the steps, `footsteps_foot`), the
     reference rollout (a thread per step repeating the recursion up to it,
-    `rollout_step`) and the swing reference at a tick (`swing_at_foot`),
+    `rollout_step`), the swing reference (a thread per (scenario, foot)
+    storing its values where they lie, `swing_foot`) and the swing
+    reference at a tick (`swing_at_foot`),
     whose planner.h lives on
     verbatim in scripts/probe_planner_designs.py (FIRST_PLANNER_H), built
     with the host compiler into `directory` (-ffp-contract=off), each
     thread one after another.  Returns a namespace of `footsteps`,
-    `rollout` and `swing_at` with the kernels' C signature less the stream
-    (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
-    `plan.swing.run_swing_at` take them; the first design's tick fraction
-    is one value a scenario)."""
+    `rollout`, `swing` and `swing_at` with the kernels' C signature less
+    the stream (`plan.footsteps.run_footsteps`, `mpc.srb.run_rollout`,
+    `plan.swing.run_swing`, `plan.swing.run_swing_at` take them; the first
+    design's tick fraction is one value a scenario)."""
     import ctypes
     import re
     import subprocess
@@ -573,7 +622,7 @@ def build_first_planner_harness(directory):
                    check=True)
     lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in ("footsteps", "rollout", "swing_at"):
+    for name in ("footsteps", "rollout", "swing", "swing_at"):
         fn = getattr(lib, f"first_{name}")
         fn.argtypes = kernels.LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int
@@ -1076,6 +1125,108 @@ def build_period_head_harness(directory):
         plan=lib.period_plan_host, plan_reversed=lib.period_plan_host_reversed,
         layout=lib.period_head_layout, slot_values=lib.period_head_slot_values,
         warps_per_block=lib.period_head_warps_per_block)
+
+
+EST_STEP_HARNESS = r'''
+#include <limits>
+
+#include "est_step.h"
+
+namespace {
+
+// a scenario at a time, its warp's lanes one after another in each phase
+// (reversed when `reverse`), from a slot filled with NaN (est_step.cu's
+// launcher less the launch)
+template <bool IMU, typename T>
+int est(int B, const void* consts, const void* const* in,
+        const long long* stride, void* const* out, const double* par,
+        bool reverse)
+{
+    using namespace rbd::est;
+    EstArgs<T> a;
+    for (int k = 0; k < EI_COUNT; ++k) {
+        a.in[k] = static_cast<const T*>(in[k]);
+        a.stride[k] = stride[k];
+    }
+    for (int k = 0; k < EO_COUNT; ++k) a.out[k] = static_cast<T*>(out[k]);
+    for (int k = 0; k < EP_COUNT; ++k) a.par[k] = (T)par[k];
+    const rbd::HostExec ex{reverse};
+    EstSlot<T> S;
+    T* raw = reinterpret_cast<T*>(&S);
+    for (long long b = 0; b < B; ++b) {
+        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i)
+            raw[i] = std::numeric_limits<T>::quiet_NaN();
+        est_warp<IMU>(ex, static_cast<const T*>(consts), a, b, S);
+    }
+    return 0;
+}
+
+}  // namespace
+
+#define EST_ENTRY(name, imu, reverse)                                       \
+    extern "C" int name(int dtype, int B, const void* consts,               \
+                        const void* const* in, const long long* stride,     \
+                        void* const* out, const double* par)                \
+    {                                                                       \
+        return dtype == 0                                                   \
+                   ? est<imu, float>(B, consts, in, stride, out, par,       \
+                                     reverse)                               \
+                   : est<imu, double>(B, consts, in, stride, out, par,      \
+                                      reverse);                             \
+    }
+
+EST_ENTRY(est_step_host, true, false)
+EST_ENTRY(est_step_host_reversed, true, true)
+EST_ENTRY(est_update_host, false, false)
+EST_ENTRY(est_update_host_reversed, false, true)
+
+extern "C" int est_step_layout(int what) { return rbd::est::layout(what); }
+
+extern "C" int est_step_slot_values()
+{
+    return (int)(sizeof(rbd::est::EstSlot<float>) / sizeof(float));
+}
+'''
+
+
+def build_est_step_harness(directory):
+    """mpctsid_tpu_torch/dyn/csrc/est_step.h (over rbd.h's leg kinematics
+    and integration step), the estimator kernels' per-scenario body, built
+    with the host compiler into `directory` (-ffp-contract=off, as the
+    library's -fmad=false): each scenario's lanes one after another between
+    the phases (rbd::HostExec), from a NaN-filled slot, with the kernels' C
+    signature less the stream.  Returns a namespace of ctypes functions:
+    `tick` and `tick_reversed` (the IMU model inside, which
+    `est.filter.run_est_step` takes), `update` and `update_reversed` (gyro
+    and accel given, `est.filter.run_est_update`), `layout(i)` and
+    `slot_values()`."""
+    import ctypes
+    import subprocess
+    import types
+    from pathlib import Path
+
+    from mpctsid_tpu_torch.dyn import kernels
+
+    d = Path(directory).resolve()
+    cc = d / "est_step_harness.cc"
+    cc.write_text(EST_STEP_HARNESS)
+    so = d / "libest_step_harness.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
+                    str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    for name in ("est_step_host", "est_step_host_reversed",
+                 "est_update_host", "est_update_host_reversed"):
+        getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
+        getattr(lib, name).restype = ctypes.c_int
+    lib.est_step_layout.argtypes = [ctypes.c_int]
+    lib.est_step_layout.restype = ctypes.c_int
+    lib.est_step_slot_values.restype = ctypes.c_int
+    return types.SimpleNamespace(
+        tick=lib.est_step_host, tick_reversed=lib.est_step_host_reversed,
+        update=lib.est_update_host,
+        update_reversed=lib.est_update_host_reversed,
+        layout=lib.est_step_layout, slot_values=lib.est_step_slot_values)
 
 
 SOLVE_TAIL_HARNESS = r'''

@@ -20,7 +20,12 @@ to 1e-6, relative 1e-3: there the acceleration's bracket cancels and
 ds^2 = 1e12 scales the rounding up).  The swing reference at a tick
 (`swing_reference_at`) forms T and s op by op as its plain prelude does:
 bit for bit `plan_swing` on the prelude's T and s, over every gait, phase
-and tick.
+and tick.  The swing reference's redesign (a block 64 scenarios, its
+(scenario, foot) units into staging rows, then the rows copied out) gives
+the first design's bits (a thread per (scenario, foot) storing where its
+values lie; planner.h kept verbatim in scripts/probe_planner_designs.py,
+`build_first_planner_harness`), each block's units in order and reversed
+from NaN-filled staging, over one, several and partly filled blocks.
 """
 
 import numpy as np
@@ -45,7 +50,8 @@ from mpctsid_tpu_torch.plan import kernels as pk
 from mpctsid_tpu_torch.plan import swing as tswing
 from mpctsid_tpu_torch.plan.gait import swing_tables
 
-from _torch_port_util import build_planner_harness, jj, npy
+from _torch_port_util import (build_first_planner_harness,
+                              build_planner_harness, jj, npy)
 
 JCFG = JEngineConfig()
 CFG = EngineConfig()
@@ -57,6 +63,11 @@ TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     return build_planner_harness(tmp_path_factory.mktemp("planner"))
+
+
+@pytest.fixture(scope="module")
+def first(tmp_path_factory):
+    return build_first_planner_harness(tmp_path_factory.mktemp("first"))
 
 
 def inputs(seed, B):
@@ -169,6 +180,24 @@ def test_swing_header_against_plain(harness, dtype):
     for g, w in zip(got, want):
         assert g.shape == (40, 4, 3) and g.dtype == dtype
         assert float(((g - w).abs() / (1.0 + w.abs())).max()) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B", [1, 5, 64, 65, 150])
+def test_swing_redesign_is_the_first_design(harness, first, dtype, B):
+    """The staged swing reference (blocks of 64 scenarios, units in order
+    and reversed from NaN-filled staging) bit for bit the first design on the
+    same inputs, whole blocks and a partly filled last one."""
+    t = tensors(inputs(20 + B, B), dtype)
+    h = CFG.cascade.swing_height
+    args = (t["lift"], t["td"], t["s"], t["T"], h)
+    rc, got = tswing.run_swing(harness.swing, *args)
+    rc2, rev = tswing.run_swing(harness.swing_reversed, *args)
+    rc3, want = tswing.run_swing(first.swing, *args)
+    assert rc == rc2 == rc3 == 0
+    for g, r, w in zip(got, rev, want):
+        assert g.shape == (B, 4, 3) and torch.isfinite(g).all()
+        assert torch.equal(g, w) and torch.equal(r, w)
 
 
 def test_footsteps_header_against_jax(harness):
