@@ -161,19 +161,21 @@ toolkit (`nvcc`); there is no CPU fallback.  Phases:
                  each launch's geometry the layout function's; two
                  launches bit for bit; times (graph replay, eager, the
                  plain chain eager and as a graph) beside the bounds
-              3j the estimator's tick (dyn/csrc/est_step.cu: a warp per
-                 scenario over rbd.h's leg kinematics and integration
-                 step; est_step, the plant's IMU model and the update, and
-                 est_update, the update alone) against
-                 estimator_tick_reference / estimator_update_reference at
-                 B = 1, 256 and 4096, float32 and float64, with and
-                 without the position hint (1e-5 / 1e-12 of each output's
-                 largest entry), the contact patterns in turn, two
-                 accelerometer readings at and under 1e-6; 60 chained ticks
-                 on recorded plant states at B = 256 (1e-4 / 1e-11); the
-                 layout rbd_layout's; two launches bit for bit; times
-                 (graph replay, eager, the plain chain eager and as a
-                 graph) beside the launch floor and the bound
+              3j the estimator's tick (dyn/csrc/est_step.cu: a block of
+                 S scenarios, the attitude chain on warp 0 beside the legs
+                 in the base frame on warps 1-4, a lane a scenario, over
+                 rbd.h's leg kinematics and integration step; est_step, the
+                 plant's IMU model and the update, and est_update, the
+                 update alone) against estimator_tick_reference /
+                 estimator_update_reference at B = 1, 37, 256 and 4096,
+                 float32 and float64, with and without the position hint
+                 (1e-5 / 1e-12 of each output's largest entry), the contact
+                 patterns in turn, two accelerometer readings at and under
+                 1e-6; 60 chained ticks on recorded plant states at B = 256
+                 (1e-4 / 1e-11); the layout est_layout's (S and the blocks
+                 printed); two launches bit for bit; times (graph replay,
+                 eager, the plain chain eager and as a graph) beside the
+                 first design's, the launch floor and the bound
   4. rollout  the main path at full size: cascade_rollout of the preset
               config4_cascade_4k (B=4096 trot, v = 0.3 m/s), per-scenario
               friction in [0.5, 0.9], default solver budgets, MPC backend =
@@ -2771,13 +2773,17 @@ def head_tail_phase(smi: str, device, reports: dict) -> None:
 # 1e-4 / 1e-11 after 60 chained ticks on recorded plant states.
 EST_REL = {torch.float32: 1e-5, torch.float64: 1e-12}
 EST_CHAIN_REL = {torch.float32: 1e-4, torch.float64: 1e-11}
-EST_B = (1, 256, 4096)
+EST_B = (1, 37, 256, 4096)
 EST_CHAIN_B = 256
 EST_CHAIN_TICKS = 60
 # the contact patterns the scenarios take in turn: none in stance, all, the
 # trot pairs, a single foot
 EST_CONTACTS = ((0, 0, 0, 0), (1, 1, 1, 1), (1, 0, 0, 1), (0, 1, 1, 0),
                 (1, 0, 0, 0), (0, 0, 1, 0))
+# the first design's time at B = 4096 (a warp a scenario; this phase on
+# an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6), printed beside
+# the kernel's
+EST_FIRST_MS = 0.0118
 # phase 12's estimator replay (B = 4096, kernel 5 on both QP stages):
 # 14,221 kernels on an H100 with the estimator as its plain chain (about
 # 630 kernels a tick); the tick one launch in its place
@@ -2849,12 +2855,22 @@ def recorded_plant(tree, B: int, ticks: int, dtype, device) -> list:
     return states
 
 
+def est_layout_ok(B: int, dtype, device):
+    """(ok, layout): the layout the last launch of est_step or est_update
+    took, and whether it is dyn/kernels.py::est_layout's on the card's
+    limits (and covers B)."""
+    want = rbd_kernels.est_layout(B, dtype, *kernels.device_limits(device))
+    got = rbd_kernels.est_last_layout()
+    return got == want and got.scenarios * got.blocks >= B, got
+
+
 def est_phase(smi: str, device, reports: dict) -> None:
     """3j: est_step and est_update against their plain versions at B = 1,
-    256 and 4096 in both dtypes, with and without the hint, two launches
-    bit for bit, the layout rbd_layout's; 60 chained ticks at B = 256;
-    times (a one-launch graph's replay, the eager wrapper, the plain chain
-    eager and as a graph, the launch floor) beside the bounds."""
+    37, 256 and 4096 in both dtypes, with and without the hint, two
+    launches bit for bit, the layout est_layout's; 60 chained ticks at
+    B = 256; times (a one-launch graph's replay, the eager wrapper, the
+    plain chain eager and as a graph, the launch floor) beside the first
+    design's and the bounds."""
     tree = CascadeConfigured(SOLO12, EngineConfig()).tree
     rep = {k: dict(err=0.0, times={}) for k in ("est_step", "est_update")}
     for B in EST_B:
@@ -2881,7 +2897,7 @@ def est_phase(smi: str, device, reports: dict) -> None:
                 rels, abss, ok = [], [], True
                 for h in (None, hint):
                     got, again = call(h), call(h)
-                    lay = rbd_kernels.last_layout("est_step")
+                    laid, lay = est_layout_ok(B, dtype, device)
                     want = plain(h)
                     for g, w in ((got.q, want.q), (got.v, want.v)):
                         rel, ab = rbd_rel_err(g, w)
@@ -2890,8 +2906,7 @@ def est_phase(smi: str, device, reports: dict) -> None:
                         ok &= g.shape == w.shape and g.dtype == w.dtype
                     ok &= (all_finite((got.q, got.v))
                            and torch.equal(got.q, again.q)
-                           and torch.equal(got.v, again.v)
-                           and rbd_layout_ok("est_step", B, dtype, device))
+                           and torch.equal(got.v, again.v) and laid)
                     if h is not None:
                         ok &= torch.equal(got.q[:, 0:2], h[:, 0:2])
                     if name == "est_step":
@@ -2902,11 +2917,11 @@ def est_phase(smi: str, device, reports: dict) -> None:
                       f"3j: {name} B={B} {str(dtype)[6:]}: within "
                       f"{EST_REL[dtype]:g} of the plain version (each "
                       "output's largest entry), with and without the hint, "
-                      "two launches bit for bit, the layout rbd_layout's")
-                print(f"  {name} B={B} {str(dtype)[6:]} ({lay.warps} warps "
-                      f"a block, {lay.blocks} blocks, {lay.smem_bytes} "
-                      f"shared bytes a block): rel {max(rels):.3e}, abs "
-                      f"{max(abss):.3e}", flush=True)
+                      "two launches bit for bit, the layout est_layout's")
+                print(f"  {name} B={B} {str(dtype)[6:]} (S = "
+                      f"{lay.scenarios} scenarios a block, {lay.blocks} "
+                      f"blocks, {lay.smem_bytes} shared bytes a block): rel "
+                      f"{max(rels):.3e}, abs {max(abss):.3e}", flush=True)
                 if dtype != torch.float32:
                     continue
                 rep[name]["err"] = max(rep[name]["err"], max(abss))
@@ -2917,10 +2932,13 @@ def est_phase(smi: str, device, reports: dict) -> None:
                 bound = est_step_bound_ms(B, update=name == "est_update")
                 rep[name]["times"][f"B={B}"] = (ms, eager, plain_ms, plain_g,
                                                 bound, floor)
-                report_times(name, f"B={B} (graph replay; eager wrapper "
-                             f"{eager:.4f} ms; plain chain as a graph "
-                             f"{plain_g:.4f} ms; launch floor {floor:.4f} "
-                             "ms)", ms, plain_ms, bound, smi)
+                first = (f"; the first design {EST_FIRST_MS} ms"
+                         if B == 4096 else "")
+                report_times(name, f"B={B}, S={lay.scenarios} (graph "
+                             f"replay; eager wrapper {eager:.4f} ms; plain "
+                             f"chain as a graph {plain_g:.4f} ms; launch "
+                             f"floor {floor:.4f} ms{first})", ms, plain_ms,
+                             bound, smi)
             del d, calls
     # 60 chained ticks on recorded plant states, each side its own estimate
     for dtype in (torch.float32, torch.float64):
@@ -2961,7 +2979,8 @@ def est_phase(smi: str, device, reports: dict) -> None:
         print(f"  {name}: replaces {replaces[name]}, {what[name]} (XLA's "
               "ops; no TPU kernel), source mpctsid_tpu_torch/dyn/csrc/"
               f"est_step.cu, library call none; B={Bt} {ms:.4f} ms (graph "
-              f"replay) / {eager:.4f} ms (eager), floor {floor:.4f} ms, "
+              f"replay; the first design {EST_FIRST_MS} ms) / "
+              f"{eager:.4f} ms (eager), floor {floor:.4f} ms, "
               f"bound {bound[0]:.4f} ms by {bound[1]}, plain "
               f"{plain_ms:.3f} ms ({plain_g:.4f} as a graph)  [{smi}]",
               flush=True)
@@ -3513,16 +3532,23 @@ def kernels_per_replay(call, replays: int = 1
     than `replays` records of a kind still counts that kind right (in a
     process a few minutes old the profiler drops a window's first or last
     records, flush or not: on an H100 the build kernel of a profiled host
-    WBC replay, kernel 4 of a B = 1 MPC chain)."""
+    WBC replay, kernel 4 of a B = 1 MPC chain).  A window that saw no
+    device record at all (every replay launches something; on an H100 a
+    host boundary replay's window once came back empty) is profiled
+    again, up to three windows."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     per = lambda n: -(-n // replays)  # noqa: E731
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(replays):
-            call()
+    for _ in range(3):
         torch.cuda.synchronize()
-        flush_cupti()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(replays):
+                call()
+            torch.cuda.synchronize()
+            flush_cupti()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events()):
+            break
     counts = dict.fromkeys(KERNEL_PREFIX.values(), 0)
     port_ms = dict.fromkeys(KERNEL_PREFIX.values(), 0.0)
     total, busy_ms, copies = 0, 0.0, 0

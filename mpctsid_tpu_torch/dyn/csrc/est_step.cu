@@ -5,7 +5,7 @@
 // model (imu_from_plant, qdd = None) and one complementary-filter update
 // (estimator_update) on it, the cascade's estimator tick.  est_update:
 // est/filter.py::estimator_update, gyro and accel given.  One kernel body
-// (est_step.h's `est_warp`, the IMU model a template flag), two entry
+// (est_step.h's `est_block`, the IMU model a template flag), two entry
 // points.  The JAX package has no Pallas kernel here: its cascade leaves
 // these ops to XLA under `jax.jit` (mpctsid_tpu/cascade/engine.py:243-249,
 // mpctsid_tpu/est/filter.py:38-108).  Run op by op the plain PyTorch chain
@@ -18,14 +18,20 @@
 // values (the estimate's base pose and linear velocity, 10; the plant's
 // quaternion, 4; its gyro and joint rates, 15; its joints, 12; the contact
 // flags, 4) and writes 37, for about 2,000 operations
-// (chip_smoke.py::est_step_bound_ms): at B = 4096 well under a launch.  The kernel's reason is to be one launch where the
-// plain chain is hundreds.
+// (chip_smoke.py::est_step_bound_ms): at B = 4096 well under a launch.  So
+// the time is the launch and the chain's latency, and the design keeps the
+// chain short and every warp's lanes busy with the same code.
 //
-// Design: a warp per scenario, rbd::warps_per_block's number a block (the
-// WBC build's layout; dyn/kernels.py::rbd_layout), each warp with its slot
-// (rbd::est::EstSlot: the leg kinematics, the corrected configuration, the
-// sensors, the feet's odometry terms and heights, 320 values).  float and
-// double.
+// Design: a block of S scenarios (rbd::est::est_scenarios, mirrored by
+// dyn/kernels.py::est_layout: B spread over the multiprocessors, at most
+// 32), five warps.  The block's input rows and the model's constants come
+// into shared memory by asynchronous copies, a value a thread, coalesced;
+// then warp 0 runs the attitude chain and warps 1-4 one leg each, lane s
+// on scenario s, side by side (the legs in the base frame need no
+// corrected attitude); then v_lin and x, y, z a thread an entry; the
+// block's q' and v' rows, staged in shared memory, are stored 16 bytes a
+// thread.  Each warp runs its code once, fetched cold, so the code is kept
+// small (est_step.h).  float and double.
 //
 // Launch: est_step_launch / est_update_launch(dtype, B, consts, in,
 // stride, out, par, stream) with the arrays in est_step.h's In / Out / Par
@@ -38,42 +44,38 @@
 
 namespace {
 
-// warp w of the block takes scenario b, its slot at w * slot bytes
+using rbd::est::EST_THREADS;
+
+// block blockIdx.x of S scenarios
 template <bool IMU, typename T>
 __device__ __forceinline__ void est_body(const T* __restrict__ consts,
                                          const rbd::est::EstArgs<T>& a,
-                                         int B, int slot)
+                                         int B, int S)
 {
     extern __shared__ __align__(16) unsigned char smem[];
-    const int warp = threadIdx.x / rbd::WARP;
-    const long long b =
-        (long long)blockIdx.x * (blockDim.x / rbd::WARP) + warp;
-    if (b >= B) return;
-    rbd::WarpExec ex;
-    rbd::est::est_warp<IMU, T>(
-        ex, consts, a, b,
-        *reinterpret_cast<rbd::est::EstSlot<T>*>(smem + (size_t)warp * slot));
+    rbd::est::est_block<IMU, T>(rbd::est::BlockExec{}, consts, a, B, S,
+                                blockIdx.x, reinterpret_cast<T*>(smem));
 }
 
 // the tick (the profiler tells the two entry points apart by their names)
 template <typename T>
-__global__ void __launch_bounds__(rbd::WARP * rbd::MAX_WARPS)
+__global__ void __launch_bounds__(EST_THREADS)
 est_step_kernel(const T* __restrict__ consts,
-                const rbd::est::EstArgs<T> args, int B, int slot)
+                const rbd::est::EstArgs<T> args, int B, int S)
 {
-    est_body<true, T>(consts, args, B, slot);
+    est_body<true, T>(consts, args, B, S);
 }
 
 // the update alone
 template <typename T>
-__global__ void __launch_bounds__(rbd::WARP * rbd::MAX_WARPS)
+__global__ void __launch_bounds__(EST_THREADS)
 est_update_kernel(const T* __restrict__ consts,
-                  const rbd::est::EstArgs<T> args, int B, int slot)
+                  const rbd::est::EstArgs<T> args, int B, int S)
 {
-    est_body<false, T>(consts, args, B, slot);
+    est_body<false, T>(consts, args, B, S);
 }
 
-int last_layout[3];   // warps a block, blocks, shared bytes a block
+int last_layout[3];   // scenarios a block, blocks, shared bytes a block
 
 template <bool IMU, typename T>
 int launch(int B, const void* consts, const void* const* in,
@@ -97,17 +99,17 @@ int launch(int B, const void* consts, const void* const* in,
         err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
                                      dev);
     if (err != cudaSuccess) return (int)err;
-    const int slot = rbd::slot_bytes((int)sizeof(EstSlot<T>));
-    const int g = rbd::warps_per_block(B, slot, optin, n_sm);
-    if (g < 1) return (int)cudaErrorInvalidValue;
-    const int blocks = (B + g - 1) / g, smem = g * slot;
+    const int S = est_scenarios(B, optin, n_sm, (int)sizeof(T));
+    if (S < 1) return (int)cudaErrorInvalidValue;
+    const int blocks = (B + S - 1) / S;
+    const int smem = est_smem_bytes(S, (int)sizeof(T));
     if (IMU)
-        est_step_kernel<T><<<blocks, g * rbd::WARP, smem, stream>>>(
-            static_cast<const T*>(consts), a, B, slot);
+        est_step_kernel<T><<<blocks, EST_THREADS, smem, stream>>>(
+            static_cast<const T*>(consts), a, B, S);
     else
-        est_update_kernel<T><<<blocks, g * rbd::WARP, smem, stream>>>(
-            static_cast<const T*>(consts), a, B, slot);
-    last_layout[0] = g;
+        est_update_kernel<T><<<blocks, EST_THREADS, smem, stream>>>(
+            static_cast<const T*>(consts), a, B, S);
+    last_layout[0] = S;
     last_layout[1] = blocks;
     last_layout[2] = smem;
     return (int)cudaGetLastError();
@@ -155,17 +157,15 @@ extern "C" {
 // EST_LAYOUT)
 int est_step_layout(int what) { return rbd::est::layout(what); }
 
-// values (floats or doubles) of a warp's slot: rbd::est::EstSlot
+// values (floats or doubles) a scenario takes in the block's shared
+// memory: its rbd::est::EstRow, its q' row and its v' row
 int est_step_slot_values()
 {
-    static_assert(sizeof(rbd::est::EstSlot<double>)
-                  == 2 * sizeof(rbd::est::EstSlot<float>),
-                  "slot of values");
-    return (int)(sizeof(rbd::est::EstSlot<float>) / sizeof(float));
+    return rbd::est::EST_ROW_VALUES + rbd::NQ + rbd::NV;
 }
 
-// the last launch's (tick or update) warps a block (0), blocks (1), shared
-// bytes a block (2)
+// the last launch's (tick or update) scenarios a block (0), blocks (1),
+// shared bytes a block (2)
 int est_step_last_layout(int what)
 {
     return what >= 0 && what < 3 ? last_layout[what] : -1;

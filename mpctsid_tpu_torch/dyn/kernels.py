@@ -21,7 +21,9 @@ of each kernel; the .cu files under dyn/csrc/ map a warp to its scenario,
     the plant's IMU model and one complementary-filter update, wrapped by
     est/filter.py::estimator_tick; its second entry point `est_update`,
     the update with the IMU's readings given, wrapped by
-    est/filter.py::estimator_update.
+    est/filter.py::estimator_update.  It alone takes another layout: a
+    block of `est_layout`'s S scenarios, a warp a role (the attitude, each
+    leg) and a lane a scenario.
 
 Each stage owns its wrapper, its plain PyTorch version and its constants;
 this module knows only the kernels' common C signature:
@@ -57,6 +59,7 @@ from mpctsid_tpu_torch.utils import device_constant
 
 __all__ = ["rbd_constants", "rows", "check_batch", "call", "launch",
            "build_specs", "rbd_layout", "last_layout", "RbdLayout",
+           "est_layout", "est_last_layout", "EstLayout", "EST_MAX_S",
            "LIBRARIES", "LAYOUT", "HEAD_LAYOUT", "EST_LAYOUT", "LAYOUTS",
            "SLOT_VALUES", "MAX_WARPS", "ENTRIES",
            "LAUNCH_ARGTYPES", "CSRC"]
@@ -104,13 +107,16 @@ LAYOUTS = {"wbc_build": LAYOUT, "plant_step": LAYOUT,
 # values (floats or doubles) of a warp's slice of shared memory: rbd.h's
 # WbcSlot and PlantSlot, period_head.h's HeadSlot (the plan's 16 staged
 # steps, the leg kinematics, x_srb, v_used, the feet and the next
-# touchdown; the head alone uses the same slot), est_step.h's EstSlot (the
-# leg kinematics, the corrected configuration, the IMU's readings, the
-# feet's odometry terms and heights, the fused velocity).  The libraries
-# report theirs (`<name>_slot_values`) and are refused if they differ.
+# touchdown; the head alone uses the same slot); the estimator's, a
+# scenario's share of its block: est_step.h's EstRow (57: the estimate's
+# pose and velocity, the IMU, contacts, hint, R0, the feet and their
+# odometry terms) and its q' and v' rows (19 + 18).  The libraries report
+# theirs (`<name>_slot_values`) and are refused if they differ.
 SLOT_VALUES = {"wbc_build": 2279, "plant_step": 2372, "period_head": 507,
-               "est_step": 320}
+               "est_step": 94}
 MAX_WARPS = 8           # rbd.h's MAX_WARPS: scenarios (warps) a block
+EST_MAX_S = 32          # est_step.h's EST_MAX_S: scenarios a block
+_EST_ROW = 57           # est_step.h's EST_ROW_VALUES
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -169,6 +175,49 @@ def rbd_layout(name: str, B: int, dtype, smem_bytes: int,
                          f"{smem_bytes} bytes of shared memory")
     g = max(1, min(MAX_WARPS, fit, -(-B // max(1, n_sm))))
     return RbdLayout(g, -(-B // g), slot, g * slot)
+
+
+class EstLayout(NamedTuple):
+    """How one launch of the estimator's kernels is laid out."""
+    scenarios: int     # S, scenarios a block (a lane each in every warp)
+    blocks: int
+    smem_bytes: int    # dynamic shared bytes a block
+
+
+def _est_smem_bytes(S: int, itemsize: int) -> int:
+    """est_step.h's est_smem_bytes: the q' and the v' rows of S scenarios,
+    each with 16 bytes of room for the rows' offset from a 16-byte
+    boundary, rounded up to 16 bytes, then S EstRows, then a copy of the
+    model's constants (LAYOUT's const_size values)."""
+    def round16(values):
+        return -(-values * itemsize // 16) * 16 // itemsize
+    extra = 16 // itemsize
+    return itemsize * (round16(19 * S + extra) + round16(18 * S + extra)
+                       + _EST_ROW * S + LAYOUT["const_size"])
+
+
+def est_layout(B: int, dtype, smem_bytes: int, n_sm: int) -> EstLayout:
+    """The layout a launch of `est_step` or `est_update` takes (est_step.h's
+    `est_scenarios`, which the launcher runs on the device's limits): S
+    scenarios a block, B spread over `n_sm` multiprocessors, at most
+    EST_MAX_S, no more than fit in `smem_bytes`.  Raises where one scenario
+    does not fit."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    S = max(1, min(EST_MAX_S, -(-B // max(1, n_sm))))
+    while S > 1 and _est_smem_bytes(S, itemsize) > smem_bytes:
+        S -= 1
+    need = _est_smem_bytes(S, itemsize)
+    if need > smem_bytes:
+        raise ValueError(f"est_step: a {need}-byte block does not fit in "
+                         f"{smem_bytes} bytes of shared memory")
+    return EstLayout(S, -(-B // S), need)
+
+
+def est_last_layout() -> EstLayout:
+    """The layout the last launch of `est_step` or `est_update` took, as
+    its library reports it."""
+    fn = _library("est_step").est_step_last_layout
+    return EstLayout(*(fn(i) for i in range(3)))
 
 
 def last_layout(name: str) -> RbdLayout:

@@ -12,7 +12,8 @@ reading) is a per-scenario mask.
 On CUDA tensors `estimator_update`, and `estimator_tick` (the IMU model and
 the update together, the cascade's tick), are one launch each of the
 hand-written kernel `est_step` (dyn/csrc/est_step.cu over est_step.h: a
-warp per scenario over rbd.h's leg kinematics), or an exception; on CPU
+block of scenarios, the attitude chain on one warp and the legs in the base
+frame on four beside it, a lane a scenario), or an exception; on CPU
 tensors their plain versions, `estimator_update_reference` and
 `estimator_tick_reference`.
 """
@@ -100,8 +101,8 @@ def estimator_tick(tree: KinematicTree, st: EstimatorState, q_plant, v_plant,
     (B, 18); contacts (B, 4); base_pos_hint (B, 3) as estimator_update's.
 
     CUDA tensors: one launch of the hand-written kernel `est_step`
-    (dyn/csrc/est_step.cu: a warp per scenario; float32 or float64), or an
-    exception.  CPU tensors: the plain version, `estimator_tick_reference`."""
+    (dyn/csrc/est_step.cu: a lane a scenario in each of five warps; float32
+    or float64), or an exception.  CPU tensors: the plain version, `estimator_tick_reference`."""
     from mpctsid_tpu_torch.dyn import kernels
 
     kernels.check_batch(st.q, st.v)

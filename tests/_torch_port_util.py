@@ -1129,83 +1129,174 @@ def build_period_head_harness(directory):
 
 EST_STEP_HARNESS = r'''
 #include <limits>
+#include <vector>
 
 #include "est_step.h"
 
 namespace {
 
-// a scenario at a time, its warp's lanes one after another in each phase
-// (reversed when `reverse`), from a slot filled with NaN (est_step.cu's
-// launcher less the launch)
-template <bool IMU, typename T>
-int est(int B, const void* consts, const void* const* in,
-        const long long* stride, void* const* out, const double* par,
-        bool reverse)
+using namespace rbd::est;
+
+// the block's units one after another in a fixed shuffled order: unit
+// (7919 i + 5) mod n of a phase of n (7919 a prime above every n here)
+struct ShuffledExec {
+    int first() const { return 0; }
+    int step() const { return 1; }
+    int unit(int i, int n) const { return (int)((7919LL * i + 5) % n); }
+    void sync() const {}
+};
+
+template <typename T>
+void fill(EstArgs<T>& a, const void* const* in, const long long* stride,
+          void* const* out, const double* par)
 {
-    using namespace rbd::est;
-    EstArgs<T> a;
     for (int k = 0; k < EI_COUNT; ++k) {
         a.in[k] = static_cast<const T*>(in[k]);
         a.stride[k] = stride[k];
     }
     for (int k = 0; k < EO_COUNT; ++k) a.out[k] = static_cast<T*>(out[k]);
     for (int k = 0; k < EP_COUNT; ++k) a.par[k] = (T)par[k];
-    const rbd::HostExec ex{reverse};
-    EstSlot<T> S;
-    T* raw = reinterpret_cast<T*>(&S);
-    for (long long b = 0; b < B; ++b) {
-        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i)
-            raw[i] = std::numeric_limits<T>::quiet_NaN();
-        est_warp<IMU>(ex, static_cast<const T*>(consts), a, b, S);
+}
+
+// est_step.cu's launcher less the launch: blocks of S scenarios one after
+// another, each on fresh NaN-filled shared memory (16-byte aligned), its
+// units run by `ex`
+template <bool IMU, typename T, class Exec>
+int est(const Exec& ex, int S, int B, const void* consts,
+        const void* const* in, const long long* stride, void* const* out,
+        const double* par)
+{
+    if (S < 1 || S > EST_MAX_S || B < 1) return 1;
+    EstArgs<T> a;
+    fill(a, in, stride, out, par);
+    const int n = est_smem_values(S, (int)sizeof(T));
+    std::vector<T> buf(n + 16 / sizeof(T));
+    T* smem = buf.data();
+    while ((uintptr_t)smem % 16) ++smem;
+    for (long long blk = 0; blk * S < B; ++blk) {
+        for (int i = 0; i < n; ++i)
+            smem[i] = std::numeric_limits<T>::quiet_NaN();
+        est_block<IMU>(ex, static_cast<const T*>(consts), a, B, S, blk,
+                       smem);
+    }
+    return 0;
+}
+
+template <bool IMU, typename T>
+int est_order(int order, int S, int B, const void* consts,
+              const void* const* in, const long long* stride,
+              void* const* out, const double* par)
+{
+    if (order == 2)
+        return est<IMU, T>(ShuffledExec{}, S, B, consts, in, stride, out,
+                           par);
+    return est<IMU, T>(rbd::est::HostExec{order == 1}, S, B, consts, in,
+                       stride, out, par);
+}
+
+// each foot's odometry term and position, base frame (`leg_unit`), of B
+// configurations q (B, 19), gyro (B, 3), qd (B, 12) into odo, foot
+// (B, 4, 3)
+template <typename T>
+int legs(int B, const void* consts, const void* qp, const void* gp,
+         const void* qdp, void* odo, void* foot)
+{
+    const T* C = static_cast<const T*>(consts);
+    for (int b = 0; b < B; ++b) {
+        T qo[rbd::NQ], vo[rbd::NV];
+        for (int i = 0; i < rbd::NQ; ++i)
+            qo[i] = static_cast<const T*>(qp)[b * rbd::NQ + i];
+        for (int i = 0; i < 3; ++i)
+            vo[3 + i] = static_cast<const T*>(gp)[b * 3 + i];
+        for (int i = 0; i < 12; ++i)
+            vo[6 + i] = static_cast<const T*>(qdp)[b * 12 + i];
+        EstRow<T> r;
+        for (int leg = 0; leg < 4; ++leg) {
+            leg_unit(leg, C, qo, vo, r);
+            for (int i = 0; i < 3; ++i) {
+                static_cast<T*>(odo)[b * 12 + 3 * leg + i] = r.odo[leg][i];
+                static_cast<T*>(foot)[b * 12 + 3 * leg + i] = r.foot[leg][i];
+            }
+        }
     }
     return 0;
 }
 
 }  // namespace
 
-#define EST_ENTRY(name, imu, reverse)                                       \
-    extern "C" int name(int dtype, int B, const void* consts,               \
-                        const void* const* in, const long long* stride,     \
-                        void* const* out, const double* par)                \
-    {                                                                       \
-        return dtype == 0                                                   \
-                   ? est<imu, float>(B, consts, in, stride, out, par,       \
-                                     reverse)                               \
-                   : est<imu, double>(B, consts, in, stride, out, par,      \
-                                      reverse);                             \
-    }
+// the kernels' C signature, with the executor's order (0 in order, 1
+// reversed, 2 shuffled) and S before it
+extern "C" int est_host(int imu, int order, int S, int dtype, int B,
+                        const void* consts, const void* const* in,
+                        const long long* stride, void* const* out,
+                        const double* par)
+{
+    if (imu)
+        return dtype == 0
+            ? est_order<true, float>(order, S, B, consts, in, stride, out, par)
+            : est_order<true, double>(order, S, B, consts, in, stride, out,
+                                      par);
+    return dtype == 0
+        ? est_order<false, float>(order, S, B, consts, in, stride, out, par)
+        : est_order<false, double>(order, S, B, consts, in, stride, out,
+                                   par);
+}
 
-EST_ENTRY(est_step_host, true, false)
-EST_ENTRY(est_step_host_reversed, true, true)
-EST_ENTRY(est_update_host, false, false)
-EST_ENTRY(est_update_host_reversed, false, true)
+extern "C" int est_legs(int dtype, int B, const void* consts, const void* q,
+                        const void* gyro, const void* qd, void* odo,
+                        void* foot)
+{
+    return dtype == 0 ? legs<float>(B, consts, q, gyro, qd, odo, foot)
+                      : legs<double>(B, consts, q, gyro, qd, odo, foot);
+}
 
 extern "C" int est_step_layout(int what) { return rbd::est::layout(what); }
 
 extern "C" int est_step_slot_values()
 {
-    return (int)(sizeof(rbd::est::EstSlot<float>) / sizeof(float));
+    return EST_ROW_VALUES + rbd::NQ + rbd::NV;
+}
+
+extern "C" int est_scenarios_host(long long B, int smem, int n_sm, int size)
+{
+    return est_scenarios(B, smem, n_sm, size);
+}
+
+extern "C" int est_smem_bytes_host(int S, int size)
+{
+    return est_smem_bytes(S, size);
 }
 '''
+
+# executor orders of the host build
+EST_ORDERS = {"in_order": 0, "reversed": 1, "shuffled": 2}
 
 
 def build_est_step_harness(directory):
     """mpctsid_tpu_torch/dyn/csrc/est_step.h (over rbd.h's leg kinematics
-    and integration step), the estimator kernels' per-scenario body, built
-    with the host compiler into `directory` (-ffp-contract=off, as the
-    library's -fmad=false): each scenario's lanes one after another between
-    the phases (rbd::HostExec), from a NaN-filled slot, with the kernels' C
-    signature less the stream.  Returns a namespace of ctypes functions:
-    `tick` and `tick_reversed` (the IMU model inside, which
-    `est.filter.run_est_step` takes), `update` and `update_reversed` (gyro
-    and accel given, `est.filter.run_est_update`), `layout(i)` and
-    `slot_values()`."""
+    and integration step), the estimator kernels' body, built with the host
+    compiler into `directory` (-ffp-contract=off, as the library's
+    -fmad=false): a block of S scenarios at a time on NaN-filled shared
+    memory, each phase's units one after another (in order, reversed or in
+    a fixed shuffled order) between the barriers.  Returns a namespace:
+    `launcher(imu, S=EST_MAX_S, order="in_order")`, a function with the
+    kernels' C signature less the stream (`est.filter.run_est_step` takes
+    the tick's, imu True; `run_est_update` the update's); `tick`,
+    `tick_reversed`, `update`, `update_reversed` (S = EST_MAX_S);
+    `legs(q, gyro, qd)` -> (odo, foot) (B, 4, 3), each foot's odometry term
+    and position in the base frame (`leg_unit`); `layout(i)`,
+    `slot_values()`, `scenarios(B, smem, n_sm, itemsize)` and
+    `smem_bytes(S, itemsize)` (est_step.h's layout)."""
     import ctypes
     import subprocess
     import types
     from pathlib import Path
 
+    import torch
+
     from mpctsid_tpu_torch.dyn import kernels
+    from mpctsid_tpu_torch.model.solo12 import SOLO12
+    from mpctsid_tpu_torch.model.tree import build_tree
 
     d = Path(directory).resolve()
     cc = d / "est_step_harness.cc"
@@ -1215,18 +1306,139 @@ def build_est_step_harness(directory):
                     "-fPIC", "-O2", "-I", str(kernels.CSRC), "-o", str(so),
                     str(cc)], check=True)
     lib = ctypes.CDLL(str(so))
-    for name in ("est_step_host", "est_step_host_reversed",
-                 "est_update_host", "est_update_host_reversed"):
-        getattr(lib, name).argtypes = kernels.LAUNCH_ARGTYPES
-        getattr(lib, name).restype = ctypes.c_int
-    lib.est_step_layout.argtypes = [ctypes.c_int]
-    lib.est_step_layout.restype = ctypes.c_int
-    lib.est_step_slot_values.restype = ctypes.c_int
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.est_host.argtypes = [I, I, I] + kernels.LAUNCH_ARGTYPES
+    lib.est_host.restype = I
+    lib.est_legs.argtypes = [I, I] + [P] * 6
+    lib.est_legs.restype = I
+    for name in ("est_step_layout", "est_step_slot_values"):
+        getattr(lib, name).restype = I
+    lib.est_step_layout.argtypes = [I]
+    lib.est_scenarios_host.argtypes = [ctypes.c_longlong, I, I, I]
+    lib.est_scenarios_host.restype = I
+    lib.est_smem_bytes_host.argtypes = [I, I]
+    lib.est_smem_bytes_host.restype = I
+    tree = build_tree(SOLO12)
+
+    def launcher(imu, S=kernels.EST_MAX_S, order="in_order"):
+        code = EST_ORDERS[order]
+
+        def run(*a):
+            return lib.est_host(int(imu), code, S, *a)
+        return run
+
+    def legs(q, gyro, qd):
+        q, gyro, qd = (x.contiguous() for x in (q, gyro, qd))
+        B = q.shape[0]
+        odo, foot = (q.new_empty((B, 4, 3)) for _ in range(2))
+        consts = kernels.rbd_constants(tree, q.device, q.dtype)
+        rc = lib.est_legs(0 if q.dtype == torch.float32 else 1, B,
+                          consts.data_ptr(), q.data_ptr(), gyro.data_ptr(),
+                          qd.data_ptr(), odo.data_ptr(), foot.data_ptr())
+        assert rc == 0
+        return odo, foot
+
     return types.SimpleNamespace(
-        tick=lib.est_step_host, tick_reversed=lib.est_step_host_reversed,
-        update=lib.est_update_host,
-        update_reversed=lib.est_update_host_reversed,
-        layout=lib.est_step_layout, slot_values=lib.est_step_slot_values)
+        launcher=launcher, tick=launcher(True),
+        tick_reversed=launcher(True, order="reversed"),
+        update=launcher(False),
+        update_reversed=launcher(False, order="reversed"), legs=legs,
+        layout=lib.est_step_layout, slot_values=lib.est_step_slot_values,
+        scenarios=lib.est_scenarios_host,
+        smem_bytes=lib.est_smem_bytes_host)
+
+
+FIRST_EST_HARNESS = r'''
+#include <limits>
+
+#include "est_step.h"
+
+// the first design's leg units on a configuration: rbd.h's `kin_unit` on
+// q (B, 19), then its `leg_unit` (the Jacobian's columns at the pose, the
+// residual rotated back by R0'), each foot's odometry term into odo
+// (B, 4, 3), the lanes one after another from a NaN-filled slot
+template <typename T>
+int first_legs(int B, const void* consts, const void* qp, const void* gp,
+               const void* qdp, void* odo)
+{
+    using namespace rbd::est;
+    const T* C = static_cast<const T*>(consts);
+    const rbd::HostExec ex{false};
+    EstSlot<T> S;
+    T* raw = reinterpret_cast<T*>(&S);
+    for (int b = 0; b < B; ++b) {
+        for (size_t i = 0; i < sizeof(S) / sizeof(T); ++i)
+            raw[i] = std::numeric_limits<T>::quiet_NaN();
+        const T* q = static_cast<const T*>(qp) + b * rbd::NQ;
+        for (int i = 0; i < 3; ++i)
+            S.gyro[i] = static_cast<const T*>(gp)[b * 3 + i];
+        RBD_EACH_LANE(ex, lane) rbd::kin_unit(lane, C, q, S.k);
+        RBD_EACH_LANE(ex, lane)
+            leg_unit(lane, C, static_cast<const T*>(qdp) + b * 12, S);
+        for (int f = 0; f < 4; ++f)
+            for (int i = 0; i < 3; ++i)
+                static_cast<T*>(odo)[b * 12 + 3 * f + i] = S.vodo[f][i];
+    }
+    return 0;
+}
+
+extern "C" int first_est_legs(int dtype, int B, const void* consts,
+                              const void* q, const void* gyro,
+                              const void* qd, void* odo)
+{
+    return dtype == 0 ? first_legs<float>(B, consts, q, gyro, qd, odo)
+                      : first_legs<double>(B, consts, q, gyro, qd, odo);
+}
+'''
+
+
+def build_first_est_harness(directory):
+    """The estimator's first design (a warp per scenario; its est_step.h
+    lives on verbatim in scripts/probe_est_designs.py as FIRST_EST_STEP_H)
+    built with the host compiler into `directory` (-ffp-contract=off) over
+    the shipped rbd.h.  Returns `legs(q, gyro, qd)` -> odo (B, 4, 3): each
+    foot's odometry term -R0' resid_f as that design forms it, from the
+    Jacobian's columns at the pose q (rbd.h's `kin_unit`)."""
+    import ctypes
+    import re
+    import subprocess
+    from pathlib import Path
+
+    import torch
+
+    from mpctsid_tpu_torch.dyn import kernels
+    from mpctsid_tpu_torch.model.solo12 import SOLO12
+    from mpctsid_tpu_torch.model.tree import build_tree
+
+    script = (Path(__file__).resolve().parents[1] / "scripts"
+              / "probe_est_designs.py").read_text()
+    source = re.search(r'FIRST_EST_STEP_H = r"""(.*?)"""', script,
+                       re.S).group(1)
+    d = Path(directory).resolve()
+    (d / "est_step.h").write_text(source)
+    cc = d / "first_est.cc"
+    cc.write_text(FIRST_EST_HARNESS)
+    so = d / "libfirst_est.so"
+    subprocess.run(["g++", "-std=c++17", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-O2", "-I", str(d), "-I", str(kernels.CSRC),
+                    "-o", str(so), str(cc)], check=True)
+    lib = ctypes.CDLL(str(so))
+    P = ctypes.c_void_p
+    lib.first_est_legs.argtypes = [ctypes.c_int, ctypes.c_int] + [P] * 5
+    lib.first_est_legs.restype = ctypes.c_int
+    tree = build_tree(SOLO12)
+
+    def legs(q, gyro, qd):
+        q, gyro, qd = (x.contiguous() for x in (q, gyro, qd))
+        odo = q.new_empty((q.shape[0], 4, 3))
+        consts = kernels.rbd_constants(tree, q.device, q.dtype)
+        rc = lib.first_est_legs(0 if q.dtype == torch.float32 else 1,
+                                q.shape[0], consts.data_ptr(), q.data_ptr(),
+                                gyro.data_ptr(), qd.data_ptr(),
+                                odo.data_ptr())
+        assert rc == 0
+        return odo
+    return legs
 
 
 SOLVE_TAIL_HARNESS = r'''

@@ -4,13 +4,17 @@ filter update, the kernel `est_step` of dyn/csrc/est_step.cu) and the update
 alone (`estimator_update`, the kernel's second entry point `est_update`).
 
 The body, dyn/csrc/est_step.h over rbd.h's leg kinematics and integration
-step, is built with g++ (`_torch_port_util.build_est_step_harness`: each
-scenario's lanes one after another between the phases, in order and
-reversed, from a NaN-filled slot) and driven by the wrappers' own packing
-(`est.filter.run_est_step`, `run_est_update`).  Contact patterns: none in
-stance, all in stance, the trot pairs, a single foot; the update also with
-an accelerometer reading at and under 1e-6 (the tilt gain 0); with and
-without the position hint; float32 and float64.
+step, is built with g++ (`_torch_port_util.build_est_step_harness`: a block
+of S scenarios at a time on NaN-filled shared memory, each phase's units one
+after another between the barriers, in order, reversed or shuffled) and
+driven by the wrappers' own packing (`est.filter.run_est_step`,
+`run_est_update`).  Contact patterns: none in stance, all in stance, the
+trot pairs, a single foot; the update also with an accelerometer reading at
+and under 1e-6 (the tilt gain 0); with and without the position hint;
+float32 and float64; S = 1, 7 and 32 over a partial last block.  The legs'
+odometry terms, formed in the base frame, against the first design's
+(a warp a scenario, the term rotated back by R0'; its est_step.h lives in
+scripts/probe_est_designs.py, `_torch_port_util.build_first_est_harness`).
 
 Tolerances, against the plain versions (`estimator_tick_reference`,
 `estimator_update_reference`) on the same inputs, of each output's largest
@@ -19,7 +23,10 @@ head's tolerances for the same reasons (on the card the rotations are
 rbd.h's products, not `torch.matmul`, and sin, cos and sqrt the CUDA math
 library's); 60 chained ticks on recorded plant states (open loop) within
 1e-4 / 1e-11.  The host build takes the plain chain's operations in its
-order, so on this CPU it meets them with room (measured: the same bits).
+order but for the legs' terms, formed in the base frame, so on this CPU it
+meets them with room (measured: within 4e-8 / 4e-17).  The base-frame
+odometry terms against the first design's world-frame ones on random poses
+with any yaw: within 1e-6 / 1e-14 of their largest entry.
 The plain tick against the JAX package's `imu_from_plant` +
 `estimator_update` over 50 ticks, each side carrying its own state: within
 2e-5, tests/test_torch_estimator.py's budget for the update alone.  Then
@@ -46,7 +53,8 @@ from mpctsid_tpu_torch.model.gaits import GAIT_IDS
 from mpctsid_tpu_torch.model.solo12 import SOLO12
 from mpctsid_tpu_torch.model.tree import build_tree
 
-from _torch_port_util import (build_est_step_harness, jj, npy, random_qv,
+from _torch_port_util import (build_est_step_harness,
+                              build_first_est_harness, jj, npy, random_qv,
                               standing_q0)
 
 TREE = build_tree(SOLO12)
@@ -54,6 +62,7 @@ JTREE = j_build_tree(J_SOLO12)
 DTYPES = [torch.float32, torch.float64]
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 CHAIN_TOL = {torch.float32: 1e-4, torch.float64: 1e-11}
+ODO_TOL = {torch.float32: 1e-6, torch.float64: 1e-14}
 DT = 0.001
 GAINS = (0.02, 0.97, 0.05)      # alpha_tilt, alpha_vel, alpha_z
 # none in stance, all, the trot pairs, a single foot (front and hind)
@@ -65,6 +74,11 @@ B = len(CONTACTS)
 @pytest.fixture(scope="module")
 def harness(tmp_path_factory):
     return build_est_step_harness(tmp_path_factory.mktemp("est_step"))
+
+
+@pytest.fixture(scope="module")
+def first_legs(tmp_path_factory):
+    return build_first_est_harness(tmp_path_factory.mktemp("first_est"))
 
 
 def t(a, dtype):
@@ -248,9 +262,9 @@ def test_bool_contacts_are_the_float_mask(harness):
 
 
 def test_layout_counts(harness):
-    """The operand counts and the slot, as the header reports them and as
-    dyn/kernels.py and the wrappers pack them; the launch layout on an
-    H100's limits."""
+    """The operand counts and a scenario's share of shared memory, as the
+    header reports them and as dyn/kernels.py and the wrappers pack them;
+    the launch layout on an H100's limits (`est_layout`)."""
     want = list(dk.LAYOUT.values()) + list(dk.EST_LAYOUT.values())
     assert [harness.layout(i) for i in range(len(want))] == want
     assert harness.layout(len(want)) == -1
@@ -270,12 +284,149 @@ def test_layout_counts(harness):
     assert seen == [dict(ins=lay["est_in"], outs=lay["est_out"],
                          par=lay["est_par"])] * 2
     smem, n_sm = 227 * 1024, 132
-    assert dk.rbd_layout("est_step", 1, torch.float32, smem, n_sm) == \
-        dk.RbdLayout(1, 1, 1280, 1280)
-    assert dk.rbd_layout("est_step", 4096, torch.float32, smem, n_sm) == \
-        dk.RbdLayout(8, 512, 1280, 10240)
-    assert dk.rbd_layout("est_step", 300, torch.float64, smem, n_sm) == \
-        dk.RbdLayout(3, 100, 2560, 7680)
+    assert dk.est_layout(1, torch.float32, smem, n_sm) == \
+        dk.EstLayout(1, 1, 1204)
+    assert dk.est_layout(4096, torch.float32, smem, n_sm) == \
+        dk.EstLayout(32, 128, 12848)
+    assert dk.est_layout(300, torch.float64, smem, n_sm) == \
+        dk.EstLayout(3, 100, 3864)
+
+
+# ------------------------------------------------------ the block's design
+
+BLOCK_B = 37     # over S = 7 and 32: a partial last block
+
+
+@pytest.mark.parametrize("order", ["reversed", "shuffled"])
+@pytest.mark.parametrize("imu", [True, False], ids=["tick", "update"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_units_in_any_order_give_the_same_bits(harness, dtype, imu,
+                                                     order):
+    """A block's units run in order, reversed or shuffled within each phase
+    (S = 7 over B = 37, the hint given): the same bits, no unit reading
+    what another writes in its own phase."""
+    q_p, v_p, st = plant_states(20, dtype, n=BLOCK_B)
+    c = t(CONTACTS[np.arange(BLOCK_B) % B], dtype)
+    gyro, accel, qj, qdj = sensors(21, dtype, n=BLOCK_B)
+    hint = q_p[:, 0:3]
+
+    def run(fn):
+        if imu:
+            return tfilter.run_est_step(fn, TREE, st, q_p, v_p, c, DT,
+                                        *GAINS, hint)
+        return tfilter.run_est_update(fn, TREE, st, gyro, accel, qj, qdj, c,
+                                      DT, *GAINS, hint)
+    (rc, want), (rc2, got) = (run(harness.launcher(imu, 7, o))
+                              for o in ("in_order", order))
+    assert rc == 0 and rc2 == 0
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("S", [1, 7, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scenarios_a_block_within_the_tolerances(harness, dtype, S):
+    """B = 37 in blocks of S = 1, 7 and 32 scenarios (the last block
+    partial but at S = 1), tick and update, with and without the hint:
+    within 1e-5 / 1e-12 of the plain chain, the pass-through entries
+    exact, and every S the same bits."""
+    q_p, v_p, st = plant_states(22, dtype, n=BLOCK_B)
+    c = t(CONTACTS[np.arange(BLOCK_B) % B], dtype)
+    gyro, accel, qj, qdj = sensors(23, dtype, n=BLOCK_B)
+    for hint in (None, q_p[:, 0:3]):
+        want = tfilter.estimator_tick_reference(TREE, st, q_p, v_p, c, DT,
+                                                *GAINS, base_pos_hint=hint)
+        rc, got = tfilter.run_est_step(harness.launcher(True, S), TREE, st,
+                                       q_p, v_p, c, DT, *GAINS, hint)
+        _, at32 = tfilter.run_est_step(harness.launcher(True, 32), TREE, st,
+                                       q_p, v_p, c, DT, *GAINS, hint)
+        assert rc == 0
+        for g, w, x in zip(got, (want.q, want.v), at32):
+            assert torch.isfinite(g).all()
+            assert rel_err(g, w) <= TOL[dtype]
+            assert torch.equal(g, x)
+        assert torch.equal(got[0][:, 7:], q_p[:, 7:])
+        assert torch.equal(got[1][:, 3:], v_p[:, 3:])
+        if hint is not None:
+            assert torch.equal(got[0][:, 0:2], hint[:, 0:2])
+        want = tfilter.estimator_update_reference(
+            TREE, st, gyro, accel, qj, qdj, c, DT, *GAINS,
+            base_pos_hint=hint)
+        rc, got = tfilter.run_est_update(harness.launcher(False, S), TREE,
+                                         st, gyro, accel, qj, qdj, c, DT,
+                                         *GAINS, hint)
+        assert rc == 0
+        for g, w in zip(got, (want.q, want.v)):
+            assert rel_err(g, w) <= TOL[dtype]
+
+
+# B -> (S, blocks, shared bytes float32, shared bytes float64) on an H100
+EST_LAYOUTS = {1: (1, 1, 1204, 2360), 37: (1, 37, 1204, 2360),
+               256: (2, 128, 1576, 3104), 4096: (32, 128, 12848, 25664)}
+
+
+@pytest.mark.parametrize("B_", sorted(EST_LAYOUTS))
+def test_est_layout_on_an_h100(harness, B_):
+    """`est_layout` as a pure function on an H100's limits (132
+    multiprocessors, 227 KB a block opted in): B spread over the
+    multiprocessors, at most 32 scenarios a block; the header's
+    `est_scenarios` and `est_smem_bytes` the same; fewer scenarios where
+    shared memory is short, and a refusal where one does not fit."""
+    smem, n_sm = 227 * 1024, 132
+    S, blocks, b32, b64 = EST_LAYOUTS[B_]
+    for dtype, nbytes in ((torch.float32, b32), (torch.float64, b64)):
+        size = torch.empty((), dtype=dtype).element_size()
+        lay = dk.est_layout(B_, dtype, smem, n_sm)
+        assert lay == dk.EstLayout(S, blocks, nbytes)
+        assert lay.scenarios * lay.blocks >= B_ > (lay.blocks - 1) * S
+        assert harness.scenarios(B_, smem, n_sm, size) == S
+        assert harness.smem_bytes(S, size) == nbytes
+        if S == 1:
+            with pytest.raises(ValueError):
+                dk.est_layout(B_, dtype, nbytes - 1, n_sm)
+            assert harness.scenarios(B_, nbytes - 1, n_sm, size) == 0
+            continue
+        short = dk.est_layout(B_, dtype, nbytes - 1, n_sm)
+        assert short.scenarios == S - 1
+        assert short.smem_bytes == harness.smem_bytes(S - 1, size)
+        assert harness.scenarios(B_, nbytes - 1, n_sm, size) == S - 1
+
+
+def random_poses(seed, dtype, n=64):
+    """(q, gyro, qd): configurations at random positions and attitudes
+    (any yaw, roll and pitch up to 0.3 rad), joints about standing."""
+    r = np.random.default_rng(seed)
+    q = np.zeros((n, 19))
+    q[:, 0:3] = r.normal(size=(n, 3))
+    rpy = np.stack([r.uniform(-0.3, 0.3, n), r.uniform(-0.3, 0.3, n),
+                    r.uniform(-np.pi, np.pi, n)], 1)
+    cr, cp, cy = (np.cos(rpy[:, i] / 2) for i in range(3))
+    sr, sp, sy = (np.sin(rpy[:, i] / 2) for i in range(3))
+    q[:, 3:7] = np.stack([sr * cp * cy - cr * sp * sy,
+                          cr * sp * cy + sr * cp * sy,
+                          cr * cp * sy - sr * sp * cy,
+                          cr * cp * cy + sr * sp * sy], 1)
+    q[:, 7:] = np.asarray(SOLO12.q_stand) + r.normal(size=(n, 12)) * 0.3
+    return (t(q, dtype), t(r.normal(size=(n, 3)) * 0.5, dtype),
+            t(r.normal(size=(n, 12)) * 2.0, dtype))
+
+
+@pytest.mark.parametrize("seed", [30, 31])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_base_frame_odometry_is_the_first_designs(harness, first_legs,
+                                                  dtype, seed):
+    """Each foot's odometry term formed in the base frame (`leg_unit`: the
+    identity base pose, r x gyro - sum col_j qd_j) against the first
+    design's (the Jacobian's columns at the pose, the residual rotated
+    back by R0') on random poses with any yaw: within 1e-6 / 1e-14 of the
+    largest entry; the feet the plain kinematics' in the base frame."""
+    q, gyro, qd = random_poses(seed, dtype)
+    odo, foot = harness.legs(q, gyro, qd)
+    want = first_legs(q, gyro, qd)
+    assert rel_err(odo, want) <= ODO_TOL[dtype]
+    q_id = q.clone()
+    q_id[:, 0:7] = t([0, 0, 0, 0, 0, 0, 1], dtype)
+    feet = tfilter.dyn.foot_positions(TREE, q_id)
+    assert rel_err(foot, feet) <= TOL[dtype]
 
 
 # ---------------------------------------- the wrappers and the plain version
